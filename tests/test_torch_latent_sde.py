@@ -1,0 +1,188 @@
+"""The port's latent-SDE slice against torchsde_tpu: the ELBO on both routes,
+posterior and prior sampling, and the fused route's guards.
+
+JAX's random draws are made on the JAX side and handed to the port by
+replacing its two draw sites (the eps draw and ``sample_grid_noise``)."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torchsde_tpu.ops.latent_fused as JLF
+import torchsde_tpu_torch.core.integrate as TI
+import torchsde_tpu_torch.models.latent_sde as TL
+from port_bridge import perturbed, port_latent_sde, to_torch
+from torchsde_tpu.core import integrate as JI
+from torchsde_tpu.models import latent_sde as JL
+
+B, DATA, L, C, H, T = 8, 3, 4, 8, 16, 6
+DT = 1.0 / 32
+TS = np.linspace(0.0, 1.0, T)
+KEY = jax.random.PRNGKey(7)
+DTYPES = {"f64": (jnp.float64, torch.float64),
+          "f32": (jnp.float32, torch.float32)}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_model(name):
+    return perturbed(JL.LatentSDE(jax.random.PRNGKey(0), DATA, L, C, H,
+                                  dtype=DTYPES[name][0]), seed=1)
+
+
+def _xs(name):
+    xs = np.random.default_rng(5).standard_normal((T, B, DATA))
+    return xs.astype(np.dtype(DTYPES[name][0]))
+
+
+def _inject_jax_draws(monkeypatch, name, channels, eps_shape=(B, L)):
+    """Make the port draw exactly what JAX draws from KEY: eps from KEY,
+    then the grid noise from fold_in(KEY, 1)."""
+    jdtype = DTYPES[name][0]
+    eps = jax.random.normal(KEY, eps_shape, jdtype)
+    grid = JI.build_step_grid(TS[0], TS[-1], DT)
+    W = JI.sample_grid_noise(jax.random.fold_in(KEY, 1), grid,
+                             (B, channels), jdtype)[0]
+    order = []
+
+    def standard_normal(shape, generator, dtype, device):
+        assert tuple(shape) == eps_shape and not order
+        order.append("eps")
+        return to_torch(eps)
+
+    def sample_grid_noise(generator, g, size, dtype, device=None, **kwargs):
+        assert size == (B, channels) and np.array_equal(g, grid)
+        assert order == ["eps"]
+        order.append("W")
+        return to_torch(W), None, None
+
+    monkeypatch.setattr(TL, "_standard_normal", standard_normal)
+    monkeypatch.setattr(TI, "sample_grid_noise", sample_grid_noise)
+    return order
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_loss(name, fused):
+    loss, aux = jax.jit(lambda m, xs: JL.latent_sde_loss(
+        m, xs, TS, KEY, dt=DT, fused=fused))(_jax_model(name),
+                                             jnp.asarray(_xs(name)))
+    return float(loss), float(aux["log_pxs"]), float(aux["logqp"])
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_loss_matches_jax_f64(monkeypatch, fused):
+    order = _inject_jax_draws(monkeypatch, "f64", L + 1)
+    model = port_latent_sde(_jax_model("f64"), torch.float64)
+    with torch.no_grad():
+        loss, aux = TL.latent_sde_loss(model, to_torch(_xs("f64")), TS,
+                                       dt=DT, fused=fused)
+    assert order == ["eps", "W"]
+    got = (float(loss), float(aux["log_pxs"]), float(aux["logqp"]))
+    np.testing.assert_allclose(got, _jax_loss("f64", False), rtol=1e-9,
+                               atol=1e-9)
+
+
+def test_fused_loss_matches_jax_pallas_f32(monkeypatch):
+    monkeypatch.setattr(JLF, "_INTERPRET", True)
+    want = _jax_loss("f32", True)
+    _inject_jax_draws(monkeypatch, "f32", L + 1)
+    model = port_latent_sde(_jax_model("f32"), torch.float32)
+    with torch.no_grad():
+        loss, aux = TL.latent_sde_loss(model, to_torch(_xs("f32")), TS,
+                                       dt=DT, fused=True)
+    got = (float(loss), float(aux["log_pxs"]), float(aux["logqp"]))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def test_loss_gradients_flow_on_cpu():
+    """On the CPU the fused route is plain PyTorch, so autograd records it
+    like the sdeint route (the CUDA kernel's backward is not ported yet)."""
+    model = port_latent_sde(_jax_model("f64"), torch.float64)
+    grads = []
+    for fused in (False, True):
+        model.zero_grad()
+        loss, _ = TL.latent_sde_loss(
+            model, to_torch(_xs("f64")), TS,
+            torch.Generator().manual_seed(3), dt=DT, fused=fused)
+        loss.backward()
+        grads.append(model.f_net.layers[0].w.grad.clone())
+    assert torch.isfinite(grads[0]).all() and grads[0].abs().max() > 0
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-9, atol=1e-9)
+
+
+def test_sample_posterior_matches_jax_f64(monkeypatch):
+    jm = _jax_model("f64")
+    want = JL.sample_posterior(jm, jnp.asarray(_xs("f64")), TS, KEY, dt=DT)
+    _inject_jax_draws(monkeypatch, "f64", L)
+    with torch.no_grad():
+        got = TL.sample_posterior(port_latent_sde(jm, torch.float64),
+                                  to_torch(_xs("f64")), TS, dt=DT)
+    assert got.shape == (T, B, DATA)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9,
+                               atol=1e-9)
+
+
+def test_sample_prior_matches_jax_f64(monkeypatch):
+    jm = _jax_model("f64")
+    want = JL.sample_prior(jm, B, TS, KEY, dt=DT)
+    _inject_jax_draws(monkeypatch, "f64", L)
+    with torch.no_grad():
+        got = TL.sample_prior(port_latent_sde(jm, torch.float64), B, TS,
+                              dt=DT)
+    assert got.shape == (T, B, DATA)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9,
+                               atol=1e-9)
+
+
+def test_same_generator_seed_gives_same_loss_on_both_routes():
+    model = port_latent_sde(_jax_model("f64"), torch.float64)
+    xs = to_torch(_xs("f64"))
+    losses = []
+    with torch.no_grad():
+        for seed, fused in ((11, False), (11, True), (12, True)):
+            loss, _ = TL.latent_sde_loss(
+                model, xs, TS, torch.Generator().manual_seed(seed), dt=DT,
+                fused=fused)
+            losses.append(float(loss))
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-12)
+    assert losses[2] != losses[1]
+
+
+@pytest.mark.parametrize("kwargs", [dict(adjoint=True),
+                                    dict(method="milstein"),
+                                    dict(options={"x": 1})])
+def test_fused_guards(kwargs):
+    model = port_latent_sde(_jax_model("f32"), torch.float32)
+    with pytest.raises(ValueError, match="fused=True supports"):
+        TL.latent_sde_loss(model, to_torch(_xs("f32")), TS, dt=DT,
+                           fused=True, **kwargs)
+
+
+def test_fused_rejects_variant_architecture():
+    model = port_latent_sde(_jax_model("f32"), torch.float32)
+    model.f_net.activation = "tanh"
+    with pytest.raises(ValueError, match="3-layer softplus"):
+        TL.latent_sde_loss(model, to_torch(_xs("f32")), TS, dt=DT,
+                           fused=True)
+
+
+def test_adjoint_is_not_ported():
+    model = port_latent_sde(_jax_model("f32"), torch.float32)
+    with pytest.raises(NotImplementedError, match="sdeint_adjoint"):
+        TL.latent_sde_loss(model, to_torch(_xs("f32")), TS, dt=DT,
+                           adjoint=True)
+
+
+def test_make_lorenz_data():
+    gen = torch.Generator().manual_seed(0)
+    xs = TL.make_lorenz_data(16, np.linspace(0.0, 1.0, 5), generator=gen,
+                             dt=1e-2)
+    assert xs.shape == (5, 16, 3) and torch.isfinite(xs).all()
+    # normalised per channel before the 0.01 observation noise
+    torch.testing.assert_close(xs.mean(dim=(0, 1)), torch.zeros(3),
+                               atol=0.02, rtol=0)
+    torch.testing.assert_close(xs.std(dim=(0, 1)), torch.ones(3), atol=0.05,
+                               rtol=0)

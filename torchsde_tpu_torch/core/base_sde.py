@@ -1,0 +1,193 @@
+"""SDE base classes and the capability-dispatch wrappers (counterpart of
+``torchsde_tpu/core/base_sde.py``).
+
+Which user spellings (``f``/``g``/``f_and_g``/``g_prod``/``f_and_g_prod``)
+an SDE provides is resolved once, when ``ForwardSDE`` wraps it.
+"""
+
+import torch
+from torch import nn
+
+from ..settings import NOISE_TYPES, SDE_TYPES
+from ..utils import misc
+
+
+class BaseSDE(nn.Module):
+    """Base class for all SDEs; validates the noise/sde trait strings."""
+
+    def __init__(self, noise_type, sde_type):
+        super().__init__()
+        if noise_type not in NOISE_TYPES:
+            raise ValueError(f"Expected noise type in {NOISE_TYPES}, but found {noise_type}")
+        if sde_type not in SDE_TYPES:
+            raise ValueError(f"Expected sde type in {SDE_TYPES}, but found {sde_type}")
+        self.noise_type = noise_type
+        self.sde_type = sde_type
+
+
+class SDEIto(BaseSDE):
+    def __init__(self, noise_type):
+        super().__init__(noise_type=noise_type, sde_type=SDE_TYPES.ito)
+
+
+_CAPABILITIES = ("f", "g", "h", "f_and_g", "g_prod", "f_and_g_prod")
+
+
+def sde_has_method(sde, name):
+    """Does `sde` provide capability `name`? Wrappers may override via
+    a `has_method` hook so renamed/augmented methods report correctly."""
+    hook = getattr(type(sde), "has_method", None)
+    if hook is not None:
+        return sde.has_method(name)
+    return callable(getattr(sde, name, None))
+
+
+class RenameMethodsSDE(BaseSDE):
+    """Adapter for SDEs whose drift/diffusion live under different method
+    names (``sdeint(..., names={"drift": "h"})``)."""
+
+    def __init__(self, sde, drift="f", diffusion="g", prior_drift="h",
+                 diffusion_prod="g_prod", drift_and_diffusion="f_and_g",
+                 drift_and_diffusion_prod="f_and_g_prod"):
+        super().__init__(noise_type=sde.noise_type, sde_type=sde.sde_type)
+        self._base_sde = sde
+        self._name_map = {"f": drift, "g": diffusion, "h": prior_drift,
+                          "g_prod": diffusion_prod,
+                          "f_and_g": drift_and_diffusion,
+                          "f_and_g_prod": drift_and_diffusion_prod}
+
+    def _target(self, name):
+        return self._name_map.get(name, name)
+
+    def has_method(self, name):
+        return sde_has_method(self._base_sde, self._target(name))
+
+    def f(self, t, y):
+        return getattr(self._base_sde, self._target("f"))(t, y)
+
+    def g(self, t, y):
+        return getattr(self._base_sde, self._target("g"))(t, y)
+
+    def h(self, t, y):
+        return getattr(self._base_sde, self._target("h"))(t, y)
+
+    def g_prod(self, t, y, v):
+        return getattr(self._base_sde, self._target("g_prod"))(t, y, v)
+
+    def f_and_g(self, t, y):
+        return getattr(self._base_sde, self._target("f_and_g"))(t, y)
+
+    def f_and_g_prod(self, t, y, v):
+        return getattr(self._base_sde, self._target("f_and_g_prod"))(t, y, v)
+
+
+class ForwardSDE(BaseSDE):
+    """Capability-complete view of a user SDE: exposes ``f``, ``g``, ``h``,
+    ``f_and_g``, ``prod``, ``g_prod`` and ``f_and_g_prod`` whichever subset
+    the user defined."""
+
+    def __init__(self, sde):
+        super().__init__(noise_type=sde.noise_type, sde_type=sde.sde_type)
+        self._base_sde = sde
+        self._has = tuple(name for name in _CAPABILITIES
+                          if sde_has_method(sde, name))
+
+    def has_method(self, name):
+        return True  # ForwardSDE synthesises every capability.
+
+    def f(self, t, y):
+        if "f" in self._has:
+            return self._base_sde.f(t, y)
+        if "f_and_g" in self._has:
+            return self._base_sde.f_and_g(t, y)[0]
+        raise RuntimeError("Method `f` has not been provided, but is required "
+                           "for this method.")
+
+    def g(self, t, y):
+        if "g" in self._has:
+            return self._base_sde.g(t, y)
+        if "f_and_g" in self._has:
+            return self._base_sde.f_and_g(t, y)[1]
+        raise RuntimeError("Method `g` has not been provided, but is required "
+                           "for this method.")
+
+    def h(self, t, y):
+        if "h" in self._has:
+            return self._base_sde.h(t, y)
+        raise RuntimeError("Method `h` has not been provided, but is required "
+                           "for this method.")
+
+    def f_and_g(self, t, y):
+        if "f_and_g" in self._has:
+            return self._base_sde.f_and_g(t, y)
+        return self.f(t, y), self.g(t, y)
+
+    def prod(self, g, v):
+        """Diffusion-vector product given a materialised diffusion."""
+        if self.noise_type == NOISE_TYPES.diagonal:
+            return g * v
+        return misc.batch_mvp(g, v)
+
+    def g_prod(self, t, y, v):
+        if "g_prod" in self._has:
+            return self._base_sde.g_prod(t, y, v)
+        return self.prod(self.g(t, y), v)
+
+    def f_and_g_prod(self, t, y, v):
+        if "f_and_g_prod" in self._has:
+            return self._base_sde.f_and_g_prod(t, y, v)
+        if "f" in self._has and "g_prod" in self._has:
+            return self._base_sde.f(t, y), self._base_sde.g_prod(t, y, v)
+        f, g = self.f_and_g(t, y)
+        return f, self.prod(g, v)
+
+
+class SDELogqp(BaseSDE):
+    """Augments the state with one channel integrating the KL between the
+    posterior (drift ``f``) and prior (drift ``h``) path measures:
+    ``u = g^{-1}(f - h)``, KL integrand ``0.5 |u|^2``."""
+
+    def __init__(self, sde):
+        super().__init__(noise_type=sde.noise_type, sde_type=sde.sde_type)
+        for name in ("f", "g", "h"):
+            if not sde_has_method(sde, name):
+                raise AttributeError("If using logqp then drift, diffusion and "
+                                     "prior drift must all be specified.")
+        self._base_sde = sde
+
+    def has_method(self, name):
+        return name in ("f", "g", "f_and_g")
+
+    def _f_g_h(self, t, y):
+        # An SDE may provide `f_and_h(t, y) -> (f, h)` that shares work
+        # between the two drifts (LatentSDE shares the context lookup).
+        f_and_h = getattr(self._base_sde, "f_and_h", None)
+        if callable(f_and_h):
+            f, h = f_and_h(t, y)
+        else:
+            f, h = self._base_sde.f(t, y), self._base_sde.h(t, y)
+        return f, self._base_sde.g(t, y), h
+
+    def f_and_g(self, t, y):
+        y = y[:, :-1]
+        f, g, h = self._f_g_h(t, y)
+        if self.noise_type == NOISE_TYPES.diagonal:
+            u = misc.stable_division(f - h, g)
+            g_logqp = y.new_zeros((y.shape[0], 1))
+        else:
+            u = misc.batch_mvp(torch.linalg.pinv(g), f - h)
+            g_logqp = y.new_zeros((g.shape[0], 1, g.shape[-1]))
+        f_logqp = 0.5 * torch.sum(u * u, dim=1, keepdim=True)
+        return torch.cat([f, f_logqp], dim=1), torch.cat([g, g_logqp], dim=1)
+
+    def f(self, t, y):
+        return self.f_and_g(t, y)[0]
+
+    def g(self, t, y):
+        y_ = y[:, :-1]
+        g = self._base_sde.g(t, y_)
+        if self.noise_type == NOISE_TYPES.diagonal:
+            g_logqp = y_.new_zeros((y_.shape[0], 1))
+        else:
+            g_logqp = y_.new_zeros((g.shape[0], 1, g.shape[-1]))
+        return torch.cat([g, g_logqp], dim=1)

@@ -1,0 +1,260 @@
+"""Public forward-integration entry point (counterpart of
+``torchsde_tpu/core/sdeint.py``).
+
+Ported: fixed-step solves with concrete ``ts``, the default noise source and
+explicit Brownian objects, ``logqp``, ``names`` and the contract checks with
+the JAX package's wording. Not ported yet: adaptive stepping, the
+sparse-output and traced-``ts`` paths, and in-loop noise generation.
+"""
+
+import numpy as np
+import torch
+
+from . import base_sde, integrate, solvers
+from ..settings import METHODS, NOISE_TYPES, SDE_TYPES
+from ..types import Scalar, Tensor, Vector
+from ..utils import misc
+
+
+def sdeint(sde,
+           y0: Tensor,
+           ts: Vector,
+           bm=None,
+           method=None,
+           dt: Scalar = 1e-3,
+           adaptive=False,
+           options=None,
+           names=None,
+           logqp=False,
+           extra=False,
+           extra_solver_state=None,
+           generator=None,
+           **unused_kwargs):
+    """Numerically integrate an SDE on a fixed step grid of width ``dt``.
+
+    ``generator`` (a ``torch.Generator`` on ``y0``'s device) seeds the
+    default Brownian noise when ``bm`` is not supplied; without it the noise
+    comes from PyTorch's default generator. Returns ``ys`` of shape
+    ``(len(ts), batch, channels)``, then the per-interval ``log_ratio`` when
+    ``logqp`` and the final solver state when ``extra``.
+    """
+    misc.handle_unused_kwargs(unused_kwargs, msg="`sdeint`")
+    del unused_kwargs
+    if adaptive:
+        raise NotImplementedError(
+            "adaptive stepping is not ported to torchsde_tpu_torch yet")
+
+    sde, y0, ts, bm, method, options = check_contract(
+        sde, y0, ts, bm, method, options, names, logqp, generator)
+
+    solver_cls = solvers.select(method=method, sde_type=sde.sde_type)
+    bm_for_solver = None if isinstance(bm, _DefaultNoise) else bm
+    solver = solver_cls(sde=sde, bm=bm_for_solver, dt=dt, options=options)
+
+    time_dtype = _time_dtype(y0)
+    if extra_solver_state is None:
+        t0 = torch.as_tensor(ts[0], dtype=time_dtype, device=y0.device)
+        extra_solver_state = solver.init_extra_solver_state(t0, y0)
+
+    grid = integrate.build_step_grid(ts[0], ts[-1], dt)
+    if isinstance(bm, _DefaultNoise):
+        noise_xs = integrate.sample_grid_noise(
+            bm.generator, grid, bm.shape, bm.dtype, bm.device,
+            needs_U=solver.needs_U, needs_A=solver.needs_A)
+    else:
+        noise_xs = integrate.precompute_bm_noise(bm, grid, solver.needs_U,
+                                                 solver.needs_A)
+    ys, extra_solver_state = integrate.integrate_fixed(
+        solver, y0, extra_solver_state, grid, ts, noise_xs,
+        time_dtype=time_dtype)
+    return parse_return(y0, ys, extra_solver_state, extra, logqp)
+
+
+def _time_dtype(y0):
+    return y0.dtype if y0.dtype.is_floating_point else torch.float32
+
+
+class _DefaultNoise:
+    """Marker for the framework-owned noise source: i.i.d. increments of
+    ``shape`` drawn from ``generator`` on the step grid."""
+
+    def __init__(self, generator, shape, dtype, device):
+        self.generator = generator
+        self.shape = tuple(shape)
+        self.dtype = dtype
+        self.device = device
+
+
+def host_times(ts):
+    """Evaluation times as a host float64 array."""
+    if torch.is_tensor(ts):
+        ts = ts.detach().cpu()
+    return np.asarray(ts, np.float64)
+
+
+def check_contract(sde, y0, ts, bm, method, options, names, logqp,
+                   generator=None):
+    """Validate traits/shapes and fill in defaults, with the wording of
+    ``torchsde_tpu.core.sdeint.check_contract``. The shape probes call the
+    drift and diffusion once on ``y0`` (without recording gradients)."""
+    if names is None:
+        names_to_change = {}
+    else:
+        names_to_change = {k: names[k] for k in ("drift", "diffusion", "prior_drift",
+                                                 "drift_and_diffusion",
+                                                 "drift_and_diffusion_prod")
+                           if k in names}
+    if len(names_to_change) > 0:
+        sde = base_sde.RenameMethodsSDE(sde, **names_to_change)
+
+    if not hasattr(sde, "noise_type"):
+        raise ValueError("sde does not have the attribute noise_type.")
+    if sde.noise_type not in NOISE_TYPES:
+        raise ValueError(f"Expected noise type in {NOISE_TYPES}, but found {sde.noise_type}.")
+    if not hasattr(sde, "sde_type"):
+        raise ValueError("sde does not have the attribute sde_type.")
+    if sde.sde_type not in SDE_TYPES:
+        raise ValueError(f"Expected sde type in {SDE_TYPES}, but found {sde.sde_type}.")
+
+    y0 = torch.as_tensor(y0)
+    if y0.ndim != 2:
+        raise ValueError("`y0` must be a 2-dimensional tensor of shape (batch, channels).")
+
+    if logqp:
+        sde = base_sde.SDELogqp(sde)
+        y0 = torch.cat([y0, y0.new_zeros((y0.shape[0], 1))], dim=1)
+
+    if method is None:
+        method = {
+            SDE_TYPES.ito: {
+                NOISE_TYPES.diagonal: METHODS.srk,
+                NOISE_TYPES.additive: METHODS.srk,
+                NOISE_TYPES.scalar: METHODS.srk,
+                NOISE_TYPES.general: METHODS.euler,
+            }[sde.noise_type],
+            SDE_TYPES.stratonovich: METHODS.midpoint,
+        }[sde.sde_type]
+    if method not in METHODS:
+        raise ValueError(f"Expected method in {METHODS}, but found {method}.")
+
+    try:
+        ts = host_times(ts)
+    except Exception as e:
+        raise ValueError("Evaluation times `ts` must be a 1-D array or list/tuple "
+                         "of floats.") from e
+    if ts.ndim != 1:
+        raise ValueError("Evaluation times `ts` must be one-dimensional.")
+    if not misc.is_strictly_increasing(ts):
+        raise ValueError("Evaluation times `ts` must be strictly increasing.")
+
+    batch_sizes, state_sizes, noise_sizes = [], [], []
+    batch_sizes.append(y0.shape[0])
+    state_sizes.append(y0.shape[1])
+    if bm is not None:
+        if len(bm.shape) != 2:
+            raise ValueError("`bm` must be of shape (batch, noise_channels).")
+        batch_sizes.append(bm.shape[0])
+        noise_sizes.append(bm.shape[1])
+
+    def _check_2d(name, shape):
+        if len(shape) != 2:
+            raise ValueError(f"{name} must be of shape (batch, state_channels), "
+                             f"but got {tuple(shape)}.")
+        batch_sizes.append(shape[0])
+        state_sizes.append(shape[1])
+
+    def _check_2d_or_3d(name, shape):
+        if sde.noise_type == NOISE_TYPES.diagonal:
+            if len(shape) != 2:
+                raise ValueError(f"{name} must be of shape (batch, state_channels), "
+                                 f"but got {tuple(shape)}.")
+            batch_sizes.append(shape[0])
+            state_sizes.append(shape[1])
+            noise_sizes.append(shape[1])
+        else:
+            if len(shape) != 3:
+                raise ValueError(f"{name} must be of shape (batch, state_channels, "
+                                 f"noise_channels), but got {tuple(shape)}.")
+            batch_sizes.append(shape[0])
+            state_sizes.append(shape[1])
+            noise_sizes.append(shape[2])
+
+    t0 = torch.as_tensor(ts[0], dtype=_time_dtype(y0), device=y0.device)
+    has_f = has_g = False
+    with torch.no_grad():
+        if base_sde.sde_has_method(sde, "f"):
+            has_f = True
+            _check_2d("Drift", sde.f(t0, y0).shape)
+        if base_sde.sde_has_method(sde, "g"):
+            has_g = True
+            _check_2d_or_3d("Diffusion", sde.g(t0, y0).shape)
+        if base_sde.sde_has_method(sde, "f_and_g"):
+            has_f = has_g = True
+            f, g = sde.f_and_g(t0, y0)
+            _check_2d("Drift", f.shape)
+            _check_2d_or_3d("Diffusion", g.shape)
+        if base_sde.sde_has_method(sde, "g_prod"):
+            has_g = True
+            if len(noise_sizes) == 0:
+                raise ValueError("Cannot infer noise size (i.e. number of Brownian motion "
+                                 "channels). Either pass `bm` explicitly, or specify one "
+                                 "of the `g`, `f_and_g` functions.`")
+            v = y0.new_zeros((batch_sizes[0], noise_sizes[0]))
+            _check_2d("Diffusion-vector product", sde.g_prod(t0, y0, v).shape)
+        if base_sde.sde_has_method(sde, "f_and_g_prod"):
+            has_f = has_g = True
+            if len(noise_sizes) == 0:
+                raise ValueError("Cannot infer noise size (i.e. number of Brownian motion "
+                                 "channels). Either pass `bm` explicitly, or specify one "
+                                 "of the `g`, `f_and_g` functions.`")
+            v = y0.new_zeros((batch_sizes[0], noise_sizes[0]))
+            f, gp = sde.f_and_g_prod(t0, y0, v)
+            _check_2d("Drift", f.shape)
+            _check_2d("Diffusion-vector product", gp.shape)
+
+    if not has_f:
+        raise ValueError("sde must define at least one of `f`, `f_and_g`, or "
+                         "`f_and_g_prod`. (Or possibly more depending on the method "
+                         "chosen.)")
+    if not has_g:
+        raise ValueError("sde must define at least one of `g`, `f_and_g`, `g_prod` or "
+                         "`f_and_g_prod`. (Or possibly more depending on the method "
+                         "chosen.)")
+
+    for b in batch_sizes[1:]:
+        if b != batch_sizes[0]:
+            raise ValueError("Batch sizes not consistent.")
+    for s in state_sizes[1:]:
+        if s != state_sizes[0]:
+            raise ValueError("State sizes not consistent.")
+    for n in noise_sizes[1:]:
+        if n != noise_sizes[0]:
+            raise ValueError("Noise sizes not consistent.")
+
+    if sde.noise_type == NOISE_TYPES.scalar and noise_sizes[0] != 1:
+        raise ValueError(f"Scalar noise must have only one channel; the diffusion has "
+                         f"{noise_sizes[0]} noise channels.")
+
+    sde = base_sde.ForwardSDE(sde)
+
+    if bm is None:
+        bm = _DefaultNoise(generator, (batch_sizes[0], noise_sizes[0]),
+                           y0.dtype, y0.device)
+
+    options = {} if options is None else dict(options)
+    return sde, y0, ts, bm, method, options
+
+
+def parse_return(y0, ys, extra_solver_state, extra, logqp):
+    """Split off the logqp channel and difference it per output interval."""
+    if logqp:
+        d = y0.shape[1] - 1
+        ys, log_ratio = ys[..., :d], ys[..., d:]
+        log_ratio_increments = (log_ratio[1:] - log_ratio[:-1]).squeeze(2)
+        out = [ys, log_ratio_increments]
+    else:
+        out = [ys]
+    if extra:
+        out.append(extra_solver_state)
+    return tuple(out) if len(out) > 1 else out[0]
+

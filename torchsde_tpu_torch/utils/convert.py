@@ -1,0 +1,30 @@
+"""Load parameters exported from the JAX package into the port's modules."""
+
+import numpy as np
+import torch
+
+
+def load_jax_params(module, arrays):
+    """Copy ``arrays`` into ``module``'s parameters and buffers, in place.
+
+    ``arrays`` maps each JAX leaf's pytree path, dotted (``f_net.layers.0.w``,
+    ``g_nets.2``, ``encoder.cell.w_hh``), to a numpy array. The port keeps the
+    JAX layouts, so names and shapes correspond one to one. Raises
+    ``KeyError`` when a tensor of the module has no array or an array has no
+    tensor, and ``ValueError`` on a shape mismatch; nothing is copied then.
+    Values are cast to each tensor's dtype. Returns ``module``."""
+    targets = dict(module.named_parameters())
+    targets.update(module.named_buffers())
+    missing = sorted(set(targets) - set(arrays))
+    unused = sorted(set(arrays) - set(targets))
+    if missing or unused:
+        raise KeyError(f"load_jax_params: missing {missing}, unused {unused}")
+    for name, t in targets.items():
+        shape = np.shape(arrays[name])
+        if shape != tuple(t.shape):
+            raise ValueError(f"load_jax_params: {name} has shape {shape}, "
+                             f"the module's is {tuple(t.shape)}")
+    with torch.no_grad():
+        for name, t in targets.items():
+            t.copy_(torch.as_tensor(np.array(arrays[name])))
+    return module

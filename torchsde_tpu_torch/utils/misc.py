@@ -1,0 +1,35 @@
+"""Small tensor utilities (counterpart of ``torchsde_tpu/utils/misc.py``)."""
+
+import warnings
+
+import numpy as np
+import torch
+
+
+def handle_unused_kwargs(unused_kwargs, msg=None):
+    if len(unused_kwargs) > 0:
+        if msg is not None:
+            warnings.warn(f"{msg}: Unexpected arguments {unused_kwargs}")
+        else:
+            warnings.warn(f"Unexpected arguments {unused_kwargs}")
+
+
+def is_strictly_increasing(ts):
+    ts = np.asarray(ts)
+    return bool(np.all(ts[:-1] < ts[1:]))
+
+
+def batch_mvp(m, v):
+    """Batched matrix-vector product: (..., d, m) x (..., m) -> (..., d)."""
+    return torch.einsum("...dm,...m->...d", m, v)
+
+
+def stable_division(a, b, epsilon=1e-7):
+    """a / b with |b| clamped away from zero, keeping the sign of b.
+
+    The magnitude test is taken on ``b.abs().detach()``, so no gradient flows
+    through the comparison."""
+    big = b.abs().detach() > epsilon
+    sign = torch.where(b >= 0, 1.0, -1.0).to(b.dtype)
+    b_safe = torch.where(big, b, epsilon * sign)
+    return a / b_safe

@@ -50,5 +50,6 @@ def port_latent_sde(jax_model, dtype):
     from torchsde_tpu_torch.models.latent_sde import LatentSDE
     enc = jax_model.encoder.cell
     m = LatentSDE(enc.w_ih.shape[0], jax_model.latent_size,
-                  jax_model.context_size, enc.hidden_size, dtype=dtype)
+                  jax_model.context_size, enc.hidden_size, dtype=dtype,
+                  device="cpu")
     return load_jax_params(m, jax_named_arrays(jax_model))

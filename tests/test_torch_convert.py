@@ -35,7 +35,8 @@ def _port_tensors(module):
 def test_every_jax_leaf_maps_to_one_port_tensor():
     arrays = _arrays()
     assert len(arrays) == len(jax.tree_util.tree_leaves(_jax_model()))
-    model = LatentSDE(*DIMS, generator=torch.Generator().manual_seed(0))
+    model = LatentSDE(*DIMS, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
     assert set(_port_tensors(model)) == set(arrays)
     load_jax_params(model, arrays)
     for name, t in _port_tensors(model).items():
@@ -49,7 +50,7 @@ def test_rejects_missing_and_unused_keys(fault):
         del arrays["g_nets.2"]
     else:
         arrays["f_net.layers.3.w"] = np.zeros((16, 4), np.float32)
-    model = LatentSDE(*DIMS)
+    model = LatentSDE(*DIMS, device="cpu")
     before = {k: v.clone() for k, v in _port_tensors(model).items()}
     with pytest.raises(KeyError, match="g_nets.2" if fault == "missing"
                        else "f_net.layers.3.w"):
@@ -61,7 +62,7 @@ def test_rejects_missing_and_unused_keys(fault):
 def test_rejects_a_shape_mismatch_and_copies_nothing():
     arrays = _arrays()
     arrays["encoder.cell.w_hh"] = arrays["encoder.cell.w_hh"].T
-    model = LatentSDE(*DIMS)
+    model = LatentSDE(*DIMS, device="cpu")
     before = {k: v.clone() for k, v in _port_tensors(model).items()}
     with pytest.raises(ValueError, match="encoder.cell.w_hh"):
         load_jax_params(model, arrays)

@@ -1,8 +1,10 @@
 """torchsde_tpu_torch.ops.latent_fused against torchsde_tpu.ops.latent_fused.
 
-On the CPU the port runs its CUDA kernel's plain PyTorch version; here it is
-held against the Pallas kernel run in interpret mode on the same inputs.
-chip_smoke.py holds the CUDA kernel against the plain version on the card.
+On the CPU the port runs its CUDA kernels' plain PyTorch versions; here they
+are held against the Pallas kernels run in interpret mode on the same inputs,
+and the autograd Function that joins them against autograd through the
+plain forward. chip_smoke.py holds the CUDA kernels against the plain
+versions on the card.
 """
 
 import functools
@@ -16,19 +18,27 @@ import torch
 import torchsde_tpu.ops.latent_fused as JLF
 import torchsde_tpu_torch.core.integrate as TI
 import torchsde_tpu_torch.ops.latent_fused as TLF
-from port_bridge import perturbed, port_latent_sde, to_torch
+from port_bridge import jax_named_arrays, perturbed, port_latent_sde, to_torch
 from torchsde_tpu.core import integrate as JI
 from torchsde_tpu.models.latent_sde import LatentSDE as JLatentSDE
 from torchsde_tpu_torch.ops import _build
 
 B, DATA, L, C, H, T = 8, 3, 4, 8, 16, 6
 DT = 1.0 / 32
+# The port's names of the solve's weights, in WEIGHT_NAMES order.
+PARAM_NAMES = tuple(f"{net}_net.layers.{i}.{p}" for net in "fh"
+                    for i in range(3) for p in "wb") + tuple(
+                        f"g_nets.{i}" for i in range(4))
 
 
 @functools.lru_cache(maxsize=None)
-def _models(jdtype, tdtype):
+def _models(jdtype, tdtype, saturated=False):
     jm = perturbed(JLatentSDE(jax.random.PRNGKey(0), DATA, L, C, H,
                               dtype=jdtype), seed=1)
+    if saturated:
+        # g = sigmoid(... - 25) ~ 1e-11 < stable_division's 1e-7
+        w1, b1, w2, b2 = jm.g_nets
+        jm = jm.evolve(g_nets=(w1, b1, w2, b2 - 25.0))
     return jm, port_latent_sde(jm, tdtype)
 
 
@@ -121,15 +131,25 @@ def _port_inputs(dtype=np.float32):
              to_torch(dts)], TLF.solve_weights(tm))
 
 
+def _backward_extras(args):
+    """zs, gz, gq for a backward call on the solve inputs ``args``."""
+    n, B_, L_ = args[3].shape
+    return [torch.zeros((n, B_, L_)), torch.ones((n, B_, L_)),
+            torch.ones((n, B_, 1))]
+
+
 def test_cpu_tensors_take_the_plain_version():
     args, weights = _port_inputs()
-    before = TLF.launches
+    weights = [w.detach().requires_grad_() for w in weights]
+    before = (TLF.launches, TLF.bwd_launches)
+    got = TLF.fused_solve_forward(*args, weights)
     with torch.no_grad():
-        got = TLF.fused_solve_forward(*args, weights)
         want = TLF.fused_solve_forward_plain(*args, weights)
-    assert TLF.launches == before
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+    got[0].sum().backward()
+    assert all(w.grad is not None for w in weights)
+    assert (TLF.launches, TLF.bwd_launches) == before
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -139,6 +159,8 @@ def test_other_devices_raise_instead_of_falling_back():
         TLF.fused_solve_forward(*meta, weights)
     with pytest.raises(ValueError, match="CUDA tensors"):
         TLF.fused_solve_forward_cuda(*args, weights)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        TLF.fused_solve_backward_cuda(*args, weights, *_backward_extras(args))
 
 
 @pytest.mark.parametrize("fault", ["f64", "bf16_weight", "strided_noise",
@@ -164,6 +186,24 @@ def test_kernel_input_checks(fault):
         TLF.check_kernel_inputs(z0, ctx, idx, noise, dts, weights)
 
 
+@pytest.mark.parametrize("fault", ["zs_steps", "gq_width", "gz_f64",
+                                   "strided_gz"])
+def test_backward_input_checks(fault):
+    args, weights = _port_inputs()
+    zs, gz, gq = _backward_extras(args)
+    TLF.check_backward_inputs(*args, weights, zs, gz, gq)
+    if fault == "zs_steps":
+        zs = zs[:-1]
+    elif fault == "gq_width":
+        gq = torch.ones(gz.shape)
+    elif fault == "gz_f64":
+        gz = gz.double()
+    elif fault == "strided_gz":
+        gz = torch.cat([gz, gz], dim=2)[..., ::2]
+    with pytest.raises(ValueError):
+        TLF.check_backward_inputs(*args, weights, zs, gz, gq)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -173,3 +213,115 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_library()
     assert not (tmp_path / "kernels").exists()
+
+
+@pytest.mark.parametrize("saturated", [False, True])
+def test_plain_backward_matches_pallas_kernel_f32(saturated):
+    """fused_solve_backward_plain against the Pallas _bwd_kernel on the same
+    inputs, states and cotangents. The packed gradients go back to the
+    per-tower weights through the VJP of pack_weights. Tolerance: the JAX
+    package's own for its fused against its XLA gradients
+    (tests/test_fused_latent.py:73-79), atol max(1e-4, 3e-5 * scale) with
+    scale the largest gradient entry of the net or stream. With saturated
+    diffusion only the u-path is masked, so the g nets' gradients (dz * dW)
+    stay nonzero and must match too."""
+    jm, tm = _models(jnp.float32, torch.float32, saturated)
+    rng = np.random.default_rng(6)
+    z0, ctx, idx, noise, dts = _solve_inputs(rng, np.float32)
+    n = noise.shape[0]
+    gz = (0.1 * rng.standard_normal((n, B, L))).astype(np.float32)
+    gq = (0.1 * rng.standard_normal((n, B, 1))).astype(np.float32)
+    packed = JLF.pack_weights(jm)
+    ctx_steps = jnp.asarray(ctx[idx])
+    zs, _ = JLF._fused_solve_fwd_impl(packed, jnp.asarray(z0), ctx_steps,
+                                      jnp.asarray(noise), jnp.asarray(dts),
+                                      interpret=True)
+    dpacked, dz0_j, dctx_steps, dnoise_j = JLF._fused_solve_bwd_impl(
+        packed, jnp.asarray(z0), ctx_steps, jnp.asarray(noise),
+        jnp.asarray(dts), zs, jnp.asarray(gz), jnp.asarray(gq),
+        interpret=True)
+    dmodel = jax_named_arrays(jax.vjp(JLF.pack_weights, jm)[1](dpacked)[0])
+    dctx_j = np.zeros_like(ctx)
+    np.add.at(dctx_j, idx, np.asarray(dctx_steps))
+
+    dz0, dctx, dnoise, dweights = TLF.fused_solve_backward_plain(
+        to_torch(z0), to_torch(ctx), to_torch(idx), to_torch(noise),
+        to_torch(dts), TLF.solve_weights(tm), to_torch(zs), to_torch(gz),
+        to_torch(gq))
+
+    def close(got, want):
+        scale = max(float(np.max(np.abs(w))) for w in want)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.detach().numpy(), w, rtol=0,
+                                       atol=max(1e-4, 3e-5 * scale))
+
+    close([dz0], [np.asarray(dz0_j)])
+    close([dctx], [dctx_j])
+    close([dnoise], [np.asarray(dnoise_j)])
+    for net, sl in (("f", slice(0, 6)), ("h", slice(6, 12)),
+                    ("g", slice(12, 16))):
+        close(dweights[sl], [dmodel[name] for name in PARAM_NAMES[sl]])
+    g_scale = max(float(np.max(np.abs(dmodel[name])))
+                  for name in PARAM_NAMES[12:])
+    assert g_scale > 1e-6
+
+
+def _tiny_solve(rng, B_, L_, C_, H_, T_, n_):
+    """Seeded float64 solve inputs and weights at tiny widths, every input
+    that takes a gradient marked so."""
+    def randn(*shape, scale=1.0):
+        return torch.as_tensor(scale * rng.standard_normal(shape))
+
+    D = L_ + C_
+    weights = [randn(D, H_), randn(H_), randn(H_, H_, scale=0.3), randn(H_),
+               randn(H_, L_), randn(L_),
+               randn(L_, H_), randn(H_), randn(H_, H_, scale=0.3), randn(H_),
+               randn(H_, L_), randn(L_),
+               randn(L_, 1, H_), randn(L_, H_), randn(L_, H_, 1), randn(L_, 1)]
+    diff = [randn(B_, L_), randn(T_, B_, C_), randn(n_, B_, L_, scale=0.3),
+            *weights]
+    for t in diff:
+        t.requires_grad_(True)
+    idx = torch.as_tensor(np.sort(rng.integers(0, T_, n_)), dtype=torch.int32)
+    dts = torch.as_tensor(rng.uniform(0.05, 0.2, n_))
+    return diff, idx, dts
+
+
+def _apply(idx, dts):
+    def solve(z0, ctx, noise, *weights):
+        return TLF.FusedLatentSolve.apply(z0, ctx, idx, noise, dts, *weights)
+    return solve
+
+
+def test_function_gradients_match_autograd_through_plain_forward_f64():
+    """FusedLatentSolve's backward (the plain reverse sweep on the CPU)
+    against torch.autograd through fused_solve_forward_plain, in float64 on
+    the same seeded inputs and cotangents: atol 1e-12 relative to each
+    gradient's scale, rounding only. No gradient goes to ctx_idx or dts."""
+    rng = np.random.default_rng(8)
+    diff, idx, dts = _tiny_solve(rng, 5, 3, 4, 6, 4, 9)
+    dts.requires_grad_(True)
+    z0, ctx, noise, *weights = diff
+    zs, qs = TLF.fused_solve_forward_plain(z0, ctx, idx, noise, dts, weights)
+    gz = torch.as_tensor(rng.standard_normal(zs.shape))
+    gq = torch.as_tensor(rng.standard_normal(qs.shape))
+    want = torch.autograd.grad((zs * gz).sum() + (qs * gq).sum(), diff)
+    zs_f, qs_f = TLF.fused_solve_forward(z0, ctx, idx, noise, dts, weights)
+    torch.testing.assert_close(zs_f, zs, rtol=0, atol=0)
+    torch.testing.assert_close(qs_f, qs, rtol=0, atol=0)
+    loss = (zs_f * gz).sum() + (qs_f * gq).sum()
+    got = torch.autograd.grad(loss, diff + [dts], allow_unused=True)
+    assert got[-1] is None
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-12 * float(w.abs().max()))
+
+
+def test_function_gradcheck_f64():
+    """Finite differences of the whole solve against FusedLatentSolve's
+    backward, with one of the two outputs unused (its cotangent is None and
+    arrives as zeros)."""
+    diff, idx, dts = _tiny_solve(np.random.default_rng(9), 2, 2, 1, 3, 2, 3)
+    solve = _apply(idx, dts)
+    assert torch.autograd.gradcheck(solve, diff)
+    assert torch.autograd.gradcheck(lambda *a: solve(*a)[1], diff)

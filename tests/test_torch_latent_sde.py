@@ -1,5 +1,6 @@
-"""The port's latent-SDE slice against torchsde_tpu: the ELBO on both routes,
-posterior and prior sampling, and the fused route's guards.
+"""The port's latent-SDE slice against torchsde_tpu: the ELBO and its
+parameter gradients on both routes, posterior and prior sampling, the fused
+route's guards, and the entry points' default device.
 
 JAX's random draws are made on the JAX side and handed to the port by
 replacing its two draw sites (the eps draw and ``sample_grid_noise``)."""
@@ -15,9 +16,11 @@ import torch
 import torchsde_tpu.ops.latent_fused as JLF
 import torchsde_tpu_torch.core.integrate as TI
 import torchsde_tpu_torch.models.latent_sde as TL
-from port_bridge import perturbed, port_latent_sde, to_torch
+from port_bridge import (jax_named_arrays, perturbed, port_latent_sde,
+                         to_torch)
 from torchsde_tpu.core import integrate as JI
 from torchsde_tpu.models import latent_sde as JL
+from torchsde_tpu_torch.utils.misc import resolve_device
 
 B, DATA, L, C, H, T = 8, 3, 4, 8, 16, 6
 DT = 1.0 / 32
@@ -97,9 +100,38 @@ def test_fused_loss_matches_jax_pallas_f32(monkeypatch):
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_param_grads():
+    grads = jax.grad(lambda m: JL.latent_sde_loss(
+        m, jnp.asarray(_xs("f64")), TS, KEY, dt=DT)[0])(_jax_model("f64"))
+    return jax_named_arrays(grads)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_parameter_gradients_match_jax_f64(monkeypatch, fused):
+    """Every parameter gradient of the port's ELBO, on the sdeint route and
+    on the fused route (FusedLatentSolve with the plain forward and backward
+    on the CPU), against jax.grad of torchsde_tpu's loss on its sdeint route,
+    in float64 on the same draws: atol 1e-9 times each gradient's largest
+    entry."""
+    want = _jax_param_grads()
+    _inject_jax_draws(monkeypatch, "f64", L + 1)
+    model = port_latent_sde(_jax_model("f64"), torch.float64)
+    loss, _ = TL.latent_sde_loss(model, to_torch(_xs("f64")), TS, dt=DT,
+                                 fused=fused)
+    loss.backward()
+    names = [name for name, _ in model.named_parameters()]
+    assert len(names) == 28 and set(names) <= set(want)
+    for name, p in model.named_parameters():
+        scale = float(np.max(np.abs(want[name])))
+        assert scale > 0, name
+        np.testing.assert_allclose(p.grad.numpy(), want[name], rtol=0,
+                                   atol=1e-9 * scale, err_msg=name)
+
+
 def test_loss_gradients_flow_on_cpu():
-    """On the CPU the fused route is plain PyTorch, so autograd records it
-    like the sdeint route (the CUDA kernel's backward is not ported yet)."""
+    """On the CPU both routes are differentiable (the fused one through
+    FusedLatentSolve's plain versions) and give the same gradient."""
     model = port_latent_sde(_jax_model("f64"), torch.float64)
     grads = []
     for fused in (False, True):
@@ -179,10 +211,26 @@ def test_adjoint_is_not_ported():
 def test_make_lorenz_data():
     gen = torch.Generator().manual_seed(0)
     xs = TL.make_lorenz_data(16, np.linspace(0.0, 1.0, 5), generator=gen,
-                             dt=1e-2)
+                             dt=1e-2, device="cpu")
     assert xs.shape == (5, 16, 3) and torch.isfinite(xs).all()
     # normalised per channel before the 0.01 observation noise
     torch.testing.assert_close(xs.mean(dim=(0, 1)), torch.zeros(3),
                                atol=0.02, rtol=0)
     torch.testing.assert_close(xs.std(dim=(0, 1)), torch.ones(3), atol=0.05,
                                rtol=0)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no device given the entry points build on the CUDA card, and
+    raise where there is none rather than fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TL.LatentSDE(3, 4, 8, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TL.StochasticLorenz()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TL.make_lorenz_data(4, np.linspace(0.0, 1.0, 3))
+    assert next(TL.LatentSDE(3, 4, 8, 16, device="cpu").parameters()).is_cpu
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -17,6 +17,7 @@ from torch import nn
 from .layers import GRU, Linear, MLP, softplus, uniform
 from ..core.sdeint import host_times, sdeint
 from ..ops.latent_fused import latent_logqp_solve_fused
+from ..utils.misc import resolve_device
 
 
 def _standard_normal(shape, generator, dtype, device):
@@ -31,7 +32,8 @@ class LatentSDE(nn.Module):
     (``f_net.layers.0.w``, ``g_nets.2``, ``encoder.cell.w_hh``), so
     :func:`torchsde_tpu_torch.utils.convert.load_jax_params` loads its
     weights. The context path ``_ctx_ts`` (T,) / ``_ctx`` (T, B, C) is held
-    in two non-persistent buffers, set by :meth:`contextualize`.
+    in two non-persistent buffers, set by :meth:`contextualize`. It is
+    built on the CUDA card unless ``device`` says otherwise.
     """
 
     noise_type = "diagonal"
@@ -40,6 +42,7 @@ class LatentSDE(nn.Module):
     def __init__(self, data_size, latent_size, context_size, hidden_size,
                  dtype=torch.float32, device=None, generator=None):
         super().__init__()
+        device = resolve_device(device)
         kw = dict(dtype=dtype, device=device, generator=generator)
         self.encoder = GRU(data_size, hidden_size, **kw)
         self.encoder_proj = Linear(hidden_size, context_size, **kw)
@@ -151,11 +154,12 @@ def latent_sde_loss(model, xs, ts, generator=None, noise_std=0.01,
     """ELBO loss: reconstruction log-likelihood under the projector decoder,
     KL at t0, and the pathwise KL integral from the ``logqp`` channel.
 
-    ``fused=True`` runs the Euler logqp solve through the whole-solve kernel
+    ``fused=True`` runs the Euler logqp solve through the whole-solve kernels
     (``ops/latent_fused.py``), with the same eps and noise draws as the
-    ``sdeint`` route for the same generator state. Its CUDA kernel has no
-    backward yet: on a CUDA tensor with autograd recording it raises
-    ``NotImplementedError``."""
+    ``sdeint`` route for the same generator state. It trains: the forward
+    kernel and the reverse-sweep kernel are joined in an autograd Function,
+    whose gradients reach the encoder through the context and ``qz0_net``
+    through the initial state."""
     ctx = model.encode(xs, ts)
     model = model.contextualize(ts, ctx)
     z0, qz0_mean, qz0_logstd = model.posterior_z0(ctx[0], generator)
@@ -221,6 +225,7 @@ class StochasticLorenz(nn.Module):
     def __init__(self, a=(10.0, 28.0, 8.0 / 3.0), b=(0.1, 0.28, 0.3),
                  dtype=torch.float32, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.register_buffer("a", torch.tensor(a, dtype=dtype, device=device))
         self.register_buffer("b", torch.tensor(b, dtype=dtype, device=device))
 
@@ -237,7 +242,9 @@ class StochasticLorenz(nn.Module):
 def make_lorenz_data(batch_size, ts, generator=None, noise_std=0.01, dt=1e-3,
                      dtype=torch.float32, device=None):
     """Simulate the stochastic Lorenz attractor, normalise, add observation
-    noise. Returns xs of shape (len(ts), batch_size, 3)."""
+    noise. Returns xs of shape (len(ts), batch_size, 3), on the CUDA card
+    unless ``device`` says otherwise."""
+    device = resolve_device(device)
     scale = torch.tensor([15.0, 15.0, 6.0], dtype=dtype, device=device)
     y0 = _standard_normal((batch_size, 3), generator, dtype, device) * scale
     xs = sdeint(StochasticLorenz(dtype=dtype, device=device), y0, ts, dt=dt,

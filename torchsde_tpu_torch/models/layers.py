@@ -10,6 +10,8 @@ import math
 import torch
 from torch import nn
 
+from ..utils.misc import resolve_device
+
 
 def softplus(x):
     """``jax.nn.softplus``: ``logaddexp(x, 0)``. ``F.softplus`` switches to
@@ -23,7 +25,8 @@ _ACTIVATIONS = {"softplus": softplus, "tanh": torch.tanh,
 
 def uniform(shape, scale, dtype, device, generator):
     """U(-scale, scale) draws from ``generator`` (which fixes where they are
-    drawn), moved to ``device``."""
+    drawn), moved to ``device`` (the card unless given)."""
+    device = resolve_device(device)
     where = generator.device if generator is not None else device
     u = torch.rand(shape, generator=generator, dtype=dtype, device=where)
     return ((2 * u - 1) * scale).to(device)
@@ -49,6 +52,7 @@ class MLP(nn.Module):
     def __init__(self, sizes, activation="softplus", final_activation=None,
                  dtype=torch.float32, device=None, generator=None):
         super().__init__()
+        device = resolve_device(device)
         self.layers = nn.ModuleList(
             Linear(a, b, dtype, device, generator)
             for a, b in zip(sizes[:-1], sizes[1:]))
@@ -69,6 +73,7 @@ class GRUCell(nn.Module):
     def __init__(self, input_size, hidden_size, dtype=torch.float32,
                  device=None, generator=None):
         super().__init__()
+        device = resolve_device(device)
         scale = 1.0 / math.sqrt(hidden_size)
         H3 = 3 * hidden_size
         self.w_ih = nn.Parameter(uniform((input_size, H3), scale, dtype,
@@ -101,6 +106,7 @@ class GRU(nn.Module):
     def __init__(self, input_size, hidden_size, dtype=torch.float32,
                  device=None, generator=None):
         super().__init__()
+        device = resolve_device(device)
         self.cell = GRUCell(input_size, hidden_size, dtype, device, generator)
 
     def forward(self, xs, h0=None):

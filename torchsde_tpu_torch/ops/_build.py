@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use and load them
 with ``ctypes``.
 
-The sources in ``csrc/`` have a plain C interface (no PyTorch headers), so
-one ``nvcc`` call builds them in seconds. The library goes into
-``build/torch_kernels/`` beside the package (or ``$TSDE_TORCH_BUILD_DIR``),
-named by a hash of the sources and flags, so an edited source is rebuilt.
-Without ``nvcc`` the build raises: there is no fallback.
+The sources in ``csrc/`` have a plain C interface (no PyTorch headers):
+one ``nvcc`` process for each source, all started together, compiles them
+in seconds, and one more links them into a shared library. The library goes
+into ``build/torch_kernels/`` beside the package (or
+``$TSDE_TORCH_BUILD_DIR``), named by a hash of the sources, headers and
+flags, so an edited source is rebuilt. Without ``nvcc`` the build raises:
+there is no fallback.
 """
 
 import ctypes
@@ -16,18 +18,20 @@ import subprocess
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("latent_fused_fwd.cu",)
+SOURCES = ("latent_fused_fwd.cu", "latent_fused_bwd.cu")
+HEADERS = ("latent_fused_common.cuh",)
 BUILD_DIR = Path(os.environ.get(
     "TSDE_TORCH_BUILD_DIR",
     Path(__file__).resolve().parents[2] / "build" / "torch_kernels"))
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 # Dynamic shared memory a block may opt into on Hopper (H100/H200).
 MAX_SMEM_BYTES = 232448
 
-# nvcc's output from the last build in this process (ptxas prints each
-# kernel's registers, shared memory and spills); empty when the library was
-# already built.
+# nvcc's output from the last build in this process, source by source
+# (ptxas prints each kernel's registers, shared memory and spills); empty
+# when the library was already built.
 build_log = ""
 _lib = None
 
@@ -51,8 +55,15 @@ def _bind(lib):
     fwd = lib.tsde_latent_fused_fwd
     fwd.argtypes = [P] * 23 + [I] * 7 + [P]
     fwd.restype = I
-    lib.tsde_latent_fused_fwd_smem_bytes.argtypes = [I, I, I]
-    lib.tsde_latent_fused_fwd_smem_bytes.restype = ctypes.c_size_t
+    bwd = lib.tsde_latent_fused_bwd
+    bwd.argtypes = [P] * 29 + [I] * 7 + [P]
+    bwd.restype = I
+    for name in ("fwd", "bwd"):
+        smem = getattr(lib, f"tsde_latent_fused_{name}_smem_bytes")
+        smem.argtypes = [I, I, I]
+        smem.restype = ctypes.c_size_t
+    lib.tsde_latent_fused_bwd_blocks.argtypes = [I]
+    lib.tsde_latent_fused_bwd_blocks.restype = I
     lib.tsde_cuda_error_string.argtypes = [I]
     lib.tsde_cuda_error_string.restype = ctypes.c_char_p
 
@@ -60,7 +71,7 @@ def _bind(lib):
 def library_path():
     sources = [_CSRC / name for name in SOURCES]
     digest = hashlib.sha256(
-        b"".join(p.read_bytes() for p in sources)
+        b"".join((_CSRC / name).read_bytes() for name in SOURCES + HEADERS)
         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"libtsde_kernels_{digest}.so", sources
 
@@ -76,13 +87,28 @@ def load_library():
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with exit code "
-                               f"{proc.returncode}:\n{build_log}")
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)]
+        logs = [(src.name, proc.communicate()[0], proc.returncode)
+                for src, proc in zip(sources, procs)]
+        build_log = "".join(f"== {name}\n{log}" for name, log, _ in logs)
+        failed = [name for name, _, rc in logs if rc != 0]
+        if not failed:
+            proc = subprocess.run(
+                [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                 *map(str, objs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            build_log += proc.stdout
+            if proc.returncode != 0:
+                failed = ["link"]
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                               f"{build_log}")
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     _bind(lib)

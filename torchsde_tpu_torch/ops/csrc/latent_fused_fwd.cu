@@ -33,15 +33,16 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "latent_fused_common.cuh"
+
 namespace {
 
-constexpr int TB = 8;            // batch rows per block
+using namespace tsde_latent;
+
 constexpr int NT = 128;          // threads per block
 constexpr int NWARPS = NT / 32;
-constexpr float EPS = 1e-7f;     // stable_division clamp
 
-// Offsets (in floats) of each array in dynamic shared memory. Every array
-// starts on a 16-byte boundary so activations can be read as float4.
+// Offsets (in floats) of each array in dynamic shared memory.
 struct Layout {
   size_t fw1, fb1, fw2, fb2, fw3t, fb3;
   size_t hw1, hb1, hw2, hb2, hw3t, hb3;
@@ -49,12 +50,6 @@ struct Layout {
   size_t x, a1f, a1h, a2f, a2h, out;
   size_t total;
 };
-
-__host__ __device__ inline size_t take(size_t& at, size_t n) {
-  size_t start = at;
-  at += (n + 3) & ~size_t(3);
-  return start;
-}
 
 __host__ __device__ inline Layout make_layout(int L, int C, int H) {
   Layout s;
@@ -90,20 +85,6 @@ struct Args {
   int B, L, C, H, T, n;
 };
 
-// jax.nn.softplus: logaddexp(x, 0).
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ void copy_to_smem(float* dst, const float* src,
-                                             int count) {
-  for (int e = threadIdx.x; e < count; e += NT) dst[e] = src[e];
-}
-
 __global__ void __launch_bounds__(NT) latent_fused_fwd_kernel(const Args a) {
   extern __shared__ __align__(16) float sm[];
   const int L = a.L, C = a.C, H = a.H, B = a.B, D = L + C;
@@ -112,25 +93,25 @@ __global__ void __launch_bounds__(NT) latent_fused_fwd_kernel(const Args a) {
   const int row0 = blockIdx.x * TB;
 
   // Weights into shared memory, once for the whole solve.
-  copy_to_smem(sm + lay.fw1, a.w[0], D * H);
-  copy_to_smem(sm + lay.fb1, a.w[1], H);
-  copy_to_smem(sm + lay.fw2, a.w[2], H * H);
-  copy_to_smem(sm + lay.fb2, a.w[3], H);
-  copy_to_smem(sm + lay.fb3, a.w[5], L);
-  copy_to_smem(sm + lay.hw1, a.w[6], L * H);
-  copy_to_smem(sm + lay.hb1, a.w[7], H);
-  copy_to_smem(sm + lay.hw2, a.w[8], H * H);
-  copy_to_smem(sm + lay.hb2, a.w[9], H);
-  copy_to_smem(sm + lay.hb3, a.w[11], L);
+  copy_to_smem<NT>(sm + lay.fw1, a.w[0], D * H);
+  copy_to_smem<NT>(sm + lay.fb1, a.w[1], H);
+  copy_to_smem<NT>(sm + lay.fw2, a.w[2], H * H);
+  copy_to_smem<NT>(sm + lay.fb2, a.w[3], H);
+  copy_to_smem<NT>(sm + lay.fb3, a.w[5], L);
+  copy_to_smem<NT>(sm + lay.hw1, a.w[6], L * H);
+  copy_to_smem<NT>(sm + lay.hb1, a.w[7], H);
+  copy_to_smem<NT>(sm + lay.hw2, a.w[8], H * H);
+  copy_to_smem<NT>(sm + lay.hb2, a.w[9], H);
+  copy_to_smem<NT>(sm + lay.hb3, a.w[11], L);
   for (int e = tid; e < H * L; e += NT) {      // (H, L) -> (L, H)
     const int k = e / L, l = e % L;
     sm[lay.fw3t + l * H + k] = a.w[4][e];
     sm[lay.hw3t + l * H + k] = a.w[10][e];
   }
-  copy_to_smem(sm + lay.gw1, a.w[12], L * H);  // (L,1,H) as (L,H)
-  copy_to_smem(sm + lay.gb1, a.w[13], L * H);
-  copy_to_smem(sm + lay.gw2, a.w[14], L * H);  // (L,H,1) as (L,H)
-  copy_to_smem(sm + lay.gb2, a.w[15], L);
+  copy_to_smem<NT>(sm + lay.gw1, a.w[12], L * H);  // (L,1,H) as (L,H)
+  copy_to_smem<NT>(sm + lay.gb1, a.w[13], L * H);
+  copy_to_smem<NT>(sm + lay.gw2, a.w[14], L * H);  // (L,H,1) as (L,H)
+  copy_to_smem<NT>(sm + lay.gb2, a.w[15], L);
 
   float* x = sm + lay.x;
   float* a1f = sm + lay.a1f;

@@ -1,4 +1,4 @@
-"""Whole-solve forward kernel for the flagship latent-SDE logqp Euler solve
+"""Whole-solve kernels for the flagship latent-SDE logqp Euler solve
 (counterpart of ``torchsde_tpu/ops/latent_fused.py``).
 
 The ``sdeint`` route runs some forty small operators per solver step (two
@@ -7,7 +7,9 @@ the state update), each a kernel launch and a round trip of (B, ·)
 activations through device memory. Here the whole solve is one launch of a
 hand-written CUDA kernel (``csrc/latent_fused_fwd.cu``): weights stay in
 shared memory, the state in shared memory and registers, and each step reads
-only its context row and noise and writes its state.
+only its context row and noise and writes its state. Its gradient is one
+launch of a second kernel (``csrc/latent_fused_bwd.cu``), the hand-derived
+reverse sweep of ``_backward_core``.
 
 The kernel computes the same function as the JAX package's ``_fwd_kernel``
 with ``_forward_core``, Euler–Maruyama with diagonal noise and the logqp
@@ -19,11 +21,12 @@ ported). Each step, with x = [z | ctx]:
 * u = (f - h) / where(g > 1e-7, g, 1e-7) from the pre-step z;
 * q += 0.5 * sum(u * u) * dt; then z += f * dt + g * dW.
 
-:func:`fused_solve_forward` dispatches on the device of its tensors: a CPU
-tensor goes to :func:`fused_solve_forward_plain` (the same math as a loop of
-PyTorch operators), a CUDA tensor to the kernel, which raises rather than
-falls back. ``launches`` counts kernel launches. The kernel has no backward
-yet, so on CUDA the solve refuses to run while autograd records.
+:func:`fused_solve_forward` runs the solve through :class:`FusedLatentSolve`,
+which dispatches on the device of its tensors: a CPU tensor goes to the plain
+versions (:func:`fused_solve_forward_plain`,
+:func:`fused_solve_backward_plain`: the same math as loops of PyTorch
+operators), a CUDA tensor to the kernels, which raise rather than fall back.
+``launches`` and ``bwd_launches`` count the two kernels' launches.
 """
 
 import torch
@@ -34,8 +37,10 @@ from ..models.layers import softplus
 
 _EPS = 1e-7   # stable_division clamp
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Launches of the forward and the backward kernel since import (or since a
+# caller reset them to 0).
 launches = 0
+bwd_launches = 0
 
 # Order of the solve's weight tensors, as :func:`solve_weights` returns them.
 WEIGHT_NAMES = ("f_w1", "f_b1", "f_w2", "f_b2", "f_w3", "f_b3",
@@ -64,9 +69,30 @@ def solve_weights(model):
 
 
 def _mlp3(x, w1, b1, w2, b2, w3, b3):
+    """A 3-layer softplus MLP: its two hidden activations and its output."""
     a1 = softplus(x @ w1 + b1)
     a2 = softplus(a1 @ w2 + b2)
-    return a2 @ w3 + b3
+    return a1, a2, a2 @ w3 + b3
+
+
+def _mlp3_backward(x, a1, a2, weights, dout):
+    """Cotangent of the input of :func:`_mlp3`, and its six weights'
+    gradients, from its activations (softplus' = 1 - exp(-softplus))."""
+    w1, _, w2, _, w3, _ = weights
+    dpre2 = (dout @ w3.T) * (1 - torch.exp(-a2))
+    dpre1 = (dpre2 @ w2.T) * (1 - torch.exp(-a1))
+    grads = (x.T @ dpre1, dpre1.sum(0), a1.T @ dpre2, dpre2.sum(0),
+             a2.T @ dout, dout.sum(0))
+    return dpre1 @ w1.T, grads
+
+
+def _g_nets(z, gw1, gb1, gw2, gb2):
+    """The per-dimension diffusion nets: their hidden activations a1g
+    (L,B,H) and g (B,L)."""
+    a1g = softplus(z.T[..., None] * gw1 + gb1[:, None, :])
+    g = torch.sigmoid(torch.einsum("lbh,lho->lbo", a1g, gw2)
+                      + gb2[:, None, :])[..., 0].T
+    return a1g, g
 
 
 def fused_solve_forward_plain(z0, ctx, ctx_idx, noise, dts, weights):
@@ -84,11 +110,9 @@ def fused_solve_forward_plain(z0, ctx, ctx_idx, noise, dts, weights):
     zs, qs = [], []
     for s in range(noise.shape[0]):
         dt = dts[s]
-        f = _mlp3(torch.cat([z, ctx_steps[s]], dim=1), *fw)
-        h = _mlp3(z, *hw)
-        a1g = softplus(z.T[..., None] * gw1 + gb1[:, None, :])   # (L,B,H)
-        g = torch.sigmoid(torch.einsum("lbh,lho->lbo", a1g, gw2)
-                          + gb2[:, None, :])[..., 0].T          # (B,L)
+        f = _mlp3(torch.cat([z, ctx_steps[s]], dim=1), *fw)[2]
+        h = _mlp3(z, *hw)[2]
+        _, g = _g_nets(z, gw1, gb1, gw2, gb2)
         gs = torch.where(g > _EPS, g, _EPS)
         u = (f - h) / gs
         q = q + 0.5 * torch.sum(u * u, dim=1, keepdim=True) * dt
@@ -96,6 +120,74 @@ def fused_solve_forward_plain(z0, ctx, ctx_idx, noise, dts, weights):
         zs.append(z)
         qs.append(q)
     return torch.stack(zs), torch.stack(qs)
+
+
+def fused_solve_backward_plain(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
+                               gq):
+    """The backward kernel's function as a loop of PyTorch operators: the
+    reverse sweep of the JAX package's ``_backward_core``, which recomputes
+    each step's towers from its pre-step state.
+
+    Takes the forward's inputs, its states zs (n,B,L), and the cotangents gz
+    (n,B,L) of zs and gq (n,B,1) of qs. Returns dz0 (B,L), dctx (T,B,C)
+    (summed over the steps that read each context row), dnoise (n,B,L) and
+    the weights' gradients in WEIGHT_NAMES order."""
+    fw, hw = weights[0:6], weights[6:12]
+    gw1, gb1, gw2, gb2 = weights[12:16]
+    L = z0.shape[1]
+    idx = ctx_idx.long()
+    z_pre = torch.cat([z0[None], zs[:-1]])
+    ginc = gq.flip(0).cumsum(0).flip(0)      # cotangent of each KL increment
+    dz = torch.zeros_like(z0)
+    dctx = torch.zeros_like(ctx)
+    dnoise = torch.empty_like(noise)
+    dw = [torch.zeros_like(w) for w in weights]
+    for s in reversed(range(noise.shape[0])):
+        z, dt = z_pre[s], dts[s]
+        x = torch.cat([z, ctx[idx[s]]], dim=1)
+        a1f, a2f, f = _mlp3(x, *fw)
+        a1h, a2h, h = _mlp3(z, *hw)
+        a1g, g = _g_nets(z, gw1, gb1, gw2, gb2)
+        big = g > _EPS
+        gs = torch.where(big, g, _EPS)
+        u = (f - h) / gs
+
+        dz = dz + gz[s]
+        dnoise[s] = dz * g
+        du = ginc[s] * u * dt
+        df = dz * dt + du / gs
+        dh = -du / gs
+        # stable_division clamps only the u-path; dz * dW is never masked.
+        dg = dz * noise[s] - (du * u / gs) * big.to(z.dtype)
+
+        dx, f_grads = _mlp3_backward(x, a1f, a2f, fw, df)
+        dzh, h_grads = _mlp3_backward(z, a1h, a2h, hw, dh)
+        dpre2g = dg * g * (1 - g)                                   # (B,L)
+        dpre1g = (dpre2g.T[..., None] * gw2[:, None, :, 0]
+                  * (1 - torch.exp(-a1g)))                          # (L,B,H)
+        g_grads = (torch.einsum("lbh,lb->lh", dpre1g, z.T)[:, None, :],
+                   dpre1g.sum(1),
+                   torch.einsum("lbh,bl->lh", a1g, dpre2g)[..., None],
+                   dpre2g.sum(0)[:, None])
+        for acc, d in zip(dw, f_grads + h_grads + g_grads):
+            acc += d
+        dzg = torch.einsum("lbh,lh->bl", dpre1g, gw1[:, 0, :])
+        dz = dz + dx[:, :L] + dzh + dzg
+        dctx.index_add_(0, idx[s:s + 1], dx[None, :, L:])
+    return dz, dctx, dnoise, tuple(dw)
+
+
+def _check_tensor(name, t, shape, dtype, device):
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{shape}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} is {t.dtype}; the kernel takes {dtype} "
+                         f"(bf16 mixed mode is not ported yet)")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, z0 on {device}")
 
 
 def check_kernel_inputs(z0, ctx, ctx_idx, noise, dts, weights):
@@ -122,36 +214,51 @@ def check_kernel_inputs(z0, ctx, ctx_idx, noise, dts, weights):
     tensors = dict(z0=z0, ctx=ctx, ctx_idx=ctx_idx, noise=noise, dts=dts,
                    **dict(zip(WEIGHT_NAMES, weights)))
     for name, t in tensors.items():
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {want[name]}")
         dtype = torch.int32 if name == "ctx_idx" else torch.float32
-        if t.dtype != dtype:
-            raise ValueError(f"{name} is {t.dtype}; the kernel takes {dtype} "
-                             f"(bf16 mixed mode is not ported yet)")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
-        if t.device != z0.device:
-            raise ValueError(f"{name} is on {t.device}, z0 on {z0.device}")
+        _check_tensor(name, t, want[name], dtype, z0.device)
     return B, L, C, H, T, n
+
+
+def check_backward_inputs(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq):
+    """What the backward kernel takes: the forward kernel's inputs, and zs,
+    gz (n,B,L) and gq (n,B,1), float32 contiguous on the same device."""
+    B, L, C, H, T, n = check_kernel_inputs(z0, ctx, ctx_idx, noise, dts,
+                                           weights)
+    for name, t, shape in (("zs", zs, (n, B, L)), ("gz", gz, (n, B, L)),
+                           ("gq", gq, (n, B, 1))):
+        _check_tensor(name, t, shape, torch.float32, z0.device)
+    return B, L, C, H, T, n
+
+
+def _cuda_library(smem_fn, L, C, H):
+    """The kernels' library, once the kernel's shared memory for these
+    widths is known to fit a block."""
+    from . import _build
+
+    lib = _build.load_library()
+    smem = getattr(lib, smem_fn)(L, C, H)
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"the solve's weights and activations need {smem} "
+                         f"bytes of shared memory; a block has "
+                         f"{_build.MAX_SMEM_BYTES}")
+    return lib
+
+
+def _raise_on_error(lib, rc, kernel):
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: "
+                           + lib.tsde_cuda_error_string(rc).decode())
 
 
 def fused_solve_forward_cuda(z0, ctx, ctx_idx, noise, dts, weights):
     """Launch the CUDA kernel on the current stream. Raises on tensors it
     does not take, on a failed build and on a refused launch."""
     global launches
-    from . import _build
-
     if not z0.is_cuda:
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {z0.device}")
     B, L, C, H, T, n = check_kernel_inputs(z0, ctx, ctx_idx, noise, dts,
                                            weights)
-    lib = _build.load_library()
-    smem = lib.tsde_latent_fused_fwd_smem_bytes(L, C, H)
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"the solve's weights and activations need {smem} "
-                         f"bytes of shared memory; a block has "
-                         f"{_build.MAX_SMEM_BYTES}")
+    lib = _cuda_library("tsde_latent_fused_fwd_smem_bytes", L, C, H)
     zs = torch.empty((n, B, L), dtype=torch.float32, device=z0.device)
     qs = torch.empty((n, B, 1), dtype=torch.float32, device=z0.device)
     ptrs = [t.data_ptr() for t in (z0, ctx, ctx_idx, noise, dts, *weights,
@@ -159,29 +266,85 @@ def fused_solve_forward_cuda(z0, ctx, ctx_idx, noise, dts, weights):
     stream = torch.cuda.current_stream(z0.device).cuda_stream
     rc = lib.tsde_latent_fused_fwd(*ptrs, B, L, C, H, T, n,
                                    z0.device.index or 0, stream)
-    if rc != 0:
-        raise RuntimeError("latent_fused_fwd launch failed: "
-                           + lib.tsde_cuda_error_string(rc).decode())
+    _raise_on_error(lib, rc, "latent_fused_fwd")
     launches += 1
     return zs, qs
 
 
-def fused_solve_forward(z0, ctx, ctx_idx, noise, dts, weights):
-    """Whole-solve forward: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors (no fallback between them)."""
+def fused_solve_backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
+                              gq):
+    """Launch the backward kernel (the reverse sweep, then the sum of the
+    blocks' weight-gradient partials) on the current stream; returns what
+    :func:`fused_solve_backward_plain` returns. Raises on tensors it does not
+    take, on a failed build and on a refused launch."""
+    global bwd_launches
+    if not z0.is_cuda:
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
+                         f"{z0.device}")
+    B, L, C, H, T, n = check_backward_inputs(z0, ctx, ctx_idx, noise, dts,
+                                             weights, zs, gz, gq)
+    lib = _cuda_library("tsde_latent_fused_bwd_smem_bytes", L, C, H)
+    f32 = dict(dtype=torch.float32, device=z0.device)
+    dz0 = torch.zeros((B, L), **f32)
+    dctx = torch.zeros_like(ctx)
+    dnoise = torch.empty_like(noise)
+    sizes = [w.numel() for w in weights]
+    partials = torch.empty((lib.tsde_latent_fused_bwd_blocks(B), sum(sizes)),
+                           **f32)
+    dw = torch.zeros(sum(sizes), **f32)
+    ptrs = [t.data_ptr() for t in (z0, ctx, ctx_idx, noise, dts, *weights,
+                                   zs, gz, gq, dz0, dctx, dnoise, partials,
+                                   dw)]
+    stream = torch.cuda.current_stream(z0.device).cuda_stream
+    rc = lib.tsde_latent_fused_bwd(*ptrs, B, L, C, H, T, n,
+                                   z0.device.index or 0, stream)
+    _raise_on_error(lib, rc, "latent_fused_bwd")
+    bwd_launches += 1
+    dweights = tuple(d.view_as(w) for d, w in zip(dw.split(sizes), weights))
+    return dz0, dctx, dnoise, dweights
+
+
+def _route(z0, plain, cuda):
+    """The plain version for CPU tensors, the kernel for CUDA tensors; no
+    fallback between them."""
     if z0.device.type == "cpu":
-        return fused_solve_forward_plain(z0, ctx, ctx_idx, noise, dts,
-                                         weights)
+        return plain
     if z0.is_cuda:
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (z0, ctx, noise, *weights)):
-            raise NotImplementedError(
-                "the fused latent solve has no backward kernel on CUDA yet "
-                "(it is the next kernel to port); run it under "
-                "torch.no_grad() or use fused=False")
-        return fused_solve_forward_cuda(z0, ctx, ctx_idx, noise, dts,
-                                        weights)
+        return cuda
     raise ValueError(f"no fused latent solve for device {z0.device}")
+
+
+class FusedLatentSolve(torch.autograd.Function):
+    """The whole solve as one differentiable operation (the counterpart of
+    the JAX package's ``_fused_solve`` custom VJP): the forward kernel and
+    the backward kernel on CUDA tensors, their plain versions on CPU
+    tensors. Gradients flow to z0, ctx, noise and the weights; ctx_idx and
+    dts get none. A cotangent that is None arrives as zeros (autograd
+    materialises it)."""
+
+    @staticmethod
+    def forward(fctx, z0, ctx, ctx_idx, noise, dts, *weights):
+        solve = _route(z0, fused_solve_forward_plain, fused_solve_forward_cuda)
+        zs, qs = solve(z0, ctx, ctx_idx, noise, dts, weights)
+        fctx.save_for_backward(z0, ctx, ctx_idx, noise, dts, zs, *weights)
+        return zs, qs
+
+    @staticmethod
+    def backward(fctx, gz, gq):
+        z0, ctx, ctx_idx, noise, dts, zs, *weights = fctx.saved_tensors
+        sweep = _route(z0, fused_solve_backward_plain,
+                       fused_solve_backward_cuda)
+        dz0, dctx, dnoise, dweights = sweep(
+            z0, ctx, ctx_idx, noise, dts, weights, zs, gz.contiguous(),
+            gq.contiguous())
+        return (dz0, dctx, None, dnoise, None, *dweights)
+
+
+def fused_solve_forward(z0, ctx, ctx_idx, noise, dts, weights):
+    """Whole solve through :class:`FusedLatentSolve`: returns zs (n,B,L) and
+    qs (n,B,1), differentiable, from the plain versions for CPU tensors and
+    the CUDA kernels for CUDA tensors."""
+    return FusedLatentSolve.apply(z0, ctx, ctx_idx, noise, dts, *weights)
 
 
 def latent_logqp_solve_fused(model, z0, ts, generator, dt):

@@ -6,6 +6,19 @@ import numpy as np
 import torch
 
 
+def resolve_device(device=None):
+    """The device an entry point builds on: ``device`` when given, else the
+    CUDA card. There is no fallback: without a card it raises, and the CPU
+    is used only when asked for by ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "torchsde_tpu_torch runs on the CUDA card by default and none is "
+            "available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 def handle_unused_kwargs(unused_kwargs, msg=None):
     if len(unused_kwargs) > 0:
         if msg is not None:

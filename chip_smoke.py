@@ -28,7 +28,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    the median train-step time of each route;
 7. profile: a forward pass and a train step of each route under
    torch.profiler, for the kernel count, device time and the device's busy
-   share.
+   share;
+8. GAN kernels vs plain: the SDE-GAN generator kernel (kernel 5) and critic
+   kernel (kernel 7) against their plain versions on seeded inputs at the
+   reference scale (batch 1024, the critic over 2048 rows, 63 steps),
+   with each output's error, the median times, and the median time at 64,
+   128 and 256 threads per block;
+9. serve GAN: a Generator and a Discriminator at the reference scale
+   (data 1, initial noise 5, noise 3, hidden 16 and 17, MLP 16, one hidden
+   layer, init multipliers 3.0 and 0.5, float32, random weights from a seed)
+   on OU data from ``get_ou_data`` answer three requests of
+   ``gan_loss(fused=True)`` under ``torch.no_grad()``, each launching
+   kernels 5 and 7 exactly once, and the same three on the ``sdeint`` route;
+   the generated paths, the per-sample critic scores and the losses of the
+   two routes must agree; request times and generated samples per second;
+10. profile GAN: a served request of each route under torch.profiler.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -44,7 +58,10 @@ import torch
 
 from torchsde_tpu_torch.models.latent_sde import (LatentSDE, latent_sde_loss,
                                                   make_lorenz_data)
+from torchsde_tpu_torch.models.sde_gan import (Discriminator, Generator,
+                                               gan_loss, get_ou_data)
 from torchsde_tpu_torch.ops import _build
+from torchsde_tpu_torch.ops import gan_fused as GF
 from torchsde_tpu_torch.ops import latent_fused as LF
 
 # Flagship configuration (bench.py:26-34 of the JAX package).
@@ -72,9 +89,43 @@ LOSS_RTOL = 1e-4
 # 80GB HBM3, 700 W), so 1e-5 leaves a margin of 20.
 GRAD_REL = 1e-5
 TRAIN_STEPS, LR, KL_ANNEAL = 5, 1e-2, 50   # examples/latent_sde_lorenz.py
+# SDE-GAN at the reference's scale (benchmarks/sde_gan_bench.py:195-203 of
+# the JAX package, the reference example's defaults), nothing cut; the init
+# multipliers of examples/sde_gan.py:34-37.
+GAN_BATCH, GAN_T, GAN_DT = 1024, 64, 1.0
+GAN_DATA, GAN_INIT_NOISE, GAN_NOISE = 1, 5, 3
+GAN_HIDDEN, GAN_CRITIC_HIDDEN, GAN_MLP, GAN_LAYERS = 16, 17, 16, 1
+GAN_MULT1, GAN_MULT2 = 3.0, 0.5
+# Kernels 5 and 7 vs plain on the same inputs, 63 dependent float32 steps:
+# atol max(GAN_KERNEL_ATOL, GAN_KERNEL_REL * the output's largest entry).
+# 1e-5 is the JAX package's fused-vs-XLA tolerance at its test size
+# (tests/test_fused_gan.py:58,81); at this scale the random-weight states
+# grow to 80-100 by the last step, where one float32 ulp is 7.6e-6, and the
+# kernel and its plain version sum in other orders (one FMA chain per lane
+# against cuBLAS). Measured (NVIDIA H100 80GB HBM3, 700 W): at most 1.5e-6
+# of scale, and the kernel as far from a float64 solve as the plain
+# version (3.3e-5 and 3.4e-5 on ys); GAN_KERNEL_REL leaves a margin of 2.6.
+GAN_KERNEL_ATOL, GAN_KERNEL_REL = 1e-5, 4e-6
+# Fused vs sdeint route on one served request: generated paths within
+# GAN_PATH_ATOL, critic scores and the loss within GAN_SCORE_REL times the
+# scores' largest magnitude (the loss is a difference of two means and can
+# be near zero, so it is held to the scores' scale, not its own). Measured
+# 3.4e-5 on paths and 1.5e-6 of scale on scores (NVIDIA H100 80GB HBM3,
+# 700 W).
+GAN_PATH_ATOL = 1e-4
+GAN_SCORE_REL = 1e-5
+GAN_THREADS = (64, 128, 256)
 # Published H100 SXM peaks (NVIDIA H100 datasheet): float32 outside the
 # tensor cores, and device memory.
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+
+
+# Device cycles (about 1 ms) that each timed run waits behind, so that the
+# host has enqueued the run's launches before the device reaches them: a
+# run's events then time the device's work, not the wrapper's host-side
+# checks, which take longer than the GAN kernels themselves. Work that
+# takes the host longer than this to enqueue is timed with its host gaps.
+QUEUE_AHEAD_CYCLES = 2_000_000
 
 
 def median_cuda_ms(fn, reps, warmup=2):
@@ -85,6 +136,7 @@ def median_cuda_ms(fn, reps, warmup=2):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -464,6 +516,263 @@ def phase_profile(device, served, trained, xs, ts):
             models[route], opts[route], xs, ts, route, 500, 1.0))
 
 
+# --------------------------------------------------------------------------- #
+#  SDE-GAN: kernels 5 and 7, served requests                                  #
+# --------------------------------------------------------------------------- #
+
+def gan_models(device):
+    gen = torch.Generator().manual_seed(SEED)
+    generator = Generator(GAN_DATA, GAN_INIT_NOISE, GAN_NOISE, GAN_HIDDEN,
+                          GAN_MLP, GAN_LAYERS, init_mult1=GAN_MULT1,
+                          init_mult2=GAN_MULT2, device=device, generator=gen)
+    critic = Discriminator(GAN_DATA, GAN_CRITIC_HIDDEN, GAN_MLP, GAN_LAYERS,
+                           device=device, generator=gen)
+    return generator, critic
+
+
+def gan_data(device):
+    """OU paths from get_ou_data (dataset 1024, 64 times): the real batch."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ts, data = get_ou_data(gen, GAN_BATCH, GAN_T, device=device)
+    torch.cuda.synchronize()
+    if (data.shape != (GAN_BATCH, GAN_T, 1 + GAN_DATA)
+            or not torch.isfinite(data).all()):
+        raise RuntimeError(f"OU data: shape {tuple(data.shape)} or "
+                           f"non-finite values")
+    print(f"OU data: {tuple(data.shape)} in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms, std of the values "
+          f"{float(data[..., 1].std()):.4f}", flush=True)
+    return ts, data.contiguous()
+
+
+def gan_kernel_inputs(device, models, ts, real):
+    """Seeded inputs of kernels 5 and 7 at the reference scale, as a served
+    request makes them: the generator's solve from the initial MLP on seeded
+    noise, and the critic's over those paths and the real ones."""
+    generator, critic = models
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    with torch.no_grad():
+        noise0 = torch.randn((GAN_BATCH, GAN_INIT_NOISE), generator=gen,
+                             device=device)
+        x0 = generator.initial(noise0)
+        gen_args = GF.prep_generator_solve(generator.func, x0, ts, gen,
+                                           GAN_DT)
+        fake = generator(gen, ts, GAN_BATCH, dt=GAN_DT, fused=True)
+        both = torch.cat([fake, real], dim=0)
+        func = critic.func.attach(ts, both)
+        cde_args = GF.prep_cde_solve(func, critic.initial(both[:, 0]), ts,
+                                     GAN_DT)
+    return ((gen_args, GF.gen_weights(generator.func)),
+            (cde_args, GF.cde_weights(critic.func)))
+
+
+def gen_flops(B, S, M, m, n):
+    """Operations of one generator solve, two per multiply-add: per row and
+    step, layer 1 of both towers (2(1+S)M), layer 2 of the drift (MS) and
+    of the diffusion (MSm), and the two g.dW products (2Sm). The lipswish
+    and tanh evaluations are not counted."""
+    return 2 * B * n * (2 * (1 + S) * M + M * S + M * S * m + 2 * S * m)
+
+
+def cde_flops(B, S, M, C, n):
+    """Operations of one critic solve, two per multiply-add: per row and
+    step, layer 1 ((1+S)M), layer 2 (MSC) and F.slope (SC)."""
+    return 2 * B * n * ((1 + S) * M + M * S * C + S * C)
+
+
+def check_gan_kernel(label, names, got, want, exact):
+    """Holds a GAN kernel's outputs to its plain version's, and reports
+    both one's and the other's distance from the plain version run in
+    float64 (``exact``); the kernel may be at most twice as far from it as
+    the plain version, plus GAN_KERNEL_ATOL. Returns the largest absolute
+    and the largest scale-relative error against the plain version."""
+    worst = worst_rel = 0.0
+    cells, failures = [], []
+    for name, g, w, e in zip(names, got, want, exact):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise RuntimeError(f"{label} {name}: shape {tuple(g.shape)} or "
+                               f"non-finite values")
+        err = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        rel = err / scale if scale > 0 else 0.0
+        err64 = float((g.double() - e).abs().max())
+        plain64 = float((w.double() - e).abs().max())
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        cells.append(f"{name} {err:.3e} (max|plain| {scale:.4g}, rel "
+                     f"{rel:.3e}; vs float64: kernel {err64:.3e}, plain "
+                     f"{plain64:.3e})")
+        if err > max(GAN_KERNEL_ATOL, GAN_KERNEL_REL * scale):
+            failures.append(f"{name} differs by {err:.3e} > max("
+                            f"{GAN_KERNEL_ATOL}, {GAN_KERNEL_REL} * "
+                            f"{scale:.4g})")
+        if err64 > 2 * plain64 + GAN_KERNEL_ATOL:
+            failures.append(f"{name} is {err64:.3e} from the float64 solve, "
+                            f"the plain version {plain64:.3e}")
+    print(f"{label} vs plain: " + "; ".join(cells), flush=True)
+    if failures:
+        raise RuntimeError(f"{label}: " + "; ".join(failures))
+    return worst, worst_rel
+
+
+def time_gan_kernel(label, cuda, plain, args, weights, outputs, flops):
+    """Median device times of a GAN kernel (20 runs at each block size,
+    the default's for the record) and of its plain version (5 runs)."""
+    by_threads = {}
+    for threads in GAN_THREADS:
+        by_threads[threads] = median_cuda_ms(
+            lambda: cuda(*args, weights, threads=threads), 20)
+    ms = by_threads[GF.THREADS]
+    plain_ms = median_cuda_ms(lambda: plain(*args, weights), 5)
+    bound_ms, bound_by = bound(flops, [*args, *weights, *outputs])
+    sweep = ", ".join(f"{t}: {v:.4f}" for t, v in by_threads.items())
+    print(f"{label}: median {ms:.4f} ms at {GF.THREADS} threads per block "
+          f"(threads: ms {sweep}); plain: median {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.5f} ms ({bound_by}, {flops / 1e9:.4f} GFLOP)",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by,
+                ms_by_threads={str(t): v for t, v in by_threads.items()})
+
+
+def double(tensors):
+    return [t.double() for t in tensors]
+
+
+def phase_gan_kernels(device, models, ts, real):
+    """Kernels 5 and 7 against their plain versions on seeded inputs at the
+    reference scale."""
+    (gen_args, gen_w), (cde_args, cde_w) = gan_kernel_inputs(
+        device, models, ts, real)
+    lib = _build.load_library()
+    B, S, M, m, n = GF.check_gen_inputs(*gen_args, gen_w)
+    Bc, Sc, Mc, C, _ = GF.check_cde_inputs(*cde_args, cde_w)
+    print(f"GAN kernels: shared memory per block "
+          f"{lib.tsde_gan_gen_fwd_smem_bytes(S, M, m)} bytes (kernel 5), "
+          f"{lib.tsde_gan_cde_fwd_smem_bytes(Sc, Mc, C)} bytes (kernel 7)",
+          flush=True)
+    with torch.no_grad():
+        got = GF.gen_solve_forward_cuda(*gen_args, gen_w)
+        want = GF.gen_solve_forward_plain(*gen_args, gen_w)
+        exact = GF.gen_solve_forward_plain(*double(gen_args), double(gen_w))
+        torch.cuda.synchronize()
+        err5 = check_gan_kernel("kernel 5", ("ys", "zs", "gs"), got, want,
+                                exact)
+        k5 = time_gan_kernel("kernel 5", GF.gen_solve_forward_cuda,
+                             GF.gen_solve_forward_plain, gen_args, gen_w,
+                             got, gen_flops(B, S, M, m, n))
+        got = GF.cde_solve_forward_cuda(*cde_args, cde_w)
+        want = GF.cde_solve_forward_plain(*cde_args, cde_w)
+        exact = GF.cde_solve_forward_plain(*double(cde_args), double(cde_w))
+        torch.cuda.synchronize()
+        err7 = check_gan_kernel("kernel 7", ("hs", "zs"), got, want, exact)
+        k7 = time_gan_kernel("kernel 7", GF.cde_solve_forward_cuda,
+                             GF.cde_solve_forward_plain, cde_args, cde_w,
+                             got, cde_flops(Bc, Sc, Mc, C, n))
+    return (dict(max_abs_err=err5[0], max_rel_err=err5[1], **k5),
+            dict(max_abs_err=err7[0], max_rel_err=err7[1], **k7))
+
+
+def gan_request(models, ts, real, seed, fused):
+    """One served request: gan_loss under no_grad on a generator seeded
+    ``seed``; returns the loss (a float) and the host-clock ms."""
+    generator, critic = models
+    gen = torch.Generator(device=real.device).manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss = gan_loss(generator, critic, gen, ts, real, dt=GAN_DT,
+                        adjoint=False, fused=fused)
+    torch.cuda.synchronize()
+    return float(loss), (time.perf_counter() - t0) * 1e3
+
+
+def paths_and_scores(models, ts, real, seed, fused):
+    """What a request computes on the way to its loss: the generated paths
+    and the per-sample scores of fake and real paths."""
+    generator, critic = models
+    gen = torch.Generator(device=real.device).manual_seed(seed)
+    with torch.no_grad():
+        fake = generator(gen, ts, GAN_BATCH, dt=GAN_DT, adjoint=False,
+                         fused=fused)
+        scores = critic.scores(ts, torch.cat([fake, real], dim=0), dt=GAN_DT,
+                               adjoint=False, fused=fused)
+    return fake, scores
+
+
+def phase_gan_serve(device, models, ts, real):
+    """Three served GAN requests on each route from the same generator
+    seeds; kernels 5 and 7 launched once per fused request; the two routes'
+    paths, scores and losses agree."""
+    gan_request(models, ts, real, 300, True)           # warm-up, both routes
+    gan_request(models, ts, real, 300, False)
+    seeds = (301, 302, 303)
+    GF.gen_launches = GF.cde_launches = 0
+    fused = []
+    for seed in seeds:
+        before = (GF.gen_launches, GF.cde_launches)
+        fused.append(gan_request(models, ts, real, seed, True))
+        delta = (GF.gen_launches - before[0], GF.cde_launches - before[1])
+        if delta != (1, 1):
+            raise RuntimeError(f"GAN request {seed}: kernels 5 and 7 "
+                               f"launched {delta} times")
+    launches = (GF.gen_launches, GF.cde_launches)
+    plain = [gan_request(models, ts, real, seed, False) for seed in seeds]
+    if (GF.gen_launches, GF.cde_launches) != launches:
+        raise RuntimeError("the sdeint route launched a GAN kernel")
+    for seed, (lf, _), (lp, _) in zip(seeds, fused, plain):
+        fake_f, s_f = paths_and_scores(models, ts, real, seed, True)
+        fake_p, s_p = paths_and_scores(models, ts, real, seed, False)
+        for name, t in (("paths", fake_f), ("scores", s_f)):
+            if not torch.isfinite(t).all():
+                raise RuntimeError(f"GAN request {seed}: non-finite {name}")
+        if fake_f.shape != (GAN_BATCH, GAN_T, 1 + GAN_DATA):
+            raise RuntimeError(f"generated paths of shape "
+                               f"{tuple(fake_f.shape)}")
+        path_err = float((fake_f - fake_p).abs().max())
+        scale = float(s_p.abs().max())
+        score_err = float((s_f - s_p).abs().max())
+        loss_err = abs(lf - lp)
+        print(f"GAN request {seed}: loss fused {lf:.8g} sdeint {lp:.8g} "
+              f"(diff {loss_err:.3e}); paths max diff {path_err:.3e} "
+              f"(max|path| {float(fake_p.abs().max()):.4g}); scores max "
+              f"diff {score_err:.3e} (max|score| {scale:.4g})", flush=True)
+        if path_err > GAN_PATH_ATOL:
+            raise RuntimeError(f"GAN request {seed}: generated paths differ "
+                               f"by {path_err:.3e} > {GAN_PATH_ATOL}")
+        if max(score_err, loss_err) > GAN_SCORE_REL * scale:
+            raise RuntimeError(f"GAN request {seed}: scores or loss differ "
+                               f"by {max(score_err, loss_err):.3e} > "
+                               f"{GAN_SCORE_REL} * {scale:.4g}")
+    fused_ms = float(np.median([t for _, t in fused]))
+    plain_ms = float(np.median([t for _, t in plain]))
+    print(f"GAN request: fused median {fused_ms:.3f} ms, sdeint median "
+          f"{plain_ms:.3f} ms (host clock, synchronised)", flush=True)
+    generator = models[0]
+    times = []
+    for i in range(11):
+        gen = torch.Generator(device=device).manual_seed(400 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            generator(gen, ts, GAN_BATCH, dt=GAN_DT, fused=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    sample_s = float(np.median(times[1:]))
+    print(f"sampling: generator(fused=True) of {GAN_BATCH} paths, median "
+          f"{sample_s * 1e3:.3f} ms, {GAN_BATCH / sample_s:.1f} samples/s "
+          f"(host clock, synchronised)", flush=True)
+    return launches
+
+
+def phase_gan_profile(device, models, ts, real):
+    """A served GAN request of each route under the profiler."""
+    for route in ROUTES:
+        profile_run(f"GAN request {route}", lambda: gan_request(
+            models, ts, real, 500, route == "fused"))
+
+
 def main():
     device, card = phase_device()
     phase_build()
@@ -473,6 +782,11 @@ def main():
     served_launches, served = phase_serve(device, xs, ts)
     launches, grad_rel, models, opts = phase_train(device, xs, ts)
     phase_profile(device, served, (models, opts), xs, ts)
+    gan = gan_models(device)
+    gan_ts, real = gan_data(device)
+    kernel5, kernel7 = phase_gan_kernels(device, gan, gan_ts, real)
+    gan_launches = phase_gan_serve(device, gan, gan_ts, real)
+    phase_gan_profile(device, gan, gan_ts, real)
     torch.cuda.synchronize()
     csrc = "torchsde_tpu_torch/ops/csrc"
     records = [
@@ -486,6 +800,14 @@ def main():
              replaces="torchsde_tpu/ops/latent_fused.py:248",
              launches=launches[1], library_ms=None,
              step0_grad_rel_err=grad_rel, **kernel2),
+        dict(name="gan_gen_fwd", route="cuda",
+             source=f"{csrc}/gan_gen_fwd.cu",
+             replaces="torchsde_tpu/ops/gan_fused.py:151",
+             launches=gan_launches[0], library_ms=None, **kernel5),
+        dict(name="gan_cde_fwd", route="cuda",
+             source=f"{csrc}/gan_cde_fwd.cu",
+             replaces="torchsde_tpu/ops/gan_fused.py:422",
+             launches=gan_launches[1], library_ms=None, **kernel7),
     ]
     for record in records:
         if record["launches"] < 1:

@@ -53,3 +53,34 @@ def port_latent_sde(jax_model, dtype):
                   jax_model.context_size, enc.hidden_size, dtype=dtype,
                   device="cpu")
     return load_jax_params(m, jax_named_arrays(jax_model))
+
+
+def port_generator(jax_gen, dtype):
+    """A torchsde_tpu_torch SDE-GAN Generator holding ``jax_gen``'s
+    weights."""
+    from torchsde_tpu_torch.models.sde_gan import Generator
+    func = jax_gen.func
+    drift = func.drift.layers
+    m = Generator(jax_gen.readout.w.shape[1], jax_gen.initial_noise_size,
+                  func.noise_size, func.hidden_size, drift[0].w.shape[1],
+                  len(drift) - 1, dtype=dtype, device="cpu")
+    return load_jax_params(m, jax_named_arrays(jax_gen))
+
+
+# The critic CDE's control path: per-batch data that the JAX module carries
+# as leaves and the port keeps outside the module's state.
+CDE_PATH_KEYS = ("func._path_ts", "func._path_ys")
+
+
+def port_discriminator(jax_disc, dtype):
+    """A torchsde_tpu_torch SDE-GAN Discriminator holding ``jax_disc``'s
+    weights (its control-path leaves are dropped)."""
+    from torchsde_tpu_torch.models.sde_gan import Discriminator
+    layers = jax_disc.func.func.layers
+    m = Discriminator(jax_disc.func.data_size, jax_disc.func.hidden_size,
+                      layers[0].w.shape[1], len(layers) - 1, dtype=dtype,
+                      device="cpu")
+    arrays = jax_named_arrays(jax_disc)
+    for key in CDE_PATH_KEYS:
+        del arrays[key]
+    return load_jax_params(m, arrays)

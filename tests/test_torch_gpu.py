@@ -1,10 +1,15 @@
-"""The CUDA whole-solve kernels (forward and backward) against their plain
-versions on the card, at shapes the flagship run of chip_smoke.py does not
-reach: a ragged last batch tile, a hidden width above the block's 128
-threads, the smallest widths, a width whose weights do not fit in shared
-memory; saturated diffusion, bitwise repeatability of the gradients, the
-guards of the CUDA route, and the fused route's training gradients against
-the sdeint route's.
+"""The CUDA whole-solve kernels against their plain versions on the card, at
+shapes the flagship runs of chip_smoke.py do not reach.
+
+Latent SDE (kernels 1 and 2): a ragged last batch tile, a hidden width
+above the block's 128 threads, the smallest widths, a width whose weights
+do not fit in shared memory; saturated diffusion, bitwise repeatability of
+the gradients, the guards of the CUDA route, and the fused route's training
+gradients against the sdeint route's. SDE-GAN (kernels 5 and 7): a batch
+that is not a multiple of the rows per block, one noise or control
+channel, the widest state and hidden widths the kernels take, 32 to 256
+threads per block; the too-wide case, the refusal to run while autograd
+records, and a small gan_loss on both routes.
 
 Run on a machine with a CUDA card from the repository's root:
 ``python -m pytest tests/test_torch_gpu.py -m gpu --noconftest`` (the
@@ -15,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torchsde_tpu_torch.ops.gan_fused as GF
 import torchsde_tpu_torch.ops.latent_fused as LF
 from torchsde_tpu_torch.models.latent_sde import LatentSDE, latent_sde_loss
 
@@ -180,3 +186,112 @@ def test_fused_gradients_match_sdeint_route(cuda):
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-4 * float(want.abs().max()),
                                    msg=name)
+
+
+# --------------------------------------------------------------------------- #
+#  SDE-GAN kernels 5 (generator) and 7 (critic)                               #
+# --------------------------------------------------------------------------- #
+
+GEN_SHAPES = [
+    (37, 16, 16, 3, 6),     # batch not a multiple of the rows per block
+    (5, 8, 32, 1, 4),       # m = 1, hidden wider than the state
+    (64, 32, 32, 8, 3),     # the widest the kernel takes
+    (3, 1, 1, 1, 2),        # the smallest widths, one step
+]
+CDE_SHAPES = [
+    (37, 17, 16, 2, 6),     # the critic's widths, ragged batch
+    (5, 32, 32, 8, 3),      # the widest the kernel takes
+    (9, 5, 20, 1, 4),       # one control channel
+]
+
+
+def _gan_gen_args(device, B, S, M, m, T, seed):
+    from torchsde_tpu_torch.models.sde_gan import Generator
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = Generator(1, 5, m, S, M, 1, init_mult2=0.5, device=device,
+                      generator=torch.Generator().manual_seed(seed))
+    ts = np.arange(T, dtype=np.float64)
+    x0 = torch.randn((B, S), generator=gen, device=device)
+    return (GF.prep_generator_solve(model.func, x0, ts, gen, 1.0),
+            GF.gen_weights(model.func))
+
+
+def _gan_cde_args(device, B, S, M, C, T, seed):
+    from torchsde_tpu_torch.models.sde_gan import Discriminator
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = Discriminator(C - 1, S, M, 1, device=device,
+                          generator=torch.Generator().manual_seed(seed))
+    ts = np.arange(T, dtype=np.float64)
+    paths = torch.randn((B, T, C), generator=gen, device=device)
+    func = model.func.attach(ts, paths)
+    return (GF.prep_cde_solve(func, model.initial(paths[:, 0]), ts, 1.0),
+            GF.cde_weights(model.func))
+
+
+@pytest.mark.parametrize("B,S,M,m,T", GEN_SHAPES)
+@pytest.mark.parametrize("threads", [32, 128, 256])
+def test_gan_gen_kernel_matches_plain(cuda, B, S, M, m, T, threads):
+    with torch.no_grad():
+        args, weights = _gan_gen_args(cuda, B, S, M, m, T, 0)
+        before = GF.gen_launches
+        got = GF.gen_solve_forward_cuda(*args, weights, threads=threads)
+        assert GF.gen_launches == before + 1
+        want = GF.gen_solve_forward_plain(*args, weights)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("B,S,M,C,T", CDE_SHAPES)
+@pytest.mark.parametrize("threads", [32, 128, 256])
+def test_gan_cde_kernel_matches_plain(cuda, B, S, M, C, T, threads):
+    with torch.no_grad():
+        args, weights = _gan_cde_args(cuda, B, S, M, C, T, 1)
+        before = GF.cde_launches
+        got = GF.cde_solve_forward_cuda(*args, weights, threads=threads)
+        assert GF.cde_launches == before + 1
+        want = GF.cde_solve_forward_plain(*args, weights)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+
+
+def test_gan_too_wide_raises(cuda):
+    with torch.no_grad():
+        args, weights = _gan_gen_args(cuda, 4, 33, 16, 3, 3, 2)
+        with pytest.raises(ValueError, match="<= 32"):
+            GF.gen_solve_forward(*args, weights)
+        args, weights = _gan_cde_args(cuda, 4, 17, 16, 9, 3, 2)
+        with pytest.raises(ValueError, match="channels"):
+            GF.cde_solve_forward(*args, weights)
+
+
+def test_gan_cuda_route_refuses_autograd(cuda):
+    args, weights = _gan_gen_args(cuda, 4, 16, 16, 3, 3, 3)
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        GF.gen_solve_forward(*args, weights)
+    args, weights = _gan_cde_args(cuda, 4, 17, 16, 2, 3, 3)
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        GF.cde_solve_forward(*args, weights)
+
+
+def test_gan_loss_on_both_routes_agrees(cuda):
+    from torchsde_tpu_torch.models.sde_gan import (Discriminator, Generator,
+                                                   gan_loss, get_ou_data)
+    init = torch.Generator().manual_seed(4)
+    generator = Generator(1, 5, 3, 16, 16, 1, init_mult1=3.0, init_mult2=0.5,
+                          device=cuda, generator=init)
+    critic = Discriminator(1, 17, 16, 1, device=cuda, generator=init)
+    ts, real = get_ou_data(torch.Generator(device=cuda).manual_seed(5), 37,
+                           9, device=cuda)
+    losses = []
+    with torch.no_grad():
+        for fused in (True, False):
+            gen = torch.Generator(device=cuda).manual_seed(6)
+            before = (GF.gen_launches, GF.cde_launches)
+            losses.append(float(gan_loss(generator, critic, gen, ts, real,
+                                         adjoint=False, fused=fused)))
+            assert (GF.gen_launches - before[0],
+                    GF.cde_launches - before[1]) == \
+                ((1, 1) if fused else (0, 0))
+    np.testing.assert_allclose(losses[0], losses[1], rtol=0, atol=1e-5)

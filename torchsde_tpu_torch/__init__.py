@@ -3,13 +3,15 @@
 It runs on PyTorch (eagerly: JAX's ``jit`` has no counterpart), takes an
 explicit ``torch.Generator`` wherever the JAX package takes a key, and
 replaces the JAX package's Pallas TPU kernels with CUDA kernels written for
-Hopper. It never imports JAX. Ported so far: fixed-step Euler ``sdeint``
-with ``logqp``, and the latent-SDE model with its whole-solve forward kernel
-(``ops/latent_fused.py``).
+Hopper. It never imports JAX. Ported so far: fixed-step ``sdeint`` with
+Euler (Itô, with ``logqp``) and reversible Heun (Stratonovich); the
+latent-SDE model with its whole-solve kernels (``ops/latent_fused.py``); and
+the SDE-GAN model with the forward kernels of its generator and critic
+solves (``ops/gan_fused.py``).
 """
 
 from .brownian.base import BaseBrownian
-from .core.base_sde import BaseSDE, SDEIto
+from .core.base_sde import BaseSDE, SDEIto, SDEStratonovich
 from .core.sdeint import sdeint
 from .settings import (LEVY_AREA_APPROXIMATIONS, METHOD_OPTIONS, METHODS,
                        NOISE_TYPES, SDE_TYPES)
@@ -17,7 +19,7 @@ from .settings import (LEVY_AREA_APPROXIMATIONS, METHOD_OPTIONS, METHODS,
 __version__ = "0.1.0"
 
 __all__ = [
-    "BaseBrownian", "BaseSDE", "SDEIto", "sdeint",
+    "BaseBrownian", "BaseSDE", "SDEIto", "SDEStratonovich", "sdeint",
     "LEVY_AREA_APPROXIMATIONS", "METHOD_OPTIONS", "METHODS", "NOISE_TYPES",
     "SDE_TYPES", "__version__",
 ]

@@ -30,6 +30,12 @@ class SDEIto(BaseSDE):
         super().__init__(noise_type=noise_type, sde_type=SDE_TYPES.ito)
 
 
+class SDEStratonovich(BaseSDE):
+    def __init__(self, noise_type):
+        super().__init__(noise_type=noise_type,
+                         sde_type=SDE_TYPES.stratonovich)
+
+
 _CAPABILITIES = ("f", "g", "h", "f_and_g", "g_prod", "f_and_g_prod")
 
 

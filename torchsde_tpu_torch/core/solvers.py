@@ -1,8 +1,8 @@
 """SDE solver step functions (counterpart of ``torchsde_tpu/core/solvers.py``).
 
 ``step`` is a function ``(t0, t1, y0, extra0, noise) -> (y1, extra1)``; the
-Brownian increments are handed in by the integrator. Only Euler–Maruyama is
-ported so far.
+Brownian increments are handed in by the integrator. Ported so far:
+Euler–Maruyama (Itô) and reversible Heun (Stratonovich).
 """
 
 from ..settings import LEVY_AREA_APPROXIMATIONS, METHODS, NOISE_TYPES, SDE_TYPES
@@ -72,8 +72,37 @@ class Euler(BaseSDESolver):
         return y0 + dt * f + g_prod, ()
 
 
+class ReversibleHeun(BaseSDESolver):
+    """Algebraically reversible Heun (arXiv:2105.13493). Carries the extra
+    state ``(f0, g0, z0)``: the drift and diffusion at the last evaluation
+    point ``z0``, so each step evaluates ``f_and_g`` once."""
+    weak_order = 1.0
+    sde_type = SDE_TYPES.stratonovich
+    noise_types = _ALL_NOISE
+    levy_area_approximations = _ALL_LEVY
+
+    def __init__(self, sde, **kwargs):
+        self.strong_order = 1.0 if sde.noise_type == NOISE_TYPES.additive else 0.5
+        super().__init__(sde=sde, **kwargs)
+
+    def init_extra_solver_state(self, t0, y0):
+        f0, g0 = self.sde.f_and_g(t0, y0)
+        return (f0, g0, y0)
+
+    def step(self, t0, t1, y0, extra0, noise):
+        f0, g0, z0 = extra0
+        dt = t1 - t0
+        dW = noise[0]
+        z1 = 2.0 * y0 - z0 + dt * f0 + self.sde.prod(g0, dW)
+        f1, g1 = self.sde.f_and_g(t1, z1)
+        y1 = (y0 + 0.5 * dt * f0 + 0.5 * dt * f1
+              + self.sde.prod(g0 + g1, 0.5 * dW))
+        return y1, (f1, g1, z1)
+
+
 SOLVER_REGISTRY = {
     METHODS.euler: {SDE_TYPES.ito: Euler},
+    METHODS.reversible_heun: {SDE_TYPES.stratonovich: ReversibleHeun},
 }
 
 

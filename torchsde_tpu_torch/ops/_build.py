@@ -18,8 +18,9 @@ import subprocess
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("latent_fused_fwd.cu", "latent_fused_bwd.cu")
-HEADERS = ("latent_fused_common.cuh",)
+SOURCES = ("latent_fused_fwd.cu", "latent_fused_bwd.cu", "gan_gen_fwd.cu",
+           "gan_cde_fwd.cu")
+HEADERS = ("latent_fused_common.cuh", "gan_fused_common.cuh")
 BUILD_DIR = Path(os.environ.get(
     "TSDE_TORCH_BUILD_DIR",
     Path(__file__).resolve().parents[2] / "build" / "torch_kernels"))
@@ -60,6 +61,16 @@ def _bind(lib):
     bwd.restype = I
     for name in ("fwd", "bwd"):
         smem = getattr(lib, f"tsde_latent_fused_{name}_smem_bytes")
+        smem.argtypes = [I, I, I]
+        smem.restype = ctypes.c_size_t
+    gen = lib.tsde_gan_gen_fwd
+    gen.argtypes = [P] * 17 + [I] * 7 + [P]
+    gen.restype = I
+    cde = lib.tsde_gan_cde_fwd
+    cde.argtypes = [P] * 11 + [I] * 7 + [P]
+    cde.restype = I
+    for name in ("gen", "cde"):
+        smem = getattr(lib, f"tsde_gan_{name}_fwd_smem_bytes")
         smem.argtypes = [I, I, I]
         smem.restype = ctypes.c_size_t
     lib.tsde_latent_fused_bwd_blocks.argtypes = [I]
@@ -114,3 +125,23 @@ def load_library():
     _bind(lib)
     _lib = lib
     return lib
+
+
+def library_for(smem_fn, *widths):
+    """The kernels' library, once the shared memory that ``smem_fn`` (a C
+    function of the library) gives for these widths is known to fit a
+    block. Raises ValueError beyond it."""
+    lib = load_library()
+    smem = getattr(lib, smem_fn)(*widths)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"the solve's weights and activations need {smem} "
+                         f"bytes of shared memory; a block has "
+                         f"{MAX_SMEM_BYTES}")
+    return lib
+
+
+def check_launch(lib, rc, kernel):
+    """Raises RuntimeError when a launch function returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: "
+                           + lib.tsde_cuda_error_string(rc).decode())

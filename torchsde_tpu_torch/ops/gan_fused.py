@@ -1,0 +1,390 @@
+"""Whole-solve kernels for the SDE-GAN's two solves (counterpart of
+``torchsde_tpu/ops/gan_fused.py``).
+
+Both solves are reversible Heun at ``dt=1.0`` over 2-Linear towers
+(Linear, lipswish, Linear, tanh) of tiny width: a chain of dependent steps
+whose per-step products are far too small to fill the card. On the
+``sdeint`` route each step is some twenty kernel launches; here each solve
+is one launch of a hand-written CUDA kernel:
+
+* **generator** (``csrc/gan_gen_fwd.cu``): Stratonovich general noise, the
+  drift ``(1+S -> M -> S)`` and diffusion ``(1+S -> M -> S*m)`` towers of
+  ``[t, z]``. With the carry ``(x, z, f, g)``, each step is::
+
+      z1 = 2 x - z + dt f0 + g0 . dW
+      (f1, g1) = towers(t1, z1)
+      x1 = x + dt/2 (f0 + f1) + (g0 + g1) . dW/2
+
+  where ``g . dW`` is the per-row ``(S, m) @ (m)`` product;
+* **critic** (``csrc/gan_cde_fwd.cu``): the drift-only CDE
+  ``dh = F(t, h) X'(t) dt`` with the control slopes streamed in per step,
+  ``f1 = F(t1, z1) @ slope`` and no noise.
+
+The initial evaluations ``f0, g0`` (and the critic's ``f0``) run as plain
+PyTorch outside the kernels, as the JAX package runs them in XLA.
+
+The weights are the towers' own, unpadded: the TPU kernels' 128-lane
+padding and 0/1 tile matrices are not ported. A CPU tensor goes to the
+plain versions (:func:`gen_solve_forward_plain`,
+:func:`cde_solve_forward_plain`: the same math as loops of PyTorch
+operators, differentiable); a CUDA tensor goes to the kernels, which raise
+rather than fall back. The kernels' backward (the TPU package's
+``_gen_bwd_kernel`` and ``_cde_bwd_kernel``) is not ported yet, so on CUDA
+tensors the solves refuse to run while autograd records (ROADMAP queue 1
+item 11b). ``gen_launches`` and ``cde_launches`` count the kernels'
+launches.
+"""
+
+import numpy as np
+import torch
+
+from . import _build
+from ..core import integrate
+from ..core.sdeint import host_times
+from ..utils.misc import check_kernel_tensor
+
+# Launches of the generator and the critic kernel since import (or since a
+# caller reset them to 0).
+gen_launches = 0
+cde_launches = 0
+
+# Threads per block of both kernels. A row's work stays inside one warp
+# (a group of lanes per row), so this only sets how many rows a block
+# holds; chip_smoke.py measures 64, 128 and 256.
+THREADS = 128
+# The kernels give each row one lane per state unit and one per hidden
+# unit, inside one warp, and keep a unit's noise channels (generator) or
+# control channels (critic) in registers.
+MAX_LANES = 32
+MAX_CHANNELS = 8
+
+GEN_WEIGHT_NAMES = ("W1f", "b1f", "W2f", "b2f", "W1g", "b1g", "W2g", "b2g")
+CDE_WEIGHT_NAMES = ("W1", "b1", "W2", "b2")
+
+
+def _tower_weights(mlp, name):
+    """The unpadded weights of a 2-Linear tanh LipMLP: W1 (in, M), b1 (M),
+    W2 (M, out), b2 (out). Refuses the architectures the kernels do not
+    implement."""
+    if len(mlp.layers) != 2:
+        raise ValueError(f"fused GAN kernels support num_layers=1 (2 Linear "
+                         f"layers per tower), got {len(mlp.layers)} in "
+                         f"{name}; use fused=False")
+    if not mlp.tanh:
+        raise ValueError(f"fused GAN kernels expect tanh towers ({name}); "
+                         f"use fused=False")
+    l0, l1 = mlp.layers
+    return (l0.w, l0.b, l1.w, l1.b)
+
+
+def gen_weights(func):
+    """A GeneratorFunc's drift and diffusion weights, in GEN_WEIGHT_NAMES
+    order."""
+    return (_tower_weights(func.drift, "drift")
+            + _tower_weights(func.diffusion, "diffusion"))
+
+
+def cde_weights(func):
+    """A CDEFunc's tower weights, in CDE_WEIGHT_NAMES order."""
+    return _tower_weights(func.func, "func")
+
+
+def lipswish_tower(x, W1, b1, W2, b2):
+    """Linear, lipswish (``0.909 x sigmoid(x)``), Linear, tanh."""
+    pre1 = x @ W1 + b1
+    return torch.tanh((0.909 * pre1 * torch.sigmoid(pre1)) @ W2 + b2)
+
+
+def time_column(t, x):
+    """``[t, x]``: the time ``t`` (a number or a 0-d tensor) as a first
+    column of ``x``'s batch, the towers' input."""
+    t = torch.as_tensor(t, dtype=x.dtype, device=x.device)
+    return torch.cat([t.reshape(1, 1).expand(x.shape[0], 1), x], dim=1)
+
+
+def gen_solve_forward_plain(x0, f0, g0, noise, t1s, dts, weights):
+    """The generator kernel's function as a loop of PyTorch operators.
+
+    x0, f0 (B,S); g0 (B,S*m) with ``g[b, i*m + j]`` the (i, j) entry;
+    noise (N,B,m); t1s, dts (N,); weights in GEN_WEIGHT_NAMES order.
+    Returns ys, zs (N,B,S) and gs (N,B,S*m): the state, the evaluation
+    point and the diffusion after each step."""
+    wf, wg = weights[:4], weights[4:]
+    B, S = x0.shape
+    m = noise.shape[2]
+    x, z, f, g = x0, x0, f0, g0
+    ys, zs, gs = [], [], []
+    for s in range(noise.shape[0]):
+        dt, dW = dts[s], noise[s]
+        g0dW = torch.einsum("bsm,bm->bs", g.reshape(B, S, m), dW)
+        z1 = 2.0 * x - z + dt * f + g0dW
+        zin = time_column(t1s[s], z1)
+        f1 = lipswish_tower(zin, *wf)
+        g1 = lipswish_tower(zin, *wg)
+        gsum_dW = torch.einsum("bsm,bm->bs", (g + g1).reshape(B, S, m), dW)
+        x = x + 0.5 * dt * (f + f1) + 0.5 * gsum_dW
+        z, f, g = z1, f1, g1
+        ys.append(x)
+        zs.append(z)
+        gs.append(g)
+    return torch.stack(ys), torch.stack(zs), torch.stack(gs)
+
+
+def cde_solve_forward_plain(h0, f0, slopes, t1s, dts, weights):
+    """The critic kernel's function as a loop of PyTorch operators.
+
+    h0, f0 (B,S); slopes (N,B,C), the control's slope at each step's end
+    point; t1s, dts (N,); weights in CDE_WEIGHT_NAMES order, the tower's
+    output ``F[b, i*C + c]``. Returns hs, zs (N,B,S)."""
+    B, S = h0.shape
+    C = slopes.shape[2]
+    h, z, f = h0, h0, f0
+    hs, zs = [], []
+    for s in range(slopes.shape[0]):
+        dt = dts[s]
+        z1 = 2.0 * h - z + dt * f
+        F = lipswish_tower(time_column(t1s[s], z1), *weights)
+        f1 = torch.einsum("bsc,bc->bs", F.reshape(B, S, C), slopes[s])
+        h = h + 0.5 * dt * (f + f1)
+        z, f = z1, f1
+        hs.append(h)
+        zs.append(z)
+    return torch.stack(hs), torch.stack(zs)
+
+
+def _check_tower(names, weights, in_size, out_size, device):
+    W1 = weights[0]
+    if W1.ndim != 2:
+        raise ValueError(f"{names[0]} must be 2-D, got {tuple(W1.shape)}")
+    M = W1.shape[1]
+    shapes = ((in_size, M), (M,), (M, out_size), (out_size,))
+    for name, w, shape in zip(names, weights, shapes):
+        check_kernel_tensor(name, w, shape, torch.float32, device)
+    return M
+
+
+def check_gen_inputs(x0, f0, g0, noise, t1s, dts, weights):
+    """What the generator kernel takes: float32 contiguous tensors of
+    matching shapes, all on one device. Returns (B, S, M, m, N); raises
+    ValueError on anything else."""
+    if x0.ndim != 2 or noise.ndim != 3:
+        raise ValueError("expected x0 (B,S) and noise (N,B,m)")
+    if len(weights) != len(GEN_WEIGHT_NAMES):
+        raise ValueError(f"expected {len(GEN_WEIGHT_NAMES)} weight tensors")
+    B, S = x0.shape
+    N, _, m = noise.shape
+    for name, t, shape in (("x0", x0, (B, S)), ("f0", f0, (B, S)),
+                           ("g0", g0, (B, S * m)), ("noise", noise, (N, B, m)),
+                           ("t1s", t1s, (N,)), ("dts", dts, (N,))):
+        check_kernel_tensor(name, t, shape, torch.float32, x0.device)
+    M = _check_tower(GEN_WEIGHT_NAMES[:4], weights[:4], 1 + S, S, x0.device)
+    Mg = _check_tower(GEN_WEIGHT_NAMES[4:], weights[4:], 1 + S, S * m,
+                      x0.device)
+    if Mg != M:
+        raise ValueError(f"the drift and diffusion towers have widths {M} "
+                         f"and {Mg}; the kernel takes one width")
+    return B, S, M, m, N
+
+
+def check_cde_inputs(h0, f0, slopes, t1s, dts, weights):
+    """What the critic kernel takes: float32 contiguous tensors of matching
+    shapes, all on one device. Returns (B, S, M, C, N); raises ValueError on
+    anything else."""
+    if h0.ndim != 2 or slopes.ndim != 3:
+        raise ValueError("expected h0 (B,S) and slopes (N,B,C)")
+    if len(weights) != len(CDE_WEIGHT_NAMES):
+        raise ValueError(f"expected {len(CDE_WEIGHT_NAMES)} weight tensors")
+    B, S = h0.shape
+    N, _, C = slopes.shape
+    for name, t, shape in (("h0", h0, (B, S)), ("f0", f0, (B, S)),
+                           ("slopes", slopes, (N, B, C)), ("t1s", t1s, (N,)),
+                           ("dts", dts, (N,))):
+        check_kernel_tensor(name, t, shape, torch.float32, h0.device)
+    M = _check_tower(CDE_WEIGHT_NAMES, weights, 1 + S, S * C, h0.device)
+    return B, S, M, C, N
+
+
+def check_widths(S, M, channels, threads=THREADS):
+    """The kernels' limits: one lane per state unit and per hidden unit of
+    a row, inside one warp (S, M <= 32), at most 8 noise or control
+    channels per state unit (kept in registers), and a block of whole warps
+    of at most 256 threads. Raises ValueError beyond them."""
+    if not (1 <= S <= MAX_LANES and 1 <= M <= MAX_LANES):
+        raise ValueError(f"the fused GAN kernels give each row one lane per "
+                         f"state and hidden unit inside a warp, so S and M "
+                         f"must be <= {MAX_LANES}; got S={S}, M={M}")
+    if not 1 <= channels <= MAX_CHANNELS:
+        raise ValueError(f"the fused GAN kernels keep at most {MAX_CHANNELS} "
+                         f"noise or control channels per unit in registers; "
+                         f"got {channels}")
+    if threads % 32 or not 32 <= threads <= 256:
+        raise ValueError(f"threads per block must be a multiple of 32 in "
+                         f"[32, 256], got {threads}")
+
+
+def gen_solve_forward_cuda(x0, f0, g0, noise, t1s, dts, weights,
+                           threads=THREADS):
+    """Launch the generator kernel on the current stream; returns what
+    :func:`gen_solve_forward_plain` returns. Raises on tensors it does not
+    take, on a failed build and on a refused launch."""
+    global gen_launches
+    if not x0.is_cuda:
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
+                         f"{x0.device}")
+    B, S, M, m, N = check_gen_inputs(x0, f0, g0, noise, t1s, dts, weights)
+    check_widths(S, M, m, threads)
+    lib = _build.library_for("tsde_gan_gen_fwd_smem_bytes", S, M, m)
+    f32 = dict(dtype=torch.float32, device=x0.device)
+    ys = torch.empty((N, B, S), **f32)
+    zs = torch.empty((N, B, S), **f32)
+    gs = torch.empty((N, B, S * m), **f32)
+    ptrs = [t.data_ptr() for t in (x0, f0, g0, noise, t1s, dts, *weights,
+                                   ys, zs, gs)]
+    stream = torch.cuda.current_stream(x0.device).cuda_stream
+    rc = lib.tsde_gan_gen_fwd(*ptrs, B, S, M, m, N, threads,
+                              x0.device.index or 0, stream)
+    _build.check_launch(lib, rc, "gan_gen_fwd")
+    gen_launches += 1
+    return ys, zs, gs
+
+
+def cde_solve_forward_cuda(h0, f0, slopes, t1s, dts, weights,
+                           threads=THREADS):
+    """Launch the critic kernel on the current stream; returns what
+    :func:`cde_solve_forward_plain` returns. Raises on tensors it does not
+    take, on a failed build and on a refused launch."""
+    global cde_launches
+    if not h0.is_cuda:
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
+                         f"{h0.device}")
+    B, S, M, C, N = check_cde_inputs(h0, f0, slopes, t1s, dts, weights)
+    check_widths(S, M, C, threads)
+    lib = _build.library_for("tsde_gan_cde_fwd_smem_bytes", S, M, C)
+    hs = torch.empty((N, B, S), dtype=torch.float32, device=h0.device)
+    zs = torch.empty_like(hs)
+    ptrs = [t.data_ptr() for t in (h0, f0, slopes, t1s, dts, *weights,
+                                   hs, zs)]
+    stream = torch.cuda.current_stream(h0.device).cuda_stream
+    rc = lib.tsde_gan_cde_fwd(*ptrs, B, S, M, C, N, threads,
+                              h0.device.index or 0, stream)
+    _build.check_launch(lib, rc, "gan_cde_fwd")
+    cde_launches += 1
+    return hs, zs
+
+
+def _route(tensors, plain, cuda, what):
+    """The plain version for CPU tensors, the kernel for CUDA tensors; no
+    fallback between them. The kernels have no backward yet, so a CUDA
+    solve refuses to run while autograd records."""
+    device = tensors[0].device
+    if device.type == "cpu":
+        return plain
+    if device.type == "cuda":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+            raise NotImplementedError(
+                f"the fused {what} solve on CUDA has only its forward kernel "
+                f"so far; its backward kernel and GAN training on the fused "
+                f"route are ROADMAP queue 1 item 11b. Run it under "
+                f"torch.no_grad(), or train with fused=False")
+        return cuda
+    raise ValueError(f"no fused GAN solve for device {device}")
+
+
+def gen_solve_forward(x0, f0, g0, noise, t1s, dts, weights):
+    """The generator's whole solve: the plain version for CPU tensors, the
+    kernel for CUDA tensors."""
+    solve = _route((x0, f0, g0, noise, *weights), gen_solve_forward_plain,
+                   gen_solve_forward_cuda, "generator")
+    return solve(x0, f0, g0, noise, t1s, dts, weights)
+
+
+def cde_solve_forward(h0, f0, slopes, t1s, dts, weights):
+    """The critic's whole solve: the plain version for CPU tensors, the
+    kernel for CUDA tensors."""
+    solve = _route((h0, f0, slopes, *weights), cde_solve_forward_plain,
+                   cde_solve_forward_cuda, "critic")
+    return solve(h0, f0, slopes, t1s, dts, weights)
+
+
+def _step_grid(ts, dt, what):
+    """The float64 step grid of a solve over ``ts``, which must coincide
+    with ``ts`` (the SDE-GAN setting: dt=1.0 on integer knots)."""
+    ts_np = host_times(ts)
+    grid = integrate.build_step_grid(ts_np[0], ts_np[-1], dt)
+    if len(grid) != len(ts_np) or not np.allclose(grid, ts_np, atol=1e-9):
+        raise ValueError(f"fused {what} solve requires the dt-grid to "
+                         f"coincide with ts (dt=1.0 on integer knots)")
+    return ts_np, grid
+
+
+def _grid_times(grid, dtype, device):
+    """t1s, and dts by subtraction in the state dtype, as the sdeint
+    route's steps use them."""
+    grid_dev = torch.as_tensor(grid, dtype=dtype, device=device)
+    return grid_dev[1:], grid_dev[1:] - grid_dev[:-1]
+
+
+def prep_generator_solve(func, x0, ts, generator, dt):
+    """The generator kernel's inputs for a solve of the GeneratorFunc
+    ``func`` from ``x0`` over ``ts``: ``(x0, f0, g0, noise, t1s, dts)``,
+    with the noise drawn from ``generator`` as the ``sdeint`` route draws
+    it and ``f0, g0`` evaluated in plain PyTorch."""
+    B, S = x0.shape
+    m = func.noise_size
+    ts_np, grid = _step_grid(ts, dt, "generator")
+    W, _, _ = integrate.sample_grid_noise(generator, grid, (B, m), x0.dtype,
+                                          x0.device)
+    f0, g0 = func.f_and_g(torch.as_tensor(ts_np[0], dtype=x0.dtype,
+                                          device=x0.device), x0)
+    t1s, dts = _grid_times(grid, x0.dtype, x0.device)
+    return (x0.contiguous(), f0.contiguous(),
+            g0.reshape(B, S * m).contiguous(), W.contiguous(), t1s, dts)
+
+
+def generator_solve_fused(func, x0, ts, generator, dt):
+    """Fused replacement for the Generator's
+    ``sdeint(func, x0, ts, method='reversible_heun', dt=dt,
+    generator=generator)``: the same noise draw and the same reversible-Heun
+    algebra, states on ``ts`` (T,B,S)."""
+    args = prep_generator_solve(func, x0, ts, generator, dt)
+    ys, _, _ = gen_solve_forward(*args, gen_weights(func))
+    return torch.cat([x0[None], ys], dim=0)
+
+
+def prep_cde_solve(func, h0, ts, dt):
+    """The critic kernel's inputs for a solve of the CDEFunc ``func`` (its
+    path attached) from ``h0`` over ``ts``: ``(h0, f0, slopes, t1s, dts)``.
+    The path's knot times must coincide with ``ts``; they are constants, so
+    gradients (on the CPU) reach the knot values, not the knot times."""
+    ts_np, grid = _step_grid(ts, dt, "CDE")
+    path_ts = host_times(func._path_ts)
+    if len(path_ts) != len(ts_np) or not np.allclose(path_ts, ts_np,
+                                                     atol=1e-6):
+        raise ValueError("fused CDE solve requires the control-path knot "
+                         "times to coincide with ts")
+    T = len(ts_np)
+    N = T - 1
+    # The slope at each step's end point t_k: the CDE's _x_dot uses the knot
+    # interval searchsorted(ts, t_k, 'right') - 1, clipped to T-2.
+    path = func._path_ys                                     # (B, T, C)
+    knot_dts = torch.as_tensor(np.diff(ts_np), dtype=h0.dtype,
+                               device=h0.device)
+    slopes = (path[:, 1:] - path[:, :-1]) / knot_dts[None, :, None]
+    idx = torch.as_tensor(np.minimum(np.arange(1, N + 1), T - 2),
+                          device=h0.device)
+    slopes_eval = slopes.transpose(0, 1).index_select(0, idx)  # (N, B, C)
+    f0 = func.f(torch.as_tensor(ts_np[0], dtype=h0.dtype, device=h0.device),
+                h0)
+    t1s, dts = _grid_times(grid, h0.dtype, h0.device)
+    return (h0.contiguous(), f0.contiguous(), slopes_eval.contiguous(), t1s,
+            dts)
+
+
+def cde_final_state_fused(func, h0, ts, dt):
+    """Fused replacement for the Discriminator's
+    ``sdeint(func, h0, ts, method='reversible_heun', dt=dt)[-1]``, ``func``
+    a CDEFunc with its path attached. Drift-only, so no noise is drawn.
+    Returns the final state (B,S)."""
+    hs, _ = cde_solve_forward(*prep_cde_solve(func, h0, ts, dt),
+                              cde_weights(func))
+    return hs[-1]

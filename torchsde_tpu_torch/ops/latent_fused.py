@@ -31,9 +31,11 @@ operators), a CUDA tensor to the kernels, which raise rather than fall back.
 
 import torch
 
+from . import _build
 from ..core import integrate
 from ..core.sdeint import host_times
 from ..models.layers import softplus
+from ..utils.misc import check_kernel_tensor
 
 _EPS = 1e-7   # stable_division clamp
 
@@ -177,19 +179,6 @@ def fused_solve_backward_plain(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
     return dz, dctx, dnoise, tuple(dw)
 
 
-def _check_tensor(name, t, shape, dtype, device):
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{shape}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} is {t.dtype}; the kernel takes {dtype} "
-                         f"(bf16 mixed mode is not ported yet)")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, z0 on {device}")
-
-
 def check_kernel_inputs(z0, ctx, ctx_idx, noise, dts, weights):
     """What the kernel takes: float32 contiguous tensors (ctx_idx int32) of
     matching shapes, all on one device. Raises ValueError on anything else."""
@@ -215,7 +204,7 @@ def check_kernel_inputs(z0, ctx, ctx_idx, noise, dts, weights):
                    **dict(zip(WEIGHT_NAMES, weights)))
     for name, t in tensors.items():
         dtype = torch.int32 if name == "ctx_idx" else torch.float32
-        _check_tensor(name, t, want[name], dtype, z0.device)
+        check_kernel_tensor(name, t, want[name], dtype, z0.device)
     return B, L, C, H, T, n
 
 
@@ -226,28 +215,8 @@ def check_backward_inputs(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq):
                                            weights)
     for name, t, shape in (("zs", zs, (n, B, L)), ("gz", gz, (n, B, L)),
                            ("gq", gq, (n, B, 1))):
-        _check_tensor(name, t, shape, torch.float32, z0.device)
+        check_kernel_tensor(name, t, shape, torch.float32, z0.device)
     return B, L, C, H, T, n
-
-
-def _cuda_library(smem_fn, L, C, H):
-    """The kernels' library, once the kernel's shared memory for these
-    widths is known to fit a block."""
-    from . import _build
-
-    lib = _build.load_library()
-    smem = getattr(lib, smem_fn)(L, C, H)
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"the solve's weights and activations need {smem} "
-                         f"bytes of shared memory; a block has "
-                         f"{_build.MAX_SMEM_BYTES}")
-    return lib
-
-
-def _raise_on_error(lib, rc, kernel):
-    if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed: "
-                           + lib.tsde_cuda_error_string(rc).decode())
 
 
 def fused_solve_forward_cuda(z0, ctx, ctx_idx, noise, dts, weights):
@@ -258,7 +227,7 @@ def fused_solve_forward_cuda(z0, ctx, ctx_idx, noise, dts, weights):
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {z0.device}")
     B, L, C, H, T, n = check_kernel_inputs(z0, ctx, ctx_idx, noise, dts,
                                            weights)
-    lib = _cuda_library("tsde_latent_fused_fwd_smem_bytes", L, C, H)
+    lib = _build.library_for("tsde_latent_fused_fwd_smem_bytes", L, C, H)
     zs = torch.empty((n, B, L), dtype=torch.float32, device=z0.device)
     qs = torch.empty((n, B, 1), dtype=torch.float32, device=z0.device)
     ptrs = [t.data_ptr() for t in (z0, ctx, ctx_idx, noise, dts, *weights,
@@ -266,7 +235,7 @@ def fused_solve_forward_cuda(z0, ctx, ctx_idx, noise, dts, weights):
     stream = torch.cuda.current_stream(z0.device).cuda_stream
     rc = lib.tsde_latent_fused_fwd(*ptrs, B, L, C, H, T, n,
                                    z0.device.index or 0, stream)
-    _raise_on_error(lib, rc, "latent_fused_fwd")
+    _build.check_launch(lib, rc, "latent_fused_fwd")
     launches += 1
     return zs, qs
 
@@ -283,7 +252,7 @@ def fused_solve_backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
                          f"{z0.device}")
     B, L, C, H, T, n = check_backward_inputs(z0, ctx, ctx_idx, noise, dts,
                                              weights, zs, gz, gq)
-    lib = _cuda_library("tsde_latent_fused_bwd_smem_bytes", L, C, H)
+    lib = _build.library_for("tsde_latent_fused_bwd_smem_bytes", L, C, H)
     f32 = dict(dtype=torch.float32, device=z0.device)
     dz0 = torch.zeros((B, L), **f32)
     dctx = torch.zeros_like(ctx)
@@ -298,7 +267,7 @@ def fused_solve_backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
     stream = torch.cuda.current_stream(z0.device).cuda_stream
     rc = lib.tsde_latent_fused_bwd(*ptrs, B, L, C, H, T, n,
                                    z0.device.index or 0, stream)
-    _raise_on_error(lib, rc, "latent_fused_bwd")
+    _build.check_launch(lib, rc, "latent_fused_bwd")
     bwd_launches += 1
     dweights = tuple(d.view_as(w) for d, w in zip(dw.split(sizes), weights))
     return dz0, dctx, dnoise, dweights

@@ -46,3 +46,18 @@ def stable_division(a, b, epsilon=1e-7):
     sign = torch.where(b >= 0, 1.0, -1.0).to(b.dtype)
     b_safe = torch.where(big, b, epsilon * sign)
     return a / b_safe
+
+
+def check_kernel_tensor(name, t, shape, dtype, device):
+    """What a CUDA kernel's wrapper takes: ``t`` of exactly this shape,
+    dtype and device, contiguous. Raises ValueError on anything else."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} is {t.dtype}; the kernel takes {dtype} "
+                         f"(bf16 mixed mode is not ported yet)")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the solve on {device}")

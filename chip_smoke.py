@@ -6,7 +6,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for matmuls and cuDNN;
-2. build: builds both CUDA kernels from the repository's sources with nvcc
+2. build: builds the CUDA kernels from the repository's sources with nvcc
    (one process per source, in parallel) and prints ptxas's registers,
    spills and barriers for each kernel;
 3. kernel 1 vs plain: the whole-solve forward kernel against its plain
@@ -42,7 +42,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels 5 and 7 exactly once, and the same three on the ``sdeint`` route;
    the generated paths, the per-sample critic scores and the losses of the
    two routes must agree; request times and generated samples per second;
-10. profile GAN: a served request of each route under torch.profiler.
+10. profile GAN: a served request of each route under torch.profiler;
+11. GAN backward kernels vs plain: kernel 6 (the generator's reverse
+    sweep) and kernel 8 (the critic's) against their plain versions at the
+    reference scale, on the forward kernels' own zs and gs and seeded
+    cotangents (for kernel 8 both dense ones and ones of the last state
+    only, as a training step gives), every output and weight gradient in
+    float32 and against a float64 run; two calls must agree bitwise; the
+    median times at 64, 128 and 256 threads per block;
+12. train GAN: the step-0 parameter gradients of ``gan_grads(fused=True)``
+    against ``gan_grads(fused=False)`` on one generator seed; then five
+    training steps of each route in turns from the same seeded weights and
+    real batches: Adadelta with weight decay 0.01 (generator lr 2e-4,
+    critic lr 1e-3, as examples/sde_gan.py) and the critic's weight clip;
+    each loss and gradient finite, the critic's weights within 1/out, each
+    fused step launching kernels 5, 6, 7 and 8 exactly once and the
+    ``sdeint`` route none; the median train-step time of each route;
+13. profile GAN train: a training step of each route under torch.profiler.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -59,7 +75,8 @@ import torch
 from torchsde_tpu_torch.models.latent_sde import (LatentSDE, latent_sde_loss,
                                                   make_lorenz_data)
 from torchsde_tpu_torch.models.sde_gan import (Discriminator, Generator,
-                                               gan_loss, get_ou_data)
+                                               gan_grads, gan_loss,
+                                               get_ou_data)
 from torchsde_tpu_torch.ops import _build
 from torchsde_tpu_torch.ops import gan_fused as GF
 from torchsde_tpu_torch.ops import latent_fused as LF
@@ -115,6 +132,20 @@ GAN_KERNEL_ATOL, GAN_KERNEL_REL = 1e-5, 4e-6
 GAN_PATH_ATOL = 1e-4
 GAN_SCORE_REL = 1e-5
 GAN_THREADS = (64, 128, 256)
+# Kernels 6 and 8 vs plain, per output tensor: the JAX package's rule for
+# its fused GAN gradients (tests/test_fused_gan.py:181), atol max(1e-4,
+# 1e-5 * the tensor's largest entry); the kernel may also be at most twice
+# as far from a float64 run as the float32 plain version, plus the atol.
+GAN_BWD_ATOL, GAN_BWD_REL = 1e-4, 1e-5
+# Fused vs sdeint route, step-0 GAN parameter gradients: atol GAN_GRAD_REL
+# times each gradient's largest entry (both float32 through 63 steps,
+# summed in other orders: the kernels' per-lane FMA chains and fixed-order
+# partials, cuBLAS on the other route). Measured 8.3e-7 at the reference
+# scale (NVIDIA H100 80GB HBM3, 700 W), so 1e-5 leaves a margin of 12.
+GAN_GRAD_REL = 1e-5
+# examples/sde_gan.py: Adadelta after decayed weights, per network.
+GAN_TRAIN_STEPS, GAN_GEN_LR, GAN_CRITIC_LR, GAN_WEIGHT_DECAY = 5, 2e-4, 1e-3, \
+    0.01
 # Published H100 SXM peaks (NVIDIA H100 datasheet): float32 outside the
 # tensor cores, and device memory.
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
@@ -473,7 +504,9 @@ def phase_train(device, xs, ts):
 def profile_run(label, fn):
     """``fn`` under torch.profiler: the number of kernels, their device time,
     the device's busy share of the (profiled) wall time, and the costliest
-    kernels by name."""
+    kernels by name. The device-side ranges of annotations (such as
+    ``Optimizer.step``) span kernels already counted, so they are left
+    out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -486,7 +519,7 @@ def profile_run(label, fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     device_ms = sum(us for _, us in by_name.values()) / 1e3
@@ -616,16 +649,18 @@ def check_gan_kernel(label, names, got, want, exact):
     return worst, worst_rel
 
 
-def time_gan_kernel(label, cuda, plain, args, weights, outputs, flops):
-    """Median device times of a GAN kernel (20 runs at each block size,
-    the default's for the record) and of its plain version (5 runs)."""
+def time_gan_kernel(label, run_cuda, run_plain, tensors, flops,
+                    plain_reps=5):
+    """Median device times of a GAN kernel (``run_cuda(threads)``, 20 runs
+    at each block size, the default's for the record) and of its plain
+    version (``run_plain()``), and the bound of ``flops`` and of the bytes
+    of ``tensors``."""
     by_threads = {}
     for threads in GAN_THREADS:
-        by_threads[threads] = median_cuda_ms(
-            lambda: cuda(*args, weights, threads=threads), 20)
+        by_threads[threads] = median_cuda_ms(lambda: run_cuda(threads), 20)
     ms = by_threads[GF.THREADS]
-    plain_ms = median_cuda_ms(lambda: plain(*args, weights), 5)
-    bound_ms, bound_by = bound(flops, [*args, *weights, *outputs])
+    plain_ms = median_cuda_ms(run_plain, plain_reps, warmup=1)
+    bound_ms, bound_by = bound(flops, tensors)
     sweep = ", ".join(f"{t}: {v:.4f}" for t, v in by_threads.items())
     print(f"{label}: median {ms:.4f} ms at {GF.THREADS} threads per block "
           f"(threads: ms {sweep}); plain: median {plain_ms:.4f} ms; bound "
@@ -637,7 +672,10 @@ def time_gan_kernel(label, cuda, plain, args, weights, outputs, flops):
 
 
 def double(tensors):
-    return [t.double() for t in tensors]
+    """The tensors in float64; a tuple among them (a backward's weights)
+    stays a tuple."""
+    return [tuple(double(t)) if isinstance(t, tuple) else t.double()
+            for t in tensors]
 
 
 def phase_gan_kernels(device, models, ts, real):
@@ -659,17 +697,21 @@ def phase_gan_kernels(device, models, ts, real):
         torch.cuda.synchronize()
         err5 = check_gan_kernel("kernel 5", ("ys", "zs", "gs"), got, want,
                                 exact)
-        k5 = time_gan_kernel("kernel 5", GF.gen_solve_forward_cuda,
-                             GF.gen_solve_forward_plain, gen_args, gen_w,
-                             got, gen_flops(B, S, M, m, n))
+        k5 = time_gan_kernel(
+            "kernel 5",
+            lambda t: GF.gen_solve_forward_cuda(*gen_args, gen_w, threads=t),
+            lambda: GF.gen_solve_forward_plain(*gen_args, gen_w),
+            [*gen_args, *gen_w, *got], gen_flops(B, S, M, m, n))
         got = GF.cde_solve_forward_cuda(*cde_args, cde_w)
         want = GF.cde_solve_forward_plain(*cde_args, cde_w)
         exact = GF.cde_solve_forward_plain(*double(cde_args), double(cde_w))
         torch.cuda.synchronize()
         err7 = check_gan_kernel("kernel 7", ("hs", "zs"), got, want, exact)
-        k7 = time_gan_kernel("kernel 7", GF.cde_solve_forward_cuda,
-                             GF.cde_solve_forward_plain, cde_args, cde_w,
-                             got, cde_flops(Bc, Sc, Mc, C, n))
+        k7 = time_gan_kernel(
+            "kernel 7",
+            lambda t: GF.cde_solve_forward_cuda(*cde_args, cde_w, threads=t),
+            lambda: GF.cde_solve_forward_plain(*cde_args, cde_w),
+            [*cde_args, *cde_w, *got], cde_flops(Bc, Sc, Mc, C, n))
     return (dict(max_abs_err=err5[0], max_rel_err=err5[1], **k5),
             dict(max_abs_err=err7[0], max_rel_err=err7[1], **k7))
 
@@ -773,6 +815,260 @@ def phase_gan_profile(device, models, ts, real):
             models, ts, real, 500, route == "fused"))
 
 
+# --------------------------------------------------------------------------- #
+#  SDE-GAN training: kernels 6 and 8, train steps                             #
+# --------------------------------------------------------------------------- #
+
+def gen_bwd_flops(B, S, M, m, n):
+    """Operations of one generator reverse sweep, two per multiply-add: per
+    row and step, the towers' recomputed forward (2(1+S)M + MS(1+m)), twice
+    that going back (weight gradients and input cotangents), and 4Sm for
+    the noise terms (Ag, dnoise, ag). Transcendentals are not counted."""
+    return 2 * B * n * (3 * (2 * (1 + S) * M + M * S * (1 + m)) + 4 * S * m)
+
+
+def cde_bwd_flops(B, S, M, C, n):
+    """Operations of one critic reverse sweep, two per multiply-add: per row
+    and step, the tower's recomputed forward ((1+S)M + MSC), twice that
+    going back, and 2SC for the slopes' cotangents and dF."""
+    return 2 * B * n * (3 * ((1 + S) * M + M * S * C) + 2 * S * C)
+
+
+def flat_grads(out):
+    """A backward's outputs as one list: the tensors, then the weights'."""
+    return [*out[:-1], *out[-1]]
+
+
+def check_gan_backward(label, names, got, want, exact):
+    """Holds a GAN backward kernel's outputs (every tensor and weight
+    gradient) to its plain version's at max(GAN_BWD_ATOL, GAN_BWD_REL *
+    scale), and to twice the plain version's distance from its float64 run
+    plus GAN_BWD_ATOL. Returns the largest absolute and scale-relative
+    error against the plain version."""
+    worst = worst_rel = 0.0
+    cells, failures = [], []
+    for name, g, w, e in zip(names, flat_grads(got), flat_grads(want),
+                             flat_grads(exact)):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise RuntimeError(f"{label} {name}: shape {tuple(g.shape)} or "
+                               f"non-finite values")
+        err = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        rel = err / scale if scale > 0 else 0.0
+        err64 = float((g.double() - e).abs().max())
+        plain64 = float((w.double() - e).abs().max())
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        cells.append(f"{name} {err:.2e}/{scale:.3g} (f64: {err64:.2e} vs "
+                     f"{plain64:.2e})")
+        if err > max(GAN_BWD_ATOL, GAN_BWD_REL * scale):
+            failures.append(f"{name} differs by {err:.3e} > max("
+                            f"{GAN_BWD_ATOL}, {GAN_BWD_REL} * {scale:.4g})")
+        if err64 > 2 * plain64 + GAN_BWD_ATOL:
+            failures.append(f"{name} is {err64:.3e} from the float64 run, "
+                            f"the plain version {plain64:.3e}")
+    print(f"{label} vs plain (abs err/max|plain|; from float64: kernel vs "
+          f"plain): " + "; ".join(cells), flush=True)
+    print(f"{label} vs plain: max_abs_err={worst:.3e}, max_rel_err="
+          f"{worst_rel:.3e}", flush=True)
+    if failures:
+        raise RuntimeError(f"{label}: " + "; ".join(failures))
+    return worst, worst_rel
+
+
+def check_bitwise(label, sweep, bargs, first):
+    again = sweep(*bargs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(flat_grads(first),
+                                                 flat_grads(again))):
+        raise RuntimeError(f"{label} is not bitwise repeatable")
+    print(f"{label}: two calls agree bitwise", flush=True)
+
+
+def phase_gan_bwd_kernels(device, models, ts, real):
+    """Kernels 6 and 8 against their plain versions at the reference scale,
+    on the forward kernels' zs and gs and seeded cotangents."""
+    (gen_args, gen_w), (cde_args, cde_w) = gan_kernel_inputs(
+        device, models, ts, real)
+    lib = _build.load_library()
+    B, S, M, m, n = GF.check_gen_inputs(*gen_args, gen_w)
+    Bc, Sc, Mc, C, _ = GF.check_cde_inputs(*cde_args, cde_w)
+    print(f"GAN backward kernels: shared memory per block "
+          f"{lib.tsde_gan_gen_bwd_smem_bytes(S, M, m)} bytes (kernel 6), "
+          f"{lib.tsde_gan_cde_bwd_smem_bytes(Sc, Mc, C)} bytes (kernel 8); "
+          f"weight-gradient partials {lib.tsde_gan_bwd_partials(B, S, M)} "
+          f"and {lib.tsde_gan_bwd_partials(Bc, Sc, Mc)}", flush=True)
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    with torch.no_grad():
+        ys, zs, gs = GF.gen_solve_forward_cuda(*gen_args, gen_w)
+        gy = torch.randn(ys.shape, generator=gen, device=device)
+        bargs = (*gen_args, gen_w, zs, gs, gy)
+        got = GF.gen_solve_backward_cuda(*bargs)
+        want = GF.gen_solve_backward_plain(*bargs)
+        exact = GF.gen_solve_backward_plain(*double(bargs))
+        torch.cuda.synchronize()
+        err6 = check_gan_backward("kernel 6", ("dx0", "df0", "dg0", "dnoise")
+                                  + GF.GEN_WEIGHT_NAMES, got, want, exact)
+        check_bitwise("kernel 6", GF.gen_solve_backward_cuda, bargs, got)
+        k6 = time_gan_kernel(
+            "kernel 6",
+            lambda t: GF.gen_solve_backward_cuda(*bargs, threads=t),
+            lambda: GF.gen_solve_backward_plain(*bargs),
+            [gen_args[2], *gen_args[3:], *gen_w, zs, gs, gy,
+             *flat_grads(got)],
+            gen_bwd_flops(B, S, M, m, n), plain_reps=3)
+
+        hs, czs = GF.cde_solve_forward_cuda(*cde_args, cde_w)
+        last = torch.zeros_like(hs)
+        last[-1] = torch.randn(hs.shape[1:], generator=gen, device=device)
+        dense = torch.randn(hs.shape, generator=gen, device=device)
+        errs = []
+        for label, ghs in (("last-state", last), ("dense", dense)):
+            cargs = (*cde_args, cde_w, czs, ghs)
+            got = GF.cde_solve_backward_cuda(*cargs)
+            want = GF.cde_solve_backward_plain(*cargs)
+            exact = GF.cde_solve_backward_plain(*double(cargs))
+            torch.cuda.synchronize()
+            errs.append(check_gan_backward(
+                f"kernel 8, {label} cotangents",
+                ("dh0", "df0", "dslopes") + GF.CDE_WEIGHT_NAMES, got, want,
+                exact))
+            check_bitwise(f"kernel 8, {label} cotangents",
+                          GF.cde_solve_backward_cuda, cargs, got)
+        cargs = (*cde_args, cde_w, czs, last)
+        k8 = time_gan_kernel(
+            "kernel 8",
+            lambda t: GF.cde_solve_backward_cuda(*cargs, threads=t),
+            lambda: GF.cde_solve_backward_plain(*cargs),
+            [*cde_args[2:], *cde_w, czs, last, *flat_grads(got)],
+            cde_bwd_flops(Bc, Sc, Mc, C, n), plain_reps=3)
+    return (dict(max_abs_err=err6[0], max_rel_err=err6[1], **k6),
+            dict(max_abs_err=errs[0][0], max_abs_err_dense=errs[1][0],
+                 max_rel_err=max(e[1] for e in errs), **k8))
+
+
+GAN_COUNTERS = ("gen_launches", "gen_bwd_launches", "cde_launches",
+                "cde_bwd_launches")
+
+
+def gan_counts():
+    return tuple(getattr(GF, c) for c in GAN_COUNTERS)
+
+
+def gan_train_step(models, opts, ts, batch, seed, fused):
+    """One training step: gan_grads on a generator seeded ``seed``, an
+    Adadelta update of each network, the critic's weight clip. Returns the
+    detached loss (a tensor) and the gradients."""
+    generator, critic = models
+    gen = torch.Generator(device=batch.device).manual_seed(seed)
+    loss, g_gen, g_disc = gan_grads(generator, critic, gen, ts, batch,
+                                    dt=GAN_DT, adjoint=False, fused=fused)
+    for module, grads in ((generator, g_gen), (critic, g_disc)):
+        for name, p in module.named_parameters():
+            p.grad = grads[name]
+    for opt in opts:
+        opt.step()
+    critic.clip_weights()
+    return loss, [*g_gen.values(), *g_disc.values()]
+
+
+def check_gan_step_gradients(trained, ts, real):
+    """Step-0 parameter gradients of gan_grads on the fused route against
+    the sdeint route's on one generator seed."""
+    grads = {}
+    for route, (models, _) in trained.items():
+        gen = torch.Generator(device=real.device).manual_seed(600)
+        _, g_gen, g_disc = gan_grads(*models, gen, ts, real, dt=GAN_DT,
+                                     adjoint=False, fused=route == "fused")
+        grads[route] = {**{f"generator.{k}": v for k, v in g_gen.items()},
+                        **{f"critic.{k}": v for k, v in g_disc.items()}}
+    ratios = []
+    for name, want in grads["sdeint"].items():
+        got = grads["fused"][name]
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise RuntimeError(f"GAN step 0: non-finite gradient of {name}")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if scale == 0 and err > 0:
+            raise RuntimeError(f"GAN step 0: gradient of {name} is zero on "
+                               f"the sdeint route, {err:.3e} fused")
+        ratios.append((err / scale if scale > 0 else 0.0, name, err, scale))
+    ratios.sort(reverse=True)
+    for rel, name, err, scale in ratios[:4]:
+        print(f"GAN step-0 gradient {name}: max abs diff {err:.3e}, "
+              f"max|sdeint| {scale:.3e}, rel {rel:.3e}", flush=True)
+    if ratios[0][0] > GAN_GRAD_REL:
+        raise RuntimeError(f"GAN step-0 gradient of {ratios[0][1]} differs "
+                           f"between routes by {ratios[0][0]:.3e} of its "
+                           f"scale > {GAN_GRAD_REL}")
+    return ratios[0][0]
+
+
+def check_clipped(critic):
+    """Every critic weight within 1/out (in its dtype) after the clip."""
+    for name, p in critic.named_parameters():
+        if not name.endswith(".w"):
+            continue
+        lim = torch.tensor(1.0 / p.shape[1], dtype=p.dtype)
+        if float(p.detach().abs().max()) > lim:
+            raise RuntimeError(f"critic weight {name} exceeds 1/"
+                               f"{p.shape[1]} after the clip")
+
+
+def phase_gan_train(device, ts, real):
+    """Five training steps of each route in turns, from the same seeded
+    weights and real batches; checks and times them."""
+    trained = {}
+    for route in ROUTES:
+        generator, critic = gan_models(device)
+        opts = (torch.optim.Adadelta(generator.parameters(), lr=GAN_GEN_LR,
+                                     weight_decay=GAN_WEIGHT_DECAY),
+                torch.optim.Adadelta(critic.parameters(), lr=GAN_CRITIC_LR,
+                                     weight_decay=GAN_WEIGHT_DECAY))
+        trained[route] = ((generator, critic), opts)
+    grad_rel = check_gan_step_gradients(trained, ts, real)
+    times = {route: [] for route in ROUTES}
+    perm = torch.Generator(device=device).manual_seed(SEED + 7)
+    GF.gen_launches = GF.gen_bwd_launches = 0
+    GF.cde_launches = GF.cde_bwd_launches = 0
+    for step in range(GAN_TRAIN_STEPS):
+        batch = real[torch.randperm(real.shape[0], generator=perm,
+                                    device=device)[:GAN_BATCH]]
+        for route in (ROUTES if step % 2 == 0 else ROUTES[::-1]):
+            models, opts = trained[route]
+            before = gan_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = gan_train_step(models, opts, ts, batch, 700 + step,
+                                         route == "fused")
+            torch.cuda.synchronize()
+            times[route].append((time.perf_counter() - t0) * 1e3)
+            delta = tuple(a - b for a, b in zip(gan_counts(), before))
+            if delta != ((1,) * 4 if route == "fused" else (0,) * 4):
+                raise RuntimeError(f"GAN {route} step {step}: kernels 5, 6, "
+                                   f"7, 8 launched {delta} times")
+            if not (np.isfinite(float(loss))
+                    and all(torch.isfinite(g).all() for g in grads)):
+                raise RuntimeError(f"GAN {route} step {step}: non-finite "
+                                   f"loss {float(loss)} or gradient")
+            check_clipped(models[1])
+            print(f"train GAN {route} step {step}: loss {float(loss):.8g} "
+                  f"{times[route][-1]:.3f} ms", flush=True)
+    launches = dict(zip(GAN_COUNTERS, gan_counts()))
+    medians = {route: float(np.median(t)) for route, t in times.items()}
+    print(f"GAN train step: fused median {medians['fused']:.3f} ms, sdeint "
+          f"median {medians['sdeint']:.3f} ms over {GAN_TRAIN_STEPS} steps "
+          f"(host clock, synchronised)", flush=True)
+    return launches, grad_rel, trained, batch
+
+
+def phase_gan_train_profile(trained, ts, batch):
+    """A GAN training step of each route under the profiler."""
+    for route in ROUTES:
+        models, opts = trained[route]
+        profile_run(f"GAN train step {route}", lambda: gan_train_step(
+            models, opts, ts, batch, 800, route == "fused"))
+
+
 def main():
     device, card = phase_device()
     phase_build()
@@ -787,6 +1083,10 @@ def main():
     kernel5, kernel7 = phase_gan_kernels(device, gan, gan_ts, real)
     gan_launches = phase_gan_serve(device, gan, gan_ts, real)
     phase_gan_profile(device, gan, gan_ts, real)
+    kernel6, kernel8 = phase_gan_bwd_kernels(device, gan, gan_ts, real)
+    train_launches, gan_grad_rel, trained, batch = phase_gan_train(
+        device, gan_ts, real)
+    phase_gan_train_profile(trained, gan_ts, batch)
     torch.cuda.synchronize()
     csrc = "torchsde_tpu_torch/ops/csrc"
     records = [
@@ -803,11 +1103,25 @@ def main():
         dict(name="gan_gen_fwd", route="cuda",
              source=f"{csrc}/gan_gen_fwd.cu",
              replaces="torchsde_tpu/ops/gan_fused.py:151",
-             launches=gan_launches[0], library_ms=None, **kernel5),
+             launches=gan_launches[0],
+             launches_train=train_launches["gen_launches"], library_ms=None,
+             **kernel5),
         dict(name="gan_cde_fwd", route="cuda",
              source=f"{csrc}/gan_cde_fwd.cu",
              replaces="torchsde_tpu/ops/gan_fused.py:422",
-             launches=gan_launches[1], library_ms=None, **kernel7),
+             launches=gan_launches[1],
+             launches_train=train_launches["cde_launches"], library_ms=None,
+             **kernel7),
+        dict(name="gan_gen_bwd", route="cuda",
+             source=f"{csrc}/gan_gen_bwd.cu",
+             replaces="torchsde_tpu/ops/gan_fused.py:200",
+             launches=train_launches["gen_bwd_launches"], library_ms=None,
+             step0_grad_rel_err=gan_grad_rel, **kernel6),
+        dict(name="gan_cde_bwd", route="cuda",
+             source=f"{csrc}/gan_cde_bwd.cu",
+             replaces="torchsde_tpu/ops/gan_fused.py:458",
+             launches=train_launches["cde_bwd_launches"], library_ms=None,
+             **kernel8),
     ]
     for record in records:
         if record["launches"] < 1:

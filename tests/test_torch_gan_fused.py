@@ -1,12 +1,17 @@
 """torchsde_tpu_torch.ops.gan_fused against torchsde_tpu.ops.gan_fused.
 
 On the CPU the port runs its CUDA kernels' plain PyTorch versions; here they
-are held against the Pallas kernels (_gen_fwd_kernel, _cde_fwd_kernel) run
-in interpret mode on the same float32 inputs, at atol 1e-5 (the JAX
-package's own tolerance for its fused against its XLA solves,
+are held against the Pallas kernels run in interpret mode on the same
+float32 inputs: the forward ones (_gen_fwd_kernel, _cde_fwd_kernel) at atol
+1e-5 (the JAX package's own tolerance for its fused against its XLA solves,
 tests/test_fused_gan.py:58,81), together with the wrappers' preparation of
-the solves. chip_smoke.py holds the CUDA kernels against the plain versions
-on the card. Also: the wrappers' guards, routes and input checks."""
+the solves, and the backward ones (_gen_bwd_kernel, _cde_bwd_kernel) at
+atol max(1e-4, 1e-5 * each gradient's largest entry) (the JAX package's
+rule for these gradients, tests/test_fused_gan.py:181). The backward plain
+versions are also held to autograd of the forward ones in float64, and the
+autograd Functions to gradcheck. chip_smoke.py holds the CUDA kernels
+against the plain versions on the card. Also: the wrappers' guards, routes
+and input checks."""
 
 import functools
 
@@ -266,3 +271,164 @@ def test_tower_weights_refuse_other_architectures(variant):
         match = "tanh"
     with pytest.raises(ValueError, match=match):
         TGF._tower_weights(mlp, "tower")
+
+
+# --------------------------------------------------------------------------- #
+#  Backward: kernels 6 (_gen_bwd_kernel) and 8 (_cde_bwd_kernel)              #
+# --------------------------------------------------------------------------- #
+
+def _unpad(padded, like):
+    """A JAX kernel's padded weight gradient, cut to the port weight's
+    shape: (128,128) -> (rows, cols), (1,128) -> (n,)."""
+    a = np.asarray(padded)
+    return a[0, :like.shape[0]] if like.ndim == 1 else \
+        a[:like.shape[0], :like.shape[1]]
+
+
+def _flat(out):
+    return [*out[:-1], *out[-1]]
+
+
+def _assert_grads_close(got, want):
+    """Per tensor, atol max(1e-4, 1e-5 * its largest entry)."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape
+        scale = float(np.max(np.abs(w)))
+        np.testing.assert_allclose(g.detach().numpy(), w, rtol=0,
+                                   atol=max(1e-4, 1e-5 * scale))
+
+
+def test_gen_backward_plain_matches_pallas_kernel_f32(interpret):
+    gen, _, tgen, _ = _models()
+    args = _gen_inputs()
+    packed = JGF.pack_gen_weights(gen.func)
+    jargs = [jnp.asarray(a) for a in args]
+    _, zs, gs = JGF._gen_solve_fwd_impl(packed, *jargs)
+    gy = np.random.default_rng(3).standard_normal((N, B, S)).astype(
+        np.float32)
+    dweights, *douts = JGF._gen_solve_bwd_impl(packed, *jargs, zs, gs,
+                                               jnp.asarray(gy))
+    weights = TGF.gen_weights(tgen.func)
+    with torch.no_grad():
+        got = TGF.gen_solve_backward_plain(
+            *map(to_torch, args), weights, to_torch(zs), to_torch(gs),
+            to_torch(gy))
+    want = douts + [_unpad(dweights[k], w)
+                    for k, w in zip(JGF._GEN_WNAMES, weights)]
+    _assert_grads_close(_flat(got), want)
+    assert float(got[3].abs().max()) > 1e-2           # dnoise is live
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_cde_backward_plain_matches_pallas_kernel_f32(interpret, dense):
+    """Dense cotangents, and cotangents of the last state only (what
+    cde_final_state_fused gives)."""
+    _, disc, _, tdisc = _models()
+    args = _cde_inputs()
+    packed = dict(zip(JGF._CDE_WNAMES, JGF._pack_mlp2(disc.func.func)))
+    jargs = [jnp.asarray(a) for a in args]
+    _, zs = JGF._cde_solve_fwd_impl(packed, *jargs)
+    ghs = np.random.default_rng(4).standard_normal((N, B, S_CDE)).astype(
+        np.float32)
+    if not dense:
+        ghs[:-1] = 0.0
+    dweights, *douts = JGF._cde_solve_bwd_impl(packed, *jargs, zs,
+                                               jnp.asarray(ghs))
+    weights = TGF.cde_weights(tdisc.func)
+    with torch.no_grad():
+        got = TGF.cde_solve_backward_plain(*map(to_torch, args), weights,
+                                           to_torch(zs), to_torch(ghs))
+    want = douts + [_unpad(dweights[k], w)
+                    for k, w in zip(JGF._CDE_WNAMES, weights)]
+    _assert_grads_close(_flat(got), want)
+
+
+def _tower(rng, n_in, n_hidden, n_out):
+    return [torch.as_tensor(0.5 * rng.standard_normal(shape))
+            for shape in ((n_in, n_hidden), (n_hidden,), (n_hidden, n_out),
+                          (n_out,))]
+
+
+def _f64_solve(kind, b, t, seed=0):
+    """float64 inputs of the generator or critic solve (S, M and the
+    channel count as above): the differentiable inputs, then t1s, dts."""
+    rng = np.random.default_rng(seed)
+    n = t - 1
+    t1s = torch.arange(1, t, dtype=torch.float64)
+    dts = torch.ones(n, dtype=torch.float64)
+    if kind == "gen":
+        leaves = [torch.as_tensor(rng.standard_normal(shape)) for shape in
+                  ((b, S), (b, S), (b, S * NOISE), (n, b, NOISE))]
+        weights = (_tower(rng, 1 + S, M, S)
+                   + _tower(rng, 1 + S, M, S * NOISE))
+    else:
+        leaves = [torch.as_tensor(rng.standard_normal(shape)) for shape in
+                  ((b, S_CDE), (b, S_CDE), (n, b, C))]
+        weights = _tower(rng, 1 + S_CDE, M, S_CDE * C)
+    return leaves, weights, t1s, dts
+
+
+@pytest.mark.parametrize("kind", ["gen", "cde"])
+def test_backward_plain_matches_autograd_f64(kind):
+    """The hand-derived reverse sweeps against autograd of the forward
+    plain versions, every input and weight, at 1e-9 of each gradient's
+    largest entry."""
+    leaves, weights, t1s, dts = _f64_solve(kind, B, T)
+    inputs = [x.requires_grad_() for x in leaves + weights]
+    if kind == "gen":
+        ys, zs, gs = TGF.gen_solve_forward_plain(*leaves, t1s, dts, weights)
+        extra = (zs.detach(), gs.detach())
+        backward = TGF.gen_solve_backward_plain
+    else:
+        ys, zs = TGF.cde_solve_forward_plain(*leaves, t1s, dts, weights)
+        extra = (zs.detach(),)
+        backward = TGF.cde_solve_backward_plain
+    gy = torch.as_tensor(np.random.default_rng(5).standard_normal(ys.shape))
+    want = torch.autograd.grad((ys * gy).sum(), inputs)
+    with torch.no_grad():
+        got = _flat(backward(*leaves, t1s, dts, weights, *extra, gy))
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        assert scale > 0
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-9 * scale)
+
+
+@pytest.mark.parametrize("kind", ["gen", "cde"])
+def test_fused_functions_pass_gradcheck_f64(kind):
+    leaves, weights, t1s, dts = _f64_solve(kind, 2, 4, seed=1)
+    fn = TGF.FusedGenSolve if kind == "gen" else TGF.FusedCDESolve
+    n_leaves = len(leaves)
+
+    def first_output(*inputs):
+        return fn.apply(*inputs[:n_leaves], t1s, dts, *inputs[n_leaves:])[0]
+
+    inputs = [x.requires_grad_() for x in leaves + weights]
+    assert torch.autograd.gradcheck(first_output, inputs)
+
+
+def test_cpu_gradients_run_the_functions_and_no_kernel():
+    """On CPU tensors the gradients of gen_solve_forward and
+    cde_solve_forward come from the autograd Functions' plain backward
+    versions, and no kernel is launched."""
+    counters = ("gen_launches", "cde_launches", "gen_bwd_launches",
+                "cde_bwd_launches")
+    before = [getattr(TGF, c) for c in counters]
+    for solve, plain, (args, weights) in (
+            (TGF.gen_solve_forward, TGF.gen_solve_backward_plain,
+             _port_gen_args()),
+            (TGF.cde_solve_forward, TGF.cde_solve_backward_plain,
+             _port_cde_args())):
+        leaves = [a.requires_grad_() for a in args[:-2]]
+        outs = solve(*leaves, *args[-2:], weights)
+        assert type(outs[0].grad_fn).__name__.startswith(
+            "Fused" + ("Gen" if solve is TGF.gen_solve_forward else "CDE"))
+        assert all(not o.requires_grad for o in outs[1:])
+        cot = torch.ones_like(outs[0])
+        got = torch.autograd.grad(outs[0], leaves + list(weights), cot)
+        with torch.no_grad():
+            want = _flat(plain(*args, weights, *outs[1:], cot))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert [getattr(TGF, c) for c in counters] == before

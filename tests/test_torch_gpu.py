@@ -5,11 +5,12 @@ Latent SDE (kernels 1 and 2): a ragged last batch tile, a hidden width
 above the block's 128 threads, the smallest widths, a width whose weights
 do not fit in shared memory; saturated diffusion, bitwise repeatability of
 the gradients, the guards of the CUDA route, and the fused route's training
-gradients against the sdeint route's. SDE-GAN (kernels 5 and 7): a batch
-that is not a multiple of the rows per block, one noise or control
-channel, the widest state and hidden widths the kernels take, 32 to 256
-threads per block; the too-wide case, the refusal to run while autograd
-records, and a small gan_loss on both routes.
+gradients against the sdeint route's. SDE-GAN (kernels 5 and 7, and
+their backward kernels 6 and 8): a batch that is not a multiple of the
+rows per block, one noise or control channel, the widest state and hidden
+widths the kernels take, 32 to 256 threads per block; bitwise repeatable
+gradients, the too-wide case, training through the four kernels, and a
+small gan_loss and its gradients on both routes.
 
 Run on a machine with a CUDA card from the repository's root:
 ``python -m pytest tests/test_torch_gpu.py -m gpu --noconftest`` (the
@@ -266,24 +267,134 @@ def test_gan_too_wide_raises(cuda):
             GF.cde_solve_forward(*args, weights)
 
 
-def test_gan_cuda_route_refuses_autograd(cuda):
-    args, weights = _gan_gen_args(cuda, 4, 16, 16, 3, 3, 3)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        GF.gen_solve_forward(*args, weights)
-    args, weights = _gan_cde_args(cuda, 4, 17, 16, 2, 3, 3)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        GF.cde_solve_forward(*args, weights)
+def _assert_gan_grads_close(got, want):
+    """The JAX package's rule for the fused GAN gradients
+    (tests/test_fused_gan.py:181), per tensor: atol max(1e-4, 1e-5 * its
+    largest entry). The kernels sum every weight gradient over rows and
+    steps in another order than the plain versions' matmuls."""
+    got, want = [*got[:-1], *got[-1]], [*want[:-1], *want[-1]]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        torch.testing.assert_close(g, w, rtol=0, atol=max(1e-4, 1e-5 * scale))
+
+
+def _gan_gen_backward_args(device, B, S, M, m, T, seed):
+    args, weights = _gan_gen_args(device, B, S, M, m, T, seed)
+    ys, zs, gs = GF.gen_solve_forward_plain(*args, weights)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    gy = torch.randn(ys.shape, generator=gen, device=device)
+    return (*args, weights, zs, gs, gy)
+
+
+def _gan_cde_backward_args(device, B, S, M, C, T, seed, last_only=False):
+    args, weights = _gan_cde_args(device, B, S, M, C, T, seed)
+    hs, zs = GF.cde_solve_forward_plain(*args, weights)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    ghs = torch.randn(hs.shape, generator=gen, device=device)
+    if last_only:
+        ghs[:-1] = 0.0
+    return (*args, weights, zs, ghs)
+
+
+@pytest.mark.parametrize("B,S,M,m,T", GEN_SHAPES)
+@pytest.mark.parametrize("threads", [32, 128, 256])
+def test_gan_gen_backward_kernel_matches_plain(cuda, B, S, M, m, T, threads):
+    with torch.no_grad():
+        bargs = _gan_gen_backward_args(cuda, B, S, M, m, T, 0)
+        before = GF.gen_bwd_launches
+        got = GF.gen_solve_backward_cuda(*bargs, threads=threads)
+        assert GF.gen_bwd_launches == before + 1
+        want = GF.gen_solve_backward_plain(*bargs)
+    torch.cuda.synchronize()
+    _assert_gan_grads_close(got, want)
+
+
+@pytest.mark.parametrize("B,S,M,C,T", CDE_SHAPES)
+@pytest.mark.parametrize("threads", [32, 128, 256])
+def test_gan_cde_backward_kernel_matches_plain(cuda, B, S, M, C, T, threads):
+    with torch.no_grad():
+        bargs = _gan_cde_backward_args(cuda, B, S, M, C, T, 1,
+                                       last_only=threads == 128)
+        before = GF.cde_bwd_launches
+        got = GF.cde_solve_backward_cuda(*bargs, threads=threads)
+        assert GF.cde_bwd_launches == before + 1
+        want = GF.cde_solve_backward_plain(*bargs)
+    torch.cuda.synchronize()
+    _assert_gan_grads_close(got, want)
+
+
+def test_gan_backward_kernels_are_bitwise_repeatable(cuda):
+    """No atomics: the per-warp partials are summed in a fixed order, at
+    any block size."""
+    with torch.no_grad():
+        for sweep, bargs in (
+                (GF.gen_solve_backward_cuda,
+                 _gan_gen_backward_args(cuda, 37, 16, 16, 3, 6, 3)),
+                (GF.cde_solve_backward_cuda,
+                 _gan_cde_backward_args(cuda, 37, 17, 16, 2, 6, 3))):
+            runs = [sweep(*bargs, threads=t) for t in (128, 128, 64)]
+            torch.cuda.synchronize()
+            flat = [[*r[:-1], *r[-1]] for r in runs]
+            for other in flat[1:]:
+                assert all(torch.equal(a, b) for a, b in zip(flat[0], other))
+
+
+def _small_gan(device):
+    from torchsde_tpu_torch.models.sde_gan import (Discriminator, Generator,
+                                                   get_ou_data)
+    init = torch.Generator().manual_seed(4)
+    generator = Generator(1, 5, 3, 16, 16, 1, init_mult1=3.0, init_mult2=0.5,
+                          device=device, generator=init)
+    critic = Discriminator(1, 17, 16, 1, device=device, generator=init)
+    ts, real = get_ou_data(torch.Generator(device=device).manual_seed(5), 37,
+                           9, device=device)
+    return generator, critic, ts, real
+
+
+def test_gan_cuda_route_trains_through_the_four_kernels(cuda):
+    """gan_grads(fused=True) on the card: each of kernels 5, 6, 7 and 8
+    launches once, and every parameter gets a finite gradient."""
+    from torchsde_tpu_torch.models.sde_gan import gan_grads
+    generator, critic, ts, real = _small_gan(cuda)
+    counters = ("gen_launches", "gen_bwd_launches", "cde_launches",
+                "cde_bwd_launches")
+    before = [getattr(GF, c) for c in counters]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    loss, g_gen, g_disc = gan_grads(generator, critic, gen, ts, real,
+                                    adjoint=False, fused=True)
+    torch.cuda.synchronize()
+    assert [getattr(GF, c) - b for c, b in zip(counters, before)] == [1] * 4
+    assert torch.isfinite(loss)
+    assert set(g_gen) == dict(generator.named_parameters()).keys()
+    assert set(g_disc) == dict(critic.named_parameters()).keys()
+    for g in (*g_gen.values(), *g_disc.values()):
+        assert torch.isfinite(g).all()
+
+
+def test_gan_grads_on_both_routes_agree(cuda):
+    """Every parameter gradient through the four kernels against autograd
+    through the sdeint route on the same generator seed: atol 1e-5 times
+    each gradient's largest entry (both float32, summed in other
+    orders)."""
+    from torchsde_tpu_torch.models.sde_gan import gan_grads
+    generator, critic, ts, real = _small_gan(cuda)
+    grads = []
+    for fused in (True, False):
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        _, g_gen, g_disc = gan_grads(generator, critic, gen, ts, real,
+                                     adjoint=False, fused=fused)
+        grads.append({**g_gen, **{"critic." + k: v
+                                  for k, v in g_disc.items()}})
+    for name, want in grads[1].items():
+        torch.testing.assert_close(grads[0][name], want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()),
+                                   msg=name)
 
 
 def test_gan_loss_on_both_routes_agrees(cuda):
-    from torchsde_tpu_torch.models.sde_gan import (Discriminator, Generator,
-                                                   gan_loss, get_ou_data)
-    init = torch.Generator().manual_seed(4)
-    generator = Generator(1, 5, 3, 16, 16, 1, init_mult1=3.0, init_mult2=0.5,
-                          device=cuda, generator=init)
-    critic = Discriminator(1, 17, 16, 1, device=cuda, generator=init)
-    ts, real = get_ou_data(torch.Generator(device=cuda).manual_seed(5), 37,
-                           9, device=cuda)
+    from torchsde_tpu_torch.models.sde_gan import gan_loss
+    generator, critic, ts, real = _small_gan(cuda)
     losses = []
     with torch.no_grad():
         for fused in (True, False):

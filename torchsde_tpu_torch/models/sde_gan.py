@@ -14,12 +14,13 @@ module-level draw site :func:`_standard_normal`) and then the solve noise
 route and the fused route. The critic never draws from it.
 
 ``fused=True`` runs both solves through the whole-solve CUDA kernels of
-``ops/gan_fused.py`` (their plain PyTorch versions for CPU tensors). Only
-their forward kernels are ported so far, so on the card the fused route
-serves under ``torch.no_grad()``; training on it is ROADMAP queue 1 item
-11b. ``adjoint=True`` (``sdeint_adjoint``) is not ported yet (queue 1 item
-10); for reversible Heun ``adjoint=False`` computes the same values and the
-same exact discrete gradient.
+``ops/gan_fused.py`` (their plain PyTorch versions for CPU tensors), and
+trains on the card: each solve is a ``torch.autograd.Function`` whose
+backward is the solve's reverse-sweep kernel, so one :func:`gan_grads`
+launches each of the four GAN kernels once. ``adjoint=True``
+(``sdeint_adjoint``) is not ported yet (queue 1 item 10); for reversible
+Heun ``adjoint=False`` computes the same values and the same exact
+discrete gradient.
 """
 
 import numpy as np

@@ -19,7 +19,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("latent_fused_fwd.cu", "latent_fused_bwd.cu", "gan_gen_fwd.cu",
-           "gan_cde_fwd.cu")
+           "gan_cde_fwd.cu", "gan_gen_bwd.cu", "gan_cde_bwd.cu")
 HEADERS = ("latent_fused_common.cuh", "gan_fused_common.cuh")
 BUILD_DIR = Path(os.environ.get(
     "TSDE_TORCH_BUILD_DIR",
@@ -69,10 +69,18 @@ def _bind(lib):
     cde = lib.tsde_gan_cde_fwd
     cde.argtypes = [P] * 11 + [I] * 7 + [P]
     cde.restype = I
-    for name in ("gen", "cde"):
-        smem = getattr(lib, f"tsde_gan_{name}_fwd_smem_bytes")
+    gen_bwd = lib.tsde_gan_gen_bwd
+    gen_bwd.argtypes = [P] * 21 + [I] * 7 + [P]
+    gen_bwd.restype = I
+    cde_bwd = lib.tsde_gan_cde_bwd
+    cde_bwd.argtypes = [P] * 14 + [I] * 7 + [P]
+    cde_bwd.restype = I
+    for name in ("gen_fwd", "cde_fwd", "gen_bwd", "cde_bwd"):
+        smem = getattr(lib, f"tsde_gan_{name}_smem_bytes")
         smem.argtypes = [I, I, I]
         smem.restype = ctypes.c_size_t
+    lib.tsde_gan_bwd_partials.argtypes = [I, I, I]
+    lib.tsde_gan_bwd_partials.restype = I
     lib.tsde_latent_fused_bwd_blocks.argtypes = [I]
     lib.tsde_latent_fused_bwd_blocks.restype = I
     lib.tsde_cuda_error_string.argtypes = [I]

@@ -1,0 +1,325 @@
+// Reverse sweep of the SDE-GAN critic's neural CDE solve, for Hopper
+// (sm_90a), bound to PyTorch through a plain C interface (ctypes).
+//
+// Replaces the Pallas TPU kernel torchsde_tpu/ops/gan_fused.py:_cde_bwd_kernel
+// (launched by _cde_solve_bwd_impl). Same function: the reverse recurrence
+// of the drift-only reversible Heun of gan_cde_fwd.cu, cotangents (ay, az,
+// af) of the carry (h, z, f), for each step n from the last to the first,
+// with z1 = zs[n] and the step's control slope:
+//   ay += ghs[n];  Af = af + dt/2 ay
+//   recompute F = tower([t1, z1]) (S*C outputs, F[i*C + c])
+//   dslopes[n][c] = sum_i Af[i] F[i][c];  dF[i][c] = Af[i] slope[c]
+//   backpropagate dF through the tower: dz and every weight gradient
+//   Az = az + dz;  ay += 2 Az;  az = -Az;  af = dt/2 ay + dt Az
+// and at the end dh0 = ay + az, df0 = af. The knot times get no gradient.
+//
+// What bounds it. Per row and step it recomputes the tower ((1+S)M + MSC
+// multiply-adds), does twice that going back and 2SC for the slopes: 2,564
+// at S=17, M=16, C=2, so 0.66 GFLOP for 63 steps over the 2048 rows of a
+// training step (9.9 us at the float32 peak). It reads zs, ghs (N,B,S) and
+// the slopes and writes dslopes, about 20 MB (6 us at 3.35 TB/s). In
+// practice it is bound by latency: 63 dependent steps of tiny products.
+//
+// Design, as gan_gen_bwd.cu: a row's work stays inside a group of G lanes of
+// one warp (G = 32 for S = 17: one row per warp), lane l owning state unit
+// l (ay, az, af and its C outputs) and hidden unit l; products gather
+// through __shfl_sync, with the weights and transposed copies in shared
+// memory, zero-padded to G. Lane l accumulates column l of W1 and b1[l],
+// and column l of W2 and its b2 entries: 100 registers at the reference
+// scale (G and C template parameters). Each warp writes one partial; a
+// second kernel sums them in a fixed order, so two calls give bitwise the
+// same gradients. Precise expf and tanhf, float32 throughout. The kernels
+// allocate nothing and do not synchronise the host.
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+#include "gan_fused_common.cuh"
+
+namespace {
+
+using namespace tsde_gan;
+
+struct CdeBwdArgs {
+  const float* slopes;  // (N, B, C)
+  const float* t1s;     // (N,)
+  const float* dts;     // (N,)
+  const float* w[4];    // W1 b1 W2 b2
+  const float* zs;      // (N, B, S)
+  const float* ghs;     // (N, B, S)
+  float* dh0;           // (B, S)
+  float* df0;           // (B, S)
+  float* dslopes;       // (N, B, C)
+  float* partials;      // (bwd_partials(B, S, M), P)
+  int B, S, M, C, N, P;
+};
+
+__host__ __device__ inline size_t cde_bwd_smem_floats(int S, int M, int C,
+                                                      int G) {
+  return tower_w1_floats(S, G) + tower_w2_floats(M, C, G) + size_t(G) * G
+         + size_t(G) * C * G;
+}
+
+// Row `row`'s inputs of step s: z1 and ghs of unit li and the slopes; zeros
+// off the batch or past S.
+template <int C>
+struct CdeStepIn {
+  float z1, gh, sl[C];
+};
+
+template <int C>
+__device__ __forceinline__ void load_cde_step(const CdeBwdArgs& a, int s,
+                                              int row, int li, bool live,
+                                              bool unit, CdeStepIn<C>& in) {
+  const size_t at = (size_t(s) * a.B + row) * a.S + li;
+  in.z1 = unit ? __ldg(a.zs + at) : 0.f;
+  in.gh = unit ? __ldg(a.ghs + at) : 0.f;
+  const float* sl = a.slopes + (size_t(s) * a.B + row) * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c) in.sl[c] = live ? __ldg(sl + c) : 0.f;
+}
+
+// The number of control channels C (1..MAX_K) and the group width G (16 or
+// 32) are template parameters, as in gan_gen_bwd.cu.
+template <int G, int C>
+__global__ void __launch_bounds__(MAX_THREADS)
+gan_cde_bwd_kernel(const CdeBwdArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  const int S = a.S, M = a.M, B = a.B;
+  float* w1 = sm;
+  float* w2 = w1 + tower_w1_floats(S, G);
+  float* w1t = w2 + tower_w2_floats(M, C, G);
+  float* w2t = w1t + G * G;
+  stage_tower(w1, w2, a.w[0], a.w[2], S, M, C, G);
+  stage_tower_t(w1t, w2t, a.w[0], a.w[2], S, M, C, G);
+  __syncthreads();
+
+  constexpr int RPW = 32 / G;                  // rows per warp
+  const int lane = threadIdx.x & 31;
+  const int li = lane & (G - 1);
+  const int warp = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  // No barrier follows: a warp with no row of the batch is done. The others
+  // run every lane; rows past the end compute on zeros, add zeros and store
+  // nothing.
+  if (warp * RPW >= B) return;
+  const int row = warp * RPW + lane / G;
+  const bool live = row < B;
+  const bool unit = live && li < S;
+  const bool hid = li < M;
+
+  const float* w1s[1] = {w1};
+  const float b1[1] = {hid ? a.w[1][li] : 0.f};
+  float b2[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) b2[c] = li < S ? a.w[3][li * C + c] : 0.f;
+
+  float ay = 0.f, az = 0.f, af = 0.f;
+  // Column li of dW1 (row 0: time) and of dW2 (outputs (li, c); row k).
+  float gw1[1 + G], gw2[G][C], gb1 = 0.f, gb2[C];
+#pragma unroll
+  for (int r = 0; r <= G; ++r) gw1[r] = 0.f;
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) gw2[k][c] = 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) gb2[c] = 0.f;
+
+  CdeStepIn<C> next;
+  load_cde_step<C>(a, a.N - 1, row, li, live, unit, next);
+  float dt_next = __ldg(a.dts + a.N - 1), t1_next = __ldg(a.t1s + a.N - 1);
+  for (int s = a.N - 1; s >= 0; --s) {
+    const CdeStepIn<C> in = next;
+    const float dt = dt_next, t1 = t1_next;
+    if (s > 0) {
+      load_cde_step<C>(a, s - 1, row, li, live, unit, next);
+      dt_next = __ldg(a.dts + s - 1);
+      t1_next = __ldg(a.t1s + s - 1);
+    }
+
+    ay += in.gh;
+    const float Af = af + 0.5f * dt * ay;
+
+    // The tower's forward at [t1, z1].
+    float pre[1], a1, sl1;
+    tower_layer1<1>(w1s, b1, t1, in.z1, S, G, li, pre);
+    lipswish_and_slope(pre[0], a1, sl1);
+    float F[C];
+    tower_layer2<C>(w2, a1, b2, M, G, li, F);
+
+    // The slopes' cotangent, and the outputs' pre-activation cotangents.
+    float ds[C], d2[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      ds[c] = group_sum<G>(Af * F[c]);
+      d2[c] = Af * in.sl[c] * (1.f - F[c] * F[c]);
+      gb2[c] += d2[c];
+    }
+    if (live && li == 0) {
+      float* out = a.dslopes + (size_t(s) * B + row) * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c) out[c] = ds[c];
+    }
+
+    // Layer 2's weights: dW2[k][(li, c)] += a1[k] dpre2[(li, c)].
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      if (k < M) {
+        const float ak = __shfl_sync(FULL, a1, k, G);
+#pragma unroll
+        for (int c = 0; c < C; ++c) gw2[k][c] = fmaf(ak, d2[c], gw2[k][c]);
+      }
+    }
+
+    // Hidden unit li's cotangent, through lipswish.
+    float da = 0.f;
+#pragma unroll 4
+    for (int o = 0; o < S; ++o) {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        da = fmaf(__shfl_sync(FULL, d2[c], o, G), w2t[(o * C + c) * G + li],
+                  da);
+    }
+    const float d1 = da * sl1;
+
+    // Layer 1's weights: dW1[r][li] += [t1, z1][r] dpre1[li].
+    gb1 += d1;
+    gw1[0] = fmaf(t1, d1, gw1[0]);
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      if (i < S) gw1[1 + i] = fmaf(__shfl_sync(FULL, in.z1, i, G), d1,
+                                   gw1[1 + i]);
+    }
+
+    // State unit li's cotangent.
+    float dz = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < M; ++k)
+      dz = fmaf(__shfl_sync(FULL, d1, k, G), w1t[k * G + li], dz);
+    const float Az = az + dz;
+
+    af = 0.5f * dt * ay + dt * Az;
+    ay += 2.f * Az;
+    az = -Az;
+  }
+
+  if (unit) {
+    const size_t at = size_t(row) * S + li;
+    a.dh0[at] = ay + az;
+    a.df0[at] = af;
+  }
+
+  // The two row groups of a warp (G = 16) add up, group 0 first; then lane
+  // li of the first group writes the warp's partial of the entries it owns,
+  // laid out as the weights in gan_fused.CDE_WEIGHT_NAMES order.
+  if constexpr (RPW == 2) {
+#pragma unroll
+    for (int r = 0; r <= G; ++r) gw1[r] += __shfl_down_sync(FULL, gw1[r], 16);
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        gw2[k][c] += __shfl_down_sync(FULL, gw2[k][c], 16);
+    }
+    gb1 += __shfl_down_sync(FULL, gb1, 16);
+#pragma unroll
+    for (int c = 0; c < C; ++c) gb2[c] += __shfl_down_sync(FULL, gb2[c], 16);
+  }
+  if (lane >= G) return;
+  const int SC = S * C;
+  float* pW1 = a.partials + size_t(warp) * a.P;
+  float* pb1 = pW1 + (1 + S) * M;
+  float* pW2 = pb1 + M;
+  float* pb2 = pW2 + M * SC;
+  if (hid) {
+#pragma unroll
+    for (int r = 0; r <= G; ++r) {
+      if (r <= S) pW1[r * M + li] = gw1[r];
+    }
+    pb1[li] = gb1;
+  }
+  if (li < S) {
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      if (k < M) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) pW2[k * SC + li * C + c] = gw2[k][c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) pb2[li * C + c] = gb2[c];
+  }
+}
+
+using CdeBwdKernel = void (*)(CdeBwdArgs);
+
+template <int G>
+CdeBwdKernel cde_bwd_kernel_for(int C) {
+  switch (C) {
+    case 1: return gan_cde_bwd_kernel<G, 1>;
+    case 2: return gan_cde_bwd_kernel<G, 2>;
+    case 3: return gan_cde_bwd_kernel<G, 3>;
+    case 4: return gan_cde_bwd_kernel<G, 4>;
+    case 5: return gan_cde_bwd_kernel<G, 5>;
+    case 6: return gan_cde_bwd_kernel<G, 6>;
+    case 7: return gan_cde_bwd_kernel<G, 7>;
+    default: return gan_cde_bwd_kernel<G, 8>;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory one block of the sweep needs for these widths.
+size_t tsde_gan_cde_bwd_smem_bytes(int S, int M, int C) {
+  return cde_bwd_smem_floats(S, M, C, bwd_group_width(S, M)) * sizeof(float);
+}
+
+// Launches the sweep (`threads` threads per block) and the sum of its
+// partials on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for widths beyond the kernel's limits (S, M <= 32,
+// C <= 8, threads a multiple of 32 up to 256). All pointers are device
+// pointers to contiguous float32 arrays; weights in the order of
+// gan_fused.CDE_WEIGHT_NAMES. partials holds tsde_gan_bwd_partials(B, S, M)
+// x P floats and dw P floats, P the weights' total element count; dw
+// receives their gradients back to back.
+int tsde_gan_cde_bwd(const float* slopes, const float* t1s, const float* dts,
+                     const float* W1, const float* b1, const float* W2,
+                     const float* b2, const float* zs, const float* ghs,
+                     float* dh0, float* df0, float* dslopes, float* partials,
+                     float* dw, int B, int S, int M, int C, int N,
+                     int threads, int device, cudaStream_t stream) {
+  if (S < 1 || S > MAX_LANES || M < 1 || M > MAX_LANES || C < 1 ||
+      C > MAX_K || threads < 32 || threads > MAX_THREADS || threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B <= 0 || N <= 0) return 0;
+  CdeBwdArgs a;
+  a.slopes = slopes; a.t1s = t1s; a.dts = dts;
+  const float* w[4] = {W1, b1, W2, b2};
+  for (int i = 0; i < 4; ++i) a.w[i] = w[i];
+  a.zs = zs; a.ghs = ghs;
+  a.dh0 = dh0; a.df0 = df0; a.dslopes = dslopes; a.partials = partials;
+  a.B = B; a.S = S; a.M = M; a.C = C; a.N = N;
+  a.P = (1 + S) * M + M + M * S * C + S * C;
+  const int G = bwd_group_width(S, M);
+  const CdeBwdKernel kernel =
+      G == 16 ? cde_bwd_kernel_for<16>(C) : cde_bwd_kernel_for<32>(C);
+  const size_t smem = tsde_gan_cde_bwd_smem_bytes(S, M, C);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows_per_block = (threads / 32) * (32 / G);
+  kernel<<<(B + rows_per_block - 1) / rows_per_block, threads, smem,
+           stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      launch_sum_partials(partials, bwd_partials(B, S, M), a.P, dw, stream));
+}
+
+}  // extern "C"

@@ -1,7 +1,7 @@
 // The SDE-GAN towers (Linear, lipswish, Linear, tanh of [t, z]) for the
 // whole-solve kernels (gan_gen_fwd.cu, gan_cde_fwd.cu, and the backward
-// kernels that will recompute them), so every kernel evaluates a tower with
-// the same arithmetic.
+// kernels gan_gen_bwd.cu, gan_cde_bwd.cu that recompute them), so every
+// kernel evaluates a tower with the same arithmetic.
 //
 // Layout. A batch row is served by a group of G lanes inside one warp
 // (G = the power of two >= max(S, M), at most 32; 32 / G rows per warp):
@@ -105,6 +105,87 @@ __device__ __forceinline__ void tower_layer2(const float* w2s, float a,
   }
 #pragma unroll
   for (int j = 0; j < K; ++j) out[j] = tanhf(out[j] + b2[j]);
+}
+
+// ---------------------------------------------------------------------------
+// Backward kernels.
+//
+// Their group width is at least 16, so it takes one of two values and is a
+// template parameter: a lane's weight-gradient accumulators are then
+// register arrays of compile-time size. Lanes past S or M add exact zeros.
+__host__ __device__ inline int bwd_group_width(int S, int M) {
+  const int G = group_width(S, M);
+  return G < 16 ? 16 : G;
+}
+
+// Weight-gradient partials: one for each warp of the reverse sweep (the
+// rows of a warp are summed inside it), so their number does not depend on
+// the block size.
+__host__ __device__ inline int bwd_partials(int B, int S, int M) {
+  const int rows_per_warp = 32 / bwd_group_width(S, M);
+  return (B + rows_per_warp - 1) / rows_per_warp;
+}
+
+// The transposed copies the backward's products read, zero-padded, so that
+// neighbouring lanes read neighbouring words here too:
+//   w1t[k * G + i]             = W1[1 + i][k]   input cotangent, lane i
+//   w2t[(i * K + j) * G + k]   = W2[k][i*K + j] hidden cotangent, lane k
+__device__ inline void stage_tower_t(float* w1t, float* w2t, const float* W1,
+                                     const float* W2, int S, int M, int K,
+                                     int G) {
+  for (int e = threadIdx.x; e < G * G; e += blockDim.x) {
+    const int k = e / G, i = e % G;
+    w1t[e] = k < M && i < S ? W1[(1 + i) * M + k] : 0.f;
+  }
+  for (int e = threadIdx.x; e < G * K * G; e += blockDim.x) {
+    const int i = e / (K * G), j = (e / G) % K, k = e % G;
+    w2t[e] = i < S && k < M ? W2[k * (S * K) + i * K + j] : 0.f;
+  }
+}
+
+// The hidden unit's activation and lipswish's derivative at its
+// pre-activation x, with lipswish's arithmetic.
+__device__ __forceinline__ void lipswish_and_slope(float x, float& a,
+                                                   float& slope) {
+  const float s = 1.f / (1.f + expf(-x));
+  a = 0.909f * x * s;
+  slope = 0.909f * (s + x * s * (1.f - s));
+}
+
+// Sums v over the G lanes of each group, in a fixed butterfly: every lane
+// of the group ends with the same sum.
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(FULL, v, off, G);
+  return v;
+}
+
+// out[e] = the sum over p < n of partials[p * P + e], one warp per element:
+// lane l adds partials l, l + 32, ... in order, then the lanes' sums meet in
+// a fixed butterfly. No atomics: the same partials give bitwise the same
+// sums.
+static __global__ void sum_partials(const float* partials, int n, int P,
+                                    float* out) {
+  const int e = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (e >= P) return;
+  float acc = 0.f;
+  for (int p = lane; p < n; p += 32) acc += partials[size_t(p) * P + e];
+  acc = group_sum<32>(acc);
+  if (lane == 0) out[e] = acc;
+}
+
+constexpr int SUM_THREADS = 256;
+
+static inline cudaError_t launch_sum_partials(const float* partials, int n,
+                                              int P, float* out,
+                                              cudaStream_t stream) {
+  constexpr int per_block = SUM_THREADS / 32;
+  sum_partials<<<(P + per_block - 1) / per_block, SUM_THREADS, 0, stream>>>(
+      partials, n, P, out);
+  return cudaGetLastError();
 }
 
 }  // namespace tsde_gan

@@ -23,16 +23,31 @@ is one launch of a hand-written CUDA kernel:
 The initial evaluations ``f0, g0`` (and the critic's ``f0``) run as plain
 PyTorch outside the kernels, as the JAX package runs them in XLA.
 
+Each solve's gradient is one reverse sweep of a backward kernel
+(``csrc/gan_gen_bwd.cu``, ``csrc/gan_cde_bwd.cu``; a second, small kernel
+sums its weight-gradient partials), so GAN training runs on the card
+through four kernels. The sweep is the hand-derived reverse recurrence
+of the JAX package's module docstring. It carries the
+cotangents ``(ay, az, af, ag)`` of the carry ``(x, z, f, g)`` from the last
+step to the first, recomputes the towers at the stored ``z_{n+1}``, and
+after their backward gives ``Az = az + dz``::
+
+    ay <- ay + 2 Az        az <- -Az        af <- dt/2 ay + dt Az
+    ag <- outer(ay/2 + Az, dW)
+
+(the critic carries ``(ay, az, af)`` and emits the slopes' cotangent).
+:class:`FusedGenSolve` and :class:`FusedCDESolve` join each forward kernel
+with its backward kernel in a ``torch.autograd.Function``, the counterparts
+of the JAX package's ``_gen_solve`` and ``_cde_solve`` custom VJPs.
+
 The weights are the towers' own, unpadded: the TPU kernels' 128-lane
 padding and 0/1 tile matrices are not ported. A CPU tensor goes to the
 plain versions (:func:`gen_solve_forward_plain`,
-:func:`cde_solve_forward_plain`: the same math as loops of PyTorch
-operators, differentiable); a CUDA tensor goes to the kernels, which raise
-rather than fall back. The kernels' backward (the TPU package's
-``_gen_bwd_kernel`` and ``_cde_bwd_kernel``) is not ported yet, so on CUDA
-tensors the solves refuse to run while autograd records (ROADMAP queue 1
-item 11b). ``gen_launches`` and ``cde_launches`` count the kernels'
-launches.
+:func:`cde_solve_forward_plain`, :func:`gen_solve_backward_plain`,
+:func:`cde_solve_backward_plain`: the same math as loops of PyTorch
+operators); a CUDA tensor goes to the kernels, which raise rather than
+fall back. ``gen_launches``, ``cde_launches``, ``gen_bwd_launches`` and
+``cde_bwd_launches`` count the kernels' launches.
 """
 
 import numpy as np
@@ -43,10 +58,12 @@ from ..core import integrate
 from ..core.sdeint import host_times
 from ..utils.misc import check_kernel_tensor
 
-# Launches of the generator and the critic kernel since import (or since a
-# caller reset them to 0).
+# Launches of the generator's and the critic's forward and backward kernels
+# since import (or since a caller reset them to 0).
 gen_launches = 0
 cde_launches = 0
+gen_bwd_launches = 0
+cde_bwd_launches = 0
 
 # Threads per block of both kernels. A row's work stays inside one warp
 # (a group of lanes per row), so this only sets how many rows a block
@@ -152,6 +169,95 @@ def cde_solve_forward_plain(h0, f0, slopes, t1s, dts, weights):
     return torch.stack(hs), torch.stack(zs)
 
 
+def _tower_parts(zin, W1, b1, W2, b2):
+    """A tower's forward with what its backward needs: the hidden
+    pre-activation, its sigmoid, the hidden activation and the output."""
+    pre1 = zin @ W1 + b1
+    sig = torch.sigmoid(pre1)
+    a1 = 0.909 * pre1 * sig
+    return pre1, sig, a1, torch.tanh(a1 @ W2 + b2)
+
+
+def _tower_backward(zin, parts, W1, W2, dout):
+    """The cotangent of a tower's input ``[t, z]`` from that of its output,
+    and the gradients of its weights (W1, b1, W2, b2)."""
+    pre1, sig, a1, out = parts
+    dpre2 = dout * (1.0 - out * out)
+    dpre1 = (dpre2 @ W2.T) * (0.909 * (sig + pre1 * sig * (1.0 - sig)))
+    grads = (zin.T @ dpre1, dpre1.sum(0), a1.T @ dpre2, dpre2.sum(0))
+    return dpre1 @ W1.T, grads
+
+
+def gen_solve_backward_plain(x0, f0, g0, noise, t1s, dts, weights, zs, gs,
+                             gy):
+    """The generator's backward kernel as a loop of PyTorch operators: the
+    reverse recurrence of the JAX package's ``_gen_bwd_kernel``, which
+    recomputes both towers at each step's stored ``z_{n+1}``.
+
+    Takes the forward's inputs, its zs (N,B,S) and gs (N,B,S*m), and the
+    cotangent gy (N,B,S) of ys. Returns dx0, df0 (B,S), dg0 (B,S*m), dnoise
+    (N,B,m) and the weights' gradients in GEN_WEIGHT_NAMES order, summed in
+    the inputs' dtype."""
+    wf, wg = weights[:4], weights[4:]
+    B, S = x0.shape
+    N, _, m = noise.shape
+    g_all = torch.cat([g0[None], gs]).reshape(N + 1, B, S, m)
+    ay, az, af = (torch.zeros_like(x0) for _ in range(3))
+    ag = x0.new_zeros((B, S, m))
+    dnoise = torch.empty_like(noise)
+    dw = [torch.zeros_like(w) for w in weights]
+    for n in reversed(range(N)):
+        dt, dW = dts[n], noise[n][:, None, :]
+        ay = ay + gy[n]
+        Af = af + 0.5 * dt * ay
+        Ag = ag + 0.5 * ay[..., None] * dW
+        zin = time_column(t1s[n], zs[n])
+        dzf, grads_f = _tower_backward(zin, _tower_parts(zin, *wf), wf[0],
+                                       wf[2], Af)
+        dzg, grads_g = _tower_backward(zin, _tower_parts(zin, *wg), wg[0],
+                                       wg[2], Ag.reshape(B, S * m))
+        for acc, d in zip(dw, grads_f + grads_g):
+            acc += d
+        Az = az + dzf[:, 1:] + dzg[:, 1:]
+        g_n, g_next = g_all[n], g_all[n + 1]
+        dnoise[n] = torch.einsum("bs,bsm->bm", Az, g_n) + 0.5 * torch.einsum(
+            "bs,bsm->bm", ay, g_n + g_next)
+        ay, az, af, ag = (ay + 2.0 * Az, -Az, 0.5 * dt * ay + dt * Az,
+                          (0.5 * ay + Az)[..., None] * dW)
+    return ay + az, af, ag.reshape(B, S * m), dnoise, tuple(dw)
+
+
+def cde_solve_backward_plain(h0, f0, slopes, t1s, dts, weights, zs, ghs):
+    """The critic's backward kernel as a loop of PyTorch operators: the
+    reverse recurrence of the JAX package's ``_cde_bwd_kernel``.
+
+    Takes the forward's inputs, its zs (N,B,S) and the cotangent ghs
+    (N,B,S) of hs. Returns dh0, df0 (B,S), dslopes (N,B,C) and the weights'
+    gradients in CDE_WEIGHT_NAMES order. The knot times get no gradient,
+    as in the JAX package."""
+    B, S = h0.shape
+    C = slopes.shape[2]
+    ay, az, af = (torch.zeros_like(h0) for _ in range(3))
+    dslopes = torch.empty_like(slopes)
+    dw = [torch.zeros_like(w) for w in weights]
+    for n in reversed(range(slopes.shape[0])):
+        dt = dts[n]
+        ay = ay + ghs[n]
+        Af = af + 0.5 * dt * ay
+        zin = time_column(t1s[n], zs[n])
+        parts = _tower_parts(zin, *weights)
+        dslopes[n] = torch.einsum("bs,bsc->bc", Af,
+                                  parts[3].reshape(B, S, C))
+        dF = Af[..., None] * slopes[n][:, None, :]
+        dz, grads = _tower_backward(zin, parts, weights[0], weights[2],
+                                    dF.reshape(B, S * C))
+        for acc, d in zip(dw, grads):
+            acc += d
+        Az = az + dz[:, 1:]
+        ay, az, af = ay + 2.0 * Az, -Az, 0.5 * dt * ay + dt * Az
+    return ay + az, af, dslopes, tuple(dw)
+
+
 def _check_tower(names, weights, in_size, out_size, device):
     W1 = weights[0]
     if W1.ndim != 2:
@@ -201,6 +307,28 @@ def check_cde_inputs(h0, f0, slopes, t1s, dts, weights):
                            ("dts", dts, (N,))):
         check_kernel_tensor(name, t, shape, torch.float32, h0.device)
     M = _check_tower(CDE_WEIGHT_NAMES, weights, 1 + S, S * C, h0.device)
+    return B, S, M, C, N
+
+
+def check_gen_backward_inputs(x0, f0, g0, noise, t1s, dts, weights, zs, gs,
+                              gy):
+    """What the generator's backward kernel takes: the forward kernel's
+    inputs, and zs, gy (N,B,S) and gs (N,B,S*m), float32 contiguous on the
+    same device. Returns (B, S, M, m, N)."""
+    B, S, M, m, N = check_gen_inputs(x0, f0, g0, noise, t1s, dts, weights)
+    for name, t, shape in (("zs", zs, (N, B, S)), ("gs", gs, (N, B, S * m)),
+                           ("gy", gy, (N, B, S))):
+        check_kernel_tensor(name, t, shape, torch.float32, x0.device)
+    return B, S, M, m, N
+
+
+def check_cde_backward_inputs(h0, f0, slopes, t1s, dts, weights, zs, ghs):
+    """What the critic's backward kernel takes: the forward kernel's inputs,
+    and zs, ghs (N,B,S), float32 contiguous on the same device. Returns
+    (B, S, M, C, N)."""
+    B, S, M, C, N = check_cde_inputs(h0, f0, slopes, t1s, dts, weights)
+    for name, t in (("zs", zs), ("ghs", ghs)):
+        check_kernel_tensor(name, t, (N, B, S), torch.float32, h0.device)
     return B, S, M, C, N
 
 
@@ -272,38 +400,154 @@ def cde_solve_forward_cuda(h0, f0, slopes, t1s, dts, weights,
     return hs, zs
 
 
-def _route(tensors, plain, cuda, what):
+def _weight_grads(lib, B, S, M, weights, device):
+    """The backward kernels' weight-gradient buffers: one float32 partial
+    per warp of the sweep, and the flat output the second kernel sums them
+    into (the weights' gradients back to back)."""
+    sizes = [w.numel() for w in weights]
+    partials = torch.empty((lib.tsde_gan_bwd_partials(B, S, M), sum(sizes)),
+                           dtype=torch.float32, device=device)
+    return sizes, partials, torch.empty(sum(sizes), dtype=torch.float32,
+                                        device=device)
+
+
+def gen_solve_backward_cuda(x0, f0, g0, noise, t1s, dts, weights, zs, gs, gy,
+                            threads=THREADS):
+    """Launch the generator's backward kernel (the reverse sweep, then the
+    sum of its per-warp weight-gradient partials) on the current stream;
+    returns what :func:`gen_solve_backward_plain` returns. Raises on tensors
+    it does not take, on a failed build and on a refused launch."""
+    global gen_bwd_launches
+    if not x0.is_cuda:
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
+                         f"{x0.device}")
+    B, S, M, m, N = check_gen_backward_inputs(x0, f0, g0, noise, t1s, dts,
+                                              weights, zs, gs, gy)
+    check_widths(S, M, m, threads)
+    lib = _build.library_for("tsde_gan_gen_bwd_smem_bytes", S, M, m)
+    dx0, df0 = torch.empty_like(x0), torch.empty_like(f0)
+    dg0 = torch.empty_like(g0)
+    dnoise = torch.empty_like(noise)
+    sizes, partials, dw = _weight_grads(lib, B, S, M, weights, x0.device)
+    ptrs = [t.data_ptr() for t in (g0, noise, t1s, dts, *weights, zs, gs, gy,
+                                   dx0, df0, dg0, dnoise, partials, dw)]
+    stream = torch.cuda.current_stream(x0.device).cuda_stream
+    rc = lib.tsde_gan_gen_bwd(*ptrs, B, S, M, m, N, threads,
+                              x0.device.index or 0, stream)
+    _build.check_launch(lib, rc, "gan_gen_bwd")
+    gen_bwd_launches += 1
+    dweights = tuple(d.view_as(w) for d, w in zip(dw.split(sizes), weights))
+    return dx0, df0, dg0, dnoise, dweights
+
+
+def cde_solve_backward_cuda(h0, f0, slopes, t1s, dts, weights, zs, ghs,
+                            threads=THREADS):
+    """Launch the critic's backward kernel (the reverse sweep, then the sum
+    of its per-warp weight-gradient partials) on the current stream;
+    returns what :func:`cde_solve_backward_plain` returns. Raises on tensors
+    it does not take, on a failed build and on a refused launch."""
+    global cde_bwd_launches
+    if not h0.is_cuda:
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
+                         f"{h0.device}")
+    B, S, M, C, N = check_cde_backward_inputs(h0, f0, slopes, t1s, dts,
+                                              weights, zs, ghs)
+    check_widths(S, M, C, threads)
+    lib = _build.library_for("tsde_gan_cde_bwd_smem_bytes", S, M, C)
+    dh0, df0 = torch.empty_like(h0), torch.empty_like(f0)
+    dslopes = torch.empty_like(slopes)
+    sizes, partials, dw = _weight_grads(lib, B, S, M, weights, h0.device)
+    ptrs = [t.data_ptr() for t in (slopes, t1s, dts, *weights, zs, ghs, dh0,
+                                   df0, dslopes, partials, dw)]
+    stream = torch.cuda.current_stream(h0.device).cuda_stream
+    rc = lib.tsde_gan_cde_bwd(*ptrs, B, S, M, C, N, threads,
+                              h0.device.index or 0, stream)
+    _build.check_launch(lib, rc, "gan_cde_bwd")
+    cde_bwd_launches += 1
+    dweights = tuple(d.view_as(w) for d, w in zip(dw.split(sizes), weights))
+    return dh0, df0, dslopes, dweights
+
+
+def _route(device, plain, cuda):
     """The plain version for CPU tensors, the kernel for CUDA tensors; no
-    fallback between them. The kernels have no backward yet, so a CUDA
-    solve refuses to run while autograd records."""
-    device = tensors[0].device
+    fallback between them."""
     if device.type == "cpu":
         return plain
     if device.type == "cuda":
-        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-            raise NotImplementedError(
-                f"the fused {what} solve on CUDA has only its forward kernel "
-                f"so far; its backward kernel and GAN training on the fused "
-                f"route are ROADMAP queue 1 item 11b. Run it under "
-                f"torch.no_grad(), or train with fused=False")
         return cuda
     raise ValueError(f"no fused GAN solve for device {device}")
 
 
+class FusedGenSolve(torch.autograd.Function):
+    """The generator's whole solve as one differentiable operation (the
+    counterpart of the JAX package's ``_gen_solve`` custom VJP): kernels 5
+    and 6 on CUDA tensors, their plain versions on CPU tensors. Returns ys,
+    zs and gs; zs and gs, which the backward reads, are not differentiable.
+    Gradients flow to x0, f0, g0, noise and the weights; t1s and dts get
+    none."""
+
+    @staticmethod
+    def forward(fctx, x0, f0, g0, noise, t1s, dts, *weights):
+        solve = _route(x0.device, gen_solve_forward_plain,
+                       gen_solve_forward_cuda)
+        ys, zs, gs = solve(x0, f0, g0, noise, t1s, dts, weights)
+        fctx.save_for_backward(x0, f0, g0, noise, t1s, dts, zs, gs,
+                               *weights)
+        fctx.mark_non_differentiable(zs, gs)
+        return ys, zs, gs
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(fctx, gy, _gz, _gg):
+        x0, f0, g0, noise, t1s, dts, zs, gs, *weights = fctx.saved_tensors
+        sweep = _route(x0.device, gen_solve_backward_plain,
+                       gen_solve_backward_cuda)
+        dx0, df0, dg0, dnoise, dweights = sweep(
+            x0, f0, g0, noise, t1s, dts, weights, zs, gs, gy.contiguous())
+        if not fctx.needs_input_grad[3]:
+            dnoise = None
+        return (dx0, df0, dg0, dnoise, None, None, *dweights)
+
+
+class FusedCDESolve(torch.autograd.Function):
+    """The critic's whole solve as one differentiable operation (the
+    counterpart of the JAX package's ``_cde_solve`` custom VJP): kernels 7
+    and 8 on CUDA tensors, their plain versions on CPU tensors. Returns hs
+    and zs; zs, which the backward reads, is not differentiable. Gradients
+    flow to h0, f0, slopes and the weights; t1s and dts get none."""
+
+    @staticmethod
+    def forward(fctx, h0, f0, slopes, t1s, dts, *weights):
+        solve = _route(h0.device, cde_solve_forward_plain,
+                       cde_solve_forward_cuda)
+        hs, zs = solve(h0, f0, slopes, t1s, dts, weights)
+        fctx.save_for_backward(h0, f0, slopes, t1s, dts, zs, *weights)
+        fctx.mark_non_differentiable(zs)
+        return hs, zs
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(fctx, ghs, _gz):
+        h0, f0, slopes, t1s, dts, zs, *weights = fctx.saved_tensors
+        sweep = _route(h0.device, cde_solve_backward_plain,
+                       cde_solve_backward_cuda)
+        dh0, df0, dslopes, dweights = sweep(h0, f0, slopes, t1s, dts,
+                                            weights, zs, ghs.contiguous())
+        return (dh0, df0, dslopes, None, None, *dweights)
+
+
 def gen_solve_forward(x0, f0, g0, noise, t1s, dts, weights):
-    """The generator's whole solve: the plain version for CPU tensors, the
-    kernel for CUDA tensors."""
-    solve = _route((x0, f0, g0, noise, *weights), gen_solve_forward_plain,
-                   gen_solve_forward_cuda, "generator")
-    return solve(x0, f0, g0, noise, t1s, dts, weights)
+    """The generator's whole solve through :class:`FusedGenSolve`: ys, zs,
+    gs from the plain versions for CPU tensors and the kernels for CUDA
+    tensors, differentiable in ys."""
+    return FusedGenSolve.apply(x0, f0, g0, noise, t1s, dts, *weights)
 
 
 def cde_solve_forward(h0, f0, slopes, t1s, dts, weights):
-    """The critic's whole solve: the plain version for CPU tensors, the
-    kernel for CUDA tensors."""
-    solve = _route((h0, f0, slopes, *weights), cde_solve_forward_plain,
-                   cde_solve_forward_cuda, "critic")
-    return solve(h0, f0, slopes, t1s, dts, weights)
+    """The critic's whole solve through :class:`FusedCDESolve`: hs, zs from
+    the plain versions for CPU tensors and the kernels for CUDA tensors,
+    differentiable in hs."""
+    return FusedCDESolve.apply(h0, f0, slopes, t1s, dts, *weights)
 
 
 def _step_grid(ts, dt, what):

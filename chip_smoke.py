@@ -58,7 +58,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     each loss and gradient finite, the critic's weights within 1/out, each
     fused step launching kernels 5, 6, 7 and 8 exactly once and the
     ``sdeint`` route none; the median train-step time of each route;
-13. profile GAN train: a training step of each route under torch.profiler.
+13. profile GAN train: a training step of each route under torch.profiler;
+14. tower kernels vs plain: ``fused_sdeint``'s kernels 9 and 10 (Euler) at
+    E1 (batch 4096, d 32, hidden 128) and 11 and 12 (reversible Heun) at R1
+    (batch 1024, d 128, hidden 128, whose towers do not fit a block's
+    shared memory), 128 steps, seeded inputs and cotangents: every output
+    and weight gradient against the plain versions and a float64 run, two
+    sweeps bitwise equal, median times and bounds; then all four on general
+    noise with a time column and depth-3 towers (batch 1024, d 16, m 4,
+    hidden 64);
+15. serve and train ``fused_sdeint`` at E1 and at R1: three served solves
+    per route (``dispatch="fused"`` and ``"xla"``, the ``sdeint`` route) on
+    the same generator seeds, whose states must agree, each fused solve
+    launching its forward kernel once; the step-0 gradients of both routes;
+    three Adam steps (lr 1e-3) of mean(ys**2) per route in turns, each loss
+    and gradient finite, each fused step launching the forward and the
+    backward kernel once; median times;
+16. profile: a training step of each route at E1 and R1 under
+    torch.profiler;
+17. auto dispatch: the grad path of the JAX package's
+    benchmarks/fused_solve_bench.py on both routes at its narrow shapes,
+    E1, R1 and a tiny solve, the measurement behind ``_auto_fuse``.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -77,7 +97,9 @@ from torchsde_tpu_torch.models.latent_sde import (LatentSDE, latent_sde_loss,
 from torchsde_tpu_torch.models.sde_gan import (Discriminator, Generator,
                                                gan_grads, gan_loss,
                                                get_ou_data)
+from torchsde_tpu_torch.core import integrate as TI
 from torchsde_tpu_torch.ops import _build
+from torchsde_tpu_torch.ops import fused_solve as FS
 from torchsde_tpu_torch.ops import gan_fused as GF
 from torchsde_tpu_torch.ops import latent_fused as LF
 
@@ -146,6 +168,30 @@ GAN_GRAD_REL = 1e-5
 # examples/sde_gan.py: Adadelta after decayed weights, per network.
 GAN_TRAIN_STEPS, GAN_GEN_LR, GAN_CRITIC_LR, GAN_WEIGHT_DECAY = 5, 2e-4, 1e-3, \
     0.01
+# fused_sdeint at full width, nothing cut (benchmarks/fused_solve_bench.py:
+# 19-25,38-49,73-80 of the JAX package): drift (softplus, linear) and
+# diffusion (lipswish, sigmoid) towers d -> hidden -> d, weights normal x
+# 0.3/sqrt(fan_in), zero biases; 9 output times on [0, 1], dt 1/128 (128
+# steps), float32, diagonal noise. E1 fits a block's shared memory with both
+# towers (66,816 bytes), R1's towers (264,192 bytes) do not.
+TOWER_CONFIGS = {"E1": ("euler", 4096, 32, 128),
+                 "R1": ("reversible_heun", 1024, 128, 128)}
+TOWER_FACTS, TOWER_GACTS = ("softplus", "linear"), ("lipswish", "sigmoid")
+TOWER_N_TS, TOWER_DT = 9, 1.0 / 128
+# General noise with a time column and depth-3 towers: batch, d, m, hidden.
+TOWER_GENERAL = (1024, 16, 4, 64)
+# Kernels 9-12 vs plain, per output tensor: the JAX package's rule for its
+# fused against its XLA solves (tests/test_fused_solve.py:87,114-115), as
+# max(atol, rel * scale): values max(2e-5, 4e-6 * scale) (4e-6 as kernels 5
+# and 7: one float32 ulp at the states' scale, summed in another order over
+# 128 steps), gradients max(1e-4, 1e-5 * scale); and each kernel at most
+# twice as far from a float64 run as the plain version, plus the atol.
+TOWER_VAL_ATOL, TOWER_VAL_REL = 2e-5, 4e-6
+TOWER_GRAD_ATOL, TOWER_GRAD_REL = 1e-4, 1e-5
+# Step-0 gradients of fused_sdeint's two routes, atol this times each
+# gradient's largest entry (both float32, summed in other orders).
+TOWER_ROUTE_GRAD_REL = 1e-5
+TOWER_TRAIN_STEPS, TOWER_LR = 3, 1e-3
 # Published H100 SXM peaks (NVIDIA H100 datasheet): float32 outside the
 # tensor cores, and device memory.
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
@@ -615,12 +661,11 @@ def cde_flops(B, S, M, C, n):
     return 2 * B * n * ((1 + S) * M + M * S * C + S * C)
 
 
-def check_gan_kernel(label, names, got, want, exact):
-    """Holds a GAN kernel's outputs to its plain version's, and reports
-    both one's and the other's distance from the plain version run in
-    float64 (``exact``); the kernel may be at most twice as far from it as
-    the plain version, plus GAN_KERNEL_ATOL. Returns the largest absolute
-    and the largest scale-relative error against the plain version."""
+def check_against_plain(label, names, got, want, exact, atol, rel_tol):
+    """Holds a kernel's outputs to its plain version's at max(atol, rel_tol
+    * scale), and to twice the plain version's distance from the plain
+    version run in float64 (``exact``) plus atol. Returns the largest
+    absolute and scale-relative errors against the plain version."""
     worst = worst_rel = 0.0
     cells, failures = [], []
     for name, g, w, e in zip(names, got, want, exact):
@@ -633,17 +678,18 @@ def check_gan_kernel(label, names, got, want, exact):
         err64 = float((g.double() - e).abs().max())
         plain64 = float((w.double() - e).abs().max())
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
-        cells.append(f"{name} {err:.3e} (max|plain| {scale:.4g}, rel "
-                     f"{rel:.3e}; vs float64: kernel {err64:.3e}, plain "
-                     f"{plain64:.3e})")
-        if err > max(GAN_KERNEL_ATOL, GAN_KERNEL_REL * scale):
-            failures.append(f"{name} differs by {err:.3e} > max("
-                            f"{GAN_KERNEL_ATOL}, {GAN_KERNEL_REL} * "
-                            f"{scale:.4g})")
-        if err64 > 2 * plain64 + GAN_KERNEL_ATOL:
-            failures.append(f"{name} is {err64:.3e} from the float64 solve, "
+        cells.append(f"{name} {err:.2e}/{scale:.3g} (f64: {err64:.2e} vs "
+                     f"{plain64:.2e})")
+        if err > max(atol, rel_tol * scale):
+            failures.append(f"{name} differs by {err:.3e} > max({atol}, "
+                            f"{rel_tol} * {scale:.4g})")
+        if err64 > 2 * plain64 + atol:
+            failures.append(f"{name} is {err64:.3e} from the float64 run, "
                             f"the plain version {plain64:.3e}")
-    print(f"{label} vs plain: " + "; ".join(cells), flush=True)
+    print(f"{label} vs plain (abs err/max|plain|; from float64: kernel vs "
+          f"plain): " + "; ".join(cells), flush=True)
+    print(f"{label} vs plain: max_abs_err={worst:.3e}, max_rel_err="
+          f"{worst_rel:.3e}", flush=True)
     if failures:
         raise RuntimeError(f"{label}: " + "; ".join(failures))
     return worst, worst_rel
@@ -695,8 +741,9 @@ def phase_gan_kernels(device, models, ts, real):
         want = GF.gen_solve_forward_plain(*gen_args, gen_w)
         exact = GF.gen_solve_forward_plain(*double(gen_args), double(gen_w))
         torch.cuda.synchronize()
-        err5 = check_gan_kernel("kernel 5", ("ys", "zs", "gs"), got, want,
-                                exact)
+        err5 = check_against_plain("kernel 5", ("ys", "zs", "gs"), got,
+                                   want, exact, GAN_KERNEL_ATOL,
+                                   GAN_KERNEL_REL)
         k5 = time_gan_kernel(
             "kernel 5",
             lambda t: GF.gen_solve_forward_cuda(*gen_args, gen_w, threads=t),
@@ -706,7 +753,8 @@ def phase_gan_kernels(device, models, ts, real):
         want = GF.cde_solve_forward_plain(*cde_args, cde_w)
         exact = GF.cde_solve_forward_plain(*double(cde_args), double(cde_w))
         torch.cuda.synchronize()
-        err7 = check_gan_kernel("kernel 7", ("hs", "zs"), got, want, exact)
+        err7 = check_against_plain("kernel 7", ("hs", "zs"), got, want,
+                                   exact, GAN_KERNEL_ATOL, GAN_KERNEL_REL)
         k7 = time_gan_kernel(
             "kernel 7",
             lambda t: GF.cde_solve_forward_cuda(*cde_args, cde_w, threads=t),
@@ -839,42 +887,6 @@ def flat_grads(out):
     return [*out[:-1], *out[-1]]
 
 
-def check_gan_backward(label, names, got, want, exact):
-    """Holds a GAN backward kernel's outputs (every tensor and weight
-    gradient) to its plain version's at max(GAN_BWD_ATOL, GAN_BWD_REL *
-    scale), and to twice the plain version's distance from its float64 run
-    plus GAN_BWD_ATOL. Returns the largest absolute and scale-relative
-    error against the plain version."""
-    worst = worst_rel = 0.0
-    cells, failures = [], []
-    for name, g, w, e in zip(names, flat_grads(got), flat_grads(want),
-                             flat_grads(exact)):
-        if g.shape != w.shape or not torch.isfinite(g).all():
-            raise RuntimeError(f"{label} {name}: shape {tuple(g.shape)} or "
-                               f"non-finite values")
-        err = float((g - w).abs().max())
-        scale = float(w.abs().max())
-        rel = err / scale if scale > 0 else 0.0
-        err64 = float((g.double() - e).abs().max())
-        plain64 = float((w.double() - e).abs().max())
-        worst, worst_rel = max(worst, err), max(worst_rel, rel)
-        cells.append(f"{name} {err:.2e}/{scale:.3g} (f64: {err64:.2e} vs "
-                     f"{plain64:.2e})")
-        if err > max(GAN_BWD_ATOL, GAN_BWD_REL * scale):
-            failures.append(f"{name} differs by {err:.3e} > max("
-                            f"{GAN_BWD_ATOL}, {GAN_BWD_REL} * {scale:.4g})")
-        if err64 > 2 * plain64 + GAN_BWD_ATOL:
-            failures.append(f"{name} is {err64:.3e} from the float64 run, "
-                            f"the plain version {plain64:.3e}")
-    print(f"{label} vs plain (abs err/max|plain|; from float64: kernel vs "
-          f"plain): " + "; ".join(cells), flush=True)
-    print(f"{label} vs plain: max_abs_err={worst:.3e}, max_rel_err="
-          f"{worst_rel:.3e}", flush=True)
-    if failures:
-        raise RuntimeError(f"{label}: " + "; ".join(failures))
-    return worst, worst_rel
-
-
 def check_bitwise(label, sweep, bargs, first):
     again = sweep(*bargs)
     torch.cuda.synchronize()
@@ -906,8 +918,10 @@ def phase_gan_bwd_kernels(device, models, ts, real):
         want = GF.gen_solve_backward_plain(*bargs)
         exact = GF.gen_solve_backward_plain(*double(bargs))
         torch.cuda.synchronize()
-        err6 = check_gan_backward("kernel 6", ("dx0", "df0", "dg0", "dnoise")
-                                  + GF.GEN_WEIGHT_NAMES, got, want, exact)
+        err6 = check_against_plain(
+            "kernel 6", ("dx0", "df0", "dg0", "dnoise") + GF.GEN_WEIGHT_NAMES,
+            flat_grads(got), flat_grads(want), flat_grads(exact),
+            GAN_BWD_ATOL, GAN_BWD_REL)
         check_bitwise("kernel 6", GF.gen_solve_backward_cuda, bargs, got)
         k6 = time_gan_kernel(
             "kernel 6",
@@ -928,10 +942,11 @@ def phase_gan_bwd_kernels(device, models, ts, real):
             want = GF.cde_solve_backward_plain(*cargs)
             exact = GF.cde_solve_backward_plain(*double(cargs))
             torch.cuda.synchronize()
-            errs.append(check_gan_backward(
+            errs.append(check_against_plain(
                 f"kernel 8, {label} cotangents",
-                ("dh0", "df0", "dslopes") + GF.CDE_WEIGHT_NAMES, got, want,
-                exact))
+                ("dh0", "df0", "dslopes") + GF.CDE_WEIGHT_NAMES,
+                flat_grads(got), flat_grads(want), flat_grads(exact),
+                GAN_BWD_ATOL, GAN_BWD_REL))
             check_bitwise(f"kernel 8, {label} cotangents",
                           GF.cde_solve_backward_cuda, cargs, got)
         cargs = (*cde_args, cde_w, czs, last)
@@ -1069,6 +1084,395 @@ def phase_gan_train_profile(trained, ts, batch):
             models, opts, ts, batch, 800, route == "fused"))
 
 
+# --------------------------------------------------------------------------- #
+#  fused_sdeint on TowerSpec towers: kernels 9-12                             #
+# --------------------------------------------------------------------------- #
+
+def tower_spec(seed, sizes, acts, device, grad=True):
+    """A TowerSpec of the JAX package's benchmarks/fused_solve_bench.py:19-25:
+    weights normal x 0.3/sqrt(fan_in) from a numpy seed, zero biases; with
+    ``grad`` the tensors are leaves that record gradients."""
+    rng = np.random.default_rng(seed)
+    layers = []
+    for (a, b), act in zip(zip(sizes[:-1], sizes[1:]), acts):
+        w = torch.as_tensor(rng.standard_normal((a, b)) * (0.3 / np.sqrt(a)),
+                            dtype=torch.float32, device=device)
+        layers.append((w.requires_grad_(grad),
+                       torch.zeros(b, device=device).requires_grad_(grad),
+                       act))
+    return FS.TowerSpec(layers)
+
+
+def tower_config(device, name):
+    """E1 or R1's method, batch, width and towers, from their seeds."""
+    method, B, d, hidden = TOWER_CONFIGS[name]
+    drift = tower_spec(SEED + 10, [d, hidden, d], TOWER_FACTS, device)
+    diffusion = tower_spec(SEED + 11, [d, hidden, d], TOWER_GACTS, device)
+    return method, B, d, drift, diffusion
+
+
+def tower_kernel_args(device, method, drift, diffusion, B, d, m, diag, wt,
+                      seed):
+    """A solve's spec and a forward kernel's inputs as fused_sdeint makes
+    them, on seeded y0 and noise over the step grid of [0, 1] at
+    TOWER_DT."""
+    spec = FS.solve_spec(drift, diffusion, d, m, diag, wt)
+    grid = TI.build_step_grid(0.0, 1.0, TOWER_DT)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        y0 = torch.randn((B, d), generator=gen, device=device)
+        W = TI.sample_grid_noise(gen, grid, (B, m), torch.float32,
+                                 device)[0]
+        t = torch.as_tensor(grid, dtype=torch.float32, device=device)
+        dts = t[1:] - t[:-1]
+        fw, gw = drift.pack(), diffusion.pack()
+        if method == "euler":
+            return spec, (y0, W, t[:-1], dts, fw, gw, spec)
+        x0 = FS.tower_input(t[0], y0, wt)
+        f0 = FS.tower_forward(x0, FS.unpack(fw, spec.drift), drift.acts)[0]
+        g0 = FS.tower_forward(x0, FS.unpack(gw, spec.diffusion),
+                              diffusion.acts)[0]
+        return spec, (y0, f0, g0, W, t[1:], dts, fw, gw, spec)
+
+
+def tower_flops(spec, B, N, kind):
+    """Operations of a kernel of ``kind``, two per multiply-add: per row and
+    step, the towers' sum of in*out over every layer (three times that for
+    a reverse sweep: the recompute, the weight gradients, the input
+    cotangents) and the noise products (G = S or S*m multiply-adds each:
+    one for Euler, two for reversible Heun; two and four going back).
+    Activations and biases are not counted."""
+    macs = sum(i * o for i, o, _ in spec.drift + spec.diffusion)
+    G = spec.gwidth
+    per = {"euler_fwd": macs + G, "rh_fwd": macs + 2 * G,
+           "euler_bwd": 3 * macs + 2 * G, "rh_bwd": 3 * macs + 4 * G}[kind]
+    return 2 * B * N * per
+
+
+def tensors_of(args):
+    return [a for a in args if torch.is_tensor(a)]
+
+
+def in_double(args):
+    return [a.double() if torch.is_tensor(a) else a for a in args]
+
+
+def run_tower_kernels(label, device, method, drift, diffusion, B, d, m, diag,
+                      wt, seed, timed):
+    """A forward kernel and its reverse sweep against their plain versions
+    (and float64 runs) on seeded inputs and cotangents; two sweeps must
+    agree bitwise. With ``timed``, median device times and bounds too.
+    Returns a record for each kernel."""
+    euler = method == "euler"
+    spec, args = tower_kernel_args(device, method, drift, diffusion, B, d, m,
+                                   diag, wt, seed)
+    N = args[1 if euler else 3].shape[0]
+    if euler:
+        names = ("tower_euler_fwd", "tower_euler_bwd")
+        fwd, fwd_plain = FS.euler_solve_forward_cuda, \
+            FS.euler_solve_forward_plain
+        bwd, bwd_plain = FS.euler_solve_backward_cuda, \
+            FS.euler_solve_backward_plain
+        kinds = (FS.EULER_FWD, FS.EULER_BWD)
+        outs = ("ys",)
+        douts = ("dy0", "dnoise", "dfw", "dgw")
+    else:
+        names = ("tower_rh_fwd", "tower_rh_bwd")
+        fwd, fwd_plain = FS.rh_solve_forward_cuda, FS.rh_solve_forward_plain
+        bwd, bwd_plain = FS.rh_solve_backward_cuda, \
+            FS.rh_solve_backward_plain
+        kinds = (FS.RH_FWD, FS.RH_BWD)
+        outs = ("ys", "zs", "gs")
+        douts = ("dy0", "df0", "dg0", "dnoise", "dfw", "dgw")
+    lib = _build.load_library()
+    table = FS._host_table(spec)
+    layout = []
+    for kind in kinds:
+        stage = FS.staged_towers(lib, kind, spec)
+        smem = lib.tsde_tower_smem_bytes(kind, table, *FS._dims(spec),
+                                         stage)
+        layout.append(f"{smem} bytes, towers staged {stage}")
+    print(f"{label}: batch {B}, d {d}, m {m}, {N} steps, "
+          f"{'diagonal' if diag else 'general'} noise, time column {wt}; "
+          f"shared memory a block: {layout[0]} (forward), {layout[1]} "
+          f"(backward)", flush=True)
+    as_tuple = (lambda o: (o,)) if euler else tuple
+    with torch.no_grad():
+        got = as_tuple(fwd(*args))
+        want = as_tuple(fwd_plain(*args))
+        exact = as_tuple(fwd_plain(*in_double(args)))
+        torch.cuda.synchronize()
+        err_f = check_against_plain(f"{label} {names[0]}", outs, got, want,
+                                    exact, TOWER_VAL_ATOL, TOWER_VAL_REL)
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        gy = torch.randn(got[0].shape, generator=gen, device=device)
+        bargs = (*args, *(got if euler else got[1:]), gy)
+        got_b = bwd(*bargs)
+        want_b = bwd_plain(*bargs)
+        exact_b = bwd_plain(*in_double(bargs))
+        torch.cuda.synchronize()
+        err_b = check_against_plain(f"{label} {names[1]}", douts, got_b,
+                                    want_b, exact_b, TOWER_GRAD_ATOL,
+                                    TOWER_GRAD_REL)
+        again = bwd(*bargs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
+            raise RuntimeError(f"{label} {names[1]} is not bitwise "
+                               f"repeatable")
+        print(f"{label} {names[1]}: two calls agree bitwise", flush=True)
+        if not timed:
+            return None
+        ms_f = median_cuda_ms(lambda: fwd(*args), 20)
+        plain_f = median_cuda_ms(lambda: fwd_plain(*args), 5, warmup=1)
+        ms_b = median_cuda_ms(lambda: bwd(*bargs), 10)
+        plain_b = median_cuda_ms(lambda: bwd_plain(*bargs), 3, warmup=1)
+    records = []
+    for name, ms, plain_ms, err, io, kind in (
+            (names[0], ms_f, plain_f, err_f, tensors_of(args) + list(got),
+             names[0][6:]),
+            (names[1], ms_b, plain_b, err_b,
+             tensors_of(bargs) + list(got_b), names[1][6:])):
+        flops = tower_flops(spec, B, N, kind)
+        bound_ms, bound_by = bound(flops, io)
+        print(f"{label} {name}: median {ms:.4f} ms; plain: median "
+              f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{flops / 1e9:.3f} GFLOP); {flops / ms / 1e9:.2f} TFLOP/s",
+              flush=True)
+        records.append(dict(max_abs_err=err[0], max_rel_err=err[1], ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by))
+    return records
+
+
+def phase_tower_kernels(device):
+    """Kernels 9 and 10 at E1, 11 and 12 at R1, and all four on general
+    noise with a time column and depth-3 towers."""
+    records = {}
+    for name in ("E1", "R1"):
+        method, B, d, drift, diffusion = tower_config(device, name)
+        fwd, bwd = run_tower_kernels(name, device, method, drift, diffusion,
+                                     B, d, d, True, False, SEED + 12, True)
+        records[method] = (fwd, bwd)
+    B, d, m, hidden = TOWER_GENERAL
+    drift = tower_spec(SEED + 13, [d + 1, hidden, hidden, d],
+                       ("softplus", "tanh", "linear"), device)
+    diffusion = tower_spec(SEED + 14, [d + 1, hidden, hidden, d * m],
+                           ("lipswish", "softplus", "sigmoid"), device)
+    for method in ("euler", "reversible_heun"):
+        run_tower_kernels(f"general {method}", device, method, drift,
+                          diffusion, B, d, m, False, True, SEED + 15, False)
+    return records
+
+
+TOWER_COUNTERS = ("euler_launches", "euler_bwd_launches", "rh_launches",
+                  "rh_bwd_launches")
+
+
+def tower_counts(method):
+    """The forward and backward kernels' launch counts of ``method``."""
+    names = TOWER_COUNTERS[:2] if method == "euler" else TOWER_COUNTERS[2:]
+    return tuple(getattr(FS, c) for c in names)
+
+
+def reset_tower_counts():
+    for c in TOWER_COUNTERS:
+        setattr(FS, c, 0)
+
+
+def tower_loss(config, y0, seed, dispatch):
+    """mean(ys**2) of one fused_sdeint solve on a generator seeded
+    ``seed``; returns the loss and ys."""
+    method, drift, diffusion = config
+    gen = torch.Generator(device=y0.device).manual_seed(seed)
+    ys = FS.fused_sdeint(drift, diffusion, y0, np.linspace(0.0, 1.0,
+                                                          TOWER_N_TS),
+                         gen, TOWER_DT, method=method, dispatch=dispatch)
+    return (ys ** 2).mean(), ys
+
+
+def tower_leaves(config):
+    return [t for spec in config[1:] for (w, b, _) in spec.layers
+            for t in (w, b)]
+
+
+def phase_tower_serve_train(device, name):
+    """fused_sdeint at E1 or R1: three served solves per route, step-0
+    gradients of both routes, three Adam steps per route in turns, and a
+    profiled training step of each."""
+    method, B, d, drift, diffusion = tower_config(device, name)
+    config = (method, drift, diffusion)
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    y0 = torch.randn((B, d), generator=gen, device=device)
+    routes = {"fused": "fused", "sdeint": "xla"}
+
+    def serve(seed, route):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ys = tower_loss(config, y0, seed, routes[route])[1]
+        torch.cuda.synchronize()
+        return ys, (time.perf_counter() - t0) * 1e3
+
+    serve(100, "fused")                                 # warm-up
+    serve(100, "sdeint")
+    seeds = (101, 102, 103)
+    reset_tower_counts()
+    fused = []
+    for seed in seeds:
+        before = tower_counts(method)
+        fused.append(serve(seed, "fused"))
+        delta = tuple(a - b for a, b in zip(tower_counts(method), before))
+        if delta != (1, 0):
+            raise RuntimeError(f"{name} solve {seed}: kernels launched "
+                               f"{delta} times")
+    serve_launches = tower_counts(method)[0]
+    plain = [serve(seed, "sdeint") for seed in seeds]
+    if tower_counts(method)[0] != serve_launches:
+        raise RuntimeError("the sdeint route launched a tower kernel")
+    for seed, (ys_f, _), (ys_p, _) in zip(seeds, fused, plain):
+        if ys_f.shape != (TOWER_N_TS, B, d) or not torch.isfinite(ys_f).all():
+            raise RuntimeError(f"{name} solve {seed}: shape "
+                               f"{tuple(ys_f.shape)} or non-finite states")
+        err = float((ys_f - ys_p).abs().max())
+        scale = float(ys_p.abs().max())
+        print(f"{name} solve {seed}: states fused vs sdeint max diff "
+              f"{err:.3e} (max|y| {scale:.4g})", flush=True)
+        if err > max(TOWER_VAL_ATOL, TOWER_VAL_REL * scale):
+            raise RuntimeError(f"{name} solve {seed}: routes differ by "
+                               f"{err:.3e} > max({TOWER_VAL_ATOL}, "
+                               f"{TOWER_VAL_REL} * {scale:.4g})")
+    serve_ms = {route: float(np.median([t for _, t in runs]))
+                for route, runs in (("fused", fused), ("sdeint", plain))}
+    print(f"{name} served solve: fused median {serve_ms['fused']:.3f} ms, "
+          f"sdeint median {serve_ms['sdeint']:.3f} ms (host clock, "
+          f"synchronised)", flush=True)
+
+    # Step-0 gradients of both routes, to y0 and every tower tensor.
+    grads = {}
+    for route in routes:
+        cfg = tower_config(device, name)
+        config_r = (cfg[0], cfg[3], cfg[4])
+        y = y0.clone().requires_grad_()
+        loss, _ = tower_loss(config_r, y, 300, routes[route])
+        loss.backward()
+        grads[route] = [t.grad for t in tower_leaves(config_r)] + [y.grad]
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(grads["fused"], grads["sdeint"])):
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise RuntimeError(f"{name} step 0: non-finite gradient {i}")
+        scale = float(want.abs().max())
+        rel = float((got - want).abs().max()) / scale if scale > 0 else 0.0
+        worst = max(worst, rel)
+    print(f"{name} step-0 gradients, fused vs sdeint: worst "
+          f"{worst:.3e} of scale", flush=True)
+    if worst > TOWER_ROUTE_GRAD_REL:
+        raise RuntimeError(f"{name} step-0 gradients differ by {worst:.3e} "
+                           f"of scale > {TOWER_ROUTE_GRAD_REL}")
+
+    # Adam steps of both routes in turns, from the same seeded towers.
+    trained = {}
+    for route in routes:
+        cfg = tower_config(device, name)
+        config_r = (cfg[0], cfg[3], cfg[4])
+        trained[route] = (config_r, torch.optim.Adam(tower_leaves(config_r),
+                                                     lr=TOWER_LR))
+    y = y0.clone().requires_grad_()
+
+    def train_step(route, seed):
+        config_r, opt = trained[route]
+        opt.zero_grad(set_to_none=True)
+        y.grad = None
+        loss, _ = tower_loss(config_r, y, seed, routes[route])
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    times = {route: [] for route in routes}
+    reset_tower_counts()
+    for step in range(TOWER_TRAIN_STEPS):
+        for route in (("fused", "sdeint") if step % 2 == 0
+                      else ("sdeint", "fused")):
+            before = tower_counts(method)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = train_step(route, 400 + step)
+            torch.cuda.synchronize()
+            times[route].append((time.perf_counter() - t0) * 1e3)
+            delta = tuple(a - b for a, b in zip(tower_counts(method),
+                                                before))
+            if delta != ((1, 1) if route == "fused" else (0, 0)):
+                raise RuntimeError(f"{name} {route} step {step}: kernels "
+                                   f"launched {delta} times")
+            params = tower_leaves(trained[route][0]) + [y]
+            if not (np.isfinite(float(loss))
+                    and all(torch.isfinite(p.grad).all() for p in params)):
+                raise RuntimeError(f"{name} {route} step {step}: non-finite "
+                                   f"loss or gradient")
+            print(f"train {name} {route} step {step}: loss "
+                  f"{float(loss):.8g} {times[route][-1]:.3f} ms", flush=True)
+    train_launches = tower_counts(method)
+    medians = {route: float(np.median(t)) for route, t in times.items()}
+    print(f"{name} train step: fused median {medians['fused']:.3f} ms, "
+          f"sdeint median {medians['sdeint']:.3f} ms over "
+          f"{TOWER_TRAIN_STEPS} steps (host clock, synchronised)", flush=True)
+    # 16. A profiled training step of each route.
+    for route in routes:
+        profile_run(f"{name} train step {route}",
+                    lambda: train_step(route, 500))
+    return dict(launches_serve=serve_launches, launches=train_launches,
+                step0_grad_rel_err=worst)
+
+
+def phase_auto_dispatch(device):
+    """The grad path of benchmarks/fused_solve_bench.py:51-53 (the gradient
+    of sum(ys**2) to y0) on the kernel route and on the sdeint route, at
+    the bench's narrow shape (:73, and its reversible-Heun twin :75), at
+    E1 and R1, and at the narrow shape of tests/test_fused_solve.py:265-289:
+    the measurement behind fused_solve._auto_fuse."""
+    shapes = (("euler", 1024, 8, 64, 128), ("reversible_heun", 1024, 8, 64,
+                                             128),
+              ("euler", *TOWER_CONFIGS["E1"][1:], 128),
+              ("reversible_heun", *TOWER_CONFIGS["R1"][1:], 128),
+              ("euler", 4, 3, 8, 2))
+    rows = []
+    for method, B, d, hidden, steps in shapes:
+        drift = tower_spec(SEED + 17, [d, hidden, d], TOWER_FACTS, device,
+                           grad=False)
+        diffusion = tower_spec(SEED + 18, [d, hidden, d], TOWER_GACTS,
+                               device, grad=False)
+        y0 = torch.randn((B, d), device=device,
+                         generator=torch.Generator(device=device).manual_seed(
+                             SEED + 19))
+        ms = {}
+        for dispatch in ("fused", "xla", "fused", "xla"):
+            times = []
+            for rep in range(6):
+                y = y0.clone().requires_grad_()
+                gen = torch.Generator(device=device).manual_seed(rep)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ys = FS.fused_sdeint(drift, diffusion, y,
+                                     np.linspace(0.0, 1.0, 9 if steps > 8
+                                                 else 3),
+                                     gen, 1.0 / steps, method=method,
+                                     dispatch=dispatch)
+                (ys ** 2).sum().backward()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms.setdefault(dispatch, []).append(float(np.median(times[1:])))
+        fused_ms, xla_ms = min(ms["fused"]), min(ms["xla"])
+        rows.append(dict(method=method, batch=B, d=d, hidden=hidden,
+                         steps=steps, fused_grad_ms=fused_ms,
+                         xla_grad_ms=xla_ms,
+                         auto_fuses=FS._auto_fuse(torch.float32)))
+        print(f"auto dispatch: {method} batch {B} d {d} hidden {hidden} "
+              f"{steps} steps: grad path fused {fused_ms:.3f} ms, sdeint "
+              f"{xla_ms:.3f} ms, x{xla_ms / fused_ms:.1f}; _auto_fuse "
+              f"{rows[-1]['auto_fuses']} (host clock, synchronised; the "
+              f"better of two medians of 5)", flush=True)
+    return rows
+
+
 def main():
     device, card = phase_device()
     phase_build()
@@ -1087,6 +1491,11 @@ def main():
     train_launches, gan_grad_rel, trained, batch = phase_gan_train(
         device, gan_ts, real)
     phase_gan_train_profile(trained, gan_ts, batch)
+    tower_kernels = phase_tower_kernels(device)
+    tower_runs = {TOWER_CONFIGS[name][0]: phase_tower_serve_train(device,
+                                                                 name)
+                  for name in ("E1", "R1")}
+    phase_auto_dispatch(device)
     torch.cuda.synchronize()
     csrc = "torchsde_tpu_torch/ops/csrc"
     records = [
@@ -1123,6 +1532,20 @@ def main():
              launches=train_launches["cde_bwd_launches"], library_ms=None,
              **kernel8),
     ]
+    for method, names, lines in (("euler", ("tower_euler_fwd",
+                                            "tower_euler_bwd"), (211, 242)),
+                                 ("reversible_heun", ("tower_rh_fwd",
+                                                      "tower_rh_bwd"),
+                                  (302, 352))):
+        run = tower_runs[method]
+        for i, (name, line) in enumerate(zip(names, lines)):
+            extra = (dict(launches_serve=run["launches_serve"]) if i == 0
+                     else dict(step0_grad_rel_err=run["step0_grad_rel_err"]))
+            records.append(dict(
+                name=name, route="cuda", source=f"{csrc}/{name}.cu",
+                replaces=f"torchsde_tpu/ops/fused_solve.py:{line}",
+                launches=run["launches"][i], library_ms=None, **extra,
+                **tower_kernels[method][i]))
     for record in records:
         if record["launches"] < 1:
             raise RuntimeError(f"{record['name']} was not launched on the "

@@ -10,7 +10,10 @@ their backward kernels 6 and 8): a batch that is not a multiple of the
 rows per block, one noise or control channel, the widest state and hidden
 widths the kernels take, 32 to 256 threads per block; bitwise repeatable
 gradients, the too-wide case, training through the four kernels, and a
-small gan_loss and its gradients on both routes.
+small gan_loss and its gradients on both routes. TowerSpec solves (kernels
+9-12): depth 1 and 3, widths 1, 33 and 128, all five activations, a time
+column, m 1 and 8, bitwise repeatable gradients, refused widths and layer
+tables, and training steps of fused_sdeint against its sdeint route.
 
 Run on a machine with a CUDA card from the repository's root:
 ``python -m pytest tests/test_torch_gpu.py -m gpu --noconftest`` (the
@@ -21,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import torchsde_tpu_torch.ops.fused_solve as FS
 import torchsde_tpu_torch.ops.gan_fused as GF
 import torchsde_tpu_torch.ops.latent_fused as LF
 from torchsde_tpu_torch.models.latent_sde import LatentSDE, latent_sde_loss
@@ -406,3 +410,188 @@ def test_gan_loss_on_both_routes_agrees(cuda):
                     GF.cde_launches - before[1]) == \
                 ((1, 1) if fused else (0, 0))
     np.testing.assert_allclose(losses[0], losses[1], rtol=0, atol=1e-5)
+
+
+# --------------------------------------------------------------------------- #
+#  TowerSpec solves: kernels 9 and 10 (Euler), 11 and 12 (reversible Heun)    #
+# --------------------------------------------------------------------------- #
+
+# (method, diag, S, m, with_time, drift (hidden..., acts), diffusion, B, N,
+# drift weight scale): depth 1 and 3, widths 1, 33 and 128, all five
+# activations, a time column, m 1 and 8, a drift whose softplus sees
+# pre-activations in the hundreds.
+TOWER_CASES = [
+    ("euler", True, 1, 1, False, ((), ("softplus",)), ((), ("sigmoid",)),
+     13, 3, 100.0),
+    ("euler", False, 5, 8, True,
+     ((33, 33), ("softplus", "tanh", "linear")),
+     ((33, 33), ("lipswish", "sigmoid", "sigmoid")), 37, 5, 0.3),
+    ("euler", True, 128, 128, False, ((128,), ("lipswish", "linear")),
+     ((128,), ("softplus", "sigmoid")), 9, 3, 0.3),
+    ("reversible_heun", True, 127, 127, True, ((33,), ("tanh", "linear")),
+     ((33,), ("lipswish", "softplus")), 11, 4, 0.3),
+    ("reversible_heun", False, 16, 1, False,
+     ((128, 128), ("sigmoid", "lipswish", "tanh")),
+     ((128, 128), ("tanh", "softplus", "linear")), 20, 6, 0.3),
+    ("reversible_heun", False, 8, 8, True, ((), ("linear",)),
+     ((), ("sigmoid",)), 8, 2, 0.3),
+]
+
+
+def _tower(rng, sizes, acts, scale, device):
+    return FS.TowerSpec([
+        (torch.as_tensor(rng.standard_normal((a, b)) * (scale / np.sqrt(a)),
+                         dtype=torch.float32, device=device),
+         torch.as_tensor(0.05 * rng.standard_normal(b), dtype=torch.float32,
+                         device=device), act)
+        for (a, b), act in zip(zip(sizes[:-1], sizes[1:]), acts)])
+
+
+def _tower_solve(device, case, seed=0):
+    """The solve's spec and the kernels' inputs (a forward's, then gy)."""
+    method, diag, S, m, wt, (fh, facts), (gh, gacts), B, N, scale = case
+    rng = np.random.default_rng(seed)
+    n_in = S + (1 if wt else 0)
+    gwidth = S if diag else S * m
+    drift = _tower(rng, [n_in, *fh, S], facts, scale, device)
+    diffusion = _tower(rng, [n_in, *gh, gwidth], gacts, 0.3, device)
+    spec = FS.solve_spec(drift, diffusion, S, m, diag, wt)
+    grid = np.linspace(0.0, 1.0, N + 1)
+    f32 = dict(dtype=torch.float32, device=device)
+    y0 = torch.as_tensor(rng.standard_normal((B, S)), **f32)
+    noise = torch.as_tensor(rng.standard_normal((N, B, m)) / np.sqrt(N),
+                            **f32)
+    t = torch.as_tensor(grid, **f32)
+    dts = t[1:] - t[:-1]
+    fw, gw = drift.pack(), diffusion.pack()
+    gy = torch.as_tensor(rng.standard_normal((N, B, S)), **f32)
+    if method == "euler":
+        return spec, (y0, noise, t[:-1], dts, fw, gw, spec), gy
+    x0 = FS.tower_input(t[0], y0, wt)
+    f0 = FS.tower_forward(x0, FS.unpack(fw, spec.drift), drift.acts)[0]
+    g0 = FS.tower_forward(x0, FS.unpack(gw, spec.diffusion),
+                          diffusion.acts)[0]
+    return spec, (y0, f0, g0, noise, t[1:], dts, fw, gw, spec), gy
+
+
+def _assert_close(got, want, atol, rel):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        torch.testing.assert_close(g, w, rtol=0, atol=max(atol, rel * scale))
+
+
+@pytest.mark.parametrize("case", TOWER_CASES,
+                         ids=[f"{c[0]}-S{c[2]}-m{c[3]}" for c in TOWER_CASES])
+def test_tower_kernels_match_plain(cuda, case):
+    """Each forward and backward kernel against its plain version: values
+    within max(2e-5, 4e-6 * scale), gradients within max(1e-4, 1e-5 *
+    scale) (chip_smoke.py's rules)."""
+    with torch.no_grad():
+        spec, args, gy = _tower_solve(cuda, case)
+        counts = (FS.euler_launches, FS.euler_bwd_launches, FS.rh_launches,
+                  FS.rh_bwd_launches)
+        if case[0] == "euler":
+            got = [FS.euler_solve_forward_cuda(*args)]
+            want = [FS.euler_solve_forward_plain(*args)]
+            got_b = FS.euler_solve_backward_cuda(*args, want[0], gy)
+            want_b = FS.euler_solve_backward_plain(*args, want[0], gy)
+            launched = (1, 1, 0, 0)
+        else:
+            got = list(FS.rh_solve_forward_cuda(*args))
+            want = list(FS.rh_solve_forward_plain(*args))
+            got_b = FS.rh_solve_backward_cuda(*args, *want[1:], gy)
+            want_b = FS.rh_solve_backward_plain(*args, *want[1:], gy)
+            launched = (0, 0, 1, 1)
+    torch.cuda.synchronize()
+    assert (FS.euler_launches - counts[0], FS.euler_bwd_launches - counts[1],
+            FS.rh_launches - counts[2],
+            FS.rh_bwd_launches - counts[3]) == launched
+    _assert_close(got, want, 2e-5, 4e-6)
+    _assert_close(got_b, want_b, 1e-4, 1e-5)
+
+
+def test_tower_backward_kernels_are_bitwise_repeatable(cuda):
+    with torch.no_grad():
+        for case in (TOWER_CASES[1], TOWER_CASES[4]):
+            spec, args, gy = _tower_solve(cuda, case, seed=1)
+            if case[0] == "euler":
+                ys = FS.euler_solve_forward_cuda(*args)
+                runs = [FS.euler_solve_backward_cuda(*args, ys, gy)
+                        for _ in range(2)]
+            else:
+                _, zs, gs = FS.rh_solve_forward_cuda(*args)
+                runs = [FS.rh_solve_backward_cuda(*args, zs, gs, gy)
+                        for _ in range(2)]
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_tower_too_wide_layer_table_raises(cuda):
+    """A width past 128 is refused before any launch; so is a layer table
+    whose activations do not fit a block's shared memory (15 layers of
+    width 128 a tower keep 240 KiB in the backward kernels)."""
+    case = ("euler", True, 4, 4, False, ((16,), ("tanh", "linear")),
+            ((16,), ("tanh", "sigmoid")), 8, 2, 0.3)
+    with torch.no_grad():
+        spec, args, gy = _tower_solve(cuda, case)
+        wide = spec._replace(drift=((4, 129, "tanh"), (129, 4, "linear")))
+        with pytest.raises(ValueError, match="widths in"):
+            FS.euler_solve_forward_cuda(*args[:-1], wide)
+        deep_case = ("euler", True, 4, 4, False,
+                     ((128,) * 14, ("tanh",) * 14 + ("linear",)),
+                     ((128,) * 14, ("tanh",) * 14 + ("sigmoid",)), 8, 2,
+                     0.3)
+        spec, args, gy = _tower_solve(cuda, deep_case)
+        ys = FS.euler_solve_forward_cuda(*args)        # the forward fits
+        with pytest.raises(ValueError, match="shared memory"):
+            FS.euler_solve_backward_cuda(*args, ys, gy)
+        with pytest.raises(ValueError, match="float32"):
+            FS.euler_solve_forward_cuda(args[0].double(), *args[1:])
+
+
+def _train_step(method, device, dispatch):
+    """One Adam step of mean(ys**2) through fused_sdeint on a small
+    general-noise, time-dependent solve; returns the loss and gradients."""
+    rng = np.random.default_rng(2)
+    S, m = 6, 3
+    drift = _tower(rng, [S + 1, 32, S], ("softplus", "linear"), 0.3, device)
+    diffusion = _tower(rng, [S + 1, 32, S * m], ("lipswish", "sigmoid"), 0.3,
+                       device)
+    leaves = [t.requires_grad_() for spec in (drift, diffusion)
+              for (w, b, _) in spec.layers for t in (w, b)]
+    y0 = torch.as_tensor(rng.standard_normal((50, S)), dtype=torch.float32,
+                         device=device).requires_grad_()
+    opt = torch.optim.Adam(leaves, lr=1e-3)
+    gen = torch.Generator(device=device).manual_seed(3)
+    ys = FS.fused_sdeint(drift, diffusion, y0, np.linspace(0, 1, 5), gen,
+                         1.0 / 16, method=method, noise_type="general",
+                         with_time=True, dispatch=dispatch)
+    loss = (ys ** 2).mean()
+    loss.backward()
+    grads = [t.grad.clone() for t in leaves + [y0]]
+    opt.step()
+    return loss.detach(), grads
+
+
+def test_fused_sdeint_trains_through_the_four_kernels(cuda):
+    """A training step of each method launches its forward and backward
+    kernel once, and its gradients match the sdeint route's on the same
+    generator seed within 1e-5 of each gradient's scale."""
+    counters = ("euler_launches", "euler_bwd_launches", "rh_launches",
+                "rh_bwd_launches")
+    for method, launched in (("euler", [1, 1, 0, 0]),
+                             ("reversible_heun", [0, 0, 1, 1])):
+        before = [getattr(FS, c) for c in counters]
+        loss, grads = _train_step(method, cuda, "fused")
+        torch.cuda.synchronize()
+        assert [getattr(FS, c) - b for c, b in zip(counters, before)] == \
+            launched
+        before = [getattr(FS, c) for c in counters]
+        loss_x, grads_x = _train_step(method, cuda, "xla")
+        assert [getattr(FS, c) for c in counters] == before
+        torch.testing.assert_close(loss, loss_x, rtol=1e-5, atol=0)
+        for g, w in zip(grads, grads_x):
+            assert torch.isfinite(g).all()
+            torch.testing.assert_close(g, w, rtol=0,
+                                       atol=1e-5 * float(w.abs().max()))

@@ -5,9 +5,10 @@ explicit ``torch.Generator`` wherever the JAX package takes a key, and
 replaces the JAX package's Pallas TPU kernels with CUDA kernels written for
 Hopper. It never imports JAX. Ported so far: fixed-step ``sdeint`` with
 Euler (Itô, with ``logqp``) and reversible Heun (Stratonovich); the
-latent-SDE model with its whole-solve kernels (``ops/latent_fused.py``); and
-the SDE-GAN model with the forward kernels of its generator and critic
-solves (``ops/gan_fused.py``).
+latent-SDE model with its whole-solve kernels (``ops/latent_fused.py``);
+the SDE-GAN model with the kernels of its generator and critic solves
+(``ops/gan_fused.py``); and ``fused_sdeint``, the whole-solve kernels of any
+SDE whose drift and diffusion are MLP towers (``ops/fused_solve.py``).
 """
 
 from .brownian.base import BaseBrownian

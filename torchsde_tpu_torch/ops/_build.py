@@ -19,8 +19,11 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("latent_fused_fwd.cu", "latent_fused_bwd.cu", "gan_gen_fwd.cu",
-           "gan_cde_fwd.cu", "gan_gen_bwd.cu", "gan_cde_bwd.cu")
-HEADERS = ("latent_fused_common.cuh", "gan_fused_common.cuh")
+           "gan_cde_fwd.cu", "gan_gen_bwd.cu", "gan_cde_bwd.cu",
+           "tower_euler_fwd.cu", "tower_euler_bwd.cu", "tower_rh_fwd.cu",
+           "tower_rh_bwd.cu")
+HEADERS = ("latent_fused_common.cuh", "gan_fused_common.cuh",
+           "tower_solve_common.cuh")
 BUILD_DIR = Path(os.environ.get(
     "TSDE_TORCH_BUILD_DIR",
     Path(__file__).resolve().parents[2] / "build" / "torch_kernels"))
@@ -83,6 +86,17 @@ def _bind(lib):
     lib.tsde_gan_bwd_partials.restype = I
     lib.tsde_latent_fused_bwd_blocks.argtypes = [I]
     lib.tsde_latent_fused_bwd_blocks.restype = I
+    # The TowerSpec solves: two layer tables (host, device), the tensors,
+    # then nf, ng, S, m, diag, wt, stage, B, N, device and the stream.
+    for name, tensors in (("euler_fwd", 7), ("euler_bwd", 12),
+                          ("rh_fwd", 11), ("rh_bwd", 15)):
+        fn = getattr(lib, f"tsde_tower_{name}")
+        fn.argtypes = [P] * (2 + tensors) + [I] * 10 + [P]
+        fn.restype = I
+    lib.tsde_tower_smem_bytes.argtypes = [I, P] + [I] * 7
+    lib.tsde_tower_smem_bytes.restype = ctypes.c_size_t
+    lib.tsde_tower_blocks.argtypes = [I]
+    lib.tsde_tower_blocks.restype = I
     lib.tsde_cuda_error_string.argtypes = [I]
     lib.tsde_cuda_error_string.restype = ctypes.c_char_p
 

@@ -3,6 +3,8 @@
 import numpy as np
 import torch
 
+from .misc import resolve_device
+
 
 def load_jax_params(module, arrays):
     """Copy ``arrays`` into ``module``'s parameters and buffers, in place.
@@ -28,3 +30,17 @@ def load_jax_params(module, arrays):
         for name, t in targets.items():
             t.copy_(torch.as_tensor(np.array(arrays[name])))
     return module
+
+
+def load_jax_tower(layers, device=None, dtype=torch.float32):
+    """A port :class:`~torchsde_tpu_torch.ops.fused_solve.TowerSpec` from the
+    JAX package's tower layers, given as ``(W, b, act)`` triples of numpy
+    arrays and activation names (``W`` (in, out), ``b`` (out,)), on
+    ``device`` (the card unless given) in ``dtype``. The tensors are new
+    leaves; set ``requires_grad`` on them to differentiate a solve."""
+    from ..ops.fused_solve import TowerSpec
+    device = resolve_device(device)
+    return TowerSpec([
+        (torch.as_tensor(np.array(w), dtype=dtype, device=device),
+         torch.as_tensor(np.array(b), dtype=dtype, device=device), act)
+        for w, b, act in layers])

@@ -78,7 +78,21 @@ Phases, in order; any failure raises and the script exits non-zero:
     torch.profiler;
 17. auto dispatch: the grad path of the JAX package's
     benchmarks/fused_solve_bench.py on both routes at its narrow shapes,
-    E1, R1 and a tiny solve, the measurement behind ``_auto_fuse``.
+    E1, R1 and a tiny solve, the measurement behind ``_auto_fuse``;
+18. logqp kernels vs plain: ``fused_sdeint_logqp``'s kernels 13 and 14 at
+    L1 (E1's towers and a prior drift shaped like the drift), L2 (R1's
+    widths, batch 1024) and a small solve whose tanh diffusion takes both
+    signs and passes near zero: every output and weight gradient against
+    the plain versions and a float64 run, two sweeps bitwise equal, median
+    times and bounds, and the times of each way of staging the towers;
+19. serve and train ``fused_sdeint_logqp`` at L1: three served solves per
+    route (``dispatch="fused"`` and the ``sdeint`` route of
+    ``tower_sde(prior=)``), whose states and KL increments must agree; the
+    step-0 gradients of both routes; three Adam steps (lr 1e-3) of
+    mean(ys**2) + mean(sum(log_ratio, 0)) per route in turns, each fused
+    step launching kernels 13 and 14 once; a profiled step of each route;
+20. auto dispatch of ``fused_sdeint_logqp``: its grad path on both routes
+    at the narrow shapes of phase 17, at L1 and on a tiny solve.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -192,6 +206,29 @@ TOWER_GRAD_ATOL, TOWER_GRAD_REL = 1e-4, 1e-5
 # gradient's largest entry (both float32, summed in other orders).
 TOWER_ROUTE_GRAD_REL = 1e-5
 TOWER_TRAIN_STEPS, TOWER_LR = 3, 1e-3
+# fused_sdeint_logqp (kernels 13 and 14) at full width, nothing cut: E1's
+# and R1's towers and a prior drift of the drift's shape and activations
+# from its own seed; L1 batch 4096, d 32, hidden 128 (served and trained),
+# L2 batch 1024, d 128, hidden 128 (kernels only). The small solve (batch,
+# d, hidden) has a time column and a depth-2 diffusion ending in tanh with
+# weights of scale 0.8, so g takes both signs and passes near zero
+# (tests/test_fused_solve.py:188-212 of the JAX package).
+LOGQP_CONFIGS = {"L1": (4096, 32, 128), "L2": (1024, 128, 128)}
+LOGQP_SMALL = (256, 8, 16)
+# On it float32 itself is ill-conditioned: u = (f - h) / g amplifies the
+# rounding of g where g passes near zero (min |g| 1.9e-4 at y0), and the
+# plain version's qs came 1.30e6 from a float64 run at a scale of 5.5e7
+# (2.4 %; NVIDIA H100 80GB HBM3, 700 W). So its qs and gradients are held
+# to the plain version within what float32 rounding gives there (three
+# times the plain version's distance from float64), and to float64 within
+# twice the plain version's distance plus the JAX package's relative
+# tolerance for a signed diffusion times the scale, 3e-3 and 5e-3
+# (tests/test_fused_solve.py:226,261-262).
+LOGQP_SIGNED_RTOL = (3e-3, 5e-3)
+# The ways of staging the three towers in shared memory that phase 18
+# times (bit 0 the drift, 1 the diffusion, 2 the prior; fused_solve.
+# STAGE_ORDER): all three, drift and prior, none at L1; one or none at L2.
+LOGQP_STAGINGS = {"L1": (7, 5, 0), "L2": (1, 0)}
 # Published H100 SXM peaks (NVIDIA H100 datasheet): float32 outside the
 # tensor cores, and device memory.
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
@@ -284,10 +321,10 @@ def kernel_inputs(device, model):
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     ts = np.linspace(0.0, 1.0, N_TS)
     ctx = torch.randn((N_TS, BATCH, CONTEXT), generator=gen, device=device)
-    model.contextualize(ts, ctx)
+    view = model.contextualize(ts, ctx)
     z0 = torch.randn((BATCH, LATENT), generator=gen, device=device)
     with torch.no_grad():
-        return LF._prep_solve(model, z0, ts, gen, DT)[:5]
+        return LF._prep_solve(view, z0, ts, gen, DT)[:5]
 
 
 def phase_kernel(device):
@@ -661,11 +698,16 @@ def cde_flops(B, S, M, C, n):
     return 2 * B * n * ((1 + S) * M + M * S * C + S * C)
 
 
-def check_against_plain(label, names, got, want, exact, atol, rel_tol):
+def check_against_plain(label, names, got, want, exact, atol, rel_tol,
+                        rtol=0.0):
     """Holds a kernel's outputs to its plain version's at max(atol, rel_tol
     * scale), and to twice the plain version's distance from the plain
-    version run in float64 (``exact``) plus atol. Returns the largest
-    absolute and scale-relative errors against the plain version."""
+    version run in float64 (``exact``) plus atol. With ``rtol`` (inputs on
+    which float32 itself is ill-conditioned) the first bound adds three
+    times the plain version's own distance from float64, what float32
+    rounding alone gives on these inputs, and the second ``rtol`` times the
+    scale. Returns the largest absolute and scale-relative errors against
+    the plain version."""
     worst = worst_rel = 0.0
     cells, failures = [], []
     for name, g, w, e in zip(names, got, want, exact):
@@ -680,10 +722,11 @@ def check_against_plain(label, names, got, want, exact, atol, rel_tol):
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
         cells.append(f"{name} {err:.2e}/{scale:.3g} (f64: {err64:.2e} vs "
                      f"{plain64:.2e})")
-        if err > max(atol, rel_tol * scale):
+        slack = 3 * plain64 if rtol else 0.0
+        if err > max(atol, rel_tol * scale) + slack:
             failures.append(f"{name} differs by {err:.3e} > max({atol}, "
-                            f"{rel_tol} * {scale:.4g})")
-        if err64 > 2 * plain64 + atol:
+                            f"{rel_tol} * {scale:.4g}) + {slack:.3e}")
+        if err64 > 2 * plain64 + atol + rtol * scale:
             failures.append(f"{name} is {err64:.3e} from the float64 run, "
                             f"the plain version {plain64:.3e}")
     print(f"{label} vs plain (abs err/max|plain|; from float64: kernel vs "
@@ -1088,15 +1131,16 @@ def phase_gan_train_profile(trained, ts, batch):
 #  fused_sdeint on TowerSpec towers: kernels 9-12                             #
 # --------------------------------------------------------------------------- #
 
-def tower_spec(seed, sizes, acts, device, grad=True):
+def tower_spec(seed, sizes, acts, device, grad=True, scale=0.3):
     """A TowerSpec of the JAX package's benchmarks/fused_solve_bench.py:19-25:
-    weights normal x 0.3/sqrt(fan_in) from a numpy seed, zero biases; with
-    ``grad`` the tensors are leaves that record gradients."""
+    weights normal x scale/sqrt(fan_in) (scale 0.3) from a numpy seed, zero
+    biases; with ``grad`` the tensors are leaves that record gradients."""
     rng = np.random.default_rng(seed)
     layers = []
     for (a, b), act in zip(zip(sizes[:-1], sizes[1:]), acts):
-        w = torch.as_tensor(rng.standard_normal((a, b)) * (0.3 / np.sqrt(a)),
-                            dtype=torch.float32, device=device)
+        w = torch.as_tensor(rng.standard_normal((a, b))
+                            * (scale / np.sqrt(a)), dtype=torch.float32,
+                            device=device)
         layers.append((w.requires_grad_(grad),
                        torch.zeros(b, device=device).requires_grad_(grad),
                        act))
@@ -1104,11 +1148,19 @@ def tower_spec(seed, sizes, acts, device, grad=True):
 
 
 def tower_config(device, name):
-    """E1 or R1's method, batch, width and towers, from their seeds."""
-    method, B, d, hidden = TOWER_CONFIGS[name]
+    """E1, R1, L1 or L2's method, batch, width and towers from their seeds:
+    (drift, diffusion), or for the logqp configurations L1 and L2 (drift,
+    prior, diffusion), the order of fused_sdeint_logqp."""
+    if name in LOGQP_CONFIGS:
+        method, (B, d, hidden) = "euler_logqp", LOGQP_CONFIGS[name]
+    else:
+        method, B, d, hidden = TOWER_CONFIGS[name]
     drift = tower_spec(SEED + 10, [d, hidden, d], TOWER_FACTS, device)
     diffusion = tower_spec(SEED + 11, [d, hidden, d], TOWER_GACTS, device)
-    return method, B, d, drift, diffusion
+    if method != "euler_logqp":
+        return method, B, d, (drift, diffusion)
+    prior = tower_spec(SEED + 20, [d, hidden, d], TOWER_FACTS, device)
+    return method, B, d, (drift, prior, diffusion)
 
 
 def tower_kernel_args(device, method, drift, diffusion, B, d, m, diag, wt,
@@ -1140,12 +1192,16 @@ def tower_flops(spec, B, N, kind):
     step, the towers' sum of in*out over every layer (three times that for
     a reverse sweep: the recompute, the weight gradients, the input
     cotangents) and the noise products (G = S or S*m multiply-adds each:
-    one for Euler, two for reversible Heun; two and four going back).
-    Activations and biases are not counted."""
-    macs = sum(i * o for i, o, _ in spec.drift + spec.diffusion)
+    one for Euler, two for reversible Heun; two and four going back); the
+    logqp kernels add the KL integrand's sum of u^2 forward and its
+    cotangents' two products going back (S each). Activations, divisions
+    and biases are not counted."""
+    macs = sum(i * o for i, o, _ in spec.drift + spec.diffusion + spec.prior)
     G = spec.gwidth
     per = {"euler_fwd": macs + G, "rh_fwd": macs + 2 * G,
-           "euler_bwd": 3 * macs + 2 * G, "rh_bwd": 3 * macs + 4 * G}[kind]
+           "euler_bwd": 3 * macs + 2 * G, "rh_bwd": 3 * macs + 4 * G,
+           "euler_logqp_fwd": macs + 2 * G,
+           "euler_logqp_bwd": 3 * macs + 4 * G}[kind]
     return 2 * B * N * per
 
 
@@ -1188,7 +1244,7 @@ def run_tower_kernels(label, device, method, drift, diffusion, B, d, m, diag,
     table = FS._host_table(spec)
     layout = []
     for kind in kinds:
-        stage = FS.staged_towers(lib, kind, spec)
+        stage = FS.staged_towers(lib, kind, spec, B, device)
         smem = lib.tsde_tower_smem_bytes(kind, table, *FS._dims(spec),
                                          stage)
         layout.append(f"{smem} bytes, towers staged {stage}")
@@ -1249,7 +1305,7 @@ def phase_tower_kernels(device):
     noise with a time column and depth-3 towers."""
     records = {}
     for name in ("E1", "R1"):
-        method, B, d, drift, diffusion = tower_config(device, name)
+        method, B, d, (drift, diffusion) = tower_config(device, name)
         fwd, bwd = run_tower_kernels(name, device, method, drift, diffusion,
                                      B, d, d, True, False, SEED + 12, True)
         records[method] = (fwd, bwd)
@@ -1264,30 +1320,173 @@ def phase_tower_kernels(device):
     return records
 
 
-TOWER_COUNTERS = ("euler_launches", "euler_bwd_launches", "rh_launches",
-                  "rh_bwd_launches")
+# --------------------------------------------------------------------------- #
+#  fused_sdeint_logqp: kernels 13 and 14                                      #
+# --------------------------------------------------------------------------- #
+
+def logqp_kernel_args(device, towers, B, d, wt, seed):
+    """A logqp solve's spec and kernel 13's inputs as fused_sdeint_logqp
+    makes them (noise drawn at (B, d+1), its last channel unused), on
+    seeded y0 and noise over the step grid of [0, 1] at TOWER_DT."""
+    drift, prior, diffusion = towers
+    spec = FS.solve_spec(drift, diffusion, d, d, True, wt, prior=prior)
+    grid = TI.build_step_grid(0.0, 1.0, TOWER_DT)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        y0 = torch.randn((B, d), generator=gen, device=device)
+        W = TI.sample_grid_noise(gen, grid, (B, d + 1), torch.float32,
+                                 device)[0][..., :d].contiguous()
+        t = torch.as_tensor(grid, dtype=torch.float32, device=device)
+        return spec, (y0, W, t[:-1], t[1:] - t[:-1], drift.pack(),
+                      prior.pack(), diffusion.pack(), spec)
+
+
+def run_logqp_kernels(label, device, towers, B, d, wt, seed, stagings=(),
+                      signed=False):
+    """Kernels 13 and 14 against their plain versions (and float64 runs)
+    on seeded inputs and cotangents; two sweeps must agree bitwise. With
+    ``stagings``, median device times and bounds too, and the times of each
+    way of staging the towers in ``stagings``. Returns a record for each
+    kernel. A ``signed`` diffusion passes near zero, where u = (f - h) / g
+    amplifies the two versions' rounding of g: qs and the gradients then
+    also get the JAX package's relative tolerance for that case
+    (LOGQP_SIGNED_RTOL)."""
+    q_rtol, grad_rtol = LOGQP_SIGNED_RTOL if signed else (0.0, 0.0)
+    spec, args = logqp_kernel_args(device, towers, B, d, wt, seed)
+    N = args[1].shape[0]
+    lib = _build.load_library()
+    table = FS._host_table(spec)
+    layout = []
+    for kind in (FS.EULER_LOGQP_FWD, FS.EULER_LOGQP_BWD):
+        stage = FS.staged_towers(lib, kind, spec, B, device)
+        smem = lib.tsde_tower_smem_bytes(kind, table, *FS._dims(spec),
+                                         stage)
+        layout.append(f"{smem} bytes, towers staged {stage}")
+    print(f"{label}: batch {B}, d {d}, {N} steps, time column {wt}; shared "
+          f"memory a block: {layout[0]} (forward), {layout[1]} (backward)",
+          flush=True)
+    fwd, fwd_plain = (FS.euler_logqp_solve_forward_cuda,
+                      FS.euler_logqp_solve_forward_plain)
+    bwd, bwd_plain = (FS.euler_logqp_solve_backward_cuda,
+                      FS.euler_logqp_solve_backward_plain)
+    with torch.no_grad():
+        got = fwd(*args)
+        want = fwd_plain(*args)
+        exact = fwd_plain(*in_double(args))
+        torch.cuda.synchronize()
+        g_min = float(FS.tower_forward(
+            FS.tower_input(args[2][0], args[0], wt),
+            FS.unpack(args[6], spec.diffusion), towers[2].acts)[0].abs().min())
+        print(f"{label}: min |g| at y0 {g_min:.3e}", flush=True)
+        err_f = check_against_plain(f"{label} tower_euler_logqp_fwd",
+                                    ("ys",), got[:1], want[:1], exact[:1],
+                                    TOWER_VAL_ATOL, TOWER_VAL_REL)
+        err_q = check_against_plain(f"{label} tower_euler_logqp_fwd",
+                                    ("qs",), got[1:], want[1:], exact[1:],
+                                    TOWER_VAL_ATOL, TOWER_VAL_REL, q_rtol)
+        err_f = tuple(max(a, b) for a, b in zip(err_f, err_q))
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        gy = torch.randn(got[0].shape, generator=gen, device=device)
+        gq = torch.randn(got[1].shape, generator=gen, device=device)
+        ginc = gq.flip(0).cumsum(0).flip(0).contiguous()
+        bargs = (*args, got[0], gy, ginc)
+        got_b = bwd(*bargs)
+        want_b = bwd_plain(*bargs)
+        exact_b = bwd_plain(*in_double(bargs))
+        torch.cuda.synchronize()
+        err_b = check_against_plain(f"{label} tower_euler_logqp_bwd",
+                                    ("dy0", "dnoise", "dfw", "dhw", "dgw"),
+                                    got_b, want_b, exact_b, TOWER_GRAD_ATOL,
+                                    TOWER_GRAD_REL, grad_rtol)
+        again = bwd(*bargs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
+            raise RuntimeError(f"{label} tower_euler_logqp_bwd is not "
+                               f"bitwise repeatable")
+        print(f"{label} tower_euler_logqp_bwd: two calls agree bitwise",
+              flush=True)
+        if not stagings:
+            return None
+        ms_f = median_cuda_ms(lambda: fwd(*args), 20)
+        plain_f = median_cuda_ms(lambda: fwd_plain(*args), 5, warmup=1)
+        ms_b = median_cuda_ms(lambda: bwd(*bargs), 10)
+        plain_b = median_cuda_ms(lambda: bwd_plain(*bargs), 3, warmup=1)
+        by_stage = {}
+        for stage in stagings:
+            by_stage[stage] = (
+                median_cuda_ms(lambda: fwd(*args, stage=stage), 10),
+                median_cuda_ms(lambda: bwd(*bargs, stage=stage), 5))
+    print(f"{label} staging (towers staged: forward / backward ms): "
+          + "; ".join(f"{st}: {f:.4f} / {b:.4f}"
+                      for st, (f, b) in by_stage.items()), flush=True)
+    records = []
+    for name, ms, plain_ms, err, io, kind, i in (
+            ("tower_euler_logqp_fwd", ms_f, plain_f, err_f,
+             tensors_of(args) + list(got), "euler_logqp_fwd", 0),
+            ("tower_euler_logqp_bwd", ms_b, plain_b, err_b,
+             tensors_of(bargs) + list(got_b), "euler_logqp_bwd", 1)):
+        flops = tower_flops(spec, B, N, kind)
+        bound_ms, bound_by = bound(flops, io)
+        print(f"{label} {name}: median {ms:.4f} ms; plain: median "
+              f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{flops / 1e9:.3f} GFLOP); {flops / ms / 1e9:.2f} TFLOP/s",
+              flush=True)
+        records.append(dict(max_abs_err=err[0], max_rel_err=err[1], ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by,
+                            ms_by_staging={str(st): t[i] for st, t
+                                           in by_stage.items()}))
+    return records
+
+
+def phase_logqp_kernels(device):
+    """Kernels 13 and 14 at L1 and L2 (timed, with the stagings of
+    LOGQP_STAGINGS) and on the small solve with a signed diffusion."""
+    records = {}
+    for name in ("L1", "L2"):
+        _, B, d, towers = tower_config(device, name)
+        records[name] = run_logqp_kernels(name, device, towers, B, d, False,
+                                          SEED + 21, LOGQP_STAGINGS[name])
+    B, d, hidden = LOGQP_SMALL
+    towers = (tower_spec(SEED + 22, [d + 1, hidden, d], TOWER_FACTS, device),
+              tower_spec(SEED + 23, [d + 1, hidden, d], TOWER_FACTS, device),
+              tower_spec(SEED + 24, [d + 1, hidden, d], ("lipswish", "tanh"),
+                         device, scale=0.8))
+    run_logqp_kernels("small", device, towers, B, d, True, SEED + 25,
+                      signed=True)
+    return records
+
+
+TOWER_COUNTERS = {"euler": ("euler_launches", "euler_bwd_launches"),
+                  "reversible_heun": ("rh_launches", "rh_bwd_launches"),
+                  "euler_logqp": ("logqp_launches", "logqp_bwd_launches")}
 
 
 def tower_counts(method):
     """The forward and backward kernels' launch counts of ``method``."""
-    names = TOWER_COUNTERS[:2] if method == "euler" else TOWER_COUNTERS[2:]
-    return tuple(getattr(FS, c) for c in names)
+    return tuple(getattr(FS, c) for c in TOWER_COUNTERS[method])
 
 
 def reset_tower_counts():
-    for c in TOWER_COUNTERS:
-        setattr(FS, c, 0)
+    for names in TOWER_COUNTERS.values():
+        for c in names:
+            setattr(FS, c, 0)
 
 
 def tower_loss(config, y0, seed, dispatch):
-    """mean(ys**2) of one fused_sdeint solve on a generator seeded
-    ``seed``; returns the loss and ys."""
-    method, drift, diffusion = config
+    """One solve on a generator seeded ``seed`` and its loss: mean(ys**2)
+    for fused_sdeint, mean(ys**2) + mean(sum(log_ratio, 0)) for
+    fused_sdeint_logqp. Returns the loss and the solve's outputs."""
+    method, *towers = config
     gen = torch.Generator(device=y0.device).manual_seed(seed)
-    ys = FS.fused_sdeint(drift, diffusion, y0, np.linspace(0.0, 1.0,
-                                                          TOWER_N_TS),
-                         gen, TOWER_DT, method=method, dispatch=dispatch)
-    return (ys ** 2).mean(), ys
+    ts = np.linspace(0.0, 1.0, TOWER_N_TS)
+    if method == "euler_logqp":
+        ys, log_ratio = FS.fused_sdeint_logqp(*towers, y0, ts, gen,
+                                              TOWER_DT, dispatch=dispatch)
+        return (ys ** 2).mean() + log_ratio.sum(0).mean(), (ys, log_ratio)
+    ys = FS.fused_sdeint(*towers, y0, ts, gen, TOWER_DT, method=method,
+                         dispatch=dispatch)
+    return (ys ** 2).mean(), (ys,)
 
 
 def tower_leaves(config):
@@ -1296,22 +1495,24 @@ def tower_leaves(config):
 
 
 def phase_tower_serve_train(device, name):
-    """fused_sdeint at E1 or R1: three served solves per route, step-0
-    gradients of both routes, three Adam steps per route in turns, and a
-    profiled training step of each."""
-    method, B, d, drift, diffusion = tower_config(device, name)
-    config = (method, drift, diffusion)
+    """fused_sdeint at E1 or R1, or fused_sdeint_logqp at L1: three served
+    solves per route, step-0 gradients of both routes, three Adam steps per
+    route in turns, and a profiled training step of each."""
+    method, B, d, towers = tower_config(device, name)
+    config = (method, *towers)
     gen = torch.Generator(device=device).manual_seed(SEED + 16)
     y0 = torch.randn((B, d), generator=gen, device=device)
     routes = {"fused": "fused", "sdeint": "xla"}
+    shapes = [(TOWER_N_TS, B, d), (TOWER_N_TS - 1, B)]
+    out_names = ("states", "KL increments")
 
     def serve(seed, route):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
-            ys = tower_loss(config, y0, seed, routes[route])[1]
+            outs = tower_loss(config, y0, seed, routes[route])[1]
         torch.cuda.synchronize()
-        return ys, (time.perf_counter() - t0) * 1e3
+        return outs, (time.perf_counter() - t0) * 1e3
 
     serve(100, "fused")                                 # warm-up
     serve(100, "sdeint")
@@ -1329,18 +1530,20 @@ def phase_tower_serve_train(device, name):
     plain = [serve(seed, "sdeint") for seed in seeds]
     if tower_counts(method)[0] != serve_launches:
         raise RuntimeError("the sdeint route launched a tower kernel")
-    for seed, (ys_f, _), (ys_p, _) in zip(seeds, fused, plain):
-        if ys_f.shape != (TOWER_N_TS, B, d) or not torch.isfinite(ys_f).all():
-            raise RuntimeError(f"{name} solve {seed}: shape "
-                               f"{tuple(ys_f.shape)} or non-finite states")
-        err = float((ys_f - ys_p).abs().max())
-        scale = float(ys_p.abs().max())
-        print(f"{name} solve {seed}: states fused vs sdeint max diff "
-              f"{err:.3e} (max|y| {scale:.4g})", flush=True)
-        if err > max(TOWER_VAL_ATOL, TOWER_VAL_REL * scale):
-            raise RuntimeError(f"{name} solve {seed}: routes differ by "
-                               f"{err:.3e} > max({TOWER_VAL_ATOL}, "
-                               f"{TOWER_VAL_REL} * {scale:.4g})")
+    for seed, (outs_f, _), (outs_p, _) in zip(seeds, fused, plain):
+        for what, shape, got, want in zip(out_names, shapes, outs_f, outs_p):
+            if got.shape != shape or not torch.isfinite(got).all():
+                raise RuntimeError(f"{name} solve {seed}: {what} of shape "
+                                   f"{tuple(got.shape)} or non-finite")
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            print(f"{name} solve {seed}: {what} fused vs sdeint max diff "
+                  f"{err:.3e} (max {scale:.4g})", flush=True)
+            if err > max(TOWER_VAL_ATOL, TOWER_VAL_REL * scale):
+                raise RuntimeError(f"{name} solve {seed}: routes' {what} "
+                                   f"differ by {err:.3e} > max("
+                                   f"{TOWER_VAL_ATOL}, {TOWER_VAL_REL} * "
+                                   f"{scale:.4g})")
     serve_ms = {route: float(np.median([t for _, t in runs]))
                 for route, runs in (("fused", fused), ("sdeint", plain))}
     print(f"{name} served solve: fused median {serve_ms['fused']:.3f} ms, "
@@ -1350,8 +1553,7 @@ def phase_tower_serve_train(device, name):
     # Step-0 gradients of both routes, to y0 and every tower tensor.
     grads = {}
     for route in routes:
-        cfg = tower_config(device, name)
-        config_r = (cfg[0], cfg[3], cfg[4])
+        config_r = (method, *tower_config(device, name)[3])
         y = y0.clone().requires_grad_()
         loss, _ = tower_loss(config_r, y, 300, routes[route])
         loss.backward()
@@ -1372,8 +1574,7 @@ def phase_tower_serve_train(device, name):
     # Adam steps of both routes in turns, from the same seeded towers.
     trained = {}
     for route in routes:
-        cfg = tower_config(device, name)
-        config_r = (cfg[0], cfg[3], cfg[4])
+        config_r = (method, *tower_config(device, name)[3])
         trained[route] = (config_r, torch.optim.Adam(tower_leaves(config_r),
                                                      lr=TOWER_LR))
     y = y0.clone().requires_grad_()
@@ -1415,7 +1616,7 @@ def phase_tower_serve_train(device, name):
     print(f"{name} train step: fused median {medians['fused']:.3f} ms, "
           f"sdeint median {medians['sdeint']:.3f} ms over "
           f"{TOWER_TRAIN_STEPS} steps (host clock, synchronised)", flush=True)
-    # 16. A profiled training step of each route.
+    # 16 and 19. A profiled training step of each route.
     for route in routes:
         profile_run(f"{name} train step {route}",
                     lambda: train_step(route, 500))
@@ -1423,26 +1624,35 @@ def phase_tower_serve_train(device, name):
                 step0_grad_rel_err=worst)
 
 
-def phase_auto_dispatch(device):
+AUTO_SHAPES = (("euler", 1024, 8, 64, 128),
+               ("reversible_heun", 1024, 8, 64, 128),
+               ("euler", *TOWER_CONFIGS["E1"][1:], 128),
+               ("reversible_heun", *TOWER_CONFIGS["R1"][1:], 128),
+               ("euler", 4, 3, 8, 2))
+AUTO_LOGQP_SHAPES = (("euler_logqp", 1024, 8, 64, 128),
+                     ("euler_logqp", *LOGQP_CONFIGS["L1"], 128),
+                     ("euler_logqp", 4, 3, 8, 2))
+
+
+def phase_auto_dispatch(device, shapes):
     """The grad path of benchmarks/fused_solve_bench.py:51-53 (the gradient
-    of sum(ys**2) to y0) on the kernel route and on the sdeint route, at
-    the bench's narrow shape (:73, and its reversible-Heun twin :75), at
-    E1 and R1, and at the narrow shape of tests/test_fused_solve.py:265-289:
-    the measurement behind fused_solve._auto_fuse."""
-    shapes = (("euler", 1024, 8, 64, 128), ("reversible_heun", 1024, 8, 64,
-                                             128),
-              ("euler", *TOWER_CONFIGS["E1"][1:], 128),
-              ("reversible_heun", *TOWER_CONFIGS["R1"][1:], 128),
-              ("euler", 4, 3, 8, 2))
+    of sum(ys**2), plus sum(log_ratio) for the logqp solve, to y0) on the
+    kernel route and on the sdeint route, at the bench's narrow shape (:73,
+    and its reversible-Heun twin :75), at E1, R1 and L1, and at the narrow
+    shape of tests/test_fused_solve.py:265-289: the measurement behind
+    fused_solve._auto_fuse."""
     rows = []
     for method, B, d, hidden, steps in shapes:
-        drift = tower_spec(SEED + 17, [d, hidden, d], TOWER_FACTS, device,
-                           grad=False)
-        diffusion = tower_spec(SEED + 18, [d, hidden, d], TOWER_GACTS,
-                               device, grad=False)
+        towers = [tower_spec(SEED + seed, [d, hidden, d], acts, device,
+                             grad=False)
+                  for seed, acts in ((17, TOWER_FACTS), (26, TOWER_FACTS),
+                                     (18, TOWER_GACTS))]
+        if method != "euler_logqp":
+            towers = [towers[0], towers[2]]
         y0 = torch.randn((B, d), device=device,
                          generator=torch.Generator(device=device).manual_seed(
                              SEED + 19))
+        ts = np.linspace(0.0, 1.0, 9 if steps > 8 else 3)
         ms = {}
         for dispatch in ("fused", "xla", "fused", "xla"):
             times = []
@@ -1451,12 +1661,15 @@ def phase_auto_dispatch(device):
                 gen = torch.Generator(device=device).manual_seed(rep)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                ys = FS.fused_sdeint(drift, diffusion, y,
-                                     np.linspace(0.0, 1.0, 9 if steps > 8
-                                                 else 3),
-                                     gen, 1.0 / steps, method=method,
-                                     dispatch=dispatch)
-                (ys ** 2).sum().backward()
+                if method == "euler_logqp":
+                    ys, log_ratio = FS.fused_sdeint_logqp(
+                        *towers, y, ts, gen, 1.0 / steps, dispatch=dispatch)
+                    loss = (ys ** 2).sum() + log_ratio.sum()
+                else:
+                    loss = (FS.fused_sdeint(
+                        *towers, y, ts, gen, 1.0 / steps, method=method,
+                        dispatch=dispatch) ** 2).sum()
+                loss.backward()
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
             ms.setdefault(dispatch, []).append(float(np.median(times[1:])))
@@ -1495,7 +1708,11 @@ def main():
     tower_runs = {TOWER_CONFIGS[name][0]: phase_tower_serve_train(device,
                                                                  name)
                   for name in ("E1", "R1")}
-    phase_auto_dispatch(device)
+    phase_auto_dispatch(device, AUTO_SHAPES)
+    logqp_kernels = phase_logqp_kernels(device)["L1"]
+    tower_runs["euler_logqp"] = phase_tower_serve_train(device, "L1")
+    tower_kernels["euler_logqp"] = logqp_kernels
+    phase_auto_dispatch(device, AUTO_LOGQP_SHAPES)
     torch.cuda.synchronize()
     csrc = "torchsde_tpu_torch/ops/csrc"
     records = [
@@ -1536,7 +1753,10 @@ def main():
                                             "tower_euler_bwd"), (211, 242)),
                                  ("reversible_heun", ("tower_rh_fwd",
                                                       "tower_rh_bwd"),
-                                  (302, 352))):
+                                  (302, 352)),
+                                 ("euler_logqp", ("tower_euler_logqp_fwd",
+                                                  "tower_euler_logqp_bwd"),
+                                  (819, 853))):
         run = tower_runs[method]
         for i, (name, line) in enumerate(zip(names, lines)):
             extra = (dict(launches_serve=run["launches_serve"]) if i == 0

@@ -1,6 +1,6 @@
 """Helpers shared by the tests that hold torchsde_tpu_torch against
-torchsde_tpu: export a JAX module's leaves by dotted name, and build the same
-model in both packages."""
+torchsde_tpu: export a JAX module's leaves by dotted name, build the same
+model in both packages, and make and compare MLP towers."""
 
 import jax
 import numpy as np
@@ -84,3 +84,29 @@ def port_discriminator(jax_disc, dtype):
     for key in CDE_PATH_KEYS:
         del arrays[key]
     return load_jax_params(m, arrays)
+
+
+def tower_triples(rng, sizes, acts, scale=0.3, dtype=np.float32):
+    """A tower's ``(W, b, act)`` of numpy arrays: normal weights times
+    scale/sqrt(fan_in), small normal biases."""
+    return [((rng.standard_normal((a, b)) * (scale / np.sqrt(a))
+              ).astype(dtype),
+             (0.05 * rng.standard_normal(b)).astype(dtype), act)
+            for (a, b), act in zip(zip(sizes[:-1], sizes[1:]), acts)]
+
+
+def unpad_tower_grads(padded, triples):
+    """The Pallas kernels' padded weight gradients, cut to the towers'
+    shapes: (128,128) -> (in, out), (1,128) -> (out,)."""
+    out = []
+    for (w, _, _), dw, db in zip(triples, padded[::2], padded[1::2]):
+        out += [np.asarray(dw)[:w.shape[0], :w.shape[1]],
+                np.asarray(db)[0, :w.shape[1]]]
+    return out
+
+
+def port_tower_grads(flat, triples):
+    """The port's flat pack gradient as ``[dW0, db0, dW1, ...]``."""
+    from torchsde_tpu_torch.ops.fused_solve import unpack
+    shapes = tuple((w.shape[0], w.shape[1], a) for w, _, a in triples)
+    return [t for wb in unpack(flat, shapes) for t in wb]

@@ -21,7 +21,9 @@ import torch
 import torchsde_tpu.ops.fused_solve as JFS
 import torchsde_tpu_torch.core.integrate as TI
 import torchsde_tpu_torch.ops.fused_solve as TFS
-from port_bridge import to_torch
+from port_bridge import port_tower_grads as _port_grads
+from port_bridge import to_torch, tower_triples as _triples
+from port_bridge import unpad_tower_grads as _unpad
 from torchsde_tpu.core import integrate as JI
 from torchsde_tpu.core.sdeint import sdeint as jax_sdeint
 from torchsde_tpu_torch.core.sdeint import sdeint as port_sdeint
@@ -48,15 +50,6 @@ def interpret():
     JFS._INTERPRET = True
     yield
     JFS._INTERPRET = old
-
-
-def _triples(rng, sizes, acts, scale=0.3, dtype=np.float32):
-    """A tower's ``(W, b, act)`` of numpy arrays: normal weights times
-    scale/sqrt(fan_in), small normal biases."""
-    return [((rng.standard_normal((a, b)) * (scale / np.sqrt(a))
-              ).astype(dtype),
-             (0.05 * rng.standard_normal(b)).astype(dtype), act)
-            for (a, b), act in zip(zip(sizes[:-1], sizes[1:]), acts)]
 
 
 def _jax_tower(triples):
@@ -98,21 +91,6 @@ def _assert_grads_close(got, want):
         scale = float(np.max(np.abs(w)))
         np.testing.assert_allclose(g.detach().numpy(), w, rtol=0,
                                    atol=max(1e-4, 1e-5 * scale))
-
-
-def _unpad(padded, triples):
-    """The JAX kernels' padded weight gradients, cut to the towers'
-    shapes: (128,128) -> (in, out), (1,128) -> (out,)."""
-    out = []
-    for (w, _, _), dw, db in zip(triples, padded[::2], padded[1::2]):
-        out += [np.asarray(dw)[:w.shape[0], :w.shape[1]],
-                np.asarray(db)[0, :w.shape[1]]]
-    return out
-
-
-def _port_grads(flat, triples):
-    shapes = tuple((w.shape[0], w.shape[1], a) for w, _, a in triples)
-    return [t for wb in TFS.unpack(flat, shapes) for t in wb]
 
 
 @pytest.mark.parametrize("method,noise_type,d,m,with_time,depth", CASES)
@@ -407,8 +385,11 @@ def test_argument_and_tower_checks():
         TFS.fused_sdeint(drift, TFS.TowerSpec([(torch.zeros((3, 4)),
                                                 torch.zeros(4), "tanh")]),
                          y0, [0.0, 1.0], gen, 0.5, noise_type="general")
-    with pytest.raises(NotImplementedError, match="logqp"):
-        TFS.tower_sde(drift, diffusion, "diagonal", "ito", prior=drift)
+    with pytest.raises(ValueError, match="prior tower must output"):
+        TFS.fused_sdeint_logqp(drift, TFS.TowerSpec([(torch.zeros((3, 4)),
+                                                      torch.zeros(4),
+                                                      "tanh")]),
+                               diffusion, y0, [0.0, 1.0], gen, 0.5)
 
 
 def test_auto_dispatch_of_narrow_towers_matches_sdeint_bitwise():

@@ -55,8 +55,8 @@ def _solve_args(device, B, L, C, H, n_ts, dt, seed, saturated=False):
         with torch.no_grad():      # g ~ 1e-11, below stable_division's 1e-7
             model.g_nets[3].sub_(25.0)
     ts = np.linspace(0.0, 1.0, n_ts)
-    model.contextualize(ts, torch.randn((n_ts, B, C), generator=gen,
-                                        device=device))
+    model = model.contextualize(ts, torch.randn((n_ts, B, C), generator=gen,
+                                                device=device))
     z0 = torch.randn((B, L), generator=gen, device=device)
     args = LF._prep_solve(model, z0, ts, gen, dt)[:5]
     return args, LF.solve_weights(model)
@@ -474,11 +474,12 @@ def _tower_solve(device, case, seed=0):
     return spec, (y0, f0, g0, noise, t[1:], dts, fw, gw, spec), gy
 
 
-def _assert_close(got, want, atol, rel):
+def _assert_close(got, want, atol, rel, rtol=0.0):
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.isfinite(g).all()
         scale = float(w.abs().max()) if w.numel() else 0.0
-        torch.testing.assert_close(g, w, rtol=0, atol=max(atol, rel * scale))
+        torch.testing.assert_close(g, w, rtol=rtol,
+                                   atol=max(atol, rel * scale))
 
 
 @pytest.mark.parametrize("case", TOWER_CASES,
@@ -595,3 +596,147 @@ def test_fused_sdeint_trains_through_the_four_kernels(cuda):
             assert torch.isfinite(g).all()
             torch.testing.assert_close(g, w, rtol=0,
                                        atol=1e-5 * float(w.abs().max()))
+
+
+# Kernels 13 and 14 (fused_sdeint_logqp): (S, with_time, drift hidden and
+# acts (the prior's the same), diffusion hidden and acts, diffusion weight
+# scale, B, N).
+LOGQP_CASES = [
+    (8, True, ((16,), ("softplus", "linear")),
+     ((16,), ("lipswish", "tanh")), 0.8, 37, 6),       # g of both signs
+    (32, False, ((64,), ("softplus", "linear")),
+     ((), ("sigmoid",)), 0.3, 20, 4),
+    (128, False, ((128,), ("softplus", "linear")),
+     ((128,), ("lipswish", "sigmoid")), 0.3, 9, 3),    # one tower staged
+    (127, True, ((33,), ("tanh", "linear")),
+     ((33, 33), ("lipswish", "softplus", "sigmoid")), 0.3, 11, 3),
+]
+
+
+def _logqp_solve(device, case, seed=0):
+    """The spec, the forward kernel's inputs, and cotangents of ys and of
+    the KL channel's increments (ginc)."""
+    S, wt, (fh, facts), (gh, gacts), gscale, B, N = case
+    rng = np.random.default_rng(seed)
+    n_in = S + (1 if wt else 0)
+    drift = _tower(rng, [n_in, *fh, S], facts, 0.3, device)
+    prior = _tower(rng, [n_in, *fh, S], facts, 0.3, device)
+    diffusion = _tower(rng, [n_in, *gh, S], gacts, gscale, device)
+    spec = FS.solve_spec(drift, diffusion, S, S, True, wt, prior=prior)
+    f32 = dict(dtype=torch.float32, device=device)
+    y0 = torch.as_tensor(rng.standard_normal((B, S)), **f32)
+    noise = torch.as_tensor(rng.standard_normal((N, B, S)) / np.sqrt(N),
+                            **f32)
+    t = torch.as_tensor(np.linspace(0.0, 1.0, N + 1), **f32)
+    gy = torch.as_tensor(rng.standard_normal((N, B, S)), **f32)
+    ginc = torch.as_tensor(rng.standard_normal((N, B, 1)), **f32)
+    args = (y0, noise, t[:-1], t[1:] - t[:-1], drift.pack(), prior.pack(),
+            diffusion.pack(), spec)
+    return spec, args, gy, ginc
+
+
+@pytest.mark.parametrize("case", LOGQP_CASES,
+                         ids=[f"S{c[0]}-t{int(c[1])}" for c in LOGQP_CASES])
+def test_logqp_kernels_match_plain(cuda, case):
+    """Kernels 13 and 14 against their plain versions: ys and qs within
+    max(2e-5, 4e-6 * scale), gradients within max(1e-4, 1e-5 * scale)
+    (chip_smoke.py's rules); each launched once. Where the diffusion takes
+    both signs, u = (f - h) / g amplifies the two versions' rounding of g
+    near zero, so qs and the gradients also get the JAX package's relative
+    tolerance for that case (rtol 3e-3 and 5e-3,
+    tests/test_fused_solve.py:226,261-262)."""
+    signed = case[3][1][-1] in ("tanh", "linear")
+    with torch.no_grad():
+        spec, args, gy, ginc = _logqp_solve(cuda, case)
+        counts = (FS.logqp_launches, FS.logqp_bwd_launches)
+        got = FS.euler_logqp_solve_forward_cuda(*args)
+        want = FS.euler_logqp_solve_forward_plain(*args)
+        got_b = FS.euler_logqp_solve_backward_cuda(*args, want[0], gy, ginc)
+        want_b = FS.euler_logqp_solve_backward_plain(*args, want[0], gy,
+                                                     ginc)
+    torch.cuda.synchronize()
+    assert (FS.logqp_launches - counts[0],
+            FS.logqp_bwd_launches - counts[1]) == (1, 1)
+    _assert_close(got, want, 2e-5, 4e-6, 3e-3 if signed else 0.0)
+    _assert_close(got_b, want_b, 1e-4, 1e-5, 5e-3 if signed else 0.0)
+
+
+def test_logqp_backward_is_bitwise_repeatable_and_staging_exact(cuda):
+    """Two sweeps agree bitwise, and the towers' staging (shared memory or
+    device memory) changes no bit of either kernel's results."""
+    with torch.no_grad():
+        spec, args, gy, ginc = _logqp_solve(cuda, LOGQP_CASES[1], seed=1)
+        ys, qs = FS.euler_logqp_solve_forward_cuda(*args)
+        runs = [FS.euler_logqp_solve_backward_cuda(*args, ys, gy, ginc)
+                for _ in range(2)]
+        unstaged = FS.euler_logqp_solve_forward_cuda(*args, stage=0)
+        runs.append(FS.euler_logqp_solve_backward_cuda(*args, ys, gy, ginc,
+                                                       stage=0))
+    torch.cuda.synchronize()
+    assert torch.equal(ys, unstaged[0]) and torch.equal(qs, unstaged[1])
+    assert all(torch.equal(a, b) for run in runs[1:]
+               for a, b in zip(runs[0], run))
+
+
+def test_logqp_three_towers_too_big_raises(cuda):
+    """The layout counts the third tower: with nine width-128 layers a
+    tower, the logqp sweep keeps over 227 KiB of activations in a block
+    and is refused before any launch, while the forward, and kernel 10 on
+    two such towers, fit."""
+    case = (128, False, ((128,) * 8, ("tanh",) * 8 + ("linear",)),
+            ((128,) * 8, ("tanh",) * 8 + ("sigmoid",)), 0.3, 8, 2)
+    with torch.no_grad():
+        spec, args, gy, ginc = _logqp_solve(cuda, case)
+        ys, _ = FS.euler_logqp_solve_forward_cuda(*args)
+        with pytest.raises(ValueError, match="shared memory"):
+            FS.euler_logqp_solve_backward_cuda(*args, ys, gy, ginc)
+        y0, noise, t0s, dts, fw, _, gw, _ = args
+        two = spec._replace(prior=())
+        ys2 = FS.euler_solve_forward_cuda(y0, noise, t0s, dts, fw, gw, two)
+        FS.euler_solve_backward_cuda(y0, noise, t0s, dts, fw, gw, two, ys2,
+                                     gy)
+    torch.cuda.synchronize()
+
+
+def _logqp_train_step(device, dispatch):
+    """One Adam step of mean(ys**2) + mean(sum(log_ratio, 0)) through
+    fused_sdeint_logqp with a time column; returns the loss and
+    gradients."""
+    rng = np.random.default_rng(4)
+    S = 6
+    towers = [_tower(rng, [S + 1, 32, S], acts, 0.3, device)
+              for acts in (("softplus", "linear"), ("softplus", "linear"),
+                           ("lipswish", "sigmoid"))]
+    leaves = [t.requires_grad_() for spec in towers
+              for (w, b, _) in spec.layers for t in (w, b)]
+    y0 = torch.as_tensor(rng.standard_normal((50, S)), dtype=torch.float32,
+                         device=device).requires_grad_()
+    opt = torch.optim.Adam(leaves, lr=1e-3)
+    gen = torch.Generator(device=device).manual_seed(5)
+    ys, log_ratio = FS.fused_sdeint_logqp(*towers, y0, np.linspace(0, 1, 5),
+                                          gen, 1.0 / 16, with_time=True,
+                                          dispatch=dispatch)
+    loss = (ys ** 2).mean() + log_ratio.sum(0).mean()
+    loss.backward()
+    grads = [t.grad.clone() for t in leaves + [y0]]
+    opt.step()
+    return loss.detach(), grads
+
+
+def test_fused_sdeint_logqp_trains_through_kernels_13_and_14(cuda):
+    """A training step launches kernels 13 and 14 once each, and its loss
+    and gradients match the sdeint route's on the same generator seed
+    within 1e-5 of each gradient's scale."""
+    before = (FS.logqp_launches, FS.logqp_bwd_launches)
+    loss, grads = _logqp_train_step(cuda, "fused")
+    torch.cuda.synchronize()
+    assert (FS.logqp_launches - before[0],
+            FS.logqp_bwd_launches - before[1]) == (1, 1)
+    loss_x, grads_x = _logqp_train_step(cuda, "xla")
+    assert (FS.logqp_launches, FS.logqp_bwd_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    torch.testing.assert_close(loss, loss_x, rtol=1e-5, atol=0)
+    for g, w in zip(grads, grads_x):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))

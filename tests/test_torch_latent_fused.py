@@ -85,7 +85,7 @@ def test_prep_solve_and_interp_tail_match_jax_f64(monkeypatch):
     mj = jm.contextualize(ts, ctx_j)
     with torch.no_grad():
         ctx_t = tm.encode(to_torch(xs), ts)
-    tm.contextualize(ts, ctx_t)
+    tm = tm.contextualize(ts, ctx_t)
     np.testing.assert_allclose(ctx_t.numpy(), np.asarray(ctx_j), rtol=0,
                                atol=1e-12)
 

@@ -11,6 +11,8 @@ takes a key: one generator first draws the posterior's initial-state eps and
 then the solve noise.
 """
 
+import copy
+
 import torch
 from torch import nn
 
@@ -32,8 +34,9 @@ class LatentSDE(nn.Module):
     (``f_net.layers.0.w``, ``g_nets.2``, ``encoder.cell.w_hh``), so
     :func:`torchsde_tpu_torch.utils.convert.load_jax_params` loads its
     weights. The context path ``_ctx_ts`` (T,) / ``_ctx`` (T, B, C) is held
-    in two non-persistent buffers, set by :meth:`contextualize`. It is
-    built on the CUDA card unless ``device`` says otherwise.
+    in two non-persistent buffers of the view that :meth:`contextualize`
+    returns; the model's own stay as built. It is built on the CUDA card
+    unless ``device`` says otherwise.
     """
 
     noise_type = "diagonal"
@@ -84,11 +87,16 @@ class LatentSDE(nn.Module):
         return self.encoder_proj(torch.flip(hs, dims=(0,)))
 
     def contextualize(self, ts, ctx):
-        """Attach the context path ``ctx`` (T, B, C) observed at ``ts``."""
-        self._ctx_ts = torch.as_tensor(host_times(ts), dtype=ctx.dtype,
+        """A view of the model that reads the context path ``ctx`` (T, B, C)
+        observed at ``ts``. The view shares this model's parameters and
+        submodules and holds the context in buffers of its own, so this
+        model is never written (the JAX package returns a new module)."""
+        view = copy.copy(self)
+        view._buffers = dict(self._buffers)
+        view._ctx_ts = torch.as_tensor(host_times(ts), dtype=ctx.dtype,
                                        device=ctx.device)
-        self._ctx = ctx
-        return self
+        view._ctx = ctx
+        return view
 
     def ctx_index(self, t):
         """Index of the context row in force at times ``t``:

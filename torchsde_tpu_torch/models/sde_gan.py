@@ -23,6 +23,8 @@ Heun ``adjoint=False`` computes the same values and the same exact
 discrete gradient.
 """
 
+import copy
+
 import numpy as np
 import torch
 from torch import nn
@@ -166,8 +168,9 @@ class CDEFunc(nn.Module):
     ``f(t, h) = F(t, h) @ X'(t)``, with X the linear interpolation of a path.
 
     The path's knot times ``_path_ts`` (T,) and values ``_path_ys``
-    (B, T, 1+data) are per-batch data, not weights: :meth:`attach` sets them
-    as plain attributes, outside the module's parameters and buffers."""
+    (B, T, 1+data) are per-batch data, not weights: they are plain
+    attributes of the view that :meth:`attach` returns, outside the
+    module's parameters and buffers, and the module's own stay None."""
     sde_type = "stratonovich"
     noise_type = "additive"
 
@@ -183,12 +186,15 @@ class CDEFunc(nn.Module):
         self._path_ys = None
 
     def attach(self, ts, ys_paths):
-        """Drive the CDE with the path ``ys_paths`` (B, T, 1+data) observed
-        at the knot times ``ts``."""
-        self._path_ts = torch.as_tensor(host_times(ts), dtype=ys_paths.dtype,
+        """A view of the CDE driven by the path ``ys_paths`` (B, T, 1+data)
+        observed at the knot times ``ts``. The view shares this module's
+        parameters and submodules, so this module is never written (the
+        JAX package evolves a new func)."""
+        view = copy.copy(self)
+        view._path_ts = torch.as_tensor(host_times(ts), dtype=ys_paths.dtype,
                                         device=ys_paths.device)
-        self._path_ys = ys_paths
-        return self
+        view._path_ys = ys_paths
+        return view
 
     def _x_dot(self, t):
         """Slope of the linear interpolant at time t: the knot interval

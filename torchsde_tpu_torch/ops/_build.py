@@ -21,7 +21,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("latent_fused_fwd.cu", "latent_fused_bwd.cu", "gan_gen_fwd.cu",
            "gan_cde_fwd.cu", "gan_gen_bwd.cu", "gan_cde_bwd.cu",
            "tower_euler_fwd.cu", "tower_euler_bwd.cu", "tower_rh_fwd.cu",
-           "tower_rh_bwd.cu")
+           "tower_rh_bwd.cu", "tower_euler_logqp_fwd.cu",
+           "tower_euler_logqp_bwd.cu")
 HEADERS = ("latent_fused_common.cuh", "gan_fused_common.cuh",
            "tower_solve_common.cuh")
 BUILD_DIR = Path(os.environ.get(
@@ -30,8 +31,11 @@ BUILD_DIR = Path(os.environ.get(
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-# Dynamic shared memory a block may opt into on Hopper (H100/H200).
+# Dynamic shared memory a block may opt into on Hopper (H100/H200), the
+# shared memory of an SM, and what the card reserves for each block on it.
 MAX_SMEM_BYTES = 232448
+SM_SMEM_BYTES = 233472
+BLOCK_SMEM_RESERVED = 1024
 
 # nvcc's output from the last build in this process, source by source
 # (ptxas prints each kernel's registers, shared memory and spills); empty
@@ -87,13 +91,14 @@ def _bind(lib):
     lib.tsde_latent_fused_bwd_blocks.argtypes = [I]
     lib.tsde_latent_fused_bwd_blocks.restype = I
     # The TowerSpec solves: two layer tables (host, device), the tensors,
-    # then nf, ng, S, m, diag, wt, stage, B, N, device and the stream.
+    # then nf, ng, nh, S, m, diag, wt, stage, B, N, device and the stream.
     for name, tensors in (("euler_fwd", 7), ("euler_bwd", 12),
-                          ("rh_fwd", 11), ("rh_bwd", 15)):
+                          ("rh_fwd", 11), ("rh_bwd", 15),
+                          ("euler_logqp_fwd", 9), ("euler_logqp_bwd", 14)):
         fn = getattr(lib, f"tsde_tower_{name}")
-        fn.argtypes = [P] * (2 + tensors) + [I] * 10 + [P]
+        fn.argtypes = [P] * (2 + tensors) + [I] * 11 + [P]
         fn.restype = I
-    lib.tsde_tower_smem_bytes.argtypes = [I, P] + [I] * 7
+    lib.tsde_tower_smem_bytes.argtypes = [I, P] + [I] * 8
     lib.tsde_tower_smem_bytes.restype = ctypes.c_size_t
     lib.tsde_tower_blocks.argtypes = [I]
     lib.tsde_tower_blocks.restype = I

@@ -147,9 +147,9 @@ int tsde_tower_euler_bwd(const int* table_host, const int* table_dev,
                          const float* noise, const float* t0s,
                          const float* dts, const float* ys, const float* gy,
                          float* dy0, float* dnoise, float* partials,
-                         float* dw, int nf, int ng, int S, int m, int diag,
-                         int wt, int stage, int B, int N, int device,
-                         cudaStream_t stream) {
+                         float* dw, int nf, int ng, int nh, int S, int m,
+                         int diag, int wt, int stage, int B, int N,
+                         int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || N <= 0) return 0;
@@ -158,7 +158,7 @@ int tsde_tower_euler_bwd(const int* table_host, const int* table_dev,
   a.pack[0] = fw; a.pack[1] = gw;
   a.y0 = y0; a.noise = noise; a.t0s = t0s; a.dts = dts; a.ys = ys;
   a.gy = gy; a.dy0 = dy0; a.dnoise = dnoise; a.partials = partials;
-  a.d = {nf, ng, S, m, diag, wt};
+  a.d = {nf, ng, nh, S, m, diag, wt};
   a.stage = stage; a.B = B; a.N = N;
   const Layout s = make_layout(table_host, a.d, EULER_BWD, stage, nullptr);
   a.P = s.P;

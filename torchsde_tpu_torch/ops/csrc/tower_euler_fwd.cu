@@ -20,10 +20,11 @@
 // the whole step loop with no grid-wide sync. Its 256 threads evaluate the
 // drift and the diffusion side by side, a layer depth per barrier, thread j
 // owning unit j; the state lives in the input rows x of shared memory. The
-// towers are copied to shared memory when they fit a block (both, else the
-// drift alone); a tower that does not fit is read from its pack in device
-// memory, where every block reads the same weights and the L2 cache keeps
-// them. Plain f32 FMAs, no fast math; tensor cores are later work.
+// towers the host names (fused_solve.staged_towers) are copied to shared
+// memory; the others are read from their packs in device memory, where
+// every block reads the same weights, thread j column j side by side, and
+// the caches keep them. Plain f32 FMAs, no fast math; tensor cores are
+// later work.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -95,12 +96,14 @@ __global__ void __launch_bounds__(NT) tower_euler_fwd_kernel(const Args a) {
 extern "C" {
 
 // Dynamic shared memory one block of a kernel of `kind` (0 Euler forward, 1
-// its sweep, 2 reversible-Heun forward, 3 its sweep) needs for this host
-// layer table ((in, out, activation) per layer, drift first), with the
-// towers of `stage` (bit 0 drift, bit 1 diffusion) copied there.
+// its sweep, 2 reversible-Heun forward, 3 its sweep, 4 Euler logqp forward,
+// 5 its sweep) needs for this host layer table ((in, out, activation) per
+// layer: drift, diffusion, then prior), with the towers of `stage` (bit 0
+// drift, bit 1 diffusion, bit 2 prior) copied there.
 size_t tsde_tower_smem_bytes(int kind, const int* table, int nf, int ng,
-                             int S, int m, int diag, int wt, int stage) {
-  const Dims d = {nf, ng, S, m, diag, wt};
+                             int nh, int S, int m, int diag, int wt,
+                             int stage) {
+  const Dims d = {nf, ng, nh, S, m, diag, wt};
   return make_layout(table, d, kind, stage, nullptr).total * sizeof(float);
 }
 
@@ -114,9 +117,9 @@ int tsde_tower_blocks(int B) { return blocks_for(B); }
 int tsde_tower_euler_fwd(const int* table_host, const int* table_dev,
                          const float* fw, const float* gw, const float* y0,
                          const float* noise, const float* t0s,
-                         const float* dts, float* ys, int nf, int ng, int S,
-                         int m, int diag, int wt, int stage, int B, int N,
-                         int device, cudaStream_t stream) {
+                         const float* dts, float* ys, int nf, int ng, int nh,
+                         int S, int m, int diag, int wt, int stage, int B,
+                         int N, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || N <= 0) return 0;
@@ -124,7 +127,7 @@ int tsde_tower_euler_fwd(const int* table_host, const int* table_dev,
   a.table = table_dev;
   a.pack[0] = fw; a.pack[1] = gw;
   a.y0 = y0; a.noise = noise; a.t0s = t0s; a.dts = dts; a.ys = ys;
-  a.d = {nf, ng, S, m, diag, wt};
+  a.d = {nf, ng, nh, S, m, diag, wt};
   a.stage = stage; a.B = B; a.N = N;
   const Layout s = make_layout(table_host, a.d, EULER_FWD, stage, nullptr);
   err = prepare(tower_euler_fwd_kernel, s);

@@ -184,8 +184,8 @@ int tsde_tower_rh_bwd(const int* table_host, const int* table_dev,
                       const float* noise, const float* t1s, const float* dts,
                       const float* zs, const float* gs, const float* gy,
                       float* dy0, float* df0, float* dg0, float* dnoise,
-                      float* partials, float* dw, int nf, int ng, int S,
-                      int m, int diag, int wt, int stage, int B, int N,
+                      float* partials, float* dw, int nf, int ng, int nh,
+                      int S, int m, int diag, int wt, int stage, int B, int N,
                       int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -196,7 +196,7 @@ int tsde_tower_rh_bwd(const int* table_host, const int* table_dev,
   a.g0 = g0; a.noise = noise; a.t1s = t1s; a.dts = dts; a.zs = zs;
   a.gs = gs; a.gy = gy; a.dy0 = dy0; a.df0 = df0; a.dg0 = dg0;
   a.dnoise = dnoise; a.partials = partials;
-  a.d = {nf, ng, S, m, diag, wt};
+  a.d = {nf, ng, nh, S, m, diag, wt};
   a.stage = stage; a.B = B; a.N = N;
   const Layout s = make_layout(table_host, a.d, RH_BWD, stage, nullptr);
   a.P = s.P;

@@ -19,8 +19,9 @@
 // the step loop; the drift and the diffusion run side by side on the
 // block's two halves. The carry lives in shared memory: z in the towers'
 // input rows, y, f and g in arrays of their own, each element owned by one
-// thread. Towers that do not fit a block's shared memory are read from
-// device memory through the L2 cache.
+// thread. Towers the host does not stage in shared memory
+// (fused_solve.staged_towers) are read from device memory through the
+// caches.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -139,9 +140,9 @@ int tsde_tower_rh_fwd(const int* table_host, const int* table_dev,
                       const float* fw, const float* gw, const float* y0,
                       const float* f0, const float* g0, const float* noise,
                       const float* t1s, const float* dts, float* ys,
-                      float* zs, float* gs, int nf, int ng, int S, int m,
-                      int diag, int wt, int stage, int B, int N, int device,
-                      cudaStream_t stream) {
+                      float* zs, float* gs, int nf, int ng, int nh, int S,
+                      int m, int diag, int wt, int stage, int B, int N,
+                      int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || N <= 0) return 0;
@@ -150,7 +151,7 @@ int tsde_tower_rh_fwd(const int* table_host, const int* table_dev,
   a.pack[0] = fw; a.pack[1] = gw;
   a.y0 = y0; a.f0 = f0; a.g0 = g0; a.noise = noise; a.t1s = t1s;
   a.dts = dts; a.ys = ys; a.zs = zs; a.gs = gs;
-  a.d = {nf, ng, S, m, diag, wt};
+  a.d = {nf, ng, nh, S, m, diag, wt};
   a.stage = stage; a.B = B; a.N = N;
   const Layout s = make_layout(table_host, a.d, RH_FWD, stage, nullptr);
   err = prepare(tower_rh_fwd_kernel, s);

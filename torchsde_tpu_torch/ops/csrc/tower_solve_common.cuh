@@ -1,25 +1,28 @@
 // Tower math and shared-memory layout common to the whole-solve kernels of
 // TowerSpec SDEs (tower_euler_fwd.cu, tower_euler_bwd.cu, tower_rh_fwd.cu,
-// tower_rh_bwd.cu), so that the reverse sweeps recompute exactly the forward
-// kernels' activations.
+// tower_rh_bwd.cu, tower_euler_logqp_fwd.cu, tower_euler_logqp_bwd.cu), so
+// that the reverse sweeps recompute exactly the forward kernels' activations.
 //
-// Block layout. A block holds TB batch rows and NT = 256 threads: threads
-// 0-127 run the drift tower and threads 128-255 the diffusion tower, side by
-// side, one layer depth per barrier (four warps per tower, so the activation
-// switch and the layer loops are uniform in every warp). Inside a tower,
+// Block layout. A block holds TB batch rows and TW = 128 threads for each of
+// its towers: NT = 256 for drift and diffusion (threads 0-127 the drift,
+// 128-255 the diffusion), NT3 = 384 when a prior drift joins them (threads
+// 256-383). The towers run side by side, one layer depth per barrier (four
+// warps per tower, so the activation switch and the layer loops are uniform
+// in every warp). Inside a tower,
 // thread j computes output unit j of a layer for all TB rows (every width is
 // at most 128): it reads a weight once and the layer's input rows as two
 // float4 broadcasts, so one weight read feeds TB multiply-adds. Activations
 // are kept [unit][row] in shared memory.
 //
-// The layer table is (in, out, activation code) per layer, the drift's
-// layers first. From it every block builds a plan of the layers in shared
-// memory: where the weights are (in shared memory, with an odd row stride,
-// for a tower staged there; else in the tower's flat pack in device memory,
-// read through L1 and L2), where the layer's gradient goes in the flat packs,
-// and for the backward kernels where the layer's pre-activation and output
-// are kept. The host computes the same layout with the same function
-// (make_layout) to size the launch, and tsde_tower_smem_bytes reports it.
+// The layer table is (in, out, activation code) per layer: the drift's
+// layers, the diffusion's, then the prior's. From it every block builds a
+// plan of the layers in shared memory: where the weights are (in shared
+// memory, with an odd row stride, for a tower staged there; else in the
+// tower's flat pack in device memory, read through L1 and L2), where the
+// layer's gradient goes in the flat packs, and for the backward kernels
+// where the layer's pre-activation and output are kept. The host computes
+// the same layout with the same function (make_layout) to size the launch,
+// and tsde_tower_smem_bytes reports it.
 
 #pragma once
 
@@ -29,21 +32,30 @@
 namespace tsde_tower {
 
 constexpr int TB = 8;              // batch rows per block
-constexpr int HALF = 128;          // threads per tower; the widest layer
-constexpr int NT = 2 * HALF;       // threads per block
+constexpr int TW = 128;            // threads per tower; the widest layer
+constexpr int NT = 2 * TW;         // threads of a drift-and-diffusion block
+constexpr int NT3 = 3 * TW;        // threads of a block with a prior drift
+constexpr int MAX_TOWERS = 3;
 constexpr int TABLE_COLS = 3;      // in, out, activation code
 
 enum Act : int { SOFTPLUS = 0, TANH = 1, SIGMOID = 2, LIPSWISH = 3,
                  LINEAR = 4 };
-enum Kind : int { EULER_FWD = 0, EULER_BWD = 1, RH_FWD = 2, RH_BWD = 3 };
+enum Kind : int { EULER_FWD = 0, EULER_BWD = 1, RH_FWD = 2, RH_BWD = 3,
+                  EULER_LOGQP_FWD = 4, EULER_LOGQP_BWD = 5 };
 
-// The solve's widths: drift and diffusion layer counts, state S, noise
-// channels m (S for diagonal noise), diagonal noise, and whether the towers
-// read a time column (wt = 1) before the state.
+// The solve's widths: drift, diffusion and prior-drift layer counts (nh = 0:
+// no prior), state S, noise channels m (S for diagonal noise), diagonal
+// noise, and whether the towers read a time column (wt = 1) before the
+// state. Tower t is 0 the drift, 1 the diffusion, 2 the prior.
 struct Dims {
-  int nf, ng, S, m, diag, wt;
-  __host__ __device__ int nl(int t) const { return t == 0 ? nf : ng; }
-  __host__ __device__ int base(int t) const { return t == 0 ? 0 : nf; }
+  int nf, ng, nh, S, m, diag, wt;
+  __host__ __device__ int towers() const { return nh > 0 ? 3 : 2; }
+  __host__ __device__ int nl(int t) const {
+    return t == 0 ? nf : t == 1 ? ng : nh;
+  }
+  __host__ __device__ int base(int t) const {
+    return t == 0 ? 0 : t == 1 ? nf : nf + ng;
+  }
   __host__ __device__ int gwidth() const { return diag ? S : S * m; }
   __host__ __device__ int in0() const { return S + wt; }
 };
@@ -70,15 +82,15 @@ __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 // Offsets (in floats) of each array in dynamic shared memory.
 struct Layout {
   size_t plan;
-  size_t wstage[2];    // staged weights of each tower
-  size_t x;            // [k][r]: the towers' input [t? | y]
-  size_t buf[2][2];    // forward kernels: each tower's ping-pong activations
-  size_t dout[2];      // backward kernels: each tower's output cotangent
-  size_t carry[5];     // the kernel's own [unit][row] arrays
+  size_t wstage[MAX_TOWERS];  // staged weights of each tower
+  size_t x;                   // [k][r]: the towers' input [t? | y]
+  size_t buf[MAX_TOWERS][2];  // forward kernels: ping-pong activations
+  size_t dout[MAX_TOWERS];    // backward kernels: output cotangents
+  size_t carry[5];            // the kernel's own [unit][row] arrays
   size_t total;
-  size_t P;            // floats of both packs, [fw | gw]
-  int toff1;           // the diffusion pack's offset in [fw | gw]
-  int maxl;            // the deeper tower's layer count
+  size_t P;                   // floats of all packs, [fw | gw | hw]
+  int toff[MAX_TOWERS];       // each pack's offset in [fw | gw | hw]
+  int maxl;                   // the deepest tower's layer count
 };
 
 // The layout of a kernel of `kind` for this layer table; fills `plan` when
@@ -88,10 +100,10 @@ __host__ __device__ inline Layout make_layout(const int* table, Dims d,
                                               Layer* plan) {
   Layout s = {};
   size_t at = 0;
-  s.plan = take(at, size_t(d.nf + d.ng) * PLAN_INTS);
-  int maxw[2] = {1, 1};
-  int pack[2] = {0, 0};
-  for (int t = 0; t < 2; ++t) {
+  s.plan = take(at, size_t(d.nf + d.ng + d.nh) * PLAN_INTS);
+  int maxw[MAX_TOWERS] = {1, 1, 1};
+  int pack[MAX_TOWERS] = {0, 0, 0};
+  for (int t = 0; t < d.towers(); ++t) {
     const bool staged = (stage >> t) & 1;
     size_t sw = 0;
     for (int i = 0; i < d.nl(t); ++i) {
@@ -116,12 +128,16 @@ __host__ __device__ inline Layout make_layout(const int* table, Dims d,
     }
     s.wstage[t] = staged ? take(at, sw) : 0;
   }
-  s.toff1 = pack[0];
-  s.P = size_t(pack[0]) + pack[1];
-  s.maxl = imax(d.nf, d.ng);
+  s.P = 0;
+  for (int t = 0; t < d.towers(); ++t) {
+    s.toff[t] = static_cast<int>(s.P);
+    s.P += size_t(pack[t]);
+  }
+  s.maxl = imax(imax(d.nf, d.ng), d.nh);
   s.x = take(at, size_t(d.in0()) * TB);
-  const bool bwd = kind == EULER_BWD || kind == RH_BWD;
-  for (int t = 0; t < 2; ++t) {
+  const bool bwd = kind == EULER_BWD || kind == RH_BWD ||
+                   kind == EULER_LOGQP_BWD;
+  for (int t = 0; t < d.towers(); ++t) {
     if (!bwd) {
       s.buf[t][0] = take(at, size_t(maxw[t]) * TB);
       s.buf[t][1] = take(at, size_t(maxw[t]) * TB);
@@ -139,8 +155,10 @@ __host__ __device__ inline Layout make_layout(const int* table, Dims d,
     s.dout[t] = take(at, size_t(imax(d.in0(), maxw[t])) * TB);
   }
   const size_t sS = size_t(d.S) * TB, sG = size_t(d.gwidth()) * TB;
-  if (kind == EULER_BWD) {
+  if (kind == EULER_BWD || kind == EULER_LOGQP_BWD) {
     s.carry[0] = take(at, sS);                         // dy
+  } else if (kind == EULER_LOGQP_FWD) {
+    s.carry[0] = take(at, sS);                         // u^2
   } else if (kind == RH_FWD) {
     s.carry[0] = take(at, sS);                         // y
     s.carry[1] = take(at, sS);                         // f
@@ -201,13 +219,13 @@ __device__ __forceinline__ void load_rows(float (&v)[TB], const float* p) {
 // returns the layout; w[t] is tower t's weight base (shared or device
 // memory). Ends with a barrier.
 __device__ inline Layout setup(const int* table, Dims d, int kind, int stage,
-                               float* sm, const float* const pack[2],
-                               const float* w[2]) {
+                               float* sm, const float* const* pack,
+                               const float** w) {
   const Layout s = make_layout(table, d, kind, stage, nullptr);
   Layer* plan = reinterpret_cast<Layer*>(sm + s.plan);
   if (threadIdx.x == 0) make_layout(table, d, kind, stage, plan);
   __syncthreads();
-  for (int t = 0; t < 2; ++t) {
+  for (int t = 0; t < d.towers(); ++t) {
     if (!((stage >> t) & 1)) {
       w[t] = pack[t];
       continue;
@@ -216,9 +234,9 @@ __device__ inline Layout setup(const int* table, Dims d, int kind, int stage,
     for (int i = 0; i < d.nl(t); ++i) {
       const Layer L = plan[d.base(t) + i];
       const float* src = pack[t] + L.g;
-      for (int e = threadIdx.x; e < L.in * L.out; e += NT)
+      for (int e = threadIdx.x; e < L.in * L.out; e += blockDim.x)
         dst[L.w + (e / L.out) * L.ld + e % L.out] = src[e];
-      for (int e = threadIdx.x; e < L.out; e += NT)
+      for (int e = threadIdx.x; e < L.out; e += blockDim.x)
         dst[L.b + e] = src[L.in * L.out + e];
     }
     w[t] = dst;
@@ -254,14 +272,15 @@ __device__ inline void layer_forward(const Layer& L,
   }
 }
 
-// Both towers' forward for the tile from x, one layer depth per barrier.
-// With `cache` every layer keeps its pre-activation and output where the
-// plan says (the backward kernels); otherwise each tower alternates between
-// its two buffers. Ends with a barrier.
+// Every tower's forward for the tile from x (thread group t runs tower t),
+// one layer depth per barrier. With `cache` every layer keeps its
+// pre-activation and output where the plan says (the backward kernels);
+// otherwise each tower alternates between its two buffers. Ends with a
+// barrier.
 __device__ inline void towers_forward(const Layer* plan, Dims d,
-                                      const Layout& s, const float* const w[2],
+                                      const Layout& s, const float* const* w,
                                       float* sm, bool cache) {
-  const int t = threadIdx.x / HALF, j = threadIdx.x % HALF;
+  const int t = threadIdx.x / TW, j = threadIdx.x % TW;
   const Layer* tp = plan + d.base(t);
   for (int i = 0; i < s.maxl; ++i) {
     if (i < d.nl(t)) {
@@ -347,16 +366,16 @@ __device__ inline void layer_input_grad(const Layer& L,
 
 // Backpropagates each tower's output cotangent (in its dout buffer) through
 // the cache of towers_forward, the deepest layers first, adding every
-// weight gradient to the block's partial `part` ([fw | gw]). Leaves the
+// weight gradient to the block's partial `part` ([fw | gw | hw]). Leaves the
 // cotangent of x ([k][r], in0 rows) in each tower's dout buffer. Two
 // barriers a layer depth; ends with a barrier.
 __device__ inline void towers_backward(const Layer* plan, Dims d,
                                        const Layout& s,
-                                       const float* const w[2], float* sm,
+                                       const float* const* w, float* sm,
                                        float* part, bool first) {
-  const int t = threadIdx.x / HALF, j = threadIdx.x % HALF;
+  const int t = threadIdx.x / TW, j = threadIdx.x % TW;
   const Layer* tp = plan + d.base(t);
-  float* part_t = part + (t == 0 ? 0 : s.toff1);
+  float* part_t = part + s.toff[t];
   float* dout = sm + s.dout[t];
   for (int q = 0; q < s.maxl; ++q) {
     const int i = d.nl(t) - 1 - q;

@@ -31,6 +31,17 @@ Here ``g . dW`` is ``g * dW`` for diagonal noise and the per-row ``(S, m) @
 flattening of ``(S, m)``. ``with_time=True`` feeds ``t`` as the towers' first
 input column.
 
+:func:`fused_sdeint_logqp` adds a prior-drift tower ``h`` and the KL
+channel of ``sdeint(..., logqp=True)``: Euler (Itô), diagonal noise, with
+``gs`` the diffusion clamped away from zero with its sign kept (as
+``utils/misc.stable_division``)::
+
+    u = (f - h) / gs;  q1 = q0 + dt/2 sum_i u_i^2;  y1 = y0 + dt f + g dW
+
+(``csrc/tower_euler_logqp_fwd.cu``, its sweep
+``csrc/tower_euler_logqp_bwd.cu``, which takes the reverse cumulative sum
+of the cotangents of ``q``).
+
 The noise is the one ``sdeint(..., generator=)`` draws
 (``core/integrate.py:sample_grid_noise``), so the fused and the ``sdeint``
 routes of one generator seed solve with the same increments. For reversible
@@ -44,10 +55,12 @@ and output widths and activation code): the TPU kernels' 128-lane padding
 and 0/1 tile matrices are not ported. A CPU tensor goes to the kernels'
 plain versions (:func:`euler_solve_forward_plain`,
 :func:`euler_solve_backward_plain`, :func:`rh_solve_forward_plain`,
-:func:`rh_solve_backward_plain`: the same math as loops of PyTorch
+:func:`rh_solve_backward_plain`, :func:`euler_logqp_solve_forward_plain`,
+:func:`euler_logqp_solve_backward_plain`: the same math as loops of PyTorch
 operators); a CUDA tensor goes to the kernels, which raise rather than fall
-back. ``euler_launches``, ``euler_bwd_launches``, ``rh_launches`` and
-``rh_bwd_launches`` count the kernels' launches.
+back. ``euler_launches``, ``euler_bwd_launches``, ``rh_launches``,
+``rh_bwd_launches``, ``logqp_launches`` and ``logqp_bwd_launches`` count
+the kernels' launches.
 """
 
 import ctypes
@@ -64,11 +77,13 @@ from ..core.sdeint import host_times
 from ..models.layers import softplus
 from ..utils.misc import check_kernel_tensor
 
-# Launches of the four kernels since import (or since a caller reset them).
+# Launches of the six kernels since import (or since a caller reset them).
 euler_launches = 0
 euler_bwd_launches = 0
 rh_launches = 0
 rh_bwd_launches = 0
+logqp_launches = 0
+logqp_bwd_launches = 0
 
 ACTS = ("softplus", "tanh", "sigmoid", "lipswish", "linear")
 # Every tower width: the kernels give each output unit of a layer one
@@ -77,7 +92,10 @@ ACTS = ("softplus", "tanh", "sigmoid", "lipswish", "linear")
 MAX_WIDTH = 128
 
 # Kernel kinds of the C interface's tsde_tower_smem_bytes.
-EULER_FWD, EULER_BWD, RH_FWD, RH_BWD = range(4)
+EULER_FWD, EULER_BWD, RH_FWD, RH_BWD, EULER_LOGQP_FWD, EULER_LOGQP_BWD = \
+    range(6)
+# stable_division's clamp of the diffusion in the KL integrand.
+EPS = 1e-7
 
 
 class TowerSpec:
@@ -141,15 +159,16 @@ class TowerSpec:
 
 class SolveSpec(NamedTuple):
     """What a whole solve's kernels need to know of its towers and noise:
-    each tower's ``((in, out, act), ...)``, the state width S, the noise
-    channels m (S for diagonal noise), and whether the towers see a time
-    column."""
+    each tower's ``((in, out, act), ...)`` (``prior`` empty but for the
+    logqp solve), the state width S, the noise channels m (S for diagonal
+    noise), and whether the towers see a time column."""
     drift: tuple
     diffusion: tuple
     S: int
     m: int
     diag: bool
     with_time: bool
+    prior: tuple = ()
 
     @property
     def gwidth(self):
@@ -158,9 +177,9 @@ class SolveSpec(NamedTuple):
         return self.S if self.diag else self.S * self.m
 
 
-def solve_spec(drift, diffusion, S, m, diag, with_time):
+def solve_spec(drift, diffusion, S, m, diag, with_time, prior=None):
     return SolveSpec(drift.shapes, diffusion.shapes, S, m, bool(diag),
-                     bool(with_time))
+                     bool(with_time), prior.shapes if prior else ())
 
 
 # --------------------------------------------------------------------------- #
@@ -394,15 +413,95 @@ def rh_solve_backward_plain(y0, f0, g0, noise, t1s, dts, fw, gw, spec, zs, gs,
 
 
 # --------------------------------------------------------------------------- #
-#  CUDA kernels 9-12                                                          #
+#  Plain versions of kernels 13 and 14 (Euler logqp)                          #
+# --------------------------------------------------------------------------- #
+
+def _clamped(g):
+    """stable_division's denominator and mask: ``g`` where ``|g| > EPS``,
+    else ``EPS`` with the sign of ``g`` (``sign(0) = +1``)."""
+    big = g.abs() > EPS
+    sign = torch.where(g >= 0, 1.0, -1.0).to(g.dtype)
+    return torch.where(big, g, EPS * sign), big
+
+
+def _logqp_towers(fw, hw, gw, spec):
+    return ((unpack(fw, spec.drift), _acts(spec.drift)),
+            (unpack(hw, spec.prior), _acts(spec.prior)),
+            (unpack(gw, spec.diffusion), _acts(spec.diffusion)))
+
+
+def euler_logqp_solve_forward_plain(y0, noise, t0s, dts, fw, hw, gw, spec):
+    """Kernel 13 as a loop of PyTorch operators (the JAX package's
+    ``_euler_logqp_fwd_kernel``): diagonal noise, the drift, prior and
+    diffusion towers on one input.
+
+    y0 (B,S); noise (N,B,S); t0s, dts (N,); fw, hw, gw the towers' packs.
+    Returns ys (N,B,S) and qs (N,B,1), the state and the KL channel after
+    each step."""
+    towers = _logqp_towers(fw, hw, gw, spec)
+    y, q = y0, y0.new_zeros((y0.shape[0], 1))
+    ys, qs = [], []
+    for n in range(noise.shape[0]):
+        x = tower_input(t0s[n], y, spec.with_time)
+        f, h, g = (tower_forward(x, w, acts)[0] for w, acts in towers)
+        u = (f - h) / _clamped(g)[0]
+        q = q + 0.5 * torch.sum(u * u, dim=1, keepdim=True) * dts[n]
+        y = y + f * dts[n] + g * noise[n]
+        ys.append(y)
+        qs.append(q)
+    return torch.stack(ys), torch.stack(qs)
+
+
+def euler_logqp_solve_backward_plain(y0, noise, t0s, dts, fw, hw, gw, spec,
+                                     ys, gy, ginc):
+    """Kernel 14 as a loop of PyTorch operators: the reverse sweep of the
+    JAX package's ``_euler_logqp_bwd_kernel``, which recomputes the three
+    towers at each step's pre-step state (y0 or ys[n-1]).
+
+    Takes the forward's inputs, its ys, the cotangent gy (N,B,S) of ys and
+    ginc (N,B,1), the reverse cumulative sum over steps of the cotangent of
+    qs. Returns dy0 (B,S), dnoise (N,B,S) and the packs' gradients dfw,
+    dhw, dgw. The clamp's mask stops the KL term's gradient to g where
+    ``|g| <= EPS``, never the state's ``dy dW``."""
+    towers = _logqp_towers(fw, hw, gw, spec)
+    wt = 1 if spec.with_time else 0
+    dy = torch.zeros_like(y0)
+    dnoise = torch.empty_like(noise)
+    dws = [[torch.zeros_like(t) for wb in w for t in wb] for w, _ in towers]
+    for n in reversed(range(noise.shape[0])):
+        dt = dts[n]
+        x = tower_input(t0s[n], y0 if n == 0 else ys[n - 1], spec.with_time)
+        (f, fcache), (h, hcache), (g, gcache) = (
+            tower_forward(x, w, acts) for w, acts in towers)
+        gs, big = _clamped(g)
+        u = (f - h) / gs
+        dy = dy + gy[n]
+        dnoise[n] = dy * g
+        du = ginc[n] * u * dt
+        douts = (dy * dt + du / gs, -du / gs,
+                 dy * noise[n] - (du * u / gs) * big.to(g.dtype))
+        dx = None
+        for (w, acts), cache, dout, acc in zip(towers, (fcache, hcache,
+                                                        gcache), douts, dws):
+            dxt, grads = tower_backward(dout, cache, x, w, acts)
+            for a, d in zip(acc, grads):
+                a += d
+            dx = dxt if dx is None else dx + dxt
+        dy = dy + dx[:, wt:]
+    return (dy, dnoise, *(_cat_grads(d) for d in dws))
+
+
+# --------------------------------------------------------------------------- #
+#  CUDA kernels 9-14                                                          #
 # --------------------------------------------------------------------------- #
 
 @functools.lru_cache(maxsize=64)
 def layer_table(spec):
     """The kernels' layer table: ``(in, out, activation code)`` of every
-    drift layer, then every diffusion layer, as a host int32 array."""
-    rows = [(n_in, n_out, ACTS.index(act))
-            for n_in, n_out, act in spec.drift + spec.diffusion]
+    drift layer, then every diffusion layer, then every prior layer, as a
+    host int32 array."""
+    rows = [(n_in, n_out, ACTS.index(act)) for n_in, n_out, act
+            in spec.drift + spec.diffusion + spec.prior]
     return np.ascontiguousarray(np.asarray(rows, np.int32).reshape(-1))
 
 
@@ -421,8 +520,13 @@ def check_spec(spec):
     state's and the diffusion's widths, every width in [1, 128]. Raises
     ValueError beyond it."""
     wt = 1 if spec.with_time else 0
-    for name, shapes, out in (("drift", spec.drift, spec.S),
-                              ("diffusion", spec.diffusion, spec.gwidth)):
+    towers = [("drift", spec.drift, spec.S),
+              ("diffusion", spec.diffusion, spec.gwidth)]
+    if spec.prior:
+        if not spec.diag:
+            raise ValueError("the logqp kernels take diagonal noise only")
+        towers.append(("prior", spec.prior, spec.S))
+    for name, shapes, out in towers:
         if not shapes:
             raise ValueError(f"the {name} tower has no layers")
         if shapes[0][0] != spec.S + wt or shapes[-1][1] != out:
@@ -458,29 +562,68 @@ def _check_common(spec, y0, noise, times, dts, fw, gw):
 
 
 def _dims(spec):
-    return (len(spec.drift), len(spec.diffusion), spec.S, spec.m,
-            int(spec.diag), int(spec.with_time))
+    return (len(spec.drift), len(spec.diffusion), len(spec.prior), spec.S,
+            spec.m, int(spec.diag), int(spec.with_time))
 
 
-def staged_towers(lib, kind, spec):
-    """The towers a kernel of ``kind`` keeps in shared memory: both (3),
-    the drift (1), the diffusion (2) or none (0), the first that fits a
-    block. The others it reads from device memory through the caches."""
+# The towers a kernel may stage in shared memory, as bitmasks (bit 0 the
+# drift, 1 the diffusion, 2 the prior), in order of preference: all, then
+# the drift before the prior before the diffusion.
+STAGE_ORDER = {2: (3, 1, 2, 0), 3: (7, 5, 3, 6, 1, 4, 2, 0)}
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def staged_towers(lib, kind, spec, B, device):
+    """The towers a kernel of ``kind`` keeps in shared memory (the others
+    it reads from device memory through the caches). When the solve's
+    blocks outnumber the card's SMs, a forward kernel stages none: its
+    threads read each weight column by column, side by side, which the
+    caches serve well, and small blocks let more of them share an SM. A
+    sweep also reads each weight row by row (the input cotangents), strided
+    across its threads, which shared memory serves better: it stages the
+    first set of :data:`STAGE_ORDER` that leaves room for two blocks an SM,
+    if any does. A solve of one wave of blocks stages the first set that
+    fits. Measured on an NVIDIA H100 80GB HBM3 (700 W, ``chip_smoke.py``)
+    at batch 4096, d 32, hidden 128 (512 blocks): kernel 9 took 2.29 ms
+    with both towers staged and 1.48 ms with none, kernel 10 10.9 and
+    12.5-13.0 ms; kernel 13 about 5.1 ms with all three staged, 3.35-3.38
+    with drift and prior and 3.19-3.23 with none; kernel 14 about 18.0,
+    16.6-16.7 and 19.8 ms."""
     table = _host_table(spec)
-    return next(s for s in (3, 1, 2, 0) if lib.tsde_tower_smem_bytes(
-        kind, table, *_dims(spec), s) <= _build.MAX_SMEM_BYTES)
+    smem = {s: lib.tsde_tower_smem_bytes(kind, table, *_dims(spec), s)
+            for s in STAGE_ORDER[3 if spec.prior else 2]}
+    fits = [s for s, n in smem.items() if n <= _build.MAX_SMEM_BYTES]
+    if lib.tsde_tower_blocks(B) > _sm_count(device):
+        if kind in (EULER_FWD, RH_FWD, EULER_LOGQP_FWD):
+            return 0
+        two = [s for s in fits
+               if 2 * (smem[s] + _build.BLOCK_SMEM_RESERVED)
+               <= _build.SM_SMEM_BYTES]
+        if two:
+            return two[0]
+    return fits[0]
 
 
-def _library(kind, spec, device):
+def _library(kind, spec, B, device, stage=None):
     """The kernels' library once the solve's activations fit a block's
     shared memory with no tower staged there, and the launch's table
     arguments: the host and device layer tables, the dims and the towers to
-    stage."""
+    stage (``stage``, a bitmask of :data:`STAGE_ORDER`, or by the rule of
+    :func:`staged_towers`)."""
     table = _host_table(spec)
     lib = _build.library_for("tsde_tower_smem_bytes", kind, table,
                              *_dims(spec), 0)
+    if stage is None:
+        stage = staged_towers(lib, kind, spec, B, device)
+    elif lib.tsde_tower_smem_bytes(kind, table, *_dims(spec),
+                                   stage) > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"staging towers {stage} does not fit a block")
     return lib, (table, _device_table(spec, device).data_ptr(),
-                 *_dims(spec), staged_towers(lib, kind, spec))
+                 *_dims(spec), stage)
 
 
 def _require_cuda(t):
@@ -500,7 +643,7 @@ def euler_solve_forward_cuda(y0, noise, t0s, dts, fw, gw, spec):
     global euler_launches
     _require_cuda(y0)
     B, N = _check_common(spec, y0, noise, t0s, dts, fw, gw)
-    lib, table_dims = _library(EULER_FWD, spec, y0.device)
+    lib, table_dims = _library(EULER_FWD, spec, B, y0.device)
     ys = torch.empty((N, B, spec.S), dtype=torch.float32, device=y0.device)
     ptrs = [t.data_ptr() for t in (fw, gw, y0, noise, t0s, dts, ys)]
     rc = lib.tsde_tower_euler_fwd(*table_dims[:2], *ptrs, *table_dims[2:],
@@ -513,9 +656,10 @@ def euler_solve_forward_cuda(y0, noise, t0s, dts, fw, gw, spec):
 
 def _partials(lib, B, spec, device):
     """The backward kernels' weight-gradient buffers: one float32 partial
-    of both packs per block of the sweep, and the flat output
-    ``[dfw | dgw]`` the second kernel sums them into."""
-    P = pack_size(spec.drift) + pack_size(spec.diffusion)
+    of all packs per block of the sweep, and the flat output
+    ``[dfw | dgw | dhw]`` the second kernel sums them into."""
+    P = (pack_size(spec.drift) + pack_size(spec.diffusion)
+         + pack_size(spec.prior))
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty((lib.tsde_tower_blocks(B), P), **f32),
             torch.empty(P, **f32))
@@ -531,7 +675,7 @@ def euler_solve_backward_cuda(y0, noise, t0s, dts, fw, gw, spec, ys, gy):
     for name, t in (("ys", ys), ("gy", gy)):
         check_kernel_tensor(name, t, (N, B, spec.S), torch.float32,
                             y0.device)
-    lib, table_dims = _library(EULER_BWD, spec, y0.device)
+    lib, table_dims = _library(EULER_BWD, spec, B, y0.device)
     dy0, dnoise = torch.empty_like(y0), torch.empty_like(noise)
     partials, dw = _partials(lib, B, spec, y0.device)
     ptrs = [t.data_ptr() for t in (fw, gw, y0, noise, t0s, dts, ys, gy, dy0,
@@ -559,7 +703,7 @@ def rh_solve_forward_cuda(y0, f0, g0, noise, t1s, dts, fw, gw, spec):
     global rh_launches
     _require_cuda(y0)
     B, N = _check_rh(spec, y0, f0, g0, noise, t1s, dts, fw, gw)
-    lib, table_dims = _library(RH_FWD, spec, y0.device)
+    lib, table_dims = _library(RH_FWD, spec, B, y0.device)
     f32 = dict(dtype=torch.float32, device=y0.device)
     ys = torch.empty((N, B, spec.S), **f32)
     zs = torch.empty((N, B, spec.S), **f32)
@@ -584,7 +728,7 @@ def rh_solve_backward_cuda(y0, f0, g0, noise, t1s, dts, fw, gw, spec, zs, gs,
     for name, t, width in (("zs", zs, spec.S), ("gs", gs, spec.gwidth),
                            ("gy", gy, spec.S)):
         check_kernel_tensor(name, t, (N, B, width), torch.float32, y0.device)
-    lib, table_dims = _library(RH_BWD, spec, y0.device)
+    lib, table_dims = _library(RH_BWD, spec, B, y0.device)
     dy0, df0, dg0 = (torch.empty_like(t) for t in (y0, f0, g0))
     dnoise = torch.empty_like(noise)
     partials, dw = _partials(lib, B, spec, y0.device)
@@ -596,6 +740,67 @@ def rh_solve_backward_cuda(y0, f0, g0, noise, t1s, dts, fw, gw, spec, zs, gs,
     rh_bwd_launches += 1
     dfw, dgw = dw.split([fw.numel(), gw.numel()])
     return dy0, df0, dg0, dnoise, dfw, dgw
+
+
+def _check_logqp(spec, y0, noise, t0s, dts, fw, hw, gw):
+    if not spec.prior:
+        raise ValueError("the logqp kernels need a prior tower in the spec")
+    B, N = _check_common(spec, y0, noise, t0s, dts, fw, gw)
+    check_kernel_tensor("hw", hw, (pack_size(spec.prior),), torch.float32,
+                        y0.device)
+    return B, N
+
+
+def euler_logqp_solve_forward_cuda(y0, noise, t0s, dts, fw, hw, gw, spec,
+                                   stage=None):
+    """Launch kernel 13 on the current stream; returns what
+    :func:`euler_logqp_solve_forward_plain` returns. ``stage`` overrides
+    the towers staged in shared memory (a bitmask of :data:`STAGE_ORDER`).
+    Raises on tensors it does not take, on a failed build and on a refused
+    launch."""
+    global logqp_launches
+    _require_cuda(y0)
+    B, N = _check_logqp(spec, y0, noise, t0s, dts, fw, hw, gw)
+    lib, table_dims = _library(EULER_LOGQP_FWD, spec, B, y0.device,
+                              stage)
+    f32 = dict(dtype=torch.float32, device=y0.device)
+    ys = torch.empty((N, B, spec.S), **f32)
+    qs = torch.empty((N, B, 1), **f32)
+    ptrs = [t.data_ptr() for t in (fw, gw, hw, y0, noise, t0s, dts, ys, qs)]
+    rc = lib.tsde_tower_euler_logqp_fwd(*table_dims[:2], *ptrs,
+                                        *table_dims[2:], B, N,
+                                        y0.device.index or 0,
+                                        _stream(y0.device))
+    _build.check_launch(lib, rc, "tower_euler_logqp_fwd")
+    logqp_launches += 1
+    return ys, qs
+
+
+def euler_logqp_solve_backward_cuda(y0, noise, t0s, dts, fw, hw, gw, spec,
+                                    ys, gy, ginc, stage=None):
+    """Launch kernel 14 (the reverse sweep, then the sum of its per-block
+    weight-gradient partials) on the current stream; returns what
+    :func:`euler_logqp_solve_backward_plain` returns."""
+    global logqp_bwd_launches
+    _require_cuda(y0)
+    B, N = _check_logqp(spec, y0, noise, t0s, dts, fw, hw, gw)
+    for name, t, width in (("ys", ys, spec.S), ("gy", gy, spec.S),
+                           ("ginc", ginc, 1)):
+        check_kernel_tensor(name, t, (N, B, width), torch.float32, y0.device)
+    lib, table_dims = _library(EULER_LOGQP_BWD, spec, B, y0.device,
+                              stage)
+    dy0, dnoise = torch.empty_like(y0), torch.empty_like(noise)
+    partials, dw = _partials(lib, B, spec, y0.device)
+    ptrs = [t.data_ptr() for t in (fw, gw, hw, y0, noise, t0s, dts, ys, gy,
+                                   ginc, dy0, dnoise, partials, dw)]
+    rc = lib.tsde_tower_euler_logqp_bwd(*table_dims[:2], *ptrs,
+                                        *table_dims[2:], B, N,
+                                        y0.device.index or 0,
+                                        _stream(y0.device))
+    _build.check_launch(lib, rc, "tower_euler_logqp_bwd")
+    logqp_bwd_launches += 1
+    dfw, dgw, dhw = dw.split([fw.numel(), gw.numel(), hw.numel()])
+    return dy0, dnoise, dfw, dhw, dgw
 
 
 def _route(device, plain, cuda):
@@ -669,6 +874,39 @@ class FusedRHSolve(torch.autograd.Function):
         return None, dfw, dgw, dy0, df0, dg0, dnoise, None, None
 
 
+class FusedEulerLogqpSolve(torch.autograd.Function):
+    """The Euler logqp whole solve as one differentiable operation (the
+    counterpart of the JAX package's ``_make_euler_logqp`` custom VJP):
+    kernels 13 and 14 on CUDA tensors, their plain versions on CPU tensors.
+    Returns ys (N,B,S) and qs (N,B,1). The backward turns the cotangent of
+    qs into its reverse cumulative sum over steps before the sweep.
+    Gradients flow to the packs fw, hw, gw, to y0 and to the noise; t0s and
+    dts get none."""
+
+    @staticmethod
+    def forward(fctx, spec, fw, hw, gw, y0, noise, t0s, dts):
+        solve = _route(y0.device, euler_logqp_solve_forward_plain,
+                       euler_logqp_solve_forward_cuda)
+        ys, qs = solve(y0, noise, t0s, dts, fw, hw, gw, spec)
+        fctx.spec = spec
+        fctx.save_for_backward(fw, hw, gw, y0, noise, t0s, dts, ys)
+        return ys, qs
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(fctx, gy, gq):
+        fw, hw, gw, y0, noise, t0s, dts, ys = fctx.saved_tensors
+        ginc = gq.flip(0).cumsum(0).flip(0).contiguous()
+        sweep = _route(y0.device, euler_logqp_solve_backward_plain,
+                       euler_logqp_solve_backward_cuda)
+        dy0, dnoise, dfw, dhw, dgw = sweep(y0, noise, t0s, dts, fw, hw, gw,
+                                           fctx.spec, ys, gy.contiguous(),
+                                           ginc)
+        if not fctx.needs_input_grad[5]:
+            dnoise = None
+        return None, dfw, dhw, dgw, dy0, dnoise, None, None
+
+
 # --------------------------------------------------------------------------- #
 #  Public API                                                                 #
 # --------------------------------------------------------------------------- #
@@ -699,15 +937,10 @@ def _check_tower_io(spec, name, S, with_time, out_size=None):
 
 def tower_sde(drift, diffusion, noise_type, sde_type, with_time=False,
               prior=None):
-    """An SDE module whose ``f`` and ``g`` evaluate exactly the given
-    TowerSpecs: the ``sdeint`` view of a fused solve, for cross-checking
-    :func:`fused_sdeint` against ``sdeint`` on identical dynamics. The
-    prior-drift tower belongs to the logqp solve, which is not ported
-    yet."""
-    if prior is not None:
-        raise NotImplementedError(
-            "tower_sde(prior=...) belongs to fused_sdeint_logqp, which is "
-            "not ported to torchsde_tpu_torch yet")
+    """An SDE module whose ``f`` and ``g`` (and, given a ``prior`` tower,
+    ``h``) evaluate exactly the given TowerSpecs: the ``sdeint`` view of a
+    fused solve, for cross-checking :func:`fused_sdeint` and
+    :func:`fused_sdeint_logqp` against ``sdeint`` on identical dynamics."""
     base = {"ito": base_sde.SDEIto,
             "stratonovich": base_sde.SDEStratonovich}[sde_type]
 
@@ -716,6 +949,8 @@ def tower_sde(drift, diffusion, noise_type, sde_type, with_time=False,
             super().__init__(noise_type=noise_type)
             self.fl = [(w, b) for (w, b, _) in drift.layers]
             self.gl = [(w, b) for (w, b, _) in diffusion.layers]
+            if prior is not None:
+                self.hl = [(w, b) for (w, b, _) in prior.layers]
 
         def _x(self, t, y):
             return tower_input(t, y, with_time)
@@ -729,6 +964,10 @@ def tower_sde(drift, diffusion, noise_type, sde_type, with_time=False,
                 return out
             d = y.shape[1]
             return out.reshape(y.shape[0], d, out.shape[1] // d)
+
+        if prior is not None:
+            def h(self, t, y):
+                return tower_forward(self._x(t, y), self.hl, prior.acts)[0]
 
     return _TowerSDE()
 
@@ -744,8 +983,12 @@ def _auto_fuse(dtype):
     the same shape 5.5 against 122 ms; Euler batch 4096, d 32, hidden 128
     15.6 against 94 ms; reversible Heun batch 1024, d 128, hidden 128 25.3
     against 125 ms; Euler batch 4, d 3, hidden 8, 2 steps 2.7 against
-    4.2 ms. (The JAX package's rule, a threshold on 128-lane padding waste,
-    has no counterpart: the port's kernels are unpadded.)"""
+    4.2 ms. The same held for :func:`fused_sdeint_logqp` (the gradient of
+    sum(ys**2) + sum(log_ratio) to y0): batch 1024, d 8, hidden 64, 128
+    steps 4.5 against 157 ms; batch 4096, d 32, hidden 128 22.6 against
+    171 ms; batch 4, d 3, hidden 8, 2 steps 1.8 against 5.9 ms. (The JAX
+    package's rule, a threshold on 128-lane padding waste, has no
+    counterpart: the port's kernels are unpadded.)"""
     return dtype == torch.float32
 
 
@@ -854,3 +1097,77 @@ def solve_on_grid(method, drift, diffusion, y0, W, grid, spec):
                                 g0.contiguous(), W.contiguous(),
                                 grid_dev[1:], dts)[0]
     return torch.cat([y0[None], ys], dim=0)
+
+
+def logqp_solve_on_grid(drift, prior, diffusion, y0, W, grid, spec):
+    """The fused solve of :func:`fused_sdeint_logqp` on its step grid, in
+    any dtype (the kernels take float32 only): the states and the KL
+    channel at every point of ``grid`` (float64 host times), (len(grid), B,
+    S) and (len(grid), B, 1) with ``y0`` and ``q = 0`` first, from the
+    noise W (N,B,S), through :class:`FusedEulerLogqpSolve`. Each step takes
+    its start time, and dts is the grid's subtraction in the towers' dtype,
+    as the ``sdeint`` route's steps use them."""
+    grid_dev = torch.as_tensor(grid, dtype=y0.dtype, device=y0.device)
+    dts = grid_dev[1:] - grid_dev[:-1]
+    y0 = y0.contiguous()
+    ys, qs = FusedEulerLogqpSolve.apply(spec, drift.pack(), prior.pack(),
+                                        diffusion.pack(), y0, W.contiguous(),
+                                        grid_dev[:-1], dts)
+    q0 = y0.new_zeros((1, y0.shape[0], 1))
+    return torch.cat([y0[None], ys], dim=0), torch.cat([q0, qs], dim=0)
+
+
+def fused_sdeint_logqp(drift, prior, diffusion, y0, ts, generator, dt,
+                       with_time=False, dispatch="auto"):
+    """Whole-solve fused Euler logqp solve for MLP-tower SDEs: the generic
+    form of the latent SDE's solve (``u = stable_division(f - h, g)``, KL
+    integrand ``0.5 |u|^2``). Diagonal noise only; the drift, prior and
+    diffusion towers all read the same ``[t? | y]`` row and output d.
+
+    Returns ``(ys, log_ratio)`` as ``sdeint(tower_sde(drift, diffusion,
+    'diagonal', 'ito', with_time=with_time, prior=prior), y0, ts,
+    method='euler', dt=dt, logqp=True, generator=generator)`` does: ``ys``
+    (T, B, d) on ``ts`` and ``log_ratio`` (T-1, B), the KL increment of
+    each output interval. The noise is that call's draw: the KL channel
+    makes its state (B, d+1), so the noise of size (B, d+1) is drawn from
+    ``generator`` and its last channel left unused, as the ``sdeint``
+    route's zero diffusion row leaves it. The contract (the towers' widths,
+    the dtype, the step grid landing on ``ts``) is checked before dispatch,
+    on every path, as in :func:`fused_sdeint`.
+
+    ``dispatch``: ``'auto'`` (default) runs the kernels for float32 towers
+    (:func:`_auto_fuse`) and the ``sdeint`` route for other dtypes;
+    ``'fused'`` / ``'xla'`` force a path. On CUDA tensors the fused path
+    runs kernels 13 and 14 or raises; on CPU tensors their plain versions.
+    """
+    if dispatch not in ("auto", "fused", "xla"):
+        raise ValueError("dispatch must be 'auto', 'fused' or 'xla'")
+    wdtype = drift.layers[0][0].dtype
+    wdevice = drift.layers[0][0].device
+    y0 = torch.as_tensor(y0).to(device=wdevice, dtype=wdtype)
+    B, S = y0.shape
+    for spec, name in ((drift, "drift"), (prior, "prior"),
+                       (diffusion, "diffusion")):
+        _check_tower_io(spec, name, S, with_time, out_size=S)
+    ts_np = host_times(ts)
+    grid = integrate.build_step_grid(ts_np[0], ts_np[-1], dt)
+    idx = _grid_indices(grid, ts_np, "fused_sdeint_logqp")
+
+    if dispatch == "fused" and wdtype != torch.float32:
+        raise ValueError(
+            f"fused_sdeint_logqp kernels are float32-only (towers are "
+            f"{wdtype}); use dispatch='xla'/'auto' or float32 towers")
+    if dispatch == "xla" or (dispatch == "auto" and not _auto_fuse(wdtype)):
+        from ..core.sdeint import sdeint
+        sde = tower_sde(drift, diffusion, "diagonal", "ito",
+                        with_time=with_time, prior=prior)
+        return sdeint(sde, y0, ts_np, method="euler", dt=dt,
+                      generator=generator, logqp=True)
+
+    W = integrate.sample_grid_noise(generator, grid, (B, S + 1), wdtype,
+                                    wdevice)[0][..., :S]
+    spec = solve_spec(drift, diffusion, S, S, True, with_time, prior=prior)
+    ys, qs = logqp_solve_on_grid(drift, prior, diffusion, y0, W, grid, spec)
+    at = torch.as_tensor(idx, device=wdevice)
+    qs = qs[at, :, 0]
+    return ys[at], qs[1:] - qs[:-1]

@@ -92,12 +92,38 @@ Phases, in order; any failure raises and the script exits non-zero:
     mean(ys**2) + mean(sum(log_ratio, 0)) per route in turns, each fused
     step launching kernels 13 and 14 once; a profiled step of each route;
 20. auto dispatch of ``fused_sdeint_logqp``: its grad path on both routes
-    at the narrow shapes of phase 17, at L1 and on a tiny solve.
+    at the narrow shapes of phase 17, at L1 and on a tiny solve;
+21. kernels 3 and 4 vs plain: the K-replica forward and reverse sweep at
+    the flagship with K = 4 on seeded inputs and cotangents, against their
+    plain versions and float64 runs, each replica bitwise equal to kernels
+    1 and 2 on its own inputs, two sweeps bitwise equal; median times at
+    K = 1, 2, 4, 8 beside K launches of kernels 1 and 2, and the bounds;
+22. replicas: ``latent_sde_loss_multi(fused=True)`` at K = 4 under
+    ``torch.no_grad()``, each replica's loss against the single fused loss
+    on a clone of its generator and each call launching kernel 3 once; the
+    step-0 gradients of both routes against a float64 run; three Adam steps
+    (lr 1e-2) on the stacked state, each launching kernels 3 and 4 once, in
+    turns with the multi ``sdeint`` route and K single fused models; median
+    step times and a profile of each;
+23. kernel 15 at the four configurations of the JAX package's
+    benchmarks/srk_fused.py (batch 1024 or 16384, d 8 or 128, 128 steps of
+    ExDiagonal): against its plain version and a float64 run, its strong
+    error against the exact solution on the same W, once against
+    ``sdeint(method="srk")``, median times and the bytes bound; one solve
+    at full width counted as the path;
+24. kernel 16: against its plain version at (128, 1024, 9) and (128, 16384,
+    128), the moments and a KS test of 2^20 draws, determinism, median
+    times beside ``torch.randn``'s (another stream), and one
+    ``sdeint(method="srk", rng_impl="philox")`` solve at full width, which
+    launches it twice.
 
 The line before the last is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+``{"ok": true, "device": {...}}``. ``--only`` runs some phase groups (for
+development; no ok line). It imports nothing of JAX.
 """
 
+import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -112,10 +138,17 @@ from torchsde_tpu_torch.models.sde_gan import (Discriminator, Generator,
                                                gan_grads, gan_loss,
                                                get_ou_data)
 from torchsde_tpu_torch.core import integrate as TI
+from torchsde_tpu_torch.core.sdeint import sdeint
+from torchsde_tpu_torch.brownian.base import BaseBrownian
+from torchsde_tpu_torch.models import latent_sde as TL
+from torchsde_tpu_torch.models.latent_sde import latent_sde_loss_multi
 from torchsde_tpu_torch.ops import _build
 from torchsde_tpu_torch.ops import fused_solve as FS
 from torchsde_tpu_torch.ops import gan_fused as GF
 from torchsde_tpu_torch.ops import latent_fused as LF
+from torchsde_tpu_torch.ops import prng as PR
+from torchsde_tpu_torch.ops import srk_fused as SF
+from torchsde_tpu_torch.parallel import replicas as RP
 
 # Flagship configuration (bench.py:26-34 of the JAX package).
 BATCH, DATA, LATENT, CONTEXT, HIDDEN = 1024, 3, 4, 64, 128
@@ -229,6 +262,45 @@ LOGQP_SIGNED_RTOL = (3e-3, 5e-3)
 # times (bit 0 the drift, 1 the diffusion, 2 the prior; fused_solve.
 # STAGE_ORDER): all three, drift and prior, none at L1; one or none at L2.
 LOGQP_STAGINGS = {"L1": (7, 5, 0), "L2": (1, 0)}
+# K stacked flagship replicas (kernels 3 and 4, latent_sde_loss_multi): K 4
+# for the checks, the serve and the training steps; the kernels timed at
+# each K of MULTI_KS beside K launches of kernels 1 and 2.
+MULTI_K, MULTI_KS = 4, (1, 2, 4, 8)
+# A replica of latent_sde_loss_multi(fused=True) against latent_sde_loss(
+# fused=True) on a clone of its generator: the kernels are bitwise the same
+# on the same inputs, but the multi route runs the encoder, qz0_net and the
+# loss tail under vmap (batched products), which round in another order.
+MULTI_LOSS_RTOL = 1e-5
+# Step-0 gradients of latent_sde_loss_multi's two routes against a float64
+# run on the same draws, per replica and parameter, atol this times the
+# gradient's largest entry. The fused route runs encoder_proj under vmap,
+# whose weight gradient is one batched float32 product summing T x B =
+# 32,768 rows that largely cancel; it came 4.8e-5 of scale from float64
+# where the replica-by-replica route's unbatched product came 6.4e-7
+# (NVIDIA H100 80GB HBM3, 700 W; forward losses agree to 1e-7, so no TF32).
+MULTI_GRAD_REL = 1e-4
+# The srid2 solve (kernel 15) at the four configurations of the JAX
+# package's benchmarks/srk_fused.py:85-86: (batch, d), 128 steps on [0, 1],
+# ExDiagonal (f = mu y, g = sigma y; tests/problems.py:45-79) with mu and
+# sigma from a numpy seed as its make_problem draws them, y0 = 0.1.
+SRK_CONFIGS = ((1024, 8), (16384, 8), (1024, 128), (16384, 128))
+SRK_STEPS = 128
+# Kernel 15 vs its plain version: max abs error at most SRK_REL times the
+# plain version's largest entry (the two round the same float32 stage
+# arithmetic in another order, and nvcc contracts products into FMAs), and
+# its distance from a float64 run at most twice the plain version's, plus
+# one float32 ulp of the scale.
+SRK_REL = 2e-5
+# Operations of one element and step of the kernel, counted from
+# srk_srid2.cuh with f = p0 * y and g = p1 * y (each multiply and add one).
+SRID2_FLOPS = 114
+# Kernel 16 against its plain version, every element (both float32 Box-
+# Muller on the same bits; logf and cosf differ from PyTorch's CPU and CUDA
+# versions by an ulp or two, times r <= 5.9); the shapes (steps, batch, d)
+# of the SRK configurations' narrow and widest noise.
+PRNG_ATOL = 2e-6
+PRNG_SHAPES = ((128, 1024, 9), (128, 16384, 128))
+PRNG_LAW_DRAWS = 2 ** 20
 # Published H100 SXM peaks (NVIDIA H100 datasheet): float32 outside the
 # tensor cores, and device memory.
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
@@ -315,10 +387,10 @@ def flagship_model(device):
                      generator=gen)
 
 
-def kernel_inputs(device, model):
+def kernel_inputs(device, model, seed=SEED + 1):
     """Seeded solve inputs at the flagship shapes, as the main path makes
     them: z0, ctx, ctx_idx, noise, dts."""
-    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    gen = torch.Generator(device=device).manual_seed(seed)
     ts = np.linspace(0.0, 1.0, N_TS)
     ctx = torch.randn((N_TS, BATCH, CONTEXT), generator=gen, device=device)
     view = model.contextualize(ts, ctx)
@@ -613,6 +685,8 @@ def profile_run(label, fn):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     for name, (n, us) in top:
         print(f"  {us / 1e3:9.3f} ms {n:6d}x {name[:90]}", flush=True)
+    return dict(wall_ms=wall_ms, device_ms=device_ms, kernels=kernels,
+                busy=device_ms / wall_ms)
 
 
 def phase_profile(device, served, trained, xs, ts):
@@ -1686,69 +1760,677 @@ def phase_auto_dispatch(device, shapes):
     return rows
 
 
+# --------------------------------------------------------------------------- #
+#  K stacked latent replicas: kernels 3 and 4, latent_sde_loss_multi          #
+# --------------------------------------------------------------------------- #
+
+def replica_models(device, K, seed):
+    """K flagship LatentSDEs from the generator seeds seed .. seed + K - 1."""
+    return [LatentSDE(DATA, LATENT, CONTEXT, HIDDEN, device=device,
+                      generator=torch.Generator().manual_seed(seed + k))
+            for k in range(K)]
+
+
+def multi_kernel_inputs(device, K):
+    """Seeded inputs of kernels 3 and 4 at the flagship shapes, as the main
+    path makes them for K replicas: z0 (K,B,L), ctx (K,T,B,C), the shared
+    ctx_idx and dts, noise (K,n,B,L), each weight stacked (K, ...)."""
+    models = replica_models(device, K, SEED + 100)
+    per = [kernel_inputs(device, m, SEED + 110 + k)
+           for k, m in enumerate(models)]
+    _, _, ctx_idx, _, dts = per[0]
+    stacked = [torch.stack([p[i] for p in per]).contiguous() for i in (0, 1, 3)]
+    with torch.no_grad():
+        weights = [torch.stack(ws).contiguous() for ws in
+                   zip(*(LF.solve_weights(m) for m in models))]
+    return (stacked[0], stacked[1], ctx_idx, stacked[2], dts), weights
+
+
+def replica(args, weights, k):
+    """Replica k's inputs of kernels 1 and 2."""
+    z0, ctx, ctx_idx, noise, dts = args
+    return (z0[k], ctx[k], ctx_idx, noise[k], dts), [w[k] for w in weights]
+
+
+def phase_multi_kernels(device):
+    """Kernels 3 and 4 against their plain versions (and float64 runs) at
+    the flagship with K = MULTI_K on seeded inputs and cotangents; each
+    replica bitwise equal to kernels 1 and 2 on its own inputs; two sweeps
+    bitwise equal; the times at each K of MULTI_KS beside K launches of
+    kernels 1 and 2."""
+    K = MULTI_K
+    args, weights = multi_kernel_inputs(device, K)
+    n = args[3].shape[1]
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    gz = torch.randn((K, n, BATCH, LATENT), generator=gen, device=device)
+    gq = torch.randn((K, n, BATCH, 1), generator=gen, device=device)
+    with torch.no_grad():
+        got = LF.fused_solve_multi_forward_cuda(*args, weights)
+        want = LF.fused_solve_multi_forward_plain(*args, weights)
+        exact = LF.fused_solve_multi_forward_plain(
+            *in_double(args), [w.double() for w in weights])
+        torch.cuda.synchronize()
+        err3 = check_against_plain("kernel 3", ("zs", "qs"), got, want,
+                                   exact, KERNEL_ATOL, 0.0)
+        bargs = (*args, weights, got[0], gz, gq)
+        got_b = LF.fused_solve_multi_backward_cuda(*bargs)
+        want_b = LF.fused_solve_multi_backward_plain(*bargs)
+        exact_b = LF.fused_solve_multi_backward_plain(
+            *in_double(args), [w.double() for w in weights],
+            got[0].double(), gz.double(), gq.double())
+        torch.cuda.synchronize()
+        err4 = check_against_plain("kernel 4", GRAD_NAMES, _flat(got_b),
+                                   _flat(want_b), _flat(exact_b), BWD_ATOL,
+                                   BWD_REL)
+        for k in range(K):
+            a_k, w_k = replica(args, weights, k)
+            one = LF.fused_solve_forward_cuda(*a_k, w_k)
+            one_b = LF.fused_solve_backward_cuda(*a_k, w_k, got[0][k], gz[k],
+                                                 gq[k])
+            torch.cuda.synchronize()
+            same = (all(torch.equal(a[k], b) for a, b in zip(got, one))
+                    and all(torch.equal(a[k], b) for a, b in
+                            zip(_flat(got_b), _flat(one_b))))
+            if not same:
+                raise RuntimeError(f"replica {k} of kernels 3 and 4 differs "
+                                   f"from kernels 1 and 2 on its inputs")
+        print(f"kernels 3 and 4: each of the {K} replicas bitwise equal to "
+              f"kernels 1 and 2 on its own inputs", flush=True)
+        again = LF.fused_solve_multi_backward_cuda(*bargs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in
+                   zip(_flat(got_b), _flat(again))):
+            raise RuntimeError("kernel 4 is not bitwise repeatable")
+        print("kernel 4: two sweeps agree bitwise", flush=True)
+        plain_f = median_cuda_ms(
+            lambda: LF.fused_solve_multi_forward_plain(*args, weights), 3,
+            warmup=1)
+        plain_b = median_cuda_ms(
+            lambda: LF.fused_solve_multi_backward_plain(*bargs), 3, warmup=1)
+        by_k = {}
+        for Kt in MULTI_KS:
+            a_t, w_t = multi_kernel_inputs(device, Kt)
+            zs_t = LF.fused_solve_multi_forward_cuda(*a_t, w_t)[0]
+            g_t = (gz[:1].expand(Kt, -1, -1, -1).contiguous(),
+                   gq[:1].expand(Kt, -1, -1, -1).contiguous())
+            b_t = (*a_t, w_t, zs_t, *g_t)
+            singles = [replica(a_t, w_t, k) for k in range(Kt)]
+
+            def k_singles():
+                for a_k, w_k in singles:
+                    LF.fused_solve_forward_cuda(*a_k, w_k)
+
+            def k_singles_b():
+                for k, (a_k, w_k) in enumerate(singles):
+                    LF.fused_solve_backward_cuda(*a_k, w_k, zs_t[k], g_t[0][k],
+                                                 g_t[1][k])
+
+            flops = Kt * solve_flops(BATCH, LATENT, CONTEXT, HIDDEN, n)
+            bound_f = bound(flops, [*a_t, *w_t, zs_t, zs_t[..., :1]])
+            bound_b = bound(3 * flops, [*b_t[:5], *w_t, *b_t[6:], *a_t[:2],
+                                        a_t[3], *w_t])
+            by_k[Kt] = dict(
+                fwd_ms=median_cuda_ms(
+                    lambda: LF.fused_solve_multi_forward_cuda(*a_t, w_t), 10),
+                fwd_singles_ms=median_cuda_ms(k_singles, 10),
+                bwd_ms=median_cuda_ms(
+                    lambda: LF.fused_solve_multi_backward_cuda(*b_t), 5),
+                bwd_singles_ms=median_cuda_ms(k_singles_b, 5),
+                fwd_bound_ms=bound_f[0], bwd_bound_ms=bound_b[0],
+                fwd_bound_by=bound_f[1], bwd_bound_by=bound_b[1])
+            r = by_k[Kt]
+            print(f"K={Kt}: kernel 3 {r['fwd_ms']:.4f} ms vs {Kt} launches "
+                  f"of kernel 1 {r['fwd_singles_ms']:.4f} ms (bound "
+                  f"{r['fwd_bound_ms']:.4f}, {r['fwd_bound_by']}); kernel 4 "
+                  f"{r['bwd_ms']:.4f} ms vs {Kt} launches of kernel 2 "
+                  f"{r['bwd_singles_ms']:.4f} ms (bound "
+                  f"{r['bwd_bound_ms']:.4f}, {r['bwd_bound_by']})",
+                  flush=True)
+            del a_t, w_t, zs_t, g_t, b_t, singles
+    at = by_k[K]
+    print(f"kernel 3 at K={K}: median {at['fwd_ms']:.4f} ms; plain: median "
+          f"{plain_f:.4f} ms; kernel 4: median {at['bwd_ms']:.4f} ms; plain: "
+          f"median {plain_b:.4f} ms", flush=True)
+    by_k_ms = {str(k): v for k, v in by_k.items()}
+    return (dict(max_abs_err=err3[0], max_rel_err=err3[1], ms=at["fwd_ms"],
+                 plain_ms=plain_f, bound_ms=at["fwd_bound_ms"],
+                 bound_by=at["fwd_bound_by"], K=K,
+                 ms_by_K={k: v["fwd_ms"] for k, v in by_k_ms.items()},
+                 k_launches_of_kernel1_ms_by_K={
+                     k: v["fwd_singles_ms"] for k, v in by_k_ms.items()}),
+            dict(max_abs_err=err4[0], max_rel_err=err4[1], ms=at["bwd_ms"],
+                 plain_ms=plain_b, bound_ms=at["bwd_bound_ms"],
+                 bound_by=at["bwd_bound_by"], K=K,
+                 ms_by_K={k: v["bwd_ms"] for k, v in by_k_ms.items()},
+                 k_launches_of_kernel2_ms_by_K={
+                     k: v["bwd_singles_ms"] for k, v in by_k_ms.items()}))
+
+
+def multi_counts():
+    return (LF.multi_launches, LF.multi_bwd_launches, LF.launches,
+            LF.bwd_launches)
+
+
+def reset_latent_counts():
+    LF.launches = LF.bwd_launches = 0
+    LF.multi_launches = LF.multi_bwd_launches = 0
+
+
+def stacked_replicas(device, K):
+    return RP.stack_replicas(
+        lambda g: LatentSDE(DATA, LATENT, CONTEXT, HIDDEN, device=device,
+                            generator=g),
+        [torch.Generator().manual_seed(SEED + 200 + k) for k in range(K)])
+
+
+def replica_generators(device, seed, K):
+    return [torch.Generator(device=device).manual_seed(seed + k)
+            for k in range(K)]
+
+
+@contextlib.contextmanager
+def float32_draws():
+    """The model's eps and the solve noise drawn in float32 and cast to the
+    dtype asked for, so a float64 run sees a float32 run's draws."""
+    normal, grid_noise = TL._standard_normal, TI.sample_grid_noise
+
+    def standard_normal(shape, generator, dtype, device):
+        return normal(shape, generator, torch.float32, device).to(dtype)
+
+    def sample_grid_noise(generator, grid, size, dtype, device=None, **kw):
+        return tuple(None if t is None else t.to(dtype) for t in grid_noise(
+            generator, grid, size, torch.float32, device, **kw))
+
+    TL._standard_normal, TI.sample_grid_noise = standard_normal, \
+        sample_grid_noise
+    try:
+        yield
+    finally:
+        TL._standard_normal, TI.sample_grid_noise = normal, grid_noise
+
+
+def phase_multi_path(device, xs, ts):
+    """latent_sde_loss_multi at K = MULTI_K: served losses against the single
+    fused loss of each replica on a clone of its generator, each call
+    launching kernel 3 once; step-0 gradients of both routes; three Adam
+    steps (lr 1e-2) on the stacked state, each launching kernels 3 and 4
+    once; median step times of the multi fused route, the multi sdeint route
+    and K single fused steps, each beside its profile."""
+    K = MULTI_K
+    models = stacked_replicas(device, K)
+    singles = [RP.unstack_replica(models, k) for k in range(K)]
+
+    def serve(seed):
+        gens = replica_generators(device, seed, K)
+        clones = []
+        for g in gens:
+            clone = torch.Generator(device=device)
+            clone.set_state(g.get_state())
+            clones.append(clone)
+        before = multi_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            total, losses = latent_sde_loss_multi(models, xs, ts, gens, dt=DT,
+                                                  fused=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        delta = tuple(a - b for a, b in zip(multi_counts(), before))
+        if delta != (1, 0, 0, 0):
+            raise RuntimeError(f"a multi forward pass launched kernels 3, 4, "
+                               f"1, 2 {delta} times")
+        with torch.no_grad():
+            want = [float(latent_sde_loss(m, xs, ts, c, dt=DT, fused=True)[0])
+                    for m, c in zip(singles, clones)]
+        got = [float(v) for v in losses]
+        worst = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        print(f"multi serve {seed}: losses {['%.8g' % v for v in got]} vs "
+              f"single {['%.8g' % v for v in want]}, worst rel diff "
+              f"{worst:.3e}; {ms:.3f} ms", flush=True)
+        if not (np.isfinite(got).all() and worst <= MULTI_LOSS_RTOL
+                and abs(float(total) - sum(got)) <= 1e-5 * abs(sum(got))):
+            raise RuntimeError(f"multi losses {got} differ from the single "
+                               f"fused losses {want} by {worst:.3e}")
+        return ms, worst
+
+    serve(700)                                   # warm-up
+    reset_latent_counts()
+    served = [serve(seed) for seed in (701, 702, 703)]
+    serve_launches = LF.multi_launches
+
+    # Step-0 gradients of both routes, from the same weights and generators,
+    # against a float64 run of the sdeint route on the same (float32) draws:
+    # each route within MULTI_GRAD_REL of each gradient's scale.
+    grads = {}
+    for fused in (True, False, "float64"):
+        reps = stacked_replicas(device, K)
+        x = xs
+        if fused == "float64":
+            reps = RP.Replicas(
+                reps.module,
+                {n: p.detach().double().requires_grad_()
+                 for n, p in reps.params.items()},
+                {n: b.double() for n, b in reps.buffers.items()})
+            x = xs.double()
+        with float32_draws():
+            total, _ = latent_sde_loss_multi(
+                reps, x, ts, replica_generators(device, 710, K), dt=DT,
+                fused=fused is True)
+        total.backward()
+        grads[fused] = {n: p.grad for n, p in reps.named_parameters()}
+    rows = []
+    for name, exact in grads["float64"].items():
+        got, want = grads[True][name], grads[False][name]
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise RuntimeError(f"multi step 0: non-finite gradient of {name}")
+        for k in range(K):
+            scale = float(exact[k].abs().max())
+            err_f = float((got[k].double() - exact[k]).abs().max())
+            err_s = float((want[k].double() - exact[k]).abs().max())
+            diff = float((got[k] - want[k]).abs().max())
+            rows.append((diff / scale, name, k, err_f / scale, err_s / scale,
+                         max(err_f, err_s) > MULTI_GRAD_REL * scale))
+    rows.sort(key=lambda r: -r[3])
+    for diff, name, k, rf, rs, _ in rows[:4]:
+        print(f"multi step-0 gradient {name}[{k}], of scale: fused vs sdeint "
+              f"route {diff:.3e}; from float64: fused {rf:.3e}, sdeint "
+              f"{rs:.3e}", flush=True)
+    worst = max(r[0] for r in rows)
+    print(f"multi step-0 gradients, every replica: fused vs sdeint route "
+          f"worst {worst:.3e} of scale; from float64 worst fused "
+          f"{rows[0][3]:.3e}, sdeint {max(r[4] for r in rows):.3e}",
+          flush=True)
+    failed = [f"{name}[{k}]" for _, name, k, _, _, bad in rows if bad]
+    if failed:
+        raise RuntimeError(f"multi step-0 gradients of {failed} are further "
+                           f"than {MULTI_GRAD_REL} of scale from float64")
+
+    # Adam steps: the multi fused route, the multi sdeint route, and K
+    # single fused models stepping one by one, in turns.
+    routes = {"multi fused": stacked_replicas(device, K),
+              "multi sdeint": stacked_replicas(device, K),
+              "K single fused": replica_models(device, K, SEED + 200)}
+    opts = {"multi fused": torch.optim.Adam(routes["multi fused"].parameters(),
+                                            lr=LR),
+            "multi sdeint": torch.optim.Adam(
+                routes["multi sdeint"].parameters(), lr=LR),
+            "K single fused": [torch.optim.Adam(m.parameters(), lr=LR)
+                               for m in routes["K single fused"]]}
+
+    def step(route, seed):
+        gens = replica_generators(device, seed, K)
+        if route == "K single fused":
+            losses = []
+            for m, opt, g in zip(routes[route], opts[route], gens):
+                opt.zero_grad(set_to_none=True)
+                loss, _ = latent_sde_loss(m, xs, ts, g, dt=DT, fused=True)
+                loss.backward()
+                opt.step()
+                losses.append(loss.detach())
+            return torch.stack(losses)
+        opts[route].zero_grad(set_to_none=True)
+        total, losses = latent_sde_loss_multi(
+            routes[route], xs, ts, gens, dt=DT,
+            fused=route == "multi fused")
+        total.backward()
+        opts[route].step()
+        return losses.detach()
+
+    times = {r: [] for r in routes}
+    reset_latent_counts()
+    order = list(routes)
+    for i in range(3):
+        for route in (order if i % 2 == 0 else order[::-1]):
+            before = multi_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = step(route, 720 + i)
+            torch.cuda.synchronize()
+            times[route].append((time.perf_counter() - t0) * 1e3)
+            delta = tuple(a - b for a, b in zip(multi_counts(), before))
+            want = {"multi fused": (1, 1, 0, 0), "multi sdeint": (0, 0, 0, 0),
+                    "K single fused": (0, 0, K, K)}[route]
+            if delta != want:
+                raise RuntimeError(f"{route} step {i}: kernels 3, 4, 1, 2 "
+                                   f"launched {delta} times, not {want}")
+            if not torch.isfinite(losses).all():
+                raise RuntimeError(f"{route} step {i}: non-finite loss")
+            print(f"train {route} step {i}: losses "
+                  f"{[round(float(v), 3) for v in losses]} "
+                  f"{times[route][-1]:.3f} ms", flush=True)
+    train_launches = (LF.multi_launches, LF.multi_bwd_launches)
+    for route in ("multi fused", "multi sdeint"):
+        if not all(torch.isfinite(p).all() for p in routes[route].parameters()):
+            raise RuntimeError(f"{route}: non-finite parameters after Adam")
+    profiles = {r: profile_run(f"K={K} train step {r}",
+                               lambda r=r: step(r, 730)) for r in routes}
+    medians = {r: float(np.median(t)) for r, t in times.items()}
+    for r in routes:
+        print(f"K={K} train step, {r}: median {medians[r]:.3f} ms "
+              f"({K * 1e3 / medians[r]:.1f} replica steps/s; profiled: "
+              f"{profiles[r]['kernels']} kernels, busy "
+              f"{profiles[r]['busy']:.3f})", flush=True)
+    print(f"K={K} multi forward pass: median "
+          f"{float(np.median([m for m, _ in served])):.3f} ms (host clock, "
+          f"synchronised)", flush=True)
+    return dict(launches_serve=serve_launches, launches=train_launches,
+                step0_grad_rel_err=worst,
+                loss_rel_err=max(w for _, w in served),
+                step_ms={r: medians[r] for r in routes})
+
+
+# --------------------------------------------------------------------------- #
+#  srid2 SRK (kernel 15) and Philox normals (kernel 16)                       #
+# --------------------------------------------------------------------------- #
+
+def srk_problem(device, B, d, dtype=torch.float32):
+    """ExDiagonal at (B, d): mu and sigma as benchmarks/srk_fused.py:26-31
+    draws them (sigma = sigmoid(N), mu = -sigma^2 - sigmoid(N)), from a
+    numpy seed; y0 = 0.1; W and U from the default noise of a seeded
+    generator on the step grid of [0, 1]."""
+    rng = np.random.default_rng(SEED + 300 + d)
+    sigma = 1 / (1 + np.exp(-rng.standard_normal(d)))
+    mu = -sigma ** 2 - 1 / (1 + np.exp(-rng.standard_normal(d)))
+    grid = TI.build_step_grid(0.0, 1.0, 1.0 / SRK_STEPS)
+    gen = torch.Generator(device=device).manual_seed(SEED + 301)
+    W, U, _ = TI.sample_grid_noise(gen, grid, (B, d), dtype, device,
+                                   needs_U=True)
+    y0 = torch.full((B, d), 0.1, dtype=dtype, device=device)
+    params = tuple(torch.as_tensor(p, dtype=dtype, device=device)
+                   for p in (mu, sigma))
+    return y0, W, U, params, (mu, sigma)
+
+
+SRK_F = SF.Elementwise(lambda t, y, mu, sigma: mu * y, "p0 * y")
+SRK_G = SF.Elementwise(lambda t, y, mu, sigma: sigma * y, "p1 * y")
+
+
+class GridTable(BaseBrownian):
+    """Serves fixed W and U tables on a step grid to sdeint."""
+
+    def __init__(self, W, U):
+        self._W, self._U = W, U
+
+    def __call__(self, ta, tb=None, return_U=False, return_A=False):
+        raise NotImplementedError("GridTable serves whole grids only")
+
+    def query_grid(self, grid, return_U=False, return_A=False):
+        return self._W, self._U if return_U else None, None
+
+    @property
+    def shape(self):
+        return tuple(self._W.shape[1:])
+
+    @property
+    def dtype(self):
+        return self._W.dtype
+
+    @property
+    def levy_area_approximation(self):
+        return "space-time"
+
+
+class ExDiagonal(torch.nn.Module):
+    """dy = mu y dt + sigma y dW (Ito, diagonal noise) for sdeint."""
+    noise_type, sde_type = "diagonal", "ito"
+
+    def __init__(self, mu, sigma):
+        super().__init__()
+        self.mu, self.sigma = mu, sigma
+
+    def f(self, t, y):
+        return self.mu * y
+
+    def g(self, t, y):
+        return self.sigma * y
+
+
+def phase_srk_kernel(device):
+    """Kernel 15 at the four configurations: against its plain version and
+    a float64 run, its strong error against ExDiagonal's exact solution on
+    the same W, once against sdeint(method='srk'), median times and the
+    bytes bound; then one solve at full width counted as the main path."""
+    dt = 1.0 / SRK_STEPS
+    records = {}
+    with torch.no_grad():
+        for B, d in SRK_CONFIGS:
+            y0, W, U, params, (mu, sigma) = srk_problem(device, B, d)
+            args = (SRK_F, SRK_G, y0, 0.0, dt, SRK_STEPS, W, U, params)
+            got = SF.srk_solve_cuda(*args)
+            want = SF.srk_solve_plain(*args)
+            exact = SF.srk_solve_plain(SRK_F, SRK_G, y0.double(), 0.0, dt,
+                                       SRK_STEPS, W.double(), U.double(),
+                                       tuple(p.double() for p in params))
+            torch.cuda.synchronize()
+            if got.shape != (B, d) or not torch.isfinite(got).all():
+                raise RuntimeError(f"kernel 15 ({B}, {d}): shape "
+                                   f"{tuple(got.shape)} or non-finite")
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            err64 = float((got.double() - exact).abs().max())
+            plain64 = float((want.double() - exact).abs().max())
+            # ExDiagonal's exact solution at t = 1 on the same Brownian path.
+            mu_t, sig_t = (torch.as_tensor(v, device=device) for v in
+                           (mu, sigma))
+            W_T = W.double().sum(0)
+            y_T = 0.1 * torch.exp(mu_t - 0.5 * sig_t ** 2 + sig_t * W_T)
+            strong = float((got.double() - y_T).abs().mean())
+            strong64 = float((exact - y_T).abs().mean())
+            print(f"kernel 15 ({B}, {d}): max|plain| {scale:.4g}, max abs "
+                  f"err {err:.3e} ({err / scale:.2e} of scale); from float64 "
+                  f"{err64:.3e} (plain {plain64:.3e}); strong error vs exact "
+                  f"{strong:.4e} (float64 plain {strong64:.4e})", flush=True)
+            if err > SRK_REL * scale:
+                raise RuntimeError(f"kernel 15 ({B}, {d}) differs from its "
+                                   f"plain version by {err:.3e} > {SRK_REL} "
+                                   f"* {scale:.4g}")
+            ulp = float(torch.finfo(torch.float32).eps) * scale
+            if err64 > 2 * plain64 + ulp:
+                raise RuntimeError(f"kernel 15 ({B}, {d}) is {err64:.3e} from "
+                                   f"float64, the plain version {plain64:.3e}")
+            if not strong <= 1.01 * strong64 + ulp:
+                raise RuntimeError(f"kernel 15 ({B}, {d}) strong error "
+                                   f"{strong:.4e} > the float64 solve's "
+                                   f"{strong64:.4e}")
+            if (B, d) == SRK_CONFIGS[0]:
+                sde = ExDiagonal(*params)
+                ys = sdeint(sde, y0, [0.0, 1.0], bm=GridTable(W, U),
+                            method="srk", dt=dt)
+                err_sdeint = float((ys[-1] - got).abs().max())
+                print(f"kernel 15 ({B}, {d}) vs sdeint(method='srk') on the "
+                      f"same W, U: max abs diff {err_sdeint:.3e}", flush=True)
+                if err_sdeint > SRK_REL * scale:
+                    raise RuntimeError(f"kernel 15 and sdeint(method='srk') "
+                                       f"differ by {err_sdeint:.3e}")
+            ms = median_cuda_ms(lambda: SF.srk_solve_cuda(*args), 20)
+            plain_ms = median_cuda_ms(lambda: SF.srk_solve_plain(*args), 3,
+                                      warmup=1)
+            bound_ms, bound_by = bound(SRID2_FLOPS * B * d * SRK_STEPS,
+                                       [y0, W, U, *params, got])
+            print(f"kernel 15 ({B}, {d}): median {ms:.4f} ms; plain: median "
+                  f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})",
+                  flush=True)
+            records[(B, d)] = dict(max_abs_err=err, max_rel_err=err / scale,
+                                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, strong_error=strong,
+                                   strong_error_f64_plain=strong64)
+        # The path: one solve at full width.
+        y0, W, U, params, _ = srk_problem(device, *SRK_CONFIGS[-1])
+        SF.launches = 0
+        out = SF.srk_solve_fused(SRK_F, SRK_G, y0, 0.0, dt, SRK_STEPS, W, U,
+                                 params)
+        torch.cuda.synchronize()
+        launches = SF.launches
+        if launches != 1 or not torch.isfinite(out).all():
+            raise RuntimeError(f"srk_solve_fused launched kernel 15 "
+                               f"{launches} times or gave non-finite values")
+    wide = dict(records[SRK_CONFIGS[-1]])
+    wide["ms_by_config"] = {f"{B}x{d}": r["ms"] for (B, d), r in
+                            records.items()}
+    wide["bound_ms_by_config"] = {f"{B}x{d}": r["bound_ms"] for (B, d), r in
+                                  records.items()}
+    wide["max_rel_err"] = max(r["max_rel_err"] for r in records.values())
+    return launches, wide
+
+
+def phase_prng_kernel(device):
+    """Kernel 16 against its plain version at PRNG_SHAPES, the law of 2^20
+    draws (moments and a KS test against N(0, 1)), determinism, median
+    times beside torch.randn's (another stream, a reference only), and one
+    sdeint(method='srk', rng_impl='philox') solve as the main path, which
+    launches the kernel twice (W's and H's normals)."""
+    from scipy import stats
+
+    seed = torch.tensor([SEED + 400], dtype=torch.int32, device=device)
+    errs = []
+    with torch.no_grad():
+        for shape in PRNG_SHAPES:
+            got = PR.philox_normal_cuda(seed, shape)
+            want = PR.philox_normal_plain(seed, shape, device=device)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            errs.append(err)
+            print(f"kernel 16 {shape}: max abs err vs plain {err:.3e}",
+                  flush=True)
+            if not torch.isfinite(got).all() or err > PRNG_ATOL:
+                raise RuntimeError(f"kernel 16 {shape} differs from its plain "
+                                   f"version by {err:.3e} > {PRNG_ATOL}")
+        z = PR.philox_normal_cuda(seed, (PRNG_LAW_DRAWS,)).double().cpu()
+        ks = stats.kstest(z.numpy(), "norm")
+        mean, var = float(z.mean()), float(z.var())
+        skew = float(((z - mean) ** 3).mean() / var ** 1.5)
+        kurt = float(((z - mean) ** 4).mean() / var ** 2 - 3)
+        print(f"kernel 16 law of {PRNG_LAW_DRAWS} draws: mean {mean:.2e}, "
+              f"var {var:.5f}, skew {skew:.2e}, excess kurtosis {kurt:.2e}, "
+              f"KS {ks.statistic:.2e} (p {ks.pvalue:.3f})", flush=True)
+        sd = 1 / np.sqrt(PRNG_LAW_DRAWS)
+        if not (abs(mean) < 5 * sd and abs(var - 1) < 5 * np.sqrt(2) * sd
+                and abs(skew) < 5 * np.sqrt(6) * sd
+                and abs(kurt) < 5 * np.sqrt(24) * sd and ks.pvalue > 1e-3):
+            raise RuntimeError("kernel 16's draws fail the law of N(0, 1)")
+        a = PR.philox_normal_cuda(seed, PRNG_SHAPES[0])
+        b = PR.philox_normal_cuda(seed, PRNG_SHAPES[0])
+        c = PR.philox_normal_cuda(seed + 1, PRNG_SHAPES[0])
+        if not torch.equal(a, b) or torch.equal(a, c):
+            raise RuntimeError("kernel 16 is not a function of its seed")
+        print("kernel 16: one seed gives the same stream twice, the next "
+              "seed another", flush=True)
+        shape = PRNG_SHAPES[-1]
+        out = PR.philox_normal_cuda(seed, shape)
+        ms = median_cuda_ms(lambda: PR.philox_normal_cuda(seed, shape), 20)
+        plain_ms = median_cuda_ms(
+            lambda: PR.philox_normal_plain(seed, shape, device=device), 3,
+            warmup=1)
+        randn_ms = median_cuda_ms(lambda: torch.randn(shape, device=device),
+                                  20)
+        bound_ms, bound_by = bound(0, [seed, out])
+        del out
+        print(f"kernel 16 {shape}: median {ms:.4f} ms; plain: median "
+              f"{plain_ms:.4f} ms; torch.randn (another stream): median "
+              f"{randn_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
+        # The path: an srk solve on the Philox noise.
+        B, d = SRK_CONFIGS[-1]
+        y0, _, _, params, _ = srk_problem(device, B, d)
+        PR.launches = 0
+        ys = sdeint(ExDiagonal(*params), y0, [0.0, 1.0], method="srk",
+                    dt=1.0 / SRK_STEPS, rng_impl="philox",
+                    generator=torch.Generator(device=device).manual_seed(
+                        SEED + 401))
+        torch.cuda.synchronize()
+        launches = PR.launches
+        if launches != 2 or not torch.isfinite(ys).all():
+            raise RuntimeError(f"sdeint(method='srk', rng_impl='philox') "
+                               f"launched kernel 16 {launches} times")
+        print(f"sdeint(method='srk', rng_impl='philox') at ({B}, {d}): "
+              f"kernel 16 launched {launches} times, mean y_T "
+              f"{float(ys[-1].mean()):.5f}", flush=True)
+    return launches, dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                          randn_ms=randn_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, ks_pvalue=float(ks.pvalue))
+
+
+GROUPS = ("latent", "gan", "tower", "logqp", "multi", "srk", "prng")
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", help="comma-separated phase groups to run, of "
+                    f"{', '.join(GROUPS)} (for development: prints the run's "
+                    "kernel records but no ok line); all by default")
+    groups = GROUPS if ap.parse_args().only is None else tuple(
+        ap.parse_args().only.split(","))
+    unknown = set(groups) - set(GROUPS)
+    if unknown:
+        raise SystemExit(f"unknown phase groups {sorted(unknown)}")
     device, card = phase_device()
     phase_build()
-    kernel1 = phase_kernel(device)
-    kernel2 = phase_kernel2(device)
-    xs, ts = lorenz_data(device)
-    served_launches, served = phase_serve(device, xs, ts)
-    launches, grad_rel, models, opts = phase_train(device, xs, ts)
-    phase_profile(device, served, (models, opts), xs, ts)
-    gan = gan_models(device)
-    gan_ts, real = gan_data(device)
-    kernel5, kernel7 = phase_gan_kernels(device, gan, gan_ts, real)
-    gan_launches = phase_gan_serve(device, gan, gan_ts, real)
-    phase_gan_profile(device, gan, gan_ts, real)
-    kernel6, kernel8 = phase_gan_bwd_kernels(device, gan, gan_ts, real)
-    train_launches, gan_grad_rel, trained, batch = phase_gan_train(
-        device, gan_ts, real)
-    phase_gan_train_profile(trained, gan_ts, batch)
-    tower_kernels = phase_tower_kernels(device)
-    tower_runs = {TOWER_CONFIGS[name][0]: phase_tower_serve_train(device,
-                                                                 name)
-                  for name in ("E1", "R1")}
-    phase_auto_dispatch(device, AUTO_SHAPES)
-    logqp_kernels = phase_logqp_kernels(device)["L1"]
-    tower_runs["euler_logqp"] = phase_tower_serve_train(device, "L1")
-    tower_kernels["euler_logqp"] = logqp_kernels
-    phase_auto_dispatch(device, AUTO_LOGQP_SHAPES)
-    torch.cuda.synchronize()
     csrc = "torchsde_tpu_torch/ops/csrc"
-    records = [
-        dict(name="latent_fused_fwd", route="cuda",
-             source=f"{csrc}/latent_fused_fwd.cu",
-             replaces="torchsde_tpu/ops/latent_fused.py:156",
-             launches=launches[0], launches_serve=served_launches,
-             library_ms=None, **kernel1),
-        dict(name="latent_fused_bwd", route="cuda",
-             source=f"{csrc}/latent_fused_bwd.cu",
-             replaces="torchsde_tpu/ops/latent_fused.py:248",
-             launches=launches[1], library_ms=None,
-             step0_grad_rel_err=grad_rel, **kernel2),
-        dict(name="gan_gen_fwd", route="cuda",
-             source=f"{csrc}/gan_gen_fwd.cu",
-             replaces="torchsde_tpu/ops/gan_fused.py:151",
-             launches=gan_launches[0],
-             launches_train=train_launches["gen_launches"], library_ms=None,
-             **kernel5),
-        dict(name="gan_cde_fwd", route="cuda",
-             source=f"{csrc}/gan_cde_fwd.cu",
-             replaces="torchsde_tpu/ops/gan_fused.py:422",
-             launches=gan_launches[1],
-             launches_train=train_launches["cde_launches"], library_ms=None,
-             **kernel7),
-        dict(name="gan_gen_bwd", route="cuda",
-             source=f"{csrc}/gan_gen_bwd.cu",
-             replaces="torchsde_tpu/ops/gan_fused.py:200",
-             launches=train_launches["gen_bwd_launches"], library_ms=None,
-             step0_grad_rel_err=gan_grad_rel, **kernel6),
-        dict(name="gan_cde_bwd", route="cuda",
-             source=f"{csrc}/gan_cde_bwd.cu",
-             replaces="torchsde_tpu/ops/gan_fused.py:458",
-             launches=train_launches["cde_bwd_launches"], library_ms=None,
-             **kernel8),
-    ]
+    records = []
+    if "latent" in groups:
+        kernel1 = phase_kernel(device)
+        kernel2 = phase_kernel2(device)
+        xs, ts = lorenz_data(device)
+        served_launches, served = phase_serve(device, xs, ts)
+        launches, grad_rel, models, opts = phase_train(device, xs, ts)
+        phase_profile(device, served, (models, opts), xs, ts)
+        del served, models, opts
+        records += [
+            dict(name="latent_fused_fwd", route="cuda",
+                 source=f"{csrc}/latent_fused_fwd.cu",
+                 replaces="torchsde_tpu/ops/latent_fused.py:156",
+                 launches=launches[0], launches_serve=served_launches,
+                 library_ms=None, **kernel1),
+            dict(name="latent_fused_bwd", route="cuda",
+                 source=f"{csrc}/latent_fused_bwd.cu",
+                 replaces="torchsde_tpu/ops/latent_fused.py:248",
+                 launches=launches[1], library_ms=None,
+                 step0_grad_rel_err=grad_rel, **kernel2)]
+    if "gan" in groups:
+        gan = gan_models(device)
+        gan_ts, real = gan_data(device)
+        kernel5, kernel7 = phase_gan_kernels(device, gan, gan_ts, real)
+        gan_launches = phase_gan_serve(device, gan, gan_ts, real)
+        phase_gan_profile(device, gan, gan_ts, real)
+        kernel6, kernel8 = phase_gan_bwd_kernels(device, gan, gan_ts, real)
+        train_launches, gan_grad_rel, trained, batch = phase_gan_train(
+            device, gan_ts, real)
+        phase_gan_train_profile(trained, gan_ts, batch)
+        del gan, trained
+        records += [
+            dict(name="gan_gen_fwd", route="cuda",
+                 source=f"{csrc}/gan_gen_fwd.cu",
+                 replaces="torchsde_tpu/ops/gan_fused.py:151",
+                 launches=gan_launches[0],
+                 launches_train=train_launches["gen_launches"],
+                 library_ms=None, **kernel5),
+            dict(name="gan_cde_fwd", route="cuda",
+                 source=f"{csrc}/gan_cde_fwd.cu",
+                 replaces="torchsde_tpu/ops/gan_fused.py:422",
+                 launches=gan_launches[1],
+                 launches_train=train_launches["cde_launches"],
+                 library_ms=None, **kernel7),
+            dict(name="gan_gen_bwd", route="cuda",
+                 source=f"{csrc}/gan_gen_bwd.cu",
+                 replaces="torchsde_tpu/ops/gan_fused.py:200",
+                 launches=train_launches["gen_bwd_launches"],
+                 library_ms=None, step0_grad_rel_err=gan_grad_rel,
+                 **kernel6),
+            dict(name="gan_cde_bwd", route="cuda",
+                 source=f"{csrc}/gan_cde_bwd.cu",
+                 replaces="torchsde_tpu/ops/gan_fused.py:458",
+                 launches=train_launches["cde_bwd_launches"],
+                 library_ms=None, **kernel8)]
+    tower_kernels, tower_runs = {}, {}
+    if "tower" in groups:
+        tower_kernels.update(phase_tower_kernels(device))
+        tower_runs.update({TOWER_CONFIGS[name][0]: phase_tower_serve_train(
+            device, name) for name in ("E1", "R1")})
+        phase_auto_dispatch(device, AUTO_SHAPES)
+    if "logqp" in groups:
+        tower_kernels["euler_logqp"] = phase_logqp_kernels(device)["L1"]
+        tower_runs["euler_logqp"] = phase_tower_serve_train(device, "L1")
+        phase_auto_dispatch(device, AUTO_LOGQP_SHAPES)
     for method, names, lines in (("euler", ("tower_euler_fwd",
                                             "tower_euler_bwd"), (211, 242)),
                                  ("reversible_heun", ("tower_rh_fwd",
@@ -1757,6 +2439,8 @@ def main():
                                  ("euler_logqp", ("tower_euler_logqp_fwd",
                                                   "tower_euler_logqp_bwd"),
                                   (819, 853))):
+        if method not in tower_runs:
+            continue
         run = tower_runs[method]
         for i, (name, line) in enumerate(zip(names, lines)):
             extra = (dict(launches_serve=run["launches_serve"]) if i == 0
@@ -1766,12 +2450,46 @@ def main():
                 replaces=f"torchsde_tpu/ops/fused_solve.py:{line}",
                 launches=run["launches"][i], library_ms=None, **extra,
                 **tower_kernels[method][i]))
+    if "multi" in groups:
+        kernel3, kernel4 = phase_multi_kernels(device)
+        xs, ts = lorenz_data(device)
+        path = phase_multi_path(device, xs, ts)
+        records += [
+            dict(name="latent_fused_fwd_multi", route="cuda",
+                 source=f"{csrc}/latent_fused_fwd.cu",
+                 replaces="torchsde_tpu/ops/latent_fused.py:455",
+                 launches=path["launches"][0],
+                 launches_serve=path["launches_serve"], library_ms=None,
+                 loss_rel_err=path["loss_rel_err"],
+                 step_ms=path["step_ms"], **kernel3),
+            dict(name="latent_fused_bwd_multi", route="cuda",
+                 source=f"{csrc}/latent_fused_bwd.cu",
+                 replaces="torchsde_tpu/ops/latent_fused.py:475",
+                 launches=path["launches"][1], library_ms=None,
+                 step0_grad_rel_err=path["step0_grad_rel_err"], **kernel4)]
+    if "srk" in groups:
+        srk_launches, kernel15 = phase_srk_kernel(device)
+        records.append(dict(
+            name="srk_srid2", route="cuda", source=f"{csrc}/srk_srid2.cuh",
+            replaces="torchsde_tpu/ops/srk_fused.py:80",
+            launches=srk_launches, library_ms=None, **kernel15))
+    if "prng" in groups:
+        prng_launches, kernel16 = phase_prng_kernel(device)
+        records.append(dict(
+            name="philox_normal", route="cuda",
+            source=f"{csrc}/philox_normal.cu",
+            replaces="torchsde_tpu/ops/prng.py:37", launches=prng_launches,
+            library_ms=None, **kernel16))
+    torch.cuda.synchronize()
     for record in records:
         if record["launches"] < 1:
             raise RuntimeError(f"{record['name']} was not launched on the "
                                f"main path")
     print(card)
     print(json.dumps({"kernels": records}))
+    if groups != GROUPS:
+        print(f"partial run ({', '.join(groups)}): no ok line", flush=True)
+        return
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -173,7 +173,7 @@ def test_sample_grid_noise_scales_the_generator_draws():
                                atol=0)
     assert U is None and A is None
     with pytest.raises(NotImplementedError):
-        TI.sample_grid_noise(None, grid, (B, M), torch.float64, needs_U=True)
+        TI.sample_grid_noise(None, grid, (B, M), torch.float64, needs_A=True)
 
 
 @pytest.mark.parametrize("t0,t1,dt", [(0.0, 1.0, 1.0 / 32), (0.0, 1.0, 0.3),
@@ -254,7 +254,7 @@ def test_contract_errors_match_jax_wording(case):
         assert messages[0] is not None and messages[1] == messages[0]
 
 
-@pytest.mark.parametrize("method", ["srk", "milstein", "midpoint"])
+@pytest.mark.parametrize("method", ["euler_heun", "milstein", "midpoint"])
 def test_unported_methods_are_named(method):
     with pytest.raises(ValueError, match="not ported"):
         ttsde.sdeint(TorchSDE("diagonal", _problem_params()),

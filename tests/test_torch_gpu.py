@@ -740,3 +740,211 @@ def test_fused_sdeint_logqp_trains_through_kernels_13_and_14(cuda):
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g, w, rtol=0,
                                    atol=1e-5 * float(w.abs().max()))
+
+
+# --------------------------------------------------------------------------- #
+#  K stacked latent replicas: kernels 3 and 4                                 #
+# --------------------------------------------------------------------------- #
+
+def _multi_args(device, K, B, L, C, H, n_ts, dt, seed):
+    """K replicas' kernel inputs, stacked, from K models and generators."""
+    per = [_solve_args(device, B, L, C, H, n_ts, dt, seed + k)
+           for k in range(K)]
+    (_, _, idx, _, dts), _ = per[0]
+    args = [torch.stack([p[0][i] for p in per]).contiguous()
+            for i in (0, 1, 3)]
+    weights = [torch.stack(ws).contiguous() for ws in zip(*(p[1]
+                                                            for p in per))]
+    return (args[0], args[1], idx, args[2], dts), weights
+
+
+MULTI_SHAPES = [(3, 13, 3, 5, 40, 4, 1.0 / 17), (2, 9, 4, 64, 136, 6, 1.0 / 16),
+                (5, 1, 1, 1, 1, 2, 0.5)]
+
+
+@pytest.mark.parametrize("K,B,L,C,H,n_ts,dt", MULTI_SHAPES)
+def test_multi_kernels_match_plain_and_single_kernels(cuda, K, B, L, C, H,
+                                                      n_ts, dt):
+    """Kernels 3 and 4 against their plain versions (kernel 1's and 2's
+    tolerances), and each replica bitwise equal to kernels 1 and 2 on its
+    own inputs."""
+    with torch.no_grad():
+        args, weights = _multi_args(cuda, K, B, L, C, H, n_ts, dt, 10)
+        before = (LF.multi_launches, LF.multi_bwd_launches)
+        zs, qs = LF.fused_solve_multi_forward_cuda(*args, weights)
+        gen = torch.Generator(device=cuda).manual_seed(11)
+        gz = 0.1 * torch.randn(zs.shape, generator=gen, device=cuda)
+        gq = 0.1 * torch.randn(qs.shape, generator=gen, device=cuda)
+        got = LF.fused_solve_multi_backward_cuda(*args, weights, zs, gz, gq)
+        assert (LF.multi_launches, LF.multi_bwd_launches) == (before[0] + 1,
+                                                              before[1] + 1)
+        zs_p, qs_p = LF.fused_solve_multi_forward_plain(*args, weights)
+        want = LF.fused_solve_multi_backward_plain(*args, weights, zs, gz,
+                                                   gq)
+        singles = []
+        for k in range(K):
+            z0, ctx, idx, noise, dts = args
+            a_k = (z0[k], ctx[k], idx, noise[k], dts)
+            w_k = [w[k] for w in weights]
+            singles.append((LF.fused_solve_forward_cuda(*a_k, w_k),
+                            LF.fused_solve_backward_cuda(*a_k, w_k, zs[k],
+                                                         gz[k], gq[k])))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(zs, zs_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(qs, qs_p, atol=1e-5, rtol=0)
+    _assert_grads_close(got, want)
+    for k, ((zs1, qs1), back1) in enumerate(singles):
+        assert torch.equal(zs[k], zs1) and torch.equal(qs[k], qs1)
+        assert all(torch.equal(a[k], b)
+                   for a, b in zip(_flat(got), _flat(back1)))
+
+
+def test_multi_backward_is_bitwise_repeatable(cuda):
+    with torch.no_grad():
+        args, weights = _multi_args(cuda, 3, 37, 4, 16, 32, 6, 1.0 / 32, 3)
+        zs, qs = LF.fused_solve_multi_forward_cuda(*args, weights)
+        gz, gq = _cotangents(zs, qs, 4)
+        first = _flat(LF.fused_solve_multi_backward_cuda(*args, weights, zs,
+                                                         gz, gq))
+        second = _flat(LF.fused_solve_multi_backward_cuda(*args, weights, zs,
+                                                          gz, gq))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_multi_loss_trains_through_kernels_3_and_4(cuda):
+    """latent_sde_loss_multi(fused=True) on the card: each replica's loss
+    is the single fused loss on a clone of its generator, and a step's
+    backward launches kernels 3 and 4 once."""
+    from torchsde_tpu_torch.models.latent_sde import latent_sde_loss_multi
+    from torchsde_tpu_torch.parallel import replicas as RP
+    K = 3
+    models = RP.stack_replicas(
+        lambda g: LatentSDE(3, 4, 16, 32, device=cuda, generator=g),
+        [torch.Generator().manual_seed(20 + k) for k in range(K)])
+    xs = torch.randn((6, 37, 3), device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(6))
+    ts = np.linspace(0.0, 1.0, 6)
+    gens = [torch.Generator(device=cuda).manual_seed(30 + k)
+            for k in range(K)]
+    before = (LF.multi_launches, LF.multi_bwd_launches)
+    total, losses = latent_sde_loss_multi(models, xs, ts, gens,
+                                          dt=1.0 / 32, fused=True)
+    total.backward()
+    assert (LF.multi_launches - before[0],
+            LF.multi_bwd_launches - before[1]) == (1, 1)
+    assert all(torch.isfinite(p.grad).all() for p in models.parameters())
+    with torch.no_grad():
+        for k in range(K):
+            want, _ = latent_sde_loss(
+                RP.unstack_replica(models, k), xs, ts,
+                torch.Generator(device=cuda).manual_seed(30 + k),
+                dt=1.0 / 32, fused=True)
+            np.testing.assert_allclose(float(losses[k]), float(want),
+                                       rtol=1e-5)
+
+
+# --------------------------------------------------------------------------- #
+#  srid2 SRK (kernel 15) and Philox normals (kernel 16)                       #
+# --------------------------------------------------------------------------- #
+
+def _srk_case(device, B, d, n, dtype, seed=0):
+    from torchsde_tpu_torch.core import integrate as TI
+    rng = np.random.default_rng(seed)
+    sigma = 1 / (1 + np.exp(-rng.standard_normal(d)))
+    mu = -sigma ** 2 - 1 / (1 + np.exp(-rng.standard_normal(d)))
+    grid = TI.build_step_grid(0.0, 1.0, 1.0 / n)
+    W, U, _ = TI.sample_grid_noise(
+        torch.Generator(device=device).manual_seed(seed), grid, (B, d), dtype,
+        device, needs_U=True)
+    y0 = torch.as_tensor(rng.uniform(0.05, 0.2, (B, d)), dtype=dtype,
+                         device=device)
+    params = tuple(torch.as_tensor(p, dtype=dtype, device=device)
+                   for p in (mu, sigma))
+    return y0, W, U, params
+
+
+@pytest.mark.parametrize("B,d,n", [(1, 1, 1), (37, 5, 9), (300, 3, 64),
+                                   (2048, 16, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_srk_kernel_matches_plain(cuda, B, d, n, dtype):
+    """Kernel 15 against its plain version, with a drift that reads t and a
+    parameter-free diffusion too: 2e-5 of scale in float32, 1e-12 in
+    float64."""
+    import torchsde_tpu_torch.ops.srk_fused as SF
+    f = SF.Elementwise(lambda t, y, mu, sigma: mu * y + 0.1 * torch.sin(t) * y,
+                       "p0 * y + T(0.1) * sin(t) * y")
+    g = SF.Elementwise(lambda t, y, mu, sigma: sigma * y, "p1 * y")
+    y0, W, U, params = _srk_case(cuda, B, d, n, dtype)
+    before = SF.launches
+    got = SF.srk_solve_fused(f, g, y0, 0.25, 1.0 / n, n, W, U, params)
+    assert SF.launches == before + 1
+    want = SF.srk_solve_plain(f, g, y0, 0.25, 1.0 / n, n, W, U, params)
+    torch.cuda.synchronize()
+    tol = (2e-5 if dtype == torch.float32 else 1e-12) * float(
+        want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    no_params = SF.Elementwise(lambda t, y: 0.3 * torch.ones_like(y), "0.3")
+    drift = SF.Elementwise(lambda t, y: -y, "-y")
+    got = SF.srk_solve_fused(drift, no_params, y0, 0.0, 1.0 / n, n, W, U)
+    want = SF.srk_solve_plain(drift, no_params, y0, 0.0, 1.0 / n, n, W, U)
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+def test_srk_kernel_refuses_what_it_cannot_run(cuda):
+    import torchsde_tpu_torch.ops.srk_fused as SF
+    y0, W, U, params = _srk_case(cuda, 8, 2, 4, torch.float32)
+    f = SF.Elementwise(lambda t, y, mu, sigma: mu * y, "p0 * y")
+    with pytest.raises(ValueError, match="cuda_expr"):
+        SF.srk_solve_fused(lambda t, y, mu, sigma: mu * y, f, y0, 0.0, 0.25,
+                           4, W, U, params)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        SF.srk_solve_fused(f, f, y0.half(), 0.0, 0.25, 4, W.half(), U.half(),
+                           params)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        SF.srk_solve_fused(f, f, y0, 0.0, 0.25, 4, W[:, :, :1], U, params)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        SF.srk_solve_fused(SF.Elementwise(f.torch_fn, "p0 * * y"), f, y0,
+                           0.0, 0.25, 4, W, U, params)
+
+
+@pytest.mark.parametrize("shape", [(1,), (7,), (3, 5, 9), (128, 1024, 9)])
+def test_philox_kernel_matches_plain(cuda, shape):
+    import torchsde_tpu_torch.ops.prng as PR
+    seed = torch.tensor([11], dtype=torch.int32, device=cuda)
+    before = PR.launches
+    got = PR.philox_normal(seed, shape)
+    assert PR.launches == before + 1 and got.shape == shape
+    want = PR.philox_normal_plain(seed, shape)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+    torch.testing.assert_close(PR.philox_normal(11, shape, device=cuda), got,
+                               rtol=0, atol=0)
+    cpu = PR.philox_normal_plain(11, shape, device="cpu")
+    torch.testing.assert_close(got.cpu(), cpu, rtol=0, atol=2e-6)
+
+
+def test_sdeint_srk_philox_launches_kernel_16_twice(cuda):
+    import torchsde_tpu_torch as ttsde
+    import torchsde_tpu_torch.ops.prng as PR
+
+    class Gbm(ttsde.SDEIto):
+        def __init__(self):
+            super().__init__(noise_type="diagonal")
+
+        def f(self, t, y):
+            return -0.5 * y
+
+        def g(self, t, y):
+            return 0.3 * y
+
+    y0 = torch.ones((64, 3), device=cuda)
+    before = PR.launches
+    ys = ttsde.sdeint(Gbm(), y0, [0.0, 1.0], method="srk", dt=0.1,
+                      rng_impl="philox",
+                      generator=torch.Generator(device=cuda).manual_seed(1))
+    assert PR.launches == before + 2 and torch.isfinite(ys).all()
+    again = ttsde.sdeint(Gbm(), y0, [0.0, 1.0], method="srk", dt=0.1,
+                         rng_impl="philox",
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    assert torch.equal(ys, again)

@@ -4,12 +4,16 @@ It runs on PyTorch (eagerly: JAX's ``jit`` has no counterpart), takes an
 explicit ``torch.Generator`` wherever the JAX package takes a key, and
 replaces the JAX package's Pallas TPU kernels with CUDA kernels written for
 Hopper. It never imports JAX. Ported so far: fixed-step ``sdeint`` with
-Euler (Itô, with ``logqp``) and reversible Heun (Stratonovich); the
-latent-SDE model with its whole-solve kernels (``ops/latent_fused.py``);
-the SDE-GAN model with the kernels of its generator and critic solves
-(``ops/gan_fused.py``); and ``fused_sdeint`` and ``fused_sdeint_logqp``,
-the whole-solve kernels of any SDE whose drift and diffusion (and, with the
-KL channel, prior drift) are MLP towers (``ops/fused_solve.py``).
+Euler (Itô, with ``logqp``), reversible Heun (Stratonovich) and SRK (Itô),
+its default noise drawn from the caller's generator or from the port's
+Philox stream (``rng_impl``, ``ops/prng.py``); the latent-SDE model with
+its whole-solve kernels (``ops/latent_fused.py``), for one model or K
+stacked replicas (``parallel/replicas.py``); the SDE-GAN model with the
+kernels of its generator and critic solves (``ops/gan_fused.py``);
+``fused_sdeint`` and ``fused_sdeint_logqp``, the whole-solve kernels of any
+SDE whose drift and diffusion (and, with the KL channel, prior drift) are
+MLP towers (``ops/fused_solve.py``); and the whole srid2 solve of an
+elementwise diagonal SDE (``ops/srk_fused.py``).
 """
 
 from .brownian.base import BaseBrownian

@@ -13,6 +13,13 @@ import math
 import numpy as np
 import torch
 
+from ..ops import prng
+
+# Sources of the default noise's normals: the generator's own stream, or
+# the port's Philox stream seeded from it (ops/prng.py, kernel 16 on the
+# card), the counterpart of the JAX package's rng_impl='pallas'.
+RNG_IMPLS = ("generator", "philox")
+
 
 def build_step_grid(t0, t1, dt):
     """Host-side step grid in float64: t0, t0+dt, ..., capped at t1 (the last
@@ -24,24 +31,55 @@ def build_step_grid(t0, t1, dt):
     return grid
 
 
+def check_rng_impl(rng_impl):
+    if rng_impl not in RNG_IMPLS:
+        raise ValueError(f"rng_impl must be one of {RNG_IMPLS}, got "
+                         f"{rng_impl!r}")
+
+
 def sample_grid_noise(generator, grid, size, dtype, device=None,
-                      needs_U=False, needs_A=False):
+                      needs_U=False, needs_A=False, rng_impl="generator"):
     """I.i.d. per-step Brownian increments for a fixed step grid, in one pass.
 
     Returns ``(W, U, A)`` with ``W`` of shape ``(N, *size)``, each increment
-    ``N(0, 1)`` from ``generator`` scaled by ``sqrt(dt)``, where the step
-    widths are the float64 grid differences cast to ``dtype``. Only the W
-    channel is ported: ``U`` and ``A`` are None."""
-    if needs_U or needs_A:
+    ``N(0, 1)`` scaled by ``sqrt(dt)``, where the step widths are the
+    float64 grid differences cast to ``dtype``. With ``needs_U`` also the
+    space-time Levy integral ``U = dt * (W / 2 + H)`` with an independent
+    ``H ~ N(0, dt / 12)``; the A channel is not ported, and ``A`` is None.
+
+    ``rng_impl='generator'`` draws the normals from ``generator`` (W's, then
+    H's). ``rng_impl='philox'`` draws one seed from it, ``randint(0,
+    2**31 - 1)`` kept as a one-element int32 tensor on ``device`` (no host
+    sync), and takes W's normals from the Philox stream of that seed and
+    H's from the seed plus one (``ops/prng.philox_normal``: the CUDA kernel
+    on the card, its plain version on the CPU)."""
+    check_rng_impl(rng_impl)
+    if needs_A:
         raise NotImplementedError(
-            "the U and A noise channels are not ported to torchsde_tpu_torch "
-            "yet; only solvers that need W alone (euler) run")
+            "the A noise channel is not ported to torchsde_tpu_torch yet; "
+            "only solvers that need W and U (euler, reversible_heun, srk) "
+            "run")
     n = len(grid) - 1
-    dts = torch.as_tensor(np.diff(grid), dtype=dtype, device=device)
-    normal = torch.randn((n, *size), generator=generator, dtype=dtype,
-                         device=device)
-    W = normal * torch.sqrt(dts).reshape((n,) + (1,) * len(size))
-    return W, None, None
+    shape = (n, *size)
+    dts = torch.as_tensor(np.diff(grid), dtype=dtype,
+                          device=device).reshape((n,) + (1,) * len(size))
+    if rng_impl == "philox":
+        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             dtype=torch.int32, device=device)
+        normal = prng.philox_normal(seed, shape, dtype, device)
+    else:
+        normal = torch.randn(shape, generator=generator, dtype=dtype,
+                             device=device)
+    W = normal * torch.sqrt(dts)
+    U = None
+    if needs_U:
+        if rng_impl == "philox":
+            normal_h = prng.philox_normal(seed + 1, shape, dtype, device)
+        else:
+            normal_h = torch.randn(shape, generator=generator, dtype=dtype,
+                                   device=device)
+        U = dts * (0.5 * W + normal_h * torch.sqrt(dts / 12.0))
+    return W, U, None
 
 
 def precompute_bm_noise(bm, grid, needs_U, needs_A):

@@ -1,10 +1,12 @@
 """Public forward-integration entry point (counterpart of
 ``torchsde_tpu/core/sdeint.py``).
 
-Ported: fixed-step solves with concrete ``ts``, the default noise source and
-explicit Brownian objects, ``logqp``, ``names`` and the contract checks with
-the JAX package's wording. Not ported yet: adaptive stepping, the
-sparse-output and traced-``ts`` paths, and in-loop noise generation.
+Ported: fixed-step solves with concrete ``ts``, the default noise source
+(with ``rng_impl``) and explicit Brownian objects, ``logqp``, ``names`` and
+the contract checks with the JAX package's wording. Not ported yet:
+adaptive stepping, the sparse-output and traced-``ts`` paths, and in-loop
+noise generation (and with it the JAX package's warning that
+``rng_impl='pallas'`` does not reach in-loop noise).
 """
 
 import numpy as np
@@ -29,17 +31,22 @@ def sdeint(sde,
            extra=False,
            extra_solver_state=None,
            generator=None,
+           rng_impl="generator",
            **unused_kwargs):
     """Numerically integrate an SDE on a fixed step grid of width ``dt``.
 
     ``generator`` (a ``torch.Generator`` on ``y0``'s device) seeds the
     default Brownian noise when ``bm`` is not supplied; without it the noise
-    comes from PyTorch's default generator. Returns ``ys`` of shape
-    ``(len(ts), batch, channels)``, then the per-interval ``log_ratio`` when
-    ``logqp`` and the final solver state when ``extra``.
+    comes from PyTorch's default generator. ``rng_impl`` picks the default
+    noise's normals: ``"generator"`` (the generator's own stream) or
+    ``"philox"`` (the port's Philox stream seeded from the generator; on the
+    card a CUDA kernel, see ``core/integrate.sample_grid_noise``). Returns
+    ``ys`` of shape ``(len(ts), batch, channels)``, then the per-interval
+    ``log_ratio`` when ``logqp`` and the final solver state when ``extra``.
     """
     misc.handle_unused_kwargs(unused_kwargs, msg="`sdeint`")
     del unused_kwargs
+    integrate.check_rng_impl(rng_impl)
     if adaptive:
         raise NotImplementedError(
             "adaptive stepping is not ported to torchsde_tpu_torch yet")
@@ -60,7 +67,8 @@ def sdeint(sde,
     if isinstance(bm, _DefaultNoise):
         noise_xs = integrate.sample_grid_noise(
             bm.generator, grid, bm.shape, bm.dtype, bm.device,
-            needs_U=solver.needs_U, needs_A=solver.needs_A)
+            needs_U=solver.needs_U, needs_A=solver.needs_A,
+            rng_impl=rng_impl)
     else:
         noise_xs = integrate.precompute_bm_noise(bm, grid, solver.needs_U,
                                                  solver.needs_A)

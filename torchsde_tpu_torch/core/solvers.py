@@ -2,9 +2,14 @@
 
 ``step`` is a function ``(t0, t1, y0, extra0, noise) -> (y1, extra1)``; the
 Brownian increments are handed in by the integrator. Ported so far:
-Euler–Maruyama (Itô) and reversible Heun (Stratonovich).
+Euler–Maruyama (Itô), reversible Heun (Stratonovich) and the stochastic
+Runge–Kutta method SRK (Itô: srid2 for diagonal and scalar noise, sra1 for
+additive noise).
 """
 
+import torch
+
+from . import tableaus
 from ..settings import LEVY_AREA_APPROXIMATIONS, METHODS, NOISE_TYPES, SDE_TYPES
 
 _ALL_LEVY = tuple(LEVY_AREA_APPROXIMATIONS.all())
@@ -100,9 +105,95 @@ class ReversibleHeun(BaseSDESolver):
         return y1, (f1, g1, z1)
 
 
+class SRK(BaseSDESolver):
+    """Strong order 1.5 stochastic Runge-Kutta (Roessler 2010): tableau
+    srid2 for diagonal and scalar noise, sra1 for additive noise. Needs the
+    space-time Levy integral U beside each increment."""
+    strong_order = 1.5
+    weak_order = 1.5
+    sde_type = SDE_TYPES.ito
+    noise_types = (NOISE_TYPES.additive, NOISE_TYPES.diagonal,
+                   NOISE_TYPES.scalar)
+    levy_area_approximations = (LEVY_AREA_APPROXIMATIONS.space_time,
+                                LEVY_AREA_APPROXIMATIONS.davie,
+                                LEVY_AREA_APPROXIMATIONS.foster)
+    needs_U = True
+
+    def __init__(self, sde, **kwargs):
+        if getattr(sde, "is_adjoint_sde", False):
+            raise ValueError(
+                "Stochastic Runge-Kutta methods cannot be used for adjoint SDEs, "
+                "because it requires direct access to the diffusion, whilst adjoint "
+                "SDEs rely on a more efficient diffusion-vector product. Use a "
+                "different method instead.")
+        super().__init__(sde=sde, **kwargs)
+
+    def step(self, t0, t1, y0, extra0, noise):
+        if self.sde.noise_type == NOISE_TYPES.additive:
+            return self._additive_step(t0, t1, y0, extra0, noise)
+        return self._diagonal_or_scalar_step(t0, t1, y0, extra0, noise)
+
+    def _diagonal_or_scalar_step(self, t0, t1, y0, extra0, noise):
+        del extra0
+        tab = tableaus.SRID2
+        dt = t1 - t0
+        rdt = 1.0 / dt
+        sqrt_dt = torch.sqrt(dt.to(noise[0].dtype))
+        I_k, I_k0 = noise[0], noise[1]
+        I_kk = (I_k ** 2 - dt) * 0.5
+        I_kkk = (I_k ** 3 - 3 * dt * I_k) * (1.0 / 6.0)
+
+        y1 = y0
+        H0, H1 = [], []
+        for s in range(tab.STAGES):
+            H0s, H1s = y0, y0
+            for j in range(s):
+                f = self.sde.f(t0 + tab.C0[j] * dt, H0[j])
+                g = self.sde.g(t0 + tab.C1[j] * dt, H1[j])
+                g = g.squeeze(2) if g.ndim == 3 else g
+                H0s = H0s + tab.A0[s][j] * f * dt + tab.B0[s][j] * g * I_k0 * rdt
+                H1s = H1s + tab.A1[s][j] * f * dt + tab.B1[s][j] * g * sqrt_dt
+            H0.append(H0s)
+            H1.append(H1s)
+
+            f = self.sde.f(t0 + tab.C0[s] * dt, H0s)
+            g_weight = (tab.beta1[s] * I_k +
+                        tab.beta2[s] * I_kk / sqrt_dt +
+                        tab.beta3[s] * I_k0 * rdt +
+                        tab.beta4[s] * I_kkk * rdt)
+            g_prod = self.sde.g_prod(t0 + tab.C1[s] * dt, H1s, g_weight)
+            y1 = y1 + tab.alpha[s] * f * dt + g_prod
+        return y1, ()
+
+    def _additive_step(self, t0, t1, y0, extra0, noise):
+        del extra0
+        tab = tableaus.SRA1
+        dt = t1 - t0
+        rdt = 1.0 / dt
+        I_k, I_k0 = noise[0], noise[1]
+
+        y1 = y0
+        H0 = []
+        for i in range(tab.STAGES):
+            H0i = y0
+            for j in range(i):
+                f = self.sde.f(t0 + tab.C0[j] * dt, H0[j])
+                g_weight = tab.B0[i][j] * I_k0 * rdt
+                g_prod = self.sde.g_prod(t0 + tab.C1[j] * dt, y0, g_weight)
+                H0i = H0i + tab.A0[i][j] * f * dt + g_prod
+            H0.append(H0i)
+
+            f = self.sde.f(t0 + tab.C0[i] * dt, H0i)
+            g_weight = tab.beta1[i] * I_k + tab.beta2[i] * I_k0 * rdt
+            g_prod = self.sde.g_prod(t0 + tab.C1[i] * dt, y0, g_weight)
+            y1 = y1 + tab.alpha[i] * f * dt + g_prod
+        return y1, ()
+
+
 SOLVER_REGISTRY = {
     METHODS.euler: {SDE_TYPES.ito: Euler},
     METHODS.reversible_heun: {SDE_TYPES.stratonovich: ReversibleHeun},
+    METHODS.srk: {SDE_TYPES.ito: SRK},
 }
 
 

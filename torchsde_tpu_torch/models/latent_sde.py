@@ -18,7 +18,8 @@ from torch import nn
 
 from .layers import GRU, Linear, MLP, softplus, uniform
 from ..core.sdeint import host_times, sdeint
-from ..ops.latent_fused import latent_logqp_solve_fused
+from ..ops.latent_fused import (latent_logqp_solve_fused,
+                                latent_logqp_solve_fused_multi)
 from ..utils.misc import resolve_device
 
 
@@ -185,6 +186,16 @@ def latent_sde_loss(model, xs, ts, generator=None, noise_std=0.01,
                                logqp=True, generator=generator,
                                **solve_kwargs)
 
+    loss, log_pxs, logqp = _elbo(model, xs, zs, log_ratio, qz0_mean,
+                                 qz0_logstd, noise_std, kl_weight)
+    return loss, dict(log_pxs=log_pxs, logqp=logqp)
+
+
+def _elbo(model, xs, zs, log_ratio, qz0_mean, qz0_logstd, noise_std,
+          kl_weight):
+    """The loss from a solve's states and KL increments: the negative
+    reconstruction log-likelihood under the projector plus the weighted KL
+    at t0 and along the path. Returns the loss, log_pxs and the KL."""
     _xs = model.projector(zs)
     log_pxs = torch.sum(torch.mean(_normal_logp(xs, _xs, noise_std), dim=1))
 
@@ -193,7 +204,73 @@ def latent_sde_loss(model, xs, ts, generator=None, noise_std=0.01,
                         model.pz0_logstd), dim=0))
     logqp_path = torch.mean(torch.sum(log_ratio, dim=0))
     loss = -log_pxs + kl_weight * (logqp0 + logqp_path)
-    return loss, dict(log_pxs=log_pxs, logqp=logqp0 + logqp_path)
+    return loss, log_pxs, logqp0 + logqp_path
+
+
+def latent_sde_loss_multi(models, xs, ts, generators, noise_std=0.01,
+                          kl_weight=1.0, dt=1e-2, fused=False):
+    """ELBO losses of K independent replicas, the counterpart of the JAX
+    package's ``latent_sde_loss_multi``.
+
+    ``models`` is a :class:`torchsde_tpu_torch.parallel.replicas.Replicas`
+    of LatentSDEs (``stack_replicas``); ``generators`` holds K generators,
+    the counterpart of the JAX keys (K,); ``xs`` is shared (T,B,D) or per
+    replica (K,T,B,D). Replica k draws from ``generators[k]`` in the order
+    ``latent_sde_loss(replica_k, xs_k, ts, generators[k])`` draws (eps,
+    then the solve noise), so its loss is that loss on the same generator
+    state.
+
+    ``fused=False`` runs ``latent_sde_loss`` (the ``sdeint`` route) on each
+    replica in a loop through ``functional_call``: where JAX vmaps the K
+    losses, the port's ``sdeint`` is a host loop that ``vmap`` cannot take,
+    and the schedule does not change what a replica computes.
+    ``fused=True`` runs the encoder, ``qz0_net`` and the loss tail on all
+    replicas at once under ``torch.func.vmap``, draws eps and the noise
+    generator by generator, and solves the K replicas as one
+    :class:`FusedLatentSolveMulti` (kernels 3 and 4 on the card).
+
+    Returns ``(total, per_replica_losses)``; the gradient of the total gives
+    each replica its own gradients on the stacked parameters."""
+    K = len(models)
+    if len(generators) != K:
+        raise ValueError(f"expected {K} generators, one a replica, got "
+                         f"{len(generators)}")
+    xs_dim = 0 if xs.ndim == 4 else None
+
+    def xs_of(k):
+        return xs[k] if xs_dim == 0 else xs
+
+    if not fused:
+        def one(model, xs_k, generator):
+            return latent_sde_loss(model, xs_k, ts, generator,
+                                   noise_std=noise_std, kl_weight=kl_weight,
+                                   dt=dt)[0]
+
+        losses = torch.stack([models.call(k, one, xs_of(k), generators[k])
+                              for k in range(K)])
+        return losses.sum(), losses
+
+    ctx = models.vmap(LatentSDE.encode, xs, ts, in_dims=(xs_dim, None))
+    qz0 = models.vmap(lambda m, c0: m.qz0_net(c0), ctx[:, 0], in_dims=(0,))
+    qz0_mean, qz0_logstd = qz0.chunk(2, dim=-1)
+    eps = torch.stack([_standard_normal(qz0_mean.shape[1:], g,
+                                        qz0_mean.dtype, qz0_mean.device)
+                       for g in generators])
+    z0 = qz0_mean + torch.exp(qz0_logstd) * eps
+    ctx_ts = torch.as_tensor(host_times(ts), dtype=ctx.dtype,
+                             device=ctx.device)
+    contextualised = models.with_buffers(
+        _ctx_ts=ctx_ts.expand(K, -1), _ctx=ctx)
+    zs, log_ratio = latent_logqp_solve_fused_multi(contextualised, z0, ts,
+                                                   generators, dt)
+
+    def tail(model, xs_k, zs_k, lr_k, qm_k, ql_k):
+        return _elbo(model, xs_k, zs_k, lr_k, qm_k, ql_k, noise_std,
+                     kl_weight)[0]
+
+    losses = models.vmap(tail, xs, zs, log_ratio, qz0_mean, qz0_logstd,
+                         in_dims=(xs_dim, 0, 0, 0, 0))
+    return losses.sum(), losses
 
 
 def sample_posterior(model, xs, ts, generator=None, dt=1e-2, method="euler"):

@@ -8,6 +8,12 @@ into ``build/torch_kernels/`` beside the package (or
 ``$TSDE_TORCH_BUILD_DIR``), named by a hash of the sources, headers and
 flags, so an edited source is rebuilt. Without ``nvcc`` the build raises:
 there is no fallback.
+
+A kernel whose functions are only known at run time (the SRK solve of
+``ops/srk_fused.py`` over a user's drift and diffusion) is a generated
+source that includes a header of ``csrc/``: :func:`library_for_source`
+compiles it with the same flags into a library of its own, named by a hash
+of the text, the headers and the flags, and keeps it for the process.
 """
 
 import ctypes
@@ -22,9 +28,11 @@ SOURCES = ("latent_fused_fwd.cu", "latent_fused_bwd.cu", "gan_gen_fwd.cu",
            "gan_cde_fwd.cu", "gan_gen_bwd.cu", "gan_cde_bwd.cu",
            "tower_euler_fwd.cu", "tower_euler_bwd.cu", "tower_rh_fwd.cu",
            "tower_rh_bwd.cu", "tower_euler_logqp_fwd.cu",
-           "tower_euler_logqp_bwd.cu")
+           "tower_euler_logqp_bwd.cu", "philox_normal.cu")
 HEADERS = ("latent_fused_common.cuh", "gan_fused_common.cuh",
            "tower_solve_common.cuh")
+# Headers that generated sources include (library_for_source).
+SOURCE_HEADERS = ("srk_srid2.cuh",)
 BUILD_DIR = Path(os.environ.get(
     "TSDE_TORCH_BUILD_DIR",
     Path(__file__).resolve().parents[2] / "build" / "torch_kernels"))
@@ -42,6 +50,7 @@ BLOCK_SMEM_RESERVED = 1024
 # when the library was already built.
 build_log = ""
 _lib = None
+_source_libs = {}
 
 
 def find_nvcc():
@@ -66,6 +75,13 @@ def _bind(lib):
     bwd = lib.tsde_latent_fused_bwd
     bwd.argtypes = [P] * 29 + [I] * 7 + [P]
     bwd.restype = I
+    # K stacked replicas: K before the widths.
+    fwd_multi = lib.tsde_latent_fused_fwd_multi
+    fwd_multi.argtypes = [P] * 23 + [I] * 8 + [P]
+    fwd_multi.restype = I
+    bwd_multi = lib.tsde_latent_fused_bwd_multi
+    bwd_multi.argtypes = [P] * 29 + [I] * 8 + [P]
+    bwd_multi.restype = I
     for name in ("fwd", "bwd"):
         smem = getattr(lib, f"tsde_latent_fused_{name}_smem_bytes")
         smem.argtypes = [I, I, I]
@@ -102,7 +118,13 @@ def _bind(lib):
     lib.tsde_tower_smem_bytes.restype = ctypes.c_size_t
     lib.tsde_tower_blocks.argtypes = [I]
     lib.tsde_tower_blocks.restype = I
-    lib.tsde_cuda_error_string.argtypes = [I]
+    lib.tsde_philox_normal.argtypes = [P, P, ctypes.c_longlong, I, P]
+    lib.tsde_philox_normal.restype = I
+    _bind_error_string(lib)
+
+
+def _bind_error_string(lib):
+    lib.tsde_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tsde_cuda_error_string.restype = ctypes.c_char_p
 
 
@@ -151,6 +173,46 @@ def load_library():
     lib = ctypes.CDLL(str(out))
     _bind(lib)
     _lib = lib
+    return lib
+
+
+def source_library_path(name, text):
+    """Where :func:`library_for_source` puts the library of ``text``: named
+    by a hash of the text, the headers it may include and the flags."""
+    digest = hashlib.sha256(
+        text.encode()
+        + b"".join((_CSRC / h).read_bytes() for h in SOURCE_HEADERS)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def library_for_source(name, text):
+    """The shared library of a generated CUDA source ``text`` (which may
+    include the headers of ``csrc/``), compiled with the kernels' flags at
+    its first use and kept for the process; the caller binds its functions.
+    Raises RuntimeError without ``nvcc`` or when the source does not
+    compile."""
+    global build_log
+    if (name, text) in _source_libs:
+        return _source_libs[name, text]
+    out = source_library_path(name, text)
+    if not out.exists():
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        src = tmp.with_name(f"{out.stem}.cu")
+        src.write_text(text)
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-I", str(_CSRC), "-o", str(tmp),
+             str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        build_log += f"== {src.name}\n{proc.stdout}"
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({src.name}):\n{proc.stdout}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _bind_error_string(lib)
+    _source_libs[name, text] = lib
     return lib
 
 

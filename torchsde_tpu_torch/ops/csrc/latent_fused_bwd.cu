@@ -41,6 +41,15 @@
 // to the L outputs (layer 3, the g nets) are summed by warp shuffles and
 // then over the block's warps. Plain f32 FMAs, no fast math; tensor cores
 // are later work.
+//
+// K stacked replicas (tsde_latent_fused_bwd_multi) replace the Pallas
+// kernel _bwd_kernel_multi (launched by _fused_solve_multi_bwd_impl). The
+// replica is the grid's y axis, as in the forward: each block sweeps one
+// replica's tile, its partial row sits at (replica, block), and the
+// reduction sums each replica's own blocks in block order, so replica k's
+// gradients are bitwise those of a single sweep on its inputs. The partials
+// total K x 23 MB at the flagship, but only the resident blocks' rows
+// (132 of them, 24 MB) are live at a time.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -53,7 +62,6 @@ using namespace tsde_latent;
 
 constexpr int NT = 128;          // threads per block
 constexpr int NWARPS = NT / 32;
-constexpr int NW = 16;           // weights, in latent_fused.WEIGHT_NAMES order
 
 __host__ __device__ inline int row_stride(int H) { return H | 1; }
 
@@ -89,31 +97,20 @@ __host__ __device__ inline Layout make_layout(int L, int C, int H) {
   return s;
 }
 
-// Element counts of the 16 weight tensors (their gradients' layout in the
-// partial buffers and in the output).
-__host__ __device__ inline void weight_sizes(int L, int C, int H,
-                                             size_t (&n)[NW]) {
-  const size_t D = size_t(L) + C, h = H, l = L;
-  const size_t sizes[NW] = {D * h, h, h * h, h, h * l, l,
-                            l * h, h, h * h, h, h * l, l,
-                            l * h, l * h, l * h, l};
-  for (int i = 0; i < NW; ++i) n[i] = sizes[i];
-}
-
 struct Args {
-  const float* z0;       // (B, L)
-  const float* ctx;      // (T, B, C)
-  const int* ctx_idx;    // (n,)
-  const float* noise;    // (n, B, L)
-  const float* dts;      // (n,)
-  const float* w[NW];
-  const float* zs;       // (n, B, L): post-step states from the forward
-  const float* gz;       // (n, B, L)
-  const float* gq;       // (n, B, 1)
-  float* dz0;            // (B, L)
-  float* dctx;           // (T, B, C), zeroed by the caller
-  float* dnoise;         // (n, B, L)
-  float* partials;       // (blocks, P)
+  const float* z0;       // ([K,] B, L)
+  const float* ctx;      // ([K,] T, B, C)
+  const int* ctx_idx;    // (n,), shared by the replicas
+  const float* noise;    // ([K,] n, B, L)
+  const float* dts;      // (n,), shared by the replicas
+  const float* w[NW];    // each ([K,] ...)
+  const float* zs;       // ([K,] n, B, L): post-step states from the forward
+  const float* gz;       // ([K,] n, B, L)
+  const float* gq;       // ([K,] n, B, 1)
+  float* dz0;            // ([K,] B, L)
+  float* dctx;           // ([K,] T, B, C), zeroed by the caller
+  float* dnoise;         // ([K,] n, B, L)
+  float* partials;       // ([K,] blocks, P)
   size_t off[NW];        // offset of each weight's gradient in a partial
   size_t P;
   int B, L, C, H, T, n;
@@ -158,25 +155,42 @@ __global__ void __launch_bounds__(NT) latent_fused_bwd_kernel(const Args a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * TB;
 
-  copy_rows(sm + lay.fw1, a.w[0], D, H, ld);
-  copy_to_smem<NT>(sm + lay.fb1, a.w[1], H);
-  copy_rows(sm + lay.fw2, a.w[2], H, H, ld);
-  copy_to_smem<NT>(sm + lay.fb2, a.w[3], H);
-  copy_to_smem<NT>(sm + lay.fb3, a.w[5], L);
-  copy_rows(sm + lay.hw1, a.w[6], L, H, ld);
-  copy_to_smem<NT>(sm + lay.hb1, a.w[7], H);
-  copy_rows(sm + lay.hw2, a.w[8], H, H, ld);
-  copy_to_smem<NT>(sm + lay.hb2, a.w[9], H);
-  copy_to_smem<NT>(sm + lay.hb3, a.w[11], L);
+  // This block's replica.
+  const size_t rep = replica(), steps = size_t(a.n) * B * L;
+  const float* z0 = a.z0 + rep * B * L;
+  const float* ctx = a.ctx + rep * a.T * B * C;
+  const float* noise = a.noise + rep * steps;
+  const float* zs = a.zs + rep * steps;
+  const float* gz = a.gz + rep * steps;
+  const float* gq = a.gq + rep * a.n * B;
+  float* dz0 = a.dz0 + rep * B * L;
+  float* dctx = a.dctx + rep * a.T * B * C;
+  float* dnoise = a.dnoise + rep * steps;
+  size_t wsize[NW];
+  weight_sizes(L, C, H, wsize);
+  const float* wr[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) wr[i] = a.w[i] + rep * wsize[i];
+
+  copy_rows(sm + lay.fw1, wr[0], D, H, ld);
+  copy_to_smem<NT>(sm + lay.fb1, wr[1], H);
+  copy_rows(sm + lay.fw2, wr[2], H, H, ld);
+  copy_to_smem<NT>(sm + lay.fb2, wr[3], H);
+  copy_to_smem<NT>(sm + lay.fb3, wr[5], L);
+  copy_rows(sm + lay.hw1, wr[6], L, H, ld);
+  copy_to_smem<NT>(sm + lay.hb1, wr[7], H);
+  copy_rows(sm + lay.hw2, wr[8], H, H, ld);
+  copy_to_smem<NT>(sm + lay.hb2, wr[9], H);
+  copy_to_smem<NT>(sm + lay.hb3, wr[11], L);
   for (int e = tid; e < H * L; e += NT) {      // (H, L) -> [l][k]
     const int k = e / L, l = e % L;
-    sm[lay.fw3t + l * ld + k] = a.w[4][e];
-    sm[lay.hw3t + l * ld + k] = a.w[10][e];
+    sm[lay.fw3t + l * ld + k] = wr[4][e];
+    sm[lay.hw3t + l * ld + k] = wr[10][e];
   }
-  copy_to_smem<NT>(sm + lay.gw1, a.w[12], L * H);  // (L,1,H) as [l][k]
-  copy_to_smem<NT>(sm + lay.gb1, a.w[13], L * H);
-  copy_to_smem<NT>(sm + lay.gw2, a.w[14], L * H);  // (L,H,1) as [l][k]
-  copy_to_smem<NT>(sm + lay.gb2, a.w[15], L);
+  copy_to_smem<NT>(sm + lay.gw1, wr[12], L * H);  // (L,1,H) as [l][k]
+  copy_to_smem<NT>(sm + lay.gb1, wr[13], L * H);
+  copy_to_smem<NT>(sm + lay.gw2, wr[14], L * H);  // (L,H,1) as [l][k]
+  copy_to_smem<NT>(sm + lay.gb2, wr[15], L);
 
   const float* fw1 = sm + lay.fw1;
   const float* fb1 = sm + lay.fb1;
@@ -203,7 +217,7 @@ __global__ void __launch_bounds__(NT) latent_fused_bwd_kernel(const Args a) {
   float* dl = sm + lay.dl;
   float* dzs = sm + lay.dz;
 
-  float* part = a.partials + size_t(blockIdx.x) * a.P;
+  float* part = a.partials + (rep * gridDim.x + blockIdx.x) * a.P;
   float* pw[NW];
 #pragma unroll
   for (int i = 0; i < NW; ++i) pw[i] = part + a.off[i];
@@ -217,9 +231,9 @@ __global__ void __launch_bounds__(NT) latent_fused_bwd_kernel(const Args a) {
 
     // A. x = [pre-step z | this step's context rows]. Rows past the end of
     // the batch compute on zeros, get zero cotangents and are never stored.
-    const float* zpre = s == 0 ? a.z0 : a.zs + size_t(s - 1) * B * L;
+    const float* zpre = s == 0 ? z0 : zs + size_t(s - 1) * B * L;
     const int ci = min(max(a.ctx_idx[s], 0), a.T - 1);
-    const float* cstep = a.ctx + size_t(ci) * B * C;
+    const float* cstep = ctx + size_t(ci) * B * C;
     for (int e = tid; e < TB * D; e += NT) {
       const int r = e / D, k = e % D, row = row0 + r;
       float v = 0.f;
@@ -333,7 +347,7 @@ __global__ void __launch_bounds__(NT) latent_fused_bwd_kernel(const Args a) {
       const int r = tid, row = row0 + r;
       const bool valid = row < B;
       const float dt = a.dts[s];
-      if (valid) ginc += a.gq[size_t(s) * B + row];
+      if (valid) ginc += gq[size_t(s) * B + row];
       for (int l = 0; l < L; ++l) {
         float pf = 0.f, ph = 0.f, pg = 0.f;
         for (int w = 0; w < NWARPS; ++w) {
@@ -348,9 +362,9 @@ __global__ void __launch_bounds__(NT) latent_fused_bwd_kernel(const Args a) {
         const float gs = big ? g : EPS;
         const float u = (f - h) / gs;
         const size_t at = (size_t(s) * B + row) * L + l;
-        const float dz = dzs[l * TB + r] + (valid ? a.gz[at] : 0.f);
-        const float dW = valid ? a.noise[at] : 0.f;
-        if (valid) a.dnoise[at] = dz * g;
+        const float dz = dzs[l * TB + r] + (valid ? gz[at] : 0.f);
+        const float dW = valid ? noise[at] : 0.f;
+        if (valid) dnoise[at] = dz * g;
         const float du = ginc * u * dt;
         const float df = dz * dt + du / gs;
         const float dh = -du / gs;
@@ -544,7 +558,7 @@ __global__ void __launch_bounds__(NT) latent_fused_bwd_kernel(const Args a) {
       } else {
         for (int r = 0; r < TB; ++r) {
           const int row = row0 + r;
-          if (row < B) a.dctx[(size_t(ci) * B + row) * C + k - L] += dx[r];
+          if (row < B) dctx[(size_t(ci) * B + row) * C + k - L] += dx[r];
         }
       }
     }
@@ -553,15 +567,18 @@ __global__ void __launch_bounds__(NT) latent_fused_bwd_kernel(const Args a) {
 
   for (int e = tid; e < TB * L; e += NT) {
     const int r = e / L, l = e % L, row = row0 + r;
-    if (row < B) a.dz0[size_t(row) * L + l] = dzs[l * TB + r];
+    if (row < B) dz0[size_t(row) * L + l] = dzs[l * TB + r];
   }
 }
 
-// out[e] = sum over blocks of partials[b][e], in block order.
+// out[e] = sum over blocks of partials[b][e], in block order; replica
+// blockIdx.y sums its own blocks' partials into its own row of out.
 __global__ void latent_fused_bwd_reduce(const float* partials, int blocks,
                                         size_t P, float* out) {
   const size_t e = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= P) return;
+  partials += replica() * blocks * P;
+  out += replica() * P;
   float acc = 0.f;
   for (int b = 0; b < blocks; ++b) acc += partials[size_t(b) * P + e];
   out[e] = acc;
@@ -582,6 +599,57 @@ int tsde_latent_fused_bwd_blocks(int B) {
   return (B + tsde_latent::TB - 1) / tsde_latent::TB;
 }
 
+}  // extern "C"
+
+namespace {
+
+// Launches the sweeps of K stacked solves (K = 1: a single solve) and the
+// reduction on `stream`; returns cudaGetLastError() (0 on success).
+int launch(Args a, int K, float* dw, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (K <= 0 || a.B <= 0 || a.n <= 0) return 0;
+  size_t sizes[NW];
+  weight_sizes(a.L, a.C, a.H, sizes);
+  size_t P = 0;
+  for (int i = 0; i < NW; ++i) {
+    a.off[i] = P;
+    P += sizes[i];
+  }
+  a.P = P;
+  const size_t smem = tsde_latent_fused_bwd_smem_bytes(a.L, a.C, a.H);
+  err = cudaFuncSetAttribute(latent_fused_bwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = tsde_latent_fused_bwd_blocks(a.B);
+  latent_fused_bwd_kernel<<<dim3(blocks, K), NT, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int RT = 256;
+  const dim3 grid(static_cast<unsigned>((P + RT - 1) / RT), K);
+  latent_fused_bwd_reduce<<<grid, RT, 0, stream>>>(a.partials, blocks, P, dw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Args make_args(const float* z0, const float* ctx, const int* ctx_idx,
+               const float* noise, const float* dts, const float* const* w,
+               const float* zs, const float* gz, const float* gq, float* dz0,
+               float* dctx, float* dnoise, float* partials, int B, int L,
+               int C, int H, int T, int n) {
+  Args a;
+  a.z0 = z0; a.ctx = ctx; a.ctx_idx = ctx_idx; a.noise = noise; a.dts = dts;
+  for (int i = 0; i < NW; ++i) a.w[i] = w[i];
+  a.zs = zs; a.gz = gz; a.gq = gq;
+  a.dz0 = dz0; a.dctx = dctx; a.dnoise = dnoise; a.partials = partials;
+  a.B = B; a.L = L; a.C = C; a.H = H; a.T = T; a.n = n;
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
 // Launches the sweep and the reduction on `stream` and returns
 // cudaGetLastError() (0 on success). All pointers are device pointers to
 // contiguous float32 arrays, ctx_idx int32; weights in the order of
@@ -590,49 +658,30 @@ int tsde_latent_fused_bwd_blocks(int B) {
 // weights' total element count; dw receives their gradients back to back.
 int tsde_latent_fused_bwd(
     const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
-    const float* dts,
-    const float* f_w1, const float* f_b1, const float* f_w2, const float* f_b2,
-    const float* f_w3, const float* f_b3,
-    const float* h_w1, const float* h_b1, const float* h_w2, const float* h_b2,
-    const float* h_w3, const float* h_b3,
-    const float* g_w1, const float* g_b1, const float* g_w2, const float* g_b2,
-    const float* zs, const float* gz, const float* gq,
-    float* dz0, float* dctx, float* dnoise, float* partials, float* dw,
-    int B, int L, int C, int H, int T, int n, int device,
+    const float* dts, TSDE_WEIGHT_PARAMS, const float* zs, const float* gz,
+    const float* gq, float* dz0, float* dctx, float* dnoise, float* partials,
+    float* dw, int B, int L, int C, int H, int T, int n, int device,
     cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 0 || n <= 0) return 0;
-  Args a;
-  a.z0 = z0; a.ctx = ctx; a.ctx_idx = ctx_idx; a.noise = noise; a.dts = dts;
-  const float* w[NW] = {f_w1, f_b1, f_w2, f_b2, f_w3, f_b3,
-                        h_w1, h_b1, h_w2, h_b2, h_w3, h_b3,
-                        g_w1, g_b1, g_w2, g_b2};
-  size_t sizes[NW];
-  weight_sizes(L, C, H, sizes);
-  size_t P = 0;
-  for (int i = 0; i < NW; ++i) {
-    a.w[i] = w[i];
-    a.off[i] = P;
-    P += sizes[i];
-  }
-  a.zs = zs; a.gz = gz; a.gq = gq;
-  a.dz0 = dz0; a.dctx = dctx; a.dnoise = dnoise; a.partials = partials;
-  a.P = P;
-  a.B = B; a.L = L; a.C = C; a.H = H; a.T = T; a.n = n;
-  const size_t smem = tsde_latent_fused_bwd_smem_bytes(L, C, H);
-  err = cudaFuncSetAttribute(latent_fused_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = tsde_latent_fused_bwd_blocks(B);
-  latent_fused_bwd_kernel<<<blocks, NT, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int RT = 256;
-  latent_fused_bwd_reduce<<<static_cast<unsigned>((P + RT - 1) / RT), RT, 0,
-                            stream>>>(partials, blocks, P, dw);
-  return static_cast<int>(cudaGetLastError());
+  const float* w[NW] = TSDE_WEIGHTS;
+  return launch(make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
+                          dctx, dnoise, partials, B, L, C, H, T, n),
+                1, dw, device, stream);
+}
+
+// The same for K stacked replicas in one launch: every per-replica array
+// has a leading K axis (see tsde_latent_fused_fwd_multi), partials holds
+// K x tsde_latent_fused_bwd_blocks(B) x P floats and dw K x P: each
+// replica's weight gradients, summed over its own blocks in block order.
+int tsde_latent_fused_bwd_multi(
+    const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
+    const float* dts, TSDE_WEIGHT_PARAMS, const float* zs, const float* gz,
+    const float* gq, float* dz0, float* dctx, float* dnoise, float* partials,
+    float* dw, int K, int B, int L, int C, int H, int T, int n, int device,
+    cudaStream_t stream) {
+  const float* w[NW] = TSDE_WEIGHTS;
+  return launch(make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
+                          dctx, dnoise, partials, B, L, C, H, T, n),
+                K, dw, device, stream);
 }
 
 }  // extern "C"

@@ -29,6 +29,13 @@
 // reduced one warp per output with shuffles. Plain f32 FMAs: tensor cores,
 // TMA and bf16 are later work. The kernel allocates nothing and does not
 // synchronise the host.
+//
+// K stacked replicas (tsde_latent_fused_fwd_multi) replace the Pallas
+// kernel _fwd_kernel_multi (launched by _fused_solve_multi_fwd_impl), which
+// unrolls the K chains inside each grid step. Here the replica is the grid's
+// y axis instead: each block holds one replica's weights in shared memory
+// (one block an SM at the flagship), so K x 128 blocks run in about
+// ceil(128K / 132) waves and the bound is K times a single solve's.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -74,14 +81,14 @@ __host__ __device__ inline Layout make_layout(int L, int C, int H) {
 }
 
 struct Args {
-  const float* z0;       // (B, L)
-  const float* ctx;      // (T, B, C)
-  const int* ctx_idx;    // (n,)
-  const float* noise;    // (n, B, L)
-  const float* dts;      // (n,)
-  const float* w[16];    // f_w1 f_b1 f_w2 f_b2 f_w3 f_b3, h_*, g_w1 g_b1 g_w2 g_b2
-  float* zs;             // (n, B, L)
-  float* qs;             // (n, B, 1)
+  const float* z0;       // ([K,] B, L)
+  const float* ctx;      // ([K,] T, B, C)
+  const int* ctx_idx;    // (n,), shared by the replicas
+  const float* noise;    // ([K,] n, B, L)
+  const float* dts;      // (n,), shared by the replicas
+  const float* w[NW];    // f_w1 f_b1 f_w2 f_b2 f_w3 f_b3, h_*, g_w1 g_b1 g_w2 g_b2
+  float* zs;             // ([K,] n, B, L)
+  float* qs;             // ([K,] n, B, 1)
   int B, L, C, H, T, n;
 };
 
@@ -92,26 +99,39 @@ __global__ void __launch_bounds__(NT) latent_fused_fwd_kernel(const Args a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * TB;
 
+  // This block's replica.
+  const size_t rep = replica(), steps = size_t(a.n) * B * L;
+  const float* z0 = a.z0 + rep * B * L;
+  const float* ctx = a.ctx + rep * a.T * B * C;
+  const float* noise = a.noise + rep * steps;
+  float* zs = a.zs + rep * steps;
+  float* qs = a.qs + rep * a.n * B;
+  size_t wsize[NW];
+  weight_sizes(L, C, H, wsize);
+  const float* wr[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) wr[i] = a.w[i] + rep * wsize[i];
+
   // Weights into shared memory, once for the whole solve.
-  copy_to_smem<NT>(sm + lay.fw1, a.w[0], D * H);
-  copy_to_smem<NT>(sm + lay.fb1, a.w[1], H);
-  copy_to_smem<NT>(sm + lay.fw2, a.w[2], H * H);
-  copy_to_smem<NT>(sm + lay.fb2, a.w[3], H);
-  copy_to_smem<NT>(sm + lay.fb3, a.w[5], L);
-  copy_to_smem<NT>(sm + lay.hw1, a.w[6], L * H);
-  copy_to_smem<NT>(sm + lay.hb1, a.w[7], H);
-  copy_to_smem<NT>(sm + lay.hw2, a.w[8], H * H);
-  copy_to_smem<NT>(sm + lay.hb2, a.w[9], H);
-  copy_to_smem<NT>(sm + lay.hb3, a.w[11], L);
+  copy_to_smem<NT>(sm + lay.fw1, wr[0], D * H);
+  copy_to_smem<NT>(sm + lay.fb1, wr[1], H);
+  copy_to_smem<NT>(sm + lay.fw2, wr[2], H * H);
+  copy_to_smem<NT>(sm + lay.fb2, wr[3], H);
+  copy_to_smem<NT>(sm + lay.fb3, wr[5], L);
+  copy_to_smem<NT>(sm + lay.hw1, wr[6], L * H);
+  copy_to_smem<NT>(sm + lay.hb1, wr[7], H);
+  copy_to_smem<NT>(sm + lay.hw2, wr[8], H * H);
+  copy_to_smem<NT>(sm + lay.hb2, wr[9], H);
+  copy_to_smem<NT>(sm + lay.hb3, wr[11], L);
   for (int e = tid; e < H * L; e += NT) {      // (H, L) -> (L, H)
-    const int k = e / L, l = e % L;
-    sm[lay.fw3t + l * H + k] = a.w[4][e];
-    sm[lay.hw3t + l * H + k] = a.w[10][e];
+    const int j = e / L, l = e % L;
+    sm[lay.fw3t + l * H + j] = wr[4][e];
+    sm[lay.hw3t + l * H + j] = wr[10][e];
   }
-  copy_to_smem<NT>(sm + lay.gw1, a.w[12], L * H);  // (L,1,H) as (L,H)
-  copy_to_smem<NT>(sm + lay.gb1, a.w[13], L * H);
-  copy_to_smem<NT>(sm + lay.gw2, a.w[14], L * H);  // (L,H,1) as (L,H)
-  copy_to_smem<NT>(sm + lay.gb2, a.w[15], L);
+  copy_to_smem<NT>(sm + lay.gw1, wr[12], L * H);  // (L,1,H) as (L,H)
+  copy_to_smem<NT>(sm + lay.gb1, wr[13], L * H);
+  copy_to_smem<NT>(sm + lay.gw2, wr[14], L * H);  // (L,H,1) as (L,H)
+  copy_to_smem<NT>(sm + lay.gb2, wr[15], L);
 
   float* x = sm + lay.x;
   float* a1f = sm + lay.a1f;
@@ -122,7 +142,7 @@ __global__ void __launch_bounds__(NT) latent_fused_fwd_kernel(const Args a) {
   // Rows past the end of the batch compute on zeros and are never stored.
   for (int e = tid; e < L * TB; e += NT) {
     const int l = e / TB, r = e % TB, row = row0 + r;
-    x[l * TB + r] = row < B ? a.z0[size_t(row) * L + l] : 0.f;
+    x[l * TB + r] = row < B ? z0[size_t(row) * L + l] : 0.f;
   }
   float q = 0.f;                               // row `tid` for tid < TB
   __syncthreads();
@@ -130,7 +150,7 @@ __global__ void __launch_bounds__(NT) latent_fused_fwd_kernel(const Args a) {
   for (int s = 0; s < a.n; ++s) {
     // A. This step's context rows into x[L:].
     const int ci = min(max(a.ctx_idx[s], 0), a.T - 1);
-    const float* cstep = a.ctx + size_t(ci) * B * C;
+    const float* cstep = ctx + size_t(ci) * B * C;
     for (int e = tid; e < TB * C; e += NT) {
       const int r = e / C, c = e % C, row = row0 + r;
       x[(L + c) * TB + r] = row < B ? cstep[size_t(row) * C + c] : 0.f;
@@ -243,13 +263,13 @@ __global__ void __launch_bounds__(NT) latent_fused_fwd_kernel(const Args a) {
         const float u = (f - h) / gs;
         usum += u * u;
         const size_t at = (size_t(s) * B + row) * L + l;
-        const float dW = row < B ? a.noise[at] : 0.f;
+        const float dW = row < B ? noise[at] : 0.f;
         const float zn = x[l * TB + r] + f * dt + g * dW;
         x[l * TB + r] = zn;
-        if (row < B) a.zs[at] = zn;
+        if (row < B) zs[at] = zn;
       }
       q = q + 0.5f * usum * dt;
-      if (row < B) a.qs[size_t(s) * B + row] = q;
+      if (row < B) qs[size_t(s) * B + row] = q;
     }
   }
 }
@@ -267,37 +287,63 @@ const char* tsde_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+}  // extern "C"
+
+namespace {
+
+// Launches K stacked solves (K = 1: a single solve) on `stream` and returns
+// cudaGetLastError() (0 on success).
+int launch(const Args& a, int K, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (K <= 0 || a.B <= 0 || a.n <= 0) return 0;
+  const size_t smem = tsde_latent_fused_fwd_smem_bytes(a.L, a.C, a.H);
+  err = cudaFuncSetAttribute(latent_fused_fwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.B + TB - 1) / TB, K);
+  latent_fused_fwd_kernel<<<grid, NT, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Args make_args(const float* z0, const float* ctx, const int* ctx_idx,
+               const float* noise, const float* dts, const float* const* w,
+               float* zs, float* qs, int B, int L, int C, int H, int T, int n) {
+  Args a;
+  a.z0 = z0; a.ctx = ctx; a.ctx_idx = ctx_idx; a.noise = noise; a.dts = dts;
+  for (int i = 0; i < NW; ++i) a.w[i] = w[i];
+  a.zs = zs; a.qs = qs;
+  a.B = B; a.L = L; a.C = C; a.H = H; a.T = T; a.n = n;
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
 // Launches the solve on `stream` and returns cudaGetLastError() (0 on
 // success). All pointers are device pointers to contiguous float32 arrays,
 // ctx_idx int32; weights in the order of latent_fused.WEIGHT_NAMES.
 int tsde_latent_fused_fwd(
     const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
-    const float* dts,
-    const float* f_w1, const float* f_b1, const float* f_w2, const float* f_b2,
-    const float* f_w3, const float* f_b3,
-    const float* h_w1, const float* h_b1, const float* h_w2, const float* h_b2,
-    const float* h_w3, const float* h_b3,
-    const float* g_w1, const float* g_b1, const float* g_w2, const float* g_b2,
-    float* zs, float* qs, int B, int L, int C, int H, int T, int n,
-    int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Args a;
-  a.z0 = z0; a.ctx = ctx; a.ctx_idx = ctx_idx; a.noise = noise; a.dts = dts;
-  const float* w[16] = {f_w1, f_b1, f_w2, f_b2, f_w3, f_b3,
-                        h_w1, h_b1, h_w2, h_b2, h_w3, h_b3,
-                        g_w1, g_b1, g_w2, g_b2};
-  for (int i = 0; i < 16; ++i) a.w[i] = w[i];
-  a.zs = zs; a.qs = qs;
-  a.B = B; a.L = L; a.C = C; a.H = H; a.T = T; a.n = n;
-  if (B <= 0 || n <= 0) return 0;
-  const size_t smem = tsde_latent_fused_fwd_smem_bytes(L, C, H);
-  err = cudaFuncSetAttribute(latent_fused_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  latent_fused_fwd_kernel<<<(B + TB - 1) / TB, NT, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+    const float* dts, TSDE_WEIGHT_PARAMS, float* zs, float* qs, int B, int L,
+    int C, int H, int T, int n, int device, cudaStream_t stream) {
+  const float* w[NW] = TSDE_WEIGHTS;
+  return launch(make_args(z0, ctx, ctx_idx, noise, dts, w, zs, qs, B, L, C,
+                          H, T, n), 1, device, stream);
+}
+
+// The same for K stacked replicas in one launch: z0 (K,B,L), ctx (K,T,B,C),
+// noise (K,n,B,L), each weight (K, ...), zs (K,n,B,L) and qs (K,n,B,1);
+// ctx_idx (n,) and dts (n,) are shared.
+int tsde_latent_fused_fwd_multi(
+    const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
+    const float* dts, TSDE_WEIGHT_PARAMS, float* zs, float* qs, int K, int B,
+    int L, int C, int H, int T, int n, int device, cudaStream_t stream) {
+  const float* w[NW] = TSDE_WEIGHTS;
+  return launch(make_args(z0, ctx, ctx_idx, noise, dts, w, zs, qs, B, L, C,
+                          H, T, n), K, device, stream);
 }
 
 }  // extern "C"

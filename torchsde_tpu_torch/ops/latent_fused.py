@@ -27,6 +27,14 @@ versions (:func:`fused_solve_forward_plain`,
 :func:`fused_solve_backward_plain`: the same math as loops of PyTorch
 operators), a CUDA tensor to the kernels, which raise rather than fall back.
 ``launches`` and ``bwd_launches`` count the two kernels' launches.
+
+K independent replicas (the counterpart of the JAX package's
+``_fused_solve_multi``) solve in one launch of each kernel with the replica
+on the grid (``tsde_latent_fused_fwd_multi``, ``tsde_latent_fused_bwd_multi``):
+:class:`FusedLatentSolveMulti` takes every per-replica tensor and weight
+stacked on a leading K axis, and the replicas share ``ctx_idx`` and ``dts``.
+``torch.func.vmap`` cannot map a ctypes launch, so the stacking is written
+out. ``multi_launches`` and ``multi_bwd_launches`` count those launches.
 """
 
 import torch
@@ -43,11 +51,17 @@ _EPS = 1e-7   # stable_division clamp
 # caller reset them to 0).
 launches = 0
 bwd_launches = 0
+multi_launches = 0
+multi_bwd_launches = 0
 
 # Order of the solve's weight tensors, as :func:`solve_weights` returns them.
 WEIGHT_NAMES = ("f_w1", "f_b1", "f_w2", "f_b2", "f_w3", "f_b3",
                 "h_w1", "h_b1", "h_w2", "h_b2", "h_w3", "h_b3",
                 "g_w1", "g_b1", "g_w2", "g_b2")
+# The LatentSDE parameters behind them, by dotted name.
+WEIGHT_PARAMS = tuple(f"{net}_net.layers.{i}.{p}" for net in "fh"
+                      for i in range(3) for p in "wb") + tuple(
+                          f"g_nets.{i}" for i in range(4))
 
 
 def solve_weights(model):
@@ -179,43 +193,91 @@ def fused_solve_backward_plain(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
     return dz, dctx, dnoise, tuple(dw)
 
 
+def fused_solve_multi_forward_plain(z0, ctx, ctx_idx, noise, dts, weights):
+    """Kernel 3's function (K stacked solves) as a loop of PyTorch
+    operators: :func:`fused_solve_forward_plain` on each replica, stacked.
+    Every argument but ctx_idx and dts carries a leading K axis; returns zs
+    (K,n,B,L) and qs (K,n,B,1)."""
+    outs = [fused_solve_forward_plain(z0[k], ctx[k], ctx_idx, noise[k], dts,
+                                      [w[k] for w in weights])
+            for k in range(z0.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def fused_solve_multi_backward_plain(z0, ctx, ctx_idx, noise, dts, weights,
+                                     zs, gz, gq):
+    """Kernel 4's function as a loop of PyTorch operators:
+    :func:`fused_solve_backward_plain` on each replica, stacked. Returns dz0
+    (K,B,L), dctx (K,T,B,C), dnoise (K,n,B,L) and the weight gradients,
+    each (K, ...)."""
+    outs = [fused_solve_backward_plain(z0[k], ctx[k], ctx_idx, noise[k], dts,
+                                       [w[k] for w in weights], zs[k], gz[k],
+                                       gq[k])
+            for k in range(z0.shape[0])]
+    dz0, dctx, dnoise, dweights = zip(*outs)
+    return (torch.stack(dz0), torch.stack(dctx), torch.stack(dnoise),
+            tuple(torch.stack(d) for d in zip(*dweights)))
+
+
 def check_kernel_inputs(z0, ctx, ctx_idx, noise, dts, weights):
     """What the kernel takes: float32 contiguous tensors (ctx_idx int32) of
     matching shapes, all on one device. Raises ValueError on anything else."""
-    if z0.ndim != 2 or ctx.ndim != 3 or noise.ndim != 3:
-        raise ValueError("expected z0 (B,L), ctx (T,B,C), noise (n,B,L)")
-    B, L = z0.shape
-    T, _, C = ctx.shape
-    n = noise.shape[0]
-    if len(weights) != len(WEIGHT_NAMES):
-        raise ValueError(f"expected {len(WEIGHT_NAMES)} weight tensors")
-    H = weights[0].shape[-1]
-    D = L + C
-    want = {
-        "z0": (B, L), "ctx": (T, B, C), "ctx_idx": (n,), "noise": (n, B, L),
-        "dts": (n,),
-        "f_w1": (D, H), "f_b1": (H,), "f_w2": (H, H), "f_b2": (H,),
-        "f_w3": (H, L), "f_b3": (L,),
-        "h_w1": (L, H), "h_b1": (H,), "h_w2": (H, H), "h_b2": (H,),
-        "h_w3": (H, L), "h_b3": (L,),
-        "g_w1": (L, 1, H), "g_b1": (L, H), "g_w2": (L, H, 1), "g_b2": (L, 1),
-    }
-    tensors = dict(z0=z0, ctx=ctx, ctx_idx=ctx_idx, noise=noise, dts=dts,
-                   **dict(zip(WEIGHT_NAMES, weights)))
-    for name, t in tensors.items():
-        dtype = torch.int32 if name == "ctx_idx" else torch.float32
-        check_kernel_tensor(name, t, want[name], dtype, z0.device)
-    return B, L, C, H, T, n
+    return _check_solve(z0, ctx, ctx_idx, noise, dts, weights, None)
 
 
 def check_backward_inputs(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq):
     """What the backward kernel takes: the forward kernel's inputs, and zs,
     gz (n,B,L) and gq (n,B,1), float32 contiguous on the same device."""
-    B, L, C, H, T, n = check_kernel_inputs(z0, ctx, ctx_idx, noise, dts,
-                                           weights)
-    for name, t, shape in (("zs", zs, (n, B, L)), ("gz", gz, (n, B, L)),
-                           ("gq", gq, (n, B, 1))):
-        check_kernel_tensor(name, t, shape, torch.float32, z0.device)
+    return _check_solve(z0, ctx, ctx_idx, noise, dts, weights, None, zs, gz,
+                        gq)
+
+
+def check_multi_inputs(z0, ctx, ctx_idx, noise, dts, weights, *backward):
+    """What the K-replica kernels take: the single kernels' tensors with a
+    leading K axis on z0 (K,B,L), ctx (K,T,B,C), noise (K,n,B,L), every
+    weight and, for the backward kernel, zs, gz and gq; ctx_idx (n,) and
+    dts (n,) shared. Returns K, B, L, C, H, T, n."""
+    if z0.ndim != 3:
+        raise ValueError("expected z0 (K,B,L) for K stacked replicas")
+    K = z0.shape[0]
+    return (K, *_check_solve(z0, ctx, ctx_idx, noise, dts, weights, K,
+                             *backward))
+
+
+def _check_solve(z0, ctx, ctx_idx, noise, dts, weights, K, zs=None, gz=None,
+                 gq=None):
+    """The kernels' input checks; K is None for a single solve, else every
+    per-replica tensor carries a leading K axis."""
+    lead = () if K is None else (K,)
+    nd = len(lead)
+    if z0.ndim != 2 + nd or ctx.ndim != 3 + nd or noise.ndim != 3 + nd:
+        raise ValueError("expected z0 (B,L), ctx (T,B,C), noise (n,B,L)"
+                         + ("" if K is None else " each with a leading K"))
+    B, L = z0.shape[nd:]
+    T, _, C = ctx.shape[nd:]
+    n = noise.shape[nd]
+    if len(weights) != len(WEIGHT_NAMES):
+        raise ValueError(f"expected {len(WEIGHT_NAMES)} weight tensors")
+    H = weights[0].shape[-1]
+    D = L + C
+    want = {
+        "z0": (B, L), "ctx": (T, B, C), "noise": (n, B, L),
+        "f_w1": (D, H), "f_b1": (H,), "f_w2": (H, H), "f_b2": (H,),
+        "f_w3": (H, L), "f_b3": (L,),
+        "h_w1": (L, H), "h_b1": (H,), "h_w2": (H, H), "h_b2": (H,),
+        "h_w3": (H, L), "h_b3": (L,),
+        "g_w1": (L, 1, H), "g_b1": (L, H), "g_w2": (L, H, 1), "g_b2": (L, 1),
+        "zs": (n, B, L), "gz": (n, B, L), "gq": (n, B, 1),
+    }
+    tensors = dict(z0=z0, ctx=ctx, noise=noise,
+                   **dict(zip(WEIGHT_NAMES, weights)))
+    if zs is not None:
+        tensors.update(zs=zs, gz=gz, gq=gq)
+    for name, t in tensors.items():
+        check_kernel_tensor(name, t, lead + want[name], torch.float32,
+                            z0.device)
+    check_kernel_tensor("ctx_idx", ctx_idx, (n,), torch.int32, z0.device)
+    check_kernel_tensor("dts", dts, (n,), torch.float32, z0.device)
     return B, L, C, H, T, n
 
 
@@ -223,21 +285,9 @@ def fused_solve_forward_cuda(z0, ctx, ctx_idx, noise, dts, weights):
     """Launch the CUDA kernel on the current stream. Raises on tensors it
     does not take, on a failed build and on a refused launch."""
     global launches
-    if not z0.is_cuda:
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {z0.device}")
-    B, L, C, H, T, n = check_kernel_inputs(z0, ctx, ctx_idx, noise, dts,
-                                           weights)
-    lib = _build.library_for("tsde_latent_fused_fwd_smem_bytes", L, C, H)
-    zs = torch.empty((n, B, L), dtype=torch.float32, device=z0.device)
-    qs = torch.empty((n, B, 1), dtype=torch.float32, device=z0.device)
-    ptrs = [t.data_ptr() for t in (z0, ctx, ctx_idx, noise, dts, *weights,
-                                   zs, qs)]
-    stream = torch.cuda.current_stream(z0.device).cuda_stream
-    rc = lib.tsde_latent_fused_fwd(*ptrs, B, L, C, H, T, n,
-                                   z0.device.index or 0, stream)
-    _build.check_launch(lib, rc, "latent_fused_fwd")
+    out = _forward_cuda(z0, ctx, ctx_idx, noise, dts, weights, multi=False)
     launches += 1
-    return zs, qs
+    return out
 
 
 def fused_solve_backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
@@ -247,29 +297,97 @@ def fused_solve_backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
     :func:`fused_solve_backward_plain` returns. Raises on tensors it does not
     take, on a failed build and on a refused launch."""
     global bwd_launches
+    out = _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq,
+                         multi=False)
+    bwd_launches += 1
+    return out
+
+
+def fused_solve_multi_forward_cuda(z0, ctx, ctx_idx, noise, dts, weights):
+    """Launch kernel 3, K stacked solves with the replica on the grid, on the
+    current stream; returns what :func:`fused_solve_multi_forward_plain`
+    returns. Raises on tensors it does not take, on a failed build and on a
+    refused launch."""
+    global multi_launches
+    out = _forward_cuda(z0, ctx, ctx_idx, noise, dts, weights, multi=True)
+    multi_launches += 1
+    return out
+
+
+def fused_solve_multi_backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs,
+                                    gz, gq):
+    """Launch kernel 4, the reverse sweeps of K stacked solves and the sum of
+    each replica's blocks' weight-gradient partials, on the current stream;
+    returns what :func:`fused_solve_multi_backward_plain` returns. The
+    partials take K x blocks x P floats (185 MB at the flagship with K 8).
+    Raises on tensors it does not take, on a failed build and on a refused
+    launch."""
+    global multi_bwd_launches
+    out = _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq,
+                         multi=True)
+    multi_bwd_launches += 1
+    return out
+
+
+def _forward_cuda(z0, ctx, ctx_idx, noise, dts, weights, multi):
+    """One launch of the forward kernel, single (kernel 1) or on K stacked
+    replicas (kernel 3)."""
+    if not z0.is_cuda:
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {z0.device}")
+    if multi:
+        K, B, L, C, H, T, n = check_multi_inputs(z0, ctx, ctx_idx, noise, dts,
+                                                 weights)
+        lead = (K,)
+    else:
+        B, L, C, H, T, n = check_kernel_inputs(z0, ctx, ctx_idx, noise, dts,
+                                               weights)
+        lead = ()
+    lib = _build.library_for("tsde_latent_fused_fwd_smem_bytes", L, C, H)
+    zs = torch.empty(lead + (n, B, L), dtype=torch.float32, device=z0.device)
+    qs = torch.empty(lead + (n, B, 1), dtype=torch.float32, device=z0.device)
+    ptrs = [t.data_ptr() for t in (z0, ctx, ctx_idx, noise, dts, *weights,
+                                   zs, qs)]
+    stream = torch.cuda.current_stream(z0.device).cuda_stream
+    name = "latent_fused_fwd_multi" if multi else "latent_fused_fwd"
+    rc = getattr(lib, f"tsde_{name}")(*ptrs, *lead, B, L, C, H, T, n,
+                                      z0.device.index or 0, stream)
+    _build.check_launch(lib, rc, name)
+    return zs, qs
+
+
+def _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq, multi):
+    """One launch of the backward kernel, single (kernel 2) or on K stacked
+    replicas (kernel 4), with its partials' reduction."""
     if not z0.is_cuda:
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
                          f"{z0.device}")
-    B, L, C, H, T, n = check_backward_inputs(z0, ctx, ctx_idx, noise, dts,
-                                             weights, zs, gz, gq)
+    if multi:
+        K, B, L, C, H, T, n = check_multi_inputs(z0, ctx, ctx_idx, noise, dts,
+                                                 weights, zs, gz, gq)
+        lead = (K,)
+    else:
+        B, L, C, H, T, n = check_backward_inputs(z0, ctx, ctx_idx, noise, dts,
+                                                 weights, zs, gz, gq)
+        lead = ()
     lib = _build.library_for("tsde_latent_fused_bwd_smem_bytes", L, C, H)
     f32 = dict(dtype=torch.float32, device=z0.device)
-    dz0 = torch.zeros((B, L), **f32)
+    dz0 = torch.zeros(lead + (B, L), **f32)
     dctx = torch.zeros_like(ctx)
     dnoise = torch.empty_like(noise)
-    sizes = [w.numel() for w in weights]
-    partials = torch.empty((lib.tsde_latent_fused_bwd_blocks(B), sum(sizes)),
-                           **f32)
-    dw = torch.zeros(sum(sizes), **f32)
+    sizes = [w[0].numel() if multi else w.numel() for w in weights]
+    partials = torch.empty(
+        lead + (lib.tsde_latent_fused_bwd_blocks(B), sum(sizes)), **f32)
+    dw = torch.zeros(lead + (sum(sizes),), **f32)
     ptrs = [t.data_ptr() for t in (z0, ctx, ctx_idx, noise, dts, *weights,
                                    zs, gz, gq, dz0, dctx, dnoise, partials,
                                    dw)]
     stream = torch.cuda.current_stream(z0.device).cuda_stream
-    rc = lib.tsde_latent_fused_bwd(*ptrs, B, L, C, H, T, n,
-                                   z0.device.index or 0, stream)
-    _build.check_launch(lib, rc, "latent_fused_bwd")
-    bwd_launches += 1
-    dweights = tuple(d.view_as(w) for d, w in zip(dw.split(sizes), weights))
+    name = "latent_fused_bwd_multi" if multi else "latent_fused_bwd"
+    rc = getattr(lib, f"tsde_{name}")(*ptrs, *lead, B, L, C, H, T, n,
+                                      z0.device.index or 0, stream)
+    _build.check_launch(lib, rc, name)
+    dweights = tuple(d.reshape(w.shape)
+                     for d, w in zip(dw.split(sizes, dim=-1), weights))
     return dz0, dctx, dnoise, dweights
 
 
@@ -309,6 +427,33 @@ class FusedLatentSolve(torch.autograd.Function):
         return (dz0, dctx, None, dnoise, None, *dweights)
 
 
+class FusedLatentSolveMulti(torch.autograd.Function):
+    """K stacked solves as one differentiable operation (the counterpart of
+    the JAX package's ``_fused_solve_multi`` custom VJP): kernels 3 and 4
+    on CUDA tensors, their plain versions on CPU tensors, anything else
+    raises. Takes what :func:`fused_solve_multi_forward_plain` takes;
+    gradients flow to z0, ctx, noise and the weight stacks, none to ctx_idx
+    and dts."""
+
+    @staticmethod
+    def forward(fctx, z0, ctx, ctx_idx, noise, dts, *weights):
+        solve = _route(z0, fused_solve_multi_forward_plain,
+                       fused_solve_multi_forward_cuda)
+        zs, qs = solve(z0, ctx, ctx_idx, noise, dts, weights)
+        fctx.save_for_backward(z0, ctx, ctx_idx, noise, dts, zs, *weights)
+        return zs, qs
+
+    @staticmethod
+    def backward(fctx, gz, gq):
+        z0, ctx, ctx_idx, noise, dts, zs, *weights = fctx.saved_tensors
+        sweep = _route(z0, fused_solve_multi_backward_plain,
+                       fused_solve_multi_backward_cuda)
+        dz0, dctx, dnoise, dweights = sweep(
+            z0, ctx, ctx_idx, noise, dts, weights, zs, gz.contiguous(),
+            gq.contiguous())
+        return (dz0, dctx, None, dnoise, None, *dweights)
+
+
 def fused_solve_forward(z0, ctx, ctx_idx, noise, dts, weights):
     """Whole solve through :class:`FusedLatentSolve`: returns zs (n,B,L) and
     qs (n,B,1), differentiable, from the plain versions for CPU tensors and
@@ -335,30 +480,63 @@ def latent_logqp_solve_fused(model, z0, ts, generator, dt):
 def _prep_solve(model, z0, ts, generator, dt):
     """Step grid, noise, per-step context index and step widths of a solve:
     returns ``(z0, ctx, ctx_idx, noise, dts, grid)``."""
-    L = model.latent_size
-    B = z0.shape[0]
-    ts_np = host_times(ts)
-    grid = integrate.build_step_grid(ts_np[0], ts_np[-1], dt)
-
-    # The logqp state has one extra channel, so the sdeint route draws noise
-    # of size (B, L+1); drawing the same here keeps the two routes on one
-    # stream. The solve uses the first L channels (the logqp channel's
-    # diffusion is zero).
-    W, _, _ = integrate.sample_grid_noise(generator, grid, (B, L + 1),
-                                          z0.dtype, z0.device)
-    noise = W[..., :L].contiguous()
-
+    grid, t0s, dts = _step_grid(ts, dt, z0)
+    noise = _solve_noise(generator, grid, z0.shape[0], model.latent_size, z0)
     # Context row of each step: searchsorted(ctx_ts, t, 'left') at the
     # step's left end, as LatentSDE.ctx_index does on the sdeint route.
-    t0s = torch.as_tensor(grid[:-1], dtype=z0.dtype, device=z0.device)
     ctx_idx = model.ctx_index(t0s).to(torch.int32)
-
-    # dt by subtraction on the grid cast to the state dtype: what the sdeint
-    # route's steps use, not the cast float64 differences that scale the
-    # noise.
-    grid_dev = torch.as_tensor(grid, dtype=z0.dtype, device=z0.device)
-    dts = grid_dev[1:] - grid_dev[:-1]
     return z0, model._ctx.contiguous(), ctx_idx, noise, dts, grid
+
+
+def _step_grid(ts, dt, z0):
+    """The host step grid, its left ends and its widths on z0's device. dt
+    by subtraction on the grid cast to the state dtype: what the sdeint
+    route's steps use, not the cast float64 differences that scale the
+    noise."""
+    grid = integrate.build_step_grid(*host_times(ts)[[0, -1]], dt)
+    grid_dev = torch.as_tensor(grid, dtype=z0.dtype, device=z0.device)
+    return grid, grid_dev[:-1], grid_dev[1:] - grid_dev[:-1]
+
+
+def _solve_noise(generator, grid, B, L, z0):
+    """The solve's noise (n,B,L). The logqp state has one extra channel, so
+    the sdeint route draws noise of size (B, L+1); drawing the same here
+    keeps the two routes on one stream. The solve uses the first L channels
+    (the logqp channel's diffusion is zero)."""
+    W, _, _ = integrate.sample_grid_noise(generator, grid, (B, L + 1),
+                                          z0.dtype, z0.device)
+    return W[..., :L].contiguous()
+
+
+def latent_logqp_solve_fused_multi(models, z0, ts, generators, dt):
+    """K independent fused solves in one launch of kernel 3 (and of kernel
+    4 going back), the counterpart of the JAX package's
+    ``latent_logqp_solve_fused_multi``.
+
+    ``models`` is a :class:`torchsde_tpu_torch.parallel.replicas.Replicas`
+    of LatentSDEs contextualised on ``ts``: its buffers ``_ctx_ts`` (K,T)
+    and ``_ctx`` (K,T,B,C) hold each replica's context. ``z0`` is
+    (K,B,L), ``generators`` K generators, one a replica, each drawing the
+    noise that :func:`latent_logqp_solve_fused` draws from it. Gradients
+    reach the stacked parameters. Returns ``(zs, log_ratio)`` with leading
+    replica axes, (K,T,B,L) and (K,T-1,B)."""
+    module = models.module
+    solve_weights(module)                   # refuses other architectures
+    K, B, L = z0.shape
+    if len(generators) != K:
+        raise ValueError(f"expected {K} generators, one a replica, got "
+                         f"{len(generators)}")
+    grid, t0s, dts = _step_grid(ts, dt, z0)
+    noise = torch.stack([_solve_noise(g, grid, B, L, z0) for g in generators])
+    ctx_ts, ctx = models.buffers["_ctx_ts"], models.buffers["_ctx"]
+    ctx_idx = torch.searchsorted(ctx_ts[0], t0s.to(ctx_ts.dtype),
+                                 side="left").clamp(0, ctx.shape[1] - 1)
+    zs_steps, qs_steps = FusedLatentSolveMulti.apply(
+        z0, ctx.contiguous(), ctx_idx.to(torch.int32), noise, dts,
+        *(models.params[name] for name in WEIGHT_PARAMS))
+    zs, log_ratio = zip(*(_interp_tail(ts, grid, z0[k], zs_steps[k],
+                                       qs_steps[k], L) for k in range(K)))
+    return torch.stack(zs), torch.stack(log_ratio)
 
 
 def _interp_tail(ts, grid, z0, zs_steps, qs_steps, L):

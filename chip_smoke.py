@@ -11,9 +11,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    spills and barriers for each kernel;
 3. kernel 1 vs plain: the whole-solve forward kernel against its plain
    PyTorch version at the flagship shapes, with the error and median times;
-4. kernel 2 vs plain: the reverse-sweep kernel against its plain version on
-   the same seeded inputs and cotangents, with normal and with saturated
-   diffusion; two calls must agree bitwise; median times;
+4. kernel 2 vs plain: the reverse-sweep kernel against its plain version
+   and a float64 run on the same seeded inputs and cotangents, with normal
+   and with saturated diffusion; two calls must agree bitwise; median
+   times, whole and of its sweep and its contraction apart, beside
+   torch.matmul on the same scratch tensors;
 5. serve: a flagship LatentSDE (batch 1024, data 3, latent 4, context 64,
    hidden 128, 32 output times on [0, 1], dt 1/128, float32, random
    weights from a seed) serves three forward passes of
@@ -94,10 +96,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 20. auto dispatch of ``fused_sdeint_logqp``: its grad path on both routes
     at the narrow shapes of phase 17, at L1 and on a tiny solve;
 21. kernels 3 and 4 vs plain: the K-replica forward and reverse sweep at
-    the flagship with K = 4 on seeded inputs and cotangents, against their
-    plain versions and float64 runs, each replica bitwise equal to kernels
-    1 and 2 on its own inputs, two sweeps bitwise equal; median times at
-    K = 1, 2, 4, 8 beside K launches of kernels 1 and 2, and the bounds;
+    the flagship with K = 4 on seeded inputs and cotangents, with normal
+    and with saturated diffusion, against their plain versions and float64
+    runs, each replica bitwise equal to kernels 1 and 2 on its own inputs,
+    two sweeps bitwise equal; median times at K = 1, 2, 4, 8 beside K
+    launches of kernels 1 and 2, and the bounds; kernel 4 at K = 4 by
+    phase as phase 4;
 22. replicas: ``latent_sde_loss_multi(fused=True)`` at K = 4 under
     ``torch.no_grad()``, each replica's loss against the single fused loss
     on a clone of its generator and each call launching kernel 3 once; the
@@ -113,21 +117,26 @@ Phases, in order; any failure raises and the script exits non-zero:
     at full width counted as the path;
 24. kernel 16: against its plain version at (128, 1024, 9) and (128, 16384,
     128), the moments and a KS test of 2^20 draws, determinism, median
-    times beside ``torch.randn``'s (another stream), and one
+    times beside ``torch.randn``'s (another stream) and the bound, and one
     ``sdeint(method="srk", rng_impl="philox")`` solve at full width, which
     launches it twice.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only`` runs some phase groups (for
-development; no ok line). It imports nothing of JAX.
+development; no ok line); ``--only tiles``, which no other run includes,
+times kernels 2 and 4 whole and their sweep alone at 128, 256 and 512
+threads and at 16 rows a block, the blocks the sweep's was chosen over. It
+imports nothing of JAX.
 """
 
 import argparse
 import contextlib
+import ctypes
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -166,6 +175,13 @@ KERNEL_ATOL = 1e-5
 # gradient over rows and steps in another order than the plain version's
 # matmuls, in float32.
 BWD_ATOL, BWD_REL = 1e-4, 3e-5
+# Kernels 2 and 4 against a float64 run, per tensor: at most twice the
+# plain version's distance plus BWD_F64_REL times the tensor's largest
+# entry (25 float32 ulps of it), a floor for a tensor whose float32 plain
+# version lands near float64 by chance; not the absolute 1e-4, which on a
+# small tensor (dctx, scale 0.18) would be 1,700 times the plain version's
+# distance. TF32 (about 1e-3 relative) exceeds it.
+BWD_F64_REL = 3e-6
 # Fused vs sdeint route on one loss (tests/test_fused_latent.py:86).
 LOSS_RTOL = 1e-4
 # Fused vs sdeint route, step-0 parameter gradients: atol GRAD_REL times
@@ -442,35 +458,203 @@ def _flat(out):
     return [dz0, dctx, dnoise, *dweights]
 
 
-def compare_backward(label, got, want):
-    """Holds kernel 2's outputs to the plain version's; returns the largest
-    absolute error and the largest error relative to a tensor's scale."""
-    worst_abs = worst_rel = 0.0
-    cells = []
-    for name, g, w in zip(GRAD_NAMES, _flat(got), _flat(want)):
-        if g.shape != w.shape or not torch.isfinite(g).all():
-            raise RuntimeError(f"kernel 2 {label} {name}: shape "
-                               f"{tuple(g.shape)} or non-finite values")
-        err = float((g - w).abs().max())
-        scale = float(w.abs().max())
-        rel = err / scale if scale > 0 else 0.0
-        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-        cells.append(f"{name} {err:.2e}/{scale:.2e}")
-        if err > max(BWD_ATOL, BWD_REL * scale):
-            raise RuntimeError(f"kernel 2 {label} {name}: max abs error "
-                               f"{err:.3e} over max(|.|) {scale:.3e} exceeds "
-                               f"max({BWD_ATOL}, {BWD_REL} * scale)")
-    print(f"kernel 2 vs plain, {label} diffusion (abs err/max|plain|): "
-          + ", ".join(cells), flush=True)
-    print(f"kernel 2 vs plain, {label} diffusion: max_abs_err="
-          f"{worst_abs:.3e}, max_rel_err={worst_rel:.3e}", flush=True)
-    return worst_abs, worst_rel
+def contraction_flops(M, L, C, H):
+    """Operations of the contraction over M = n * B rows: two per
+    multiply-add for the layer weights of f ((L+C)H + H^2 + HL) and h
+    (LH + H^2 + HL), one per add for their biases' column sums (4H + 2L)."""
+    return M * (2 * ((L + C) * H + 2 * H * H + 3 * H * L) + 4 * H + 2 * L)
+
+
+def contraction_by_matmul(scratch, z_pre, ctx_rows):
+    """The contraction's products as PyTorch calls on the same scratch
+    tensors (the yardstick, never on the path): seven torch.matmul and six
+    bias sums over the rows."""
+    a1f, a1h, a2f, a2h, dp1f, dp1h, dp2f, dp2h, df, dh = scratch
+    return (torch.matmul(z_pre.T, dp1f), torch.matmul(ctx_rows.T, dp1f),
+            torch.matmul(a1f.T, dp2f), torch.matmul(a2f.T, df),
+            torch.matmul(z_pre.T, dp1h), torch.matmul(a1h.T, dp2h),
+            torch.matmul(a2h.T, dh),
+            *(t.sum(0) for t in (dp1f, dp2f, df, dp1h, dp2h, dh)))
+
+
+def backward_parts(label, bargs, multi, reps):
+    """Median device times of kernel 2 (or 4)'s sweep alone and of its
+    contraction and reduction alone on the sweep's workspace, with the
+    contraction's bound; for K = 1 also the torch.matmul yardstick on the
+    same scratch tensors. Prints them with the workspace's bytes."""
+    z0, ctx, ctx_idx, noise, dts, weights, zs = bargs[:7]
+    K = z0.shape[0] if multi else 1
+    B, L = z0.shape[-2:]
+    C, H, n = ctx.shape[-1], weights[0].shape[-1], noise.shape[-3]
+    _, ws = LF._backward_cuda(*bargs, multi=multi)
+
+    def run(stages):
+        return lambda: LF._backward_cuda(*bargs, multi=multi, stages=stages,
+                                         workspace=ws)
+
+    sweep = median_cuda_ms(run(1), reps)
+    contraction = median_cuda_ms(run(2), reps)
+    M = n * B
+    scratch_bytes = 4 * K * M * (8 * H + 2 * L)
+    out = dict(sweep_ms=sweep, contraction_ms=contraction,
+               scratch_bytes=scratch_bytes,
+               workspace_bytes=ws.numel() * ws.element_size())
+    flops_c = K * contraction_flops(M, L, C, H)
+    views = LF.scratch_views(ws, B, L, H, n)
+    # Reads the scratch, ctx, z0 and zs; writes the towers' gradients (the
+    # sizes of weights 0-11).
+    bound_c = bound(flops_c, [*views, ctx, z0, zs, *weights[:12]])
+    out.update(contraction_bound_ms=bound_c[0],
+               contraction_bound_by=bound_c[1])
+    if not multi:
+        scratch = [v[0] for v in views]
+        z_pre = torch.cat([z0[None], zs[:-1]]).reshape(M, L)
+        ctx_rows = ctx[ctx_idx.long()].reshape(M, C)
+        out["contraction_matmul_ms"] = median_cuda_ms(
+            lambda: contraction_by_matmul(scratch, z_pre, ctx_rows), reps)
+    print(f"{label}: sweep {sweep:.4f} ms; contraction and reduction "
+          f"{contraction:.4f} ms (bound {bound_c[0]:.4f}, {bound_c[1]})"
+          + ("" if multi else f"; torch.matmul yardstick on the same scratch "
+             f"{out['contraction_matmul_ms']:.4f} ms"), flush=True)
+    print(f"{label}: scratch {scratch_bytes / 1e6:.1f} MB, workspace "
+          f"{out['workspace_bytes'] / 1e6:.1f} MB; sweep shared memory "
+          f"{_build.load_library().tsde_latent_fused_bwd_smem_bytes(L, C, H)}"
+          f" bytes a block", flush=True)
+    return out
+
+
+# The sweep's blocks, (threads, rows a block), that ``--only tiles`` times:
+# the kernel's own (256, 8) and the ones it was chosen over. They are built
+# into a library of their own from latent_fused_bwd.cu and TILE_ENTRY, not
+# into the kernels' library.
+SWEEP_TILES = ((128, 8), (256, 8), (512, 8), (256, 16))
+TILE_ENTRY = r"""
+// Kernel 2 (K = 1) or 4 with the sweep at `threads` threads and `rows`
+// rows a block, the phases as tsde_latent_fused_bwd_stages.
+extern "C" int tsde_latent_bwd_tile(
+    const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
+    const float* dts, TSDE_WEIGHT_PARAMS, const float* zs, const float* gz,
+    const float* gq, float* dz0, float* dctx, float* dnoise, float* ws,
+    float* dw, int K, int B, int L, int C, int H, int T, int n, int threads,
+    int rows, int stages, int device, cudaStream_t stream) {
+  using namespace tsde_latent_bwd;
+  const float* w[NW] = TSDE_WEIGHTS;
+  const Args a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
+                           dctx, dnoise, ws, B, L, C, H, T, n);
+  if (rows == 8 && threads == 128)
+    return launch<128, 8>(a, K, dw, stages, device, stream);
+  if (rows == 8 && threads == 256)
+    return launch<256, 8>(a, K, dw, stages, device, stream);
+  if (rows == 8 && threads == 512)
+    return launch<512, 8>(a, K, dw, stages, device, stream);
+  if (rows == 16 && threads == 256)
+    return launch<256, 16>(a, K, dw, stages, device, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" const char* tsde_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+"""
+
+
+def tile_library():
+    """The library of the sweep's tiles, built at its first use."""
+    source = (Path(LF.__file__).resolve().parent / "csrc"
+              / "latent_fused_bwd.cu").read_text()
+    lib = _build.library_for_source("tsde_latent_bwd_tiles",
+                                    source + TILE_ENTRY)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.tsde_latent_bwd_tile.argtypes = [P] * 29 + [I] * 11 + [P]
+    lib.tsde_latent_bwd_tile.restype = I
+    return lib
+
+
+def tile_backward(lib, bargs, multi, threads, rows, stages, ws):
+    """One call of tsde_latent_bwd_tile on a backward kernel's inputs and
+    workspace ``ws`` (from LF._backward_cuda); returns dz0, dctx, dnoise and
+    the weights' gradients back to back."""
+    z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq = bargs
+    K = z0.shape[0] if multi else 1
+    B, L = z0.shape[-2:]
+    T, C, H, n = ctx.shape[-3], ctx.shape[-1], weights[0].shape[-1], \
+        noise.shape[-3]
+    dz0, dctx = torch.zeros_like(z0), torch.zeros_like(ctx)
+    dnoise = torch.empty_like(noise)
+    dw = torch.zeros((K, sum(w[0].numel() if multi else w.numel()
+                             for w in weights)), device=z0.device)
+    ptrs = [t.data_ptr() for t in (z0, ctx, ctx_idx, noise, dts, *weights,
+                                   zs, gz, gq, dz0, dctx, dnoise, ws, dw)]
+    rc = lib.tsde_latent_bwd_tile(
+        *ptrs, K, B, L, C, H, T, n, threads, rows, stages,
+        z0.device.index or 0, torch.cuda.current_stream(z0.device).cuda_stream)
+    _build.check_launch(lib, rc, f"sweep tile {threads} x {rows}")
+    return dz0, dctx, dnoise, dw
+
+
+def tile_times(label, lib, bargs, multi, reps):
+    """Median device times of the whole kernel and of its sweep alone at
+    each of SWEEP_TILES; each tile's outputs held to the kernel's own at
+    kernel 2's tolerance."""
+    (dz0, dctx, dnoise, dweights), ws = LF._backward_cuda(*bargs,
+                                                          multi=multi)
+    lead = 1 if multi else 0
+    want = [dz0, dctx, dnoise, torch.cat([d.flatten(lead) for d in dweights],
+                                         dim=-1)]
+    out = {}
+    for threads, rows in SWEEP_TILES:
+        got = tile_backward(lib, bargs, multi, threads, rows, 3, ws)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dz0", "dctx", "dnoise", "weights"), got,
+                              want):
+            g = g.reshape(w.shape)
+            scale = float(w.abs().max())
+            err = float((g - w).abs().max())
+            if not torch.isfinite(g).all() or err > max(BWD_ATOL,
+                                                        BWD_REL * scale):
+                raise RuntimeError(f"{label} at {threads} x {rows}: {name} "
+                                   f"differs from the kernel's by {err:.3e}")
+        whole = median_cuda_ms(lambda: tile_backward(
+            lib, bargs, multi, threads, rows, 3, ws), reps)
+        sweep = median_cuda_ms(lambda: tile_backward(
+            lib, bargs, multi, threads, rows, 1, ws), reps)
+        out[f"{threads}x{rows}"] = dict(ms=whole, sweep_ms=sweep)
+    cells = ", ".join(f"{k}: {v['ms']:.4f} (sweep {v['sweep_ms']:.4f})"
+                      for k, v in out.items())
+    print(f"{label} by sweep threads x rows a block, ms: {cells}", flush=True)
+    return out
+
+
+def phase_tiles(device):
+    """Kernel 2 at the flagship and kernel 4 at K = MULTI_K, whole and sweep
+    alone, at each block of SWEEP_TILES (``--only tiles``)."""
+    lib = tile_library()
+    model = flagship_model(device)
+    args = kernel_inputs(device, model)
+    n = args[3].shape[0]
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    gz = torch.randn((n, BATCH, LATENT), generator=gen, device=device)
+    gq = torch.randn((n, BATCH, 1), generator=gen, device=device)
+    with torch.no_grad():
+        weights = LF.solve_weights(model)
+        zs, _ = LF.fused_solve_forward_cuda(*args, weights)
+        single = tile_times("kernel 2", lib, (*args, weights, zs, gz, gq),
+                            False, 10)
+        del zs
+        args, weights = multi_kernel_inputs(device, MULTI_K)
+        zs = LF.fused_solve_multi_forward_cuda(*args, weights)[0]
+        multi = tile_times(
+            f"kernel 4 at K={MULTI_K}", lib,
+            (*args, weights, zs, gz.expand(MULTI_K, -1, -1, -1).contiguous(),
+             gq.expand(MULTI_K, -1, -1, -1).contiguous()), True, 5)
+    return dict(kernel2=single, kernel4=multi)
 
 
 def phase_kernel2(device):
-    """Kernel 2 vs its plain version on seeded inputs and cotangents at the
-    flagship shapes, with normal and with saturated diffusion; two calls
-    must agree bitwise."""
+    """Kernel 2 vs its plain version and a float64 run on seeded inputs and
+    cotangents at the flagship shapes, with normal and with saturated
+    diffusion; two calls must agree bitwise; its times whole and by phase
+    and block size."""
     model = flagship_model(device)
     args = kernel_inputs(device, model)
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
@@ -487,8 +671,15 @@ def phase_kernel2(device):
             bargs = (*args, weights, zs, gz, gq)
             got = LF.fused_solve_backward_cuda(*bargs)
             want = LF.fused_solve_backward_plain(*bargs)
+            exact = LF.fused_solve_backward_plain(
+                *in_double(args), [w.double() for w in weights], zs.double(),
+                gz.double(), gq.double())
             torch.cuda.synchronize()
-            errs.append(compare_backward(label, got, want))
+            errs.append(check_against_plain(
+                f"kernel 2, {label} diffusion,", GRAD_NAMES, _flat(got),
+                _flat(want), _flat(exact), BWD_ATOL, BWD_REL,
+                f64_rel=BWD_F64_REL))
+            del exact
             if label == "saturated":
                 g_max = max(float(d.abs().max()) for d in got[3][12:])
                 print(f"saturated diffusion: max |g_nets gradient| "
@@ -508,6 +699,7 @@ def phase_kernel2(device):
         ms = median_cuda_ms(lambda: LF.fused_solve_backward_cuda(*timed), 20)
         plain_ms = median_cuda_ms(
             lambda: LF.fused_solve_backward_plain(*timed), 3, warmup=1)
+        parts = backward_parts("kernel 2", timed, False, 10)
     bound_ms, bound_by = bound(
         3 * solve_flops(BATCH, LATENT, CONTEXT, HIDDEN, n),
         [*timed[:5], *timed[5], *timed[6:], *outputs])
@@ -515,7 +707,8 @@ def phase_kernel2(device):
           f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
     return dict(max_abs_err=errs[0][0], max_abs_err_saturated=errs[1][0],
                 max_rel_err=max(e[1] for e in errs), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                **parts)
 
 
 def lorenz_data(device):
@@ -773,10 +966,11 @@ def cde_flops(B, S, M, C, n):
 
 
 def check_against_plain(label, names, got, want, exact, atol, rel_tol,
-                        rtol=0.0):
+                        rtol=0.0, f64_rel=None):
     """Holds a kernel's outputs to its plain version's at max(atol, rel_tol
     * scale), and to twice the plain version's distance from the plain
-    version run in float64 (``exact``) plus atol. With ``rtol`` (inputs on
+    version run in float64 (``exact``) plus atol, or plus ``f64_rel`` times
+    the scale where that is given. With ``rtol`` (inputs on
     which float32 itself is ill-conditioned) the first bound adds three
     times the plain version's own distance from float64, what float32
     rounding alone gives on these inputs, and the second ``rtol`` times the
@@ -800,7 +994,8 @@ def check_against_plain(label, names, got, want, exact, atol, rel_tol,
         if err > max(atol, rel_tol * scale) + slack:
             failures.append(f"{name} differs by {err:.3e} > max({atol}, "
                             f"{rel_tol} * {scale:.4g}) + {slack:.3e}")
-        if err64 > 2 * plain64 + atol + rtol * scale:
+        margin = atol if f64_rel is None else f64_rel * scale
+        if err64 > 2 * plain64 + margin + rtol * scale:
             failures.append(f"{name} is {err64:.3e} from the float64 run, "
                             f"the plain version {plain64:.3e}")
     print(f"{label} vs plain (abs err/max|plain|; from float64: kernel vs "
@@ -1812,36 +2007,57 @@ def phase_multi_kernels(device):
         torch.cuda.synchronize()
         err3 = check_against_plain("kernel 3", ("zs", "qs"), got, want,
                                    exact, KERNEL_ATOL, 0.0)
-        bargs = (*args, weights, got[0], gz, gq)
-        got_b = LF.fused_solve_multi_backward_cuda(*bargs)
-        want_b = LF.fused_solve_multi_backward_plain(*bargs)
-        exact_b = LF.fused_solve_multi_backward_plain(
-            *in_double(args), [w.double() for w in weights],
-            got[0].double(), gz.double(), gq.double())
-        torch.cuda.synchronize()
-        err4 = check_against_plain("kernel 4", GRAD_NAMES, _flat(got_b),
-                                   _flat(want_b), _flat(exact_b), BWD_ATOL,
-                                   BWD_REL)
-        for k in range(K):
-            a_k, w_k = replica(args, weights, k)
-            one = LF.fused_solve_forward_cuda(*a_k, w_k)
-            one_b = LF.fused_solve_backward_cuda(*a_k, w_k, got[0][k], gz[k],
-                                                 gq[k])
+        saturated = [w.clone() for w in weights]
+        saturated[15].sub_(25.0)       # g_b2: g ~ 1e-11 < 1e-7, as phase 4
+        errs4 = []
+        for label, w_l in (("normal", weights), ("saturated", saturated)):
+            fwd = (got if label == "normal" else
+                   LF.fused_solve_multi_forward_cuda(*args, w_l))
+            b_l = (*args, w_l, fwd[0], gz, gq)
+            got_b = LF.fused_solve_multi_backward_cuda(*b_l)
+            want_b = LF.fused_solve_multi_backward_plain(*b_l)
+            exact_b = LF.fused_solve_multi_backward_plain(
+                *in_double(args), [w.double() for w in w_l],
+                fwd[0].double(), gz.double(), gq.double())
             torch.cuda.synchronize()
-            same = (all(torch.equal(a[k], b) for a, b in zip(got, one))
-                    and all(torch.equal(a[k], b) for a, b in
-                            zip(_flat(got_b), _flat(one_b))))
-            if not same:
-                raise RuntimeError(f"replica {k} of kernels 3 and 4 differs "
-                                   f"from kernels 1 and 2 on its inputs")
-        print(f"kernels 3 and 4: each of the {K} replicas bitwise equal to "
-              f"kernels 1 and 2 on its own inputs", flush=True)
+            errs4.append(check_against_plain(
+                f"kernel 4, {label} diffusion,", GRAD_NAMES, _flat(got_b),
+                _flat(want_b), _flat(exact_b), BWD_ATOL, BWD_REL,
+                f64_rel=BWD_F64_REL))
+            del want_b, exact_b
+            if label == "saturated":
+                g_max = max(float(d.abs().max()) for d in got_b[3][12:])
+                print(f"kernel 4, saturated diffusion: max |g_nets gradient| "
+                      f"{g_max:.3e}", flush=True)
+                if not g_max > 0:
+                    raise RuntimeError("kernel 4's g_nets gradients vanish "
+                                       "under saturated diffusion")
+            for k in range(K):
+                a_k, w_k = replica(args, w_l, k)
+                one = LF.fused_solve_forward_cuda(*a_k, w_k)
+                one_b = LF.fused_solve_backward_cuda(*a_k, w_k, fwd[0][k],
+                                                     gz[k], gq[k])
+                torch.cuda.synchronize()
+                same = (all(torch.equal(a[k], b) for a, b in zip(fwd, one))
+                        and all(torch.equal(a[k], b) for a, b in
+                                zip(_flat(got_b), _flat(one_b))))
+                if not same:
+                    raise RuntimeError(f"replica {k} of kernels 3 and 4 "
+                                       f"differs from kernels 1 and 2 on its "
+                                       f"inputs ({label} diffusion)")
+            print(f"kernels 3 and 4, {label} diffusion: each of the {K} "
+                  f"replicas bitwise equal to kernels 1 and 2 on its own "
+                  f"inputs", flush=True)
+            if label == "normal":
+                bargs, first = b_l, got_b
+        del saturated, fwd, got_b
         again = LF.fused_solve_multi_backward_cuda(*bargs)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in
-                   zip(_flat(got_b), _flat(again))):
+                   zip(_flat(first), _flat(again))):
             raise RuntimeError("kernel 4 is not bitwise repeatable")
         print("kernel 4: two sweeps agree bitwise", flush=True)
+        parts4 = backward_parts(f"kernel 4 at K={K}", bargs, True, 5)
         plain_f = median_cuda_ms(
             lambda: LF.fused_solve_multi_forward_plain(*args, weights), 3,
             warmup=1)
@@ -1889,8 +2105,9 @@ def phase_multi_kernels(device):
             del a_t, w_t, zs_t, g_t, b_t, singles
     at = by_k[K]
     print(f"kernel 3 at K={K}: median {at['fwd_ms']:.4f} ms; plain: median "
-          f"{plain_f:.4f} ms; kernel 4: median {at['bwd_ms']:.4f} ms; plain: "
-          f"median {plain_b:.4f} ms", flush=True)
+          f"{plain_f:.4f} ms; kernel 4: median {at['bwd_ms']:.4f} ms "
+          f"({at['bwd_ms'] / by_k[1]['bwd_ms']:.3f} x kernel 4 at K=1); "
+          f"plain: median {plain_b:.4f} ms", flush=True)
     by_k_ms = {str(k): v for k, v in by_k.items()}
     return (dict(max_abs_err=err3[0], max_rel_err=err3[1], ms=at["fwd_ms"],
                  plain_ms=plain_f, bound_ms=at["fwd_bound_ms"],
@@ -1898,9 +2115,12 @@ def phase_multi_kernels(device):
                  ms_by_K={k: v["fwd_ms"] for k, v in by_k_ms.items()},
                  k_launches_of_kernel1_ms_by_K={
                      k: v["fwd_singles_ms"] for k, v in by_k_ms.items()}),
-            dict(max_abs_err=err4[0], max_rel_err=err4[1], ms=at["bwd_ms"],
+            dict(max_abs_err=errs4[0][0], max_abs_err_saturated=errs4[1][0],
+                 max_rel_err=max(e[1] for e in errs4), ms=at["bwd_ms"],
                  plain_ms=plain_b, bound_ms=at["bwd_bound_ms"],
                  bound_by=at["bwd_bound_by"], K=K,
+                 ratio_to_K1=at["bwd_ms"] / by_k[1]["bwd_ms"],
+                 **parts4,
                  ms_by_K={k: v["bwd_ms"] for k, v in by_k_ms.items()},
                  k_launches_of_kernel2_ms_by_K={
                      k: v["bwd_singles_ms"] for k, v in by_k_ms.items()}))
@@ -2325,7 +2545,8 @@ def phase_prng_kernel(device):
                                   20)
         bound_ms, bound_by = bound(0, [seed, out])
         del out
-        print(f"kernel 16 {shape}: median {ms:.4f} ms; plain: median "
+        print(f"kernel 16 {shape}: median {ms:.4f} ms ({ms / randn_ms:.3f} x "
+              f"torch.randn, {bound_ms / ms:.3f} of the bound); plain: median "
               f"{plain_ms:.4f} ms; torch.randn (another stream): median "
               f"{randn_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})",
               flush=True)
@@ -2351,16 +2572,19 @@ def phase_prng_kernel(device):
 
 
 GROUPS = ("latent", "gan", "tower", "logqp", "multi", "srk", "prng")
+# Run only when asked for by --only.
+EXTRA_GROUPS = ("tiles",)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", help="comma-separated phase groups to run, of "
-                    f"{', '.join(GROUPS)} (for development: prints the run's "
-                    "kernel records but no ok line); all by default")
+                    f"{', '.join(GROUPS + EXTRA_GROUPS)} (for development: "
+                    "prints the run's kernel records but no ok line); all "
+                    "but tiles by default")
     groups = GROUPS if ap.parse_args().only is None else tuple(
         ap.parse_args().only.split(","))
-    unknown = set(groups) - set(GROUPS)
+    unknown = set(groups) - set(GROUPS + EXTRA_GROUPS)
     if unknown:
         raise SystemExit(f"unknown phase groups {sorted(unknown)}")
     device, card = phase_device()
@@ -2480,6 +2704,8 @@ def main():
             source=f"{csrc}/philox_normal.cu",
             replaces="torchsde_tpu/ops/prng.py:37", launches=prng_launches,
             library_ms=None, **kernel16))
+    if "tiles" in groups:
+        print(json.dumps({"sweep_tiles": phase_tiles(device)}), flush=True)
     torch.cuda.synchronize()
     for record in records:
         if record["launches"] < 1:

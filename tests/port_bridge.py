@@ -110,3 +110,61 @@ def port_tower_grads(flat, triples):
     from torchsde_tpu_torch.ops.fused_solve import unpack
     shapes = tuple((w.shape[0], w.shape[1], a) for w, _, a in triples)
     return [t for wb in unpack(flat, shapes) for t in wb]
+
+
+def unsplit_latent_backward(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
+                            gq):
+    """Kernel 2's function as one loop of PyTorch operators, every weight
+    gradient summed step by step: the form of
+    ``latent_fused.fused_solve_backward_plain`` before its split into a
+    sweep and a contraction, kept as the reference the split is held to."""
+    from torchsde_tpu_torch.ops import latent_fused as TLF
+
+    fw, hw = weights[0:6], weights[6:12]
+    gw1, gb1, gw2, gb2 = weights[12:16]
+    L = z0.shape[1]
+    idx = ctx_idx.long()
+    z_pre = torch.cat([z0[None], zs[:-1]])
+    ginc = gq.flip(0).cumsum(0).flip(0)
+    dz = torch.zeros_like(z0)
+    dctx = torch.zeros_like(ctx)
+    dnoise = torch.empty_like(noise)
+    dw = [torch.zeros_like(w) for w in weights]
+
+    def mlp_backward(x, a1, a2, tower, dout):
+        w1, _, w2, _, w3, _ = tower
+        dpre2 = (dout @ w3.T) * (1 - torch.exp(-a2))
+        dpre1 = (dpre2 @ w2.T) * (1 - torch.exp(-a1))
+        return dpre1 @ w1.T, (x.T @ dpre1, dpre1.sum(0), a1.T @ dpre2,
+                              dpre2.sum(0), a2.T @ dout, dout.sum(0))
+
+    for s in reversed(range(noise.shape[0])):
+        z, dt = z_pre[s], dts[s]
+        x = torch.cat([z, ctx[idx[s]]], dim=1)
+        a1f, a2f, f = TLF._mlp3(x, *fw)
+        a1h, a2h, h = TLF._mlp3(z, *hw)
+        a1g, g = TLF._g_nets(z, gw1, gb1, gw2, gb2)
+        big = g > TLF._EPS
+        gs = torch.where(big, g, TLF._EPS)
+        u = (f - h) / gs
+        dz = dz + gz[s]
+        dnoise[s] = dz * g
+        du = ginc[s] * u * dt
+        df = dz * dt + du / gs
+        dh = -du / gs
+        dg = dz * noise[s] - (du * u / gs) * big.to(z.dtype)
+        dx, f_grads = mlp_backward(x, a1f, a2f, fw, df)
+        dzh, h_grads = mlp_backward(z, a1h, a2h, hw, dh)
+        dpre2g = dg * g * (1 - g)
+        dpre1g = (dpre2g.T[..., None] * gw2[:, None, :, 0]
+                  * (1 - torch.exp(-a1g)))
+        g_grads = (torch.einsum("lbh,lb->lh", dpre1g, z.T)[:, None, :],
+                   dpre1g.sum(1),
+                   torch.einsum("lbh,bl->lh", a1g, dpre2g)[..., None],
+                   dpre2g.sum(0)[:, None])
+        for acc, d in zip(dw, f_grads + h_grads + g_grads):
+            acc += d
+        dzg = torch.einsum("lbh,lh->bl", dpre1g, gw1[:, 0, :])
+        dz = dz + dx[:, :L] + dzh + dzg
+        dctx.index_add_(0, idx[s:s + 1], dx[None, :, L:])
+    return dz, dctx, dnoise, tuple(dw)

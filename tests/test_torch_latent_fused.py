@@ -18,7 +18,8 @@ import torch
 import torchsde_tpu.ops.latent_fused as JLF
 import torchsde_tpu_torch.core.integrate as TI
 import torchsde_tpu_torch.ops.latent_fused as TLF
-from port_bridge import jax_named_arrays, perturbed, port_latent_sde, to_torch
+from port_bridge import (jax_named_arrays, perturbed, port_latent_sde,
+                         to_torch, unsplit_latent_backward)
 from torchsde_tpu.core import integrate as JI
 from torchsde_tpu.models.latent_sde import LatentSDE as JLatentSDE
 from torchsde_tpu_torch.ops import _build
@@ -325,3 +326,91 @@ def test_function_gradcheck_f64():
     solve = _apply(idx, dts)
     assert torch.autograd.gradcheck(solve, diff)
     assert torch.autograd.gradcheck(lambda *a: solve(*a)[1], diff)
+
+
+# (B, L, C, H, T, n) of the split's checks: a ragged batch, one latent and
+# context dimension, a hidden width of one.
+SPLIT_SHAPES = [(5, 3, 4, 6, 4, 9), (3, 1, 1, 5, 3, 4), (4, 2, 3, 1, 2, 5)]
+
+
+def _split_case(seed, shape, saturated):
+    """Seeded float64 inputs, states and cotangents of a backward call."""
+    rng = np.random.default_rng(seed)
+    diff, idx, dts = _tiny_solve(rng, *shape)
+    z0, ctx, noise, *weights = [t.detach() for t in diff]
+    if saturated:
+        weights[15] = weights[15] - 25.0     # g ~ 1e-11 < 1e-7
+    zs, qs = TLF.fused_solve_forward_plain(z0, ctx, idx, noise, dts, weights)
+    gz = torch.as_tensor(rng.standard_normal(zs.shape))
+    gq = torch.as_tensor(rng.standard_normal(qs.shape))
+    return (z0, ctx, idx, noise, dts, weights, zs, gz, gq)
+
+
+@pytest.mark.parametrize("saturated", [False, True])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_sweep_and_contraction_compose_to_the_unsplit_backward_f64(
+        shape, saturated):
+    """fused_solve_backward_plain, now the plain sweep composed with the
+    plain contraction, against the unsplit loop that sums every weight
+    gradient step by step: 1e-12 of each tensor's scale in float64 (the
+    two sum over rows and steps in another order)."""
+    case = _split_case(10, shape, saturated)
+    got = TLF.fused_solve_backward_plain(*case)
+    want = unsplit_latent_backward(*case)
+    for g, w in zip((*got[:3], *got[3]), (*want[:3], *want[3])):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-12 * max(1.0, float(w.abs().max())))
+    if saturated:      # only the u-path is masked: dz * dW reaches g
+        assert max(float(d.abs().max()) for d in got[3][12:]) > 0
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_plain_contraction_is_einsum_over_rows_and_steps(shape):
+    """The plain contraction against torch.einsum on the sweep's own scratch
+    tensors, summed over steps s and rows b, with x = [z_pre | ctx[idx]],
+    each bias the sum of its layer's cotangent: rounding only (float64)."""
+    z0, ctx, idx, noise, dts, weights, zs, gz, gq = _split_case(11, shape,
+                                                                False)
+    sweep = TLF.fused_solve_backward_sweep_plain(z0, ctx, idx, noise, dts,
+                                                 weights, zs, gz, gq)
+    scratch = dict(zip(TLF.SCRATCH_NAMES, sweep[4]))
+    n, B_, H_ = scratch["a1f"].shape
+    assert all(scratch[k].shape == (n, B_, H_) for k in TLF.SCRATCH_NAMES[:8])
+    assert scratch["df"].shape == scratch["dh"].shape == (n, B_, z0.shape[1])
+    z_pre = torch.cat([z0[None], zs[:-1]])
+    x = torch.cat([z_pre, ctx[idx.long()]], dim=-1)
+    want = []
+    for a, d in ((x, "dpre1f"), (scratch["a1f"], "dpre2f"),
+                 (scratch["a2f"], "df"), (z_pre, "dpre1h"),
+                 (scratch["a1h"], "dpre2h"), (scratch["a2h"], "dh")):
+        want += [torch.einsum("sbi,sbj->ij", a, scratch[d]),
+                 torch.einsum("sbj->j", scratch[d])]
+    got = TLF.fused_solve_backward_contract_plain(z0, ctx, idx, zs,
+                                                  sweep[4])
+    assert len(got) == 12
+    for g, w, weight in zip(got, want, weights):
+        assert g.shape == w.shape == weight.shape
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-12 * max(1.0, float(w.abs().max())))
+
+
+def test_scratch_views_follow_the_kernels_workspace_layout():
+    """scratch_views reads a workspace laid out as the kernel writes it:
+    per replica the eight (n*B, H) tensors, then df and dh (n*B, L), then
+    the partials."""
+    z0, ctx, idx, noise, dts, weights, zs, gz, gq = _split_case(
+        12, SPLIT_SHAPES[0], False)
+    scratch = TLF.fused_solve_backward_sweep_plain(
+        z0, ctx, idx, noise, dts, weights, zs, gz, gq)[4]
+    n, B_, L_ = zs.shape
+    H_ = weights[0].shape[1]
+    flat = torch.cat([t.reshape(-1) for t in scratch])
+    workspace = torch.stack([flat, 2 * flat])
+    workspace = torch.cat([workspace, torch.zeros((2, 7))], dim=1)
+    views = TLF.scratch_views(workspace, B_, L_, H_, n)
+    assert len(views) == len(TLF.SCRATCH_NAMES)
+    for v, t in zip(views, scratch):
+        assert v.shape == (2, n * B_, t.shape[-1])
+        assert torch.equal(v[0], t.reshape(n * B_, -1))
+        assert torch.equal(v[1], 2 * t.reshape(n * B_, -1))

@@ -52,35 +52,40 @@ def test_mulhilo_never_overflows():
 
 def test_box_muller_matches_the_jax_kernels_formula():
     """The plain version's transform of given 32-bit words against
-    ``prng.py:42-49`` written in numpy float32: atol 2e-6 (numpy and
-    PyTorch compute log and cos in float32 by different vectorised
-    routines, an ulp or two apart, times r <= 5.9)."""
+    ``prng.py:42-49`` written in numpy float32: the cosine half as that
+    formula, the sine half as its counterpart, sqrt(-2 log u1) sin(2 pi u2);
+    atol 2e-6 (numpy and PyTorch compute log, cos and sin in float32 by
+    different vectorised routines, an ulp or two apart, times r <= 5.9)."""
     rng = np.random.default_rng(0)
     bits = rng.integers(0, 2 ** 32, (2, 4096), dtype=np.uint64)
     bits[:, :4] = [[0, 255, 2 ** 32 - 1, 2 ** 31], [0, 2 ** 32 - 1, 7, 1]]
-    got = PR.box_muller(torch.as_tensor(bits[0].astype(np.int64)),
-                        torch.as_tensor(bits[1].astype(np.int64)))
+    cos_half, sin_half = PR.box_muller(
+        torch.as_tensor(bits[0].astype(np.int64)),
+        torch.as_tensor(bits[1].astype(np.int64)))
     i1 = (bits[0] >> 8).astype(np.int32)
     i2 = (bits[1] >> 8).astype(np.int32)
     u1 = i1.astype(np.float32) * np.float32(2.0 ** -24) + np.float32(2.0 ** -25)
     u2 = i2.astype(np.float32) * np.float32(2.0 ** -24) + np.float32(2.0 ** -25)
     r = np.sqrt(np.float32(-2.0) * np.log(u1))
-    want = r * np.cos(np.float32(2.0 * math.pi) * u2)
-    assert got.dtype == torch.float32 and want.dtype == np.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-6)
+    theta = np.float32(2.0 * math.pi) * u2
+    for got, want in ((cos_half, r * np.cos(theta)),
+                      (sin_half, r * np.sin(theta))):
+        assert got.dtype == torch.float32 and want.dtype == np.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-6)
 
 
 def test_stream_follows_the_layout():
-    """Element e takes counter e // 2 and output words 0, 1 (even e) or 2, 3
-    (odd e) under key (seed, 0)."""
+    """Element e takes counter e // 4 under key (seed, 0): words 0, 1 give
+    elements 4c and 4c+1 (cosine, sine), words 2, 3 elements 4c+2 and
+    4c+3; a ragged tail keeps the stream's first elements."""
     seed = 12345
-    z = PR.philox_normal_plain(seed, (7,), device="cpu")
+    z = PR.philox_normal_plain(seed, (11,), device="cpu")
     zero = torch.zeros((), dtype=torch.int64)
-    for e in range(7):
-        c = torch.tensor(e // 2, dtype=torch.int64)
+    for e in range(11):
+        c = torch.tensor(e // 4, dtype=torch.int64)
         w = PR.philox4x32_10((c, zero, zero, zero), (seed, 0))
-        pair = (w[0], w[1]) if e % 2 == 0 else (w[2], w[3])
-        assert float(PR.box_muller(*pair)) == float(z[e])
+        pair = (w[0], w[1]) if e % 4 < 2 else (w[2], w[3])
+        assert float(PR.box_muller(*pair)[e % 2]) == float(z[e])
 
 
 def test_normals_pass_ks_against_n01():

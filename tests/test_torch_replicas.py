@@ -19,7 +19,8 @@ import torchsde_tpu.ops.latent_fused as JLF
 import torchsde_tpu_torch.core.integrate as TI
 import torchsde_tpu_torch.models.latent_sde as TL
 import torchsde_tpu_torch.ops.latent_fused as TLF
-from port_bridge import jax_named_arrays, perturbed, port_latent_sde, to_torch
+from port_bridge import (jax_named_arrays, perturbed, port_latent_sde,
+                         to_torch, unsplit_latent_backward)
 from torchsde_tpu.core import integrate as JI
 from torchsde_tpu.models import latent_sde as JL
 from torchsde_tpu_torch.parallel import replicas as RP
@@ -193,6 +194,43 @@ def test_multi_twins_are_the_single_twins_replica_by_replica():
         for a, b in zip((*one_b[:3], *one_b[3]),
                         (*back[:3], *back[3])):
             assert torch.equal(a, b[k])
+
+
+@pytest.mark.parametrize("saturated", [False, True])
+@pytest.mark.parametrize("K_", [1, 3])
+def test_multi_split_twin_matches_the_unsplit_backward_f64(K_, saturated):
+    """Kernel 4's plain version, the plain sweep composed with the plain
+    contraction on each replica, against the unsplit step-by-step loop on
+    that replica's inputs: 1e-12 of each tensor's scale in float64; and each
+    replica's contraction is torch.einsum over its scratch."""
+    rng = np.random.default_rng(20 + K_)
+    (z0, ctx, noise, *weights), idx, dts = _random_multi(rng, K_=K_)
+    if saturated:
+        weights[15] = weights[15] - 25.0
+    zs, qs = TLF.fused_solve_multi_forward_plain(z0, ctx, idx, noise, dts,
+                                                 weights)
+    gz = torch.as_tensor(rng.standard_normal(zs.shape))
+    gq = torch.as_tensor(rng.standard_normal(qs.shape))
+    back = TLF.fused_solve_multi_backward_plain(z0, ctx, idx, noise, dts,
+                                                weights, zs, gz, gq)
+    for k in range(K_):
+        w_k = [w[k] for w in weights]
+        args = (z0[k], ctx[k], idx, noise[k], dts, w_k, zs[k], gz[k], gq[k])
+        want = unsplit_latent_backward(*args)
+        for g, w in zip((*back[:3], *back[3]), (*want[:3], *want[3])):
+            torch.testing.assert_close(
+                g[k], w, rtol=0, atol=1e-12 * max(1.0, float(w.abs().max())))
+        scratch = TLF.fused_solve_backward_sweep_plain(*args)[4]
+        a1f, a2h, dpre2f, dh = (scratch[TLF.SCRATCH_NAMES.index(name)]
+                                for name in ("a1f", "a2h", "dpre2f", "dh"))
+        got = TLF.fused_solve_backward_contract_plain(z0[k], ctx[k], idx,
+                                                      zs[k], scratch)
+        torch.testing.assert_close(
+            got[2], torch.einsum("sbi,sbj->ij", a1f, dpre2f), rtol=0,
+            atol=1e-12 * float(got[2].abs().max()))
+        torch.testing.assert_close(
+            got[10], torch.einsum("sbi,sbj->ij", a2h, dh), rtol=0,
+            atol=1e-12 * float(got[10].abs().max()))
 
 
 def test_multi_function_gradients_match_autograd_f64():

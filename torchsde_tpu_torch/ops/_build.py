@@ -82,6 +82,12 @@ def _bind(lib):
     bwd_multi = lib.tsde_latent_fused_bwd_multi
     bwd_multi.argtypes = [P] * 29 + [I] * 8 + [P]
     bwd_multi.restype = I
+    # Its phases one at a time: K, widths, stages, device, stream.
+    bwd_stages = lib.tsde_latent_fused_bwd_stages
+    bwd_stages.argtypes = [P] * 29 + [I] * 9 + [P]
+    bwd_stages.restype = I
+    lib.tsde_latent_fused_bwd_workspace.argtypes = [I] * 5
+    lib.tsde_latent_fused_bwd_workspace.restype = ctypes.c_size_t
     for name in ("fwd", "bwd"):
         smem = getattr(lib, f"tsde_latent_fused_{name}_smem_bytes")
         smem.argtypes = [I, I, I]
@@ -104,8 +110,6 @@ def _bind(lib):
         smem.restype = ctypes.c_size_t
     lib.tsde_gan_bwd_partials.argtypes = [I, I, I]
     lib.tsde_gan_bwd_partials.restype = I
-    lib.tsde_latent_fused_bwd_blocks.argtypes = [I]
-    lib.tsde_latent_fused_bwd_blocks.restype = I
     # The TowerSpec solves: two layer tables (host, device), the tensors,
     # then nf, ng, nh, S, m, diag, wt, stage, B, N, device and the stream.
     for name, tensors in (("euler_fwd", 7), ("euler_bwd", 12),

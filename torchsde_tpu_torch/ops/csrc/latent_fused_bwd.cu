@@ -14,85 +14,144 @@
 // weight gradient, scatter the context cotangent into dctx[ctx_idx[s]], and
 // carry dz += dx[:, :L] to the step before.
 //
-// What bounds it. Per batch row and step it recomputes the forward (44,032
-// multiply-adds at L=4, C=64, H=128) and does two products of the same size
-// per layer going back (the weight gradient and the input cotangent):
-// 132,096 multiply-adds, 34.6 GFLOP for a solve at B=1024 and 128 steps.
-// Its inputs and outputs are about 26 MB, so it is bound by arithmetic and by
-// the step-to-step dependency of dz, as the forward is.
+// What bounds it. Per batch row and step the work is the forward recomputed
+// (44,032 multiply-adds at L=4, C=64, H=128), the input cotangents going
+// back (44,032) and the weight gradients (44,032): 34.6 GFLOP for a solve at
+// B=1024 and 128 steps, 0.52 ms at the float32 peak. Only the first two sit
+// on the chain of dependent steps; the weight gradients are sums over all
+// rows and steps that no later step needs.
 //
-// Design. Rows interact only through the weight gradients. The batch is cut
-// into tiles of TB rows, one block each (128 blocks at B=1024: one wave on 132
-// SMs), and each block sweeps the steps backwards with no grid-wide sync. The
-// weights (45,068 floats at the flagship) live in shared memory, which then
-// has no room for their f32 gradient accumulators too; so each block adds
-// its rows' contributions of every step into a private partial in device
-// memory (blocks x 45,068 floats, 23 MB at the flagship, L2-resident), each
-// element always by the same thread, and a second kernel sums the partials
-// over blocks in a fixed order. No atomics: the gradients are bitwise the
-// same from call to call. dctx is written straight into the zeroed (T,B,C)
-// output: only the block that owns a row touches it, in step order.
+// Design: two phases on one stream.
+//
+// 1. The sweep (latent_bwd_sweep, SWEEP_THREADS threads a block): only the
+//    step-to-step chain. The batch is cut into tiles of R = 8 rows, one block
+//    each (128 blocks at B=1024: one wave on 132 SMs), and each block sweeps
+//    the steps backwards with its weights (45,068 floats at the flagship) in
+//    shared memory. Half the threads take the drift tower f, half the prior
+//    tower h, a hidden unit each (strided beyond); the h half also takes the
+//    g nets' forward, and each half half of their backward. Sums over hidden
+//    units (the L outputs of layer 3 and of the g nets, their z-cotangents)
+//    are warp shuffles, then per-warp sums in shared memory; the input
+//    cotangent dx = dpre1 W1^T splits the hidden units into JP parts, so most
+//    threads take a share. Once a step has read its inputs for the last
+//    time, the step before's (pre-step z and context rows, noise, gz, gq)
+//    start to arrive by cp.async while the step's last two stages compute.
+//    Each step the sweep writes, for its rows, the scratch
+//    tensors whose products give the layer weights' gradients: a1 and a2 of
+//    both towers, their pre-activation cotangents dpre1 and dpre2 (each
+//    (n,B,H)) and df, dh (each (n,B,L)): 537 MB at the flagship and K = 1,
+//    2.15 GB at K = 4, K x n x B x (8H + 2L) floats in all. The g nets'
+//    gradients (3LH + L floats) are summed on chip in shared memory, each
+//    element by one thread, and added to the block's row of the partials
+//    every FLUSH steps; their weights are read through L1, which leaves
+//    the sweep's shared memory within 448 bytes of the former one's at
+//    every shape whose context is at most twice as wide as its hidden
+//    layer. There are no per-step writes of gradient partials to device
+//    memory.
+//
+// 2. The contraction: the layer weights' gradients as products over all
+//    M = n x B rows. fw2 = a1f^T dpre2f and hw2 (the H x H products) and the
+//    context rows of fw1 = ctx[ctx_idx]^T dpre1f (the context gathered on
+//    the fly, not stored) go to latent_bwd_contract: 64 x 128 output tiles
+//    of 256 threads (4 x 8 a thread), 16-row slabs of both operands
+//    double-buffered in shared memory by cp.async. The products with an
+//    L-wide side (fw1's z rows and hw1 from z_pre gathered from z0 and zs;
+//    fw3 = a2f^T df, hw3) are bound by the bytes they read and go to
+//    latent_bwd_skinny, a thread a column. Each bias comes with its weight:
+//    the column sums of dpre1f, dpre2f, dpre2h as the tiled products' bias
+//    rows, those of dpre1h, df, dh as a column of ones in the skinny ones
+//    (both summed in float64; the tiles' products in float32 FMAs).
+//    Both split the rows into chunks
+//    of RC (fixed, so each replica's sums are the same at any K), each chunk
+//    into its own partial row; latent_bwd_reduce sums the chunks' and the
+//    sweep blocks' rows in a fixed order. No atomics: the gradients are
+//    bitwise the same from call to call.
+//
+// dctx is written straight into the zeroed (T,B,C) output: only the block
+// that owns a row touches it, in step order. Plain f32 FMAs, no fast math;
+// tensor cores are later work (float32 tolerances).
 //
 // Layouts. Matrices indexed [in][hidden] are kept with an odd row stride
 // (H | 1), so both the forward product (threads over the hidden unit) and
 // the input-cotangent product (threads over the input row) read shared
 // memory without bank conflicts. Activations are [unit][row], so a thread
-// reads a unit's TB rows as two float4s, broadcast to the warp. Contractions
-// to the L outputs (layer 3, the g nets) are summed by warp shuffles and
-// then over the block's warps. Plain f32 FMAs, no fast math; tensor cores
-// are later work.
+// reads a unit's R rows as R / 4 float4s, broadcast to the warp.
 //
 // K stacked replicas (tsde_latent_fused_bwd_multi) replace the Pallas
 // kernel _bwd_kernel_multi (launched by _fused_solve_multi_bwd_impl). The
-// replica is the grid's y axis, as in the forward: each block sweeps one
-// replica's tile, its partial row sits at (replica, block), and the
-// reduction sums each replica's own blocks in block order, so replica k's
-// gradients are bitwise those of a single sweep on its inputs. The partials
-// total K x 23 MB at the flagship, but only the resident blocks' rows
-// (132 of them, 24 MB) are live at a time.
+// replica is the sweep's grid y axis and the contraction's z axis, and each
+// replica has its own workspace (scratch and partials), so replica k's
+// gradients are bitwise those of a single call on its inputs.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 #include "latent_fused_common.cuh"
 
-namespace {
+namespace tsde_latent_bwd {
 
 using namespace tsde_latent;
 
-constexpr int NT = 128;          // threads per block
-constexpr int NWARPS = NT / 32;
+constexpr int SWEEP_THREADS = 256;  // the sweep's block size and rows a
+constexpr int SWEEP_ROWS = TB;      // block (8; PERF.md times the others)
+constexpr int NSCRATCH = 8;         // (n,B,H) scratch tensors
+enum Scratch { A1F, A1H, A2F, A2H, DP1F, DP1H, DP2F, DP2H };
+constexpr int FLUSH = 8;            // steps of the g nets' on-chip sums
+constexpr int RC = 512;             // rows of a contraction chunk
+constexpr int CT = 256;             // contraction threads
+constexpr int TI = 64, TJ = 128, KS = 16;   // contraction tile and slab
+constexpr int SKB = 16;             // rows a skinny thread loads at once
 
 __host__ __device__ inline int row_stride(int H) { return H | 1; }
+
+// Parts the hidden units are split into for dx = dpre1 W1^T: enough for
+// most of the NT threads to take one of the (L + C + L) x JP products, and
+// few enough that the partial sums fit where dpre2 was (2H x R floats).
+__host__ __device__ inline int jparts(int NT, int D, int L, int H) {
+  int jp = (NT < 2 * H ? NT : 2 * H) / (D + L);
+  if (jp < 1) jp = 1;
+  if (jp > H) jp = H;
+  return jp;
+}
 
 struct Layout {
   size_t fw1, fb1, fw2, fb2, fw3t, fb3;
   size_t hw1, hb1, hw2, hb2, hw3t, hb3;
-  size_t gw1, gb1, gw2, gb2;
-  size_t x, a1f, a1h, a2f, a2h, red, dl, dz;
+  size_t gb2;
+  size_t x, io, a1, a2, red, dl, dz, ginc, gacc;
   size_t total;
 };
 
-__host__ __device__ inline Layout make_layout(int L, int C, int H) {
+// Floats of a step's per-row inputs for R rows: noise [l][r], gz [l][r],
+// gq [r].
+__host__ __device__ inline int io_floats(int L, int R) { return 2 * L * R + R; }
+
+// The sweep's shared memory for NT threads and R rows a block.
+__host__ __device__ inline Layout make_layout(int L, int C, int H, int NT,
+                                              int R) {
   Layout s;
   size_t at = 0;
   const size_t D = size_t(L) + C, h = H, l = L, ld = row_stride(H);
+  const size_t nwt = NT / 64;                        // warps of a tower
+  const size_t jp = jparts(NT, int(D), L, H);
   s.fw1 = take(at, D * ld);  s.fb1 = take(at, h);   // [k][j], stride ld
   s.fw2 = take(at, h * ld);  s.fb2 = take(at, h);
   s.fw3t = take(at, l * ld); s.fb3 = take(at, l);   // W3 stored as [l][k]
   s.hw1 = take(at, l * ld);  s.hb1 = take(at, h);
   s.hw2 = take(at, h * ld);  s.hb2 = take(at, h);
   s.hw3t = take(at, l * ld); s.hb3 = take(at, l);
-  s.gw1 = take(at, l * h);   s.gb1 = take(at, l * h);   // [l][k]
-  s.gw2 = take(at, l * h);   s.gb2 = take(at, l);
-  s.x = take(at, D * TB);            // [k][r]: rows k < L are z, then ctx
-  s.a1f = take(at, h * TB);          // [j][r]; later dpre1 of f
-  s.a1h = take(at, h * TB);
-  s.a2f = take(at, h * TB);          // [j][r]; later dpre2 of f
-  s.a2h = take(at, h * TB);
-  s.red = take(at, size_t(NWARPS) * 3 * l * TB);  // [warp][kind][l][r]
-  s.dl = take(at, 3 * l * TB);       // [kind][l][r]: df, dh, dpre2 of g
-  s.dz = take(at, l * TB);           // [l][r]: the carried dz
+  s.gb2 = take(at, l);               // (the g nets' other weights: L1)
+  s.x = take(at, D * R);            // [k][r]: z, then the context row
+  s.io = take(at, size_t(io_floats(L, R)));
+  s.a1 = take(at, 2 * h * R);       // [tower][j][r]; later dpre1
+  const size_t pdx = jp * (D + l);   // dx's partial sums, after dpre2
+  s.a2 = take(at, (2 * h > pdx ? 2 * h : pdx) * R);   // later dpre2
+  s.red = take(at, 3 * nwt * l * R);  // [kind][warp][l][r]: f (later the
+                                       // g nets' z-cotangent), h, g
+  s.dl = take(at, 3 * l * R);       // [kind][l][r]: df, dh, dpre2 of g
+  s.dz = take(at, l * R);           // [l][r]: the carried dz
+  s.ginc = take(at, R);
+  s.gacc = take(at, 3 * l * h + l * R);   // g nets' gw1, gb1, gw2; gb2
   s.total = at;
   return s;
 }
@@ -110,53 +169,113 @@ struct Args {
   float* dz0;            // ([K,] B, L)
   float* dctx;           // ([K,] T, B, C), zeroed by the caller
   float* dnoise;         // ([K,] n, B, L)
-  float* partials;       // ([K,] blocks, P)
+  float* ws;             // ([K,] workspace_floats): scratch, then partials
+  size_t ws_stride;      // floats of one replica's workspace
+  size_t parts;          // offset of the partials in a workspace
   size_t off[NW];        // offset of each weight's gradient in a partial
   size_t P;
   int B, L, C, H, T, n;
 };
 
-// Adds v to element i of a block's partial; the sweep's first step stores
-// instead, so the buffer needs no zeroing.
-__device__ __forceinline__ void accum(float* p, size_t i, float v,
-                                      bool first) {
-  p[i] = first ? v : p[i] + v;
-}
-
-// Sums each of the TB values over the warp's lanes.
-__device__ __forceinline__ void warp_sum(float (&v)[TB]) {
+// Sums each of the R values over the warp's lanes.
+template <int R>
+__device__ __forceinline__ void warp_sum(float (&v)[R]) {
 #pragma unroll
-  for (int r = 0; r < TB; ++r) {
+  for (int r = 0; r < R; ++r) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       v[r] += __shfl_xor_sync(0xffffffffu, v[r], off);
   }
 }
 
-__device__ __forceinline__ void load_rows(float (&v)[TB], const float* p) {
-  const float4 lo = *reinterpret_cast<const float4*>(p);
-  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+// A unit's R rows, 16-byte aligned, as R / 4 float4 loads.
+template <int R>
+__device__ __forceinline__ void load_rows(float (&v)[R], const float* p) {
+#pragma unroll
+  for (int q = 0; q < R / 4; ++q) {
+    const float4 t = *reinterpret_cast<const float4*>(p + 4 * q);
+    v[4 * q] = t.x; v[4 * q + 1] = t.y; v[4 * q + 2] = t.z;
+    v[4 * q + 3] = t.w;
+  }
 }
 
 // (rows, cols) row-major into shared memory with row stride ld.
+template <int NT>
 __device__ __forceinline__ void copy_rows(float* dst, const float* src,
                                           int rows, int cols, int ld) {
   for (int e = threadIdx.x; e < rows * cols; e += NT)
     dst[(e / cols) * ld + e % cols] = src[e];
 }
 
-__global__ void __launch_bounds__(NT) latent_fused_bwd_kernel(const Args a) {
+// Asynchronous 4-byte copy into shared memory; zero-fills when !valid (src
+// must still be a valid address).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows of step s's inputs for the tile at row0: x = [pre-step z | context
+// row ctx_idx[s]] as [k][r], noise and gz as [l][r], gq as [r]; rows past
+// the batch are zero-filled.
+template <int NT, int R>
+__device__ __forceinline__ void prefetch_step(
+    int s, float* xb, float* iob, const float* z0, const float* zs,
+    const float* ctx, const int* ctx_idx, const float* noise, const float* gz,
+    const float* gq, int row0, int B, int L, int C, int T) {
+  const int D = L + C;
+  const float* zpre = s == 0 ? z0 : zs + size_t(s - 1) * B * L;
+  const int ci = min(max(ctx_idx[s], 0), T - 1);
+  const float* cst = ctx + size_t(ci) * B * C;
+  for (int e = threadIdx.x; e < R * D; e += NT) {
+    const int r = e / D, k = e % D, row = row0 + r;
+    const bool valid = row < B;
+    const float* src = k < L ? zpre + size_t(row) * L + k
+                             : cst + size_t(row) * C + (k - L);
+    cp_async4(xb + k * R + r, valid ? src : z0, valid);
+  }
+  for (int e = threadIdx.x; e < R * L; e += NT) {
+    const int r = e / L, l = e % L, row = row0 + r;
+    const bool valid = row < B;
+    const size_t at = valid ? (size_t(s) * B + row) * L + l : 0;
+    cp_async4(iob + l * R + r, noise + at, valid);
+    cp_async4(iob + (L + l) * R + r, gz + at, valid);
+  }
+  for (int r = threadIdx.x; r < R; r += NT) {
+    const bool valid = row0 + r < B;
+    cp_async4(iob + 2 * L * R + r, gq + (valid ? size_t(s) * B + row0 + r : 0),
+              valid);
+  }
+  cp_async_commit();
+}
+
+template <int NT, int R>
+__global__ void __launch_bounds__(NT) latent_bwd_sweep(const Args a) {
+  constexpr int NTT = NT / 2;          // threads of a tower
+  constexpr int NWT = NTT / 32;        // warps of a tower
   extern __shared__ __align__(16) float sm[];
-  const int L = a.L, C = a.C, H = a.H, B = a.B, D = L + C;
+  const int L = a.L, C = a.C, H = a.H, B = a.B, D = L + C, n = a.n;
   const int ld = row_stride(H);
-  const Layout lay = make_layout(L, C, H);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * TB;
+  const Layout lay = make_layout(L, C, H, NT, R);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int tw = tid / NTT, tt = tid % NTT, wt = tt / 32;
+  const int row0 = blockIdx.x * R;
+  const int JP = jparts(NT, D, L, H), KK = D + L, jlen = (H + JP - 1) / JP;
+  const int IO = io_floats(L, R);
 
   // This block's replica.
-  const size_t rep = replica(), steps = size_t(a.n) * B * L;
+  const size_t rep = replica(), steps = size_t(n) * B * L;
+  const size_t M = size_t(n) * B;
   const float* z0 = a.z0 + rep * B * L;
   const float* ctx = a.ctx + rep * a.T * B * C;
   const float* noise = a.noise + rep * steps;
@@ -166,20 +285,28 @@ __global__ void __launch_bounds__(NT) latent_fused_bwd_kernel(const Args a) {
   float* dz0 = a.dz0 + rep * B * L;
   float* dctx = a.dctx + rep * a.T * B * C;
   float* dnoise = a.dnoise + rep * steps;
+  float* ws = a.ws + rep * a.ws_stride;
+  float* sdf = ws + NSCRATCH * M * H;       // df, then dh: (n, B, L) each
+  float* sdh = sdf + M * L;
   size_t wsize[NW];
   weight_sizes(L, C, H, wsize);
   const float* wr[NW];
 #pragma unroll
   for (int i = 0; i < NW; ++i) wr[i] = a.w[i] + rep * wsize[i];
 
-  copy_rows(sm + lay.fw1, wr[0], D, H, ld);
+  float* x = sm + lay.x;
+  float* io = sm + lay.io;
+  prefetch_step<NT, R>(n - 1, x, io, z0, zs, ctx, a.ctx_idx, noise, gz, gq, row0,
+                    B, L, C, a.T);
+
+  copy_rows<NT>(sm + lay.fw1, wr[0], D, H, ld);
   copy_to_smem<NT>(sm + lay.fb1, wr[1], H);
-  copy_rows(sm + lay.fw2, wr[2], H, H, ld);
+  copy_rows<NT>(sm + lay.fw2, wr[2], H, H, ld);
   copy_to_smem<NT>(sm + lay.fb2, wr[3], H);
   copy_to_smem<NT>(sm + lay.fb3, wr[5], L);
-  copy_rows(sm + lay.hw1, wr[6], L, H, ld);
+  copy_rows<NT>(sm + lay.hw1, wr[6], L, H, ld);
   copy_to_smem<NT>(sm + lay.hb1, wr[7], H);
-  copy_rows(sm + lay.hw2, wr[8], H, H, ld);
+  copy_rows<NT>(sm + lay.hw2, wr[8], H, H, ld);
   copy_to_smem<NT>(sm + lay.hb2, wr[9], H);
   copy_to_smem<NT>(sm + lay.hb3, wr[11], L);
   for (int e = tid; e < H * L; e += NT) {      // (H, L) -> [l][k]
@@ -187,425 +314,684 @@ __global__ void __launch_bounds__(NT) latent_fused_bwd_kernel(const Args a) {
     sm[lay.fw3t + l * ld + k] = wr[4][e];
     sm[lay.hw3t + l * ld + k] = wr[10][e];
   }
-  copy_to_smem<NT>(sm + lay.gw1, wr[12], L * H);  // (L,1,H) as [l][k]
-  copy_to_smem<NT>(sm + lay.gb1, wr[13], L * H);
-  copy_to_smem<NT>(sm + lay.gw2, wr[14], L * H);  // (L,H,1) as [l][k]
   copy_to_smem<NT>(sm + lay.gb2, wr[15], L);
+  for (int e = tid; e < L * R; e += NT) sm[lay.dz + e] = 0.f;
+  for (int e = tid; e < R; e += NT) sm[lay.ginc + e] = 0.f;
+  float* gacc = sm + lay.gacc;            // gw1, gb1, gw2 [l][k]; gb2 [l][r]
+  for (int e = tid; e < 3 * L * H + L * R; e += NT) gacc[e] = 0.f;
 
   const float* fw1 = sm + lay.fw1;
   const float* fb1 = sm + lay.fb1;
-  const float* fw2 = sm + lay.fw2;
-  const float* fb2 = sm + lay.fb2;
   const float* fw3t = sm + lay.fw3t;
   const float* fb3 = sm + lay.fb3;
   const float* hw1 = sm + lay.hw1;
   const float* hb1 = sm + lay.hb1;
-  const float* hw2 = sm + lay.hw2;
-  const float* hb2 = sm + lay.hb2;
   const float* hw3t = sm + lay.hw3t;
   const float* hb3 = sm + lay.hb3;
-  const float* gw1 = sm + lay.gw1;
-  const float* gb1 = sm + lay.gb1;
-  const float* gw2 = sm + lay.gw2;
+  // The g nets' (L,1,H), (L,H), (L,H,1) weights as [l][k], each element
+  // read by one thread (through L1); gb2 in shared memory.
+  const float* gw1 = wr[12];
+  const float* gb1 = wr[13];
+  const float* gw2 = wr[14];
   const float* gb2 = sm + lay.gb2;
-  float* x = sm + lay.x;
-  float* a1f = sm + lay.a1f;
-  float* a1h = sm + lay.a1h;
-  float* a2f = sm + lay.a2f;
-  float* a2h = sm + lay.a2h;
+  float* a1 = sm + lay.a1;
+  float* a2 = sm + lay.a2;
   float* red = sm + lay.red;
   float* dl = sm + lay.dl;
   float* dzs = sm + lay.dz;
-
-  float* part = a.partials + (rep * gridDim.x + blockIdx.x) * a.P;
-  float* pw[NW];
-#pragma unroll
-  for (int i = 0; i < NW; ++i) pw[i] = part + a.off[i];
-
-  for (int e = tid; e < L * TB; e += NT) dzs[e] = 0.f;
-  float ginc = 0.f;                            // row `tid` for tid < TB
+  float* ginc = sm + lay.ginc;
+  // This thread's tower: weights of layers 2 and 3, scratch tensors.
+  const float* w2 = sm + (tw ? lay.hw2 : lay.fw2);
+  const float* b2 = sm + (tw ? lay.hb2 : lay.fb2);
+  const float* w3t = tw ? hw3t : fw3t;
+  float* a1t = a1 + size_t(tw) * H * R;
+  float* a2t = a2 + size_t(tw) * H * R;
+  float* sa1 = ws + (tw ? A1H : A1F) * M * H;
+  float* sa2 = ws + (tw ? A2H : A2F) * M * H;
+  float* sdp1 = ws + (tw ? DP1H : DP1F) * M * H;
+  float* sdp2 = ws + (tw ? DP2H : DP2F) * M * H;
+  float* part = ws + a.parts + blockIdx.x * a.P;   // the block's partial row
+  cp_async_wait<0>();
   __syncthreads();
 
-  for (int s = a.n - 1; s >= 0; --s) {
-    const bool first = s == a.n - 1;
+  for (int s = n - 1; s >= 0; --s) {
+    const float* xb = x;
+    const float* iob = io;
+    const size_t srow = size_t(s) * B + row0;    // scratch row of r = 0
+    for (int r = tid; r < R; r += NT) ginc[r] += iob[2 * L * R + r];
 
-    // A. x = [pre-step z | this step's context rows]. Rows past the end of
-    // the batch compute on zeros, get zero cotangents and are never stored.
-    const float* zpre = s == 0 ? z0 : zs + size_t(s - 1) * B * L;
-    const int ci = min(max(a.ctx_idx[s], 0), a.T - 1);
-    const float* cstep = ctx + size_t(ci) * B * C;
-    for (int e = tid; e < TB * D; e += NT) {
-      const int r = e / D, k = e % D, row = row0 + r;
-      float v = 0.f;
-      if (row < B)
-        v = k < L ? zpre[size_t(row) * L + k] : cstep[size_t(row) * C + k - L];
-      x[k * TB + r] = v;
+    // B. Layer 1: f on x (tower 0), h on z (tower 1); the h threads then
+    // take the g nets' output sums.
+    for (int j = tt; j < H; j += NTT) {
+      float acc[R], xv[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
+      const float* w1 = tw ? hw1 : fw1;
+      const int kin = tw ? L : D;
+#pragma unroll 4
+      for (int k = 0; k < kin; ++k) {
+        const float w = w1[k * ld + j];
+        load_rows(xv, xb + k * R);
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(xv[r], w, acc[r]);
+      }
+      const float b = (tw ? hb1 : fb1)[j];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float v = softplus(acc[r] + b);
+        a1t[j * R + r] = v;
+        if (row0 + r < B) sa1[(srow + r) * H + j] = v;
+      }
+    }
+    if (tw == 1) {
+      for (int l = 0; l < L; ++l) {
+        float t[R], zv[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) t[r] = 0.f;
+        load_rows(zv, xb + l * R);
+        for (int k = tt; k < H; k += NTT) {
+          const float w1 = __ldg(gw1 + l * H + k);
+          const float b1 = __ldg(gb1 + l * H + k);
+          const float w2g = __ldg(gw2 + l * H + k);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            t[r] = fmaf(softplus(zv[r] * w1 + b1), w2g, t[r]);
+        }
+        warp_sum(t);
+        if (lane == 0) {
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            red[((2 * NWT + wt) * L + l) * R + r] = t[r];
+        }
+      }
     }
     __syncthreads();
 
-    // B. Layer 1 of f (input x) and h (input z); the g nets' output sums.
-    for (int j = tid; j < H; j += NT) {
-      float af[TB], ah[TB], xv[TB];
+    // C. Layer 2 of this thread's tower; D. its layer-3 sums over the
+    // thread's own units (no barrier: each reads back what it wrote).
+    for (int j = tt; j < H; j += NTT) {
+      float acc[R], v[R];
 #pragma unroll
-      for (int r = 0; r < TB; ++r) af[r] = ah[r] = 0.f;
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll 4
-      for (int k = 0; k < D; ++k) {
-        const float w = fw1[k * ld + j];
-        load_rows(xv, x + k * TB);
+      for (int k = 0; k < H; ++k) {
+        const float w = w2[k * ld + j];
+        load_rows(v, a1t + k * R);
 #pragma unroll
-        for (int r = 0; r < TB; ++r) af[r] = fmaf(xv[r], w, af[r]);
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(v[r], w, acc[r]);
       }
-      for (int k = 0; k < L; ++k) {
-        const float w = hw1[k * ld + j];
-        load_rows(xv, x + k * TB);
+      const float b = b2[j];
 #pragma unroll
-        for (int r = 0; r < TB; ++r) ah[r] = fmaf(xv[r], w, ah[r]);
-      }
-      const float bf = fb1[j], bh = hb1[j];
-#pragma unroll
-      for (int r = 0; r < TB; ++r) {
-        a1f[j * TB + r] = softplus(af[r] + bf);
-        a1h[j * TB + r] = softplus(ah[r] + bh);
+      for (int r = 0; r < R; ++r) {
+        const float u = softplus(acc[r] + b);
+        a2t[j * R + r] = u;
+        if (row0 + r < B) sa2[(srow + r) * H + j] = u;
       }
     }
     for (int l = 0; l < L; ++l) {
-      float t[TB], zv[TB];
+      float t[R], v[R];
 #pragma unroll
-      for (int r = 0; r < TB; ++r) t[r] = 0.f;
-      load_rows(zv, x + l * TB);
-      for (int k = tid; k < H; k += NT) {
-        const float w1 = gw1[l * H + k], b1 = gb1[l * H + k];
-        const float w2 = gw2[l * H + k];
+      for (int r = 0; r < R; ++r) t[r] = 0.f;
+      for (int k = tt; k < H; k += NTT) {
+        const float w = w3t[l * ld + k];
+        load_rows(v, a2t + k * R);
 #pragma unroll
-        for (int r = 0; r < TB; ++r)
-          t[r] = fmaf(softplus(zv[r] * w1 + b1), w2, t[r]);
+        for (int r = 0; r < R; ++r) t[r] = fmaf(v[r], w, t[r]);
       }
       warp_sum(t);
       if (lane == 0) {
 #pragma unroll
-        for (int r = 0; r < TB; ++r)
-          red[((warp * 3 + 2) * L + l) * TB + r] = t[r];
+        for (int r = 0; r < R; ++r)
+          red[((tw * NWT + wt) * L + l) * R + r] = t[r];
       }
     }
     __syncthreads();
 
-    // C. Layer 2 of both towers.
-    for (int j = tid; j < H; j += NT) {
-      float af[TB], ah[TB], vf[TB], vh[TB];
-#pragma unroll
-      for (int r = 0; r < TB; ++r) af[r] = ah[r] = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float wf = fw2[k * ld + j], wh = hw2[k * ld + j];
-        load_rows(vf, a1f + k * TB);
-        load_rows(vh, a1h + k * TB);
-#pragma unroll
-        for (int r = 0; r < TB; ++r) {
-          af[r] = fmaf(vf[r], wf, af[r]);
-          ah[r] = fmaf(vh[r], wh, ah[r]);
-        }
-      }
-      const float bf = fb2[j], bh = hb2[j];
-#pragma unroll
-      for (int r = 0; r < TB; ++r) {
-        a2f[j * TB + r] = softplus(af[r] + bf);
-        a2h[j * TB + r] = softplus(ah[r] + bh);
-      }
-    }
-    __syncthreads();
-
-    // D. Layer 3 of both towers, as per-warp sums.
-    for (int l = 0; l < L; ++l) {
-      float tf[TB], th[TB], vf[TB], vh[TB];
-#pragma unroll
-      for (int r = 0; r < TB; ++r) tf[r] = th[r] = 0.f;
-      for (int k = tid; k < H; k += NT) {
-        const float wf = fw3t[l * ld + k], wh = hw3t[l * ld + k];
-        load_rows(vf, a2f + k * TB);
-        load_rows(vh, a2h + k * TB);
-#pragma unroll
-        for (int r = 0; r < TB; ++r) {
-          tf[r] = fmaf(vf[r], wf, tf[r]);
-          th[r] = fmaf(vh[r], wh, th[r]);
-        }
-      }
-      warp_sum(tf);
-      warp_sum(th);
-      if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < TB; ++r) {
-          red[((warp * 3 + 0) * L + l) * TB + r] = tf[r];
-          red[((warp * 3 + 1) * L + l) * TB + r] = th[r];
-        }
-      }
-    }
-    __syncthreads();
-
-    // E. Per row: the step's f, h, g, u and the cotangents of f, h and of
-    // g's pre-activation; dnoise; the carried dz takes gz.
-    if (tid < TB) {
-      const int r = tid, row = row0 + r;
+    // E. Per row and output: the step's f, h, g, u and the cotangents of f,
+    // h and of g's pre-activation; dnoise; the carried dz takes gz.
+    for (int e = tid; e < L * R; e += NT) {
+      const int l = e / R, r = e % R, row = row0 + r;
       const bool valid = row < B;
+      float pf = 0.f, ph = 0.f, pg = 0.f;
+      for (int w = 0; w < NWT; ++w) {
+        pf += red[((0 * NWT + w) * L + l) * R + r];
+        ph += red[((1 * NWT + w) * L + l) * R + r];
+        pg += red[((2 * NWT + w) * L + l) * R + r];
+      }
+      const float f = pf + fb3[l];
+      const float h = ph + hb3[l];
+      const float g = sigmoid(pg + gb2[l]);
+      const bool big = g > EPS;
+      const float gs = big ? g : EPS;
+      const float u = (f - h) / gs;
       const float dt = a.dts[s];
-      if (valid) ginc += gq[size_t(s) * B + row];
-      for (int l = 0; l < L; ++l) {
-        float pf = 0.f, ph = 0.f, pg = 0.f;
-        for (int w = 0; w < NWARPS; ++w) {
-          pf += red[((w * 3 + 0) * L + l) * TB + r];
-          ph += red[((w * 3 + 1) * L + l) * TB + r];
-          pg += red[((w * 3 + 2) * L + l) * TB + r];
-        }
-        const float f = pf + fb3[l];
-        const float h = ph + hb3[l];
-        const float g = sigmoid(pg + gb2[l]);
-        const bool big = g > EPS;
-        const float gs = big ? g : EPS;
-        const float u = (f - h) / gs;
-        const size_t at = (size_t(s) * B + row) * L + l;
-        const float dz = dzs[l * TB + r] + (valid ? gz[at] : 0.f);
-        const float dW = valid ? noise[at] : 0.f;
-        if (valid) dnoise[at] = dz * g;
-        const float du = ginc * u * dt;
-        const float df = dz * dt + du / gs;
-        const float dh = -du / gs;
-        const float dg = dz * dW - (big ? du * u / gs : 0.f);
-        dl[(0 * L + l) * TB + r] = df;
-        dl[(1 * L + l) * TB + r] = dh;
-        dl[(2 * L + l) * TB + r] = dg * g * (1.f - g);
-        dzs[l * TB + r] = dz;
+      const float dz = dzs[e] + iob[(L + l) * R + r];
+      const float dW = iob[l * R + r];
+      const size_t at = valid ? (size_t(s) * B + row) * L + l : 0;
+      if (valid) dnoise[at] = dz * g;
+      const float du = ginc[r] * u * dt;
+      const float df = dz * dt + du / gs;
+      const float dh = -du / gs;
+      const float dg = dz * dW - (big ? du * u / gs : 0.f);
+      const float d2 = dg * g * (1.f - g);
+      dl[(0 * L + l) * R + r] = df;
+      dl[(1 * L + l) * R + r] = dh;
+      dl[(2 * L + l) * R + r] = d2;
+      dzs[e] = dz;
+      gacc[3 * L * H + e] += d2;
+      if (valid) {
+        sdf[at] = df;
+        sdh[at] = dh;
       }
     }
     __syncthreads();
 
-    // F. Layer 3 back to dpre2 of f and h (in place over a2), their W3 and
-    // b3; the g nets' whole backward, with their z-cotangent as warp sums.
-    for (int k = tid; k < H; k += NT) {
-      float vf[TB], vh[TB], daf[TB], dah[TB];
-      load_rows(vf, a2f + k * TB);
-      load_rows(vh, a2h + k * TB);
+    // F. Layer 3 back to dpre2 (in place over a2) and b2; the g nets'
+    // backward, tower t taking the outputs l = t, t + 2, ...: their
+    // gradients summed on chip, their z-cotangent as per-warp sums.
+    for (int k = tt; k < H; k += NTT) {
+      float v[R], da[R];
+      load_rows(v, a2t + k * R);
 #pragma unroll
-      for (int r = 0; r < TB; ++r) daf[r] = dah[r] = 0.f;
+      for (int r = 0; r < R; ++r) da[r] = 0.f;
       for (int l = 0; l < L; ++l) {
-        const float wf = fw3t[l * ld + k], wh = hw3t[l * ld + k];
-        float sf = 0.f, sh = 0.f;
+        const float w = w3t[l * ld + k];
+        const float* d = dl + (tw * L + l) * R;
 #pragma unroll
-        for (int r = 0; r < TB; ++r) {
-          const float df = dl[(0 * L + l) * TB + r];
-          const float dh = dl[(1 * L + l) * TB + r];
-          daf[r] = fmaf(df, wf, daf[r]);
-          dah[r] = fmaf(dh, wh, dah[r]);
-          sf = fmaf(vf[r], df, sf);
-          sh = fmaf(vh[r], dh, sh);
-        }
-        accum(pw[4], size_t(k) * L + l, sf, first);
-        accum(pw[10], size_t(k) * L + l, sh, first);
+        for (int r = 0; r < R; ++r) da[r] = fmaf(d[r], w, da[r]);
       }
 #pragma unroll
-      for (int r = 0; r < TB; ++r) {
-        a2f[k * TB + r] = daf[r] * (1.f - expf(-vf[r]));
-        a2h[k * TB + r] = dah[r] * (1.f - expf(-vh[r]));
+      for (int r = 0; r < R; ++r) {
+        const float p = da[r] * (1.f - expf(-v[r]));
+        a2t[k * R + r] = p;
+        if (row0 + r < B) sdp2[(srow + r) * H + k] = p;
       }
     }
-    for (int l = tid; l < L; l += NT) {
-      float sf = 0.f, sh = 0.f, sg = 0.f;
-      for (int r = 0; r < TB; ++r) {
-        sf += dl[(0 * L + l) * TB + r];
-        sh += dl[(1 * L + l) * TB + r];
-        sg += dl[(2 * L + l) * TB + r];
-      }
-      accum(pw[5], l, sf, first);
-      accum(pw[11], l, sh, first);
-      accum(pw[15], l, sg, first);
-    }
-    for (int l = 0; l < L; ++l) {
-      float tz[TB], zv[TB], d2[TB];
+    for (int l = tw; l < L; l += 2) {
+      float tz[R], zv[R], d2[R];
 #pragma unroll
-      for (int r = 0; r < TB; ++r) tz[r] = 0.f;
-      load_rows(zv, x + l * TB);
-      load_rows(d2, dl + (2 * L + l) * TB);
-      for (int k = tid; k < H; k += NT) {
-        const size_t i = size_t(l) * H + k;
-        const float w1 = gw1[i], b1 = gb1[i], w2 = gw2[i];
+      for (int r = 0; r < R; ++r) tz[r] = 0.f;
+      load_rows(zv, xb + l * R);
+      load_rows(d2, dl + (2 * L + l) * R);
+      for (int k = tt; k < H; k += NTT) {
+        const int i = l * H + k;
+        const float w1 = __ldg(gw1 + i), b1 = __ldg(gb1 + i);
+        const float w2g = __ldg(gw2 + i);
         float sw2 = 0.f, sw1 = 0.f, sb1 = 0.f;
 #pragma unroll
-        for (int r = 0; r < TB; ++r) {
+        for (int r = 0; r < R; ++r) {
           const float act = softplus(zv[r] * w1 + b1);
           sw2 = fmaf(act, d2[r], sw2);
-          const float dp1 = d2[r] * w2 * (1.f - expf(-act));
+          const float dp1 = d2[r] * w2g * (1.f - expf(-act));
           sw1 = fmaf(dp1, zv[r], sw1);
           sb1 += dp1;
           tz[r] = fmaf(dp1, w1, tz[r]);
         }
-        accum(pw[12], i, sw1, first);
-        accum(pw[13], i, sb1, first);
-        accum(pw[14], i, sw2, first);
+        gacc[i] += sw1;
+        gacc[L * H + i] += sb1;
+        gacc[2 * L * H + i] += sw2;
       }
       warp_sum(tz);
       if (lane == 0) {
 #pragma unroll
-        for (int r = 0; r < TB; ++r)
-          red[((warp * 3 + 0) * L + l) * TB + r] = tz[r];
+        for (int r = 0; r < R; ++r)
+          red[(wt * L + l) * R + r] = tz[r];
       }
     }
     __syncthreads();
 
-    // G1. W2 and b2 of both towers: thread j owns column j.
-    for (int j = tid; j < H; j += NT) {
-      float pf[TB], ph[TB], vf[TB], vh[TB];
-      load_rows(pf, a2f + j * TB);
-      load_rows(ph, a2h + j * TB);
-      float bf = 0.f, bh = 0.f;
-#pragma unroll
-      for (int r = 0; r < TB; ++r) { bf += pf[r]; bh += ph[r]; }
-      accum(pw[3], j, bf, first);
-      accum(pw[9], j, bh, first);
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        load_rows(vf, a1f + k * TB);
-        load_rows(vh, a1h + k * TB);
-        float sf = 0.f, sh = 0.f;
-#pragma unroll
-        for (int r = 0; r < TB; ++r) {
-          sf = fmaf(vf[r], pf[r], sf);
-          sh = fmaf(vh[r], ph[r], sh);
+    // x and the step's inputs are read for the last time above: fetch the
+    // step before's while G and H compute.
+    if (s > 0)
+      prefetch_step<NT, R>(s - 1, x, io, z0, zs, ctx, a.ctx_idx, noise, gz, gq,
+                        row0, B, L, C, a.T);
+    // Every FLUSH steps the g nets' on-chip sums join the block's partial
+    // row, so no float32 sum runs over more than FLUSH x R terms (one over
+    // all 1,024 of a block drifted from float64 five times as far as the
+    // plain version's blocked sums).
+    if ((n - s) % FLUSH == 0 || s == 0) {
+      const bool first = n - s <= FLUSH;
+      for (int e = tid; e < 3 * L * H; e += NT) {
+        float* p = part + a.off[12] + e;
+        *p = first ? gacc[e] : *p + gacc[e];
+        gacc[e] = 0.f;
+      }
+      for (int l = tid; l < L; l += NT) {
+        float v = 0.f;
+        for (int r = 0; r < R; ++r) {
+          v += gacc[3 * L * H + l * R + r];
+          gacc[3 * L * H + l * R + r] = 0.f;
         }
-        accum(pw[2], size_t(k) * H + j, sf, first);
-        accum(pw[8], size_t(k) * H + j, sh, first);
+        float* p = part + a.off[15] + l;
+        *p = first ? v : *p + v;
       }
     }
-    __syncthreads();
 
-    // G2. dpre1 = (dpre2 W2^T) * softplus'(a1), in place over a1: thread k
+    // G. dpre1 = (dpre2 W2^T) * softplus'(a1), in place over a1: thread k
     // owns row k of W2.
-    for (int k = tid; k < H; k += NT) {
-      float daf[TB], dah[TB], vf[TB], vh[TB];
+    for (int k = tt; k < H; k += NTT) {
+      float da[R], v[R];
 #pragma unroll
-      for (int r = 0; r < TB; ++r) daf[r] = dah[r] = 0.f;
+      for (int r = 0; r < R; ++r) da[r] = 0.f;
 #pragma unroll 4
       for (int j = 0; j < H; ++j) {
-        const float wf = fw2[k * ld + j], wh = hw2[k * ld + j];
-        load_rows(vf, a2f + j * TB);
-        load_rows(vh, a2h + j * TB);
+        const float w = w2[k * ld + j];
+        load_rows(v, a2t + j * R);
 #pragma unroll
-        for (int r = 0; r < TB; ++r) {
-          daf[r] = fmaf(vf[r], wf, daf[r]);
-          dah[r] = fmaf(vh[r], wh, dah[r]);
-        }
+        for (int r = 0; r < R; ++r) da[r] = fmaf(v[r], w, da[r]);
       }
-      load_rows(vf, a1f + k * TB);
-      load_rows(vh, a1h + k * TB);
+      load_rows(v, a1t + k * R);
 #pragma unroll
-      for (int r = 0; r < TB; ++r) {
-        a1f[k * TB + r] = daf[r] * (1.f - expf(-vf[r]));
-        a1h[k * TB + r] = dah[r] * (1.f - expf(-vh[r]));
+      for (int r = 0; r < R; ++r) {
+        const float p = da[r] * (1.f - expf(-v[r]));
+        a1t[k * R + r] = p;
+        if (row0 + r < B) sdp1[(srow + r) * H + k] = p;
       }
     }
     __syncthreads();
 
-    // H. W1 and b1 of both towers (thread j owns column j), then the input
-    // cotangent dx (thread k owns input row k): its z part joins the carried
-    // dz with the g nets' sums, its context part goes to dctx[ctx_idx[s]].
-    for (int j = tid; j < H; j += NT) {
-      float qf[TB], qh[TB], xv[TB];
-      load_rows(qf, a1f + j * TB);
-      load_rows(qh, a1h + j * TB);
-      float bf = 0.f, bh = 0.f;
+    // H. The input cotangents dx = dpre1 W1^T of f (rows k < D) and of h
+    // (rows D + l), each over one of JP parts of the hidden units, into
+    // partial sums over a2 (free since G).
+    float* pdx = a2;
+    for (int e = tid; e < KK * JP; e += NT) {
+      const int kk = e % KK, jp = e / KK;
+      const float* w = kk < D ? fw1 + kk * ld : hw1 + (kk - D) * ld;
+      const float* q = kk < D ? a1 : a1 + H * R;
+      const int j1 = min(H, (jp + 1) * jlen);
+      float acc[R], v[R];
 #pragma unroll
-      for (int r = 0; r < TB; ++r) { bf += qf[r]; bh += qh[r]; }
-      accum(pw[1], j, bf, first);
-      accum(pw[7], j, bh, first);
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll 4
-      for (int k = 0; k < D; ++k) {
-        load_rows(xv, x + k * TB);
-        float sf = 0.f;
+      for (int j = jp * jlen; j < j1; ++j) {
+        const float wv = w[j];
+        load_rows(v, q + j * R);
 #pragma unroll
-        for (int r = 0; r < TB; ++r) sf = fmaf(xv[r], qf[r], sf);
-        accum(pw[0], size_t(k) * H + j, sf, first);
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(v[r], wv, acc[r]);
       }
-      for (int k = 0; k < L; ++k) {
-        load_rows(xv, x + k * TB);
-        float sh = 0.f;
 #pragma unroll
-        for (int r = 0; r < TB; ++r) sh = fmaf(xv[r], qh[r], sh);
-        accum(pw[6], size_t(k) * H + j, sh, first);
-      }
+      for (int r = 0; r < R; ++r) pdx[(jp * KK + kk) * R + r] = acc[r];
     }
-    for (int k = tid; k < D; k += NT) {
-      float dx[TB], v[TB];
-#pragma unroll
-      for (int r = 0; r < TB; ++r) dx[r] = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < H; ++j) {
-        const float w = fw1[k * ld + j];
-        load_rows(v, a1f + j * TB);
-#pragma unroll
-        for (int r = 0; r < TB; ++r) dx[r] = fmaf(v[r], w, dx[r]);
-      }
-      if (k < L) {
-        for (int j = 0; j < H; ++j) {
-          const float w = hw1[k * ld + j];
-          load_rows(v, a1h + j * TB);
-#pragma unroll
-          for (int r = 0; r < TB; ++r) dx[r] = fmaf(v[r], w, dx[r]);
-        }
-        for (int w = 0; w < NWARPS; ++w) {
-#pragma unroll
-          for (int r = 0; r < TB; ++r)
-            dx[r] += red[((w * 3 + 0) * L + k) * TB + r];
-        }
-#pragma unroll
-        for (int r = 0; r < TB; ++r) dzs[k * TB + r] += dx[r];
-      } else {
-        for (int r = 0; r < TB; ++r) {
-          const int row = row0 + r;
-          if (row < B) dctx[(size_t(ci) * B + row) * C + k - L] += dx[r];
-        }
-      }
-    }
+    cp_async_wait<0>();
     __syncthreads();
+
+    // The z part of dx, h's and the g nets' z-cotangents join the carried
+    // dz (the thread that owns it in E); the context part goes to
+    // dctx[ctx_idx[s]], each element by one thread in step order.
+    for (int e = tid; e < L * R; e += NT) {
+      const int l = e / R, r = e % R;
+      float v = dzs[e];
+      for (int jp = 0; jp < JP; ++jp)
+        v += pdx[(jp * KK + l) * R + r] + pdx[(jp * KK + D + l) * R + r];
+      for (int w = 0; w < NWT; ++w) v += red[(w * L + l) * R + r];
+      dzs[e] = v;
+    }
+    const int ci = min(max(a.ctx_idx[s], 0), a.T - 1);
+    for (int e = tid; e < R * C; e += NT) {
+      const int r = e / C, c = e % C, row = row0 + r;
+      if (row >= B) continue;
+      float v = 0.f;
+      for (int jp = 0; jp < JP; ++jp) v += pdx[(jp * KK + L + c) * R + r];
+      dctx[(size_t(ci) * B + row) * C + c] += v;
+    }
   }
+  __syncthreads();
 
-  for (int e = tid; e < TB * L; e += NT) {
+  for (int e = tid; e < R * L; e += NT) {
     const int r = e / L, l = e % L, row = row0 + r;
-    if (row < B) dz0[size_t(row) * L + l] = dzs[l * TB + r];
+    if (row < B) dz0[size_t(row) * L + l] = dzs[l * R + r];
   }
 }
 
-// out[e] = sum over blocks of partials[b][e], in block order; replica
-// blockIdx.y sums its own blocks' partials into its own row of out.
-__global__ void latent_fused_bwd_reduce(const float* partials, int blocks,
-                                        size_t P, float* out) {
+// A product of the contraction: out[i][j] = sum over rows m of
+// A[m][i] * Bm[m][j], into a chunk's partial row at `out` (row-major, I x J),
+// and the bias row out[I][j] = sum over m of Bm[m][j] (the layer's bias
+// follows its weight in the partial row).
+struct Job {
+  size_t a, b, out;   // A's and Bm's offsets in the workspace (a: unused
+                      // when A is the context, gathered), out's in a partial
+  int ctx_rows;       // A is ctx[ctx_idx[m / B]][m % B] (I = C)
+  int I, J, tiles_j, tile0;
+};
+
+struct ContractArgs {
+  Job job[3];
+  int njobs;
+  const float* ctx;
+  const int* ctx_idx;
+  float* ws;
+  size_t ws_stride, parts, P;
+  int M, B, C, T;
+};
+
+// Loads rows [m, m + KS) of a job's A tile (columns i0..i0+TI) and Bm tile
+// (columns j0..j0+TJ) into one slab buffer; zero past the chunk's end and
+// the matrices' edges.
+__device__ __forceinline__ void load_slab(const ContractArgs& a, const Job& jb,
+                                          const float* A, const float* Bm,
+                                          const float* ctx, int m, int m1,
+                                          int i0, int j0, float* As,
+                                          float* Bs) {
+  for (int e = threadIdx.x; e < KS * TI; e += CT) {
+    const int kk = e / TI, i = e % TI, mm = m + kk, gi = i0 + i;
+    const bool valid = mm < m1 && gi < jb.I;
+    const float* src = A;
+    if (valid) {
+      if (jb.ctx_rows) {
+        const int s = mm / a.B, b = mm % a.B;
+        const int ci = min(max(a.ctx_idx[s], 0), a.T - 1);
+        src = ctx + (size_t(ci) * a.B + b) * a.C + gi;
+      } else {
+        src = A + size_t(mm) * jb.I + gi;
+      }
+    }
+    cp_async4(As + kk * TI + i, src, valid);
+  }
+  for (int e = threadIdx.x; e < KS * TJ; e += CT) {
+    const int kk = e / TJ, j = e % TJ, mm = m + kk, gj = j0 + j;
+    const bool valid = mm < m1 && gj < jb.J;
+    cp_async4(Bs + kk * TJ + j,
+              valid ? Bm + size_t(mm) * jb.J + gj : Bm, valid);
+  }
+  cp_async_commit();
+}
+
+// One output tile of one product over one chunk of rows; grid (tiles,
+// chunks, replicas).
+__global__ void __launch_bounds__(CT) latent_bwd_contract(const ContractArgs a) {
+  __shared__ __align__(16) float As[2][KS * TI];
+  __shared__ __align__(16) float Bs[2][KS * TJ];
+  const int tile = blockIdx.x;
+  int q = 0;
+  while (q + 1 < a.njobs && tile >= a.job[q + 1].tile0) ++q;
+  const Job& jb = a.job[q];
+  const int local = tile - jb.tile0;
+  const int i0 = (local / jb.tiles_j) * TI, j0 = (local % jb.tiles_j) * TJ;
+  const int m0 = blockIdx.y * RC, m1 = min(a.M, m0 + RC);
+  const size_t rep = blockIdx.z;
+  const float* ws = a.ws + rep * a.ws_stride;
+  const float* ctx = a.ctx + rep * size_t(a.T) * a.B * a.C;
+  const float* A = ws + jb.a;
+  const float* Bm = ws + jb.b;
+  const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
+  // Warps 0-3 of the tiles in the first rows sum the bias row, a column a
+  // thread, from the slabs in shared memory (a warp-uniform branch).
+  const bool bias = i0 == 0 && threadIdx.x < TJ;
+  double bsum = 0.0;
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  const int slabs = (m1 - m0 + KS - 1) / KS;
+  load_slab(a, jb, A, Bm, ctx, m0, m1, i0, j0, As[0], Bs[0]);
+  for (int t = 0; t < slabs; ++t) {
+    if (t + 1 < slabs) {
+      load_slab(a, jb, A, Bm, ctx, m0 + (t + 1) * KS, m1, i0, j0,
+                As[(t + 1) & 1], Bs[(t + 1) & 1]);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* as = As[t & 1];
+    const float* bs = Bs[t & 1];
+    if (bias) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) bsum += bs[kk * TJ + threadIdx.x];
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(as + kk * TI + ti * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * TJ + tj * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(bs + kk * TJ + 64 + tj * 4);
+      const float av_[4] = {av.x, av.y, av.z, av.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av_[i], bv[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+  float* out = a.ws + rep * a.ws_stride + a.parts + blockIdx.y * a.P + jb.out;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gi = i0 + ti * 4 + i;
+    if (gi >= jb.I) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int gj = j0 + (j < 4 ? tj * 4 + j : 64 + tj * 4 + j - 4);
+      if (gj < jb.J) out[size_t(gi) * jb.J + gj] = acc[i][j];
+    }
+  }
+  if (bias && j0 + int(threadIdx.x) < jb.J)
+    out[size_t(jb.I) * jb.J + j0 + threadIdx.x] = static_cast<float>(bsum);
+}
+
+// A product with an L-wide side: out = W^T S, W (M, H) in the workspace,
+// S (M, L) either in the workspace or z_pre (z0 for the first B rows, zs
+// after), stored [l][c] (z rows of layer 1) or [c][l] (layer 3). A column
+// of ones appended to S (ones_s) or to W (ones_w) gives the bias that
+// follows the weight: hb1 = the sum of dpre1h, fb3 = the sum of df.
+struct SkinnyJob {
+  size_t w, s, out;
+  int z_pre;          // S is z_pre, gathered from z0 and zs
+  int by_column;      // out[c][l] rather than out[l][c]
+  int ones_s, ones_w;
+};
+
+struct SkinnyArgs {
+  SkinnyJob job[4];
+  const float* z0;
+  const float* zs;
+  float* ws;
+  size_t ws_stride, parts, P;
+  int M, B, L, H;
+};
+
+// A thread a column c of W, summing over one chunk of rows in row order;
+// grid (jobs, chunks, replicas). Each thread loads SKB rows of its column
+// before it adds them, so that many loads are in flight at once.
+__global__ void __launch_bounds__(CT) latent_bwd_skinny(const SkinnyArgs a) {
+  const SkinnyJob& jb = a.job[blockIdx.x];
+  const int m0 = blockIdx.y * RC, m1 = min(a.M, m0 + RC);
+  const size_t rep = blockIdx.z;
+  const int L = a.L, H = a.H;
+  const float* ws = a.ws + rep * a.ws_stride;
+  const float* W = ws + jb.w;
+  const float* S = ws + jb.s;
+  const float* z0 = a.z0 + rep * size_t(a.B) * L;
+  const float* zs = a.zs + rep * size_t(a.M) * L;
+  float* out = a.ws + rep * a.ws_stride + a.parts + blockIdx.y * a.P + jb.out;
+  for (int c = threadIdx.x; c < H + jb.ones_w; c += CT) {
+    for (int l0 = 0; l0 < L; l0 += 4) {
+      const bool ones = jb.ones_s && l0 == 0;   // S's column of ones
+      double acc[4] = {0.0, 0.0, 0.0, 0.0}, bias = 0.0;
+      for (int m = m0; m < m1; m += SKB) {
+        float w[SKB];
+#pragma unroll
+        for (int u = 0; u < SKB; ++u) {
+          const bool in = m + u < m1;
+          w[u] = !in ? 0.f : c < H ? W[size_t(m + u) * H + c] : 1.f;
+        }
+#pragma unroll
+        for (int u = 0; u < SKB; ++u) {
+          const int mm = min(m + u, m1 - 1);
+          const float* srow = !jb.z_pre ? S + size_t(mm) * L
+                              : mm < a.B ? z0 + size_t(mm) * L
+                                         : zs + size_t(mm - a.B) * L;
+          const double wu = w[u];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (l0 + i < L) {
+              const double sv = __ldg(srow + l0 + i);
+              acc[i] = fma(wu, sv, acc[i]);
+            }
+          }
+          if (ones) bias += wu;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int l = l0 + i;
+        if (l < L)
+          out[jb.by_column ? size_t(c) * L + l : size_t(l) * H + c] =
+              static_cast<float>(acc[i]);
+      }
+      if (ones) out[size_t(L) * H + c] = static_cast<float>(bias);
+    }
+  }
+}
+
+// dw[e] = the float64 sum of the partial rows that hold element e, in row
+// order: the contraction's chunks for the towers f and h (weights 0-11), the
+// sweep's blocks for the g nets; replica blockIdx.y sums its own workspace
+// into its own row of dw.
+struct ReduceArgs {
+  size_t off[NW];
+  const float* ws;
+  size_t ws_stride, parts, P;
+  int chunks, blocks;
+  float* dw;
+};
+
+__global__ void latent_bwd_reduce(const ReduceArgs a) {
   const size_t e = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= P) return;
-  partials += replica() * blocks * P;
-  out += replica() * P;
-  float acc = 0.f;
-  for (int b = 0; b < blocks; ++b) acc += partials[size_t(b) * P + e];
-  out[e] = acc;
+  if (e >= a.P) return;
+  int w = 0;
+  while (w + 1 < NW && e >= a.off[w + 1]) ++w;
+  const int rows = w < 12 ? a.chunks : a.blocks;
+  const float* p = a.ws + blockIdx.y * a.ws_stride + a.parts + e;
+  double acc = 0.0;
+  for (int b = 0; b < rows; ++b) acc += p[size_t(b) * a.P];
+  a.dw[blockIdx.y * a.P + e] = static_cast<float>(acc);
 }
 
-}  // namespace
+// Element counts of the workspace of one replica: the scratch, then
+// max(chunks, blocks) partial rows of P floats (blocks at SWEEP_ROWS rows a
+// block, the most of any launch<NT, R> with R >= SWEEP_ROWS).
+struct Sizes {
+  size_t M, P, parts, total;
+  int chunks, blocks;
+};
 
-extern "C" {
-
-// Dynamic shared memory one block of the sweep needs for these widths.
-size_t tsde_latent_fused_bwd_smem_bytes(int L, int C, int H) {
-  return make_layout(L, C, H).total * sizeof(float);
+__host__ inline Sizes sizes_of(int B, int L, int C, int H, int n) {
+  Sizes z;
+  size_t w[NW];
+  weight_sizes(L, C, H, w);
+  z.P = 0;
+  for (int i = 0; i < NW; ++i) z.P += w[i];
+  z.M = size_t(n) * B;
+  z.chunks = static_cast<int>((z.M + RC - 1) / RC);
+  z.blocks = (B + SWEEP_ROWS - 1) / SWEEP_ROWS;   // the most sweep blocks
+  z.parts = z.M * (NSCRATCH * size_t(H) + 2 * size_t(L));
+  const size_t rows = z.chunks > z.blocks ? z.chunks : z.blocks;
+  z.total = z.parts + rows * z.P;
+  return z;
 }
 
-// Blocks of the sweep for a batch of B rows: the partial buffer holds one
-// row of all weight gradients for each.
-int tsde_latent_fused_bwd_blocks(int B) {
-  return (B + tsde_latent::TB - 1) / tsde_latent::TB;
+template <int NT, int R>
+int launch_sweep(const Args& a, int K, cudaStream_t stream) {
+  const size_t smem = make_layout(a.L, a.C, a.H, NT, R).total * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      latent_bwd_sweep<NT, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (a.B + R - 1) / R;
+  latent_bwd_sweep<NT, R><<<dim3(blocks, K), NT, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
-}  // extern "C"
+// The contraction and the reduction, on a workspace the sweep has filled
+// with `blocks` partial rows.
+int launch_contraction(const Args& a, const Sizes& z, int blocks, int K,
+                       float* dw, cudaStream_t stream) {
+  const int L = a.L, C = a.C, H = a.H;
+  const size_t MH = z.M * H;
+  ContractArgs c;
+  // fw1's context rows (weight rows L..D-1) and fb1, fw2 and fb2, hw2 and
+  // hb2.
+  const size_t a_of[3] = {0, A1F * MH, A1H * MH};
+  const size_t b_of[3] = {DP1F * MH, DP2F * MH, DP2H * MH};
+  const size_t out_of[3] = {a.off[0] + size_t(L) * H, a.off[2], a.off[8]};
+  const int rows_of[3] = {C, H, H};
+  int tiles = 0;
+  for (int q = 0; q < 3; ++q) {
+    Job& jb = c.job[q];
+    jb.a = a_of[q];
+    jb.b = b_of[q];
+    jb.out = out_of[q];
+    jb.ctx_rows = q == 0;
+    jb.I = rows_of[q];
+    jb.J = H;
+    jb.tiles_j = (H + TJ - 1) / TJ;
+    jb.tile0 = tiles;
+    tiles += ((jb.I + TI - 1) / TI) * jb.tiles_j;
+  }
+  c.njobs = 3;
+  c.ctx = a.ctx;
+  c.ctx_idx = a.ctx_idx;
+  c.ws = a.ws;
+  c.ws_stride = a.ws_stride;
+  c.parts = z.parts;
+  c.P = z.P;
+  c.M = static_cast<int>(z.M);
+  c.B = a.B;
+  c.C = C;
+  c.T = a.T;
+  latent_bwd_contract<<<dim3(tiles, z.chunks, K), CT, 0, stream>>>(c);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
 
-namespace {
+  SkinnyArgs s;
+  const size_t df = NSCRATCH * MH, dh = df + z.M * L;
+  const SkinnyJob jobs[4] = {
+      {DP1F * MH, 0, a.off[0], 1, 0, 0, 0},    // fw1's z rows
+      {DP1H * MH, 0, a.off[6], 1, 0, 1, 0},    // hw1 and hb1
+      {A2F * MH, df, a.off[4], 0, 1, 0, 1},    // fw3 and fb3
+      {A2H * MH, dh, a.off[10], 0, 1, 0, 1}};  // hw3 and hb3
+  for (int q = 0; q < 4; ++q) s.job[q] = jobs[q];
+  s.z0 = a.z0;
+  s.zs = a.zs;
+  s.ws = a.ws;
+  s.ws_stride = a.ws_stride;
+  s.parts = z.parts;
+  s.P = z.P;
+  s.M = static_cast<int>(z.M);
+  s.B = a.B;
+  s.L = L;
+  s.H = H;
+  latent_bwd_skinny<<<dim3(4, z.chunks, K), CT, 0, stream>>>(s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
 
-// Launches the sweeps of K stacked solves (K = 1: a single solve) and the
-// reduction on `stream`; returns cudaGetLastError() (0 on success).
-int launch(Args a, int K, float* dw, int device, cudaStream_t stream) {
+  ReduceArgs r;
+  for (int i = 0; i < NW; ++i) r.off[i] = a.off[i];
+  r.ws = a.ws;
+  r.ws_stride = a.ws_stride;
+  r.parts = z.parts;
+  r.P = z.P;
+  r.chunks = z.chunks;
+  r.blocks = blocks;
+  r.dw = dw;
+  constexpr int RT = 256;
+  latent_bwd_reduce<<<dim3(static_cast<unsigned>((z.P + RT - 1) / RT), K),
+                      RT, 0, stream>>>(r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches, for K stacked solves (K = 1: a single solve), on `stream`: for
+// `stages` bit 0 the sweep at NT threads and R rows a block, for bit 1 the
+// contraction and the reduction on the workspace such a sweep filled;
+// returns cudaGetLastError() (0 on success).
+template <int NT, int R>
+int launch(Args a, int K, float* dw, int stages, int device,
+           cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (K <= 0 || a.B <= 0 || a.n <= 0) return 0;
@@ -616,72 +1002,101 @@ int launch(Args a, int K, float* dw, int device, cudaStream_t stream) {
     a.off[i] = P;
     P += sizes[i];
   }
-  a.P = P;
-  const size_t smem = tsde_latent_fused_bwd_smem_bytes(a.L, a.C, a.H);
-  err = cudaFuncSetAttribute(latent_fused_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = tsde_latent_fused_bwd_blocks(a.B);
-  latent_fused_bwd_kernel<<<dim3(blocks, K), NT, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int RT = 256;
-  const dim3 grid(static_cast<unsigned>((P + RT - 1) / RT), K);
-  latent_fused_bwd_reduce<<<grid, RT, 0, stream>>>(a.partials, blocks, P, dw);
-  return static_cast<int>(cudaGetLastError());
+  const Sizes z = sizes_of(a.B, a.L, a.C, a.H, a.n);
+  a.P = z.P;
+  a.ws_stride = z.total;
+  a.parts = z.parts;
+  if (stages & 1) {
+    const int rc = launch_sweep<NT, R>(a, K, stream);
+    if (rc != 0) return rc;
+  }
+  if (stages & 2)
+    return launch_contraction(a, z, (a.B + R - 1) / R, K, dw, stream);
+  return 0;
 }
 
 Args make_args(const float* z0, const float* ctx, const int* ctx_idx,
                const float* noise, const float* dts, const float* const* w,
                const float* zs, const float* gz, const float* gq, float* dz0,
-               float* dctx, float* dnoise, float* partials, int B, int L,
-               int C, int H, int T, int n) {
+               float* dctx, float* dnoise, float* ws, int B, int L, int C,
+               int H, int T, int n) {
   Args a;
   a.z0 = z0; a.ctx = ctx; a.ctx_idx = ctx_idx; a.noise = noise; a.dts = dts;
   for (int i = 0; i < NW; ++i) a.w[i] = w[i];
   a.zs = zs; a.gz = gz; a.gq = gq;
-  a.dz0 = dz0; a.dctx = dctx; a.dnoise = dnoise; a.partials = partials;
+  a.dz0 = dz0; a.dctx = dctx; a.dnoise = dnoise; a.ws = ws;
   a.B = B; a.L = L; a.C = C; a.H = H; a.T = T; a.n = n;
   return a;
 }
 
-}  // namespace
+}  // namespace tsde_latent_bwd
 
 extern "C" {
 
-// Launches the sweep and the reduction on `stream` and returns
-// cudaGetLastError() (0 on success). All pointers are device pointers to
-// contiguous float32 arrays, ctx_idx int32; weights in the order of
-// latent_fused.WEIGHT_NAMES. dctx must be zeroed; partials holds
-// tsde_latent_fused_bwd_blocks(B) x P floats and dw P floats, P the
-// weights' total element count; dw receives their gradients back to back.
+// Dynamic shared memory one block of the sweep needs for these widths, at
+// the sweep's block size.
+size_t tsde_latent_fused_bwd_smem_bytes(int L, int C, int H) {
+  using namespace tsde_latent_bwd;
+  return make_layout(L, C, H, SWEEP_THREADS, SWEEP_ROWS).total * sizeof(float);
+}
+
+// Floats of one replica's workspace: the scratch tensors (n x B x (8H + 2L))
+// and the partial rows.
+size_t tsde_latent_fused_bwd_workspace(int B, int L, int C, int H, int n) {
+  return tsde_latent_bwd::sizes_of(B, L, C, H, n).total;
+}
+
+// Launches the sweep, the contraction and the reduction on `stream` and
+// returns cudaGetLastError() (0 on success). All pointers are device
+// pointers to contiguous float32 arrays, ctx_idx int32; weights in the order
+// of latent_fused.WEIGHT_NAMES. dctx must be zeroed; ws holds
+// tsde_latent_fused_bwd_workspace(B, L, C, H, n) floats and dw P floats, P
+// the weights' total element count; dw receives their gradients back to
+// back.
 int tsde_latent_fused_bwd(
     const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
     const float* dts, TSDE_WEIGHT_PARAMS, const float* zs, const float* gz,
-    const float* gq, float* dz0, float* dctx, float* dnoise, float* partials,
+    const float* gq, float* dz0, float* dctx, float* dnoise, float* ws,
     float* dw, int B, int L, int C, int H, int T, int n, int device,
     cudaStream_t stream) {
+  using namespace tsde_latent_bwd;
   const float* w[NW] = TSDE_WEIGHTS;
-  return launch(make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
-                          dctx, dnoise, partials, B, L, C, H, T, n),
-                1, dw, device, stream);
+  const Args a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
+                           dctx, dnoise, ws, B, L, C, H, T, n);
+  return launch<SWEEP_THREADS, SWEEP_ROWS>(a, 1, dw, 3, device, stream);
 }
 
-// The same for K stacked replicas in one launch: every per-replica array
-// has a leading K axis (see tsde_latent_fused_fwd_multi), partials holds
-// K x tsde_latent_fused_bwd_blocks(B) x P floats and dw K x P: each
-// replica's weight gradients, summed over its own blocks in block order.
+// The same for K stacked replicas in one launch of each phase: every
+// per-replica array has a leading K axis (see tsde_latent_fused_fwd_multi),
+// ws holds K workspaces and dw K x P: each replica's weight gradients,
+// summed over its own chunks and blocks in order.
 int tsde_latent_fused_bwd_multi(
     const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
     const float* dts, TSDE_WEIGHT_PARAMS, const float* zs, const float* gz,
-    const float* gq, float* dz0, float* dctx, float* dnoise, float* partials,
+    const float* gq, float* dz0, float* dctx, float* dnoise, float* ws,
     float* dw, int K, int B, int L, int C, int H, int T, int n, int device,
     cudaStream_t stream) {
+  using namespace tsde_latent_bwd;
   const float* w[NW] = TSDE_WEIGHTS;
-  return launch(make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
-                          dctx, dnoise, partials, B, L, C, H, T, n),
-                K, dw, device, stream);
+  const Args a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
+                           dctx, dnoise, ws, B, L, C, H, T, n);
+  return launch<SWEEP_THREADS, SWEEP_ROWS>(a, K, dw, 3, device, stream);
+}
+
+// tsde_latent_fused_bwd_multi's phases one at a time, for measurement:
+// `stages` bit 0 the sweep, bit 1 the contraction and the reduction on the
+// workspace a sweep left.
+int tsde_latent_fused_bwd_stages(
+    const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
+    const float* dts, TSDE_WEIGHT_PARAMS, const float* zs, const float* gz,
+    const float* gq, float* dz0, float* dctx, float* dnoise, float* ws,
+    float* dw, int K, int B, int L, int C, int H, int T, int n, int stages,
+    int device, cudaStream_t stream) {
+  using namespace tsde_latent_bwd;
+  const float* w[NW] = TSDE_WEIGHTS;
+  const Args a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
+                           dctx, dnoise, ws, B, L, C, H, T, n);
+  return launch<SWEEP_THREADS, SWEEP_ROWS>(a, K, dw, stages, device, stream);
 }
 
 }  // extern "C"

@@ -7,9 +7,11 @@ the state update), each a kernel launch and a round trip of (B, ·)
 activations through device memory. Here the whole solve is one launch of a
 hand-written CUDA kernel (``csrc/latent_fused_fwd.cu``): weights stay in
 shared memory, the state in shared memory and registers, and each step reads
-only its context row and noise and writes its state. Its gradient is one
-launch of a second kernel (``csrc/latent_fused_bwd.cu``), the hand-derived
-reverse sweep of ``_backward_core``.
+only its context row and noise and writes its state. Its gradient is
+``csrc/latent_fused_bwd.cu``: the hand-derived reverse sweep of
+``_backward_core``, which writes the towers' activations and cotangents to
+a scratch workspace, then the contraction of those over all rows and steps
+into the towers' weight gradients.
 
 The kernel computes the same function as the JAX package's ``_fwd_kernel``
 with ``_forward_core``, Euler–Maruyama with diagonal noise and the logqp
@@ -91,17 +93,6 @@ def _mlp3(x, w1, b1, w2, b2, w3, b3):
     return a1, a2, a2 @ w3 + b3
 
 
-def _mlp3_backward(x, a1, a2, weights, dout):
-    """Cotangent of the input of :func:`_mlp3`, and its six weights'
-    gradients, from its activations (softplus' = 1 - exp(-softplus))."""
-    w1, _, w2, _, w3, _ = weights
-    dpre2 = (dout @ w3.T) * (1 - torch.exp(-a2))
-    dpre1 = (dpre2 @ w2.T) * (1 - torch.exp(-a1))
-    grads = (x.T @ dpre1, dpre1.sum(0), a1.T @ dpre2, dpre2.sum(0),
-             a2.T @ dout, dout.sum(0))
-    return dpre1 @ w1.T, grads
-
-
 def _g_nets(z, gw1, gb1, gw2, gb2):
     """The per-dimension diffusion nets: their hidden activations a1g
     (L,B,H) and g (B,L)."""
@@ -138,26 +129,53 @@ def fused_solve_forward_plain(z0, ctx, ctx_idx, noise, dts, weights):
     return torch.stack(zs), torch.stack(qs)
 
 
+# The scratch tensors the reverse sweep writes for the contraction: the
+# towers' hidden activations and pre-activation cotangents, each (n,B,H),
+# then the output cotangents df and dh, each (n,B,L).
+SCRATCH_NAMES = ("a1f", "a1h", "a2f", "a2h", "dpre1f", "dpre1h", "dpre2f",
+                 "dpre2h", "df", "dh")
+
+
 def fused_solve_backward_plain(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
                                gq):
-    """The backward kernel's function as a loop of PyTorch operators: the
-    reverse sweep of the JAX package's ``_backward_core``, which recomputes
-    each step's towers from its pre-step state.
+    """The backward kernel's function as PyTorch operators: the reverse
+    sweep of the JAX package's ``_backward_core``, which recomputes each
+    step's towers from its pre-step state, composed, as the kernel is, of
+    :func:`fused_solve_backward_sweep_plain` and
+    :func:`fused_solve_backward_contract_plain`.
 
     Takes the forward's inputs, its states zs (n,B,L), and the cotangents gz
     (n,B,L) of zs and gq (n,B,1) of qs. Returns dz0 (B,L), dctx (T,B,C)
     (summed over the steps that read each context row), dnoise (n,B,L) and
     the weights' gradients in WEIGHT_NAMES order."""
+    dz0, dctx, dnoise, g_grads, scratch = fused_solve_backward_sweep_plain(
+        z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq)
+    tower_grads = fused_solve_backward_contract_plain(z0, ctx, ctx_idx, zs,
+                                                      scratch)
+    return dz0, dctx, dnoise, tower_grads + g_grads
+
+
+def fused_solve_backward_sweep_plain(z0, ctx, ctx_idx, noise, dts, weights,
+                                     zs, gz, gq):
+    """The reverse sweep, kernel 2's first launch, as a loop of PyTorch
+    operators: for each step, last to first, the towers recomputed, the
+    cotangents carried back to dz, and what the later products need.
+
+    Returns dz0 (B,L), dctx (T,B,C), dnoise (n,B,L); the g nets' gradients
+    (gw1, gb1, gw2, gb2), which the sweep sums on chip; and the scratch
+    tensors in SCRATCH_NAMES order, whose products over all n*B rows give
+    the towers' gradients (:func:`fused_solve_backward_contract_plain`)."""
     fw, hw = weights[0:6], weights[6:12]
     gw1, gb1, gw2, gb2 = weights[12:16]
-    L = z0.shape[1]
     idx = ctx_idx.long()
     z_pre = torch.cat([z0[None], zs[:-1]])
     ginc = gq.flip(0).cumsum(0).flip(0)      # cotangent of each KL increment
     dz = torch.zeros_like(z0)
     dctx = torch.zeros_like(ctx)
     dnoise = torch.empty_like(noise)
-    dw = [torch.zeros_like(w) for w in weights]
+    g_grads = [torch.zeros_like(w) for w in weights[12:16]]
+    steps = [[None] * noise.shape[0] for _ in SCRATCH_NAMES]
+    L = z0.shape[1]
     for s in reversed(range(noise.shape[0])):
         z, dt = z_pre[s], dts[s]
         x = torch.cat([z, ctx[idx[s]]], dim=1)
@@ -176,21 +194,47 @@ def fused_solve_backward_plain(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
         # stable_division clamps only the u-path; dz * dW is never masked.
         dg = dz * noise[s] - (du * u / gs) * big.to(z.dtype)
 
-        dx, f_grads = _mlp3_backward(x, a1f, a2f, fw, df)
-        dzh, h_grads = _mlp3_backward(z, a1h, a2h, hw, dh)
+        dpre2f = (df @ fw[4].T) * (1 - torch.exp(-a2f))
+        dpre1f = (dpre2f @ fw[2].T) * (1 - torch.exp(-a1f))
+        dpre2h = (dh @ hw[4].T) * (1 - torch.exp(-a2h))
+        dpre1h = (dpre2h @ hw[2].T) * (1 - torch.exp(-a1h))
+        dx = dpre1f @ fw[0].T
+        dzh = dpre1h @ hw[0].T
         dpre2g = dg * g * (1 - g)                                   # (B,L)
         dpre1g = (dpre2g.T[..., None] * gw2[:, None, :, 0]
                   * (1 - torch.exp(-a1g)))                          # (L,B,H)
-        g_grads = (torch.einsum("lbh,lb->lh", dpre1g, z.T)[:, None, :],
-                   dpre1g.sum(1),
-                   torch.einsum("lbh,bl->lh", a1g, dpre2g)[..., None],
-                   dpre2g.sum(0)[:, None])
-        for acc, d in zip(dw, f_grads + h_grads + g_grads):
+        sums = (torch.einsum("lbh,lb->lh", dpre1g, z.T)[:, None, :],
+                dpre1g.sum(1),
+                torch.einsum("lbh,bl->lh", a1g, dpre2g)[..., None],
+                dpre2g.sum(0)[:, None])
+        for acc, d in zip(g_grads, sums):
             acc += d
+        for store, t in zip(steps, (a1f, a1h, a2f, a2h, dpre1f, dpre1h,
+                                    dpre2f, dpre2h, df, dh)):
+            store[s] = t
         dzg = torch.einsum("lbh,lh->bl", dpre1g, gw1[:, 0, :])
         dz = dz + dx[:, :L] + dzh + dzg
         dctx.index_add_(0, idx[s:s + 1], dx[None, :, L:])
-    return dz, dctx, dnoise, tuple(dw)
+    scratch = tuple(torch.stack(t) for t in steps)
+    return dz, dctx, dnoise, tuple(g_grads), scratch
+
+
+def fused_solve_backward_contract_plain(z0, ctx, ctx_idx, zs, scratch):
+    """The contraction, kernel 2's second launch, as PyTorch operators: the
+    towers' gradients (WEIGHT_NAMES[:12]) as products and column sums over
+    all n*B rows of the sweep's scratch tensors (SCRATCH_NAMES order), with
+    the layer-1 inputs x = [z_pre | ctx[ctx_idx[s]]] gathered from z0, zs
+    and ctx rather than stored."""
+    a1f, a1h, a2f, a2h, dpre1f, dpre1h, dpre2f, dpre2h, df, dh = (
+        t.reshape(-1, t.shape[-1]) for t in scratch)
+    z_pre = torch.cat([z0[None], zs[:-1]])
+    x = torch.cat([z_pre, ctx[ctx_idx.long()]], dim=-1)
+    z_pre = z_pre.reshape(-1, z_pre.shape[-1])
+    x = x.reshape(-1, x.shape[-1])
+    return (x.T @ dpre1f, dpre1f.sum(0), a1f.T @ dpre2f, dpre2f.sum(0),
+            a2f.T @ df, df.sum(0),
+            z_pre.T @ dpre1h, dpre1h.sum(0), a1h.T @ dpre2h, dpre2h.sum(0),
+            a2h.T @ dh, dh.sum(0))
 
 
 def fused_solve_multi_forward_plain(z0, ctx, ctx_idx, noise, dts, weights):
@@ -292,13 +336,16 @@ def fused_solve_forward_cuda(z0, ctx, ctx_idx, noise, dts, weights):
 
 def fused_solve_backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
                               gq):
-    """Launch the backward kernel (the reverse sweep, then the sum of the
-    blocks' weight-gradient partials) on the current stream; returns what
-    :func:`fused_solve_backward_plain` returns. Raises on tensors it does not
-    take, on a failed build and on a refused launch."""
+    """Launch the backward kernel (the reverse sweep, the contraction of its
+    scratch tensors into the layer weights' gradients, and the sum of the
+    partials) on the current stream; returns what
+    :func:`fused_solve_backward_plain` returns. Its workspace holds the
+    scratch tensors, n x B x (8H + 2L) floats, and the partials: 587 MB at
+    the flagship. Raises on tensors it does not take, on a failed build and on
+    a refused launch."""
     global bwd_launches
     out = _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq,
-                         multi=False)
+                         multi=False)[0]
     bwd_launches += 1
     return out
 
@@ -316,15 +363,15 @@ def fused_solve_multi_forward_cuda(z0, ctx, ctx_idx, noise, dts, weights):
 
 def fused_solve_multi_backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs,
                                     gz, gq):
-    """Launch kernel 4, the reverse sweeps of K stacked solves and the sum of
-    each replica's blocks' weight-gradient partials, on the current stream;
+    """Launch kernel 4, the reverse sweeps and contractions of K stacked
+    solves and the sum of each replica's partials, on the current stream;
     returns what :func:`fused_solve_multi_backward_plain` returns. The
-    partials take K x blocks x P floats (185 MB at the flagship with K 8).
-    Raises on tensors it does not take, on a failed build and on a refused
-    launch."""
+    workspace takes K times a single solve's (2.3 GB at the flagship with
+    K 4). Raises on tensors it does not take, on a failed build and on a
+    refused launch."""
     global multi_bwd_launches
     out = _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq,
-                         multi=True)
+                         multi=True)[0]
     multi_bwd_launches += 1
     return out
 
@@ -355,9 +402,15 @@ def _forward_cuda(z0, ctx, ctx_idx, noise, dts, weights, multi):
     return zs, qs
 
 
-def _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq, multi):
+def _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq, multi,
+                   stages=3, workspace=None):
     """One launch of the backward kernel, single (kernel 2) or on K stacked
-    replicas (kernel 4), with its partials' reduction."""
+    replicas (kernel 4): the sweep, the contraction and the reduction.
+    Returns its outputs and its workspace (K, floats a replica).
+
+    For measurement only, ``stages`` runs the sweep alone (1) or the
+    contraction and the reduction alone (2) on the ``workspace`` of an
+    earlier call."""
     if not z0.is_cuda:
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
                          f"{z0.device}")
@@ -375,20 +428,39 @@ def _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq, multi):
     dctx = torch.zeros_like(ctx)
     dnoise = torch.empty_like(noise)
     sizes = [w[0].numel() if multi else w.numel() for w in weights]
-    partials = torch.empty(
-        lead + (lib.tsde_latent_fused_bwd_blocks(B), sum(sizes)), **f32)
+    if workspace is None:
+        workspace = torch.empty(
+            (lead[0] if multi else 1,
+             lib.tsde_latent_fused_bwd_workspace(B, L, C, H, n)), **f32)
     dw = torch.zeros(lead + (sum(sizes),), **f32)
     ptrs = [t.data_ptr() for t in (z0, ctx, ctx_idx, noise, dts, *weights,
-                                   zs, gz, gq, dz0, dctx, dnoise, partials,
+                                   zs, gz, gq, dz0, dctx, dnoise, workspace,
                                    dw)]
     stream = torch.cuda.current_stream(z0.device).cuda_stream
+    device = z0.device.index or 0
     name = "latent_fused_bwd_multi" if multi else "latent_fused_bwd"
-    rc = getattr(lib, f"tsde_{name}")(*ptrs, *lead, B, L, C, H, T, n,
-                                      z0.device.index or 0, stream)
+    if stages == 3:
+        rc = getattr(lib, f"tsde_{name}")(*ptrs, *lead, B, L, C, H, T, n,
+                                          device, stream)
+    else:
+        rc = lib.tsde_latent_fused_bwd_stages(
+            *ptrs, lead[0] if multi else 1, B, L, C, H, T, n, stages, device,
+            stream)
     _build.check_launch(lib, rc, name)
     dweights = tuple(d.reshape(w.shape)
                      for d, w in zip(dw.split(sizes, dim=-1), weights))
-    return dz0, dctx, dnoise, dweights
+    return (dz0, dctx, dnoise, dweights), workspace
+
+
+def scratch_views(workspace, B, L, H, n):
+    """The scratch tensors of a backward kernel's workspace (K, floats), in
+    SCRATCH_NAMES order, each (K, n*B, H) or (K, n*B, L)."""
+    M = n * B
+    K = workspace.shape[0]
+    wide = workspace[:, :8 * M * H].reshape(K, 8, M, H).unbind(1)
+    narrow = workspace[:, 8 * M * H:8 * M * H + 2 * M * L].reshape(
+        K, 2, M, L).unbind(1)
+    return wide + narrow
 
 
 def _route(z0, plain, cuda):

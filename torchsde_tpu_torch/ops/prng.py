@@ -7,11 +7,16 @@ on a TPU, so the port has a stream of its own, which the CUDA kernel
 (``csrc/philox_normal.cu``, kernel 16's port) and :func:`philox_normal_plain`
 compute alike, and which depends on (seed, flat index) only:
 
-* Philox4x32-10 with key (seed, 0); element e takes the counter (e // 2 as
-  a 64-bit value in words 0-1, 0, 0), an even e output words 0 and 1, an
-  odd e words 2 and 3;
-* Box-Muller on 24-bit uniforms in float32, as the JAX kernel:
-  u = (bits >> 8) * 2^-24 + 2^-25, z = sqrt(-2 log u1) cos(2 pi u2).
+* Philox4x32-10 with key (seed, 0); element e takes the counter (e // 4 as
+  a 64-bit value in words 0-1, 0, 0): words 0 and 1 give elements 4c and
+  4c+1, words 2 and 3 elements 4c+2 and 4c+3;
+* paired Box-Muller on 24-bit uniforms in float32: u = (bits >> 8) * 2^-24
+  + 2^-25, r = sqrt(-2 log u1), theta = 2 pi u2, and the pair is r cos(theta),
+  r sin(theta). Each cosine is the JAX kernel's formula on its two words.
+
+So one Philox call gives four normals, as ``torch.randn`` draws them (a
+stream of its own). Seeded draws differ from the port's first layout (one
+counter a pair of elements, cosines only); the law is the same.
 
 :func:`philox_normal` routes a CPU request to the plain version and a CUDA
 request to the kernel (which raises rather than fall back); ``launches``
@@ -62,13 +67,15 @@ def philox4x32_10(counter, key):
 
 
 def box_muller(bits1, bits2):
-    """Standard normals in float32 from two tensors of 32-bit words, as the
-    JAX package's ``_normal_kernel`` forms them (``prng.py:42-49``)."""
+    """Two standard normals in float32 from two tensors of 32-bit words: the
+    cosine half, as the JAX package's ``_normal_kernel`` forms it
+    (``prng.py:42-49``), and the sine half of the same radius and angle."""
     u1 = (bits1 >> 8).to(torch.float32) * 2.0 ** -24 + 2.0 ** -25
     u2 = (bits2 >> 8).to(torch.float32) * 2.0 ** -24 + 2.0 ** -25
     r = torch.sqrt(-2.0 * torch.log(u1))
     two_pi = torch.tensor(_TWO_PI, dtype=torch.float32, device=u2.device)
-    return r * torch.cos(two_pi * u2)
+    theta = two_pi * u2
+    return r * torch.cos(theta), r * torch.sin(theta)
 
 
 def philox_normal_plain(seed, shape, dtype=torch.float32, device=None):
@@ -77,12 +84,12 @@ def philox_normal_plain(seed, shape, dtype=torch.float32, device=None):
     ``device``), computed in float32 and cast to ``dtype``."""
     device = _device_of(seed, device)
     n = math.prod(shape)
-    pairs = torch.arange((n + 1) // 2, dtype=torch.int64, device=device)
-    zero = torch.zeros_like(pairs)
+    quads = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(quads)
     key = (_seed_word(seed, device), 0)
-    w0, w1, w2, w3 = philox4x32_10((pairs & _MASK, pairs >> 32, zero, zero),
+    w0, w1, w2, w3 = philox4x32_10((quads & _MASK, quads >> 32, zero, zero),
                                    key)
-    z = torch.stack([box_muller(w0, w1), box_muller(w2, w3)], dim=1)
+    z = torch.stack([*box_muller(w0, w1), *box_muller(w2, w3)], dim=1)
     return z.reshape(-1)[:n].reshape(shape).to(dtype)
 
 

@@ -65,10 +65,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     E1 (batch 4096, d 32, hidden 128) and 11 and 12 (reversible Heun) at R1
     (batch 1024, d 128, hidden 128, whose towers do not fit a block's
     shared memory), 128 steps, seeded inputs and cotangents: every output
-    and weight gradient against the plain versions and a float64 run, two
-    sweeps bitwise equal, median times and bounds; then all four on general
-    noise with a time column and depth-3 towers (batch 1024, d 16, m 4,
-    hidden 64);
+    and weight gradient against the plain versions and a float64 run
+    (kernel 12 within twice the plain version's distance from it plus 3e-6
+    of scale, as kernel 2), two sweeps bitwise equal, kernel 12 bitwise the
+    same at every staging of its towers that fits, median times and
+    bounds, kernel 12 whole and by phase (its sweep; its contraction beside
+    torch.matmul on the same scratch) and at each staging of RH_STAGINGS;
+    then all four on general noise with a time column and depth-3 towers
+    (batch 1024, d 16, m 4, hidden 64); then kernel 12 on R1's towers over
+    1,024 steps, swept in windows (check_long_solve);
 15. serve and train ``fused_sdeint`` at E1 and at R1: three served solves
     per route (``dispatch="fused"`` and ``"xla"``, the ``sdeint`` route) on
     the same generator seeds, whose states must agree, each fused solve
@@ -85,8 +90,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     L1 (E1's towers and a prior drift shaped like the drift), L2 (R1's
     widths, batch 1024) and a small solve whose tanh diffusion takes both
     signs and passes near zero: every output and weight gradient against
-    the plain versions and a float64 run, two sweeps bitwise equal, median
-    times and bounds, and the times of each way of staging the towers;
+    the plain versions and a float64 run (kernel 14 as kernel 12 in phase
+    14), two sweeps bitwise equal, kernel 14 bitwise the same at every
+    staging that fits, median times and bounds, kernel 14 by phase beside
+    torch.matmul on the same scratch, and the times of each way of staging
+    the towers; then kernel 14 on L1's over 512 steps, in windows;
 19. serve and train ``fused_sdeint_logqp`` at L1: three served solves per
     route (``dispatch="fused"`` and the ``sdeint`` route of
     ``tower_sde(prior=)``), whose states and KL increments must agree; the
@@ -125,8 +133,8 @@ The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only`` runs some phase groups (for
 development; no ok line); ``--only tiles``, which no other run includes,
 times kernels 2 and 4 whole and their sweep alone at 128, 256 and 512
-threads and at 16 rows a block, the blocks the sweep's was chosen over. It
-imports nothing of JAX.
+threads and at 16 rows a block, the blocks the sweep's was chosen over.
+It imports nothing of JAX.
 """
 
 import argparse
@@ -278,6 +286,9 @@ LOGQP_SIGNED_RTOL = (3e-3, 5e-3)
 # times (bit 0 the drift, 1 the diffusion, 2 the prior; fused_solve.
 # STAGE_ORDER): all three, drift and prior, none at L1; one or none at L2.
 LOGQP_STAGINGS = {"L1": (7, 5, 0), "L2": (1, 0)}
+# The ways of staging R1's two towers that phase 14 times kernel 12 at
+# (both do not fit): the drift, the diffusion, none.
+RH_STAGINGS = (1, 2, 0)
 # K stacked flagship replicas (kernels 3 and 4, latent_sde_loss_multi): K 4
 # for the checks, the serve and the training steps; the kernels timed at
 # each K of MULTI_KS beside K launches of kernels 1 and 2.
@@ -1433,12 +1444,11 @@ def tower_config(device, name):
 
 
 def tower_kernel_args(device, method, drift, diffusion, B, d, m, diag, wt,
-                      seed):
+                      seed, dt=TOWER_DT):
     """A solve's spec and a forward kernel's inputs as fused_sdeint makes
-    them, on seeded y0 and noise over the step grid of [0, 1] at
-    TOWER_DT."""
+    them, on seeded y0 and noise over the step grid of [0, 1] at dt."""
     spec = FS.solve_spec(drift, diffusion, d, m, diag, wt)
-    grid = TI.build_step_grid(0.0, 1.0, TOWER_DT)
+    grid = TI.build_step_grid(0.0, 1.0, dt)
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         y0 = torch.randn((B, d), generator=gen, device=device)
@@ -1482,6 +1492,76 @@ def in_double(args):
     return [a.double() if torch.is_tensor(a) else a for a in args]
 
 
+def fitting_stagings(kind, spec):
+    """Every way of staging the solve's towers in shared memory (bitmasks
+    of fused_solve.STAGE_ORDER) that fits a block of a kernel of
+    ``kind``."""
+    lib = _build.load_library()
+    table = FS._host_table(spec)
+    return [st for st in FS.STAGE_ORDER[3 if spec.prior else 2]
+            if lib.tsde_tower_smem_bytes(kind, table, *FS._dims(spec), st)
+            <= _build.MAX_SMEM_BYTES]
+
+
+def check_stagings(label, launch, bargs, kind, spec, want):
+    """Kernel 12 or 14 at every staging of its towers that fits a block:
+    each bitwise equal to ``want`` (staging moves only where the weights
+    are read from)."""
+    stagings = fitting_stagings(kind, spec)
+    for st in stagings:
+        got = launch(*bargs, stage=st)[0]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise RuntimeError(f"{label}: staging {st} changes the result")
+    print(f"{label}: stagings {stagings} agree bitwise", flush=True)
+
+
+def tower_contraction_by_matmul(views, x0):
+    """Kernel 12's or 14's contraction as PyTorch calls on the same scratch
+    (the yardstick, never on the path): a torch.matmul and a column sum a
+    layer."""
+    out = []
+    for xs, ds in views:
+        for i, d in enumerate(ds):
+            out += [torch.matmul((x0 if i == 0 else xs[i - 1]).T, d),
+                    d.sum(0)]
+    return out
+
+
+def chain_parts(label, launch, bargs, spec, B, N, x0, packs, reps):
+    """Median device times of kernel 12's or 14's sweep alone and of its
+    contraction and reduction alone on the sweep's workspace, the
+    contraction's bound, and the torch.matmul yardstick on the same
+    scratch (x0: every step's first tower input, (N,B,in)). Prints them
+    with the workspace's bytes."""
+    _, ws = launch(*bargs)
+    sweep = median_cuda_ms(
+        lambda: launch(*bargs, stages=1, workspace=ws), reps)
+    contraction = median_cuda_ms(
+        lambda: launch(*bargs, stages=2, workspace=ws), reps)
+    views = FS.scratch_views(ws, spec, B, N)
+    M = N * B
+    x0 = x0.reshape(M, -1).contiguous()
+    matmul_ms = median_cuda_ms(
+        lambda: tower_contraction_by_matmul(views, x0), reps)
+    shapes = [sh for tower in FS._spec_shapes(spec) for sh in tower]
+    flops = M * sum(2 * i * o + o for i, o, _ in shapes)
+    scratch = [v for xs, ds in views for v in xs + ds]
+    # Reads the scratch and the gathered first inputs once, writes the
+    # packs' gradients (the packs' sizes).
+    bound_ms, bound_by = bound(flops, [*scratch, x0, *packs])
+    scratch_bytes = sum(v.numel() for v in scratch) * 4
+    print(f"{label}: sweep {sweep:.4f} ms; contraction and reduction "
+          f"{contraction:.4f} ms (bound {bound_ms:.4f}, {bound_by}, "
+          f"{flops / 1e9:.3f} GFLOP); torch.matmul yardstick on the same "
+          f"scratch {matmul_ms:.4f} ms; scratch {scratch_bytes / 1e6:.1f} "
+          f"MB, workspace {ws.numel() * 4 / 1e6:.1f} MB", flush=True)
+    return dict(sweep_ms=sweep, contraction_ms=contraction,
+                contraction_bound_ms=bound_ms, contraction_bound_by=bound_by,
+                contraction_matmul_ms=matmul_ms, scratch_bytes=scratch_bytes,
+                workspace_bytes=ws.numel() * 4)
+
+
 def run_tower_kernels(label, device, method, drift, diffusion, B, d, m, diag,
                       wt, seed, timed):
     """A forward kernel and its reverse sweep against their plain versions
@@ -1506,6 +1586,7 @@ def run_tower_kernels(label, device, method, drift, diffusion, B, d, m, diag,
         fwd, fwd_plain = FS.rh_solve_forward_cuda, FS.rh_solve_forward_plain
         bwd, bwd_plain = FS.rh_solve_backward_cuda, \
             FS.rh_solve_backward_plain
+        launch = FS._rh_backward_cuda
         kinds = (FS.RH_FWD, FS.RH_BWD)
         outs = ("ys", "zs", "gs")
         douts = ("dy0", "df0", "dg0", "dnoise", "dfw", "dgw")
@@ -1536,21 +1617,44 @@ def run_tower_kernels(label, device, method, drift, diffusion, B, d, m, diag,
         want_b = bwd_plain(*bargs)
         exact_b = bwd_plain(*in_double(bargs))
         torch.cuda.synchronize()
+        # Kernel 12, the sweep split from its contraction, is held to the
+        # float64 run as kernels 2 and 4 are (BWD_F64_REL); kernel 10 keeps
+        # its rule.
         err_b = check_against_plain(f"{label} {names[1]}", douts, got_b,
                                     want_b, exact_b, TOWER_GRAD_ATOL,
-                                    TOWER_GRAD_REL)
+                                    TOWER_GRAD_REL,
+                                    f64_rel=None if euler else BWD_F64_REL)
+        del exact_b
         again = bwd(*bargs)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
             raise RuntimeError(f"{label} {names[1]} is not bitwise "
                                f"repeatable")
         print(f"{label} {names[1]}: two calls agree bitwise", flush=True)
+        if not euler:
+            check_stagings(f"{label} {names[1]}", launch, bargs, kinds[1],
+                           spec, got_b)
         if not timed:
             return None
         ms_f = median_cuda_ms(lambda: fwd(*args), 20)
         plain_f = median_cuda_ms(lambda: fwd_plain(*args), 5, warmup=1)
         ms_b = median_cuda_ms(lambda: bwd(*bargs), 10)
         plain_b = median_cuda_ms(lambda: bwd_plain(*bargs), 3, warmup=1)
+        parts = {}
+        if not euler:
+            parts = chain_parts(f"{label} {names[1]}", launch, bargs, spec,
+                                B, N, FS.first_inputs(args[4], got[1], wt),
+                                args[6:8], 10)
+            stagings = [st for st in RH_STAGINGS
+                        if st in fitting_stagings(kinds[1], spec)]
+            parts["ms_by_staging"] = {
+                str(st): median_cuda_ms(
+                    lambda: launch(*bargs, stage=st), 5)
+                for st in stagings}
+            print(f"{label} {names[1]} staging (towers staged: ms): "
+                  + "; ".join(f"{st}: {t:.4f}" for st, t
+                              in parts["ms_by_staging"].items()),
+                  flush=True)
     records = []
     for name, ms, plain_ms, err, io, kind in (
             (names[0], ms_f, plain_f, err_f, tensors_of(args) + list(got),
@@ -1565,8 +1669,79 @@ def run_tower_kernels(label, device, method, drift, diffusion, B, d, m, diag,
               flush=True)
         records.append(dict(max_abs_err=err[0], max_rel_err=err[1], ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by))
+                            bound_by=bound_by,
+                            **(parts if name == names[1] else {})))
     return records
+
+
+# Kernels 12 and 14 on a long solve (phases 14 and 18): R1's and L1's
+# towers over these many steps of [0, 1], whose workspace of one window
+# would outgrow fused_solve.WORKSPACE_BYTES.
+LONG_STEPS = {"R1": 1024, "L1": 512}
+
+
+def check_long_solve(name, device):
+    """Kernel 12 (R1) or 14 (L1) over LONG_STEPS[name] steps: swept in
+    windows (fused_solve.bwd_window), its workspace within
+    fused_solve.WORKSPACE_BYTES, every output within max(TOWER_GRAD_ATOL,
+    TOWER_GRAD_REL * scale) of its twin's, two calls bitwise equal.
+    Returns the steps, the window, the workspace's bytes, the median time
+    and the largest errors."""
+    method, B, d, towers = tower_config(device, name)
+    N = LONG_STEPS[name]
+    gen = torch.Generator(device=device).manual_seed(SEED + 27)
+    with torch.no_grad():
+        if method == "euler_logqp":
+            spec, args = logqp_kernel_args(device, towers, B, d, False,
+                                           SEED + 26, 1.0 / N)
+            ys, qs = FS.euler_logqp_solve_forward_cuda(*args)
+            gy = torch.randn(ys.shape, generator=gen, device=device)
+            gq = torch.randn(qs.shape, generator=gen, device=device)
+            bargs = (*args, ys, gy, gq.flip(0).cumsum(0).flip(0).contiguous())
+            launch = FS._euler_logqp_backward_cuda
+            plain = FS.euler_logqp_solve_backward_plain
+            names = ("dy0", "dnoise", "dfw", "dhw", "dgw")
+        else:
+            spec, args = tower_kernel_args(device, method, *towers, B, d, d,
+                                           True, False, SEED + 26, 1.0 / N)
+            _, zs, gs = FS.rh_solve_forward_cuda(*args)
+            gy = torch.randn(zs.shape, generator=gen, device=device)
+            bargs = (*args, zs, gs, gy)
+            launch = FS._rh_backward_cuda
+            plain = FS.rh_solve_backward_plain
+            names = ("dy0", "df0", "dg0", "dnoise", "dfw", "dgw")
+        window = FS.bwd_window(spec, B, N)
+        got, ws = launch(*bargs)
+        again, _ = launch(*bargs)
+        want = plain(*bargs)
+        torch.cuda.synchronize()
+        label = f"{name} over {N} steps: {launch.__name__[1:]}"
+        if window >= N or 4 * ws.numel() > FS.WORKSPACE_BYTES:
+            raise RuntimeError(f"{label}: window {window}, workspace "
+                               f"{4 * ws.numel()} bytes")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"{label} is not bitwise repeatable")
+        worst = worst_rel = 0.0
+        cells = []
+        for tensor, g, w in zip(names, got, want):
+            err = float((g - w).abs().max())
+            scale = float(w.abs().max())
+            if not torch.isfinite(g).all() or err > max(
+                    TOWER_GRAD_ATOL, TOWER_GRAD_REL * scale):
+                raise RuntimeError(f"{label}: {tensor} differs from the "
+                                   f"plain version by {err:.3e} (max "
+                                   f"{scale:.4g})")
+            worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
+            cells.append(f"{tensor} {err:.2e}/{scale:.3g}")
+        del want
+        ms = median_cuda_ms(lambda: launch(*bargs), 5)
+    windows = -(-N // window)
+    print(f"{label}: {windows} windows of {window} steps, workspace "
+          f"{4 * ws.numel() / 1e6:.1f} MB (of {FS.WORKSPACE_BYTES / 1e6:.1f});"
+          f" vs plain (abs err/max|plain|): {'; '.join(cells)}; two calls "
+          f"agree bitwise; median {ms:.4f} ms", flush=True)
+    return dict(steps=N, window=window, workspace_bytes=4 * ws.numel(),
+                ms=ms, max_abs_err=worst, max_rel_err=worst_rel)
 
 
 def phase_tower_kernels(device):
@@ -1586,6 +1761,8 @@ def phase_tower_kernels(device):
     for method in ("euler", "reversible_heun"):
         run_tower_kernels(f"general {method}", device, method, drift,
                           diffusion, B, d, m, False, True, SEED + 15, False)
+    records["reversible_heun"][1]["long_solve"] = check_long_solve("R1",
+                                                                   device)
     return records
 
 
@@ -1593,13 +1770,13 @@ def phase_tower_kernels(device):
 #  fused_sdeint_logqp: kernels 13 and 14                                      #
 # --------------------------------------------------------------------------- #
 
-def logqp_kernel_args(device, towers, B, d, wt, seed):
+def logqp_kernel_args(device, towers, B, d, wt, seed, dt=TOWER_DT):
     """A logqp solve's spec and kernel 13's inputs as fused_sdeint_logqp
     makes them (noise drawn at (B, d+1), its last channel unused), on
-    seeded y0 and noise over the step grid of [0, 1] at TOWER_DT."""
+    seeded y0 and noise over the step grid of [0, 1] at dt."""
     drift, prior, diffusion = towers
     spec = FS.solve_spec(drift, diffusion, d, d, True, wt, prior=prior)
-    grid = TI.build_step_grid(0.0, 1.0, TOWER_DT)
+    grid = TI.build_step_grid(0.0, 1.0, dt)
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         y0 = torch.randn((B, d), generator=gen, device=device)
@@ -1666,7 +1843,9 @@ def run_logqp_kernels(label, device, towers, B, d, wt, seed, stagings=(),
         err_b = check_against_plain(f"{label} tower_euler_logqp_bwd",
                                     ("dy0", "dnoise", "dfw", "dhw", "dgw"),
                                     got_b, want_b, exact_b, TOWER_GRAD_ATOL,
-                                    TOWER_GRAD_REL, grad_rtol)
+                                    TOWER_GRAD_REL, grad_rtol,
+                                    f64_rel=BWD_F64_REL)
+        del exact_b
         again = bwd(*bargs)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
@@ -1674,12 +1853,19 @@ def run_logqp_kernels(label, device, towers, B, d, wt, seed, stagings=(),
                                f"bitwise repeatable")
         print(f"{label} tower_euler_logqp_bwd: two calls agree bitwise",
               flush=True)
+        launch = FS._euler_logqp_backward_cuda
+        check_stagings(f"{label} tower_euler_logqp_bwd", launch, bargs,
+                       FS.EULER_LOGQP_BWD, spec, got_b)
         if not stagings:
             return None
         ms_f = median_cuda_ms(lambda: fwd(*args), 20)
         plain_f = median_cuda_ms(lambda: fwd_plain(*args), 5, warmup=1)
         ms_b = median_cuda_ms(lambda: bwd(*bargs), 10)
         plain_b = median_cuda_ms(lambda: bwd_plain(*bargs), 3, warmup=1)
+        y_pre = torch.cat([args[0][None], got[0][:-1]])
+        parts = chain_parts(f"{label} tower_euler_logqp_bwd", launch, bargs,
+                            spec, B, N, FS.first_inputs(args[2], y_pre, wt),
+                            args[4:7], 10)
         by_stage = {}
         for stage in stagings:
             by_stage[stage] = (
@@ -1704,7 +1890,8 @@ def run_logqp_kernels(label, device, towers, B, d, wt, seed, stagings=(),
                             plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by,
                             ms_by_staging={str(st): t[i] for st, t
-                                           in by_stage.items()}))
+                                           in by_stage.items()},
+                            **(parts if i == 1 else {})))
     return records
 
 
@@ -1723,6 +1910,7 @@ def phase_logqp_kernels(device):
                          device, scale=0.8))
     run_logqp_kernels("small", device, towers, B, d, True, SEED + 25,
                       signed=True)
+    records["L1"][1]["long_solve"] = check_long_solve("L1", device)
     return records
 
 

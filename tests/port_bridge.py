@@ -1,12 +1,13 @@
 """Helpers shared by the tests that hold torchsde_tpu_torch against
 torchsde_tpu: export a JAX module's leaves by dotted name, build the same
-model in both packages, and make and compare MLP towers."""
+model in both packages, make and compare MLP towers, and the unsplit loops
+the split backward kernels' plain versions are held to. JAX is imported
+only by the helpers that read JAX modules, so that the GPU tests, on a
+machine without JAX, can import the rest."""
 
-import jax
 import numpy as np
 import torch
 
-from torchsde_tpu.utils.module import Module, _flatten_module
 from torchsde_tpu_torch.utils.convert import load_jax_params
 
 
@@ -15,6 +16,8 @@ def jax_named_arrays(tree):
     ``Module`` tree, from ``jax.tree_util.tree_flatten_with_path``. A module
     flattens to an index into its dynamic attribute names, which this maps
     back to the name."""
+    import jax
+    from torchsde_tpu.utils.module import Module, _flatten_module
     out = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
         node, names = tree, []
@@ -34,6 +37,7 @@ def jax_named_arrays(tree):
 def perturbed(tree, seed, scale=0.1):
     """``tree`` with every leaf moved by ``scale`` times a standard normal,
     so that no weight the tests compare keeps its zero initialisation."""
+    import jax
     leaves, treedef = jax.tree_util.tree_flatten(tree)
     rng = np.random.default_rng(seed)
     return jax.tree_util.tree_unflatten(treedef, [
@@ -168,3 +172,80 @@ def unsplit_latent_backward(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
         dz = dz + dx[:, :L] + dzh + dzg
         dctx.index_add_(0, idx[s:s + 1], dx[None, :, L:])
     return dz, dctx, dnoise, tuple(dw)
+
+
+def unsplit_rh_backward(y0, f0, g0, noise, t1s, dts, fw, gw, spec, zs, gs,
+                        gy):
+    """Kernel 12's function as one loop of PyTorch operators, every weight
+    gradient summed step by step: the form of
+    ``fused_solve.rh_solve_backward_plain`` before its split into a sweep
+    and a contraction, kept as the reference the split is held to."""
+    from torchsde_tpu_torch.ops import fused_solve as F
+
+    fl, gl = F.unpack(fw, spec.drift), F.unpack(gw, spec.diffusion)
+    facts, gacts = F._acts(spec.drift), F._acts(spec.diffusion)
+    wt = 1 if spec.with_time else 0
+    N = noise.shape[0]
+    g_all = torch.cat([g0[None], gs])
+    ay, az, af = (torch.zeros_like(y0) for _ in range(3))
+    ag = torch.zeros_like(g0)
+    dnoise = torch.empty_like(noise)
+    dfw = [torch.zeros_like(t) for wb in fl for t in wb]
+    dgw = [torch.zeros_like(t) for wb in gl for t in wb]
+    for n in reversed(range(N)):
+        dt, dW = dts[n], noise[n]
+        ay = ay + gy[n]
+        Af = af + 0.5 * dt * ay
+        Ag = ag + F._noise_outer(ay, 0.5 * dW, spec)
+        x = F.tower_input(t1s[n], zs[n], spec.with_time)
+        _, fcache = F.tower_forward(x, fl, facts)
+        _, gcache = F.tower_forward(x, gl, gacts)
+        dxf, gf = F.tower_backward(Af, fcache, x, fl, facts)
+        dxg, gg = F.tower_backward(Ag, gcache, x, gl, gacts)
+        for acc, d in zip(dfw + dgw, gf + gg):
+            acc += d
+        Az = az + (dxf + dxg)[:, wt:]
+        g_n, g_next = g_all[n], g_all[n + 1]
+        dnoise[n] = F._noise_vjp(Az, g_n, spec) + F._noise_vjp(
+            0.5 * ay, g_n + g_next, spec)
+        ay, az, af, ag = (ay + 2.0 * Az, -Az, 0.5 * dt * ay + dt * Az,
+                          F._noise_outer(0.5 * ay + Az, dW, spec))
+    return (ay + az, af, ag, dnoise, F._cat_grads(dfw),
+            F._cat_grads(dgw))
+
+
+def unsplit_logqp_backward(y0, noise, t0s, dts, fw, hw, gw, spec, ys, gy,
+                           ginc):
+    """Kernel 14's function as one loop of PyTorch operators, every weight
+    gradient summed step by step: the form of
+    ``fused_solve.euler_logqp_solve_backward_plain`` before its split into a
+    sweep and a contraction, kept as the reference the split is held to."""
+    from torchsde_tpu_torch.ops import fused_solve as F
+
+    towers = F._logqp_towers(fw, hw, gw, spec)
+    wt = 1 if spec.with_time else 0
+    dy = torch.zeros_like(y0)
+    dnoise = torch.empty_like(noise)
+    dws = [[torch.zeros_like(t) for wb in w for t in wb] for w, _ in towers]
+    for n in reversed(range(noise.shape[0])):
+        dt = dts[n]
+        x = F.tower_input(t0s[n], y0 if n == 0 else ys[n - 1],
+                          spec.with_time)
+        (f, fcache), (h, hcache), (g, gcache) = (
+            F.tower_forward(x, w, acts) for w, acts in towers)
+        gs, big = F._clamped(g)
+        u = (f - h) / gs
+        dy = dy + gy[n]
+        dnoise[n] = dy * g
+        du = ginc[n] * u * dt
+        douts = (dy * dt + du / gs, -du / gs,
+                 dy * noise[n] - (du * u / gs) * big.to(g.dtype))
+        dx = None
+        for (w, acts), cache, dout, acc in zip(towers, (fcache, hcache,
+                                                        gcache), douts, dws):
+            dxt, grads = F.tower_backward(dout, cache, x, w, acts)
+            for a, d in zip(acc, grads):
+                a += d
+            dx = dxt if dx is None else dx + dxt
+        dy = dy + dx[:, wt:]
+    return (dy, dnoise, *(F._cat_grads(d) for d in dws))

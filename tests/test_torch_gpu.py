@@ -19,7 +19,12 @@ tables, and training steps of fused_sdeint against its sdeint route.
 Run on a machine with a CUDA card from the repository's root:
 ``python -m pytest tests/test_torch_gpu.py -m gpu --noconftest`` (the
 tests' conftest imports JAX, which a GPU machine need not have). Each test
-skips itself where CUDA is not available."""
+skips itself where CUDA is not available.
+
+Kernels 12 and 14 (each a sweep and a contraction of its scratch): against
+the unsplit loops of ``tests/port_bridge.py`` on the card, bitwise
+repeatable, one launch a backward, run phase by phase, and in windows of
+steps under a smaller workspace."""
 
 import numpy as np
 import pytest
@@ -28,7 +33,9 @@ import torch
 import torchsde_tpu_torch.ops.fused_solve as FS
 import torchsde_tpu_torch.ops.gan_fused as GF
 import torchsde_tpu_torch.ops.latent_fused as LF
+from torchsde_tpu_torch.ops import _build
 from torchsde_tpu_torch.models.latent_sde import LatentSDE, latent_sde_loss
+from port_bridge import unsplit_logqp_backward, unsplit_rh_backward
 
 pytestmark = pytest.mark.gpu
 
@@ -741,6 +748,120 @@ def test_logqp_three_towers_too_big_raises(cuda):
         FS.euler_solve_backward_cuda(y0, noise, t0s, dts, fw, gw, two, ys2,
                                      gy)
     torch.cuda.synchronize()
+
+
+# Kernels 12 and 14, each a chain sweep and a contraction of its scratch:
+# (kind, case) of TOWER_CASES' reversible Heun solves and LOGQP_CASES.
+SPLIT_CASES = [("rh", c) for c in TOWER_CASES if c[0] != "euler"] + [
+    ("logqp", c) for c in LOGQP_CASES]
+
+
+def _split_solve(device, kind, case, seed=0):
+    """The backward kernel's arguments on a forward kernel's outputs, its
+    launch function, the unsplit loop, the plain sweep, and the solve's
+    batch and steps."""
+    if kind == "rh":
+        spec, args, gy = _tower_solve(device, case, seed)
+        _, zs, gs = FS.rh_solve_forward_cuda(*args)
+        return ((*args, zs, gs, gy), FS._rh_backward_cuda,
+                unsplit_rh_backward, FS.rh_solve_backward_sweep_plain,
+                args[0].shape[0], args[3].shape[0])
+    spec, args, gy, ginc = _logqp_solve(device, case, seed)
+    ys, _ = FS.euler_logqp_solve_forward_cuda(*args)
+    return ((*args, ys, gy, ginc), FS._euler_logqp_backward_cuda,
+            unsplit_logqp_backward, FS.euler_logqp_solve_backward_sweep_plain,
+            args[0].shape[0], args[1].shape[0])
+
+
+@pytest.mark.parametrize("kind,case", SPLIT_CASES,
+                         ids=[f"{k}-S{c[2] if k == 'rh' else c[0]}"
+                              for k, c in SPLIT_CASES])
+def test_split_tower_sweeps_match_the_unsplit_loops(cuda, kind, case):
+    """Kernel 12 or 14 (one launch a backward: the sweep, the contraction
+    and the reduction) against the loop that sums every weight gradient
+    step by step, on the card: max(1e-4, 1e-5 * scale) (with the JAX
+    package's relative tolerance where the logqp diffusion takes both
+    signs, as test_logqp_kernels_match_plain); two calls bitwise equal."""
+    signed = kind == "logqp" and case[3][1][-1] in ("tanh", "linear")
+    counter = "rh_bwd_launches" if kind == "rh" else "logqp_bwd_launches"
+    with torch.no_grad():
+        bargs, launch, unsplit, _, _, _ = _split_solve(cuda, kind, case)
+        before = getattr(FS, counter)
+        got, _ = launch(*bargs)
+        again, _ = launch(*bargs)
+        want = unsplit(*bargs)
+    torch.cuda.synchronize()
+    assert getattr(FS, counter) - before == 2
+    _assert_close(got, want, 1e-4, 1e-5, 5e-3 if signed else 0.0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("kind,case", [SPLIT_CASES[1], SPLIT_CASES[-1]],
+                         ids=["rh", "logqp"])
+def test_split_tower_phases_match_whole_call(cuda, kind, case):
+    """The sweep alone, then the contraction alone on its workspace, give
+    the whole call's outputs bitwise; the workspace holds the plain sweep's
+    scratch (scratch_views) within max(1e-4, 1e-5 * scale)."""
+    with torch.no_grad():
+        bargs, launch, _, sweep_plain, B, N = _split_solve(cuda, kind, case,
+                                                           seed=2)
+        whole, _ = launch(*bargs)
+        swept, ws = launch(*bargs, stages=1)
+        contracted, _ = launch(*bargs, stages=2, workspace=ws)
+        scratch = sweep_plain(*bargs)[-1]
+    torch.cuda.synchronize()
+    n_chain = len(whole) - (2 if kind == "rh" else 3)
+    assert all(torch.equal(a, b) for a, b in zip(whole[:n_chain],
+                                                 swept[:n_chain]))
+    assert all(torch.equal(a, b) for a, b in zip(whole[n_chain:],
+                                                 contracted[n_chain:]))
+    spec = bargs[8] if kind == "rh" else bargs[7]
+    for (vx, vd), (px, pd) in zip(FS.scratch_views(ws, spec, B, N),
+                                  scratch):
+        for v, t in zip(vx + vd, px + pd):
+            t = t.reshape(v.shape)
+            torch.testing.assert_close(
+                v, t, rtol=0, atol=max(1e-4, 1e-5 * float(t.abs().max())))
+
+
+@pytest.mark.parametrize("kind,case", SPLIT_CASES,
+                         ids=[f"{k}-S{c[2] if k == 'rh' else c[0]}"
+                              for k, c in SPLIT_CASES])
+def test_split_tower_sweeps_in_windows(cuda, kind, case, monkeypatch):
+    """With WORKSPACE_BYTES cut to the workspace of two steps, kernel 12 or
+    14 sweeps the solve in windows through its public wrapper: the
+    workspace stays within the bytes; the chain's outputs are bitwise the
+    one-window call's and the weight gradients within max(1e-4, 1e-5 *
+    scale) of it (their float32 sums are chunked by window); two calls are
+    bitwise equal, one launch each; the phases apart refuse windows."""
+    counter = "rh_bwd_launches" if kind == "rh" else "logqp_bwd_launches"
+    wrapper = (FS.rh_solve_backward_cuda if kind == "rh"
+               else FS.euler_logqp_solve_backward_cuda)
+    with torch.no_grad():
+        bargs, launch, _, _, B, N = _split_solve(cuda, kind, case, seed=3)
+        spec = bargs[8] if kind == "rh" else bargs[7]
+        assert FS.bwd_window(spec, B, N) == N
+        one, _ = launch(*bargs)
+        lib = _build.load_library()
+        two_steps = lib.tsde_tower_bwd_workspace(FS._host_table(spec),
+                                                 *FS._dims(spec), B, 2)
+        monkeypatch.setattr(FS, "WORKSPACE_BYTES", 4 * two_steps)
+        window = FS.bwd_window(spec, B, N)
+        assert 1 <= window < N
+        before = getattr(FS, counter)
+        got = wrapper(*bargs)
+        again = wrapper(*bargs)
+        assert getattr(FS, counter) - before == 2
+        _, ws = launch(*bargs)
+        assert 4 * ws.numel() <= FS.WORKSPACE_BYTES
+        with pytest.raises(RuntimeError):
+            launch(*bargs, stages=1)
+    torch.cuda.synchronize()
+    n_chain = len(one) - (2 if kind == "rh" else 3)
+    assert all(torch.equal(a, b) for a, b in zip(got[:n_chain],
+                                                 one[:n_chain]))
+    _assert_close(got[n_chain:], one[n_chain:], 1e-4, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def _logqp_train_step(device, dispatch):

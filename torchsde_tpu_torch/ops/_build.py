@@ -28,7 +28,8 @@ SOURCES = ("latent_fused_fwd.cu", "latent_fused_bwd.cu", "gan_gen_fwd.cu",
            "gan_cde_fwd.cu", "gan_gen_bwd.cu", "gan_cde_bwd.cu",
            "tower_euler_fwd.cu", "tower_euler_bwd.cu", "tower_rh_fwd.cu",
            "tower_rh_bwd.cu", "tower_euler_logqp_fwd.cu",
-           "tower_euler_logqp_bwd.cu", "philox_normal.cu")
+           "tower_euler_logqp_bwd.cu", "tower_bwd_contract.cu",
+           "philox_normal.cu")
 HEADERS = ("latent_fused_common.cuh", "gan_fused_common.cuh",
            "tower_solve_common.cuh")
 # Headers that generated sources include (library_for_source).
@@ -111,13 +112,17 @@ def _bind(lib):
     lib.tsde_gan_bwd_partials.argtypes = [I, I, I]
     lib.tsde_gan_bwd_partials.restype = I
     # The TowerSpec solves: two layer tables (host, device), the tensors,
-    # then nf, ng, nh, S, m, diag, wt, stage, B, N, device and the stream.
-    for name, tensors in (("euler_fwd", 7), ("euler_bwd", 12),
-                          ("rh_fwd", 11), ("rh_bwd", 15),
-                          ("euler_logqp_fwd", 9), ("euler_logqp_bwd", 14)):
+    # then nf, ng, nh, S, m, diag, wt, stage, B, N, (kernels 12 and 14:
+    # window, stages,) device and the stream.
+    for name, tensors, ints in (("euler_fwd", 7, 11), ("euler_bwd", 12, 11),
+                                ("rh_fwd", 11, 11), ("rh_bwd", 15, 13),
+                                ("euler_logqp_fwd", 9, 11),
+                                ("euler_logqp_bwd", 14, 13)):
         fn = getattr(lib, f"tsde_tower_{name}")
-        fn.argtypes = [P] * (2 + tensors) + [I] * 11 + [P]
+        fn.argtypes = [P] * (2 + tensors) + [I] * ints + [P]
         fn.restype = I
+    lib.tsde_tower_bwd_workspace.argtypes = [P] + [I] * 9
+    lib.tsde_tower_bwd_workspace.restype = ctypes.c_size_t
     lib.tsde_tower_smem_bytes.argtypes = [I, P] + [I] * 8
     lib.tsde_tower_smem_bytes.restype = ctypes.c_size_t
     lib.tsde_tower_blocks.argtypes = [I]

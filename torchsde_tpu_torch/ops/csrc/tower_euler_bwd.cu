@@ -67,7 +67,10 @@ __global__ void __launch_bounds__(NT) tower_euler_bwd_kernel(const Args a) {
   float* dout_f = sm + s.dout[0];
   float* dout_g = sm + s.dout[1];
   float* part = a.partials + size_t(blockIdx.x) * a.P;
+  // Thread e zeroes element e, but phase A's thread e adds to element
+  // (e % S) x TB + e / S: the barrier keeps the two apart.
   for (int e = tid; e < S * TB; e += NT) dy[e] = 0.f;
+  __syncthreads();
 
   for (int n = a.N - 1; n >= 0; --n) {
     const bool first = n == a.N - 1;

@@ -16,16 +16,30 @@
 // or the outer product a[i] dW[j] for general noise, and a . g is a * g, or
 // sum_i a[i] g[i, j].
 //
-// What bounds it: as tower_euler_bwd.cu, three times the forward's tower
-// multiply-adds per row and step; arithmetic and the dependency of the
-// carried cotangents.
+// What bounds it: per row and step the towers' multiply-adds three times
+// over (recompute, input cotangents, weight gradients), of which only the
+// first two sit on the chain of dependent steps; the weight gradients are
+// sums over all rows and steps that no later step needs.
 //
-// Design (tower_solve_common.cuh): one block per tile of TB = 8 rows sweeps
-// the steps backwards, the towers side by side, each layer's activations
-// kept in shared memory; the carried cotangents in shared memory, each
-// element owned by one thread. Weight gradients go to a private float32
-// partial per block in device memory, summed over blocks in a fixed order by
-// a second kernel: no atomics, bitwise repeatable.
+// Design: two phases on one stream.
+//
+// 1. The sweep (tower_solve_common.cuh): one block per tile of TB = 8 rows
+//    sweeps the steps backwards, the towers side by side, each layer's
+//    activations kept in shared memory; the carried cotangents in shared
+//    memory, each element owned by one thread. Each step it writes, for its
+//    rows, every layer's pre-activation cotangent and the input of every
+//    layer after the first to the scratch (towers_backward_chain): there
+//    are no per-step weight-gradient partials.
+// 2. The contraction (tower_bwd_contract.cu): every layer's weight and bias
+//    gradients as products and column sums over all N x B rows of the
+//    scratch, the layers' first input [t1_n | z_{n+1}] gathered from t1s
+//    and zs; float32 sums over fixed chunks of rows, the chunks' partial
+//    rows summed in float64 in chunk order. No atomics: the gradients are
+//    bitwise the same from call to call.
+//
+// A long solve runs the two phases over windows of steps, last first, the
+// carried cotangents kept in the workspace between them
+// (tower_bwd_contract.cu: Windows).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -50,10 +64,11 @@ struct Args {
   float* df0;            // (B, S)
   float* dg0;            // (B, G)
   float* dnoise;         // (N, B, m)
-  float* partials;       // (blocks, P)
-  size_t P;
+  float* ws;             // the workspace (chain_workspace)
+  const float* carry_in;  // what the window after left, or null
+  float* carry_out;      // the cotangents for the window before, or null
   Dims d;
-  int stage, B, N;
+  int stage, B, N;       // N: the window's steps
 };
 
 __global__ void __launch_bounds__(NT) tower_rh_bwd_kernel(const Args a) {
@@ -73,16 +88,22 @@ __global__ void __launch_bounds__(NT) tower_rh_bwd_kernel(const Args a) {
   float* Az = sm + s.carry[4];
   float* dout_f = sm + s.dout[0];
   float* dout_g = sm + s.dout[1];
-  float* part = a.partials + size_t(blockIdx.x) * a.P;
-  // Thread (r, i) owns ay[i], az[i], af[i] and ag[i, :] of row r.
+  ScratchRows sr = scratch_rows(a.table, d, s, sm, a.ws, B, a.N);
+  sr.rows = B - row0 < TB ? B - row0 : TB;
+  // Thread (r, i) owns ay[i], az[i], af[i] and ag[i, :] of row r. They
+  // start at zero, or where the window after this one left them.
+  const size_t at = size_t(blockIdx.x) * TB * (3 * S + G);
+  const float* cin = a.carry_in;
   for (int e = tid; e < S * TB; e += NT) {
-    ay[e] = az[e] = af[e] = 0.f;
+    ay[e] = cin ? cin[at + e] : 0.f;
+    az[e] = cin ? cin[at + S * TB + e] : 0.f;
+    af[e] = cin ? cin[at + 2 * S * TB + e] : 0.f;
   }
-  for (int e = tid; e < G * TB; e += NT) ag[e] = 0.f;
+  for (int e = tid; e < G * TB; e += NT)
+    ag[e] = cin ? cin[at + 3 * S * TB + e] : 0.f;
   __syncthreads();
 
   for (int n = a.N - 1; n >= 0; --n) {
-    const bool first = n == a.N - 1;
     const float dt = a.dts[n];
     // A. x = [t1 | z_{n+1}]; ay takes gy; the towers' output cotangents
     // Af and Ag. Rows past the end of the batch stay zero throughout.
@@ -104,9 +125,10 @@ __global__ void __launch_bounds__(NT) tower_rh_bwd_kernel(const Args a) {
     __syncthreads();
 
     // B. Recompute both towers, keeping each layer's activations; then both
-    // back to their input, every weight gradient into the block's partial.
+    // back to their input, each layer's dpre and input to the scratch.
     towers_forward(plan, d, s, w, sm, true);
-    towers_backward(plan, d, s, w, sm, part, first);
+    sr.m0 = size_t(n) * B + row0;
+    towers_backward_chain(plan, d, s, w, sm, sr);
 
     // C. Az = az + the input cotangent's state columns.
     for (int e = tid; e < S * TB; e += NT) {
@@ -160,8 +182,19 @@ __global__ void __launch_bounds__(NT) tower_rh_bwd_kernel(const Args a) {
     }
   }
 
+  // The owners leave the carried cotangents to the window before this one,
+  // or write the outputs.
   for (int e = tid; e < S * TB; e += NT) {
-    const int r = e / S, i = e % S, row = row0 + r;
+    const int r = e / S, i = e % S, row = row0 + r, k = i * TB + r;
+    if (a.carry_out) {
+      float* cout = a.carry_out + at;
+      cout[k] = ay[k];
+      cout[S * TB + k] = az[k];
+      cout[2 * S * TB + k] = af[k];
+      for (int u = i * gper; u < (i + 1) * gper; ++u)
+        cout[3 * S * TB + u * TB + r] = ag[u * TB + r];
+      continue;
+    }
     if (row >= B) continue;
     a.dy0[size_t(row) * S + i] = ay[i * TB + r] + az[i * TB + r];
     a.df0[size_t(row) * S + i] = af[i * TB + r];
@@ -174,39 +207,75 @@ __global__ void __launch_bounds__(NT) tower_rh_bwd_kernel(const Args a) {
 
 extern "C" {
 
-// Launches the sweep and the sum of its partials on `stream` and returns
-// cudaGetLastError() (0 on success). table_host and table_dev hold the same
-// layer table; all other pointers are device pointers to contiguous float32
-// arrays. partials holds tsde_tower_blocks(B) x P floats and dw P floats, P
-// the two packs' total size; dw receives [dfw | dgw].
+// Launches kernel 12 on `stream`: over windows of `window` steps, last
+// first, the sweep and then the contraction and the reduction of its
+// scratch; returns cudaGetLastError() (0 on success). table_host and
+// table_dev hold the same layer table; all other pointers are device
+// pointers to contiguous float32 arrays. ws holds
+// tsde_tower_bwd_workspace(..., B, window) floats and dw P floats, P the
+// two packs' total size; dw receives [dfw | dgw]. For measurement,
+// `stages` 1 runs the sweep alone and 2 the contraction and the reduction
+// alone on the workspace a sweep left (one window only); 3 runs both.
 int tsde_tower_rh_bwd(const int* table_host, const int* table_dev,
                       const float* fw, const float* gw, const float* g0,
                       const float* noise, const float* t1s, const float* dts,
                       const float* zs, const float* gs, const float* gy,
                       float* dy0, float* df0, float* dg0, float* dnoise,
-                      float* partials, float* dw, int nf, int ng, int nh,
-                      int S, int m, int diag, int wt, int stage, int B, int N,
-                      int device, cudaStream_t stream) {
+                      float* ws, float* dw, int nf, int ng, int nh, int S,
+                      int m, int diag, int wt, int stage, int B, int N,
+                      int window, int stages, int device,
+                      cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || N <= 0) return 0;
+  if (window <= 0 || (stages != 3 && window < N))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.table = table_dev;
   a.pack[0] = fw; a.pack[1] = gw;
   a.g0 = g0; a.noise = noise; a.t1s = t1s; a.dts = dts; a.zs = zs;
   a.gs = gs; a.gy = gy; a.dy0 = dy0; a.df0 = df0; a.dg0 = dg0;
-  a.dnoise = dnoise; a.partials = partials;
+  a.dnoise = dnoise; a.ws = ws;
   a.d = {nf, ng, nh, S, m, diag, wt};
   a.stage = stage; a.B = B; a.N = N;
   const Layout s = make_layout(table_host, a.d, RH_BWD, stage, nullptr);
-  a.P = s.P;
-  err = prepare(tower_rh_bwd_kernel, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = blocks_for(B);
-  tower_rh_bwd_kernel<<<blocks, NT, s.total * sizeof(float), stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_reduce(partials, blocks, s.P, dw, stream));
+  const ChainWorkspace w = chain_workspace(table_host, a.d, s.P, B, window);
+  if (stages & 1) {
+    err = prepare(tower_rh_bwd_kernel, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // Each window's sweep sees its own steps [lo, hi) as steps 0 to N - 1:
+  // its inputs from step lo on, g_lo (g0 or gs[lo - 1]) as its g0.
+  float* carry = ws + w.carry;
+  const int G = a.d.gwidth();
+  for (int hi = N; hi > 0; hi -= window) {
+    const int lo = hi > window ? hi - window : 0;
+    const size_t at = size_t(lo) * B * S;
+    if (stages & 1) {
+      Args wa = a;
+      wa.g0 = lo == 0 ? g0 : gs + size_t(lo - 1) * B * G;
+      wa.noise = noise + size_t(lo) * B * m; wa.t1s = t1s + lo;
+      wa.dts = dts + lo; wa.zs = zs + at; wa.gs = gs + size_t(lo) * B * G;
+      wa.gy = gy + at; wa.dnoise = dnoise + size_t(lo) * B * m;
+      wa.carry_in = hi == N ? nullptr : carry;
+      wa.carry_out = lo == 0 ? nullptr : carry;
+      wa.N = hi - lo;
+      tower_rh_bwd_kernel<<<blocks_for(B), NT, s.total * sizeof(float),
+                            stream>>>(wa);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    if (stages & 2) {
+      // The window's row n x B + b reads zs[lo + n].
+      const int rc = launch_contraction(table_host, table_dev, a.d,
+                                        t1s + lo, zs + at,
+                                        zs + at + size_t(B) * S, ws, w, dw,
+                                        B, hi - lo, hi == N, lo == 0,
+                                        stream);
+      if (rc != 0) return rc;
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -23,6 +23,16 @@
 // where the layer's pre-activation and output are kept. The host computes
 // the same layout with the same function (make_layout) to size the launch,
 // and tsde_tower_smem_bytes reports it.
+//
+// The reverse sweeps of reversible Heun and of the logqp solve (RH_BWD,
+// EULER_LOGQP_BWD) carry only the step-to-step chain: at each step they
+// write, for their rows, every layer's pre-activation cotangent and the
+// input of every layer after the first to a scratch workspace in device
+// memory (scratch_columns, towers_backward_chain), and a second phase
+// (tower_bwd_contract.cu) contracts those over all steps and rows into the
+// weight gradients; a long solve, a window of steps at a time
+// (chain_workspace). The Euler sweep (EULER_BWD) adds its weight gradients
+// to per-block partials at every step (towers_backward).
 
 #pragma once
 
@@ -87,6 +97,8 @@ struct Layout {
   size_t buf[MAX_TOWERS][2];  // forward kernels: ping-pong activations
   size_t dout[MAX_TOWERS];    // backward kernels: output cotangents
   size_t carry[5];            // the kernel's own [unit][row] arrays
+  size_t cols;                // RH_BWD, EULER_LOGQP_BWD: each layer's
+                              // scratch columns (scratch_columns), as ints
   size_t total;
   size_t P;                   // floats of all packs, [fw | gw | hw]
   int toff[MAX_TOWERS];       // each pack's offset in [fw | gw | hw]
@@ -170,6 +182,8 @@ __host__ __device__ inline Layout make_layout(const int* table, Dims d,
     s.carry[3] = take(at, sG);                         // ag
     s.carry[4] = take(at, sS);                         // Az
   }
+  if (kind == RH_BWD || kind == EULER_LOGQP_BWD)
+    s.cols = take(at, 2 * size_t(d.nf + d.ng + d.nh));
   s.total = at;
   return s;
 }
@@ -390,6 +404,166 @@ __device__ inline void towers_backward(const Layer* plan, Dims d,
     __syncthreads();
   }
 }
+
+// Whether a chain sweep writes layer i's input (the output of layer i - 1)
+// to the scratch: for every layer after its tower's first, whose input
+// [t | state] the contraction gathers from the solve instead.
+__host__ __device__ inline bool stores_input(int i) { return i > 0; }
+
+// Row stride of a scratch tensor of width w: w rounded up to a multiple of
+// four, so that every row starts on a 16-byte boundary.
+__host__ __device__ inline int scratch_ld(int w) { return (w + 3) & ~3; }
+
+// The scratch the chain sweeps write. For every layer l (the table's order)
+// its pre-activation cotangent D_l and, unless l is its tower's first layer
+// (stores_input), its input X_l (the output of the layer before), each an
+// (M, w) row-major tensor of M = N x B rows (row n x B + b: the window's
+// step n, batch row b; N the window's steps) with row stride scratch_ld(w), at M x col floats from the
+// workspace's start: first every X, then every D, each in table order.
+// Fills xcol[l] (-1 where X_l is not stored) and dcol[l] when they are not
+// null; returns the columns of a row, the sum of the strides.
+__host__ __device__ inline size_t scratch_columns(const int* table, Dims d,
+                                                  int* xcol, int* dcol) {
+  size_t at = 0;
+  for (int t = 0; t < d.towers(); ++t) {
+    for (int i = 0; i < d.nl(t); ++i) {
+      const int l = d.base(t) + i;
+      if (xcol) xcol[l] = stores_input(i) ? static_cast<int>(at) : -1;
+      if (stores_input(i)) at += scratch_ld(table[TABLE_COLS * l]);
+    }
+  }
+  for (int l = 0; l < d.nf + d.ng + d.nh; ++l) {
+    if (dcol) dcol[l] = static_cast<int>(at);
+    at += scratch_ld(table[TABLE_COLS * l + 1]);
+  }
+  return at;
+}
+
+// Rows of a contraction chunk: the weight gradients are summed in float32
+// over a chunk of M's rows, each chunk into a partial row of its own, and
+// the partial rows in float64 in chunk order.
+constexpr int RC = 512;
+
+__host__ __device__ inline size_t contract_chunks(size_t M) {
+  return (M + RC - 1) / RC;
+}
+
+// A chain sweep's workspace, for windows of W steps: the scratch of W x B
+// rows (from float 0), the contraction's partial rows of P floats (all
+// packs) from `parts`, kernel 12's carried cotangents between windows
+// from `carry` (ay, az, af, ag: 3S + G floats a row of the batch rounded
+// up to TB rows; kernel 14 passes its dy in dy0), the float64 sums of the
+// windows' weight gradients (P doubles) from `sums`; `total` floats.
+struct ChainWorkspace {
+  size_t parts, carry, sums, total;
+};
+
+__host__ __device__ inline ChainWorkspace chain_workspace(const int* table,
+                                                          Dims d, size_t P,
+                                                          int B, int W) {
+  const size_t M = size_t(W) * B;
+  const size_t rows = size_t(B + TB - 1) / TB * TB;
+  ChainWorkspace w;
+  w.parts = M * scratch_columns(table, d, nullptr, nullptr);
+  w.carry = w.parts + contract_chunks(M) * P;
+  w.sums = (w.carry + rows * (3 * d.S + d.gwidth()) + 1) & ~size_t(1);
+  w.total = w.sums + 2 * P;
+  return w;
+}
+
+// Where a chain sweep's block writes its window's step n: its first row
+// m0 = n x B + row0 of the scratch, `rows` of its TB rows inside the batch; the layers'
+// columns (xcol, dcol: Layout::cols in shared memory).
+struct ScratchRows {
+  float* ws;
+  size_t M, m0;
+  int rows;
+  const int* xcol;
+  const int* dcol;
+};
+
+// Thread j's unit of a [unit][row] array to the scratch tensor at column
+// col (width w): element (m0 + r, j) for the tile's rows r inside the
+// batch.
+__device__ __forceinline__ void store_unit(const ScratchRows& sr, int col,
+                                           int w, const float* src, int j) {
+  const size_t ld = scratch_ld(w);
+  float* dst = sr.ws + sr.M * col + sr.m0 * ld + j;
+  float v[TB];
+  load_rows(v, src + j * TB);
+#pragma unroll
+  for (int r = 0; r < TB; ++r)
+    if (r < sr.rows) dst[r * ld] = v[r];
+}
+
+// Backpropagates each tower's output cotangent (in its dout buffer) through
+// the cache of towers_forward, the deepest layers first, as towers_backward
+// does but without the weight gradients: each layer's dpre (kept over pre)
+// and input go to the scratch instead. Leaves the cotangent of x ([k][r],
+// in0 rows) in each tower's dout buffer. Two barriers a layer depth; ends
+// with a barrier.
+__device__ inline void towers_backward_chain(const Layer* plan, Dims d,
+                                             const Layout& s,
+                                             const float* const* w, float* sm,
+                                             const ScratchRows& sr) {
+  const int t = threadIdx.x / TW, j = threadIdx.x % TW;
+  const Layer* tp = plan + d.base(t);
+  float* dout = sm + s.dout[t];
+  for (int q = 0; q < s.maxl; ++q) {
+    const int i = d.nl(t) - 1 - q, l = d.base(t) + i;
+    if (i >= 0) {
+      const Layer L = tp[i];
+      if (j < L.out) {
+        float pv[TB], ov[TB], dv[TB];
+        float* pre = sm + L.pre;
+        load_rows(pv, pre + j * TB);
+        load_rows(ov, sm + L.post + j * TB);
+        load_rows(dv, dout + j * TB);
+#pragma unroll
+        for (int r = 0; r < TB; ++r)
+          pre[j * TB + r] = act_bwd(dv[r], pv[r], ov[r], L.act);
+        store_unit(sr, sr.dcol[l], L.out, pre, j);
+      }
+      if (stores_input(i) && j < L.in)
+        store_unit(sr, sr.xcol[l], L.in, sm + tp[i - 1].post, j);
+    }
+    __syncthreads();
+    if (i >= 0) layer_input_grad(tp[i], w[t], sm + tp[i].pre, dout, j);
+    __syncthreads();
+  }
+}
+
+// Fills a chain sweep's Layout::cols with the scratch columns of a window
+// of N steps; the caller syncs before reading them.
+__device__ inline ScratchRows scratch_rows(const int* table, Dims d,
+                                           const Layout& s, float* sm,
+                                           float* ws, int B, int N) {
+  int* cols = reinterpret_cast<int*>(sm + s.cols);
+  const int nl = d.nf + d.ng + d.nh;
+  if (threadIdx.x == 0) scratch_columns(table, d, cols, cols + nl);
+  ScratchRows sr;
+  sr.ws = ws;
+  sr.M = size_t(N) * B;
+  sr.m0 = 0;
+  sr.rows = 0;
+  sr.xcol = cols;
+  sr.dcol = cols + nl;
+  return sr;
+}
+
+// The contraction of a chain sweep's scratch of one window into the weight
+// gradients, and the reduction of its partial rows, on `stream`
+// (tower_bwd_contract.cu). The scratch holds the window's `steps` x B rows
+// from ws; w is the workspace's layout. The layers' first input [t | state]
+// is gathered, not stored: the window's row m = n x B + b reads times[n]
+// and state row m of st0 when m < B, else row m - B of st1. The first
+// window's sums start at zero (`first`); the last (`last`) writes them to
+// [dfw | dgw | dhw] (dw, P floats), the others to w.sums.
+int launch_contraction(const int* table_host, const int* table_dev, Dims d,
+                       const float* times, const float* st0,
+                       const float* st1, float* ws, const ChainWorkspace& w,
+                       float* dw, int B, int steps, bool first, bool last,
+                       cudaStream_t stream);
 
 // out[e] = sum over blocks of partials[b][e], in block order: the weight
 // gradients, bitwise the same from call to call. The sum is compensated

@@ -52,15 +52,21 @@ them in XLA.
 The kernels read each tower as one flat, unpadded float32 pack
 (:meth:`TowerSpec.pack`) and a small int32 layer table (each layer's input
 and output widths and activation code): the TPU kernels' 128-lane padding
-and 0/1 tile matrices are not ported. A CPU tensor goes to the kernels'
-plain versions (:func:`euler_solve_forward_plain`,
-:func:`euler_solve_backward_plain`, :func:`rh_solve_forward_plain`,
-:func:`rh_solve_backward_plain`, :func:`euler_logqp_solve_forward_plain`,
-:func:`euler_logqp_solve_backward_plain`: the same math as loops of PyTorch
-operators); a CUDA tensor goes to the kernels, which raise rather than fall
-back. ``euler_launches``, ``euler_bwd_launches``, ``rh_launches``,
-``rh_bwd_launches``, ``logqp_launches`` and ``logqp_bwd_launches`` count
-the kernels' launches.
+and 0/1 tile matrices are not ported. The reverse sweeps of reversible Heun
+and of the logqp solve (kernels 12 and 14) carry only the step-to-step
+chain and write every layer's pre-activation cotangent and input to a
+scratch workspace (:func:`scratch_views`); a contraction of it over all
+steps and rows (``csrc/tower_bwd_contract.cu``) gives the weight
+gradients. A CPU tensor goes to the kernels' plain versions
+(:func:`euler_solve_forward_plain`, :func:`euler_solve_backward_plain`,
+:func:`rh_solve_forward_plain`, :func:`rh_solve_backward_plain`,
+:func:`euler_logqp_solve_forward_plain`,
+:func:`euler_logqp_solve_backward_plain`: the same math as PyTorch
+operators, the last two split as their kernels are into a plain sweep and
+:func:`tower_contract_plain`); a CUDA tensor goes to the kernels, which
+raise rather than fall back. ``euler_launches``, ``euler_bwd_launches``,
+``rh_launches``, ``rh_bwd_launches``, ``logqp_launches`` and
+``logqp_bwd_launches`` count the kernels' launches.
 """
 
 import ctypes
@@ -371,16 +377,107 @@ def rh_solve_forward_plain(y0, f0, g0, noise, t1s, dts, fw, gw, spec):
     return torch.stack(ys), torch.stack(zs), torch.stack(gs)
 
 
+def _tower_chain(dout, cache, weights, acts):
+    """The chain of :func:`tower_backward` without the weight gradients:
+    d x, the inputs of the layers after the first, and every layer's
+    pre-activation cotangent (what a chain sweep writes to its scratch)."""
+    dpres = [None] * len(weights)
+    d = dout
+    for i in range(len(weights) - 1, -1, -1):
+        pre, out = cache[i]
+        d = act_bwd(d, pre, out, acts[i])
+        dpres[i] = d
+        d = d @ weights[i][0].T
+    return d, [out for _, out in cache[:-1]], dpres
+
+
+def _spec_shapes(spec):
+    """The towers' layer shapes in the kernels' order: drift, diffusion,
+    then the prior if the solve has one."""
+    return (spec.drift, spec.diffusion) + ((spec.prior,) if spec.prior
+                                          else ())
+
+
+def _scratch_steps(spec, N):
+    """Per tower, empty per-step lists of its layers' inputs after the
+    first and of every layer's pre-activation cotangent."""
+    return [([[None] * N for _ in shapes[1:]], [[None] * N for _ in shapes])
+            for shapes in _spec_shapes(spec)]
+
+
+def _record(steps, n, towers):
+    """Step n's ``(inputs, dpres)`` of each tower into :func:`_scratch_steps`'
+    lists."""
+    for (xs_n, ds_n), (xs, ds) in zip(steps, towers):
+        for store, v in zip(xs_n + ds_n, xs + ds):
+            store[n] = v
+
+
+def _stacked(steps):
+    return tuple((tuple(torch.stack(v) for v in xs),
+                  tuple(torch.stack(v) for v in ds)) for xs, ds in steps)
+
+
+def first_inputs(times, states, with_time):
+    """Every step's first tower input ``[t_n? | state_n]``, (N,B,in), from
+    times (N,) and states (N,B,S)."""
+    if not with_time:
+        return states
+    N, B = states.shape[:2]
+    t = times.to(states.dtype)[:, None, None].expand(N, B, 1)
+    return torch.cat([t, states], dim=-1)
+
+
+def tower_contract_plain(spec, x0, scratch):
+    """The contraction of kernels 12 and 14 (``csrc/tower_bwd_contract.cu``)
+    as PyTorch operators: each tower's pack gradient, layer by layer
+    ``X^T D`` and the column sums of ``D`` over all rows of a chain
+    sweep's scratch (the structure :func:`scratch_views` gives: per tower,
+    the inputs of its layers after the first and every layer's
+    pre-activation cotangent), ``X`` the layer's input: ``x0``
+    (:func:`first_inputs`) for a tower's first layer. Returns the packs'
+    gradients in the kernels' tower order (drift, diffusion, prior)."""
+    x0 = x0.reshape(-1, x0.shape[-1])
+    grads = []
+    for xs, ds in scratch:
+        parts = []
+        for i, d in enumerate(ds):
+            x = x0 if i == 0 else xs[i - 1].reshape(-1, xs[i - 1].shape[-1])
+            d = d.reshape(-1, d.shape[-1])
+            parts += [x.T @ d, d.sum(0)]
+        grads.append(_cat_grads(parts))
+    return tuple(grads)
+
+
 def rh_solve_backward_plain(y0, f0, g0, noise, t1s, dts, fw, gw, spec, zs, gs,
                             gy):
-    """Kernel 12 as a loop of PyTorch operators: the ``(ay, az, af, ag)``
-    recurrence of the JAX package's ``_rh_bwd_kernel``, which recomputes the
-    towers at each step's stored ``z_{n+1}`` and reads ``g_n`` and
-    ``g_{n+1}`` from ``gs`` with ``g0`` in front.
+    """Kernel 12 as PyTorch operators: the ``(ay, az, af, ag)`` recurrence
+    of the JAX package's ``_rh_bwd_kernel``, which recomputes the towers at
+    each step's stored ``z_{n+1}`` and reads ``g_n`` and ``g_{n+1}`` from
+    ``gs`` with ``g0`` in front; composed, as the kernel is, of
+    :func:`rh_solve_backward_sweep_plain` and :func:`tower_contract_plain`.
 
     Takes the forward's inputs, its zs, gs and the cotangent gy (N,B,S) of
     ys. Returns dy0, df0 (B,S), dg0 (B, S or S*m), dnoise (N,B,m) and the
     packs' gradients dfw, dgw."""
+    *chain, scratch = rh_solve_backward_sweep_plain(
+        y0, f0, g0, noise, t1s, dts, fw, gw, spec, zs, gs, gy)
+    dfw, dgw = tower_contract_plain(
+        spec, first_inputs(t1s, zs, spec.with_time), scratch)
+    return (*chain, dfw, dgw)
+
+
+def rh_solve_backward_sweep_plain(y0, f0, g0, noise, t1s, dts, fw, gw, spec,
+                                  zs, gs, gy):
+    """Kernel 12's sweep as a loop of PyTorch operators: for each step, last
+    to first, the towers recomputed at ``[t1_n? | z_{n+1}]`` and
+    backpropagated without their weight gradients, the cotangents carried
+    back.
+
+    Returns dy0, df0, dg0, dnoise and the scratch: per tower (drift,
+    diffusion) the inputs of its layers after the first and every layer's
+    pre-activation cotangent, each (N,B,width), whose products over all
+    N*B rows give the packs' gradients (:func:`tower_contract_plain`)."""
     fl, gl = unpack(fw, spec.drift), unpack(gw, spec.diffusion)
     facts, gacts = _acts(spec.drift), _acts(spec.diffusion)
     wt = 1 if spec.with_time else 0
@@ -389,8 +486,7 @@ def rh_solve_backward_plain(y0, f0, g0, noise, t1s, dts, fw, gw, spec, zs, gs,
     ay, az, af = (torch.zeros_like(y0) for _ in range(3))
     ag = torch.zeros_like(g0)
     dnoise = torch.empty_like(noise)
-    dfw = [torch.zeros_like(t) for wb in fl for t in wb]
-    dgw = [torch.zeros_like(t) for wb in gl for t in wb]
+    steps = _scratch_steps(spec, N)
     for n in reversed(range(N)):
         dt, dW = dts[n], noise[n]
         ay = ay + gy[n]
@@ -399,17 +495,16 @@ def rh_solve_backward_plain(y0, f0, g0, noise, t1s, dts, fw, gw, spec, zs, gs,
         x = tower_input(t1s[n], zs[n], spec.with_time)
         _, fcache = tower_forward(x, fl, facts)
         _, gcache = tower_forward(x, gl, gacts)
-        dxf, gf = tower_backward(Af, fcache, x, fl, facts)
-        dxg, gg = tower_backward(Ag, gcache, x, gl, gacts)
-        for acc, d in zip(dfw + dgw, gf + gg):
-            acc += d
+        dxf, *f_scratch = _tower_chain(Af, fcache, fl, facts)
+        dxg, *g_scratch = _tower_chain(Ag, gcache, gl, gacts)
+        _record(steps, n, (f_scratch, g_scratch))
         Az = az + (dxf + dxg)[:, wt:]
         g_n, g_next = g_all[n], g_all[n + 1]
         dnoise[n] = _noise_vjp(Az, g_n, spec) + _noise_vjp(
             0.5 * ay, g_n + g_next, spec)
         ay, az, af, ag = (ay + 2.0 * Az, -Az, 0.5 * dt * ay + dt * Az,
                           _noise_outer(0.5 * ay + Az, dW, spec))
-    return ay + az, af, ag, dnoise, _cat_grads(dfw), _cat_grads(dgw)
+    return ay + az, af, ag, dnoise, _stacked(steps)
 
 
 # --------------------------------------------------------------------------- #
@@ -454,21 +549,42 @@ def euler_logqp_solve_forward_plain(y0, noise, t0s, dts, fw, hw, gw, spec):
 
 def euler_logqp_solve_backward_plain(y0, noise, t0s, dts, fw, hw, gw, spec,
                                      ys, gy, ginc):
-    """Kernel 14 as a loop of PyTorch operators: the reverse sweep of the
-    JAX package's ``_euler_logqp_bwd_kernel``, which recomputes the three
-    towers at each step's pre-step state (y0 or ys[n-1]).
+    """Kernel 14 as PyTorch operators: the reverse sweep of the JAX
+    package's ``_euler_logqp_bwd_kernel``, which recomputes the three towers
+    at each step's pre-step state (y0 or ys[n-1]); composed, as the kernel
+    is, of :func:`euler_logqp_solve_backward_sweep_plain` and
+    :func:`tower_contract_plain`.
 
     Takes the forward's inputs, its ys, the cotangent gy (N,B,S) of ys and
     ginc (N,B,1), the reverse cumulative sum over steps of the cotangent of
     qs. Returns dy0 (B,S), dnoise (N,B,S) and the packs' gradients dfw,
     dhw, dgw. The clamp's mask stops the KL term's gradient to g where
     ``|g| <= EPS``, never the state's ``dy dW``."""
-    towers = _logqp_towers(fw, hw, gw, spec)
+    dy0, dnoise, scratch = euler_logqp_solve_backward_sweep_plain(
+        y0, noise, t0s, dts, fw, hw, gw, spec, ys, gy, ginc)
+    y_pre = torch.cat([y0[None], ys[:-1]])
+    dfw, dgw, dhw = tower_contract_plain(
+        spec, first_inputs(t0s, y_pre, spec.with_time), scratch)
+    return dy0, dnoise, dfw, dhw, dgw
+
+
+def euler_logqp_solve_backward_sweep_plain(y0, noise, t0s, dts, fw, hw, gw,
+                                           spec, ys, gy, ginc):
+    """Kernel 14's sweep as a loop of PyTorch operators: for each step, last
+    to first, the three towers recomputed at ``[t0_n? | y_n]`` and
+    backpropagated without their weight gradients, dy carried back.
+
+    Returns dy0, dnoise and the scratch: per tower (drift, diffusion,
+    prior: the kernels' order) the inputs of its layers after the first and
+    every layer's pre-activation cotangent, each (N,B,width)
+    (:func:`tower_contract_plain`)."""
+    towers = _logqp_towers(fw, hw, gw, spec)          # f, h, g
     wt = 1 if spec.with_time else 0
+    N = noise.shape[0]
     dy = torch.zeros_like(y0)
     dnoise = torch.empty_like(noise)
-    dws = [[torch.zeros_like(t) for wb in w for t in wb] for w, _ in towers]
-    for n in reversed(range(noise.shape[0])):
+    steps = _scratch_steps(spec, N)
+    for n in reversed(range(N)):
         dt = dts[n]
         x = tower_input(t0s[n], y0 if n == 0 else ys[n - 1], spec.with_time)
         (f, fcache), (h, hcache), (g, gcache) = (
@@ -480,15 +596,15 @@ def euler_logqp_solve_backward_plain(y0, noise, t0s, dts, fw, hw, gw, spec,
         du = ginc[n] * u * dt
         douts = (dy * dt + du / gs, -du / gs,
                  dy * noise[n] - (du * u / gs) * big.to(g.dtype))
-        dx = None
-        for (w, acts), cache, dout, acc in zip(towers, (fcache, hcache,
-                                                        gcache), douts, dws):
-            dxt, grads = tower_backward(dout, cache, x, w, acts)
-            for a, d in zip(acc, grads):
-                a += d
+        dx, scratch = None, []
+        for (w, acts), cache, dout in zip(towers, (fcache, hcache, gcache),
+                                          douts):
+            dxt, *xs_ds = _tower_chain(dout, cache, w, acts)
+            scratch.append(xs_ds)
             dx = dxt if dx is None else dx + dxt
+        _record(steps, n, (scratch[0], scratch[2], scratch[1]))
         dy = dy + dx[:, wt:]
-    return (dy, dnoise, *(_cat_grads(d) for d in dws))
+    return dy, dnoise, _stacked(steps)
 
 
 # --------------------------------------------------------------------------- #
@@ -655,9 +771,9 @@ def euler_solve_forward_cuda(y0, noise, t0s, dts, fw, gw, spec):
 
 
 def _partials(lib, B, spec, device):
-    """The backward kernels' weight-gradient buffers: one float32 partial
-    of all packs per block of the sweep, and the flat output
-    ``[dfw | dgw | dhw]`` the second kernel sums them into."""
+    """Kernel 10's weight-gradient buffers: one float32 partial of all
+    packs per block of the sweep, and the flat output ``[dfw | dgw]`` the
+    second kernel sums them into."""
     P = (pack_size(spec.drift) + pack_size(spec.diffusion)
          + pack_size(spec.prior))
     f32 = dict(dtype=torch.float32, device=device)
@@ -717,29 +833,119 @@ def rh_solve_forward_cuda(y0, f0, g0, noise, t1s, dts, fw, gw, spec):
     return ys, zs, gs
 
 
+# The most bytes kernels 12 and 14's workspace may take. A solve whose
+# scratch would need more is swept in windows of steps (bwd_window): the
+# window, and with it the order of the weight gradients' sums, depends on
+# the shapes alone, so the gradients stay bitwise repeatable.
+WORKSPACE_BYTES = 2 << 30
+_CHUNK_ROWS = 512     # csrc/tower_solve_common.cuh: RC
+
+
+def _scratch_ld(width):
+    """A scratch tensor's row stride: its width rounded up to four."""
+    return (width + 3) // 4 * 4
+
+
+def bwd_window(spec, B, N):
+    """The steps a window of kernel 12's or 14's backward covers: all N
+    where their workspace fits in :data:`WORKSPACE_BYTES`, else the most
+    that fit, and at least one. A window of W steps takes W*B rows of the
+    scratch (:func:`scratch_views`), a partial row of all packs' floats
+    for every 512 of them, and, whatever W, the carried cotangents
+    ((3S + G) floats a row of the batch) and the windows' float64 sums
+    (``csrc/tower_solve_common.cuh: chain_workspace``)."""
+    shapes = _spec_shapes(spec)
+    cols = (sum(_scratch_ld(n_in) for tower in shapes
+                for n_in, _, _ in tower[1:])
+            + sum(_scratch_ld(n_out) for tower in shapes
+                  for _, n_out, _ in tower))
+    P = sum(n_in * n_out + n_out for tower in shapes
+            for n_in, n_out, _ in tower)
+    rows = -(-B // 8) * 8
+    # Besides W*B*cols: at most W*B/512 + 1 partial rows, the carry, the
+    # sums and one float of alignment.
+    fixed = P + rows * (3 * spec.S + spec.gwidth) + 2 * P + 1
+    free = WORKSPACE_BYTES // 4 - fixed
+    W = free * _CHUNK_ROWS // (B * (cols * _CHUNK_ROWS + P))
+    return max(1, min(N, W))
+
+
+def _workspace(lib, spec, B, window, device):
+    """Kernels 12 and 14's workspace for windows of ``window`` steps: the
+    scratch tensors of :func:`scratch_views`, the contraction's partial
+    rows, the carried cotangents and the windows' sums."""
+    floats = lib.tsde_tower_bwd_workspace(_host_table(spec), *_dims(spec), B,
+                                          window)
+    return torch.empty(floats, dtype=torch.float32, device=device)
+
+
+def scratch_views(workspace, spec, B, N):
+    """The scratch tensors of kernel 12's or 14's workspace, as the sweep
+    writes them and the contraction reads them: per tower (drift,
+    diffusion, prior) the inputs of its layers after the first and every
+    layer's pre-activation cotangent, each an (N*B, width) view (rows of
+    the window's N steps of B rows, step-major; after a backward of one
+    window, the whole solve). The sweep's row stride is the width rounded
+    up to a multiple of four; all inputs come before all cotangents, each
+    in layer order (``csrc/tower_solve_common.cuh: scratch_columns``)."""
+    M, at = N * B, 0
+
+    def take(width):
+        nonlocal at
+        ld = _scratch_ld(width)
+        view = workspace[M * at:M * (at + ld)].view(M, ld)[:, :width]
+        at += ld
+        return view
+
+    shapes = _spec_shapes(spec)
+    xs = [tuple(take(n_in) for n_in, _, _ in tower[1:]) for tower in shapes]
+    ds = [tuple(take(n_out) for _, n_out, _ in tower) for tower in shapes]
+    return tuple(zip(xs, ds))
+
+
 def rh_solve_backward_cuda(y0, f0, g0, noise, t1s, dts, fw, gw, spec, zs, gs,
                            gy):
-    """Launch kernel 12 (the reverse sweep, then the sum of its per-block
-    weight-gradient partials) on the current stream; returns what
-    :func:`rh_solve_backward_plain` returns."""
+    """Launch kernel 12 (the reverse sweep, the contraction of its scratch
+    into the weight gradients and the sum of the contraction's partials) on
+    the current stream; returns what :func:`rh_solve_backward_plain`
+    returns. Its workspace holds the scratch, N x B x (the towers' widths
+    after the input) floats (403 MB at batch 1024, d 128, hidden 128, 128
+    steps), and the partial rows; a longer solve runs in windows of steps
+    (:func:`bwd_window`)."""
+    return _rh_backward_cuda(y0, f0, g0, noise, t1s, dts, fw, gw, spec, zs,
+                             gs, gy)[0]
+
+
+def _rh_backward_cuda(y0, f0, g0, noise, t1s, dts, fw, gw, spec, zs, gs, gy,
+                      stage=None, stages=3, workspace=None):
+    """One launch of kernel 12; returns its outputs and its workspace. For
+    measurement only: ``stage`` overrides the towers staged in shared
+    memory (a bitmask of :data:`STAGE_ORDER`), and ``stages`` runs the
+    sweep alone (1) or the contraction and the reduction alone (2) on the
+    ``workspace`` of an earlier call of one window (:func:`bwd_window`)."""
     global rh_bwd_launches
     _require_cuda(y0)
     B, N = _check_rh(spec, y0, f0, g0, noise, t1s, dts, fw, gw)
     for name, t, width in (("zs", zs, spec.S), ("gs", gs, spec.gwidth),
                            ("gy", gy, spec.S)):
         check_kernel_tensor(name, t, (N, B, width), torch.float32, y0.device)
-    lib, table_dims = _library(RH_BWD, spec, B, y0.device)
+    lib, table_dims = _library(RH_BWD, spec, B, y0.device, stage)
     dy0, df0, dg0 = (torch.empty_like(t) for t in (y0, f0, g0))
     dnoise = torch.empty_like(noise)
-    partials, dw = _partials(lib, B, spec, y0.device)
+    window = bwd_window(spec, B, N)
+    if workspace is None:
+        workspace = _workspace(lib, spec, B, window, y0.device)
+    dw = torch.empty(fw.numel() + gw.numel(), dtype=torch.float32,
+                     device=y0.device)
     ptrs = [t.data_ptr() for t in (fw, gw, g0, noise, t1s, dts, zs, gs, gy,
-                                   dy0, df0, dg0, dnoise, partials, dw)]
+                                   dy0, df0, dg0, dnoise, workspace, dw)]
     rc = lib.tsde_tower_rh_bwd(*table_dims[:2], *ptrs, *table_dims[2:], B, N,
-                               y0.device.index or 0, _stream(y0.device))
+                               window, stages, y0.device.index or 0,
+                               _stream(y0.device))
     _build.check_launch(lib, rc, "tower_rh_bwd")
     rh_bwd_launches += 1
     dfw, dgw = dw.split([fw.numel(), gw.numel()])
-    return dy0, df0, dg0, dnoise, dfw, dgw
+    return (dy0, df0, dg0, dnoise, dfw, dgw), workspace
 
 
 def _check_logqp(spec, y0, noise, t0s, dts, fw, hw, gw):
@@ -778,29 +984,45 @@ def euler_logqp_solve_forward_cuda(y0, noise, t0s, dts, fw, hw, gw, spec,
 
 def euler_logqp_solve_backward_cuda(y0, noise, t0s, dts, fw, hw, gw, spec,
                                     ys, gy, ginc, stage=None):
-    """Launch kernel 14 (the reverse sweep, then the sum of its per-block
-    weight-gradient partials) on the current stream; returns what
-    :func:`euler_logqp_solve_backward_plain` returns."""
+    """Launch kernel 14 (the reverse sweep, the contraction of its scratch
+    into the weight gradients and the sum of the contraction's partials) on
+    the current stream; returns what
+    :func:`euler_logqp_solve_backward_plain` returns. Its workspace holds
+    the scratch, N x B x (the towers' widths after the input) floats
+    (1.81 GB at batch 4096, d 32, hidden 128, 128 steps), and the partial
+    rows; a longer solve runs in windows of steps (:func:`bwd_window`)."""
+    return _euler_logqp_backward_cuda(y0, noise, t0s, dts, fw, hw, gw, spec,
+                                      ys, gy, ginc, stage)[0]
+
+
+def _euler_logqp_backward_cuda(y0, noise, t0s, dts, fw, hw, gw, spec, ys, gy,
+                               ginc, stage=None, stages=3, workspace=None):
+    """One launch of kernel 14; returns its outputs and its workspace.
+    ``stage``, ``stages`` and ``workspace`` as :func:`_rh_backward_cuda`'s,
+    for measurement only."""
     global logqp_bwd_launches
     _require_cuda(y0)
     B, N = _check_logqp(spec, y0, noise, t0s, dts, fw, hw, gw)
     for name, t, width in (("ys", ys, spec.S), ("gy", gy, spec.S),
                            ("ginc", ginc, 1)):
         check_kernel_tensor(name, t, (N, B, width), torch.float32, y0.device)
-    lib, table_dims = _library(EULER_LOGQP_BWD, spec, B, y0.device,
-                              stage)
+    lib, table_dims = _library(EULER_LOGQP_BWD, spec, B, y0.device, stage)
     dy0, dnoise = torch.empty_like(y0), torch.empty_like(noise)
-    partials, dw = _partials(lib, B, spec, y0.device)
+    window = bwd_window(spec, B, N)
+    if workspace is None:
+        workspace = _workspace(lib, spec, B, window, y0.device)
+    dw = torch.empty(fw.numel() + gw.numel() + hw.numel(),
+                     dtype=torch.float32, device=y0.device)
     ptrs = [t.data_ptr() for t in (fw, gw, hw, y0, noise, t0s, dts, ys, gy,
-                                   ginc, dy0, dnoise, partials, dw)]
+                                   ginc, dy0, dnoise, workspace, dw)]
     rc = lib.tsde_tower_euler_logqp_bwd(*table_dims[:2], *ptrs,
-                                        *table_dims[2:], B, N,
+                                        *table_dims[2:], B, N, window, stages,
                                         y0.device.index or 0,
                                         _stream(y0.device))
     _build.check_launch(lib, rc, "tower_euler_logqp_bwd")
     logqp_bwd_launches += 1
     dfw, dgw, dhw = dw.split([fw.numel(), gw.numel(), hw.numel()])
-    return dy0, dnoise, dfw, dhw, dgw
+    return (dy0, dnoise, dfw, dhw, dgw), workspace
 
 
 def _route(device, plain, cuda):

@@ -66,14 +66,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     (batch 1024, d 128, hidden 128, whose towers do not fit a block's
     shared memory), 128 steps, seeded inputs and cotangents: every output
     and weight gradient against the plain versions and a float64 run
-    (kernel 12 within twice the plain version's distance from it plus 3e-6
-    of scale, as kernel 2), two sweeps bitwise equal, kernel 12 bitwise the
-    same at every staging of its towers that fits, median times and
-    bounds, kernel 12 whole and by phase (its sweep; its contraction beside
-    torch.matmul on the same scratch) and at each staging of RH_STAGINGS;
-    then all four on general noise with a time column and depth-3 towers
-    (batch 1024, d 16, m 4, hidden 64); then kernel 12 on R1's towers over
-    1,024 steps, swept in windows (check_long_solve);
+    (kernels 10 and 12 within twice the plain version's distance from it
+    plus 3e-6 of scale, as kernel 2), two sweeps bitwise equal, kernels 10
+    and 12 bitwise the same at every staging of their towers that fits,
+    median times and bounds, kernels 10 and 12 whole and by phase (the
+    sweep; the contraction beside torch.matmul on the same scratch) and at
+    each staging of EULER_STAGINGS and RH_STAGINGS; then all four on
+    general noise with a time column and depth-3 towers (batch 1024, d 16,
+    m 4, hidden 64); then kernel 12 on R1's towers over 1,024 steps and
+    kernel 10 on E1's over 512, swept in windows (check_long_solve);
 15. serve and train ``fused_sdeint`` at E1 and at R1: three served solves
     per route (``dispatch="fused"`` and ``"xla"``, the ``sdeint`` route) on
     the same generator seeds, whose states must agree, each fused solve
@@ -108,8 +109,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     and with saturated diffusion, against their plain versions and float64
     runs, each replica bitwise equal to kernels 1 and 2 on its own inputs,
     two sweeps bitwise equal; median times at K = 1, 2, 4, 8 beside K
-    launches of kernels 1 and 2, and the bounds; kernel 4 at K = 4 by
-    phase as phase 4;
+    launches of kernels 1 and 2, the rows a block kernel 3 takes at each,
+    and the bounds; kernel 4 at K = 4 by phase as phase 4; then kernels 2
+    and 4 over the flagship's solve at dt 1/512, swept in two windows
+    (check_latent_long_solve);
 22. replicas: ``latent_sde_loss_multi(fused=True)`` at K = 4 under
     ``torch.no_grad()``, each replica's loss against the single fused loss
     on a clone of its generator and each call launching kernel 3 once; the
@@ -133,8 +136,12 @@ The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only`` runs some phase groups (for
 development; no ok line); ``--only tiles``, which no other run includes,
 times kernels 2 and 4 whole and their sweep alone at 128, 256 and 512
-threads and at 16 rows a block, the blocks the sweep's was chosen over.
-It imports nothing of JAX.
+threads and at 16 rows a block, the blocks the sweep's was chosen over,
+and kernels 1 and 3 at 256 and 512 threads and 8 and 16 rows a block;
+``--only ab`` (phase_ab) times kernels 1-4, 9 and 10 through entry points
+every version of the port has and compares their outputs with another
+run's, so that a copy of this script in the parent commit's checkout
+times the parent in the same call. It imports nothing of JAX.
 """
 
 import argparse
@@ -287,8 +294,10 @@ LOGQP_SIGNED_RTOL = (3e-3, 5e-3)
 # STAGE_ORDER): all three, drift and prior, none at L1; one or none at L2.
 LOGQP_STAGINGS = {"L1": (7, 5, 0), "L2": (1, 0)}
 # The ways of staging R1's two towers that phase 14 times kernel 12 at
-# (both do not fit): the drift, the diffusion, none.
+# (both do not fit): the drift, the diffusion, none; and E1's, kernel 10's:
+# both, the drift, the diffusion, none.
 RH_STAGINGS = (1, 2, 0)
+EULER_STAGINGS = (3, 1, 2, 0)
 # K stacked flagship replicas (kernels 3 and 4, latent_sde_loss_multi): K 4
 # for the checks, the serve and the training steps; the kernels timed at
 # each K of MULTI_KS beside K launches of kernels 1 and 2.
@@ -414,16 +423,16 @@ def flagship_model(device):
                      generator=gen)
 
 
-def kernel_inputs(device, model, seed=SEED + 1):
-    """Seeded solve inputs at the flagship shapes, as the main path makes
-    them: z0, ctx, ctx_idx, noise, dts."""
+def kernel_inputs(device, model, seed=SEED + 1, dt=DT):
+    """Seeded solve inputs at the flagship shapes (steps of ``dt``), as the
+    main path makes them: z0, ctx, ctx_idx, noise, dts."""
     gen = torch.Generator(device=device).manual_seed(seed)
     ts = np.linspace(0.0, 1.0, N_TS)
     ctx = torch.randn((N_TS, BATCH, CONTEXT), generator=gen, device=device)
     view = model.contextualize(ts, ctx)
     z0 = torch.randn((BATCH, LATENT), generator=gen, device=device)
     with torch.no_grad():
-        return LF._prep_solve(view, z0, ts, gen, DT)[:5]
+        return LF._prep_solve(view, z0, ts, gen, dt)[:5]
 
 
 def phase_kernel(device):
@@ -553,13 +562,13 @@ extern "C" int tsde_latent_bwd_tile(
   const Args a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
                            dctx, dnoise, ws, B, L, C, H, T, n);
   if (rows == 8 && threads == 128)
-    return launch<128, 8>(a, K, dw, stages, device, stream);
+    return launch<128, 8>(a, K, dw, stages, n, device, stream);
   if (rows == 8 && threads == 256)
-    return launch<256, 8>(a, K, dw, stages, device, stream);
+    return launch<256, 8>(a, K, dw, stages, n, device, stream);
   if (rows == 8 && threads == 512)
-    return launch<512, 8>(a, K, dw, stages, device, stream);
+    return launch<512, 8>(a, K, dw, stages, n, device, stream);
   if (rows == 16 && threads == 256)
-    return launch<256, 16>(a, K, dw, stages, device, stream);
+    return launch<256, 16>(a, K, dw, stages, n, device, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -567,6 +576,78 @@ extern "C" const char* tsde_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 """
+
+
+# The forward's blocks, (threads, rows a block), that ``--only tiles``
+# times kernels 1 and 3 at: the kernel picks 256 threads and 8 rows, or 16
+# when 8-row blocks would outnumber the SMs (latent_fused_fwd.cu:
+# rows_for). Built from latent_fused_fwd.cu and FWD_TILE_ENTRY.
+FWD_TILES = ((256, 8), (512, 8), (512, 16), (1024, 8), (1024, 16))
+FWD_TILE_ENTRY = r"""
+// Kernel 1 (K = 1) or 3 at `threads` threads and `rows` rows a block.
+extern "C" int tsde_latent_fwd_tile(
+    const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
+    const float* dts, TSDE_WEIGHT_PARAMS, float* zs, float* qs, int K, int B,
+    int L, int C, int H, int T, int n, int threads, int rows, int device,
+    cudaStream_t stream) {
+  using namespace tsde_latent_fwd;
+  const float* w[NW] = TSDE_WEIGHTS;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Args a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, qs, B, L, C,
+                           H, T, n);
+  if (threads == 256 && rows == 8) return launch_rows<256, 8>(a, K, stream);
+  if (threads == 512 && rows == 8) return launch_rows<512, 8>(a, K, stream);
+  if (threads == 512 && rows == 16) return launch_rows<512, 16>(a, K, stream);
+  if (threads == 1024 && rows == 8) return launch_rows<1024, 8>(a, K, stream);
+  if (threads == 1024 && rows == 16)
+    return launch_rows<1024, 16>(a, K, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+"""
+
+
+def fwd_tile_library():
+    """The library of the forward's blocks, built at its first use."""
+    source = (Path(LF.__file__).resolve().parent / "csrc"
+              / "latent_fused_fwd.cu").read_text()
+    lib = _build.library_for_source("tsde_latent_fwd_tiles",
+                                    source + FWD_TILE_ENTRY)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.tsde_latent_fwd_tile.argtypes = [P] * 23 + [I] * 10 + [P]
+    lib.tsde_latent_fwd_tile.restype = I
+    return lib
+
+
+def fwd_tile_times(label, lib, args, weights, multi, reps):
+    """Median device times of kernel 1 (or 3) at each of FWD_TILES, each
+    block's zs and qs bitwise the kernel's own."""
+    want = (LF.fused_solve_multi_forward_cuda if multi
+            else LF.fused_solve_forward_cuda)(*args, weights)
+    z0, ctx, ctx_idx, noise, dts = args
+    K = z0.shape[0] if multi else 1
+    B, L = z0.shape[-2:]
+    T, C, H, n = ctx.shape[-3], ctx.shape[-1], weights[0].shape[-1], \
+        noise.shape[-3]
+    zs, qs = torch.empty_like(want[0]), torch.empty_like(want[1])
+    ptrs = [t.data_ptr() for t in (*args, *weights, zs, qs)]
+    stream = torch.cuda.current_stream(z0.device).cuda_stream
+    out = {}
+    for threads, rows in FWD_TILES:
+        def run():
+            rc = lib.tsde_latent_fwd_tile(*ptrs, K, B, L, C, H, T, n,
+                                          threads, rows,
+                                          z0.device.index or 0, stream)
+            _build.check_launch(lib, rc, f"forward {threads} x {rows}")
+        run()
+        torch.cuda.synchronize()
+        if not (torch.equal(zs, want[0]) and torch.equal(qs, want[1])):
+            raise RuntimeError(f"{label} at {threads} x {rows} differs from "
+                               f"the kernel's own")
+        out[f"{threads}x{rows}"] = median_cuda_ms(run, reps)
+    print(f"{label} by threads x rows a block, ms: "
+          + ", ".join(f"{k}: {v:.4f}" for k, v in out.items()), flush=True)
+    return out
 
 
 def tile_library():
@@ -638,7 +719,20 @@ def tile_times(label, lib, bargs, multi, reps):
 
 def phase_tiles(device):
     """Kernel 2 at the flagship and kernel 4 at K = MULTI_K, whole and sweep
-    alone, at each block of SWEEP_TILES (``--only tiles``)."""
+    alone, at each block of SWEEP_TILES; kernels 1 and 3 at K = 1, 2,
+    MULTI_K and 8 at each block of FWD_TILES (``--only tiles``)."""
+    fwd_lib = fwd_tile_library()
+    forward = {}
+    with torch.no_grad():
+        for Kt in MULTI_KS:
+            a_t, w_t = multi_kernel_inputs(device, Kt)
+            forward[str(Kt)] = fwd_tile_times(f"kernel 3 at K={Kt}", fwd_lib,
+                                              a_t, w_t, True, 10)
+            if Kt == 1:
+                a_1, w_1 = replica(a_t, w_t, 0)
+                forward["kernel1"] = fwd_tile_times("kernel 1", fwd_lib, a_1,
+                                                    w_1, False, 10)
+            del a_t, w_t
     lib = tile_library()
     model = flagship_model(device)
     args = kernel_inputs(device, model)
@@ -658,7 +752,7 @@ def phase_tiles(device):
             f"kernel 4 at K={MULTI_K}", lib,
             (*args, weights, zs, gz.expand(MULTI_K, -1, -1, -1).contiguous(),
              gq.expand(MULTI_K, -1, -1, -1).contiguous()), True, 5)
-    return dict(kernel2=single, kernel4=multi)
+    return dict(kernel2=single, kernel4=multi, forward=forward)
 
 
 def phase_kernel2(device):
@@ -1504,7 +1598,7 @@ def fitting_stagings(kind, spec):
 
 
 def check_stagings(label, launch, bargs, kind, spec, want):
-    """Kernel 12 or 14 at every staging of its towers that fits a block:
+    """Kernel 10, 12 or 14 at every staging of its towers that fits a block:
     each bitwise equal to ``want`` (staging moves only where the weights
     are read from)."""
     stagings = fitting_stagings(kind, spec)
@@ -1517,7 +1611,8 @@ def check_stagings(label, launch, bargs, kind, spec, want):
 
 
 def tower_contraction_by_matmul(views, x0):
-    """Kernel 12's or 14's contraction as PyTorch calls on the same scratch
+    """Kernel 10's, 12's or 14's contraction as PyTorch calls on the same
+    scratch
     (the yardstick, never on the path): a torch.matmul and a column sum a
     layer."""
     out = []
@@ -1529,7 +1624,7 @@ def tower_contraction_by_matmul(views, x0):
 
 
 def chain_parts(label, launch, bargs, spec, B, N, x0, packs, reps):
-    """Median device times of kernel 12's or 14's sweep alone and of its
+    """Median device times of kernel 10's, 12's or 14's sweep alone and of its
     contraction and reduction alone on the sweep's workspace, the
     contraction's bound, and the torch.matmul yardstick on the same
     scratch (x0: every step's first tower input, (N,B,in)). Prints them
@@ -1578,6 +1673,7 @@ def run_tower_kernels(label, device, method, drift, diffusion, B, d, m, diag,
             FS.euler_solve_forward_plain
         bwd, bwd_plain = FS.euler_solve_backward_cuda, \
             FS.euler_solve_backward_plain
+        launch = FS._euler_backward_cuda
         kinds = (FS.EULER_FWD, FS.EULER_BWD)
         outs = ("ys",)
         douts = ("dy0", "dnoise", "dfw", "dgw")
@@ -1617,13 +1713,11 @@ def run_tower_kernels(label, device, method, drift, diffusion, B, d, m, diag,
         want_b = bwd_plain(*bargs)
         exact_b = bwd_plain(*in_double(bargs))
         torch.cuda.synchronize()
-        # Kernel 12, the sweep split from its contraction, is held to the
-        # float64 run as kernels 2 and 4 are (BWD_F64_REL); kernel 10 keeps
-        # its rule.
+        # Kernels 10 and 12, each a sweep split from its contraction, are
+        # held to the float64 run as kernels 2 and 4 are (BWD_F64_REL).
         err_b = check_against_plain(f"{label} {names[1]}", douts, got_b,
                                     want_b, exact_b, TOWER_GRAD_ATOL,
-                                    TOWER_GRAD_REL,
-                                    f64_rel=None if euler else BWD_F64_REL)
+                                    TOWER_GRAD_REL, f64_rel=BWD_F64_REL)
         del exact_b
         again = bwd(*bargs)
         torch.cuda.synchronize()
@@ -1631,30 +1725,32 @@ def run_tower_kernels(label, device, method, drift, diffusion, B, d, m, diag,
             raise RuntimeError(f"{label} {names[1]} is not bitwise "
                                f"repeatable")
         print(f"{label} {names[1]}: two calls agree bitwise", flush=True)
-        if not euler:
-            check_stagings(f"{label} {names[1]}", launch, bargs, kinds[1],
-                           spec, got_b)
+        check_stagings(f"{label} {names[1]}", launch, bargs, kinds[1], spec,
+                       got_b)
         if not timed:
             return None
         ms_f = median_cuda_ms(lambda: fwd(*args), 20)
         plain_f = median_cuda_ms(lambda: fwd_plain(*args), 5, warmup=1)
         ms_b = median_cuda_ms(lambda: bwd(*bargs), 10)
         plain_b = median_cuda_ms(lambda: bwd_plain(*bargs), 3, warmup=1)
-        parts = {}
-        if not euler:
-            parts = chain_parts(f"{label} {names[1]}", launch, bargs, spec,
-                                B, N, FS.first_inputs(args[4], got[1], wt),
-                                args[6:8], 10)
-            stagings = [st for st in RH_STAGINGS
-                        if st in fitting_stagings(kinds[1], spec)]
-            parts["ms_by_staging"] = {
-                str(st): median_cuda_ms(
-                    lambda: launch(*bargs, stage=st), 5)
-                for st in stagings}
-            print(f"{label} {names[1]} staging (towers staged: ms): "
-                  + "; ".join(f"{st}: {t:.4f}" for st, t
-                              in parts["ms_by_staging"].items()),
-                  flush=True)
+        if euler:
+            x0 = FS.first_inputs(args[2], torch.cat([args[0][None],
+                                                     got[0][:-1]]), wt)
+            packs = args[4:6]
+        else:
+            x0 = FS.first_inputs(args[4], got[1], wt)
+            packs = args[6:8]
+        parts = chain_parts(f"{label} {names[1]}", launch, bargs, spec, B, N,
+                            x0, packs, 10)
+        del x0
+        stagings = [st for st in (EULER_STAGINGS if euler else RH_STAGINGS)
+                    if st in fitting_stagings(kinds[1], spec)]
+        parts["ms_by_staging"] = {
+            str(st): median_cuda_ms(lambda: launch(*bargs, stage=st), 5)
+            for st in stagings}
+        print(f"{label} {names[1]} staging (towers staged: ms): "
+              + "; ".join(f"{st}: {t:.4f}" for st, t
+                          in parts["ms_by_staging"].items()), flush=True)
     records = []
     for name, ms, plain_ms, err, io, kind in (
             (names[0], ms_f, plain_f, err_f, tensors_of(args) + list(got),
@@ -1674,14 +1770,14 @@ def run_tower_kernels(label, device, method, drift, diffusion, B, d, m, diag,
     return records
 
 
-# Kernels 12 and 14 on a long solve (phases 14 and 18): R1's and L1's
-# towers over these many steps of [0, 1], whose workspace of one window
-# would outgrow fused_solve.WORKSPACE_BYTES.
-LONG_STEPS = {"R1": 1024, "L1": 512}
+# Kernels 10, 12 and 14 on a long solve (phases 14 and 18): E1's, R1's and
+# L1's towers over these many steps of [0, 1], whose workspace of one
+# window would outgrow fused_solve.WORKSPACE_BYTES.
+LONG_STEPS = {"E1": 512, "R1": 1024, "L1": 512}
 
 
 def check_long_solve(name, device):
-    """Kernel 12 (R1) or 14 (L1) over LONG_STEPS[name] steps: swept in
+    """Kernel 10 (E1), 12 (R1) or 14 (L1) over LONG_STEPS[name] steps: swept in
     windows (fused_solve.bwd_window), its workspace within
     fused_solve.WORKSPACE_BYTES, every output within max(TOWER_GRAD_ATOL,
     TOWER_GRAD_REL * scale) of its twin's, two calls bitwise equal.
@@ -1701,6 +1797,15 @@ def check_long_solve(name, device):
             launch = FS._euler_logqp_backward_cuda
             plain = FS.euler_logqp_solve_backward_plain
             names = ("dy0", "dnoise", "dfw", "dhw", "dgw")
+        elif method == "euler":
+            spec, args = tower_kernel_args(device, method, *towers, B, d, d,
+                                           True, False, SEED + 26, 1.0 / N)
+            ys = FS.euler_solve_forward_cuda(*args)
+            gy = torch.randn(ys.shape, generator=gen, device=device)
+            bargs = (*args, ys, gy)
+            launch = FS._euler_backward_cuda
+            plain = FS.euler_solve_backward_plain
+            names = ("dy0", "dnoise", "dfw", "dgw")
         else:
             spec, args = tower_kernel_args(device, method, *towers, B, d, d,
                                            True, False, SEED + 26, 1.0 / N)
@@ -1763,6 +1868,7 @@ def phase_tower_kernels(device):
                           diffusion, B, d, m, False, True, SEED + 15, False)
     records["reversible_heun"][1]["long_solve"] = check_long_solve("R1",
                                                                    device)
+    records["euler"][1]["long_solve"] = check_long_solve("E1", device)
     return records
 
 
@@ -2154,12 +2260,13 @@ def replica_models(device, K, seed):
             for k in range(K)]
 
 
-def multi_kernel_inputs(device, K):
-    """Seeded inputs of kernels 3 and 4 at the flagship shapes, as the main
-    path makes them for K replicas: z0 (K,B,L), ctx (K,T,B,C), the shared
-    ctx_idx and dts, noise (K,n,B,L), each weight stacked (K, ...)."""
+def multi_kernel_inputs(device, K, dt=DT):
+    """Seeded inputs of kernels 3 and 4 at the flagship shapes (steps of
+    ``dt``), as the main path makes them for K replicas: z0 (K,B,L), ctx
+    (K,T,B,C), the shared ctx_idx and dts, noise (K,n,B,L), each weight
+    stacked (K, ...)."""
     models = replica_models(device, K, SEED + 100)
-    per = [kernel_inputs(device, m, SEED + 110 + k)
+    per = [kernel_inputs(device, m, SEED + 110 + k, dt)
            for k, m in enumerate(models)]
     _, _, ctx_idx, _, dts = per[0]
     stacked = [torch.stack([p[i] for p in per]).contiguous() for i in (0, 1, 3)]
@@ -2274,6 +2381,8 @@ def phase_multi_kernels(device):
             bound_b = bound(3 * flops, [*b_t[:5], *w_t, *b_t[6:], *a_t[:2],
                                         a_t[3], *w_t])
             by_k[Kt] = dict(
+                rows=_build.load_library().tsde_latent_fused_fwd_rows(
+                    Kt, BATCH, LATENT, CONTEXT, HIDDEN, device.index or 0),
                 fwd_ms=median_cuda_ms(
                     lambda: LF.fused_solve_multi_forward_cuda(*a_t, w_t), 10),
                 fwd_singles_ms=median_cuda_ms(k_singles, 10),
@@ -2283,7 +2392,8 @@ def phase_multi_kernels(device):
                 fwd_bound_ms=bound_f[0], bwd_bound_ms=bound_b[0],
                 fwd_bound_by=bound_f[1], bwd_bound_by=bound_b[1])
             r = by_k[Kt]
-            print(f"K={Kt}: kernel 3 {r['fwd_ms']:.4f} ms vs {Kt} launches "
+            print(f"K={Kt}: kernel 3 ({r['rows']} rows a block) "
+                  f"{r['fwd_ms']:.4f} ms vs {Kt} launches "
                   f"of kernel 1 {r['fwd_singles_ms']:.4f} ms (bound "
                   f"{r['fwd_bound_ms']:.4f}, {r['fwd_bound_by']}); kernel 4 "
                   f"{r['bwd_ms']:.4f} ms vs {Kt} launches of kernel 2 "
@@ -2301,6 +2411,7 @@ def phase_multi_kernels(device):
                  plain_ms=plain_f, bound_ms=at["fwd_bound_ms"],
                  bound_by=at["fwd_bound_by"], K=K,
                  ms_by_K={k: v["fwd_ms"] for k, v in by_k_ms.items()},
+                 rows_by_K={k: v["rows"] for k, v in by_k_ms.items()},
                  k_launches_of_kernel1_ms_by_K={
                      k: v["fwd_singles_ms"] for k, v in by_k_ms.items()}),
             dict(max_abs_err=errs4[0][0], max_abs_err_saturated=errs4[1][0],
@@ -2311,7 +2422,85 @@ def phase_multi_kernels(device):
                  **parts4,
                  ms_by_K={k: v["bwd_ms"] for k, v in by_k_ms.items()},
                  k_launches_of_kernel2_ms_by_K={
-                     k: v["bwd_singles_ms"] for k, v in by_k_ms.items()}))
+                     k: v["bwd_singles_ms"] for k, v in by_k_ms.items()},
+                 long_solve=check_latent_long_solve(device)))
+
+
+# Kernels 2 and 4 on a long solve (phase 21): the flagship at dt 1/512,
+# whose workspace of one window would outgrow latent_fused.WORKSPACE_BYTES
+# a replica (two windows).
+LATENT_LONG_DT = 1.0 / 512
+
+
+def check_latent_long_solve(device):
+    """Kernel 2 and kernel 4 at K = MULTI_K over the flagship's solve at
+    LATENT_LONG_DT: swept in windows (latent_fused.bwd_window), each
+    replica's workspace within latent_fused.WORKSPACE_BYTES; kernel 2
+    within kernel 2's tolerances of its plain version; each replica of
+    kernel 4 bitwise kernel 2 on its inputs; two calls bitwise equal.
+    Returns the steps, the window, the workspace's bytes a replica, the
+    median times and the largest errors."""
+    K = MULTI_K
+    args, weights = multi_kernel_inputs(device, K, LATENT_LONG_DT)
+    n = args[3].shape[1]
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    gz = torch.randn((K, n, BATCH, LATENT), generator=gen, device=device)
+    gq = torch.randn((K, n, BATCH, 1), generator=gen, device=device)
+    window = LF.bwd_window(BATCH, LATENT, CONTEXT, HIDDEN, n)
+    with torch.no_grad():
+        zs = LF.fused_solve_multi_forward_cuda(*args, weights)[0]
+        bargs = (*args, weights, zs, gz, gq)
+        got, ws = LF._backward_cuda(*bargs, multi=True)
+        again = LF.fused_solve_multi_backward_cuda(*bargs)
+        singles = []
+        for k in range(K):
+            a_k, w_k = replica(args, weights, k)
+            singles.append(_flat(LF._backward_cuda(
+                *a_k, w_k, zs[k], gz[k], gq[k], multi=False)[0]))
+        a_0, w_0 = replica(args, weights, 0)
+        want = LF.fused_solve_backward_plain(*a_0, w_0, zs[0], gz[0], gq[0])
+        torch.cuda.synchronize()
+        label = (f"kernels 2 and 4 over {n} steps (dt 1/"
+                 f"{round(1 / LATENT_LONG_DT)})")
+        ws_bytes = ws.shape[1] * ws.element_size()
+        if window >= n or ws_bytes > LF.WORKSPACE_BYTES:
+            raise RuntimeError(f"{label}: window {window}, workspace "
+                               f"{ws_bytes} bytes a replica")
+        if not all(torch.equal(a, b) for a, b in zip(_flat(got),
+                                                     _flat(again))):
+            raise RuntimeError(f"{label}: kernel 4 is not bitwise "
+                               f"repeatable")
+        for k, single in enumerate(singles):
+            if not all(torch.equal(a[k], b)
+                       for a, b in zip(_flat(got), single)):
+                raise RuntimeError(f"{label}: replica {k} of kernel 4 "
+                                   f"differs from kernel 2 on its inputs")
+        worst = worst_rel = 0.0
+        for name, g, w in zip(GRAD_NAMES, singles[0], _flat(want)):
+            err = float((g - w).abs().max())
+            scale = float(w.abs().max())
+            if not torch.isfinite(g).all() or err > max(BWD_ATOL,
+                                                        BWD_REL * scale):
+                raise RuntimeError(f"{label}: kernel 2's {name} differs "
+                                   f"from the plain version by {err:.3e} "
+                                   f"(max {scale:.4g})")
+            worst = max(worst, err)
+            worst_rel = max(worst_rel, err / max(scale, 1e-30))
+        del want, singles, again
+        ms2 = median_cuda_ms(lambda: LF.fused_solve_backward_cuda(
+            *a_0, w_0, zs[0], gz[0], gq[0]), 3)
+        ms4 = median_cuda_ms(lambda: LF.fused_solve_multi_backward_cuda(
+            *bargs), 3)
+    windows = -(-n // window)
+    print(f"{label}: {windows} windows of {window} steps, workspace "
+          f"{ws_bytes / 1e6:.1f} MB a replica (of "
+          f"{LF.WORKSPACE_BYTES / 1e6:.1f}); kernel 2 vs plain max abs err "
+          f"{worst:.3e} (rel {worst_rel:.2e}); each of the {K} replicas of "
+          f"kernel 4 bitwise kernel 2; two calls agree bitwise; kernel 2 "
+          f"median {ms2:.4f} ms, kernel 4 at K={K} {ms4:.4f} ms", flush=True)
+    return dict(steps=n, window=window, workspace_bytes=ws_bytes,
+                ms_K1=ms2, ms_K4=ms4, max_abs_err=worst,
+                max_rel_err=worst_rel)
 
 
 def multi_counts():
@@ -2759,9 +2948,86 @@ def phase_prng_kernel(device):
                           bound_by=bound_by, ks_pvalue=float(ks.pvalue))
 
 
+def phase_ab(device, tag, against):
+    """Times kernels 1, 2, 3 (at each K of MULTI_KS), 4 (at MULTI_K), 9 and
+    10 (at E1) through the entry points that every version of the port has,
+    on the inputs of phases 3, 4, 14 and 21, and keeps their outputs in
+    build/ab_<tag>.pt. With ``against``, the outputs of the run tagged so
+    are compared with this run's: bitwise, or the largest difference. Run
+    by a copy of this script inside another checkout (its parent commit),
+    it times that checkout's kernels: one call times both, in turns."""
+    out, times = {}, {}
+    with torch.no_grad():
+        model = flagship_model(device)
+        args = kernel_inputs(device, model)
+        weights = LF.solve_weights(model)
+        n = args[3].shape[0]
+        gen = torch.Generator(device=device).manual_seed(SEED + 3)
+        gz = torch.randn((n, BATCH, LATENT), generator=gen, device=device)
+        gq = torch.randn((n, BATCH, 1), generator=gen, device=device)
+        out["kernel1"] = list(LF.fused_solve_forward_cuda(*args, weights))
+        times["kernel1"] = median_cuda_ms(
+            lambda: LF.fused_solve_forward_cuda(*args, weights), 20)
+        # Kernels 2 and 4 go back from the plain forward's states, the
+        # same in every version of the port.
+        zs = LF.fused_solve_forward_plain(*args, weights)[0]
+        bargs = (*args, weights, zs, gz, gq)
+        out["kernel2"] = _flat(LF.fused_solve_backward_cuda(*bargs))
+        times["kernel2"] = median_cuda_ms(
+            lambda: LF.fused_solve_backward_cuda(*bargs), 20)
+        for Kt in MULTI_KS:
+            a_t, w_t = multi_kernel_inputs(device, Kt)
+            got = LF.fused_solve_multi_forward_cuda(*a_t, w_t)
+            times[f"kernel3_K{Kt}"] = median_cuda_ms(
+                lambda: LF.fused_solve_multi_forward_cuda(*a_t, w_t), 10)
+            if Kt == MULTI_K:
+                out["kernel3"] = list(got)
+                g_t = (gz[None].expand(Kt, -1, -1, -1).contiguous(),
+                       gq[None].expand(Kt, -1, -1, -1).contiguous())
+                zs_t = LF.fused_solve_multi_forward_plain(*a_t, w_t)[0]
+                b_t = (*a_t, w_t, zs_t, *g_t)
+                out["kernel4"] = _flat(LF.fused_solve_multi_backward_cuda(
+                    *b_t))
+                times["kernel4"] = median_cuda_ms(
+                    lambda: LF.fused_solve_multi_backward_cuda(*b_t), 10)
+                del b_t, g_t
+            del a_t, w_t, got
+        method, B, d, (drift, diffusion) = tower_config(device, "E1")
+        spec, e_args = tower_kernel_args(device, method, drift, diffusion, B,
+                                         d, d, True, False, SEED + 12)
+        ys = FS.euler_solve_forward_cuda(*e_args)
+        gen = torch.Generator(device=device).manual_seed(SEED + 13)
+        gy = torch.randn(ys.shape, generator=gen, device=device)
+        out["kernel9"] = [ys]
+        times["kernel9"] = median_cuda_ms(
+            lambda: FS.euler_solve_forward_cuda(*e_args), 20)
+        out["kernel10"] = list(FS.euler_solve_backward_cuda(*e_args, ys, gy))
+        times["kernel10"] = median_cuda_ms(
+            lambda: FS.euler_solve_backward_cuda(*e_args, ys, gy), 20)
+    torch.cuda.synchronize()
+    print(f"ab {tag} (ms): " + json.dumps(times), flush=True)
+    path = Path(__file__).resolve().parent / "build"
+    path.mkdir(exist_ok=True)
+    torch.save({k: [t.cpu() for t in v] for k, v in out.items()},
+               path / f"ab_{tag}.pt")
+    if against:
+        other = torch.load(Path(against), map_location="cpu")
+        for k, tensors in out.items():
+            diffs = [float((a.cpu() - b).abs().max())
+                     for a, b in zip(tensors, other[k])]
+            same = all(torch.equal(a.cpu(), b)
+                       for a, b in zip(tensors, other[k]))
+            print(f"ab {tag} vs {against}: {k} "
+                  + ("bitwise equal" if same else
+                     "max abs differences " + ", ".join(f"{x:.3e}"
+                                                        for x in diffs)),
+                  flush=True)
+    return times
+
+
 GROUPS = ("latent", "gan", "tower", "logqp", "multi", "srk", "prng")
 # Run only when asked for by --only.
-EXTRA_GROUPS = ("tiles",)
+EXTRA_GROUPS = ("tiles", "ab")
 
 
 def main():
@@ -2769,9 +3035,13 @@ def main():
     ap.add_argument("--only", help="comma-separated phase groups to run, of "
                     f"{', '.join(GROUPS + EXTRA_GROUPS)} (for development: "
                     "prints the run's kernel records but no ok line); all "
-                    "but tiles by default")
-    groups = GROUPS if ap.parse_args().only is None else tuple(
-        ap.parse_args().only.split(","))
+                    "but tiles and ab by default")
+    ap.add_argument("--ab-tag", default="run", help="ab: the name under "
+                    "which build/ab_<tag>.pt keeps this run's outputs")
+    ap.add_argument("--ab-against", help="ab: an earlier run's outputs "
+                    "(a build/ab_<tag>.pt) to compare with")
+    opts = ap.parse_args()
+    groups = GROUPS if opts.only is None else tuple(opts.only.split(","))
     unknown = set(groups) - set(GROUPS + EXTRA_GROUPS)
     if unknown:
         raise SystemExit(f"unknown phase groups {sorted(unknown)}")
@@ -2894,6 +3164,8 @@ def main():
             library_ms=None, **kernel16))
     if "tiles" in groups:
         print(json.dumps({"sweep_tiles": phase_tiles(device)}), flush=True)
+    if "ab" in groups:
+        phase_ab(device, opts.ab_tag, opts.ab_against)
     torch.cuda.synchronize()
     for record in records:
         if record["launches"] < 1:

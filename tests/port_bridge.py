@@ -174,6 +174,53 @@ def unsplit_latent_backward(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
     return dz, dctx, dnoise, tuple(dw)
 
 
+def tower_backward(dout, cache, x, weights, acts):
+    """VJP of ``fused_solve.tower_forward``: returns d x and the weights'
+    gradients ``[dW0, db0, dW1, db1, ...]``, each summed over the rows."""
+    from torchsde_tpu_torch.ops import fused_solve as F
+
+    grads = [None] * (2 * len(weights))
+    d = dout
+    for i in range(len(weights) - 1, -1, -1):
+        pre, out = cache[i]
+        d = F.act_bwd(d, pre, out, acts[i])
+        inp = cache[i - 1][1] if i > 0 else x
+        grads[2 * i] = inp.T @ d
+        grads[2 * i + 1] = d.sum(0)
+        d = d @ weights[i][0].T
+    return d, grads
+
+
+def unsplit_euler_backward(y0, noise, t0s, dts, fw, gw, spec, ys, gy):
+    """Kernel 10's function as one loop of PyTorch operators, every weight
+    gradient summed step by step: the form of
+    ``fused_solve.euler_solve_backward_plain`` before its split into a
+    sweep and a contraction, kept as the reference the split is held to."""
+    from torchsde_tpu_torch.ops import fused_solve as F
+
+    fl, gl = F.unpack(fw, spec.drift), F.unpack(gw, spec.diffusion)
+    facts, gacts = F._acts(spec.drift), F._acts(spec.diffusion)
+    wt = 1 if spec.with_time else 0
+    dy = torch.zeros_like(y0)
+    dnoise = torch.empty_like(noise)
+    dfw = [torch.zeros_like(t) for wb in fl for t in wb]
+    dgw = [torch.zeros_like(t) for wb in gl for t in wb]
+    for n in reversed(range(noise.shape[0])):
+        y = y0 if n == 0 else ys[n - 1]
+        x = F.tower_input(t0s[n], y, spec.with_time)
+        _, fcache = F.tower_forward(x, fl, facts)
+        g, gcache = F.tower_forward(x, gl, gacts)
+        dy = dy + gy[n]
+        dnoise[n] = F._noise_vjp(dy, g, spec)
+        dxf, gf = tower_backward(dy * dts[n], fcache, x, fl, facts)
+        dxg, gg = tower_backward(F._noise_outer(dy, noise[n], spec), gcache,
+                                 x, gl, gacts)
+        for acc, d in zip(dfw + dgw, gf + gg):
+            acc += d
+        dy = dy + (dxf + dxg)[:, wt:]
+    return dy, dnoise, F._cat_grads(dfw), F._cat_grads(dgw)
+
+
 def unsplit_rh_backward(y0, f0, g0, noise, t1s, dts, fw, gw, spec, zs, gs,
                         gy):
     """Kernel 12's function as one loop of PyTorch operators, every weight
@@ -200,8 +247,8 @@ def unsplit_rh_backward(y0, f0, g0, noise, t1s, dts, fw, gw, spec, zs, gs,
         x = F.tower_input(t1s[n], zs[n], spec.with_time)
         _, fcache = F.tower_forward(x, fl, facts)
         _, gcache = F.tower_forward(x, gl, gacts)
-        dxf, gf = F.tower_backward(Af, fcache, x, fl, facts)
-        dxg, gg = F.tower_backward(Ag, gcache, x, gl, gacts)
+        dxf, gf = tower_backward(Af, fcache, x, fl, facts)
+        dxg, gg = tower_backward(Ag, gcache, x, gl, gacts)
         for acc, d in zip(dfw + dgw, gf + gg):
             acc += d
         Az = az + (dxf + dxg)[:, wt:]
@@ -243,7 +290,7 @@ def unsplit_logqp_backward(y0, noise, t0s, dts, fw, hw, gw, spec, ys, gy,
         dx = None
         for (w, acts), cache, dout, acc in zip(towers, (fcache, hcache,
                                                         gcache), douts, dws):
-            dxt, grads = F.tower_backward(dout, cache, x, w, acts)
+            dxt, grads = tower_backward(dout, cache, x, w, acts)
             for a, d in zip(acc, grads):
                 a += d
             dx = dxt if dx is None else dx + dxt

@@ -21,7 +21,7 @@ Run on a machine with a CUDA card from the repository's root:
 tests' conftest imports JAX, which a GPU machine need not have). Each test
 skips itself where CUDA is not available.
 
-Kernels 12 and 14 (each a sweep and a contraction of its scratch): against
+Kernels 10, 12 and 14 (each a sweep and a contraction of its scratch): against
 the unsplit loops of ``tests/port_bridge.py`` on the card, bitwise
 repeatable, one launch a backward, run phase by phase, and in windows of
 steps under a smaller workspace."""
@@ -35,7 +35,8 @@ import torchsde_tpu_torch.ops.gan_fused as GF
 import torchsde_tpu_torch.ops.latent_fused as LF
 from torchsde_tpu_torch.ops import _build
 from torchsde_tpu_torch.models.latent_sde import LatentSDE, latent_sde_loss
-from port_bridge import unsplit_logqp_backward, unsplit_rh_backward
+from port_bridge import (unsplit_euler_backward, unsplit_logqp_backward,
+                         unsplit_rh_backward)
 
 pytestmark = pytest.mark.gpu
 
@@ -177,6 +178,64 @@ def test_backward_phases_match_whole_call(cuda, multi):
         torch.testing.assert_close(
             got, plain, rtol=0,
             atol=max(1e-4, 3e-5 * float(plain.abs().max())))
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_backward_in_windows(cuda, multi, monkeypatch):
+    """With WORKSPACE_BYTES cut to a replica's workspace of two steps,
+    kernel 2 (or 4) sweeps the solve in windows through its public wrapper:
+    each replica's workspace stays within the bytes; dz0, dctx, dnoise and
+    the g nets' gradients (summed on chip, their flushes carried across
+    windows) are bitwise the one-window call's, the towers' within kernel
+    2's tolerance of it (their float32 sums are chunked by window) and of
+    the plain version in the same windows; two calls are bitwise equal;
+    each replica of kernel 4 is bitwise kernel 2; the phases apart refuse
+    windows."""
+    B, L, C, H, K = 13, 3, 5, 40, 2
+    with torch.no_grad():
+        if multi:
+            args, weights = _multi_args(cuda, K, B, L, C, H, 4, 1.0 / 17, 7)
+            zs, qs = LF.fused_solve_multi_forward_cuda(*args, weights)
+            wrapper = LF.fused_solve_multi_backward_cuda
+            plain = LF.fused_solve_multi_backward_plain
+        else:
+            args, weights = _solve_args(cuda, B, L, C, H, 4, 1.0 / 17, 7)
+            zs, qs = LF.fused_solve_forward_cuda(*args, weights)
+            wrapper = LF.fused_solve_backward_cuda
+            plain = LF.fused_solve_backward_plain
+        gz, gq = _cotangents(zs, qs, 8)
+        bargs = (*args, weights, zs, gz, gq)
+        n = args[3].shape[-3]
+        assert LF.bwd_window(B, L, C, H, n) == n
+        one, _ = LF._backward_cuda(*bargs, multi=multi)
+        lib = _build.load_library()
+        two_steps = lib.tsde_latent_fused_bwd_workspace(B, L, C, H, 2)
+        assert two_steps == LF.workspace_floats(B, L, C, H, 2)
+        monkeypatch.setattr(LF, "WORKSPACE_BYTES", 4 * two_steps)
+        assert LF.bwd_window(B, L, C, H, n) == 2
+        got = wrapper(*bargs)
+        again = wrapper(*bargs)
+        _, ws = LF._backward_cuda(*bargs, multi=multi)
+        want = plain(*bargs, window=2)
+        with pytest.raises(RuntimeError):
+            LF._backward_cuda(*bargs, multi=multi, stages=1)
+        if multi:
+            singles = [LF.fused_solve_backward_cuda(*a_k, w_k, zs[k], gz[k],
+                                                    gq[k])
+                       for k, (a_k, w_k) in enumerate(
+                           _replica(args, weights, k) for k in range(K))]
+    torch.cuda.synchronize()
+    assert 4 * ws.shape[1] <= LF.WORKSPACE_BYTES
+    flat, flat_one = _flat(got), _flat(one)
+    assert all(torch.equal(a, b) for a, b in zip(flat[:3] + flat[15:],
+                                                 flat_one[:3] + flat_one[15:]))
+    _assert_grads_close(got, one)
+    _assert_grads_close(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(flat, _flat(again)))
+    if multi:
+        for k, single in enumerate(singles):
+            assert all(torch.equal(a[k], b)
+                       for a, b in zip(flat, _flat(single)))
 
 
 def test_too_wide_for_shared_memory_raises(cuda):
@@ -750,16 +809,27 @@ def test_logqp_three_towers_too_big_raises(cuda):
     torch.cuda.synchronize()
 
 
-# Kernels 12 and 14, each a chain sweep and a contraction of its scratch:
-# (kind, case) of TOWER_CASES' reversible Heun solves and LOGQP_CASES.
-SPLIT_CASES = [("rh", c) for c in TOWER_CASES if c[0] != "euler"] + [
-    ("logqp", c) for c in LOGQP_CASES]
+# Kernels 10, 12 and 14, each a chain sweep and a contraction of its
+# scratch: (kind, case) of TOWER_CASES' Euler and reversible Heun solves
+# and LOGQP_CASES.
+SPLIT_CASES = [("euler" if c[0] == "euler" else "rh", c)
+               for c in TOWER_CASES] + [("logqp", c) for c in LOGQP_CASES]
+COUNTERS = {"euler": "euler_bwd_launches", "rh": "rh_bwd_launches",
+            "logqp": "logqp_bwd_launches"}
+SPLIT_IDS = [f"{k}-S{c[0] if k == 'logqp' else c[2]}"
+             for k, c in SPLIT_CASES]
 
 
 def _split_solve(device, kind, case, seed=0):
     """The backward kernel's arguments on a forward kernel's outputs, its
     launch function, the unsplit loop, the plain sweep, and the solve's
     batch and steps."""
+    if kind == "euler":
+        spec, args, gy = _tower_solve(device, case, seed)
+        ys = FS.euler_solve_forward_cuda(*args)
+        return ((*args, ys, gy), FS._euler_backward_cuda,
+                unsplit_euler_backward, FS.euler_solve_backward_sweep_plain,
+                args[0].shape[0], args[1].shape[0])
     if kind == "rh":
         spec, args, gy = _tower_solve(device, case, seed)
         _, zs, gs = FS.rh_solve_forward_cuda(*args)
@@ -773,17 +843,15 @@ def _split_solve(device, kind, case, seed=0):
             args[0].shape[0], args[1].shape[0])
 
 
-@pytest.mark.parametrize("kind,case", SPLIT_CASES,
-                         ids=[f"{k}-S{c[2] if k == 'rh' else c[0]}"
-                              for k, c in SPLIT_CASES])
+@pytest.mark.parametrize("kind,case", SPLIT_CASES, ids=SPLIT_IDS)
 def test_split_tower_sweeps_match_the_unsplit_loops(cuda, kind, case):
-    """Kernel 12 or 14 (one launch a backward: the sweep, the contraction
+    """Kernel 10, 12 or 14 (one launch a backward: the sweep, the contraction
     and the reduction) against the loop that sums every weight gradient
     step by step, on the card: max(1e-4, 1e-5 * scale) (with the JAX
     package's relative tolerance where the logqp diffusion takes both
     signs, as test_logqp_kernels_match_plain); two calls bitwise equal."""
     signed = kind == "logqp" and case[3][1][-1] in ("tanh", "linear")
-    counter = "rh_bwd_launches" if kind == "rh" else "logqp_bwd_launches"
+    counter = COUNTERS[kind]
     with torch.no_grad():
         bargs, launch, unsplit, _, _, _ = _split_solve(cuda, kind, case)
         before = getattr(FS, counter)
@@ -796,8 +864,9 @@ def test_split_tower_sweeps_match_the_unsplit_loops(cuda, kind, case):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("kind,case", [SPLIT_CASES[1], SPLIT_CASES[-1]],
-                         ids=["rh", "logqp"])
+@pytest.mark.parametrize("kind,case",
+                         [SPLIT_CASES[1], SPLIT_CASES[4], SPLIT_CASES[-1]],
+                         ids=["euler", "rh", "logqp"])
 def test_split_tower_phases_match_whole_call(cuda, kind, case):
     """The sweep alone, then the contraction alone on its workspace, give
     the whole call's outputs bitwise; the workspace holds the plain sweep's
@@ -810,12 +879,12 @@ def test_split_tower_phases_match_whole_call(cuda, kind, case):
         contracted, _ = launch(*bargs, stages=2, workspace=ws)
         scratch = sweep_plain(*bargs)[-1]
     torch.cuda.synchronize()
-    n_chain = len(whole) - (2 if kind == "rh" else 3)
+    n_chain = len(whole) - (3 if kind == "logqp" else 2)
     assert all(torch.equal(a, b) for a, b in zip(whole[:n_chain],
                                                  swept[:n_chain]))
     assert all(torch.equal(a, b) for a, b in zip(whole[n_chain:],
                                                  contracted[n_chain:]))
-    spec = bargs[8] if kind == "rh" else bargs[7]
+    spec = {"euler": bargs[6], "rh": bargs[8], "logqp": bargs[7]}[kind]
     for (vx, vd), (px, pd) in zip(FS.scratch_views(ws, spec, B, N),
                                   scratch):
         for v, t in zip(vx + vd, px + pd):
@@ -824,22 +893,21 @@ def test_split_tower_phases_match_whole_call(cuda, kind, case):
                 v, t, rtol=0, atol=max(1e-4, 1e-5 * float(t.abs().max())))
 
 
-@pytest.mark.parametrize("kind,case", SPLIT_CASES,
-                         ids=[f"{k}-S{c[2] if k == 'rh' else c[0]}"
-                              for k, c in SPLIT_CASES])
+@pytest.mark.parametrize("kind,case", SPLIT_CASES, ids=SPLIT_IDS)
 def test_split_tower_sweeps_in_windows(cuda, kind, case, monkeypatch):
-    """With WORKSPACE_BYTES cut to the workspace of two steps, kernel 12 or
-    14 sweeps the solve in windows through its public wrapper: the
+    """With WORKSPACE_BYTES cut to the workspace of two steps, kernel 10,
+    12 or 14 sweeps the solve in windows through its public wrapper: the
     workspace stays within the bytes; the chain's outputs are bitwise the
     one-window call's and the weight gradients within max(1e-4, 1e-5 *
     scale) of it (their float32 sums are chunked by window); two calls are
     bitwise equal, one launch each; the phases apart refuse windows."""
-    counter = "rh_bwd_launches" if kind == "rh" else "logqp_bwd_launches"
-    wrapper = (FS.rh_solve_backward_cuda if kind == "rh"
-               else FS.euler_logqp_solve_backward_cuda)
+    counter = COUNTERS[kind]
+    wrapper = {"euler": FS.euler_solve_backward_cuda,
+               "rh": FS.rh_solve_backward_cuda,
+               "logqp": FS.euler_logqp_solve_backward_cuda}[kind]
     with torch.no_grad():
         bargs, launch, _, _, B, N = _split_solve(cuda, kind, case, seed=3)
-        spec = bargs[8] if kind == "rh" else bargs[7]
+        spec = {"euler": bargs[6], "rh": bargs[8], "logqp": bargs[7]}[kind]
         assert FS.bwd_window(spec, B, N) == N
         one, _ = launch(*bargs)
         lib = _build.load_library()
@@ -857,7 +925,7 @@ def test_split_tower_sweeps_in_windows(cuda, kind, case, monkeypatch):
         with pytest.raises(RuntimeError):
             launch(*bargs, stages=1)
     torch.cuda.synchronize()
-    n_chain = len(one) - (2 if kind == "rh" else 3)
+    n_chain = len(one) - (3 if kind == "logqp" else 2)
     assert all(torch.equal(a, b) for a, b in zip(got[:n_chain],
                                                  one[:n_chain]))
     _assert_close(got[n_chain:], one[n_chain:], 1e-4, 1e-5)
@@ -974,6 +1042,33 @@ def test_multi_kernels_match_plain_and_single_kernels(cuda, K, B, L, C, H,
         assert torch.equal(zs[k], zs1) and torch.equal(qs[k], qs1)
         assert all(torch.equal(a[k], b)
                    for a, b in zip(_flat(got), _flat(back1)))
+
+
+def test_multi_forward_at_16_rows_is_kernel_1_bitwise(cuda):
+    """Past one wave of 8-row blocks (K x B / 8 over the card's SMs) kernel
+    3 takes 16 rows a block; each replica is still bitwise kernel 1 (8 rows
+    a block) on its own inputs, and within kernel 1's tolerance of the
+    plain version."""
+    K, B, L, C, H = 3, 360, 3, 5, 40
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    lib = _build.load_library()
+    if K * -(-B // 8) <= sms:
+        pytest.skip(f"{sms} SMs take K x B / 8 blocks in one wave")
+    assert lib.tsde_latent_fused_fwd_rows(K, B, L, C, H, cuda.index or 0) \
+        == 16
+    assert lib.tsde_latent_fused_fwd_rows(1, B, L, C, H, cuda.index or 0) \
+        == 8
+    with torch.no_grad():
+        args, weights = _multi_args(cuda, K, B, L, C, H, 4, 1.0 / 13, 12)
+        zs, qs = LF.fused_solve_multi_forward_cuda(*args, weights)
+        zs_p, qs_p = LF.fused_solve_multi_forward_plain(*args, weights)
+        singles = [LF.fused_solve_forward_cuda(*a_k, w_k) for a_k, w_k in
+                   (_replica(args, weights, k) for k in range(K))]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(zs, zs_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(qs, qs_p, rtol=0, atol=1e-5)
+    for k, (zs1, qs1) in enumerate(singles):
+        assert torch.equal(zs[k], zs1) and torch.equal(qs[k], qs1)
 
 
 def test_multi_backward_is_bitwise_repeatable(cuda):

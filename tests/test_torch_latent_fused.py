@@ -414,3 +414,76 @@ def test_scratch_views_follow_the_kernels_workspace_layout():
         assert v.shape == (2, n * B_, t.shape[-1])
         assert torch.equal(v[0], t.reshape(n * B_, -1))
         assert torch.equal(v[1], 2 * t.reshape(n * B_, -1))
+
+
+@pytest.mark.parametrize("saturated", [False, True])
+@pytest.mark.parametrize("window", [1, 2, None], ids=["w1", "w2", "all"])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES[:2])
+def test_windowed_sweep_and_contraction_compose_to_the_unsplit_backward_f64(
+        shape, window, saturated):
+    """The plain sweep and contraction swept window by window, last first,
+    each window's sweep taking what the one after it carried (dz, dctx,
+    dnoise, the g nets' sums) and each window's contraction added to the
+    towers' gradients, against the unsplit step-by-step loop: 1e-12 of
+    each tensor's scale in float64, at windows of 1, 2 and all steps."""
+    case = _split_case(13, shape, saturated)
+    n = case[3].shape[0]
+    got = TLF.fused_solve_backward_plain(*case, window=window)
+    want = unsplit_latent_backward(*case)
+    for g, w in zip((*got[:3], *got[3]), (*want[:3], *want[3])):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-12 * max(1.0, float(w.abs().max())))
+    if window is not None:
+        # The windows' scratch, stacked, is the one window's.
+        whole = TLF.fused_solve_backward_sweep_plain(*case)[4]
+        carry, parts = None, []
+        for hi in range(n, 0, -window):
+            *carry, scratch = TLF.fused_solve_backward_sweep_plain(
+                *case, steps=(max(hi - window, 0), hi), carry=carry)
+            parts.insert(0, scratch)
+        for t, *windows in zip(whole, *parts):
+            torch.testing.assert_close(torch.cat(windows), t, rtol=0,
+                                       atol=1e-12 * float(t.abs().max()))
+
+
+def _workspace_floats_as_the_kernel_lays_it_out(B, L, C, H, W):
+    """csrc/latent_fused_bwd.cu: sizes_of, written out: the scratch of W*B
+    rows of 8H + 2L floats, max(chunks of 512 rows, blocks of 8 rows)
+    partial rows of every weight's floats, each block's carry (dz, ginc,
+    the g nets' sums), then P float64 sums from an even float."""
+    P = sum(int(np.prod(s)) for s in (
+        (L + C, H), (H,), (H, H), (H,), (H, L), (L,), (L, H), (H,), (H, H),
+        (H,), (H, L), (L,), (L, 1, H), (L, H), (L, H, 1), (L, 1)))
+    blocks = -(-B // 8)
+    rows = max(-(-(W * B) // 512), blocks)
+    sums = W * B * (8 * H + 2 * L) + rows * P + blocks * (
+        L * 8 + 8 + 3 * L * H + L * 8)
+    sums += sums % 2
+    return sums + 2 * P
+
+
+@pytest.mark.parametrize("B_,L_,C_,H_,n,windows", [
+    (1024, 4, 64, 128, 128, 1),       # the flagship: one window
+    (1024, 4, 64, 128, 512, 2),       # dt 1/512
+    (1024, 4, 64, 128, 2048, 5),      # dt 1/2048
+    (4096, 8, 64, 256, 300, 6),       # a wider model
+    (1 << 20, 4, 64, 128, 3, 3),      # a step alone outgrows the bytes
+], ids=["flagship", "dt512", "dt2048", "wide", "huge-batch"])
+def test_bwd_window_bounds_the_workspace(B_, L_, C_, H_, n, windows):
+    """bwd_window: a solve whose workspace fits WORKSPACE_BYTES (2 GiB a
+    replica) runs in one window; a longer one in windows of the most steps
+    that fit, so each replica's workspace stays within the bytes however
+    many steps it takes; at least one step a window. It takes no K: each
+    replica's workspace is its own, so the window is the same at every
+    K."""
+    W = TLF.bwd_window(B_, L_, C_, H_, n)
+    assert -(-n // W) == windows
+    floats = _workspace_floats_as_the_kernel_lays_it_out(B_, L_, C_, H_, W)
+    assert TLF.workspace_floats(B_, L_, C_, H_, W) == floats
+    if W == 1:
+        return
+    assert 4 * floats <= TLF.WORKSPACE_BYTES
+    if W < n:
+        assert 4 * _workspace_floats_as_the_kernel_lays_it_out(
+            B_, L_, C_, H_, W + 1) > TLF.WORKSPACE_BYTES

@@ -233,6 +233,40 @@ def test_multi_split_twin_matches_the_unsplit_backward_f64(K_, saturated):
             atol=1e-12 * float(got[10].abs().max()))
 
 
+@pytest.mark.parametrize("saturated", [False, True])
+@pytest.mark.parametrize("window", [1, 2, None], ids=["w1", "w2", "all"])
+@pytest.mark.parametrize("K_", [1, 3])
+def test_multi_windowed_twin_matches_the_unsplit_backward_f64(K_, window,
+                                                               saturated):
+    """Kernel 4's plain version swept in windows of 1, 2 and all steps
+    (each replica's windows in turn, the chain carried between them, as
+    the kernel sweeps them with one window for every K): each replica
+    within 1e-12 of its scale of the unsplit step-by-step loop on its own
+    inputs (float64), and bitwise the single plain version in the same
+    windows."""
+    rng = np.random.default_rng(30 + K_)
+    (z0, ctx, noise, *weights), idx, dts = _random_multi(rng, K_=K_)
+    if saturated:
+        weights[15] = weights[15] - 25.0
+    zs, qs = TLF.fused_solve_multi_forward_plain(z0, ctx, idx, noise, dts,
+                                                 weights)
+    gz = torch.as_tensor(rng.standard_normal(zs.shape))
+    gq = torch.as_tensor(rng.standard_normal(qs.shape))
+    back = TLF.fused_solve_multi_backward_plain(z0, ctx, idx, noise, dts,
+                                                weights, zs, gz, gq,
+                                                window=window)
+    for k in range(K_):
+        args = (z0[k], ctx[k], idx, noise[k], dts, [w[k] for w in weights],
+                zs[k], gz[k], gq[k])
+        want = unsplit_latent_backward(*args)
+        one = TLF.fused_solve_backward_plain(*args, window=window)
+        for g, w, o in zip((*back[:3], *back[3]), (*want[:3], *want[3]),
+                           (*one[:3], *one[3])):
+            torch.testing.assert_close(
+                g[k], w, rtol=0, atol=1e-12 * max(1.0, float(w.abs().max())))
+            assert torch.equal(g[k], o)
+
+
 def test_multi_function_gradients_match_autograd_f64():
     """FusedLatentSolveMulti's backward (the plain multi sweep on the CPU)
     against autograd through the plain multi forward: rounding only."""

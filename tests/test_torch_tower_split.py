@@ -1,13 +1,15 @@
-"""Kernels 12 and 14's plain versions, split as the kernels are into a
+"""Kernels 10, 12 and 14's plain versions, split as the kernels are into a
 sweep that carries only the step-to-step chain and writes a scratch, and a
 contraction of that scratch into the towers' weight gradients
-(``ops/fused_solve.py``: ``rh_solve_backward_sweep_plain``,
+(``ops/fused_solve.py``: ``euler_solve_backward_sweep_plain``,
+``rh_solve_backward_sweep_plain``,
 ``euler_logqp_solve_backward_sweep_plain``, ``tower_contract_plain``,
 ``scratch_views``).
 
 The composed versions are held to the unsplit loops they replaced
-(``tests/port_bridge.py``: ``unsplit_rh_backward``,
-``unsplit_logqp_backward``), which the JAX package's tests already hold to
+(``tests/port_bridge.py``: ``unsplit_euler_backward``,
+``unsplit_rh_backward``, ``unsplit_logqp_backward``), which the JAX
+package's tests already hold to
 its Pallas kernels; the contraction to ``torch.einsum`` over steps and rows;
 and the workspace views to the layout the CUDA sweeps write. All in
 float64 at small shapes, inputs from numpy seeds."""
@@ -16,17 +18,18 @@ import numpy as np
 import pytest
 import torch
 
-from port_bridge import unsplit_logqp_backward, unsplit_rh_backward
+from port_bridge import (unsplit_euler_backward, unsplit_logqp_backward,
+                         unsplit_rh_backward)
 from torchsde_tpu_torch.ops import fused_solve as FS
 
 F64 = dict(dtype=torch.float64)
 
 # (kind, S, m, diag, with_time, drift (hidden, acts), diffusion (hidden,
-# acts), B, N): reversible Heun ("rh") on diagonal and general noise, with
-# and without a time column, depth 1 to 3, a width of 1, ragged batches;
-# the logqp solve ("logqp", the prior shaped like the drift) on a signed
-# diffusion and on one with a column that is zero throughout (the
-# |g| > 1e-7 mask).
+# acts), B, N): Euler ("euler") and reversible Heun ("rh") on diagonal and
+# general noise, with and without a time column, depth 1 to 3, a width of
+# 1, ragged batches; the logqp solve ("logqp", the prior shaped like the
+# drift) on a signed diffusion and on one with a column that is zero
+# throughout (the |g| > 1e-7 mask).
 CASES = [
     ("rh", 4, 4, True, False, ((16,), ("softplus", "linear")),
      ((16,), ("lipswish", "sigmoid")), 13, 3),
@@ -43,6 +46,13 @@ CASES = [
      4, 2),
     ("logqp", 4, 4, True, False, ((8,), ("softplus", "linear")),
      ((8,), ("softplus", "linear")), 5, 3),    # a zero diffusion column
+    ("euler", 4, 4, True, False, ((16,), ("softplus", "linear")),
+     ((16,), ("lipswish", "sigmoid")), 13, 3),
+    ("euler", 3, 2, False, True, ((9, 7), ("softplus", "tanh", "linear")),
+     ((5, 6), ("lipswish", "softplus", "sigmoid")), 9, 4),
+    ("euler", 1, 1, True, True, ((), ("linear",)), ((), ("sigmoid",)), 5, 2),
+    ("euler", 5, 3, False, False, ((1,), ("tanh", "linear")),
+     ((1,), ("softplus", "tanh")), 7, 3),
 ]
 IDS = [f"{c[0]}-S{c[1]}-m{c[2]}-t{int(c[4])}-depth{len(c[5][0]) + 1}-"
        f"B{c[7]}" for c in CASES]
@@ -70,6 +80,14 @@ def _case(case, seed):
     t = torch.as_tensor(np.linspace(0.0, 1.0, N + 1), **F64)
     dts = t[1:] - t[:-1]
     gy = torch.as_tensor(rng.standard_normal((N, B, S)), **F64)
+    if kind == "euler":
+        spec = FS.solve_spec(drift, diffusion, S, m, diag, wt)
+        args = (y0, noise, t[:-1], dts, drift.pack(), diffusion.pack(), spec)
+        ys = FS.euler_solve_forward_plain(*args)
+        y_pre = torch.cat([y0[None], ys[:-1]])
+        return ((*args, ys, gy), FS.euler_solve_backward_plain,
+                FS.euler_solve_backward_sweep_plain, unsplit_euler_backward,
+                spec, FS.first_inputs(t[:-1], y_pre, wt))
     if kind == "rh":
         spec = FS.solve_spec(drift, diffusion, S, m, diag, wt)
         fw, gw = drift.pack(), diffusion.pack()
@@ -107,9 +125,10 @@ def _close(got, want):
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_sweep_and_contraction_compose_to_the_unsplit_backward_f64(case):
-    """rh_solve_backward_plain and euler_logqp_solve_backward_plain, now a
-    plain sweep composed with the plain contraction, against the unsplit
-    loops that sum every weight gradient step by step: 1e-12 of each
+    """euler_solve_backward_plain, rh_solve_backward_plain and
+    euler_logqp_solve_backward_plain, each a plain sweep composed with the
+    plain contraction, against the unsplit loops that sum every weight
+    gradient step by step: 1e-12 of each
     tensor's scale in float64 (the two sum over rows and steps in another
     order)."""
     bargs, composed, _, unsplit, _, _ = _case(case, 10)
@@ -126,8 +145,11 @@ def test_sweep_and_contraction_compose_to_the_unsplit_backward_f64(case):
         assert float(b_last[0].abs()) > 0
 
 
-@pytest.mark.parametrize("case", [CASES[1], CASES[3], CASES[4], CASES[5]],
-                         ids=[IDS[1], IDS[3], IDS[4], IDS[5]])
+EINSUM = [1, 3, 4, 5, 8, 9, 11]
+
+
+@pytest.mark.parametrize("case", [CASES[i] for i in EINSUM],
+                         ids=[IDS[i] for i in EINSUM])
 def test_plain_contraction_is_einsum_over_rows_and_steps(case):
     """The plain contraction against torch.einsum on the sweep's own
     scratch, summed over steps n and rows b: each layer's X^T D (X the
@@ -151,7 +173,8 @@ def test_plain_contraction_is_einsum_over_rows_and_steps(case):
         _close(pack, torch.cat(want))
 
 
-@pytest.mark.parametrize("case", [CASES[1], CASES[5]], ids=[IDS[1], IDS[5]])
+@pytest.mark.parametrize("case", [CASES[1], CASES[5], CASES[9]],
+                         ids=[IDS[1], IDS[5], IDS[9]])
 def test_scratch_views_follow_the_kernels_workspace_layout(case):
     """scratch_views reads a workspace laid out as the CUDA sweeps write it
     (tower_solve_common.cuh: scratch_columns): every tower's layer inputs
@@ -179,8 +202,8 @@ def test_scratch_views_follow_the_kernels_workspace_layout(case):
 
 
 def _chain_workspace_floats(spec, B, W):
-    """The floats of kernel 12's or 14's workspace for windows of W steps,
-    as csrc/tower_solve_common.cuh: chain_workspace lays it out: the
+    """The floats of kernel 10's, 12's or 14's workspace for windows of W
+    steps, as csrc/tower_solve_common.cuh: chain_workspace lays it out: the
     scratch of W*B rows, a partial row of all packs a chunk of 512 rows,
     the carried cotangents of the batch's rows rounded up to eight, then
     the windows' float64 sums on an even float."""
@@ -212,8 +235,10 @@ def _wide_spec(S, hidden, prior):
     (128, 128, False, 1024, 1024, 2),      # R1 at 1,024 steps
     (32, 128, True, 4096, 128, 1),         # L1: one window
     (32, 128, True, 4096, 1000, 7),        # L1 at 1,000 steps
+    (32, 128, False, 4096, 128, 1),        # E1: one window
+    (32, 128, False, 4096, 512, 3),        # E1 at 512 steps
     (128, 128, False, 1 << 22, 4, 4),      # a step alone outgrows the bytes
-], ids=["R1", "R1-long", "L1", "L1-long", "huge-batch"])
+], ids=["R1", "R1-long", "L1", "L1-long", "E1", "E1-long", "huge-batch"])
 def test_bwd_window_bounds_the_workspace(S, hidden, prior, B, N, windows):
     """bwd_window: a solve whose workspace fits WORKSPACE_BYTES (2 GiB)
     runs in one window; a longer one in windows of the most steps that fit

@@ -73,22 +73,25 @@ def _bind(lib):
     fwd = lib.tsde_latent_fused_fwd
     fwd.argtypes = [P] * 23 + [I] * 7 + [P]
     fwd.restype = I
+    # The backward: the widths, the window, the device and the stream.
     bwd = lib.tsde_latent_fused_bwd
-    bwd.argtypes = [P] * 29 + [I] * 7 + [P]
+    bwd.argtypes = [P] * 29 + [I] * 8 + [P]
     bwd.restype = I
     # K stacked replicas: K before the widths.
     fwd_multi = lib.tsde_latent_fused_fwd_multi
     fwd_multi.argtypes = [P] * 23 + [I] * 8 + [P]
     fwd_multi.restype = I
     bwd_multi = lib.tsde_latent_fused_bwd_multi
-    bwd_multi.argtypes = [P] * 29 + [I] * 8 + [P]
+    bwd_multi.argtypes = [P] * 29 + [I] * 9 + [P]
     bwd_multi.restype = I
-    # Its phases one at a time: K, widths, stages, device, stream.
+    # Its phases one at a time: K, widths, window, stages, device, stream.
     bwd_stages = lib.tsde_latent_fused_bwd_stages
-    bwd_stages.argtypes = [P] * 29 + [I] * 9 + [P]
+    bwd_stages.argtypes = [P] * 29 + [I] * 10 + [P]
     bwd_stages.restype = I
     lib.tsde_latent_fused_bwd_workspace.argtypes = [I] * 5
     lib.tsde_latent_fused_bwd_workspace.restype = ctypes.c_size_t
+    lib.tsde_latent_fused_fwd_rows.argtypes = [I] * 6
+    lib.tsde_latent_fused_fwd_rows.restype = I
     for name in ("fwd", "bwd"):
         smem = getattr(lib, f"tsde_latent_fused_{name}_smem_bytes")
         smem.argtypes = [I, I, I]
@@ -112,9 +115,9 @@ def _bind(lib):
     lib.tsde_gan_bwd_partials.argtypes = [I, I, I]
     lib.tsde_gan_bwd_partials.restype = I
     # The TowerSpec solves: two layer tables (host, device), the tensors,
-    # then nf, ng, nh, S, m, diag, wt, stage, B, N, (kernels 12 and 14:
+    # then nf, ng, nh, S, m, diag, wt, stage, B, N, (kernels 10, 12 and 14:
     # window, stages,) device and the stream.
-    for name, tensors, ints in (("euler_fwd", 7, 11), ("euler_bwd", 12, 11),
+    for name, tensors, ints in (("euler_fwd", 7, 11), ("euler_bwd", 12, 13),
                                 ("rh_fwd", 11, 11), ("rh_bwd", 15, 13),
                                 ("euler_logqp_fwd", 9, 11),
                                 ("euler_logqp_bwd", 14, 13)):

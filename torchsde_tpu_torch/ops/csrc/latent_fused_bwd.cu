@@ -71,6 +71,17 @@
 // that owns a row touches it, in step order. Plain f32 FMAs, no fast math;
 // tensor cores are later work (float32 tolerances).
 //
+// Windows. The scratch grows with the steps (n x B x (8H + 2L) floats a
+// replica), so a long solve runs both phases over windows of steps, last
+// first (latent_fused.bwd_window: the most steps whose workspace fits 2 GiB
+// a replica, from one replica's shapes alone). Between windows each sweep
+// block keeps its chain in the workspace's carry: dz, the running sum of gq
+// and the g nets' on-chip sums (their partial rows stay where they are), so
+// the g nets' flushes fall on the same steps as in one window. Each
+// window's contraction adds its chunks' partial rows into float64 sums
+// (latent_bwd_reduce); the last writes the gradients. One window is the
+// whole solve, computed as before.
+//
 // Layouts. Matrices indexed [in][hidden] are kept with an odd row stride
 // (H | 1), so both the forward product (threads over the hidden unit) and
 // the input-cotangent product (threads over the input row) read shared
@@ -126,6 +137,12 @@ struct Layout {
 // gq [r].
 __host__ __device__ inline int io_floats(int L, int R) { return 2 * L * R + R; }
 
+// Floats of a sweep block's carried chain between windows: dz [l][r], ginc
+// [r], the g nets' on-chip sums (3LH) and gb2's [l][r].
+__host__ __device__ inline int carry_floats(int L, int H, int R) {
+  return 3 * L * H + (2 * L + 1) * R;
+}
+
 // The sweep's shared memory for NT threads and R rows a block.
 __host__ __device__ inline Layout make_layout(int L, int C, int H, int NT,
                                               int R) {
@@ -172,9 +189,15 @@ struct Args {
   float* ws;             // ([K,] workspace_floats): scratch, then partials
   size_t ws_stride;      // floats of one replica's workspace
   size_t parts;          // offset of the partials in a workspace
+  size_t carry;          // offset of the sweep blocks' carried chain
+  size_t sums;           // offset of the windows' float64 sums
   size_t off[NW];        // offset of each weight's gradient in a partial
   size_t P;
-  int B, L, C, H, T, n;
+  size_t z0_stride;      // replica stride of z0 (a window's first z_pre)
+  int B, L, C, H, T, n;  // n: the window's steps
+  int n_all, lo;         // the solve's steps; the window's first step
+  int carry_in, carry_out;   // read / leave the carry (not the last /
+                             // first window)
 };
 
 // Sums each of the R values over the warp's lanes.
@@ -259,8 +282,12 @@ __device__ __forceinline__ void prefetch_step(
   cp_async_commit();
 }
 
+// One block an SM (its shared memory): registers up to 255 a thread. At
+// the default bound ptxas held the sweep to 128 and spilled; 168 and no
+// spills took kernel 2 from 3.44 to 3.31 ms (NVIDIA H100 80GB HBM3, 700 W,
+// chip_smoke.py --only ab).
 template <int NT, int R>
-__global__ void __launch_bounds__(NT) latent_bwd_sweep(const Args a) {
+__global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args a) {
   constexpr int NTT = NT / 2;          // threads of a tower
   constexpr int NWT = NTT / 32;        // warps of a tower
   extern __shared__ __align__(16) float sm[];
@@ -271,17 +298,18 @@ __global__ void __launch_bounds__(NT) latent_bwd_sweep(const Args a) {
   const int tw = tid / NTT, tt = tid % NTT, wt = tt / 32;
   const int row0 = blockIdx.x * R;
   const int JP = jparts(NT, D, L, H), KK = D + L, jlen = (H + JP - 1) / JP;
-  const int IO = io_floats(L, R);
+  const int top = a.n_all - a.lo;      // steps from the window's start on
 
-  // This block's replica.
-  const size_t rep = replica(), steps = size_t(n) * B * L;
+  // This block's replica; the per-step arrays start at the window's first
+  // step, and z0 is the window's first pre-step state.
+  const size_t rep = replica(), steps = size_t(a.n_all) * B * L;
   const size_t M = size_t(n) * B;
-  const float* z0 = a.z0 + rep * B * L;
+  const float* z0 = a.z0 + rep * a.z0_stride;
   const float* ctx = a.ctx + rep * a.T * B * C;
   const float* noise = a.noise + rep * steps;
   const float* zs = a.zs + rep * steps;
   const float* gz = a.gz + rep * steps;
-  const float* gq = a.gq + rep * a.n * B;
+  const float* gq = a.gq + rep * a.n_all * B;
   float* dz0 = a.dz0 + rep * B * L;
   float* dctx = a.dctx + rep * a.T * B * C;
   float* dnoise = a.dnoise + rep * steps;
@@ -315,10 +343,17 @@ __global__ void __launch_bounds__(NT) latent_bwd_sweep(const Args a) {
     sm[lay.hw3t + l * ld + k] = wr[10][e];
   }
   copy_to_smem<NT>(sm + lay.gb2, wr[15], L);
-  for (int e = tid; e < L * R; e += NT) sm[lay.dz + e] = 0.f;
-  for (int e = tid; e < R; e += NT) sm[lay.ginc + e] = 0.f;
+  // The chain starts at zero, or where the window after this one left it:
+  // dz [l][r], ginc [r], then the g nets' sums gacc, in the block's carry.
+  const int CW = carry_floats(L, H, R);
+  float* carry = ws + a.carry + size_t(blockIdx.x) * CW;
   float* gacc = sm + lay.gacc;            // gw1, gb1, gw2 [l][k]; gb2 [l][r]
-  for (int e = tid; e < 3 * L * H + L * R; e += NT) gacc[e] = 0.f;
+  for (int e = tid; e < L * R; e += NT)
+    sm[lay.dz + e] = a.carry_in ? carry[e] : 0.f;
+  for (int e = tid; e < R; e += NT)
+    sm[lay.ginc + e] = a.carry_in ? carry[L * R + e] : 0.f;
+  for (int e = tid; e < 3 * L * H + L * R; e += NT)
+    gacc[e] = a.carry_in ? carry[(L + 1) * R + e] : 0.f;
 
   const float* fw1 = sm + lay.fw1;
   const float* fb1 = sm + lay.fb1;
@@ -545,12 +580,12 @@ __global__ void __launch_bounds__(NT) latent_bwd_sweep(const Args a) {
     if (s > 0)
       prefetch_step<NT, R>(s - 1, x, io, z0, zs, ctx, a.ctx_idx, noise, gz, gq,
                         row0, B, L, C, a.T);
-    // Every FLUSH steps the g nets' on-chip sums join the block's partial
-    // row, so no float32 sum runs over more than FLUSH x R terms (one over
-    // all 1,024 of a block drifted from float64 five times as far as the
-    // plain version's blocked sums).
-    if ((n - s) % FLUSH == 0 || s == 0) {
-      const bool first = n - s <= FLUSH;
+    // Every FLUSH steps of the solve the g nets' on-chip sums join the
+    // block's partial row, so no float32 sum runs over more than FLUSH x R
+    // terms (one over all 1,024 of a block drifted from float64 five times
+    // as far as the plain version's blocked sums).
+    if ((top - s) % FLUSH == 0 || (s == 0 && a.lo == 0)) {
+      const bool first = top - s <= FLUSH;
       for (int e = tid; e < 3 * L * H; e += NT) {
         float* p = part + a.off[12] + e;
         *p = first ? gacc[e] : *p + gacc[e];
@@ -637,6 +672,13 @@ __global__ void __launch_bounds__(NT) latent_bwd_sweep(const Args a) {
   }
   __syncthreads();
 
+  if (a.carry_out) {              // the window before this one goes on
+    for (int e = tid; e < L * R; e += NT) carry[e] = dzs[e];
+    for (int e = tid; e < R; e += NT) carry[L * R + e] = ginc[e];
+    for (int e = tid; e < 3 * L * H + L * R; e += NT)
+      carry[(L + 1) * R + e] = gacc[e];
+    return;
+  }
   for (int e = tid; e < R * L; e += NT) {
     const int r = e / L, l = e % L, row = row0 + r;
     if (row < B) dz0[size_t(row) * L + l] = dzs[l * R + r];
@@ -787,8 +829,9 @@ struct SkinnyJob {
 
 struct SkinnyArgs {
   SkinnyJob job[4];
-  const float* z0;
-  const float* zs;
+  const float* z0;       // the window's first z_pre
+  const float* zs;       // the window's zs
+  size_t z0_stride, zs_stride;   // their replica strides
   float* ws;
   size_t ws_stride, parts, P;
   int M, B, L, H;
@@ -805,8 +848,8 @@ __global__ void __launch_bounds__(CT) latent_bwd_skinny(const SkinnyArgs a) {
   const float* ws = a.ws + rep * a.ws_stride;
   const float* W = ws + jb.w;
   const float* S = ws + jb.s;
-  const float* z0 = a.z0 + rep * size_t(a.B) * L;
-  const float* zs = a.zs + rep * size_t(a.M) * L;
+  const float* z0 = a.z0 + rep * a.z0_stride;
+  const float* zs = a.zs + rep * a.zs_stride;
   float* out = a.ws + rep * a.ws_stride + a.parts + blockIdx.y * a.P + jb.out;
   for (int c = threadIdx.x; c < H + jb.ones_w; c += CT) {
     for (int l0 = 0; l0 < L; l0 += 4) {
@@ -849,14 +892,16 @@ __global__ void __launch_bounds__(CT) latent_bwd_skinny(const SkinnyArgs a) {
 }
 
 // dw[e] = the float64 sum of the partial rows that hold element e, in row
-// order: the contraction's chunks for the towers f and h (weights 0-11), the
-// sweep's blocks for the g nets; replica blockIdx.y sums its own workspace
-// into its own row of dw.
+// order: the contraction's chunks for the towers f and h (weights 0-11),
+// added to the earlier windows' sums (none for the `first`), the sweep's
+// blocks for the g nets (after the `last` window only); replica blockIdx.y
+// sums its own workspace into its own row of dw, or, before the last
+// window, the towers' elements into its float64 sums.
 struct ReduceArgs {
   size_t off[NW];
   const float* ws;
-  size_t ws_stride, parts, P;
-  int chunks, blocks;
+  size_t ws_stride, parts, sums, P;
+  int chunks, blocks, first, last;
   float* dw;
 };
 
@@ -865,33 +910,45 @@ __global__ void latent_bwd_reduce(const ReduceArgs a) {
   if (e >= a.P) return;
   int w = 0;
   while (w + 1 < NW && e >= a.off[w + 1]) ++w;
+  if (w >= 12 && !a.last) return;
+  const float* ws = a.ws + blockIdx.y * a.ws_stride;
+  double* sums = reinterpret_cast<double*>(const_cast<float*>(ws) + a.sums);
   const int rows = w < 12 ? a.chunks : a.blocks;
-  const float* p = a.ws + blockIdx.y * a.ws_stride + a.parts + e;
-  double acc = 0.0;
+  const float* p = ws + a.parts + e;
+  double acc = w < 12 && !a.first ? sums[e] : 0.0;
   for (int b = 0; b < rows; ++b) acc += p[size_t(b) * a.P];
-  a.dw[blockIdx.y * a.P + e] = static_cast<float>(acc);
+  if (a.last)
+    a.dw[blockIdx.y * a.P + e] = static_cast<float>(acc);
+  else
+    sums[e] = acc;
 }
 
-// Element counts of the workspace of one replica: the scratch, then
-// max(chunks, blocks) partial rows of P floats (blocks at SWEEP_ROWS rows a
-// block, the most of any launch<NT, R> with R >= SWEEP_ROWS).
+// Element counts of the workspace of one replica for windows of W steps:
+// the scratch of W x B rows, then max(chunks, blocks) partial rows of P
+// floats, the sweep blocks' carried chains and the float64 sums of the
+// towers' gradients (P doubles, on an even float). Blocks at SWEEP_ROWS
+// rows a block: the most of any launch<NT, R> with R >= SWEEP_ROWS, whose
+// carry is the largest.
 struct Sizes {
-  size_t M, P, parts, total;
-  int chunks, blocks;
+  size_t P, parts, carry, sums, total;
+  int blocks;
 };
 
-__host__ inline Sizes sizes_of(int B, int L, int C, int H, int n) {
+__host__ inline Sizes sizes_of(int B, int L, int C, int H, int W) {
   Sizes z;
   size_t w[NW];
   weight_sizes(L, C, H, w);
   z.P = 0;
   for (int i = 0; i < NW; ++i) z.P += w[i];
-  z.M = size_t(n) * B;
-  z.chunks = static_cast<int>((z.M + RC - 1) / RC);
+  const size_t M = size_t(W) * B;
+  const int chunks = static_cast<int>((M + RC - 1) / RC);
   z.blocks = (B + SWEEP_ROWS - 1) / SWEEP_ROWS;   // the most sweep blocks
-  z.parts = z.M * (NSCRATCH * size_t(H) + 2 * size_t(L));
-  const size_t rows = z.chunks > z.blocks ? z.chunks : z.blocks;
-  z.total = z.parts + rows * z.P;
+  z.parts = M * (NSCRATCH * size_t(H) + 2 * size_t(L));
+  const size_t rows = chunks > z.blocks ? chunks : z.blocks;
+  z.carry = z.parts + rows * z.P;
+  z.sums = (z.carry + size_t(z.blocks) * carry_floats(L, H, SWEEP_ROWS) + 1)
+           & ~size_t(1);
+  z.total = z.sums + 2 * z.P;
   return z;
 }
 
@@ -907,12 +964,13 @@ int launch_sweep(const Args& a, int K, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The contraction and the reduction, on a workspace the sweep has filled
-// with `blocks` partial rows.
-int launch_contraction(const Args& a, const Sizes& z, int blocks, int K,
-                       float* dw, cudaStream_t stream) {
+// The contraction and the reduction of a window (a: its arguments, as the
+// sweep's), on a workspace the sweep has filled with `blocks` partial rows.
+int launch_contraction(const Args& a, int blocks, int K, float* dw,
+                       cudaStream_t stream) {
   const int L = a.L, C = a.C, H = a.H;
-  const size_t MH = z.M * H;
+  const size_t M = size_t(a.n) * a.B, MH = M * H;
+  const int chunks = static_cast<int>((M + RC - 1) / RC);
   ContractArgs c;
   // fw1's context rows (weight rows L..D-1) and fb1, fw2 and fb2, hw2 and
   // hb2.
@@ -938,18 +996,18 @@ int launch_contraction(const Args& a, const Sizes& z, int blocks, int K,
   c.ctx_idx = a.ctx_idx;
   c.ws = a.ws;
   c.ws_stride = a.ws_stride;
-  c.parts = z.parts;
-  c.P = z.P;
-  c.M = static_cast<int>(z.M);
+  c.parts = a.parts;
+  c.P = a.P;
+  c.M = static_cast<int>(M);
   c.B = a.B;
   c.C = C;
   c.T = a.T;
-  latent_bwd_contract<<<dim3(tiles, z.chunks, K), CT, 0, stream>>>(c);
+  latent_bwd_contract<<<dim3(tiles, chunks, K), CT, 0, stream>>>(c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   SkinnyArgs s;
-  const size_t df = NSCRATCH * MH, dh = df + z.M * L;
+  const size_t df = NSCRATCH * MH, dh = df + M * L;
   const SkinnyJob jobs[4] = {
       {DP1F * MH, 0, a.off[0], 1, 0, 0, 0},    // fw1's z rows
       {DP1H * MH, 0, a.off[6], 1, 0, 1, 0},    // hw1 and hb1
@@ -958,15 +1016,17 @@ int launch_contraction(const Args& a, const Sizes& z, int blocks, int K,
   for (int q = 0; q < 4; ++q) s.job[q] = jobs[q];
   s.z0 = a.z0;
   s.zs = a.zs;
+  s.z0_stride = a.z0_stride;
+  s.zs_stride = size_t(a.n_all) * a.B * L;
   s.ws = a.ws;
   s.ws_stride = a.ws_stride;
-  s.parts = z.parts;
-  s.P = z.P;
-  s.M = static_cast<int>(z.M);
+  s.parts = a.parts;
+  s.P = a.P;
+  s.M = static_cast<int>(M);
   s.B = a.B;
   s.L = L;
   s.H = H;
-  latent_bwd_skinny<<<dim3(4, z.chunks, K), CT, 0, stream>>>(s);
+  latent_bwd_skinny<<<dim3(4, chunks, K), CT, 0, stream>>>(s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -974,27 +1034,34 @@ int launch_contraction(const Args& a, const Sizes& z, int blocks, int K,
   for (int i = 0; i < NW; ++i) r.off[i] = a.off[i];
   r.ws = a.ws;
   r.ws_stride = a.ws_stride;
-  r.parts = z.parts;
-  r.P = z.P;
-  r.chunks = z.chunks;
+  r.parts = a.parts;
+  r.sums = a.sums;
+  r.P = a.P;
+  r.chunks = chunks;
   r.blocks = blocks;
+  r.first = a.n_all - a.lo == a.n;    // the solve's last steps
+  r.last = a.lo == 0;
   r.dw = dw;
   constexpr int RT = 256;
-  latent_bwd_reduce<<<dim3(static_cast<unsigned>((z.P + RT - 1) / RT), K),
+  latent_bwd_reduce<<<dim3(static_cast<unsigned>((a.P + RT - 1) / RT), K),
                       RT, 0, stream>>>(r);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches, for K stacked solves (K = 1: a single solve), on `stream`: for
-// `stages` bit 0 the sweep at NT threads and R rows a block, for bit 1 the
-// contraction and the reduction on the workspace such a sweep filled;
-// returns cudaGetLastError() (0 on success).
+// Launches, for K stacked solves (K = 1: a single solve), on `stream`,
+// over windows of `window` steps, last first: for `stages` bit 0 the sweep
+// at NT threads and R rows a block, for bit 1 the contraction and the
+// reduction on the workspace such a sweep filled (both bits: any window;
+// one bit alone: one window, the whole solve); returns cudaGetLastError()
+// (0 on success).
 template <int NT, int R>
-int launch(Args a, int K, float* dw, int stages, int device,
+int launch(Args a, int K, float* dw, int stages, int window, int device,
            cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (K <= 0 || a.B <= 0 || a.n <= 0) return 0;
+  if (window <= 0 || (stages != 3 && window < a.n))
+    return static_cast<int>(cudaErrorInvalidValue);
   size_t sizes[NW];
   weight_sizes(a.L, a.C, a.H, sizes);
   size_t P = 0;
@@ -1002,16 +1069,43 @@ int launch(Args a, int K, float* dw, int stages, int device,
     a.off[i] = P;
     P += sizes[i];
   }
-  const Sizes z = sizes_of(a.B, a.L, a.C, a.H, a.n);
+  const int B = a.B, L = a.L, n = a.n;
+  const Sizes z = sizes_of(B, L, a.C, a.H, window < n ? window : n);
   a.P = z.P;
   a.ws_stride = z.total;
   a.parts = z.parts;
-  if (stages & 1) {
-    const int rc = launch_sweep<NT, R>(a, K, stream);
-    if (rc != 0) return rc;
+  a.carry = z.carry;
+  a.sums = z.sums;
+  a.n_all = n;
+  // Each window sees its own steps [lo, hi) as steps 0 to n - 1: the
+  // per-step arrays from step lo on, z_pre of step lo (z0 or zs[lo - 1])
+  // as its z0.
+  for (int hi = n; hi > 0; hi -= window) {
+    const int lo = hi > window ? hi - window : 0;
+    const size_t at = size_t(lo) * B * L;
+    Args wa = a;
+    wa.z0 = lo == 0 ? a.z0 : a.zs + at - size_t(B) * L;
+    wa.z0_stride = lo == 0 ? size_t(B) * L : size_t(n) * B * L;
+    wa.ctx_idx = a.ctx_idx + lo;
+    wa.noise = a.noise + at;
+    wa.dts = a.dts + lo;
+    wa.zs = a.zs + at;
+    wa.gz = a.gz + at;
+    wa.gq = a.gq + size_t(lo) * B;
+    wa.dnoise = a.dnoise + at;
+    wa.n = hi - lo;
+    wa.lo = lo;
+    wa.carry_in = hi < n;
+    wa.carry_out = lo > 0;
+    if (stages & 1) {
+      const int rc = launch_sweep<NT, R>(wa, K, stream);
+      if (rc != 0) return rc;
+    }
+    if (stages & 2) {
+      const int rc = launch_contraction(wa, (B + R - 1) / R, K, dw, stream);
+      if (rc != 0) return rc;
+    }
   }
-  if (stages & 2)
-    return launch_contraction(a, z, (a.B + R - 1) / R, K, dw, stream);
   return 0;
 }
 
@@ -1040,63 +1134,69 @@ size_t tsde_latent_fused_bwd_smem_bytes(int L, int C, int H) {
   return make_layout(L, C, H, SWEEP_THREADS, SWEEP_ROWS).total * sizeof(float);
 }
 
-// Floats of one replica's workspace: the scratch tensors (n x B x (8H + 2L))
-// and the partial rows.
-size_t tsde_latent_fused_bwd_workspace(int B, int L, int C, int H, int n) {
-  return tsde_latent_bwd::sizes_of(B, L, C, H, n).total;
+// Floats of one replica's workspace for windows of W steps: the scratch
+// tensors (W x B x (8H + 2L)), the partial rows, the sweep blocks' carried
+// chains and the float64 sums of the windows.
+size_t tsde_latent_fused_bwd_workspace(int B, int L, int C, int H, int W) {
+  return tsde_latent_bwd::sizes_of(B, L, C, H, W).total;
 }
 
-// Launches the sweep, the contraction and the reduction on `stream` and
-// returns cudaGetLastError() (0 on success). All pointers are device
-// pointers to contiguous float32 arrays, ctx_idx int32; weights in the order
-// of latent_fused.WEIGHT_NAMES. dctx must be zeroed; ws holds
-// tsde_latent_fused_bwd_workspace(B, L, C, H, n) floats and dw P floats, P
-// the weights' total element count; dw receives their gradients back to
-// back.
+// Launches, over windows of `window` steps, last first, the sweep, the
+// contraction and the reduction on `stream` and returns cudaGetLastError()
+// (0 on success). All pointers are device pointers to contiguous float32
+// arrays, ctx_idx int32; weights in the order of latent_fused.WEIGHT_NAMES.
+// dctx must be zeroed; ws holds tsde_latent_fused_bwd_workspace(B, L, C, H,
+// window) floats and dw P floats, P the weights' total element count; dw
+// receives their gradients back to back.
 int tsde_latent_fused_bwd(
     const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
     const float* dts, TSDE_WEIGHT_PARAMS, const float* zs, const float* gz,
     const float* gq, float* dz0, float* dctx, float* dnoise, float* ws,
-    float* dw, int B, int L, int C, int H, int T, int n, int device,
-    cudaStream_t stream) {
-  using namespace tsde_latent_bwd;
-  const float* w[NW] = TSDE_WEIGHTS;
-  const Args a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
-                           dctx, dnoise, ws, B, L, C, H, T, n);
-  return launch<SWEEP_THREADS, SWEEP_ROWS>(a, 1, dw, 3, device, stream);
-}
-
-// The same for K stacked replicas in one launch of each phase: every
-// per-replica array has a leading K axis (see tsde_latent_fused_fwd_multi),
-// ws holds K workspaces and dw K x P: each replica's weight gradients,
-// summed over its own chunks and blocks in order.
-int tsde_latent_fused_bwd_multi(
-    const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
-    const float* dts, TSDE_WEIGHT_PARAMS, const float* zs, const float* gz,
-    const float* gq, float* dz0, float* dctx, float* dnoise, float* ws,
-    float* dw, int K, int B, int L, int C, int H, int T, int n, int device,
-    cudaStream_t stream) {
-  using namespace tsde_latent_bwd;
-  const float* w[NW] = TSDE_WEIGHTS;
-  const Args a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
-                           dctx, dnoise, ws, B, L, C, H, T, n);
-  return launch<SWEEP_THREADS, SWEEP_ROWS>(a, K, dw, 3, device, stream);
-}
-
-// tsde_latent_fused_bwd_multi's phases one at a time, for measurement:
-// `stages` bit 0 the sweep, bit 1 the contraction and the reduction on the
-// workspace a sweep left.
-int tsde_latent_fused_bwd_stages(
-    const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
-    const float* dts, TSDE_WEIGHT_PARAMS, const float* zs, const float* gz,
-    const float* gq, float* dz0, float* dctx, float* dnoise, float* ws,
-    float* dw, int K, int B, int L, int C, int H, int T, int n, int stages,
+    float* dw, int B, int L, int C, int H, int T, int n, int window,
     int device, cudaStream_t stream) {
   using namespace tsde_latent_bwd;
   const float* w[NW] = TSDE_WEIGHTS;
   const Args a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
                            dctx, dnoise, ws, B, L, C, H, T, n);
-  return launch<SWEEP_THREADS, SWEEP_ROWS>(a, K, dw, stages, device, stream);
+  return launch<SWEEP_THREADS, SWEEP_ROWS>(a, 1, dw, 3, window, device,
+                                           stream);
+}
+
+// The same for K stacked replicas in one launch of each phase a window:
+// every per-replica array has a leading K axis (see
+// tsde_latent_fused_fwd_multi), ws holds K workspaces and dw K x P: each
+// replica's weight gradients, summed over its own chunks and blocks in
+// order. The window depends on one replica's shapes only, so replica k's
+// outputs are bitwise those of a single solve on its inputs.
+int tsde_latent_fused_bwd_multi(
+    const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
+    const float* dts, TSDE_WEIGHT_PARAMS, const float* zs, const float* gz,
+    const float* gq, float* dz0, float* dctx, float* dnoise, float* ws,
+    float* dw, int K, int B, int L, int C, int H, int T, int n, int window,
+    int device, cudaStream_t stream) {
+  using namespace tsde_latent_bwd;
+  const float* w[NW] = TSDE_WEIGHTS;
+  const Args a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
+                           dctx, dnoise, ws, B, L, C, H, T, n);
+  return launch<SWEEP_THREADS, SWEEP_ROWS>(a, K, dw, 3, window, device,
+                                           stream);
+}
+
+// tsde_latent_fused_bwd_multi's phases one at a time, for measurement:
+// `stages` bit 0 the sweep, bit 1 the contraction and the reduction on the
+// workspace a sweep left; either alone needs one window (window >= n).
+int tsde_latent_fused_bwd_stages(
+    const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
+    const float* dts, TSDE_WEIGHT_PARAMS, const float* zs, const float* gz,
+    const float* gq, float* dz0, float* dctx, float* dnoise, float* ws,
+    float* dw, int K, int B, int L, int C, int H, int T, int n, int window,
+    int stages, int device, cudaStream_t stream) {
+  using namespace tsde_latent_bwd;
+  const float* w[NW] = TSDE_WEIGHTS;
+  const Args a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
+                           dctx, dnoise, ws, B, L, C, H, T, n);
+  return launch<SWEEP_THREADS, SWEEP_ROWS>(a, K, dw, stages, window, device,
+                                           stream);
 }
 
 }  // extern "C"

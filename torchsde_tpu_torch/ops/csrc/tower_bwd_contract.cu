@@ -1,10 +1,12 @@
-// The contraction phase of the chain sweeps of TowerSpec SDEs (kernel 12,
-// tower_rh_bwd.cu, and kernel 14, tower_euler_logqp_bwd.cu), for Hopper
-// (sm_90a), bound to PyTorch through their plain C interfaces (ctypes).
+// The contraction phase of the chain sweeps of TowerSpec SDEs (kernel 10,
+// tower_euler_bwd.cu, kernel 12, tower_rh_bwd.cu, and kernel 14,
+// tower_euler_logqp_bwd.cu), for Hopper (sm_90a), bound to PyTorch through
+// their plain C interfaces (ctypes).
 //
 // Replaces the weight-gradient half of the Pallas TPU kernels
-// torchsde_tpu/ops/fused_solve.py:_rh_bwd_kernel and _euler_logqp_bwd_kernel,
-// which add every layer's weight gradients at every step. Here they are
+// torchsde_tpu/ops/fused_solve.py:_euler_bwd_kernel, _rh_bwd_kernel and
+// _euler_logqp_bwd_kernel, which add every layer's weight gradients at every
+// step. Here they are
 // products over all M = N x B rows of the scratch the sweep wrote
 // (tower_solve_common.cuh: scratch_columns): for every layer of every tower
 //   dW = X^T D,  db = the column sums of D,
@@ -359,7 +361,7 @@ int launch_contraction(const int* table_host, const int* table_dev, Dims d,
 
 extern "C" {
 
-// Floats of the workspace of kernel 12 or 14 (either: the same form) for
+// Floats of the workspace of kernel 10, 12 or 14 (the same form) for
 // windows of W steps over B rows (tower_solve_common.cuh:
 // chain_workspace).
 size_t tsde_tower_bwd_workspace(const int* table, int nf, int ng, int nh,

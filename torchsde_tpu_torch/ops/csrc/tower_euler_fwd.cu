@@ -107,8 +107,8 @@ size_t tsde_tower_smem_bytes(int kind, const int* table, int nf, int ng,
   return make_layout(table, d, kind, stage, nullptr).total * sizeof(float);
 }
 
-// Blocks of a solve over B rows: the backward kernels' partial buffers hold
-// one row of all weight gradients for each.
+// Blocks of a solve over B rows (fused_solve.staged_towers compares them
+// with the card's SMs).
 int tsde_tower_blocks(int B) { return blocks_for(B); }
 
 // Launches the solve on `stream` and returns cudaGetLastError() (0 on

@@ -24,15 +24,13 @@
 // the same layout with the same function (make_layout) to size the launch,
 // and tsde_tower_smem_bytes reports it.
 //
-// The reverse sweeps of reversible Heun and of the logqp solve (RH_BWD,
-// EULER_LOGQP_BWD) carry only the step-to-step chain: at each step they
-// write, for their rows, every layer's pre-activation cotangent and the
-// input of every layer after the first to a scratch workspace in device
-// memory (scratch_columns, towers_backward_chain), and a second phase
-// (tower_bwd_contract.cu) contracts those over all steps and rows into the
-// weight gradients; a long solve, a window of steps at a time
-// (chain_workspace). The Euler sweep (EULER_BWD) adds its weight gradients
-// to per-block partials at every step (towers_backward).
+// The reverse sweeps (EULER_BWD, RH_BWD, EULER_LOGQP_BWD) carry only the
+// step-to-step chain: at each step they write, for their rows, every
+// layer's pre-activation cotangent and the input of every layer after the
+// first to a scratch workspace in device memory (scratch_columns,
+// towers_backward_chain), and a second phase (tower_bwd_contract.cu)
+// contracts those over all steps and rows into the weight gradients; a
+// long solve, a window of steps at a time (chain_workspace).
 
 #pragma once
 
@@ -97,8 +95,8 @@ struct Layout {
   size_t buf[MAX_TOWERS][2];  // forward kernels: ping-pong activations
   size_t dout[MAX_TOWERS];    // backward kernels: output cotangents
   size_t carry[5];            // the kernel's own [unit][row] arrays
-  size_t cols;                // RH_BWD, EULER_LOGQP_BWD: each layer's
-                              // scratch columns (scratch_columns), as ints
+  size_t cols;                // backward kernels: each layer's scratch
+                              // columns (scratch_columns), as ints
   size_t total;
   size_t P;                   // floats of all packs, [fw | gw | hw]
   int toff[MAX_TOWERS];       // each pack's offset in [fw | gw | hw]
@@ -182,8 +180,7 @@ __host__ __device__ inline Layout make_layout(const int* table, Dims d,
     s.carry[3] = take(at, sG);                         // ag
     s.carry[4] = take(at, sS);                         // Az
   }
-  if (kind == RH_BWD || kind == EULER_LOGQP_BWD)
-    s.cols = take(at, 2 * size_t(d.nf + d.ng + d.nh));
+  if (bwd) s.cols = take(at, 2 * size_t(d.nf + d.ng + d.nh));
   s.total = at;
   return s;
 }
@@ -319,43 +316,6 @@ __device__ inline const float* tower_out(const Layer* plan, Dims d,
   return cache ? sm + plan[d.base(t) + top].post : sm + s.buf[t][top & 1];
 }
 
-// Adds v to element i of a block's partial; the sweep's first step stores
-// instead, so the buffer needs no zeroing.
-__device__ __forceinline__ void accum(float* p, size_t i, float v,
-                                      bool first) {
-  p[i] = first ? v : p[i] + v;
-}
-
-// Thread j's unit of a layer going back: dpre[j][r] from the output
-// cotangent (kept over pre), then the gradients of b[j] and of column j of
-// W, added to the tower's partial `part`.
-__device__ inline void layer_weight_grads(const Layer& L, const float* in,
-                                          float* pre, const float* post,
-                                          const float* dout, float* part,
-                                          bool first, int j) {
-  if (j >= L.out) return;
-  float dp[TB], pv[TB], ov[TB], dv[TB], v[TB];
-  load_rows(pv, pre + j * TB);
-  load_rows(ov, post + j * TB);
-  load_rows(dv, dout + j * TB);
-  float db = 0.f;
-#pragma unroll
-  for (int r = 0; r < TB; ++r) {
-    dp[r] = act_bwd(dv[r], pv[r], ov[r], L.act);
-    pre[j * TB + r] = dp[r];
-    db += dp[r];
-  }
-  accum(part, size_t(L.g) + size_t(L.in) * L.out + j, db, first);
-#pragma unroll 4
-  for (int k = 0; k < L.in; ++k) {
-    load_rows(v, in + k * TB);
-    float acc = 0.f;
-#pragma unroll
-    for (int r = 0; r < TB; ++r) acc = fmaf(v[r], dp[r], acc);
-    accum(part, size_t(L.g) + size_t(k) * L.out + j, acc, first);
-  }
-}
-
 // Thread k's input unit of a layer going back: dout[k][r] = dpre[:, r] .
 // W[k, :].
 __device__ inline void layer_input_grad(const Layer& L,
@@ -376,33 +336,6 @@ __device__ inline void layer_input_grad(const Layer& L,
   }
 #pragma unroll
   for (int r = 0; r < TB; ++r) dout[k * TB + r] = acc[r];
-}
-
-// Backpropagates each tower's output cotangent (in its dout buffer) through
-// the cache of towers_forward, the deepest layers first, adding every
-// weight gradient to the block's partial `part` ([fw | gw | hw]). Leaves the
-// cotangent of x ([k][r], in0 rows) in each tower's dout buffer. Two
-// barriers a layer depth; ends with a barrier.
-__device__ inline void towers_backward(const Layer* plan, Dims d,
-                                       const Layout& s,
-                                       const float* const* w, float* sm,
-                                       float* part, bool first) {
-  const int t = threadIdx.x / TW, j = threadIdx.x % TW;
-  const Layer* tp = plan + d.base(t);
-  float* part_t = part + s.toff[t];
-  float* dout = sm + s.dout[t];
-  for (int q = 0; q < s.maxl; ++q) {
-    const int i = d.nl(t) - 1 - q;
-    if (i >= 0) {
-      const Layer L = tp[i];
-      const float* in = i == 0 ? sm + s.x : sm + tp[i - 1].post;
-      layer_weight_grads(L, in, sm + L.pre, sm + L.post, dout, part_t, first,
-                         j);
-    }
-    __syncthreads();
-    if (i >= 0) layer_input_grad(tp[i], w[t], sm + tp[i].pre, dout, j);
-    __syncthreads();
-  }
 }
 
 // Whether a chain sweep writes layer i's input (the output of layer i - 1)
@@ -452,8 +385,9 @@ __host__ __device__ inline size_t contract_chunks(size_t M) {
 // rows (from float 0), the contraction's partial rows of P floats (all
 // packs) from `parts`, kernel 12's carried cotangents between windows
 // from `carry` (ay, az, af, ag: 3S + G floats a row of the batch rounded
-// up to TB rows; kernel 14 passes its dy in dy0), the float64 sums of the
-// windows' weight gradients (P doubles) from `sums`; `total` floats.
+// up to TB rows; kernels 10 and 14 pass their dy in dy0), the float64 sums
+// of the windows' weight gradients (P doubles) from `sums`; `total`
+// floats.
 struct ChainWorkspace {
   size_t parts, carry, sums, total;
 };
@@ -497,9 +431,8 @@ __device__ __forceinline__ void store_unit(const ScratchRows& sr, int col,
 }
 
 // Backpropagates each tower's output cotangent (in its dout buffer) through
-// the cache of towers_forward, the deepest layers first, as towers_backward
-// does but without the weight gradients: each layer's dpre (kept over pre)
-// and input go to the scratch instead. Leaves the cotangent of x ([k][r],
+// the cache of towers_forward, the deepest layers first, each layer's dpre
+// (kept over pre) and input to the scratch, not its weight gradients. Leaves the cotangent of x ([k][r],
 // in0 rows) in each tower's dout buffer. Two barriers a layer depth; ends
 // with a barrier.
 __device__ inline void towers_backward_chain(const Layer* plan, Dims d,
@@ -565,24 +498,6 @@ int launch_contraction(const int* table_host, const int* table_dev, Dims d,
                        float* dw, int B, int steps, bool first, bool last,
                        cudaStream_t stream);
 
-// out[e] = sum over blocks of partials[b][e], in block order: the weight
-// gradients, bitwise the same from call to call. The sum is compensated
-// (Neumaier): a plain float32 sum over 512 partials lands about three times
-// further from a float64 run than the plain version's matmuls do.
-static __global__ void reduce_partials(const float* partials, int blocks,
-                                       size_t P, float* out) {
-  const size_t e = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= P) return;
-  float sum = 0.f, comp = 0.f;
-  for (int b = 0; b < blocks; ++b) {
-    const float v = partials[size_t(b) * P + e];
-    const float t = sum + v;
-    comp += fabsf(sum) >= fabsf(v) ? (sum - t) + v : (v - t) + sum;
-    sum = t;
-  }
-  out[e] = sum + comp;
-}
-
 inline int blocks_for(int B) { return (B + TB - 1) / TB; }
 
 // Sets the kernel's dynamic shared memory for this layout; returns the CUDA
@@ -592,16 +507,6 @@ inline cudaError_t prepare(Kernel kernel, const Layout& s) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(s.total * sizeof(float)));
-}
-
-// Launches the sum of the sweep's partials into dw on `stream`.
-static inline cudaError_t launch_reduce(const float* partials, int blocks,
-                                        size_t P, float* dw,
-                                        cudaStream_t stream) {
-  constexpr int RT = 256;
-  reduce_partials<<<static_cast<unsigned>((P + RT - 1) / RT), RT, 0,
-                    stream>>>(partials, blocks, P, dw);
-  return cudaGetLastError();
 }
 
 }  // namespace tsde_tower

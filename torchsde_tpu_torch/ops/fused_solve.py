@@ -52,21 +52,21 @@ them in XLA.
 The kernels read each tower as one flat, unpadded float32 pack
 (:meth:`TowerSpec.pack`) and a small int32 layer table (each layer's input
 and output widths and activation code): the TPU kernels' 128-lane padding
-and 0/1 tile matrices are not ported. The reverse sweeps of reversible Heun
-and of the logqp solve (kernels 12 and 14) carry only the step-to-step
-chain and write every layer's pre-activation cotangent and input to a
-scratch workspace (:func:`scratch_views`); a contraction of it over all
-steps and rows (``csrc/tower_bwd_contract.cu``) gives the weight
-gradients. A CPU tensor goes to the kernels' plain versions
+and 0/1 tile matrices are not ported. The reverse sweeps (kernels 10, 12
+and 14) carry only the step-to-step chain and write every layer's
+pre-activation cotangent and input to a scratch workspace
+(:func:`scratch_views`); a contraction of it over all steps and rows
+(``csrc/tower_bwd_contract.cu``) gives the weight gradients. A CPU tensor
+goes to the kernels' plain versions
 (:func:`euler_solve_forward_plain`, :func:`euler_solve_backward_plain`,
 :func:`rh_solve_forward_plain`, :func:`rh_solve_backward_plain`,
 :func:`euler_logqp_solve_forward_plain`,
 :func:`euler_logqp_solve_backward_plain`: the same math as PyTorch
-operators, the last two split as their kernels are into a plain sweep and
-:func:`tower_contract_plain`); a CUDA tensor goes to the kernels, which
-raise rather than fall back. ``euler_launches``, ``euler_bwd_launches``,
-``rh_launches``, ``rh_bwd_launches``, ``logqp_launches`` and
-``logqp_bwd_launches`` count the kernels' launches.
+operators, the backward ones split as their kernels are into a plain
+sweep and :func:`tower_contract_plain`); a CUDA tensor goes to the
+kernels, which raise rather than fall back. ``euler_launches``,
+``euler_bwd_launches``, ``rh_launches``, ``rh_bwd_launches``,
+``logqp_launches`` and ``logqp_bwd_launches`` count the kernels' launches.
 """
 
 import ctypes
@@ -230,21 +230,6 @@ def tower_forward(x, weights, acts):
     return h, cache
 
 
-def tower_backward(dout, cache, x, weights, acts):
-    """VJP of :func:`tower_forward`: returns d x and the weights' gradients
-    ``[dW0, db0, dW1, db1, ...]``."""
-    grads = [None] * (2 * len(weights))
-    d = dout
-    for i in range(len(weights) - 1, -1, -1):
-        pre, out = cache[i]
-        d = act_bwd(d, pre, out, acts[i])
-        inp = cache[i - 1][1] if i > 0 else x
-        grads[2 * i] = inp.T @ d
-        grads[2 * i + 1] = d.sum(0)
-        d = d @ weights[i][0].T
-    return d, grads
-
-
 def unpack(flat, shapes):
     """Views ``[(W, b), ...]`` of a tower pack."""
     out, at = [], 0
@@ -322,34 +307,50 @@ def _cat_grads(grads):
 
 
 def euler_solve_backward_plain(y0, noise, t0s, dts, fw, gw, spec, ys, gy):
-    """Kernel 10 as a loop of PyTorch operators: the reverse sweep of the
-    JAX package's ``_euler_bwd_kernel``, which recomputes both towers at
-    each step's pre-step state.
+    """Kernel 10 as PyTorch operators: the reverse sweep of the JAX
+    package's ``_euler_bwd_kernel``, which recomputes both towers at each
+    step's pre-step state (y0 or ys[n-1]); composed, as the kernel is, of
+    :func:`euler_solve_backward_sweep_plain` and
+    :func:`tower_contract_plain`.
 
     Takes the forward's inputs, its ys and the cotangent gy (N,B,S) of ys.
     Returns dy0 (B,S), dnoise (N,B,m) and the packs' gradients dfw, dgw."""
+    dy0, dnoise, scratch = euler_solve_backward_sweep_plain(
+        y0, noise, t0s, dts, fw, gw, spec, ys, gy)
+    y_pre = torch.cat([y0[None], ys[:-1]])
+    dfw, dgw = tower_contract_plain(
+        spec, first_inputs(t0s, y_pre, spec.with_time), scratch)
+    return dy0, dnoise, dfw, dgw
+
+
+def euler_solve_backward_sweep_plain(y0, noise, t0s, dts, fw, gw, spec, ys,
+                                     gy):
+    """Kernel 10's sweep as a loop of PyTorch operators: for each step, last
+    to first, both towers recomputed at ``[t0_n? | y_n]`` and
+    backpropagated without their weight gradients, dy carried back.
+
+    Returns dy0, dnoise and the scratch: per tower (drift, diffusion) the
+    inputs of its layers after the first and every layer's pre-activation
+    cotangent, each (N,B,width) (:func:`tower_contract_plain`)."""
     fl, gl = unpack(fw, spec.drift), unpack(gw, spec.diffusion)
     facts, gacts = _acts(spec.drift), _acts(spec.diffusion)
     wt = 1 if spec.with_time else 0
     N = noise.shape[0]
     dy = torch.zeros_like(y0)
     dnoise = torch.empty_like(noise)
-    dfw = [torch.zeros_like(t) for wb in fl for t in wb]
-    dgw = [torch.zeros_like(t) for wb in gl for t in wb]
+    steps = _scratch_steps(spec, N)
     for n in reversed(range(N)):
-        y = y0 if n == 0 else ys[n - 1]
-        x = tower_input(t0s[n], y, spec.with_time)
+        x = tower_input(t0s[n], y0 if n == 0 else ys[n - 1], spec.with_time)
         _, fcache = tower_forward(x, fl, facts)
         g, gcache = tower_forward(x, gl, gacts)
         dy = dy + gy[n]
         dnoise[n] = _noise_vjp(dy, g, spec)
-        dxf, gf = tower_backward(dy * dts[n], fcache, x, fl, facts)
-        dxg, gg = tower_backward(_noise_outer(dy, noise[n], spec), gcache, x,
-                                 gl, gacts)
-        for acc, d in zip(dfw + dgw, gf + gg):
-            acc += d
+        dxf, *f_scratch = _tower_chain(dy * dts[n], fcache, fl, facts)
+        dxg, *g_scratch = _tower_chain(_noise_outer(dy, noise[n], spec),
+                                       gcache, gl, gacts)
+        _record(steps, n, (f_scratch, g_scratch))
         dy = dy + (dxf + dxg)[:, wt:]
-    return dy, dnoise, _cat_grads(dfw), _cat_grads(dgw)
+    return dy, dnoise, _stacked(steps)
 
 
 def rh_solve_forward_plain(y0, f0, g0, noise, t1s, dts, fw, gw, spec):
@@ -378,8 +379,8 @@ def rh_solve_forward_plain(y0, f0, g0, noise, t1s, dts, fw, gw, spec):
 
 
 def _tower_chain(dout, cache, weights, acts):
-    """The chain of :func:`tower_backward` without the weight gradients:
-    d x, the inputs of the layers after the first, and every layer's
+    """The VJP of :func:`tower_forward` without the weight gradients: d x,
+    the inputs of the layers after the first, and every layer's
     pre-activation cotangent (what a chain sweep writes to its scratch)."""
     dpres = [None] * len(weights)
     d = dout
@@ -429,7 +430,8 @@ def first_inputs(times, states, with_time):
 
 
 def tower_contract_plain(spec, x0, scratch):
-    """The contraction of kernels 12 and 14 (``csrc/tower_bwd_contract.cu``)
+    """The contraction of kernels 10, 12 and 14
+    (``csrc/tower_bwd_contract.cu``)
     as PyTorch operators: each tower's pack gradient, layer by layer
     ``X^T D`` and the column sums of ``D`` over all rows of a chain
     sweep's scratch (the structure :func:`scratch_views` gives: per tower,
@@ -705,10 +707,11 @@ def staged_towers(lib, kind, spec, B, device):
     if any does. A solve of one wave of blocks stages the first set that
     fits. Measured on an NVIDIA H100 80GB HBM3 (700 W, ``chip_smoke.py``)
     at batch 4096, d 32, hidden 128 (512 blocks): kernel 9 took 2.29 ms
-    with both towers staged and 1.48 ms with none, kernel 10 10.9 and
-    12.5-13.0 ms; kernel 13 about 5.1 ms with all three staged, 3.35-3.38
-    with drift and prior and 3.19-3.23 with none; kernel 14 about 18.0,
-    16.6-16.7 and 19.8 ms."""
+    with both towers staged and 1.48 ms with none; kernel 10 (its sweep
+    split from the contraction) 5.55 ms with both, 9.96-10.08 with one and
+    8.17 with none; kernel 13 about 5.1 ms with all three staged,
+    3.35-3.38 with drift and prior and 3.19-3.23 with none; kernel 14
+    about 18.0, 16.6-16.7 and 19.8 ms."""
     table = _host_table(spec)
     smem = {s: lib.tsde_tower_smem_bytes(kind, table, *_dims(spec), s)
             for s in STAGE_ORDER[3 if spec.prior else 2]}
@@ -770,41 +773,6 @@ def euler_solve_forward_cuda(y0, noise, t0s, dts, fw, gw, spec):
     return ys
 
 
-def _partials(lib, B, spec, device):
-    """Kernel 10's weight-gradient buffers: one float32 partial of all
-    packs per block of the sweep, and the flat output ``[dfw | dgw]`` the
-    second kernel sums them into."""
-    P = (pack_size(spec.drift) + pack_size(spec.diffusion)
-         + pack_size(spec.prior))
-    f32 = dict(dtype=torch.float32, device=device)
-    return (torch.empty((lib.tsde_tower_blocks(B), P), **f32),
-            torch.empty(P, **f32))
-
-
-def euler_solve_backward_cuda(y0, noise, t0s, dts, fw, gw, spec, ys, gy):
-    """Launch kernel 10 (the reverse sweep, then the sum of its per-block
-    weight-gradient partials) on the current stream; returns what
-    :func:`euler_solve_backward_plain` returns."""
-    global euler_bwd_launches
-    _require_cuda(y0)
-    B, N = _check_common(spec, y0, noise, t0s, dts, fw, gw)
-    for name, t in (("ys", ys), ("gy", gy)):
-        check_kernel_tensor(name, t, (N, B, spec.S), torch.float32,
-                            y0.device)
-    lib, table_dims = _library(EULER_BWD, spec, B, y0.device)
-    dy0, dnoise = torch.empty_like(y0), torch.empty_like(noise)
-    partials, dw = _partials(lib, B, spec, y0.device)
-    ptrs = [t.data_ptr() for t in (fw, gw, y0, noise, t0s, dts, ys, gy, dy0,
-                                   dnoise, partials, dw)]
-    rc = lib.tsde_tower_euler_bwd(*table_dims[:2], *ptrs, *table_dims[2:],
-                                  B, N, y0.device.index or 0,
-                                  _stream(y0.device))
-    _build.check_launch(lib, rc, "tower_euler_bwd")
-    euler_bwd_launches += 1
-    dfw, dgw = dw.split([fw.numel(), gw.numel()])
-    return dy0, dnoise, dfw, dgw
-
-
 def _check_rh(spec, y0, f0, g0, noise, t1s, dts, fw, gw):
     B, N = _check_common(spec, y0, noise, t1s, dts, fw, gw)
     check_kernel_tensor("f0", f0, (B, spec.S), torch.float32, y0.device)
@@ -833,7 +801,7 @@ def rh_solve_forward_cuda(y0, f0, g0, noise, t1s, dts, fw, gw, spec):
     return ys, zs, gs
 
 
-# The most bytes kernels 12 and 14's workspace may take. A solve whose
+# The most bytes kernels 10, 12 and 14's workspace may take. A solve whose
 # scratch would need more is swept in windows of steps (bwd_window): the
 # window, and with it the order of the weight gradients' sums, depends on
 # the shapes alone, so the gradients stay bitwise repeatable.
@@ -847,8 +815,8 @@ def _scratch_ld(width):
 
 
 def bwd_window(spec, B, N):
-    """The steps a window of kernel 12's or 14's backward covers: all N
-    where their workspace fits in :data:`WORKSPACE_BYTES`, else the most
+    """The steps a window of kernel 10's, 12's or 14's backward covers: all
+    N where their workspace fits in :data:`WORKSPACE_BYTES`, else the most
     that fit, and at least one. A window of W steps takes W*B rows of the
     scratch (:func:`scratch_views`), a partial row of all packs' floats
     for every 512 of them, and, whatever W, the carried cotangents
@@ -871,17 +839,17 @@ def bwd_window(spec, B, N):
 
 
 def _workspace(lib, spec, B, window, device):
-    """Kernels 12 and 14's workspace for windows of ``window`` steps: the
-    scratch tensors of :func:`scratch_views`, the contraction's partial
-    rows, the carried cotangents and the windows' sums."""
+    """Kernels 10, 12 and 14's workspace for windows of ``window`` steps:
+    the scratch tensors of :func:`scratch_views`, the contraction's
+    partial rows, the carried cotangents and the windows' sums."""
     floats = lib.tsde_tower_bwd_workspace(_host_table(spec), *_dims(spec), B,
                                           window)
     return torch.empty(floats, dtype=torch.float32, device=device)
 
 
 def scratch_views(workspace, spec, B, N):
-    """The scratch tensors of kernel 12's or 14's workspace, as the sweep
-    writes them and the contraction reads them: per tower (drift,
+    """The scratch tensors of kernel 10's, 12's or 14's workspace, as the
+    sweep writes them and the contraction reads them: per tower (drift,
     diffusion, prior) the inputs of its layers after the first and every
     layer's pre-activation cotangent, each an (N*B, width) view (rows of
     the window's N steps of B rows, step-major; after a backward of one
@@ -901,6 +869,47 @@ def scratch_views(workspace, spec, B, N):
     xs = [tuple(take(n_in) for n_in, _, _ in tower[1:]) for tower in shapes]
     ds = [tuple(take(n_out) for _, n_out, _ in tower) for tower in shapes]
     return tuple(zip(xs, ds))
+
+
+def euler_solve_backward_cuda(y0, noise, t0s, dts, fw, gw, spec, ys, gy):
+    """Launch kernel 10 (the reverse sweep, the contraction of its scratch
+    into the weight gradients and the sum of the contraction's partials) on
+    the current stream; returns what :func:`euler_solve_backward_plain`
+    returns. Its workspace holds the scratch, N x B x (the towers' widths
+    after the input) floats (1.21 GB at batch 4096, d 32, hidden 128, 128
+    steps), and the partial rows; a longer solve runs in windows of steps
+    (:func:`bwd_window`)."""
+    return _euler_backward_cuda(y0, noise, t0s, dts, fw, gw, spec, ys,
+                                gy)[0]
+
+
+def _euler_backward_cuda(y0, noise, t0s, dts, fw, gw, spec, ys, gy,
+                         stage=None, stages=3, workspace=None):
+    """One launch of kernel 10; returns its outputs and its workspace.
+    ``stage``, ``stages`` and ``workspace`` as :func:`_rh_backward_cuda`'s,
+    for measurement only."""
+    global euler_bwd_launches
+    _require_cuda(y0)
+    B, N = _check_common(spec, y0, noise, t0s, dts, fw, gw)
+    for name, t in (("ys", ys), ("gy", gy)):
+        check_kernel_tensor(name, t, (N, B, spec.S), torch.float32,
+                            y0.device)
+    lib, table_dims = _library(EULER_BWD, spec, B, y0.device, stage)
+    dy0, dnoise = torch.empty_like(y0), torch.empty_like(noise)
+    window = bwd_window(spec, B, N)
+    if workspace is None:
+        workspace = _workspace(lib, spec, B, window, y0.device)
+    dw = torch.empty(fw.numel() + gw.numel(), dtype=torch.float32,
+                     device=y0.device)
+    ptrs = [t.data_ptr() for t in (fw, gw, y0, noise, t0s, dts, ys, gy, dy0,
+                                   dnoise, workspace, dw)]
+    rc = lib.tsde_tower_euler_bwd(*table_dims[:2], *ptrs, *table_dims[2:],
+                                  B, N, window, stages, y0.device.index or 0,
+                                  _stream(y0.device))
+    _build.check_launch(lib, rc, "tower_euler_bwd")
+    euler_bwd_launches += 1
+    dfw, dgw = dw.split([fw.numel(), gw.numel()])
+    return (dy0, dnoise, dfw, dgw), workspace
 
 
 def rh_solve_backward_cuda(y0, f0, g0, noise, t1s, dts, fw, gw, spec, zs, gs,

@@ -28,7 +28,9 @@ which dispatches on the device of its tensors: a CPU tensor goes to the plain
 versions (:func:`fused_solve_forward_plain`,
 :func:`fused_solve_backward_plain`: the same math as loops of PyTorch
 operators), a CUDA tensor to the kernels, which raise rather than fall back.
-``launches`` and ``bwd_launches`` count the two kernels' launches.
+``launches`` and ``bwd_launches`` count the two kernels' launches. A long
+solve's backward runs in windows of steps (:func:`bwd_window`), so that its
+workspace stays within :data:`WORKSPACE_BYTES` a replica.
 
 K independent replicas (the counterpart of the JAX package's
 ``_fused_solve_multi``) solve in one launch of each kernel with the replica
@@ -137,46 +139,68 @@ SCRATCH_NAMES = ("a1f", "a1h", "a2f", "a2h", "dpre1f", "dpre1h", "dpre2f",
 
 
 def fused_solve_backward_plain(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
-                               gq):
+                               gq, window=None):
     """The backward kernel's function as PyTorch operators: the reverse
     sweep of the JAX package's ``_backward_core``, which recomputes each
     step's towers from its pre-step state, composed, as the kernel is, of
     :func:`fused_solve_backward_sweep_plain` and
-    :func:`fused_solve_backward_contract_plain`.
+    :func:`fused_solve_backward_contract_plain`, over windows of ``window``
+    steps, last first (all steps in one by default).
 
     Takes the forward's inputs, its states zs (n,B,L), and the cotangents gz
     (n,B,L) of zs and gq (n,B,1) of qs. Returns dz0 (B,L), dctx (T,B,C)
     (summed over the steps that read each context row), dnoise (n,B,L) and
     the weights' gradients in WEIGHT_NAMES order."""
-    dz0, dctx, dnoise, g_grads, scratch = fused_solve_backward_sweep_plain(
-        z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq)
-    tower_grads = fused_solve_backward_contract_plain(z0, ctx, ctx_idx, zs,
-                                                      scratch)
+    n = noise.shape[0]
+    window = n if window is None else window
+    carry, tower_grads = None, None
+    for hi in range(n, 0, -window):
+        lo = max(hi - window, 0)
+        *carry, scratch = fused_solve_backward_sweep_plain(
+            z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq, (lo, hi),
+            carry)
+        grads = fused_solve_backward_contract_plain(z0, ctx, ctx_idx, zs,
+                                                    scratch, lo)
+        tower_grads = grads if tower_grads is None else tuple(
+            a + b for a, b in zip(tower_grads, grads))
+    dz0, dctx, dnoise, g_grads = carry
     return dz0, dctx, dnoise, tower_grads + g_grads
 
 
 def fused_solve_backward_sweep_plain(z0, ctx, ctx_idx, noise, dts, weights,
-                                     zs, gz, gq):
+                                     zs, gz, gq, steps=None, carry=None):
     """The reverse sweep, kernel 2's first launch, as a loop of PyTorch
     operators: for each step, last to first, the towers recomputed, the
     cotangents carried back to dz, and what the later products need.
 
-    Returns dz0 (B,L), dctx (T,B,C), dnoise (n,B,L); the g nets' gradients
-    (gw1, gb1, gw2, gb2), which the sweep sums on chip; and the scratch
-    tensors in SCRATCH_NAMES order, whose products over all n*B rows give
-    the towers' gradients (:func:`fused_solve_backward_contract_plain`)."""
+    ``steps`` ``(lo, hi)`` sweeps the window of those steps alone (all by
+    default), and ``carry`` is what the sweep of the window after it
+    returned (its first four outputs; None before the last window).
+    Returns dz (B,L) before step lo (dz0 after the first window), dctx
+    (T,B,C) and dnoise (n,B,L) filled from step lo on, the g nets'
+    gradients (gw1, gb1, gw2, gb2) summed from step lo on, as the sweep
+    sums them on chip; and the window's scratch tensors in SCRATCH_NAMES
+    order, each (hi - lo, B, ·), whose products over all its rows give the
+    window's share of the towers' gradients
+    (:func:`fused_solve_backward_contract_plain`)."""
     fw, hw = weights[0:6], weights[6:12]
     gw1, gb1, gw2, gb2 = weights[12:16]
+    lo, hi = (0, noise.shape[0]) if steps is None else steps
     idx = ctx_idx.long()
     z_pre = torch.cat([z0[None], zs[:-1]])
     ginc = gq.flip(0).cumsum(0).flip(0)      # cotangent of each KL increment
-    dz = torch.zeros_like(z0)
-    dctx = torch.zeros_like(ctx)
-    dnoise = torch.empty_like(noise)
-    g_grads = [torch.zeros_like(w) for w in weights[12:16]]
-    steps = [[None] * noise.shape[0] for _ in SCRATCH_NAMES]
+    if carry is None:
+        dz = torch.zeros_like(z0)
+        dctx = torch.zeros_like(ctx)
+        dnoise = torch.empty_like(noise)
+        g_grads = [torch.zeros_like(w) for w in weights[12:16]]
+    else:
+        dz, dctx, dnoise, g_grads = carry
+        dctx, dnoise = dctx.clone(), dnoise.clone()
+        g_grads = [g.clone() for g in g_grads]
+    records = [[None] * (hi - lo) for _ in SCRATCH_NAMES]
     L = z0.shape[1]
-    for s in reversed(range(noise.shape[0])):
+    for s in reversed(range(lo, hi)):
         z, dt = z_pre[s], dts[s]
         x = torch.cat([z, ctx[idx[s]]], dim=1)
         a1f, a2f, f = _mlp3(x, *fw)
@@ -209,26 +233,27 @@ def fused_solve_backward_sweep_plain(z0, ctx, ctx_idx, noise, dts, weights,
                 dpre2g.sum(0)[:, None])
         for acc, d in zip(g_grads, sums):
             acc += d
-        for store, t in zip(steps, (a1f, a1h, a2f, a2h, dpre1f, dpre1h,
-                                    dpre2f, dpre2h, df, dh)):
-            store[s] = t
+        for store, t in zip(records, (a1f, a1h, a2f, a2h, dpre1f, dpre1h,
+                                      dpre2f, dpre2h, df, dh)):
+            store[s - lo] = t
         dzg = torch.einsum("lbh,lh->bl", dpre1g, gw1[:, 0, :])
         dz = dz + dx[:, :L] + dzh + dzg
         dctx.index_add_(0, idx[s:s + 1], dx[None, :, L:])
-    scratch = tuple(torch.stack(t) for t in steps)
+    scratch = tuple(torch.stack(t) for t in records)
     return dz, dctx, dnoise, tuple(g_grads), scratch
 
 
-def fused_solve_backward_contract_plain(z0, ctx, ctx_idx, zs, scratch):
+def fused_solve_backward_contract_plain(z0, ctx, ctx_idx, zs, scratch, lo=0):
     """The contraction, kernel 2's second launch, as PyTorch operators: the
     towers' gradients (WEIGHT_NAMES[:12]) as products and column sums over
-    all n*B rows of the sweep's scratch tensors (SCRATCH_NAMES order), with
-    the layer-1 inputs x = [z_pre | ctx[ctx_idx[s]]] gathered from z0, zs
-    and ctx rather than stored."""
+    all rows of the sweep's scratch tensors (SCRATCH_NAMES order) of the
+    steps from ``lo`` on, with the layer-1 inputs x = [z_pre |
+    ctx[ctx_idx[s]]] gathered from z0, zs and ctx rather than stored."""
     a1f, a1h, a2f, a2h, dpre1f, dpre1h, dpre2f, dpre2h, df, dh = (
         t.reshape(-1, t.shape[-1]) for t in scratch)
-    z_pre = torch.cat([z0[None], zs[:-1]])
-    x = torch.cat([z_pre, ctx[ctx_idx.long()]], dim=-1)
+    hi = lo + scratch[0].shape[0]
+    z_pre = torch.cat([z0[None], zs[:-1]])[lo:hi]
+    x = torch.cat([z_pre, ctx[ctx_idx[lo:hi].long()]], dim=-1)
     z_pre = z_pre.reshape(-1, z_pre.shape[-1])
     x = x.reshape(-1, x.shape[-1])
     return (x.T @ dpre1f, dpre1f.sum(0), a1f.T @ dpre2f, dpre2f.sum(0),
@@ -249,14 +274,14 @@ def fused_solve_multi_forward_plain(z0, ctx, ctx_idx, noise, dts, weights):
 
 
 def fused_solve_multi_backward_plain(z0, ctx, ctx_idx, noise, dts, weights,
-                                     zs, gz, gq):
+                                     zs, gz, gq, window=None):
     """Kernel 4's function as a loop of PyTorch operators:
-    :func:`fused_solve_backward_plain` on each replica, stacked. Returns dz0
-    (K,B,L), dctx (K,T,B,C), dnoise (K,n,B,L) and the weight gradients,
-    each (K, ...)."""
+    :func:`fused_solve_backward_plain` on each replica (over windows of
+    ``window`` steps), stacked. Returns dz0 (K,B,L), dctx (K,T,B,C), dnoise
+    (K,n,B,L) and the weight gradients, each (K, ...)."""
     outs = [fused_solve_backward_plain(z0[k], ctx[k], ctx_idx, noise[k], dts,
                                        [w[k] for w in weights], zs[k], gz[k],
-                                       gq[k])
+                                       gq[k], window)
             for k in range(z0.shape[0])]
     dz0, dctx, dnoise, dweights = zip(*outs)
     return (torch.stack(dz0), torch.stack(dctx), torch.stack(dnoise),
@@ -341,8 +366,9 @@ def fused_solve_backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
     partials) on the current stream; returns what
     :func:`fused_solve_backward_plain` returns. Its workspace holds the
     scratch tensors, n x B x (8H + 2L) floats, and the partials: 587 MB at
-    the flagship. Raises on tensors it does not take, on a failed build and on
-    a refused launch."""
+    the flagship; a longer solve runs in windows of steps
+    (:func:`bwd_window`). Raises on tensors it does not take, on a failed
+    build and on a refused launch."""
     global bwd_launches
     out = _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq,
                          multi=False)[0]
@@ -367,8 +393,9 @@ def fused_solve_multi_backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs,
     solves and the sum of each replica's partials, on the current stream;
     returns what :func:`fused_solve_multi_backward_plain` returns. The
     workspace takes K times a single solve's (2.3 GB at the flagship with
-    K 4). Raises on tensors it does not take, on a failed build and on a
-    refused launch."""
+    K 4; at most K x :data:`WORKSPACE_BYTES`, in the windows of
+    :func:`bwd_window`). Raises on tensors it does not take, on a failed
+    build and on a refused launch."""
     global multi_bwd_launches
     out = _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq,
                          multi=True)[0]
@@ -405,12 +432,13 @@ def _forward_cuda(z0, ctx, ctx_idx, noise, dts, weights, multi):
 def _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq, multi,
                    stages=3, workspace=None):
     """One launch of the backward kernel, single (kernel 2) or on K stacked
-    replicas (kernel 4): the sweep, the contraction and the reduction.
-    Returns its outputs and its workspace (K, floats a replica).
+    replicas (kernel 4): the sweep, the contraction and the reduction, over
+    windows of :func:`bwd_window` steps. Returns its outputs and its
+    workspace (K, floats a replica).
 
     For measurement only, ``stages`` runs the sweep alone (1) or the
     contraction and the reduction alone (2) on the ``workspace`` of an
-    earlier call."""
+    earlier call of one window."""
     if not z0.is_cuda:
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
                          f"{z0.device}")
@@ -428,10 +456,11 @@ def _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq, multi,
     dctx = torch.zeros_like(ctx)
     dnoise = torch.empty_like(noise)
     sizes = [w[0].numel() if multi else w.numel() for w in weights]
+    window = bwd_window(B, L, C, H, n)
     if workspace is None:
         workspace = torch.empty(
             (lead[0] if multi else 1,
-             lib.tsde_latent_fused_bwd_workspace(B, L, C, H, n)), **f32)
+             lib.tsde_latent_fused_bwd_workspace(B, L, C, H, window)), **f32)
     dw = torch.zeros(lead + (sum(sizes),), **f32)
     ptrs = [t.data_ptr() for t in (z0, ctx, ctx_idx, noise, dts, *weights,
                                    zs, gz, gq, dz0, dctx, dnoise, workspace,
@@ -441,20 +470,66 @@ def _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq, multi,
     name = "latent_fused_bwd_multi" if multi else "latent_fused_bwd"
     if stages == 3:
         rc = getattr(lib, f"tsde_{name}")(*ptrs, *lead, B, L, C, H, T, n,
-                                          device, stream)
+                                          window, device, stream)
     else:
         rc = lib.tsde_latent_fused_bwd_stages(
-            *ptrs, lead[0] if multi else 1, B, L, C, H, T, n, stages, device,
-            stream)
+            *ptrs, lead[0] if multi else 1, B, L, C, H, T, n, window, stages,
+            device, stream)
     _build.check_launch(lib, rc, name)
     dweights = tuple(d.reshape(w.shape)
                      for d, w in zip(dw.split(sizes, dim=-1), weights))
     return (dz0, dctx, dnoise, dweights), workspace
 
 
+# The most bytes a replica's workspace of kernels 2 and 4 may take. A solve
+# whose scratch would need more is swept in windows of steps (bwd_window):
+# the window, and with it the order of the weight gradients' sums, depends
+# on one replica's shapes alone, so the gradients stay bitwise repeatable
+# and replica k of kernel 4 bitwise kernel 2 on its inputs at any K.
+WORKSPACE_BYTES = 2 << 30
+_CHUNK_ROWS = 512     # csrc/latent_fused_bwd.cu: RC
+_SWEEP_ROWS = 8       # csrc/latent_fused_bwd.cu: SWEEP_ROWS
+
+
+def workspace_floats(B, L, C, H, W):
+    """Floats of one replica's workspace of kernels 2 and 4 for windows of
+    W steps (``csrc/latent_fused_bwd.cu: sizes_of``): the scratch of W*B
+    rows (8H + 2L floats each), a partial row of all weights for every 512
+    rows or every sweep block of 8 rows, whichever are more, the blocks'
+    carried chains (3LH + 8(2L + 1) floats each) and the windows' float64
+    sums of all weights, on an even float."""
+    D = L + C
+    P = D * H + 2 * H * H + 2 * H * L + L * H + 4 * H + 2 * L \
+        + 3 * L * H + L
+    blocks = -(-B // _SWEEP_ROWS)
+    parts = W * B * (8 * H + 2 * L)
+    carry = parts + max(-(-W * B // _CHUNK_ROWS), blocks) * P
+    sums = carry + blocks * (3 * L * H + (2 * L + 1) * _SWEEP_ROWS)
+    return sums + sums % 2 + 2 * P
+
+
+def bwd_window(B, L, C, H, n):
+    """The steps a window of kernel 2's or 4's backward covers: all n
+    where one replica's workspace fits in :data:`WORKSPACE_BYTES`, else the
+    most that fit, and at least one. It depends on one replica's shapes
+    only, never on K."""
+    limit = WORKSPACE_BYTES // 4
+    if workspace_floats(B, L, C, H, n) <= limit:
+        return n
+    lo, hi = 1, n                # the most that fit lies in [lo, hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if workspace_floats(B, L, C, H, mid) <= limit:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
 def scratch_views(workspace, B, L, H, n):
-    """The scratch tensors of a backward kernel's workspace (K, floats), in
-    SCRATCH_NAMES order, each (K, n*B, H) or (K, n*B, L)."""
+    """The scratch tensors of a backward kernel's workspace (K, floats) of
+    one window of n steps, in SCRATCH_NAMES order, each (K, n*B, H) or (K,
+    n*B, L)."""
     M = n * B
     K = workspace.shape[0]
     wide = workspace[:, :8 * M * H].reshape(K, 8, M, H).unbind(1)

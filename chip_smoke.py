@@ -93,9 +93,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     signs and passes near zero: every output and weight gradient against
     the plain versions and a float64 run (kernel 14 as kernel 12 in phase
     14), two sweeps bitwise equal, kernel 14 bitwise the same at every
-    staging that fits, median times and bounds, kernel 14 by phase beside
+    staging that fits, median times and bounds (kernel 13 in the design
+    fused_solve.forward_design picks), kernel 14 by phase beside
     torch.matmul on the same scratch, and the times of each way of staging
-    the towers; then kernel 14 on L1's over 512 steps, in windows;
+    the towers (kernel 13's in the 8-row streamed design); then kernel 14
+    on L1's over 512 steps, in windows;
 19. serve and train ``fused_sdeint_logqp`` at L1: three served solves per
     route (``dispatch="fused"`` and the ``sdeint`` route of
     ``tower_sde(prior=)``), whose states and KL increments must agree; the
@@ -135,13 +137,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only`` runs some phase groups (for
 development; no ok line); ``--only tiles``, which no other run includes,
-times kernels 2 and 4 whole and their sweep alone at 128, 256 and 512
-threads and at 16 rows a block, the blocks the sweep's was chosen over,
-and kernels 1 and 3 at 256 and 512 threads and 8 and 16 rows a block;
-``--only ab`` (phase_ab) times kernels 1-4, 9 and 10 through entry points
-every version of the port has and compares their outputs with another
-run's, so that a copy of this script in the parent commit's checkout
-times the parent in the same call. It imports nothing of JAX.
+times kernels 13 (L1, L2) and 11 (R1, general noise) at the designs of
+FWD_DESIGN_TILES beside the rule's, each bitwise the rule's, kernels 2
+and 4 whole and their sweep alone at 128, 256 and 512 threads and at 16
+rows a block, the blocks the sweep's was chosen over, and kernels 1 and 3
+at 256 and 512 threads and 8 and 16 rows a block; ``--only ab``
+(phase_ab) times kernels 1-4, 9-14 through entry points every version of
+the port has and compares their outputs with another run's, so that a
+copy of this script in the parent commit's checkout times the parent in
+the same call. It imports nothing of JAX.
 """
 
 import argparse
@@ -290,8 +294,9 @@ LOGQP_SMALL = (256, 8, 16)
 # (tests/test_fused_solve.py:226,261-262).
 LOGQP_SIGNED_RTOL = (3e-3, 5e-3)
 # The ways of staging the three towers in shared memory that phase 18
-# times (bit 0 the drift, 1 the diffusion, 2 the prior; fused_solve.
-# STAGE_ORDER): all three, drift and prior, none at L1; one or none at L2.
+# times kernel 14 at, and kernel 13 in its 8-row streamed design (bit 0
+# the drift, 1 the diffusion, 2 the prior; fused_solve.STAGE_ORDER): all
+# three, drift and prior, none at L1; one or none at L2.
 LOGQP_STAGINGS = {"L1": (7, 5, 0), "L2": (1, 0)}
 # The ways of staging R1's two towers that phase 14 times kernel 12 at
 # (both do not fit): the drift, the diffusion, none; and E1's, kernel 10's:
@@ -753,6 +758,78 @@ def phase_tiles(device):
             (*args, weights, zs, gz.expand(MULTI_K, -1, -1, -1).contiguous(),
              gq.expand(MULTI_K, -1, -1, -1).contiguous()), True, 5)
     return dict(kernel2=single, kernel4=multi, forward=forward)
+
+
+# The designs (cluster, rows, threads, staged towers) of kernels 13 and 11
+# that ``--only tiles`` times beside the rule's own (fused_solve.
+# forward_design): rows x threads of a block holding every tower, clusters
+# of a tower a block, and the 8-row design with the towers streamed from L2
+# as the earlier kernels ran it; kernel 11's kernel-1-style block (512
+# threads, 8 rows, the drift staged).
+FWD_DESIGN_TILES = {
+    "kernel13_L1": ((1, 16, 384, 7), (1, 16, 768, 7), (1, 32, 384, 7),
+                    (1, 32, 768, 7), (1, 8, 768, 7), (1, 8, 384, 0)),
+    "kernel13_L2": ((3, 32, 512, 7), (3, 32, 256, 7), (3, 16, 512, 7),
+                    (1, 8, 384, 1), (1, 8, 768, 1)),
+    "kernel11_R1": ((2, 16, 512, 3), (2, 16, 256, 3), (2, 16, 768, 3),
+                    (1, 8, 512, 1), (1, 8, 256, 1), (1, 16, 512, 1)),
+    "kernel11_general": ((1, 8, 512, 3), (1, 8, 256, 3), (1, 16, 512, 3),
+                         (1, 8, 768, 3), (1, 8, 256, 1)),
+    "kernel13_small": ((1, 8, 768, 7), (1, 8, 384, 7), (1, 16, 384, 7),
+                       (1, 8, 384, 0)),
+}
+
+
+def phase_fwd_tiles(device):
+    """Kernels 13 (L1, L2) and 11 (R1, general noise with time) at each
+    design of FWD_DESIGN_TILES: outputs bitwise those of the rule's design,
+    median device times (``--only tiles``)."""
+    out = {}
+    with torch.no_grad():
+        inputs = [(f"kernel11_{k}", FS.RH_FWD, FS.rh_solve_forward_cuda, a)
+                  for k, a in ab_rh_inputs(device)]
+        inputs += [(f"kernel13_{k}", FS.EULER_LOGQP_FWD,
+                    FS.euler_logqp_solve_forward_cuda, a)
+                   for k, a in ab_logqp_inputs(device)]
+        for label, kind, launch, args in inputs:
+            spec, B = args[-1], args[0].shape[0]
+            rule = FS.forward_design(kind, spec, B, FS._sm_count(device))
+            clusters = getattr(_build.load_library(), "tsde_tower_"
+                               + launch.__name__[:-len("_solve_forward_cuda")]
+                               + "_fwd_clusters")
+            resident = {}
+            for design in map(FS.FwdDesign._make, FWD_DESIGN_TILES[label]):
+                smem = FS.fwd_smem_bytes(kind, spec, design.stage,
+                                         design.rows, design.cluster)
+                if smem <= _build.MAX_SMEM_BYTES:
+                    resident[str(tuple(design))] = clusters(
+                        design.threads, smem, design.cluster)
+            print(f"{label}: clusters (or blocks) resident at once: "
+                  f"{resident}", flush=True)
+            want = launch(*args)
+            cells = {"rule": tuple(rule),
+                     str(tuple(rule)): median_cuda_ms(lambda: launch(*args),
+                                                      10)}
+            for design in map(FS.FwdDesign._make, FWD_DESIGN_TILES[label]):
+                if design == rule:
+                    continue
+                if FS.fwd_smem_bytes(kind, spec, design.stage, design.rows,
+                                     design.cluster) > _build.MAX_SMEM_BYTES:
+                    cells[str(tuple(design))] = "does not fit"
+                    continue
+                got = launch(*args, design=design)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise RuntimeError(f"{label} at {tuple(design)} differs "
+                                       f"from the rule's design")
+                cells[str(tuple(design))] = median_cuda_ms(
+                    lambda: launch(*args, design=design), 10)
+            print(f"{label} by (cluster, rows, threads, staged), ms; bitwise "
+                  f"the rule's {tuple(rule)}: "
+                  + ", ".join(f"{k}: {v}" for k, v in cells.items()
+                              if k != "rule"), flush=True)
+            out[label] = cells
+    return out
 
 
 def phase_kernel2(device):
@@ -1610,6 +1687,26 @@ def check_stagings(label, launch, bargs, kind, spec, want):
     print(f"{label}: stagings {stagings} agree bitwise", flush=True)
 
 
+def forward_layout(kind, spec, B, device):
+    """Kernel 11's or 13's design for this solve and its shared memory a
+    block, for the log."""
+    design = FS.forward_design(kind, spec, B, FS._sm_count(device))
+    smem = FS.fwd_smem_bytes(kind, spec, design.stage, design.rows,
+                             design.cluster)
+    return (f"{smem} bytes, clusters of {design.cluster}, {design.rows} "
+            f"rows, {design.threads} threads, towers staged {design.stage}")
+
+
+def staged_layout(kind, spec, B, device):
+    """Kernel 9's or a sweep's staging (fused_solve.staged_towers) and
+    shared memory a block, for the log."""
+    lib = _build.load_library()
+    stage = FS.staged_towers(lib, kind, spec, B, device)
+    smem = lib.tsde_tower_smem_bytes(kind, FS._host_table(spec),
+                                     *FS._dims(spec), stage)
+    return f"{smem} bytes, towers staged {stage}"
+
+
 def tower_contraction_by_matmul(views, x0):
     """Kernel 10's, 12's or 14's contraction as PyTorch calls on the same
     scratch
@@ -1686,14 +1783,9 @@ def run_tower_kernels(label, device, method, drift, diffusion, B, d, m, diag,
         kinds = (FS.RH_FWD, FS.RH_BWD)
         outs = ("ys", "zs", "gs")
         douts = ("dy0", "df0", "dg0", "dnoise", "dfw", "dgw")
-    lib = _build.load_library()
-    table = FS._host_table(spec)
-    layout = []
-    for kind in kinds:
-        stage = FS.staged_towers(lib, kind, spec, B, device)
-        smem = lib.tsde_tower_smem_bytes(kind, table, *FS._dims(spec),
-                                         stage)
-        layout.append(f"{smem} bytes, towers staged {stage}")
+    layout = [(staged_layout if euler else forward_layout)(kinds[0], spec, B,
+                                                           device),
+              staged_layout(kinds[1], spec, B, device)]
     print(f"{label}: batch {B}, d {d}, m {m}, {N} steps, "
           f"{'diagonal' if diag else 'general'} noise, time column {wt}; "
           f"shared memory a block: {layout[0]} (forward), {layout[1]} "
@@ -1906,14 +1998,8 @@ def run_logqp_kernels(label, device, towers, B, d, wt, seed, stagings=(),
     q_rtol, grad_rtol = LOGQP_SIGNED_RTOL if signed else (0.0, 0.0)
     spec, args = logqp_kernel_args(device, towers, B, d, wt, seed)
     N = args[1].shape[0]
-    lib = _build.load_library()
-    table = FS._host_table(spec)
-    layout = []
-    for kind in (FS.EULER_LOGQP_FWD, FS.EULER_LOGQP_BWD):
-        stage = FS.staged_towers(lib, kind, spec, B, device)
-        smem = lib.tsde_tower_smem_bytes(kind, table, *FS._dims(spec),
-                                         stage)
-        layout.append(f"{smem} bytes, towers staged {stage}")
+    layout = [forward_layout(FS.EULER_LOGQP_FWD, spec, B, device),
+              staged_layout(FS.EULER_LOGQP_BWD, spec, B, device)]
     print(f"{label}: batch {B}, d {d}, {N} steps, time column {wt}; shared "
           f"memory a block: {layout[0]} (forward), {layout[1]} (backward)",
           flush=True)
@@ -1972,10 +2058,13 @@ def run_logqp_kernels(label, device, towers, B, d, wt, seed, stagings=(),
         parts = chain_parts(f"{label} tower_euler_logqp_bwd", launch, bargs,
                             spec, B, N, FS.first_inputs(args[2], y_pre, wt),
                             args[4:7], 10)
+        # The forward at each staging in the 8-row streamed design (the
+        # earlier kernel's), beside the sweep at it.
         by_stage = {}
         for stage in stagings:
+            streamed = FS.FwdDesign(1, 8, 3 * FS.FWD_STREAM_THREADS, stage)
             by_stage[stage] = (
-                median_cuda_ms(lambda: fwd(*args, stage=stage), 10),
+                median_cuda_ms(lambda: fwd(*args, design=streamed), 10),
                 median_cuda_ms(lambda: bwd(*bargs, stage=stage), 5))
     print(f"{label} staging (towers staged: forward / backward ms): "
           + "; ".join(f"{st}: {f:.4f} / {b:.4f}"
@@ -2001,6 +2090,15 @@ def run_logqp_kernels(label, device, towers, B, d, wt, seed, stagings=(),
     return records
 
 
+def small_logqp_towers(device):
+    """The small solve's drift, prior and diffusion (LOGQP_SMALL)."""
+    B, d, hidden = LOGQP_SMALL
+    return (tower_spec(SEED + 22, [d + 1, hidden, d], TOWER_FACTS, device),
+            tower_spec(SEED + 23, [d + 1, hidden, d], TOWER_FACTS, device),
+            tower_spec(SEED + 24, [d + 1, hidden, d], ("lipswish", "tanh"),
+                       device, scale=0.8))
+
+
 def phase_logqp_kernels(device):
     """Kernels 13 and 14 at L1 and L2 (timed, with the stagings of
     LOGQP_STAGINGS) and on the small solve with a signed diffusion."""
@@ -2010,12 +2108,8 @@ def phase_logqp_kernels(device):
         records[name] = run_logqp_kernels(name, device, towers, B, d, False,
                                           SEED + 21, LOGQP_STAGINGS[name])
     B, d, hidden = LOGQP_SMALL
-    towers = (tower_spec(SEED + 22, [d + 1, hidden, d], TOWER_FACTS, device),
-              tower_spec(SEED + 23, [d + 1, hidden, d], TOWER_FACTS, device),
-              tower_spec(SEED + 24, [d + 1, hidden, d], ("lipswish", "tanh"),
-                         device, scale=0.8))
-    run_logqp_kernels("small", device, towers, B, d, True, SEED + 25,
-                      signed=True)
+    run_logqp_kernels("small", device, small_logqp_towers(device), B, d,
+                      True, SEED + 25, signed=True)
     records["L1"][1]["long_solve"] = check_long_solve("L1", device)
     return records
 
@@ -2948,10 +3042,40 @@ def phase_prng_kernel(device):
                           bound_by=bound_by, ks_pvalue=float(ks.pvalue))
 
 
+def ab_rh_inputs(device):
+    """Kernel 11's inputs at R1 and on general noise with a time column
+    (phase 14's), labelled."""
+    method, B, d, (drift, diffusion) = tower_config(device, "R1")
+    yield "R1", tower_kernel_args(device, method, drift, diffusion, B, d, d,
+                                  True, False, SEED + 12)[1]
+    B, d, m, hidden = TOWER_GENERAL
+    drift = tower_spec(SEED + 13, [d + 1, hidden, hidden, d],
+                       ("softplus", "tanh", "linear"), device)
+    diffusion = tower_spec(SEED + 14, [d + 1, hidden, hidden, d * m],
+                           ("lipswish", "softplus", "sigmoid"), device)
+    yield "general", tower_kernel_args(device, "reversible_heun", drift,
+                                       diffusion, B, d, m, False, True,
+                                       SEED + 15)[1]
+
+
+def ab_logqp_inputs(device):
+    """Kernel 13's inputs at L1, L2 and the small signed solve (phase
+    18's), labelled."""
+    for name in ("L1", "L2"):
+        _, B, d, towers = tower_config(device, name)
+        yield name, logqp_kernel_args(device, towers, B, d, False,
+                                      SEED + 21)[1]
+    yield "small", logqp_kernel_args(device, small_logqp_towers(device),
+                                     LOGQP_SMALL[0], LOGQP_SMALL[1], True,
+                                     SEED + 25)[1]
+
+
 def phase_ab(device, tag, against):
     """Times kernels 1, 2, 3 (at each K of MULTI_KS), 4 (at MULTI_K), 9 and
-    10 (at E1) through the entry points that every version of the port has,
-    on the inputs of phases 3, 4, 14 and 21, and keeps their outputs in
+    10 (at E1), 11 (at R1 and on general noise with time), 12 (at R1), 13
+    (at L1, L2 and the small signed solve) and 14 (at L1) through the entry
+    points that every version of the port has, on the inputs of phases 3,
+    4, 14, 18 and 21, and keeps their outputs in
     build/ab_<tag>.pt. With ``against``, the outputs of the run tagged so
     are compared with this run's: bitwise, or the largest difference. Run
     by a copy of this script inside another checkout (its parent commit),
@@ -3004,6 +3128,39 @@ def phase_ab(device, tag, against):
         out["kernel10"] = list(FS.euler_solve_backward_cuda(*e_args, ys, gy))
         times["kernel10"] = median_cuda_ms(
             lambda: FS.euler_solve_backward_cuda(*e_args, ys, gy), 20)
+        del e_args, ys, gy
+        for label, r_args in ab_rh_inputs(device):
+            out[f"kernel11_{label}"] = list(FS.rh_solve_forward_cuda(*r_args))
+            times[f"kernel11_{label}"] = median_cuda_ms(
+                lambda: FS.rh_solve_forward_cuda(*r_args), 20)
+            if label == "R1":
+                # Kernel 12 goes back from the twin's states, the same in
+                # every version of the port.
+                _, zs, gs = FS.rh_solve_forward_plain(*r_args)
+                gen = torch.Generator(device=device).manual_seed(SEED + 13)
+                gy = torch.randn(zs.shape, generator=gen, device=device)
+                b_r = (*r_args, zs, gs, gy)
+                out["kernel12"] = list(FS.rh_solve_backward_cuda(*b_r))
+                times["kernel12"] = median_cuda_ms(
+                    lambda: FS.rh_solve_backward_cuda(*b_r), 10)
+                del b_r, zs, gs, gy
+        for label, l_args in ab_logqp_inputs(device):
+            out[f"kernel13_{label}"] = list(
+                FS.euler_logqp_solve_forward_cuda(*l_args))
+            times[f"kernel13_{label}"] = median_cuda_ms(
+                lambda: FS.euler_logqp_solve_forward_cuda(*l_args), 20)
+            if label == "L1":
+                ys = FS.euler_logqp_solve_forward_plain(*l_args)[0]
+                gen = torch.Generator(device=device).manual_seed(SEED + 13)
+                gy = torch.randn(ys.shape, generator=gen, device=device)
+                ginc = torch.randn(ys.shape[:2] + (1,), generator=gen,
+                                   device=device)
+                b_l = (*l_args, ys, gy, ginc)
+                out["kernel14"] = list(
+                    FS.euler_logqp_solve_backward_cuda(*b_l))
+                times["kernel14"] = median_cuda_ms(
+                    lambda: FS.euler_logqp_solve_backward_cuda(*b_l), 10)
+                del b_l, ys, gy, ginc
     torch.cuda.synchronize()
     print(f"ab {tag} (ms): " + json.dumps(times), flush=True)
     path = Path(__file__).resolve().parent / "build"
@@ -3163,6 +3320,7 @@ def main():
             replaces="torchsde_tpu/ops/prng.py:37", launches=prng_launches,
             library_ms=None, **kernel16))
     if "tiles" in groups:
+        print(json.dumps({"fwd_tiles": phase_fwd_tiles(device)}), flush=True)
         print(json.dumps({"sweep_tiles": phase_tiles(device)}), flush=True)
     if "ab" in groups:
         phase_ab(device, opts.ab_tag, opts.ab_against)

@@ -478,3 +478,57 @@ def test_staging_rule(monkeypatch, kind, B, want):
     big = {**sizes, 7: 240000}                 # all three no longer fit
     assert TFS.staged_towers(_Layouts(big), TFS.EULER_LOGQP_BWD, spec,
                              1024, None) == 5
+
+
+def _logqp_spec(d, hidden, wt=False, depth=2):
+    sizes = [d + int(wt)] + [hidden] * (depth - 1) + [d]
+    tower = tuple(zip(sizes[:-1], sizes[1:],
+                      ("softplus",) * (depth - 1) + ("linear",)))
+    return TFS.SolveSpec(tower, tower, d, d, True, wt, tower)
+
+
+@pytest.mark.parametrize("B,d,hidden,wt,depth,want", [
+    # L1: the three towers (100 KB) in one block, 32 rows for one wave.
+    (4096, 32, 128, False, 2, (1, 32, 768, 7)),
+    # L2: three towers of 132 KB; a cluster of three at 32 rows would keep
+    # 96 SMs busy, fewer than 128 blocks of 8 rows, the drift staged.
+    (1024, 128, 128, False, 2, (1, 8, 384, 1)),
+    # The same widths past one wave: clusters of 32 rows.
+    (8192, 128, 128, False, 2, (3, 32, 512, 7)),
+    # The small signed solve: 32 blocks of 8 rows, 128 threads a tower.
+    (256, 8, 16, True, 2, (1, 8, 384, 7)),
+    # Nine layers of 128 a tower fit neither: 8 rows, all streamed.
+    (8, 128, 128, False, 9, (1, 8, 384, 0)),
+])
+def test_forward_design_rule_kernel_13(B, d, hidden, wt, depth, want):
+    """Kernel 13's design from the widths, the batch and 132 SMs: a
+    cluster only where it keeps as many SMs busy as 8-row blocks would; the
+    design fits a block's shared memory."""
+    spec = _logqp_spec(d, hidden, wt, depth)
+    design = TFS.forward_design(TFS.EULER_LOGQP_FWD, spec, B, 132)
+    assert tuple(design) == want
+    assert TFS.fwd_smem_bytes(TFS.EULER_LOGQP_FWD, spec, design.stage,
+                              design.rows, design.cluster) \
+        <= TFS._build.MAX_SMEM_BYTES
+
+
+def test_forward_design_rule_kernel_13_shared_memory_limits(monkeypatch):
+    """The layout's bytes at L1 and L2 (csrc/tower_fwd_tile.cuh:
+    make_tile_layout), and the designs a smaller limit leaves: L1 at 16
+    rows (two waves, 128 threads a tower) once 32 no longer fit; L2 in
+    clusters of 16 rows once 32 no longer fit (192 blocks), then in the
+    8-row design, all towers streamed, once no cluster's block and no tower
+    (188,416 bytes staged) fit."""
+    l1, l2 = _logqp_spec(32, 128), _logqp_spec(128, 128)
+    kind = TFS.EULER_LOGQP_FWD
+    assert [TFS.fwd_smem_bytes(kind, l1, 7, R, 1) for R in (8, 16, 32)] \
+        == [128320, 146880, 184000]
+    assert [TFS.fwd_smem_bytes(kind, l2, 7, R, 3) for R in (16, 32)] \
+        == [184832, 226816]
+    assert TFS.fwd_smem_bytes(kind, l2, 1, 8, 1) == 188416
+    monkeypatch.setattr(TFS._build, "MAX_SMEM_BYTES", 190000)
+    assert tuple(TFS.forward_design(kind, l2, 1024, 132)) == (3, 16, 512, 7)
+    monkeypatch.setattr(TFS._build, "MAX_SMEM_BYTES", 180000)
+    assert tuple(TFS.forward_design(kind, l2, 1024, 132)) == (1, 8, 384, 0)
+    monkeypatch.setattr(TFS._build, "MAX_SMEM_BYTES", 160000)
+    assert tuple(TFS.forward_design(kind, l1, 4096, 132)) == (1, 16, 384, 7)

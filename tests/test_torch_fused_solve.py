@@ -547,3 +547,69 @@ def test_layer_table():
     assert table.dtype == np.int32
     np.testing.assert_array_equal(
         table, [4, 16, 0, 16, 3, 4, 4, 16, 3, 16, 6, 2])
+
+
+def _tower_shapes(n_in, hidden, out, depth):
+    sizes = [n_in] + [hidden] * (depth - 1) + [out]
+    acts = ("softplus",) * (depth - 1) + ("linear",)
+    return tuple(zip(sizes[:-1], sizes[1:], acts))
+
+
+def _rh_spec(d, hidden, m=None, wt=False, depth=2):
+    """A reversible-Heun solve's spec: diagonal noise unless m is given."""
+    diag = m is None
+    n_in = d + int(wt)
+    return TFS.SolveSpec(_tower_shapes(n_in, hidden, d, depth),
+                         _tower_shapes(n_in, hidden, d if diag else d * m,
+                                       depth),
+                         d, d if diag else m, diag, wt)
+
+
+@pytest.mark.parametrize("B,d,m,wt,hidden,depth,sms,want", [
+    # R1: the towers (264 KB) fit no block; a cluster of two at 16 rows
+    # makes one wave (64 clusters, 128 blocks).
+    (1024, 128, None, False, 128, 2, 132, (2, 16, 512, 3)),
+    # Past one wave no rows make one; the most that fit a cluster's block.
+    (4096, 128, None, False, 128, 2, 132, (2, 16, 512, 3)),
+    # General noise with time, depth 3: both towers in one block, 8 rows,
+    # 128 threads a tower (64 units x 8 rows).
+    (1024, 16, 4, True, 64, 3, 132, (1, 8, 256, 3)),
+    # E1's widths: one block, 32 rows for one wave, 256 threads a tower
+    # (128 units x 32 rows); 16 rows and 128 threads on twice the SMs.
+    (4096, 32, None, False, 128, 2, 132, (1, 32, 512, 3)),
+    (4096, 32, None, False, 128, 2, 264, (1, 16, 256, 3)),
+    (40, 8, None, False, 16, 2, 132, (1, 8, 256, 3)),
+])
+def test_forward_design_rule_kernel_11(B, d, m, wt, hidden, depth, sms,
+                                       want):
+    """Kernel 11's design from the widths, the batch and the SMs: every
+    tower in one block where they fit, else a cluster of a block a tower,
+    at the fewest rows that fill the card in one wave, on 256 threads a
+    tower where the widest layer has 4,096 unit-rows, else 128; the design
+    fits a block's shared memory."""
+    spec = _rh_spec(d, hidden, m, wt, depth)
+    design = TFS.forward_design(TFS.RH_FWD, spec, B, sms)
+    assert tuple(design) == want
+    assert TFS.fwd_smem_bytes(TFS.RH_FWD, spec, design.stage, design.rows,
+                              design.cluster) <= TFS._build.MAX_SMEM_BYTES
+
+
+def test_forward_design_rule_kernel_11_shared_memory_limits(monkeypatch):
+    """The shared memory the rule reads is the C layout's
+    (csrc/tower_fwd_tile.cuh: make_tile_layout): at R1 two towers at 16
+    rows take 366,768 bytes in a block, one a cluster's block 214,192. Below
+    that limit R1 streams the diffusion from L2 in the 8-row design (the
+    drift staged), and past one wave of 8-row blocks stages none."""
+    spec = _rh_spec(128, 128)
+    assert TFS.fwd_smem_bytes(TFS.RH_FWD, spec, 3, 16, 1) == 366768
+    assert TFS.fwd_smem_bytes(TFS.RH_FWD, spec, 3, 16, 2) == 214192
+    assert TFS.fwd_smem_bytes(TFS.RH_FWD, spec, 3, 32, 2) == 279728
+    assert TFS.fwd_smem_bytes(TFS.RH_FWD, spec, 1, 8, 1) == 193712
+    monkeypatch.setattr(TFS._build, "MAX_SMEM_BYTES", 200000)
+    assert tuple(TFS.forward_design(TFS.RH_FWD, spec, 1024, 132)) == \
+        (1, 8, 256, 1)
+    assert tuple(TFS.forward_design(TFS.RH_FWD, spec, 2048, 132)) == \
+        (1, 8, 256, 0)
+    monkeypatch.setattr(TFS._build, "MAX_SMEM_BYTES", 40000)
+    with pytest.raises(ValueError, match="shared memory"):
+        TFS.forward_design(TFS.RH_FWD, spec, 1024, 132)

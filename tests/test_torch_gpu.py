@@ -24,7 +24,10 @@ skips itself where CUDA is not available.
 Kernels 10, 12 and 14 (each a sweep and a contraction of its scratch): against
 the unsplit loops of ``tests/port_bridge.py`` on the card, bitwise
 repeatable, one launch a backward, run phase by phase, and in windows of
-steps under a smaller workspace."""
+steps under a smaller workspace. Kernels 11 and 13 in their row-tile
+designs at R1, L1, L2, general noise and the small signed solve, every
+design bitwise the rule's, and the host's shared-memory layout against the
+C one; kernel 4 in groups of replicas under a smaller total workspace."""
 
 import numpy as np
 import pytest
@@ -1220,3 +1223,191 @@ def test_sdeint_srk_philox_launches_kernel_16_twice(cuda):
                          rng_impl="philox",
                          generator=torch.Generator(device=cuda).manual_seed(1))
     assert torch.equal(ys, again)
+
+
+# Kernels 11 and 13 in their row-tile designs (fused_solve.forward_design):
+# (kind, S, m, with_time, hidden widths, depth, B, N, signed diffusion) at
+# R1, on general noise with time (depth 3), L1, L2 and the small signed
+# solve, and at batches that are not a multiple of the rows a block (or
+# cluster) or smaller than them.
+FWD_TILE_CASES = [
+    ("rh", 128, 128, False, 128, 2, 1024, 16, False),        # R1: cluster
+    ("rh", 128, 128, False, 128, 2, 1000, 8, False),         # ragged
+    ("rh", 128, 128, False, 128, 2, 5, 8, False),            # < 16 rows
+    ("rh", 16, 4, True, 64, 3, 1024, 16, False),             # general
+    ("logqp", 32, 32, False, 128, 2, 4096, 16, False),       # L1
+    ("logqp", 32, 32, False, 128, 2, 4001, 8, False),        # ragged
+    ("logqp", 128, 128, False, 128, 2, 1024, 8, False),      # L2: streamed
+    ("logqp", 128, 128, False, 128, 2, 37, 8, False),        # cluster, < R
+    ("logqp", 8, 8, True, 16, 2, 256, 32, True),             # small
+]
+FWD_TILE_IDS = [f"{c[0]}-S{c[1]}-m{c[2]}-B{c[6]}" for c in FWD_TILE_CASES]
+
+
+def _fwd_tile_solve(device, case, seed=0):
+    """The kind, spec and forward kernel's inputs of a FWD_TILE_CASES case;
+    weights normal x 0.3/sqrt(fan_in) (0.8 for a signed diffusion ending in
+    tanh)."""
+    kind, S, m, wt, hidden, depth, B, N, signed = case
+    rng = np.random.default_rng(seed)
+    n_in = S + (1 if wt else 0)
+    hs = [hidden] * (depth - 1)
+    facts = ("softplus", "tanh")[:depth - 1] + ("linear",)
+    gacts = (("lipswish", "tanh") if signed else
+             ("lipswish", "softplus")[:depth - 1] + ("sigmoid",))
+    diag = m == S
+    G = S if diag else S * m
+    drift = _tower(rng, [n_in, *hs, S], facts, 0.3, device)
+    diffusion = _tower(rng, [n_in, *hs, G], gacts, 0.8 if signed else 0.3,
+                       device)
+    f32 = dict(dtype=torch.float32, device=device)
+    y0 = torch.as_tensor(rng.standard_normal((B, S)), **f32)
+    noise = torch.as_tensor(rng.standard_normal((N, B, m)) / np.sqrt(N),
+                            **f32)
+    t = torch.as_tensor(np.linspace(0.0, 1.0, N + 1), **f32)
+    dts = t[1:] - t[:-1]
+    if kind == "logqp":
+        prior = _tower(rng, [n_in, *hs, S], facts, 0.3, device)
+        spec = FS.solve_spec(drift, diffusion, S, S, True, wt, prior=prior)
+        return FS.EULER_LOGQP_FWD, spec, (y0, noise, t[:-1], dts,
+                                          drift.pack(), prior.pack(),
+                                          diffusion.pack(), spec)
+    spec = FS.solve_spec(drift, diffusion, S, m, diag, wt)
+    x0 = FS.tower_input(t[0], y0, wt)
+    fw, gw = drift.pack(), diffusion.pack()
+    f0 = FS.tower_forward(x0, FS.unpack(fw, spec.drift), drift.acts)[0]
+    g0 = FS.tower_forward(x0, FS.unpack(gw, spec.diffusion),
+                          diffusion.acts)[0]
+    return FS.RH_FWD, spec, (y0, f0, g0, noise, t[1:], dts, fw, gw, spec)
+
+
+def _fwd_launch(kind):
+    if kind == FS.RH_FWD:
+        return FS.rh_solve_forward_cuda, FS.rh_solve_forward_plain
+    return FS.euler_logqp_solve_forward_cuda, \
+        FS.euler_logqp_solve_forward_plain
+
+
+@pytest.mark.parametrize("case", FWD_TILE_CASES, ids=FWD_TILE_IDS)
+def test_forward_tile_kernels_match_plain(cuda, case):
+    """Kernels 11 and 13 in the rule's design against their twins: values
+    within max(2e-5, 4e-6 * scale), each launched once, and at most twice
+    the twin's distance from float64 plus 2e-5 (chip_smoke.py's rule; on a
+    signed diffusion plus three times the twin's distance from float64,
+    and 3e-3 of scale from float64, the JAX package's rtol)."""
+    with torch.no_grad():
+        kind, spec, args = _fwd_tile_solve(cuda, case)
+        launch, plain = _fwd_launch(kind)
+        counts = (FS.rh_launches, FS.logqp_launches)
+        got = launch(*args)
+        want = plain(*args)
+        exact = plain(*[a.double() if torch.is_tensor(a) else a
+                        for a in args])
+    torch.cuda.synchronize()
+    rh = kind == FS.RH_FWD
+    assert (FS.rh_launches - counts[0],
+            FS.logqp_launches - counts[1]) == ((1, 0) if rh else (0, 1))
+    signed = case[-1]
+    for g, w, e in zip(got, want, exact):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        plain64 = float((w.double() - e).abs().max())
+        # Where g passes near zero float32 itself is ill-conditioned: the
+        # twin's own distance from float64, three times, joins the bound
+        # (chip_smoke.py: check_against_plain).
+        assert err <= max(2e-5, 4e-6 * scale) + (3 * plain64 if signed
+                                                 else 0.0)
+        assert float((g.double() - e).abs().max()) <= \
+            2 * plain64 + 2e-5 + (3e-3 * scale if signed else 0.0)
+
+
+# Designs each case is also run at: (cluster, rows, threads, staged).
+FWD_DESIGNS = {
+    FS.RH_FWD: ((1, 8, 256, 0), (1, 8, 512, 1), (1, 16, 512, 1),
+                (1, 32, 256, 2), (2, 16, 512, 3), (2, 16, 256, 3),
+                (2, 32, 512, 3)),
+    FS.EULER_LOGQP_FWD: ((1, 8, 384, 0), (1, 16, 768, 5), (1, 32, 768, 7),
+                         (1, 32, 384, 7), (1, 8, 768, 7), (3, 16, 512, 7),
+                         (3, 32, 256, 7)),
+}
+
+
+@pytest.mark.parametrize("case", [FWD_TILE_CASES[i] for i in (2, 3, 7, 8)],
+                         ids=[FWD_TILE_IDS[i] for i in (2, 3, 7, 8)])
+def test_forward_designs_are_bitwise_equal(cuda, case):
+    """Every design that fits gives the rule's design's bits (a row's
+    arithmetic depends on neither the rows a block, the threads nor the
+    cluster), and two calls agree bitwise; a design that does not fit a
+    block is refused before any launch."""
+    with torch.no_grad():
+        kind, spec, args = _fwd_tile_solve(cuda, case, seed=3)
+        launch, _ = _fwd_launch(kind)
+        want = launch(*args)
+        runs = [launch(*args)]
+        for design in map(FS.FwdDesign._make, FWD_DESIGNS[kind]):
+            if FS.fwd_smem_bytes(kind, spec, design.stage, design.rows,
+                                 design.cluster) > _build.MAX_SMEM_BYTES:
+                with pytest.raises(ValueError, match="shared memory"):
+                    launch(*args, design=design)
+                continue
+            runs.append(launch(*args, design=design))
+    torch.cuda.synchronize()
+    assert len(runs) > 3
+    for run in runs:
+        assert all(torch.equal(a, b) for a, b in zip(run, want))
+
+
+def test_forward_smem_bytes_match_the_c_layout(cuda):
+    """fused_solve.fwd_smem_bytes (the host rule's) equals the C layout's
+    tsde_tower_fwd_smem_bytes for every case, design and staging."""
+    lib = _build.load_library()
+    for case in FWD_TILE_CASES:
+        kind, spec, _ = _fwd_tile_solve(torch.device("cpu"), case)
+        towers = 3 if spec.prior else 2
+        for cluster in (1, towers):
+            for rows in FS.FWD_ROWS:
+                for stage in range(1 << towers):
+                    assert FS.fwd_smem_bytes(kind, spec, stage, rows,
+                                             cluster) == \
+                        lib.tsde_tower_fwd_smem_bytes(
+                            kind, FS._host_table(spec), *FS._dims(spec),
+                            stage, rows, cluster)
+
+
+@pytest.mark.parametrize("budget_replicas", [1, 2])
+def test_multi_backward_in_replica_groups(cuda, budget_replicas,
+                                          monkeypatch):
+    """With MULTI_WORKSPACE_BYTES cut to the workspaces of one or two
+    replicas, kernel 4 runs K = 3 replicas in groups of that many: its
+    workspace holds one group's, and every replica stays bitwise kernel 2
+    on its own inputs and bitwise the one-group call's."""
+    K, B, L, C, H = 3, 13, 3, 5, 40
+    with torch.no_grad():
+        args, weights = _multi_args(cuda, K, B, L, C, H, 4, 1.0 / 17, 21)
+        zs, qs = LF.fused_solve_multi_forward_cuda(*args, weights)
+        gz, gq = _cotangents(zs, qs, 22)
+        bargs = (*args, weights, zs, gz, gq)
+        n = args[3].shape[-3]
+        assert LF.replica_group(K, B, L, C, H, n) == K
+        whole = LF.fused_solve_multi_backward_cuda(*bargs)
+        each = 4 * LF.workspace_floats(B, L, C, H, LF.bwd_window(B, L, C,
+                                                                  H, n))
+        monkeypatch.setattr(LF, "MULTI_WORKSPACE_BYTES",
+                            budget_replicas * each)
+        assert LF.replica_group(K, B, L, C, H, n) == budget_replicas
+        before = LF.multi_bwd_launches
+        got = LF.fused_solve_multi_backward_cuda(*bargs)
+        assert LF.multi_bwd_launches == before + 1
+        _, ws = LF._backward_cuda(*bargs, multi=True)
+        singles = [LF.fused_solve_backward_cuda(*a_k, w_k, zs[k], gz[k],
+                                                gq[k])
+                   for k, (a_k, w_k) in enumerate(
+                       _replica(args, weights, k) for k in range(K))]
+    torch.cuda.synchronize()
+    assert ws.shape[0] == budget_replicas
+    assert 4 * ws.numel() <= LF.MULTI_WORKSPACE_BYTES
+    assert all(torch.equal(a, b) for a, b in zip(_flat(got), _flat(whole)))
+    for k, single in enumerate(singles):
+        assert all(torch.equal(a[k], b)
+                   for a, b in zip(_flat(got), _flat(single)))

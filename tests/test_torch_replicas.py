@@ -555,3 +555,22 @@ def test_one_adam_over_stacked_replicas_is_k_adams():
         for name, p in m.named_parameters():
             torch.testing.assert_close(models.params[name][k], p, rtol=1e-10,
                                        atol=1e-12)
+
+
+def test_replica_groups_bound_kernel_4s_total_workspace(monkeypatch):
+    """Kernel 4 launches its replicas in groups whose workspaces together
+    stay within MULTI_WORKSPACE_BYTES: the flagship (batch 1024, latent 4,
+    context 64, hidden 128) at K 4 is one group (4 x 588.4 MB); K 16 at dt
+    1/512 (512 steps, 2,143.6 MB a replica) goes in groups of four; a group
+    never has fewer than one replica, nor more than K."""
+    flagship = (1024, 4, 64, 128)
+    assert TLF.replica_group(4, *flagship, 128) == 4
+    assert TLF.replica_group(1, *flagship, 128) == 1
+    window = TLF.bwd_window(*flagship, 512)
+    each = 4 * TLF.workspace_floats(*flagship, window)
+    assert 2143e6 < each < 2144e6
+    group = TLF.replica_group(16, *flagship, 512)
+    assert group == 4
+    assert group * each <= TLF.MULTI_WORKSPACE_BYTES < (group + 1) * each
+    monkeypatch.setattr(TLF, "MULTI_WORKSPACE_BYTES", each - 1)
+    assert TLF.replica_group(16, *flagship, 512) == 1

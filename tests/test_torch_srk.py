@@ -401,3 +401,57 @@ def test_jax_pallas_normal_does_not_lower_on_the_cpu():
     from torchsde_tpu.ops.prng import pallas_normal
     with pytest.raises(Exception, match="prng_seed"):
         jax.block_until_ready(pallas_normal(1, (8, 128), jnp.float32, True))
+
+
+def _fake_build(monkeypatch, tmp_path, fail):
+    """Points the generated-source build at tmp_path with a stand-in for
+    nvcc that records the source it was given (and its text at that
+    moment) and writes the library, or fails; returns the records."""
+    import types
+    calls = []
+
+    def run(args, **_):
+        src, out = args[-1], args[args.index("-o") + 1]
+        calls.append((src, open(src).read()))
+        if fail:
+            return types.SimpleNamespace(returncode=1, stdout="error: x\n")
+        open(out, "wb").close()
+        return types.SimpleNamespace(returncode=0, stdout="")
+
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_source_libs", {})
+    monkeypatch.setattr(_build.subprocess, "run", run)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: types.
+                        SimpleNamespace(tsde_cuda_error_string=types.
+                                        SimpleNamespace()))
+    return calls
+
+
+def test_generated_builds_write_sources_of_their_own(monkeypatch, tmp_path):
+    """Two processes building one generated source give nvcc two source
+    files, each named with its pid, and leave neither behind."""
+    text = TSF.srk_source("p0 * y", "p1 * y", 2)
+    calls = _fake_build(monkeypatch, tmp_path, fail=False)
+    for pid in (101, 202):
+        monkeypatch.setattr(_build.os, "getpid", lambda pid=pid: pid)
+        monkeypatch.setattr(_build, "_source_libs", {})
+        _build.library_for_source("tsde_srk_srid2", text)
+        _build.source_library_path("tsde_srk_srid2", text).unlink()
+    (src1, text1), (src2, text2) = calls
+    assert src1 != src2 and ".101." in src1 and ".202." in src2
+    assert text1 == text2 == text
+    assert not list(tmp_path.glob("*.cu")) and not list(tmp_path.glob("*tmp"))
+
+
+def test_failed_generated_build_leaves_no_source(monkeypatch, tmp_path):
+    """A build that fails raises, removes its source and library files and
+    keeps the source's text in build_log."""
+    text = TSF.srk_source("p0 * y", "p1 * y * y", 2)
+    calls = _fake_build(monkeypatch, tmp_path, fail=True)
+    monkeypatch.setattr(_build, "build_log", "")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.library_for_source("tsde_srk_srid2", text)
+    assert len(calls) == 1 and calls[0][1] == text
+    assert not list(tmp_path.iterdir())
+    assert text in _build.build_log and "error: x" in _build.build_log

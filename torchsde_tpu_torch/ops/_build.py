@@ -31,7 +31,7 @@ SOURCES = ("latent_fused_fwd.cu", "latent_fused_bwd.cu", "gan_gen_fwd.cu",
            "tower_euler_logqp_bwd.cu", "tower_bwd_contract.cu",
            "philox_normal.cu")
 HEADERS = ("latent_fused_common.cuh", "gan_fused_common.cuh",
-           "tower_solve_common.cuh")
+           "tower_solve_common.cuh", "tower_fwd_tile.cuh")
 # Headers that generated sources include (library_for_source).
 SOURCE_HEADERS = ("srk_srid2.cuh",)
 BUILD_DIR = Path(os.environ.get(
@@ -115,11 +115,12 @@ def _bind(lib):
     lib.tsde_gan_bwd_partials.argtypes = [I, I, I]
     lib.tsde_gan_bwd_partials.restype = I
     # The TowerSpec solves: two layer tables (host, device), the tensors,
-    # then nf, ng, nh, S, m, diag, wt, stage, B, N, (kernels 10, 12 and 14:
-    # window, stages,) device and the stream.
+    # then nf, ng, nh, S, m, diag, wt, stage, (kernels 11 and 13: rows,
+    # threads, cluster,) B, N, (kernels 10, 12 and 14: window, stages,)
+    # device and the stream.
     for name, tensors, ints in (("euler_fwd", 7, 11), ("euler_bwd", 12, 13),
-                                ("rh_fwd", 11, 11), ("rh_bwd", 15, 13),
-                                ("euler_logqp_fwd", 9, 11),
+                                ("rh_fwd", 11, 14), ("rh_bwd", 15, 13),
+                                ("euler_logqp_fwd", 9, 14),
                                 ("euler_logqp_bwd", 14, 13)):
         fn = getattr(lib, f"tsde_tower_{name}")
         fn.argtypes = [P] * (2 + tensors) + [I] * ints + [P]
@@ -128,6 +129,11 @@ def _bind(lib):
     lib.tsde_tower_bwd_workspace.restype = ctypes.c_size_t
     lib.tsde_tower_smem_bytes.argtypes = [I, P] + [I] * 8
     lib.tsde_tower_smem_bytes.restype = ctypes.c_size_t
+    lib.tsde_tower_fwd_smem_bytes.argtypes = [I, P] + [I] * 10
+    lib.tsde_tower_fwd_smem_bytes.restype = ctypes.c_size_t
+    for name in ("rh_fwd", "euler_logqp_fwd"):
+        getattr(lib, f"tsde_tower_{name}_clusters").argtypes = [I] * 3
+        getattr(lib, f"tsde_tower_{name}_clusters").restype = I
     lib.tsde_tower_blocks.argtypes = [I]
     lib.tsde_tower_blocks.restype = I
     lib.tsde_philox_normal.argtypes = [P, P, ctypes.c_longlong, I, P]
@@ -211,15 +217,23 @@ def library_for_source(name, text):
     if not out.exists():
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # The source and the library go through files of this process's
+        # own, so that two processes building the same text never write
+        # one file under the other's nvcc.
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        src = tmp.with_name(f"{out.stem}.cu")
-        src.write_text(text)
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-shared", "-I", str(_CSRC), "-o", str(tmp),
-             str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        src = out.with_name(f"{out.stem}.{os.getpid()}.cu")
+        try:
+            src.write_text(text)
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-I", str(_CSRC), "-o",
+                 str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        finally:
+            src.unlink(missing_ok=True)
         build_log += f"== {src.name}\n{proc.stdout}"
         if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            build_log += f"== the source of {src.name}\n{text}"
             raise RuntimeError(f"nvcc failed ({src.name}):\n{proc.stdout}")
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))

@@ -3,6 +3,10 @@
 // tower_rh_bwd.cu, tower_euler_logqp_fwd.cu, tower_euler_logqp_bwd.cu), so
 // that the reverse sweeps recompute exactly the forward kernels' activations.
 //
+// Kernels 11 and 13 (tower_rh_fwd.cu, tower_euler_logqp_fwd.cu) take the
+// layer table, the plan's Layer and the activations from here and lay out
+// their row tiles by tower_fwd_tile.cuh; what follows is the other four's.
+//
 // Block layout. A block holds TB batch rows and TW = 128 threads for each of
 // its towers: NT = 256 for drift and diffusion (threads 0-127 the drift,
 // 128-255 the diffusion), NT3 = 384 when a prior drift joins them (threads
@@ -167,12 +171,6 @@ __host__ __device__ inline Layout make_layout(const int* table, Dims d,
   const size_t sS = size_t(d.S) * TB, sG = size_t(d.gwidth()) * TB;
   if (kind == EULER_BWD || kind == EULER_LOGQP_BWD) {
     s.carry[0] = take(at, sS);                         // dy
-  } else if (kind == EULER_LOGQP_FWD) {
-    s.carry[0] = take(at, sS);                         // u^2
-  } else if (kind == RH_FWD) {
-    s.carry[0] = take(at, sS);                         // y
-    s.carry[1] = take(at, sS);                         // f
-    s.carry[2] = take(at, sG);                         // g
   } else if (kind == RH_BWD) {
     s.carry[0] = take(at, sS);                         // ay
     s.carry[1] = take(at, sS);                         // az

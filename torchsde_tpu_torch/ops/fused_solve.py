@@ -696,9 +696,10 @@ def _sm_count(device):
 
 
 def staged_towers(lib, kind, spec, B, device):
-    """The towers a kernel of ``kind`` keeps in shared memory (the others
-    it reads from device memory through the caches). When the solve's
-    blocks outnumber the card's SMs, a forward kernel stages none: its
+    """The towers kernel 9 or a sweep (kernels 10, 12, 14) of ``kind``
+    keeps in shared memory (the others it reads from device memory through
+    the caches); kernels 11 and 13 follow :func:`forward_design`. When the
+    solve's 8-row blocks outnumber the card's SMs, kernel 9 stages none: its
     threads read each weight column by column, side by side, which the
     caches serve well, and small blocks let more of them share an SM. A
     sweep also reads each weight row by row (the input cotangents), strided
@@ -709,9 +710,11 @@ def staged_towers(lib, kind, spec, B, device):
     at batch 4096, d 32, hidden 128 (512 blocks): kernel 9 took 2.29 ms
     with both towers staged and 1.48 ms with none; kernel 10 (its sweep
     split from the contraction) 5.55 ms with both, 9.96-10.08 with one and
-    8.17 with none; kernel 13 about 5.1 ms with all three staged,
-    3.35-3.38 with drift and prior and 3.19-3.23 with none; kernel 14
-    about 18.0, 16.6-16.7 and 19.8 ms."""
+    8.17 with none; kernel 14 about 18.0, 16.6-16.7 and 19.8 ms with all
+    three, drift and prior, none. Kernel 13 took 3.19-3.23 ms with none
+    staged in the 8-row design this rule chose for it before
+    :func:`forward_design`, which puts all three in one block of 32 rows:
+    2.03 ms (``chip_smoke.py --only ab``)."""
     table = _host_table(spec)
     smem = {s: lib.tsde_tower_smem_bytes(kind, table, *_dims(spec), s)
             for s in STAGE_ORDER[3 if spec.prior else 2]}
@@ -743,6 +746,151 @@ def _library(kind, spec, B, device, stage=None):
         raise ValueError(f"staging towers {stage} does not fit a block")
     return lib, (table, _device_table(spec, device).data_ptr(),
                  *_dims(spec), stage)
+
+
+# Kernels 11 and 13: a block of R rows runs the step loop (csrc/
+# tower_fwd_tile.cuh). The rows a block may take; the threads a tower takes
+# in a block that holds every tower (FWD_WIDE_THREADS where its widest
+# layer times R reaches FWD_WIDE_ITEMS, else FWD_STREAM_THREADS); the
+# threads of a cluster's block (one tower each); and the threads a tower
+# takes when some towers stream from L2 (the 8-row design before the
+# tiles).
+FWD_ROWS = (8, 16, 32)
+FWD_WIDE_THREADS = 256
+FWD_WIDE_ITEMS = 4096
+FWD_CLUSTER_THREADS = 512
+FWD_STREAM_THREADS = 128
+_PLAN_INTS = 10       # csrc/tower_solve_common.cuh: sizeof(Layer) / 4
+_UNITS_A_PART = 8     # csrc/tower_fwd_tile.cuh: UP
+
+
+class FwdDesign(NamedTuple):
+    """How kernel 11 or 13 runs a solve: blocks of ``cluster`` (1, or a
+    block for each tower), ``rows`` rows a block (or cluster), ``threads``
+    threads a block, the towers of ``stage`` (bit t: tower t) in shared
+    memory."""
+    cluster: int
+    rows: int
+    threads: int
+    stage: int
+
+
+def fwd_smem_bytes(kind, spec, stage, rows, cluster):
+    """Dynamic shared memory a block of kernel 11 (``RH_FWD``) or 13
+    (``EULER_LOGQP_FWD``) takes at this design, as the C layout
+    (``csrc/tower_fwd_tile.cuh: make_tile_layout``) computes it."""
+    def take(at, n):
+        return at + (n + 3) // 4 * 4
+
+    shapes = _spec_shapes(spec)
+    RS = rows + 4
+    at = take(0, sum(map(len, shapes)) * _PLAN_INTS)
+    packs = [sum(i * o + o for i, o, _ in tower) for tower in shapes]
+    wide = [[max((o for _, o, _ in tower[p::2]), default=0) for p in (0, 1)]
+            for tower in shapes]
+    if cluster > 1:
+        at = take(at, max(packs))
+    else:
+        for t, size in enumerate(packs):
+            if (stage >> t) & 1:
+                at = take(at, size)
+    at = take(at, (spec.S + int(spec.with_time)) * RS)
+    if cluster > 1:
+        for p in (0, 1):
+            at = take(at, max(w[p] for w in wide) * RS)
+    else:
+        for w in wide:
+            at = take(take(at, w[0] * RS), w[1] * RS)
+    at = take(take(at, spec.m * RS), spec.m * RS)
+    at = take(at, 2)
+    if kind == RH_FWD:
+        for width in (spec.S, spec.S, spec.gwidth):
+            at = take(at, width * RS)
+    else:
+        at = take(at, -(-spec.S // _UNITS_A_PART) * RS)
+    return 4 * at
+
+
+def forward_design(kind, spec, B, sms):
+    """The design of kernel 11 (``RH_FWD``) or 13 (``EULER_LOGQP_FWD``) for
+    a solve of B rows on a card of ``sms`` SMs, from the widths and the
+    shared-memory limit alone (a block an SM: at these widths its shared
+    memory allows no more). In order of preference:
+
+    1. every tower in one block's shared memory, on
+       :data:`FWD_WIDE_THREADS` threads a tower where its widest layer times
+       R reaches :data:`FWD_WIDE_ITEMS` (items of 16 rows for every
+       thread), else :data:`FWD_STREAM_THREADS`;
+    2. a cluster of a block for each tower, each tower in its block's
+       shared memory, :data:`FWD_CLUSTER_THREADS` a block, where its blocks
+       keep at least as many SMs busy as the third design's would;
+    3. 8 rows, :data:`FWD_STREAM_THREADS` a tower, the first towers of
+       :data:`STAGE_ORDER` that fit staged and the others read from L2 (or,
+       past one wave of blocks, none staged).
+
+    The first two take the fewest rows of :data:`FWD_ROWS` (a cluster 16
+    or 32) that still fill the card in one wave (their blocks at most
+    ``sms``), else the most rows that fit. Measured on an NVIDIA H100 80GB
+    HBM3 at 700 W (``chip_smoke.py --only tiles``, ms): at L1 (batch 4096,
+    d 32, hidden 128) one block of 32 rows and 768 threads 2.031, of 384
+    threads 2.212, 16 rows 2.507-2.555, the 8-row streamed design 3.723; at
+    R1 (batch 1024, d 128) a cluster of two at 16 rows and 512 threads
+    1.834, 256 threads 2.035, 768 threads 2.073, one block of 8 rows and
+    512 threads, the drift staged, 2.294; at L2 (batch 1024, d 128) a
+    cluster of three at 32 rows 2.690 (96 blocks), the 8-row streamed
+    design 2.515 (128 blocks); on general noise with time (batch 1024, d
+    16, m 4, hidden 64) 8 rows on 256 threads 0.834, 512 threads 0.848; at
+    the small solve (batch 256, d 8, hidden 16) 8 rows on 384 threads
+    0.412, 768 threads 0.463."""
+    towers = 3 if spec.prior else 2
+    full = (1 << towers) - 1
+    streamed = min(-(-B // 8), sms)
+    widest = max(o for tower in _spec_shapes(spec) for _, o, _ in tower)
+    for cluster in (1, towers):
+        rows = [R for R in FWD_ROWS
+                if (cluster == 1 or R > 8)
+                and fwd_smem_bytes(kind, spec, full, R, cluster)
+                <= _build.MAX_SMEM_BYTES]
+        if not rows:
+            continue
+        one_wave = [R for R in rows if -(-B // R) * cluster <= sms]
+        R = one_wave[0] if one_wave else rows[-1]
+        if cluster == 1:
+            per = (FWD_WIDE_THREADS if widest * R >= FWD_WIDE_ITEMS
+                   else FWD_STREAM_THREADS)
+            return FwdDesign(1, R, per * towers, full)
+        if -(-B // R) * cluster >= streamed:
+            return FwdDesign(cluster, R, FWD_CLUSTER_THREADS, full)
+    stage = 0
+    if -(-B // 8) <= sms:
+        stage = next((st for st in STAGE_ORDER[towers]
+                      if fwd_smem_bytes(kind, spec, st, 8, 1)
+                      <= _build.MAX_SMEM_BYTES), None)
+    if stage is None or fwd_smem_bytes(kind, spec, stage, 8, 1) \
+            > _build.MAX_SMEM_BYTES:
+        raise ValueError("the solve's activations need more shared memory "
+                         "than a block has")
+    return FwdDesign(1, 8, FWD_STREAM_THREADS * towers, stage)
+
+
+def _forward_library(kind, spec, B, device, design=None, stage=None):
+    """The kernels' library and the launch's table and design arguments
+    for kernel 11 or 13: the host and device layer tables, the dims, and
+    the design's stage, rows, threads and cluster, by the rule of
+    :func:`forward_design` or as ``design`` (and ``stage``) override it."""
+    if design is None:
+        design = forward_design(kind, spec, B, _sm_count(device))
+    if stage is not None:
+        design = design._replace(stage=stage)
+    if fwd_smem_bytes(kind, spec, design.stage, design.rows,
+                      design.cluster) > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"the design {tuple(design)} needs more shared "
+                         f"memory than a block has")
+    lib = _build.load_library()
+    table = _host_table(spec)
+    return lib, (table, _device_table(spec, device).data_ptr(),
+                 *_dims(spec), design.stage, design.rows, design.threads,
+                 design.cluster)
 
 
 def _require_cuda(t):
@@ -781,13 +929,17 @@ def _check_rh(spec, y0, f0, g0, noise, t1s, dts, fw, gw):
     return B, N
 
 
-def rh_solve_forward_cuda(y0, f0, g0, noise, t1s, dts, fw, gw, spec):
+def rh_solve_forward_cuda(y0, f0, g0, noise, t1s, dts, fw, gw, spec,
+                          design=None):
     """Launch kernel 11 on the current stream; returns what
-    :func:`rh_solve_forward_plain` returns."""
+    :func:`rh_solve_forward_plain` returns. ``design`` (a
+    :class:`FwdDesign`) overrides :func:`forward_design`'s; every design
+    gives the same bits. Raises on tensors it does not take, on a design
+    that does not fit, on a failed build and on a refused launch."""
     global rh_launches
     _require_cuda(y0)
     B, N = _check_rh(spec, y0, f0, g0, noise, t1s, dts, fw, gw)
-    lib, table_dims = _library(RH_FWD, spec, B, y0.device)
+    lib, table_dims = _forward_library(RH_FWD, spec, B, y0.device, design)
     f32 = dict(dtype=torch.float32, device=y0.device)
     ys = torch.empty((N, B, spec.S), **f32)
     zs = torch.empty((N, B, spec.S), **f32)
@@ -967,17 +1119,19 @@ def _check_logqp(spec, y0, noise, t0s, dts, fw, hw, gw):
 
 
 def euler_logqp_solve_forward_cuda(y0, noise, t0s, dts, fw, hw, gw, spec,
-                                   stage=None):
+                                   stage=None, design=None):
     """Launch kernel 13 on the current stream; returns what
-    :func:`euler_logqp_solve_forward_plain` returns. ``stage`` overrides
-    the towers staged in shared memory (a bitmask of :data:`STAGE_ORDER`).
-    Raises on tensors it does not take, on a failed build and on a refused
-    launch."""
+    :func:`euler_logqp_solve_forward_plain` returns. ``design`` (a
+    :class:`FwdDesign`) overrides :func:`forward_design`'s, and ``stage``
+    the towers its block stages in shared memory (a bitmask of
+    :data:`STAGE_ORDER`); every design gives the same bits. Raises on
+    tensors it does not take, on a design that does not fit, on a failed
+    build and on a refused launch."""
     global logqp_launches
     _require_cuda(y0)
     B, N = _check_logqp(spec, y0, noise, t0s, dts, fw, hw, gw)
-    lib, table_dims = _library(EULER_LOGQP_FWD, spec, B, y0.device,
-                              stage)
+    lib, table_dims = _forward_library(EULER_LOGQP_FWD, spec, B, y0.device,
+                                       design, stage)
     f32 = dict(dtype=torch.float32, device=y0.device)
     ys = torch.empty((N, B, spec.S), **f32)
     qs = torch.empty((N, B, 1), **f32)

@@ -30,7 +30,8 @@ versions (:func:`fused_solve_forward_plain`,
 operators), a CUDA tensor to the kernels, which raise rather than fall back.
 ``launches`` and ``bwd_launches`` count the two kernels' launches. A long
 solve's backward runs in windows of steps (:func:`bwd_window`), so that its
-workspace stays within :data:`WORKSPACE_BYTES` a replica.
+workspace stays within :data:`WORKSPACE_BYTES` a replica, and K replicas in
+groups (:func:`replica_group`) within :data:`MULTI_WORKSPACE_BYTES` in all.
 
 K independent replicas (the counterpart of the JAX package's
 ``_fused_solve_multi``) solve in one launch of each kernel with the replica
@@ -392,10 +393,11 @@ def fused_solve_multi_backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs,
     """Launch kernel 4, the reverse sweeps and contractions of K stacked
     solves and the sum of each replica's partials, on the current stream;
     returns what :func:`fused_solve_multi_backward_plain` returns. The
-    workspace takes K times a single solve's (2.3 GB at the flagship with
-    K 4; at most K x :data:`WORKSPACE_BYTES`, in the windows of
-    :func:`bwd_window`). Raises on tensors it does not take, on a failed
-    build and on a refused launch."""
+    replicas go in groups of :func:`replica_group` replicas, one launch of
+    each phase a group and window, whose workspaces together stay within
+    :data:`MULTI_WORKSPACE_BYTES` (2.35 GB, one group, at the flagship with
+    K 4). Raises on tensors it does not take, on a failed build and on a
+    refused launch."""
     global multi_bwd_launches
     out = _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq,
                          multi=True)[0]
@@ -431,14 +433,16 @@ def _forward_cuda(z0, ctx, ctx_idx, noise, dts, weights, multi):
 
 def _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq, multi,
                    stages=3, workspace=None):
-    """One launch of the backward kernel, single (kernel 2) or on K stacked
-    replicas (kernel 4): the sweep, the contraction and the reduction, over
-    windows of :func:`bwd_window` steps. Returns its outputs and its
-    workspace (K, floats a replica).
+    """The backward kernel, single (kernel 2) or on K stacked replicas
+    (kernel 4, a launch of each phase for every group of
+    :func:`replica_group` replicas): the sweep, the contraction and the
+    reduction, over windows of :func:`bwd_window` steps. Returns its outputs
+    and its workspace (replicas of a group, floats a replica; after a call
+    of several groups, the last group's).
 
     For measurement only, ``stages`` runs the sweep alone (1) or the
     contraction and the reduction alone (2) on the ``workspace`` of an
-    earlier call of one window."""
+    earlier call of one window and one group."""
     if not z0.is_cuda:
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
                          f"{z0.device}")
@@ -457,25 +461,39 @@ def _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq, multi,
     dnoise = torch.empty_like(noise)
     sizes = [w[0].numel() if multi else w.numel() for w in weights]
     window = bwd_window(B, L, C, H, n)
+    K = lead[0] if multi else 1
+    group = replica_group(K, B, L, C, H, n) if multi else 1
     if workspace is None:
         workspace = torch.empty(
-            (lead[0] if multi else 1,
-             lib.tsde_latent_fused_bwd_workspace(B, L, C, H, window)), **f32)
+            (group, lib.tsde_latent_fused_bwd_workspace(B, L, C, H, window)),
+            **f32)
+    elif stages != 3 and group < K:
+        raise ValueError(f"a phase alone takes one group of replicas; "
+                         f"{K} replicas go in groups of {group}")
     dw = torch.zeros(lead + (sum(sizes),), **f32)
-    ptrs = [t.data_ptr() for t in (z0, ctx, ctx_idx, noise, dts, *weights,
-                                   zs, gz, gq, dz0, dctx, dnoise, workspace,
-                                   dw)]
     stream = torch.cuda.current_stream(z0.device).cuda_stream
     device = z0.device.index or 0
     name = "latent_fused_bwd_multi" if multi else "latent_fused_bwd"
-    if stages == 3:
-        rc = getattr(lib, f"tsde_{name}")(*ptrs, *lead, B, L, C, H, T, n,
-                                          window, device, stream)
-    else:
-        rc = lib.tsde_latent_fused_bwd_stages(
-            *ptrs, lead[0] if multi else 1, B, L, C, H, T, n, window, stages,
-            device, stream)
-    _build.check_launch(lib, rc, name)
+    # Group by group on one stream, each on the same workspace: replica k's
+    # launch sees only its own slices, so it is bitwise kernel 2 on them.
+    for k0 in range(0, K, group):
+        k1 = min(K, k0 + group)
+        per = (lambda t: t[k0:k1]) if multi else (lambda t: t)
+        ptrs = [t.data_ptr() for t in (
+            per(z0), per(ctx), ctx_idx, per(noise), dts,
+            *map(per, weights), per(zs), per(gz), per(gq), per(dz0),
+            per(dctx), per(dnoise), workspace, per(dw))]
+        if stages == 3 and multi:
+            rc = lib.tsde_latent_fused_bwd_multi(*ptrs, k1 - k0, B, L, C, H,
+                                                 T, n, window, device, stream)
+        elif stages == 3:
+            rc = lib.tsde_latent_fused_bwd(*ptrs, B, L, C, H, T, n, window,
+                                           device, stream)
+        else:
+            rc = lib.tsde_latent_fused_bwd_stages(
+                *ptrs, k1 - k0, B, L, C, H, T, n, window, stages, device,
+                stream)
+        _build.check_launch(lib, rc, name)
     dweights = tuple(d.reshape(w.shape)
                      for d, w in zip(dw.split(sizes, dim=-1), weights))
     return (dz0, dctx, dnoise, dweights), workspace
@@ -524,6 +542,26 @@ def bwd_window(B, L, C, H, n):
         else:
             hi = mid
     return lo
+
+
+# The most bytes kernel 4's workspaces may take together: its replicas are
+# launched in groups (replica_group) whose windows' workspaces fit in it, so
+# the workspace does not grow with K. A tenth of the H100's 80 GB: four
+# replicas of the largest window (WORKSPACE_BYTES each), so that the
+# flagship at K 4 (4 x 588.4 MB) stays one launch, and K 16 at dt 1/512
+# (2,143.6 MB a replica) runs in four groups of four (8,574 MB), where
+# WORKSPACE_BYTES itself would split the flagship's K 4 into 3 + 1.
+MULTI_WORKSPACE_BYTES = 8 << 30
+
+
+def replica_group(K, B, L, C, H, n):
+    """The replicas one launch of kernel 4 takes: as many of the K as their
+    workspaces for windows of :func:`bwd_window` steps fit together in
+    :data:`MULTI_WORKSPACE_BYTES`, and at least one. Each replica's window,
+    and so its arithmetic, is the same whatever the group."""
+    window = bwd_window(B, L, C, H, n)
+    each = 4 * workspace_floats(B, L, C, H, window)
+    return max(1, min(K, MULTI_WORKSPACE_BYTES // each))
 
 
 def scratch_views(workspace, B, L, H, n):

@@ -262,6 +262,9 @@ TOWER_FACTS, TOWER_GACTS = ("softplus", "linear"), ("lipswish", "sigmoid")
 TOWER_N_TS, TOWER_DT = 9, 1.0 / 128
 # General noise with a time column and depth-3 towers: batch, d, m, hidden.
 TOWER_GENERAL = (1024, 16, 4, 64)
+# Kernel 9's narrow solve: batch, d, hidden (E1's activations, diagonal
+# noise, no time column).
+EULER_NARROW = (256, 8, 16)
 # Kernels 9-12 vs plain, per output tensor: the JAX package's rule for its
 # fused against its XLA solves (tests/test_fused_solve.py:87,114-115), as
 # max(atol, rel * scale): values max(2e-5, 4e-6 * scale) (4e-6 as kernels 5
@@ -832,6 +835,113 @@ def phase_fwd_tiles(device):
     return out
 
 
+def ab_euler_inputs(device):
+    """Kernel 9's inputs at E1, on general noise with time (phase 14's)
+    and at the narrow solve (batch 256, d 8, hidden 16, diagonal noise),
+    labelled."""
+    method, B, d, (drift, diffusion) = tower_config(device, "E1")
+    yield "E1", tower_kernel_args(device, method, drift, diffusion, B, d, d,
+                                  True, False, SEED + 12)[1]
+    B, d, m, hidden = TOWER_GENERAL
+    drift = tower_spec(SEED + 13, [d + 1, hidden, hidden, d],
+                       ("softplus", "tanh", "linear"), device)
+    diffusion = tower_spec(SEED + 14, [d + 1, hidden, hidden, d * m],
+                           ("lipswish", "softplus", "sigmoid"), device)
+    yield "general", tower_kernel_args(device, "euler", drift, diffusion, B,
+                                       d, m, False, True, SEED + 15)[1]
+    B, d, hidden = EULER_NARROW
+    drift = tower_spec(SEED + 16, [d, hidden, d], TOWER_FACTS, device)
+    diffusion = tower_spec(SEED + 17, [d, hidden, d], TOWER_GACTS, device)
+    yield "small", tower_kernel_args(device, "euler", drift, diffusion, B, d,
+                                     d, True, False, SEED + 18)[1]
+
+
+# Kernel 9's designs (3xTF32 or FMA tiles, rows, threads, staged towers)
+# that ``--only tiles`` times beside the rule's: the 3xTF32 tiles (32 rows)
+# at 256 and 512 threads, stage a (the FMA tiles with both towers in one
+# block) at 8 and 32 rows, and the 8-row tiles streaming both towers from
+# L2.
+EULER_DESIGN_TILES = {
+    "E1": ((1, 32, 512, 3), (1, 32, 256, 3), (0, 32, 512, 3),
+           (0, 8, 256, 3), (0, 8, 256, 0)),
+    "general": ((1, 32, 256, 3), (1, 32, 512, 3), (0, 32, 512, 3),
+                (0, 8, 256, 3), (0, 8, 256, 0)),
+    "small": ((1, 32, 64, 3), (1, 32, 256, 3), (0, 32, 256, 3),
+              (0, 8, 256, 3), (0, 8, 256, 0)),
+}
+
+
+def phase_euler_tiles(device):
+    """Kernel 9 at each design of EULER_DESIGN_TILES beside the rule's:
+    every FMA design bitwise the 8-row one, every 3xTF32 design within the
+    twin's tolerance of it; median device times (``--only tiles``)."""
+    out = {}
+    with torch.no_grad():
+        for label, args in ab_euler_inputs(device):
+            spec, B = args[-1], args[0].shape[0]
+            rule = FS.forward_design(FS.EULER_FWD, spec, B,
+                                     FS._sm_count(device))
+            launch = FS.euler_solve_forward_cuda
+            ref = launch(*args, design=FS.EulerFwdDesign(0, 8, 256, 0))
+            scale = float(ref.abs().max())
+            cells = {"rule": tuple(rule)}
+            for design in map(FS.EulerFwdDesign._make,
+                              EULER_DESIGN_TILES[label]):
+                if FS.fwd_smem_bytes(FS.EULER_FWD, spec, design.stage,
+                                     design.rows, 1, mma=design.mma) \
+                        > _build.MAX_SMEM_BYTES:
+                    cells[str(tuple(design))] = "does not fit"
+                    continue
+                got = launch(*args, design=design)
+                torch.cuda.synchronize()
+                diff = float((got - ref).abs().max())
+                if (diff > 0.0 if not design.mma else
+                        diff > max(TOWER_VAL_ATOL, TOWER_VAL_REL * scale)):
+                    raise RuntimeError(f"kernel 9 {label} at "
+                                       f"{tuple(design)} differs from the "
+                                       f"8-row design by {diff:.3e}")
+                cells[str(tuple(design))] = median_cuda_ms(
+                    lambda: launch(*args, design=design), 10)
+            print(f"kernel9_{label} by (3xTF32, rows, threads, staged), ms "
+                  f"(rule {tuple(rule)}; FMA designs bitwise the 8-row "
+                  f"one): " + ", ".join(f"{k}: {v}" for k, v in cells.items()
+                                        if k != "rule"), flush=True)
+            out[f"kernel9_{label}"] = cells
+    return out
+
+
+def phase_cde_tiles(device):
+    """Kernel 8 at the reference scale at 1, 2, 4 and 8 warps a block
+    (32 / G rows a warp, G the lanes of a row): every block size bitwise
+    the others; median device times (``--only tiles``)."""
+    gan = gan_models(device)
+    ts, real = gan_data(device)
+    (_, _), (cde_args, cde_w) = gan_kernel_inputs(device, gan, ts, real)
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    cells = {}
+    with torch.no_grad():
+        hs, czs = GF.cde_solve_forward_cuda(*cde_args, cde_w)
+        ghs = torch.zeros_like(hs)
+        ghs[-1] = torch.randn(hs.shape[1:], generator=gen, device=device)
+        cargs = (*cde_args, cde_w, czs, ghs)
+        first = None
+        for threads in (32, 64, 128, 256):
+            got = flat_grads(GF.cde_solve_backward_cuda(*cargs,
+                                                        threads=threads))
+            torch.cuda.synchronize()
+            if first is None:
+                first = got
+            elif not all(torch.equal(a, b) for a, b in zip(got, first)):
+                raise RuntimeError(f"kernel 8 at {threads} threads differs "
+                                   f"from 32 threads")
+            cells[threads] = median_cuda_ms(
+                lambda: GF.cde_solve_backward_cuda(*cargs, threads=threads),
+                20)
+    print(f"kernel8 by threads a block, ms (rule {GF.THREADS}): "
+          + ", ".join(f"{k}: {v:.4f}" for k, v in cells.items()), flush=True)
+    return cells
+
+
 def phase_kernel2(device):
     """Kernel 2 vs its plain version and a float64 run on seeded inputs and
     cotangents at the flagship shapes, with normal and with saturated
@@ -1400,7 +1510,8 @@ def phase_gan_bwd_kernels(device, models, ts, real):
     Bc, Sc, Mc, C, _ = GF.check_cde_inputs(*cde_args, cde_w)
     print(f"GAN backward kernels: shared memory per block "
           f"{lib.tsde_gan_gen_bwd_smem_bytes(S, M, m)} bytes (kernel 6), "
-          f"{lib.tsde_gan_cde_bwd_smem_bytes(Sc, Mc, C)} bytes (kernel 8); "
+          f"{lib.tsde_gan_cde_bwd_smem_bytes(Sc, Mc, C, GF.THREADS)} bytes "
+          f"(kernel 8); "
           f"weight-gradient partials {lib.tsde_gan_bwd_partials(B, S, M)} "
           f"and {lib.tsde_gan_bwd_partials(Bc, Sc, Mc)}", flush=True)
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
@@ -1688,9 +1799,15 @@ def check_stagings(label, launch, bargs, kind, spec, want):
 
 
 def forward_layout(kind, spec, B, device):
-    """Kernel 11's or 13's design for this solve and its shared memory a
-    block, for the log."""
+    """Kernel 9's, 11's or 13's design for this solve and its shared memory
+    a block, for the log."""
     design = FS.forward_design(kind, spec, B, FS._sm_count(device))
+    if kind == FS.EULER_FWD:
+        smem = FS.fwd_smem_bytes(kind, spec, design.stage, design.rows, 1,
+                                 mma=design.mma)
+        return (f"{smem} bytes, {'3xTF32' if design.mma else 'FMA'} tiles, "
+                f"{design.rows} rows, {design.threads} threads, towers "
+                f"staged {design.stage}")
     smem = FS.fwd_smem_bytes(kind, spec, design.stage, design.rows,
                              design.cluster)
     return (f"{smem} bytes, clusters of {design.cluster}, {design.rows} "
@@ -1698,8 +1815,8 @@ def forward_layout(kind, spec, B, device):
 
 
 def staged_layout(kind, spec, B, device):
-    """Kernel 9's or a sweep's staging (fused_solve.staged_towers) and
-    shared memory a block, for the log."""
+    """A sweep's staging (fused_solve.staged_towers) and shared memory a
+    block, for the log."""
     lib = _build.load_library()
     stage = FS.staged_towers(lib, kind, spec, B, device)
     smem = lib.tsde_tower_smem_bytes(kind, FS._host_table(spec),
@@ -1783,8 +1900,7 @@ def run_tower_kernels(label, device, method, drift, diffusion, B, d, m, diag,
         kinds = (FS.RH_FWD, FS.RH_BWD)
         outs = ("ys", "zs", "gs")
         douts = ("dy0", "df0", "dg0", "dnoise", "dfw", "dgw")
-    layout = [(staged_layout if euler else forward_layout)(kinds[0], spec, B,
-                                                           device),
+    layout = [forward_layout(kinds[0], spec, B, device),
               staged_layout(kinds[1], spec, B, device)]
     print(f"{label}: batch {B}, d {d}, m {m}, {N} steps, "
           f"{'diagonal' if diag else 'general'} noise, time column {wt}; "
@@ -1798,6 +1914,11 @@ def run_tower_kernels(label, device, method, drift, diffusion, B, d, m, diag,
         torch.cuda.synchronize()
         err_f = check_against_plain(f"{label} {names[0]}", outs, got, want,
                                     exact, TOWER_VAL_ATOL, TOWER_VAL_REL)
+        again = as_tuple(fwd(*args))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"{label} {names[0]} is not bitwise "
+                               f"repeatable")
         gen = torch.Generator(device=device).manual_seed(seed + 1)
         gy = torch.randn(got[0].shape, generator=gen, device=device)
         bargs = (*args, *(got if euler else got[1:]), gy)
@@ -3071,11 +3192,13 @@ def ab_logqp_inputs(device):
 
 
 def phase_ab(device, tag, against):
-    """Times kernels 1, 2, 3 (at each K of MULTI_KS), 4 (at MULTI_K), 9 and
-    10 (at E1), 11 (at R1 and on general noise with time), 12 (at R1), 13
-    (at L1, L2 and the small signed solve) and 14 (at L1) through the entry
-    points that every version of the port has, on the inputs of phases 3,
-    4, 14, 18 and 21, and keeps their outputs in
+    """Times kernels 1, 2, 3 (at each K of MULTI_KS), 4 (at MULTI_K), 5-8
+    (at the GAN's reference scale), 9 (at E1, on general noise with time
+    and at the narrow solve), 10 (at E1), 11 (at R1 and on general noise
+    with time), 12 (at R1), 13 (at L1, L2 and the small signed solve) and 14
+    (at L1) through the entry points that every version of the port has,
+    on the inputs of phases 3, 4, 8, 11, 14, 18 and 21, and keeps their
+    outputs in
     build/ab_<tag>.pt. With ``against``, the outputs of the run tagged so
     are compared with this run's: bitwise, or the largest difference. Run
     by a copy of this script inside another checkout (its parent commit),
@@ -3116,19 +3239,62 @@ def phase_ab(device, tag, against):
                     lambda: LF.fused_solve_multi_backward_cuda(*b_t), 10)
                 del b_t, g_t
             del a_t, w_t, got
-        method, B, d, (drift, diffusion) = tower_config(device, "E1")
-        spec, e_args = tower_kernel_args(device, method, drift, diffusion, B,
-                                         d, d, True, False, SEED + 12)
-        ys = FS.euler_solve_forward_cuda(*e_args)
-        gen = torch.Generator(device=device).manual_seed(SEED + 13)
-        gy = torch.randn(ys.shape, generator=gen, device=device)
-        out["kernel9"] = [ys]
-        times["kernel9"] = median_cuda_ms(
-            lambda: FS.euler_solve_forward_cuda(*e_args), 20)
-        out["kernel10"] = list(FS.euler_solve_backward_cuda(*e_args, ys, gy))
-        times["kernel10"] = median_cuda_ms(
-            lambda: FS.euler_solve_backward_cuda(*e_args, ys, gy), 20)
-        del e_args, ys, gy
+        for label, e_args in ab_euler_inputs(device):
+            key = "kernel9" if label == "E1" else f"kernel9_{label}"
+            out[key] = [FS.euler_solve_forward_cuda(*e_args)]
+            times[key] = median_cuda_ms(
+                lambda: FS.euler_solve_forward_cuda(*e_args), 20)
+            if label != "E1":
+                continue
+            # Stage a, the FMA tiles of 32 rows at E1, against the parent's
+            # kernel 9 (a port with one design of kernel 9 runs that one).
+            if hasattr(FS, "EulerFwdDesign"):
+                design = FS.EulerFwdDesign(0, 32, 512, 3)
+                out["kernel9_fma"] = [FS.euler_solve_forward_cuda(
+                    *e_args, design=design)]
+                times["kernel9_fma"] = median_cuda_ms(
+                    lambda: FS.euler_solve_forward_cuda(*e_args,
+                                                        design=design), 20)
+            else:
+                out["kernel9_fma"] = out[key]
+            # Kernel 10 goes back from the twin's states, the same in every
+            # version of the port.
+            ys = FS.euler_solve_forward_plain(*e_args)
+            gen = torch.Generator(device=device).manual_seed(SEED + 13)
+            gy = torch.randn(ys.shape, generator=gen, device=device)
+            out["kernel10"] = list(FS.euler_solve_backward_cuda(*e_args, ys,
+                                                                gy))
+            times["kernel10"] = median_cuda_ms(
+                lambda: FS.euler_solve_backward_cuda(*e_args, ys, gy), 20)
+            del ys, gy
+        del e_args
+        # Kernels 5-8 at the reference scale; kernels 6 and 8 go back from
+        # the twins' states.
+        gan = gan_models(device)
+        gan_ts, real = gan_data(device)
+        (gen_args, gen_w), (cde_args, cde_w) = gan_kernel_inputs(
+            device, gan, gan_ts, real)
+        gen = torch.Generator(device=device).manual_seed(SEED + 6)
+        out["kernel5"] = list(GF.gen_solve_forward_cuda(*gen_args, gen_w))
+        times["kernel5"] = median_cuda_ms(
+            lambda: GF.gen_solve_forward_cuda(*gen_args, gen_w), 20)
+        ys, zs, gs = GF.gen_solve_forward_plain(*gen_args, gen_w)
+        b6 = (*gen_args, gen_w, zs, gs,
+              torch.randn(ys.shape, generator=gen, device=device))
+        out["kernel6"] = flat_grads(GF.gen_solve_backward_cuda(*b6))
+        times["kernel6"] = median_cuda_ms(
+            lambda: GF.gen_solve_backward_cuda(*b6), 20)
+        out["kernel7"] = list(GF.cde_solve_forward_cuda(*cde_args, cde_w))
+        times["kernel7"] = median_cuda_ms(
+            lambda: GF.cde_solve_forward_cuda(*cde_args, cde_w), 20)
+        hs, czs = GF.cde_solve_forward_plain(*cde_args, cde_w)
+        ghs = torch.zeros_like(hs)
+        ghs[-1] = torch.randn(hs.shape[1:], generator=gen, device=device)
+        b8 = (*cde_args, cde_w, czs, ghs)
+        out["kernel8"] = flat_grads(GF.cde_solve_backward_cuda(*b8))
+        times["kernel8"] = median_cuda_ms(
+            lambda: GF.cde_solve_backward_cuda(*b8), 20)
+        del gan, b6, b8
         for label, r_args in ab_rh_inputs(device):
             out[f"kernel11_{label}"] = list(FS.rh_solve_forward_cuda(*r_args))
             times[f"kernel11_{label}"] = median_cuda_ms(
@@ -3170,6 +3336,10 @@ def phase_ab(device, tag, against):
     if against:
         other = torch.load(Path(against), map_location="cpu")
         for k, tensors in out.items():
+            if k not in other:
+                print(f"ab {tag} vs {against}: {k} not in the other run",
+                      flush=True)
+                continue
             diffs = [float((a.cpu() - b).abs().max())
                      for a, b in zip(tensors, other[k])]
             same = all(torch.equal(a.cpu(), b)
@@ -3320,6 +3490,10 @@ def main():
             replaces="torchsde_tpu/ops/prng.py:37", launches=prng_launches,
             library_ms=None, **kernel16))
     if "tiles" in groups:
+        print(json.dumps({"euler_tiles": phase_euler_tiles(device)}),
+              flush=True)
+        print(json.dumps({"cde_bwd_tiles": phase_cde_tiles(device)}),
+              flush=True)
         print(json.dumps({"fwd_tiles": phase_fwd_tiles(device)}), flush=True)
         print(json.dumps({"sweep_tiles": phase_tiles(device)}), flush=True)
     if "ab" in groups:

@@ -1411,3 +1411,176 @@ def test_multi_backward_in_replica_groups(cuda, budget_replicas,
     for k, single in enumerate(singles):
         assert all(torch.equal(a[k], b)
                    for a, b in zip(_flat(got), _flat(single)))
+
+
+# Kernel 9's designs (fused_solve.forward_design): (S, m, with_time,
+# hidden, depth, B, N) at E1, on general noise with time (depth 3), the
+# narrow solve, a ragged batch and a batch under one block's rows.
+EULER_CASES = [
+    (32, 32, False, 128, 2, 4096, 16),      # E1: 3xTF32, 32 rows
+    (16, 4, True, 64, 3, 1024, 16),         # general noise with time
+    (8, 8, False, 16, 2, 256, 16),          # narrow
+    (32, 32, False, 128, 2, 4001, 8),       # ragged
+    (32, 32, False, 128, 2, 5, 8),          # under one block's rows
+]
+EULER_IDS = [f"S{c[0]}-m{c[1]}-B{c[5]}" for c in EULER_CASES]
+
+
+def _euler_solve(device, case, seed=0):
+    S, m, wt, hidden, depth, B, N = case
+    tower_case = ("euler", m == S, S, m, wt,
+                  ((hidden,) * (depth - 1),
+                   ("softplus", "tanh")[:depth - 1] + ("linear",)),
+                  ((hidden,) * (depth - 1),
+                   ("lipswish", "softplus")[:depth - 1] + ("sigmoid",)),
+                  B, N, 0.3)
+    spec, args, _ = _tower_solve(device, tower_case, seed)
+    return spec, args
+
+
+@pytest.mark.parametrize("case", EULER_CASES, ids=EULER_IDS)
+def test_euler_forward_mma_matches_plain_and_float64(cuda, case):
+    """Kernel 9 in the rule's design (3xTF32 at E1's widths and batch, the
+    FMA tiles on general noise and the narrow solve) and in the 3xTF32
+    design of 32 rows, against its twin within max(2e-5, 4e-6 * scale) and
+    at most twice the twin's distance from float64 plus 2e-5
+    (chip_smoke.py's rules); one launch a call, two calls bitwise equal."""
+    with torch.no_grad():
+        spec, args = _euler_solve(cuda, case)
+        design = FS.forward_design(FS.EULER_FWD, spec, case[5],
+                                   FS._sm_count(cuda))
+        assert design.mma == (case[0] == 32 and case[5] >= 4000)
+        mma = FS.EulerFwdDesign(1, FS.MMA_ROWS, FS.mma_threads(spec), 3)
+        before = FS.euler_launches
+        runs = [(FS.euler_solve_forward_cuda(*args),
+                 FS.euler_solve_forward_cuda(*args))]
+        runs.append((FS.euler_solve_forward_cuda(*args, design=mma),
+                     FS.euler_solve_forward_cuda(*args, design=mma)))
+        want = FS.euler_solve_forward_plain(*args)
+        exact = FS.euler_solve_forward_plain(
+            *[a.double() if torch.is_tensor(a) else a for a in args])
+    torch.cuda.synchronize()
+    assert FS.euler_launches == before + 4
+    scale = float(want.abs().max())
+    plain64 = float((want.double() - exact).abs().max())
+    for got, again in runs:
+        assert torch.equal(got, again)
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= max(2e-5, 4e-6 * scale)
+        assert float((got.double() - exact).abs().max()) <= \
+            2 * plain64 + 2e-5
+
+
+# Kernel 9's FMA tile designs (mma, rows, threads, staged): every one gives
+# the bits of the 8-row design that streams both towers from L2, which
+# the earlier kernel 9 ran.
+EULER_FMA_DESIGNS = ((0, 8, 256, 0), (0, 8, 256, 3), (0, 16, 512, 3),
+                     (0, 32, 512, 3), (0, 32, 256, 1), (0, 32, 768, 3))
+
+
+@pytest.mark.parametrize("case", [EULER_CASES[i] for i in (0, 1, 2, 4)],
+                         ids=[EULER_IDS[i] for i in (0, 1, 2, 4)])
+def test_euler_forward_fma_designs_are_bitwise_the_8_row_design(cuda, case):
+    """Stage a of kernel 9 (every tower in one block, FMA tiles) and every
+    other FMA design that fits are bitwise the 8-row streamed design; the
+    3xTF32 designs at 256 and 512 threads stay within the twin's tolerance
+    of it."""
+    with torch.no_grad():
+        spec, args = _euler_solve(cuda, case, seed=2)
+        want = FS.euler_solve_forward_cuda(
+            *args, design=FS.EulerFwdDesign(*EULER_FMA_DESIGNS[0]))
+        runs = []
+        for design in map(FS.EulerFwdDesign._make, EULER_FMA_DESIGNS[1:]):
+            if FS.fwd_smem_bytes(FS.EULER_FWD, spec, design.stage,
+                                 design.rows, 1) > _build.MAX_SMEM_BYTES:
+                continue
+            runs.append(FS.euler_solve_forward_cuda(*args, design=design))
+        mma = [FS.euler_solve_forward_cuda(
+                   *args, design=FS.EulerFwdDesign(1, 32, threads, 3))
+               for threads in (256, 512)
+               if FS.fwd_smem_bytes(FS.EULER_FWD, spec, 3, 32, 1, mma=True)
+               <= _build.MAX_SMEM_BYTES]
+    torch.cuda.synchronize()
+    assert len(runs) >= 3 and mma
+    for run in runs:
+        assert torch.equal(run, want)
+    scale = float(want.abs().max())
+    for run in mma:
+        assert float((run - want).abs().max()) <= max(2e-5, 4e-6 * scale)
+
+
+def test_euler_mma_smem_bytes_match_the_c_layout(cuda):
+    """fused_solve.fwd_smem_bytes(mma=True) equals the C layout's
+    tsde_tower_euler_fwd_mma_smem_bytes, and the FMA tiles'
+    tsde_tower_fwd_smem_bytes, for every case, rows and staging."""
+    lib = _build.load_library()
+    for case in EULER_CASES:
+        spec, _ = _euler_solve(torch.device("cpu"), case)
+        table = FS._host_table(spec)
+        nf, ng, _, S, m, diag, wt = FS._dims(spec)
+        assert FS.fwd_smem_bytes(FS.EULER_FWD, spec, 3, 32, 1, mma=True) == \
+            lib.tsde_tower_euler_fwd_mma_smem_bytes(table, nf, ng, S, m,
+                                                    diag, wt)
+        for rows in FS.FWD_ROWS:
+            for stage in range(4):
+                assert FS.fwd_smem_bytes(FS.EULER_FWD, spec, stage, rows,
+                                         1) == \
+                    lib.tsde_tower_fwd_smem_bytes(
+                        FS.EULER_FWD, table, *FS._dims(spec), stage, rows, 1)
+
+
+# Kernel 8 at the critic's reference scale (2048 rows, S 17, M 16, C 2, 64
+# times: 63 steps), a ragged batch, and one and three control channels.
+CDE_REF_SHAPES = [
+    (2048, 17, 16, 2, 64),
+    (2047, 17, 16, 2, 20),
+    (300, 17, 16, 1, 20),
+    (300, 9, 24, 3, 20),
+]
+
+
+@pytest.mark.parametrize("B,S,M,C,T", CDE_REF_SHAPES)
+@pytest.mark.parametrize("last_only", [True, False], ids=["last", "dense"])
+def test_cde_backward_matches_plain_and_float64(cuda, B, S, M, C, T,
+                                                last_only):
+    """Kernel 8 against its twin at max(1e-4, 1e-5 * scale) and at most
+    twice the twin's distance from float64 plus 1e-4 (chip_smoke.py's
+    rules), on last-state and dense cotangents; 1, 4 and 8 warps a block
+    give the same bits, and two calls too."""
+    with torch.no_grad():
+        bargs = _gan_cde_backward_args(cuda, B, S, M, C, T, 4,
+                                       last_only=last_only)
+        want = GF.cde_solve_backward_plain(*bargs)
+        exact = GF.cde_solve_backward_plain(
+            *[tuple(w.double() for w in a) if isinstance(a, tuple)
+              else a.double() for a in bargs])
+        runs = {t: GF.cde_solve_backward_cuda(*bargs, threads=t)
+                for t in (32, 128, 256)}
+        again = GF.cde_solve_backward_cuda(*bargs)
+    torch.cuda.synchronize()
+    flat = [*want[:-1], *want[-1]]
+    flat64 = [*exact[:-1], *exact[-1]]
+    first = [*runs[32][:-1], *runs[32][-1]]
+    for threads, got in runs.items():
+        _assert_gan_grads_close(got, want)
+        got = [*got[:-1], *got[-1]]
+        for g, w, e in zip(got, flat, flat64):
+            plain64 = float((w.double() - e).abs().max())
+            assert float((g.double() - e).abs().max()) <= \
+                2 * plain64 + 1e-4, threads
+        assert all(torch.equal(a, b) for a, b in zip(got, first))
+    assert all(torch.equal(a, b) for a, b in
+               zip([*again[:-1], *again[-1]], first))
+
+
+def test_cde_backward_smem_grows_with_warps(cuda):
+    """Kernel 8's shared memory: the weights' lane-major copies once a
+    block, then 32 x (3 + C) floats a warp for its rows' vectors."""
+    lib = _build.load_library()
+    for S, M, C in ((17, 16, 2), (9, 24, 3), (32, 32, 8)):
+        one = lib.tsde_gan_cde_bwd_smem_bytes(S, M, C, 32)
+        for threads in (64, 128, 256):
+            assert lib.tsde_gan_cde_bwd_smem_bytes(S, M, C, threads) == \
+                one + 4 * 32 * (3 + C) * (threads // 32 - 1)
+        assert lib.tsde_gan_cde_bwd_smem_bytes(S, M, C, 256) \
+            <= _build.MAX_SMEM_BYTES

@@ -31,7 +31,7 @@ SOURCES = ("latent_fused_fwd.cu", "latent_fused_bwd.cu", "gan_gen_fwd.cu",
            "tower_euler_logqp_bwd.cu", "tower_bwd_contract.cu",
            "philox_normal.cu")
 HEADERS = ("latent_fused_common.cuh", "gan_fused_common.cuh",
-           "tower_solve_common.cuh", "tower_fwd_tile.cuh")
+           "tower_solve_common.cuh", "tower_fwd_tile.cuh", "mma_tf32.cuh")
 # Headers that generated sources include (library_for_source).
 SOURCE_HEADERS = ("srk_srid2.cuh",)
 BUILD_DIR = Path(os.environ.get(
@@ -108,17 +108,20 @@ def _bind(lib):
     cde_bwd = lib.tsde_gan_cde_bwd
     cde_bwd.argtypes = [P] * 14 + [I] * 7 + [P]
     cde_bwd.restype = I
-    for name in ("gen_fwd", "cde_fwd", "gen_bwd", "cde_bwd"):
+    for name in ("gen_fwd", "cde_fwd", "gen_bwd"):
         smem = getattr(lib, f"tsde_gan_{name}_smem_bytes")
         smem.argtypes = [I, I, I]
         smem.restype = ctypes.c_size_t
+    # Kernel 8's shared memory depends on its warps a block too.
+    lib.tsde_gan_cde_bwd_smem_bytes.argtypes = [I, I, I, I]
+    lib.tsde_gan_cde_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.tsde_gan_bwd_partials.argtypes = [I, I, I]
     lib.tsde_gan_bwd_partials.restype = I
     # The TowerSpec solves: two layer tables (host, device), the tensors,
     # then nf, ng, nh, S, m, diag, wt, stage, (kernels 11 and 13: rows,
-    # threads, cluster,) B, N, (kernels 10, 12 and 14: window, stages,)
-    # device and the stream.
-    for name, tensors, ints in (("euler_fwd", 7, 11), ("euler_bwd", 12, 13),
+    # threads, cluster; kernel 9: rows, threads, mma,) B, N, (kernels 10,
+    # 12 and 14: window, stages,) device and the stream.
+    for name, tensors, ints in (("euler_fwd", 7, 14), ("euler_bwd", 12, 13),
                                 ("rh_fwd", 11, 14), ("rh_bwd", 15, 13),
                                 ("euler_logqp_fwd", 9, 14),
                                 ("euler_logqp_bwd", 14, 13)):
@@ -131,6 +134,8 @@ def _bind(lib):
     lib.tsde_tower_smem_bytes.restype = ctypes.c_size_t
     lib.tsde_tower_fwd_smem_bytes.argtypes = [I, P] + [I] * 10
     lib.tsde_tower_fwd_smem_bytes.restype = ctypes.c_size_t
+    lib.tsde_tower_euler_fwd_mma_smem_bytes.argtypes = [P] + [I] * 6
+    lib.tsde_tower_euler_fwd_mma_smem_bytes.restype = ctypes.c_size_t
     for name in ("rh_fwd", "euler_logqp_fwd"):
         getattr(lib, f"tsde_tower_{name}_clusters").argtypes = [I] * 3
         getattr(lib, f"tsde_tower_{name}_clusters").restype = I

@@ -18,18 +18,33 @@
 // at S=17, M=16, C=2, so 0.66 GFLOP for 63 steps over the 2048 rows of a
 // training step (9.9 us at the float32 peak). It reads zs, ghs (N,B,S) and
 // the slopes and writes dslopes, about 20 MB (6 us at 3.35 TB/s). In
-// practice it is bound by latency: 63 dependent steps of tiny products.
+// practice it is bound by latency and by the shared-memory pipe: 63
+// dependent steps of tiny products. The earlier design moved every value a
+// product needs from one lane to the others with __shfl_sync, about 127
+// shuffles a row and step at the reference scale, and read each weight as
+// its own 4-byte load; it took 0.33 ms (NVIDIA H100 80GB HBM3, 700 W).
 //
 // Design, as gan_gen_bwd.cu: a row's work stays inside a group of G lanes of
 // one warp (G = 32 for S = 17: one row per warp), lane l owning state unit
-// l (ay, az, af and its C outputs) and hidden unit l; products gather
-// through __shfl_sync, with the weights and transposed copies in shared
-// memory, zero-padded to G. Lane l accumulates column l of W1 and b1[l],
-// and column l of W2 and its b2 entries: 100 registers at the reference
-// scale (G and C template parameters). Each warp writes one partial; a
-// second kernel sums them in a fixed order, so two calls give bitwise the
-// same gradients. Precise expf and tanhf, float32 throughout. The kernels
-// allocate nothing and do not synchronise the host.
+// l (ay, az, af and its C outputs) and hidden unit l. Each vector a product
+// needs whole (z1, the hidden activations a1, the output cotangents d2 and
+// the hidden cotangents d1) is written once to the row's slot in the
+// warp's shared memory and, after a __syncwarp, read back by every lane of
+// the group four values a load (a broadcast); each lane reads its own
+// weights four a load too, from copies laid out lane-major with a stride of
+// 4 x odd floats, so the eight lanes of a quarter-warp hit distinct banks.
+// The only shuffles left are the slopes' group sums. Every sum keeps the
+// earlier design's order (the bias last in layer 1, the output units in
+// order going back), so the outputs are bitwise those of the shuffle
+// design. Lane l accumulates column l of W1 and b1[l], and column l of W2
+// and its b2 entries: 68 registers at the reference scale (G, C and the
+// most hidden units template parameters), so a lane fits in 128 and 16
+// warps share an SM: one wave. Each warp writes one partial; a second
+// kernel sums them in a fixed order, so two calls give bitwise the same
+// gradients. At the reference scale it takes 0.154 ms, the same bits as
+// the shuffle design's 0.327 (NVIDIA H100 80GB HBM3, 700 W).
+// Precise expf and tanhf, float32 throughout. The kernels allocate nothing
+// and do not synchronise the host.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -54,10 +69,51 @@ struct CdeBwdArgs {
   int B, S, M, C, N, P;
 };
 
+// The smallest multiple of 4 at least n whose quarter is odd: the stride of
+// a lane-major weight copy that a quarter-warp reads as float4 without
+// bank conflicts.
+__host__ __device__ inline int odd_quad(int n) {
+  int q = (n + 3) / 4;
+  if (q % 2 == 0) ++q;
+  return 4 * q;
+}
+
+// The sweep's shared memory (floats). The block's weight copies, each G
+// lane rows of a stride from odd_quad (zeros past S or M):
+//   w1c[l * K1 + i]            = W1[1 + i][l]        layer 1, hidden l
+//   w2c[(l * C + c) * K2 + k]  = W2[k][l * C + c]    layer 2, unit l
+//   w2r[l * K3 + j]            = W2[l][j]            da, hidden l
+//   w1r[l * K2 + k]            = W1[1 + l][k]        dz, unit l
+// then each warp's rows, a row's slot holding z1 (G), a1 (G), d2 (G * C)
+// and d1 (G).
+struct CdeLayout {
+  int K1, K2, K3;
+  int w1c, w2c, w2r, w1r, block;
+  int z, a, d, e, row;  // offsets inside a row's slot, and its size
+};
+
+__host__ __device__ inline CdeLayout cde_layout(int S, int M, int C, int G) {
+  CdeLayout L;
+  L.K1 = odd_quad(S);
+  L.K2 = odd_quad(M);
+  L.K3 = odd_quad(S * C);
+  L.w1c = 0;
+  L.w2c = L.w1c + G * L.K1;
+  L.w2r = L.w2c + G * C * L.K2;
+  L.w1r = L.w2r + G * L.K3;
+  L.block = L.w1r + G * L.K2;
+  L.z = 0;
+  L.a = G;
+  L.d = 2 * G;
+  L.e = 2 * G + G * C;
+  L.row = 3 * G + G * C;
+  return L;
+}
+
 __host__ __device__ inline size_t cde_bwd_smem_floats(int S, int M, int C,
-                                                      int G) {
-  return tower_w1_floats(S, G) + tower_w2_floats(M, C, G) + size_t(G) * G
-         + size_t(G) * C * G;
+                                                      int G, int warps) {
+  const CdeLayout L = cde_layout(S, M, C, G);
+  return size_t(L.block) + size_t(warps) * 32 * (3 + C);
 }
 
 // Row `row`'s inputs of step s: z1 and ghs of unit li and the slopes; zeros
@@ -81,17 +137,61 @@ __device__ __forceinline__ void load_cde_step(const CdeBwdArgs& a, int s,
 
 // The number of control channels C (1..MAX_K) and the group width G (16 or
 // 32) are template parameters, as in gan_gen_bwd.cu.
-template <int G, int C>
-__global__ void __launch_bounds__(MAX_THREADS)
+// Stages the lane-major weight copies of cde_layout with the whole block.
+__device__ inline void stage_cde_weights(float* sm, const CdeLayout& L,
+                                         const float* W1, const float* W2,
+                                         int S, int M, int C, int G) {
+  const int SC = S * C;
+  for (int e = threadIdx.x; e < G * L.K1; e += blockDim.x) {
+    const int l = e / L.K1, i = e % L.K1;
+    sm[L.w1c + e] = l < M && i < S ? W1[(1 + i) * M + l] : 0.f;
+  }
+  for (int e = threadIdx.x; e < G * C * L.K2; e += blockDim.x) {
+    const int o = e / L.K2, k = e % L.K2, l = o / C;
+    sm[L.w2c + e] = l < S && k < M ? W2[k * SC + o] : 0.f;
+  }
+  for (int e = threadIdx.x; e < G * L.K3; e += blockDim.x) {
+    const int l = e / L.K3, j = e % L.K3;
+    sm[L.w2r + e] = l < M && j < SC ? W2[l * SC + j] : 0.f;
+  }
+  for (int e = threadIdx.x; e < G * L.K2; e += blockDim.x) {
+    const int l = e / L.K2, k = e % L.K2;
+    sm[L.w1r + e] = l < S && k < M ? W1[(1 + l) * M + k] : 0.f;
+  }
+}
+
+// acc = fmaf(v[j], w[j], acc) for j < n in order, v a row vector of the
+// warp's shared memory and w a lane's weight row, both read as float4
+// (NQ of them at most).
+template <int NQ>
+__device__ __forceinline__ float dot4(const float* v, const float* w, int n,
+                                      float acc) {
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    if (4 * q >= n) break;
+    const float4 x = v4[q], y = w4[q];
+    acc = fmaf(x.x, y.x, acc);
+    if (4 * q + 1 < n) acc = fmaf(x.y, y.y, acc);
+    if (4 * q + 2 < n) acc = fmaf(x.z, y.z, acc);
+    if (4 * q + 3 < n) acc = fmaf(x.w, y.w, acc);
+  }
+  return acc;
+}
+
+// The number of control channels C (1..MAX_K), the group width G (16 or
+// 32) and H, the most hidden units (16 or G), are template parameters: the
+// weight-gradient accumulators are register arrays of their sizes. Where
+// they are few (H C <= 32, as at the reference scale) a lane is held to 128
+// registers, so 16 warps share an SM: the critic's 2,048 rows in one wave.
+template <int G, int H, int C>
+__global__ void __launch_bounds__(MAX_THREADS, H * C <= 32 ? 2 : 1)
 gan_cde_bwd_kernel(const CdeBwdArgs a) {
   extern __shared__ __align__(16) float sm[];
-  const int S = a.S, M = a.M, B = a.B;
-  float* w1 = sm;
-  float* w2 = w1 + tower_w1_floats(S, G);
-  float* w1t = w2 + tower_w2_floats(M, C, G);
-  float* w2t = w1t + G * G;
-  stage_tower(w1, w2, a.w[0], a.w[2], S, M, C, G);
-  stage_tower_t(w1t, w2t, a.w[0], a.w[2], S, M, C, G);
+  const int S = a.S, M = a.M, B = a.B, SC = S * C;
+  const CdeLayout L = cde_layout(S, M, C, G);
+  stage_cde_weights(sm, L, a.w[0], a.w[2], S, M, C, G);
   __syncthreads();
 
   constexpr int RPW = 32 / G;                  // rows per warp
@@ -107,19 +207,30 @@ gan_cde_bwd_kernel(const CdeBwdArgs a) {
   const bool unit = live && li < S;
   const bool hid = li < M;
 
-  const float* w1s[1] = {w1};
-  const float b1[1] = {hid ? a.w[1][li] : 0.f};
+  // This lane's weight rows, and its row's slot.
+  const float* w1c = sm + L.w1c + li * L.K1;
+  const float* w2c = sm + L.w2c + li * C * L.K2;
+  const float* w2r = sm + L.w2r + li * L.K3;
+  const float* w1r = sm + L.w1r + li * L.K2;
+  float* slot = sm + L.block + (threadIdx.x >> 5) * 32 * (3 + C)
+                + (lane / G) * L.row;
+  float* zv = slot + L.z;
+  float* av = slot + L.a;
+  float* dv = slot + L.d;
+  float* ev = slot + L.e;
+  const float w1t = hid ? a.w[0][li] : 0.f;    // W1's time row
+  const float b1 = hid ? a.w[1][li] : 0.f;
   float b2[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) b2[c] = li < S ? a.w[3][li * C + c] : 0.f;
 
   float ay = 0.f, az = 0.f, af = 0.f;
   // Column li of dW1 (row 0: time) and of dW2 (outputs (li, c); row k).
-  float gw1[1 + G], gw2[G][C], gb1 = 0.f, gb2[C];
+  float gw1[1 + G], gw2[H][C], gb1 = 0.f, gb2[C];
 #pragma unroll
   for (int r = 0; r <= G; ++r) gw1[r] = 0.f;
 #pragma unroll
-  for (int k = 0; k < G; ++k) {
+  for (int k = 0; k < H; ++k) {
 #pragma unroll
     for (int c = 0; c < C; ++c) gw2[k][c] = 0.f;
   }
@@ -141,12 +252,18 @@ gan_cde_bwd_kernel(const CdeBwdArgs a) {
     ay += in.gh;
     const float Af = af + 0.5f * dt * ay;
 
-    // The tower's forward at [t1, z1].
-    float pre[1], a1, sl1;
-    tower_layer1<1>(w1s, b1, t1, in.z1, S, G, li, pre);
-    lipswish_and_slope(pre[0], a1, sl1);
+    // The tower's forward at [t1, z1]: the last step's reads of zv ended
+    // before its d1 barrier.
+    zv[li] = in.z1;
+    __syncwarp();
+    float a1, sl1;
+    lipswish_and_slope(dot4<G / 4>(zv, w1c, S, t1 * w1t) + b1, a1, sl1);
+    av[li] = a1;
+    __syncwarp();
     float F[C];
-    tower_layer2<C>(w2, a1, b2, M, G, li, F);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      F[c] = tanhf(dot4<G / 4>(av, w2c + c * L.K2, M, 0.f) + b2[c]);
 
     // The slopes' cotangent, and the outputs' pre-activation cotangents.
     float ds[C], d2[C];
@@ -155,6 +272,7 @@ gan_cde_bwd_kernel(const CdeBwdArgs a) {
       ds[c] = group_sum<G>(Af * F[c]);
       d2[c] = Af * in.sl[c] * (1.f - F[c] * F[c]);
       gb2[c] += d2[c];
+      dv[li * C + c] = d2[c];
     }
     if (live && li == 0) {
       float* out = a.dslopes + (size_t(s) * B + row) * C;
@@ -164,40 +282,43 @@ gan_cde_bwd_kernel(const CdeBwdArgs a) {
 
     // Layer 2's weights: dW2[k][(li, c)] += a1[k] dpre2[(li, c)].
 #pragma unroll
-    for (int k = 0; k < G; ++k) {
-      if (k < M) {
-        const float ak = __shfl_sync(FULL, a1, k, G);
+    for (int k4 = 0; k4 < H; k4 += 4) {
+      if (k4 < M) {
+        const float4 v = *reinterpret_cast<const float4*>(av + k4);
+        const float ak[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int c = 0; c < C; ++c) gw2[k][c] = fmaf(ak, d2[c], gw2[k][c]);
+        for (int j = 0; j < 4; ++j) {
+          if (k4 + j < M) {
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+              gw2[k4 + j][c] = fmaf(ak[j], d2[c], gw2[k4 + j][c]);
+          }
+        }
       }
     }
+    __syncwarp();
 
     // Hidden unit li's cotangent, through lipswish.
-    float da = 0.f;
-#pragma unroll 4
-    for (int o = 0; o < S; ++o) {
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        da = fmaf(__shfl_sync(FULL, d2[c], o, G), w2t[(o * C + c) * G + li],
-                  da);
-    }
-    const float d1 = da * sl1;
+    const float d1 = dot4<G * C / 4>(dv, w2r, SC, 0.f) * sl1;
 
     // Layer 1's weights: dW1[r][li] += [t1, z1][r] dpre1[li].
     gb1 += d1;
     gw1[0] = fmaf(t1, d1, gw1[0]);
 #pragma unroll
-    for (int i = 0; i < G; ++i) {
-      if (i < S) gw1[1 + i] = fmaf(__shfl_sync(FULL, in.z1, i, G), d1,
-                                   gw1[1 + i]);
+    for (int i4 = 0; i4 < G; i4 += 4) {
+      if (i4 < S) {
+        const float4 v = *reinterpret_cast<const float4*>(zv + i4);
+        const float zi[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (i4 + j < S) gw1[1 + i4 + j] = fmaf(zi[j], d1, gw1[1 + i4 + j]);
+      }
     }
+    ev[li] = d1;
+    __syncwarp();
 
     // State unit li's cotangent.
-    float dz = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < M; ++k)
-      dz = fmaf(__shfl_sync(FULL, d1, k, G), w1t[k * G + li], dz);
-    const float Az = az + dz;
+    const float Az = az + dot4<G / 4>(ev, w1r, M, 0.f);
 
     af = 0.5f * dt * ay + dt * Az;
     ay += 2.f * Az;
@@ -217,7 +338,7 @@ gan_cde_bwd_kernel(const CdeBwdArgs a) {
 #pragma unroll
     for (int r = 0; r <= G; ++r) gw1[r] += __shfl_down_sync(FULL, gw1[r], 16);
 #pragma unroll
-    for (int k = 0; k < G; ++k) {
+    for (int k = 0; k < H; ++k) {
 #pragma unroll
       for (int c = 0; c < C; ++c)
         gw2[k][c] += __shfl_down_sync(FULL, gw2[k][c], 16);
@@ -227,7 +348,6 @@ gan_cde_bwd_kernel(const CdeBwdArgs a) {
     for (int c = 0; c < C; ++c) gb2[c] += __shfl_down_sync(FULL, gb2[c], 16);
   }
   if (lane >= G) return;
-  const int SC = S * C;
   float* pW1 = a.partials + size_t(warp) * a.P;
   float* pb1 = pW1 + (1 + S) * M;
   float* pW2 = pb1 + M;
@@ -241,7 +361,7 @@ gan_cde_bwd_kernel(const CdeBwdArgs a) {
   }
   if (li < S) {
 #pragma unroll
-    for (int k = 0; k < G; ++k) {
+    for (int k = 0; k < H; ++k) {
       if (k < M) {
 #pragma unroll
         for (int c = 0; c < C; ++c) pW2[k * SC + li * C + c] = gw2[k][c];
@@ -254,17 +374,17 @@ gan_cde_bwd_kernel(const CdeBwdArgs a) {
 
 using CdeBwdKernel = void (*)(CdeBwdArgs);
 
-template <int G>
+template <int G, int H>
 CdeBwdKernel cde_bwd_kernel_for(int C) {
   switch (C) {
-    case 1: return gan_cde_bwd_kernel<G, 1>;
-    case 2: return gan_cde_bwd_kernel<G, 2>;
-    case 3: return gan_cde_bwd_kernel<G, 3>;
-    case 4: return gan_cde_bwd_kernel<G, 4>;
-    case 5: return gan_cde_bwd_kernel<G, 5>;
-    case 6: return gan_cde_bwd_kernel<G, 6>;
-    case 7: return gan_cde_bwd_kernel<G, 7>;
-    default: return gan_cde_bwd_kernel<G, 8>;
+    case 1: return gan_cde_bwd_kernel<G, H, 1>;
+    case 2: return gan_cde_bwd_kernel<G, H, 2>;
+    case 3: return gan_cde_bwd_kernel<G, H, 3>;
+    case 4: return gan_cde_bwd_kernel<G, H, 4>;
+    case 5: return gan_cde_bwd_kernel<G, H, 5>;
+    case 6: return gan_cde_bwd_kernel<G, H, 6>;
+    case 7: return gan_cde_bwd_kernel<G, H, 7>;
+    default: return gan_cde_bwd_kernel<G, H, 8>;
   }
 }
 
@@ -272,9 +392,11 @@ CdeBwdKernel cde_bwd_kernel_for(int C) {
 
 extern "C" {
 
-// Dynamic shared memory one block of the sweep needs for these widths.
-size_t tsde_gan_cde_bwd_smem_bytes(int S, int M, int C) {
-  return cde_bwd_smem_floats(S, M, C, bwd_group_width(S, M)) * sizeof(float);
+// Dynamic shared memory one block of the sweep needs for these widths at
+// `threads` threads a block.
+size_t tsde_gan_cde_bwd_smem_bytes(int S, int M, int C, int threads) {
+  return cde_bwd_smem_floats(S, M, C, bwd_group_width(S, M), threads / 32)
+         * sizeof(float);
 }
 
 // Launches the sweep (`threads` threads per block) and the sum of its
@@ -307,8 +429,10 @@ int tsde_gan_cde_bwd(const float* slopes, const float* t1s, const float* dts,
   a.P = (1 + S) * M + M + M * S * C + S * C;
   const int G = bwd_group_width(S, M);
   const CdeBwdKernel kernel =
-      G == 16 ? cde_bwd_kernel_for<16>(C) : cde_bwd_kernel_for<32>(C);
-  const size_t smem = tsde_gan_cde_bwd_smem_bytes(S, M, C);
+      G == 16   ? cde_bwd_kernel_for<16, 16>(C)
+      : M <= 16 ? cde_bwd_kernel_for<32, 16>(C)
+                : cde_bwd_kernel_for<32, 32>(C);
+  const size_t smem = tsde_gan_cde_bwd_smem_bytes(S, M, C, threads);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));

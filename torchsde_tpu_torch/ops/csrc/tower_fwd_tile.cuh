@@ -1,7 +1,7 @@
-// Row tiles for the whole-solve forward kernels 11 and 13
-// (tower_rh_fwd.cu, tower_euler_logqp_fwd.cu), beside the 8-row helpers of
-// tower_solve_common.cuh, whose layer table, plan and activations they
-// share.
+// Row tiles for the whole-solve forward kernels 9, 11 and 13
+// (tower_euler_fwd.cu, tower_rh_fwd.cu, tower_euler_logqp_fwd.cu), beside
+// the 8-row helpers of tower_solve_common.cuh, whose layer table, plan and
+// activations they share; and, at the end, kernel 9's 3xTF32 tiles.
 //
 // A block (or a cluster of blocks) holds R rows (8, 16 or 32) and runs the
 // whole step loop. Three designs, chosen on the host from the widths, the
@@ -37,6 +37,7 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "mma_tf32.cuh"
 #include "tower_solve_common.cuh"
 
 namespace tsde_tower {
@@ -57,12 +58,13 @@ struct TileLayout {
   size_t nz[2];               // [j][r]: a step's noise, two steps' slots
   size_t dt;                  // the two slots' dt
   size_t carry[3];            // RH_FWD: y, f, g [unit][row]; EULER_LOGQP_
-                              // FWD: carry[0], the parts of u^2 [part][row]
+                              // FWD: carry[0], the parts of u^2 [part][row];
+                              // EULER_FWD: none
   size_t total;
   int maxl;
 };
 
-// The layout of a forward tile kernel of `kind` (RH_FWD or
+// The layout of a forward tile kernel of `kind` (EULER_FWD, RH_FWD or
 // EULER_LOGQP_FWD) at R rows; `cluster` 1 for one block holding the towers
 // of `stage` (bit t: tower t in shared memory), else the cluster's size
 // (a tower a block, each staged). Fills `plan` when it is not null.
@@ -123,7 +125,7 @@ __host__ __device__ inline TileLayout make_tile_layout(const int* table,
     s.carry[0] = take(at, d.S * RS);                   // y
     s.carry[1] = take(at, d.S * RS);                   // f
     s.carry[2] = take(at, d.gwidth() * RS);            // g
-  } else {
+  } else if (kind == EULER_LOGQP_FWD) {
     s.carry[0] = take(at, tile_parts(d.S) * RS);       // parts of u^2
   }
   s.total = at;
@@ -317,12 +319,13 @@ __device__ inline const float* tile_out(const TileLayout& s, Dims d,
 
 // Starts step n's copies into slot `slot`: its noise (N, B, m) as [j][r]
 // (rows past the batch zero-filled), its dt and, with a time column, its
-// time into x's row 0. One commit group.
-template <int NT>
-__device__ inline void tile_prefetch(const TileLayout& s, float* sm, int n,
+// time into x's unit 0 (row r at x + r * xstride). One commit group.
+template <int NT, typename Layout>
+__device__ inline void tile_prefetch(const Layout& s, float* sm, int n,
                                      int slot, const float* noise,
                                      const float* times, const float* dts,
-                                     int wt, int m, int B, int row0, int R) {
+                                     int wt, int m, int B, int row0, int R,
+                                     int xstride = 1) {
   const int RS = tile_ld(R);
   const float* src = noise + size_t(n) * B * m;
   float* nz = sm + s.nz[slot];
@@ -334,7 +337,7 @@ __device__ inline void tile_prefetch(const TileLayout& s, float* sm, int n,
   }
   if (wt)
     for (int r = threadIdx.x; r < R; r += NT)
-      tile_cp_async4(sm + s.x + r, times + n, true);
+      tile_cp_async4(sm + s.x + r * xstride, times + n, true);
   if (threadIdx.x == 0) tile_cp_async4(sm + s.dt + slot, dts + n, true);
   tile_cp_async_commit();
 }
@@ -439,6 +442,268 @@ __host__ __device__ inline bool tile_design_ok(Dims d, int R, int threads,
   if (R != 8 && R != 16 && R != 32) return false;
   if (cluster != 1 && cluster != d.towers()) return false;
   return cluster > 1 || threads % (32 * d.towers()) == 0;
+}
+
+// ---------------------------------------------------------------------------
+// 3xTF32 row tiles (kernel 9's design where every tower fits a block split;
+// mma_tf32.cuh). A block holds MMA_ROWS = 32 rows (two m-tiles of 16: at 8
+// or 16 rows, an m-tile half zero or one a block, these tiles lost to the
+// FMA tiles) and every tower's weights, split into TF32 halves and laid
+// out as B fragments. A layer is one product [32 x in] . [in x out] on its
+// tower's warps: the warps share its 16 x 8 output tiles in jobs of TM x TN
+// tiles, summing k-tile kt into accumulator kt % KS (KS independent chains,
+// added in order at the end), then add the bias and apply the activation
+// on the accumulator fragment and store it for the next layer. Activations are [row][unit] in the
+// paired order of mma_tf32.cuh (stride frag_ld), so a thread reads its A
+// fragment as two float2 without bank conflicts; units past a layer's
+// width are zero, as are the weights past it, so padding adds zeros. A
+// layer that feeds another stores its output split, the TF32 hi parts in
+// its array and the lo parts in a twin right after it (32 rows of the same
+// stride), so the warps that read a fragment do not each split it again;
+// the towers' input x (the state and the time, which cp.async writes) is
+// split as it is read. A tower's last layer stores float32 for the update.
+//
+// Plan fields (Layer) in this layout: w, b the offsets in shared memory of
+// the split weight tiles and the bias (padded to 8); pre, post the offsets
+// of the layer's input and output arrays, pad and ld their strides.
+
+struct MmaLayout {
+  size_t plan;
+  size_t x;                   // [row][k], paired: the towers' input
+  size_t buf[MAX_TOWERS][2];  // each tower's even and odd layers' outputs
+                              // (with lo twins where a layer feeds another)
+  size_t nz[2];               // [j][r] (stride 36): a step's noise
+  size_t dt;                  // the two slots' dt
+  size_t total;
+  int maxl;
+};
+
+constexpr int MMA_ROWS = 32;
+
+__host__ __device__ inline MmaLayout make_mma_layout(const int* table,
+                                                     Dims d, Layer* plan) {
+  MmaLayout s = {};
+  size_t at = 0;
+  s.plan = take(at, size_t(d.nf + d.ng + d.nh) * PLAN_INTS);
+  int wide[MAX_TOWERS][2] = {{0, 0}, {0, 0}, {0, 0}};
+  int parts[MAX_TOWERS][2] = {{1, 1}, {1, 1}, {1, 1}};  // 2: with lo twin
+  for (int t = 0; t < d.towers(); ++t) {
+    int pack = 0;
+    for (int i = 0; i < d.nl(t); ++i) {
+      const int* row = table + TABLE_COLS * (d.base(t) + i);
+      Layer L = {};
+      L.in = row[0];
+      L.out = row[1];
+      L.act = row[2];
+      L.g = pack;
+      pack += L.in * L.out + L.out;
+      L.w = static_cast<int>(take(at, tsde_mma::frag_floats(L.in, L.out)));
+      L.b = static_cast<int>(take(at, tsde_mma::pad8(L.out)));
+      wide[t][i & 1] = imax(wide[t][i & 1], L.out);
+      if (i + 1 < d.nl(t)) parts[t][i & 1] = 2;
+      if (plan) plan[d.base(t) + i] = L;
+    }
+  }
+  const int xld = tsde_mma::frag_ld(tsde_mma::pad8(d.in0()));
+  int ld[MAX_TOWERS][2] = {{0, 0}, {0, 0}, {0, 0}};
+  s.x = take(at, size_t(MMA_ROWS) * xld);
+  for (int t = 0; t < d.towers(); ++t) {
+    for (int p = 0; p < 2; ++p) {
+      ld[t][p] = tsde_mma::frag_ld(tsde_mma::pad8(wide[t][p]));
+      s.buf[t][p] = take(at, size_t(MMA_ROWS) * ld[t][p] * parts[t][p]);
+    }
+  }
+  s.nz[0] = take(at, size_t(d.m) * tile_ld(MMA_ROWS));
+  s.nz[1] = take(at, size_t(d.m) * tile_ld(MMA_ROWS));
+  s.dt = take(at, 2);
+  s.total = at;
+  s.maxl = imax(imax(d.nf, d.ng), d.nh);
+  for (int t = 0; plan && t < d.towers(); ++t) {
+    for (int i = 0; i < d.nl(t); ++i) {
+      Layer& L = plan[d.base(t) + i];
+      L.pre = static_cast<int>(i == 0 ? s.x : s.buf[t][(i - 1) & 1]);
+      L.pad = i == 0 ? xld : ld[t][(i - 1) & 1];
+      L.post = static_cast<int>(s.buf[t][i & 1]);
+      L.ld = ld[t][i & 1];
+    }
+  }
+  return s;
+}
+
+// act_fwd of every value of v, the branch on `act` taken once.
+template <int N>
+__device__ __forceinline__ void act_fwd_all(float (&v)[N], int act) {
+  switch (act) {
+    case SOFTPLUS:
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = softplus(v[i]);
+      break;
+    case TANH:
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = tanhf(v[i]);
+      break;
+    case SIGMOID:
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = sigmoid(v[i]);
+      break;
+    case LIPSWISH:
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = 0.909f * v[i] * sigmoid(v[i]);
+      break;
+    default:
+      break;
+  }
+}
+
+// Jobs of TM x TN output tiles of layer L (of the two m-tiles) for warp wi
+// of the tower's NW warps. IN_SPLIT: the input is stored split (a hidden
+// layer's output), else float32 (x); `out_split`: store the output split
+// for the next layer.
+template <int TM, int TN, int KS, bool IN_SPLIT>
+__device__ inline void mma_jobs(const Layer L, float* sm, int wi, int NW,
+                                int lane, bool out_split) {
+  using namespace tsde_mma;
+  const int KT = pad8(L.in) / 8, NTn = pad8(L.out) / 8;
+  const int mg = MMA_ROWS / 16 / TM, jobs = mg * ((NTn + TN - 1) / TN);
+  const float* in = sm + L.pre;
+  const float* in_lo = in + MMA_ROWS * L.pad;
+  float* out = sm + L.post;
+  float* out_lo = out + MMA_ROWS * L.ld;
+  const float* tiles = sm + L.w;
+  const float* bias = sm + L.b;
+  const int g = lane >> 2, q = lane & 3;
+  for (int job = wi; job < jobs; job += NW) {
+    const int m0 = (job % mg) * TM, n0 = (job / mg) * TN;
+    float acc[KS][TM][TN][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int tm = 0; tm < TM; ++tm)
+#pragma unroll
+        for (int tn = 0; tn < TN; ++tn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[ks][tm][tn][e] = 0.f;
+    for (int kt0 = 0; kt0 < KT; kt0 += KS) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const int kt = kt0 + ks;
+        if (kt < KT) {
+          AFrag a[TM];
+#pragma unroll
+          for (int tm = 0; tm < TM; ++tm)
+            a[tm] = IN_SPLIT
+                        ? load_a_split(in, in_lo, L.pad, (m0 + tm) * 16, kt,
+                                       lane)
+                        : load_a_paired(in, L.pad, (m0 + tm) * 16, kt, lane);
+#pragma unroll
+          for (int tn = 0; tn < TN; ++tn) {
+            if (n0 + tn < NTn) {
+              const BFrag b = load_b(tiles, kt * NTn + n0 + tn, lane);
+#pragma unroll
+              for (int tm = 0; tm < TM; ++tm) mma3(acc[ks][tm][tn], a[tm], b);
+            }
+          }
+        }
+      }
+    }
+    // The chains' sums and the bias (zero past the layer's width), then
+    // the activation on the whole fragment at once: one branch on it, and
+    // the values' instruction chains interleave.
+    float v[TM * TN * 4];
+#pragma unroll
+    for (int tm = 0; tm < TM; ++tm) {
+#pragma unroll
+      for (int tn = 0; tn < TN; ++tn) {
+        const int nt = n0 + tn < NTn ? n0 + tn : NTn - 1;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float u = acc[0][tm][tn][e];
+#pragma unroll
+          for (int ks = 1; ks < KS; ++ks) u += acc[ks][tm][tn][e];
+          v[(tm * TN + tn) * 4 + e] = u + bias[nt * 8 + 2 * q + (e & 1)];
+        }
+      }
+    }
+    act_fwd_all(v, L.act);
+#pragma unroll
+    for (int tm = 0; tm < TM; ++tm) {
+#pragma unroll
+      for (int tn = 0; tn < TN; ++tn) {
+        const int nt = n0 + tn;
+        if (nt >= NTn) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = (m0 + tm) * 16 + g + (e >> 1) * 8;
+          const int col = nt * 8 + 2 * q + (e & 1);
+          const int at = r * L.ld + k_pos(col);
+          const float y = col < L.out ? v[(tm * TN + tn) * 4 + e] : 0.f;
+          if (out_split) {
+            uint32_t hi, lo;
+            split(y, hi, lo);
+            out[at] = __uint_as_float(hi);
+            out_lo[at] = __uint_as_float(lo);
+          } else {
+            out[at] = y;
+          }
+        }
+      }
+    }
+  }
+}
+
+// Layer i of a tower of nl layers on its NW warps (this one wi): the
+// largest jobs that still give every warp one, else one tile a job in four
+// chains.
+template <bool IN_SPLIT>
+__device__ inline void mma_layer_in(const Layer& L, int wi, int NW,
+                                    int lane, float* sm, bool out_split) {
+  const int NTn = tsde_mma::pad8(L.out) / 8;
+  if ((NTn + 1) / 2 >= NW)
+    mma_jobs<2, 2, 1, IN_SPLIT>(L, sm, wi, NW, lane, out_split);
+  else if (NTn >= NW)
+    mma_jobs<2, 1, 2, IN_SPLIT>(L, sm, wi, NW, lane, out_split);
+  else
+    mma_jobs<1, 1, 4, IN_SPLIT>(L, sm, wi, NW, lane, out_split);
+}
+
+__device__ inline void mma_layer(const Layer& L, int i, int nl, float* sm,
+                                 int wi, int NW, int lane) {
+  if (i == 0)
+    mma_layer_in<false>(L, wi, NW, lane, sm, nl > 1);
+  else
+    mma_layer_in<true>(L, wi, NW, lane, sm, i + 1 < nl);
+}
+
+// Builds the plan (thread 0), zeroes the activations, then stages every
+// tower split into TF32 halves as B fragments, with the whole block.
+// Returns the layout; the caller syncs before using the weights.
+template <int NT>
+__device__ inline MmaLayout mma_setup(const int* table, Dims d, float* sm,
+                                      const float* const* pack) {
+  const MmaLayout s = make_mma_layout(table, d, nullptr);
+  Layer* plan = reinterpret_cast<Layer*>(sm + s.plan);
+  if (threadIdx.x == 0) make_mma_layout(table, d, plan);
+  for (size_t e = s.x + threadIdx.x; e < s.nz[0]; e += NT) sm[e] = 0.f;
+  __syncthreads();
+  for (int t = 0; t < d.towers(); ++t) {
+    const float* src = tower_pick(pack, t);
+    for (int i = 0; i < d.nl(t); ++i) {
+      const Layer L = plan[d.base(t) + i];
+      const float* W = src + L.g;
+      tsde_mma::stage_b(sm + L.w, L.in, L.out,
+                        [&](int k, int n) { return W[k * L.out + n]; },
+                        threadIdx.x, NT);
+      for (int e = threadIdx.x; e < tsde_mma::pad8(L.out); e += NT)
+        sm[L.b + e] = e < L.out ? W[L.in * L.out + e] : 0.f;
+    }
+  }
+  return s;
+}
+
+// Whether a 3xTF32 design is one kernel 9 takes: MMA_ROWS rows, whole
+// warps a tower.
+__host__ __device__ inline bool mma_design_ok(Dims d, int R, int threads) {
+  return R == MMA_ROWS && threads % (32 * d.towers()) == 0;
 }
 
 }  // namespace tsde_tower

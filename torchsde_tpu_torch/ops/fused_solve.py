@@ -731,7 +731,7 @@ def staged_towers(lib, kind, spec, B, device):
 
 
 def _library(kind, spec, B, device, stage=None):
-    """The kernels' library once the solve's activations fit a block's
+    """A sweep's library once the solve's activations fit a block's
     shared memory with no tower staged there, and the launch's table
     arguments: the host and device layer tables, the dims and the towers to
     stage (``stage``, a bitmask of :data:`STAGE_ORDER`, or by the rule of
@@ -760,6 +760,14 @@ FWD_WIDE_THREADS = 256
 FWD_WIDE_ITEMS = 4096
 FWD_CLUSTER_THREADS = 512
 FWD_STREAM_THREADS = 128
+# Kernel 9's 3xTF32 tiles (csrc/tower_fwd_tile.cuh: mma_layer): MMA_ROWS
+# rows a block (two m16 tiles: at 8 or 16 rows, an m16 tile half zero or
+# one a block, they lost to the FMA tiles, forward_design), a warp a job of
+# MMA_TILES_A_WARP 16 x 8 output tiles of a tower's widest layer, at most
+# MMA_MAX_WARPS warps a tower.
+MMA_ROWS = 32
+MMA_TILES_A_WARP = 4
+MMA_MAX_WARPS = 8
 _PLAN_INTS = 10       # csrc/tower_solve_common.cuh: sizeof(Layer) / 4
 _UNITS_A_PART = 8     # csrc/tower_fwd_tile.cuh: UP
 
@@ -775,16 +783,55 @@ class FwdDesign(NamedTuple):
     stage: int
 
 
-def fwd_smem_bytes(kind, spec, stage, rows, cluster):
-    """Dynamic shared memory a block of kernel 11 (``RH_FWD``) or 13
-    (``EULER_LOGQP_FWD``) takes at this design, as the C layout
-    (``csrc/tower_fwd_tile.cuh: make_tile_layout``) computes it."""
+class EulerFwdDesign(NamedTuple):
+    """How kernel 9 runs a solve: ``mma`` 1 for the 3xTF32 tiles (every
+    tower in shared memory, split into TF32 halves), 0 for the FMA tiles of
+    kernels 11 and 13; ``rows`` rows a block, ``threads`` threads a block,
+    the towers of ``stage`` (bit t: tower t) in shared memory."""
+    mma: int
+    rows: int
+    threads: int
+    stage: int
+
+
+def _pad8(n):
+    return -(-n // 8) * 8
+
+
+def _frag_ld(width):
+    """csrc/mma_tf32.cuh: frag_ld, the stride of an activation array."""
+    return width + (8 - width) % 32
+
+
+def fwd_smem_bytes(kind, spec, stage, rows, cluster, mma=False):
+    """Dynamic shared memory a block of kernel 9 (``EULER_FWD``), 11
+    (``RH_FWD``) or 13 (``EULER_LOGQP_FWD``) takes at this design, as the C
+    layout (``csrc/tower_fwd_tile.cuh: make_tile_layout``, or with ``mma``
+    kernel 9's 3xTF32 ``make_mma_layout``: :data:`MMA_ROWS` rows, every
+    tower split, the outputs of layers that feed another split too;
+    ``stage``, ``rows`` and ``cluster`` unused) computes it."""
     def take(at, n):
         return at + (n + 3) // 4 * 4
 
     shapes = _spec_shapes(spec)
+    if mma:
+        rows = MR = MMA_ROWS
     RS = rows + 4
     at = take(0, sum(map(len, shapes)) * _PLAN_INTS)
+    if mma:
+        for tower in shapes:
+            for n_in, n_out, _ in tower:
+                at = take(take(at, _pad8(n_in) * _pad8(n_out) * 2),
+                          _pad8(n_out))
+        at = take(at, MR * _frag_ld(_pad8(spec.S + int(spec.with_time))))
+        for tower in shapes:
+            for p in (0, 1):
+                wide = max((o for _, o, _ in tower[p::2]), default=0)
+                # A layer that feeds another stores a lo twin.
+                parts = 2 if len(tower) - 1 > p else 1
+                at = take(at, MR * _frag_ld(_pad8(wide)) * parts)
+        at = take(take(at, spec.m * RS), spec.m * RS)
+        return 4 * take(at, 2)
     packs = [sum(i * o + o for i, o, _ in tower) for tower in shapes]
     wide = [[max((o for _, o, _ in tower[p::2]), default=0) for p in (0, 1)]
             for tower in shapes]
@@ -806,16 +853,44 @@ def fwd_smem_bytes(kind, spec, stage, rows, cluster):
     if kind == RH_FWD:
         for width in (spec.S, spec.S, spec.gwidth):
             at = take(at, width * RS)
-    else:
+    elif kind == EULER_LOGQP_FWD:
         at = take(at, -(-spec.S // _UNITS_A_PART) * RS)
     return 4 * at
 
 
+def mma_threads(spec):
+    """Threads of a block of kernel 9's 3xTF32 tiles: for each tower, a
+    warp for every :data:`MMA_TILES_A_WARP` 16 x 8 output tiles of the
+    widest layer of any tower (two m-tiles), rounded up to a power of two
+    (the kernel's 1, 2, 4 or 8 warps a tower), at most
+    :data:`MMA_MAX_WARPS`."""
+    widest = max(o for tower in _spec_shapes(spec) for _, o, _ in tower)
+    tiles = MMA_ROWS // 16 * (_pad8(widest) // 8)
+    warps = 1
+    while warps < MMA_MAX_WARPS and warps * MMA_TILES_A_WARP < tiles:
+        warps *= 2
+    return 32 * warps * (3 if spec.prior else 2)
+
+
+def _one_wave(rows, B, sms, cluster=1):
+    """The fewest of ``rows`` whose blocks (clusters of ``cluster``) fill
+    the card in one wave, else the most; None when there are none."""
+    if not rows:
+        return None
+    one_wave = [R for R in rows if -(-B // R) * cluster <= sms]
+    return one_wave[0] if one_wave else rows[-1]
+
+
 def forward_design(kind, spec, B, sms):
-    """The design of kernel 11 (``RH_FWD``) or 13 (``EULER_LOGQP_FWD``) for
-    a solve of B rows on a card of ``sms`` SMs, from the widths and the
+    """The design of kernel 9 (``EULER_FWD``, an :class:`EulerFwdDesign`),
+    11 (``RH_FWD``) or 13 (``EULER_LOGQP_FWD``, a :class:`FwdDesign`) for a
+    solve of B rows on a card of ``sms`` SMs, from the widths and the
     shared-memory limit alone (a block an SM: at these widths its shared
-    memory allows no more). In order of preference:
+    memory allows no more). Kernel 9 takes its 3xTF32 tiles where every
+    tower fits a block split and the fewest rows of :data:`FWD_ROWS` that
+    fill the card in one wave (or the most) are :data:`MMA_ROWS`, on
+    :func:`mma_threads` threads, else the first and third designs below.
+    In order of preference:
 
     1. every tower in one block's shared memory, on
        :data:`FWD_WIDE_THREADS` threads a tower where its widest layer times
@@ -841,20 +916,37 @@ def forward_design(kind, spec, B, sms):
     design 2.515 (128 blocks); on general noise with time (batch 1024, d
     16, m 4, hidden 64) 8 rows on 256 threads 0.834, 512 threads 0.848; at
     the small solve (batch 256, d 8, hidden 16) 8 rows on 384 threads
-    0.412, 768 threads 0.463."""
+    0.412, 768 threads 0.463. Kernel 9 at E1 (batch 4096, d 32, hidden
+    128): the 3xTF32 tiles of 32 rows on 512 threads 1.215, 256 threads
+    1.552, 16 rows 1.559-1.947, the FMA tiles of 32 rows 1.456, the 8-row
+    streamed design 2.032; on general noise with time the FMA tiles of 8
+    rows 0.738, the 3xTF32 tiles 0.992-3.133; at the narrow solve (batch
+    256, d 8, hidden 16) 0.319 against 0.339-0.528."""
+    towers = 3 if spec.prior else 2
+    full = (1 << towers) - 1
+    if kind != EULER_FWD:
+        return _tile_design(kind, spec, B, sms, (1, towers))
+    if _one_wave(FWD_ROWS, B, sms) == MMA_ROWS and fwd_smem_bytes(
+            kind, spec, full, MMA_ROWS, 1, mma=True) <= _build.MAX_SMEM_BYTES:
+        return EulerFwdDesign(1, MMA_ROWS, mma_threads(spec), full)
+    design = _tile_design(kind, spec, B, sms, (1,))
+    return EulerFwdDesign(0, design.rows, design.threads, design.stage)
+
+
+def _tile_design(kind, spec, B, sms, clusters):
+    """The first of :func:`forward_design`'s three FMA tile designs that
+    fits, with a cluster of each size of ``clusters`` (1: none)."""
     towers = 3 if spec.prior else 2
     full = (1 << towers) - 1
     streamed = min(-(-B // 8), sms)
     widest = max(o for tower in _spec_shapes(spec) for _, o, _ in tower)
-    for cluster in (1, towers):
-        rows = [R for R in FWD_ROWS
-                if (cluster == 1 or R > 8)
-                and fwd_smem_bytes(kind, spec, full, R, cluster)
-                <= _build.MAX_SMEM_BYTES]
-        if not rows:
+    for cluster in clusters:
+        R = _one_wave([R for R in FWD_ROWS
+                       if (cluster == 1 or R > 8)
+                       and fwd_smem_bytes(kind, spec, full, R, cluster)
+                       <= _build.MAX_SMEM_BYTES], B, sms, cluster)
+        if R is None:
             continue
-        one_wave = [R for R in rows if -(-B // R) * cluster <= sms]
-        R = one_wave[0] if one_wave else rows[-1]
         if cluster == 1:
             per = (FWD_WIDE_THREADS if widest * R >= FWD_WIDE_ITEMS
                    else FWD_STREAM_THREADS)
@@ -875,22 +967,29 @@ def forward_design(kind, spec, B, sms):
 
 def _forward_library(kind, spec, B, device, design=None, stage=None):
     """The kernels' library and the launch's table and design arguments
-    for kernel 11 or 13: the host and device layer tables, the dims, and
-    the design's stage, rows, threads and cluster, by the rule of
-    :func:`forward_design` or as ``design`` (and ``stage``) override it."""
+    for kernel 9, 11 or 13: the host and device layer tables, the dims, and
+    the design's stage, rows, threads and cluster (kernel 9: ``mma``), by
+    the rule of :func:`forward_design` or as ``design`` (and ``stage``)
+    override it."""
     if design is None:
         design = forward_design(kind, spec, B, _sm_count(device))
     if stage is not None:
         design = design._replace(stage=stage)
+    euler = kind == EULER_FWD
+    if euler and design.mma and design.rows != MMA_ROWS:
+        raise ValueError(f"kernel 9's 3xTF32 tiles take {MMA_ROWS} rows a "
+                         f"block, got {design.rows}")
+    last = design.mma if euler else design.cluster
     if fwd_smem_bytes(kind, spec, design.stage, design.rows,
-                      design.cluster) > _build.MAX_SMEM_BYTES:
+                      1 if euler else design.cluster,
+                      mma=euler and design.mma) > _build.MAX_SMEM_BYTES:
         raise ValueError(f"the design {tuple(design)} needs more shared "
                          f"memory than a block has")
     lib = _build.load_library()
     table = _host_table(spec)
     return lib, (table, _device_table(spec, device).data_ptr(),
                  *_dims(spec), design.stage, design.rows, design.threads,
-                 design.cluster)
+                 last)
 
 
 def _require_cuda(t):
@@ -903,14 +1002,19 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def euler_solve_forward_cuda(y0, noise, t0s, dts, fw, gw, spec):
+def euler_solve_forward_cuda(y0, noise, t0s, dts, fw, gw, spec,
+                             design=None):
     """Launch kernel 9 on the current stream; returns what
-    :func:`euler_solve_forward_plain` returns. Raises on tensors it does not
-    take, on a failed build and on a refused launch."""
+    :func:`euler_solve_forward_plain` returns. ``design`` (an
+    :class:`EulerFwdDesign`) overrides :func:`forward_design`'s; every FMA
+    design gives the same bits, the 3xTF32 ones other bits within the
+    kernels' tolerance. Raises on tensors it does not take, on a design
+    that does not fit, on a failed build and on a refused launch."""
     global euler_launches
     _require_cuda(y0)
     B, N = _check_common(spec, y0, noise, t0s, dts, fw, gw)
-    lib, table_dims = _library(EULER_FWD, spec, B, y0.device)
+    lib, table_dims = _forward_library(EULER_FWD, spec, B, y0.device,
+                                       design)
     ys = torch.empty((N, B, spec.S), dtype=torch.float32, device=y0.device)
     ptrs = [t.data_ptr() for t in (fw, gw, y0, noise, t0s, dts, ys)]
     rc = lib.tsde_tower_euler_fwd(*table_dims[:2], *ptrs, *table_dims[2:],

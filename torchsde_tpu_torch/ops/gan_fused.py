@@ -453,7 +453,8 @@ def cde_solve_backward_cuda(h0, f0, slopes, t1s, dts, weights, zs, ghs,
     B, S, M, C, N = check_cde_backward_inputs(h0, f0, slopes, t1s, dts,
                                               weights, zs, ghs)
     check_widths(S, M, C, threads)
-    lib = _build.library_for("tsde_gan_cde_bwd_smem_bytes", S, M, C)
+    lib = _build.library_for("tsde_gan_cde_bwd_smem_bytes", S, M, C,
+                             threads)
     dh0, df0 = torch.empty_like(h0), torch.empty_like(f0)
     dslopes = torch.empty_like(slopes)
     sizes, partials, dw = _weight_grads(lib, B, S, M, weights, h0.device)

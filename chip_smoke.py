@@ -140,12 +140,13 @@ development; no ok line); ``--only tiles``, which no other run includes,
 times kernels 13 (L1, L2) and 11 (R1, general noise) at the designs of
 FWD_DESIGN_TILES beside the rule's, each bitwise the rule's, kernels 2
 and 4 whole and their sweep alone at 128, 256 and 512 threads and at 16
-rows a block, the blocks the sweep's was chosen over, and kernels 1 and 3
-at 256 and 512 threads and 8 and 16 rows a block; ``--only ab``
-(phase_ab) times kernels 1-4, 9-14 through entry points every version of
-the port has and compares their outputs with another run's, so that a
-copy of this script in the parent commit's checkout times the parent in
-the same call. It imports nothing of JAX.
+rows a block, the blocks the sweep's was chosen over, kernels 1 and 3
+at 256 and 512 threads and 8 and 16 rows a block, and kernels 6, 7 and 8
+at 1, 2, 4 and 8 warps a block; ``--only ab`` (phase_ab) times kernels
+1-14 (6 and 7 also at the GPU tests' shapes) through entry points every
+version of the port has and compares their outputs with another run's, so
+that a copy of this script in the parent commit's checkout times the
+parent in the same call. It imports nothing of JAX.
 """
 
 import argparse
@@ -942,6 +943,45 @@ def phase_cde_tiles(device):
     return cells
 
 
+GAN_TILE_THREADS = (32, 64, 128, 256)
+
+
+def phase_gan_tiles(device):
+    """Kernels 6 and 7 at the reference scale at 1, 2, 4 and 8 warps a
+    block: every cell of a kernel bitwise the others; median device times
+    (``--only tiles``)."""
+    gan = gan_models(device)
+    ts, real = gan_data(device)
+    (gen_args, gen_w), (cde_args, cde_w) = gan_kernel_inputs(
+        device, gan, ts, real)
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    cells = {}
+    with torch.no_grad():
+        ys, zs, gs = GF.gen_solve_forward_cuda(*gen_args, gen_w)
+        gy = torch.randn(ys.shape, generator=gen, device=device)
+        bargs = (*gen_args, gen_w, zs, gs, gy)
+        for k, run, flat in (
+                (6, lambda t: GF.gen_solve_backward_cuda(*bargs, threads=t),
+                 flat_grads),
+                (7, lambda t: GF.cde_solve_forward_cuda(*cde_args, cde_w,
+                                                        threads=t), list)):
+            first, times = None, {}
+            for threads in GAN_TILE_THREADS:
+                got = flat(run(threads))
+                torch.cuda.synchronize()
+                if first is None:
+                    first = got
+                elif not all(torch.equal(a, b) for a, b in zip(got, first)):
+                    raise RuntimeError(f"kernel {k} at {threads} threads "
+                                       f"differs from 32 threads")
+                times[str(threads)] = median_cuda_ms(lambda: run(threads), 20)
+            print(f"kernel{k} by threads a block, ms (default {GF.THREADS}; "
+                  f"all bitwise equal): " + ", ".join(
+                      f"{t}: {v:.4f}" for t, v in times.items()), flush=True)
+            cells[f"kernel{k}"] = dict(default=str(GF.THREADS), **times)
+    return cells
+
+
 def phase_kernel2(device):
     """Kernel 2 vs its plain version and a float64 run on seeded inputs and
     cotangents at the flagship shapes, with normal and with saturated
@@ -1338,8 +1378,8 @@ def phase_gan_kernels(device, models, ts, real):
     Bc, Sc, Mc, C, _ = GF.check_cde_inputs(*cde_args, cde_w)
     print(f"GAN kernels: shared memory per block "
           f"{lib.tsde_gan_gen_fwd_smem_bytes(S, M, m)} bytes (kernel 5), "
-          f"{lib.tsde_gan_cde_fwd_smem_bytes(Sc, Mc, C)} bytes (kernel 7)",
-          flush=True)
+          f"{lib.tsde_gan_cde_fwd_smem_bytes(Sc, Mc, C, GF.THREADS)} bytes "
+          f"(kernel 7, {GF.THREADS} threads)", flush=True)
     with torch.no_grad():
         got = GF.gen_solve_forward_cuda(*gen_args, gen_w)
         want = GF.gen_solve_forward_plain(*gen_args, gen_w)
@@ -1365,7 +1405,8 @@ def phase_gan_kernels(device, models, ts, real):
             lambda: GF.cde_solve_forward_plain(*cde_args, cde_w),
             [*cde_args, *cde_w, *got], cde_flops(Bc, Sc, Mc, C, n))
     return (dict(max_abs_err=err5[0], max_rel_err=err5[1], **k5),
-            dict(max_abs_err=err7[0], max_rel_err=err7[1], **k7))
+            dict(max_abs_err=err7[0], max_rel_err=err7[1],
+                 threads=GF.THREADS, **k7))
 
 
 def gan_request(models, ts, real, seed, fused):
@@ -1508,8 +1549,10 @@ def phase_gan_bwd_kernels(device, models, ts, real):
     lib = _build.load_library()
     B, S, M, m, n = GF.check_gen_inputs(*gen_args, gen_w)
     Bc, Sc, Mc, C, _ = GF.check_cde_inputs(*cde_args, cde_w)
-    print(f"GAN backward kernels: shared memory per block "
-          f"{lib.tsde_gan_gen_bwd_smem_bytes(S, M, m)} bytes (kernel 6), "
+    print(f"GAN backward kernels: shared memory per block at "
+          f"{GF.THREADS} threads "
+          f"{lib.tsde_gan_gen_bwd_smem_bytes(S, M, m, GF.THREADS)} bytes "
+          f"(kernel 6), "
           f"{lib.tsde_gan_cde_bwd_smem_bytes(Sc, Mc, C, GF.THREADS)} bytes "
           f"(kernel 8); "
           f"weight-gradient partials {lib.tsde_gan_bwd_partials(B, S, M)} "
@@ -1561,7 +1604,8 @@ def phase_gan_bwd_kernels(device, models, ts, real):
             lambda: GF.cde_solve_backward_plain(*cargs),
             [*cde_args[2:], *cde_w, czs, last, *flat_grads(got)],
             cde_bwd_flops(Bc, Sc, Mc, C, n), plain_reps=3)
-    return (dict(max_abs_err=err6[0], max_rel_err=err6[1], **k6),
+    return (dict(max_abs_err=err6[0], max_rel_err=err6[1],
+                 threads=GF.THREADS, **k6),
             dict(max_abs_err=errs[0][0], max_abs_err_dense=errs[1][0],
                  max_rel_err=max(e[1] for e in errs), **k8))
 
@@ -3191,9 +3235,43 @@ def ab_logqp_inputs(device):
                                      SEED + 25)[1]
 
 
+# Kernels 6 and 7 at the other shapes of tests/test_torch_gpu.py
+# (GEN_REF_SHAPES, CDE_FWD_REF_SHAPES; batch, S, M, m or C, times): a
+# ragged batch, one channel, a hidden layer wider than the state, the
+# widest widths.
+AB_GEN_SHAPES = ((1023, 16, 16, 3, 20), (300, 16, 16, 1, 20),
+                 (300, 9, 24, 3, 20), (64, 32, 32, 8, 8))
+AB_CDE_SHAPES = ((2047, 17, 16, 2, 20), (300, 17, 16, 1, 20),
+                 (300, 9, 24, 3, 20), (64, 32, 32, 8, 8))
+
+
+def ab_gan_inputs(device, kind, B, S, M, K, T, seed):
+    """Seeded inputs of kernel 6 (``kind`` "gen": the backward from the
+    plain forward's states, seeded cotangents) or kernel 7 ("cde") at
+    these widths, with random weights as the GPU tests make them."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    init = torch.Generator().manual_seed(seed)
+    ts = np.arange(T, dtype=np.float64)
+    if kind == "gen":
+        model = Generator(1, 5, K, S, M, 1, init_mult2=0.5, device=device,
+                          generator=init)
+        x0 = torch.randn((B, S), generator=gen, device=device)
+        args = GF.prep_generator_solve(model.func, x0, ts, gen, 1.0)
+        weights = GF.gen_weights(model.func)
+        ys, zs, gs = GF.gen_solve_forward_plain(*args, weights)
+        gy = torch.randn(ys.shape, generator=gen, device=device)
+        return (*args, weights, zs, gs, gy)
+    model = Discriminator(K - 1, S, M, 1, device=device, generator=init)
+    paths = torch.randn((B, T, K), generator=gen, device=device)
+    func = model.func.attach(ts, paths)
+    return (*GF.prep_cde_solve(func, model.initial(paths[:, 0]), ts, 1.0),
+            GF.cde_weights(model.func))
+
+
 def phase_ab(device, tag, against):
     """Times kernels 1, 2, 3 (at each K of MULTI_KS), 4 (at MULTI_K), 5-8
-    (at the GAN's reference scale), 9 (at E1, on general noise with time
+    (at the GAN's reference scale; 6 and 7 also at AB_GEN_SHAPES and
+    AB_CDE_SHAPES), 9 (at E1, on general noise with time
     and at the narrow solve), 10 (at E1), 11 (at R1 and on general noise
     with time), 12 (at R1), 13 (at L1, L2 and the small signed solve) and 14
     (at L1) through the entry points that every version of the port has,
@@ -3295,6 +3373,19 @@ def phase_ab(device, tag, against):
         times["kernel8"] = median_cuda_ms(
             lambda: GF.cde_solve_backward_cuda(*b8), 20)
         del gan, b6, b8
+        for i, shape in enumerate(AB_GEN_SHAPES):
+            key = "kernel6_" + "x".join(map(str, shape))
+            b6 = ab_gan_inputs(device, "gen", *shape, SEED + 30 + i)
+            out[key] = flat_grads(GF.gen_solve_backward_cuda(*b6))
+            times[key] = median_cuda_ms(
+                lambda: GF.gen_solve_backward_cuda(*b6), 20)
+        for i, shape in enumerate(AB_CDE_SHAPES):
+            key = "kernel7_" + "x".join(map(str, shape))
+            c7 = ab_gan_inputs(device, "cde", *shape, SEED + 40 + i)
+            out[key] = list(GF.cde_solve_forward_cuda(*c7))
+            times[key] = median_cuda_ms(
+                lambda: GF.cde_solve_forward_cuda(*c7), 20)
+        del b6, c7
         for label, r_args in ab_rh_inputs(device):
             out[f"kernel11_{label}"] = list(FS.rh_solve_forward_cuda(*r_args))
             times[f"kernel11_{label}"] = median_cuda_ms(
@@ -3494,6 +3585,7 @@ def main():
               flush=True)
         print(json.dumps({"cde_bwd_tiles": phase_cde_tiles(device)}),
               flush=True)
+        print(json.dumps({"gan_tiles": phase_gan_tiles(device)}), flush=True)
         print(json.dumps({"fwd_tiles": phase_fwd_tiles(device)}), flush=True)
         print(json.dumps({"sweep_tiles": phase_tiles(device)}), flush=True)
     if "ab" in groups:

@@ -27,7 +27,12 @@ repeatable, one launch a backward, run phase by phase, and in windows of
 steps under a smaller workspace. Kernels 11 and 13 in their row-tile
 designs at R1, L1, L2, general noise and the small signed solve, every
 design bitwise the rule's, and the host's shared-memory layout against the
-C one; kernel 4 in groups of replicas under a smaller total workspace."""
+C one; kernel 4 in groups of replicas under a smaller total workspace.
+Kernels 6 and 7 (a row's vectors through the warp's shared memory) at the
+GAN's reference scale, a ragged batch, one channel, a hidden layer wider
+than the state and the widest widths, against the twin and float64, every
+block size of each bitwise the others; their C layouts against the host's
+mirror."""
 
 import numpy as np
 import pytest
@@ -1584,3 +1589,98 @@ def test_cde_backward_smem_grows_with_warps(cuda):
                 one + 4 * 32 * (3 + C) * (threads // 32 - 1)
         assert lib.tsde_gan_cde_bwd_smem_bytes(S, M, C, 256) \
             <= _build.MAX_SMEM_BYTES
+
+
+# Kernels 6 and 7 with a row's vectors through the warp's shared memory:
+# the reference scale (kernel 6: batch 1024, S 16, M 16, m 3; kernel 7: the
+# critic's 2048 rows, S 17, M 16, C 2; 64 times: 63 steps), a ragged batch,
+# one channel, a hidden layer wider than the state, and the widest widths.
+GEN_REF_SHAPES = [
+    (1024, 16, 16, 3, 64),
+    (1023, 16, 16, 3, 20),
+    (300, 16, 16, 1, 20),
+    (300, 9, 24, 3, 20),
+    (64, 32, 32, 8, 8),
+]
+CDE_FWD_REF_SHAPES = [
+    (2048, 17, 16, 2, 64),
+    (2047, 17, 16, 2, 20),
+    (300, 17, 16, 1, 20),
+    (300, 9, 24, 3, 20),
+    (64, 32, 32, 8, 8),
+]
+
+
+def _in_double(args):
+    return [tuple(w.double() for w in a) if isinstance(a, tuple)
+            else a.double() for a in args]
+
+
+@pytest.mark.parametrize("B,S,M,m,T", GEN_REF_SHAPES)
+def test_gen_backward_blocks_match_plain_and_float64(cuda, B, S, M, m, T):
+    """Kernel 6 against its twin at the tolerance max(1e-4, 1e-5 * scale)
+    and at most twice the twin's distance from float64 plus the tolerance
+    (PERF.md section 2) at 1, 2, 4 and 8 warps a block: all of them and a
+    second call give the same bits."""
+    with torch.no_grad():
+        bargs = _gan_gen_backward_args(cuda, B, S, M, m, T, 5)
+        want = GF.gen_solve_backward_plain(*bargs)
+        exact = GF.gen_solve_backward_plain(*_in_double(bargs))
+        before = GF.gen_bwd_launches
+        runs = {t: GF.gen_solve_backward_cuda(*bargs, threads=t)
+                for t in (32, 64, 128, 256)}
+        again = GF.gen_solve_backward_cuda(*bargs)
+        assert GF.gen_bwd_launches == before + 5
+    torch.cuda.synchronize()
+    flat = [*want[:-1], *want[-1]]
+    flat64 = [*exact[:-1], *exact[-1]]
+    first = [*runs[GF.THREADS][:-1], *runs[GF.THREADS][-1]]
+    _assert_gan_grads_close(runs[GF.THREADS], want)
+    for g, w, e in zip(first, flat, flat64):
+        tol = max(1e-4, 1e-5 * float(w.abs().max()))
+        plain64 = float((w.double() - e).abs().max())
+        assert float((g.double() - e).abs().max()) <= 2 * plain64 + tol
+    for threads, got in [*runs.items(), ("again", again)]:
+        got = [*got[:-1], *got[-1]]
+        assert all(torch.equal(a, b) for a, b in zip(got, first)), threads
+
+
+@pytest.mark.parametrize("B,S,M,C,T", CDE_FWD_REF_SHAPES)
+def test_cde_forward_matches_plain_and_float64(cuda, B, S, M, C, T):
+    """Kernel 7 against its twin at the tolerance max(1e-5, 4e-6 * scale)
+    and at most twice the twin's distance from float64 plus the tolerance
+    (PERF.md section 2); 1, 2, 4 and 8 warps a block and a second call
+    give the same bits."""
+    with torch.no_grad():
+        args, weights = _gan_cde_args(cuda, B, S, M, C, T, 6)
+        want = GF.cde_solve_forward_plain(*args, weights)
+        exact = GF.cde_solve_forward_plain(*_in_double(args),
+                                           _in_double(weights))
+        runs = {t: GF.cde_solve_forward_cuda(*args, weights, threads=t)
+                for t in (32, 64, 128, 256)}
+        again = GF.cde_solve_forward_cuda(*args, weights)
+    torch.cuda.synchronize()
+    first = runs[GF.THREADS]
+    for g, w, e in zip(first, want, exact):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        tol = max(1e-5, 4e-6 * float(w.abs().max()))
+        assert float((g - w).abs().max()) <= tol
+        plain64 = float((w.double() - e).abs().max())
+        assert float((g.double() - e).abs().max()) <= 2 * plain64 + tol
+    for threads, got in [*runs.items(), ("again", again)]:
+        assert all(torch.equal(a, b) for a, b in zip(got, first)), threads
+
+
+def test_gan_kernels_6_and_7_smem_bytes_match_the_host_layout(cuda):
+    """The C layouts of kernels 6 and 7 (tsde_gan_gen_bwd_smem_bytes,
+    tsde_gan_cde_fwd_smem_bytes) are their host mirrors in gan_fused,
+    within a block's shared memory."""
+    lib = _build.load_library()
+    for S, M, m in ((16, 16, 3), (17, 16, 2), (9, 24, 3), (32, 32, 8),
+                    (1, 1, 1), (16, 16, 8)):
+        for threads in (32, 64, 128, 256):
+            assert lib.tsde_gan_cde_fwd_smem_bytes(S, M, m, threads) == \
+                GF.cde_fwd_smem_bytes(S, M, m, threads)
+            smem = GF.gen_bwd_smem_bytes(S, M, m, threads)
+            assert lib.tsde_gan_gen_bwd_smem_bytes(S, M, m, threads) == smem
+            assert smem <= _build.MAX_SMEM_BYTES

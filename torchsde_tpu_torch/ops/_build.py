@@ -21,6 +21,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -31,6 +33,7 @@ SOURCES = ("latent_fused_fwd.cu", "latent_fused_bwd.cu", "gan_gen_fwd.cu",
            "tower_euler_logqp_bwd.cu", "tower_bwd_contract.cu",
            "philox_normal.cu")
 HEADERS = ("latent_fused_common.cuh", "gan_fused_common.cuh",
+           "gan_warp_rows.cuh",
            "tower_solve_common.cuh", "tower_fwd_tile.cuh", "mma_tf32.cuh")
 # Headers that generated sources include (library_for_source).
 SOURCE_HEADERS = ("srk_srid2.cuh",)
@@ -46,7 +49,8 @@ MAX_SMEM_BYTES = 232448
 SM_SMEM_BYTES = 233472
 BLOCK_SMEM_RESERVED = 1024
 
-# nvcc's output from the last build in this process, source by source
+# nvcc's output from the last build in this process, source by source,
+# each headed by the seconds from the build's start until its nvcc ended
 # (ptxas prints each kernel's registers, shared memory and spills); empty
 # when the library was already built.
 build_log = ""
@@ -108,13 +112,13 @@ def _bind(lib):
     cde_bwd = lib.tsde_gan_cde_bwd
     cde_bwd.argtypes = [P] * 14 + [I] * 7 + [P]
     cde_bwd.restype = I
-    for name in ("gen_fwd", "cde_fwd", "gen_bwd"):
+    lib.tsde_gan_gen_fwd_smem_bytes.argtypes = [I, I, I]
+    lib.tsde_gan_gen_fwd_smem_bytes.restype = ctypes.c_size_t
+    # Kernels 6, 7 and 8's shared memory depends on their warps a block too.
+    for name in ("cde_fwd", "gen_bwd", "cde_bwd"):
         smem = getattr(lib, f"tsde_gan_{name}_smem_bytes")
-        smem.argtypes = [I, I, I]
+        smem.argtypes = [I, I, I, I]
         smem.restype = ctypes.c_size_t
-    # Kernel 8's shared memory depends on its warps a block too.
-    lib.tsde_gan_cde_bwd_smem_bytes.argtypes = [I, I, I, I]
-    lib.tsde_gan_cde_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.tsde_gan_bwd_partials.argtypes = [I, I, I]
     lib.tsde_gan_bwd_partials.restype = I
     # The TowerSpec solves: two layer tables (host, device), the tensors,
@@ -171,14 +175,23 @@ def load_library():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        t0 = time.perf_counter()
         procs = [subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(sources, objs)]
-        logs = [(src.name, proc.communicate()[0], proc.returncode)
-                for src, proc in zip(sources, procs)]
-        build_log = "".join(f"== {name}\n{log}" for name, log, _ in logs)
-        failed = [name for name, _, rc in logs if rc != 0]
+
+        def finish(proc):
+            log = proc.communicate()[0]
+            return log, proc.returncode, time.perf_counter() - t0
+
+        # Each source's log and the seconds until its nvcc ended.
+        with ThreadPoolExecutor(len(procs)) as pool:
+            logs = [(src.name, *done) for src, done in
+                    zip(sources, pool.map(finish, procs))]
+        build_log = "".join(f"== {name} ({seconds:.1f} s)\n{log}"
+                            for name, log, _, seconds in logs)
+        failed = [name for name, _, rc, _ in logs if rc != 0]
         if not failed:
             proc = subprocess.run(
                 [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),

@@ -50,6 +50,7 @@
 #include <stddef.h>
 
 #include "gan_fused_common.cuh"
+#include "gan_warp_rows.cuh"
 
 namespace {
 
@@ -68,15 +69,6 @@ struct CdeBwdArgs {
   float* partials;      // (bwd_partials(B, S, M), P)
   int B, S, M, C, N, P;
 };
-
-// The smallest multiple of 4 at least n whose quarter is odd: the stride of
-// a lane-major weight copy that a quarter-warp reads as float4 without
-// bank conflicts.
-__host__ __device__ inline int odd_quad(int n) {
-  int q = (n + 3) / 4;
-  if (q % 2 == 0) ++q;
-  return 4 * q;
-}
 
 // The sweep's shared memory (floats). The block's weight copies, each G
 // lane rows of a stride from odd_quad (zeros past S or M):
@@ -158,26 +150,6 @@ __device__ inline void stage_cde_weights(float* sm, const CdeLayout& L,
     const int l = e / L.K2, k = e % L.K2;
     sm[L.w1r + e] = l < S && k < M ? W1[(1 + l) * M + k] : 0.f;
   }
-}
-
-// acc = fmaf(v[j], w[j], acc) for j < n in order, v a row vector of the
-// warp's shared memory and w a lane's weight row, both read as float4
-// (NQ of them at most).
-template <int NQ>
-__device__ __forceinline__ float dot4(const float* v, const float* w, int n,
-                                      float acc) {
-  const float4* v4 = reinterpret_cast<const float4*>(v);
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    if (4 * q >= n) break;
-    const float4 x = v4[q], y = w4[q];
-    acc = fmaf(x.x, y.x, acc);
-    if (4 * q + 1 < n) acc = fmaf(x.y, y.y, acc);
-    if (4 * q + 2 < n) acc = fmaf(x.z, y.z, acc);
-    if (4 * q + 3 < n) acc = fmaf(x.w, y.w, acc);
-  }
-  return acc;
 }
 
 // The number of control channels C (1..MAX_K), the group width G (16 or

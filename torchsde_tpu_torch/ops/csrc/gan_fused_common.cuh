@@ -1,10 +1,13 @@
 // The SDE-GAN towers (Linear, lipswish, Linear, tanh of [t, z]) for the
 // whole-solve kernels (gan_gen_fwd.cu, gan_cde_fwd.cu, and the backward
 // kernels gan_gen_bwd.cu, gan_cde_bwd.cu that recompute them), so every
-// kernel evaluates a tower with the same arithmetic.
+// kernel evaluates a tower with the same arithmetic. Kernels 6, 7 and 8
+// move a row's vectors through the warp's shared memory instead of the
+// shuffles below (gan_warp_rows.cuh), in the same order of every sum.
 //
-// Layout. A batch row is served by a group of G lanes inside one warp
-// (G = the power of two >= max(S, M), at most 32; 32 / G rows per warp):
+// Layout (gan_gen_fwd.cu). A batch row is served by a group of G lanes
+// inside one warp (G = the power of two >= max(S, M), at most 32; 32 / G
+// rows per warp):
 // lane l of the group owns hidden unit l of each tower and state unit l
 // (with its K output channels). Rows never interact, so a step needs no
 // block barrier: the only communication is __shfl_sync inside the group.
@@ -124,23 +127,6 @@ __host__ __device__ inline int bwd_group_width(int S, int M) {
 __host__ __device__ inline int bwd_partials(int B, int S, int M) {
   const int rows_per_warp = 32 / bwd_group_width(S, M);
   return (B + rows_per_warp - 1) / rows_per_warp;
-}
-
-// The transposed copies the backward's products read, zero-padded, so that
-// neighbouring lanes read neighbouring words here too:
-//   w1t[k * G + i]             = W1[1 + i][k]   input cotangent, lane i
-//   w2t[(i * K + j) * G + k]   = W2[k][i*K + j] hidden cotangent, lane k
-__device__ inline void stage_tower_t(float* w1t, float* w2t, const float* W1,
-                                     const float* W2, int S, int M, int K,
-                                     int G) {
-  for (int e = threadIdx.x; e < G * G; e += blockDim.x) {
-    const int k = e / G, i = e % G;
-    w1t[e] = k < M && i < S ? W1[(1 + i) * M + k] : 0.f;
-  }
-  for (int e = threadIdx.x; e < G * K * G; e += blockDim.x) {
-    const int i = e / (K * G), j = (e / G) % K, k = e % G;
-    w2t[e] = i < S && k < M ? W2[k * (S * K) + i * K + j] : 0.f;
-  }
 }
 
 // The hidden unit's activation and lipswish's derivative at its

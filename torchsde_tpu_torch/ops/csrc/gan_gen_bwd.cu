@@ -22,30 +22,52 @@
 // writes dnoise, about 22 MB (6.6 us at 3.35 TB/s). In practice it is bound
 // by latency, like the forward: 63 dependent steps of tiny products.
 //
-// Design, on gan_gen_fwd.cu's: a row's work stays inside a group of G lanes
-// of one warp (G = 16 at the flagship, two rows per warp), lane l owning
-// state unit l (its cotangents ay, az, af and its m entries of ag) and
-// hidden unit l of both towers; products gather through __shfl_sync, so a
-// step needs no block barrier. The weights and transposed copies of them
-// are staged once per block in shared memory, zero-padded to G, so every
-// product reads neighbouring words. g_{n+1} is carried from the step before
-// in registers; each step's inputs are loaded one step ahead.
+// Design. A row's vectors go through the warp's shared memory
+// (gan_warp_rows.cuh), as in gan_cde_bwd.cu: each vector a product needs
+// whole (z1, the hidden activations a1f and a1g, the output cotangents d2f
+// and the S*m entries of d2g, the hidden cotangents d1f and d1g) is written
+// once to the row's slot and, after a __syncwarp, read by every lane of the
+// row four floats a load (z1 and a1 once a step into registers, for the
+// product and the weight gradients both). Each lane reads its weights four
+// a load from lane-major copies staged once a block (W1's columns for
+// layer 1, W2's columns for layer 2, W2's rows for the hidden cotangents,
+// W1's rows for dz), at strides of 4 x an odd number of floats, so a
+// quarter-warp's loads hit distinct banks. A row is served by a group of
+// G lanes (G = 16 at the reference scale: two rows a warp; 32 where S or M
+// passes 16), lane l owning state unit l and hidden unit l of both towers.
+// The only shuffles left in a step are dnoise's group sums. (A second
+// layout, one row a warp with the drift tower on lanes 0-15 and the
+// diffusion tower on 16-31, took 0.134 ms against this one's 0.097 at the
+// reference scale, where the diffusion half does m = 3 times the drift
+// half's layer-2 and hidden-cotangent work; it won only with one or two
+// noise channels, which no configuration of the repo runs.)
+// Every sum keeps the earlier shuffle design's order (layer 1's bias last,
+// the output units in order going back, dz alternating the drift's and the
+// diffusion's hidden units), so dx0, df0, dg0 and dnoise are bitwise that
+// design's. What bounds a step is its chain of dependent products: at the
+// reference widths (S = M = 16) an instantiation with the widths fixed
+// runs every product's chain without a branch (with the widths known only
+// at run time, each guarded term of a chain is a branch). The
+// earlier shuffle design took 0.240 ms at the reference scale; this one
+// 0.097 (NVIDIA H100 80GB HBM3, 700 W). g_{n+1} is carried
+// from the step before in registers; each step's inputs are loaded one
+// step ahead.
 //
-// Weight gradients (1,664 floats at the flagship) are sums over every row
-// and step. Lane l accumulates the entries it owns: column l of each W1 and
-// b1[l] (hidden unit l), column l of each W2 and b2[l] (output unit l), 104
-// registers at the flagship. G is a template parameter (16 or 32), so these
-// are register arrays of compile-time size; at the widest shapes they spill
-// to local memory, which stays correct. At the end the two row groups of a
-// warp are added in a fixed order and each warp writes one partial; a
-// second kernel sums the partials in a fixed order. No atomics, so two
-// calls give bitwise the same gradients. Precise expf and tanhf, float32
-// throughout. The kernels allocate nothing and do not synchronise the host.
+// Weight gradients (1,664 floats at the reference scale) are sums over
+// every row and step. A lane accumulates the entries it owns: column l of
+// W1 and b1[l], and column l of W2 with its b2 entries, of each tower it
+// serves, in register arrays sized by the template widths (G, m). At the
+// end the two rows of a warp add up, row 2w first, and each warp writes one
+// partial; a second kernel sums the partials in a fixed order, so the
+// weight gradients are bitwise the earlier design's, and two calls give the
+// same bits. Precise expf and tanhf, float32 throughout.
+// The kernels allocate nothing and do not synchronise the host.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 #include "gan_fused_common.cuh"
+#include "gan_warp_rows.cuh"
 
 namespace {
 
@@ -68,11 +90,79 @@ struct GenBwdArgs {
   int B, S, M, m, N, P;
 };
 
+// The sweep's shared memory (floats). The block's weight copies, each G
+// lane rows of a stride from odd_quad (zeros past S or M), for each tower
+// q (0 drift, 1 diffusion, with kq = 1 or m output channels a unit):
+//   w1c[q][l * K1 + i]              = W1q[1 + i][l]          layer 1
+//   w2c[q][(l * kq + j) * K2 + k]   = W2q[k][l * kq + j]     layer 2
+//   w2r[q][l * K3[q] + o]           = W2q[l][o]              da, hidden l
+// and for dz, the two towers' rows interleaved:
+//   w1r[l * K4 + 2 k + q]           = W1q[1 + l][k]          unit l
+// then each warp's rows, a row's slot holding z1 (G), a1f and a1g (G
+// each), d2f (G), d2g (G * m) and d1 (2 G, d1f and d1g interleaved).
+struct GenLayout {
+  int K1, K2, K3[2], K4;
+  int w1c[2], w2c[2], w2r[2], w1r, block;
+  int z, a[2], d[2], e, row;  // offsets inside a row's slot, and its size
+};
+
+__host__ __device__ inline GenLayout gen_layout(int S, int M, int m, int G) {
+  GenLayout L;
+  L.K1 = odd_quad(S);
+  L.K2 = odd_quad(M);
+  L.K3[0] = odd_quad(S);
+  L.K3[1] = odd_quad(S * m);
+  L.K4 = odd_quad(2 * M);
+  L.w1c[0] = 0;
+  L.w1c[1] = L.w1c[0] + G * L.K1;
+  L.w2c[0] = L.w1c[1] + G * L.K1;
+  L.w2c[1] = L.w2c[0] + G * L.K2;
+  L.w2r[0] = L.w2c[1] + G * m * L.K2;
+  L.w2r[1] = L.w2r[0] + G * L.K3[0];
+  L.w1r = L.w2r[1] + G * L.K3[1];
+  L.block = L.w1r + G * L.K4;
+  L.z = 0;
+  L.a[0] = G;
+  L.a[1] = 2 * G;
+  L.d[0] = 3 * G;
+  L.d[1] = 4 * G;
+  L.e = (4 + m) * G;
+  L.row = (6 + m) * G;
+  return L;
+}
+
 __host__ __device__ inline size_t gen_bwd_smem_floats(int S, int M, int m,
-                                                      int G) {
-  return 2 * tower_w1_floats(S, G) + tower_w2_floats(M, 1, G)
-         + tower_w2_floats(M, m, G) + 2 * size_t(G) * G
-         + size_t(G) * (1 + m) * G;
+                                                      int warps) {
+  const GenLayout L = gen_layout(S, M, m, bwd_group_width(S, M));
+  return size_t(L.block) + size_t(warps) * 32 * (6 + m);
+}
+
+// Stages the lane-major weight copies of gen_layout with the whole block.
+__device__ inline void stage_gen_weights(float* sm, const GenLayout& L,
+                                         const float* const* w, int S, int M,
+                                         int m, int G) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const float* W1 = w[4 * q];
+    const float* W2 = w[4 * q + 2];
+    const int kq = q ? m : 1, Sk = S * kq, K3 = L.K3[q];
+    for (int e = threadIdx.x; e < G * L.K1; e += blockDim.x) {
+      const int l = e / L.K1, i = e % L.K1;
+      sm[L.w1c[q] + e] = l < M && i < S ? W1[(1 + i) * M + l] : 0.f;
+    }
+    for (int e = threadIdx.x; e < G * kq * L.K2; e += blockDim.x) {
+      const int o = e / L.K2, k = e % L.K2, l = o / kq;
+      sm[L.w2c[q] + e] = l < S && k < M ? W2[k * Sk + o] : 0.f;
+    }
+    for (int e = threadIdx.x; e < G * K3; e += blockDim.x) {
+      const int l = e / K3, o = e % K3;
+      sm[L.w2r[q] + e] = l < M && o < Sk ? W2[l * Sk + o] : 0.f;
+    }
+  }
+  for (int e = threadIdx.x; e < G * L.K4; e += blockDim.x) {
+    const int l = e / L.K4, c = e % L.K4, k = c / 2;
+    sm[L.w1r + e] = l < S && k < M ? w[4 * (c % 2)][(1 + l) * M + k] : 0.f;
+  }
 }
 
 // Row `row`'s inputs of step s: z1 and gy of unit li, the noise, and g_n
@@ -100,26 +190,52 @@ __device__ __forceinline__ void load_step(const GenBwdArgs& a, int s,
   }
 }
 
-// The number of noise channels K = m (1..MAX_K) and the group width G (16
-// or 32) are template parameters: a lane's channels and its weight-gradient
-// accumulators are registers, and the loops over them unroll exactly.
-template <int G, int K>
+// What a lane reads of one tower: its weight rows, its row's vectors of
+// that tower, and its biases.
+template <int K>
+struct GenTower {
+  const float* w1c;   // W1's column li
+  const float* w2c;   // W2's kq columns of output unit li
+  const float* w2r;   // W2's row li
+  float* av;          // the row's hidden activations
+  float* dv;          // the row's output cotangents
+  int kq;             // output channels a unit
+  float w1t, b1, b2[K];
+};
+
+template <int K>
+__device__ __forceinline__ GenTower<K> gen_tower(const float* sm,
+                                                 const GenLayout& L,
+                                                 const GenBwdArgs& a,
+                                                 float* slot, int q, int li) {
+  GenTower<K> T;
+  T.kq = q ? K : 1;
+  T.w1c = sm + L.w1c[q] + li * L.K1;
+  T.w2c = sm + L.w2c[q] + li * T.kq * L.K2;
+  T.w2r = sm + L.w2r[q] + li * L.K3[q];
+  T.av = slot + L.a[q];
+  T.dv = slot + L.d[q];
+  const bool hid = li < a.M;
+  T.w1t = hid ? a.w[4 * q][li] : 0.f;          // W1's time row
+  T.b1 = hid ? a.w[4 * q + 1][li] : 0.f;
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    T.b2[j] = li < a.S && j < T.kq ? a.w[4 * q + 3][li * T.kq + j] : 0.f;
+  return T;
+}
+
+// The group width G (16 or 32) and the number of noise channels K = m
+// (1..MAX_K) are template parameters: a lane's channels and weight-gradient
+// accumulators are register arrays and the loops over them unroll exactly.
+// SF and MF fix S and M where they are not 0, so that every product's chain
+// unrolls without a branch.
+template <int G, int K, int SF, int MF>
 __global__ void __launch_bounds__(MAX_THREADS)
 gan_gen_bwd_kernel(const GenBwdArgs a) {
   extern __shared__ __align__(16) float sm[];
-  const int S = a.S, M = a.M, B = a.B;
-  float* w1f = sm;
-  float* w1g = w1f + tower_w1_floats(S, G);
-  float* w2f = w1g + tower_w1_floats(S, G);
-  float* w2g = w2f + tower_w2_floats(M, 1, G);
-  float* w1tf = w2g + tower_w2_floats(M, K, G);
-  float* w1tg = w1tf + G * G;
-  float* w2tf = w1tg + G * G;
-  float* w2tg = w2tf + G * G;
-  stage_tower(w1f, w2f, a.w[0], a.w[2], S, M, 1, G);
-  stage_tower(w1g, w2g, a.w[4], a.w[6], S, M, K, G);
-  stage_tower_t(w1tf, w2tf, a.w[0], a.w[2], S, M, 1, G);
-  stage_tower_t(w1tg, w2tg, a.w[4], a.w[6], S, M, K, G);
+  const int S = SF ? SF : a.S, M = MF ? MF : a.M, B = a.B;
+  const GenLayout L = gen_layout(S, M, K, G);
+  stage_gen_weights(sm, L, a.w, S, M, K, G);
   __syncthreads();
 
   constexpr int RPW = 32 / G;                  // rows per warp
@@ -127,38 +243,44 @@ gan_gen_bwd_kernel(const GenBwdArgs a) {
   const int li = lane & (G - 1);
   const int warp = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   // No barrier follows: a warp with no row of the batch is done. The others
-  // run every lane (the shuffles take the whole warp); rows past the end
-  // compute on zeros, add zeros and store nothing.
+  // run every lane (__syncwarp and the shuffles take the whole warp); rows
+  // past the end compute on zeros, add zeros and store nothing.
   if (warp * RPW >= B) return;
-  const int row = warp * RPW + lane / G;
+  const int rw = lane / G;                     // the row inside the warp
+  const int row = warp * RPW + rw;
   const bool live = row < B;
   const bool unit = live && li < S;
-  const bool hid = li < M;
 
-  const float* w1s[2] = {w1f, w1g};
-  const float b1[2] = {hid ? a.w[1][li] : 0.f, hid ? a.w[5][li] : 0.f};
-  float b2f[1] = {li < S ? a.w[3][li] : 0.f};
-  float b2g[K];
+  float* slot = sm + L.block + (threadIdx.x >> 5) * 32 * (6 + K)
+                + rw * L.row;
+  float* zv = slot + L.z;
+  float* ev = slot + L.e;
+  const float* w1r = sm + L.w1r + li * L.K4;
+  GenTower<K> T[2];
 #pragma unroll
-  for (int j = 0; j < K; ++j) b2g[j] = li < S ? a.w[7][li * K + j] : 0.f;
+  for (int q = 0; q < 2; ++q) T[q] = gen_tower<K>(sm, L, a, slot, q, li);
 
   // Cotangents of unit li's carry, and g_{n+1} of the step being reversed.
   float ay = 0.f, az = 0.f, af = 0.f, ag[K], gn[K];
-  // Column li of dW1 (row 0: time) and of dW2 (output li; row k), biases.
-  float gw1f[1 + G], gw1g[1 + G], gw2f[G], gw2g[G][K];
-  float gb1f = 0.f, gb1g = 0.f, gb2f = 0.f, gb2g[K];
+  // Of each tower: column li of dW1 (row 0: time) and of dW2 (outputs
+  // (li, j); row k), and the biases.
+  float gw1[2][1 + G], gw2[2][G][K], gb1[2], gb2[2][K];
 #pragma unroll
-  for (int r = 0; r <= G; ++r) gw1f[r] = gw1g[r] = 0.f;
+  for (int q = 0; q < 2; ++q) {
+    gb1[q] = 0.f;
 #pragma unroll
-  for (int k = 0; k < G; ++k) {
-    gw2f[k] = 0.f;
+    for (int r = 0; r <= G; ++r) gw1[q][r] = 0.f;
 #pragma unroll
-    for (int j = 0; j < K; ++j) gw2g[k][j] = 0.f;
+    for (int j = 0; j < K; ++j) {
+      gb2[q][j] = 0.f;
+#pragma unroll
+      for (int k = 0; k < G; ++k) gw2[q][k][j] = 0.f;
+    }
   }
   const size_t last = ((size_t(a.N - 1) * B + row) * S + li) * K;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    ag[j] = gb2g[j] = 0.f;
+    ag[j] = 0.f;
     gn[j] = unit ? __ldg(a.gs + last + j) : 0.f;
   }
 
@@ -180,70 +302,89 @@ gan_gen_bwd_kernel(const GenBwdArgs a) {
 #pragma unroll
     for (int j = 0; j < K; ++j) Ag[j] = ag[j] + 0.5f * ay * in.dW[j];
 
-    // The towers' forward at [t1, z1].
-    float pre[2], a1f, a1g, slf, slg;
-    tower_layer1<2>(w1s, b1, t1, in.z1, S, G, li, pre);
-    lipswish_and_slope(pre[0], a1f, slf);
-    lipswish_and_slope(pre[1], a1g, slg);
-    float fo[1], go[K];
-    tower_layer2<1>(w2f, a1f, b2f, M, G, li, fo);
-    tower_layer2<K>(w2g, a1g, b2g, M, G, li, go);
-
-    // Output pre-activation cotangents of unit li, and layer 2's weights:
-    // dW2[k][li] += a1[k] dpre2[li].
-    const float d2f = Af * (1.f - fo[0] * fo[0]);
-    float d2g[K];
+    // The towers' layer 1 at [t1, z1], z1 read once into registers: the
+    // last step's reads of zv ended before its d1 barrier.
+    zv[li] = in.z1;
+    __syncwarp();
+    float zr[G];
+    load4(zv, S, zr);
+    float sl1[2];
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      d2g[j] = Ag[j] * (1.f - go[j] * go[j]);
-      gb2g[j] += d2g[j];
+    for (int q = 0; q < 2; ++q) {
+      float a1;
+      lipswish_and_slope(dotr4(zr, T[q].w1c, S, t1 * T[q].w1t) + T[q].b1,
+                         a1, sl1[q]);
+      T[q].av[li] = a1;
     }
-    gb2f += d2f;
+    __syncwarp();
+
+    // Layer 2 from the hidden activations read once into registers, its
+    // outputs' pre-activation cotangents, and its weights:
+    // dW2[k][(li, j)] += a1[k] dpre2[(li, j)].
 #pragma unroll
-    for (int k = 0; k < G; ++k) {
-      if (k < M) {
-        const float akf = __shfl_sync(FULL, a1f, k, G);
-        const float akg = __shfl_sync(FULL, a1g, k, G);
-        gw2f[k] = fmaf(akf, d2f, gw2f[k]);
+    for (int q = 0; q < 2; ++q) {
+      float ar[G];
+      load4(T[q].av, M, ar);
+      float o[K];
 #pragma unroll
-        for (int j = 0; j < K; ++j) gw2g[k][j] = fmaf(akg, d2g[j], gw2g[k][j]);
+      for (int j = 0; j < K; ++j) o[j] = 0.f;
+#pragma unroll
+      for (int k4 = 0; k4 < G; k4 += 4) {
+        if (k4 < M) {
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            if (j < T[q].kq) {
+              const float4 y = *reinterpret_cast<const float4*>(
+                  T[q].w2c + j * L.K2 + k4);
+              o[j] = fmaf(ar[k4], y.x, o[j]);
+              if (k4 + 1 < M) o[j] = fmaf(ar[k4 + 1], y.y, o[j]);
+              if (k4 + 2 < M) o[j] = fmaf(ar[k4 + 2], y.z, o[j]);
+              if (k4 + 3 < M) o[j] = fmaf(ar[k4 + 3], y.w, o[j]);
+            }
+          }
+        }
+      }
+      float d2[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        d2[j] = 0.f;
+        if (j < T[q].kq) {
+          const float out = tanhf(o[j] + T[q].b2[j]);
+          d2[j] = (q ? Ag[j] : Af) * (1.f - out * out);
+          gb2[q][j] += d2[j];
+          T[q].dv[li * T[q].kq + j] = d2[j];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        if (k < M) {
+#pragma unroll
+          for (int j = 0; j < K; ++j)
+            if (j < T[q].kq)
+              gw2[q][k][j] = fmaf(ar[k], d2[j], gw2[q][k][j]);
+        }
       }
     }
+    __syncwarp();
 
-    // Hidden unit li's cotangent, through lipswish.
-    float daf = 0.f, dag = 0.f;
-#pragma unroll 4
-    for (int o = 0; o < S; ++o) {
-      daf = fmaf(__shfl_sync(FULL, d2f, o, G), w2tf[o * G + li], daf);
+    // Hidden unit li's cotangents, through lipswish, and layer 1's weights:
+    // dW1[r][li] += [t1, z1][r] dpre1[li].
 #pragma unroll
-      for (int j = 0; j < K; ++j)
-        dag = fmaf(__shfl_sync(FULL, d2g[j], o, G),
-                   w2tg[(o * K + j) * G + li], dag);
-    }
-    const float d1f = daf * slf, d1g = dag * slg;
-
-    // Layer 1's weights: dW1[r][li] += [t1, z1][r] dpre1[li].
-    gb1f += d1f;
-    gb1g += d1g;
-    gw1f[0] = fmaf(t1, d1f, gw1f[0]);
-    gw1g[0] = fmaf(t1, d1g, gw1g[0]);
+    for (int q = 0; q < 2; ++q) {
+      const float da = dot4<G * K / 4>(T[q].dv, T[q].w2r, S * T[q].kq, 0.f);
+      const float d1 = da * sl1[q];
+      gb1[q] += d1;
+      gw1[q][0] = fmaf(t1, d1, gw1[q][0]);
 #pragma unroll
-    for (int i = 0; i < G; ++i) {
-      if (i < S) {
-        const float zi = __shfl_sync(FULL, in.z1, i, G);
-        gw1f[1 + i] = fmaf(zi, d1f, gw1f[1 + i]);
-        gw1g[1 + i] = fmaf(zi, d1g, gw1g[1 + i]);
-      }
+      for (int i = 0; i < G; ++i)
+        if (i < S) gw1[q][1 + i] = fmaf(zr[i], d1, gw1[q][1 + i]);
+      ev[2 * li + q] = d1;
     }
+    __syncwarp();
 
-    // State unit li's cotangent from both towers.
-    float dz = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < M; ++k) {
-      dz = fmaf(__shfl_sync(FULL, d1f, k, G), w1tf[k * G + li], dz);
-      dz = fmaf(__shfl_sync(FULL, d1g, k, G), w1tg[k * G + li], dz);
-    }
-    const float Az = az + dz;
+    // State unit li's cotangent from both towers, their hidden units
+    // alternating.
+    const float Az = az + dot4<G / 2>(ev, w1r, 2 * M, 0.f);
 
     // dnoise[s][j] = sum over units of Az g_n + ay/2 (g_n + g_{n+1}).
     float dn[K];
@@ -274,78 +415,73 @@ gan_gen_bwd_kernel(const GenBwdArgs a) {
     for (int j = 0; j < K; ++j) a.dg0[at * K + j] = ag[j];
   }
 
-  // The two row groups of a warp (G = 16) add up, group 0 first; then lane
-  // li of the first group writes the warp's partial of the entries it owns,
-  // laid out as the weights in gan_fused.GEN_WEIGHT_NAMES order.
+  // The two rows of a warp (G = 16) add up, row 2w first; then lane li of
+  // the first writes the warp's partial of the entries it owns, laid out as
+  // the weights in gan_fused.GEN_WEIGHT_NAMES order.
   if constexpr (RPW == 2) {
 #pragma unroll
-    for (int r = 0; r <= G; ++r) {
-      gw1f[r] += __shfl_down_sync(FULL, gw1f[r], 16);
-      gw1g[r] += __shfl_down_sync(FULL, gw1g[r], 16);
-    }
+    for (int q = 0; q < 2; ++q) {
 #pragma unroll
-    for (int k = 0; k < G; ++k) {
-      gw2f[k] += __shfl_down_sync(FULL, gw2f[k], 16);
+      for (int r = 0; r <= G; ++r)
+        gw1[q][r] += __shfl_down_sync(FULL, gw1[q][r], 16);
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          if (j < T[q].kq)
+            gw2[q][k][j] += __shfl_down_sync(FULL, gw2[q][k][j], 16);
+      }
+      gb1[q] += __shfl_down_sync(FULL, gb1[q], 16);
 #pragma unroll
       for (int j = 0; j < K; ++j)
-        gw2g[k][j] += __shfl_down_sync(FULL, gw2g[k][j], 16);
+        if (j < T[q].kq) gb2[q][j] += __shfl_down_sync(FULL, gb2[q][j], 16);
     }
-    gb1f += __shfl_down_sync(FULL, gb1f, 16);
-    gb1g += __shfl_down_sync(FULL, gb1g, 16);
-    gb2f += __shfl_down_sync(FULL, gb2f, 16);
-#pragma unroll
-    for (int j = 0; j < K; ++j) gb2g[j] += __shfl_down_sync(FULL, gb2g[j], 16);
   }
   if (lane >= G) return;
-  const int Sm = S * K;
-  float* p = a.partials + size_t(warp) * a.P;
-  float* pW1f = p;
-  float* pb1f = pW1f + (1 + S) * M;
-  float* pW2f = pb1f + M;
-  float* pb2f = pW2f + M * S;
-  float* pW1g = pb2f + S;
-  float* pb1g = pW1g + (1 + S) * M;
-  float* pW2g = pb1g + M;
-  float* pb2g = pW2g + M * Sm;
-  if (hid) {
+  const int base[2] = {0, (1 + S) * M + M + M * S + S};
 #pragma unroll
-    for (int r = 0; r <= G; ++r) {
-      if (r <= S) {
-        pW1f[r * M + li] = gw1f[r];
-        pW1g[r * M + li] = gw1g[r];
+  for (int q = 0; q < 2; ++q) {
+    const int kq = T[q].kq, Sk = S * kq;
+    float* pW1 = a.partials + size_t(warp) * a.P + base[q];
+    float* pb1 = pW1 + (1 + S) * M;
+    float* pW2 = pb1 + M;
+    float* pb2 = pW2 + M * Sk;
+    if (li < M) {
+#pragma unroll
+      for (int r = 0; r <= G; ++r) {
+        if (r <= S) pW1[r * M + li] = gw1[q][r];
       }
+      pb1[li] = gb1[q];
     }
-    pb1f[li] = gb1f;
-    pb1g[li] = gb1g;
-  }
-  if (li < S) {
+    if (li < S) {
 #pragma unroll
-    for (int k = 0; k < G; ++k) {
-      if (k < M) {
-        pW2f[k * S + li] = gw2f[k];
+      for (int k = 0; k < G; ++k) {
+        if (k < M) {
 #pragma unroll
-        for (int j = 0; j < K; ++j) pW2g[k * Sm + li * K + j] = gw2g[k][j];
+          for (int j = 0; j < K; ++j)
+            if (j < kq) pW2[k * Sk + li * kq + j] = gw2[q][k][j];
+        }
       }
-    }
-    pb2f[li] = gb2f;
 #pragma unroll
-    for (int j = 0; j < K; ++j) pb2g[li * K + j] = gb2g[j];
+      for (int j = 0; j < K; ++j)
+        if (j < kq) pb2[li * kq + j] = gb2[q][j];
+    }
   }
 }
 
 using GenBwdKernel = void (*)(GenBwdArgs);
 
-template <int G>
+template <int G, int SF = 0, int MF = 0>
 GenBwdKernel gen_bwd_kernel_for(int m) {
   switch (m) {
-    case 1: return gan_gen_bwd_kernel<G, 1>;
-    case 2: return gan_gen_bwd_kernel<G, 2>;
-    case 3: return gan_gen_bwd_kernel<G, 3>;
-    case 4: return gan_gen_bwd_kernel<G, 4>;
-    case 5: return gan_gen_bwd_kernel<G, 5>;
-    case 6: return gan_gen_bwd_kernel<G, 6>;
-    case 7: return gan_gen_bwd_kernel<G, 7>;
-    default: return gan_gen_bwd_kernel<G, 8>;
+    case 1: return gan_gen_bwd_kernel<G, 1, SF, MF>;
+    case 2: return gan_gen_bwd_kernel<G, 2, SF, MF>;
+    case 3: return gan_gen_bwd_kernel<G, 3, SF, MF>;
+    case 4: return gan_gen_bwd_kernel<G, 4, SF, MF>;
+    case 5: return gan_gen_bwd_kernel<G, 5, SF, MF>;
+    case 6: return gan_gen_bwd_kernel<G, 6, SF, MF>;
+    case 7: return gan_gen_bwd_kernel<G, 7, SF, MF>;
+    default: return gan_gen_bwd_kernel<G, 8, SF, MF>;
   }
 }
 
@@ -353,9 +489,10 @@ GenBwdKernel gen_bwd_kernel_for(int m) {
 
 extern "C" {
 
-// Dynamic shared memory one block of the sweep needs for these widths.
-size_t tsde_gan_gen_bwd_smem_bytes(int S, int M, int m) {
-  return gen_bwd_smem_floats(S, M, m, bwd_group_width(S, M)) * sizeof(float);
+// Dynamic shared memory one block of the sweep needs for these widths at
+// `threads` threads a block.
+size_t tsde_gan_gen_bwd_smem_bytes(int S, int M, int m, int threads) {
+  return gen_bwd_smem_floats(S, M, m, threads / 32) * sizeof(float);
 }
 
 // Weight-gradient partials of either backward kernel for a batch of B rows:
@@ -396,9 +533,12 @@ int tsde_gan_gen_bwd(const float* g0, const float* noise, const float* t1s,
   a.B = B; a.S = S; a.M = M; a.m = m; a.N = N;
   a.P = 2 * (1 + S) * M + 2 * M + M * S * (1 + m) + S * (1 + m);
   const int G = bwd_group_width(S, M);
+  // The reference widths run an instantiation with them fixed.
   const GenBwdKernel kernel =
-      G == 16 ? gen_bwd_kernel_for<16>(m) : gen_bwd_kernel_for<32>(m);
-  const size_t smem = tsde_gan_gen_bwd_smem_bytes(S, M, m);
+      S == 16 && M == 16 ? gen_bwd_kernel_for<16, 16, 16>(m)
+      : G == 16          ? gen_bwd_kernel_for<16>(m)
+                         : gen_bwd_kernel_for<32>(m);
+  const size_t smem = tsde_gan_gen_bwd_smem_bytes(S, M, m, threads);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));

@@ -79,6 +79,66 @@ GEN_WEIGHT_NAMES = ("W1f", "b1f", "W2f", "b2f", "W1g", "b1g", "W2g", "b2g")
 CDE_WEIGHT_NAMES = ("W1", "b1", "W2", "b2")
 
 
+def odd_quad(n):
+    """The smallest multiple of 4 at least ``n`` whose quarter is odd: the
+    stride of the kernels' lane-major weight copies (csrc/gan_warp_rows.cuh),
+    so that the eight lanes of a quarter-warp read distinct banks."""
+    q = (n + 3) // 4
+    return 4 * (q + 1 - q % 2)
+
+
+def gen_bwd_group(S, M):
+    """Lanes of a row of kernel 6: 16 where S, M <= 16 (two rows a warp),
+    else 32."""
+    return 16 if max(S, M) <= 16 else 32
+
+
+def gen_bwd_layout(S, M, m):
+    """Kernel 6's shared memory, in floats, as ``gen_layout`` of
+    csrc/gan_gen_bwd.cu lays it out: the lane-major weight copies' strides
+    (``K1`` layer 1, ``K2`` layer 2, ``K3`` the drift's and the diffusion's
+    hidden cotangents, ``K4`` dz), the block's part (``block``) and a row's
+    slot (``row``)."""
+    G = gen_bwd_group(S, M)
+    K1, K2, K4 = odd_quad(S), odd_quad(M), odd_quad(2 * M)
+    K3 = (odd_quad(S), odd_quad(S * m))
+    block = G * (2 * K1 + K2 + m * K2 + K3[0] + K3[1] + K4)
+    return dict(G=G, K1=K1, K2=K2, K3=K3, K4=K4, block=block,
+                row=(6 + m) * G)
+
+
+def gen_bwd_smem_bytes(S, M, m, threads):
+    """Dynamic shared memory of one block of kernel 6 (the host's mirror of
+    ``tsde_gan_gen_bwd_smem_bytes``): the weight copies, then each warp's
+    slots, 32 lanes' of 6 + m floats."""
+    return 4 * (gen_bwd_layout(S, M, m)["block"] + threads // 32 * 32
+                * (6 + m))
+
+
+def cde_fwd_group(S, M):
+    """Lanes of a row of kernel 7: the power of two at least max(S, M, 4)."""
+    G = 4
+    while G < max(S, M):
+        G *= 2
+    return G
+
+
+def cde_fwd_layout(S, M, C):
+    """Kernel 7's shared memory, in floats, as ``cde_fwd_layout`` of
+    csrc/gan_cde_fwd.cu lays it out: the strides of W1's columns (``K1``)
+    and W2's (``K2``), and the block's part (``block``)."""
+    G = cde_fwd_group(S, M)
+    K1, K2 = odd_quad(S), odd_quad(M)
+    return dict(G=G, K1=K1, K2=K2, block=G * K1 + G * C * K2)
+
+
+def cde_fwd_smem_bytes(S, M, C, threads):
+    """Dynamic shared memory of one block of kernel 7 (the host's mirror of
+    ``tsde_gan_cde_fwd_smem_bytes``): the weight copies, then 64 floats a
+    warp for its rows' z1 and a1."""
+    return 4 * (cde_fwd_layout(S, M, C)["block"] + threads // 32 * 64)
+
+
 def _tower_weights(mlp, name):
     """The unpadded weights of a 2-Linear tanh LipMLP: W1 (in, M), b1 (M),
     W2 (M, out), b2 (out). Refuses the architectures the kernels do not
@@ -387,7 +447,8 @@ def cde_solve_forward_cuda(h0, f0, slopes, t1s, dts, weights,
                          f"{h0.device}")
     B, S, M, C, N = check_cde_inputs(h0, f0, slopes, t1s, dts, weights)
     check_widths(S, M, C, threads)
-    lib = _build.library_for("tsde_gan_cde_fwd_smem_bytes", S, M, C)
+    lib = _build.library_for("tsde_gan_cde_fwd_smem_bytes", S, M, C,
+                             threads)
     hs = torch.empty((N, B, S), dtype=torch.float32, device=h0.device)
     zs = torch.empty_like(hs)
     ptrs = [t.data_ptr() for t in (h0, f0, slopes, t1s, dts, *weights,
@@ -424,7 +485,8 @@ def gen_solve_backward_cuda(x0, f0, g0, noise, t1s, dts, weights, zs, gs, gy,
     B, S, M, m, N = check_gen_backward_inputs(x0, f0, g0, noise, t1s, dts,
                                               weights, zs, gs, gy)
     check_widths(S, M, m, threads)
-    lib = _build.library_for("tsde_gan_gen_bwd_smem_bytes", S, M, m)
+    lib = _build.library_for("tsde_gan_gen_bwd_smem_bytes", S, M, m,
+                             threads)
     dx0, df0 = torch.empty_like(x0), torch.empty_like(f0)
     dg0 = torch.empty_like(g0)
     dnoise = torch.empty_like(noise)

@@ -946,10 +946,18 @@ def phase_cde_tiles(device):
 GAN_TILE_THREADS = (32, 64, 128, 256)
 
 
+def gen_rows(gen_args, n):
+    """Kernel 5's inputs cut to the batch's first ``n`` rows."""
+    x0, f0, g0, noise, t1s, dts = gen_args
+    return (x0[:n].contiguous(), f0[:n].contiguous(), g0[:n].contiguous(),
+            noise[:, :n].contiguous(), t1s, dts)
+
+
 def phase_gan_tiles(device):
-    """Kernels 6 and 7 at the reference scale at 1, 2, 4 and 8 warps a
-    block: every cell of a kernel bitwise the others; median device times
-    (``--only tiles``)."""
+    """Kernels 5, 6 and 7 at the reference scale at 1, 2, 4 and 8 warps a
+    block: every cell of a kernel bitwise the others; median device times,
+    and kernel 5's at B = 1, where one warp's chain of dependent steps is
+    all the time (``--only tiles``)."""
     gan = gan_models(device)
     ts, real = gan_data(device)
     (gen_args, gen_w), (cde_args, cde_w) = gan_kernel_inputs(
@@ -961,6 +969,8 @@ def phase_gan_tiles(device):
         gy = torch.randn(ys.shape, generator=gen, device=device)
         bargs = (*gen_args, gen_w, zs, gs, gy)
         for k, run, flat in (
+                (5, lambda t: GF.gen_solve_forward_cuda(*gen_args, gen_w,
+                                                        threads=t), list),
                 (6, lambda t: GF.gen_solve_backward_cuda(*bargs, threads=t),
                  flat_grads),
                 (7, lambda t: GF.cde_solve_forward_cuda(*cde_args, cde_w,
@@ -979,6 +989,10 @@ def phase_gan_tiles(device):
                   f"all bitwise equal): " + ", ".join(
                       f"{t}: {v:.4f}" for t, v in times.items()), flush=True)
             cells[f"kernel{k}"] = dict(default=str(GF.THREADS), **times)
+        one = gen_rows(gen_args, 1)
+        cells["kernel5"]["B1"] = median_cuda_ms(
+            lambda: GF.gen_solve_forward_cuda(*one, gen_w), 20)
+    print(f"kernel5 at B = 1, ms: {cells['kernel5']['B1']:.4f}", flush=True)
     return cells
 
 
@@ -1376,10 +1390,10 @@ def phase_gan_kernels(device, models, ts, real):
     lib = _build.load_library()
     B, S, M, m, n = GF.check_gen_inputs(*gen_args, gen_w)
     Bc, Sc, Mc, C, _ = GF.check_cde_inputs(*cde_args, cde_w)
-    print(f"GAN kernels: shared memory per block "
-          f"{lib.tsde_gan_gen_fwd_smem_bytes(S, M, m)} bytes (kernel 5), "
-          f"{lib.tsde_gan_cde_fwd_smem_bytes(Sc, Mc, C, GF.THREADS)} bytes "
-          f"(kernel 7, {GF.THREADS} threads)", flush=True)
+    smem5 = lib.tsde_gan_gen_fwd_smem_bytes(S, M, m, GF.THREADS)
+    smem7 = lib.tsde_gan_cde_fwd_smem_bytes(Sc, Mc, C, GF.THREADS)
+    print(f"GAN kernels: shared memory per block at {GF.THREADS} threads "
+          f"{smem5} bytes (kernel 5), {smem7} bytes (kernel 7)", flush=True)
     with torch.no_grad():
         got = GF.gen_solve_forward_cuda(*gen_args, gen_w)
         want = GF.gen_solve_forward_plain(*gen_args, gen_w)
@@ -3235,7 +3249,7 @@ def ab_logqp_inputs(device):
                                      SEED + 25)[1]
 
 
-# Kernels 6 and 7 at the other shapes of tests/test_torch_gpu.py
+# Kernels 5, 6 and 7 at the other shapes of tests/test_torch_gpu.py
 # (GEN_REF_SHAPES, CDE_FWD_REF_SHAPES; batch, S, M, m or C, times): a
 # ragged batch, one channel, a hidden layer wider than the state, the
 # widest widths.
@@ -3270,7 +3284,7 @@ def ab_gan_inputs(device, kind, B, S, M, K, T, seed):
 
 def phase_ab(device, tag, against):
     """Times kernels 1, 2, 3 (at each K of MULTI_KS), 4 (at MULTI_K), 5-8
-    (at the GAN's reference scale; 6 and 7 also at AB_GEN_SHAPES and
+    (at the GAN's reference scale; 5, 6 and 7 also at AB_GEN_SHAPES and
     AB_CDE_SHAPES), 9 (at E1, on general noise with time
     and at the narrow solve), 10 (at E1), 11 (at R1 and on general noise
     with time), 12 (at R1), 13 (at L1, L2 and the small signed solve) and 14
@@ -3374,11 +3388,17 @@ def phase_ab(device, tag, against):
             lambda: GF.cde_solve_backward_cuda(*b8), 20)
         del gan, b6, b8
         for i, shape in enumerate(AB_GEN_SHAPES):
-            key = "kernel6_" + "x".join(map(str, shape))
+            key = "x".join(map(str, shape))
             b6 = ab_gan_inputs(device, "gen", *shape, SEED + 30 + i)
-            out[key] = flat_grads(GF.gen_solve_backward_cuda(*b6))
-            times[key] = median_cuda_ms(
+            out["kernel6_" + key] = flat_grads(
+                GF.gen_solve_backward_cuda(*b6))
+            times["kernel6_" + key] = median_cuda_ms(
                 lambda: GF.gen_solve_backward_cuda(*b6), 20)
+            # Kernel 5 on the forward's inputs of the same draw.
+            k5 = b6[:7]
+            out["kernel5_" + key] = list(GF.gen_solve_forward_cuda(*k5))
+            times["kernel5_" + key] = median_cuda_ms(
+                lambda: GF.gen_solve_forward_cuda(*k5), 20)
         for i, shape in enumerate(AB_CDE_SHAPES):
             key = "kernel7_" + "x".join(map(str, shape))
             c7 = ab_gan_inputs(device, "cde", *shape, SEED + 40 + i)

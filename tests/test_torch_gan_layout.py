@@ -1,8 +1,9 @@
-"""The host's mirror of kernels 6 and 7's shared-memory layouts
+"""The host's mirror of kernels 5, 6 and 7's shared-memory layouts
 (``torchsde_tpu_torch/ops/gan_fused.py``), on the CPU.
 
-Kernels 6 (``csrc/gan_gen_bwd.cu``) and 7 (``csrc/gan_cde_fwd.cu``) move a
-row's vectors through the warp's shared memory and read each lane's
+Kernels 5 (``csrc/gan_gen_fwd.cu``), 6 (``csrc/gan_gen_bwd.cu``) and 7
+(``csrc/gan_cde_fwd.cu``) move a row's vectors through the warp's shared
+memory and read each lane's
 weights from lane-major copies at strides of 4 x an odd number of floats
 (``csrc/gan_warp_rows.cuh``). These tests hold the host's mirror of that
 layout to the bytes it must come to, to a block's shared memory, and to
@@ -23,6 +24,9 @@ GEN_SHAPES = ((1024, 16, 16, 3, 64), (1023, 16, 16, 3, 20),
               (300, 16, 16, 1, 20), (300, 9, 24, 3, 20), (64, 32, 32, 8, 8))
 CDE_SHAPES = ((2048, 17, 16, 2, 64), (2047, 17, 16, 2, 20),
               (300, 17, 16, 1, 20), (300, 9, 24, 3, 20), (64, 32, 32, 8, 8))
+# Kernel 5 runs at the shapes of kernel 6 and at four more.
+GEN_FWD_SHAPES = GEN_SHAPES + ((37, 16, 16, 3, 6), (5, 8, 32, 1, 4),
+                               (64, 32, 32, 8, 3), (3, 1, 1, 1, 2))
 
 
 def _banks(stride, lanes=8, quads=4):
@@ -145,3 +149,72 @@ def test_gpu_test_shapes_fit_a_block(shape, threads):
         assert L["block"] == L["G"] * (L["K1"] + K * L["K2"])
         assert GF.cde_fwd_smem_bytes(S, M, K, threads) <= \
             _build.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("S,M,G", [(16, 16, 16), (1, 1, 16), (9, 16, 16),
+                                   (16, 9, 16), (17, 16, 32), (9, 24, 32),
+                                   (32, 32, 32)])
+def test_gen_forward_group_width(S, M, G):
+    """Kernel 5 runs one row a warp: where S, M <= 16 its towers sit on the
+    two half-warps (16 lanes a tower; a warp's slot holds z1, both towers'
+    hidden activations and each half's m outputs a lane), else on all 32
+    lanes (z1 and the two towers' activations)."""
+    assert GF.gen_fwd_group(S, M) == G
+    for m in (1, 3, 8):
+        L = GF.gen_fwd_layout(S, M, m)
+        assert L["G"] == G
+        assert L["warp"] == (3 * 16 + 2 * 16 * m if G == 16 else 3 * 32)
+
+
+def test_gen_forward_smem_at_the_reference_widths():
+    """Kernel 5 at S 16, M 16, m 3: W1's columns of both towers and W2's
+    four columns of a unit, 16 lane rows each at a stride of 20, are
+    16 x (2 x 20 + 4 x 20) = 1,920 floats; a warp's row 16 + 32 + 96."""
+    L = GF.gen_fwd_layout(16, 16, 3)
+    assert (L["G"], L["K1"], L["K2"], L["block"], L["warp"]) == \
+        (16, 20, 20, 1920, 144)
+    for threads in THREADS:
+        assert GF.gen_fwd_smem_bytes(16, 16, 3, threads) == \
+            4 * (1920 + threads // 32 * 144)
+    assert GF.gen_fwd_smem_bytes(16, 16, 3, 128) == 9984
+
+
+def test_gen_forward_smem_at_the_widest_widths():
+    """Kernel 5 at S = M = 32, m 8: 32 lane rows at a stride of 36 for
+    W1's columns of both towers and W2's nine columns of a unit, 12,672
+    floats, then 96 floats a warp; 53,760 bytes at 256 threads."""
+    L = GF.gen_fwd_layout(32, 32, 8)
+    assert (L["G"], L["K1"], L["K2"], L["block"], L["warp"]) == \
+        (32, 36, 36, 12672, 96)
+    for threads in THREADS:
+        smem = GF.gen_fwd_smem_bytes(32, 32, 8, threads)
+        assert smem == 4 * (12672 + threads // 32 * 96)
+        assert smem <= _build.MAX_SMEM_BYTES
+    assert GF.gen_fwd_smem_bytes(32, 32, 8, 256) == 53760
+
+
+@pytest.mark.parametrize("m", range(1, 9))
+def test_gen_forward_strides_spread_a_quarter_warp(m):
+    """At every S, M <= 32 kernel 5's two strides are 4 x an odd number of
+    floats, so a quarter-warp's float4 loads of its weight rows fall in
+    eight distinct groups of four banks; the block's part is whole lane
+    rows, and each warp's row starts on a float4."""
+    for S, M in itertools.product(range(1, 33), range(1, 33)):
+        L = GF.gen_fwd_layout(S, M, m)
+        for k in (L["K1"], L["K2"]):
+            assert k % 4 == 0 and (k // 4) % 2 == 1
+            assert all(sorted(g) == list(range(8)) for g in _banks(k))
+        assert L["block"] == L["G"] * (2 * L["K1"] + (1 + m) * L["K2"])
+        assert L["block"] % 4 == 0 and L["warp"] % 4 == 0
+
+
+@pytest.mark.parametrize("threads", THREADS)
+@pytest.mark.parametrize("shape", GEN_FWD_SHAPES)
+def test_gen_forward_gpu_test_shapes_fit_a_block(shape, threads):
+    """Every shape the GPU tests launch kernel 5 at fits a block's shared
+    memory at every block size."""
+    _, S, M, m, _ = shape
+    L = GF.gen_fwd_layout(S, M, m)
+    smem = GF.gen_fwd_smem_bytes(S, M, m, threads)
+    assert smem == 4 * (L["block"] + threads // 32 * L["warp"])
+    assert smem <= _build.MAX_SMEM_BYTES

@@ -1645,6 +1645,34 @@ def test_gen_backward_blocks_match_plain_and_float64(cuda, B, S, M, m, T):
         assert all(torch.equal(a, b) for a, b in zip(got, first)), threads
 
 
+@pytest.mark.parametrize("B,S,M,m,T", GEN_REF_SHAPES)
+def test_gen_forward_matches_plain_and_float64(cuda, B, S, M, m, T):
+    """Kernel 5 against its twin at the tolerance max(1e-5, 4e-6 * scale)
+    and at most twice the twin's distance from float64 plus the tolerance
+    (PERF.md section 2); 1, 2, 4 and 8 warps a block and a second call
+    give the same bits."""
+    with torch.no_grad():
+        args, weights = _gan_gen_args(cuda, B, S, M, m, T, 7)
+        want = GF.gen_solve_forward_plain(*args, weights)
+        exact = GF.gen_solve_forward_plain(*_in_double(args),
+                                           _in_double(weights))
+        before = GF.gen_launches
+        runs = {t: GF.gen_solve_forward_cuda(*args, weights, threads=t)
+                for t in (32, 64, 128, 256)}
+        again = GF.gen_solve_forward_cuda(*args, weights)
+        assert GF.gen_launches == before + 5
+    torch.cuda.synchronize()
+    first = runs[GF.THREADS]
+    for g, w, e in zip(first, want, exact):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        tol = max(1e-5, 4e-6 * float(w.abs().max()))
+        assert float((g - w).abs().max()) <= tol
+        plain64 = float((w.double() - e).abs().max())
+        assert float((g.double() - e).abs().max()) <= 2 * plain64 + tol
+    for threads, got in [*runs.items(), ("again", again)]:
+        assert all(torch.equal(a, b) for a, b in zip(got, first)), threads
+
+
 @pytest.mark.parametrize("B,S,M,C,T", CDE_FWD_REF_SHAPES)
 def test_cde_forward_matches_plain_and_float64(cuda, B, S, M, C, T):
     """Kernel 7 against its twin at the tolerance max(1e-5, 4e-6 * scale)
@@ -1683,4 +1711,20 @@ def test_gan_kernels_6_and_7_smem_bytes_match_the_host_layout(cuda):
                 GF.cde_fwd_smem_bytes(S, M, m, threads)
             smem = GF.gen_bwd_smem_bytes(S, M, m, threads)
             assert lib.tsde_gan_gen_bwd_smem_bytes(S, M, m, threads) == smem
+            assert smem <= _build.MAX_SMEM_BYTES
+
+
+def test_gan_kernel_5_smem_bytes_match_the_host_layout(cuda):
+    """Kernel 5's C layout (tsde_gan_gen_fwd_smem_bytes) is its host mirror
+    in gan_fused, grows by a warp's slots with each warp, and fits a
+    block's shared memory."""
+    lib = _build.load_library()
+    for S, M, m in ((16, 16, 3), (16, 16, 1), (9, 24, 3), (32, 32, 8),
+                    (1, 1, 1), (16, 16, 8), (8, 32, 1)):
+        one = lib.tsde_gan_gen_fwd_smem_bytes(S, M, m, 32)
+        for threads in (32, 64, 128, 256):
+            smem = GF.gen_fwd_smem_bytes(S, M, m, threads)
+            assert lib.tsde_gan_gen_fwd_smem_bytes(S, M, m, threads) == smem
+            assert smem == one + 4 * GF.gen_fwd_layout(S, M, m)["warp"] * (
+                threads // 32 - 1)
             assert smem <= _build.MAX_SMEM_BYTES

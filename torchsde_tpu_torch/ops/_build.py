@@ -112,10 +112,8 @@ def _bind(lib):
     cde_bwd = lib.tsde_gan_cde_bwd
     cde_bwd.argtypes = [P] * 14 + [I] * 7 + [P]
     cde_bwd.restype = I
-    lib.tsde_gan_gen_fwd_smem_bytes.argtypes = [I, I, I]
-    lib.tsde_gan_gen_fwd_smem_bytes.restype = ctypes.c_size_t
-    # Kernels 6, 7 and 8's shared memory depends on their warps a block too.
-    for name in ("cde_fwd", "gen_bwd", "cde_bwd"):
+    # The GAN kernels' shared memory depends on their warps a block too.
+    for name in ("gen_fwd", "cde_fwd", "gen_bwd", "cde_bwd"):
         smem = getattr(lib, f"tsde_gan_{name}_smem_bytes")
         smem.argtypes = [I, I, I, I]
         smem.restype = ctypes.c_size_t

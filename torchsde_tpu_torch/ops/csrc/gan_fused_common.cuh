@@ -1,23 +1,16 @@
-// The SDE-GAN towers (Linear, lipswish, Linear, tanh of [t, z]) for the
-// whole-solve kernels (gan_gen_fwd.cu, gan_cde_fwd.cu, and the backward
-// kernels gan_gen_bwd.cu, gan_cde_bwd.cu that recompute them), so every
-// kernel evaluates a tower with the same arithmetic. Kernels 6, 7 and 8
-// move a row's vectors through the warp's shared memory instead of the
-// shuffles below (gan_warp_rows.cuh), in the same order of every sum.
+// What the SDE-GAN whole-solve kernels share (gan_gen_fwd.cu, gan_cde_fwd.cu
+// and their reverse sweeps gan_gen_bwd.cu, gan_cde_bwd.cu): the limits of
+// their widths, the width of a row's group of lanes, lipswish with precise
+// expf, and the weight-gradient partials of the sweeps with their sum.
 //
-// Layout (gan_gen_fwd.cu). A batch row is served by a group of G lanes
-// inside one warp (G = the power of two >= max(S, M), at most 32; 32 / G
-// rows per warp):
-// lane l of the group owns hidden unit l of each tower and state unit l
-// (with its K output channels). Rows never interact, so a step needs no
-// block barrier: the only communication is __shfl_sync inside the group.
-// A tower's weights sit in shared memory, padded with zeros to G columns so
-// that lanes past M or S compute exact zeros and every lane runs the same
-// instructions:
-//   w1s[r * G + k]         = W1[r][k]               r < 1+S (row 0: time)
-//   w2s[(k * K + j) * G + i] = W2[k][i * K + j]     output (i, j) of unit i
-// Neighbouring lanes read neighbouring words, and the groups of a warp read
-// the same words (a broadcast), so the reads are free of bank conflicts.
+// A batch row is served by a group of G lanes inside one warp, lane l
+// owning state unit l and hidden unit l (G a power of two at least
+// max(S, M), at most 32; 32 / G rows a warp). Rows never interact, so a
+// step needs no block barrier. A row's vectors go through the warp's
+// shared memory (gan_warp_rows.cuh): every kernel evaluates a tower with
+// the same arithmetic, in the same order of every sum (layer 1 from the
+// time term, the state's terms in order, the bias last; layer 2 the hidden
+// units in order, then the bias, then tanh).
 
 #pragma once
 
@@ -38,89 +31,24 @@ __host__ __device__ inline int group_width(int S, int M) {
   return G;
 }
 
-__host__ __device__ inline size_t tower_w1_floats(int S, int G) {
-  return size_t(1 + S) * G;
-}
-
-__host__ __device__ inline size_t tower_w2_floats(int M, int K, int G) {
-  return size_t(M) * K * G;
-}
-
 // lipswish as the JAX kernel computes it: 0.909 * x * sigmoid(x), with a
 // precise expf.
 __device__ __forceinline__ float lipswish(float x) {
   return 0.909f * x * (1.f / (1.f + expf(-x)));
 }
 
-// Stages W1 (1+S, M) and W2 (M, S*K) of one tower into the padded layouts
-// above, with the whole block.
-__device__ inline void stage_tower(float* w1s, float* w2s, const float* W1,
-                                   const float* W2, int S, int M, int K,
-                                   int G) {
-  for (int e = threadIdx.x; e < (1 + S) * G; e += blockDim.x) {
-    const int r = e / G, k = e % G;
-    w1s[e] = k < M ? W1[r * M + k] : 0.f;
-  }
-  for (int e = threadIdx.x; e < M * K * G; e += blockDim.x) {
-    const int k = e / (K * G), j = (e / G) % K, i = e % G;
-    w2s[e] = i < S ? W2[k * (S * K) + i * K + j] : 0.f;
-  }
-}
-
-// Layer 1 of NT towers that share the input [t, z] (z distributed one unit
-// per lane of the group): this lane's hidden pre-activation of each tower,
-// bias added last, as x @ W1 + b1 sums. The z shuffles are shared by the
-// towers.
-template <int NT>
-__device__ __forceinline__ void tower_layer1(const float* const (&w1s)[NT],
-                                             const float (&b1)[NT], float t,
-                                             float z, int S, int G, int li,
-                                             float (&pre)[NT]) {
-#pragma unroll
-  for (int q = 0; q < NT; ++q) pre[q] = t * w1s[q][li];
-#pragma unroll 4
-  for (int i = 0; i < S; ++i) {
-    const float zi = __shfl_sync(FULL, z, i, G);
-#pragma unroll
-    for (int q = 0; q < NT; ++q)
-      pre[q] = fmaf(zi, w1s[q][(1 + i) * G + li], pre[q]);
-  }
-#pragma unroll
-  for (int q = 0; q < NT; ++q) pre[q] += b1[q];
-}
-
-// Layer 2 of one tower: the K outputs of this lane's state unit,
-// tanh(a @ W2 + b2), from the hidden activations a (one per lane).
-template <int K>
-__device__ __forceinline__ void tower_layer2(const float* w2s, float a,
-                                             const float (&b2)[K], int M,
-                                             int G, int li,
-                                             float (&out)[K]) {
-#pragma unroll
-  for (int j = 0; j < K; ++j) out[j] = 0.f;
-  const float* w = w2s + li;
-#pragma unroll 4
-  for (int k = 0; k < M; ++k) {
-    const float ak = __shfl_sync(FULL, a, k, G);
-#pragma unroll
-    for (int j = 0; j < K; ++j) out[j] = fmaf(ak, w[j * G], out[j]);
-    w += K * G;
-  }
-#pragma unroll
-  for (int j = 0; j < K; ++j) out[j] = tanhf(out[j] + b2[j]);
-}
-
-// ---------------------------------------------------------------------------
-// Backward kernels.
-//
-// Their group width is at least 16, so it takes one of two values and is a
-// template parameter: a lane's weight-gradient accumulators are then
-// register arrays of compile-time size. Lanes past S or M add exact zeros.
+// The group width of kernels 5, 6 and 8 is at least 16, so it takes one of
+// two values and is a template parameter: a lane's weights (kernel 5) or
+// weight-gradient accumulators (6, 8) are then register arrays of
+// compile-time size. Lanes past S or M add exact zeros.
 __host__ __device__ inline int bwd_group_width(int S, int M) {
   const int G = group_width(S, M);
   return G < 16 ? 16 : G;
 }
 
+// ---------------------------------------------------------------------------
+// Backward kernels.
+//
 // Weight-gradient partials: one for each warp of the reverse sweep (the
 // rows of a warp are summed inside it), so their number does not depend on
 // the block size.

@@ -87,6 +87,32 @@ def odd_quad(n):
     return 4 * (q + 1 - q % 2)
 
 
+def gen_fwd_group(S, M):
+    """Lane rows of kernel 5's weight copies, as kernel 6's: 16 where
+    S, M <= 16 (a row's towers on the two half-warps, 16 lanes each), else
+    32 (a row's towers on all 32 lanes). Either way one row a warp."""
+    return gen_bwd_group(S, M)
+
+
+def gen_fwd_layout(S, M, m):
+    """Kernel 5's shared memory, in floats, as ``gen_fwd_layout`` of
+    csrc/gan_gen_fwd.cu lays it out: the strides of the lane-major copies
+    of W1's columns (``K1``, both towers) and W2's 1 + m columns of a unit
+    (``K2``), the block's part (``block``) and a warp's slots (``warp``)."""
+    G = gen_fwd_group(S, M)
+    K1, K2 = odd_quad(S), odd_quad(M)
+    return dict(G=G, K1=K1, K2=K2, block=G * (2 * K1 + (1 + m) * K2),
+                warp=48 + 32 * m if G == 16 else 96)
+
+
+def gen_fwd_smem_bytes(S, M, m, threads):
+    """Dynamic shared memory of one block of kernel 5 (the host's mirror of
+    ``tsde_gan_gen_fwd_smem_bytes``): the weight copies, then each warp's
+    slots."""
+    L = gen_fwd_layout(S, M, m)
+    return 4 * (L["block"] + threads // 32 * L["warp"])
+
+
 def gen_bwd_group(S, M):
     """Lanes of a row of kernel 6: 16 where S, M <= 16 (two rows a warp),
     else 32."""
@@ -421,7 +447,8 @@ def gen_solve_forward_cuda(x0, f0, g0, noise, t1s, dts, weights,
                          f"{x0.device}")
     B, S, M, m, N = check_gen_inputs(x0, f0, g0, noise, t1s, dts, weights)
     check_widths(S, M, m, threads)
-    lib = _build.library_for("tsde_gan_gen_fwd_smem_bytes", S, M, m)
+    lib = _build.library_for("tsde_gan_gen_fwd_smem_bytes", S, M, m,
+                             threads)
     f32 = dict(dtype=torch.float32, device=x0.device)
     ys = torch.empty((N, B, S), **f32)
     zs = torch.empty((N, B, S), **f32)

@@ -132,7 +132,29 @@ Phases, in order; any failure raises and the script exits non-zero:
     128), the moments and a KS test of 2^20 draws, determinism, median
     times beside ``torch.randn``'s (another stream) and the bound, and one
     ``sdeint(method="srk", rng_impl="philox")`` solve at full width, which
-    launches it twice.
+    launches it twice;
+25. brownian (no kernel: the dyadic descent and the solvers are plain
+    PyTorch): (a) a float32 ``BrownianInterval`` (entropy 42) at the
+    reference benchmarks' sizes (128, 5), (256, 128) and (512, 256), Levy
+    area none and space-time (and Foster's at (128, 5)), two
+    ``query_grid`` calls over 1,001 points bitwise equal and timed, and
+    the same interval on the CPU: branch bits resolved on the card, packed
+    words, keys, random bits and uniforms bitwise, W, U and A within
+    BM_F32_ATOL and BM_F32_A_ATOL (every cell at (128, 5), BM_CPU_CELLS
+    above); (b) W and U additive, query order and ``query_pairs`` over a
+    CUDA tensor of times bitwise ``__call__`` on host floats; (c) the
+    reference solver benchmark's path (f = y, a saturated exp(-y)
+    diffusion, Ito or Stratonovich diagonal noise, 100 output times on
+    [0, 1], dt 1e-3, an explicit interval) by every ported fixed-step
+    method at (128, 5) and (512, 256) (Milstein's grad_free option and
+    log_ode on general noise at (128, 5) only), each on the noise (a)'s
+    interval drew over the same grid (its query_grid's median is the
+    solve's noise precompute, the loop timed alone): finite, against the
+    CPU's solve (whole, on the CPU interval's noise, at (128, 5); the loop
+    on the card's noise for 32 rows at (512, 256)); one backprop through
+    the Euler and the midpoint solves against the CPU's gradient; an Euler
+    solve on a fresh interval, its descent included, profiled (kernels
+    launched, busy share) and bitwise the solve on (a)'s noise.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only`` runs some phase groups (for
@@ -160,6 +182,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 from torchsde_tpu_torch.models.latent_sde import (LatentSDE, latent_sde_loss,
                                                   make_lorenz_data)
@@ -168,7 +192,9 @@ from torchsde_tpu_torch.models.sde_gan import (Discriminator, Generator,
                                                get_ou_data)
 from torchsde_tpu_torch.core import integrate as TI
 from torchsde_tpu_torch.core.sdeint import sdeint
+from torchsde_tpu_torch.brownian import threefry as TF
 from torchsde_tpu_torch.brownian.base import BaseBrownian
+from torchsde_tpu_torch.brownian.interval import BrownianInterval
 from torchsde_tpu_torch.models import latent_sde as TL
 from torchsde_tpu_torch.models.latent_sde import latent_sde_loss_multi
 from torchsde_tpu_torch.ops import _build
@@ -3221,6 +3247,454 @@ def phase_prng_kernel(device):
                           bound_by=bound_by, ks_pvalue=float(ks.pvalue))
 
 
+# --------------------------------------------------------------------------- #
+#  Brownian classes and the fixed-step solvers (no kernels)                   #
+# --------------------------------------------------------------------------- #
+
+# The reference benchmarks' sizes (benchmarks/brownian.py:32 and
+# benchmarks/sdeint_ab.py:31 of the JAX package).
+BM_SIZES = ((128, 5), (256, 128), (512, 256))
+# Bitwise the solves' step grid (integrate.build_step_grid(0, 1, SOLVE_DT)),
+# so phase (c) replays the noise phase (a) draws.
+BM_GRID = np.linspace(0.0, 1.0, 1001)
+# Card against CPU: W and U of a float32 interval within BM_F32_ATOL times
+# sqrt(span) (CUDA's erfinv is not the CPU's; keys, bits and branch words
+# are held bitwise), A within BM_F32_A_ATOL: A is built from H = U/h - W/2,
+# and U of a cell is a difference of float32 prefix integrals of O(1), so
+# an ulp of those (1e-7) is 1e-4 in H over a cell of h = 1e-3, times
+# |W| ~ 0.1 in A.
+BM_F32_ATOL = 2e-5
+BM_F32_A_ATOL = 1e-4
+# Cells of the grid held against the CPU above (128, 5), where the CPU
+# descent of all 1,001 points would take minutes.
+BM_CPU_CELLS = (0, 1, 137, 500, 501, 862, 998, 999)
+# W(a, b) + W(b, c) against W(a, c): prefix differences in float32.
+BM_ADD_ATOL = 1e-5
+# The reference solver benchmark (benchmarks/sdeint_ab.py:29-33, 66-70):
+# f = y, Ito diagonal, 100 output times on [0, 1], dt 1e-3, an explicit
+# BrownianInterval (entropy 42, phase (a)'s too); its g = exp(-y) is
+# saturated to
+# g = 1 / (1 + exp(y)) (about exp(-y) for y >> 0), because with exp(-y) a
+# path that turns negative explodes (about 2 % of them are inf or nan by
+# t = 1, measured on the CPU), and every solve here must be finite.
+SOLVE_SIZE, SOLVE_SMALL = (512, 256), (128, 5)
+SOLVE_TS = np.linspace(0.0, 1.0, 100)
+SOLVE_DT = 1e-3
+SOLVE_ENTROPY = 42
+# A card solve against the same solve on the CPU: max |diff| within this
+# times (1 + max |y|) in float32. At SOLVE_SIZE the CPU twin solves the
+# rows SOLVE_TWIN_ROWS.
+SOLVE_F32_REL = 1e-4
+SOLVE_TWIN_ROWS = slice(0, 32)
+SOLVE_METHODS = (("euler", "ito", None), ("srk", "ito", None),
+                 ("milstein", "ito", None),
+                 ("milstein", "ito", {"grad_free": True}),
+                 ("reversible_heun", "stratonovich", None),
+                 ("midpoint", "stratonovich", None),
+                 ("heun", "stratonovich", None),
+                 ("euler_heun", "stratonovich", None),
+                 ("milstein", "stratonovich", None),
+                 ("milstein", "stratonovich", {"grad_free": True}))
+
+
+class AbSDE(torch.nn.Module):
+    """The reference solver benchmark's SDE, f = y and g = 1 / (1 + exp(y))
+    (its exp(-y), saturated), with a trainable scale ``one`` on the drift;
+    diagonal, or general with ``G`` (d, m) spreading the diffusion over m
+    channels."""
+
+    def __init__(self, sde_type, device, G=None):
+        super().__init__()
+        self.sde_type = sde_type
+        self.noise_type = "diagonal" if G is None else "general"
+        self.one = torch.nn.Parameter(torch.ones((), device=device))
+        self.G = G
+
+    def f(self, t, y):
+        return self.one * y
+
+    def g(self, t, y):
+        g = torch.sigmoid(-y)
+        return g if self.G is None else g[..., None] * self.G
+
+
+class Recorder(BaseBrownian):
+    """A Brownian object that passes ``query_grid`` to ``bm``, timing it
+    (host clock, synchronised): the noise-precompute part of a solve."""
+
+    def __init__(self, bm):
+        self.bm, self.ms = bm, None
+
+    def __call__(self, ta, tb=None, return_U=False, return_A=False):
+        return self.bm(ta, tb, return_U=return_U, return_A=return_A)
+
+    def query_grid(self, grid, return_U=False, return_A=False):
+        noise, self.ms = timed_ms(lambda: self.bm.query_grid(
+            grid, return_U=return_U, return_A=return_A))
+        return noise
+
+    shape = property(lambda self: self.bm.shape)
+    dtype = property(lambda self: self.bm.dtype)
+    device = property(lambda self: self.bm.device)
+    levy_area_approximation = property(
+        lambda self: self.bm.levy_area_approximation)
+
+
+class NoiseTable(BaseBrownian):
+    """Serves the rows ``rows`` of a recorded ``(W, U, A)`` of BM_GRID, on
+    ``device``: a solve on the card replays the noise a query_grid of
+    phase (a) drew, and a CPU twin the same noise or the CPU interval's."""
+
+    def __init__(self, noise, levy, device, rows=slice(None)):
+        self.noise = tuple(None if x is None else x[:, rows].to(device)
+                           for x in noise)
+        self.levy, self.device = levy, torch.device(device)
+
+    def __call__(self, ta, tb=None, return_U=False, return_A=False):
+        raise NotImplementedError("NoiseTable serves whole grids only")
+
+    def query_grid(self, grid, return_U=False, return_A=False):
+        if not np.array_equal(grid, BM_GRID):
+            raise ValueError("NoiseTable serves BM_GRID only")
+        W, U, A = self.noise
+        return W, (U if return_U else None), (A if return_A else None)
+
+    shape = property(lambda self: tuple(self.noise[0].shape[1:]))
+    dtype = property(lambda self: self.noise[0].dtype)
+    levy_area_approximation = property(lambda self: self.levy)
+
+
+def interval(size, levy, device, entropy=None):
+    entropy = SOLVE_ENTROPY if entropy is None else entropy
+    return BrownianInterval(0.0, 1.0, size, dtype=torch.float32,
+                            entropy=entropy, levy_area_approximation=levy,
+                            device=device)
+
+
+class CudaTraffic(TorchDispatchMode):
+    """Counts the aten ops that run on the card, views left out (they launch
+    nothing), and the bytes each names: every CUDA tensor among its inputs
+    and outputs, once, at most its storage's size (an expanded tensor is
+    read from its storage). In eager PyTorch each such op is a kernel that
+    reads its inputs and writes its outputs, so for tensors larger than L2
+    this is the DRAM traffic the ops ask for; the card's counters are not
+    read."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.bytes = 0, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view:
+            seen = set()
+            for t in tree_flatten((args, kwargs, out))[0]:
+                if torch.is_tensor(t) and t.is_cuda and id(t) not in seen:
+                    seen.add(id(t))
+                    self.bytes += min(t.numel() * t.element_size(),
+                                      t.untyped_storage().nbytes())
+            self.ops += 1
+        return out
+
+
+def descent_traffic(bm, rU, rA, ms):
+    """One query_grid of ``bm`` over BM_GRID under CudaTraffic: its ops and
+    bytes, and the rate those bytes take in ``ms`` (the unobserved call's
+    time) beside PEAK_BYTES_S."""
+    with torch.no_grad(), CudaTraffic() as traffic:
+        bm.query_grid(BM_GRID, return_U=rU, return_A=rA)
+    rate = traffic.bytes / (ms * 1e-3)
+    print(f"query_grid {bm.shape} {bm.levy_area_approximation}: "
+          f"{traffic.ops} ops on the card, {traffic.bytes / 1e9:.2f} GB named "
+          f"by them, {rate / 1e12:.3f} TB/s over {ms:.1f} ms "
+          f"({rate / PEAK_BYTES_S:.3f} of {PEAK_BYTES_S / 1e12:.2f} TB/s)",
+          flush=True)
+    return dict(ops=traffic.ops, bytes=traffic.bytes, rate=rate,
+                share=rate / PEAK_BYTES_S)
+
+
+def timed_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def check_interval_twin(label, bm, bm_cpu, noise, rU, rA):
+    """Card against CPU: branch bits resolved on the card and on the host,
+    the packed words of the grid's descents, the node keys' random bits
+    and uniforms bitwise; W, U and A within BM_F32_ATOL and BM_F32_A_ATOL
+    (all cells at (128, 5), else BM_CPU_CELLS). Returns the largest
+    difference of each, and the CPU's noise where it drew every cell (else
+    None)."""
+    grid_dev = torch.as_tensor(BM_GRID, device=bm.device)
+    bits_dev, starts_dev, full_dev = bm._resolve(grid_dev)
+    bits, starts, full = bm_cpu._resolve(BM_GRID)
+    depth = bits.shape[1]
+    same_bits = (torch.equal(bits_dev[:, :depth].cpu(), bits)
+                 and not bits_dev[:, depth:].any()
+                 and torch.equal(full_dev.cpu(), full)
+                 and torch.equal(starts_dev.cpu(), starts))
+    words_dev = bm._words(bits_dev).masked_fill_(full_dev[:, None], -1)
+    words = bm_cpu._words(bits).masked_fill_(full[:, None], -1)
+    keys = TF.split(bm._key_nodes, 64)
+    keys_cpu = TF.split(bm_cpu._key_nodes, 64)
+    same_draws = (torch.equal(words_dev.cpu(), words)
+                  and torch.equal(keys.cpu(), keys_cpu)
+                  and torch.equal(TF.random_bits(keys, bm.shape).cpu(),
+                                  TF.random_bits(keys_cpu, bm.shape))
+                  and torch.equal(TF.uniform(keys, bm.shape).cpu(),
+                                  TF.uniform(keys_cpu, bm.shape)))
+    if not (same_bits and same_draws):
+        raise RuntimeError(f"{label}: the card's branch bits ({same_bits}) "
+                           f"or keys, bits and uniforms ({same_draws}) are "
+                           f"not the CPU's")
+    whole = bm.shape == BM_SIZES[0]
+    if whole:
+        want = bm_cpu.query_grid(BM_GRID, return_U=rU, return_A=rA)
+        cells = list(range(len(BM_GRID) - 1))
+    else:
+        cells = list(BM_CPU_CELLS)
+        pts = sorted({c + k for c in cells for k in (0, 1)})
+        outs = bm_cpu.query_pairs(BM_GRID[pts], [
+            (pts.index(c), pts.index(c + 1)) for c in cells],
+            return_U=rU, return_A=rA)
+        cols = [torch.stack(c) for c in zip(*[
+            o if isinstance(o, tuple) else (o,) for o in outs])]
+        want = (cols.pop(0), cols.pop(0) if rU else None,
+                cols.pop(0) if rA else None)
+    err = {}
+    for name, got, ref in zip("WUA", noise, want):
+        if ref is None:
+            continue
+        d = float((got[cells].cpu() - ref).abs().max())
+        err[name] = d
+        tol = BM_F32_A_ATOL if name == "A" else BM_F32_ATOL   # span 1
+        if not d <= tol:
+            raise RuntimeError(f"{label}: {name} on the card differs from "
+                               f"the CPU's by {d:.3e} > {tol}")
+    return err, (want if whole else None)
+
+
+def check_interval_laws(device):
+    """Additivity, query-order independence and query_pairs over a CUDA
+    tensor of times against __call__ on host floats, on the card."""
+    rng = np.random.default_rng(SEED + 500)
+    errs = []
+    for size, levy in ((BM_SIZES[0], "foster"), (BM_SIZES[-1], "space-time")):
+        bm = interval(size, levy, device, entropy=SEED + 501)
+        # Three triples a < b < c in one query_pairs over host floats (one
+        # descent a point; bitwise __call__, as checked below).
+        abc = np.sort(rng.uniform(0.0, 1.0, (3, 3)), axis=1)
+        outs = bm.query_pairs(abc.reshape(-1).tolist(), [
+            (3 * k + i, 3 * k + j) for k in range(3)
+            for i, j in ((0, 1), (1, 2), (0, 2))], return_U=True)
+        for k, (a, b, c) in enumerate(abc):
+            (W1, U1), (W2, U2), (W, U) = outs[3 * k:3 * k + 3]
+            errs.append(float((W1 + W2 - W).abs().max()))
+            errs.append(float((U1 + U2 + (c - b) * W1 - U).abs().max()))
+        if max(errs) > BM_ADD_ATOL:
+            raise RuntimeError(f"BrownianInterval {size} {levy}: W or U not "
+                               f"additive on the card ({max(errs):.3e})")
+        pts = np.sort(rng.uniform(0.0, 1.0, 6))
+        pairs = ((0, 3), (1, 2), (2, 5), (0, 5), (4, 4))
+        rA = levy == "foster"
+        fwd = [bm(float(pts[i]), float(pts[j]), return_U=True, return_A=rA)
+               for i, j in pairs]
+        other = interval(size, levy, device, entropy=SEED + 501)
+        rev = [other(float(pts[i]), float(pts[j]), return_U=True,
+                     return_A=rA) for i, j in reversed(pairs)][::-1]
+        on_card = bm.query_pairs(torch.as_tensor(pts, device=device), pairs,
+                                 return_U=True, return_A=rA)
+        for x, y, z in zip(fwd, rev, on_card):
+            if not all(torch.equal(p, q) and torch.equal(p, r)
+                       for p, q, r in zip(x, y, z)):
+                raise RuntimeError(f"BrownianInterval {size} {levy}: query "
+                                   f"order or query_pairs on the card "
+                                   f"changed the noise")
+    print(f"BrownianInterval laws on the card: W and U additive to "
+          f"{max(errs):.3e}; query order and query_pairs over a CUDA "
+          f"tensor of times bitwise __call__ on host floats", flush=True)
+
+
+def solve_levy(method):
+    return {"srk": "space-time", "log_ode": "foster"}.get(method, "none")
+
+
+def solve_sde(method, sde_type, size, device):
+    """The reference benchmark's SDE for ``method`` at ``size`` (general
+    noise over m channels for log_ode) and its y0, on ``device``."""
+    B, m = size
+    G = None
+    if method == "log_ode":
+        G = torch.as_tensor(np.random.default_rng(SEED + 502).normal(
+            size=(m, m)) / np.sqrt(m), dtype=torch.float32, device=device)
+    return AbSDE(sde_type, device, G), torch.zeros((B, m), device=device)
+
+
+def run_solve(method, sde_type, options, size, device, tables):
+    """One solve on the card through ``sdeint`` on the noise phase (a) drew
+    from the explicit interval at ``size`` (``tables``: its noise on the
+    card and on the CPU, and its query_grid's median ms, the solve's noise
+    precompute; the solve's own time is its loop), and its CPU twin: the
+    whole solve on the CPU interval's noise at (128, 5), else the CPU's
+    solver loop on the card's noise for the rows SOLVE_TWIN_ROWS (the SDE
+    acts row by row). Returns the record of the solve."""
+    levy = solve_levy(method)
+    noise, noise_cpu, noise_ms = tables[size, levy]
+    sde, y0 = solve_sde(method, sde_type, size, device)
+    rows = slice(None)
+    with torch.no_grad():
+        ys, loop_ms = timed_ms(lambda: sdeint(
+            sde, y0, SOLVE_TS, bm=NoiseTable(noise, levy, device),
+            method=method, dt=SOLVE_DT, options=options))
+        if noise_cpu is not None:
+            sde_c, y0_c = solve_sde(method, sde_type, size, "cpu")
+            bm_c = NoiseTable(noise_cpu, levy, "cpu")
+        else:
+            rows = SOLVE_TWIN_ROWS
+            sde_c, y0_c = AbSDE(sde_type, "cpu"), y0[rows].cpu()
+            bm_c = NoiseTable(noise, levy, "cpu", rows)
+        want = sdeint(sde_c, y0_c, SOLVE_TS, bm=bm_c, method=method,
+                      dt=SOLVE_DT, options=options)
+    err = float((ys[:, rows].cpu() - want).abs().max())
+    scale = 1.0 + float(want.abs().max())
+    label = f"{method}{'' if not options else ' grad_free'} {sde_type} {size}"
+    if (tuple(ys.shape) != (len(SOLVE_TS),) + tuple(y0.shape)
+            or not torch.isfinite(ys).all() or err > SOLVE_F32_REL * scale):
+        raise RuntimeError(f"sdeint {label}: not finite, misshapen, or "
+                           f"{err:.3e} from the CPU's solve "
+                           f"(> {SOLVE_F32_REL} x {scale:.3f})")
+    print(f"sdeint {label}: {noise_ms + loop_ms:.1f} ms ({noise_ms:.1f} ms "
+          f"noise precompute, the interval's query_grid; {loop_ms:.1f} ms "
+          f"loop), max |diff| vs the CPU {err:.3e}, mean y_T "
+          f"{float(ys[-1].mean()):.5f}", flush=True)
+    return dict(method=method, sde_type=sde_type, size=list(size),
+                grad_free=bool(options), ms=noise_ms + loop_ms,
+                noise_ms=noise_ms, loop_ms=loop_ms, cpu_err=err)
+
+
+def backprop_solve(method, sde_type, device, tables):
+    """ys.sum().backward() through a solve at SOLVE_SIZE on the card, on
+    phase (a)'s noise, the drift scale's gradient against the CPU's on the
+    same noise."""
+    levy = solve_levy(method)
+    noise = tables[SOLVE_SIZE, levy][0]
+    sde, y0 = solve_sde(method, sde_type, SOLVE_SIZE, device)
+    ys, fwd_ms = timed_ms(lambda: sdeint(
+        sde, y0, SOLVE_TS, bm=NoiseTable(noise, levy, device), method=method,
+        dt=SOLVE_DT))
+    _, bwd_ms = timed_ms(lambda: ys.sum().backward())
+    sde_c = AbSDE(sde_type, "cpu")
+    sdeint(sde_c, y0.cpu(), SOLVE_TS, bm=NoiseTable(noise, levy, "cpu"),
+           method=method, dt=SOLVE_DT).sum().backward()
+    got, want = float(sde.one.grad), float(sde_c.one.grad)
+    rel = abs(got - want) / abs(want)
+    if not np.isfinite(got) or rel > SOLVE_F32_REL:
+        raise RuntimeError(f"backward through sdeint {method}: d/d one "
+                           f"{got} on the card, {want} on the CPU")
+    print(f"backward through sdeint {method} {SOLVE_SIZE}: forward loop "
+          f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, d sum(ys)/d one "
+          f"{got:.6e} (CPU {want:.6e}, rel {rel:.2e})", flush=True)
+    return dict(method=method, fwd_ms=fwd_ms, bwd_ms=bwd_ms, grad_rel=rel)
+
+
+def phase_brownian(device, card):
+    """(a) BrownianInterval at BM_SIZES: two query_grids over BM_GRID
+    bitwise equal, their time, and the card against the CPU; (b) its laws
+    on the card; (c) every ported fixed-step method on the reference
+    solver benchmark's path, on (a)'s noise, with CPU twins, two backprops
+    and a profiled Euler solve through a fresh interval. No kernel of the
+    port runs here: the descent and the solvers are plain PyTorch."""
+    out = dict(card=card, query_grid=[], solves=[], backprop=[])
+    clock = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        out[f"{name}_s"] = now - clock[0]
+        print(f"brownian ({name}): {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
+    tables = {}   # (size, levy): (card noise, CPU noise or None, median ms)
+    for size in BM_SIZES:
+        levys = ("none", "space-time") + (("foster",) if size == BM_SIZES[0]
+                                          else ())
+        for levy in levys:
+            rU, rA = levy != "none", levy == "foster"
+            bm = interval(size, levy, device)
+            with torch.no_grad():
+                first, ms1 = timed_ms(lambda: bm.query_grid(
+                    BM_GRID, return_U=rU, return_A=rA))
+                second, ms2 = timed_ms(lambda: bm.query_grid(
+                    BM_GRID, return_U=rU, return_A=rA))
+                same = all(a is None or torch.equal(a, b)
+                           for a, b in zip(first, second))
+                if not same or not all(a is None or torch.isfinite(a).all()
+                                       for a in first):
+                    raise RuntimeError(f"query_grid {size} {levy}: two calls "
+                                       f"differ or are not finite")
+                err, noise_cpu = check_interval_twin(
+                    f"BrownianInterval {size} {levy}", bm,
+                    interval(size, levy, "cpu"), first, rU, rA)
+            median = float(np.median([ms1, ms2]))
+            print(f"query_grid {size} {levy} over {len(BM_GRID)} points: "
+                  f"{ms1:.1f} ms, {ms2:.1f} ms (median {median:.1f}; bitwise "
+                  f"equal); card vs CPU: bits, words, keys, uniforms "
+                  f"bitwise, max |diff| " +
+                  ", ".join(f"{k} {v:.3e}" for k, v in err.items()),
+                  flush=True)
+            out["query_grid"].append(dict(size=list(size), levy=levy,
+                                          ms=[ms1, ms2], cpu_err=err))
+            if size == SOLVE_SIZE and levy == "none":
+                out["query_grid"][-1]["traffic"] = descent_traffic(
+                    bm, rU, rA, median)
+            if size in (SOLVE_SMALL, SOLVE_SIZE):
+                tables[size, levy] = (first, noise_cpu, median)
+            del first, second
+    part("a")
+    check_interval_laws(device)
+    part("b")
+    for method, sde_type, options in SOLVE_METHODS:
+        out["solves"].append(run_solve(method, sde_type, options,
+                                       SOLVE_SMALL, device, tables))
+        if not options:   # grad_free is an option of milstein: (128, 5)
+            out["solves"].append(run_solve(method, sde_type, options,
+                                           SOLVE_SIZE, device, tables))
+    out["solves"].append(run_solve("log_ode", "stratonovich", None,
+                                   SOLVE_SMALL, device, tables))
+    for method, sde_type in (("euler", "ito"), ("midpoint", "stratonovich")):
+        out["backprop"].append(backprop_solve(method, sde_type, device,
+                                              tables))
+    # The whole path once: an Euler solve on a fresh explicit interval, its
+    # descent included, under the profiler; its noise must be (a)'s.
+    noise = tables[SOLVE_SIZE, "none"][0]
+    del tables
+    sde, y0 = solve_sde("euler", "ito", SOLVE_SIZE, device)
+    rec = Recorder(interval(SOLVE_SIZE, "none", device))
+
+    def euler():
+        with torch.no_grad():
+            return sdeint(sde, y0, SOLVE_TS, bm=rec, method="euler",
+                          dt=SOLVE_DT)
+
+    with torch.no_grad():
+        want = sdeint(sde, y0, SOLVE_TS, bm=NoiseTable(noise, "none", device),
+                      method="euler", dt=SOLVE_DT)
+    ys = []
+    out["profile_euler"] = profile_run(f"sdeint euler {SOLVE_SIZE}",
+                                       lambda: ys.append(euler()))
+    if not torch.equal(ys[0], want):
+        raise RuntimeError("sdeint euler on a fresh interval is not the "
+                           "solve on phase (a)'s noise")
+    out["profile_euler"]["noise_ms"] = rec.ms
+    print(f"profiled Euler {SOLVE_SIZE} on a fresh interval: noise "
+          f"precompute {rec.ms:.1f} ms of {out['profile_euler']['wall_ms']:.1f}"
+          f" ms, bitwise the solve on phase (a)'s noise", flush=True)
+    part("c")
+    print(json.dumps({"brownian": out}), flush=True)
+
+
 def ab_rh_inputs(device):
     """Kernel 11's inputs at R1 and on general noise with a time column
     (phase 14's), labelled."""
@@ -3463,7 +3937,8 @@ def phase_ab(device, tag, against):
     return times
 
 
-GROUPS = ("latent", "gan", "tower", "logqp", "multi", "srk", "prng")
+GROUPS = ("latent", "gan", "tower", "logqp", "multi", "srk", "prng",
+          "brownian")
 # Run only when asked for by --only.
 EXTRA_GROUPS = ("tiles", "ab")
 
@@ -3600,6 +4075,8 @@ def main():
             source=f"{csrc}/philox_normal.cu",
             replaces="torchsde_tpu/ops/prng.py:37", launches=prng_launches,
             library_ms=None, **kernel16))
+    if "brownian" in groups:
+        phase_brownian(device, card)
     if "tiles" in groups:
         print(json.dumps({"euler_tiles": phase_euler_tiles(device)}),
               flush=True)

@@ -172,8 +172,11 @@ def test_sample_grid_noise_scales_the_generator_draws():
     torch.testing.assert_close(W, z * dts.sqrt()[:, None, None], rtol=0,
                                atol=0)
     assert U is None and A is None
-    with pytest.raises(NotImplementedError):
-        TI.sample_grid_noise(None, grid, (B, M), torch.float64, needs_A=True)
+    # The A channel draws after W's and H's normals, leaving W's unchanged.
+    W2, U2, A2 = TI.sample_grid_noise(torch.Generator().manual_seed(4), grid,
+                                      (B, M), torch.float64, needs_A=True)
+    torch.testing.assert_close(W2, W, rtol=0, atol=0)
+    assert U2 is None and A2.shape == (len(grid) - 1, B, M, M)
 
 
 @pytest.mark.parametrize("t0,t1,dt", [(0.0, 1.0, 1.0 / 32), (0.0, 1.0, 0.3),
@@ -254,7 +257,7 @@ def test_contract_errors_match_jax_wording(case):
         assert messages[0] is not None and messages[1] == messages[0]
 
 
-@pytest.mark.parametrize("method", ["euler_heun", "milstein", "midpoint"])
+@pytest.mark.parametrize("method", ["adjoint_reversible_heun"])
 def test_unported_methods_are_named(method):
     with pytest.raises(ValueError, match="not ported"):
         ttsde.sdeint(TorchSDE("diagonal", _problem_params()),

@@ -32,7 +32,14 @@ Kernels 6 and 7 (a row's vectors through the warp's shared memory) at the
 GAN's reference scale, a ragged batch, one channel, a hidden layer wider
 than the state and the widest widths, against the twin and float64, every
 block size of each bitwise the others; their C layouts against the host's
-mirror."""
+mirror.
+
+BrownianInterval (no kernel: plain PyTorch) on the card against the CPU:
+branch bits resolved on the card, packed words, keys, random bits and
+uniforms bitwise; W and U within 2e-5 and A within 1e-4 (CUDA's erfinv is
+not the CPU's, and A is built from H = U/h - W/2 of float32 prefix
+integrals); query_pairs over a CUDA tensor of times bitwise __call__ on
+host floats; each fixed-step method's solve on it against the CPU's."""
 
 import numpy as np
 import pytest
@@ -41,6 +48,9 @@ import torch
 import torchsde_tpu_torch.ops.fused_solve as FS
 import torchsde_tpu_torch.ops.gan_fused as GF
 import torchsde_tpu_torch.ops.latent_fused as LF
+from torchsde_tpu_torch import BrownianInterval, sdeint
+from torchsde_tpu_torch.brownian import threefry as TF
+from torchsde_tpu_torch.brownian.base import BaseBrownian
 from torchsde_tpu_torch.ops import _build
 from torchsde_tpu_torch.models.latent_sde import LatentSDE, latent_sde_loss
 from port_bridge import (unsplit_euler_backward, unsplit_logqp_backward,
@@ -1728,3 +1738,137 @@ def test_gan_kernel_5_smem_bytes_match_the_host_layout(cuda):
             assert smem == one + 4 * GF.gen_fwd_layout(S, M, m)["warp"] * (
                 threads // 32 - 1)
             assert smem <= _build.MAX_SMEM_BYTES
+
+
+# --------------------------------------------------------------------------- #
+#  BrownianInterval and the fixed-step solvers on the card                    #
+# --------------------------------------------------------------------------- #
+
+BM_GRID = np.linspace(0.0, 1.0, 101)
+
+
+def _interval(size, levy, device, **kw):
+    return BrownianInterval(0.0, 1.0, size, dtype=torch.float32, entropy=77,
+                            levy_area_approximation=levy, device=device,
+                            **kw)
+
+
+@pytest.mark.parametrize("levy", ["none", "space-time", "foster"])
+@pytest.mark.parametrize("size", [(16, 5), (8, 33)])
+def test_brownian_interval_on_the_card_matches_the_cpu(cuda, levy, size):
+    rU, rA = levy != "none", levy == "foster"
+    bm, bm_cpu = _interval(size, levy, cuda), _interval(size, levy, "cpu")
+    bits_dev, starts_dev, full_dev = bm._resolve(
+        torch.as_tensor(BM_GRID, device=cuda))
+    bits, starts, full = bm_cpu._resolve(BM_GRID)
+    depth = bits.shape[1]
+    assert torch.equal(bits_dev[:, :depth].cpu(), bits)
+    assert not bits_dev[:, depth:].any()
+    assert torch.equal(full_dev.cpu(), full)
+    assert torch.equal(starts_dev.cpu(), starts)
+    _, _, words, _ = bm._prefix_at(BM_GRID)
+    _, _, words_cpu, _ = bm_cpu._prefix_at(BM_GRID)
+    assert torch.equal(words.cpu(), words_cpu)
+    keys, keys_cpu = TF.split(bm._key_nodes, 16), TF.split(bm_cpu._key_nodes,
+                                                           16)
+    assert torch.equal(keys.cpu(), keys_cpu)
+    for bits_of in (lambda k: TF.random_bits(k, size),
+                    lambda k: TF.random_bits(k, size, 64),
+                    lambda k: TF.uniform(k, size),
+                    lambda k: TF.uniform(k, size, torch.float64)):
+        assert torch.equal(bits_of(keys).cpu(), bits_of(keys_cpu))
+    got = bm.query_grid(BM_GRID, return_U=rU, return_A=rA)
+    again = bm.query_grid(BM_GRID, return_U=rU, return_A=rA)
+    want = bm_cpu.query_grid(BM_GRID, return_U=rU, return_A=rA)
+    for name, g, a, w in zip("WUA", got, again, want):
+        assert (g is None) == (w is None)
+        if g is None:
+            continue
+        assert torch.equal(g, a)
+        tol = 1e-4 if name == "A" else 2e-5
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=tol)
+    pts = np.sort(np.random.default_rng(1).uniform(0.0, 1.0, 5))
+    pairs = ((0, 4), (1, 2), (2, 3), (3, 3))
+    on_card = bm.query_pairs(torch.as_tensor(pts, device=cuda), pairs,
+                             return_U=rU, return_A=rA)
+    for (i, j), out in zip(pairs, on_card):
+        call = bm(float(pts[i]), float(pts[j]), return_U=rU, return_A=rA)
+        for x, y in zip(out if isinstance(out, tuple) else (out,),
+                        call if isinstance(call, tuple) else (call,)):
+            assert torch.equal(x, y)
+
+
+class _SolveSDE(torch.nn.Module):
+    def __init__(self, sde_type, G=None):
+        super().__init__()
+        self.sde_type = sde_type
+        self.noise_type = "diagonal" if G is None else "general"
+        self.G = G
+
+    def f(self, t, y):
+        return y
+
+    def g(self, t, y):
+        g = torch.sigmoid(-y)
+        return g if self.G is None else g[..., None] * self.G
+
+
+@pytest.mark.parametrize("method,sde_type,options", [
+    ("euler", "ito", None), ("srk", "ito", None), ("milstein", "ito", None),
+    ("milstein", "ito", {"grad_free": True}),
+    ("reversible_heun", "stratonovich", None),
+    ("midpoint", "stratonovich", None), ("heun", "stratonovich", None),
+    ("euler_heun", "stratonovich", None),
+    ("milstein", "stratonovich", None), ("log_ode", "stratonovich", None)])
+def test_fixed_step_solves_on_the_card_match_the_cpu(cuda, method, sde_type,
+                                                     options):
+    levy = {"srk": "space-time", "log_ode": "foster"}.get(method, "none")
+    B, m = 32, 4
+    ts = np.linspace(0.0, 1.0, 11)
+    G = None
+    if method == "log_ode":
+        G = torch.as_tensor(np.random.default_rng(2).normal(size=(m, m)) / 2,
+                            dtype=torch.float32)
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        sde = _SolveSDE(sde_type, None if G is None else G.to(device))
+        with torch.no_grad():
+            out.append(sdeint(sde, torch.zeros((B, m), device=device), ts,
+                              bm=_interval((B, m), levy, device, levels=20),
+                              method=method, dt=0.01, options=options))
+    assert torch.isfinite(out[0]).all()
+    torch.testing.assert_close(out[0].cpu(), out[1], rtol=0,
+                               atol=1e-4 * (1 + float(out[1].abs().max())))
+
+
+class _NamedDevice(BaseBrownian):
+    """A user's Brownian object that reports its device by name."""
+
+    def __init__(self, bm, device):
+        self.bm, self.device = bm, device
+
+    def __call__(self, ta, tb=None, return_U=False, return_A=False):
+        return self.bm(ta, tb, return_U=return_U, return_A=return_A)
+
+    def query_grid(self, grid, return_U=False, return_A=False):
+        return self.bm.query_grid(grid, return_U=return_U, return_A=return_A)
+
+    dtype = property(lambda self: self.bm.dtype)
+    shape = property(lambda self: self.bm.shape)
+    levy_area_approximation = property(
+        lambda self: self.bm.levy_area_approximation)
+
+
+@pytest.mark.parametrize("name", ["cuda", "cuda:0"])
+def test_bm_named_cuda_solves_with_y0_on_cuda_0(cuda, name):
+    """``"cuda"`` names the current card: a bm reporting it solves beside a
+    y0 on ``cuda:0``, bitwise the interval it wraps."""
+    bm = _interval((8, 3), "none", cuda, levels=20)
+    y0 = torch.zeros((8, 3), device="cuda:0")
+    sde = _SolveSDE("stratonovich")
+    with torch.no_grad():
+        want = sdeint(sde, y0, np.linspace(0.0, 1.0, 5), bm=bm,
+                      method="midpoint", dt=0.05)
+        got = sdeint(sde, y0, np.linspace(0.0, 1.0, 5),
+                     bm=_NamedDevice(bm, name), method="midpoint", dt=0.05)
+    assert torch.equal(got, want)

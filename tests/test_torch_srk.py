@@ -194,8 +194,13 @@ def test_sample_grid_noise_U_from_the_generator_draws():
     torch.testing.assert_close(U, dts * (0.5 * W + z_h * torch.sqrt(dts / 12)),
                                rtol=0, atol=0)
     assert A is None
-    with pytest.raises(NotImplementedError, match="A noise channel"):
-        TI.sample_grid_noise(None, grid, (B, M), torch.float64, needs_A=True)
+    # The A channel draws third: W and U stay these.
+    W2, U2, A2 = TI.sample_grid_noise(torch.Generator().manual_seed(4), grid,
+                                      (B, M), torch.float64, needs_U=True,
+                                      needs_A=True)
+    torch.testing.assert_close(W2, W, rtol=0, atol=0)
+    torch.testing.assert_close(U2, U, rtol=0, atol=0)
+    assert A2.shape == shape + (M,)
 
 
 def test_srk_refuses_adjoint_sdes_with_jax_wording():

@@ -4,9 +4,15 @@ It runs on PyTorch (eagerly: JAX's ``jit`` has no counterpart), takes an
 explicit ``torch.Generator`` wherever the JAX package takes a key, and
 replaces the JAX package's Pallas TPU kernels with CUDA kernels written for
 Hopper. It never imports JAX. Ported so far: fixed-step ``sdeint`` with
-Euler (Itô, with ``logqp``), reversible Heun (Stratonovich) and SRK (Itô),
-its default noise drawn from the caller's generator or from the port's
-Philox stream (``rng_impl``, ``ops/prng.py``); the latent-SDE model with
+every method of the JAX package but the adjoint's (Euler, with ``logqp``,
+SRK and Milstein for Itô; midpoint, Heun, Euler-Heun, reversible Heun,
+log-ODE midpoint and Milstein for Stratonovich), all four noise types,
+its default noise (W, U and A) drawn from the caller's generator or from
+the port's Philox stream (``rng_impl``, ``ops/prng.py``), or from an
+explicit Brownian object: ``BrownianInterval`` (the JAX package's
+Threefry keys and bits, ``brownian/threefry.py``), ``BrownianPath``,
+``BrownianTree``, ``ReverseBrownian`` and ``PrecomputedBrownian``; the
+latent-SDE model with
 its whole-solve kernels (``ops/latent_fused.py``), for one model or K
 stacked replicas (``parallel/replicas.py``); the SDE-GAN model with the
 kernels of its generator and critic solves (``ops/gan_fused.py``);
@@ -17,6 +23,9 @@ elementwise diagonal SDE (``ops/srk_fused.py``).
 """
 
 from .brownian.base import BaseBrownian
+from .brownian.derived import BrownianPath, BrownianTree, ReverseBrownian
+from .brownian.interval import BrownianInterval, brownian_interval_like
+from .brownian.precomputed import PrecomputedBrownian
 from .core.base_sde import BaseSDE, SDEIto, SDEStratonovich
 from .core.sdeint import sdeint
 from .ops.fused_solve import (TowerSpec, fused_sdeint, fused_sdeint_logqp,
@@ -27,7 +36,9 @@ from .settings import (LEVY_AREA_APPROXIMATIONS, METHOD_OPTIONS, METHODS,
 __version__ = "0.1.0"
 
 __all__ = [
-    "BaseBrownian", "BaseSDE", "SDEIto", "SDEStratonovich", "sdeint",
+    "BaseBrownian", "BrownianInterval", "brownian_interval_like",
+    "BrownianPath", "BrownianTree", "ReverseBrownian", "PrecomputedBrownian",
+    "BaseSDE", "SDEIto", "SDEStratonovich", "sdeint",
     "TowerSpec", "fused_sdeint", "fused_sdeint_logqp", "tower_sde",
     "LEVY_AREA_APPROXIMATIONS", "METHOD_OPTIONS", "METHODS", "NOISE_TYPES",
     "SDE_TYPES", "__version__",

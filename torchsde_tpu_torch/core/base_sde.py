@@ -147,6 +147,60 @@ class ForwardSDE(BaseSDE):
         f, g = self.f_and_g(t, y)
         return f, self.prod(g, v)
 
+    # -- derivative-based capabilities ----------------------------------- #
+    # The derivatives come from torch.autograd.grad on a ``y`` that requires
+    # grad (a detached copy where ``y`` does not); their graph is kept
+    # (create_graph) when grad mode is on, so a solve differentiated
+    # through its steps differentiates these terms too.
+
+    def g_prod_and_gdg_prod(self, t, y, v1, v2):
+        """Returns ``(g @ v1, sum_{j,l} g_{jl} dg_{jl}/dy_i v2_l)``, the
+        Milstein correction pair."""
+        if self.noise_type == NOISE_TYPES.additive:
+            return self.g_prod(t, y, v1), 0.0
+        create_graph = torch.is_grad_enabled()
+        with torch.enable_grad():
+            y = y if y.requires_grad else y.detach().requires_grad_(True)
+            g = self.g(t, y)
+            if self.noise_type == NOISE_TYPES.diagonal:
+                cotangent = g * v2
+            else:  # scalar (and general): broadcast v2 over the columns
+                cotangent = g * v2[..., None, :]
+            vg_dg_vjp, = torch.autograd.grad(g, y, cotangent,
+                                             create_graph=create_graph,
+                                             allow_unused=True)
+        if vg_dg_vjp is None:        # g does not depend on y
+            vg_dg_vjp = torch.zeros_like(y)
+        return self.prod(g, v1), vg_dg_vjp
+
+    def dg_ga_jvp_column_sum(self, t, y, a):
+        """The log-ODE Levy-area correction
+        ``sum_{j,k,l} (dg_{il}/dy_j) g_{jk} A_{kl}`` (general noise; zero
+        otherwise): for each noise column l, the Jacobian-vector product of
+        that column of g along column l of ``g A``, by a double vjp."""
+        if self.noise_type != NOISE_TYPES.general:
+            return 0.0
+        create_graph = torch.is_grad_enabled()
+        with torch.enable_grad():
+            y = y if y.requires_grad else y.detach().requires_grad_(True)
+            g = self.g(t, y)
+            ga = torch.einsum("...dm,...mk->...dk", g, a)
+            total = torch.zeros_like(y)
+            for col in range(g.shape[-1]):
+                g_col = g[..., col]
+                dummy = torch.zeros_like(g_col, requires_grad=True)
+                vjp, = torch.autograd.grad(g_col, y, dummy, create_graph=True,
+                                           allow_unused=True)
+                if vjp is None:
+                    continue
+                jvp, = torch.autograd.grad(vjp, dummy, ga[..., col],
+                                           retain_graph=True,
+                                           create_graph=create_graph,
+                                           allow_unused=True)
+                if jvp is not None:
+                    total = total + jvp
+        return total
+
 
 class SDELogqp(BaseSDE):
     """Augments the state with one channel integrating the KL between the

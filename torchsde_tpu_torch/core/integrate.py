@@ -13,7 +13,9 @@ import math
 import numpy as np
 import torch
 
+from ..brownian.base import BaseBrownian, levy_area
 from ..ops import prng
+from ..settings import LEVY_AREA_APPROXIMATIONS
 
 # Sources of the default noise's normals: the generator's own stream, or
 # the port's Philox stream seeded from it (ops/prng.py, kernel 16 on the
@@ -38,48 +40,55 @@ def check_rng_impl(rng_impl):
 
 
 def sample_grid_noise(generator, grid, size, dtype, device=None,
-                      needs_U=False, needs_A=False, rng_impl="generator"):
+                      needs_U=False, needs_A=False, rng_impl="generator",
+                      levy_area_approximation=LEVY_AREA_APPROXIMATIONS.none):
     """I.i.d. per-step Brownian increments for a fixed step grid, in one pass.
 
     Returns ``(W, U, A)`` with ``W`` of shape ``(N, *size)``, each increment
     ``N(0, 1)`` scaled by ``sqrt(dt)``, where the step widths are the
     float64 grid differences cast to ``dtype``. With ``needs_U`` also the
     space-time Levy integral ``U = dt * (W / 2 + H)`` with an independent
-    ``H ~ N(0, dt / 12)``; the A channel is not ported, and ``A`` is None.
+    ``H ~ N(0, dt / 12)``. With ``needs_A`` the full Levy area ``A`` of
+    shape ``(N, *size, m)``: ``H (x) W - W (x) H`` plus antisymmetrised
+    normal noise scaled by Davie's ``dt / sqrt(12)`` or, for
+    ``levy_area_approximation='foster'``, Foster's
+    ``sqrt(dt/10 (dt/10 + H_i^2 + H_j^2))``; zero for a size of rank 0 or 1.
 
     ``rng_impl='generator'`` draws the normals from ``generator`` (W's, then
-    H's). ``rng_impl='philox'`` draws one seed from it, ``randint(0,
+    H's, then A's). ``rng_impl='philox'`` draws one seed from it, ``randint(0,
     2**31 - 1)`` kept as a one-element int32 tensor on ``device`` (no host
-    sync), and takes W's normals from the Philox stream of that seed and
-    H's from the seed plus one (``ops/prng.philox_normal``: the CUDA kernel
-    on the card, its plain version on the CPU)."""
+    sync), and takes W's normals from the Philox stream of that seed, H's
+    from the seed plus one and A's from the seed plus two
+    (``ops/prng.philox_normal``: the CUDA kernel on the card, its plain
+    version on the CPU)."""
     check_rng_impl(rng_impl)
-    if needs_A:
-        raise NotImplementedError(
-            "the A noise channel is not ported to torchsde_tpu_torch yet; "
-            "only solvers that need W and U (euler, reversible_heun, srk) "
-            "run")
     n = len(grid) - 1
     shape = (n, *size)
+    bshape = (n,) + (1,) * len(size)
     dts = torch.as_tensor(np.diff(grid), dtype=dtype,
-                          device=device).reshape((n,) + (1,) * len(size))
+                          device=device).reshape(bshape)
     if rng_impl == "philox":
         seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                              dtype=torch.int32, device=device)
-        normal = prng.philox_normal(seed, shape, dtype, device)
-    else:
-        normal = torch.randn(shape, generator=generator, dtype=dtype,
-                             device=device)
-    W = normal * torch.sqrt(dts)
-    U = None
-    if needs_U:
+
+    def normal(stream, draw_shape):
         if rng_impl == "philox":
-            normal_h = prng.philox_normal(seed + 1, shape, dtype, device)
+            return prng.philox_normal(seed + stream, draw_shape, dtype, device)
+        return torch.randn(draw_shape, generator=generator, dtype=dtype,
+                           device=device)
+
+    W = normal(0, shape) * torch.sqrt(dts)
+    U = A = None
+    if needs_U or needs_A:
+        H = normal(1, shape) * torch.sqrt(dts / 12.0)
+        U = dts * (0.5 * W + H)
+    if needs_A:
+        if len(size) in (0, 1):
+            A = torch.zeros(shape, dtype=dtype, device=device)
         else:
-            normal_h = torch.randn(shape, generator=generator, dtype=dtype,
-                                   device=device)
-        U = dts * (0.5 * W + normal_h * torch.sqrt(dts / 12.0))
-    return W, U, None
+            A = levy_area(W, H, dts, normal(2, (*shape, size[-1])),
+                          levy_area_approximation)
+    return W, (U if needs_U else None), A
 
 
 def precompute_bm_noise(bm, grid, needs_U, needs_A):
@@ -88,7 +97,6 @@ def precompute_bm_noise(bm, grid, needs_U, needs_A):
     has one, else the generic implementation of ``BaseBrownian``."""
     if hasattr(bm, "query_grid"):
         return bm.query_grid(grid, return_U=needs_U, return_A=needs_A)
-    from ..brownian.base import BaseBrownian
     return BaseBrownian.query_grid(bm, grid, return_U=needs_U,
                                    return_A=needs_A)
 

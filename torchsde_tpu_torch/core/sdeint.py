@@ -1,19 +1,22 @@
 """Public forward-integration entry point (counterpart of
 ``torchsde_tpu/core/sdeint.py``).
 
-Ported: fixed-step solves with concrete ``ts``, the default noise source
-(with ``rng_impl``) and explicit Brownian objects, ``logqp``, ``names`` and
-the contract checks with the JAX package's wording. Not ported yet:
-adaptive stepping, the sparse-output and traced-``ts`` paths, and in-loop
-noise generation (and with it the JAX package's warning that
-``rng_impl='pallas'`` does not reach in-loop noise).
+Ported: fixed-step solves with concrete ``ts`` by every method but
+``adjoint_reversible_heun``, the default noise source (W, U and A, with
+``rng_impl``) and explicit Brownian objects (``BrownianInterval`` and the
+classes built on it, ``PrecomputedBrownian``, or any ``BaseBrownian``),
+``logqp``, ``names`` and the contract checks with the JAX package's wording.
+Not ported yet: adaptive stepping, the sparse-output and traced-``ts``
+paths, and in-loop noise generation (and with it the JAX package's warning
+that ``rng_impl='pallas'`` does not reach in-loop noise).
 """
 
 import numpy as np
 import torch
 
 from . import base_sde, integrate, solvers
-from ..settings import METHODS, NOISE_TYPES, SDE_TYPES
+from ..brownian.interval import as_torch_dtype
+from ..settings import LEVY_AREA_APPROXIMATIONS, METHODS, NOISE_TYPES, SDE_TYPES
 from ..types import Scalar, Tensor, Vector
 from ..utils import misc
 
@@ -68,7 +71,8 @@ def sdeint(sde,
         noise_xs = integrate.sample_grid_noise(
             bm.generator, grid, bm.shape, bm.dtype, bm.device,
             needs_U=solver.needs_U, needs_A=solver.needs_A,
-            rng_impl=rng_impl)
+            rng_impl=rng_impl,
+            levy_area_approximation=bm.levy_area_approximation)
     else:
         noise_xs = integrate.precompute_bm_noise(bm, grid, solver.needs_U,
                                                  solver.needs_A)
@@ -84,13 +88,21 @@ def _time_dtype(y0):
 
 class _DefaultNoise:
     """Marker for the framework-owned noise source: i.i.d. increments of
-    ``shape`` drawn from ``generator`` on the step grid."""
+    ``shape`` drawn from ``generator`` on the step grid, with the Levy-area
+    approximation the JAX package's default interval takes for the
+    method."""
 
-    def __init__(self, generator, shape, dtype, device):
+    def __init__(self, generator, shape, dtype, device, method):
         self.generator = generator
         self.shape = tuple(shape)
         self.dtype = dtype
         self.device = device
+        if method == METHODS.srk:
+            self.levy_area_approximation = LEVY_AREA_APPROXIMATIONS.space_time
+        elif method == METHODS.log_ode_midpoint:
+            self.levy_area_approximation = LEVY_AREA_APPROXIMATIONS.foster
+        else:
+            self.levy_area_approximation = LEVY_AREA_APPROXIMATIONS.none
 
 
 def host_times(ts):
@@ -163,6 +175,16 @@ def check_contract(sde, y0, ts, bm, method, options, names, logqp,
             raise ValueError("`bm` must be of shape (batch, noise_channels).")
         batch_sizes.append(bm.shape[0])
         noise_sizes.append(bm.shape[1])
+        # The JAX package promotes a mismatched dtype (or fails inside its
+        # scan); the port names it.
+        if as_torch_dtype(bm.dtype) != y0.dtype:
+            raise ValueError(f"`bm` is of dtype {bm.dtype} but `y0` is of "
+                             f"dtype {y0.dtype}.")
+        bm_device = getattr(bm, "device", None)
+        if bm_device is not None and not misc.same_device(bm_device,
+                                                          y0.device):
+            raise ValueError(f"`bm` is on {bm_device} but `y0` is on "
+                             f"{y0.device}.")
 
     def _check_2d(name, shape):
         if len(shape) != 2:
@@ -247,7 +269,7 @@ def check_contract(sde, y0, ts, bm, method, options, names, logqp,
 
     if bm is None:
         bm = _DefaultNoise(generator, (batch_sizes[0], noise_sizes[0]),
-                           y0.dtype, y0.device)
+                           y0.dtype, y0.device, method)
 
     options = {} if options is None else dict(options)
     return sde, y0, ts, bm, method, options

@@ -1,16 +1,17 @@
 """SDE solver step functions (counterpart of ``torchsde_tpu/core/solvers.py``).
 
 ``step`` is a function ``(t0, t1, y0, extra0, noise) -> (y1, extra1)``; the
-Brownian increments are handed in by the integrator. Ported so far:
-Euler–Maruyama (Itô), reversible Heun (Stratonovich) and the stochastic
-Runge–Kutta method SRK (Itô: srid2 for diagonal and scalar noise, sra1 for
-additive noise).
+Brownian increments are handed in by the integrator. Every fixed-step method
+of the JAX package is here: Euler–Maruyama and SRK (Itô), midpoint, Heun,
+Euler–Heun, reversible Heun and log-ODE midpoint (Stratonovich) and Milstein
+(both); the adjoint's ``adjoint_reversible_heun`` is not ported yet.
 """
 
 import torch
 
 from . import tableaus
-from ..settings import LEVY_AREA_APPROXIMATIONS, METHODS, NOISE_TYPES, SDE_TYPES
+from ..settings import (LEVY_AREA_APPROXIMATIONS, METHOD_OPTIONS, METHODS,
+                        NOISE_TYPES, SDE_TYPES)
 
 _ALL_LEVY = tuple(LEVY_AREA_APPROXIMATIONS.all())
 _ALL_NOISE = tuple(NOISE_TYPES.all())
@@ -53,6 +54,13 @@ class BaseSDESolver:
     def init_extra_solver_state(self, t0, y0):
         return ()
 
+    @property
+    def nfe_per_step(self):
+        """Vector-field evaluations per step: each call of ``f`` or ``g`` is
+        one, so ``f_and_g`` and ``f_and_g_prod`` count 2, ``g_prod`` 1, and
+        a derivative bracket its one primal diffusion evaluation."""
+        raise NotImplementedError
+
     def step(self, t0, t1, y0, extra0, noise):
         """One step from t0 to t1. ``noise`` is ``(W, U, A)`` for the full step
         (entries are None unless the solver declared needs_U / needs_A)."""
@@ -70,11 +78,162 @@ class Euler(BaseSDESolver):
         self.strong_order = 1.0 if sde.noise_type == NOISE_TYPES.additive else 0.5
         super().__init__(sde=sde, **kwargs)
 
+    nfe_per_step = 2  # one fused f_and_g_prod
+
     def step(self, t0, t1, y0, extra0, noise):
         del extra0
         dt = t1 - t0
         f, g_prod = self.sde.f_and_g_prod(t0, y0, noise[0])
         return y0 + dt * f + g_prod, ()
+
+
+class Midpoint(BaseSDESolver):
+    """Explicit midpoint, Stratonovich."""
+    weak_order = 1.0
+    sde_type = SDE_TYPES.stratonovich
+    noise_types = _ALL_NOISE
+    levy_area_approximations = _ALL_LEVY
+
+    def __init__(self, sde, **kwargs):
+        self.strong_order = 0.5 if sde.noise_type == NOISE_TYPES.general else 1.0
+        super().__init__(sde=sde, **kwargs)
+
+    nfe_per_step = 4  # two fused f_and_g_prod calls
+
+    def step(self, t0, t1, y0, extra0, noise):
+        del extra0
+        dt = t1 - t0
+        I_k = noise[0]
+        f, g_prod = self.sde.f_and_g_prod(t0, y0, I_k)
+        half_dt = 0.5 * dt
+        y_prime = y0 + half_dt * f + 0.5 * g_prod
+        f_prime, g_prod_prime = self.sde.f_and_g_prod(t0 + half_dt, y_prime,
+                                                      I_k)
+        return y0 + dt * f_prime + g_prod_prime, ()
+
+
+class Heun(BaseSDESolver):
+    """Stratonovich Heun, a trapezoidal predictor-corrector."""
+    weak_order = 1.0
+    sde_type = SDE_TYPES.stratonovich
+    noise_types = _ALL_NOISE
+    levy_area_approximations = _ALL_LEVY
+
+    def __init__(self, sde, **kwargs):
+        self.strong_order = 0.5 if sde.noise_type == NOISE_TYPES.general else 1.0
+        super().__init__(sde=sde, **kwargs)
+
+    nfe_per_step = 4  # two fused f_and_g_prod calls
+
+    def step(self, t0, t1, y0, extra0, noise):
+        del extra0
+        dt = t1 - t0
+        I_k = noise[0]
+        f, g_prod = self.sde.f_and_g_prod(t0, y0, I_k)
+        y0_prime = y0 + dt * f + g_prod
+        f_prime, g_prod_prime = self.sde.f_and_g_prod(t1, y0_prime, I_k)
+        y1 = (y0 + (0.5 * dt) * f + (0.5 * dt) * f_prime + 0.5 * g_prod
+              + 0.5 * g_prod_prime)
+        return y1, ()
+
+
+class EulerHeun(BaseSDESolver):
+    """Euler drift with a Heun-averaged diffusion, Stratonovich."""
+    weak_order = 1.0
+    sde_type = SDE_TYPES.stratonovich
+    noise_types = _ALL_NOISE
+    levy_area_approximations = _ALL_LEVY
+
+    def __init__(self, sde, **kwargs):
+        self.strong_order = 0.5 if sde.noise_type == NOISE_TYPES.general else 1.0
+        super().__init__(sde=sde, **kwargs)
+
+    nfe_per_step = 3  # f_and_g_prod + one extra g_prod
+
+    def step(self, t0, t1, y0, extra0, noise):
+        del extra0
+        dt = t1 - t0
+        I_k = noise[0]
+        f, g_prod = self.sde.f_and_g_prod(t0, y0, I_k)
+        g_prod_prime = self.sde.g_prod(t1, y0 + g_prod, I_k)
+        return y0 + dt * f + 0.5 * g_prod + 0.5 * g_prod_prime, ()
+
+
+class BaseMilstein(BaseSDESolver):
+    """Milstein family: Euler plus the Levy-bracket correction
+    ``0.5 * gdg_prod(v)``, its derivative from autograd (default) or from a
+    second, derivative-free diffusion evaluation
+    (``options={'grad_free': True}``)."""
+    strong_order = 1.0
+    weak_order = 1.0
+    noise_types = (NOISE_TYPES.additive, NOISE_TYPES.diagonal, NOISE_TYPES.scalar)
+    levy_area_approximations = _ALL_LEVY
+
+    def __init__(self, sde, options=None, **kwargs):
+        options = {} if options is None else dict(options)
+        if METHOD_OPTIONS.grad_free not in options:
+            options[METHOD_OPTIONS.grad_free] = False
+        if options[METHOD_OPTIONS.grad_free] and sde.noise_type == NOISE_TYPES.additive:
+            # dg = 0: the autodiff path already returns an exact zero correction.
+            options[METHOD_OPTIONS.grad_free] = False
+        if options[METHOD_OPTIONS.grad_free] and getattr(sde, "is_adjoint_sde", False):
+            raise ValueError(
+                "Derivative-free Milstein cannot be used for adjoint SDEs, because it "
+                "requires direct access to the diffusion, whilst adjoint SDEs rely on "
+                "a more efficient diffusion-vector product. Use derivative-using "
+                "Milstein instead: `adjoint_options=dict(grad_free=False)`")
+        super().__init__(sde=sde, options=options, **kwargs)
+
+    @property
+    def nfe_per_step(self):
+        # grad-based: f + one primal g inside the vjp bracket; grad-free:
+        # f_and_g + the extra derivative-free g evaluation.
+        return 3 if self.options[METHOD_OPTIONS.grad_free] else 2
+
+    def v_term(self, I_k, dt):
+        raise NotImplementedError
+
+    def y_prime_f_factor(self, dt, f):
+        raise NotImplementedError
+
+    def step(self, t0, t1, y0, extra0, noise):
+        del extra0
+        dt = t1 - t0
+        I_k = noise[0]
+        v = self.v_term(I_k, dt)
+
+        if self.options[METHOD_OPTIONS.grad_free]:
+            f, g = self.sde.f_and_g(t0, y0)
+            g_ = g.squeeze(2) if g.ndim == 3 else g  # scalar vs diagonal noise
+            sqrt_dt = torch.sqrt(dt)
+            y0_prime = y0 + self.y_prime_f_factor(dt, f) + g_ * sqrt_dt
+            g_prime = self.sde.g(t0, y0_prime)
+            g_prod_I_k = self.sde.prod(g, I_k)
+            gdg_prod = self.sde.prod(g_prime - g, v) / (2 * sqrt_dt)
+            return y0 + f * dt + g_prod_I_k + gdg_prod, ()
+        f = self.sde.f(t0, y0)
+        g_prod_I_k, gdg_prod = self.sde.g_prod_and_gdg_prod(t0, y0, I_k, 0.5 * v)
+        return y0 + dt * f + g_prod_I_k + gdg_prod, ()
+
+
+class MilsteinIto(BaseMilstein):
+    sde_type = SDE_TYPES.ito
+
+    def v_term(self, I_k, dt):
+        return I_k ** 2 - dt
+
+    def y_prime_f_factor(self, dt, f):
+        return dt * f
+
+
+class MilsteinStratonovich(BaseMilstein):
+    sde_type = SDE_TYPES.stratonovich
+
+    def v_term(self, I_k, dt):
+        return I_k ** 2
+
+    def y_prime_f_factor(self, dt, f):
+        return 0.0
 
 
 class ReversibleHeun(BaseSDESolver):
@@ -89,6 +248,8 @@ class ReversibleHeun(BaseSDESolver):
     def __init__(self, sde, **kwargs):
         self.strong_order = 1.0 if sde.noise_type == NOISE_TYPES.additive else 0.5
         super().__init__(sde=sde, **kwargs)
+
+    nfe_per_step = 2  # one f_and_g at z1; (f0, g0) ride in the carry
 
     def init_extra_solver_state(self, t0, y0):
         f0, g0 = self.sde.f_and_g(t0, y0)
@@ -127,6 +288,14 @@ class SRK(BaseSDESolver):
                 "SDEs rely on a more efficient diffusion-vector product. Use a "
                 "different method instead.")
         super().__init__(sde=sde, **kwargs)
+
+    @property
+    def nfe_per_step(self):
+        # The stage loops below re-evaluate (f, g) for every (stage,
+        # substage) pair and add one f and one g_prod per stage.
+        s = (tableaus.SRA1 if self.sde.noise_type == NOISE_TYPES.additive
+             else tableaus.SRID2).STAGES
+        return s * (s - 1) + 2 * s
 
     def step(self, t0, t1, y0, extra0, noise):
         if self.sde.noise_type == NOISE_TYPES.additive:
@@ -190,23 +359,75 @@ class SRK(BaseSDESolver):
         return y1, ()
 
 
+class LogODEMidpoint(BaseSDESolver):
+    """Log-ODE scheme: midpoint plus the full-Levy-area correction."""
+    weak_order = 1.0
+    sde_type = SDE_TYPES.stratonovich
+    noise_types = _ALL_NOISE
+    levy_area_approximations = (LEVY_AREA_APPROXIMATIONS.davie,
+                                LEVY_AREA_APPROXIMATIONS.foster)
+    needs_A = True
+
+    def __init__(self, sde, **kwargs):
+        if getattr(sde, "is_adjoint_sde", False):
+            raise ValueError(
+                "Log-ODE schemes cannot be used for adjoint SDEs, because they "
+                "require direct access to the diffusion, whilst adjoint SDEs rely on "
+                "a more efficient diffusion-vector product. Use a different method "
+                "instead.")
+        self.strong_order = 0.5 if sde.noise_type == NOISE_TYPES.general else 1.0
+        super().__init__(sde=sde, **kwargs)
+
+    nfe_per_step = 5  # two f_and_g_prod + the jvp bracket's primal g
+
+    def step(self, t0, t1, y0, extra0, noise):
+        del extra0
+        dt = t1 - t0
+        I_k, A = noise[0], noise[2]
+        f, g_prod = self.sde.f_and_g_prod(t0, y0, I_k)
+        half_dt = 0.5 * dt
+        t_prime = t0 + half_dt
+        y_prime = y0 + half_dt * f + 0.5 * g_prod
+        f_prime, g_prod_prime = self.sde.f_and_g_prod(t_prime, y_prime, I_k)
+        dg_ga_prime = self.sde.dg_ga_jvp_column_sum(t_prime, y_prime, A)
+        return y0 + dt * f_prime + g_prod_prime + dg_ga_prime, ()
+
+
 SOLVER_REGISTRY = {
     METHODS.euler: {SDE_TYPES.ito: Euler},
-    METHODS.reversible_heun: {SDE_TYPES.stratonovich: ReversibleHeun},
+    METHODS.milstein: {SDE_TYPES.ito: MilsteinIto,
+                       SDE_TYPES.stratonovich: MilsteinStratonovich},
     METHODS.srk: {SDE_TYPES.ito: SRK},
+    METHODS.midpoint: {SDE_TYPES.stratonovich: Midpoint},
+    METHODS.heun: {SDE_TYPES.stratonovich: Heun},
+    METHODS.euler_heun: {SDE_TYPES.stratonovich: EulerHeun},
+    METHODS.reversible_heun: {SDE_TYPES.stratonovich: ReversibleHeun},
+    METHODS.log_ode_midpoint: {SDE_TYPES.stratonovich: LogODEMidpoint},
 }
 
 
 def select(method, sde_type):
     """String -> solver class dispatch."""
+    if method == METHODS.adjoint_reversible_heun:
+        raise ValueError(
+            f"Method '{method}' is not ported to torchsde_tpu_torch yet; "
+            f"ported methods: {sorted(SOLVER_REGISTRY)}.")
     table = SOLVER_REGISTRY.get(method)
     if table is None:
-        if method in METHODS:
-            raise ValueError(
-                f"Method '{method}' is not ported to torchsde_tpu_torch yet; "
-                f"ported methods: {sorted(SOLVER_REGISTRY)}.")
         raise ValueError(f"Method '{method}' does not match any known method.")
     cls = table.get(sde_type)
     if cls is None:
         cls = next(iter(table.values()))
     return cls
+
+
+def method_noise_needs(method):
+    """``(needs_U, needs_A)`` of a method string without building the
+    solver, or-ed over the method's sde_type variants."""
+    if method == METHODS.adjoint_reversible_heun:
+        return False, False
+    table = SOLVER_REGISTRY.get(method)
+    if table is None:
+        raise ValueError(f"Method '{method}' does not match any known method.")
+    return (any(c.needs_U for c in table.values()),
+            any(c.needs_A for c in table.values()))

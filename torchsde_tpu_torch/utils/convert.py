@@ -44,3 +44,17 @@ def load_jax_tower(layers, device=None, dtype=torch.float32):
         (torch.as_tensor(np.array(w), dtype=dtype, device=device),
          torch.as_tensor(np.array(b), dtype=dtype, device=device), act)
         for w, b, act in layers])
+
+
+def load_jax_key(key, device=None):
+    """The port's Threefry key for a JAX ``PRNGKey``, given as a numpy
+    uint32 array of shape (2,) (``np.asarray(jax.random.PRNGKey(s))``, or
+    ``jax.random.key_data`` of a typed key), on ``device`` (the card unless
+    given). ``BrownianInterval(key=...)`` of either package then draws the
+    same path; ``entropy=s`` gives the key of ``PRNGKey(s)`` directly."""
+    from ..brownian.interval import as_key
+    key = np.asarray(key)
+    if key.shape != (2,) or key.dtype != np.uint32:
+        raise ValueError(f"a JAX PRNGKey is a uint32 array of shape (2,), "
+                         f"got {key.dtype} {key.shape}")
+    return as_key(key, resolve_device(device))

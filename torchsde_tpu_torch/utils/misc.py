@@ -19,6 +19,23 @@ def resolve_device(device=None):
     return torch.device("cuda")
 
 
+def same_device(a, b):
+    """Do devices ``a`` and ``b`` (``torch.device`` or their names) name the
+    same device? A device without an index names the current one of its
+    type: ``"cuda"`` is ``"cuda:0"`` while card 0 is current, ``"cpu"`` is
+    ``"cpu:0"``."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+
+    def index(d):
+        if d.index is not None:
+            return d.index
+        return torch.cuda.current_device() if d.type == "cuda" else 0
+
+    return index(a) == index(b)
+
+
 def handle_unused_kwargs(unused_kwargs, msg=None):
     if len(unused_kwargs) > 0:
         if msg is not None:

@@ -154,7 +154,22 @@ Phases, in order; any failure raises and the script exits non-zero:
     on the card's noise for 32 rows at (512, 256)); one backprop through
     the Euler and the midpoint solves against the CPU's gradient; an Euler
     solve on a fresh interval, its descent included, profiled (kernels
-    launched, busy share) and bitwise the solve on (a)'s noise.
+    launched, busy share) and bitwise the solve on (a)'s noise;
+26. adjoint (no kernel: ``sdeint_adjoint`` is plain PyTorch, as the JAX
+    package leaves it to XLA): the SDE-GAN train step at the reference
+    widths with ``adjoint=True`` on the ``sdeint`` route (the
+    reversible-Heun pair), its step-0 gradients within GAN_GRAD_REL of
+    the fused route's (kernels 5-8) and of backprop through ``sdeint``;
+    the flagship latent train step with ``adjoint=True`` (Euler forward
+    on the 155-step interval grid, Milstein adjoint) against the CPU's on
+    one table of draws at 32 rows (loss ADJ_LOSS_RTOL, gradients
+    ADJ_GRAD_REL of scale), the same step with TF32 matmuls read beside
+    it; each step timed and profiled beside the
+    ``sdeint`` and fused routes'; the peak device memory of one latent
+    step, adjoint against backprop, at dt 1/128 and 1/1024; one
+    ``rng_impl="philox"`` adjoint step whose backward's W is bitwise the
+    forward's, kernel 16 launched once for each, the generator left as
+    the forward left it.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only`` runs some phase groups (for
@@ -168,11 +183,14 @@ at 1, 2, 4 and 8 warps a block; ``--only ab`` (phase_ab) times kernels
 1-14 (6 and 7 also at the GPU tests' shapes) through entry points every
 version of the port has and compares their outputs with another run's, so
 that a copy of this script in the parent commit's checkout times the
-parent in the same call. It imports nothing of JAX.
+parent in the same call; ``--only steps`` (phase_steps), which builds
+nothing, profiles the SDE-GAN train step on the ``sdeint`` route the same
+way. It imports nothing of JAX.
 """
 
 import argparse
 import contextlib
+import copy
 import ctypes
 import json
 import subprocess
@@ -1221,18 +1239,22 @@ def phase_train(device, xs, ts):
     return launches, grad_rel, models, opts
 
 
-def profile_run(label, fn):
+def profile_run(label, fn, cpu=True):
     """``fn`` under torch.profiler: the number of kernels, their device time,
     the device's busy share of the (profiled) wall time, and the costliest
     kernels by name. The device-side ranges of annotations (such as
     ``Optimizer.step``) span kernels already counted, so they are left
-    out."""
+    out. ``cpu=False`` records the device's activity alone: a step of
+    tens of thousands of eager ops then takes seconds, not a minute, to
+    read back, and its profiled wall is less inflated."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1658,14 +1680,14 @@ def gan_counts():
     return tuple(getattr(GF, c) for c in GAN_COUNTERS)
 
 
-def gan_train_step(models, opts, ts, batch, seed, fused):
+def gan_train_step(models, opts, ts, batch, seed, fused, adjoint=False):
     """One training step: gan_grads on a generator seeded ``seed``, an
     Adadelta update of each network, the critic's weight clip. Returns the
     detached loss (a tensor) and the gradients."""
     generator, critic = models
     gen = torch.Generator(device=batch.device).manual_seed(seed)
     loss, g_gen, g_disc = gan_grads(generator, critic, gen, ts, batch,
-                                    dt=GAN_DT, adjoint=False, fused=fused)
+                                    dt=GAN_DT, adjoint=adjoint, fused=fused)
     for module, grads in ((generator, g_gen), (critic, g_disc)):
         for name, p in module.named_parameters():
             p.grad = grads[name]
@@ -3937,10 +3959,328 @@ def phase_ab(device, tag, against):
     return times
 
 
+# --------------------------------------------------------------------------- #
+#  sdeint_adjoint: no kernel of its own (plain PyTorch, as the JAX package    #
+#  leaves it to XLA); its routes held to the kernels' and to the CPU         #
+# --------------------------------------------------------------------------- #
+
+# The step routes the adjoint group times: (name, gan_grads / latent_sde_loss
+# keywords).
+ADJ_ROUTES = (("adjoint", dict(adjoint=True, fused=False)),
+              ("sdeint", dict(adjoint=False, fused=False)),
+              ("fused", dict(adjoint=False, fused=True)))
+ADJ_STEPS = 3
+# The latent adjoint step on the card against the CPU's on the same draws,
+# 32 rows, float32 on both: the forward's 155 Euler steps and the Milstein
+# adjoint's sum in other orders (cuBLAS against the CPU's BLAS). Measured
+# 9.4e-8 on the loss and 7.7e-7 of scale on the gradients (NVIDIA H100
+# 80GB HBM3, 700 W); the limits leave a margin of about 10 over those, and
+# the same step with TF32 matmuls, a fault of the card's precision, is
+# read beside them (PERF.md section 2).
+ADJ_CPU_ROWS = 32
+ADJ_LOSS_RTOL = 1e-6
+ADJ_GRAD_REL = 1e-5
+# Peak memory of one latent train step: adjoint against backprop at these dt.
+ADJ_MEMORY_DTS = (1.0 / 128, 1.0 / 1024)
+
+
+def route_grads_rel(label, grads, want):
+    """The largest gap between two routes' gradients, each over its own
+    largest entry; prints the worst four."""
+    ratios = []
+    for name, w in want.items():
+        g = grads[name]
+        if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+            raise RuntimeError(f"{label}: non-finite gradient of {name}")
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.abs().max())
+        if scale == 0 and err > 0:
+            raise RuntimeError(f"{label}: gradient of {name} is zero on one "
+                               f"route, {err:.3e} on the other")
+        ratios.append((err / scale if scale > 0 else 0.0, name))
+    ratios.sort(reverse=True)
+    print(f"{label}: worst {[(n, f'{r:.3e}') for r, n in ratios[:4]]}",
+          flush=True)
+    return ratios[0]
+
+
+def timed_steps(label, run, n=ADJ_STEPS):
+    """``run()`` n times (host clock, synchronised); the median in ms."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"{label}: {', '.join(f'{t:.1f}' for t in times)} ms", flush=True)
+    return float(np.median(times))
+
+
+def phase_adjoint_gan(device):
+    """The SDE-GAN train step at the reference widths with adjoint=True on
+    the sdeint route (the reversible-Heun pair), its step-0 gradients
+    within GAN_GRAD_REL of the fused route's (kernels 5-8) and of backprop
+    through sdeint; each route's step timed and profiled."""
+    ts, real = gan_data(device)
+    grads = {}
+    for name, kw in ADJ_ROUTES:
+        gen = torch.Generator(device=device).manual_seed(900)
+        _, g_gen, g_disc = gan_grads(*gan_models(device), gen, ts, real,
+                                     dt=GAN_DT, **kw)
+        grads[name] = {**{f"generator.{k}": v for k, v in g_gen.items()},
+                       **{f"critic.{k}": v for k, v in g_disc.items()}}
+    out = {}
+    for other in ("fused", "sdeint"):
+        rel, name = route_grads_rel(f"GAN adjoint vs {other} step 0",
+                                    grads["adjoint"], grads[other])
+        if rel > GAN_GRAD_REL:
+            raise RuntimeError(f"GAN adjoint step-0 gradient of {name} is "
+                               f"{rel:.3e} of its scale from the {other} "
+                               f"route's > {GAN_GRAD_REL}")
+        out[f"grad_rel_{other}"] = rel
+    for name, kw in ADJ_ROUTES:
+        models = gan_models(device)
+        opts = (torch.optim.Adadelta(models[0].parameters(), lr=GAN_GEN_LR,
+                                     weight_decay=GAN_WEIGHT_DECAY),
+                torch.optim.Adadelta(models[1].parameters(),
+                                     lr=GAN_CRITIC_LR,
+                                     weight_decay=GAN_WEIGHT_DECAY))
+        seeds = iter(range(910, 1000))
+
+        def step():
+            loss, grads_ = gan_train_step(models, opts, ts, real,
+                                          next(seeds), **kw)
+            if not (np.isfinite(float(loss))
+                    and all(torch.isfinite(g).all() for g in grads_)):
+                raise RuntimeError(f"GAN {name} step: non-finite loss or "
+                                   f"gradient")
+
+        step()   # warm-up
+        out[f"{name}_ms"] = timed_steps(f"GAN train step {name}", step)
+        out[f"{name}_profile"] = profile_run(f"GAN train step {name}", step,
+                                             cpu=False)
+    return out
+
+
+def cpu_table_draws(eps, W):
+    """The latent model's eps and its solve noise served from fixed tables,
+    moved to the device a call asks for: the card's solve and the CPU's
+    see the same draws, and the adjoint's redraw the draw."""
+    normal, grid_noise = TL._standard_normal, TI.sample_grid_noise
+
+    def standard_normal(shape, generator, dtype, device):
+        return eps.to(device=device, dtype=dtype)
+
+    def sample_grid_noise(generator, grid, size, dtype, device=None, **kw):
+        return W.to(device=device, dtype=dtype), None, None
+
+    @contextlib.contextmanager
+    def patched():
+        TL._standard_normal, TI.sample_grid_noise = standard_normal, \
+            sample_grid_noise
+        try:
+            yield
+        finally:
+            TL._standard_normal, TI.sample_grid_noise = normal, grid_noise
+
+    return patched()
+
+
+def latent_grads(model, xs, ts, **kw):
+    """The ELBO's loss and every parameter gradient of one call."""
+    loss, _ = latent_sde_loss(model, xs, ts, torch.Generator(
+        device=xs.device).manual_seed(1000), dt=DT, **kw)
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+    return loss.detach(), dict(zip(names, grads))
+
+
+def peak_step_mib(model, xs, ts, dt, adjoint):
+    """Peak device memory (MiB) of one latent train step's loss and
+    gradients, above what was allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loss, _ = latent_sde_loss(model, xs, ts, torch.Generator(
+        device=xs.device).manual_seed(1100), dt=dt, adjoint=adjoint)
+    loss.backward()
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20, ms
+
+
+def phase_adjoint_latent(device):
+    """The flagship latent train step with adjoint=True (Euler forward on
+    the 155-step interval grid, Milstein adjoint): against the CPU's on the
+    same draws at ADJ_CPU_ROWS rows; timed and profiled beside the sdeint
+    and fused routes; the peak memory of adjoint against backprop at each
+    dt of ADJ_MEMORY_DTS; one rng_impl='philox' step whose backward's W is
+    bitwise the forward's, kernel 16 launched once for each."""
+    t0 = time.perf_counter()
+    xs, ts = lorenz_data(device)
+    out = {}
+    # (a) the card against the CPU on one table of draws.
+    grid = TI.build_interval_grid(ts, DT)[0]
+    draws = torch.Generator().manual_seed(1200)
+    eps = torch.randn((ADJ_CPU_ROWS, LATENT), generator=draws)
+    W = torch.randn((len(grid) - 1, ADJ_CPU_ROWS, LATENT + 1),
+                    generator=draws) * torch.as_tensor(
+                        np.sqrt(np.diff(grid)), dtype=torch.float32)[:, None,
+                                                                     None]
+    model = flagship_model(device)
+    rows = xs[:, :ADJ_CPU_ROWS]
+    with cpu_table_draws(eps, W):
+        loss, grads = latent_grads(model, rows, ts, adjoint=True)
+        cpu_loss, cpu_grads = latent_grads(
+            copy.deepcopy(model).to("cpu"), rows.cpu(), ts, adjoint=True)
+        # The same step with TF32 matmuls: what a fault of the card's
+        # precision reads against the limits (read, not checked).
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32_loss, tf32_grads = latent_grads(model, rows, ts,
+                                                 adjoint=True)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    def card_vs_cpu(label, loss, grads):
+        loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+        grad_rel, name = route_grads_rel(
+            f"{label} card vs CPU", {k: v.cpu() for k, v in grads.items()},
+            cpu_grads)
+        print(f"{label}, {ADJ_CPU_ROWS} rows: loss {float(loss):.8g} card, "
+              f"{float(cpu_loss):.8g} CPU, rel {loss_rel:.3e}", flush=True)
+        return loss_rel, grad_rel, name
+
+    loss_rel, grad_rel, name = card_vs_cpu("latent adjoint", loss, grads)
+    tf32_loss_rel, tf32_grad_rel, _ = card_vs_cpu("latent adjoint, TF32",
+                                                  tf32_loss, tf32_grads)
+    if loss_rel > ADJ_LOSS_RTOL or grad_rel > ADJ_GRAD_REL:
+        raise RuntimeError(f"latent adjoint card vs CPU: loss rel "
+                           f"{loss_rel:.3e} > {ADJ_LOSS_RTOL} or gradient of "
+                           f"{name} {grad_rel:.3e} > {ADJ_GRAD_REL}")
+    out.update(cpu_loss_rel=loss_rel, cpu_grad_rel=grad_rel,
+               tf32_loss_rel=tf32_loss_rel, tf32_grad_rel=tf32_grad_rel,
+               a_s=time.perf_counter() - t0)
+    # (b) the step at full width on each route.
+    t0 = time.perf_counter()
+    for name, kw in ADJ_ROUTES:
+        model = flagship_model(device)
+        opt = torch.optim.Adam(model.parameters(), lr=LR)
+        seeds = iter(range(1300, 1400))
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            gen = torch.Generator(device=device).manual_seed(next(seeds))
+            loss, _ = latent_sde_loss(model, xs, ts, gen, dt=DT, **kw)
+            loss.backward()
+            opt.step()
+            if not (np.isfinite(float(loss.detach())) and all(
+                    torch.isfinite(p.grad).all()
+                    for p in model.parameters())):
+                raise RuntimeError(f"latent {name} step: non-finite loss or "
+                                   f"gradient")
+
+        step()   # warm-up
+        out[f"{name}_ms"] = timed_steps(f"latent train step {name}", step)
+        out[f"{name}_profile"] = profile_run(f"latent train step {name}",
+                                             step, cpu=False)
+    out["b_s"] = time.perf_counter() - t0
+    # (c) peak memory, adjoint against backprop.
+    t0 = time.perf_counter()
+    model = flagship_model(device)
+    for dt in ADJ_MEMORY_DTS:
+        for adjoint in (True, False):
+            mib, ms = peak_step_mib(model, xs, ts, dt, adjoint)
+            key = f"{'adjoint' if adjoint else 'sdeint'}_dt{round(1 / dt)}"
+            out[f"peak_mib_{key}"], out[f"step_ms_{key}"] = mib, ms
+            print(f"latent step {key}: peak {mib:.1f} MiB above the "
+                  f"weights and data, {ms:.1f} ms", flush=True)
+    out["c_s"] = time.perf_counter() - t0
+    # (d) philox: the backward redraws the forward's W bitwise.
+    t0 = time.perf_counter()
+    drawn, grid_noise = [], TI.sample_grid_noise
+
+    def recorded(*args, **kw):
+        noise = grid_noise(*args, **kw)
+        drawn.append(noise[0].clone())
+        return noise
+
+    TI.sample_grid_noise = recorded
+    PR.launches = 0
+    try:
+        gen = torch.Generator(device=device).manual_seed(1500)
+        loss, _ = latent_sde_loss(model, xs, ts, gen, dt=DT, adjoint=True,
+                                  rng_impl="philox")
+        after_forward = gen.get_state()
+        loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        TI.sample_grid_noise = grid_noise
+    if (len(drawn) != 2 or not torch.equal(drawn[0], drawn[1])
+            or PR.launches != 2
+            or not torch.equal(gen.get_state(), after_forward)):
+        raise RuntimeError(f"philox adjoint: {len(drawn)} draws, bitwise "
+                           f"{len(drawn) == 2 and torch.equal(*drawn)}, "
+                           f"kernel 16 launched {PR.launches} times, "
+                           f"generator moved by the backward")
+    print(f"philox adjoint step: W {tuple(drawn[0].shape)} drawn and redrawn "
+          f"bitwise, kernel 16 launched {PR.launches} times", flush=True)
+    out.update(philox_launches=PR.launches, d_s=time.perf_counter() - t0)
+    return out
+
+
+def phase_adjoint(device):
+    """Phase 26 (no kernel of its own): its record is the ``{"adjoint":
+    ...}`` line, with each part's seconds."""
+    t0 = time.perf_counter()
+    record = {"gan": phase_adjoint_gan(device)}
+    record["gan_s"] = time.perf_counter() - t0
+    record["latent"] = phase_adjoint_latent(device)
+    record["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"adjoint": record}), flush=True)
+
+
+# --------------------------------------------------------------------------- #
+#  --only steps: the GAN sdeint step of any version of the port              #
+# --------------------------------------------------------------------------- #
+
+STEPS_RUNS = 5
+
+
+def phase_steps(device):
+    """The SDE-GAN train step at the reference widths on the sdeint route
+    with adjoint=False (the reversible-Heun solve), through entry points
+    that every version of the port has: one warm-up step, then STEPS_RUNS
+    steps, each profiled (kernels launched, device time, busy share).
+    Needs no kernel built. Run by a copy of this script inside another
+    checkout (its parent commit), it measures that checkout's step: one
+    call measures both, in turns."""
+    ts, real = gan_data(device)
+    models = gan_models(device)
+    opts = (torch.optim.Adadelta(models[0].parameters(), lr=GAN_GEN_LR,
+                                 weight_decay=GAN_WEIGHT_DECAY),
+            torch.optim.Adadelta(models[1].parameters(), lr=GAN_CRITIC_LR,
+                                 weight_decay=GAN_WEIGHT_DECAY))
+    seeds = iter(range(1600, 1700))
+
+    def step():
+        gan_train_step(models, opts, ts, real, next(seeds), False)
+
+    step()   # warm-up
+    runs = [profile_run("GAN train step sdeint", step, cpu=False)
+            for _ in range(STEPS_RUNS)]
+    print(json.dumps({"steps": {"gan_sdeint": runs}}), flush=True)
+
+
 GROUPS = ("latent", "gan", "tower", "logqp", "multi", "srk", "prng",
-          "brownian")
+          "brownian", "adjoint")
 # Run only when asked for by --only.
-EXTRA_GROUPS = ("tiles", "ab")
+EXTRA_GROUPS = ("tiles", "ab", "steps")
+# Groups that launch no kernel of the port's own: they run without a build.
+UNBUILT_GROUPS = ("steps",)
 
 
 def main():
@@ -3959,7 +4299,8 @@ def main():
     if unknown:
         raise SystemExit(f"unknown phase groups {sorted(unknown)}")
     device, card = phase_device()
-    phase_build()
+    if not set(groups) <= set(UNBUILT_GROUPS):
+        phase_build()
     csrc = "torchsde_tpu_torch/ops/csrc"
     records = []
     if "latent" in groups:
@@ -4077,6 +4418,8 @@ def main():
             library_ms=None, **kernel16))
     if "brownian" in groups:
         phase_brownian(device, card)
+    if "adjoint" in groups:
+        phase_adjoint(device)
     if "tiles" in groups:
         print(json.dumps({"euler_tiles": phase_euler_tiles(device)}),
               flush=True)
@@ -4087,6 +4430,8 @@ def main():
         print(json.dumps({"sweep_tiles": phase_tiles(device)}), flush=True)
     if "ab" in groups:
         phase_ab(device, opts.ab_tag, opts.ab_against)
+    if "steps" in groups:
+        phase_steps(device)
     torch.cuda.synchronize()
     for record in records:
         if record["launches"] < 1:

@@ -3,6 +3,8 @@
 Whole solves are compared through injected Brownian tables: the same
 increments, made with numpy from a seed, drive both packages."""
 
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -259,7 +261,11 @@ def test_contract_errors_match_jax_wording(case):
 
 @pytest.mark.parametrize("method", ["adjoint_reversible_heun"])
 def test_unported_methods_are_named(method):
-    with pytest.raises(ValueError, match="not ported"):
+    """sdeint names the one method it does not run itself, in the JAX
+    package's words: the adjoint's reversible pair, which only
+    sdeint_adjoint runs."""
+    with pytest.raises(ValueError, match="only be used as the "
+                       "adjoint_method of sdeint_adjoint"):
         ttsde.sdeint(TorchSDE("diagonal", _problem_params()),
                      torch.ones((B, D)), TS, method=method, dt=DT)
 
@@ -279,6 +285,80 @@ def test_adaptive_is_not_ported():
         ttsde.sdeint(TorchSDE("diagonal", _problem_params()),
                      torch.ones((B, D)), TS, method="euler", dt=DT,
                      adaptive=True)
+
+
+@pytest.mark.parametrize("method", ["euler", "milstein", "srk"])
+def test_return_stats_match_jax(method):
+    """The fixed-step counters: n_steps accepted, none rejected, n_steps
+    times the solver's evaluations a step."""
+    p = _problem_params()
+    y0 = np.ones((B, D))
+    _, jstats = jtsde.sdeint(JaxSDE("diagonal", p), jnp.asarray(y0), TS,
+                             method=method, dt=DT, entropy=1,
+                             return_stats=True)
+    ys, stats = ttsde.sdeint(TorchSDE("diagonal", p), torch.as_tensor(y0),
+                             TS, method=method, dt=DT, return_stats=True,
+                             generator=torch.Generator().manual_seed(1))
+    assert ys.shape == (len(TS), B, D)
+    assert stats == {k: (bool(v) if k == "incomplete" else int(v))
+                     for k, v in jstats.items()}
+
+
+def test_remat_gives_the_same_values_and_gradients():
+    p = _problem_params()
+    W = np.random.default_rng(3).normal(size=(len(GRID) - 1, B, D)) * 0.1
+    out = []
+    for remat in (False, True):
+        sde = TorchSDE("diagonal", p)
+        sde.theta = sde.theta.clone().requires_grad_()
+        ys = ttsde.sdeint(sde, torch.ones((B, D), dtype=torch.float64), TS,
+                          bm=TorchTable(GRID, W), method="milstein", dt=DT,
+                          remat=remat)
+        out.append((ys.detach(), torch.autograd.grad(ys.sum(), sde.theta)))
+    assert torch.equal(out[0][0], out[1][0])
+    torch.testing.assert_close(out[1][1], out[0][1], rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(key=3), TypeError, "generator="),
+    (dict(entropy=3), TypeError, "generator="),
+    (dict(rtol=1e-3), NotImplementedError, "queue 1 item 2"),
+    (dict(atol=1e-3), NotImplementedError, "queue 1 item 2"),
+    (dict(dt_min=1e-3), NotImplementedError, "queue 1 item 2"),
+    (dict(max_steps=10), NotImplementedError, "queue 1 item 2"),
+    (dict(noise_precompute=False), NotImplementedError, "queue 1 item 2"),
+])
+def test_jax_keywords_are_not_dropped(kwargs, error, match):
+    with pytest.raises(error, match=match):
+        ttsde.sdeint(TorchSDE("diagonal", _problem_params()),
+                     torch.ones((B, D), dtype=torch.float64), TS,
+                     method="euler", dt=DT, **kwargs)
+
+
+@pytest.mark.parametrize("value", [None, True])
+def test_noise_precompute_that_the_port_does_is_accepted(value):
+    """The port precomputes the noise: ``noise_precompute`` None or True
+    asks for just that, and changes nothing, without a warning."""
+    sde = TorchSDE("diagonal", _problem_params())
+    y0 = torch.ones((B, D), dtype=torch.float64)
+    a = ttsde.sdeint(sde, y0, TS, method="euler", dt=DT,
+                     generator=torch.Generator().manual_seed(2))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        b = ttsde.sdeint(sde, y0, TS, method="euler", dt=DT,
+                         noise_precompute=value,
+                         generator=torch.Generator().manual_seed(2))
+    assert torch.equal(a, b)
+
+
+def test_unroll_is_accepted_and_changes_nothing():
+    sde = TorchSDE("diagonal", _problem_params())
+    y0 = torch.ones((B, D), dtype=torch.float64)
+    a = ttsde.sdeint(sde, y0, TS, method="euler", dt=DT,
+                     generator=torch.Generator().manual_seed(2))
+    b = ttsde.sdeint(sde, y0, TS, method="euler", dt=DT, unroll=4,
+                     generator=torch.Generator().manual_seed(2))
+    assert torch.equal(a, b)
 
 
 def test_names_renames_the_drift():

@@ -39,7 +39,14 @@ branch bits resolved on the card, packed words, keys, random bits and
 uniforms bitwise; W and U within 2e-5 and A within 1e-4 (CUDA's erfinv is
 not the CPU's, and A is built from H = U/h - W/2 of float32 prefix
 integrals); query_pairs over a CUDA tensor of times bitwise __call__ on
-host floats; each fixed-step method's solve on it against the CPU's."""
+host floats; each fixed-step method's solve on it against the CPU's.
+
+sdeint_adjoint (no kernel: plain PyTorch) on the card: its gradients
+(parameters, y0, a buffer computed upstream) against the CPU's in float64
+on one table of increments, by Euler, Milstein and the reversible pair;
+under rng_impl='philox' the backward's W bitwise the forward's, kernel 16
+launched once for each; a small gan_grads at its default adjoint=True
+against the fused route's (kernels 5-8)."""
 
 import numpy as np
 import pytest
@@ -1872,3 +1879,140 @@ def test_bm_named_cuda_solves_with_y0_on_cuda_0(cuda, name):
         got = sdeint(sde, y0, np.linspace(0.0, 1.0, 5),
                      bm=_NamedDevice(bm, name), method="midpoint", dt=0.05)
     assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------- #
+#  sdeint_adjoint (no kernel: plain PyTorch) on the card                      #
+# --------------------------------------------------------------------------- #
+
+class _GridTable(BaseBrownian):
+    """Fixed increments of one grid, on one device."""
+
+    def __init__(self, W, levy="none"):
+        self.W, self.levy = W, levy
+
+    def __call__(self, ta, tb=None, return_U=False, return_A=False):
+        raise NotImplementedError
+
+    def query_grid(self, grid, return_U=False, return_A=False):
+        assert len(grid) - 1 == self.W.shape[0]
+        return self.W, None, None
+
+    shape = property(lambda self: tuple(self.W.shape[1:]))
+    dtype = property(lambda self: self.W.dtype)
+    device = property(lambda self: self.W.device)
+    levy_area_approximation = property(lambda self: self.levy)
+
+
+class _TanhSDE(torch.nn.Module):
+    """A diagonal Itô SDE with a tower drift, a context buffer and a
+    state-dependent diffusion, so the Milstein adjoint's every term is
+    live."""
+    noise_type, sde_type = "diagonal", "ito"
+
+    def __init__(self, d, device, dtype, seed=0):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.w = torch.nn.Parameter((torch.randn((d, d), generator=gen)
+                                     / d ** 0.5).to(device, dtype))
+        self.s = torch.nn.Parameter(
+            (0.3 + 0.1 * torch.rand(d, generator=gen)).to(device, dtype))
+
+    def f(self, t, y):
+        return torch.tanh(y @ self.w) - y + self.ctx
+
+    def g(self, t, y):
+        return self.s * torch.sin(y) + 0.5
+
+
+@pytest.mark.parametrize("method", ["euler", "milstein", "reversible_heun"])
+def test_adjoint_on_the_card_matches_the_cpu(cuda, method):
+    """Loss gradients of sdeint_adjoint in float64 on the card against the
+    CPU's on one table of increments: parameters, y0 and a buffer computed
+    upstream."""
+    from torchsde_tpu_torch import sdeint_adjoint
+    from torchsde_tpu_torch.core.integrate import build_interval_grid
+    B, d, ts, dt = 64, 6, [0.0, 0.13, 0.3, 0.5], 0.05
+    grid = build_interval_grid(ts, dt)[0]
+    gen = torch.Generator().manual_seed(7)
+    W = torch.randn((len(grid) - 1, B, d), generator=gen,
+                    dtype=torch.float64) * dt ** 0.5
+    y0 = torch.randn((B, d), generator=gen, dtype=torch.float64)
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        sde = _TanhSDE(d, device, torch.float64)
+        if method == "reversible_heun":
+            sde.sde_type = "stratonovich"
+        base = torch.linspace(-0.2, 0.2, d, dtype=torch.float64,
+                              device=device, requires_grad=True)
+        sde.register_buffer("ctx", base * 2.0)
+        y = y0.to(device).requires_grad_()
+        ys = sdeint_adjoint(sde, y, ts, bm=_GridTable(W.to(device)),
+                            method=method, dt=dt)
+        loss = (ys ** 2).sum() + ys[1].sum()
+        out.append([g.cpu() for g in torch.autograd.grad(
+            loss, [y, base, sde.w, sde.s])])
+    for got, want in zip(*out):
+        assert float(want.abs().max()) > 0
+        torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-12)
+
+
+def test_philox_adjoint_redraws_the_forward_noise_bitwise(cuda):
+    """Under rng_impl='philox' the backward's W is bitwise the forward's,
+    each drawn by kernel 16, and the generator ends as the forward left it;
+    the gradients repeat bitwise."""
+    import torchsde_tpu_torch.core.integrate as TI
+    from torchsde_tpu_torch import sdeint_adjoint
+    from torchsde_tpu_torch.ops import prng
+    sde = _TanhSDE(8, cuda, torch.float32)
+    sde.ctx = torch.zeros(8, device=cuda)
+    drawn, grid_noise = [], TI.sample_grid_noise
+
+    def recorded(*args, **kw):
+        noise = grid_noise(*args, **kw)
+        drawn.append(noise[0].clone())
+        return noise
+
+    grads = []
+    for _ in range(2):
+        TI.sample_grid_noise = recorded
+        prng.launches = 0
+        try:
+            gen = torch.Generator(device=cuda).manual_seed(3)
+            ys = sdeint_adjoint(sde, torch.ones((256, 8), device=cuda),
+                                [0.0, 0.5, 1.0], dt=0.05, method="euler",
+                                generator=gen, rng_impl="philox")
+            state = gen.get_state()
+            grads.append(torch.autograd.grad(ys.square().sum(),
+                                             [sde.w, sde.s]))
+            torch.cuda.synchronize()
+        finally:
+            TI.sample_grid_noise = grid_noise
+        assert prng.launches == 2
+        assert torch.equal(gen.get_state(), state)
+    assert len(drawn) == 4 and all(torch.equal(drawn[0], w) for w in drawn)
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+def test_gan_adjoint_gradients_match_the_fused_route(cuda):
+    """A small gan_grads at the default adjoint=True (the reversible pair)
+    against the fused route's (kernels 5-8) on one generator seed."""
+    from torchsde_tpu_torch.models.sde_gan import (Discriminator, Generator,
+                                                   gan_grads)
+    ts = torch.linspace(0.0, 9.0, 10, device=cuda)
+    real = torch.randn((32, 10, 2), generator=torch.Generator().manual_seed(
+        1)).to(cuda)
+    real[..., 0] = ts
+    out = {}
+    for fused in (False, True):
+        wgen = torch.Generator().manual_seed(0)
+        models = (Generator(1, 5, 3, 16, 16, 1, device=cuda, generator=wgen),
+                  Discriminator(1, 17, 16, 1, device=cuda, generator=wgen))
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        out[fused] = gan_grads(*models, gen, ts, real, fused=fused)
+    for i in (1, 2):
+        for name, want in out[True][i].items():
+            got = out[False][i][name]
+            scale = float(want.abs().max())
+            assert float((got - want).abs().max()) <= 1e-5 * max(scale,
+                                                                 1e-3), name

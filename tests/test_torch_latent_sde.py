@@ -41,12 +41,16 @@ def _xs(name):
     return xs.astype(np.dtype(DTYPES[name][0]))
 
 
-def _inject_jax_draws(monkeypatch, name, channels, eps_shape=(B, L)):
+def _inject_jax_draws(monkeypatch, name, channels, eps_shape=(B, L),
+                      adjoint=False):
     """Make the port draw exactly what JAX draws from KEY: eps from KEY,
-    then the grid noise from fold_in(KEY, 1)."""
+    then the grid noise from fold_in(KEY, 1): on the step grid, or with
+    ``adjoint`` on the adjoint's interval grid, where the backward draws it
+    again from a fresh generator and gets the same W."""
     jdtype = DTYPES[name][0]
     eps = jax.random.normal(KEY, eps_shape, jdtype)
-    grid = JI.build_step_grid(TS[0], TS[-1], DT)
+    grid = (JI.build_interval_grid(TS, DT)[0] if adjoint
+            else JI.build_step_grid(TS[0], TS[-1], DT))
     W = JI.sample_grid_noise(jax.random.fold_in(KEY, 1), grid,
                              (B, channels), jdtype)[0]
     order = []
@@ -58,7 +62,7 @@ def _inject_jax_draws(monkeypatch, name, channels, eps_shape=(B, L)):
 
     def sample_grid_noise(generator, g, size, dtype, device=None, **kwargs):
         assert size == (B, channels) and np.array_equal(g, grid)
-        assert order == ["eps"]
+        assert order == ["eps"] or (adjoint and order == ["eps", "W"])
         order.append("W")
         return to_torch(W), None, None
 
@@ -201,11 +205,40 @@ def test_fused_rejects_variant_architecture():
                            fused=True)
 
 
-def test_adjoint_is_not_ported():
-    model = port_latent_sde(_jax_model("f32"), torch.float32)
-    with pytest.raises(NotImplementedError, match="sdeint_adjoint"):
-        TL.latent_sde_loss(model, to_torch(_xs("f32")), TS, dt=DT,
-                           adjoint=True)
+@functools.lru_cache(maxsize=None)
+def _jax_adjoint_loss_and_grads():
+    (loss, aux), grads = jax.value_and_grad(
+        lambda m: JL.latent_sde_loss(m, jnp.asarray(_xs("f64")), TS, KEY,
+                                     dt=DT, adjoint=True),
+        has_aux=True)(_jax_model("f64"))
+    return ((float(loss), float(aux["log_pxs"]), float(aux["logqp"])),
+            jax_named_arrays(grads))
+
+
+def test_adjoint_loss_and_gradients_match_jax_f64(monkeypatch):
+    """latent_sde_loss(adjoint=True): Euler forward on the interval grid,
+    Milstein adjoint, against the JAX package's on the same draws: the
+    loss and every parameter gradient, the encoder's (through the context
+    the adjoint differentiates) and qz0_net's (through z0) included, at
+    1e-9 of each gradient's largest entry."""
+    want_loss, want = _jax_adjoint_loss_and_grads()
+    order = _inject_jax_draws(monkeypatch, "f64", L + 1, adjoint=True)
+    model = port_latent_sde(_jax_model("f64"), torch.float64)
+    loss, aux = TL.latent_sde_loss(model, to_torch(_xs("f64")), TS, dt=DT,
+                                   adjoint=True)
+    np.testing.assert_allclose(
+        (loss.item(), aux["log_pxs"].item(), aux["logqp"].item()),
+        want_loss, rtol=1e-9, atol=1e-9)
+    loss.backward()
+    assert order == ["eps", "W", "W"]
+    names = [name for name, _ in model.named_parameters()]
+    assert len(names) == 28 and set(names) <= set(want)
+    assert any(name.startswith("encoder.") for name in names)
+    for name, p in model.named_parameters():
+        scale = float(np.max(np.abs(want[name])))
+        assert scale > 0, name
+        np.testing.assert_allclose(p.grad.numpy(), want[name], rtol=0,
+                                   atol=1e-9 * scale, err_msg=name)
 
 
 def test_make_lorenz_data():

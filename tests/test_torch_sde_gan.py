@@ -61,12 +61,15 @@ def _inject_jax_draws(monkeypatch, key=KEY):
     initial noise from split(key)[0], then the grid noise from split(key)[1].
     A critic solve on the sdeint route draws its own (B', 1) noise from a
     private generator, never the caller's; it gets zeros (its diffusion is
-    zero)."""
+    zero). The backward of ``sdeint_adjoint`` draws the grid noise again
+    from a fresh generator in the caller's state at the first draw; it gets
+    the same W."""
     k1, k2 = jax.random.split(key)
     init = jax.random.normal(k1, (B, INIT_NOISE), jnp.float64)
     W = JI.sample_grid_noise(k2, GRID, (B, NOISE), jnp.float64)[0]
     caller = torch.Generator()
     order = []
+    drawn_in = []
 
     def standard_normal(shape, generator, dtype, device):
         assert tuple(shape) == (B, INIT_NOISE) and generator is caller
@@ -77,8 +80,13 @@ def _inject_jax_draws(monkeypatch, key=KEY):
                           **kwargs):
         assert np.array_equal(grid, GRID)
         if size == (B, NOISE):
-            assert generator is caller and order == ["init"]
-            order.append("W")
+            if generator is caller:
+                assert order == ["init"]
+                drawn_in.append(caller.get_state())
+                order.append("W")
+            else:
+                assert torch.equal(generator.get_state(), drawn_in[0])
+                order.append("W again")
             return to_torch(W), None, None
         assert size[1] == 1 and generator not in (caller, None)
         order.append("critic")
@@ -217,39 +225,49 @@ def test_scores_match_jax_f64(fused):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_gan_grads():
+def _jax_gan_grads(adjoint=False):
     gen, disc = _jax_models()
     real = jnp.asarray(_real())
     loss, g_gen, g_disc = jax.jit(lambda g, d: JG.gan_grads(
-        g, d, KEY, TS, real, DT, False, False))(gen, disc)
+        g, d, KEY, TS, real, DT, adjoint, False))(gen, disc)
     return float(loss), jax_named_arrays(g_gen), jax_named_arrays(g_disc)
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_gan_loss_matches_jax_f64(monkeypatch, fused):
+# (fused, adjoint): the fused route does not consult adjoint.
+ROUTES = [(False, False), (True, False), (False, True), (True, True)]
+ROUTE_IDS = ["sdeint", "fused", "adjoint", "fused-adjoint"]
+
+
+@pytest.mark.parametrize("fused,adjoint", ROUTES, ids=ROUTE_IDS)
+def test_gan_loss_matches_jax_f64(monkeypatch, fused, adjoint):
     caller, order = _inject_jax_draws(monkeypatch)
     gen, disc = _ported()
     with torch.no_grad():
         loss = TG.gan_loss(gen, disc, caller, TS, to_torch(_real()), dt=DT,
-                           adjoint=False, fused=fused)
+                           adjoint=adjoint, fused=fused)
     assert order == (["init", "W"] if fused else ["init", "W", "critic"])
-    np.testing.assert_allclose(float(loss), _jax_gan_grads()[0], rtol=0,
-                               atol=ATOL)
+    np.testing.assert_allclose(float(loss), _jax_gan_grads(adjoint)[0],
+                               rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_gan_grads_match_jax_f64(monkeypatch, fused):
-    """Every parameter gradient of gan_loss(adjoint=False), by autograd
-    through the sdeint route or through the plain versions of the kernels,
-    against jax.grad of torchsde_tpu's loss on its sdeint route (the
+@pytest.mark.parametrize("fused,adjoint", ROUTES, ids=ROUTE_IDS)
+def test_gan_grads_match_jax_f64(monkeypatch, fused, adjoint):
+    """Every parameter gradient of gan_loss, by autograd through the sdeint
+    route, through ``sdeint_adjoint``'s reversible-Heun pair (whose critic
+    passes the generator's gradient on through the path it holds), or
+    through the plain versions of the kernels, against jax.grad of
+    torchsde_tpu's loss on its sdeint route with the same ``adjoint`` (the
     generator's negated on both sides): atol 1e-9 times each gradient's
-    largest entry."""
-    want_loss, want_gen, want_disc = _jax_gan_grads()
-    caller, _ = _inject_jax_draws(monkeypatch)
+    largest entry. The adjoint's backward draws the generator's noise
+    again, from the caller's state at the first draw."""
+    want_loss, want_gen, want_disc = _jax_gan_grads(adjoint)
+    caller, order = _inject_jax_draws(monkeypatch)
     gen, disc = _ported()
     loss, g_gen, g_disc = TG.gan_grads(gen, disc, caller, TS,
                                        to_torch(_real()), dt=DT,
-                                       adjoint=False, fused=fused)
+                                       adjoint=adjoint, fused=fused)
+    if adjoint and not fused:
+        assert order == ["init", "W", "critic", "critic", "W again"]
     np.testing.assert_allclose(float(loss), want_loss, rtol=0, atol=ATOL)
     for got, want in ((g_gen, want_gen), (g_disc, want_disc)):
         assert set(got) == set(want) - set(CDE_PATH_KEYS)
@@ -282,13 +300,33 @@ def test_critic_never_draws_from_the_callers_generator():
     assert torch.equal(torch.get_rng_state(), default_state)
 
 
-def test_adjoint_is_not_ported():
+def test_adjoint_is_the_default_and_agrees_with_backprop():
+    """gan_loss, gan_grads and the critic's scores run at their default
+    adjoint=True; the reversible pair's loss and gradients are backprop's
+    through sdeint on one generator seed (both exact for the same discrete
+    solve), and the caller's generator ends in the same state."""
     gen, disc = _ported()
     real = to_torch(_real())
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        TG.gan_loss(gen, disc, torch.Generator(), TS, real, dt=DT)
-    with pytest.raises(NotImplementedError, match="adjoint=False"):
-        disc.scores(TS, real, dt=DT)
+    out, states = {}, {}
+    for adjoint in (True, False):
+        caller = torch.Generator().manual_seed(11)
+        kw = {} if adjoint else dict(adjoint=False)
+        out[adjoint] = TG.gan_grads(gen, disc, caller, TS, real, dt=DT, **kw)
+        states[adjoint] = caller.get_state()
+    assert torch.equal(states[True], states[False])
+    np.testing.assert_allclose(float(out[True][0]), float(out[False][0]),
+                               rtol=0, atol=ATOL)
+    for i in (1, 2):
+        for name, g in out[False][i].items():
+            scale = max(float(g.abs().max()), 1e-3)
+            np.testing.assert_allclose(out[True][i][name].numpy(), g.numpy(),
+                                       rtol=0, atol=1e-9 * scale,
+                                       err_msg=name)
+    with torch.no_grad():
+        torch.testing.assert_close(disc.scores(TS, real, dt=DT),
+                                   disc.scores(TS, real, dt=DT,
+                                               adjoint=False),
+                                   rtol=0, atol=ATOL)
 
 
 def test_clip_weights_matches_jax():

@@ -9,12 +9,14 @@ the A channel of the default noise, the default Stratonovich method, the
 method table and the Brownian contract checks."""
 
 import math
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import problems
 import torchsde_tpu as jtsde
@@ -230,17 +232,121 @@ def test_stratonovich_default_method_is_midpoint():
                                     method="midpoint"))
 
 
-def test_select_leaves_only_the_adjoint_unported():
+def test_select_matches_jax_for_every_method():
+    """Every method selects the JAX package's class, the adjoint's
+    placeholder too, which raises the JAX package's message when built
+    outside sdeint_adjoint."""
     for method in ttsde.METHODS:
-        if method == "adjoint_reversible_heun":
-            with pytest.raises(ValueError, match="not ported"):
-                TS.select(method, "stratonovich")
-            continue
         for sde_type in ("ito", "stratonovich"):
             assert TS.select(method, sde_type).__name__ == \
                 JS.select(method, sde_type).__name__
+    sde = make_sde(ttsde, "stratonovich", "diagonal")
+    with pytest.raises(ValueError) as terr:
+        TS.select("adjoint_reversible_heun", "stratonovich")(sde=sde)
+    with pytest.raises(ValueError) as jerr:
+        JS.select("adjoint_reversible_heun", "stratonovich")(
+            sde=make_sde(jtsde, "stratonovich", "diagonal"))
+    assert str(terr.value) == str(jerr.value)
     with pytest.raises(ValueError, match="does not match"):
         TS.select("bogus", "ito")
+
+
+# Each step as the plain tensor expression the solvers computed before
+# they took tuple states (``utils.misc.tree_lc``); a tensor state must still
+# give these bits.
+def _plain_step(method, sde, t0, t1, y0, extra0, I_k):
+    dt = t1 - t0
+    if method == "euler":
+        f, g_prod = sde.f_and_g_prod(t0, y0, I_k)
+        return y0 + dt * f + g_prod
+    if method == "midpoint":
+        f, g_prod = sde.f_and_g_prod(t0, y0, I_k)
+        half_dt = 0.5 * dt
+        y_prime = y0 + half_dt * f + 0.5 * g_prod
+        f_prime, g_prod_prime = sde.f_and_g_prod(t0 + half_dt, y_prime, I_k)
+        return y0 + dt * f_prime + g_prod_prime
+    if method == "heun":
+        f, g_prod = sde.f_and_g_prod(t0, y0, I_k)
+        f_prime, g_prod_prime = sde.f_and_g_prod(t1, y0 + dt * f + g_prod,
+                                                 I_k)
+        return (y0 + (0.5 * dt) * f + (0.5 * dt) * f_prime + 0.5 * g_prod
+                + 0.5 * g_prod_prime)
+    if method == "euler_heun":
+        f, g_prod = sde.f_and_g_prod(t0, y0, I_k)
+        g_prod_prime = sde.g_prod(t1, y0 + g_prod, I_k)
+        return y0 + dt * f + 0.5 * g_prod + 0.5 * g_prod_prime
+    if method == "milstein":
+        v = I_k ** 2 - dt if sde.sde_type == "ito" else I_k ** 2
+        f = sde.f(t0, y0)
+        g_prod, gdg_prod = sde.g_prod_and_gdg_prod(t0, y0, I_k, 0.5 * v)
+        return y0 + dt * f + g_prod + gdg_prod
+    f0, g0, z0 = extra0
+    z1 = 2.0 * y0 - z0 + dt * f0 + sde.prod(g0, I_k)
+    f1, g1 = sde.f_and_g(t1, z1)
+    return (y0 + 0.5 * dt * f0 + 0.5 * dt * f1
+            + sde.prod(g0 + g1, 0.5 * I_k))
+
+
+STEP_CASES = [
+    ("euler", "ito", "diagonal"), ("euler", "ito", "general"),
+    ("midpoint", "stratonovich", "general"), ("heun", "stratonovich",
+                                              "diagonal"),
+    ("euler_heun", "stratonovich", "additive"),
+    ("milstein", "ito", "diagonal"), ("milstein", "stratonovich", "scalar"),
+    ("milstein", "ito", "additive"),
+    ("reversible_heun", "stratonovich", "general")]
+
+
+@pytest.mark.parametrize("method,sde_type,noise", STEP_CASES)
+def test_tensor_state_steps_are_bitwise_the_plain_expressions(method,
+                                                              sde_type,
+                                                              noise):
+    sde = TForwardSDE(make_sde(ttsde, sde_type, noise))
+    rng = np.random.default_rng(6)
+    y0 = torch.as_tensor(rng.normal(size=(B, D)))
+    I_k = torch.as_tensor(rng.normal(size=(B, _m(noise))) * 0.2)
+    t0 = torch.tensor(0.1, dtype=torch.float64)
+    t1 = torch.tensor(0.15, dtype=torch.float64)
+    solver = TS.select(method, sde_type)(sde=sde)
+    extra0 = solver.init_extra_solver_state(t0, y0)
+    got, _ = solver.step(t0, t1, y0, extra0, (I_k, None, None))
+    assert torch.equal(got, _plain_step(method, sde, t0, t1, y0, extra0,
+                                        I_k))
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the aten operations run under it: one each, as each is one
+    kernel launch on the card."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("method,sde_type,noise", STEP_CASES)
+def test_tensor_state_steps_run_the_plain_expressions_ops(method, sde_type,
+                                                          noise):
+    """A tensor state's step runs the operations of the plain expression,
+    each as many times (the arguments of ``tree_lc`` are formed first, so
+    the order may differ): ``tree_lc`` adds no launch (``-1.0`` is a
+    subtraction)."""
+    sde = TForwardSDE(make_sde(ttsde, sde_type, noise))
+    rng = np.random.default_rng(6)
+    y0 = torch.as_tensor(rng.normal(size=(B, D)))
+    I_k = torch.as_tensor(rng.normal(size=(B, _m(noise))) * 0.2)
+    t0 = torch.tensor(0.1, dtype=torch.float64)
+    t1 = torch.tensor(0.15, dtype=torch.float64)
+    solver = TS.select(method, sde_type)(sde=sde)
+    extra0 = solver.init_extra_solver_state(t0, y0)
+    with _OpCount() as got:
+        solver.step(t0, t1, y0, extra0, (I_k, None, None))
+    with _OpCount() as want:
+        _plain_step(method, sde, t0, t1, y0, extra0, I_k)
+    assert Counter(got.ops) == Counter(want.ops)
 
 
 @pytest.mark.parametrize("method", sorted(ttsde.METHODS))

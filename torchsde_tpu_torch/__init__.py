@@ -4,9 +4,12 @@ It runs on PyTorch (eagerly: JAX's ``jit`` has no counterpart), takes an
 explicit ``torch.Generator`` wherever the JAX package takes a key, and
 replaces the JAX package's Pallas TPU kernels with CUDA kernels written for
 Hopper. It never imports JAX. Ported so far: fixed-step ``sdeint`` with
-every method of the JAX package but the adjoint's (Euler, with ``logqp``,
-SRK and Milstein for Itô; midpoint, Heun, Euler-Heun, reversible Heun,
-log-ODE midpoint and Milstein for Stratonovich), all four noise types,
+every method of the JAX package (Euler, with ``logqp``, SRK and Milstein
+for Itô; midpoint, Heun, Euler-Heun, reversible Heun, log-ODE midpoint and
+Milstein for Stratonovich), all four noise types; fixed-step
+``sdeint_adjoint`` (the adjoint SDE by Euler, Milstein, midpoint, Heun or
+Euler-Heun, and the exact reversible-Heun pair), its gradients reaching
+``y0`` and every tensor requiring grad that the SDE holds;
 its default noise (W, U and A) drawn from the caller's generator or from
 the port's Philox stream (``rng_impl``, ``ops/prng.py``), or from an
 explicit Brownian object: ``BrownianInterval`` (the JAX package's
@@ -26,6 +29,7 @@ from .brownian.base import BaseBrownian
 from .brownian.derived import BrownianPath, BrownianTree, ReverseBrownian
 from .brownian.interval import BrownianInterval, brownian_interval_like
 from .brownian.precomputed import PrecomputedBrownian
+from .core.adjoint import sdeint_adjoint
 from .core.base_sde import BaseSDE, SDEIto, SDEStratonovich
 from .core.sdeint import sdeint
 from .ops.fused_solve import (TowerSpec, fused_sdeint, fused_sdeint_logqp,
@@ -38,7 +42,7 @@ __version__ = "0.1.0"
 __all__ = [
     "BaseBrownian", "BrownianInterval", "brownian_interval_like",
     "BrownianPath", "BrownianTree", "ReverseBrownian", "PrecomputedBrownian",
-    "BaseSDE", "SDEIto", "SDEStratonovich", "sdeint",
+    "BaseSDE", "SDEIto", "SDEStratonovich", "sdeint", "sdeint_adjoint",
     "TowerSpec", "fused_sdeint", "fused_sdeint_logqp", "tower_sde",
     "LEVY_AREA_APPROXIMATIONS", "METHOD_OPTIONS", "METHODS", "NOISE_TYPES",
     "SDE_TYPES", "__version__",

@@ -1,17 +1,23 @@
 """Fixed-step integration (counterpart of ``torchsde_tpu/core/integrate.py``).
 
 A fixed-step solve walks a host-side float64 step grid in a Python loop and
-interpolates the grid states onto the requested ``ts``. Its noise is drawn in
-one pass before the loop: the default source draws i.i.d. increments from the
-caller's ``torch.Generator`` (``sample_grid_noise``, the only place solve
-noise is drawn), and an explicit Brownian object is queried for every grid
-cell up front (``precompute_bm_noise``).
+interpolates the grid states onto the requested ``ts``; the adjoint's solve
+steps to every output time instead (``build_interval_grid``,
+``integrate_to_outputs``). Its noise is drawn in one pass before the loop:
+the default source draws i.i.d. increments from the caller's
+``torch.Generator`` (``sample_grid_noise``, the only place solve noise is
+drawn; ``NoiseReplay`` draws the same increments again), and an explicit
+Brownian object is queried for every grid cell up front
+(``precompute_bm_noise``). The JAX package's in-loop noise for buffers past
+1 GiB (``make_iid_noise_fn``, ``should_precompute_noise``) is not ported
+yet (ROADMAP queue 1 item 2): every solve here holds its whole noise.
 """
 
 import math
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..brownian.base import BaseBrownian, levy_area
 from ..ops import prng
@@ -113,22 +119,137 @@ def linear_interp_on_grid(out_ts, grid, ys_grid):
     return ys_grid[idx - 1] * (1 - w_b) + ys_grid[idx] * w_b
 
 
-def integrate_fixed(solver, y0, extra0, grid, ts, noise_xs, time_dtype=None):
-    """Fixed-step solve over ``grid``, interpolated onto ``ts``.
-
-    ``noise_xs`` is a ``(W, U, A)`` triple with leading dimension
-    ``len(grid) - 1``. Returns ``(ys, extra_final)`` with ``ys`` of leading
-    dimension ``len(ts)``."""
+def integrate_fixed(solver, y0, extra0, grid, ts, noise_xs, time_dtype=None,
+                    remat=False):
+    """Fixed-step solve over ``grid``, interpolated onto ``ts``: every grid
+    state is kept (``integrate_to_outputs`` with every grid point an
+    output). Returns ``(ys, extra_final)`` with ``ys`` of leading dimension
+    ``len(ts)``."""
     if time_dtype is None:
         time_dtype = y0.dtype
     grid_dev = torch.as_tensor(grid, dtype=time_dtype, device=y0.device)
+    ys, extra = integrate_to_outputs(solver, y0, extra0, grid_dev,
+                                     np.arange(len(grid)), noise_xs,
+                                     time_dtype=time_dtype, remat=remat)
+    ts_dev = torch.as_tensor(np.asarray(ts, np.float64), dtype=time_dtype,
+                             device=y0.device)
+    return linear_interp_on_grid(ts_dev, grid_dev, ys), extra
+
+
+def build_interval_grid(ts, dt):
+    """Per-output-interval step grid on the host, float64: each
+    ``[ts[i], ts[i+1]]`` is stepped with size ``dt`` (its last step
+    shortened), so every output time is a grid point. Returns ``(grid,
+    boundary_idx)``, ``grid[boundary_idx[i]] == ts[i]``. The adjoint's
+    backward re-steps exactly these ``(t0, t1)`` pairs in reverse."""
+    ts = np.asarray(ts, np.float64)
+    grid = [ts[0]]
+    boundary_idx = [0]
+    for a, b in zip(ts[:-1], ts[1:]):
+        n = max(1, int(math.ceil((b - a) / dt - 1e-9)))
+        sub = a + dt * np.arange(1, n + 1)
+        sub[-1] = b
+        grid.extend(sub.tolist())
+        boundary_idx.append(len(grid) - 1)
+    return np.asarray(grid, np.float64), np.asarray(boundary_idx, np.int64)
+
+
+def integrate_to_outputs(solver, y0, extra0, grid, boundary_idx, noise_xs,
+                         time_dtype=None, remat=False):
+    """Fixed-step solve over ``grid`` that keeps only the states at the
+    grid points ``boundary_idx`` (the output times: O(T) memory, not
+    O(steps), for the adjoint). ``grid`` is host float64, or already a
+    tensor of ``time_dtype`` on ``y0``'s device. ``noise_xs`` is a ``(W, U, A)`` triple
+    with leading dimension ``len(grid) - 1``. With ``remat`` each step runs
+    under ``torch.utils.checkpoint``, so backprop keeps the states and
+    recomputes the step. Returns ``(ys, extra_final)``."""
+    if time_dtype is None:
+        time_dtype = y0.dtype
+    grid_dev = torch.as_tensor(grid, dtype=time_dtype, device=y0.device)
+    step = solver.step
+    if remat:
+        def step(*args):
+            return torch.utils.checkpoint.checkpoint(solver.step, *args,
+                                                     use_reentrant=False)
+    outputs = set(int(b) for b in boundary_idx[1:])
     W, U, A = noise_xs
     y, extra = y0, extra0
     ys = [y0]
     for i in range(len(grid) - 1):
         noise = (W[i], None if U is None else U[i], None if A is None else A[i])
-        y, extra = solver.step(grid_dev[i], grid_dev[i + 1], y, extra, noise)
-        ys.append(y)
-    ts_dev = torch.as_tensor(np.asarray(ts, np.float64), dtype=time_dtype,
-                             device=y0.device)
-    return linear_interp_on_grid(ts_dev, grid_dev, torch.stack(ys)), extra
+        y, extra = step(grid_dev[i], grid_dev[i + 1], y, extra, noise)
+        if i + 1 in outputs:
+            ys.append(y)
+    return torch.stack(ys), extra
+
+
+def query_bm(bm, t0, t1, needs_U, needs_A):
+    """Query a Brownian object, normalising the return to a ``(W, U, A)``
+    triple."""
+    if needs_U and needs_A:
+        W, U, A = bm(t0, t1, return_U=True, return_A=True)
+    elif needs_U:
+        W, U = bm(t0, t1, return_U=True)
+        A = None
+    elif needs_A:
+        W, A = bm(t0, t1, return_A=True)
+        U = None
+    else:
+        W = bm(t0, t1)
+        U = A = None
+    return W, U, A
+
+
+def _generator_of(generator, device):
+    """``generator``, or PyTorch's default generator of ``device``'s type
+    (the one ``torch.randn`` draws from without a generator)."""
+    if generator is not None:
+        return generator
+    device = torch.device(device)
+    if device.type == "cuda":
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        return torch.cuda.default_generators[index]
+    return torch.default_generator
+
+
+class NoiseReplay:
+    """The default noise of one solve, drawn once and drawn again on demand.
+
+    ``draw`` records the state of the generator the solve draws from (the
+    caller's, or PyTorch's default one of the device) and then calls
+    ``sample_grid_noise`` with it, advancing it as a plain solve does.
+    ``redraw`` draws the same increments from a fresh generator on the same
+    device set to the recorded state, so the caller's generator is left as
+    the first draw left it. This holds for ``rng_impl="generator"`` (the
+    same stream) and ``"philox"`` (the same one-element seed, so the same
+    Philox stream). Only the state is kept between the two, not the noise;
+    W comes first from the stream, so the redraw's W is bitwise the draw's
+    whether or not either asks for U or A."""
+
+    def __init__(self, generator, size, dtype, device, rng_impl,
+                 levy_area_approximation):
+        self.generator = generator
+        self.size = tuple(size)
+        self.dtype = dtype
+        self.device = device
+        self.rng_impl = rng_impl
+        self.levy_area_approximation = levy_area_approximation
+        self.state = None
+
+    def _sample(self, generator, grid, needs_U, needs_A):
+        return sample_grid_noise(
+            generator, grid, self.size, self.dtype, self.device,
+            needs_U=needs_U, needs_A=needs_A, rng_impl=self.rng_impl,
+            levy_area_approximation=self.levy_area_approximation)
+
+    def draw(self, grid, needs_U=False, needs_A=False):
+        self.state = _generator_of(self.generator, self.device).get_state()
+        return self._sample(self.generator, grid, needs_U, needs_A)
+
+    def redraw(self, grid, needs_U=False, needs_A=False):
+        if self.state is None:
+            raise RuntimeError("redraw before draw")
+        replay = torch.Generator(device=self.device)
+        replay.set_state(self.state)
+        return self._sample(replay, grid, needs_U, needs_A)

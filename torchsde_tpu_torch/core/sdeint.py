@@ -1,14 +1,18 @@
 """Public forward-integration entry point (counterpart of
 ``torchsde_tpu/core/sdeint.py``).
 
-Ported: fixed-step solves with concrete ``ts`` by every method but
-``adjoint_reversible_heun``, the default noise source (W, U and A, with
+Ported: fixed-step solves with concrete ``ts`` by every method of the
+JAX package (``adjoint_reversible_heun`` only as ``sdeint_adjoint``'s
+adjoint method, as there), the default noise source (W, U and A, with
 ``rng_impl``) and explicit Brownian objects (``BrownianInterval`` and the
 classes built on it, ``PrecomputedBrownian``, or any ``BaseBrownian``),
-``logqp``, ``names`` and the contract checks with the JAX package's wording.
-Not ported yet: adaptive stepping, the sparse-output and traced-``ts``
-paths, and in-loop noise generation (and with it the JAX package's warning
-that ``rng_impl='pallas'`` does not reach in-loop noise).
+``logqp``, ``names``, ``return_stats``, ``remat`` and the contract checks
+with the JAX package's wording. Not ported yet (ROADMAP queue 1 item 2):
+adaptive stepping and its arguments, the sparse-output and traced-``ts``
+paths, and in-loop noise generation (``noise_precompute=False``, and with
+it the JAX package's warning that ``rng_impl='pallas'`` does not reach
+in-loop noise). The JAX package's ``key`` and ``entropy`` have no counterpart
+here: the port seeds with a ``torch.Generator``.
 """
 
 import numpy as np
@@ -19,6 +23,36 @@ from ..brownian.interval import as_torch_dtype
 from ..settings import LEVY_AREA_APPROXIMATIONS, METHODS, NOISE_TYPES, SDE_TYPES
 from ..types import Scalar, Tensor, Vector
 from ..utils import misc
+
+ADAPTIVE_NOT_PORTED = ("adaptive stepping is not ported to torchsde_tpu_torch "
+                       "yet (ROADMAP queue 1 item 2)")
+# The JAX package's keywords that belong to adaptive stepping or to in-loop
+# noise, both of the next slice.
+ADAPTIVE_KWARGS = ("rtol", "atol", "dt_min", "max_steps", "adjoint_rtol",
+                   "adjoint_atol", "adjoint_max_steps")
+
+
+def check_jax_kwargs(kwargs, entry):
+    """Refuse the JAX package's keywords that the port cannot honour, so
+    none is dropped silently: ``key`` and ``entropy`` raise a TypeError
+    naming ``generator=``, the adaptive ones and ``noise_precompute=False``
+    (in-loop noise) a NotImplementedError. ``noise_precompute`` None or
+    True is what the port does, precomputing the noise, and is accepted.
+    Any other unknown keyword warns, as in the JAX package."""
+    for name in ("key", "entropy"):
+        if name in kwargs:
+            raise TypeError(
+                f"{entry}() takes no `{name}` (a JAX seed): seed the default "
+                f"noise with generator=torch.Generator(...), or pass "
+                f"bm=BrownianInterval(..., {name}=...) for the JAX "
+                f"package's Brownian path")
+    adaptive = [name for name in ADAPTIVE_KWARGS if name in kwargs]
+    if kwargs.pop("noise_precompute", None) is False:
+        adaptive.append("noise_precompute=False")
+    if adaptive:
+        raise NotImplementedError(f"{ADAPTIVE_NOT_PORTED}: {entry}() takes "
+                                  f"none of {adaptive}")
+    misc.handle_unused_kwargs(kwargs, msg=f"`{entry}`")
 
 
 def sdeint(sde,
@@ -35,6 +69,9 @@ def sdeint(sde,
            extra_solver_state=None,
            generator=None,
            rng_impl="generator",
+           return_stats=False,
+           unroll=1,
+           remat=False,
            **unused_kwargs):
     """Numerically integrate an SDE on a fixed step grid of width ``dt``.
 
@@ -45,14 +82,23 @@ def sdeint(sde,
     ``"philox"`` (the port's Philox stream seeded from the generator; on the
     card a CUDA kernel, see ``core/integrate.sample_grid_noise``). Returns
     ``ys`` of shape ``(len(ts), batch, channels)``, then the per-interval
-    ``log_ratio`` when ``logqp`` and the final solver state when ``extra``.
+    ``log_ratio`` when ``logqp``, the final solver state when ``extra``,
+    and with ``return_stats`` the solve's counters ``{n_accepted,
+    n_rejected, nfe, incomplete}`` (``n_steps``, 0, ``n_steps`` times the
+    solver's evaluations a step, False), as the JAX package's fixed-step
+    solve gives them.
+
+    ``remat=True`` checkpoints each step (``torch.utils.checkpoint``):
+    backprop through the solve keeps the states and recomputes each step's
+    activations. ``unroll`` tunes the JAX package's ``lax.scan`` and
+    changes no result; it is accepted and ignored. ``key``, ``entropy`` and
+    the adaptive keywords raise (``check_jax_kwargs``).
     """
-    misc.handle_unused_kwargs(unused_kwargs, msg="`sdeint`")
-    del unused_kwargs
+    del unroll
+    check_jax_kwargs(unused_kwargs, "sdeint")
     integrate.check_rng_impl(rng_impl)
     if adaptive:
-        raise NotImplementedError(
-            "adaptive stepping is not ported to torchsde_tpu_torch yet")
+        raise NotImplementedError(ADAPTIVE_NOT_PORTED)
 
     sde, y0, ts, bm, method, options = check_contract(
         sde, y0, ts, bm, method, options, names, logqp, generator)
@@ -78,8 +124,12 @@ def sdeint(sde,
                                                  solver.needs_A)
     ys, extra_solver_state = integrate.integrate_fixed(
         solver, y0, extra_solver_state, grid, ts, noise_xs,
-        time_dtype=time_dtype)
-    return parse_return(y0, ys, extra_solver_state, extra, logqp)
+        time_dtype=time_dtype, remat=remat)
+    n_steps = len(grid) - 1
+    stats = dict(n_accepted=n_steps, n_rejected=0,
+                 nfe=n_steps * solver.nfe_per_step, incomplete=False)
+    return parse_return(y0, ys, extra_solver_state, extra, logqp,
+                        stats=stats, return_stats=return_stats)
 
 
 def _time_dtype(y0):
@@ -275,8 +325,10 @@ def check_contract(sde, y0, ts, bm, method, options, names, logqp,
     return sde, y0, ts, bm, method, options
 
 
-def parse_return(y0, ys, extra_solver_state, extra, logqp):
-    """Split off the logqp channel and difference it per output interval."""
+def parse_return(y0, ys, extra_solver_state, extra, logqp, stats=None,
+                 return_stats=False):
+    """Split off the logqp channel and difference it per output interval;
+    with ``return_stats`` the counters ``stats`` come last."""
     if logqp:
         d = y0.shape[1] - 1
         ys, log_ratio = ys[..., :d], ys[..., d:]
@@ -286,5 +338,7 @@ def parse_return(y0, ys, extra_solver_state, extra, logqp):
         out = [ys]
     if extra:
         out.append(extra_solver_state)
+    if return_stats:
+        out.append(stats)
     return tuple(out) if len(out) > 1 else out[0]
 

@@ -4,12 +4,18 @@
 Brownian increments are handed in by the integrator. Every fixed-step method
 of the JAX package is here: Euler–Maruyama and SRK (Itô), midpoint, Heun,
 Euler–Heun, reversible Heun and log-ODE midpoint (Stratonovich) and Milstein
-(both); the adjoint's ``adjoint_reversible_heun`` is not ported yet.
+(both). ``adjoint_reversible_heun`` selects the placeholder of
+``core/adjoint_solvers.py``: ``sdeint_adjoint`` runs that pair itself.
+
+The steps form their linear combinations with ``utils.misc.tree_lc``, so
+a state may be a tuple of tensors (the adjoint's augmented state); on a
+tensor state each sum is the plain expression, term by term in order.
 """
 
 import torch
 
 from . import tableaus
+from ..utils.misc import tree_lc
 from ..settings import (LEVY_AREA_APPROXIMATIONS, METHOD_OPTIONS, METHODS,
                         NOISE_TYPES, SDE_TYPES)
 
@@ -84,7 +90,7 @@ class Euler(BaseSDESolver):
         del extra0
         dt = t1 - t0
         f, g_prod = self.sde.f_and_g_prod(t0, y0, noise[0])
-        return y0 + dt * f + g_prod, ()
+        return tree_lc((1.0, y0), (dt, f), (1.0, g_prod)), ()
 
 
 class Midpoint(BaseSDESolver):
@@ -106,10 +112,10 @@ class Midpoint(BaseSDESolver):
         I_k = noise[0]
         f, g_prod = self.sde.f_and_g_prod(t0, y0, I_k)
         half_dt = 0.5 * dt
-        y_prime = y0 + half_dt * f + 0.5 * g_prod
+        y_prime = tree_lc((1.0, y0), (half_dt, f), (0.5, g_prod))
         f_prime, g_prod_prime = self.sde.f_and_g_prod(t0 + half_dt, y_prime,
                                                       I_k)
-        return y0 + dt * f_prime + g_prod_prime, ()
+        return tree_lc((1.0, y0), (dt, f_prime), (1.0, g_prod_prime)), ()
 
 
 class Heun(BaseSDESolver):
@@ -130,10 +136,10 @@ class Heun(BaseSDESolver):
         dt = t1 - t0
         I_k = noise[0]
         f, g_prod = self.sde.f_and_g_prod(t0, y0, I_k)
-        y0_prime = y0 + dt * f + g_prod
+        y0_prime = tree_lc((1.0, y0), (dt, f), (1.0, g_prod))
         f_prime, g_prod_prime = self.sde.f_and_g_prod(t1, y0_prime, I_k)
-        y1 = (y0 + (0.5 * dt) * f + (0.5 * dt) * f_prime + 0.5 * g_prod
-              + 0.5 * g_prod_prime)
+        y1 = tree_lc((1.0, y0), (0.5 * dt, f), (0.5 * dt, f_prime),
+                     (0.5, g_prod), (0.5, g_prod_prime))
         return y1, ()
 
 
@@ -155,8 +161,10 @@ class EulerHeun(BaseSDESolver):
         dt = t1 - t0
         I_k = noise[0]
         f, g_prod = self.sde.f_and_g_prod(t0, y0, I_k)
-        g_prod_prime = self.sde.g_prod(t1, y0 + g_prod, I_k)
-        return y0 + dt * f + 0.5 * g_prod + 0.5 * g_prod_prime, ()
+        g_prod_prime = self.sde.g_prod(t1, tree_lc((1.0, y0), (1.0, g_prod)),
+                                       I_k)
+        return tree_lc((1.0, y0), (dt, f), (0.5, g_prod),
+                       (0.5, g_prod_prime)), ()
 
 
 class BaseMilstein(BaseSDESolver):
@@ -213,7 +221,8 @@ class BaseMilstein(BaseSDESolver):
             return y0 + f * dt + g_prod_I_k + gdg_prod, ()
         f = self.sde.f(t0, y0)
         g_prod_I_k, gdg_prod = self.sde.g_prod_and_gdg_prod(t0, y0, I_k, 0.5 * v)
-        return y0 + dt * f + g_prod_I_k + gdg_prod, ()
+        return tree_lc((1.0, y0), (dt, f), (1.0, g_prod_I_k),
+                       (1.0, gdg_prod)), ()
 
 
 class MilsteinIto(BaseMilstein):
@@ -259,10 +268,11 @@ class ReversibleHeun(BaseSDESolver):
         f0, g0, z0 = extra0
         dt = t1 - t0
         dW = noise[0]
-        z1 = 2.0 * y0 - z0 + dt * f0 + self.sde.prod(g0, dW)
+        z1 = tree_lc((2.0, y0), (-1.0, z0), (dt, f0),
+                     (1.0, self.sde.prod(g0, dW)))
         f1, g1 = self.sde.f_and_g(t1, z1)
-        y1 = (y0 + 0.5 * dt * f0 + 0.5 * dt * f1
-              + self.sde.prod(g0 + g1, 0.5 * dW))
+        y1 = tree_lc((1.0, y0), (0.5 * dt, f0), (0.5 * dt, f1),
+                     (1.0, self.sde.prod(g0 + g1, 0.5 * dW)))
         return y1, (f1, g1, z1)
 
 
@@ -409,9 +419,8 @@ SOLVER_REGISTRY = {
 def select(method, sde_type):
     """String -> solver class dispatch."""
     if method == METHODS.adjoint_reversible_heun:
-        raise ValueError(
-            f"Method '{method}' is not ported to torchsde_tpu_torch yet; "
-            f"ported methods: {sorted(SOLVER_REGISTRY)}.")
+        from .adjoint_solvers import AdjointReversibleHeun
+        return AdjointReversibleHeun
     table = SOLVER_REGISTRY.get(method)
     if table is None:
         raise ValueError(f"Method '{method}' does not match any known method.")

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from .layers import GRU, Linear, MLP, softplus, uniform
+from ..core.adjoint import sdeint_adjoint
 from ..core.sdeint import host_times, sdeint
 from ..ops.latent_fused import (latent_logqp_solve_fused,
                                 latent_logqp_solve_fused_multi)
@@ -168,7 +169,12 @@ def latent_sde_loss(model, xs, ts, generator=None, noise_std=0.01,
     ``sdeint`` route for the same generator state. It trains: the forward
     kernel and the reverse-sweep kernel are joined in an autograd Function,
     whose gradients reach the encoder through the context and ``qz0_net``
-    through the initial state."""
+    through the initial state.
+
+    ``adjoint=True`` (``fused=False`` only, as in the JAX package) solves
+    with ``sdeint_adjoint`` (Milstein adjoint for the default Euler): it
+    steps to every output time and keeps O(len(ts)) memory; the context is
+    an adjoint parameter, so the encoder's gradients flow through it."""
     ctx = model.encode(xs, ts)
     model = model.contextualize(ts, ctx)
     z0, qz0_mean, qz0_logstd = model.posterior_z0(ctx[0], generator)
@@ -179,12 +185,10 @@ def latent_sde_loss(model, xs, ts, generator=None, noise_std=0.01,
                 "fused=True supports the default euler/backprop path only")
         zs, log_ratio = latent_logqp_solve_fused(model, z0, ts, generator, dt)
     else:
-        if adjoint:
-            raise NotImplementedError(
-                "sdeint_adjoint is not ported to torchsde_tpu_torch yet")
-        zs, log_ratio = sdeint(model, z0, ts, dt=dt, method=method,
-                               logqp=True, generator=generator,
-                               **solve_kwargs)
+        solve = sdeint_adjoint if adjoint else sdeint
+        zs, log_ratio = solve(model, z0, ts, dt=dt, method=method,
+                              logqp=True, generator=generator,
+                              **solve_kwargs)
 
     loss, log_pxs, logqp = _elbo(model, xs, zs, log_ratio, qz0_mean,
                                  qz0_logstd, noise_std, kl_weight)

@@ -17,10 +17,13 @@ route and the fused route. The critic never draws from it.
 ``ops/gan_fused.py`` (their plain PyTorch versions for CPU tensors), and
 trains on the card: each solve is a ``torch.autograd.Function`` whose
 backward is the solve's reverse-sweep kernel, so one :func:`gan_grads`
-launches each of the four GAN kernels once. ``adjoint=True``
-(``sdeint_adjoint``) is not ported yet (queue 1 item 10); for reversible
-Heun ``adjoint=False`` computes the same values and the same exact
-discrete gradient.
+launches each of the four GAN kernels once. On the ``sdeint`` route
+``adjoint=True`` (the default, as in the JAX package) solves with
+``sdeint_adjoint``: reversible Heun and its exact adjoint pair, which keeps
+O(len(ts)) memory and gives the same values and the same discrete gradient
+as ``adjoint=False`` (backprop through ``sdeint``); its backward redraws
+the generator's solve noise from a copy of the generator's state. The
+fused route does not consult ``adjoint``, as in the JAX package.
 """
 
 import copy
@@ -30,6 +33,7 @@ import torch
 from torch import nn
 
 from .layers import Linear
+from ..core.adjoint import sdeint_adjoint
 from ..core.sdeint import host_times, sdeint
 from ..ops.gan_fused import (cde_final_state_fused, generator_solve_fused,
                               time_column)
@@ -50,13 +54,6 @@ def _bernoulli(p, shape, generator, device):
     """The OU dataset's drop mask: True with probability ``p``."""
     u = torch.rand(shape, generator=generator, device=device)
     return u < p
-
-
-def _no_adjoint():
-    return NotImplementedError(
-        "sdeint_adjoint is not ported to torchsde_tpu_torch yet (ROADMAP "
-        "queue 1 item 10); pass adjoint=False, which for reversible Heun "
-        "computes the same values and the same exact discrete gradient")
 
 
 def lipswish(x):
@@ -152,10 +149,9 @@ class Generator(nn.Module):
         if fused:
             xs = generator_solve_fused(self.func, x0, ts, generator, dt)
         else:
-            if adjoint:
-                raise _no_adjoint()
-            xs = sdeint(self.func, x0, ts, method="reversible_heun", dt=dt,
-                        generator=generator)
+            solve = sdeint_adjoint if adjoint else sdeint
+            xs = solve(self.func, x0, ts, method="reversible_heun", dt=dt,
+                       generator=generator)
         ys = self.readout(xs).transpose(0, 1)            # (B, T, data)
         ts_col = torch.as_tensor(host_times(ts), dtype=ys.dtype,
                                  device=ys.device)
@@ -242,11 +238,10 @@ class Discriminator(nn.Module):
         if fused:
             h_last = cde_final_state_fused(func, h0, ts, dt)
         else:
-            if adjoint:
-                raise _no_adjoint()
+            solve = sdeint_adjoint if adjoint else sdeint
             private = torch.Generator(device=h0.device).manual_seed(0)
-            hs = sdeint(func, h0, ts, method="reversible_heun", dt=dt,
-                        generator=private)
+            hs = solve(func, h0, ts, method="reversible_heun", dt=dt,
+                       generator=private)
             h_last = hs[-1]
         return self.readout(h_last)[:, 0]
 

@@ -44,6 +44,43 @@ def handle_unused_kwargs(unused_kwargs, msg=None):
             warnings.warn(f"Unexpected arguments {unused_kwargs}")
 
 
+def tree_lc(*pairs):
+    """Linear combination ``c1 * x1 + c2 * x2 + ...`` of tensors, or of
+    (nested) tuples of tensors of one structure, taken leaf by leaf: the
+    counterpart of the JAX package's ``tree_lc``. A coefficient is a number
+    or a tensor; a term may be the number ``0.0`` (an exact zero, as
+    ``ForwardSDE.g_prod_and_gdg_prod`` returns for additive noise), which
+    broadcasts over any structure, and a leaf may be None, an exact zero
+    that is skipped (the adjoint's parameter slots that no gradient has
+    reached; all None gives None). A term of coefficient ``1.0`` enters
+    unscaled, so a sum over tensors is bitwise ``x1 + c2 * x2 + ...`` in
+    this order, and a later term of coefficient ``-1.0`` is subtracted, so
+    ``x1 - x2`` is bitwise and one operation. The result keeps the first
+    term's dtype."""
+    first = pairs[0][1]
+    if isinstance(first, tuple):
+        return tuple(
+            tree_lc(*((c, x if _is_number(x) else x[i]) for c, x in pairs))
+            for i in range(len(first)))
+    out = None
+    for c, x in pairs:
+        if x is None:
+            continue
+        if out is not None and _is_number(c) and c == -1.0:
+            out = out - x
+            continue
+        term = x if _is_number(c) and c == 1.0 else c * x
+        out = term if out is None else out + term
+    dtype = getattr(first, "dtype", None)
+    if dtype is not None and torch.is_tensor(out) and out.dtype != dtype:
+        out = out.to(dtype)
+    return out
+
+
+def _is_number(x):
+    return isinstance(x, (int, float))
+
+
 def is_strictly_increasing(ts):
     ts = np.asarray(ts)
     return bool(np.all(ts[:-1] < ts[1:]))

@@ -131,8 +131,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 24. kernel 16: against its plain version at (128, 1024, 9) and (128, 16384,
     128), the moments and a KS test of 2^20 draws, determinism, median
     times beside ``torch.randn``'s (another stream) and the bound, and one
-    ``sdeint(method="srk", rng_impl="philox")`` solve at full width, which
-    launches it twice;
+    ``sdeint(method="srk", rng_impl="philox", noise_precompute=True)``
+    solve at full width, which launches it twice;
 25. brownian (no kernel: the dyadic descent and the solvers are plain
     PyTorch): (a) a float32 ``BrownianInterval`` (entropy 42) at the
     reference benchmarks' sizes (128, 5), (256, 128) and (512, 256), Levy
@@ -169,7 +169,35 @@ Phases, in order; any failure raises and the script exits non-zero:
     step, adjoint against backprop, at dt 1/128 and 1/1024; one
     ``rng_impl="philox"`` adjoint step whose backward's W is bitwise the
     forward's, kernel 16 launched once for each, the generator left as
-    the forward left it.
+    the forward left it;
+27. adaptive (no kernel: the adaptive loop, in-loop noise and sparse
+    outputs are plain PyTorch, as the JAX package leaves them to XLA; it
+    needs no build): configuration A, the JAX package's
+    benchmarks/adaptive_bench.py (ExDiagonal d 3 Ito with its float32
+    mu and sigma, batch 1024, y0 0.1, 9 outputs on [0, 2], dt0 1e-3,
+    rtol 1e-5, atol 1e-4, dt_min 1e-5, float32, a BrownianInterval keyed
+    as PRNGKey(42) at 20 levels): (a) ``sdeint(adaptive=True)`` by srk
+    and milstein, stats, median ms, a profile (kernels, kernels an
+    attempt, device ms, busy share), RMS against the exact solution, and
+    the same-work fixed solve (dt = span / n_accepted, the same interval);
+    (b) the same in float64 on the card and the CPU, whole batch, stats
+    equal and ``ys`` within ADA_F64_REL of scale; (c) d sum(ys)/d(y0, mu,
+    sigma) in float64 by backprop through ``sdeint(adaptive=True)`` (the
+    default budget of 8,018 iterations; the iterations it ran),
+    ``sdeint_adjoint(adaptive=True)`` and ``sdeint_adjoint(
+    adjoint_adaptive=True)`` (ADA_ADJ_DT, ADA_ADJ_TOL), each within
+    ADA_GRAD_REL of the CPU's, with ms, kernels and peak memory; (d) a
+    backprop solve with ``max_steps=16`` (unreached outputs NaN,
+    ``incomplete``) and a double backward with ``adjoint_max_steps=16``
+    (NaN gradients); (e) configuration B, ExDiagonal Euler at (16384,
+    128) float32 on [0, 1], dt 1/256, 5 outputs: the default policy makes
+    the noise in the loop and keeps the bracketing states, its peak
+    memory and ms against ``noise_precompute=True`` on the dense path (at
+    least 3.5 GiB less), each y_T's channel means within 6 % of E y_T; an
+    explicit interval queried in the loop bitwise its precomputed solve
+    at (512, 256) over 100 steps; ``rng_impl="philox"`` in the loop
+    warns; (f) adjoint gradients on the in-loop default stream against
+    backprop through ``sdeint`` on the same stream, within 1e-3 of scale.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only`` runs some phase groups (for
@@ -196,6 +224,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -209,6 +238,10 @@ from torchsde_tpu_torch.models.sde_gan import (Discriminator, Generator,
                                                gan_grads, gan_loss,
                                                get_ou_data)
 from torchsde_tpu_torch.core import integrate as TI
+from torchsde_tpu_torch.core import solvers as SOLVERS
+from torchsde_tpu_torch.core.base_sde import ForwardSDE
+from torchsde_tpu_torch.core import sdeint as TS_MOD
+from torchsde_tpu_torch.core.adjoint import sdeint_adjoint
 from torchsde_tpu_torch.core.sdeint import sdeint
 from torchsde_tpu_torch.brownian import threefry as TF
 from torchsde_tpu_torch.brownian.base import BaseBrownian
@@ -3248,12 +3281,15 @@ def phase_prng_kernel(device):
               f"{plain_ms:.4f} ms; torch.randn (another stream): median "
               f"{randn_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})",
               flush=True)
-        # The path: an srk solve on the Philox noise.
+        # The path: an srk solve on the Philox noise. Its W and U (2 GiB)
+        # pass the in-loop threshold, where the bulk generator does not
+        # reach (as the JAX package's 'pallas'), so it asks to precompute.
         B, d = SRK_CONFIGS[-1]
         y0, _, _, params, _ = srk_problem(device, B, d)
         PR.launches = 0
         ys = sdeint(ExDiagonal(*params), y0, [0.0, 1.0], method="srk",
                     dt=1.0 / SRK_STEPS, rng_impl="philox",
+                    noise_precompute=True,
                     generator=torch.Generator(device=device).manual_seed(
                         SEED + 401))
         torch.cuda.synchronize()
@@ -4244,6 +4280,514 @@ def phase_adjoint(device):
 
 
 # --------------------------------------------------------------------------- #
+#  Phase 27: adaptive stepping, in-loop noise, sparse outputs                 #
+# --------------------------------------------------------------------------- #
+
+# Configuration A, the JAX package's benchmarks/adaptive_bench.py:39-43,
+# 104-114: ExDiagonal (d 3, Ito) with the mu and sigma its make_problem
+# draws in float32 (tests/problems.py:45-56, PRNGKey(0)), batch 1024,
+# y0 0.1, 9 outputs on [0, 2], dt0 1e-3, rtol 1e-5, atol 1e-4, dt_min
+# 1e-5, float32, a BrownianInterval keyed as PRNGKey(42) at 20 levels.
+ADA_MU = (-0.6155921816825867, -0.1983073353767395, -0.6543879508972168)
+ADA_SIGMA = (0.7318471074104309, 0.2877499461174011, 0.32121968269348145)
+ADA_B, ADA_TS = 1024, np.linspace(0.0, 2.0, 9)
+ADA_DT0, ADA_RTOL, ADA_ATOL, ADA_DT_MIN = 1e-3, 1e-5, 1e-4, 1e-5
+ADA_KEY, ADA_LEVELS = np.array([0, 42], np.uint32), 20
+ADA_METHODS = (("srk", "space-time"), ("milstein", "none"))
+ADA_REPS = 2
+# (a)'s kernels an attempt come from short solves of A from this time (a
+# two-attempt and a no-attempt one), small enough that the profiler loses
+# no event; a whole solve's hundreds of thousands it drops by up to a
+# fifth. Its kernels an attempt must be the card's aten ops an attempt
+# within this share.
+ADA_SHORT_T0 = 0.3
+ADA_KERNELS_PER_OP = 0.1
+# Card against CPU in float64 on the whole batch: ys within this times
+# (1 + max |y|), stats equal; gradients within ADA_GRAD_REL of each
+# gradient's largest entry (float64 sums in other orders).
+ADA_F64_REL, ADA_GRAD_REL = 1e-9, 1e-8
+# The adjoint modes of (c) step their fixed direction at ADA_ADJ_DT and
+# the merged adaptive backward at ADA_ADJ_TOL (rtol and atol): at dt 1e-3
+# the fixed backward is 2,000 Milstein adjoint steps, and at rtol 1e-5 /
+# atol 1e-4 the merged backward took 420 attempts (the augmented state
+# holds the parameters' gradients, sums over 1,024 rows), 30-90 s for the
+# CPU twin alone.
+ADA_ADJ_DT, ADA_ADJ_TOL = 1e-2, 1e-3
+# (f)'s output times.
+ADA_REPLAY_TS = np.linspace(0.0, 1.0, 3)
+ADA_BUDGET = 16
+# Configuration B: srk_fused.py's largest shape, ExDiagonal Euler at
+# (16384, 128) float32 on [0, 1], dt 1/256, 5 outputs, no grad: its W
+# alone is 2 GiB and its 257 grid states 2 GiB, so the default policy
+# makes the noise in the loop, and the solve keeps only the bracketing
+# states. The default run must peak at least ADA_B_SAVED bytes below the
+# dense yardstick (precomputed noise, every state kept) and
+# ADA_B_NOISE_SAVED below noise_precompute=True.
+ADA_B_SHAPE, ADA_B_DT, ADA_B_TS = (16384, 128), 1.0 / 256, \
+    np.linspace(0.0, 1.0, 5)
+ADA_B_SAVED, ADA_B_NOISE_SAVED = 3.5 * 2 ** 30, 1.5 * 2 ** 30
+# Object mode bitwise at BM_SIZES' widest over 100 steps (a 20-level
+# interval: every step descends two points in the loop).
+ADA_OBJ_STEPS = 100
+# In-loop replay: adjoint against backprop on one stream, within the JAX
+# package's 1e-3 of scale (tests/test_noise_memory.py:128-154).
+ADA_REPLAY_REL = 1e-3
+
+
+class AdaSDE(torch.nn.Module):
+    """ExDiagonal with configuration A's mu and sigma, in ``dtype``:
+    Ito f = mu y, g = sigma y, or its Stratonovich form."""
+    noise_type = "diagonal"
+
+    def __init__(self, device, dtype, sde_type="ito", mu=ADA_MU,
+                 sigma=ADA_SIGMA):
+        super().__init__()
+        self.sde_type = sde_type
+        self.mu = torch.nn.Parameter(torch.tensor(
+            mu, dtype=torch.float32).to(device, dtype))
+        self.sigma = torch.nn.Parameter(torch.tensor(
+            sigma, dtype=torch.float32).to(device, dtype))
+
+    def f(self, t, y):
+        if self.sde_type == "ito":
+            return self.mu * y
+        return self.mu * y - 0.5 * self.sigma ** 2 * y
+
+    def g(self, t, y):
+        return self.sigma * y
+
+
+def ada_interval(levy, device, dtype=torch.float32, t1=2.0, size=None):
+    return BrownianInterval(0.0, t1, size or (ADA_B, 3), dtype=dtype,
+                            key=ADA_KEY, levels=ADA_LEVELS,
+                            levy_area_approximation=levy, device=device)
+
+
+def ada_solve(method, levy, device, dtype=torch.float32, **kw):
+    """Configuration A by ``method`` (no grad): ``(ys, stats)``."""
+    sde = AdaSDE(device, dtype)
+    with torch.no_grad():
+        return sdeint(sde, torch.full((ADA_B, 3), 0.1, dtype=dtype,
+                                      device=device), ADA_TS,
+                      bm=ada_interval(levy, device, dtype), method=method,
+                      dt=ADA_DT0, adaptive=True, rtol=ADA_RTOL, atol=ADA_ATOL,
+                      dt_min=ADA_DT_MIN, return_stats=True, **kw)
+
+
+def ada_rms(ys, levy, device):
+    """RMS of ys against ExDiagonal's exact solution y0 exp((mu - sigma^2
+    / 2) t + sigma W(0, t)) on the same interval."""
+    bm = ada_interval(levy, device)
+    mu = torch.tensor(ADA_MU, device=device)
+    sigma = torch.tensor(ADA_SIGMA, device=device)
+    exact = [torch.full((ADA_B, 3), 0.1, device=device)] + [
+        0.1 * torch.exp((mu - 0.5 * sigma ** 2) * float(t)
+                        + sigma * bm(0.0, float(t))) for t in ADA_TS[1:]]
+    return float(torch.sqrt(((ys - torch.stack(exact)) ** 2).mean()))
+
+
+def peak_mib(fn):
+    """``fn()`` and the peak device memory (MiB) above what was allocated
+    before it, and its ms (host clock, synchronised)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, ms = timed_ms(fn)
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 20, ms
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the aten ops dispatched on any device, views left out (they
+    launch nothing): on the card each such op is a kernel or a copy in
+    eager PyTorch. Autograd's worker threads inherit the mode, so a
+    backward's ops count too."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func.is_view:
+            self.ops += 1
+        return func(*args, **(kwargs or {}))
+
+
+def counted(fn):
+    """``fn()`` and the number of aten ops it dispatched (``OpCount``)."""
+    with OpCount() as count:
+        out = fn()
+    return out, count.ops
+
+
+def ada_short(method, levy, device, n_out):
+    """Configuration A from ADA_SHORT_T0 to ``n_out - 1`` steps of dt0
+    later, on its interval, batch and tolerances: two attempts for
+    ``n_out`` 3, none (the solve's fixed cost) for 1."""
+    sde = AdaSDE(device, torch.float32)
+    ts = ADA_SHORT_T0 + ADA_DT0 * np.arange(n_out)
+    with torch.no_grad():
+        return sdeint(sde, torch.full((ADA_B, 3), 0.1, device=device), ts,
+                      bm=ada_interval(levy, device), method=method,
+                      dt=ADA_DT0, adaptive=True, rtol=ADA_RTOL, atol=ADA_ATOL,
+                      dt_min=ADA_DT_MIN, return_stats=True)
+
+
+def ada_per_attempt(method, levy, device):
+    """Kernels, device ms and aten ops an attempt, from a two-attempt solve
+    less the same solve with no attempt, each profiled twice (the profiler
+    loses no event at this size: both counts must agree, and the kernels
+    must be the card's aten ops within ADA_KERNELS_PER_OP); the CPU's aten
+    ops of the same solves beside them."""
+    rec = {}
+    for n_out in (3, 1):
+        (_, stats), card_ops = counted(lambda: ada_short(method, levy, device,
+                                                         n_out))
+        (_, cpu_stats), cpu_ops = counted(lambda: ada_short(method, levy,
+                                                            "cpu", n_out))
+        profs = [profile_run(f"adaptive {method} A, {n_out} outputs from "
+                             f"{ADA_SHORT_T0}", lambda: ada_short(
+                                 method, levy, device, n_out), cpu=False)
+                 for _ in range(2)]
+        if profs[0]["kernels"] != profs[1]["kernels"] or stats != cpu_stats:
+            raise RuntimeError(f"adaptive {method} short solve: profiled "
+                               f"kernels {profs[0]['kernels']} and "
+                               f"{profs[1]['kernels']}, stats {stats} on the "
+                               f"card and {cpu_stats} on the CPU")
+        rec[n_out] = dict(stats=stats, card_ops=card_ops, cpu_ops=cpu_ops,
+                          kernels=profs[0]["kernels"],
+                          device_ms=profs[0]["device_ms"],
+                          busy=profs[0]["busy"])
+    attempts = rec[3]["stats"]["n_accepted"] + rec[3]["stats"]["n_rejected"]
+    per = {k: (rec[3][k] - rec[1][k]) / attempts
+           for k in ("kernels", "card_ops", "cpu_ops", "device_ms")}
+    ratio = per["kernels"] / per["card_ops"]
+    if attempts < 1 or abs(ratio - 1) > ADA_KERNELS_PER_OP:
+        raise RuntimeError(f"adaptive {method}: {attempts} attempts, "
+                           f"{per['kernels']:.1f} kernels and "
+                           f"{per['card_ops']:.1f} aten ops an attempt")
+    print(f"adaptive {method} A an attempt ({attempts} attempts less none): "
+          f"{per['kernels']:.1f} kernels, {per['card_ops']:.1f} aten ops on "
+          f"the card, {per['cpu_ops']:.1f} on the CPU, device "
+          f"{per['device_ms']:.4f} ms; the solve's fixed cost "
+          f"{rec[1]['kernels']} kernels; busy {rec[3]['busy']:.3f}",
+          flush=True)
+    return dict(short=rec, attempts=attempts, **{f"{k}_per_attempt": v
+                                                   for k, v in per.items()},
+                kernels_per_op=ratio)
+
+
+def phase_adaptive_forward(device):
+    """(a) configuration A by srk and milstein on the card: stats, median
+    ms, kernels and device ms an attempt (``ada_per_attempt``), the solve's
+    aten ops (counted) and from them its kernels and device ms, the busy
+    share, RMS against the exact solution; the same-work fixed solve (dt =
+    span / n_accepted, the same interval) and the ratio."""
+    out = {}
+    for method, levy in ADA_METHODS:
+        per = ada_per_attempt(method, levy, device)
+        (ys, stats), ops = counted(lambda: ada_solve(method, levy, device))
+        times = [timed_ms(lambda: ada_solve(method, levy, device))[1]
+                 for _ in range(ADA_REPS)]
+        attempts = stats["n_accepted"] + stats["n_rejected"]
+        if stats["incomplete"] or not torch.isfinite(ys).all() or tuple(
+                ys.shape) != (len(ADA_TS), ADA_B, 3):
+            raise RuntimeError(f"adaptive {method}: incomplete, not finite "
+                               f"or misshapen")
+        rms = ada_rms(ys, levy, device)
+        dt_fixed = (ADA_TS[-1] - ADA_TS[0]) / stats["n_accepted"]
+        sde = AdaSDE(device, torch.float32)
+        y0 = torch.full((ADA_B, 3), 0.1, device=device)
+
+        def fixed():
+            with torch.no_grad():
+                return sdeint(sde, y0, ADA_TS, bm=ada_interval(levy, device),
+                              method=method, dt=dt_fixed)
+
+        fixed()
+        fixed_ms = float(np.median([timed_ms(fixed)[1]
+                                    for _ in range(ADA_REPS)]))
+        ms = float(np.median(times))
+        kernels = ops * per["kernels_per_op"]
+        device_ms = per["device_ms_per_attempt"] * attempts
+        rec = dict(stats=stats, attempts=attempts, ms=times, median_ms=ms,
+                   ops=ops, kernels=kernels, device_ms=device_ms,
+                   busy=device_ms / ms, per_attempt=per, rms=rms,
+                   fixed_dt=dt_fixed, fixed_ms=fixed_ms, ratio=ms / fixed_ms)
+        print(f"adaptive {method} A: {stats}, {ms:.1f} ms median of "
+              f"{', '.join(f'{t:.1f}' for t in times)}, {ops} aten ops "
+              f"({ops / attempts:.0f} an attempt), so about {kernels:.0f} "
+              f"kernels and device {device_ms:.1f} ms (busy "
+              f"{device_ms / ms:.3f}); RMS vs exact {rms:.3e}; same-work "
+              f"fixed (dt {dt_fixed:.5f}) {fixed_ms:.1f} ms, ratio "
+              f"{ms / fixed_ms:.1f}", flush=True)
+        out[method] = rec
+    return out
+
+
+def phase_adaptive_cpu(device):
+    """(b) configuration A in float64 on the card and on the CPU, whole
+    batch: stats equal, ys within ADA_F64_REL of scale."""
+    out = {}
+    for method, levy in ADA_METHODS:
+        ys, stats = ada_solve(method, levy, device, torch.float64)
+        want, want_stats = ada_solve(method, levy, "cpu", torch.float64)
+        err = float((ys.cpu() - want).abs().max())
+        scale = 1.0 + float(want.abs().max())
+        if stats != want_stats or err > ADA_F64_REL * scale:
+            raise RuntimeError(f"adaptive {method} float64: card {stats}, "
+                               f"CPU {want_stats}, max |diff| {err:.3e} > "
+                               f"{ADA_F64_REL} x {scale:.3f}")
+        print(f"adaptive {method} A float64: card and CPU {stats}, max "
+              f"|diff| {err:.3e}", flush=True)
+        out[method] = dict(stats=stats, cpu_err=err)
+    return out
+
+
+def ada_grads(device, mode, **extra):
+    """d sum(ys) / d(y0, mu, sigma) of configuration A in float64 by
+    ``mode``: backprop through ``sdeint(adaptive=True)`` (srk; its default
+    budget ``default_max_steps``, 8,018 iterations),
+    ``sdeint_adjoint(adaptive=True)`` or ``sdeint_adjoint(
+    adjoint_adaptive=True)`` (srk forward, Milstein adjoint; at
+    ADA_ADJ_DT and ADA_ADJ_TOL). Returns ``(grads, ys, stats)``;
+    ``adjoint_max_steps`` in ``extra`` asks for a double backward's
+    graph."""
+    sde = AdaSDE(device, torch.float64)
+    y0 = torch.full((ADA_B, 3), 0.1, dtype=torch.float64, device=device,
+                    requires_grad=True)
+    bm = ada_interval("space-time", device, torch.float64)
+    kw = dict(bm=bm, method="srk", dt_min=ADA_DT_MIN, rtol=ADA_RTOL,
+              atol=ADA_ATOL, **extra)
+    stats = None
+    if mode == "backprop":
+        ys, stats = sdeint(sde, y0, ADA_TS, dt=ADA_DT0, adaptive=True,
+                           return_stats=True, **kw)
+    else:
+        ys = sdeint_adjoint(sde, y0, ADA_TS, dt=ADA_ADJ_DT,
+                            adjoint_rtol=ADA_ADJ_TOL,
+                            adjoint_atol=ADA_ADJ_TOL, **{mode: True}, **kw)
+    create = extra.get("adjoint_max_steps") is not None
+    grads = torch.autograd.grad(ys.sum(), [y0, sde.mu, sde.sigma],
+                                create_graph=create)
+    return grads, ys, stats
+
+
+def phase_adaptive_grads(device, kernels_per_op):
+    """(c) gradients by the three modes on the card against the CPU, with
+    ms, peak memory and aten ops (counted; kernels about ``kernels_per_op``
+    times as many, (a)'s ratio); (d) the exhausted budgets."""
+    out = {}
+    for mode in ("backprop", "adaptive", "adjoint_adaptive"):
+        (grads, ys, stats), mib, ms = peak_mib(lambda: ada_grads(device,
+                                                                 mode))
+        _, ops = counted(lambda: ada_grads(device, mode))
+        want, _, want_stats = ada_grads("cpu", mode)
+        rel = max(float((g.cpu() - w).abs().max()) / float(w.abs().max())
+                  for g, w in zip(grads, want))
+        if not all(torch.isfinite(g).all() for g in grads) or \
+                rel > ADA_GRAD_REL or stats != want_stats:
+            raise RuntimeError(f"adaptive gradients {mode}: card vs CPU "
+                               f"{rel:.3e} > {ADA_GRAD_REL}, or stats "
+                               f"{stats} vs {want_stats}")
+        rec = dict(ms=ms, peak_mib=mib, ops=ops,
+                   kernels=ops * kernels_per_op, cpu_rel=rel)
+        if stats is not None:
+            rec.update(stats=stats, iterations=stats["n_accepted"]
+                       + stats["n_rejected"] + len(ADA_TS) - 1,
+                       max_steps=TS_MOD.default_max_steps(
+                           ADA_TS, ADA_DT0, ADA_DT_MIN))
+        print(f"adaptive gradients {mode}: {ms:.1f} ms, peak {mib:.1f} MiB, "
+              f"{ops} aten ops (about {rec['kernels']:.0f} kernels), card "
+              f"vs CPU {rel:.3e}"
+              + (f", {rec['iterations']} iterations of a budget of "
+                 f"{rec['max_steps']} ({stats})" if stats else ""),
+              flush=True)
+        out[mode] = rec
+    # (d) budgets run out: a backprop solve, a double backward.
+    grads, ys, stats = ada_grads(device, "backprop", max_steps=ADA_BUDGET)
+    reached = int(torch.isfinite(ys).all(dim=(1, 2)).sum())
+    if not (stats["incomplete"] and reached < len(ADA_TS)
+            and torch.isnan(ys[-1]).all()):
+        raise RuntimeError(f"max_steps={ADA_BUDGET}: {stats}, {reached} "
+                           f"outputs reached")
+    grads, _, _ = ada_grads(device, "adjoint_adaptive",
+                            adjoint_max_steps=ADA_BUDGET)
+    if not all(torch.isnan(g).all() for g in grads):
+        raise RuntimeError(f"adjoint_max_steps={ADA_BUDGET} under "
+                           f"create_graph: a gradient is not NaN")
+    print(f"budgets of {ADA_BUDGET}: backprop {stats}, {reached} of "
+          f"{len(ADA_TS)} outputs reached, the rest NaN; double "
+          f"backward's gradients NaN", flush=True)
+    out["budget"] = dict(stats=stats, reached=reached)
+    return out
+
+
+def dense_fixed_solve(sde, y0, ts, dt, generator):
+    """(e)'s yardstick, the port's fixed-step Euler solve as it was before
+    sparse outputs and in-loop noise: every increment drawn before the loop
+    (``sample_grid_noise``), every grid state kept, then interpolated onto
+    ``ts`` (``linear_interp_on_grid``)."""
+    solver = SOLVERS.select(method="euler", sde_type="ito")(
+        sde=ForwardSDE(sde), bm=None, dt=dt, options={})
+    grid = TI.build_step_grid(ts[0], ts[-1], dt)
+    noise = TI.sample_grid_noise(generator, grid, tuple(y0.shape), y0.dtype,
+                                 y0.device)
+    states, _ = TI.integrate_to_outputs(solver, y0, (), grid,
+                                        np.arange(len(grid)), noise)
+    grid_dev = torch.as_tensor(grid, dtype=y0.dtype, device=y0.device)
+    return TI.linear_interp_on_grid(torch.as_tensor(
+        ts, dtype=y0.dtype, device=y0.device), grid_dev, states)
+
+
+def phase_adaptive_memory(device):
+    """(e) configuration B: the default policy (in-loop noise, the kept
+    bracketing states) against noise_precompute=True (the same kept
+    states) and against ``dense_fixed_solve`` (precomputed noise, every
+    state), peak memory and ms; the moments of y_T; object mode bitwise at
+    (512, 256); the philox warning."""
+    B, d = ADA_B_SHAPE
+    rng = np.random.default_rng(SEED + 300 + d)   # srk_problem's draws
+    sigma = 1 / (1 + np.exp(-rng.standard_normal(d)))
+    mu = -sigma ** 2 - 1 / (1 + np.exp(-rng.standard_normal(d)))
+    sde = AdaSDE(device, torch.float32, mu=tuple(mu), sigma=tuple(sigma))
+    y0 = torch.full((B, d), 0.1, device=device)
+    grid = TI.build_step_grid(0.0, 1.0, ADA_B_DT)
+    w_bytes = TI.noise_buffer_bytes(len(grid) - 1, (B, d), torch.float32,
+                                    False, False)
+    s_bytes = len(grid) * y0.numel() * y0.element_size()
+    if TI.should_precompute_noise(len(grid) - 1, (B, d), torch.float32,
+                                  False, False):
+        raise RuntimeError("configuration B's noise does not pass the "
+                           "threshold")
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(SEED + 700)
+
+    def solve(**kw):
+        with torch.no_grad():
+            return sdeint(sde, y0, ADA_B_TS, method="euler", dt=ADA_B_DT,
+                          generator=gen(), **kw)
+
+    def dense():
+        with torch.no_grad():
+            return dense_fixed_solve(sde, y0, ADA_B_TS, ADA_B_DT, gen())
+
+    solve()
+    ys, mib, ms = peak_mib(solve)
+    pre, pre_mib, pre_ms = peak_mib(lambda: solve(noise_precompute=True))
+    ref, dense_mib, dense_ms = peak_mib(dense)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        solve(rng_impl="philox")
+    philox = any("rng_impl='philox'" in str(w.message) for w in caught)
+    # E y_T = y0 exp(mu T), each channel's mean over B rows; Euler at dt
+    # 1/256 is biased by about mu^2 dt / 2 (0.5 %), the mean's spread by
+    # sqrt(exp(sigma^2) - 1) / sqrt(B) (1 %).
+    expect = 0.1 * torch.exp(torch.as_tensor(mu, dtype=torch.float32,
+                                             device=device))
+    errs = [float((y[-1].mean(0) / expect - 1).abs().max())
+            for y in (ys, pre, ref)]
+    saved = (dense_mib - mib) * 2 ** 20
+    noise_saved = (pre_mib - mib) * 2 ** 20
+    if not all(torch.isfinite(y).all() for y in (ys, pre, ref)) or \
+            not torch.equal(pre, ref) or max(errs) > 0.06 or \
+            saved < ADA_B_SAVED or noise_saved < ADA_B_NOISE_SAVED or \
+            not philox:
+        raise RuntimeError(f"configuration B: peak {mib:.1f} MiB default, "
+                           f"{pre_mib:.1f} MiB precomputed, {dense_mib:.1f} "
+                           f"MiB dense, precomputed bitwise dense "
+                           f"{torch.equal(pre, ref)}, means {errs} from E "
+                           f"y_T, philox warned {philox}")
+    print(f"configuration B {ADA_B_SHAPE} Euler, 256 steps: W "
+          f"{w_bytes / 2 ** 30:.2f} GiB, states {s_bytes / 2 ** 30:.2f} GiB; "
+          f"default (in-loop) peak {mib:.1f} MiB, {ms:.1f} ms; "
+          f"noise_precompute=True peak {pre_mib:.1f} MiB, {pre_ms:.1f} ms, "
+          f"bitwise the dense yardstick's ys; dense peak {dense_mib:.1f} "
+          f"MiB, {dense_ms:.1f} ms; saved {saved / 2 ** 30:.2f} GiB "
+          f"({noise_saved / 2 ** 30:.2f} by the noise); y_T means within "
+          f"{', '.join(f'{e:.3e}' for e in errs)} of E y_T; philox warns",
+          flush=True)
+    del ys, pre, ref
+    # Object mode bitwise at (512, 256) over 100 steps.
+    size = BM_SIZES[-1]
+    bm = BrownianInterval(0.0, 1.0, size, dtype=torch.float32,
+                          entropy=SOLVE_ENTROPY, levels=ADA_LEVELS,
+                          levy_area_approximation="space-time", device=device)
+    rng = np.random.default_rng(SEED + 300 + size[1])
+    sigma = 1 / (1 + np.exp(-rng.standard_normal(size[1])))
+    mu = -sigma ** 2 - 1 / (1 + np.exp(-rng.standard_normal(size[1])))
+    sde = AdaSDE(device, torch.float32, mu=tuple(mu), sigma=tuple(sigma))
+    y0 = torch.full(size, 0.1, device=device)
+    with torch.no_grad():
+        a, a_ms = timed_ms(lambda: sdeint(
+            sde, y0, ADA_B_TS, bm=bm, method="srk", dt=1.0 / ADA_OBJ_STEPS,
+            noise_precompute=True))
+        c, c_ms = timed_ms(lambda: sdeint(
+            sde, y0, ADA_B_TS, bm=bm, method="srk", dt=1.0 / ADA_OBJ_STEPS,
+            noise_precompute=False))
+    if not torch.equal(a, c):
+        raise RuntimeError("object mode in the loop is not bitwise the "
+                           "precomputed solve")
+    print(f"object mode {size} srk over {ADA_OBJ_STEPS} steps: in-loop "
+          f"{c_ms:.1f} ms bitwise precomputed {a_ms:.1f} ms", flush=True)
+    return dict(w_gib=w_bytes / 2 ** 30, states_gib=s_bytes / 2 ** 30,
+                peak_mib=mib, ms=ms, precompute_peak_mib=pre_mib,
+                precompute_ms=pre_ms, dense_peak_mib=dense_mib,
+                dense_ms=dense_ms, saved_gib=saved / 2 ** 30,
+                noise_saved_gib=noise_saved / 2 ** 30, mean_errs=errs,
+                object_ms=c_ms, object_precompute_ms=a_ms)
+
+
+def phase_adaptive_replay(device):
+    """(f) adjoint gradients on the in-loop default stream against
+    backprop through sdeint on the same stream (one generator seed, one
+    key), Stratonovich midpoint, float64, the diffusion a tenth of
+    configuration A's as ``tests/problems.py``'s NeuralDiagonal scales
+    its own (the JAX package's check, so the two discretisations' gap is
+    well below the bound; a backward on other noise misses it by far)."""
+    grads = []
+    for solve in (sdeint_adjoint, sdeint):
+        sde = AdaSDE(device, torch.float64, "stratonovich",
+                     sigma=tuple(0.1 * s for s in ADA_SIGMA))
+        y0 = torch.full((ADA_B, 3), 0.1, dtype=torch.float64, device=device,
+                        requires_grad=True)
+        ys = solve(sde, y0, ADA_REPLAY_TS, method="midpoint", dt=1.0 / 64,
+                   generator=torch.Generator(device=device).manual_seed(
+                       SEED + 800), noise_precompute=False)
+        grads.append(torch.autograd.grad((ys[-1] ** 2).sum() + ys[1].sum(),
+                                         [y0, sde.mu, sde.sigma]))
+    scale = max(float(g.abs().max()) for g in grads[1])
+    err = max(float((a - b).abs().max()) for a, b in zip(*grads)) / scale
+    if err > ADA_REPLAY_REL:
+        raise RuntimeError(f"in-loop replay: adjoint vs backprop {err:.3e} "
+                           f"of scale > {ADA_REPLAY_REL}")
+    print(f"in-loop replay: adjoint vs backprop on one stream {err:.3e} of "
+          f"scale", flush=True)
+    return dict(rel=err)
+
+
+def phase_adaptive(device):
+    """Phase 27 (no kernel of its own): its record is the ``{"adaptive":
+    ...}`` line, with each part's seconds."""
+    record = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        record[name] = fn(device, *args)
+        record[f"{name}_s"] = time.perf_counter() - t0
+        print(f"adaptive ({name}): {record[f'{name}_s']:.1f} s", flush=True)
+
+    part("a", phase_adaptive_forward)
+    part("b", phase_adaptive_cpu)
+    part("c", phase_adaptive_grads, float(np.mean(
+        [record["a"][m]["per_attempt"]["kernels_per_op"]
+         for m, _ in ADA_METHODS])))
+    part("e", phase_adaptive_memory)
+    part("f", phase_adaptive_replay)
+    print(json.dumps({"adaptive": record}), flush=True)
+
+
+# --------------------------------------------------------------------------- #
 #  --only steps: the GAN sdeint step of any version of the port              #
 # --------------------------------------------------------------------------- #
 
@@ -4276,11 +4820,11 @@ def phase_steps(device):
 
 
 GROUPS = ("latent", "gan", "tower", "logqp", "multi", "srk", "prng",
-          "brownian", "adjoint")
+          "brownian", "adjoint", "adaptive")
 # Run only when asked for by --only.
 EXTRA_GROUPS = ("tiles", "ab", "steps")
 # Groups that launch no kernel of the port's own: they run without a build.
-UNBUILT_GROUPS = ("steps",)
+UNBUILT_GROUPS = ("steps", "adaptive")
 
 
 def main():
@@ -4420,6 +4964,8 @@ def main():
         phase_brownian(device, card)
     if "adjoint" in groups:
         phase_adjoint(device)
+    if "adaptive" in groups:
+        phase_adaptive(device)
     if "tiles" in groups:
         print(json.dumps({"euler_tiles": phase_euler_tiles(device)}),
               flush=True)

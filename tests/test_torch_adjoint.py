@@ -34,7 +34,7 @@ import torchsde_tpu as jtsde
 import torchsde_tpu_torch as ttsde
 from port_bridge import jax_named_arrays
 from torchsde_tpu_torch.core import integrate as TI
-from torchsde_tpu_torch.core.adjoint import collect_adjoint_params
+from torchsde_tpu_torch.core.base_sde import collect_adjoint_params
 
 b, d, m = 8, 3, 2
 TS = [0.0, 0.2, 0.4]
@@ -161,13 +161,13 @@ def _port_grads(sde, bm, solve, method, adjoint_method=None, **kw):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_grads(name, sde_type, method, adjoint_method):
+def _jax_grads(name, sde_type, method, adjoint_method, extra=()):
     sde = jax_problem(name, sde_type)
     bm, _ = _bms(sde.noise_type)
 
     def loss(sde_, y0_):
         ys = jtsde.sdeint_adjoint(sde_, y0_, TS, bm=bm, method=method, dt=DT,
-                                  adjoint_method=adjoint_method)
+                                  adjoint_method=adjoint_method, **dict(extra))
         return jnp.sum(ys[-1] ** 2) + jnp.sum(ys[1])
 
     g_sde, g_y0 = jax.grad(loss, argnums=(0, 1))(sde, jnp.asarray(_y0_np()))
@@ -504,11 +504,6 @@ def test_adjoint_params_must_be_collected():
 # --------------------------------------------------------------------------- #
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    (dict(adaptive=True), NotImplementedError, "queue 1 item 2"),
-    (dict(adjoint_adaptive=True), NotImplementedError, "queue 1 item 2"),
-    (dict(rtol=1e-3), NotImplementedError, "queue 1 item 2"),
-    (dict(adjoint_atol=1e-3), NotImplementedError, "queue 1 item 2"),
-    (dict(noise_precompute=False), NotImplementedError, "queue 1 item 2"),
     (dict(key=3), TypeError, "generator="),
     (dict(entropy=3), TypeError, "generator="),
 ])
@@ -517,6 +512,31 @@ def test_unported_keywords_raise(kwargs, error, match):
     with pytest.raises(error, match=match):
         ttsde.sdeint_adjoint(sde, torch.as_tensor(_y0_np()), TS,
                              method="midpoint", dt=DT, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(adaptive=True),
+    dict(adjoint_adaptive=True),
+    dict(adaptive=True, rtol=1e-2),
+    dict(adjoint_adaptive=True, adjoint_atol=1e-2),
+    dict(noise_precompute=False),
+], ids=["adaptive", "adjoint_adaptive", "rtol", "adjoint_atol",
+        "noise_precompute"])
+def test_jax_keywords_take_effect(kwargs):
+    """The keywords that raised before adaptive stepping was ported: each
+    gives the JAX package's gradients with the same keyword, on one
+    BrownianInterval, at 1e-9 of scale (``noise_precompute=False``: the
+    interval queried per step in both passes)."""
+    name, sde_type = "ExDiagonal", "ito"
+    base = dict(rtol=1e-3, atol=1e-3, adjoint_rtol=1e-3, adjoint_atol=1e-3,
+                dt_min=1e-3)
+    base.update(kwargs)
+    want = _jax_grads(name, sde_type, "milstein", None,
+                      tuple(sorted(base.items())))
+    sde = ProblemPort(jax_problem(name, sde_type))
+    _, bm = _bms(sde.noise_type)
+    got = _port_grads(sde, bm, ttsde.sdeint_adjoint, "milstein", **base)
+    _assert_grads_close(got, want, TOL)
 
 
 def test_unroll_is_accepted_and_changes_nothing():

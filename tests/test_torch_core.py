@@ -280,13 +280,6 @@ def test_base_sde_trait_errors_match_jax():
         assert str(terr.value) == str(jerr.value)
 
 
-def test_adaptive_is_not_ported():
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        ttsde.sdeint(TorchSDE("diagonal", _problem_params()),
-                     torch.ones((B, D)), TS, method="euler", dt=DT,
-                     adaptive=True)
-
-
 @pytest.mark.parametrize("method", ["euler", "milstein", "srk"])
 def test_return_stats_match_jax(method):
     """The fixed-step counters: n_steps accepted, none rejected, n_steps
@@ -322,17 +315,58 @@ def test_remat_gives_the_same_values_and_gradients():
 @pytest.mark.parametrize("kwargs,error,match", [
     (dict(key=3), TypeError, "generator="),
     (dict(entropy=3), TypeError, "generator="),
-    (dict(rtol=1e-3), NotImplementedError, "queue 1 item 2"),
-    (dict(atol=1e-3), NotImplementedError, "queue 1 item 2"),
-    (dict(dt_min=1e-3), NotImplementedError, "queue 1 item 2"),
-    (dict(max_steps=10), NotImplementedError, "queue 1 item 2"),
-    (dict(noise_precompute=False), NotImplementedError, "queue 1 item 2"),
+    (dict(adaptive=True, rtol=1e-2), None, None),
+    (dict(adaptive=True, atol=1e-2), None, None),
+    (dict(adaptive=True, dt_min=4e-2), None, None),
+    (dict(adaptive=True, max_steps=4), None, None),
+    (dict(noise_precompute=False), None, None),
 ])
-def test_jax_keywords_are_not_dropped(kwargs, error, match):
-    with pytest.raises(error, match=match):
-        ttsde.sdeint(TorchSDE("diagonal", _problem_params()),
-                     torch.ones((B, D), dtype=torch.float64), TS,
-                     method="euler", dt=DT, **kwargs)
+def test_jax_keywords_are_not_dropped(monkeypatch, kwargs, error, match):
+    """``key`` and ``entropy`` raise; every other keyword of the JAX
+    package takes effect as there: the solve with it is the JAX package's
+    with it (on one ``BrownianInterval``; ``noise_precompute=False`` on the
+    default noise keyed as JAX's, whose precomputed stream is another), and
+    differs from the solve without it. ``max_steps`` binds a differentiated
+    solve: NaN where it did not reach."""
+    p = _problem_params()
+    y0 = np.full((B, D), 0.5)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            ttsde.sdeint(TorchSDE("diagonal", p), torch.as_tensor(y0), TS,
+                         method="euler", dt=DT, **kwargs)
+        return
+    jbm = jtsde.BrownianInterval(0.0, 0.5, (B, D), dtype=jnp.float64,
+                                 entropy=3, levels=12)
+    tbm = ttsde.BrownianInterval(0.0, 0.5, (B, D), dtype=torch.float64,
+                                 entropy=3, levels=12, device="cpu")
+    base = dict(method="milstein", dt=DT)
+    if "adaptive" in kwargs:
+        base.update({k: v for k, v in dict(rtol=1e-3, atol=1e-3,
+                                           dt_min=1e-3).items()
+                     if k not in kwargs})
+        jkw, tkw = dict(bm=jbm), dict(bm=tbm)
+    else:
+        key = np.asarray(jax.random.PRNGKey(8))
+        monkeypatch.setattr(TI, "draw_key", lambda generator, device:
+                            torch.as_tensor(key.astype(np.int64)))
+        jkw = dict(key=jax.random.PRNGKey(8))
+        tkw = dict(generator=torch.Generator().manual_seed(8))
+    if "max_steps" in kwargs:
+        want = jax.vjp(lambda y: jtsde.sdeint(
+            JaxSDE("diagonal", p), y, TS, **jkw, **base, **kwargs),
+            jnp.asarray(y0))[0]
+    else:
+        want = jtsde.sdeint(JaxSDE("diagonal", p), jnp.asarray(y0), TS,
+                            **jkw, **base, **kwargs)
+    got = ttsde.sdeint(TorchSDE("diagonal", p),
+                       torch.tensor(y0, requires_grad=True), TS, **tkw,
+                       **base, **kwargs).detach()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    without = ttsde.sdeint(TorchSDE("diagonal", p), torch.as_tensor(y0), TS,
+                           **tkw, **base, **{k: v for k, v in kwargs.items()
+                                             if k == "adaptive"})
+    assert not torch.equal(got, without)
 
 
 @pytest.mark.parametrize("value", [None, True])

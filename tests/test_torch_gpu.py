@@ -46,7 +46,14 @@ sdeint_adjoint (no kernel: plain PyTorch) on the card: its gradients
 on one table of increments, by Euler, Milstein and the reversible pair;
 under rng_impl='philox' the backward's W bitwise the forward's, kernel 16
 launched once for each; a small gan_grads at its default adjoint=True
-against the fused route's (kernels 5-8)."""
+against the fused route's (kernels 5-8).
+
+Adaptive stepping and in-loop noise (no kernel: plain PyTorch) on the
+card: ``sdeint(adaptive=True)`` in float64 against the CPU on the whole
+batch (the error norm couples the rows), its stats equal; the gradients
+of backprop and of both adaptive adjoint modes against the CPU's; the
+in-loop queries of an explicit interval bitwise its precomputed noise;
+the default in-loop stream on the card against the CPU's on one key."""
 
 import numpy as np
 import pytest
@@ -2016,3 +2023,125 @@ def test_gan_adjoint_gradients_match_the_fused_route(cuda):
             scale = float(want.abs().max())
             assert float((got - want).abs().max()) <= 1e-5 * max(scale,
                                                                  1e-3), name
+
+
+class _ExDiagonal(torch.nn.Module):
+    """dy = mu y dt + sigma y dW (Ito, diagonal noise)."""
+    noise_type, sde_type = "diagonal", "ito"
+
+    def __init__(self, device, d=3):
+        super().__init__()
+        rng = np.random.default_rng(0)
+        sigma = 1 / (1 + np.exp(-rng.standard_normal(d)))
+        mu = -sigma ** 2 - 1 / (1 + np.exp(-rng.standard_normal(d)))
+        self.mu = torch.nn.Parameter(torch.as_tensor(mu, device=device))
+        self.sigma = torch.nn.Parameter(torch.as_tensor(sigma, device=device))
+
+    def f(self, t, y):
+        return self.mu * y
+
+    def g(self, t, y):
+        return self.sigma * y
+
+
+@pytest.mark.parametrize("method,levy", [("srk", "space-time"),
+                                         ("milstein", "none")])
+def test_adaptive_on_the_card_matches_the_cpu(cuda, method, levy):
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        bm = BrownianInterval(0.0, 1.0, (64, 3), dtype=torch.float64,
+                              entropy=42, levels=16,
+                              levy_area_approximation=levy, device=device)
+        with torch.no_grad():
+            out.append(sdeint(_ExDiagonal(device), torch.full(
+                (64, 3), 0.1, dtype=torch.float64, device=device),
+                np.linspace(0.0, 1.0, 5), bm=bm, method=method, dt=1e-2,
+                adaptive=True, rtol=1e-4, atol=1e-5, return_stats=True))
+    (ys, stats), (want, want_stats) = out
+    assert stats == want_stats and stats["n_accepted"] > 4
+    scale = 1.0 + float(want.abs().max())
+    assert float((ys.cpu() - want).abs().max()) <= 1e-9 * scale
+
+
+@pytest.mark.parametrize("mode", ["backprop", "adaptive", "adjoint_adaptive"])
+def test_adaptive_gradients_on_the_card_match_the_cpu(cuda, mode):
+    from torchsde_tpu_torch import sdeint_adjoint
+    kw = dict(method="milstein", dt=0.05)
+    solve = sdeint_adjoint
+    if mode == "backprop":
+        solve = sdeint
+        kw.update(adaptive=True, rtol=1e-4, atol=1e-5)
+    else:
+        kw.update({mode: True, "rtol": 1e-4, "atol": 1e-5,
+                   "adjoint_rtol": 1e-4, "adjoint_atol": 1e-5})
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        bm = BrownianInterval(0.0, 0.5, (32, 3), dtype=torch.float64,
+                              entropy=7, levels=14, device=device)
+        sde = _ExDiagonal(device)
+        y0 = torch.full((32, 3), 0.1, dtype=torch.float64, device=device,
+                        requires_grad=True)
+        ys = solve(sde, y0, [0.0, 0.25, 0.5], bm=bm, **kw)
+        out.append([g.cpu() for g in torch.autograd.grad(
+            (ys ** 2).sum() + ys[1].sum(), [y0, sde.mu, sde.sigma])])
+    for got, want in zip(*out):
+        assert float(want.abs().max()) > 0
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-9 * float(want.abs().max()))
+
+
+class _StratDiagonal(_ExDiagonal):
+    """_ExDiagonal read as a Stratonovich SDE."""
+    sde_type = "stratonovich"
+
+
+def test_reversible_pair_in_loop_on_the_card(cuda):
+    """The reversible-Heun pair with its noise made in the loop on the
+    card: on an explicit interval its gradients are bitwise the
+    precomputed pair's; on the default keyed stream they are backprop's
+    through sdeint on the same stream (one generator seed) at 1e-9 of
+    scale."""
+    from torchsde_tpu_torch import sdeint_adjoint
+    sde = _StratDiagonal(cuda)
+
+    def grads(solve, **kw):
+        y0 = torch.full((64, 3), 0.1, dtype=torch.float64, device=cuda,
+                        requires_grad=True)
+        ys = solve(sde, y0, [0.0, 0.5, 1.0], method="reversible_heun",
+                   dt=1 / 32, **kw)
+        return torch.autograd.grad((ys ** 2).sum(), [y0, sde.mu, sde.sigma])
+
+    bm = BrownianInterval(0.0, 1.0, (64, 3), dtype=torch.float64, entropy=3,
+                          levels=16, device=cuda)
+    a, c = (grads(sdeint_adjoint, bm=bm, noise_precompute=p)
+            for p in (True, False))
+    assert all(torch.equal(x, y) for x, y in zip(a, c))
+    got, want = (grads(solve, noise_precompute=False,
+                       generator=torch.Generator(device=cuda).manual_seed(4))
+                 for solve in (sdeint_adjoint, sdeint))
+    scale = max(float(w.abs().max()) for w in want)
+    assert max(float((g - w).abs().max())
+               for g, w in zip(got, want)) < 1e-9 * scale
+
+
+def test_in_loop_noise_on_the_card(cuda):
+    """An explicit interval queried per step is bitwise its precomputed
+    noise on the card; the default stream made in the loop on one key is
+    the CPU's to the rounding of erfinv."""
+    import torchsde_tpu_torch.core.integrate as TI
+    sde = _ExDiagonal(cuda).float()
+    y0 = torch.full((256, 3), 0.1, device=cuda)
+    bm = BrownianInterval(0.0, 1.0, (256, 3), entropy=3, levels=16,
+                          levy_area_approximation="space-time", device=cuda)
+    with torch.no_grad():
+        a, c = (sdeint(sde, y0, [0.0, 0.5, 1.0], bm=bm, method="srk",
+                       dt=1 / 64, noise_precompute=p) for p in (True, False))
+    assert torch.equal(a, c)
+    key = torch.tensor([0, 42], dtype=torch.int64)
+    t0, t1 = torch.tensor(0.25), torch.tensor(0.5)
+    want = TI.make_iid_noise_fn(key, (256, 3), torch.float32, True)(
+        5, t0, t1)
+    got = TI.make_iid_noise_fn(key.to(cuda), (256, 3), torch.float32, True)(
+        5, t0.to(cuda), t1.to(cuda))
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=2e-6)

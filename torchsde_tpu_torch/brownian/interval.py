@@ -51,7 +51,8 @@ _HAVE_H = (LEVY_AREA_APPROXIMATIONS.space_time, LEVY_AREA_APPROXIMATIONS.davie,
 _HAVE_A = (LEVY_AREA_APPROXIMATIONS.davie, LEVY_AREA_APPROXIMATIONS.foster)
 
 
-def _np_dtype(dtype):
+def np_dtype(dtype):
+    """The numpy scalar type of a torch float dtype."""
     return {torch.float32: np.float32, torch.float64: np.float64}[dtype]
 
 
@@ -309,7 +310,7 @@ class BrownianInterval(base.BaseBrownian):
         draw = (2,) + size if have_H else size
         per_point = max(1, math.prod(draw))
         chunk = max(1, DESCENT_CHUNK_ELEMENTS // per_point)
-        npd = _np_dtype(dtype)
+        npd = np_dtype(dtype)
         span = self._t1 - self._t0
         widths = span * np.exp2(-np.arange(depth, dtype=np.float64))
         hs = widths.astype(npd)

@@ -1,81 +1,55 @@
 """Stochastic-adjoint gradients as a ``torch.autograd.Function`` (counterpart
-of ``torchsde_tpu/core/adjoint.py``, fixed-step).
+of ``torchsde_tpu/core/adjoint.py``).
 
 The forward solve steps to every output time (``integrate.
-build_interval_grid``) and keeps only the output states. The backward
-re-steps the same ``(t0, t1)`` pairs in reverse on negated time with the
-adjoint SDE (``core/adjoint_sde.py``): at the last step of each output
-interval it resets the state to the saved output and adds that output's
-cotangent, as the JAX package's merged scan does. The noise is replayed in
-forward orientation: the default noise is drawn again from the recorded
-generator state (``integrate.NoiseReplay``), an explicit Brownian object is
-queried again on the same grid. Residuals are O(T): the output states and
-the generator's state, never the noise.
+build_interval_grid``), or with ``adaptive=True`` runs the adaptive loop
+(``integrate.integrate_adaptive``), and keeps only the output states. The
+backward re-steps the interval grid's ``(t0, t1)`` pairs in reverse on
+negated time with the adjoint SDE (``core/adjoint_sde.py``): at the last
+step of each output interval it resets the state to the saved output and
+adds that output's cotangent, as the JAX package's merged scan does. With
+``adjoint_adaptive=True`` the backward is instead one merged adaptive loop
+over the segments ``T-1 -> 1`` at ``adjoint_rtol``/``adjoint_atol``
+through ``ReverseBrownian``, each segment from the saved output with its
+cotangent added, the step reset to ``dt`` and the controller's history
+cleared; under ``create_graph`` it runs at most ``adjoint_max_steps``
+iterations, and a budget run out makes every gradient NaN.
+
+The noise is replayed in forward orientation. Both passes make one choice
+(``SolvePlan``: ``integrate.should_precompute_noise`` on the union of the
+two methods' U and A needs): precomputed, the default noise is drawn again
+from the recorded generator state (``integrate.NoiseReplay``) and an
+explicit Brownian object queried again on the same grid; in the loop, the
+default noise is the keyed stream of a key drawn once
+(``integrate.make_iid_noise_fn``) and the object is queried per step.
+Where either direction is adaptive, the default noise is an interval
+(``sdeint.check_contract``) that both passes query. Residuals are O(T):
+the output states and the generator's state or the key, never the noise.
 
 The gradients reach ``y0`` and every adjoint parameter: each floating
 tensor requiring grad that the SDE module tree holds as a parameter, a
-buffer or a plain tensor attribute (``collect_adjoint_params``), so a
-context or a path held by a view of the model passes its gradient on to
-whatever made it. The backward is built from differentiable operations
+buffer or a plain tensor attribute (``base_sde.collect_adjoint_params``),
+so a context or a path held by a view of the model passes its gradient on
+to whatever made it. The backward is built from differentiable operations
 under ``create_graph``, so it differentiates again (double backward).
 
-Not ported yet (ROADMAP queue 1 item 2): ``adaptive`` and
-``adjoint_adaptive``, traced ``ts``, and in-loop noise for long solves.
+Not ported yet (ROADMAP queue 1): traced ``ts``.
 """
 
 import contextlib
 
+import numpy as np
 import torch
-from torch import nn
 
 from . import integrate, solvers
 from .adjoint_sde import AdjointSDE, splice
-from .sdeint import (ADAPTIVE_NOT_PORTED, _DefaultNoise, _time_dtype,
-                     check_contract, check_jax_kwargs, parse_return)
+from .base_sde import adjoint_param_slots
+from .sdeint import (_time_dtype, check_contract, check_jax_kwargs,
+                     default_max_steps, parse_return,
+                     warn_if_coarser_than_dt_min)
+from ..brownian.derived import ReverseBrownian
+from ..brownian.interval import np_dtype
 from ..settings import METHODS, NOISE_TYPES, SDE_TYPES
-
-
-def collect_adjoint_params(sde):
-    """Every floating tensor requiring grad that ``sde`` holds, each once by
-    identity, in a fixed order: the parameters, buffers and plain tensor
-    attributes of every module reached from it (through the ``ForwardSDE``,
-    ``SDELogqp`` and ``RenameMethodsSDE`` wrappers, and through lists,
-    tuples and dicts), and those of an SDE object that is not a module."""
-    return _collect(sde)[0]
-
-
-def _collect(sde):
-    """``(tensors, slots)``: the adjoint parameters, and for each of them
-    that is not a leaf (a context or a path computed upstream) its index
-    and the ``(container, key)`` that holds it, where the backward puts a
-    leaf stand-in (``leaf_stand_ins``)."""
-    found, slots, seen = [], [], set()
-
-    def visit(obj, container=None, key=None):
-        if id(obj) in seen:
-            return
-        seen.add(id(obj))
-        if torch.is_tensor(obj):
-            if obj.is_floating_point() and obj.requires_grad:
-                if not obj.is_leaf:
-                    if not isinstance(container, (dict, list)):
-                        raise ValueError(
-                            "sdeint_adjoint differentiates a tensor the SDE "
-                            "computes upstream only where a module attribute, "
-                            "a buffer, a list or a dict holds it, not a tuple")
-                    slots.append((len(found), container, key))
-                found.append(obj)
-        elif isinstance(obj, (list, tuple)):
-            for i, item in enumerate(obj):
-                visit(item, obj, i)
-        elif isinstance(obj, dict):
-            for k, item in obj.items():
-                visit(item, obj, k)
-        elif isinstance(obj, nn.Module) or hasattr(obj, "noise_type"):
-            visit(vars(obj))
-
-    visit(sde)
-    return tuple(found), slots
 
 
 @contextlib.contextmanager
@@ -132,31 +106,46 @@ def select_default_adjoint_method(sde, method, adjoint_method):
 class SolvePlan:
     """What one adjoint solve needs in both passes: the forward SDE, its
     adjoint parameters (and the slots of the non-leaf ones), the interval
-    grid and the noise source."""
+    grid and the noise source, with the one choice of precomputed or
+    in-loop noise that both passes follow (``noise_precompute`` as
+    ``sdeint``'s, sized on the noise ``methods`` need)."""
 
     def __init__(self, sde, params, slots, bm, ts, dt, time_dtype,
-                 rng_impl):
+                 rng_impl, noise_precompute, methods):
         self.sde = sde
         self.params = params
         self.slots = slots
+        self.ts = ts
         self.dt = dt
         self.time_dtype = time_dtype
         self.grid, self.boundary_idx = integrate.build_interval_grid(ts, dt)
         self.bm = bm
-        self.replay = None
-        if isinstance(bm, _DefaultNoise):
-            self.replay = integrate.NoiseReplay(
-                bm.generator, bm.shape, bm.dtype, bm.device, rng_impl,
-                bm.levy_area_approximation)
+        self.rng_impl = rng_impl
+        self.noise_precompute = noise_precompute
+        needs = [solvers.method_noise_needs(m) for m in methods]
+        self.precompute = integrate.should_precompute_noise(
+            len(self.grid) - 1, bm.shape, bm.dtype,
+            any(u for u, _ in needs), any(a for _, a in needs),
+            override=noise_precompute)
+        self.replay = self.key = None
+        if isinstance(bm, integrate.DefaultNoise):
+            if self.precompute:
+                self.replay = integrate.NoiseReplay(
+                    bm.generator, bm.shape, bm.dtype, bm.device, rng_impl,
+                    bm.levy_area_approximation)
+            else:
+                self.key = integrate.draw_key(bm.generator, bm.device)
 
     def noise(self, needs_U, needs_A, again=False):
-        """The grid's increments in forward orientation; ``again`` replays
-        what the first call drew."""
-        if self.replay is None:
-            return integrate.precompute_bm_noise(self.bm, self.grid, needs_U,
-                                                 needs_A)
-        draw = self.replay.redraw if again else self.replay.draw
-        return draw(self.grid, needs_U, needs_A)
+        """The grid's increments in forward orientation, precomputed or
+        in-loop (``integrate.integrate_to_outputs``' ``noise``); ``again``
+        replays what the first call gave."""
+        if self.replay is not None:
+            draw = self.replay.redraw if again else self.replay.draw
+            return draw(self.grid, needs_U, needs_A)
+        return integrate.solve_noise(self.bm, self.grid, needs_U, needs_A,
+                                     self.precompute, self.rng_impl,
+                                     self.noise_precompute, key=self.key)
 
     def grid_on(self, device):
         return torch.as_tensor(self.grid, dtype=self.time_dtype,
@@ -191,14 +180,26 @@ class SolvePlan:
 
 class _GenericPlan(SolvePlan):
 
-    def __init__(self, solver, adjoint_method, adjoint_options, **kwargs):
+    def __init__(self, solver, adjoint_method, adjoint_options, adaptive,
+                 adjoint_adaptive, tolerances, adjoint_max_steps, **kwargs):
         super().__init__(**kwargs)
         self.solver = solver
         self.adjoint_method = adjoint_method
         self.adjoint_options = adjoint_options
+        self.adaptive = adaptive
+        self.adjoint_adaptive = adjoint_adaptive
+        self.rtol, self.atol, self.adjoint_rtol, self.adjoint_atol, \
+            self.dt_min = tolerances
+        self.adjoint_max_steps = adjoint_max_steps
         self.extra_out = ()
 
     def forward(self, y0, extra0):
+        if self.adaptive:
+            ys, self.extra_out, _ = integrate.integrate_adaptive(
+                self.solver, y0, extra0, self.ts, self.bm, self.dt,
+                self.rtol, self.atol, self.dt_min,
+                time_dtype=self.time_dtype)
+            return ys
         noise = self.noise(self.solver.needs_U, self.solver.needs_A)
         ys, self.extra_out = integrate.integrate_to_outputs(
             self.solver, y0, extra0, self.grid, self.boundary_idx, noise,
@@ -207,15 +208,20 @@ class _GenericPlan(SolvePlan):
 
     def backward(self, ys, grad_ys):
         """``(grad_y0, *grad_params)``: the adjoint SDE solved back over
-        the grid, one merged loop over every interval."""
+        every interval in one merged loop, on the grid or adaptive."""
         with self.backward_pass() as (targets, finish):
             adjoint_sde = AdjointSDE(self.sde, targets)
             cls = solvers.select(method=self.adjoint_method,
                                  sde_type=adjoint_sde.sde_type)
             solver = cls(sde=adjoint_sde, bm=None, dt=self.dt,
                          options=self.adjoint_options)
-            W, U, A = self.noise(solver.needs_U, solver.needs_A, again=True)
-            neg_grid = -self.grid_on(ys.device)
+            if self.adjoint_adaptive:
+                return finish(self._backward_adaptive(solver, ys, grad_ys,
+                                                      targets))
+            noise_at = integrate.noise_getter(
+                self.noise(solver.needs_U, solver.needs_A, again=True))
+            grid = self.grid_on(ys.device)
+            neg_grid = -grid
             inject = self.output_steps()
             y = torch.zeros_like(ys[0])
             adj_y = torch.zeros_like(ys[0])
@@ -225,12 +231,55 @@ class _GenericPlan(SolvePlan):
                 if out is not None:
                     y = ys[out]
                     adj_y = adj_y + grad_ys[out]
-                noise = (W[k], None if U is None else U[k],
-                         None if A is None else A[k])
+                noise = noise_at(k, grid[k], grid[k + 1])
                 (y, adj_y, adj_params), _ = solver.step(
                     neg_grid[k + 1], neg_grid[k], (y, adj_y, adj_params), (),
                     noise)
             return finish((adj_y + grad_ys[0],) + adj_params)
+
+    def _backward_adaptive(self, solver, ys, grad_ys, targets):
+        """The merged adaptive backward: segments ``T-1 -> 1`` on negated
+        time through ``ReverseBrownian``, one iteration a boundary or an
+        attempt. At a boundary the state is reset to the saved output, its
+        cotangent added, ``h`` reset to ``dt`` and the PI history cleared.
+        Under grad mode (a double backward) at most ``adjoint_max_steps``
+        iterations; a budget run out multiplies ``adj_y`` and every
+        parameter's gradient by NaN, so values and gradients stay loud."""
+        adj_params = tuple(torch.zeros_like(p) for p in targets)
+        T = len(self.ts)
+        if T == 1:
+            return (grad_ys[0],) + adj_params
+        c = np_dtype(self.time_dtype)
+        neg_ts = (-np.asarray(self.ts, np.float64)).astype(c)
+        rev_bm = ReverseBrownian(self.bm)
+        budget = self.adjoint_max_steps if torch.is_grad_enabled() else None
+        seg, curr_t = T - 1, neg_ts[T - 1]
+        y, adj_y = ys[T - 1], grad_ys[T - 1]
+        h, prev_ratio, prev_ratio_valid = c(self.dt), c(1.0), False
+        iterations = 0
+        while seg >= 1 and (budget is None or iterations < budget):
+            iterations += 1
+            seg_end = neg_ts[seg - 1]
+            if curr_t >= seg_end:
+                seg -= 1
+                if seg >= 1:
+                    y = ys[seg]
+                    adj_y = adj_y + grad_ys[seg]
+                    h, prev_ratio_valid = c(self.dt), False
+                continue
+            next_t = min(curr_t + h, seg_end)
+            (aug, _, accept, h, prev_ratio,
+             prev_ratio_valid) = integrate.adaptive_attempt(
+                solver, rev_bm, curr_t, next_t, (y, adj_y, adj_params), (),
+                h, prev_ratio, prev_ratio_valid, self.adjoint_rtol,
+                self.adjoint_atol, self.dt_min)
+            if accept:
+                curr_t = next_t
+                y, adj_y, adj_params = aug
+        if seg >= 1:
+            adj_y = adj_y * float("nan")
+            adj_params = tuple(p * float("nan") for p in adj_params)
+        return (adj_y + grad_ys[0],) + adj_params
 
 
 def detached(tensors):
@@ -268,6 +317,11 @@ def sdeint_adjoint(sde,
                    dt=1e-3,
                    adaptive=False,
                    adjoint_adaptive=False,
+                   rtol=1e-5,
+                   adjoint_rtol=1e-5,
+                   atol=1e-4,
+                   adjoint_atol=1e-4,
+                   dt_min=1e-5,
                    options=None,
                    adjoint_options=None,
                    adjoint_params=None,
@@ -278,6 +332,8 @@ def sdeint_adjoint(sde,
                    generator=None,
                    rng_impl="generator",
                    unroll=1,
+                   adjoint_max_steps=None,
+                   noise_precompute=None,
                    **unused_kwargs):
     """Integrate an SDE as ``sdeint`` does, with stochastic-adjoint
     gradients: memory O(len(ts)) in the number of steps.
@@ -286,42 +342,59 @@ def sdeint_adjoint(sde,
     of ``dt`` its grid, and so its values, differ from ``sdeint``'s (which
     steps a uniform grid and interpolates); they are the JAX package's
     ``sdeint_adjoint``'s. Gradients reach ``y0`` and every tensor requiring
-    grad that the SDE module holds (``collect_adjoint_params``); an
+    grad that the SDE module holds (``base_sde.collect_adjoint_params``); an
     explicit ``adjoint_params`` may only name such tensors.
     ``adjoint_method`` defaults as in the JAX package: Milstein for Itô
     diagonal noise, Euler for other Itô noise, midpoint for Stratonovich,
     and ``adjoint_reversible_heun`` (exact gradients of the discrete solve)
     for ``method="reversible_heun"``. ``generator`` and ``rng_impl`` seed
-    and pick the default noise as in ``sdeint``; the backward draws the
-    same increments again and leaves ``generator`` as the forward left it.
-    ``unroll`` is accepted and ignored; ``key``, ``entropy`` and the
-    adaptive keywords raise (``sdeint.check_jax_kwargs``).
+    and pick the default noise as in ``sdeint``; the backward replays the
+    forward's increments and leaves ``generator`` as the forward left it.
+
+    ``adaptive=True`` solves forward adaptively at ``rtol``/``atol`` (no
+    budget) and re-steps the interval grid backward; ``adjoint_adaptive=
+    True`` solves backward adaptively at ``adjoint_rtol``/``adjoint_atol``
+    (at most ``adjoint_max_steps`` iterations under a double backward,
+    default ``sdeint.default_max_steps``). ``dt_min`` floors both and sets
+    the default interval's depth. ``noise_precompute`` is ``sdeint``'s,
+    decided once for both passes. ``unroll`` is accepted and ignored;
+    ``key`` and ``entropy`` raise (``sdeint.check_jax_kwargs``).
     """
     del unroll
     check_jax_kwargs(unused_kwargs, "sdeint_adjoint")
     integrate.check_rng_impl(rng_impl)
-    if adaptive or adjoint_adaptive:
-        raise NotImplementedError(ADAPTIVE_NOT_PORTED)
 
     sde, y0, ts, bm, method, options = check_contract(
-        sde, y0, ts, bm, method, options, names, logqp, generator)
-    params, slots = _collect(sde)
+        sde, y0, ts, bm, method, options, names, logqp, generator,
+        adaptive=adaptive,
+        dt_min=dt_min if (adaptive or adjoint_adaptive) else None)
+    params, slots = adjoint_param_slots(sde)
     if adjoint_params is not None:
         _check_adjoint_params(adjoint_params, params)
     adjoint_method = select_default_adjoint_method(sde, method,
                                                    adjoint_method)
     adjoint_options = {} if adjoint_options is None else dict(adjoint_options)
     plan_kwargs = dict(sde=sde, params=params, slots=slots, bm=bm, ts=ts,
-                       dt=float(dt),
-                       time_dtype=_time_dtype(y0), rng_impl=rng_impl)
+                       dt=float(dt), time_dtype=_time_dtype(y0),
+                       rng_impl=rng_impl, noise_precompute=noise_precompute,
+                       methods=(method, adjoint_method))
 
     if (method == METHODS.reversible_heun
             or adjoint_method == METHODS.adjoint_reversible_heun):
+        if adaptive:
+            raise ValueError("method='reversible_heun' with adaptive=True is "
+                             "not supported under sdeint_adjoint: the "
+                             "backward reconstruction must re-step the exact "
+                             "forward grid.")
         from .adjoint_solvers import sdeint_adjoint_reversible_heun
         ys, extra_solver_state = sdeint_adjoint_reversible_heun(
             y0, extra_solver_state, **plan_kwargs)
         return parse_return(y0, ys, extra_solver_state, extra, logqp)
 
+    if adaptive or adjoint_adaptive:
+        warn_if_coarser_than_dt_min(bm, dt_min)
+    if adjoint_max_steps is None:
+        adjoint_max_steps = default_max_steps(ts, dt, dt_min)
     cls = solvers.select(method=method, sde_type=sde.sde_type)
     solver = cls(sde=sde, bm=None, dt=dt, options=options)
     if bm.levy_area_approximation not in solver.levy_area_approximations:
@@ -331,7 +404,10 @@ def sdeint_adjoint(sde,
     if extra_solver_state is None:
         t0 = torch.as_tensor(ts[0], dtype=_time_dtype(y0), device=y0.device)
         extra_solver_state = solver.init_extra_solver_state(t0, y0)
-    plan = _GenericPlan(solver, adjoint_method, adjoint_options,
-                        **plan_kwargs)
+    plan = _GenericPlan(
+        solver, adjoint_method, adjoint_options, bool(adaptive),
+        bool(adjoint_adaptive),
+        (float(rtol), float(atol), float(adjoint_rtol), float(adjoint_atol),
+         float(dt_min)), int(adjoint_max_steps), **plan_kwargs)
     ys = _AdjointSolve.apply(plan, tuple(extra_solver_state), y0, *params)
     return parse_return(y0, ys, plan.extra_out, extra, logqp)

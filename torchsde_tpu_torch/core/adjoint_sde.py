@@ -3,7 +3,7 @@ the forward SDE's (counterpart of ``torchsde_tpu/core/adjoint_sde.py``).
 
 The augmented state is the tuple ``(y, adj_y, adj_params)``, with
 ``adj_params`` a tuple holding one tensor per adjoint parameter (the
-tensors ``core/adjoint.collect_adjoint_params`` gathers from the SDE); the
+tensors ``core/base_sde.collect_adjoint_params`` gathers from the SDE); the
 solvers step it with ``utils.misc.tree_lc``.
 
 Sign and time conventions are the JAX package's: the backward solve runs on

@@ -8,7 +8,10 @@ adj_f, adj_g, adj_z, adj_params)`` with one vjp of ``f_and_g`` a step, so
 its gradients are those of the discrete forward computation (up to
 rounding), not the continuous adjoint's. The forward steps to every output
 time (``integrate.build_interval_grid``), so the backward re-steps the
-exact forward sequence whatever ``ts`` is.
+exact forward sequence whatever ``ts`` is. Its noise follows
+``SolvePlan``'s one choice, as the generic adjoint's does: precomputed and
+drawn again, or made in the loop (the keyed stream, or the Brownian object
+queried per step) and replayed by step index.
 """
 
 import torch
@@ -54,8 +57,10 @@ class _ReversiblePlan(SolvePlan):
         """``(grad_y0, grad_f0, grad_g0, grad_z0, *grad_params)``."""
         with self.backward_pass() as (targets, finish):
             fwd = self.sde
-            W, _, _ = self.noise(False, False, again=True)
-            neg_grid = -self.grid_on(ys.device)
+            noise_at = integrate.noise_getter(
+                self.noise(False, False, again=True))
+            grid = self.grid_on(ys.device)
+            neg_grid = -grid
             inject = self.output_steps()
             create_graph = torch.is_grad_enabled()
             y = torch.zeros_like(ys[0])
@@ -70,7 +75,7 @@ class _ReversiblePlan(SolvePlan):
                     adj_y = adj_y + grad_ys[out]
                 t0b, t1b = neg_grid[k + 1], neg_grid[k]
                 dt = t1b - t0b
-                dW = W[k]
+                dW = noise_at(k, grid[k], grid[k + 1])[0]
                 half_dt = 0.5 * dt
                 half_dW = 0.5 * dW
 

@@ -251,3 +251,46 @@ class SDELogqp(BaseSDE):
         else:
             g_logqp = y_.new_zeros((g.shape[0], 1, g.shape[-1]))
         return torch.cat([g, g_logqp], dim=1)
+
+
+def collect_adjoint_params(sde):
+    """Every floating tensor requiring grad that ``sde`` holds, each once by
+    identity, in a fixed order: the parameters, buffers and plain tensor
+    attributes of every module reached from it (through the ``ForwardSDE``,
+    ``SDELogqp`` and ``RenameMethodsSDE`` wrappers, and through lists,
+    tuples and dicts), and those of an SDE object that is not a module."""
+    return adjoint_param_slots(sde)[0]
+
+
+def adjoint_param_slots(sde):
+    """``(tensors, slots)``: the adjoint parameters, and for each of them
+    that is not a leaf (a context or a path computed upstream) its index
+    and the ``(container, key)`` that holds it, where the backward puts a
+    leaf stand-in (``leaf_stand_ins``)."""
+    found, slots, seen = [], [], set()
+
+    def visit(obj, container=None, key=None):
+        if id(obj) in seen:
+            return
+        seen.add(id(obj))
+        if torch.is_tensor(obj):
+            if obj.is_floating_point() and obj.requires_grad:
+                if not obj.is_leaf:
+                    if not isinstance(container, (dict, list)):
+                        raise ValueError(
+                            "sdeint_adjoint differentiates a tensor the SDE "
+                            "computes upstream only where a module attribute, "
+                            "a buffer, a list or a dict holds it, not a tuple")
+                    slots.append((len(found), container, key))
+                found.append(obj)
+        elif isinstance(obj, (list, tuple)):
+            for i, item in enumerate(obj):
+                visit(item, obj, i)
+        elif isinstance(obj, dict):
+            for k, item in obj.items():
+                visit(item, obj, k)
+        elif isinstance(obj, nn.Module) or hasattr(obj, "noise_type"):
+            visit(vars(obj))
+
+    visit(sde)
+    return tuple(found), slots

@@ -1,44 +1,39 @@
 """Public forward-integration entry point (counterpart of
 ``torchsde_tpu/core/sdeint.py``).
 
-Ported: fixed-step solves with concrete ``ts`` by every method of the
-JAX package (``adjoint_reversible_heun`` only as ``sdeint_adjoint``'s
-adjoint method, as there), the default noise source (W, U and A, with
-``rng_impl``) and explicit Brownian objects (``BrownianInterval`` and the
-classes built on it, ``PrecomputedBrownian``, or any ``BaseBrownian``),
-``logqp``, ``names``, ``return_stats``, ``remat`` and the contract checks
-with the JAX package's wording. Not ported yet (ROADMAP queue 1 item 2):
-adaptive stepping and its arguments, the sparse-output and traced-``ts``
-paths, and in-loop noise generation (``noise_precompute=False``, and with
-it the JAX package's warning that ``rng_impl='pallas'`` does not reach
-in-loop noise). The JAX package's ``key`` and ``entropy`` have no counterpart
-here: the port seeds with a ``torch.Generator``.
+Every method of the JAX package on a fixed step grid
+(``adjoint_reversible_heun`` only as ``sdeint_adjoint``'s adjoint method,
+as there) or adaptive (``adaptive=True``: ``integrate.integrate_adaptive``,
+with ``rtol``, ``atol``, ``dt_min`` and ``max_steps``), with concrete
+``ts``; the default noise source (W, U and A, with ``rng_impl``) and
+explicit Brownian objects (``BrownianInterval`` and the classes built on
+it, ``PrecomputedBrownian``, or any ``BaseBrownian``); ``logqp``,
+``names``, ``return_stats``, ``remat`` and the contract checks with the
+JAX package's wording. A fixed-step solve precomputes its noise unless the
+buffers would pass 1 GiB or ``noise_precompute=False`` asks otherwise, and
+keeps only the grid states that bracket an output (``core/integrate.py``).
+The JAX package's ``key`` and ``entropy`` have no counterpart here: the
+port seeds with a ``torch.Generator``. Traced ``ts`` (output times on the
+card) is not ported yet (ROADMAP queue 1).
 """
+
+import math
+import warnings
 
 import numpy as np
 import torch
 
 from . import base_sde, integrate, solvers
-from ..brownian.interval import as_torch_dtype
-from ..settings import LEVY_AREA_APPROXIMATIONS, METHODS, NOISE_TYPES, SDE_TYPES
+from ..brownian.interval import BrownianInterval, as_torch_dtype
+from ..settings import METHODS, NOISE_TYPES, SDE_TYPES
 from ..types import Scalar, Tensor, Vector
 from ..utils import misc
 
-ADAPTIVE_NOT_PORTED = ("adaptive stepping is not ported to torchsde_tpu_torch "
-                       "yet (ROADMAP queue 1 item 2)")
-# The JAX package's keywords that belong to adaptive stepping or to in-loop
-# noise, both of the next slice.
-ADAPTIVE_KWARGS = ("rtol", "atol", "dt_min", "max_steps", "adjoint_rtol",
-                   "adjoint_atol", "adjoint_max_steps")
-
 
 def check_jax_kwargs(kwargs, entry):
-    """Refuse the JAX package's keywords that the port cannot honour, so
-    none is dropped silently: ``key`` and ``entropy`` raise a TypeError
-    naming ``generator=``, the adaptive ones and ``noise_precompute=False``
-    (in-loop noise) a NotImplementedError. ``noise_precompute`` None or
-    True is what the port does, precomputing the noise, and is accepted.
-    Any other unknown keyword warns, as in the JAX package."""
+    """Refuse the JAX package's seeds, so that none is dropped silently:
+    ``key`` and ``entropy`` raise a TypeError naming ``generator=``. Any
+    other unknown keyword warns, as in the JAX package."""
     for name in ("key", "entropy"):
         if name in kwargs:
             raise TypeError(
@@ -46,12 +41,6 @@ def check_jax_kwargs(kwargs, entry):
                 f"noise with generator=torch.Generator(...), or pass "
                 f"bm=BrownianInterval(..., {name}=...) for the JAX "
                 f"package's Brownian path")
-    adaptive = [name for name in ADAPTIVE_KWARGS if name in kwargs]
-    if kwargs.pop("noise_precompute", None) is False:
-        adaptive.append("noise_precompute=False")
-    if adaptive:
-        raise NotImplementedError(f"{ADAPTIVE_NOT_PORTED}: {entry}() takes "
-                                  f"none of {adaptive}")
     misc.handle_unused_kwargs(kwargs, msg=f"`{entry}`")
 
 
@@ -62,6 +51,9 @@ def sdeint(sde,
            method=None,
            dt: Scalar = 1e-3,
            adaptive=False,
+           rtol: Scalar = 1e-5,
+           atol: Scalar = 1e-4,
+           dt_min: Scalar = 1e-5,
            options=None,
            names=None,
            logqp=False,
@@ -69,42 +61,63 @@ def sdeint(sde,
            extra_solver_state=None,
            generator=None,
            rng_impl="generator",
+           max_steps=None,
            return_stats=False,
            unroll=1,
            remat=False,
+           noise_precompute=None,
            **unused_kwargs):
-    """Numerically integrate an SDE on a fixed step grid of width ``dt``.
+    """Numerically integrate an SDE, on a fixed step grid of width ``dt``
+    or, with ``adaptive=True``, with steps the error controller picks.
 
     ``generator`` (a ``torch.Generator`` on ``y0``'s device) seeds the
     default Brownian noise when ``bm`` is not supplied; without it the noise
     comes from PyTorch's default generator. ``rng_impl`` picks the default
-    noise's normals: ``"generator"`` (the generator's own stream) or
-    ``"philox"`` (the port's Philox stream seeded from the generator; on the
-    card a CUDA kernel, see ``core/integrate.sample_grid_noise``). Returns
-    ``ys`` of shape ``(len(ts), batch, channels)``, then the per-interval
-    ``log_ratio`` when ``logqp``, the final solver state when ``extra``,
-    and with ``return_stats`` the solve's counters ``{n_accepted,
-    n_rejected, nfe, incomplete}`` (``n_steps``, 0, ``n_steps`` times the
-    solver's evaluations a step, False), as the JAX package's fixed-step
-    solve gives them.
+    noise's normals when they are precomputed: ``"generator"`` (the
+    generator's own stream) or ``"philox"`` (the port's Philox stream
+    seeded from the generator; on the card a CUDA kernel, see
+    ``core/integrate.sample_grid_noise``). Returns ``ys`` of shape
+    ``(len(ts), batch, channels)``, then the per-interval ``log_ratio``
+    when ``logqp``, the final solver state when ``extra``, and with
+    ``return_stats`` the solve's counters ``{n_accepted, n_rejected, nfe,
+    incomplete}`` (fixed-step: ``n_steps``, 0, ``n_steps`` times the
+    solver's evaluations a step, False), as the JAX package gives them.
+
+    ``adaptive=True`` runs ``integrate.integrate_adaptive`` from the step
+    ``dt`` at ``rtol``/``atol``, no step below ``dt_min``. Its default
+    noise is a ``BrownianInterval`` over ``[ts[0], ts[-1]]`` on ``y0``'s
+    device keyed by two words drawn once from ``generator``, its depth
+    from ``dt_min`` (``adaptive_default_levels``). Where autograd records
+    the solve (grad mode on and ``y0`` or a tensor of the SDE requiring
+    grad), the loop runs at most ``max_steps`` iterations (default
+    ``default_max_steps``), as the JAX package's differentiable bounded
+    scan: outputs not reached are NaN and ``incomplete`` is True.
+
+    ``noise_precompute`` (fixed steps): True draws every increment before
+    the loop, False makes them in the loop a step at a time, None (the
+    default) precomputes unless the buffers would pass
+    ``integrate.NOISE_PRECOMPUTE_MAX_BYTES``. With an explicit Brownian
+    object both give the same bits; the default noise made in the loop is
+    the keyed stream ``integrate.make_iid_noise_fn`` (a key drawn once
+    from ``generator``), another stream of the same law, which
+    ``rng_impl="philox"`` does not reach (it warns).
 
     ``remat=True`` checkpoints each step (``torch.utils.checkpoint``):
     backprop through the solve keeps the states and recomputes each step's
     activations. ``unroll`` tunes the JAX package's ``lax.scan`` and
-    changes no result; it is accepted and ignored. ``key``, ``entropy`` and
-    the adaptive keywords raise (``check_jax_kwargs``).
+    changes no result; it is accepted and ignored. ``key`` and ``entropy``
+    raise (``check_jax_kwargs``).
     """
     del unroll
     check_jax_kwargs(unused_kwargs, "sdeint")
     integrate.check_rng_impl(rng_impl)
-    if adaptive:
-        raise NotImplementedError(ADAPTIVE_NOT_PORTED)
 
     sde, y0, ts, bm, method, options = check_contract(
-        sde, y0, ts, bm, method, options, names, logqp, generator)
+        sde, y0, ts, bm, method, options, names, logqp, generator,
+        adaptive=adaptive, dt_min=dt_min if adaptive else None)
 
     solver_cls = solvers.select(method=method, sde_type=sde.sde_type)
-    bm_for_solver = None if isinstance(bm, _DefaultNoise) else bm
+    bm_for_solver = None if isinstance(bm, integrate.DefaultNoise) else bm
     solver = solver_cls(sde=sde, bm=bm_for_solver, dt=dt, options=options)
 
     time_dtype = _time_dtype(y0)
@@ -112,47 +125,86 @@ def sdeint(sde,
         t0 = torch.as_tensor(ts[0], dtype=time_dtype, device=y0.device)
         extra_solver_state = solver.init_extra_solver_state(t0, y0)
 
+    if adaptive:
+        warn_if_coarser_than_dt_min(bm, dt_min)
+        if max_steps is None:
+            max_steps = default_max_steps(ts, dt, dt_min)
+        ys, extra_solver_state, stats = integrate.integrate_adaptive(
+            solver, y0, extra_solver_state, ts, bm, dt, rtol, atol, dt_min,
+            time_dtype=time_dtype,
+            max_steps=int(max_steps) if _records(sde, y0) else None)
+        return parse_return(y0, ys, extra_solver_state, extra, logqp,
+                            stats=stats, return_stats=return_stats)
+
     grid = integrate.build_step_grid(ts[0], ts[-1], dt)
-    if isinstance(bm, _DefaultNoise):
-        noise_xs = integrate.sample_grid_noise(
-            bm.generator, grid, bm.shape, bm.dtype, bm.device,
-            needs_U=solver.needs_U, needs_A=solver.needs_A,
-            rng_impl=rng_impl,
-            levy_area_approximation=bm.levy_area_approximation)
-    else:
-        noise_xs = integrate.precompute_bm_noise(bm, grid, solver.needs_U,
-                                                 solver.needs_A)
-    ys, extra_solver_state = integrate.integrate_fixed(
-        solver, y0, extra_solver_state, grid, ts, noise_xs,
-        time_dtype=time_dtype, remat=remat)
     n_steps = len(grid) - 1
+    precompute = integrate.should_precompute_noise(
+        n_steps, bm.shape, bm.dtype, solver.needs_U, solver.needs_A,
+        override=noise_precompute)
+    noise = integrate.solve_noise(bm, grid, solver.needs_U, solver.needs_A,
+                                  precompute, rng_impl, noise_precompute)
+    ys, extra_solver_state = integrate.integrate_fixed(
+        solver, y0, extra_solver_state, grid, ts, noise,
+        time_dtype=time_dtype, remat=remat)
     stats = dict(n_accepted=n_steps, n_rejected=0,
                  nfe=n_steps * solver.nfe_per_step, incomplete=False)
     return parse_return(y0, ys, extra_solver_state, extra, logqp,
                         stats=stats, return_stats=return_stats)
 
 
+def _records(sde, y0):
+    """Does autograd record a solve of ``sde`` from ``y0``: grad mode on
+    and ``y0`` or a tensor the SDE holds requiring grad?"""
+    if not torch.is_grad_enabled() or y0.requires_grad:
+        return torch.is_grad_enabled()
+    try:
+        return bool(base_sde.collect_adjoint_params(sde))
+    except ValueError:   # a computed tensor where the adjoint cannot swap it
+        return True
+
+
+def default_max_steps(ts, dt, dt_min):
+    """The JAX package's iteration budget of a differentiated adaptive
+    solve: ``min(max(4 ceil(span / dt) + 2T, 256), ceil(span / dt_min) +
+    2T, 16384)``."""
+    span = float(ts[-1] - ts[0])
+    T = len(ts)
+    need = int(math.ceil(span / dt_min)) + 2 * T
+    guess = 4 * int(math.ceil(span / dt)) + 2 * T
+    return min(max(guess, 256), need, 16384)
+
+
+def warn_if_coarser_than_dt_min(bm, dt_min):
+    """Warn, in the JAX package's words, when steps of ``dt_min`` are finer
+    than a ``BrownianInterval``'s dyadic leaf (they would see no noise)."""
+    if isinstance(bm, BrownianInterval):
+        inner = bm
+        leaf = (inner.t1 - inner.t0) / (1 << inner.levels)
+        if dt_min < leaf:
+            warnings.warn(
+                f"Adaptive dt_min={dt_min:.3g} is finer than the "
+                f"BrownianInterval's dyadic leaf width {leaf:.3g} "
+                f"(levels={inner.levels}): steps narrower than a leaf observe "
+                f"zero noise. Construct the interval with more `levels` (or a "
+                f"smaller `tol`).")
+
+
+_ADAPTIVE_LEVELS_CAP = 52
+
+
+def adaptive_default_levels(t0, t1, dt_min, margin=2):
+    """Dyadic depth of an adaptive solve's default interval: the shallowest
+    whose leaf is at most ``dt_min / 2**margin``, capped at the float64
+    exact 52 (20 at the reference defaults, span 2 and ``dt_min`` 1e-5)."""
+    span = float(t1) - float(t0)
+    if not (span > 0.0 and dt_min > 0.0):
+        return _ADAPTIVE_LEVELS_CAP
+    levels = int(math.ceil(math.log2(span / float(dt_min)))) + margin
+    return max(0, min(_ADAPTIVE_LEVELS_CAP, levels))
+
+
 def _time_dtype(y0):
     return y0.dtype if y0.dtype.is_floating_point else torch.float32
-
-
-class _DefaultNoise:
-    """Marker for the framework-owned noise source: i.i.d. increments of
-    ``shape`` drawn from ``generator`` on the step grid, with the Levy-area
-    approximation the JAX package's default interval takes for the
-    method."""
-
-    def __init__(self, generator, shape, dtype, device, method):
-        self.generator = generator
-        self.shape = tuple(shape)
-        self.dtype = dtype
-        self.device = device
-        if method == METHODS.srk:
-            self.levy_area_approximation = LEVY_AREA_APPROXIMATIONS.space_time
-        elif method == METHODS.log_ode_midpoint:
-            self.levy_area_approximation = LEVY_AREA_APPROXIMATIONS.foster
-        else:
-            self.levy_area_approximation = LEVY_AREA_APPROXIMATIONS.none
 
 
 def host_times(ts):
@@ -163,10 +215,14 @@ def host_times(ts):
 
 
 def check_contract(sde, y0, ts, bm, method, options, names, logqp,
-                   generator=None):
+                   generator=None, adaptive=False, dt_min=None):
     """Validate traits/shapes and fill in defaults, with the wording of
     ``torchsde_tpu.core.sdeint.check_contract``. The shape probes call the
-    drift and diffusion once on ``y0`` (without recording gradients)."""
+    drift and diffusion once on ``y0`` (without recording gradients).
+    Without ``bm`` the noise is the default source
+    (``integrate.DefaultNoise``), or, where some direction of the solve is
+    adaptive (``dt_min`` given), a ``BrownianInterval`` keyed from
+    ``generator`` at the depth ``adaptive_default_levels`` picks."""
     if names is None:
         names_to_change = {}
     else:
@@ -318,10 +374,23 @@ def check_contract(sde, y0, ts, bm, method, options, names, logqp,
     sde = base_sde.ForwardSDE(sde)
 
     if bm is None:
-        bm = _DefaultNoise(generator, (batch_sizes[0], noise_sizes[0]),
-                           y0.dtype, y0.device, method)
+        bm = integrate.DefaultNoise(generator,
+                                    (batch_sizes[0], noise_sizes[0]),
+                                    y0.dtype, y0.device, method)
+        if dt_min is not None:
+            bm = BrownianInterval(
+                t0=float(ts[0]), t1=float(ts[-1]), size=bm.shape,
+                dtype=bm.dtype, key=integrate.draw_key(generator, y0.device),
+                levy_area_approximation=bm.levy_area_approximation,
+                levels=adaptive_default_levels(ts[0], ts[-1], dt_min),
+                device=y0.device)
 
     options = {} if options is None else dict(options)
+
+    if adaptive and method == METHODS.euler and sde.noise_type != NOISE_TYPES.additive:
+        warnings.warn("Numerical solution is not guaranteed to converge to the correct "
+                      "solution when using adaptive time-stepping with the "
+                      "Euler--Maruyama method with non-additive noise.")
     return sde, y0, ts, bm, method, options
 
 

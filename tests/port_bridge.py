@@ -71,6 +71,30 @@ def port_generator(jax_gen, dtype):
     return load_jax_params(m, jax_named_arrays(jax_gen))
 
 
+def port_unet(jax_unet, dtype):
+    """A torchsde_tpu_torch UNet holding ``jax_unet``'s weights (its widths
+    read from them: ``conv_in.w`` is (3, 3, in_ch, base_ch), each down
+    block's ``conv1.w`` ends in base_ch times its multiplier)."""
+    from torchsde_tpu_torch.models.unet import UNet
+    base = jax_unet.base_ch
+    ch_mults = tuple(blk.conv1.w.shape[-1] // base
+                     for blk in jax_unet.down_blocks)
+    m = UNet(jax_unet.conv_in.w.shape[2], base, ch_mults, dtype=dtype,
+             device="cpu")
+    return load_jax_params(m, jax_named_arrays(jax_unet))
+
+
+def port_score_sde(jax_sde, dtype):
+    """A torchsde_tpu_torch ScoreMatchingSDE around a U-Net like
+    ``jax_sde``'s, its weights carried across from the JAX ScoreMatchingSDE
+    as a whole (``denoiser.*``)."""
+    from torchsde_tpu_torch.models.cont_ddpm import ScoreMatchingSDE
+    m = ScoreMatchingSDE(port_unet(jax_sde.denoiser, dtype),
+                         jax_sde.input_size, jax_sde.t0, jax_sde.t1,
+                         jax_sde.beta_min, jax_sde.beta_max)
+    return load_jax_params(m, jax_named_arrays(jax_sde))
+
+
 # The critic CDE's control path: per-batch data that the JAX module carries
 # as leaves and the port keeps outside the module's state.
 CDE_PATH_KEYS = ("func._path_ts", "func._path_ys")

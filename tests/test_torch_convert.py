@@ -81,6 +81,8 @@ def test_port_never_imports_jax():
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "assert len(mods) >= 15, mods\n"
+        "assert {'torchsde_tpu_torch.models.unet', "
+        "'torchsde_tpu_torch.models.cont_ddpm'} <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'torchsde_tpu.')))\n"
         "assert not bad, bad\n")

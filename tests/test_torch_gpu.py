@@ -2145,3 +2145,139 @@ def test_in_loop_noise_on_the_card(cuda):
         5, t0.to(cuda), t1.to(cuda))
     for g, w in zip(got[:2], want[:2]):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=2e-6)
+
+
+# --------------------------------------------------------------------------- #
+#  Traced ts and the continuous DDPM (no kernel: plain PyTorch)               #
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("entry", ["sdeint", "sdeint_adjoint"])
+@pytest.mark.parametrize("noise_precompute", [True, False],
+                         ids=["precomputed", "in_loop"])
+def test_traced_ts_on_the_card_matches_the_cpu(cuda, entry,
+                                               noise_precompute):
+    """A traced ``ts`` (a CUDA tensor that requires grad) in float64: the
+    values and the gradients to ``ts``, ``y0`` and the parameters against
+    the CPU's on one explicit interval, at 1e-9 of scale."""
+    import torchsde_tpu_torch as ttsde
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        bm = BrownianInterval(0.0, 1.0, (64, 3), dtype=torch.float64,
+                              entropy=5, levels=16, device=device)
+        sde = _ExDiagonal(device)
+        y0 = torch.full((64, 3), 0.1, dtype=torch.float64, device=device,
+                        requires_grad=True)
+        ts = torch.tensor([0.0, 0.137, 0.5, 0.91], dtype=torch.float64,
+                          device=device, requires_grad=True)
+        ys = getattr(ttsde, entry)(sde, y0, ts, bm=bm, method="milstein",
+                                   dt=1 / 32,
+                                   noise_precompute=noise_precompute)
+        out.append([ys.detach().cpu()] + [g.cpu() for g in torch.autograd.grad(
+            (ys ** 2).sum() + ys[1].sum(), [ts, y0, sde.mu, sde.sigma])])
+    for got, want in zip(*out):
+        assert bool(torch.isfinite(want).all())
+        assert float(want.abs().max()) > 0
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-9 * float(want.abs().max()))
+
+
+def test_traced_ts_poison_on_the_card(cuda):
+    """A schedule past the interval's end is NaN on the card, values and
+    gradients."""
+    bm = BrownianInterval(0.0, 1.0, (64, 3), dtype=torch.float64, entropy=5,
+                          levels=16, device=cuda)
+    sde = _ExDiagonal(cuda)
+    ts = torch.tensor([0.0, 0.5, 1.2], dtype=torch.float64, device=cuda,
+                      requires_grad=True)
+    ys = sdeint(sde, torch.full((64, 3), 0.1, dtype=torch.float64,
+                                device=cuda), ts, bm=bm, method="euler",
+                dt=1 / 32)
+    ys.sum().backward()
+    assert bool(torch.isnan(ys).all()) and bool(torch.isnan(ts.grad).all())
+    assert bool(torch.isnan(sde.mu.grad).all())
+
+
+def _small_score_sde(device, dtype=torch.float64, seed=0):
+    from torchsde_tpu_torch.models.cont_ddpm import ScoreMatchingSDE
+    from torchsde_tpu_torch.models.unet import UNet
+    net = UNet(1, 8, (1, 2, 4), dtype=dtype, device=device,
+               generator=torch.Generator().manual_seed(seed))
+    return ScoreMatchingSDE(net, input_size=(1, 12, 12))
+
+
+@pytest.fixture
+def cpu_time_embedding(monkeypatch):
+    """The U-Net's float32 time embedding computed on the CPU: CUDA's
+    float32 sin, cos and exp are an ulp from the CPU's, so the float64
+    comparisons hold the network beyond the embedding to the same one."""
+    from torchsde_tpu_torch.models import unet
+    own = unet.sinusoidal_embedding
+    monkeypatch.setattr(unet, "sinusoidal_embedding",
+                        lambda t, dim: own(t.cpu(), dim).to(t.device))
+    return own
+
+
+def test_ddpm_time_embedding_on_the_card(cuda, cpu_time_embedding):
+    """The float32 embedding on the card within two float32 epsilons of
+    the CPU's (its values lie in [-1, 1])."""
+    own = cpu_time_embedding
+    t = torch.rand(4096, generator=torch.Generator().manual_seed(0))
+    got = own(t.to(cuda), 64)
+    assert got.dtype == torch.float32 and got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), own(t, 64), rtol=0,
+                               atol=2 * float(np.finfo(np.float32).eps))
+
+
+def test_ddpm_score_and_loss_on_the_card_match_the_cpu(cuda,
+                                                       cpu_time_embedding):
+    """A small U-Net's score and the score-matching loss with its
+    parameter gradients, in float64 on the card against the CPU on the
+    same weights, draws and time embedding, at 1e-9 of scale."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 1, 12, 12), generator=gen, dtype=torch.float64)
+    u = torch.rand((4, 2), generator=gen, dtype=torch.float64)
+    z = torch.randn((8, 1, 12, 12), generator=gen, dtype=torch.float64)
+    t = torch.rand(4, generator=gen, dtype=torch.float64)
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        sde = _small_score_sde(device)
+        score = sde.score(t.to(device), x.to(device))
+        loss = sde.loss_on_draws(x.to(device), u.to(device), z.to(device))
+        grads = torch.autograd.grad(loss.mean(), list(sde.parameters()))
+        out.append([score.detach().cpu(), loss.detach().cpu()]
+                   + [g.cpu() for g in grads])
+    top = max(float(w.abs().max()) for w in out[1][2:])
+    for got, want in zip(*out):
+        scale = max(float(want.abs().max()), 1e-6 * top)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-9 * scale)
+
+
+def test_ddpm_samplers_on_the_card(cuda, cpu_time_embedding):
+    """A small reverse-SDE sample (``denoise_t``) and a probability-flow
+    sample in float32 on the card: finite, of the right shape and dtype.
+    The reverse solve in float64 on the card against the CPU's on the same
+    t1 draws, increments and time embedding, at 1e-9 of scale."""
+    from torchsde_tpu_torch.models.cont_ddpm import ReverseDiffeqWrapper
+    rev = ReverseDiffeqWrapper(_small_score_sde(cuda, torch.float32))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    with torch.no_grad():
+        sample = rev.sde_sample(gen, batch_size=8, dt=0.05, t_size=3,
+                                denoise_t=0.05)
+        flow = rev.ode_sample(batch_size=4, dt=0.1, generator=gen)
+    assert sample.shape == (3, 8, 1, 12, 12) and flow.shape == (4, 1, 12, 12)
+    for s in (sample, flow):
+        assert s.dtype == torch.float32 and bool(torch.isfinite(s).all())
+    gen = torch.Generator().manual_seed(2)
+    y1 = torch.randn((8, 144), generator=gen, dtype=torch.float64)
+    W = torch.randn((19, 8, 144), generator=gen,
+                    dtype=torch.float64) * 0.05 ** 0.5
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        rev = ReverseDiffeqWrapper(_small_score_sde(device))
+        with torch.no_grad():
+            out.append(sdeint(rev, y1.to(device), [-1.0, -0.05], dt=0.05,
+                              method="midpoint",
+                              bm=_GridTable(W.to(device))).cpu())
+    assert bool(torch.isfinite(out[1]).all())
+    torch.testing.assert_close(out[0], out[1], rtol=0,
+                               atol=1e-9 * float(out[1].abs().max()))

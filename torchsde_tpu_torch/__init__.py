@@ -21,8 +21,11 @@ stacked replicas (``parallel/replicas.py``); the SDE-GAN model with the
 kernels of its generator and critic solves (``ops/gan_fused.py``);
 ``fused_sdeint`` and ``fused_sdeint_logqp``, the whole-solve kernels of any
 SDE whose drift and diffusion (and, with the KL channel, prior drift) are
-MLP towers (``ops/fused_solve.py``); and the whole srid2 solve of an
-elementwise diagonal SDE (``ops/srk_fused.py``).
+MLP towers (``ops/fused_solve.py``); the whole srid2 solve of an
+elementwise diagonal SDE (``ops/srk_fused.py``); adaptive stepping; traced
+output times (a ``ts`` that requires grad, or one read inside a CUDA graph
+capture: the solve steps an explicit ``bm``'s grid and interpolates on the
+card); and the continuous DDPM (``models/unet.py``, ``models/cont_ddpm.py``).
 """
 
 from .brownian.base import BaseBrownian

@@ -452,19 +452,20 @@ class BrownianInterval(base.BaseBrownian):
         return out
 
     def query_grid(self, grid, return_U=False, return_A=False):
-        """All ``len(grid) - 1`` consecutive increments of a host-side 1-D
-        grid in one pass: one descent per grid point (not two per cell),
-        bitwise what ``__call__`` gives for each cell. Returns ``(W, U,
-        A)`` with leading dimension ``len(grid) - 1``, ``U``/``A`` None
-        unless requested."""
-        grid = np.asarray(grid, np.float64)
+        """All ``len(grid) - 1`` consecutive increments of a 1-D grid in one
+        pass: one descent per grid point (not two per cell), bitwise what
+        ``__call__`` gives for each cell. A host grid resolves on the host;
+        a float64 CUDA tensor of times resolves on the card with no host
+        read, as ``__call__`` resolves one. Returns ``(W, U, A)`` with
+        leading dimension ``len(grid) - 1``, ``U``/``A`` None unless
+        requested."""
+        if on_host(grid):
+            grid = np.asarray(grid, np.float64)
         w, i, words, eff = self._prefix_at(grid)
-        h_host = torch.diff(eff).numpy()
+        cells = torch.diff(eff).to(self._device)
         bshape = (-1,) + (1,) * len(self._size)
-        h = torch.as_tensor(h_host, device=self._device).to(
-            self._dtype).reshape(bshape)
-        degenerate = torch.as_tensor(h_host == 0.0,
-                                     device=self._device).reshape(bshape)
+        h = cells.to(self._dtype).reshape(bshape)
+        degenerate = (cells == 0.0).reshape(bshape)
         i_a, i_b = (None, None) if i is None else (i[:-1], i[1:])
         W, U, A = self._pair_stats(w[:-1], i_a, w[1:], i_b, words[:-1],
                                    words[1:], h, degenerate, return_A)

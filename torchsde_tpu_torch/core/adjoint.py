@@ -33,7 +33,11 @@ so a context or a path held by a view of the model passes its gradient on
 to whatever made it. The backward is built from differentiable operations
 under ``create_graph``, so it differentiates again (double backward).
 
-Not ported yet (ROADMAP queue 1): traced ``ts``.
+A traced ``ts`` (``sdeint.is_traced``) solves the whole step grid of the
+explicit ``bm``'s ``[t0, t1]`` with every grid point an output, then
+interpolates onto ``ts`` and poisons outside ``_AdjointSolve``, as the JAX
+package does: the output cotangents reach the adjoint through the
+interpolation weights, and ``ts`` gets its gradient from autograd.
 """
 
 import contextlib
@@ -45,7 +49,7 @@ from . import integrate, solvers
 from .adjoint_sde import AdjointSDE, splice
 from .base_sde import adjoint_param_slots
 from .sdeint import (_time_dtype, check_contract, check_jax_kwargs,
-                     default_max_steps, parse_return,
+                     default_max_steps, is_traced, parse_return,
                      warn_if_coarser_than_dt_min)
 from ..brownian.derived import ReverseBrownian
 from ..brownian.interval import np_dtype
@@ -359,23 +363,40 @@ def sdeint_adjoint(sde,
     the default interval's depth. ``noise_precompute`` is ``sdeint``'s,
     decided once for both passes. ``unroll`` is accepted and ignored;
     ``key`` and ``entropy`` raise (``sdeint.check_jax_kwargs``).
+
+    A traced ``ts`` (it requires grad, or a CUDA graph is being captured)
+    takes an explicit ``bm`` with ``t0`` and ``t1`` and fixed steps, not
+    the reversible-Heun pair: both passes step ``integrate.build_step_grid(
+    bm.t0, bm.t1, dt)`` and keep every grid state (O(steps) memory), and
+    ``ys`` is interpolated onto ``ts`` and NaN-poisoned as ``sdeint``'s.
     """
     del unroll
     check_jax_kwargs(unused_kwargs, "sdeint_adjoint")
     integrate.check_rng_impl(rng_impl)
 
+    traced = is_traced(ts)
     sde, y0, ts, bm, method, options = check_contract(
         sde, y0, ts, bm, method, options, names, logqp, generator,
         adaptive=adaptive,
         dt_min=dt_min if (adaptive or adjoint_adaptive) else None)
+    if traced and (adaptive or adjoint_adaptive):
+        raise ValueError("Traced `ts` is only supported for fixed-step "
+                         "adjoint solves (the adaptive loop's output "
+                         "bookkeeping needs concrete output times).")
+    # A traced schedule steers only the interpolation after the solve,
+    # whose outputs are every point of the bm's step grid (which
+    # build_interval_grid reproduces).
+    ts_solve = (integrate.build_step_grid(bm.t0, bm.t1, dt) if traced
+                else ts)
     params, slots = adjoint_param_slots(sde)
     if adjoint_params is not None:
         _check_adjoint_params(adjoint_params, params)
     adjoint_method = select_default_adjoint_method(sde, method,
                                                    adjoint_method)
     adjoint_options = {} if adjoint_options is None else dict(adjoint_options)
-    plan_kwargs = dict(sde=sde, params=params, slots=slots, bm=bm, ts=ts,
-                       dt=float(dt), time_dtype=_time_dtype(y0),
+    time_dtype = _time_dtype(y0)
+    plan_kwargs = dict(sde=sde, params=params, slots=slots, bm=bm,
+                       ts=ts_solve, dt=float(dt), time_dtype=time_dtype,
                        rng_impl=rng_impl, noise_precompute=noise_precompute,
                        methods=(method, adjoint_method))
 
@@ -386,6 +407,13 @@ def sdeint_adjoint(sde,
                              "not supported under sdeint_adjoint: the "
                              "backward reconstruction must re-step the exact "
                              "forward grid.")
+        if traced:
+            raise ValueError(
+                "Traced `ts` is not supported with method='reversible_heun' "
+                "under sdeint_adjoint: its algebraically-reversed backward "
+                "must re-step the exact forward grid, which a traced "
+                "schedule cannot pin down. Use a concrete `ts`, or a "
+                "non-reversible method.")
         from .adjoint_solvers import sdeint_adjoint_reversible_heun
         ys, extra_solver_state = sdeint_adjoint_reversible_heun(
             y0, extra_solver_state, **plan_kwargs)
@@ -394,7 +422,7 @@ def sdeint_adjoint(sde,
     if adaptive or adjoint_adaptive:
         warn_if_coarser_than_dt_min(bm, dt_min)
     if adjoint_max_steps is None:
-        adjoint_max_steps = default_max_steps(ts, dt, dt_min)
+        adjoint_max_steps = default_max_steps(ts_solve, dt, dt_min)
     cls = solvers.select(method=method, sde_type=sde.sde_type)
     solver = cls(sde=sde, bm=None, dt=dt, options=options)
     if bm.levy_area_approximation not in solver.levy_area_approximations:
@@ -402,7 +430,7 @@ def sdeint_adjoint(sde,
                          f"{solver.levy_area_approximations} set as the "
                          f"`levy_area_approximation` on the Brownian motion.")
     if extra_solver_state is None:
-        t0 = torch.as_tensor(ts[0], dtype=_time_dtype(y0), device=y0.device)
+        t0 = torch.as_tensor(ts_solve[0], dtype=time_dtype, device=y0.device)
         extra_solver_state = solver.init_extra_solver_state(t0, y0)
     plan = _GenericPlan(
         solver, adjoint_method, adjoint_options, bool(adaptive),
@@ -410,4 +438,8 @@ def sdeint_adjoint(sde,
         (float(rtol), float(atol), float(adjoint_rtol), float(adjoint_atol),
          float(dt_min)), int(adjoint_max_steps), **plan_kwargs)
     ys = _AdjointSolve.apply(plan, tuple(extra_solver_state), y0, *params)
+    if traced:
+        grid = torch.as_tensor(ts_solve, dtype=time_dtype, device=y0.device)
+        ys = integrate.poison_off_grid(
+            integrate.linear_interp_on_grid(ts, grid, ys), ts, grid)
     return parse_return(y0, ys, plan.extra_out, extra, logqp)

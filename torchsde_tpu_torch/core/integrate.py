@@ -5,7 +5,10 @@ A fixed-step solve (``integrate_fixed``) walks a host-side float64 step
 grid in a Python loop, keeps only the grid states that bracket an output
 time (the output times are concrete, so the host finds them) and
 interpolates them onto ``ts``; the adjoint's solve steps to every output
-time instead (``build_interval_grid``, ``integrate_to_outputs``).
+time instead (``build_interval_grid``, ``integrate_to_outputs``). A traced
+``ts``, which the host never reads, steps a grid made on the device
+(``device_step_grid``), keeps every state and interpolates on the device
+(``integrate_traced``).
 
 Its noise takes one of three forms (``solve_noise``): drawn in one pass
 before the loop (the default source's i.i.d. increments from the caller's
@@ -34,7 +37,7 @@ import torch.utils.checkpoint
 
 from ..brownian import threefry
 from ..brownian.base import BaseBrownian, levy_area
-from ..brownian.interval import as_torch_dtype, np_dtype
+from ..brownian.interval import as_torch_dtype, np_dtype, on_host
 from ..ops import prng
 from ..settings import LEVY_AREA_APPROXIMATIONS, METHODS
 
@@ -125,11 +128,15 @@ def make_iid_noise_fn(key, size, dtype, needs_U=False, needs_A=False,
 def bm_noise_fn(bm, grid, needs_U, needs_A):
     """An explicit Brownian object queried inside the loop: ``noise_fn(i,
     t0, t1)`` asks ``bm`` for the cell ``(grid[i], grid[i + 1])`` of the
-    host float64 ``grid``, so its increments are bitwise those of
-    ``precompute_bm_noise`` over the same grid."""
+    float64 ``grid``, so its increments are bitwise those of
+    ``precompute_bm_noise`` over the same grid. A grid on the card
+    (``device_step_grid``) is queried with its own 0-d tensors, which a
+    ``BrownianInterval`` resolves there without a host read."""
     def noise_fn(i, t0, t1):
-        return query_bm(bm, float(grid[i]), float(grid[i + 1]), needs_U,
-                        needs_A)
+        if on_host(grid):
+            return query_bm(bm, float(grid[i]), float(grid[i + 1]), needs_U,
+                            needs_A)
+        return query_bm(bm, grid[i], grid[i + 1], needs_U, needs_A)
     return noise_fn
 
 
@@ -141,6 +148,17 @@ def build_step_grid(t0, t1, dt):
     grid = t0 + dt * np.arange(n + 1, dtype=np.float64)
     grid[-1] = t1
     return grid
+
+
+def device_step_grid(t0, t1, dt, device):
+    """``build_step_grid(t0, t1, dt)`` as a float64 tensor made on
+    ``device`` by its own arithmetic (``t0 + dt * k``, the last point
+    ``t1``), bitwise the host grid's copy but with no host-to-device copy,
+    so that it can be made inside a CUDA graph capture."""
+    n = len(build_step_grid(t0, t1, dt)) - 1
+    k = torch.arange(n + 1, dtype=torch.float64, device=device)
+    return torch.where(k == n, torch.full_like(k, float(t1)),
+                       float(t0) + float(dt) * k)
 
 
 def check_rng_impl(rng_impl):
@@ -221,6 +239,36 @@ def linear_interp_on_grid(out_ts, grid, ys_grid):
     w = (out_ts - t_lo) / (t_hi - t_lo)
     w_b = w.reshape(w.shape + (1,) * (ys_grid.ndim - 1)).to(ys_grid.dtype)
     return ys_grid[idx - 1] * (1 - w_b) + ys_grid[idx] * w_b
+
+
+def poison_off_grid(ys, ts, grid):
+    """``ys`` times NaN where the traced schedule ``ts`` does not start at
+    ``grid[0]`` or ends past ``grid[-1]``, else times one, decided on the
+    device (the JAX package's rule for traced ``ts``): such a schedule would
+    silently solve another problem than the same call with concrete times,
+    or extrapolate the last cell. Multiplying, not selecting, keeps the NaN
+    in the gradients too."""
+    ok = (ts[0] == grid[0]) & (ts[-1] <= grid[-1])
+    return ys * torch.where(ok, 1.0, float("nan")).to(ys.dtype)
+
+
+def integrate_traced(solver, y0, extra0, grid, ts, noise, time_dtype=None,
+                     remat=False):
+    """Fixed-step solve over the whole float64 ``grid`` on ``y0``'s device
+    (``device_step_grid``), keeping every grid state, since a traced
+    schedule can bracket any cell; the states are interpolated onto the
+    tensor ``ts`` on the device (``linear_interp_on_grid``, so gradients
+    reach ``ts``) and poisoned where ``ts`` leaves the grid
+    (``poison_off_grid``). Reads nothing to the host. ``noise`` as
+    ``integrate_to_outputs`` takes it. Returns ``(ys, extra_final)``."""
+    if time_dtype is None:
+        time_dtype = y0.dtype
+    grid_dev = grid.to(time_dtype)
+    ys_grid, extra = integrate_to_outputs(
+        solver, y0, extra0, grid_dev, range(len(grid)), noise,
+        time_dtype=time_dtype, remat=remat)
+    ys = linear_interp_on_grid(ts, grid_dev, ys_grid)
+    return poison_off_grid(ys, ts, grid_dev), extra
 
 
 def integrate_fixed(solver, y0, extra0, grid, ts, noise, time_dtype=None,

@@ -13,8 +13,16 @@ JAX package's wording. A fixed-step solve precomputes its noise unless the
 buffers would pass 1 GiB or ``noise_precompute=False`` asks otherwise, and
 keeps only the grid states that bracket an output (``core/integrate.py``).
 The JAX package's ``key`` and ``entropy`` have no counterpart here: the
-port seeds with a ``torch.Generator``. Traced ``ts`` (output times on the
-card) is not ported yet (ROADMAP queue 1).
+port seeds with a ``torch.Generator``.
+
+Traced ``ts``, the counterpart of the JAX package's ``ts`` traced under
+``jit``: a tensor of output times that requires grad, or any tensor of
+times while the current CUDA stream captures a graph (``is_traced``). The
+host never reads it: the solve steps the whole grid of an explicit
+``bm``'s ``[t0, t1]``, keeps every grid state, and interpolates onto
+``ts`` on the device (``integrate.integrate_traced``), so gradients reach
+``ts`` and a captured graph replays for any schedule of the same length.
+Every other ``ts`` is concrete and read on the host.
 """
 
 import math
@@ -102,6 +110,15 @@ def sdeint(sde,
     from ``generator``), another stream of the same law, which
     ``rng_impl="philox"`` does not reach (it warns).
 
+    A traced ``ts`` (``is_traced``: it requires grad, or a CUDA graph is
+    being captured) needs an explicit ``bm`` with ``t0`` and ``t1`` (a
+    ``BrownianInterval``) and fixed steps: the grid is
+    ``integrate.build_step_grid(bm.t0, bm.t1, dt)``, made on the device,
+    and the interval is queried there. ``ys`` is NaN, in values and
+    gradients, unless ``ts[0] == bm.t0`` and ``ts[-1] <= bm.t1``; within
+    them it equals the concrete call's where the grids coincide (``ts``
+    from ``bm.t0``, ending at ``bm.t1`` or earlier on the grid).
+
     ``remat=True`` checkpoints each step (``torch.utils.checkpoint``):
     backprop through the solve keeps the states and recomputes each step's
     activations. ``unroll`` tunes the JAX package's ``lax.scan`` and
@@ -112,9 +129,14 @@ def sdeint(sde,
     check_jax_kwargs(unused_kwargs, "sdeint")
     integrate.check_rng_impl(rng_impl)
 
+    traced = is_traced(ts)
     sde, y0, ts, bm, method, options = check_contract(
         sde, y0, ts, bm, method, options, names, logqp, generator,
         adaptive=adaptive, dt_min=dt_min if adaptive else None)
+    if adaptive and traced:
+        raise ValueError("Traced `ts` is only supported for fixed-step "
+                         "solves (the adaptive loop's output bookkeeping "
+                         "needs concrete output times).")
 
     solver_cls = solvers.select(method=method, sde_type=sde.sde_type)
     bm_for_solver = None if isinstance(bm, integrate.DefaultNoise) else bm
@@ -136,14 +158,19 @@ def sdeint(sde,
         return parse_return(y0, ys, extra_solver_state, extra, logqp,
                             stats=stats, return_stats=return_stats)
 
-    grid = integrate.build_step_grid(ts[0], ts[-1], dt)
+    if traced:
+        grid = integrate.device_step_grid(bm.t0, bm.t1, dt, y0.device)
+        solve = integrate.integrate_traced
+    else:
+        grid = integrate.build_step_grid(ts[0], ts[-1], dt)
+        solve = integrate.integrate_fixed
     n_steps = len(grid) - 1
     precompute = integrate.should_precompute_noise(
         n_steps, bm.shape, bm.dtype, solver.needs_U, solver.needs_A,
         override=noise_precompute)
     noise = integrate.solve_noise(bm, grid, solver.needs_U, solver.needs_A,
                                   precompute, rng_impl, noise_precompute)
-    ys, extra_solver_state = integrate.integrate_fixed(
+    ys, extra_solver_state = solve(
         solver, y0, extra_solver_state, grid, ts, noise,
         time_dtype=time_dtype, remat=remat)
     stats = dict(n_accepted=n_steps, n_rejected=0,
@@ -207,6 +234,17 @@ def _time_dtype(y0):
     return y0.dtype if y0.dtype.is_floating_point else torch.float32
 
 
+def is_traced(ts):
+    """Is ``ts`` a traced schedule, one the host must not read: a tensor
+    that requires grad (its gradient is wanted), or a tensor while the
+    current CUDA stream is capturing a graph (a replay may see other
+    times)? Lists, numpy arrays and other tensors are concrete."""
+    if not torch.is_tensor(ts):
+        return False
+    return ts.requires_grad or (torch.cuda.is_available() and
+                                torch.cuda.is_current_stream_capturing())
+
+
 def host_times(ts):
     """Evaluation times as a host float64 array."""
     if torch.is_tensor(ts):
@@ -263,15 +301,34 @@ def check_contract(sde, y0, ts, bm, method, options, names, logqp,
     if method not in METHODS:
         raise ValueError(f"Expected method in {METHODS}, but found {method}.")
 
-    try:
-        ts = host_times(ts)
-    except Exception as e:
-        raise ValueError("Evaluation times `ts` must be a 1-D array or list/tuple "
-                         "of floats.") from e
-    if ts.ndim != 1:
-        raise ValueError("Evaluation times `ts` must be one-dimensional.")
-    if not misc.is_strictly_increasing(ts):
-        raise ValueError("Evaluation times `ts` must be strictly increasing.")
+    if is_traced(ts):
+        # The JAX package's checks of a traced `ts`: no host-side check of
+        # its values (the grid comes from the bm; integrate.poison_off_grid).
+        if ts.ndim != 1:
+            raise ValueError("Evaluation times `ts` must be one-dimensional.")
+        if bm is None:
+            raise ValueError(
+                "Traced evaluation times `ts` require an explicit `bm` (e.g. a "
+                "BrownianInterval): its [t0, t1] provides the static solve "
+                "range that a traced `ts` cannot.")
+        if not (hasattr(bm, "t0") and hasattr(bm, "t1")):
+            raise ValueError(
+                "Traced evaluation times `ts` require a `bm` exposing static "
+                "`t0`/`t1` attributes (BrownianInterval does).")
+        ts = ts.to(device=y0.device, dtype=_time_dtype(y0))
+        t_probe = ts[0].detach()
+    else:
+        try:
+            ts = host_times(ts)
+        except Exception as e:
+            raise ValueError("Evaluation times `ts` must be a 1-D array or "
+                             "list/tuple of floats.") from e
+        if ts.ndim != 1:
+            raise ValueError("Evaluation times `ts` must be one-dimensional.")
+        if not misc.is_strictly_increasing(ts):
+            raise ValueError("Evaluation times `ts` must be strictly "
+                             "increasing.")
+        t_probe = ts[0]
 
     batch_sizes, state_sizes, noise_sizes = [], [], []
     batch_sizes.append(y0.shape[0])
@@ -315,7 +372,7 @@ def check_contract(sde, y0, ts, bm, method, options, names, logqp,
             state_sizes.append(shape[1])
             noise_sizes.append(shape[2])
 
-    t0 = torch.as_tensor(ts[0], dtype=_time_dtype(y0), device=y0.device)
+    t0 = torch.as_tensor(t_probe, dtype=_time_dtype(y0), device=y0.device)
     has_f = has_g = False
     with torch.no_grad():
         if base_sde.sde_has_method(sde, "f"):

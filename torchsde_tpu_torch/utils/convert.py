@@ -10,8 +10,12 @@ def load_jax_params(module, arrays):
     """Copy ``arrays`` into ``module``'s parameters and buffers, in place.
 
     ``arrays`` maps each JAX leaf's pytree path, dotted (``f_net.layers.0.w``,
-    ``g_nets.2``, ``encoder.cell.w_hh``), to a numpy array. The port keeps the
-    JAX layouts, so names and shapes correspond one to one. Raises
+    ``g_nets.2``, ``encoder.cell.w_hh``, ``denoiser.downs.0.conv.w``), to a
+    numpy array. The port keeps the JAX layouts (a U-Net convolution's ``w``
+    too: ``(kh, kw, in, out)``, permuted in its ``forward``), so names and
+    shapes correspond one to one; a JAX list's None entry (the U-Net's last
+    ``downs``) has no leaf, as the port's ``nn.ModuleList`` slot holding None
+    has no tensor. Raises
     ``KeyError`` when a tensor of the module has no array or an array has no
     tensor, and ``ValueError`` on a shape mismatch; nothing is copied then.
     Values are cast to each tensor's dtype. Returns ``module``."""

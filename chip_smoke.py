@@ -225,7 +225,29 @@ Phases, in order; any failure raises and the script exits non-zero:
     midpoint steps) and 4 probability-flow samples (100 RK4 steps),
     finite and of the right shape; step, sample and flow ms, images per
     second, peak memory, kernels a train step and a sampler step, busy
-    share, each on a ``ddpm_*`` JSON line.
+    share, each on a ``ddpm_*`` JSON line;
+30. examples (kernels 1, 2 and 5-9 on the examples' own paths): each
+    example's ``main`` in this process at its reference widths, for a
+    short run: the sinusoid latent SDE (batch 512, 50 steps), Lorenz with
+    ``--fused --no-adjoint`` (batch 256, default widths, 50 steps), the
+    SDE-GAN with ``--fused`` (batch 1024, t-size 64, dataset 8192, 200
+    steps, SWA from step 100), the DDPM on blobs at the reference U-Net
+    (``--size 28 --base-ch 64 --ch-mults 1,2,4 --batch 128``, 60 steps,
+    PyTorch's default cuDNN TF32) and the demo: every loss and sample
+    finite, the loss lower at the end than at the start (sinusoid, Lorenz,
+    DDPM), kernels 1 and 2 launched once a Lorenz step, 5-8 once a GAN
+    step and 9 once in the demo, every JSONL and acceptance record strict
+    JSON, the demo's captured solve bitwise its eager one; then Lorenz
+    split at step 25 by ``--save`` and ``--restore``, and the GAN split at
+    step 25 by ``utils/checkpoint.py``, each bitwise the run not split at
+    step 50; each example's median step time;
+31. diagnostics (no kernel; no build): ``diagnostics.run_all`` at its
+    defaults (batch 4096, d 3, m 5, float64, dt 2^-1..2^-6 on [0, 2],
+    dt_true 2^-11) on the card: every method's strong and weak slope of
+    the eight combinations, none below its ``ORDER_BANDS`` minimum except
+    where the JAX package's own slope on the same path is below it
+    (DIAG_REFERENCE_MISSES), and there the port's slope must be that
+    one.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only`` runs some phase groups (for
@@ -249,6 +271,7 @@ import contextlib
 import copy
 import ctypes
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -271,9 +294,16 @@ from torchsde_tpu_torch.core.base_sde import ForwardSDE
 from torchsde_tpu_torch.core import sdeint as TS_MOD
 from torchsde_tpu_torch.core.adjoint import sdeint_adjoint
 from torchsde_tpu_torch.core.sdeint import sdeint
+from torchsde_tpu_torch.diagnostics.problems import ExDiagonal
 from torchsde_tpu_torch.brownian import threefry as TF
 from torchsde_tpu_torch.brownian.base import BaseBrownian
 from torchsde_tpu_torch.brownian.interval import BrownianInterval
+from torchsde_tpu_torch.diagnostics import run_all as DIAG
+from torchsde_tpu_torch.examples import cont_ddpm as EX_DDPM
+from torchsde_tpu_torch.examples import demo as EX_DEMO
+from torchsde_tpu_torch.examples import latent_sde as EX_SINUSOID
+from torchsde_tpu_torch.examples import latent_sde_lorenz as EX_LORENZ
+from torchsde_tpu_torch.examples import sde_gan as EX_GAN
 from torchsde_tpu_torch.models import cont_ddpm as DDPM
 from torchsde_tpu_torch.models import latent_sde as TL
 from torchsde_tpu_torch.models import unet as UNET
@@ -285,6 +315,8 @@ from torchsde_tpu_torch.ops import latent_fused as LF
 from torchsde_tpu_torch.ops import prng as PR
 from torchsde_tpu_torch.ops import srk_fused as SF
 from torchsde_tpu_torch.parallel import replicas as RP
+from torchsde_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
 
 # Flagship configuration (bench.py:26-34 of the JAX package).
 BATCH, DATA, LATENT, CONTEXT, HIDDEN = 1024, 3, 4, 64, 128
@@ -3151,19 +3183,12 @@ class GridTable(BaseBrownian):
         return "space-time"
 
 
-class ExDiagonal(torch.nn.Module):
-    """dy = mu y dt + sigma y dW (Ito, diagonal noise) for sdeint."""
-    noise_type, sde_type = "diagonal", "ito"
-
-    def __init__(self, mu, sigma):
-        super().__init__()
-        self.mu, self.sigma = mu, sigma
-
-    def f(self, t, y):
-        return self.mu * y
-
-    def g(self, t, y):
-        return self.sigma * y
+def srk_sde(params):
+    """diagnostics/problems.py's ExDiagonal (Ito, diagonal noise) with
+    srk_problem's mu and sigma, in their dtype and on their device."""
+    mu, sigma = params
+    return ExDiagonal(mu.shape[0], mu=mu, sigma=sigma, dtype=mu.dtype,
+                      device=mu.device)
 
 
 def phase_srk_kernel(device):
@@ -3214,7 +3239,7 @@ def phase_srk_kernel(device):
                                    f"{strong:.4e} > the float64 solve's "
                                    f"{strong64:.4e}")
             if (B, d) == SRK_CONFIGS[0]:
-                sde = ExDiagonal(*params)
+                sde = srk_sde(params)
                 ys = sdeint(sde, y0, [0.0, 1.0], bm=GridTable(W, U),
                             method="srk", dt=dt)
                 err_sdeint = float((ys[-1] - got).abs().max())
@@ -3317,7 +3342,7 @@ def phase_prng_kernel(device):
         B, d = SRK_CONFIGS[-1]
         y0, _, _, params, _ = srk_problem(device, B, d)
         PR.launches = 0
-        ys = sdeint(ExDiagonal(*params), y0, [0.0, 1.0], method="srk",
+        ys = sdeint(srk_sde(params), y0, [0.0, 1.0], method="srk",
                     dt=1.0 / SRK_STEPS, rng_impl="philox",
                     noise_precompute=True,
                     generator=torch.Generator(device=device).manual_seed(
@@ -5221,6 +5246,251 @@ def phase_ddpm(device):
 
 
 # --------------------------------------------------------------------------- #
+#  Phase 30: the examples; phase 31: the order diagnostics                    #
+# --------------------------------------------------------------------------- #
+
+EX_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_examples"
+EX_SINUSOID_ARGS = ["--steps", "50", "--batch", "512"]
+EX_LORENZ_ARGS = ["--steps", "50", "--batch", "256", "--fused",
+                  "--no-adjoint"]
+EX_GAN_ARGS = ["--steps", "200", "--batch", "1024", "--t-size", "64",
+               "--dataset-size", "8192", "--swa-step-start", "100",
+               "--fused"]
+EX_DDPM_ARGS = ["--dataset", "blobs", "--size", "28", "--base-ch", "64",
+                "--ch-mults", "1,2,4", "--batch", "128", "--steps", "60"]
+# The checkpoint split: the step a run stops and saves at, and the steps of
+# the whole run it must equal bitwise.
+EX_SPLIT, EX_SPLIT_STEPS = 25, 50
+# A loss falls when the mean of its last EX_TAIL records is below its
+# first.
+EX_TAIL = 5
+
+
+def _reject_constant(name):
+    raise ValueError(f"non-strict JSON constant {name}")
+
+
+def strict_records(path):
+    """Every line of ``path`` parsed as strict JSON (a bare NaN or
+    Infinity raises)."""
+    with open(path) as f:
+        return [json.loads(line, parse_constant=_reject_constant)
+                for line in f if line.strip()]
+
+
+def run_example(name, module, argv):
+    """``module.main(argv + its records' flags)``; checks the losses and
+    samples finite and every record strict JSON. Returns the result and
+    the median step ms."""
+    out = EX_DIR / name
+    result = module.main(argv + ["--log-jsonl", str(out / "train.jsonl"),
+                                 "--artifacts-dir", str(out)])
+    torch.cuda.synchronize()
+    losses = result["losses"]
+    if not (all(np.isfinite(losses)) and result["samples_finite"]):
+        raise RuntimeError(f"example {name}: non-finite loss or sample")
+    records = strict_records(out / "train.jsonl")
+    for path in out.glob("*_acceptance.json"):
+        records += strict_records(path)
+    if len(records) < 3:
+        raise RuntimeError(f"example {name}: {len(records)} records")
+    step_ms = float(np.median(result["step_s"])) * 1e3 \
+        if result["step_s"] else None
+    print(f"example {name}: median step {step_ms} ms over "
+          f"{len(result['step_s'])} steps, {len(records)} strict JSON "
+          f"records, acceptance {result['acceptance']}", flush=True)
+    return result, step_ms
+
+
+def check_falls(name, losses):
+    first, last = losses[0], float(np.mean(losses[-EX_TAIL:]))
+    if not last < first:
+        raise RuntimeError(f"example {name}: loss {first:.6g} -> {last:.6g}"
+                           f" does not fall")
+    return first, last
+
+
+def same_tensors(label, got, want):
+    """Two state dicts (or name -> tensor maps) equal bitwise."""
+    if set(got) != set(want):
+        raise RuntimeError(f"{label}: different entries")
+    for k, v in want.items():
+        if not torch.equal(got[k], v):
+            raise RuntimeError(f"{label}: {k} differs by "
+                               f"{float((got[k] - v).abs().max()):.3e}")
+
+
+def examples_lorenz(record):
+    """Lorenz: the fused run (kernels 1 and 2 once a step), then the run
+    split at EX_SPLIT by --save and --restore, bitwise the whole run."""
+    whole = EX_DIR / "lorenz_whole.pt"
+    LF.launches = LF.bwd_launches = 0
+    result, ms = run_example("latent_sde_lorenz", EX_LORENZ,
+                             EX_LORENZ_ARGS + ["--save", str(whole)])
+    launches = (LF.launches, LF.bwd_launches)
+    if launches != (EX_SPLIT_STEPS, EX_SPLIT_STEPS):
+        raise RuntimeError(f"Lorenz: kernels 1, 2 launched {launches} times"
+                           f" in {EX_SPLIT_STEPS} fused steps")
+    record["lorenz"] = dict(median_step_ms=ms, launches=launches,
+                            loss=check_falls("Lorenz", result["losses"]))
+    first, second = EX_DIR / "lorenz_25.pt", EX_DIR / "lorenz_split.pt"
+    base = EX_LORENZ_ARGS[2:]
+    EX_LORENZ.main(["--steps", str(EX_SPLIT), "--save", str(first)] + base)
+    EX_LORENZ.main(["--steps", str(EX_SPLIT_STEPS - EX_SPLIT), "--restore",
+                    str(first), "--save", str(second)] + base)
+    got = torch.load(second, map_location="cpu", weights_only=True)
+    want = torch.load(whole, map_location="cpu", weights_only=True)
+    same_tensors("Lorenz split run", got["model"][1], want["model"][1])
+    if got["step"][1] != EX_SPLIT_STEPS:
+        raise RuntimeError(f"Lorenz split run ends at {got['step'][1]}")
+    print(f"Lorenz: split at step {EX_SPLIT} by --save/--restore, bitwise "
+          f"the whole run at step {EX_SPLIT_STEPS}", flush=True)
+    record["lorenz"]["split_bitwise"] = True
+    return launches
+
+
+def examples_gan(record):
+    """SDE-GAN: the fused run (kernels 5-8 once a step), then a run split
+    at EX_SPLIT through utils/checkpoint.py, bitwise a whole run."""
+    for counter in GAN_COUNTERS:
+        setattr(GF, counter, 0)
+    result, ms = run_example("sde_gan", EX_GAN, list(EX_GAN_ARGS))
+    steps = int(EX_GAN_ARGS[1])
+    launches = gan_counts()
+    if launches != (steps,) * 4:
+        raise RuntimeError(f"GAN: kernels 5-8 launched {launches} times in "
+                           f"{steps} fused steps")
+    record["sde_gan"] = dict(median_step_ms=ms, launches=launches,
+                             loss_first_last=(result["losses"][0],
+                                              result["losses"][-1]))
+    args = EX_GAN.parse_args(EX_GAN_ARGS)
+    whole = EX_GAN.GanRun(args)
+    for step in range(EX_SPLIT_STEPS):
+        whole.step(step)
+    first = EX_GAN.GanRun(args)
+    for step in range(EX_SPLIT):
+        first.step(step)
+    path = save_checkpoint(EX_DIR / "gan_25.pt", n_avg=first.n_avg,
+                           **first.entries())
+    resumed = EX_GAN.GanRun(args)
+    resumed.n_avg = load_checkpoint(path, "cuda", **resumed.entries())[
+        "n_avg"]
+    for step in range(EX_SPLIT, EX_SPLIT_STEPS):
+        resumed.step(step)
+    for name in ("gen", "disc", "avg_gen", "avg_disc"):
+        same_tensors(f"GAN split run ({name})",
+                     resumed.entries()[name].state_dict(),
+                     whole.entries()[name].state_dict())
+    if resumed.n_avg != whole.n_avg:
+        raise RuntimeError(f"GAN split run: n_avg {resumed.n_avg} != "
+                           f"{whole.n_avg}")
+    print(f"GAN: split at step {EX_SPLIT} through utils/checkpoint.py, "
+          f"bitwise the whole run at step {EX_SPLIT_STEPS}", flush=True)
+    record["sde_gan"]["split_bitwise"] = True
+    return launches
+
+
+def phase_examples(device):
+    """Phase 30. Returns the launches of each kernel the examples ran, by
+    kernel record name; the ``{"examples": ...}`` line has each example's
+    median step ms and seconds."""
+    shutil.rmtree(EX_DIR, ignore_errors=True)
+    EX_DIR.mkdir(parents=True)
+    record = {}
+    t0 = time.perf_counter()
+    result, ms = run_example("latent_sde", EX_SINUSOID,
+                             list(EX_SINUSOID_ARGS))
+    record["latent_sde"] = dict(median_step_ms=ms, loss=check_falls(
+        "sinusoid", result["losses"]), s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    lorenz = examples_lorenz(record)
+    record["lorenz"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gan = examples_gan(record)
+    record["sde_gan"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with cudnn_tf32(True):
+        result, ms = run_example("cont_ddpm", EX_DDPM, list(EX_DDPM_ARGS))
+    record["cont_ddpm"] = dict(median_step_ms=ms, loss=check_falls(
+        "DDPM", result["losses"]), s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    reset_tower_counts()
+    demo = EX_DEMO.main([])
+    torch.cuda.synchronize()
+    euler = tower_counts("euler")
+    if euler != (1, 0):
+        raise RuntimeError(f"demo: kernels 9, 10 launched {euler} times")
+    if not (demo["same_bm_identical"] and demo["graph_vs_eager"] == 0.0
+            and np.isfinite(demo["adjoint_vs_backprop"])
+            and all(bool(torch.isfinite(demo[k]).all())
+                    for k in ("solution", "srk", "fused"))):
+        raise RuntimeError(f"demo: {demo['same_bm_identical']=}, "
+                           f"{demo['graph_vs_eager']=}")
+    record["demo"] = dict(graph_vs_eager=demo["graph_vs_eager"],
+                          adjoint_vs_backprop=demo["adjoint_vs_backprop"],
+                          s=time.perf_counter() - t0)
+    print(json.dumps({"examples": record}), flush=True)
+    return {"latent_fused_fwd": lorenz[0], "latent_fused_bwd": lorenz[1],
+            "gan_gen_fwd": gan[0], "gan_gen_bwd": gan[1],
+            "gan_cde_fwd": gan[2], "gan_cde_bwd": gan[3],
+            "tower_euler_fwd": euler[0]}
+
+
+# Where the JAX package's own ORDER_BANDS miss at run_all's defaults: its
+# run_all on the CPU (python -m diagnostics.run_all --cpu --only
+# ito_diagonal --no-check --json out.json) gives ito_diagonal's Euler a
+# weak order of 0.4260833336558704, below the 0.45 of its band (the bands
+# were set at batch 1024; the default batch is 4096).
+# tests/test_torch_diagnostics_defaults.py re-derives it: both packages'
+# run_all at the defaults, the same slopes at rtol 1e-9 and the same
+# violations. The port draws the same Brownian path, so its slope there
+# must be the JAX package's within DIAG_REFERENCE_REL; every other slope
+# must be within its band.
+DIAG_REFERENCE_MISSES = {("ito_diagonal", "euler", "weak_order"):
+                         0.4260833336558704}
+DIAG_REFERENCE_REL = 1e-9
+
+
+def phase_diagnostics(device):
+    """Phase 31: run_all at its defaults on the card; its slopes are on
+    the ``{"diagnostics": ...}`` line. ``check_bands`` must flag exactly
+    the JAX package's own misses, each at the JAX package's slope."""
+    EX_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    results = DIAG.main(["--json", str(EX_DIR / "orders.json"),
+                         "--no-check"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    slopes = {combo: {label: [r["strong_order"], r["weak_order"]]
+                      for label, r in methods.items()}
+              for combo, methods in results.items()}
+    if set(slopes) != set(DIAG.ORDER_BANDS):
+        raise RuntimeError(f"diagnostics ran {sorted(slopes)}")
+    violations = DIAG.check_bands(results)
+    expected = [f"{c}/{label}: {order} " for c, label, order
+                in DIAG_REFERENCE_MISSES]
+    misses = {}
+    for (combo, label, order), ref in DIAG_REFERENCE_MISSES.items():
+        got = results[combo][label][order]
+        misses[f"{combo}/{label}/{order}"] = dict(slope=got,
+                                                  jax_package_slope=ref)
+        if abs(got - ref) > DIAG_REFERENCE_REL * ref:
+            raise RuntimeError(f"diagnostics: {combo}/{label} {order} "
+                               f"{got!r}, the JAX package's {ref!r}")
+    if len(violations) != len(expected) or not all(
+            v.startswith(e) for v, e in zip(sorted(violations),
+                                            sorted(expected))):
+        raise RuntimeError(f"diagnostics: band violations {violations}; "
+                           f"the JAX package's own are {expected}")
+    n = 2 * sum(len(m) for m in DIAG.ORDER_BANDS.values())
+    print(f"order bands: {n - len(misses)} of {n} slopes within "
+          f"ORDER_BANDS; below their band, as the JAX package's own slopes "
+          f"on the same path are: {violations}", flush=True)
+    print(json.dumps({"diagnostics": dict(
+        slopes=slopes, band_misses_as_jax=misses, s=seconds)}), flush=True)
+
+
+# --------------------------------------------------------------------------- #
 #  --only steps: the GAN sdeint step of any version of the port              #
 # --------------------------------------------------------------------------- #
 
@@ -5253,11 +5523,12 @@ def phase_steps(device):
 
 
 GROUPS = ("latent", "gan", "tower", "logqp", "multi", "srk", "prng",
-          "brownian", "adjoint", "adaptive", "traced_ts", "ddpm")
+          "brownian", "adjoint", "adaptive", "traced_ts", "ddpm", "examples",
+          "diagnostics")
 # Run only when asked for by --only.
 EXTRA_GROUPS = ("tiles", "ab", "steps")
 # Groups that launch no kernel of the port's own: they run without a build.
-UNBUILT_GROUPS = ("steps", "adaptive", "traced_ts", "ddpm")
+UNBUILT_GROUPS = ("steps", "adaptive", "traced_ts", "ddpm", "diagnostics")
 
 
 def main():
@@ -5403,6 +5674,14 @@ def main():
         phase_traced_ts(device)
     if "ddpm" in groups:
         phase_ddpm(device)
+    if "examples" in groups:
+        example_launches = phase_examples(device)
+        for record in records:
+            if record["name"] in example_launches:
+                record["launches_examples"] = example_launches[
+                    record["name"]]
+    if "diagnostics" in groups:
+        phase_diagnostics(device)
     if "tiles" in groups:
         print(json.dumps({"euler_tiles": phase_euler_tiles(device)}),
               flush=True)

@@ -71,8 +71,9 @@ def test_rejects_a_shape_mismatch_and_copies_nothing():
 
 
 def test_port_never_imports_jax():
-    """Every module of the package, and chip_smoke.py, import without
-    bringing JAX in."""
+    """Every module of the package (the examples and the diagnostics
+    among them), and chip_smoke.py, import without bringing JAX in, nor
+    matplotlib (the examples import it only to plot)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import torchsde_tpu_torch as p\n"
@@ -83,8 +84,18 @@ def test_port_never_imports_jax():
         "assert len(mods) >= 15, mods\n"
         "assert {'torchsde_tpu_torch.models.unet', "
         "'torchsde_tpu_torch.models.cont_ddpm'} <= set(mods), mods\n"
+        "examples = {'torchsde_tpu_torch.examples.' + n for n in ("
+        "'latent_sde', 'latent_sde_lorenz', 'sde_gan', 'cont_ddpm', "
+        "'demo', '_evidence')}\n"
+        "diagnostics = {'torchsde_tpu_torch.diagnostics.' + n for n in ("
+        "'problems', 'harness', 'inspection', 'run_all', 'ito_diagonal', "
+        "'ito_scalar', 'ito_additive', 'ito_general', "
+        "'stratonovich_diagonal', 'stratonovich_scalar', "
+        "'stratonovich_additive', 'stratonovich_general')}\n"
+        "assert examples | diagnostics <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith(('jax.', 'jaxlib', 'torchsde_tpu.')))\n"
+        "or m.startswith(('jax.', 'jaxlib', 'torchsde_tpu.', "
+        "'matplotlib')))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

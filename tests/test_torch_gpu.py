@@ -2281,3 +2281,72 @@ def test_ddpm_samplers_on_the_card(cuda, cpu_time_embedding):
     assert bool(torch.isfinite(out[1]).all())
     torch.testing.assert_close(out[0], out[1], rtol=0,
                                atol=1e-9 * float(out[1].abs().max()))
+
+
+# --------------------------------------------------------------------------- #
+#  Checkpoints, the order diagnostics and the demo on the card                #
+# --------------------------------------------------------------------------- #
+
+def test_checkpoint_resume_is_bitwise_on_the_card(cuda, tmp_path):
+    """Six fused Adam steps of a small LatentSDE (kernels 1 and 2) with one
+    CUDA generator carried across them, against three, a checkpoint of the
+    model, the optimiser and the generator, a load into fresh ones, and
+    three more: the parameters and the generator's state bitwise."""
+    from torchsde_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+    ts = np.linspace(0.0, 1.0, 5)
+    xs = torch.randn((5, 64, 3), generator=torch.Generator().manual_seed(3))
+    xs = xs.to(cuda)
+
+    def fresh():
+        model = LatentSDE(3, 4, 16, 32, device=cuda,
+                          generator=torch.Generator().manual_seed(4))
+        return (model, torch.optim.Adam(model.parameters(), lr=1e-2),
+                torch.Generator(device=cuda).manual_seed(5))
+
+    def train(model, opt, gen, steps):
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            loss, _ = latent_sde_loss(model, xs, ts, gen, dt=0.05,
+                                      fused=True)
+            loss.backward()
+            opt.step()
+
+    whole = fresh()
+    train(*whole, 6)
+    first = fresh()
+    train(*first, 3)
+    path = save_checkpoint(tmp_path / "ck.pt", model=first[0], opt=first[1],
+                           gen=first[2], step=3)
+    resumed = fresh()
+    assert load_checkpoint(path, cuda, model=resumed[0], opt=resumed[1],
+                           gen=resumed[2]) == {"step": 3}
+    train(*resumed, 3)
+    for (name, p), q in zip(whole[0].named_parameters(),
+                            resumed[0].parameters()):
+        assert p.is_cuda and torch.equal(p, q), name
+    assert torch.equal(whole[2].get_state(), resumed[2].get_state())
+
+
+def test_ito_diagonal_orders_within_their_bands_on_the_card(cuda):
+    """diagnostics.run_all on ito_diagonal at batch 1024 in float64 on the
+    card: every slope within ORDER_BANDS (a violation exits 1)."""
+    from torchsde_tpu_torch.diagnostics import ito_diagonal
+    results = ito_diagonal.main(["--batch", "1024"])
+    assert set(results["ito_diagonal"]) == {"euler", "milstein",
+                                            "milstein_grad_free", "srk"}
+
+
+def test_demo_runs_on_the_card(cuda):
+    """The demo's sections on the card: the fixed bm reproduces, the
+    captured solve's replay is bitwise its eager solve, every solve is
+    finite, and its whole-solve section launches kernel 9 once."""
+    from torchsde_tpu_torch.examples import demo
+    FS.euler_launches = 0
+    out = demo.main([])
+    torch.cuda.synchronize()
+    assert FS.euler_launches == 1
+    assert out["same_bm_identical"] and out["graph_vs_eager"] == 0.0
+    assert np.isfinite(out["adjoint_vs_backprop"])
+    for key in ("solution", "srk", "fused"):
+        assert out[key].is_cuda and bool(torch.isfinite(out[key]).all())

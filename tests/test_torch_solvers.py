@@ -4,7 +4,7 @@ Every method ported with this module (midpoint, Heun, Euler-Heun,
 Milstein in both calculi with and without ``grad_free``, log-ODE midpoint)
 is held to the JAX package at 1e-9 on the same noise, both through
 injected tables made with numpy and through a ``BrownianInterval`` of the
-same entropy; then its strong order on a problem of ``tests/problems.py``,
+same entropy; then its strong order on a problem of ``diagnostics/problems.py``,
 the A channel of the default noise, the default Stratonovich method, the
 method table and the Brownian contract checks."""
 
@@ -18,7 +18,6 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-import problems
 import torchsde_tpu as jtsde
 import torchsde_tpu_torch as ttsde
 from torchsde_tpu.brownian import base as jbase
@@ -28,6 +27,7 @@ from torchsde_tpu.core.base_sde import ForwardSDE as JForwardSDE
 from torchsde_tpu_torch.core import integrate as TI
 from torchsde_tpu_torch.core import solvers as TS
 from torchsde_tpu_torch.core.base_sde import ForwardSDE as TForwardSDE
+from torchsde_tpu_torch.diagnostics import problems as port_problems
 from torchsde_tpu_torch.ops import prng
 from torchsde_tpu_torch.utils import misc
 
@@ -522,38 +522,6 @@ ORDER_DTS = tuple(2.0 ** -i for i in range(1, 6))
 ORDER_T1 = 2.0
 
 
-class ExScalarPort(ttsde.BaseSDE):
-    """problems.ExScalar with the JAX problem's p: dy = -p^2 sin y cos^3 y dt
-    + p cos^2 y dW (Ito), or its Stratonovich form with zero drift."""
-
-    def __init__(self, p, sde_type):
-        super().__init__(noise_type="scalar", sde_type=sde_type)
-        self.p = torch.as_tensor(np.array(p))
-
-    def f(self, t, y):
-        if self.sde_type == "ito":
-            return -self.p ** 2 * torch.sin(y) * torch.cos(y) ** 3
-        return torch.zeros_like(y)
-
-    def g(self, t, y):
-        return (self.p * torch.cos(y) ** 2)[..., None]
-
-
-class ExDiagonalPort(ttsde.BaseSDE):
-    """problems.ExDiagonal with the JAX problem's mu and sigma (Ito)."""
-
-    def __init__(self, mu, sigma):
-        super().__init__(noise_type="diagonal", sde_type="ito")
-        self.mu = torch.as_tensor(np.array(mu))
-        self.sigma = torch.as_tensor(np.array(sigma))
-
-    def f(self, t, y):
-        return self.mu * y
-
-    def g(self, t, y):
-        return self.sigma * y
-
-
 def _slope(dts, errs):
     x = np.log(dts) - np.log(dts).mean()
     y = 0.5 * np.log(errs)
@@ -567,17 +535,17 @@ def _slope(dts, errs):
     ("milstein", {"grad_free": True}, "diagonal")])
 def test_strong_order(method, options, problem):
     """The slope of 0.5 log(MSE) against log(dt) over dt = 2^-1..2^-5 on the
-    exact solution of the JAX problem, one PrecomputedBrownian path (foster)
+    exact solution of the problem (diagnostics/problems.py, whose parameters
+    are the JAX problem's), one PrecomputedBrownian path (foster)
     shared by every dt, as diagnostics/harness.inspect_orders does. Each
     method is of strong order 1 on these problems."""
     if problem == "scalar":
-        jp = problems.ExScalar(d=D, sde_type="stratonovich"
-                               if method != "milstein" else "ito")
-        sde = ExScalarPort(jp.p, jp.sde_type)
+        sde = port_problems.ExScalar(
+            d=D, sde_type="stratonovich" if method != "milstein" else "ito",
+            device="cpu")
         m = 1
     else:
-        jp = problems.ExDiagonal(d=D, sde_type="ito")
-        sde = ExDiagonalPort(jp.mu, jp.sigma)
+        sde = port_problems.ExDiagonal(d=D, sde_type="ito", device="cpu")
         m = D
     y0 = torch.full((ORDER_BATCH, D), 0.1, dtype=torch.float64)
     bm = ttsde.PrecomputedBrownian(0.0, ORDER_T1, (ORDER_BATCH, m), n=1024,

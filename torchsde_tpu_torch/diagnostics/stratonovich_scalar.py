@@ -1,0 +1,18 @@
+"""Strong- and weak-order check of Stratonovich SDEs with scalar noise: ``run_all`` on
+``stratonovich_scalar`` alone.
+
+Usage:  python -m torchsde_tpu_torch.diagnostics.stratonovich_scalar [--batch 4096] [--cpu]
+"""
+
+import sys
+
+from . import run_all
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    return run_all.main(argv + ["--only", "stratonovich_scalar"])
+
+
+if __name__ == "__main__":
+    main()

@@ -115,3 +115,36 @@ def check_kernel_tensor(name, t, shape, dtype, device):
         raise ValueError(f"{name} is not contiguous")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the solve on {device}")
+
+
+class LinearScheduler:
+    """Linear 0->1 ramp over ``iters`` steps (the KL annealing of the
+    latent-SDE examples)."""
+
+    def __init__(self, iters, maxval=1.0):
+        self._iters = max(1, iters)
+        self._val = maxval / self._iters
+        self._maxval = maxval
+
+    def step(self):
+        self._val = min(self._maxval, self._val + self._maxval / self._iters)
+
+    @property
+    def val(self):
+        return self._val
+
+
+class EMAMetric:
+    """Exponential moving average of a scalar metric."""
+
+    def __init__(self, gamma=0.99):
+        self._val = 0.0
+        self._gamma = gamma
+
+    def step(self, x):
+        self._val = self._gamma * self._val + (1 - self._gamma) * float(x)
+        return self._val
+
+    @property
+    def val(self):
+        return self._val

@@ -137,7 +137,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     PyTorch): (a) a float32 ``BrownianInterval`` (entropy 42) at the
     reference benchmarks' sizes (128, 5), (256, 128) and (512, 256), Levy
     area none and space-time (and Foster's at (128, 5)), two
-    ``query_grid`` calls over 1,001 points bitwise equal and timed, and
+    ``query_grid`` calls over 257 points bitwise equal and timed, and
     the same interval on the CPU: branch bits resolved on the card, packed
     words, keys, random bits and uniforms bitwise, W, U and A within
     BM_F32_ATOL and BM_F32_A_ATOL (every cell at (128, 5), BM_CPU_CELLS
@@ -145,7 +145,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     CUDA tensor of times bitwise ``__call__`` on host floats; (c) the
     reference solver benchmark's path (f = y, a saturated exp(-y)
     diffusion, Ito or Stratonovich diagonal noise, 100 output times on
-    [0, 1], dt 1e-3, an explicit interval) by every ported fixed-step
+    [0, 1], dt 1/256, an explicit interval) by every ported fixed-step
     method at (128, 5) and (512, 256) (Milstein's grad_free option and
     log_ode on general noise at (128, 5) only), each on the noise (a)'s
     interval drew over the same grid (its query_grid's median is the
@@ -166,7 +166,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     ADJ_GRAD_REL of scale), the same step with TF32 matmuls read beside
     it; each step timed and profiled beside the
     ``sdeint`` and fused routes'; the peak device memory of one latent
-    step, adjoint against backprop, at dt 1/128 and 1/1024; one
+    step, adjoint against backprop, at dt 1/128 and 1/512; one
     ``rng_impl="philox"`` adjoint step whose backward's W is bitwise the
     forward's, kernel 16 launched once for each, the generator left as
     the forward left it;
@@ -177,13 +177,14 @@ Phases, in order; any failure raises and the script exits non-zero:
     mu and sigma, batch 1024, y0 0.1, 9 outputs on [0, 2], dt0 1e-3,
     rtol 1e-5, atol 1e-4, dt_min 1e-5, float32, a BrownianInterval keyed
     as PRNGKey(42) at 20 levels): (a) ``sdeint(adaptive=True)`` by srk
-    and milstein, stats, median ms, a profile (kernels, kernels an
+    and milstein, stats, ms, a profile (kernels, kernels an
     attempt, device ms, busy share), RMS against the exact solution, and
     the same-work fixed solve (dt = span / n_accepted, the same interval);
-    (b) the same in float64 on the card and the CPU, whole batch, stats
-    equal and ``ys`` within ADA_F64_REL of scale; (c) d sum(ys)/d(y0, mu,
-    sigma) in float64 by backprop through ``sdeint(adaptive=True)`` (the
-    default budget of 8,018 iterations; the iterations it ran),
+    (b) the same over [0, 0.5] (ADA_CHECK_TS) in float64 on the card and
+    the CPU, whole batch, stats equal and ``ys`` within ADA_F64_REL of
+    scale; (c) over [0, 0.5], d sum(ys)/d(y0, mu, sigma) in float64 by
+    backprop through ``sdeint(adaptive=True)`` (its default budget; the
+    iterations it ran),
     ``sdeint_adjoint(adaptive=True)`` and ``sdeint_adjoint(
     adjoint_adaptive=True)`` (ADA_ADJ_DT, ADA_ADJ_TOL), each within
     ADA_GRAD_REL of the CPU's, with ms, kernels and peak memory; (d) a
@@ -228,7 +229,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     share, each on a ``ddpm_*`` JSON line;
 30. examples (kernels 1, 2 and 5-9 on the examples' own paths): each
     example's ``main`` in this process at its reference widths, for a
-    short run: the sinusoid latent SDE (batch 512, 50 steps), Lorenz with
+    short run: the sinusoid latent SDE (batch 512, 25 steps), Lorenz with
     ``--fused --no-adjoint`` (batch 256, default widths, 50 steps), the
     SDE-GAN with ``--fused`` (batch 1024, t-size 64, dataset 8192, 200
     steps, SWA from step 100), the DDPM on blobs at the reference U-Net
@@ -248,6 +249,25 @@ Phases, in order; any failure raises and the script exits non-zero:
     where the JAX package's own slope on the same path is below it
     (DIAG_REFERENCE_MISSES), and there the port's slope must be that
     one.
+32. mesh (kernels 1-4 inside the ranks; ``parallel/mesh.py`` adds no
+    kernel): (1) ``make_mesh()`` with no arguments, a one-rank NCCL group
+    on the card: a data-parallel fused flagship train step (SGD, lr
+    MESH_LR) bitwise the plain fused step on the same generator seed,
+    kernels 1 and 2 launched once, and its median time; (2) MESH_RANKS
+    gloo ranks sharing the card (NCCL refuses two ranks on one device),
+    started by ``mesh.run_ranks`` after this process built the kernels: a
+    data-parallel fused flagship step on each rank's 512 rows and its rows
+    of one table of draws, the loss and the averaged gradients against
+    one process's full-batch step on the same draws (MESH_LOSS_RTOL,
+    MESH_GRAD_REL), kernels 1 and 2 launched once in each rank, and
+    MESH_STEPS timed steps (two ranks on one card: not a scaling figure);
+    then K = 4 replicas sharded two to a rank, one SGD step on the
+    K-replica fused route (kernels 3 and 4 once in each rank) against one
+    process's K = 4 step; (3) a DP x TP step at the CPU tests' widths on a
+    2 x 2 mesh of 4 gloo ranks on the card (the ``sdeint`` route): each
+    rank's loss and the gradients of its shards against one process's,
+    not scaled by the model axis. Multi-GPU NCCL and tensor parallelism
+    over NVLink need more than one card and are not run.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only`` runs some phase groups (for
@@ -270,6 +290,7 @@ import argparse
 import contextlib
 import copy
 import ctypes
+import functools
 import json
 import shutil
 import subprocess
@@ -280,6 +301,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -314,6 +336,7 @@ from torchsde_tpu_torch.ops import gan_fused as GF
 from torchsde_tpu_torch.ops import latent_fused as LF
 from torchsde_tpu_torch.ops import prng as PR
 from torchsde_tpu_torch.ops import srk_fused as SF
+from torchsde_tpu_torch.parallel import mesh as PM
 from torchsde_tpu_torch.parallel import replicas as RP
 from torchsde_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                  save_checkpoint)
@@ -1341,7 +1364,9 @@ def profile_run(label, fn, cpu=True):
     ``Optimizer.step``) span kernels already counted, so they are left
     out. ``cpu=False`` records the device's activity alone: a step of
     tens of thousands of eager ops then takes seconds, not a minute, to
-    read back, and its profiled wall is less inflated."""
+    read back, and its profiled wall is less inflated (the ``sdeint``
+    routes' profiles are taken so). Profiles of one run can count a few
+    kernels apart (see ADA_PROFILES)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1382,10 +1407,11 @@ def phase_profile(device, served, trained, xs, ts):
                 latent_sde_loss(served, xs, ts, gen, dt=DT,
                                 fused=route == "fused")
 
-        profile_run(f"forward {route}", forward)
+        profile_run(f"forward {route}", forward, cpu=route == "fused")
     for route in ROUTES:
         profile_run(f"train step {route}", lambda: train_step(
-            models[route], opts[route], xs, ts, route, 500, 1.0))
+            models[route], opts[route], xs, ts, route, 500, 1.0),
+            cpu=route == "fused")
 
 
 # --------------------------------------------------------------------------- #
@@ -1662,7 +1688,7 @@ def phase_gan_profile(device, models, ts, real):
     """A served GAN request of each route under the profiler."""
     for route in ROUTES:
         profile_run(f"GAN request {route}", lambda: gan_request(
-            models, ts, real, 500, route == "fused"))
+            models, ts, real, 500, route == "fused"), cpu=route == "fused")
 
 
 # --------------------------------------------------------------------------- #
@@ -1887,7 +1913,8 @@ def phase_gan_train_profile(trained, ts, batch):
     for route in ROUTES:
         models, opts = trained[route]
         profile_run(f"GAN train step {route}", lambda: gan_train_step(
-            models, opts, ts, batch, 800, route == "fused"))
+            models, opts, ts, batch, 800, route == "fused"),
+            cpu=route == "fused")
 
 
 # --------------------------------------------------------------------------- #
@@ -2598,7 +2625,7 @@ def phase_tower_serve_train(device, name):
     # 16 and 19. A profiled training step of each route.
     for route in routes:
         profile_run(f"{name} train step {route}",
-                    lambda: train_step(route, 500))
+                    lambda: train_step(route, 500), cpu=route == "fused")
     return dict(launches_serve=serve_launches, launches=train_launches,
                 step0_grad_rel_err=worst)
 
@@ -2968,7 +2995,8 @@ def phase_multi_path(device, xs, ts):
     launching kernel 3 once; step-0 gradients of both routes; three Adam
     steps (lr 1e-2) on the stacked state, each launching kernels 3 and 4
     once; median step times of the multi fused route, the multi sdeint route
-    and K single fused steps, each beside its profile."""
+    and K single fused steps, each beside its profile (the ``sdeint``
+    route's of the device's activity alone)."""
     K = MULTI_K
     models = stacked_replicas(device, K)
     singles = [RP.unstack_replica(models, k) for k in range(K)]
@@ -3116,7 +3144,8 @@ def phase_multi_path(device, xs, ts):
         if not all(torch.isfinite(p).all() for p in routes[route].parameters()):
             raise RuntimeError(f"{route}: non-finite parameters after Adam")
     profiles = {r: profile_run(f"K={K} train step {r}",
-                               lambda r=r: step(r, 730)) for r in routes}
+                               lambda r=r: step(r, 730),
+                               cpu=r != "multi sdeint") for r in routes}
     medians = {r: float(np.median(t)) for r, t in times.items()}
     for r in routes:
         print(f"K={K} train step, {r}: median {medians[r]:.3f} ms "
@@ -3368,8 +3397,11 @@ def phase_prng_kernel(device):
 # benchmarks/sdeint_ab.py:31 of the JAX package).
 BM_SIZES = ((128, 5), (256, 128), (512, 256))
 # Bitwise the solves' step grid (integrate.build_step_grid(0, 1, SOLVE_DT)),
-# so phase (c) replays the noise phase (a) draws.
-BM_GRID = np.linspace(0.0, 1.0, 1001)
+# so phase (c) replays the noise phase (a) draws. 257 points (the reference
+# benchmarks' 1,001, cut to keep the script within half its time limit:
+# the descent and the solves' loops scale with the points; PERF.md keeps
+# the 1,001-point times).
+BM_GRID = np.linspace(0.0, 1.0, 257)
 # Card against CPU: W and U of a float32 interval within BM_F32_ATOL times
 # sqrt(span) (CUDA's erfinv is not the CPU's; keys, bits and branch words
 # are held bitwise), A within BM_F32_A_ATOL: A is built from H = U/h - W/2,
@@ -3379,20 +3411,21 @@ BM_GRID = np.linspace(0.0, 1.0, 1001)
 BM_F32_ATOL = 2e-5
 BM_F32_A_ATOL = 1e-4
 # Cells of the grid held against the CPU above (128, 5), where the CPU
-# descent of all 1,001 points would take minutes.
-BM_CPU_CELLS = (0, 1, 137, 500, 501, 862, 998, 999)
+# descent of every point would take minutes.
+BM_CPU_CELLS = (0, 1, 37, 128, 129, 201, 254, 255)
 # W(a, b) + W(b, c) against W(a, c): prefix differences in float32.
 BM_ADD_ATOL = 1e-5
 # The reference solver benchmark (benchmarks/sdeint_ab.py:29-33, 66-70):
-# f = y, Ito diagonal, 100 output times on [0, 1], dt 1e-3, an explicit
-# BrownianInterval (entropy 42, phase (a)'s too); its g = exp(-y) is
+# f = y, Ito diagonal, 100 output times on [0, 1], an explicit
+# BrownianInterval (entropy 42, phase (a)'s too), at dt 1/256 (its 1e-3 cut
+# with BM_GRID); its g = exp(-y) is
 # saturated to
 # g = 1 / (1 + exp(y)) (about exp(-y) for y >> 0), because with exp(-y) a
 # path that turns negative explodes (about 2 % of them are inf or nan by
 # t = 1, measured on the CPU), and every solve here must be finite.
 SOLVE_SIZE, SOLVE_SMALL = (512, 256), (128, 5)
 SOLVE_TS = np.linspace(0.0, 1.0, 100)
-SOLVE_DT = 1e-3
+SOLVE_DT = 1.0 / 256
 SOLVE_ENTROPY = 42
 # A card solve against the same solve on the CPU: max |diff| within this
 # times (1 + max |y|) in float32. At SOLVE_SIZE the CPU twin solves the
@@ -4071,8 +4104,10 @@ ADJ_STEPS = 3
 ADJ_CPU_ROWS = 32
 ADJ_LOSS_RTOL = 1e-6
 ADJ_GRAD_REL = 1e-5
-# Peak memory of one latent train step: adjoint against backprop at these dt.
-ADJ_MEMORY_DTS = (1.0 / 128, 1.0 / 1024)
+# Peak memory of one latent train step: adjoint against backprop at these dt
+# (1/512, not 1/1024, whose adjoint step alone takes about 22 s, keeps the
+# script within half its time limit; PERF.md keeps the 1/1024 peaks).
+ADJ_MEMORY_DTS = (1.0 / 128, 1.0 / 512)
 
 
 def route_grads_rel(label, grads, want):
@@ -4349,14 +4384,26 @@ ADA_B, ADA_TS = 1024, np.linspace(0.0, 2.0, 9)
 ADA_DT0, ADA_RTOL, ADA_ATOL, ADA_DT_MIN = 1e-3, 1e-5, 1e-4, 1e-5
 ADA_KEY, ADA_LEVELS = np.array([0, 42], np.uint32), 20
 ADA_METHODS = (("srk", "space-time"), ("milstein", "none"))
-ADA_REPS = 2
+# Timed runs of each solve in (a) (PERF.md keeps the spread of two).
+ADA_REPS = 1
+# (b)'s float64 card-against-CPU solves and (c)'s gradients run
+# configuration A over [0, 0.5] (3 outputs): the first quarter of its span,
+# to keep the script within half its time limit (PERF.md keeps [0, 2]).
+ADA_CHECK_TS = np.linspace(0.0, 0.5, 3)
 # (a)'s kernels an attempt come from short solves of A from this time (a
 # two-attempt and a no-attempt one), small enough that the profiler loses
-# no event; a whole solve's hundreds of thousands it drops by up to a
-# fifth. Its kernels an attempt must be the card's aten ops an attempt
-# within this share.
+# few events (a whole solve's hundreds of thousands it drops by up to a
+# fifth). Its kernels an attempt must be the card's aten ops an attempt
+# within ADA_KERNELS_PER_OP. Back-to-back profiles of one short solve
+# count a few events apart (14,641, 14,642 and 14,662 kernels of one
+# two-attempt solve, one hash kernel 1,579 times and then 1,580; 453, 478
+# and 464 of a no-attempt one), so each is profiled ADA_PROFILES times and
+# counted by the median, the counts within ADA_PROFILE_SPREAD of it (a
+# profile that lost a fifth of its events fails).
 ADA_SHORT_T0 = 0.3
 ADA_KERNELS_PER_OP = 0.1
+ADA_PROFILES = 3
+ADA_PROFILE_SPREAD = 0.1
 # Card against CPU in float64 on the whole batch: ys within this times
 # (1 + max |y|), stats equal; gradients within ADA_GRAD_REL of each
 # gradient's largest entry (float64 sums in other orders).
@@ -4418,12 +4465,13 @@ def ada_interval(levy, device, dtype=torch.float32, t1=2.0, size=None):
                             levy_area_approximation=levy, device=device)
 
 
-def ada_solve(method, levy, device, dtype=torch.float32, **kw):
-    """Configuration A by ``method`` (no grad): ``(ys, stats)``."""
+def ada_solve(method, levy, device, dtype=torch.float32, ts=ADA_TS, **kw):
+    """Configuration A by ``method`` (no grad) to the outputs ``ts``:
+    ``(ys, stats)``."""
     sde = AdaSDE(device, dtype)
     with torch.no_grad():
         return sdeint(sde, torch.full((ADA_B, 3), 0.1, dtype=dtype,
-                                      device=device), ADA_TS,
+                                      device=device), ts,
                       bm=ada_interval(levy, device, dtype), method=method,
                       dt=ADA_DT0, adaptive=True, rtol=ADA_RTOL, atol=ADA_ATOL,
                       dt_min=ADA_DT_MIN, return_stats=True, **kw)
@@ -4489,34 +4537,32 @@ def ada_short(method, levy, device, n_out):
 
 def ada_per_attempt(method, levy, device):
     """Kernels, device ms and aten ops an attempt, from a two-attempt solve
-    less the same solve with no attempt, each profiled until two profiles
-    give the same count, three at most (two profiles of one solve can
-    count differently: 12,625 and 12,590 once, the second short by three
-    of each rotation kernel of the hash, less than one hash), and the
-    kernels must be the card's aten ops within ADA_KERNELS_PER_OP; the
-    CPU's aten ops of the same solves beside them."""
+    less the same solve with no attempt, each profiled ADA_PROFILES times
+    and taken at the median count, the counts within ADA_PROFILE_SPREAD of
+    it (profiles of one solve count a few events apart), and the kernels
+    must be the card's aten ops within ADA_KERNELS_PER_OP; the CPU's aten
+    ops of the same solves beside them."""
     rec = {}
     for n_out in (3, 1):
         (_, stats), card_ops = counted(lambda: ada_short(method, levy, device,
                                                          n_out))
         (_, cpu_stats), cpu_ops = counted(lambda: ada_short(method, levy,
                                                             "cpu", n_out))
-        profs, agreed = [], None
-        while agreed is None and len(profs) < 3:
-            profs.append(profile_run(
-                f"adaptive {method} A, {n_out} outputs from {ADA_SHORT_T0}",
-                lambda: ada_short(method, levy, device, n_out), cpu=False))
-            counts = [p["kernels"] for p in profs]
-            agreed = next((p for p in profs if counts.count(p["kernels"])
-                           > 1), None)
-        if agreed is None or stats != cpu_stats:
+        profs = sorted((profile_run(
+            f"adaptive {method} A, {n_out} outputs from {ADA_SHORT_T0}",
+            lambda: ada_short(method, levy, device, n_out), cpu=False)
+            for _ in range(ADA_PROFILES)), key=lambda p: p["kernels"])
+        counts = [p["kernels"] for p in profs]
+        median = profs[len(profs) // 2]
+        spread = (counts[-1] - counts[0]) / median["kernels"]
+        if spread > ADA_PROFILE_SPREAD or stats != cpu_stats:
             raise RuntimeError(f"adaptive {method} short solve: profiled "
                                f"kernels {counts}, stats {stats} on the "
                                f"card and {cpu_stats} on the CPU")
         rec[n_out] = dict(stats=stats, card_ops=card_ops, cpu_ops=cpu_ops,
-                          kernels=agreed["kernels"],
-                          device_ms=agreed["device_ms"],
-                          busy=agreed["busy"], profiled_kernels=counts)
+                          kernels=median["kernels"],
+                          device_ms=median["device_ms"],
+                          busy=median["busy"], profiled_kernels=counts)
     attempts = rec[3]["stats"]["n_accepted"] + rec[3]["stats"]["n_rejected"]
     per = {k: (rec[3][k] - rec[1][k]) / attempts
            for k in ("kernels", "card_ops", "cpu_ops", "device_ms")}
@@ -4585,12 +4631,14 @@ def phase_adaptive_forward(device):
 
 
 def phase_adaptive_cpu(device):
-    """(b) configuration A in float64 on the card and on the CPU, whole
-    batch: stats equal, ys within ADA_F64_REL of scale."""
+    """(b) configuration A to ADA_CHECK_TS in float64 on the card and on
+    the CPU, whole batch: stats equal, ys within ADA_F64_REL of scale."""
     out = {}
     for method, levy in ADA_METHODS:
-        ys, stats = ada_solve(method, levy, device, torch.float64)
-        want, want_stats = ada_solve(method, levy, "cpu", torch.float64)
+        ys, stats = ada_solve(method, levy, device, torch.float64,
+                              ADA_CHECK_TS)
+        want, want_stats = ada_solve(method, levy, "cpu", torch.float64,
+                                     ADA_CHECK_TS)
         err = float((ys.cpu() - want).abs().max())
         scale = 1.0 + float(want.abs().max())
         if stats != want_stats or err > ADA_F64_REL * scale:
@@ -4603,8 +4651,9 @@ def phase_adaptive_cpu(device):
     return out
 
 
-def ada_grads(device, mode, **extra):
-    """d sum(ys) / d(y0, mu, sigma) of configuration A in float64 by
+def ada_grads(device, mode, ts=ADA_CHECK_TS, **extra):
+    """d sum(ys) / d(y0, mu, sigma) of configuration A to the outputs
+    ``ts`` in float64 by
     ``mode``: backprop through ``sdeint(adaptive=True)`` (srk; its default
     budget ``default_max_steps``, 8,018 iterations),
     ``sdeint_adjoint(adaptive=True)`` or ``sdeint_adjoint(
@@ -4620,10 +4669,10 @@ def ada_grads(device, mode, **extra):
               atol=ADA_ATOL, **extra)
     stats = None
     if mode == "backprop":
-        ys, stats = sdeint(sde, y0, ADA_TS, dt=ADA_DT0, adaptive=True,
+        ys, stats = sdeint(sde, y0, ts, dt=ADA_DT0, adaptive=True,
                            return_stats=True, **kw)
     else:
-        ys = sdeint_adjoint(sde, y0, ADA_TS, dt=ADA_ADJ_DT,
+        ys = sdeint_adjoint(sde, y0, ts, dt=ADA_ADJ_DT,
                             adjoint_rtol=ADA_ADJ_TOL,
                             adjoint_atol=ADA_ADJ_TOL, **{mode: True}, **kw)
     create = extra.get("adjoint_max_steps") is not None
@@ -4653,9 +4702,9 @@ def phase_adaptive_grads(device, kernels_per_op):
                    kernels=ops * kernels_per_op, cpu_rel=rel)
         if stats is not None:
             rec.update(stats=stats, iterations=stats["n_accepted"]
-                       + stats["n_rejected"] + len(ADA_TS) - 1,
+                       + stats["n_rejected"] + len(ADA_CHECK_TS) - 1,
                        max_steps=TS_MOD.default_max_steps(
-                           ADA_TS, ADA_DT0, ADA_DT_MIN))
+                           ADA_CHECK_TS, ADA_DT0, ADA_DT_MIN))
         print(f"adaptive gradients {mode}: {ms:.1f} ms, peak {mib:.1f} MiB, "
               f"{ops} aten ops (about {rec['kernels']:.0f} kernels), card "
               f"vs CPU {rel:.3e}"
@@ -4664,13 +4713,14 @@ def phase_adaptive_grads(device, kernels_per_op):
               flush=True)
         out[mode] = rec
     # (d) budgets run out: a backprop solve, a double backward.
-    grads, ys, stats = ada_grads(device, "backprop", max_steps=ADA_BUDGET)
+    grads, ys, stats = ada_grads(device, "backprop", ADA_TS,
+                                 max_steps=ADA_BUDGET)
     reached = int(torch.isfinite(ys).all(dim=(1, 2)).sum())
     if not (stats["incomplete"] and reached < len(ADA_TS)
             and torch.isnan(ys[-1]).all()):
         raise RuntimeError(f"max_steps={ADA_BUDGET}: {stats}, {reached} "
                            f"outputs reached")
-    grads, _, _ = ada_grads(device, "adjoint_adaptive",
+    grads, _, _ = ada_grads(device, "adjoint_adaptive", ADA_TS,
                             adjoint_max_steps=ADA_BUDGET)
     if not all(torch.isnan(g).all() for g in grads):
         raise RuntimeError(f"adjoint_max_steps={ADA_BUDGET} under "
@@ -5250,7 +5300,9 @@ def phase_ddpm(device):
 # --------------------------------------------------------------------------- #
 
 EX_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_examples"
-EX_SINUSOID_ARGS = ["--steps", "50", "--batch", "512"]
+# The sinusoid at 25 steps (its loss falls by three quarters in 20; each
+# step takes 0.34-0.51 s).
+EX_SINUSOID_ARGS = ["--steps", "25", "--batch", "512"]
 EX_LORENZ_ARGS = ["--steps", "50", "--batch", "256", "--fused",
                   "--no-adjoint"]
 EX_GAN_ARGS = ["--steps", "200", "--batch", "1024", "--t-size", "64",
@@ -5522,9 +5574,326 @@ def phase_steps(device):
     print(json.dumps({"steps": {"gan_sdeint": runs}}), flush=True)
 
 
+# --------------------------------------------------------------------------- #
+#  Phase 32: the mesh                                                         #
+# --------------------------------------------------------------------------- #
+
+# SGD on the flagship (the DP step's update is the caller's; a plain one
+# keeps the bitwise comparison to the update's arithmetic).
+MESH_LR = 1e-3
+# Ranks that share the one card over gloo (NCCL refuses two ranks on one
+# device), and timed DP steps after the checked one.
+MESH_RANKS = 2
+MESH_STEPS = 5
+MESH_K = 4
+# The 2-rank DP step against one process's full-batch step on the same
+# draws, in float32: the loss is the mean of two half-batch means, and each
+# gradient the mean of two half-batch contractions (kernel 2's partial sums
+# over 512 rows where one process sums 1,024), so they differ by float32
+# reassociation only: the loss within MESH_LOSS_RTOL, each gradient within
+# MESH_GRAD_REL of its largest entry (GRAD_REL, the fused route against
+# the sdeint route). The K-replica step: MULTI_LOSS_RTOL, MULTI_GRAD_REL.
+MESH_LOSS_RTOL = 1e-5
+MESH_GRAD_REL = 1e-5
+# DP x TP at the CPU tests' widths (tests/test_torch_mesh_tp.py): data 3,
+# latent 4, context 8, hidden 16, batch 16, 4 times on [0, 0.3], dt 0.1,
+# the sdeint route, on a 2 x 2 mesh of 4 gloo ranks on the card.
+MESH_TP_DIMS = (3, 4, 8, 16)
+MESH_TP_B, MESH_TP_TS, MESH_TP_DT = 16, np.linspace(0.0, 0.3, 4), 0.1
+
+
+def no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def flagship_loss(model, batch, generator, ts):
+    return latent_sde_loss(model, batch, ts, generator, dt=DT,
+                           fused=True)[0]
+
+
+def plain_sgd_step(model, loss, lr):
+    """The update the DP step makes, without the mesh: the gradients of
+    ``loss.sum()`` and ``p += -lr * g``."""
+    named = list(model.named_parameters())
+    grads = torch.autograd.grad(loss.sum(), [p for _, p in named])
+    with torch.no_grad():
+        for (_, p), g in zip(named, grads):
+            p += -lr * g
+    return loss.detach()
+
+
+def recording_sgd(lr, store):
+    """SGD by ``lr`` that keeps the gradients of its first call."""
+    def update(grads, params):
+        if not store:
+            store.update({n: g.detach().clone() for n, g in grads.items()})
+        return {n: -lr * g for n, g in grads.items()}
+    return update
+
+
+def grad_rel(got, want):
+    """The largest of each gradient's max |got - want| over its max
+    |want|, and the name."""
+    return max((float((got[n].to(w.device) - w).abs().max())
+                / max(float(w.abs().max()), 1e-30), n)
+               for n, w in want.items())
+
+
+def rows_of(n, mesh, axis_name="data"):
+    rows = PM.shard_batch(torch.arange(n), mesh, axis_name=axis_name)
+    return int(rows[0]), int(rows[-1]) + 1
+
+
+def multi_sgd_step(models, xs, ts, gens, lr):
+    """One SGD step of K stacked replicas on the K-replica fused route
+    (kernels 3 and 4): the losses (K,) and the gradients by name."""
+    _, losses = latent_sde_loss_multi(models, xs, ts, gens, dt=DT,
+                                      fused=True)
+    names = list(models.params)
+    grads = torch.autograd.grad(losses.sum(), [models.params[n]
+                                               for n in names])
+    with torch.no_grad():
+        for n, g in zip(names, grads):
+            models.params[n] += -lr * g
+    return losses.detach(), dict(zip(names, grads))
+
+
+def mesh_nccl(device, xs, ts):
+    """Part 1: ``make_mesh()`` with no arguments on the card, a one-rank
+    NCCL group; its DP fused step must be bitwise the plain fused step on
+    the same generator seed and launch kernels 1 and 2 once."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    mesh = PM.make_mesh()
+    backend = dist.get_backend()
+    try:
+        step = PM.data_parallel_train_step(
+            functools.partial(flagship_loss, ts=ts), mesh, lr=MESH_LR)
+        dp, plain = flagship_model(device), flagship_model(device)
+        reset_latent_counts()
+        _, dp_loss = step(dp, xs, torch.Generator(device=device).manual_seed(
+            SEED + 900))
+        torch.cuda.synchronize()
+        launches = (LF.launches, LF.bwd_launches)
+        plain_loss = plain_sgd_step(plain, flagship_loss(
+            plain, xs, torch.Generator(device=device).manual_seed(SEED + 900),
+            ts), MESH_LR)
+        bitwise = torch.equal(dp_loss, plain_loss) and all(
+            torch.equal(a, b) for a, b in zip(dp.parameters(),
+                                              plain.parameters()))
+        want = "nccl" if device.type == "cuda" else "gloo"
+        if backend != want or not bitwise or launches != (1, 1):
+            raise RuntimeError(f"1-rank mesh: backend {backend}, DP step "
+                               f"bitwise the plain step {bitwise}, kernels "
+                               f"1 and 2 launched {launches}")
+        times = []
+        for i in range(MESH_STEPS):
+            gen = torch.Generator(device=device).manual_seed(SEED + 901 + i)
+            times.append(timed_ms(lambda: step(dp, xs, gen))[1])
+    finally:
+        dist.destroy_process_group()
+    ms = float(np.median(times))
+    print(f"mesh (1 rank, {backend}): DP step bitwise the plain fused step, "
+          f"kernels 1 and 2 launched {launches}; {ms:.2f} ms median of "
+          f"{MESH_STEPS}", flush=True)
+    return dict(backend=backend, bitwise=bitwise, launches=list(launches),
+                ms=times, median_ms=ms)
+
+
+def mesh_gloo_rank(rank, world, cfg):
+    """Part 2 in one of MESH_RANKS gloo ranks sharing the card (device
+    ``cfg["device"]``, card 0): a DP fused
+    flagship step on this rank's half of the batch and of the global
+    draws, then K = MESH_K replicas sharded over the ranks on the
+    K-replica fused route."""
+    no_tf32()
+    device = torch.device(cfg["device"])
+    ts = cfg["ts"]
+    mesh = PM.make_mesh(device=device)
+    model = PM.replicate(flagship_model(device), mesh)
+    xs = PM.shard_batch(cfg["xs"].to(device), mesh, batch_axis=1)
+    lo, hi = rows_of(BATCH, mesh)
+    grads = {}
+    step = PM.data_parallel_train_step(
+        functools.partial(flagship_loss, ts=ts), mesh,
+        optimizer_update=recording_sgd(MESH_LR, grads))
+    with cpu_table_draws(cfg["eps"][lo:hi].to(device),
+                         cfg["W"][:, lo:hi].to(device)):
+        reset_latent_counts()
+        _, loss = step(model, xs, None)
+        torch.cuda.synchronize()
+        launches = dict(launches=LF.launches, bwd_launches=LF.bwd_launches)
+        times = []
+        for _ in range(MESH_STEPS):
+            dist.barrier()
+            times.append(timed_ms(lambda: step(model, xs, None))[1])
+    dp = dict(loss=float(loss), rows=[lo, hi], launches=launches, ms=times,
+              grads={n: g.cpu() for n, g in grads.items()})
+    models = PM.shard_batch(stacked_replicas(device, MESH_K), mesh)
+    k_lo, k_hi = rows_of(MESH_K, mesh)
+    gens = replica_generators(device, SEED + 950, MESH_K)[k_lo:k_hi]
+    reset_latent_counts()
+    losses, grads = multi_sgd_step(models, cfg["xs"].to(device), ts, gens,
+                                   MESH_LR)
+    torch.cuda.synchronize()
+    counts = dict(zip(("multi_launches", "multi_bwd_launches", "launches",
+                       "bwd_launches"), multi_counts()))
+    return dict(dp=dp, replicas=dict(
+        replicas=[k_lo, k_hi], losses=losses.cpu(), launches=counts,
+        grads={n: g.cpu() for n, g in grads.items()}))
+
+
+def mesh_tp_rank(rank, world, cfg):
+    """Part 3 in one of 4 gloo ranks sharing the card: a DP x TP step of the
+    latent ELBO (sdeint route) on a 2 x 2 mesh, this rank's data rows and
+    draws; its loss and the averaged gradients of its shards."""
+    no_tf32()
+    device = torch.device(cfg["device"])
+    mesh = PM.make_mesh_2d(n_model=2, device=device)
+    model = PM.shard_latent_sde_tp(tp_model(device), mesh)
+    xs = PM.shard_batch(cfg["xs"].to(device), mesh, batch_axis=1)
+    lo, hi = rows_of(MESH_TP_B, mesh)
+    grads = {}
+    step = PM.data_parallel_train_step(
+        lambda m, batch, g: latent_sde_loss(m, batch, MESH_TP_TS, g,
+                                            dt=MESH_TP_DT)[0],
+        mesh, optimizer_update=recording_sgd(MESH_LR, grads))
+    with cpu_table_draws(cfg["eps"][lo:hi].to(device),
+                         cfg["W"][:, lo:hi].to(device)):
+        _, loss = step(model, xs, None)
+    want = {n: PM.tp_part(n, w.to(device), mesh)
+            for n, w in cfg["grads"].items()}
+    rel, name = grad_rel(grads, want)
+    ratio = max(abs(float((grads[n] * w).sum() / (w * w).sum()) - 1.0)
+                for n, w in want.items())
+    return dict(loss=float(loss), grad_rel=rel, grad_name=name,
+                scale_off=ratio, coords={n: mesh.get_local_rank(n)
+                                         for n in mesh.mesh_dim_names},
+                w0=list(model.f_net.layers[0].w.shape))
+
+
+def tp_model(device):
+    D, L, C, H = MESH_TP_DIMS
+    return LatentSDE(D, L, C, H, device=device,
+                     generator=torch.Generator().manual_seed(SEED + 960))
+
+
+def latent_draws(device, B, L, ts, dt, seed):
+    """Global eps (B, L) and W (n, B, L + 1) of a latent solve on ``ts``
+    at ``dt``, drawn on the card from a seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    eps = torch.randn((B, L), generator=gen, device=device)
+    grid = TI.build_step_grid(ts[0], ts[-1], dt)
+    W = TI.sample_grid_noise(gen, grid, (B, L + 1), torch.float32, device)[0]
+    return eps, W
+
+
+def phase_mesh(device, card):
+    """Phase 32 (kernels 1-4 in each rank; the mesh adds none): part 1 on
+    a one-rank NCCL group, part 2 on MESH_RANKS gloo ranks sharing the card
+    (the ranks load the kernels the parent built), part 3 on 4. Multi-GPU
+    NCCL and tensor parallelism over NVLink need more than one card and
+    are not run here. Returns the launches of kernels 1-4 in the ranks."""
+    xs, ts = lorenz_data(device)
+    out = dict(card=card, nccl=mesh_nccl(device, xs, ts))
+    shared = str(device) if device.type != "cuda" else "cuda:0"
+    eps, W = latent_draws(device, BATCH, LATENT, ts, DT, SEED + 910)
+    t0 = time.perf_counter()
+    ranks = PM.run_ranks(mesh_gloo_rank, MESH_RANKS, args=(dict(
+        xs=xs.cpu(), eps=eps.cpu(), W=W.cpu(), ts=ts, device=shared),),
+        device=shared, backend="gloo", timeout=600)
+    wall = time.perf_counter() - t0
+    with cpu_table_draws(eps, W):
+        loss, grads = latent_grads(flagship_model(device), xs, ts,
+                                   fused=True)
+    models = stacked_replicas(device, MESH_K)
+    reset_latent_counts()
+    losses, mgrads = multi_sgd_step(models, xs, ts, replica_generators(
+        device, SEED + 950, MESH_K), MESH_LR)
+    gloo = []
+    for r, rank in enumerate(ranks):
+        dp, rep = rank["dp"], rank["replicas"]
+        loss_rel = abs(dp["loss"] - float(loss)) / abs(float(loss))
+        rel, name = grad_rel(dp["grads"], grads)
+        k_lo, k_hi = rep["replicas"]
+        m_loss = float((rep["losses"].to(device) - losses[k_lo:k_hi]).abs()
+                       .max() / losses[k_lo:k_hi].abs().max())
+        m_rel, m_name = grad_rel(rep["grads"], {n: g[k_lo:k_hi] for n, g in
+                                                mgrads.items()})
+        ok = (loss_rel <= MESH_LOSS_RTOL and rel <= MESH_GRAD_REL
+              and dp["launches"] == dict(launches=1, bwd_launches=1)
+              and m_loss <= MULTI_LOSS_RTOL and m_rel <= MULTI_GRAD_REL
+              and rep["launches"]["multi_launches"] == 1
+              and rep["launches"]["multi_bwd_launches"] == 1)
+        print(f"mesh rank {r} of {MESH_RANKS} (gloo, {shared}): DP rows "
+              f"{dp['rows']}, loss rel {loss_rel:.3e}, gradient rel "
+              f"{rel:.3e} ({name}), kernels 1, 2 {dp['launches']}, step "
+              f"{float(np.median(dp['ms'])):.2f} ms; replicas {rep['replicas']}"
+              f": loss rel {m_loss:.3e}, gradient rel {m_rel:.3e} "
+              f"({m_name}), launches {rep['launches']}", flush=True)
+        if not ok:
+            raise RuntimeError(f"mesh rank {r}: the DP or the replica step "
+                               f"disagrees with one process's, or a kernel "
+                               f"was not launched")
+        gloo.append(dict(rows=dp["rows"], loss_rel=loss_rel, grad_rel=rel,
+                         launches=dp["launches"], ms=dp["ms"],
+                         median_ms=float(np.median(dp["ms"])),
+                         replicas=rep["replicas"], replica_loss_rel=m_loss,
+                         replica_grad_rel=m_rel,
+                         replica_launches=rep["launches"]))
+    out["gloo"] = dict(ranks=gloo, wall_s=wall)
+    # Part 3: DP x TP at the CPU tests' widths.
+    D, L, C, H = MESH_TP_DIMS
+    tgen = torch.Generator(device=device).manual_seed(SEED + 970)
+    txs = torch.randn((len(MESH_TP_TS), MESH_TP_B, D), generator=tgen,
+                      device=device)
+    teps, tW = latent_draws(device, MESH_TP_B, L, MESH_TP_TS, MESH_TP_DT,
+                            SEED + 971)
+    tmodel = tp_model(device)
+    with cpu_table_draws(teps, tW):
+        tloss = latent_sde_loss(tmodel, txs, MESH_TP_TS, None,
+                                dt=MESH_TP_DT)[0]
+        names = [n for n, _ in tmodel.named_parameters()]
+        tgrads = dict(zip(names, torch.autograd.grad(
+            tloss, list(tmodel.parameters()))))
+    tloss = tloss.detach()
+    t0 = time.perf_counter()
+    tp = PM.run_ranks(mesh_tp_rank, 4, args=(dict(
+        xs=txs.cpu(), eps=teps.cpu(), W=tW.cpu(), device=shared,
+        grads={n: g.cpu() for n, g in tgrads.items()}),), device=shared,
+        backend="gloo", timeout=600)
+    tp_wall = time.perf_counter() - t0
+    for r, rank in enumerate(tp):
+        loss_rel = abs(rank["loss"] - float(tloss)) / abs(float(tloss))
+        print(f"mesh DP x TP rank {r} {rank['coords']}: f_net.layers.0.w "
+              f"{rank['w0']}, loss rel {loss_rel:.3e}, gradient rel "
+              f"{rank['grad_rel']:.3e} ({rank['grad_name']}), gradient "
+              f"scale off by {rank['scale_off']:.3e}", flush=True)
+        if (loss_rel > MESH_LOSS_RTOL or rank["grad_rel"] > MESH_GRAD_REL
+                or rank["scale_off"] > MESH_GRAD_REL
+                or rank["w0"] != [L + C, H // 2]
+                or rank["coords"] != {"data": r // 2, "model": r % 2}):
+            raise RuntimeError(f"mesh DP x TP rank {r} disagrees with one "
+                               f"process's step")
+        rank["loss_rel"] = loss_rel
+    out["tp"] = dict(ranks=tp, wall_s=tp_wall)
+    out["note"] = (f"{MESH_RANKS} gloo ranks share one card: the DP step "
+                   f"time is not a scaling figure")
+    print(json.dumps({"mesh": out}), flush=True)
+    return dict(
+        latent_fused_fwd=[r["launches"]["launches"] for r in gloo],
+        latent_fused_bwd=[r["launches"]["bwd_launches"] for r in gloo],
+        latent_fused_fwd_multi=[r["replica_launches"]["multi_launches"]
+                                for r in gloo],
+        latent_fused_bwd_multi=[r["replica_launches"]["multi_bwd_launches"]
+                                for r in gloo],
+        nccl=out["nccl"]["launches"])
+
+
 GROUPS = ("latent", "gan", "tower", "logqp", "multi", "srk", "prng",
           "brownian", "adjoint", "adaptive", "traced_ts", "ddpm", "examples",
-          "diagnostics")
+          "diagnostics", "mesh")
 # Run only when asked for by --only.
 EXTRA_GROUPS = ("tiles", "ab", "steps")
 # Groups that launch no kernel of the port's own: they run without a build.
@@ -5547,11 +5916,26 @@ def main():
     if unknown:
         raise SystemExit(f"unknown phase groups {sorted(unknown)}")
     device, card = phase_device()
+    seconds = {}
+    current = [None, time.perf_counter()]
+
+    def start(name):
+        """Close the running group's clock (printing its seconds) and start
+        ``name``'s."""
+        now = time.perf_counter()
+        if current[0] is not None:
+            seconds[current[0]] = now - current[1]
+            print(f"group {current[0]}: {seconds[current[0]]:.1f} s",
+                  flush=True)
+        current[:] = [name, now]
+
     if not set(groups) <= set(UNBUILT_GROUPS):
+        start("build")
         phase_build()
     csrc = "torchsde_tpu_torch/ops/csrc"
     records = []
     if "latent" in groups:
+        start("latent")
         kernel1 = phase_kernel(device)
         kernel2 = phase_kernel2(device)
         xs, ts = lorenz_data(device)
@@ -5571,6 +5955,7 @@ def main():
                  launches=launches[1], library_ms=None,
                  step0_grad_rel_err=grad_rel, **kernel2)]
     if "gan" in groups:
+        start("gan")
         gan = gan_models(device)
         gan_ts, real = gan_data(device)
         kernel5, kernel7 = phase_gan_kernels(device, gan, gan_ts, real)
@@ -5607,11 +5992,13 @@ def main():
                  library_ms=None, **kernel8)]
     tower_kernels, tower_runs = {}, {}
     if "tower" in groups:
+        start("tower")
         tower_kernels.update(phase_tower_kernels(device))
         tower_runs.update({TOWER_CONFIGS[name][0]: phase_tower_serve_train(
             device, name) for name in ("E1", "R1")})
         phase_auto_dispatch(device, AUTO_SHAPES)
     if "logqp" in groups:
+        start("logqp")
         tower_kernels["euler_logqp"] = phase_logqp_kernels(device)["L1"]
         tower_runs["euler_logqp"] = phase_tower_serve_train(device, "L1")
         phase_auto_dispatch(device, AUTO_LOGQP_SHAPES)
@@ -5635,6 +6022,7 @@ def main():
                 launches=run["launches"][i], library_ms=None, **extra,
                 **tower_kernels[method][i]))
     if "multi" in groups:
+        start("multi")
         kernel3, kernel4 = phase_multi_kernels(device)
         xs, ts = lorenz_data(device)
         path = phase_multi_path(device, xs, ts)
@@ -5652,12 +6040,14 @@ def main():
                  launches=path["launches"][1], library_ms=None,
                  step0_grad_rel_err=path["step0_grad_rel_err"], **kernel4)]
     if "srk" in groups:
+        start("srk")
         srk_launches, kernel15 = phase_srk_kernel(device)
         records.append(dict(
             name="srk_srid2", route="cuda", source=f"{csrc}/srk_srid2.cuh",
             replaces="torchsde_tpu/ops/srk_fused.py:80",
             launches=srk_launches, library_ms=None, **kernel15))
     if "prng" in groups:
+        start("prng")
         prng_launches, kernel16 = phase_prng_kernel(device)
         records.append(dict(
             name="philox_normal", route="cuda",
@@ -5665,24 +6055,32 @@ def main():
             replaces="torchsde_tpu/ops/prng.py:37", launches=prng_launches,
             library_ms=None, **kernel16))
     if "brownian" in groups:
+        start("brownian")
         phase_brownian(device, card)
     if "adjoint" in groups:
+        start("adjoint")
         phase_adjoint(device)
     if "adaptive" in groups:
+        start("adaptive")
         phase_adaptive(device)
     if "traced_ts" in groups:
+        start("traced_ts")
         phase_traced_ts(device)
     if "ddpm" in groups:
+        start("ddpm")
         phase_ddpm(device)
     if "examples" in groups:
+        start("examples")
         example_launches = phase_examples(device)
         for record in records:
             if record["name"] in example_launches:
                 record["launches_examples"] = example_launches[
                     record["name"]]
     if "diagnostics" in groups:
+        start("diagnostics")
         phase_diagnostics(device)
     if "tiles" in groups:
+        start("tiles")
         print(json.dumps({"euler_tiles": phase_euler_tiles(device)}),
               flush=True)
         print(json.dumps({"cde_bwd_tiles": phase_cde_tiles(device)}),
@@ -5691,9 +6089,22 @@ def main():
         print(json.dumps({"fwd_tiles": phase_fwd_tiles(device)}), flush=True)
         print(json.dumps({"sweep_tiles": phase_tiles(device)}), flush=True)
     if "ab" in groups:
+        start("ab")
         phase_ab(device, opts.ab_tag, opts.ab_against)
     if "steps" in groups:
+        start("steps")
         phase_steps(device)
+    if "mesh" in groups:
+        start("mesh")
+        mesh_launches = phase_mesh(device, card)
+        for record in records:
+            if record["name"] in mesh_launches:
+                record["launches_mesh"] = mesh_launches[record["name"]]
+            if record["name"] in ("latent_fused_fwd", "latent_fused_bwd"):
+                record["launches_mesh_nccl"] = mesh_launches["nccl"][
+                    record["name"] == "latent_fused_bwd"]
+    start(None)
+    print(json.dumps({"group_seconds": seconds}), flush=True)
     torch.cuda.synchronize()
     for record in records:
         if record["launches"] < 1:

@@ -84,6 +84,42 @@ def port_unet(jax_unet, dtype):
     return load_jax_params(m, jax_named_arrays(jax_unet))
 
 
+def seeded_leaves(shapes, seed):
+    """A JAX module of the structure ``shapes`` (a ``jax.eval_shape`` of its
+    constructor, which compiles nothing, where constructing it eagerly
+    compiles every random draw) holding seeded numpy weights: norm scales
+    1 + 0.1 N, other vectors 0.1 N, arrays U(-s, s) with s = 1/sqrt(the
+    product of all but the last dimension)."""
+    import jax
+    import jax.numpy as jnp
+    rng = np.random.default_rng(seed)
+    leaves = []
+    for name, leaf in zip(jax_named_arrays(shapes),
+                          jax.tree_util.tree_leaves(shapes)):
+        if name.endswith("scale"):
+            value = 1.0 + 0.1 * rng.standard_normal(leaf.shape)
+        elif len(leaf.shape) == 1:
+            value = 0.1 * rng.standard_normal(leaf.shape)
+        else:
+            s = 1.0 / np.sqrt(np.prod(leaf.shape[:-1]))
+            value = rng.uniform(-s, s, leaf.shape)
+        leaves.append(jnp.asarray(value, leaf.dtype))
+    return jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(shapes), leaves)
+
+
+def jax_unet(ch_mults, base_ch=8, seed=5):
+    """A float64 JAX U-Net of this structure holding seeded weights
+    (:func:`seeded_leaves`)."""
+    import functools
+    import jax
+    import jax.numpy as jnp
+    from torchsde_tpu.models import unet as JU
+    return seeded_leaves(jax.eval_shape(functools.partial(
+        JU.UNet, in_ch=1, base_ch=base_ch, ch_mults=ch_mults,
+        dtype=jnp.float64), jax.random.PRNGKey(4)), seed)
+
+
 def port_score_sde(jax_sde, dtype):
     """A torchsde_tpu_torch ScoreMatchingSDE around a U-Net like
     ``jax_sde``'s, its weights carried across from the JAX ScoreMatchingSDE

@@ -71,17 +71,20 @@ def test_rejects_a_shape_mismatch_and_copies_nothing():
 
 
 def test_port_never_imports_jax():
-    """Every module of the package (the examples and the diagnostics
-    among them), and chip_smoke.py, import without bringing JAX in, nor
-    matplotlib (the examples import it only to plot)."""
+    """Every module of the package (the examples, the diagnostics and the
+    mesh among them), chip_smoke.py and the mesh tests' rank functions
+    (tests/mesh_ranks.py, which spawned ranks import) import without
+    bringing JAX in, nor matplotlib (the examples import it only to
+    plot)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import torchsde_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
-        "for m in mods + ['chip_smoke']:\n"
+        "for m in mods + ['chip_smoke', 'mesh_ranks']:\n"
         "    importlib.import_module(m)\n"
         "assert len(mods) >= 15, mods\n"
+        "assert 'torchsde_tpu_torch.parallel.mesh' in mods, mods\n"
         "assert {'torchsde_tpu_torch.models.unet', "
         "'torchsde_tpu_torch.models.cont_ddpm'} <= set(mods), mods\n"
         "examples = {'torchsde_tpu_torch.examples.' + n for n in ("
@@ -97,7 +100,8 @@ def test_port_never_imports_jax():
         "or m.startswith(('jax.', 'jaxlib', 'torchsde_tpu.', "
         "'matplotlib')))\n"
         "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO, os.path.join(REPO, "tests")]))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -34,8 +34,8 @@ from torch import nn
 import torchsde_tpu_torch.core.integrate as TI
 import torchsde_tpu_torch.models.cont_ddpm as TD
 import torchsde_tpu_torch.models.unet as TU
-from port_bridge import (jax_named_arrays, port_score_sde, port_unet,
-                         to_torch)
+from port_bridge import (jax_named_arrays, jax_unet, port_score_sde,
+                         port_unet, to_torch)
 from torchsde_tpu.core import integrate as JI
 from torchsde_tpu.models import cont_ddpm as JD
 from torchsde_tpu.models import unet as JU
@@ -49,28 +49,7 @@ CONFIGS = {"two_levels": ((1, 2), 8), "three_levels": ((1, 2, 4), 12)}
 
 @functools.lru_cache(maxsize=None)
 def _jax_unet(config):
-    """A JAX U-Net of the config's structure (traced abstractly, which
-    compiles nothing) holding seeded numpy weights: convolutions and
-    linear layers U(-s, s), s = 1/sqrt(fan-in), norm scales 1 + 0.1 N,
-    biases 0.1 N."""
-    ch_mults, _ = CONFIGS[config]
-    shapes = jax.eval_shape(functools.partial(
-        JU.UNet, in_ch=1, base_ch=8, ch_mults=ch_mults, dtype=jnp.float64),
-        jax.random.PRNGKey(4))
-    rng = np.random.default_rng(5)
-    leaves = []
-    for name, leaf in zip(jax_named_arrays(shapes),
-                          jax.tree_util.tree_leaves(shapes)):
-        if name.endswith("scale"):
-            value = 1.0 + 0.1 * rng.standard_normal(leaf.shape)
-        elif len(leaf.shape) == 1:
-            value = 0.1 * rng.standard_normal(leaf.shape)
-        else:
-            s = 1.0 / np.sqrt(np.prod(leaf.shape[:-1]))
-            value = rng.uniform(-s, s, leaf.shape)
-        leaves.append(jnp.asarray(value))
-    return jax.tree_util.tree_unflatten(
-        jax.tree_util.tree_structure(shapes), leaves)
+    return jax_unet(CONFIGS[config][0])
 
 
 def _size(config):

@@ -3,7 +3,8 @@
 
 Covers: defining SDEs, the four noise types, fixed randomness via ``bm=``,
 gradients (backprop and adjoint), one solve captured as a CUDA graph and
-replayed, higher-order solvers, and a whole-solve kernel.
+replayed, higher-order solvers, a whole-solve kernel, and a solve whose
+batch is split over the ranks of a mesh.
 
 Usage: python -m torchsde_tpu_torch.examples.demo [--cpu]
 """
@@ -12,6 +13,7 @@ import argparse
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ._evidence import example_device, stream
 from ..brownian.interval import BrownianInterval
@@ -19,6 +21,7 @@ from ..core.adjoint import sdeint_adjoint
 from ..core.base_sde import BaseSDE, SDEIto
 from ..core.sdeint import sdeint
 from ..ops.fused_solve import TowerSpec, fused_sdeint
+from ..parallel.mesh import make_mesh, shard_batch
 
 
 class GeneralSDE(BaseSDE):
@@ -154,8 +157,26 @@ def main(argv=None):
     out["fused"] = ys_fused
 
     print("== 7. Batch-axis data parallelism ==")
-    print("parallel/mesh.py is not ported yet (ROADMAP.md, queue 1); this "
-          "section waits for it")
+    # A mesh of the ranks there are (this process alone unless started by
+    # torchrun); each rank solves its rows of y0 on its rows of the same
+    # interval, which are the whole solve's rows.
+    own_group = not dist.is_initialized()
+    mesh = make_mesh(device=device)
+    with torch.no_grad():
+        ys_dp = sdeint(sde, shard_batch(y0, mesh), ts,
+                       bm=shard_batch(bm, mesh), method="euler", dt=1e-2)
+    n = mesh.size()
+    print(f"sharded over {n} rank(s): this rank's rows", tuple(ys_dp.shape),
+          "of", tuple(ys_a.shape))
+    if n == 1:
+        out["sharded_vs_whole"] = float((ys_dp - ys_a).abs().max())
+        print("one rank, so the rows are the whole solve's (max diff "
+              f"{out['sharded_vs_whole']}); run with torchrun "
+              "--nproc-per-node=N -m torchsde_tpu_torch.examples.demo --cpu "
+              "to see sharding")
+    out["sharded"] = ys_dp
+    if own_group:
+        dist.destroy_process_group()
     return out
 
 

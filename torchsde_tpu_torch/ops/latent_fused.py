@@ -47,7 +47,7 @@ import torch
 from . import _build
 from ..core import integrate
 from ..core.sdeint import host_times
-from ..models.layers import softplus
+from ..models.layers import Linear, softplus
 from ..utils.misc import check_kernel_tensor
 
 _EPS = 1e-7   # stable_division clamp
@@ -82,6 +82,11 @@ def solve_weights(model):
                 f"softplus MLP with no final activation (got "
                 f"{len(net.layers)} layers, activation={net.activation!r}, "
                 f"final={net.final_activation!r}); use fused=False")
+        if not all(isinstance(layer, Linear) for layer in net.layers):
+            raise ValueError(
+                f"fused latent solve takes whole weights and {name} is "
+                f"split over a mesh (parallel/mesh.py:shard_latent_sde_tp); "
+                f"use fused=False")
     out = []
     for net in (model.f_net, model.h_net):
         for layer in net.layers:

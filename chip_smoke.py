@@ -122,6 +122,23 @@ Phases, in order; any failure raises and the script exits non-zero:
     (lr 1e-2) on the stacked state, each launching kernels 3 and 4 once, in
     turns with the multi ``sdeint`` route and K single fused models; median
     step times and a profile of each;
+22a. bf16 mixed mode of kernels 1-4 at the flagship: kernels 1 and 2 (2
+    with normal and saturated diffusion) and kernels 3 and 4 at K = 4
+    against their mixed-mode plain versions and a float32 reference (the
+    float32 plain version on the same bf16 weights, context and noise),
+    no nearer that reference, rounded, than half the plain version (which
+    a float64 stand-in for a kernel that rounds nothing must fail), every
+    output in its dtype, two calls bitwise equal, each replica of 3 and 4
+    bitwise 1 and 2, median times and bounds in bf16 bytes and at the bf16
+    peak; the routes on the JAX package's bars (5e-3 relative, cosine
+    above 0.999): fused against ``sdeint`` at that test's size for eight
+    seeds, fused against a float32-state reference at the flagship for
+    four seeds at dt 1/32 and 1/128 (the ``sdeint`` route's distances
+    printed); three Adam steps of each route in turns, each fused step
+    launching kernels 1 and 2 in bf16 once and the float32 kernels never,
+    a profile of each route; K = 4 bf16 replicas of
+    ``latent_sde_loss_multi(fused=True)`` against the single fused route
+    and two Adam steps, each launching kernels 3 and 4 in bf16 once;
 23. kernel 15 at the four configurations of the JAX package's
     benchmarks/srk_fused.py (batch 1024 or 16384, d 8 or 128, 128 steps of
     ExDiagonal): against its plain version and a float64 run, its strong
@@ -508,9 +525,9 @@ SRID2_FLOPS = 114
 PRNG_ATOL = 2e-6
 PRNG_SHAPES = ((128, 1024, 9), (128, 16384, 128))
 PRNG_LAW_DRAWS = 2 ** 20
-# Published H100 SXM peaks (NVIDIA H100 datasheet): float32 outside the
-# tensor cores, and device memory.
-PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+# Published H100 SXM peaks (NVIDIA H100 datasheet, dense): float32 outside
+# the tensor cores, bf16 on the tensor cores, and device memory.
+PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_S = 67e12, 989e12, 3.35e12
 
 
 # Device cycles (about 1 ms) that each timed run waits behind, so that the
@@ -546,12 +563,13 @@ def solve_flops(B, L, C, H, n):
     return 2 * B * n * ((L + C) * H + 2 * H * H + 5 * L * H)
 
 
-def bound(flops, tensors):
+def bound(flops, tensors, peak=PEAK_F32_FLOPS):
     """The least time the card could take, in ms, and what bounds it: the
-    larger of the operations at the float32 peak and of the bytes moved
-    (each input read once, each output written once) at the memory rate."""
+    larger of the operations at ``peak``, the card's rate for their
+    operands' type (float32 unless given), and of the bytes moved (each
+    input read once, each output written once) at the memory rate."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -588,10 +606,10 @@ def phase_build():
             print(f"  nvcc: {line.strip()}", flush=True)
 
 
-def flagship_model(device):
+def flagship_model(device, dtype=torch.float32):
     gen = torch.Generator().manual_seed(SEED)
-    return LatentSDE(DATA, LATENT, CONTEXT, HIDDEN, device=device,
-                     generator=gen)
+    return LatentSDE(DATA, LATENT, CONTEXT, HIDDEN, dtype=dtype,
+                     device=device, generator=gen)
 
 
 def kernel_inputs(device, model, seed=SEED + 1, dt=DT):
@@ -1481,15 +1499,15 @@ def cde_flops(B, S, M, C, n):
 
 
 def check_against_plain(label, names, got, want, exact, atol, rel_tol,
-                        rtol=0.0, f64_rel=None):
+                        rtol=0.0, f64_rel=None, ref="float64"):
     """Holds a kernel's outputs to its plain version's at max(atol, rel_tol
     * scale), and to twice the plain version's distance from the plain
-    version run in float64 (``exact``) plus atol, or plus ``f64_rel`` times
-    the scale where that is given. With ``rtol`` (inputs on
-    which float32 itself is ill-conditioned) the first bound adds three
-    times the plain version's own distance from float64, what float32
-    rounding alone gives on these inputs, and the second ``rtol`` times the
-    scale. Returns the largest absolute and scale-relative errors against
+    version run in float64 (``exact``; another reference named by ``ref``)
+    plus atol, or plus ``f64_rel`` times the scale where that is given.
+    With ``rtol`` (inputs on which float32 itself is ill-conditioned) the
+    first bound adds three times the plain version's own distance from
+    float64, what float32 rounding alone gives on these inputs, and the
+    second ``rtol`` times the scale. Returns the largest absolute and scale-relative errors against
     the plain version."""
     worst = worst_rel = 0.0
     cells, failures = [], []
@@ -1503,7 +1521,7 @@ def check_against_plain(label, names, got, want, exact, atol, rel_tol,
         err64 = float((g.double() - e).abs().max())
         plain64 = float((w.double() - e).abs().max())
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
-        cells.append(f"{name} {err:.2e}/{scale:.3g} (f64: {err64:.2e} vs "
+        cells.append(f"{name} {err:.2e}/{scale:.3g} ({ref}: {err64:.2e} vs "
                      f"{plain64:.2e})")
         slack = 3 * plain64 if rtol else 0.0
         if err > max(atol, rel_tol * scale) + slack:
@@ -1511,9 +1529,9 @@ def check_against_plain(label, names, got, want, exact, atol, rel_tol,
                             f"{rel_tol} * {scale:.4g}) + {slack:.3e}")
         margin = atol if f64_rel is None else f64_rel * scale
         if err64 > 2 * plain64 + margin + rtol * scale:
-            failures.append(f"{name} is {err64:.3e} from the float64 run, "
+            failures.append(f"{name} is {err64:.3e} from the {ref} run, "
                             f"the plain version {plain64:.3e}")
-    print(f"{label} vs plain (abs err/max|plain|; from float64: kernel vs "
+    print(f"{label} vs plain (abs err/max|plain|; from {ref}: kernel vs "
           f"plain): " + "; ".join(cells), flush=True)
     print(f"{label} vs plain: max_abs_err={worst:.3e}, max_rel_err="
           f"{worst_rel:.3e}", flush=True)
@@ -2696,19 +2714,20 @@ def phase_auto_dispatch(device, shapes):
 #  K stacked latent replicas: kernels 3 and 4, latent_sde_loss_multi          #
 # --------------------------------------------------------------------------- #
 
-def replica_models(device, K, seed):
+def replica_models(device, K, seed, dtype=torch.float32):
     """K flagship LatentSDEs from the generator seeds seed .. seed + K - 1."""
-    return [LatentSDE(DATA, LATENT, CONTEXT, HIDDEN, device=device,
+    return [LatentSDE(DATA, LATENT, CONTEXT, HIDDEN, dtype=dtype,
+                      device=device,
                       generator=torch.Generator().manual_seed(seed + k))
             for k in range(K)]
 
 
-def multi_kernel_inputs(device, K, dt=DT):
+def multi_kernel_inputs(device, K, dt=DT, dtype=torch.float32):
     """Seeded inputs of kernels 3 and 4 at the flagship shapes (steps of
-    ``dt``), as the main path makes them for K replicas: z0 (K,B,L), ctx
-    (K,T,B,C), the shared ctx_idx and dts, noise (K,n,B,L), each weight
-    stacked (K, ...)."""
-    models = replica_models(device, K, SEED + 100)
+    ``dt``), as the main path makes them for K replicas of weights in
+    ``dtype``: z0 (K,B,L), ctx (K,T,B,C), the shared ctx_idx and dts, noise
+    (K,n,B,L), each weight stacked (K, ...)."""
+    models = replica_models(device, K, SEED + 100, dtype)
     per = [kernel_inputs(device, m, SEED + 110 + k, dt)
            for k, m in enumerate(models)]
     _, _, ctx_idx, _, dts = per[0]
@@ -2954,12 +2973,14 @@ def multi_counts():
 def reset_latent_counts():
     LF.launches = LF.bwd_launches = 0
     LF.multi_launches = LF.multi_bwd_launches = 0
+    LF.bf16_launches = LF.bf16_bwd_launches = 0
+    LF.bf16_multi_launches = LF.bf16_multi_bwd_launches = 0
 
 
-def stacked_replicas(device, K):
+def stacked_replicas(device, K, dtype=torch.float32):
     return RP.stack_replicas(
-        lambda g: LatentSDE(DATA, LATENT, CONTEXT, HIDDEN, device=device,
-                            generator=g),
+        lambda g: LatentSDE(DATA, LATENT, CONTEXT, HIDDEN, dtype=dtype,
+                            device=device, generator=g),
         [torch.Generator().manual_seed(SEED + 200 + k) for k in range(K)])
 
 
@@ -3159,6 +3180,527 @@ def phase_multi_path(device, xs, ts):
                 step0_grad_rel_err=worst,
                 loss_rel_err=max(w for _, w in served),
                 step_ms={r: medians[r] for r in routes})
+
+
+# --------------------------------------------------------------------------- #
+#  bf16 mixed mode of kernels 1-4                                             #
+# --------------------------------------------------------------------------- #
+
+BF16 = torch.bfloat16
+# Kernels 1-4 in bf16 mixed mode against their mixed-mode plain versions,
+# per tensor: within BF16_REL of its scale, at least two bf16 ulps of its
+# largest entry (the two sum each product in another order, which now and
+# then flips the bf16 rounding of a product's input, a state or a gradient,
+# and a flip moves what follows; measured at most one ulp, 5.0e-3 of scale,
+# kernel 2's f_w2 at the flagship, NVIDIA H100 80GB HBM3, 700 W), and each
+# within twice the plain version's distance from a float32 reference (the
+# float32 plain version on the same bf16 weights, context and noise,
+# widened, no activation rounded) plus BF16_REF_REL of the scale (the
+# rounding of a bf16 output itself).
+BF16_REL, BF16_REF_REL = 2 ** -6, 2 ** -8
+# Those bars bound a kernel's distance from above only, and a kernel that
+# rounded no product's input would pass them. So a kernel must also carry
+# mixed mode's roundings: its outputs' RMS distances from the float32
+# reference rounded to each output's dtype, over each one's scale and
+# summed, at least BF16_FLOOR of its plain version's. A kernel that rounded
+# nothing would write the rounded reference but for the order of its sums;
+# the float64 plain version on the same inputs, rounded to each dtype,
+# stands in for it and must miss the floor, or the floor could not tell
+# the two apart.
+BF16_FLOOR = 0.5
+# The bf16 routes, on the JAX package's bars for its fused against its XLA
+# route at the same bf16 weights (tests/test_fused_latent.py:131-166): the
+# fused loss within 5e-3 relative of the other's, the cosine of all
+# parameter gradients above 0.999. The fused route is held to the sdeint
+# route at that test's size (data 3, latent 4, context 16, hidden 32, batch
+# 8, 4 times, dt 0.25) for each of BF16_JAX_SEEDS. At the flagship the
+# sdeint route's bf16 state drifts with the steps and its loss is a bf16
+# number (an ulp of 5.4e-3 of it there), so the fused route is held instead
+# to a float32-state reference: the fused route of a float32 model on the
+# same weights, widened, and the same draws, at dt 1/32 and 1/128 for each
+# of BF16_FLAGSHIP_SEEDS; its distance from the sdeint route is printed.
+# The multi route's replicas are held to the single fused route on the same
+# bar: their encoders, run under vmap or not, round bf16 in other orders.
+BF16_ROUTE_RTOL, BF16_ROUTE_COS = 5e-3, 0.999
+BF16_JAX_WIDTHS, BF16_JAX_BATCH, BF16_JAX_TIMES, BF16_JAX_DT = \
+    (3, 4, 16, 32), 8, 4, 0.25
+BF16_JAX_SEEDS = range(8)
+BF16_FLAGSHIP_SEEDS, BF16_FLAGSHIP_DTS = range(300, 304), (1.0 / 32, DT)
+BF16_STEPS = 3
+
+
+def bf16_counts():
+    """Launches of kernels 1-4 in bf16, then of the float32 ones."""
+    return (LF.bf16_launches, LF.bf16_bwd_launches, LF.bf16_multi_launches,
+            LF.bf16_multi_bwd_launches, LF.launches, LF.bwd_launches,
+            LF.multi_launches, LF.multi_bwd_launches)
+
+
+def bytes_ms(tensors):
+    """The time the card's memory rate takes to move these tensors once."""
+    return sum(t.numel() * t.element_size() for t in tensors) \
+        / PEAK_BYTES_S * 1e3
+
+
+def bf16_bound(flops, tensors):
+    """A bf16 kernel's bound (its operands are bf16: the bf16 peak), and
+    that of the same operations at the float32 FMA rate, which the kernel
+    uses."""
+    bound_ms, bound_by = bound(flops, tensors, PEAK_BF16_FLOPS)
+    return dict(bound_ms=bound_ms, bound_by=bound_by,
+                fma_bound_ms=flops / PEAK_F32_FLOPS * 1e3)
+
+
+def bf16_reference(args, weights, dtype=torch.float32):
+    """A mixed-mode solve's reference inputs in ``dtype``: the bf16
+    context, noise and weights widened (exactly), so the plain version
+    rounds no activation."""
+    z0, ctx, ctx_idx, noise, dts = args
+    return ((z0.to(dtype), ctx.to(dtype), ctx_idx, noise.to(dtype),
+             dts.to(dtype)), [w.to(dtype) for w in weights])
+
+
+def rounding_share(outs, ref, dtypes):
+    """Summed over the outputs: each one's RMS distance from the float32
+    reference rounded to its dtype, over that rounded reference's scale."""
+    total = 0.0
+    for o, r, d in zip(outs, ref, dtypes):
+        r = r.to(d).double()
+        scale = float(r.abs().max())
+        if scale > 0:
+            total += float((o.double() - r).square().mean().sqrt()) / scale
+    return total
+
+
+def check_bf16(label, names, got, want, ref, dtypes, stand_in=None):
+    """A bf16 kernel's outputs: in ``dtypes``, held to its plain version
+    and the float32 reference at the bars above, and no nearer the rounded
+    reference than BF16_FLOOR of the plain version's distance; with
+    ``stand_in`` (the float64 plain version's outputs), that floor shown to
+    fail a kernel that rounds nothing."""
+    for name, g, w, d in zip(names, got, want, dtypes):
+        if g.dtype != d or w.dtype != d:
+            raise RuntimeError(f"{label} {name}: {g.dtype} (plain "
+                               f"{w.dtype}), expected {d}")
+    errs = check_against_plain(
+        label, names, [g.float() for g in got], [w.float() for w in want],
+        [r.double() for r in ref], 0.0, BF16_REL, f64_rel=BF16_REF_REL,
+        ref="float32 reference")
+    share = rounding_share(got, ref, dtypes)
+    plain = rounding_share(want, ref, dtypes)
+    line = (f"{label}: RMS distance from the rounded float32 reference, "
+            f"summed over scales: {share:.4e}, plain version {plain:.4e}")
+    if stand_in is not None:
+        stand = rounding_share([s.to(d) for s, d in zip(stand_in, dtypes)],
+                               ref, dtypes)
+        line += f", float64 stand-in {stand:.4e}"
+    print(line, flush=True)
+    if not share >= BF16_FLOOR * plain:
+        raise RuntimeError(f"{label}: {share:.3e} from the rounded float32 "
+                           f"reference, under {BF16_FLOOR} of the plain "
+                           f"version's {plain:.3e}: mixed mode's roundings "
+                           f"are missing")
+    if stand_in is not None and not stand < BF16_FLOOR * plain:
+        raise RuntimeError(f"{label}: a float64 stand-in passes the floor "
+                           f"({stand:.3e} >= {BF16_FLOOR} * {plain:.3e}); it "
+                           f"cannot tell mixed mode from float32")
+    return errs + (share / plain if plain > 0 else 1.0,)
+
+
+GRAD_DTYPES = (torch.float32,) + (BF16,) * (len(GRAD_NAMES) - 1)
+
+
+def same_bits(label, got, want):
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise RuntimeError(f"{label} differ")
+
+
+def phase_bf16_kernels(device):
+    """Kernels 1 and 2 in bf16 mixed mode at the flagship against their
+    mixed-mode plain versions and the float32 reference, and the floor of
+    their roundings shown against a float64 stand-in (kernel 2 with normal
+    and with saturated diffusion); two calls of each bitwise equal; median
+    times and bounds (bf16 bytes, bf16 operations)."""
+    model = flagship_model(device, BF16)
+    args = kernel_inputs(device, model)
+    n = args[3].shape[0]
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    gz = torch.randn((n, BATCH, LATENT), generator=gen,
+                     device=device).to(BF16)
+    gq = torch.randn((n, BATCH, 1), generator=gen, device=device)
+    flops = solve_flops(BATCH, LATENT, CONTEXT, HIDDEN, n)
+    out = {}
+    with torch.no_grad():
+        weights = LF.solve_weights(model)
+        fwd = LF.fused_solve_forward_cuda(*args, weights)
+        again = LF.fused_solve_forward_cuda(*args, weights)
+        plain = LF.fused_solve_forward_plain(*args, weights)
+        r_args, r_w = bf16_reference(args, weights)
+        ref = LF.fused_solve_forward_plain(*r_args, r_w)
+        d_args, d_w = bf16_reference(args, weights, torch.float64)
+        stand_in = LF.fused_solve_forward_plain(*d_args, d_w)
+        torch.cuda.synchronize()
+        same_bits("kernel 1 (bf16): two calls", fwd, again)
+        err = check_bf16("kernel 1 (bf16)", ("zs", "qs"), fwd, plain, ref,
+                         (BF16, torch.float32), stand_in)
+        del stand_in
+        ms = median_cuda_ms(
+            lambda: LF.fused_solve_forward_cuda(*args, weights), 20)
+        plain_ms = median_cuda_ms(
+            lambda: LF.fused_solve_forward_plain(*args, weights), 5)
+        bnd = bf16_bound(flops, [*args, *weights, *fwd])
+        print(f"kernel 1 (bf16): median {ms:.4f} ms; plain: median "
+              f"{plain_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}; bytes "
+              f"{bytes_ms([*args, *weights, *fwd]):.4f} ms; at the float32 "
+              f"FMA rate {bnd['fma_bound_ms']:.4f} ms)", flush=True)
+        out["fwd"] = dict(max_abs_err=err[0], max_rel_err=err[1],
+                          rounding_ratio=err[2], ms=ms, plain_ms=plain_ms,
+                          **bnd)
+        errs = []
+        for label in ("normal", "saturated"):
+            if label == "saturated":
+                model.g_nets[3].sub_(25.0)      # g ~ 1e-11 < 1e-7
+            weights = LF.solve_weights(model)
+            zs = (fwd[0] if label == "normal" else
+                  LF.fused_solve_forward_cuda(*args, weights)[0])
+            bargs = (*args, weights, zs, gz, gq)
+            got = LF.fused_solve_backward_cuda(*bargs)
+            want = LF.fused_solve_backward_plain(*bargs)
+            r_args, r_w = bf16_reference(args, weights)
+            ref = LF.fused_solve_backward_plain(*r_args, r_w, zs.float(),
+                                                gz.float(), gq)
+            stand_in = None
+            if label == "normal":
+                d_args, d_w = bf16_reference(args, weights, torch.float64)
+                stand_in = _flat(LF.fused_solve_backward_plain(
+                    *d_args, d_w, zs.double(), gz.double(), gq.double()))
+            torch.cuda.synchronize()
+            errs.append(check_bf16(
+                f"kernel 2 (bf16), {label} diffusion,", GRAD_NAMES,
+                _flat(got), _flat(want), _flat(ref), GRAD_DTYPES, stand_in))
+            del ref, stand_in
+            if label == "normal":
+                same_bits("kernel 2 (bf16): two calls", _flat(got),
+                          _flat(LF.fused_solve_backward_cuda(*bargs)))
+                timed, outputs = bargs, _flat(got)
+            elif not max(float(d.abs().max()) for d in got[3][12:]) > 0:
+                raise RuntimeError("kernel 2 (bf16): g_nets gradients "
+                                   "vanish under saturated diffusion")
+        print("kernels 1, 2 (bf16): two calls agree bitwise", flush=True)
+        ms = median_cuda_ms(lambda: LF.fused_solve_backward_cuda(*timed), 20)
+        plain_ms = median_cuda_ms(
+            lambda: LF.fused_solve_backward_plain(*timed), 3, warmup=1)
+    moved = [*timed[:5], *timed[5], *timed[6:], *outputs]
+    bnd = bf16_bound(3 * flops, moved)
+    print(f"kernel 2 (bf16): median {ms:.4f} ms; plain: median "
+          f"{plain_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}; bytes {bytes_ms(moved):.4f} ms; at the "
+          f"float32 FMA rate {bnd['fma_bound_ms']:.4f} ms)", flush=True)
+    out["bwd"] = dict(max_abs_err=errs[0][0], max_abs_err_saturated=errs[1][0],
+                      max_rel_err=max(e[1] for e in errs),
+                      rounding_ratio=min(e[2] for e in errs), ms=ms,
+                      plain_ms=plain_ms, **bnd)
+    return out
+
+
+def phase_bf16_multi_kernels(device):
+    """Kernels 3 and 4 in bf16 at K = MULTI_K: against their plain versions
+    and the float32 reference (with the floor of their roundings), each
+    replica bitwise kernels 1 and 2 (bf16)
+    on its own inputs, two sweeps bitwise equal; median times and
+    bounds."""
+    K = MULTI_K
+    args, weights = multi_kernel_inputs(device, K, dtype=BF16)
+    n = args[3].shape[1]
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    gz = torch.randn((K, n, BATCH, LATENT), generator=gen,
+                     device=device).to(BF16)
+    gq = torch.randn((K, n, BATCH, 1), generator=gen, device=device)
+    r_args, r_w = bf16_reference(args, weights)
+    flops = K * solve_flops(BATCH, LATENT, CONTEXT, HIDDEN, n)
+    with torch.no_grad():
+        got = LF.fused_solve_multi_forward_cuda(*args, weights)
+        want = LF.fused_solve_multi_forward_plain(*args, weights)
+        ref = LF.fused_solve_multi_forward_plain(*r_args, r_w)
+        torch.cuda.synchronize()
+        err3 = check_bf16("kernel 3 (bf16)", ("zs", "qs"), got, want, ref,
+                          (BF16, torch.float32))
+        del want, ref
+        bargs = (*args, weights, got[0], gz, gq)
+        got_b = LF.fused_solve_multi_backward_cuda(*bargs)
+        want_b = LF.fused_solve_multi_backward_plain(*bargs)
+        ref_b = LF.fused_solve_multi_backward_plain(
+            *r_args, r_w, got[0].float(), gz.float(), gq)
+        torch.cuda.synchronize()
+        err4 = check_bf16("kernel 4 (bf16)", GRAD_NAMES, _flat(got_b),
+                          _flat(want_b), _flat(ref_b), GRAD_DTYPES)
+        del want_b, ref_b
+        same_bits("kernel 4 (bf16): two sweeps", _flat(got_b),
+                  _flat(LF.fused_solve_multi_backward_cuda(*bargs)))
+        for k in range(K):
+            a_k, w_k = replica(args, weights, k)
+            one = LF.fused_solve_forward_cuda(*a_k, w_k)
+            same_bits(f"kernel 3 (bf16) replica {k} and kernel 1",
+                      [t[k] for t in got], one)
+            one_b = LF.fused_solve_backward_cuda(*a_k, w_k, got[0][k], gz[k],
+                                                 gq[k])
+            same_bits(f"kernel 4 (bf16) replica {k} and kernel 2",
+                      [t[k] for t in _flat(got_b)], _flat(one_b))
+        print(f"kernels 3, 4 (bf16) at K={K}: every replica bitwise kernels "
+              f"1, 2; two sweeps bitwise", flush=True)
+        times = dict(
+            fwd=(median_cuda_ms(lambda: LF.fused_solve_multi_forward_cuda(
+                *args, weights), 10),
+                median_cuda_ms(lambda: LF.fused_solve_multi_forward_plain(
+                    *args, weights), 2, warmup=1)),
+            bwd=(median_cuda_ms(lambda: LF.fused_solve_multi_backward_cuda(
+                *bargs), 10),
+                median_cuda_ms(lambda: LF.fused_solve_multi_backward_plain(
+                    *bargs), 2, warmup=1)))
+    out = {}
+    for kind, err, work, tensors in (
+            ("fwd", err3, flops, [*args, *weights, *got]),
+            ("bwd", err4, 3 * flops, [*bargs[:5], *weights, *bargs[6:],
+                                      *_flat(got_b)])):
+        bnd = bf16_bound(work, tensors)
+        ms, plain_ms = times[kind]
+        print(f"kernel {3 if kind == 'fwd' else 4} (bf16) at K={K}: median "
+              f"{ms:.4f} ms; plain: median {plain_ms:.4f} ms; bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; bytes "
+              f"{bytes_ms(tensors):.4f} ms; at the float32 FMA rate "
+              f"{bnd['fma_bound_ms']:.4f} ms)", flush=True)
+        out[kind] = dict(max_abs_err=err[0], max_rel_err=err[1],
+                         rounding_ratio=err[2], ms=ms, plain_ms=plain_ms,
+                         **bnd)
+    return out
+
+
+def grad_cosine(got, want):
+    num = sum(float((got[n].double() * want[n].double()).sum()) for n in got)
+    na = sum(float((got[n].double() ** 2).sum()) for n in got) ** 0.5
+    nb = sum(float((want[n].double() ** 2).sum()) for n in got) ** 0.5
+    return num / (na * nb)
+
+
+def loss_and_grads(model, xs, ts, seed, dt, fused):
+    """One ELBO's loss and parameter gradients on a generator seed."""
+    gen = torch.Generator(device=xs.device).manual_seed(seed)
+    loss, _ = latent_sde_loss(model, xs, ts, gen, dt=dt, kl_weight=1.0,
+                              fused=fused)
+    loss.backward()
+    grads = {name: p.grad.detach().clone()
+             for name, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def route_gap(a, b):
+    """The relative loss difference of two (loss, gradients) and the
+    cosine of their gradients."""
+    return (abs(float(a[0]) - float(b[0])) / abs(float(b[0])),
+            grad_cosine(a[1], b[1]))
+
+
+def widened(model, device):
+    """A float32 flagship model holding a bf16 one's weights, widened."""
+    ref = flagship_model(device)
+    ref.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    return ref
+
+
+def phase_bf16_routes(device, xs, ts):
+    """The bf16 routes on the JAX package's bars: at its test's size, the
+    fused route against the sdeint route for each of BF16_JAX_SEEDS; at the
+    flagship, the fused route against a float32-state reference (a float32
+    model on the widened weights and the same draws, which the card makes
+    as the bf16 draws unrounded: checked first) for each of
+    BF16_FLAGSHIP_SEEDS at each of BF16_FLAGSHIP_DTS, with the sdeint
+    route's distances from both printed. Every bf16 loss and gradient in
+    its dtype and finite."""
+    for shape in [(round(1 / dt), BATCH, LATENT + 1)
+                  for dt in BF16_FLAGSHIP_DTS] + [(BATCH, LATENT)]:
+        a = torch.randn(shape, device=device, dtype=BF16,
+                        generator=torch.Generator(device).manual_seed(7))
+        b = torch.randn(shape, device=device,
+                        generator=torch.Generator(device).manual_seed(7))
+        if not torch.equal(a, b.to(BF16)):
+            raise RuntimeError("bf16 draws are not the float32 draws "
+                               "rounded: no float32-state reference")
+
+    def run(model, xs, ts, seed, dt, fused, dtype=BF16):
+        out = loss_and_grads(model, xs, ts, seed, dt, fused)
+        want = torch.float32 if fused or dtype != BF16 else BF16
+        bad = [n for n, t in out[1].items()
+               if t.dtype != dtype or not torch.isfinite(t.float()).all()]
+        if out[0].dtype != want or not torch.isfinite(out[0]) or bad:
+            raise RuntimeError(f"bf16 routes: loss {out[0].dtype} (not "
+                               f"{want}) or gradients {bad} not finite "
+                               f"{dtype}")
+        return out
+
+    data, latent, context, hidden = BF16_JAX_WIDTHS
+    jax_ts = np.linspace(0.0, 1.0, BF16_JAX_TIMES)
+    small = []
+    for seed in BF16_JAX_SEEDS:
+        model = LatentSDE(data, latent, context, hidden, dtype=BF16,
+                          device=device,
+                          generator=torch.Generator().manual_seed(seed))
+        jax_xs = torch.randn(
+            (BF16_JAX_TIMES, BF16_JAX_BATCH, data), device=device,
+            generator=torch.Generator(device).manual_seed(seed)).to(BF16)
+        small.append(route_gap(
+            *(run(model, jax_xs, jax_ts, seed, BF16_JAX_DT, fused)
+              for fused in (True, False))))
+    print("bf16 routes at the JAX test's size, fused vs sdeint (loss rel "
+          "diff, gradient cosine): " + "; ".join(
+              f"seed {s} {r:.3e} {c:.6f}"
+              for s, (r, c) in zip(BF16_JAX_SEEDS, small)), flush=True)
+    model = flagship_model(device, BF16)
+    ref_model = widened(model, device)
+    xs_bf = xs.to(BF16)
+    flag = {}
+    for dt in BF16_FLAGSHIP_DTS:
+        for seed in BF16_FLAGSHIP_SEEDS:
+            fused = run(model, xs_bf, ts, seed, dt, True)
+            plain = run(model, xs_bf, ts, seed, dt, False)
+            ref = run(ref_model, xs_bf.float(), ts, seed, dt, True,
+                      torch.float32)
+            flag[dt, seed] = dict(ref=route_gap(fused, ref),
+                                  sdeint_ref=route_gap(plain, ref),
+                                  sdeint=route_gap(fused, plain))
+            print(f"bf16 routes at the flagship, dt 1/{round(1 / dt)}, seed "
+                  f"{seed}: loss fused {float(fused[0]):.8g} (float32), "
+                  f"sdeint {float(plain[0]):.8g} (bf16), float32 reference "
+                  f"{float(ref[0]):.8g}; (loss rel diff, gradient cosine) "
+                  + ", ".join(f"{k} {r:.3e} {c:.6f}"
+                              for k, (r, c) in flag[dt, seed].items()),
+                  flush=True)
+    worst = dict(
+        jax_size=(max(r for r, _ in small), min(c for _, c in small)),
+        **{k: (max(v[k][0] for v in flag.values()),
+               min(v[k][1] for v in flag.values()))
+           for k in ("ref", "sdeint_ref", "sdeint")})
+    print("bf16 routes, worst (loss rel diff, gradient cosine): " + ", ".join(
+        f"{k} {r:.3e} {c:.6f}" for k, (r, c) in worst.items()), flush=True)
+    for k in ("jax_size", "ref"):
+        r, c = worst[k]
+        if not (r <= BF16_ROUTE_RTOL and c > BF16_ROUTE_COS):
+            raise RuntimeError(f"bf16 routes ({k}): loss {r:.3e} > "
+                               f"{BF16_ROUTE_RTOL} or cosine {c:.6f} <= "
+                               f"{BF16_ROUTE_COS}")
+    return {f"{k}_loss_rel_err": v[0] for k, v in worst.items()} | {
+        f"{k}_grad_cosine": v[1] for k, v in worst.items()}
+
+
+def phase_bf16_train(device, xs, ts):
+    """The bf16 flagship on both routes: BF16_STEPS Adam steps of each in
+    turns, each fused step launching kernels 1 and 2 in bf16 once and the
+    float32 kernels never; medians and profiles."""
+    xs = xs.to(BF16)
+    models = {route: flagship_model(device, BF16) for route in ROUTES}
+    opts = {route: torch.optim.Adam(model.parameters(), lr=LR)
+            for route, model in models.items()}
+    times = {route: [] for route in ROUTES}
+    reset_latent_counts()
+    for step in range(BF16_STEPS):
+        for route in (ROUTES if step % 2 == 0 else ROUTES[::-1]):
+            before = bf16_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = train_step(models[route], opts[route], xs, ts, route,
+                              410 + step, min(1.0, step / KL_ANNEAL))
+            torch.cuda.synchronize()
+            times[route].append((time.perf_counter() - t0) * 1e3)
+            delta = tuple(a - b for a, b in zip(bf16_counts(), before))
+            want = ((1, 1) if route == "fused" else (0, 0)) + (0,) * 6
+            if delta != want:
+                raise RuntimeError(f"bf16 {route} step {step}: kernels "
+                                   f"launched {delta} times, not {want}")
+            if not (np.isfinite(float(loss)) and all(
+                    torch.isfinite(p.grad.float()).all()
+                    for p in models[route].parameters())):
+                raise RuntimeError(f"bf16 {route} step {step}: non-finite "
+                                   f"loss or gradient")
+            print(f"train bf16 {route} step {step}: loss {float(loss):.8g} "
+                  f"{times[route][-1]:.3f} ms", flush=True)
+    launches = (LF.bf16_launches, LF.bf16_bwd_launches)
+    medians = {route: float(np.median(t)) for route, t in times.items()}
+    profiles = {route: profile_run(f"bf16 train step {route}", lambda r=route:
+                                   train_step(models[r], opts[r], xs, ts, r,
+                                              420, 1.0),
+                                   cpu=route == "fused")
+                for route in ROUTES}
+    for route in ROUTES:
+        print(f"bf16 train step {route}: median {medians[route]:.3f} ms "
+              f"over {BF16_STEPS} steps (host clock, synchronised); "
+              f"profiled: {profiles[route]['kernels']} kernels, device "
+              f"{profiles[route]['device_ms']:.3f} ms, busy "
+              f"{profiles[route]['busy']:.3f}", flush=True)
+    return launches, dict(step_ms=medians,
+                          step_device_ms={r: p["device_ms"]
+                                          for r, p in profiles.items()},
+                          step_kernels={r: p["kernels"]
+                                        for r, p in profiles.items()})
+
+
+def phase_bf16_multi_path(device, xs, ts):
+    """latent_sde_loss_multi(fused=True) on K = MULTI_K bf16 replicas: each
+    replica's served loss against the single fused route on a clone of its
+    generator; two Adam steps on the stacked state, each launching kernels
+    3 and 4 in bf16 once and no other kernel of the solve."""
+    K = MULTI_K
+    xs = xs.to(BF16)
+    models = stacked_replicas(device, K, BF16)
+    gens = replica_generators(device, 750, K)
+    clones = []
+    for g in gens:
+        clones.append(torch.Generator(device=device))
+        clones[-1].set_state(g.get_state())
+    with torch.no_grad():
+        _, losses = latent_sde_loss_multi(models, xs, ts, gens, dt=DT,
+                                          fused=True)
+        want = [float(latent_sde_loss(RP.unstack_replica(models, k), xs, ts,
+                                      clones[k], dt=DT, fused=True)[0])
+                for k in range(K)]
+    got = [float(v) for v in losses]
+    worst = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    print(f"bf16 multi serve: losses {['%.8g' % v for v in got]} vs single "
+          f"{['%.8g' % v for v in want]}, worst rel diff {worst:.3e}",
+          flush=True)
+    if losses.dtype != torch.float32 or not worst <= BF16_ROUTE_RTOL:
+        raise RuntimeError(f"bf16 multi losses ({losses.dtype}) differ from "
+                           f"the single fused losses by {worst:.3e}")
+    opt = torch.optim.Adam(models.parameters(), lr=LR)
+    times = []
+    reset_latent_counts()
+    for i in range(2):
+        before = bf16_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        total, losses = latent_sde_loss_multi(
+            models, xs, ts, replica_generators(device, 760 + i, K), dt=DT,
+            fused=True)
+        total.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        delta = tuple(a - b for a, b in zip(bf16_counts(), before))
+        if delta != (0, 0, 1, 1, 0, 0, 0, 0):
+            raise RuntimeError(f"bf16 multi step {i}: kernels launched "
+                               f"{delta} times")
+        if not (torch.isfinite(losses).all() and all(
+                p.grad.dtype == BF16 and torch.isfinite(p.grad.float()).all()
+                for p in models.parameters() if p.grad is not None)):
+            raise RuntimeError(f"bf16 multi step {i}: non-finite loss or "
+                               f"gradient, or not bf16")
+        print(f"train bf16 multi fused step {i}: losses "
+              f"{[round(float(v), 3) for v in losses.detach()]} "
+              f"{times[-1]:.3f} ms",
+              flush=True)
+    return (LF.bf16_multi_launches, LF.bf16_multi_bwd_launches), dict(
+        loss_rel_err=worst, step_ms=float(np.median(times)))
 
 
 # --------------------------------------------------------------------------- #
@@ -3903,7 +4445,8 @@ def ab_gan_inputs(device, kind, B, S, M, K, T, seed):
 
 
 def phase_ab(device, tag, against):
-    """Times kernels 1, 2, 3 (at each K of MULTI_KS), 4 (at MULTI_K), 5-8
+    """Times kernels 1, 2 (and its contraction alone), 3 (at each K of
+    MULTI_KS), 4 (at MULTI_K), 5-8
     (at the GAN's reference scale; 5, 6 and 7 also at AB_GEN_SHAPES and
     AB_CDE_SHAPES), 9 (at E1, on general noise with time
     and at the narrow solve), 10 (at E1), 11 (at R1 and on general noise
@@ -3934,6 +4477,13 @@ def phase_ab(device, tag, against):
         out["kernel2"] = _flat(LF.fused_solve_backward_cuda(*bargs))
         times["kernel2"] = median_cuda_ms(
             lambda: LF.fused_solve_backward_cuda(*bargs), 20)
+        # Its contraction alone (the tiled and skinny products and the
+        # reduction) on its sweep's workspace.
+        _, ws = LF._backward_cuda(*bargs, multi=False)
+        times["kernel2_contraction"] = median_cuda_ms(
+            lambda: LF._backward_cuda(*bargs, multi=False, stages=2,
+                                      workspace=ws), 20)
+        del ws
         for Kt in MULTI_KS:
             a_t, w_t = multi_kernel_inputs(device, Kt)
             got = LF.fused_solve_multi_forward_cuda(*a_t, w_t)
@@ -5891,9 +6441,9 @@ def phase_mesh(device, card):
         nccl=out["nccl"]["launches"])
 
 
-GROUPS = ("latent", "gan", "tower", "logqp", "multi", "srk", "prng",
-          "brownian", "adjoint", "adaptive", "traced_ts", "ddpm", "examples",
-          "diagnostics", "mesh")
+GROUPS = ("latent", "gan", "tower", "logqp", "multi", "bf16", "srk",
+          "prng", "brownian", "adjoint", "adaptive", "traced_ts", "ddpm",
+          "examples", "diagnostics", "mesh")
 # Run only when asked for by --only.
 EXTRA_GROUPS = ("tiles", "ab", "steps")
 # Groups that launch no kernel of the port's own: they run without a build.
@@ -6039,6 +6589,28 @@ def main():
                  replaces="torchsde_tpu/ops/latent_fused.py:475",
                  launches=path["launches"][1], library_ms=None,
                  step0_grad_rel_err=path["step0_grad_rel_err"], **kernel4)]
+    if "bf16" in groups:
+        start("bf16")
+        single = phase_bf16_kernels(device)
+        multi = phase_bf16_multi_kernels(device)
+        xs, ts = lorenz_data(device)
+        routes = phase_bf16_routes(device, xs, ts)
+        step_launches, step = phase_bf16_train(device, xs, ts)
+        multi_launches, multi_step = phase_bf16_multi_path(device, xs, ts)
+        for name, line, launched, kernel, extra in (
+                ("latent_fused_fwd", 156, step_launches[0], single["fwd"],
+                 dict(step=step, routes=routes)),
+                ("latent_fused_bwd", 248, step_launches[1], single["bwd"],
+                 {}),
+                ("latent_fused_fwd_multi", 455, multi_launches[0],
+                 multi["fwd"], dict(multi_step=multi_step)),
+                ("latent_fused_bwd_multi", 475, multi_launches[1],
+                 multi["bwd"], {})):
+            records.append(dict(
+                name=f"{name}_bf16", route="cuda",
+                source=f"{csrc}/{name.replace('_multi', '')}.cu",
+                replaces=f"torchsde_tpu/ops/latent_fused.py:{line}",
+                launches=launched, library_ms=None, **extra, **kernel))
     if "srk" in groups:
         start("srk")
         srk_launches, kernel15 = phase_srk_kernel(device)

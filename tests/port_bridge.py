@@ -8,7 +8,7 @@ machine without JAX, can import the rest."""
 import numpy as np
 import torch
 
-from torchsde_tpu_torch.utils.convert import load_jax_params
+from torchsde_tpu_torch.utils.convert import as_tensor, load_jax_params
 
 
 def jax_named_arrays(tree):
@@ -46,7 +46,7 @@ def perturbed(tree, seed, scale=0.1):
 
 
 def to_torch(a):
-    return torch.as_tensor(np.array(a))
+    return as_tensor(a)
 
 
 def port_latent_sde(jax_model, dtype):

@@ -43,6 +43,23 @@ def test_every_jax_leaf_maps_to_one_port_tensor():
         np.testing.assert_array_equal(t.detach().numpy(), arrays[name])
 
 
+def test_bf16_leaves_carry_across_bit_for_bit():
+    """A bf16 JAX LatentSDE (ml_dtypes.bfloat16 leaves, which torch cannot
+    read as they are) loads into a bf16 port model bitwise, leaf by leaf,
+    through the arrays' 16-bit views."""
+    import jax.numpy as jnp
+    jax_model = JLatentSDE(jax.random.PRNGKey(3), *DIMS, dtype=jnp.bfloat16)
+    arrays = jax_named_arrays(jax_model)
+    assert all(a.dtype.name == "bfloat16" for a in arrays.values())
+    model = LatentSDE(*DIMS, dtype=torch.bfloat16, device="cpu")
+    load_jax_params(model, arrays)
+    for name, t in _port_tensors(model).items():
+        assert t.dtype == torch.bfloat16, name
+        np.testing.assert_array_equal(
+            t.detach().view(torch.int16).numpy(),
+            arrays[name].view(np.int16), err_msg=name)
+
+
 @pytest.mark.parametrize("fault", ["missing", "extra"])
 def test_rejects_missing_and_unused_keys(fault):
     arrays = _arrays()
@@ -98,7 +115,7 @@ def test_port_never_imports_jax():
         "assert examples | diagnostics <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'torchsde_tpu.', "
-        "'matplotlib')))\n"
+        "'matplotlib', 'ml_dtypes')))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO, os.path.join(REPO, "tests")]))

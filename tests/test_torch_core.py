@@ -150,6 +150,71 @@ def test_sdeint_euler_matches_jax_f64(noise_type, logqp):
                                    atol=1e-9)
 
 
+class JaxScalarSDE(jtsde.SDEIto):
+    """Coefficients of Python scalars only, so a bf16 state stays bf16."""
+
+    def __init__(self):
+        super().__init__(noise_type="diagonal")
+
+    def f(self, t, y):
+        return -0.7 * y + 0.3 * jnp.sin(t)
+
+    def g(self, t, y):
+        return 0.6 + 0.3 * jnp.sin(y)
+
+
+class TorchScalarSDE(torch.nn.Module):
+    noise_type, sde_type = "diagonal", "ito"
+
+    def f(self, t, y):
+        return -0.7 * y + 0.3 * torch.sin(t)
+
+    def g(self, t, y):
+        return 0.6 + 0.3 * torch.sin(y)
+
+
+# ys within one float32 rounding of the states (|y| < 2); in bf16 within
+# two ulps at |y| < 1 (2^-7): both packages round each bf16 operation, but
+# XLA fuses some of them in float32.
+NAN_CASES = {"f32": (jnp.float32, torch.float32, torch.float32, 1e-6),
+             "bf16": (jnp.bfloat16, torch.bfloat16, torch.float32, 2 ** -7),
+             "bf16_ts": (jnp.bfloat16, torch.bfloat16, torch.bfloat16,
+                         2 ** -7)}
+
+
+@pytest.mark.parametrize("case", sorted(NAN_CASES))
+def test_sdeint_is_finite_at_a_rounded_last_output_time(monkeypatch, case):
+    """ts = linspace(0, 0.3, 4) in float32 (bf16) ends a hair past 0.3, so
+    the step grid at dt 0.1 gets a last step of 1.2e-8 (7.8e-4) whose ends
+    round to one value of the state's dtype: the output there must take
+    the interval before it, finite, as the JAX package's default sdeint
+    does on the same draws."""
+    jdtype, dtype, ts_dtype, atol = NAN_CASES[case]
+    ts = torch.linspace(0.0, 0.3, 4, dtype=ts_dtype)
+    ts_host = ts.double().numpy()
+    grid = JI.build_step_grid(ts_host[0], ts_host[-1], 0.1)
+    ends = torch.as_tensor(grid[-2:]).to(dtype)
+    assert len(grid) == 5 and grid[-1] > grid[-2] and ends[0] == ends[1]
+    y0 = np.random.default_rng(2).normal(size=(B, D))
+    key = jax.random.PRNGKey(3)
+    want = jtsde.sdeint(JaxScalarSDE(), jnp.asarray(y0, jdtype),
+                        jnp.asarray(ts_host, {torch.float32: jnp.float32}
+                                    .get(ts_dtype, jnp.bfloat16)),
+                        method="euler", dt=0.1, key=key)
+    W = JI.sample_grid_noise(key, grid, (B, D), jdtype)[0]
+    monkeypatch.setattr(TI, "sample_grid_noise",
+                        lambda *args, **kwargs: (
+                            torch.as_tensor(np.asarray(W, np.float32))
+                            .to(dtype), None, None))
+    got = ttsde.sdeint(TorchScalarSDE(), torch.as_tensor(y0).to(dtype), ts,
+                       method="euler", dt=0.1)
+    assert got.dtype == dtype
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(got.double().numpy(),
+                               np.asarray(want, np.float64), rtol=0,
+                               atol=atol)
+
+
 def test_sdeint_default_noise_follows_the_generator():
     p = _problem_params()
     y0 = torch.ones((B, D), dtype=torch.float64)

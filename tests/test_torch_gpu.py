@@ -88,9 +88,10 @@ SHAPES = [
 ]
 
 
-def _solve_args(device, B, L, C, H, n_ts, dt, seed, saturated=False):
+def _solve_args(device, B, L, C, H, n_ts, dt, seed, saturated=False,
+                dtype=torch.float32):
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = LatentSDE(3, L, C, H, device=device,
+    model = LatentSDE(3, L, C, H, dtype=dtype, device=device,
                       generator=torch.Generator().manual_seed(seed))
     if saturated:
         with torch.no_grad():      # g ~ 1e-11, below stable_division's 1e-7
@@ -223,20 +224,36 @@ def test_backward_in_windows(cuda, multi, monkeypatch):
     the plain version in the same windows; two calls are bitwise equal;
     each replica of kernel 4 is bitwise kernel 2; the phases apart refuse
     windows."""
+    _check_backward_in_windows(cuda, multi, monkeypatch, torch.float32)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_bf16_backward_in_windows(cuda, multi, monkeypatch):
+    """test_backward_in_windows for the bf16 instantiations (mixed mode):
+    a later window's first pre-step state is read from zs in bf16, and the
+    skinny products take z0 only in the first window. The towers' bf16
+    gradients within BF16_REL of the one-window call's and of the plain
+    version in the same windows."""
+    _check_backward_in_windows(cuda, multi, monkeypatch, torch.bfloat16)
+
+
+def _check_backward_in_windows(cuda, multi, monkeypatch, dtype):
     B, L, C, H, K = 13, 3, 5, 40, 2
     with torch.no_grad():
         if multi:
-            args, weights = _multi_args(cuda, K, B, L, C, H, 4, 1.0 / 17, 7)
+            args, weights = _multi_args(cuda, K, B, L, C, H, 4, 1.0 / 17, 7,
+                                        dtype=dtype)
             zs, qs = LF.fused_solve_multi_forward_cuda(*args, weights)
             wrapper = LF.fused_solve_multi_backward_cuda
             plain = LF.fused_solve_multi_backward_plain
         else:
-            args, weights = _solve_args(cuda, B, L, C, H, 4, 1.0 / 17, 7)
+            args, weights = _solve_args(cuda, B, L, C, H, 4, 1.0 / 17, 7,
+                                        dtype=dtype)
             zs, qs = LF.fused_solve_forward_cuda(*args, weights)
             wrapper = LF.fused_solve_backward_cuda
             plain = LF.fused_solve_backward_plain
-        gz, gq = _cotangents(zs, qs, 8)
-        bargs = (*args, weights, zs, gz, gq)
+        gz, gq = _cotangents(zs.float(), qs, 8)
+        bargs = (*args, weights, zs, gz.to(zs.dtype), gq)
         n = args[3].shape[-3]
         assert LF.bwd_window(B, L, C, H, n) == n
         one, _ = LF._backward_cuda(*bargs, multi=multi)
@@ -252,8 +269,8 @@ def test_backward_in_windows(cuda, multi, monkeypatch):
         with pytest.raises(RuntimeError):
             LF._backward_cuda(*bargs, multi=multi, stages=1)
         if multi:
-            singles = [LF.fused_solve_backward_cuda(*a_k, w_k, zs[k], gz[k],
-                                                    gq[k])
+            singles = [LF.fused_solve_backward_cuda(*a_k, w_k, zs[k],
+                                                    bargs[-2][k], gq[k])
                        for k, (a_k, w_k) in enumerate(
                            _replica(args, weights, k) for k in range(K))]
     torch.cuda.synchronize()
@@ -261,8 +278,17 @@ def test_backward_in_windows(cuda, multi, monkeypatch):
     flat, flat_one = _flat(got), _flat(one)
     assert all(torch.equal(a, b) for a, b in zip(flat[:3] + flat[15:],
                                                  flat_one[:3] + flat_one[15:]))
-    _assert_grads_close(got, one)
-    _assert_grads_close(got, want)
+    if dtype == torch.float32:
+        _assert_grads_close(got, one)
+        _assert_grads_close(got, want)
+    else:
+        for g, w1, w in zip(flat, flat_one, _flat(want)):
+            assert g.dtype == w.dtype == w1.dtype
+            assert torch.isfinite(g.float()).all()
+            for other in (w1, w):
+                scale = float(other.float().abs().max())
+                torch.testing.assert_close(g.float(), other.float(), rtol=0,
+                                           atol=BF16_REL * scale)
     assert all(torch.equal(a, b) for a, b in zip(flat, _flat(again)))
     if multi:
         for k, single in enumerate(singles):
@@ -282,14 +308,72 @@ def test_too_wide_for_shared_memory_raises(cuda):
 
 
 def test_cuda_route_refuses_bf16(cuda):
+    """A set of dtypes that mixes the two modes is refused before any
+    launch: a bf16 tensor among float32 ones, a float32 one among bf16
+    ones (mixed mode), one bf16 weight among float32 ones."""
     args, weights = _solve_args(cuda, 8, 4, 8, 16, 4, 0.25, 2)
-    with torch.no_grad(), pytest.raises(ValueError, match="bf16"):
+    bf_args, bf_weights = _solve_args(cuda, 8, 4, 8, 16, 4, 0.25, 2,
+                                      dtype=torch.bfloat16)
+    before = _latent_counts()
+    with torch.no_grad(), pytest.raises(ValueError, match="bfloat16"):
         LF.fused_solve_forward(args[0], args[1], args[2],
                                args[3].bfloat16(), args[4], weights)
     zs = torch.zeros_like(args[3])
     qs = torch.zeros(zs.shape[:2] + (1,), device=cuda)
-    with pytest.raises(ValueError, match="bf16"):
+    with pytest.raises(ValueError, match="bfloat16"):
         LF.fused_solve_backward_cuda(*args, weights, zs, zs.bfloat16(), qs)
+    with torch.no_grad(), pytest.raises(ValueError, match="float32"):
+        LF.fused_solve_forward(bf_args[0], bf_args[1].float(), *bf_args[2:],
+                               bf_weights)
+    with torch.no_grad(), pytest.raises(ValueError):
+        LF.fused_solve_forward(*args, [bf_weights[0], *weights[1:]])
+    with pytest.raises(ValueError, match="bfloat16"):
+        LF.fused_solve_backward_cuda(*bf_args, bf_weights, zs.bfloat16(),
+                                     zs.bfloat16(), qs.bfloat16())
+    assert _latent_counts() == before
+
+
+def _latent_counts():
+    return (LF.launches, LF.bwd_launches, LF.bf16_launches,
+            LF.bf16_bwd_launches)
+
+
+# Kernels 1 and 2 in bf16 mixed mode against their mixed-mode plain
+# versions, per tensor within 2^-7 of its scale, one to two bf16 ulps of
+# its largest entry (the two sum each product in another order; passed on
+# an NVIDIA H100 80GB HBM3 at 700 W; chip_smoke.BF16_REL, at the flagship,
+# allows two).
+BF16_REL = 2 ** -7
+
+
+@pytest.mark.parametrize("B,L,C,H,n_ts,dt", SHAPES)
+def test_cuda_route_takes_bf16_mixed_mode(cuda, B, L, C, H, n_ts, dt):
+    """A consistent bf16 set (a bf16 model's _prep_solve) reaches the bf16
+    instantiations of kernels 1 and 2, each launched once and the float32
+    kernels never, with each output in its dtype and within BF16_REL of
+    the mixed-mode plain versions."""
+    args, weights = _solve_args(cuda, B, L, C, H, n_ts, dt, 4,
+                                dtype=torch.bfloat16)
+    before = _latent_counts()
+    with torch.no_grad():
+        got = LF.fused_solve_forward(*args, weights)
+        gz, gq = _cotangents(got[0].float(), got[1], 5)
+        gz = gz.bfloat16()
+        got_b = LF.fused_solve_backward_cuda(*args, weights, got[0], gz, gq)
+        want = LF.fused_solve_forward_plain(*args, weights)
+        want_b = LF.fused_solve_backward_plain(*args, weights, got[0], gz, gq)
+    torch.cuda.synchronize()
+    assert _latent_counts() == tuple(
+        a + d for a, d in zip(before, (0, 0, 1, 1)))
+    for g, w in zip((*got, *_flat(got_b)), (*want, *_flat(want_b))):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        scale = float(w.float().abs().max()) if w.numel() else 0.0
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=BF16_REL * scale)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    assert got_b[0].dtype == torch.float32
+    assert all(d.dtype == torch.bfloat16 for d in _flat(got_b)[1:])
 
 
 def test_loss_on_both_routes_agrees(cuda):
@@ -1012,9 +1096,11 @@ def test_fused_sdeint_logqp_trains_through_kernels_13_and_14(cuda):
 #  K stacked latent replicas: kernels 3 and 4                                 #
 # --------------------------------------------------------------------------- #
 
-def _multi_args(device, K, B, L, C, H, n_ts, dt, seed, saturated=False):
+def _multi_args(device, K, B, L, C, H, n_ts, dt, seed, saturated=False,
+                dtype=torch.float32):
     """K replicas' kernel inputs, stacked, from K models and generators."""
-    per = [_solve_args(device, B, L, C, H, n_ts, dt, seed + k, saturated)
+    per = [_solve_args(device, B, L, C, H, n_ts, dt, seed + k, saturated,
+                       dtype)
            for k in range(K)]
     (_, _, idx, _, dts), _ = per[0]
     args = [torch.stack([p[0][i] for p in per]).contiguous()

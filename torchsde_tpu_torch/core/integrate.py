@@ -278,16 +278,22 @@ def integrate_fixed(solver, y0, extra0, grid, ts, noise, time_dtype=None,
     output time (at most 2T + 1, found on the host), so its memory is O(T)
     for any ``dt``. The interpolation is ``linear_interp_on_grid``'s
     arithmetic on the host's bracketing indices, read through the kept
-    states: exact where an output time is a grid point. ``noise`` as
-    ``integrate_to_outputs`` takes it; ``remat`` checkpoints only the step,
-    never the kept states. Returns ``(ys, extra_final)`` with ``ys`` of
-    leading dimension ``len(ts)``."""
+    states: exact where an output time is a grid point. The brackets are
+    found on the grid and the times rounded to the time dtype, as
+    ``linear_interp_on_grid`` finds them on the device: where two grid
+    points round to one value (a last step shorter than the dtype
+    resolves), an output time there takes the earlier interval, whose
+    width is not zero. ``noise`` as ``integrate_to_outputs`` takes it;
+    ``remat`` checkpoints only the step, never the kept states. Returns
+    ``(ys, extra_final)`` with ``ys`` of leading dimension ``len(ts)``."""
     if time_dtype is None:
         time_dtype = y0.dtype
     grid = np.asarray(grid, np.float64)
     n_steps = len(grid) - 1
     ts_host = np.asarray(ts, np.float64)
-    idx = np.clip(np.searchsorted(grid, ts_host, side="left"), 1, n_steps)
+    idx = np.clip(np.searchsorted(_rounded(grid, time_dtype),
+                                  _rounded(ts_host, time_dtype),
+                                  side="left"), 1, n_steps)
     lo, hi = idx - 1, idx
     kept = np.union1d([0], np.concatenate([lo, hi]))
     grid_dev = torch.as_tensor(grid, dtype=time_dtype, device=y0.device)
@@ -299,9 +305,18 @@ def integrate_fixed(solver, y0, extra0, grid, ts, noise, time_dtype=None,
     t_lo = grid_dev[torch.as_tensor(lo, device=y0.device)]
     t_hi = grid_dev[torch.as_tensor(hi, device=y0.device)]
     ts_dev = torch.as_tensor(ts_host, dtype=time_dtype, device=y0.device)
-    w = (ts_dev - t_lo) / (t_hi - t_lo)
+    # Only a first step narrower than the dtype resolves is still 0 wide
+    # (ts[0] on its two rounded ends): take its left end.
+    w = torch.where(t_hi > t_lo, (ts_dev - t_lo) / (t_hi - t_lo), 0.0)
     w_b = w.reshape(w.shape + (1,) * (buf.ndim - 1)).to(buf.dtype)
     return buf[pos_lo] * (1 - w_b) + buf[pos_hi] * w_b, extra
+
+
+def _rounded(times, dtype):
+    """Host float64 times rounded to ``dtype`` (bf16 too, which numpy
+    lacks), as float64."""
+    return torch.as_tensor(times, dtype=torch.float64).to(dtype).double() \
+        .numpy()
 
 
 def build_interval_grid(ts, dt):

@@ -248,7 +248,7 @@ def is_traced(ts):
 def host_times(ts):
     """Evaluation times as a host float64 array."""
     if torch.is_tensor(ts):
-        ts = ts.detach().cpu()
+        ts = ts.detach().cpu().double()    # numpy has no bf16
     return np.asarray(ts, np.float64)
 
 

@@ -102,8 +102,12 @@ class LatentSDE(nn.Module):
 
     def ctx_index(self, t):
         """Index of the context row in force at times ``t``:
-        ``searchsorted(ctx_ts, t, side='left')`` clipped to [0, T-1]."""
-        i = torch.searchsorted(self._ctx_ts, t.to(self._ctx_ts.dtype),
+        ``searchsorted(ctx_ts, t, side='left')`` clipped to [0, T-1], both
+        in their promoted dtype (as ``jnp.searchsorted`` compares them: the
+        float32 step times of a bf16 model's fused solve against its bf16
+        context times)."""
+        dtype = torch.promote_types(self._ctx_ts.dtype, t.dtype)
+        i = torch.searchsorted(self._ctx_ts.to(dtype), t.to(dtype),
                                side="left")
         return i.clamp(0, self._ctx.shape[0] - 1)
 

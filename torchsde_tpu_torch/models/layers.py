@@ -43,7 +43,13 @@ class Linear(nn.Module):
                                       generator))
 
     def forward(self, x):
-        return x @ self.w + self.b
+        w, b = self.w, self.b
+        if x.dtype != w.dtype:
+            # jnp's promotion (a float32 input to a bf16 layer computes in
+            # float32), where torch refuses a matmul of mixed dtypes.
+            dtype = torch.promote_types(x.dtype, w.dtype)
+            x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+        return x @ w + b
 
 
 class MLP(nn.Module):

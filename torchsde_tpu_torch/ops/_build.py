@@ -92,6 +92,11 @@ def _bind(lib):
     bwd_stages = lib.tsde_latent_fused_bwd_stages
     bwd_stages.argtypes = [P] * 29 + [I] * 10 + [P]
     bwd_stages.restype = I
+    # Their bf16 mixed-mode instantiations take the same arguments.
+    for name in ("fwd", "bwd", "fwd_multi", "bwd_multi", "bwd_stages"):
+        f32 = getattr(lib, f"tsde_latent_fused_{name}")
+        bf16 = getattr(lib, f"tsde_latent_fused_{name}_bf16")
+        bf16.argtypes, bf16.restype = f32.argtypes, f32.restype
     lib.tsde_latent_fused_bwd_workspace.argtypes = [I] * 5
     lib.tsde_latent_fused_bwd_workspace.restype = ctypes.c_size_t
     lib.tsde_latent_fused_fwd_rows.argtypes = [I] * 6

@@ -88,6 +88,21 @@
 // memory without bank conflicts. Activations are [unit][row], so a thread
 // reads a unit's R rows as R / 4 float4s, broadcast to the warp.
 //
+// bf16 mixed mode (the _bf16 entry points; latent_fused_common.cuh) follows
+// the JAX package's _backward_core: the pre-step z (z0 rounded as it is
+// staged, zs already bf16), gz and the noise come in bf16, gq in float32;
+// every product rounds its inputs to bf16 where that function does, the
+// cotangents going into a product (df, dh, dpre2, dpre1, the g nets'
+// dpre2g and dpre1g) and the activations (the towers' a1 and a2, the g
+// nets' hidden units), while the activations for softplus' and the
+// cotangents themselves stay float32. The scratch keeps a1 and a2 rounded
+// (only the products read them) and the cotangents float32 (the biases'
+// gradients sum them unrounded), so the workspace is the float32 one; the
+// contraction rounds the cotangents as it multiplies. dctx and every weight
+// gradient are summed in float32 and rounded to bf16 once, by the caller;
+// dnoise goes out in bf16. The weights are widened into shared memory as
+// in latent_fused_fwd.cu.
+//
 // K stacked replicas (tsde_latent_fused_bwd_multi) replace the Pallas
 // kernel _bwd_kernel_multi (launched by _fused_solve_multi_bwd_impl). The
 // replica is the sweep's grid y axis and the contraction's z axis, and each
@@ -173,19 +188,21 @@ __host__ __device__ inline Layout make_layout(int L, int C, int H, int NT,
   return s;
 }
 
+// W: float, or __nv_bfloat16 in mixed mode.
+template <typename W>
 struct Args {
   const float* z0;       // ([K,] B, L)
-  const float* ctx;      // ([K,] T, B, C)
+  const W* ctx;          // ([K,] T, B, C)
   const int* ctx_idx;    // (n,), shared by the replicas
-  const float* noise;    // ([K,] n, B, L)
+  const W* noise;        // ([K,] n, B, L)
   const float* dts;      // (n,), shared by the replicas
-  const float* w[NW];    // each ([K,] ...)
-  const float* zs;       // ([K,] n, B, L): post-step states from the forward
-  const float* gz;       // ([K,] n, B, L)
+  const W* w[NW];        // each ([K,] ...)
+  const W* zs;           // ([K,] n, B, L): post-step states from the forward
+  const W* gz;           // ([K,] n, B, L)
   const float* gq;       // ([K,] n, B, 1)
   float* dz0;            // ([K,] B, L)
-  float* dctx;           // ([K,] T, B, C), zeroed by the caller
-  float* dnoise;         // ([K,] n, B, L)
+  float* dctx;           // ([K,] T, B, C), zeroed by the caller; float32
+  W* dnoise;             // ([K,] n, B, L)
   float* ws;             // ([K,] workspace_floats): scratch, then partials
   size_t ws_stride;      // floats of one replica's workspace
   size_t parts;          // offset of the partials in a workspace
@@ -193,7 +210,6 @@ struct Args {
   size_t sums;           // offset of the windows' float64 sums
   size_t off[NW];        // offset of each weight's gradient in a partial
   size_t P;
-  size_t z0_stride;      // replica stride of z0 (a window's first z_pre)
   int B, L, C, H, T, n;  // n: the window's steps
   int n_all, lo;         // the solve's steps; the window's first step
   int carry_in, carry_out;   // read / leave the carry (not the last /
@@ -222,21 +238,13 @@ __device__ __forceinline__ void load_rows(float (&v)[R], const float* p) {
   }
 }
 
-// (rows, cols) row-major into shared memory with row stride ld.
-template <int NT>
-__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+// (rows, cols) row-major into shared memory with row stride ld, widened
+// to float.
+template <int NT, typename W>
+__device__ __forceinline__ void copy_rows(float* dst, const W* src,
                                           int rows, int cols, int ld) {
   for (int e = threadIdx.x; e < rows * cols; e += NT)
-    dst[(e / cols) * ld + e % cols] = src[e];
-}
-
-// Asynchronous 4-byte copy into shared memory; zero-fills when !valid (src
-// must still be a valid address).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
+    dst[(e / cols) * ld + e % cols] = to_f(src[e]);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -249,30 +257,38 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows of step s's inputs for the tile at row0: x = [pre-step z | context
-// row ctx_idx[s]] as [k][r], noise and gz as [l][r], gq as [r]; rows past
-// the batch are zero-filled.
-template <int NT, int R>
+// row ctx_idx[s]] as [k][r] (z as a product's input: rounded to W), noise
+// and gz as [l][r], gq as [r]; rows past the batch are zero-filled. The
+// pre-step z is z0 at the solve's first step (`first`: s == 0 of the
+// window from step 0), else the state after the step before, zs[s - 1]
+// (before a later window's first step: the last state of the window
+// before it).
+template <int NT, int R, typename W>
 __device__ __forceinline__ void prefetch_step(
-    int s, float* xb, float* iob, const float* z0, const float* zs,
-    const float* ctx, const int* ctx_idx, const float* noise, const float* gz,
+    int s, bool first, float* xb, float* iob, const float* z0, const W* zs,
+    const W* ctx, const int* ctx_idx, const W* noise, const W* gz,
     const float* gq, int row0, int B, int L, int C, int T) {
   const int D = L + C;
-  const float* zpre = s == 0 ? z0 : zs + size_t(s - 1) * B * L;
+  const W* zpre = zs + ptrdiff_t(s - 1) * B * L;
   const int ci = min(max(ctx_idx[s], 0), T - 1);
-  const float* cst = ctx + size_t(ci) * B * C;
+  const W* cst = ctx + size_t(ci) * B * C;
   for (int e = threadIdx.x; e < R * D; e += NT) {
     const int r = e / D, k = e % D, row = row0 + r;
     const bool valid = row < B;
-    const float* src = k < L ? zpre + size_t(row) * L + k
-                             : cst + size_t(row) * C + (k - L);
-    cp_async4(xb + k * R + r, valid ? src : z0, valid);
+    float* dst = xb + k * R + r;
+    if (k >= L)
+      stage(dst, valid ? cst + size_t(row) * C + (k - L) : ctx, valid);
+    else if (first)
+      stage_rounded<W>(dst, valid ? z0 + size_t(row) * L + k : z0, valid);
+    else
+      stage(dst, valid ? zpre + size_t(row) * L + k : zs, valid);
   }
   for (int e = threadIdx.x; e < R * L; e += NT) {
     const int r = e / L, l = e % L, row = row0 + r;
     const bool valid = row < B;
     const size_t at = valid ? (size_t(s) * B + row) * L + l : 0;
-    cp_async4(iob + l * R + r, noise + at, valid);
-    cp_async4(iob + (L + l) * R + r, gz + at, valid);
+    stage(iob + l * R + r, noise + at, valid);
+    stage(iob + (L + l) * R + r, gz + at, valid);
   }
   for (int r = threadIdx.x; r < R; r += NT) {
     const bool valid = row0 + r < B;
@@ -286,8 +302,8 @@ __device__ __forceinline__ void prefetch_step(
 // the default bound ptxas held the sweep to 128 and spilled; 168 and no
 // spills took kernel 2 from 3.44 to 3.31 ms (NVIDIA H100 80GB HBM3, 700 W,
 // chip_smoke.py --only ab).
-template <int NT, int R>
-__global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args a) {
+template <int NT, int R, typename W>
+__global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args<W> a) {
   constexpr int NTT = NT / 2;          // threads of a tower
   constexpr int NWT = NTT / 32;        // warps of a tower
   extern __shared__ __align__(16) float sm[];
@@ -301,31 +317,31 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args a) {
   const int top = a.n_all - a.lo;      // steps from the window's start on
 
   // This block's replica; the per-step arrays start at the window's first
-  // step, and z0 is the window's first pre-step state.
+  // step.
   const size_t rep = replica(), steps = size_t(a.n_all) * B * L;
   const size_t M = size_t(n) * B;
-  const float* z0 = a.z0 + rep * a.z0_stride;
-  const float* ctx = a.ctx + rep * a.T * B * C;
-  const float* noise = a.noise + rep * steps;
-  const float* zs = a.zs + rep * steps;
-  const float* gz = a.gz + rep * steps;
+  const float* z0 = a.z0 + rep * B * L;
+  const W* ctx = a.ctx + rep * a.T * B * C;
+  const W* noise = a.noise + rep * steps;
+  const W* zs = a.zs + rep * steps;
+  const W* gz = a.gz + rep * steps;
   const float* gq = a.gq + rep * a.n_all * B;
   float* dz0 = a.dz0 + rep * B * L;
   float* dctx = a.dctx + rep * a.T * B * C;
-  float* dnoise = a.dnoise + rep * steps;
+  W* dnoise = a.dnoise + rep * steps;
   float* ws = a.ws + rep * a.ws_stride;
   float* sdf = ws + NSCRATCH * M * H;       // df, then dh: (n, B, L) each
   float* sdh = sdf + M * L;
   size_t wsize[NW];
   weight_sizes(L, C, H, wsize);
-  const float* wr[NW];
+  const W* wr[NW];
 #pragma unroll
   for (int i = 0; i < NW; ++i) wr[i] = a.w[i] + rep * wsize[i];
 
   float* x = sm + lay.x;
   float* io = sm + lay.io;
-  prefetch_step<NT, R>(n - 1, x, io, z0, zs, ctx, a.ctx_idx, noise, gz, gq, row0,
-                    B, L, C, a.T);
+  prefetch_step<NT, R>(n - 1, n == 1 && a.lo == 0, x, io, z0, zs, ctx,
+                       a.ctx_idx, noise, gz, gq, row0, B, L, C, a.T);
 
   copy_rows<NT>(sm + lay.fw1, wr[0], D, H, ld);
   copy_to_smem<NT>(sm + lay.fb1, wr[1], H);
@@ -339,8 +355,8 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args a) {
   copy_to_smem<NT>(sm + lay.hb3, wr[11], L);
   for (int e = tid; e < H * L; e += NT) {      // (H, L) -> [l][k]
     const int k = e / L, l = e % L;
-    sm[lay.fw3t + l * ld + k] = wr[4][e];
-    sm[lay.hw3t + l * ld + k] = wr[10][e];
+    sm[lay.fw3t + l * ld + k] = to_f(wr[4][e]);
+    sm[lay.hw3t + l * ld + k] = to_f(wr[10][e]);
   }
   copy_to_smem<NT>(sm + lay.gb2, wr[15], L);
   // The chain starts at zero, or where the window after this one left it:
@@ -365,9 +381,9 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args a) {
   const float* hb3 = sm + lay.hb3;
   // The g nets' (L,1,H), (L,H), (L,H,1) weights as [l][k], each element
   // read by one thread (through L1); gb2 in shared memory.
-  const float* gw1 = wr[12];
-  const float* gb1 = wr[13];
-  const float* gw2 = wr[14];
+  const W* gw1 = wr[12];
+  const W* gb1 = wr[13];
+  const W* gw2 = wr[14];
   const float* gb2 = sm + lay.gb2;
   float* a1 = sm + lay.a1;
   float* a2 = sm + lay.a2;
@@ -415,7 +431,7 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args a) {
       for (int r = 0; r < R; ++r) {
         const float v = softplus(acc[r] + b);
         a1t[j * R + r] = v;
-        if (row0 + r < B) sa1[(srow + r) * H + j] = v;
+        if (row0 + r < B) sa1[(srow + r) * H + j] = rnd<W>(v);
       }
     }
     if (tw == 1) {
@@ -425,12 +441,12 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args a) {
         for (int r = 0; r < R; ++r) t[r] = 0.f;
         load_rows(zv, xb + l * R);
         for (int k = tt; k < H; k += NTT) {
-          const float w1 = __ldg(gw1 + l * H + k);
-          const float b1 = __ldg(gb1 + l * H + k);
-          const float w2g = __ldg(gw2 + l * H + k);
+          const float w1 = ldw(gw1 + l * H + k);
+          const float b1 = ldw(gb1 + l * H + k);
+          const float w2g = ldw(gw2 + l * H + k);
 #pragma unroll
           for (int r = 0; r < R; ++r)
-            t[r] = fmaf(softplus(zv[r] * w1 + b1), w2g, t[r]);
+            t[r] = fmaf(rnd<W>(softplus(zv[r] * w1 + b1)), w2g, t[r]);
         }
         warp_sum(t);
         if (lane == 0) {
@@ -453,14 +469,14 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args a) {
         const float w = w2[k * ld + j];
         load_rows(v, a1t + k * R);
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(v[r], w, acc[r]);
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(rnd<W>(v[r]), w, acc[r]);
       }
       const float b = b2[j];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float u = softplus(acc[r] + b);
         a2t[j * R + r] = u;
-        if (row0 + r < B) sa2[(srow + r) * H + j] = u;
+        if (row0 + r < B) sa2[(srow + r) * H + j] = rnd<W>(u);
       }
     }
     for (int l = 0; l < L; ++l) {
@@ -471,7 +487,7 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args a) {
         const float w = w3t[l * ld + k];
         load_rows(v, a2t + k * R);
 #pragma unroll
-        for (int r = 0; r < R; ++r) t[r] = fmaf(v[r], w, t[r]);
+        for (int r = 0; r < R; ++r) t[r] = fmaf(rnd<W>(v[r]), w, t[r]);
       }
       warp_sum(t);
       if (lane == 0) {
@@ -503,7 +519,7 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args a) {
       const float dz = dzs[e] + iob[(L + l) * R + r];
       const float dW = iob[l * R + r];
       const size_t at = valid ? (size_t(s) * B + row) * L + l : 0;
-      if (valid) dnoise[at] = dz * g;
+      if (valid) dnoise[at] = from_f<W>(dz * g);
       const float du = ginc[r] * u * dt;
       const float df = dz * dt + du / gs;
       const float dh = -du / gs;
@@ -533,12 +549,12 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args a) {
         const float w = w3t[l * ld + k];
         const float* d = dl + (tw * L + l) * R;
 #pragma unroll
-        for (int r = 0; r < R; ++r) da[r] = fmaf(d[r], w, da[r]);
+        for (int r = 0; r < R; ++r) da[r] = fmaf(rnd<W>(d[r]), w, da[r]);
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float p = da[r] * (1.f - expf(-v[r]));
-        a2t[k * R + r] = p;
+        a2t[k * R + r] = rnd<W>(p);       // G's products' input
         if (row0 + r < B) sdp2[(srow + r) * H + k] = p;
       }
     }
@@ -550,17 +566,19 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args a) {
       load_rows(d2, dl + (2 * L + l) * R);
       for (int k = tt; k < H; k += NTT) {
         const int i = l * H + k;
-        const float w1 = __ldg(gw1 + i), b1 = __ldg(gb1 + i);
-        const float w2g = __ldg(gw2 + i);
+        const float w1 = ldw(gw1 + i), b1 = ldw(gb1 + i);
+        const float w2g = ldw(gw2 + i);
         float sw2 = 0.f, sw1 = 0.f, sb1 = 0.f;
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float act = softplus(zv[r] * w1 + b1);
-          sw2 = fmaf(act, d2[r], sw2);
-          const float dp1 = d2[r] * w2g * (1.f - expf(-act));
-          sw1 = fmaf(dp1, zv[r], sw1);
+          const float d2r = rnd<W>(d2[r]);
+          sw2 = fmaf(rnd<W>(act), d2r, sw2);
+          const float dp1 = d2r * w2g * (1.f - expf(-act));
+          const float dp1r = rnd<W>(dp1);
+          sw1 = fmaf(dp1r, zv[r], sw1);
           sb1 += dp1;
-          tz[r] = fmaf(dp1, w1, tz[r]);
+          tz[r] = fmaf(dp1r, w1, tz[r]);
         }
         gacc[i] += sw1;
         gacc[L * H + i] += sb1;
@@ -578,8 +596,8 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args a) {
     // x and the step's inputs are read for the last time above: fetch the
     // step before's while G and H compute.
     if (s > 0)
-      prefetch_step<NT, R>(s - 1, x, io, z0, zs, ctx, a.ctx_idx, noise, gz, gq,
-                        row0, B, L, C, a.T);
+      prefetch_step<NT, R>(s - 1, s == 1 && a.lo == 0, x, io, z0, zs, ctx,
+                           a.ctx_idx, noise, gz, gq, row0, B, L, C, a.T);
     // Every FLUSH steps of the solve the g nets' on-chip sums join the
     // block's partial row, so no float32 sum runs over more than FLUSH x R
     // terms (one over all 1,024 of a block drifted from float64 five times
@@ -602,8 +620,8 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args a) {
       }
     }
 
-    // G. dpre1 = (dpre2 W2^T) * softplus'(a1), in place over a1: thread k
-    // owns row k of W2.
+    // G. dpre1 = (dpre2 W2^T) * softplus'(a1), in place over a1 (rounded to
+    // W: H's products' input): thread k owns row k of W2.
     for (int k = tt; k < H; k += NTT) {
       float da[R], v[R];
 #pragma unroll
@@ -619,7 +637,7 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args a) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float p = da[r] * (1.f - expf(-v[r]));
-        a1t[k * R + r] = p;
+        a1t[k * R + r] = rnd<W>(p);
         if (row0 + r < B) sdp1[(srow + r) * H + k] = p;
       }
     }
@@ -696,10 +714,11 @@ struct Job {
   int I, J, tiles_j, tile0;
 };
 
+template <typename W>
 struct ContractArgs {
   Job job[3];
   int njobs;
-  const float* ctx;
+  const W* ctx;
   const int* ctx_idx;
   float* ws;
   size_t ws_stride, parts, P;
@@ -709,25 +728,27 @@ struct ContractArgs {
 // Loads rows [m, m + KS) of a job's A tile (columns i0..i0+TI) and Bm tile
 // (columns j0..j0+TJ) into one slab buffer; zero past the chunk's end and
 // the matrices' edges.
-__device__ __forceinline__ void load_slab(const ContractArgs& a, const Job& jb,
-                                          const float* A, const float* Bm,
-                                          const float* ctx, int m, int m1,
-                                          int i0, int j0, float* As,
-                                          float* Bs) {
+template <typename W>
+__device__ __forceinline__ void load_slab(const ContractArgs<W>& a,
+                                          const Job& jb, const float* A,
+                                          const float* Bm, const W* ctx,
+                                          int m, int m1, int i0, int j0,
+                                          float* As, float* Bs) {
   for (int e = threadIdx.x; e < KS * TI; e += CT) {
     const int kk = e / TI, i = e % TI, mm = m + kk, gi = i0 + i;
     const bool valid = mm < m1 && gi < jb.I;
-    const float* src = A;
-    if (valid) {
-      if (jb.ctx_rows) {
+    if (jb.ctx_rows) {
+      const W* src = ctx;
+      if (valid) {
         const int s = mm / a.B, b = mm % a.B;
         const int ci = min(max(a.ctx_idx[s], 0), a.T - 1);
         src = ctx + (size_t(ci) * a.B + b) * a.C + gi;
-      } else {
-        src = A + size_t(mm) * jb.I + gi;
       }
+      stage(As + kk * TI + i, src, valid);
+    } else {
+      cp_async4(As + kk * TI + i, valid ? A + size_t(mm) * jb.I + gi : A,
+                valid);
     }
-    cp_async4(As + kk * TI + i, src, valid);
   }
   for (int e = threadIdx.x; e < KS * TJ; e += CT) {
     const int kk = e / TJ, j = e % TJ, mm = m + kk, gj = j0 + j;
@@ -739,8 +760,12 @@ __device__ __forceinline__ void load_slab(const ContractArgs& a, const Job& jb,
 }
 
 // One output tile of one product over one chunk of rows; grid (tiles,
-// chunks, replicas).
-__global__ void __launch_bounds__(CT) latent_bwd_contract(const ContractArgs a) {
+// chunks, replicas). A (the scratch's activations, or the context) holds
+// products' inputs as they are; Bm (the cotangents) is rounded to W as the
+// products read it, and summed unrounded into the bias row.
+template <typename W>
+__global__ void __launch_bounds__(CT)
+    latent_bwd_contract(const ContractArgs<W> a) {
   __shared__ __align__(16) float As[2][KS * TI];
   __shared__ __align__(16) float Bs[2][KS * TJ];
   const int tile = blockIdx.x;
@@ -752,7 +777,7 @@ __global__ void __launch_bounds__(CT) latent_bwd_contract(const ContractArgs a) 
   const int m0 = blockIdx.y * RC, m1 = min(a.M, m0 + RC);
   const size_t rep = blockIdx.z;
   const float* ws = a.ws + rep * a.ws_stride;
-  const float* ctx = a.ctx + rep * size_t(a.T) * a.B * a.C;
+  const W* ctx = a.ctx + rep * size_t(a.T) * a.B * a.C;
   const float* A = ws + jb.a;
   const float* Bm = ws + jb.b;
   const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
@@ -791,7 +816,9 @@ __global__ void __launch_bounds__(CT) latent_bwd_contract(const ContractArgs a) 
       const float4 b1 =
           *reinterpret_cast<const float4*>(bs + kk * TJ + 64 + tj * 4);
       const float av_[4] = {av.x, av.y, av.z, av.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      const float bv[8] = {rnd<W>(b0.x), rnd<W>(b0.y), rnd<W>(b0.z),
+                           rnd<W>(b0.w), rnd<W>(b1.x), rnd<W>(b1.y),
+                           rnd<W>(b1.z), rnd<W>(b1.w)};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -827,11 +854,13 @@ struct SkinnyJob {
   int ones_s, ones_w;
 };
 
+template <typename W>
 struct SkinnyArgs {
   SkinnyJob job[4];
-  const float* z0;       // the window's first z_pre
-  const float* zs;       // the window's zs
-  size_t z0_stride, zs_stride;   // their replica strides
+  const float* z0;       // the solve's z0
+  const W* zs;           // the window's zs
+  size_t zs_stride;      // its replica stride
+  int first;             // the window starts at the solve's first step
   float* ws;
   size_t ws_stride, parts, P;
   int M, B, L, H;
@@ -839,17 +868,21 @@ struct SkinnyArgs {
 
 // A thread a column c of W, summing over one chunk of rows in row order;
 // grid (jobs, chunks, replicas). Each thread loads SKB rows of its column
-// before it adds them, so that many loads are in flight at once.
-__global__ void __launch_bounds__(CT) latent_bwd_skinny(const SkinnyArgs a) {
+// before it adds them, so that many loads are in flight at once. The
+// products take their inputs rounded to W (the type parameter: z_pre and
+// the cotangents; the activations are stored rounded), the bias columns of
+// ones sum the cotangents unrounded.
+template <typename W>
+__global__ void __launch_bounds__(CT) latent_bwd_skinny(const SkinnyArgs<W> a) {
   const SkinnyJob& jb = a.job[blockIdx.x];
   const int m0 = blockIdx.y * RC, m1 = min(a.M, m0 + RC);
   const size_t rep = blockIdx.z;
   const int L = a.L, H = a.H;
   const float* ws = a.ws + rep * a.ws_stride;
-  const float* W = ws + jb.w;
+  const float* Wm = ws + jb.w;
   const float* S = ws + jb.s;
-  const float* z0 = a.z0 + rep * a.z0_stride;
-  const float* zs = a.zs + rep * a.zs_stride;
+  const float* z0 = a.z0 + rep * size_t(a.B) * L;
+  const W* zs = a.zs + rep * a.zs_stride;
   float* out = a.ws + rep * a.ws_stride + a.parts + blockIdx.y * a.P + jb.out;
   for (int c = threadIdx.x; c < H + jb.ones_w; c += CT) {
     for (int l0 = 0; l0 < L; l0 += 4) {
@@ -860,23 +893,49 @@ __global__ void __launch_bounds__(CT) latent_bwd_skinny(const SkinnyArgs a) {
 #pragma unroll
         for (int u = 0; u < SKB; ++u) {
           const bool in = m + u < m1;
-          w[u] = !in ? 0.f : c < H ? W[size_t(m + u) * H + c] : 1.f;
+          w[u] = !in ? 0.f : c < H ? Wm[size_t(m + u) * H + c] : 1.f;
         }
 #pragma unroll
         for (int u = 0; u < SKB; ++u) {
           const int mm = min(m + u, m1 - 1);
-          const float* srow = !jb.z_pre ? S + size_t(mm) * L
-                              : mm < a.B ? z0 + size_t(mm) * L
-                                         : zs + size_t(mm - a.B) * L;
-          const double wu = w[u];
+          // S's row: z_pre is z0 at the solve's first step, else the
+          // state before (zs[-1] of a later window: the window before's).
+          const bool from_z0 = mm < a.B && a.first;
+          const W* zrow = zs + (ptrdiff_t(mm) - a.B) * L;
+          // float32 picks its row's pointer before one load. The bf16
+          // body below, with W = float, gives the same bits but made
+          // kernel 2's float32 contraction at the flagship take 1.05-1.24
+          // ms rather than 0.84 on an H100, so the two stay apart.
+          if constexpr (sizeof(W) == sizeof(float)) {
+            const float* srow = !jb.z_pre ? S + size_t(mm) * L
+                                : from_z0 ? z0 + size_t(mm) * L : zrow;
+            const double wu = w[u];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            if (l0 + i < L) {
-              const double sv = __ldg(srow + l0 + i);
-              acc[i] = fma(wu, sv, acc[i]);
+            for (int i = 0; i < 4; ++i) {
+              if (l0 + i < L) {
+                const double sv = __ldg(srow + l0 + i);
+                acc[i] = fma(wu, sv, acc[i]);
+              }
             }
+            if (ones) bias += wu;
+          } else {
+            // The products' inputs rounded to W (zs is already), and S
+            // unrounded against W's column of ones (c == H), a bias.
+            const double wu = rnd<W>(w[u]);
+            const float* frow = jb.z_pre ? z0 + size_t(mm) * L
+                                         : S + size_t(mm) * L;
+            const bool round_s = jb.z_pre || c < H;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (l0 + i < L) {
+                const float f = jb.z_pre && !from_z0 ? to_f(zrow[l0 + i])
+                                                     : frow[l0 + i];
+                const double sv = round_s ? rnd<W>(f) : f;
+                acc[i] = fma(wu, sv, acc[i]);
+              }
+            }
+            if (ones) bias += w[u];
           }
-          if (ones) bias += wu;
         }
       }
 #pragma unroll
@@ -952,26 +1011,27 @@ __host__ inline Sizes sizes_of(int B, int L, int C, int H, int W) {
   return z;
 }
 
-template <int NT, int R>
-int launch_sweep(const Args& a, int K, cudaStream_t stream) {
+template <int NT, int R, typename W>
+int launch_sweep(const Args<W>& a, int K, cudaStream_t stream) {
   const size_t smem = make_layout(a.L, a.C, a.H, NT, R).total * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      latent_bwd_sweep<NT, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      latent_bwd_sweep<NT, R, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (a.B + R - 1) / R;
-  latent_bwd_sweep<NT, R><<<dim3(blocks, K), NT, smem, stream>>>(a);
+  latent_bwd_sweep<NT, R, W><<<dim3(blocks, K), NT, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The contraction and the reduction of a window (a: its arguments, as the
 // sweep's), on a workspace the sweep has filled with `blocks` partial rows.
-int launch_contraction(const Args& a, int blocks, int K, float* dw,
+template <typename W>
+int launch_contraction(const Args<W>& a, int blocks, int K, float* dw,
                        cudaStream_t stream) {
   const int L = a.L, C = a.C, H = a.H;
   const size_t M = size_t(a.n) * a.B, MH = M * H;
   const int chunks = static_cast<int>((M + RC - 1) / RC);
-  ContractArgs c;
+  ContractArgs<W> c;
   // fw1's context rows (weight rows L..D-1) and fb1, fw2 and fb2, hw2 and
   // hb2.
   const size_t a_of[3] = {0, A1F * MH, A1H * MH};
@@ -1006,7 +1066,7 @@ int launch_contraction(const Args& a, int blocks, int K, float* dw,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  SkinnyArgs s;
+  SkinnyArgs<W> s;
   const size_t df = NSCRATCH * MH, dh = df + M * L;
   const SkinnyJob jobs[4] = {
       {DP1F * MH, 0, a.off[0], 1, 0, 0, 0},    // fw1's z rows
@@ -1016,8 +1076,8 @@ int launch_contraction(const Args& a, int blocks, int K, float* dw,
   for (int q = 0; q < 4; ++q) s.job[q] = jobs[q];
   s.z0 = a.z0;
   s.zs = a.zs;
-  s.z0_stride = a.z0_stride;
   s.zs_stride = size_t(a.n_all) * a.B * L;
+  s.first = a.lo == 0;
   s.ws = a.ws;
   s.ws_stride = a.ws_stride;
   s.parts = a.parts;
@@ -1054,8 +1114,8 @@ int launch_contraction(const Args& a, int blocks, int K, float* dw,
 // reduction on the workspace such a sweep filled (both bits: any window;
 // one bit alone: one window, the whole solve); returns cudaGetLastError()
 // (0 on success).
-template <int NT, int R>
-int launch(Args a, int K, float* dw, int stages, int window, int device,
+template <int NT, int R, typename W>
+int launch(Args<W> a, int K, float* dw, int stages, int window, int device,
            cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1078,14 +1138,12 @@ int launch(Args a, int K, float* dw, int stages, int window, int device,
   a.sums = z.sums;
   a.n_all = n;
   // Each window sees its own steps [lo, hi) as steps 0 to n - 1: the
-  // per-step arrays from step lo on, z_pre of step lo (z0 or zs[lo - 1])
-  // as its z0.
+  // per-step arrays from step lo on (z_pre of step lo: z0, or zs[lo - 1]
+  // just before the window's zs).
   for (int hi = n; hi > 0; hi -= window) {
     const int lo = hi > window ? hi - window : 0;
     const size_t at = size_t(lo) * B * L;
-    Args wa = a;
-    wa.z0 = lo == 0 ? a.z0 : a.zs + at - size_t(B) * L;
-    wa.z0_stride = lo == 0 ? size_t(B) * L : size_t(n) * B * L;
+    Args<W> wa = a;
     wa.ctx_idx = a.ctx_idx + lo;
     wa.noise = a.noise + at;
     wa.dts = a.dts + lo;
@@ -1109,12 +1167,13 @@ int launch(Args a, int K, float* dw, int stages, int window, int device,
   return 0;
 }
 
-Args make_args(const float* z0, const float* ctx, const int* ctx_idx,
-               const float* noise, const float* dts, const float* const* w,
-               const float* zs, const float* gz, const float* gq, float* dz0,
-               float* dctx, float* dnoise, float* ws, int B, int L, int C,
-               int H, int T, int n) {
-  Args a;
+template <typename W>
+Args<W> make_args(const float* z0, const W* ctx, const int* ctx_idx,
+                  const W* noise, const float* dts, const W* const* w,
+                  const W* zs, const W* gz, const float* gq, float* dz0,
+                  float* dctx, W* dnoise, float* ws, int B, int L, int C,
+                  int H, int T, int n) {
+  Args<W> a;
   a.z0 = z0; a.ctx = ctx; a.ctx_idx = ctx_idx; a.noise = noise; a.dts = dts;
   for (int i = 0; i < NW; ++i) a.w[i] = w[i];
   a.zs = zs; a.gz = gz; a.gq = gq;
@@ -1147,7 +1206,9 @@ size_t tsde_latent_fused_bwd_workspace(int B, int L, int C, int H, int W) {
 // arrays, ctx_idx int32; weights in the order of latent_fused.WEIGHT_NAMES.
 // dctx must be zeroed; ws holds tsde_latent_fused_bwd_workspace(B, L, C, H,
 // window) floats and dw P floats, P the weights' total element count; dw
-// receives their gradients back to back.
+// receives their gradients back to back. The _bf16 entry points take bf16
+// mixed mode: ctx, noise, the weights, zs, gz and dnoise bf16, the rest
+// (dctx and dw too, summed in float32) as here.
 int tsde_latent_fused_bwd(
     const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
     const float* dts, TSDE_WEIGHT_PARAMS, const float* zs, const float* gz,
@@ -1194,6 +1255,48 @@ int tsde_latent_fused_bwd_stages(
   using namespace tsde_latent_bwd;
   const float* w[NW] = TSDE_WEIGHTS;
   const Args a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
+                           dctx, dnoise, ws, B, L, C, H, T, n);
+  return launch<SWEEP_THREADS, SWEEP_ROWS>(a, K, dw, stages, window, device,
+                                           stream);
+}
+
+#define TSDE_BWD_BF16_PARAMS                                                 \
+  const float *z0, const __nv_bfloat16 *ctx, const int *ctx_idx,             \
+      const __nv_bfloat16 *noise, const float *dts,                          \
+      TSDE_WEIGHT_PARAMS_T(__nv_bfloat16), const __nv_bfloat16 *zs,          \
+      const __nv_bfloat16 *gz, const float *gq, float *dz0, float *dctx,     \
+      __nv_bfloat16 *dnoise, float *ws, float *dw
+
+int tsde_latent_fused_bwd_bf16(TSDE_BWD_BF16_PARAMS, int B, int L, int C,
+                               int H, int T, int n, int window, int device,
+                               cudaStream_t stream) {
+  using namespace tsde_latent_bwd;
+  const __nv_bfloat16* w[NW] = TSDE_WEIGHTS;
+  const auto a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
+                           dctx, dnoise, ws, B, L, C, H, T, n);
+  return launch<SWEEP_THREADS, SWEEP_ROWS>(a, 1, dw, 3, window, device,
+                                           stream);
+}
+
+int tsde_latent_fused_bwd_multi_bf16(TSDE_BWD_BF16_PARAMS, int K, int B,
+                                     int L, int C, int H, int T, int n,
+                                     int window, int device,
+                                     cudaStream_t stream) {
+  using namespace tsde_latent_bwd;
+  const __nv_bfloat16* w[NW] = TSDE_WEIGHTS;
+  const auto a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
+                           dctx, dnoise, ws, B, L, C, H, T, n);
+  return launch<SWEEP_THREADS, SWEEP_ROWS>(a, K, dw, 3, window, device,
+                                           stream);
+}
+
+int tsde_latent_fused_bwd_stages_bf16(TSDE_BWD_BF16_PARAMS, int K, int B,
+                                      int L, int C, int H, int T, int n,
+                                      int window, int stages, int device,
+                                      cudaStream_t stream) {
+  using namespace tsde_latent_bwd;
+  const __nv_bfloat16* w[NW] = TSDE_WEIGHTS;
+  const auto a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
                            dctx, dnoise, ws, B, L, C, H, T, n);
   return launch<SWEEP_THREADS, SWEEP_ROWS>(a, K, dw, stages, window, device,
                                            stream);

@@ -1,9 +1,20 @@
 // Numerics and shared-memory helpers common to the latent-SDE whole-solve
 // kernels (latent_fused_fwd.cu, latent_fused_bwd.cu), so that the reverse
 // sweep recomputes exactly the forward kernel's activations.
+//
+// Both kernels are templated on W, the type of the weights and of the
+// streams (context, noise, the states zs, their cotangents gz, dnoise):
+// float, or __nv_bfloat16 for bf16 mixed mode (the JAX package's rule:
+// the state, the KL channel and every sum stay float32). In mixed mode each
+// product's inputs are rounded to bf16 (rnd<W>) and the product sums in
+// float32, as the JAX package's dots with preferred_element_type float32
+// do: a bf16 x bf16 product is exact in float32, so an FMA chain over
+// rounded operands is that dot up to the order of its sum. With W = float
+// every rounding is the identity and the kernels are the float32 ones.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -49,24 +60,86 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// Copies count floats with a block of NT threads.
-template <int NT>
-__device__ __forceinline__ void copy_to_smem(float* dst, const float* src,
+// A value of a stream or weight as float (exact).
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// A float as a stream's element (rounded to nearest even in bf16).
+template <typename W>
+__device__ __forceinline__ W from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// A product's input: v rounded to W and widened back.
+template <typename W>
+__device__ __forceinline__ float rnd(float v) {
+  return to_f(from_f<W>(v));
+}
+
+// A weight read through the read-only cache; a bf16 one by a plain load
+// (the bf16 __ldg is an inline asm the compiler does not schedule around).
+__device__ __forceinline__ float ldw(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldw(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// Copies count elements, widened to float, with a block of NT threads.
+template <int NT, typename W>
+__device__ __forceinline__ void copy_to_smem(float* dst, const W* src,
                                              int count) {
-  for (int e = threadIdx.x; e < count; e += NT) dst[e] = src[e];
+  for (int e = threadIdx.x; e < count; e += NT) dst[e] = to_f(src[e]);
+}
+
+// Asynchronous 4-byte copy into shared memory; zero-fills when !valid (src
+// must still be a valid address).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// One element of a stream into shared memory as float, zero when !valid
+// (src must still be a valid address): a float by cp.async (it lands by the
+// next wait), a bf16 element, which cp.async cannot move alone (its
+// smallest copy is 4 bytes), by a load widened and stored when it arrives.
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      bool valid) {
+  cp_async4(dst, src, valid);
+}
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
+                                      bool valid) {
+  *dst = valid ? __bfloat162float(*src) : 0.f;
+}
+
+// A float32 element that is a product's input, rounded to W as it is
+// staged (the pre-step z0 of the reverse sweep).
+template <typename W>
+__device__ __forceinline__ void stage_rounded(float* dst, const float* src,
+                                              bool valid) {
+  if constexpr (sizeof(W) == sizeof(float))
+    cp_async4(dst, src, valid);
+  else
+    *dst = valid ? rnd<W>(*src) : 0.f;
 }
 
 }  // namespace tsde_latent
 
 // The 16 weight pointers of the launch functions' C interface, in
-// latent_fused.WEIGHT_NAMES order, and the same as an initialiser list.
-#define TSDE_WEIGHT_PARAMS                                                   \
-    const float* f_w1, const float* f_b1, const float* f_w2,                 \
-    const float* f_b2, const float* f_w3, const float* f_b3,                 \
-    const float* h_w1, const float* h_b1, const float* h_w2,                 \
-    const float* h_b2, const float* h_w3, const float* h_b3,                 \
-    const float* g_w1, const float* g_b1, const float* g_w2,                 \
-    const float* g_b2
+// latent_fused.WEIGHT_NAMES order, of type T, and the same as an
+// initialiser list.
+#define TSDE_WEIGHT_PARAMS_T(T)                                              \
+    const T* f_w1, const T* f_b1, const T* f_w2, const T* f_b2,              \
+    const T* f_w3, const T* f_b3, const T* h_w1, const T* h_b1,              \
+    const T* h_w2, const T* h_b2, const T* h_w3, const T* h_b3,              \
+    const T* g_w1, const T* g_b1, const T* g_w2, const T* g_b2
+#define TSDE_WEIGHT_PARAMS TSDE_WEIGHT_PARAMS_T(float)
 #define TSDE_WEIGHTS                                                         \
   {f_w1, f_b1, f_w2, f_b2, f_w3, f_b3, h_w1, h_b1, h_w2, h_b2, h_w3, h_b3,   \
    g_w1, g_b1, g_w2, g_b2}

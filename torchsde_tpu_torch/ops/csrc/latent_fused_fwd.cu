@@ -54,6 +54,19 @@
 // NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py --only tiles): 512 threads
 // were the fastest at every K, by 18-26 % over 256 and 7-17 % over 1,024.
 //
+// bf16 mixed mode (the _bf16 entry points; latent_fused_common.cuh): the
+// weights, the context and the noise come in bf16 and are widened to float
+// as they are staged in shared memory (so the shared-memory layout is the
+// float32 kernel's; holding them in bf16 there is later work), the states
+// zs go out in bf16 while the carried state (zc) and qs stay float32. The
+// products' inputs are rounded to bf16 where the JAX package's
+// _forward_core rounds them: x = [z | ctx] (x keeps z rounded, zc the
+// carry), the two hidden activations of each tower (rounded as they are
+// written, since only products read them here), and the g nets' scalar z_l
+// and hidden activations. Biases, softplus, sigmoid, u, the KL integrand
+// and the update are float32. The bf16 noise and context rows are loaded
+// and widened by plain loads (cp.async's smallest copy is 4 bytes).
+//
 // K stacked replicas (tsde_latent_fused_fwd_multi) replace the Pallas
 // kernel _fwd_kernel_multi (launched by _fused_solve_multi_fwd_impl), which
 // unrolls the K chains inside each grid step. Here the replica is the grid's
@@ -84,7 +97,7 @@ struct Layout {
   size_t fw1, fb1, fw2, fb2, fw3t, fb3;
   size_t hw1, hb1, hw2, hb2, hw3t, hb3;
   size_t gw1, gb1, gw2, gb2;
-  size_t x, nz, a1, a2, red, usq;
+  size_t x, zc, nz, a1, a2, red, usq;
   size_t total;
 };
 
@@ -100,7 +113,9 @@ __host__ __device__ inline Layout make_layout(int L, int C, int H, int R) {
   s.hw3t = take(at, l * ld); s.hb3 = take(at, l);
   s.gw1 = take(at, l * ld);  s.gb1 = take(at, l * ld);   // [l][k]
   s.gw2 = take(at, l * ld);  s.gb2 = take(at, l);
-  s.x = take(at, D * R);             // [k][r]: rows k < L are z, then ctx
+  s.x = take(at, D * R);             // [k][r]: rows k < L are z (as a
+                                     // product's input), then ctx
+  s.zc = take(at, l * R);            // [l][r]: the carried state z
   s.nz = take(at, 2 * l * R);        // [buffer][l][r]: noise
   s.a1 = take(at, 2 * h * R);        // [tower][j][r]
   s.a2 = take(at, 2 * h * R);        // [tower][j][r]
@@ -110,26 +125,19 @@ __host__ __device__ inline Layout make_layout(int L, int C, int H, int R) {
   return s;
 }
 
+// W: float, or __nv_bfloat16 in mixed mode.
+template <typename W>
 struct Args {
   const float* z0;       // ([K,] B, L)
-  const float* ctx;      // ([K,] T, B, C)
+  const W* ctx;          // ([K,] T, B, C)
   const int* ctx_idx;    // (n,), shared by the replicas
-  const float* noise;    // ([K,] n, B, L)
+  const W* noise;        // ([K,] n, B, L)
   const float* dts;      // (n,), shared by the replicas
-  const float* w[NW];    // in latent_fused.WEIGHT_NAMES order
-  float* zs;             // ([K,] n, B, L)
+  const W* w[NW];        // in latent_fused.WEIGHT_NAMES order
+  W* zs;                 // ([K,] n, B, L)
   float* qs;             // ([K,] n, B, 1)
   int B, L, C, H, T, n;
 };
-
-// Asynchronous 4-byte copy into shared memory; zero-fills when !valid (src
-// must still be a valid address).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -158,33 +166,34 @@ __device__ __forceinline__ void load_rows(float (&v)[N], const float* p) {
 
 // Step s's context rows into x's rows L.. ([k][r]) and its noise into nzb
 // ([l][r]), for the tile at row0; rows past the batch are zero-filled.
-template <int NT, int R>
+template <int NT, int R, typename W>
 __device__ __forceinline__ void prefetch_step(int s, float* x, float* nzb,
-                                              const float* ctx,
+                                              const W* ctx,
                                               const int* ctx_idx,
-                                              const float* noise, int row0,
+                                              const W* noise, int row0,
                                               int B, int L, int C, int T) {
   const int ci = min(max(__ldg(ctx_idx + s), 0), T - 1);
-  const float* cst = ctx + size_t(ci) * B * C;
+  const W* cst = ctx + size_t(ci) * B * C;
   for (int e = threadIdx.x; e < R * C; e += NT) {
     const int r = e / C, c = e % C, row = row0 + r;
     const bool valid = row < B;
-    cp_async4(x + (L + c) * R + r, valid ? cst + size_t(row) * C + c : ctx,
-              valid);
+    stage(x + (L + c) * R + r, valid ? cst + size_t(row) * C + c : ctx,
+          valid);
   }
   for (int e = threadIdx.x; e < R * L; e += NT) {
     const int r = e / L, l = e % L, row = row0 + r;
     const bool valid = row < B;
-    cp_async4(nzb + l * R + r,
-              valid ? noise + (size_t(s) * B + row) * L + l : noise, valid);
+    stage(nzb + l * R + r,
+          valid ? noise + (size_t(s) * B + row) * L + l : noise, valid);
   }
   cp_async_commit();
 }
 
 // One layer of a tower for this thread's units j (strided by TW) and rows
 // [r0, r0 + RP): out[j][r] = softplus(in[:, r] . W[:, j] + b[j]), W [k][j]
-// with row stride H, in and out [unit][row] with R rows.
-template <int R, int RP>
+// with row stride H, in and out [unit][row] with R rows; out is written
+// rounded to W (only products read it).
+template <int R, int RP, typename W>
 __device__ __forceinline__ void layer(const float* w, const float* b,
                                       const float* in, float* out, int kin,
                                       int H, int j0, int r0) {
@@ -201,7 +210,8 @@ __device__ __forceinline__ void layer(const float* w, const float* b,
     }
     const float bj = b[j];
 #pragma unroll
-    for (int r = 0; r < RP; ++r) out[j * R + r0 + r] = softplus(acc[r] + bj);
+    for (int r = 0; r < RP; ++r)
+      out[j * R + r0 + r] = rnd<W>(softplus(acc[r] + bj));
   }
 }
 
@@ -209,8 +219,9 @@ __device__ __forceinline__ void layer(const float* w, const float* b,
 // threads, where the default bound held ptxas to 64 (0.985 against 0.956
 // ms for kernel 1 at 94; NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py
 // --only ab).
-template <int NT, int R>
-__global__ void __launch_bounds__(NT, 1) latent_fused_fwd_kernel(const Args a) {
+template <int NT, int R, typename W>
+__global__ void __launch_bounds__(NT, 1)
+    latent_fused_fwd_kernel(const Args<W> a) {
   constexpr int NTT = NT / 2;          // threads of a tower
   constexpr int RG = NTT / TW;         // row groups of a tower's threads
   constexpr int RP = R / RG;           // rows a thread
@@ -229,17 +240,18 @@ __global__ void __launch_bounds__(NT, 1) latent_fused_fwd_kernel(const Args a) {
   // This block's replica.
   const size_t rep = replica(), steps = size_t(n) * B * L;
   const float* z0 = a.z0 + rep * B * L;
-  const float* ctx = a.ctx + rep * a.T * B * C;
-  const float* noise = a.noise + rep * steps;
-  float* zs = a.zs + rep * steps;
+  const W* ctx = a.ctx + rep * a.T * B * C;
+  const W* noise = a.noise + rep * steps;
+  W* zs = a.zs + rep * steps;
   float* qs = a.qs + rep * n * B;
   size_t wsize[NW];
   weight_sizes(L, C, H, wsize);
-  const float* wr[NW];
+  const W* wr[NW];
 #pragma unroll
   for (int i = 0; i < NW; ++i) wr[i] = a.w[i] + rep * wsize[i];
 
   float* x = sm + lay.x;
+  float* zc = sm + lay.zc;
   float* nz = sm + lay.nz;
   float* a1 = sm + lay.a1;
   float* a2 = sm + lay.a2;
@@ -247,7 +259,7 @@ __global__ void __launch_bounds__(NT, 1) latent_fused_fwd_kernel(const Args a) {
   float* usq = sm + lay.usq;
   prefetch_step<NT, R>(0, x, nz, ctx, a.ctx_idx, noise, row0, B, L, C, a.T);
 
-  // Weights into shared memory, once for the whole solve.
+  // Weights into shared memory (as float), once for the whole solve.
   copy_to_smem<NT>(sm + lay.fw1, wr[0], D * H);
   copy_to_smem<NT>(sm + lay.fb1, wr[1], H);
   copy_to_smem<NT>(sm + lay.fw2, wr[2], H * H);
@@ -260,20 +272,22 @@ __global__ void __launch_bounds__(NT, 1) latent_fused_fwd_kernel(const Args a) {
   copy_to_smem<NT>(sm + lay.hb3, wr[11], L);
   for (int e = tid; e < H * L; e += NT) {      // (H, L) -> [l][k]
     const int k = e / L, l = e % L;
-    sm[lay.fw3t + l * ld + k] = wr[4][e];
-    sm[lay.hw3t + l * ld + k] = wr[10][e];
+    sm[lay.fw3t + l * ld + k] = to_f(wr[4][e]);
+    sm[lay.hw3t + l * ld + k] = to_f(wr[10][e]);
   }
   for (int e = tid; e < L * H; e += NT) {      // (L,1,H), (L,H), (L,H,1)
     const int l = e / H, k = e % H;
-    sm[lay.gw1 + l * ld + k] = wr[12][e];
-    sm[lay.gb1 + l * ld + k] = wr[13][e];
-    sm[lay.gw2 + l * ld + k] = wr[14][e];
+    sm[lay.gw1 + l * ld + k] = to_f(wr[12][e]);
+    sm[lay.gb1 + l * ld + k] = to_f(wr[13][e]);
+    sm[lay.gw2 + l * ld + k] = to_f(wr[14][e]);
   }
   copy_to_smem<NT>(sm + lay.gb2, wr[15], L);
   // Rows past the end of the batch compute on zeros and are never stored.
   for (int e = tid; e < L * R; e += NT) {
     const int l = e / R, r = e % R, row = row0 + r;
-    x[l * R + r] = row < B ? z0[size_t(row) * L + l] : 0.f;
+    const float z = row < B ? z0[size_t(row) * L + l] : 0.f;
+    zc[l * R + r] = z;
+    x[l * R + r] = rnd<W>(z);
   }
   float q = 0.f;                               // row `tid` for tid < R
   cp_async_wait_all();
@@ -288,14 +302,14 @@ __global__ void __launch_bounds__(NT, 1) latent_fused_fwd_kernel(const Args a) {
 
   for (int s = 0; s < n; ++s) {
     // 1. Layer 1: f on x, h on z.
-    layer<R, RP>(w1, b1, x, a1t, tw ? L : D, H, j0, r0);
+    layer<R, RP, W>(w1, b1, x, a1t, tw ? L : D, H, j0, r0);
     __syncthreads();
 
     // 2. x's context rows are read: the next step's start to arrive. Layer 2.
     if (s + 1 < n)
       prefetch_step<NT, R>(s + 1, x, nz + ((s + 1) & 1) * L * R, ctx,
                            a.ctx_idx, noise, row0, B, L, C, a.T);
-    layer<R, RP>(w2, b2, a1t, a2t, H, H, j0, r0);
+    layer<R, RP, W>(w2, b2, a1t, a2t, H, H, j0, r0);
     __syncthreads();
 
     // 3. The per-row outputs' parts: item e of f and h is (tower, part p,
@@ -321,7 +335,8 @@ __global__ void __launch_bounds__(NT, 1) latent_fused_fwd_kernel(const Args a) {
         const int k1 = min(H, (p + 1) * kleng);
 #pragma unroll 4
         for (int k = p * kleng; k < k1; ++k)
-          acc = fmaf(softplus(fmaf(z, gw1[k], gb1[k])), gw2[k], acc);
+          acc = fmaf(rnd<W>(softplus(fmaf(z, gw1[k], gb1[k]))), gw2[k],
+                     acc);
       }
       red[e] = acc;
     }
@@ -347,9 +362,10 @@ __global__ void __launch_bounds__(NT, 1) latent_fused_fwd_kernel(const Args a) {
       const float gs = g > EPS ? g : EPS;
       const float u = (f - h) / gs;
       usq[o] = u * u;
-      const float zn = fmaf(g, nzb[o], fmaf(f, dt, x[o]));
-      x[o] = zn;
-      if (row < B) zs[(size_t(s) * B + row) * L + l] = zn;
+      const float zn = fmaf(g, nzb[o], fmaf(f, dt, zc[o]));
+      zc[o] = zn;
+      x[o] = rnd<W>(zn);
+      if (row < B) zs[(size_t(s) * B + row) * L + l] = from_f<W>(zn);
     }
     cp_async_wait_all();
     __syncthreads();
@@ -370,15 +386,15 @@ __host__ inline size_t smem_bytes(int L, int C, int H, int R) {
 
 // Launches K stacked solves (K = 1: a single solve) at R rows a block on
 // `stream` and returns cudaGetLastError() (0 on success).
-template <int NT, int R>
-int launch_rows(const Args& a, int K, cudaStream_t stream) {
+template <int NT, int R, typename W>
+int launch_rows(const Args<W>& a, int K, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.L, a.C, a.H, R);
   cudaError_t err = cudaFuncSetAttribute(
-      latent_fused_fwd_kernel<NT, R>,
+      latent_fused_fwd_kernel<NT, R, W>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.B + R - 1) / R, K);
-  latent_fused_fwd_kernel<NT, R><<<grid, NT, smem, stream>>>(a);
+  latent_fused_fwd_kernel<NT, R, W><<<grid, NT, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -398,7 +414,8 @@ inline int rows_for(int K, int B, int L, int C, int H, int device) {
   return TB;
 }
 
-int launch(const Args& a, int K, int device, cudaStream_t stream) {
+template <typename W>
+int launch(const Args<W>& a, int K, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (K <= 0 || a.B <= 0 || a.n <= 0) return 0;
@@ -407,10 +424,11 @@ int launch(const Args& a, int K, int device, cudaStream_t stream) {
   return launch_rows<FWD_THREADS, TB>(a, K, stream);
 }
 
-Args make_args(const float* z0, const float* ctx, const int* ctx_idx,
-               const float* noise, const float* dts, const float* const* w,
-               float* zs, float* qs, int B, int L, int C, int H, int T, int n) {
-  Args a;
+template <typename W>
+Args<W> make_args(const float* z0, const W* ctx, const int* ctx_idx,
+                  const W* noise, const float* dts, const W* const* w, W* zs,
+                  float* qs, int B, int L, int C, int H, int T, int n) {
+  Args<W> a;
   a.z0 = z0; a.ctx = ctx; a.ctx_idx = ctx_idx; a.noise = noise; a.dts = dts;
   for (int i = 0; i < NW; ++i) a.w[i] = w[i];
   a.zs = zs; a.qs = qs;
@@ -440,7 +458,9 @@ const char* tsde_cuda_error_string(int code) {
 
 // Launches the solve on `stream` and returns cudaGetLastError() (0 on
 // success). All pointers are device pointers to contiguous float32 arrays,
-// ctx_idx int32; weights in the order of latent_fused.WEIGHT_NAMES.
+// ctx_idx int32; weights in the order of latent_fused.WEIGHT_NAMES. The
+// _bf16 entry points take bf16 mixed mode: ctx, noise, the weights and zs
+// bf16, the rest as here.
 int tsde_latent_fused_fwd(
     const float* z0, const float* ctx, const int* ctx_idx, const float* noise,
     const float* dts, TSDE_WEIGHT_PARAMS, float* zs, float* qs, int B, int L,
@@ -460,6 +480,29 @@ int tsde_latent_fused_fwd_multi(
     int L, int C, int H, int T, int n, int device, cudaStream_t stream) {
   using namespace tsde_latent_fwd;
   const float* w[NW] = TSDE_WEIGHTS;
+  return launch(make_args(z0, ctx, ctx_idx, noise, dts, w, zs, qs, B, L, C,
+                          H, T, n), K, device, stream);
+}
+
+int tsde_latent_fused_fwd_bf16(
+    const float* z0, const __nv_bfloat16* ctx, const int* ctx_idx,
+    const __nv_bfloat16* noise, const float* dts,
+    TSDE_WEIGHT_PARAMS_T(__nv_bfloat16), __nv_bfloat16* zs, float* qs, int B,
+    int L, int C, int H, int T, int n, int device, cudaStream_t stream) {
+  using namespace tsde_latent_fwd;
+  const __nv_bfloat16* w[NW] = TSDE_WEIGHTS;
+  return launch(make_args(z0, ctx, ctx_idx, noise, dts, w, zs, qs, B, L, C,
+                          H, T, n), 1, device, stream);
+}
+
+int tsde_latent_fused_fwd_multi_bf16(
+    const float* z0, const __nv_bfloat16* ctx, const int* ctx_idx,
+    const __nv_bfloat16* noise, const float* dts,
+    TSDE_WEIGHT_PARAMS_T(__nv_bfloat16), __nv_bfloat16* zs, float* qs, int K,
+    int B, int L, int C, int H, int T, int n, int device,
+    cudaStream_t stream) {
+  using namespace tsde_latent_fwd;
+  const __nv_bfloat16* w[NW] = TSDE_WEIGHTS;
   return launch(make_args(z0, ctx, ctx_idx, noise, dts, w, zs, qs, B, L, C,
                           H, T, n), K, device, stream);
 }

@@ -40,6 +40,19 @@ on the grid (``tsde_latent_fused_fwd_multi``, ``tsde_latent_fused_bwd_multi``):
 stacked on a leading K axis, and the replicas share ``ctx_idx`` and ``dts``.
 ``torch.func.vmap`` cannot map a ctypes launch, so the stacking is written
 out. ``multi_launches`` and ``multi_bwd_launches`` count those launches.
+
+bf16 mixed mode (the JAX package's rule ``sdtype = float32 if wdtype ==
+bfloat16``): with bf16 weights the context, the noise and the states zs
+are bf16 too, while z0, the carried state, the KL channel qs, dts, gq and
+every accumulator are float32. Each product's inputs are rounded to bf16
+and it sums in float32 (the JAX package's ``preferred_element_type``
+dots), biases and all pointwise math are float32. Gradients come back in
+their inputs' dtypes: dctx, dnoise and the weights' in bf16, each summed in
+float32 and rounded once. The kernels take this set of dtypes in their
+``_bf16`` instantiations (``tsde_latent_fused_fwd_bf16`` and the rest),
+counted apart by ``bf16_launches``, ``bf16_bwd_launches``,
+``bf16_multi_launches`` and ``bf16_multi_bwd_launches``; a set that mixes
+the two modes is refused.
 """
 
 import torch
@@ -58,6 +71,11 @@ launches = 0
 bwd_launches = 0
 multi_launches = 0
 multi_bwd_launches = 0
+# The same for the kernels' bf16 mixed-mode instantiations.
+bf16_launches = 0
+bf16_bwd_launches = 0
+bf16_multi_launches = 0
+bf16_multi_bwd_launches = 0
 
 # Order of the solve's weight tensors, as :func:`solve_weights` returns them.
 WEIGHT_NAMES = ("f_w1", "f_b1", "f_w2", "f_b2", "f_w3", "f_b3",
@@ -94,19 +112,47 @@ def solve_weights(model):
     return tuple(out) + tuple(model.g_nets)
 
 
+def state_dtype(wdtype):
+    """The dtype of a solve's state, KL channel and accumulators for weights
+    of ``wdtype``: float32 for bf16 weights (mixed mode), else the weights'
+    own."""
+    return torch.float32 if wdtype == torch.bfloat16 else wdtype
+
+
+def _rnd(a, cdt):
+    """``a`` as a product's input: rounded to bf16 and widened back to
+    float32 where the products' dtype ``cdt`` is bf16 (mixed mode), else
+    as it is."""
+    return a.to(cdt).float() if cdt == torch.bfloat16 else a
+
+
+def _up(t):
+    """A bf16 tensor widened to float32 (exactly); any other as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _mm(a, w):
+    """``a @ w`` as the JAX package's dot with ``preferred_element_type``
+    float32: in mixed mode ``a`` rounded to bf16 and the product summed in
+    float32 (a bf16 matmul on the CPU would round its output to bf16)."""
+    return _rnd(a, w.dtype) @ _up(w)
+
+
 def _mlp3(x, w1, b1, w2, b2, w3, b3):
     """A 3-layer softplus MLP: its two hidden activations and its output."""
-    a1 = softplus(x @ w1 + b1)
-    a2 = softplus(a1 @ w2 + b2)
-    return a1, a2, a2 @ w3 + b3
+    a1 = softplus(_mm(x, w1) + _up(b1))
+    a2 = softplus(_mm(a1, w2) + _up(b2))
+    return a1, a2, _mm(a2, w3) + _up(b3)
 
 
 def _g_nets(z, gw1, gb1, gw2, gb2):
     """The per-dimension diffusion nets: their hidden activations a1g
     (L,B,H) and g (B,L)."""
-    a1g = softplus(z.T[..., None] * gw1 + gb1[:, None, :])
-    g = torch.sigmoid(torch.einsum("lbh,lho->lbo", a1g, gw2)
-                      + gb2[:, None, :])[..., 0].T
+    cdt = gw1.dtype
+    a1g = softplus(_rnd(z, cdt).T[..., None] * _up(gw1)
+                   + _up(gb1)[:, None, :])
+    g = torch.sigmoid(torch.einsum("lbh,lho->lbo", _rnd(a1g, cdt), _up(gw2))
+                      + _up(gb2)[:, None, :])[..., 0].T
     return a1g, g
 
 
@@ -115,8 +161,9 @@ def fused_solve_forward_plain(z0, ctx, ctx_idx, noise, dts, weights):
 
     z0 (B,L); ctx (T,B,C) with ctx_idx (n,) the context row of each step;
     noise (n,B,L); dts (n,); weights as :func:`solve_weights` returns them.
-    Returns zs (n,B,L), the state after each step, and qs (n,B,1), the
-    running KL integral."""
+    Returns zs (n,B,L), the state after each step, in the weights' dtype
+    (rounded to bf16 in mixed mode while the carried state stays float32),
+    and qs (n,B,1), the running KL integral."""
     fw, hw = weights[0:6], weights[6:12]
     gw1, gb1, gw2, gb2 = weights[12:16]
     ctx_steps = ctx.index_select(0, ctx_idx.long())
@@ -125,16 +172,16 @@ def fused_solve_forward_plain(z0, ctx, ctx_idx, noise, dts, weights):
     zs, qs = [], []
     for s in range(noise.shape[0]):
         dt = dts[s]
-        f = _mlp3(torch.cat([z, ctx_steps[s]], dim=1), *fw)[2]
+        f = _mlp3(torch.cat([z, _up(ctx_steps[s])], dim=1), *fw)[2]
         h = _mlp3(z, *hw)[2]
         _, g = _g_nets(z, gw1, gb1, gw2, gb2)
         gs = torch.where(g > _EPS, g, _EPS)
         u = (f - h) / gs
         q = q + 0.5 * torch.sum(u * u, dim=1, keepdim=True) * dt
-        z = z + f * dt + g * noise[s]
+        z = z + f * dt + g * _up(noise[s])
         zs.append(z)
         qs.append(q)
-    return torch.stack(zs), torch.stack(qs)
+    return torch.stack(zs).to(weights[0].dtype), torch.stack(qs)
 
 
 # The scratch tensors the reverse sweep writes for the contraction: the
@@ -156,7 +203,9 @@ def fused_solve_backward_plain(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
     Takes the forward's inputs, its states zs (n,B,L), and the cotangents gz
     (n,B,L) of zs and gq (n,B,1) of qs. Returns dz0 (B,L), dctx (T,B,C)
     (summed over the steps that read each context row), dnoise (n,B,L) and
-    the weights' gradients in WEIGHT_NAMES order."""
+    the weights' gradients in WEIGHT_NAMES order, each in its input's
+    dtype (dctx and the weights' summed in the state dtype and rounded
+    once)."""
     n = noise.shape[0]
     window = n if window is None else window
     carry, tower_grads = None, None
@@ -170,7 +219,8 @@ def fused_solve_backward_plain(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
         tower_grads = grads if tower_grads is None else tuple(
             a + b for a, b in zip(tower_grads, grads))
     dz0, dctx, dnoise, g_grads = carry
-    return dz0, dctx, dnoise, tower_grads + g_grads
+    return dz0, dctx.to(ctx.dtype), dnoise, tuple(
+        d.to(w.dtype) for d, w in zip(tower_grads + g_grads, weights))
 
 
 def fused_solve_backward_sweep_plain(z0, ctx, ctx_idx, noise, dts, weights,
@@ -183,23 +233,29 @@ def fused_solve_backward_sweep_plain(z0, ctx, ctx_idx, noise, dts, weights,
     default), and ``carry`` is what the sweep of the window after it
     returned (its first four outputs; None before the last window).
     Returns dz (B,L) before step lo (dz0 after the first window), dctx
-    (T,B,C) and dnoise (n,B,L) filled from step lo on, the g nets'
-    gradients (gw1, gb1, gw2, gb2) summed from step lo on, as the sweep
-    sums them on chip; and the window's scratch tensors in SCRATCH_NAMES
-    order, each (hi - lo, B, ·), whose products over all its rows give the
-    window's share of the towers' gradients
-    (:func:`fused_solve_backward_contract_plain`)."""
+    (T,B,C, in the state dtype) and dnoise (n,B,L) filled from step lo on,
+    the g nets' gradients (gw1, gb1, gw2, gb2, in the state dtype) summed
+    from step lo on, as the sweep sums them on chip; and the window's
+    scratch tensors in SCRATCH_NAMES order, each (hi - lo, B, ·), whose
+    products over all its rows give the window's share of the towers'
+    gradients (:func:`fused_solve_backward_contract_plain`). In mixed mode
+    the activations a1 and a2, which only products read, are kept rounded
+    to bf16; the cotangents stay float32, since the biases' gradients sum
+    them unrounded."""
     fw, hw = weights[0:6], weights[6:12]
     gw1, gb1, gw2, gb2 = weights[12:16]
+    cdt = weights[0].dtype
     lo, hi = (0, noise.shape[0]) if steps is None else steps
     idx = ctx_idx.long()
-    z_pre = torch.cat([z0[None], zs[:-1]])
+    z_pre = torch.cat([z0[None], _up(zs[:-1])])
+    gz = _up(gz)
     ginc = gq.flip(0).cumsum(0).flip(0)      # cotangent of each KL increment
     if carry is None:
         dz = torch.zeros_like(z0)
-        dctx = torch.zeros_like(ctx)
+        dctx = torch.zeros_like(ctx, dtype=z0.dtype)
         dnoise = torch.empty_like(noise)
-        g_grads = [torch.zeros_like(w) for w in weights[12:16]]
+        g_grads = [torch.zeros_like(w, dtype=z0.dtype)
+                   for w in weights[12:16]]
     else:
         dz, dctx, dnoise, g_grads = carry
         dctx, dnoise = dctx.clone(), dnoise.clone()
@@ -208,7 +264,7 @@ def fused_solve_backward_sweep_plain(z0, ctx, ctx_idx, noise, dts, weights,
     L = z0.shape[1]
     for s in reversed(range(lo, hi)):
         z, dt = z_pre[s], dts[s]
-        x = torch.cat([z, ctx[idx[s]]], dim=1)
+        x = torch.cat([z, _up(ctx[idx[s]])], dim=1)
         a1f, a2f, f = _mlp3(x, *fw)
         a1h, a2h, h = _mlp3(z, *hw)
         a1g, g = _g_nets(z, gw1, gb1, gw2, gb2)
@@ -222,27 +278,31 @@ def fused_solve_backward_sweep_plain(z0, ctx, ctx_idx, noise, dts, weights,
         df = dz * dt + du / gs
         dh = -du / gs
         # stable_division clamps only the u-path; dz * dW is never masked.
-        dg = dz * noise[s] - (du * u / gs) * big.to(z.dtype)
+        dg = dz * _up(noise[s]) - (du * u / gs) * big.to(z.dtype)
 
-        dpre2f = (df @ fw[4].T) * (1 - torch.exp(-a2f))
-        dpre1f = (dpre2f @ fw[2].T) * (1 - torch.exp(-a1f))
-        dpre2h = (dh @ hw[4].T) * (1 - torch.exp(-a2h))
-        dpre1h = (dpre2h @ hw[2].T) * (1 - torch.exp(-a1h))
-        dx = dpre1f @ fw[0].T
-        dzh = dpre1h @ hw[0].T
+        dpre2f = _mm(df, fw[4].T) * (1 - torch.exp(-a2f))
+        dpre1f = _mm(dpre2f, fw[2].T) * (1 - torch.exp(-a1f))
+        dpre2h = _mm(dh, hw[4].T) * (1 - torch.exp(-a2h))
+        dpre1h = _mm(dpre2h, hw[2].T) * (1 - torch.exp(-a1h))
+        dx = _mm(dpre1f, fw[0].T)
+        dzh = _mm(dpre1h, hw[0].T)
         dpre2g = dg * g * (1 - g)                                   # (B,L)
-        dpre1g = (dpre2g.T[..., None] * gw2[:, None, :, 0]
+        dpre1g = (_rnd(dpre2g, cdt).T[..., None] * _up(gw2)[:, None, :, 0]
                   * (1 - torch.exp(-a1g)))                          # (L,B,H)
-        sums = (torch.einsum("lbh,lb->lh", dpre1g, z.T)[:, None, :],
+        sums = (torch.einsum("lbh,lb->lh", _rnd(dpre1g, cdt),
+                             _rnd(z, cdt).T)[:, None, :],
                 dpre1g.sum(1),
-                torch.einsum("lbh,bl->lh", a1g, dpre2g)[..., None],
+                torch.einsum("lbh,bl->lh", _rnd(a1g, cdt),
+                             _rnd(dpre2g, cdt))[..., None],
                 dpre2g.sum(0)[:, None])
         for acc, d in zip(g_grads, sums):
             acc += d
-        for store, t in zip(records, (a1f, a1h, a2f, a2h, dpre1f, dpre1h,
-                                      dpre2f, dpre2h, df, dh)):
+        for store, t in zip(records, (
+                _rnd(a1f, cdt), _rnd(a1h, cdt), _rnd(a2f, cdt),
+                _rnd(a2h, cdt), dpre1f, dpre1h, dpre2f, dpre2h, df, dh)):
             store[s - lo] = t
-        dzg = torch.einsum("lbh,lh->bl", dpre1g, gw1[:, 0, :])
+        dzg = torch.einsum("lbh,lh->bl", _rnd(dpre1g, cdt),
+                           _up(gw1)[:, 0, :])
         dz = dz + dx[:, :L] + dzh + dzg
         dctx.index_add_(0, idx[s:s + 1], dx[None, :, L:])
     scratch = tuple(torch.stack(t) for t in records)
@@ -254,18 +314,24 @@ def fused_solve_backward_contract_plain(z0, ctx, ctx_idx, zs, scratch, lo=0):
     towers' gradients (WEIGHT_NAMES[:12]) as products and column sums over
     all rows of the sweep's scratch tensors (SCRATCH_NAMES order) of the
     steps from ``lo`` on, with the layer-1 inputs x = [z_pre |
-    ctx[ctx_idx[s]]] gathered from z0, zs and ctx rather than stored."""
+    ctx[ctx_idx[s]]] gathered from z0, zs and ctx rather than stored. In
+    mixed mode (zs bf16) each product's inputs are rounded to bf16 and the
+    bias sums take the unrounded cotangents; all in float32."""
     a1f, a1h, a2f, a2h, dpre1f, dpre1h, dpre2f, dpre2h, df, dh = (
         t.reshape(-1, t.shape[-1]) for t in scratch)
     hi = lo + scratch[0].shape[0]
-    z_pre = torch.cat([z0[None], zs[:-1]])[lo:hi]
-    x = torch.cat([z_pre, ctx[ctx_idx[lo:hi].long()]], dim=-1)
+    z_pre = torch.cat([z0[None], _up(zs[:-1])])[lo:hi]
+    x = torch.cat([z_pre, _up(ctx[ctx_idx[lo:hi].long()])], dim=-1)
     z_pre = z_pre.reshape(-1, z_pre.shape[-1])
     x = x.reshape(-1, x.shape[-1])
-    return (x.T @ dpre1f, dpre1f.sum(0), a1f.T @ dpre2f, dpre2f.sum(0),
-            a2f.T @ df, df.sum(0),
-            z_pre.T @ dpre1h, dpre1h.sum(0), a1h.T @ dpre2h, dpre2h.sum(0),
-            a2h.T @ dh, dh.sum(0))
+
+    def mm(a, b):
+        return _rnd(a, zs.dtype).T @ _rnd(b, zs.dtype)
+
+    return (mm(x, dpre1f), dpre1f.sum(0), mm(a1f, dpre2f), dpre2f.sum(0),
+            mm(a2f, df), df.sum(0),
+            mm(z_pre, dpre1h), dpre1h.sum(0), mm(a1h, dpre2h), dpre2h.sum(0),
+            mm(a2h, dh), dh.sum(0))
 
 
 def fused_solve_multi_forward_plain(z0, ctx, ctx_idx, noise, dts, weights):
@@ -295,14 +361,17 @@ def fused_solve_multi_backward_plain(z0, ctx, ctx_idx, noise, dts, weights,
 
 
 def check_kernel_inputs(z0, ctx, ctx_idx, noise, dts, weights):
-    """What the kernel takes: float32 contiguous tensors (ctx_idx int32) of
-    matching shapes, all on one device. Raises ValueError on anything else."""
+    """What the kernel takes: contiguous tensors of matching shapes, all on
+    one device, float32 (ctx_idx int32), or in mixed mode ctx, noise and
+    every weight bf16 (z0 and dts float32). Raises ValueError on anything
+    else, a set mixing the two modes too."""
     return _check_solve(z0, ctx, ctx_idx, noise, dts, weights, None)
 
 
 def check_backward_inputs(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq):
     """What the backward kernel takes: the forward kernel's inputs, and zs,
-    gz (n,B,L) and gq (n,B,1), float32 contiguous on the same device."""
+    gz (n,B,L) and gq (n,B,1), contiguous on the same device: zs and gz in
+    the weights' dtype, gq float32."""
     return _check_solve(z0, ctx, ctx_idx, noise, dts, weights, None, zs, gz,
                         gq)
 
@@ -348,20 +417,37 @@ def _check_solve(z0, ctx, ctx_idx, noise, dts, weights, K, zs=None, gz=None,
                    **dict(zip(WEIGHT_NAMES, weights)))
     if zs is not None:
         tensors.update(zs=zs, gz=gz, gq=gq)
+    # The weights' dtype sets every stream's: all bf16 (mixed mode) or all
+    # float32; the state, dts and gq are float32 in both.
+    wdtype = weights[0].dtype
+    if wdtype != torch.bfloat16:
+        wdtype = torch.float32
     for name, t in tensors.items():
-        check_kernel_tensor(name, t, lead + want[name], torch.float32,
-                            z0.device)
+        dtype = wdtype if name in _STREAMS else torch.float32
+        check_kernel_tensor(name, t, lead + want[name], dtype, z0.device)
     check_kernel_tensor("ctx_idx", ctx_idx, (n,), torch.int32, z0.device)
     check_kernel_tensor("dts", dts, (n,), torch.float32, z0.device)
     return B, L, C, H, T, n
 
 
+# The tensors that come in the weights' dtype, bf16 in mixed mode.
+_STREAMS = frozenset(("ctx", "noise", "zs", "gz") + WEIGHT_NAMES)
+
+
+def _mixed(weights):
+    return weights[0].dtype == torch.bfloat16
+
+
 def fused_solve_forward_cuda(z0, ctx, ctx_idx, noise, dts, weights):
-    """Launch the CUDA kernel on the current stream. Raises on tensors it
-    does not take, on a failed build and on a refused launch."""
-    global launches
+    """Launch the CUDA kernel on the current stream (its bf16 instantiation
+    for bf16 weights). Raises on tensors it does not take, on a failed build
+    and on a refused launch."""
+    global launches, bf16_launches
     out = _forward_cuda(z0, ctx, ctx_idx, noise, dts, weights, multi=False)
-    launches += 1
+    if _mixed(weights):
+        bf16_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -375,10 +461,13 @@ def fused_solve_backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
     the flagship; a longer solve runs in windows of steps
     (:func:`bwd_window`). Raises on tensors it does not take, on a failed
     build and on a refused launch."""
-    global bwd_launches
+    global bwd_launches, bf16_bwd_launches
     out = _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq,
                          multi=False)[0]
-    bwd_launches += 1
+    if _mixed(weights):
+        bf16_bwd_launches += 1
+    else:
+        bwd_launches += 1
     return out
 
 
@@ -387,9 +476,12 @@ def fused_solve_multi_forward_cuda(z0, ctx, ctx_idx, noise, dts, weights):
     current stream; returns what :func:`fused_solve_multi_forward_plain`
     returns. Raises on tensors it does not take, on a failed build and on a
     refused launch."""
-    global multi_launches
+    global multi_launches, bf16_multi_launches
     out = _forward_cuda(z0, ctx, ctx_idx, noise, dts, weights, multi=True)
-    multi_launches += 1
+    if _mixed(weights):
+        bf16_multi_launches += 1
+    else:
+        multi_launches += 1
     return out
 
 
@@ -403,10 +495,13 @@ def fused_solve_multi_backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs,
     :data:`MULTI_WORKSPACE_BYTES` (2.35 GB, one group, at the flagship with
     K 4). Raises on tensors it does not take, on a failed build and on a
     refused launch."""
-    global multi_bwd_launches
+    global multi_bwd_launches, bf16_multi_bwd_launches
     out = _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq,
                          multi=True)[0]
-    multi_bwd_launches += 1
+    if _mixed(weights):
+        bf16_multi_bwd_launches += 1
+    else:
+        multi_bwd_launches += 1
     return out
 
 
@@ -424,12 +519,14 @@ def _forward_cuda(z0, ctx, ctx_idx, noise, dts, weights, multi):
                                                weights)
         lead = ()
     lib = _build.library_for("tsde_latent_fused_fwd_smem_bytes", L, C, H)
-    zs = torch.empty(lead + (n, B, L), dtype=torch.float32, device=z0.device)
+    zs = torch.empty(lead + (n, B, L), dtype=weights[0].dtype,
+                     device=z0.device)
     qs = torch.empty(lead + (n, B, 1), dtype=torch.float32, device=z0.device)
     ptrs = [t.data_ptr() for t in (z0, ctx, ctx_idx, noise, dts, *weights,
                                    zs, qs)]
     stream = torch.cuda.current_stream(z0.device).cuda_stream
-    name = "latent_fused_fwd_multi" if multi else "latent_fused_fwd"
+    name = ("latent_fused_fwd_multi" if multi else "latent_fused_fwd") \
+        + _suffix(weights)
     rc = getattr(lib, f"tsde_{name}")(*ptrs, *lead, B, L, C, H, T, n,
                                       z0.device.index or 0, stream)
     _build.check_launch(lib, rc, name)
@@ -443,7 +540,9 @@ def _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq, multi,
     :func:`replica_group` replicas): the sweep, the contraction and the
     reduction, over windows of :func:`bwd_window` steps. Returns its outputs
     and its workspace (replicas of a group, floats a replica; after a call
-    of several groups, the last group's).
+    of several groups, the last group's). In mixed mode the kernel sums dctx
+    and the weights' gradients in float32, which are rounded to bf16 here,
+    once.
 
     For measurement only, ``stages`` runs the sweep alone (1) or the
     contraction and the reduction alone (2) on the ``workspace`` of an
@@ -462,7 +561,7 @@ def _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq, multi,
     lib = _build.library_for("tsde_latent_fused_bwd_smem_bytes", L, C, H)
     f32 = dict(dtype=torch.float32, device=z0.device)
     dz0 = torch.zeros(lead + (B, L), **f32)
-    dctx = torch.zeros_like(ctx)
+    dctx = torch.zeros_like(ctx, dtype=torch.float32)
     dnoise = torch.empty_like(noise)
     sizes = [w[0].numel() if multi else w.numel() for w in weights]
     window = bwd_window(B, L, C, H, n)
@@ -478,7 +577,10 @@ def _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq, multi,
     dw = torch.zeros(lead + (sum(sizes),), **f32)
     stream = torch.cuda.current_stream(z0.device).cuda_stream
     device = z0.device.index or 0
-    name = "latent_fused_bwd_multi" if multi else "latent_fused_bwd"
+    suffix = _suffix(weights)
+    name = ("latent_fused_bwd_multi" if multi else "latent_fused_bwd") + suffix
+    fn = {stage: getattr(lib, f"tsde_latent_fused_bwd{stage}{suffix}")
+          for stage in ("", "_multi", "_stages")}
     # Group by group on one stream, each on the same workspace: replica k's
     # launch sees only its own slices, so it is bitwise kernel 2 on them.
     for k0 in range(0, K, group):
@@ -489,19 +591,22 @@ def _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq, multi,
             *map(per, weights), per(zs), per(gz), per(gq), per(dz0),
             per(dctx), per(dnoise), workspace, per(dw))]
         if stages == 3 and multi:
-            rc = lib.tsde_latent_fused_bwd_multi(*ptrs, k1 - k0, B, L, C, H,
-                                                 T, n, window, device, stream)
+            rc = fn["_multi"](*ptrs, k1 - k0, B, L, C, H, T, n, window,
+                              device, stream)
         elif stages == 3:
-            rc = lib.tsde_latent_fused_bwd(*ptrs, B, L, C, H, T, n, window,
-                                           device, stream)
+            rc = fn[""](*ptrs, B, L, C, H, T, n, window, device, stream)
         else:
-            rc = lib.tsde_latent_fused_bwd_stages(
-                *ptrs, k1 - k0, B, L, C, H, T, n, window, stages, device,
-                stream)
+            rc = fn["_stages"](*ptrs, k1 - k0, B, L, C, H, T, n, window,
+                               stages, device, stream)
         _build.check_launch(lib, rc, name)
-    dweights = tuple(d.reshape(w.shape)
+    dweights = tuple(d.reshape(w.shape).to(w.dtype)
                      for d, w in zip(dw.split(sizes, dim=-1), weights))
-    return (dz0, dctx, dnoise, dweights), workspace
+    return (dz0, dctx.to(ctx.dtype), dnoise, dweights), workspace
+
+
+def _suffix(weights):
+    """The C entry points' suffix of the weights' instantiation."""
+    return "_bf16" if _mixed(weights) else ""
 
 
 # The most bytes a replica's workspace of kernels 2 and 4 may take. A solve
@@ -669,13 +774,19 @@ def latent_logqp_solve_fused(model, z0, ts, generator, dt):
 
 def _prep_solve(model, z0, ts, generator, dt):
     """Step grid, noise, per-step context index and step widths of a solve:
-    returns ``(z0, ctx, ctx_idx, noise, dts, grid)``."""
+    returns ``(z0, ctx, ctx_idx, noise, dts, grid)``, z0 in the state dtype
+    and ctx and the noise in the weights' (:func:`state_dtype`; the
+    JAX package's ``_prep_solve``). The cast of z0 is differentiable, so a
+    bf16 z0 gets its gradient in bf16."""
+    wdtype = model.f_net.layers[0].w.dtype
+    z0 = z0.to(state_dtype(wdtype))
     grid, t0s, dts = _step_grid(ts, dt, z0)
-    noise = _solve_noise(generator, grid, z0.shape[0], model.latent_size, z0)
+    noise = _solve_noise(generator, grid, z0.shape[0], model.latent_size,
+                         wdtype, z0.device)
     # Context row of each step: searchsorted(ctx_ts, t, 'left') at the
     # step's left end, as LatentSDE.ctx_index does on the sdeint route.
     ctx_idx = model.ctx_index(t0s).to(torch.int32)
-    return z0, model._ctx.contiguous(), ctx_idx, noise, dts, grid
+    return z0, model._ctx.to(wdtype).contiguous(), ctx_idx, noise, dts, grid
 
 
 def _step_grid(ts, dt, z0):
@@ -688,13 +799,15 @@ def _step_grid(ts, dt, z0):
     return grid, grid_dev[:-1], grid_dev[1:] - grid_dev[:-1]
 
 
-def _solve_noise(generator, grid, B, L, z0):
-    """The solve's noise (n,B,L). The logqp state has one extra channel, so
-    the sdeint route draws noise of size (B, L+1); drawing the same here
-    keeps the two routes on one stream. The solve uses the first L channels
-    (the logqp channel's diffusion is zero)."""
+def _solve_noise(generator, grid, B, L, dtype, device):
+    """The solve's noise (n,B,L), drawn in ``dtype``, the weights' (bf16 in
+    mixed mode, the stream a bf16 ``sdeint`` solve draws). The logqp state
+    has one extra channel, so the sdeint route draws noise of size (B,
+    L+1); drawing the same here keeps the two routes on one stream. The
+    solve uses the first L channels (the logqp channel's diffusion is
+    zero)."""
     W, _, _ = integrate.sample_grid_noise(generator, grid, (B, L + 1),
-                                          z0.dtype, z0.device)
+                                          dtype, device)
     return W[..., :L].contiguous()
 
 
@@ -712,18 +825,23 @@ def latent_logqp_solve_fused_multi(models, z0, ts, generators, dt):
     replica axes, (K,T,B,L) and (K,T-1,B)."""
     module = models.module
     solve_weights(module)                   # refuses other architectures
+    weights = [models.params[name] for name in WEIGHT_PARAMS]
+    wdtype = weights[0].dtype
+    z0 = z0.to(state_dtype(wdtype))
     K, B, L = z0.shape
     if len(generators) != K:
         raise ValueError(f"expected {K} generators, one a replica, got "
                          f"{len(generators)}")
     grid, t0s, dts = _step_grid(ts, dt, z0)
-    noise = torch.stack([_solve_noise(g, grid, B, L, z0) for g in generators])
+    noise = torch.stack([_solve_noise(g, grid, B, L, wdtype, z0.device)
+                         for g in generators])
     ctx_ts, ctx = models.buffers["_ctx_ts"], models.buffers["_ctx"]
-    ctx_idx = torch.searchsorted(ctx_ts[0], t0s.to(ctx_ts.dtype),
+    tdtype = torch.promote_types(ctx_ts.dtype, t0s.dtype)
+    ctx_idx = torch.searchsorted(ctx_ts[0].to(tdtype), t0s.to(tdtype),
                                  side="left").clamp(0, ctx.shape[1] - 1)
     zs_steps, qs_steps = FusedLatentSolveMulti.apply(
-        z0, ctx.contiguous(), ctx_idx.to(torch.int32), noise, dts,
-        *(models.params[name] for name in WEIGHT_PARAMS))
+        z0, ctx.to(wdtype).contiguous(), ctx_idx.to(torch.int32), noise, dts,
+        *weights)
     zs, log_ratio = zip(*(_interp_tail(ts, grid, z0[k], zs_steps[k],
                                        qs_steps[k], L) for k in range(K)))
     return torch.stack(zs), torch.stack(log_ratio)
@@ -732,9 +850,10 @@ def latent_logqp_solve_fused_multi(models, z0, ts, generators, dt):
 def _interp_tail(ts, grid, z0, zs_steps, qs_steps, L):
     """States on the full grid (z0 and q0 = 0 prepended), interpolated onto
     ts and parsed as the sdeint route does (logqp -> per-interval
-    differences)."""
+    differences). The bf16 zs of mixed mode join the float32 qs in
+    float32, as jnp.concatenate promotes them."""
     B = z0.shape[0]
-    zq_grid = torch.cat([zs_steps, qs_steps], dim=-1)
+    zq_grid = torch.cat([zs_steps.to(qs_steps.dtype), qs_steps], dim=-1)
     zq0 = torch.cat([z0, z0.new_zeros((B, 1))], dim=-1)
     zq_full = torch.cat([zq0[None], zq_grid], dim=0)
     ys = integrate.linear_interp_on_grid(

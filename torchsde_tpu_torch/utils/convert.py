@@ -18,7 +18,8 @@ def load_jax_params(module, arrays):
     has no tensor. Raises
     ``KeyError`` when a tensor of the module has no array or an array has no
     tensor, and ``ValueError`` on a shape mismatch; nothing is copied then.
-    Values are cast to each tensor's dtype. Returns ``module``."""
+    Values are cast to each tensor's dtype (bf16 arrays are read bit for
+    bit, :func:`as_tensor`). Returns ``module``."""
     targets = dict(module.named_parameters())
     targets.update(module.named_buffers())
     missing = sorted(set(targets) - set(arrays))
@@ -32,8 +33,18 @@ def load_jax_params(module, arrays):
                              f"the module's is {tuple(t.shape)}")
     with torch.no_grad():
         for name, t in targets.items():
-            t.copy_(torch.as_tensor(np.array(arrays[name])))
+            t.copy_(as_tensor(arrays[name]))
     return module
+
+
+def as_tensor(a):
+    """A CPU tensor of the array ``a``, bit for bit: a bf16 array (JAX's
+    ``ml_dtypes.bfloat16``, which torch cannot read) through its 16-bit
+    view."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(a)
 
 
 def load_jax_tower(layers, device=None, dtype=torch.float32):

@@ -109,8 +109,7 @@ def check_kernel_tensor(name, t, shape, dtype, device):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
     if t.dtype != dtype:
-        raise ValueError(f"{name} is {t.dtype}; the kernel takes {dtype} "
-                         f"(bf16 mixed mode is not ported yet)")
+        raise ValueError(f"{name} is {t.dtype}; the kernel takes {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
     if t.device != device:

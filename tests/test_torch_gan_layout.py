@@ -1,7 +1,7 @@
 """The host's mirror of kernels 5, 6 and 7's shared-memory layouts
 (``torchsde_tpu_torch/ops/gan_fused.py``), on the CPU.
 
-Kernels 5 (``csrc/gan_gen_fwd.cu``), 6 (``csrc/gan_gen_bwd.cu``) and 7
+Kernels 5 (``csrc/gan_gen_fwd.cu``), 6 (``csrc/gan_gen_bwd.cuh``) and 7
 (``csrc/gan_cde_fwd.cu``) move a row's vectors through the warp's shared
 memory and read each lane's
 weights from lane-major copies at strides of 4 x an odd number of floats

@@ -11,7 +11,10 @@ their backward kernels 6 and 8): a batch that is not a multiple of the
 rows per block, one noise or control channel, the widest state and hidden
 widths the kernels take, 32 to 256 threads per block; bitwise repeatable
 gradients, the too-wide case, training through the four kernels, and a
-small gan_loss and its gradients on both routes. TowerSpec solves (kernels
+small gan_loss and its gradients on both routes; in bf16 mixed mode, the
+bf16 entries of kernels 5-8 against the plain versions at the JAX bf16
+test's and the reference widths, their counters, the refused mixes of
+modes, and a bf16 training step through them. TowerSpec solves (kernels
 9-12): depth 1 and 3, widths 1, 33 and 128, all five activations, a time
 column, m 1 and 8, bitwise repeatable gradients, refused widths and layer
 tables, and training steps of fused_sdeint against its sdeint route.
@@ -331,6 +334,35 @@ def test_cuda_route_refuses_bf16(cuda):
         LF.fused_solve_backward_cuda(*bf_args, bf_weights, zs.bfloat16(),
                                      zs.bfloat16(), qs.bfloat16())
     assert _latent_counts() == before
+    # The SDE-GAN kernels (5-8) likewise: bf16 noise with float32 weights,
+    # float32 noise or a bf16 x0 with bf16 weights, one bf16 weight among
+    # float32 ones, a bf16 cotangent; the critic's one bf16 weight among
+    # float32 ones and bf16 slopes.
+    gan_before = _gan_counts()
+    with torch.no_grad():
+        (x0, f0, g0, noise, t1s, dts), gw = _gan_gen_args(
+            cuda, 8, 16, 16, 3, 4, 2)
+        _, bw = _gan_gen_args(cuda, 8, 16, 16, 3, 4, 2, torch.bfloat16)
+        for bad_args, bad_w in (
+                ((x0, f0, g0, noise.bfloat16(), t1s, dts), gw),
+                ((x0, f0, g0, noise, t1s, dts), bw),
+                ((x0.bfloat16(), f0, g0, noise.bfloat16(), t1s, dts), bw),
+                ((x0, f0, g0, noise, t1s, dts), (bw[0], *gw[1:]))):
+            with pytest.raises(ValueError, match="bfloat16|float32"):
+                GF.gen_solve_forward(*bad_args, bad_w)
+        ys, zs_g, gs = GF.gen_solve_forward_cuda(x0, f0, g0, noise, t1s, dts,
+                                                 gw)
+        with pytest.raises(ValueError, match="bfloat16"):
+            GF.gen_solve_backward_cuda(x0, f0, g0, noise, t1s, dts, gw, zs_g,
+                                       gs, ys.bfloat16())
+        cargs, cw = _gan_cde_args(cuda, 8, 17, 16, 2, 4, 2)
+        with pytest.raises(ValueError, match="bfloat16"):
+            GF.cde_solve_forward(*cargs, (*cw[:2], cw[2].bfloat16(), cw[3]))
+        with pytest.raises(ValueError, match="bfloat16"):
+            GF.cde_solve_forward(cargs[0], cargs[1], cargs[2].bfloat16(),
+                                 *cargs[3:], cw)
+    assert _gan_counts() == tuple(
+        a + d for a, d in zip(gan_before, (1, 0, 0, 0, 0, 0, 0, 0)))
 
 
 def _latent_counts():
@@ -437,10 +469,11 @@ CDE_SHAPES = [
 ]
 
 
-def _gan_gen_args(device, B, S, M, m, T, seed):
+def _gan_gen_args(device, B, S, M, m, T, seed, dtype=torch.float32):
     from torchsde_tpu_torch.models.sde_gan import Generator
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = Generator(1, 5, m, S, M, 1, init_mult2=0.5, device=device,
+    model = Generator(1, 5, m, S, M, 1, init_mult2=0.5, dtype=dtype,
+                      device=device,
                       generator=torch.Generator().manual_seed(seed))
     ts = np.arange(T, dtype=np.float64)
     x0 = torch.randn((B, S), generator=gen, device=device)
@@ -448,10 +481,10 @@ def _gan_gen_args(device, B, S, M, m, T, seed):
             GF.gen_weights(model.func))
 
 
-def _gan_cde_args(device, B, S, M, C, T, seed):
+def _gan_cde_args(device, B, S, M, C, T, seed, dtype=torch.float32):
     from torchsde_tpu_torch.models.sde_gan import Discriminator
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = Discriminator(C - 1, S, M, 1, device=device,
+    model = Discriminator(C - 1, S, M, 1, dtype=dtype, device=device,
                           generator=torch.Generator().manual_seed(seed))
     ts = np.arange(T, dtype=np.float64)
     paths = torch.randn((B, T, C), generator=gen, device=device)
@@ -510,16 +543,18 @@ def _assert_gan_grads_close(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=max(1e-4, 1e-5 * scale))
 
 
-def _gan_gen_backward_args(device, B, S, M, m, T, seed):
-    args, weights = _gan_gen_args(device, B, S, M, m, T, seed)
+def _gan_gen_backward_args(device, B, S, M, m, T, seed,
+                           dtype=torch.float32):
+    args, weights = _gan_gen_args(device, B, S, M, m, T, seed, dtype)
     ys, zs, gs = GF.gen_solve_forward_plain(*args, weights)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     gy = torch.randn(ys.shape, generator=gen, device=device)
     return (*args, weights, zs, gs, gy)
 
 
-def _gan_cde_backward_args(device, B, S, M, C, T, seed, last_only=False):
-    args, weights = _gan_cde_args(device, B, S, M, C, T, seed)
+def _gan_cde_backward_args(device, B, S, M, C, T, seed, last_only=False,
+                           dtype=torch.float32):
+    args, weights = _gan_cde_args(device, B, S, M, C, T, seed, dtype)
     hs, zs = GF.cde_solve_forward_plain(*args, weights)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     ghs = torch.randn(hs.shape, generator=gen, device=device)
@@ -621,6 +656,115 @@ def test_gan_grads_on_both_routes_agree(cuda):
         torch.testing.assert_close(grads[0][name], want, rtol=0,
                                    atol=1e-5 * float(want.abs().max()),
                                    msg=name)
+
+
+# The GAN kernels' launch counters: the float32 entries', then the bf16
+# mixed-mode entries'.
+GAN_COUNTERS = ("gen_launches", "gen_bwd_launches", "cde_launches",
+                "cde_bwd_launches", "bf16_gen_launches",
+                "bf16_gen_bwd_launches", "bf16_cde_launches",
+                "bf16_cde_bwd_launches")
+
+
+def _gan_counts():
+    return tuple(getattr(GF, c) for c in GAN_COUNTERS)
+
+
+def _flat_gan(out):
+    return [*out[:-1], *out[-1]]
+
+
+# Kernels 5-8 in bf16 mixed mode (B, S, M, m, C, T, the critic's state) at
+# the JAX bf16 test's widths (critic state 16), at the reference widths
+# (critic state 17), and at the widest hidden layer with one channel, each
+# with a ragged batch, against their mixed-mode plain versions: per tensor
+# within GAN_BF16_REL of its scale, two bf16 ulps of its largest entry (the
+# two sum each product in another order, which now and then flips the bf16
+# rounding of a product's input; chip_smoke.py holds them to 2^-6 at the
+# reference scale).
+GAN_BF16_SHAPES = [(37, 16, 16, 3, 2, 6, 16), (37, 16, 16, 3, 2, 6, 17),
+                   (5, 8, 32, 1, 1, 4, 32)]
+GAN_BF16_REL = 2 ** -7
+
+
+def _assert_bf16_close(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        scale = float(w.float().abs().max()) if w.numel() else 0.0
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=GAN_BF16_REL * scale)
+
+
+@pytest.mark.parametrize("B,S,M,m,C,T,Sc", GAN_BF16_SHAPES)
+def test_gan_cuda_route_takes_bf16_mixed_mode(cuda, B, S, M, m, C, T, Sc):
+    """A consistent mixed-mode set (bf16 models' prep_generator_solve and
+    prep_cde_solve) reaches the bf16 instantiations of kernels 5-8, each
+    launched once and the float32 kernels never, every output in its dtype
+    (states, dx0, df0, dg0, dh0, dslopes float32; dnoise and the weights'
+    gradients bf16) and within GAN_BF16_REL of the plain versions."""
+    bf16 = torch.bfloat16
+    before = _gan_counts()
+    with torch.no_grad():
+        args, weights = _gan_gen_args(cuda, B, S, M, m, T, 8, bf16)
+        assert args[3].dtype == bf16 and args[0].dtype == torch.float32
+        got = GF.gen_solve_forward_cuda(*args, weights)
+        want = GF.gen_solve_forward_plain(*args, weights)
+        gy = torch.randn(got[0].shape, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(9))
+        bargs = (*args, weights, want[1], want[2], gy)
+        got_b = GF.gen_solve_backward_cuda(*bargs)
+        want_b = GF.gen_solve_backward_plain(*bargs)
+        cargs, cw = _gan_cde_args(cuda, B, Sc, M, C, T, 10, bf16)
+        got_c = GF.cde_solve_forward_cuda(*cargs, cw)
+        want_c = GF.cde_solve_forward_plain(*cargs, cw)
+        ghs = torch.randn(got_c[0].shape, device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(11))
+        cbargs = (*cargs, cw, want_c[1], ghs)
+        got_cb = GF.cde_solve_backward_cuda(*cbargs)
+        want_cb = GF.cde_solve_backward_plain(*cbargs)
+    torch.cuda.synchronize()
+    assert _gan_counts() == tuple(
+        a + d for a, d in zip(before, (0, 0, 0, 0, 1, 1, 1, 1)))
+    assert all(t.dtype == torch.float32 for t in (*got, *got_c))
+    assert [t.dtype for t in got_b[:4]] == [torch.float32] * 3 + [bf16]
+    assert all(d.dtype == bf16 for d in (*got_b[4], *got_cb[3]))
+    assert all(t.dtype == torch.float32 for t in got_cb[:3])
+    _assert_bf16_close(got, want)
+    _assert_bf16_close(_flat_gan(got_b), _flat_gan(want_b))
+    _assert_bf16_close(got_c, want_c)
+    _assert_bf16_close(_flat_gan(got_cb), _flat_gan(want_cb))
+
+
+def test_gan_bf16_route_trains_through_the_bf16_kernels(cuda):
+    """gan_grads(fused=True) on bf16 models on the card: the bf16 kernels
+    5-8 launch once each and the float32 ones never, the loss is float32,
+    every gradient bf16 and finite, and two calls give the same bits."""
+    from torchsde_tpu_torch.models.sde_gan import (Discriminator, Generator,
+                                                   gan_grads, get_ou_data)
+    init = torch.Generator().manual_seed(12)
+    generator = Generator(1, 5, 3, 16, 16, 1, dtype=torch.bfloat16,
+                          device=cuda, generator=init)
+    critic = Discriminator(1, 16, 16, 1, dtype=torch.bfloat16, device=cuda,
+                           generator=init)
+    ts, real = get_ou_data(torch.Generator(device=cuda).manual_seed(13), 37,
+                           6, device=cuda)
+    runs = []
+    for _ in range(2):
+        before = _gan_counts()
+        gen = torch.Generator(device=cuda).manual_seed(14)
+        loss, g_gen, g_disc = gan_grads(generator, critic, gen, ts,
+                                        real.bfloat16(), adjoint=False,
+                                        fused=True)
+        torch.cuda.synchronize()
+        assert _gan_counts() == tuple(
+            a + d for a, d in zip(before, (0, 0, 0, 0, 1, 1, 1, 1)))
+        assert loss.dtype == torch.float32 and torch.isfinite(loss)
+        grads = [*g_gen.values(), *g_disc.values()]
+        assert all(g.dtype == torch.bfloat16
+                   and torch.isfinite(g.float()).all() for g in grads)
+        runs.append([loss, *grads])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_gan_loss_on_both_routes_agrees(cuda):

@@ -27,13 +27,14 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("latent_fused_fwd.cu", "latent_fused_bwd.cu", "gan_gen_fwd.cu",
-           "gan_cde_fwd.cu", "gan_gen_bwd.cu", "gan_cde_bwd.cu",
+           "gan_cde_fwd.cu", "gan_gen_bwd.cu", "gan_gen_bwd_bf16.cu",
+           "gan_cde_bwd.cu",
            "tower_euler_fwd.cu", "tower_euler_bwd.cu", "tower_rh_fwd.cu",
            "tower_rh_bwd.cu", "tower_euler_logqp_fwd.cu",
            "tower_euler_logqp_bwd.cu", "tower_bwd_contract.cu",
            "philox_normal.cu")
-HEADERS = ("latent_fused_common.cuh", "gan_fused_common.cuh",
-           "gan_warp_rows.cuh",
+HEADERS = ("mixed_dtype.cuh", "latent_fused_common.cuh",
+           "gan_fused_common.cuh", "gan_warp_rows.cuh", "gan_gen_bwd.cuh",
            "tower_solve_common.cuh", "tower_fwd_tile.cuh", "mma_tf32.cuh")
 # Headers that generated sources include (library_for_source).
 SOURCE_HEADERS = ("srk_srid2.cuh",)
@@ -117,6 +118,11 @@ def _bind(lib):
     cde_bwd = lib.tsde_gan_cde_bwd
     cde_bwd.argtypes = [P] * 14 + [I] * 7 + [P]
     cde_bwd.restype = I
+    # Their bf16 mixed-mode instantiations take the same arguments.
+    for name in ("gen_fwd", "cde_fwd", "gen_bwd", "cde_bwd"):
+        f32 = getattr(lib, f"tsde_gan_{name}")
+        bf16 = getattr(lib, f"tsde_gan_{name}_bf16")
+        bf16.argtypes, bf16.restype = f32.argtypes, f32.restype
     # The GAN kernels' shared memory depends on their warps a block too.
     for name in ("gen_fwd", "cde_fwd", "gen_bwd", "cde_bwd"):
         smem = getattr(lib, f"tsde_gan_{name}_smem_bytes")

@@ -24,7 +24,7 @@
 // shuffles a row and step at the reference scale, and read each weight as
 // its own 4-byte load; it took 0.33 ms (NVIDIA H100 80GB HBM3, 700 W).
 //
-// Design, as gan_gen_bwd.cu: a row's work stays inside a group of G lanes of
+// Design, as gan_gen_bwd.cuh: a row's work stays inside a group of G lanes of
 // one warp (G = 32 for S = 17: one row per warp), lane l owning state unit
 // l (ay, az, af and its C outputs) and hidden unit l. Each vector a product
 // needs whole (z1, the hidden activations a1, the output cotangents d2 and
@@ -45,6 +45,15 @@
 // the shuffle design's 0.327 (NVIDIA H100 80GB HBM3, 700 W).
 // Precise expf and tanhf, float32 throughout. The kernels allocate nothing
 // and do not synchronise the host.
+//
+// bf16 mixed mode (tsde_gan_cde_bwd_bf16; the JAX package's _tower_fwd and
+// _tower_bwd with bf16 weights): the weights come in bf16 and are widened
+// once as they are staged; the slopes, the cotangents, dslopes and every
+// sum stay float32. Each product's inputs are rounded to bf16 and nothing
+// else: [t1, z1] and a1 (the recomputed forward, dW1 and dW2), dpre2 (dW2
+// and a1's cotangent) and dpre1 (dW1 and dz); b2's and b1's sums take them
+// unrounded. The weights' gradients are summed in float32 and rounded to
+// bf16 once by the caller.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -56,11 +65,14 @@ namespace {
 
 using namespace tsde_gan;
 
+// W is the storage type of the weights (float, or bf16 in mixed mode); the
+// rest is float32 either way.
+template <typename W>
 struct CdeBwdArgs {
   const float* slopes;  // (N, B, C)
   const float* t1s;     // (N,)
   const float* dts;     // (N,)
-  const float* w[4];    // W1 b1 W2 b2
+  const W* w[4];        // W1 b1 W2 b2
   const float* zs;      // (N, B, S)
   const float* ghs;     // (N, B, S)
   float* dh0;           // (B, S)
@@ -115,8 +127,8 @@ struct CdeStepIn {
   float z1, gh, sl[C];
 };
 
-template <int C>
-__device__ __forceinline__ void load_cde_step(const CdeBwdArgs& a, int s,
+template <typename W, int C>
+__device__ __forceinline__ void load_cde_step(const CdeBwdArgs<W>& a, int s,
                                               int row, int li, bool live,
                                               bool unit, CdeStepIn<C>& in) {
   const size_t at = (size_t(s) * a.B + row) * a.S + li;
@@ -128,27 +140,29 @@ __device__ __forceinline__ void load_cde_step(const CdeBwdArgs& a, int s,
 }
 
 // The number of control channels C (1..MAX_K) and the group width G (16 or
-// 32) are template parameters, as in gan_gen_bwd.cu.
-// Stages the lane-major weight copies of cde_layout with the whole block.
+// 32) are template parameters, as in gan_gen_bwd.cuh.
+// Stages the lane-major weight copies of cde_layout with the whole block,
+// widened to float.
+template <typename W>
 __device__ inline void stage_cde_weights(float* sm, const CdeLayout& L,
-                                         const float* W1, const float* W2,
-                                         int S, int M, int C, int G) {
+                                         const W* W1, const W* W2, int S,
+                                         int M, int C, int G) {
   const int SC = S * C;
   for (int e = threadIdx.x; e < G * L.K1; e += blockDim.x) {
     const int l = e / L.K1, i = e % L.K1;
-    sm[L.w1c + e] = l < M && i < S ? W1[(1 + i) * M + l] : 0.f;
+    sm[L.w1c + e] = l < M && i < S ? to_f(W1[(1 + i) * M + l]) : 0.f;
   }
   for (int e = threadIdx.x; e < G * C * L.K2; e += blockDim.x) {
     const int o = e / L.K2, k = e % L.K2, l = o / C;
-    sm[L.w2c + e] = l < S && k < M ? W2[k * SC + o] : 0.f;
+    sm[L.w2c + e] = l < S && k < M ? to_f(W2[k * SC + o]) : 0.f;
   }
   for (int e = threadIdx.x; e < G * L.K3; e += blockDim.x) {
     const int l = e / L.K3, j = e % L.K3;
-    sm[L.w2r + e] = l < M && j < SC ? W2[l * SC + j] : 0.f;
+    sm[L.w2r + e] = l < M && j < SC ? to_f(W2[l * SC + j]) : 0.f;
   }
   for (int e = threadIdx.x; e < G * L.K2; e += blockDim.x) {
     const int l = e / L.K2, k = e % L.K2;
-    sm[L.w1r + e] = l < S && k < M ? W1[(1 + l) * M + k] : 0.f;
+    sm[L.w1r + e] = l < S && k < M ? to_f(W1[(1 + l) * M + k]) : 0.f;
   }
 }
 
@@ -157,9 +171,9 @@ __device__ inline void stage_cde_weights(float* sm, const CdeLayout& L,
 // weight-gradient accumulators are register arrays of their sizes. Where
 // they are few (H C <= 32, as at the reference scale) a lane is held to 128
 // registers, so 16 warps share an SM: the critic's 2,048 rows in one wave.
-template <int G, int H, int C>
+template <typename W, int G, int H, int C>
 __global__ void __launch_bounds__(MAX_THREADS, H * C <= 32 ? 2 : 1)
-gan_cde_bwd_kernel(const CdeBwdArgs a) {
+gan_cde_bwd_kernel(const CdeBwdArgs<W> a) {
   extern __shared__ __align__(16) float sm[];
   const int S = a.S, M = a.M, B = a.B, SC = S * C;
   const CdeLayout L = cde_layout(S, M, C, G);
@@ -190,11 +204,12 @@ gan_cde_bwd_kernel(const CdeBwdArgs a) {
   float* av = slot + L.a;
   float* dv = slot + L.d;
   float* ev = slot + L.e;
-  const float w1t = hid ? a.w[0][li] : 0.f;    // W1's time row
-  const float b1 = hid ? a.w[1][li] : 0.f;
+  const float w1t = hid ? to_f(a.w[0][li]) : 0.f;    // W1's time row
+  const float b1 = hid ? to_f(a.w[1][li]) : 0.f;
   float b2[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) b2[c] = li < S ? a.w[3][li * C + c] : 0.f;
+  for (int c = 0; c < C; ++c)
+    b2[c] = li < S ? to_f(a.w[3][li * C + c]) : 0.f;
 
   float ay = 0.f, az = 0.f, af = 0.f;
   // Column li of dW1 (row 0: time) and of dW2 (outputs (li, c); row k).
@@ -210,13 +225,13 @@ gan_cde_bwd_kernel(const CdeBwdArgs a) {
   for (int c = 0; c < C; ++c) gb2[c] = 0.f;
 
   CdeStepIn<C> next;
-  load_cde_step<C>(a, a.N - 1, row, li, live, unit, next);
+  load_cde_step<W, C>(a, a.N - 1, row, li, live, unit, next);
   float dt_next = __ldg(a.dts + a.N - 1), t1_next = __ldg(a.t1s + a.N - 1);
   for (int s = a.N - 1; s >= 0; --s) {
     const CdeStepIn<C> in = next;
     const float dt = dt_next, t1 = t1_next;
     if (s > 0) {
-      load_cde_step<C>(a, s - 1, row, li, live, unit, next);
+      load_cde_step<W, C>(a, s - 1, row, li, live, unit, next);
       dt_next = __ldg(a.dts + s - 1);
       t1_next = __ldg(a.t1s + s - 1);
     }
@@ -225,25 +240,29 @@ gan_cde_bwd_kernel(const CdeBwdArgs a) {
     const float Af = af + 0.5f * dt * ay;
 
     // The tower's forward at [t1, z1]: the last step's reads of zv ended
-    // before its d1 barrier.
-    zv[li] = in.z1;
+    // before its d1 barrier. [t1, z1] and a1 are only products' inputs:
+    // rounded to W.
+    const float t1r = rnd<W>(t1);
+    zv[li] = rnd<W>(in.z1);
     __syncwarp();
     float a1, sl1;
-    lipswish_and_slope(dot4<G / 4>(zv, w1c, S, t1 * w1t) + b1, a1, sl1);
-    av[li] = a1;
+    lipswish_and_slope(dot4<G / 4>(zv, w1c, S, t1r * w1t) + b1, a1, sl1);
+    av[li] = rnd<W>(a1);
     __syncwarp();
     float F[C];
 #pragma unroll
     for (int c = 0; c < C; ++c)
       F[c] = tanhf(dot4<G / 4>(av, w2c + c * L.K2, M, 0.f) + b2[c]);
 
-    // The slopes' cotangent, and the outputs' pre-activation cotangents.
+    // The slopes' cotangent, and the outputs' pre-activation cotangents,
+    // rounded to W as products' inputs (b2's sum takes them unrounded).
     float ds[C], d2[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       ds[c] = group_sum<G>(Af * F[c]);
-      d2[c] = Af * in.sl[c] * (1.f - F[c] * F[c]);
-      gb2[c] += d2[c];
+      const float dpre2 = Af * in.sl[c] * (1.f - F[c] * F[c]);
+      gb2[c] += dpre2;
+      d2[c] = rnd<W>(dpre2);
       dv[li * C + c] = d2[c];
     }
     if (live && li == 0) {
@@ -271,11 +290,12 @@ gan_cde_bwd_kernel(const CdeBwdArgs a) {
     __syncwarp();
 
     // Hidden unit li's cotangent, through lipswish.
-    const float d1 = dot4<G * C / 4>(dv, w2r, SC, 0.f) * sl1;
+    const float dpre1 = dot4<G * C / 4>(dv, w2r, SC, 0.f) * sl1;
+    const float d1 = rnd<W>(dpre1);
 
     // Layer 1's weights: dW1[r][li] += [t1, z1][r] dpre1[li].
-    gb1 += d1;
-    gw1[0] = fmaf(t1, d1, gw1[0]);
+    gb1 += dpre1;
+    gw1[0] = fmaf(t1r, d1, gw1[0]);
 #pragma unroll
     for (int i4 = 0; i4 < G; i4 += 4) {
       if (i4 < S) {
@@ -344,20 +364,62 @@ gan_cde_bwd_kernel(const CdeBwdArgs a) {
   }
 }
 
-using CdeBwdKernel = void (*)(CdeBwdArgs);
+template <typename W>
+using CdeBwdKernel = void (*)(CdeBwdArgs<W>);
 
-template <int G, int H>
-CdeBwdKernel cde_bwd_kernel_for(int C) {
+template <typename W, int G, int H>
+CdeBwdKernel<W> cde_bwd_kernel_for(int C) {
   switch (C) {
-    case 1: return gan_cde_bwd_kernel<G, H, 1>;
-    case 2: return gan_cde_bwd_kernel<G, H, 2>;
-    case 3: return gan_cde_bwd_kernel<G, H, 3>;
-    case 4: return gan_cde_bwd_kernel<G, H, 4>;
-    case 5: return gan_cde_bwd_kernel<G, H, 5>;
-    case 6: return gan_cde_bwd_kernel<G, H, 6>;
-    case 7: return gan_cde_bwd_kernel<G, H, 7>;
-    default: return gan_cde_bwd_kernel<G, H, 8>;
+    case 1: return gan_cde_bwd_kernel<W, G, H, 1>;
+    case 2: return gan_cde_bwd_kernel<W, G, H, 2>;
+    case 3: return gan_cde_bwd_kernel<W, G, H, 3>;
+    case 4: return gan_cde_bwd_kernel<W, G, H, 4>;
+    case 5: return gan_cde_bwd_kernel<W, G, H, 5>;
+    case 6: return gan_cde_bwd_kernel<W, G, H, 6>;
+    case 7: return gan_cde_bwd_kernel<W, G, H, 7>;
+    default: return gan_cde_bwd_kernel<W, G, H, 8>;
   }
+}
+
+// Launches the sweep and the sum of its partials (float32 weights, or bf16
+// in mixed mode): the body of both entry points below.
+template <typename W>
+int launch_cde_bwd(const float* slopes, const float* t1s, const float* dts,
+                   const W* const* w, const float* zs, const float* ghs,
+                   float* dh0, float* df0, float* dslopes, float* partials,
+                   float* dw, int B, int S, int M, int C, int N, int threads,
+                   int device, cudaStream_t stream) {
+  if (S < 1 || S > MAX_LANES || M < 1 || M > MAX_LANES || C < 1 ||
+      C > MAX_K || threads < 32 || threads > MAX_THREADS || threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B <= 0 || N <= 0) return 0;
+  CdeBwdArgs<W> a;
+  a.slopes = slopes; a.t1s = t1s; a.dts = dts;
+  for (int i = 0; i < 4; ++i) a.w[i] = w[i];
+  a.zs = zs; a.ghs = ghs;
+  a.dh0 = dh0; a.df0 = df0; a.dslopes = dslopes; a.partials = partials;
+  a.B = B; a.S = S; a.M = M; a.C = C; a.N = N;
+  a.P = (1 + S) * M + M + M * S * C + S * C;
+  const int G = bwd_group_width(S, M);
+  const CdeBwdKernel<W> kernel =
+      G == 16   ? cde_bwd_kernel_for<W, 16, 16>(C)
+      : M <= 16 ? cde_bwd_kernel_for<W, 32, 16>(C)
+                : cde_bwd_kernel_for<W, 32, 32>(C);
+  const size_t smem = cde_bwd_smem_floats(S, M, C, G, threads / 32)
+                      * sizeof(float);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows_per_block = (threads / 32) * (32 / G);
+  kernel<<<(B + rows_per_block - 1) / rows_per_block, threads, smem,
+           stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      launch_sum_partials(partials, bwd_partials(B, S, M), a.P, dw, stream));
 }
 
 }  // namespace
@@ -385,37 +447,24 @@ int tsde_gan_cde_bwd(const float* slopes, const float* t1s, const float* dts,
                      float* dh0, float* df0, float* dslopes, float* partials,
                      float* dw, int B, int S, int M, int C, int N,
                      int threads, int device, cudaStream_t stream) {
-  if (S < 1 || S > MAX_LANES || M < 1 || M > MAX_LANES || C < 1 ||
-      C > MAX_K || threads < 32 || threads > MAX_THREADS || threads % 32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 0 || N <= 0) return 0;
-  CdeBwdArgs a;
-  a.slopes = slopes; a.t1s = t1s; a.dts = dts;
   const float* w[4] = {W1, b1, W2, b2};
-  for (int i = 0; i < 4; ++i) a.w[i] = w[i];
-  a.zs = zs; a.ghs = ghs;
-  a.dh0 = dh0; a.df0 = df0; a.dslopes = dslopes; a.partials = partials;
-  a.B = B; a.S = S; a.M = M; a.C = C; a.N = N;
-  a.P = (1 + S) * M + M + M * S * C + S * C;
-  const int G = bwd_group_width(S, M);
-  const CdeBwdKernel kernel =
-      G == 16   ? cde_bwd_kernel_for<16, 16>(C)
-      : M <= 16 ? cde_bwd_kernel_for<32, 16>(C)
-                : cde_bwd_kernel_for<32, 32>(C);
-  const size_t smem = tsde_gan_cde_bwd_smem_bytes(S, M, C, threads);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows_per_block = (threads / 32) * (32 / G);
-  kernel<<<(B + rows_per_block - 1) / rows_per_block, threads, smem,
-           stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      launch_sum_partials(partials, bwd_partials(B, S, M), a.P, dw, stream));
+  return launch_cde_bwd(slopes, t1s, dts, w, zs, ghs, dh0, df0, dslopes,
+                        partials, dw, B, S, M, C, N, threads, device, stream);
+}
+
+// bf16 mixed mode: the weights bf16, the rest as above (dw float32: the
+// weights' gradients summed in float32, for the caller to round once).
+int tsde_gan_cde_bwd_bf16(const float* slopes, const float* t1s,
+                          const float* dts, const __nv_bfloat16* W1,
+                          const __nv_bfloat16* b1, const __nv_bfloat16* W2,
+                          const __nv_bfloat16* b2, const float* zs,
+                          const float* ghs, float* dh0, float* df0,
+                          float* dslopes, float* partials, float* dw, int B,
+                          int S, int M, int C, int N, int threads, int device,
+                          cudaStream_t stream) {
+  const __nv_bfloat16* w[4] = {W1, b1, W2, b2};
+  return launch_cde_bwd(slopes, t1s, dts, w, zs, ghs, dh0, df0, dslopes,
+                        partials, dw, B, S, M, C, N, threads, device, stream);
 }
 
 }  // extern "C"

@@ -43,6 +43,12 @@
 // bitwise its. Each step's slopes, time and width are loaded one step
 // ahead. Precise expf and tanhf; state and sums in float32. The kernel
 // allocates nothing and does not synchronise the host.
+//
+// bf16 mixed mode (tsde_gan_cde_fwd_bf16; the JAX package's _tower_fwd
+// with bf16 weights): the weights come in bf16 and are widened once as
+// they are staged; the slopes, the state and hs, zs stay float32. Only the
+// products' inputs are rounded to bf16: [t1, z1] before layer 1 and a1
+// before layer 2 (F . slope, the biases and the update stay float32).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -54,13 +60,16 @@ namespace {
 
 using namespace tsde_gan;
 
+// W is the storage type of the weights (float, or bf16 in mixed mode); the
+// rest is float32 either way.
+template <typename W>
 struct CdeArgs {
   const float* h0;      // (B, S)
   const float* f0;      // (B, S)
   const float* slopes;  // (N, B, C)
   const float* t1s;     // (N,)
   const float* dts;     // (N,)
-  const float* w[4];    // W1 b1 W2 b2
+  const W* w[4];        // W1 b1 W2 b2
   float* hs;            // (N, B, S)
   float* zs;            // (N, B, S)
   int B, S, M, C, N;
@@ -99,19 +108,21 @@ __host__ __device__ inline size_t cde_fwd_smem_floats(int S, int M, int C,
   return size_t(cde_fwd_layout(S, M, C, G).block) + size_t(warps) * 64;
 }
 
-// Stages the lane-major weight copies with the whole block.
+// Stages the lane-major weight copies with the whole block, widened to
+// float.
+template <typename W>
 __device__ inline void stage_cde_fwd_weights(float* sm,
                                              const CdeFwdLayout& L,
-                                             const float* W1, const float* W2,
-                                             int S, int M, int C, int G) {
+                                             const W* W1, const W* W2, int S,
+                                             int M, int C, int G) {
   const int SC = S * C;
   for (int e = threadIdx.x; e < G * L.K1; e += blockDim.x) {
     const int l = e / L.K1, i = e % L.K1;
-    sm[L.w1c + e] = l < M && i < S ? W1[(1 + i) * M + l] : 0.f;
+    sm[L.w1c + e] = l < M && i < S ? to_f(W1[(1 + i) * M + l]) : 0.f;
   }
   for (int e = threadIdx.x; e < G * C * L.K2; e += blockDim.x) {
     const int o = e / L.K2, k = e % L.K2, l = o / C;
-    sm[L.w2c + e] = l < S && k < M ? W2[k * SC + o] : 0.f;
+    sm[L.w2c + e] = l < S && k < M ? to_f(W2[k * SC + o]) : 0.f;
   }
 }
 
@@ -131,9 +142,9 @@ __device__ __forceinline__ void load_slopes(const float* slopes, int B, int s,
 // register arrays and the loops over them unroll exactly. SF and MF fix S
 // and M where they are not 0, so that every product's chain unrolls
 // without a branch.
-template <int G, int H, int C, int SF, int MF>
+template <typename W, int G, int H, int C, int SF, int MF>
 __global__ void __launch_bounds__(MAX_THREADS)
-gan_cde_fwd_kernel(const CdeArgs a) {
+gan_cde_fwd_kernel(const CdeArgs<W> a) {
   extern __shared__ __align__(16) float sm[];
   const int S = SF ? SF : a.S, M = MF ? MF : a.M, B = a.B;
   const CdeFwdLayout L = cde_fwd_layout(S, M, C, G);
@@ -163,11 +174,12 @@ gan_cde_fwd_kernel(const CdeArgs a) {
     load4(sm + L.w2c + (li * C + c) * L.K2, M, w2[c]);
   float* zv = sm + L.block + (threadIdx.x >> 5) * 64 + (lane / G) * 2 * G;
   float* av = zv + G;
-  const float w1t = hid ? a.w[0][li] : 0.f;    // W1's time row
-  const float b1 = hid ? a.w[1][li] : 0.f;
+  const float w1t = hid ? to_f(a.w[0][li]) : 0.f;    // W1's time row
+  const float b1 = hid ? to_f(a.w[1][li]) : 0.f;
   float b2[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) b2[c] = li < S ? a.w[3][li * C + c] : 0.f;
+  for (int c = 0; c < C; ++c)
+    b2[c] = li < S ? to_f(a.w[3][li * C + c]) : 0.f;
 
   float h = unit ? a.h0[size_t(row) * S + li] : 0.f;
   float z = h;
@@ -187,18 +199,18 @@ gan_cde_fwd_kernel(const CdeArgs a) {
       t1_next = __ldg(a.t1s + s + 1);
     }
 
-    // Layer 1 at [t1, z1]: the last step's reads of zv ended before its
-    // a1 barrier.
+    // Layer 1 at [t1, z1], its input rounded to W: the last step's reads of
+    // zv ended before its a1 barrier.
     const float z1 = 2.f * h - z + dt * f;
-    zv[li] = z1;
+    zv[li] = rnd<W>(z1);
     __syncwarp();
     float zr[G];
     load4(zv, S, zr);
-    float pre = t1 * w1t;
+    float pre = rnd<W>(t1) * w1t;
 #pragma unroll
     for (int i = 0; i < G; ++i)
       if (i < S) pre = fmaf(zr[i], w1[i], pre);
-    av[li] = lipswish(pre + b1);
+    av[li] = rnd<W>(lipswish(pre + b1));
     __syncwarp();
     // Layer 2 and F . slope, a1 read once for the C outputs: the next
     // step writes av only after its z1 barrier, which every lane reaches
@@ -229,20 +241,61 @@ gan_cde_fwd_kernel(const CdeArgs a) {
   }
 }
 
-using CdeFwdKernel = void (*)(CdeArgs);
+template <typename W>
+using CdeFwdKernel = void (*)(CdeArgs<W>);
 
-template <int G, int H, int SF = 0, int MF = 0>
-CdeFwdKernel cde_fwd_kernel_for(int C) {
+template <typename W, int G, int H, int SF = 0, int MF = 0>
+CdeFwdKernel<W> cde_fwd_kernel_for(int C) {
   switch (C) {
-    case 1: return gan_cde_fwd_kernel<G, H, 1, SF, MF>;
-    case 2: return gan_cde_fwd_kernel<G, H, 2, SF, MF>;
-    case 3: return gan_cde_fwd_kernel<G, H, 3, SF, MF>;
-    case 4: return gan_cde_fwd_kernel<G, H, 4, SF, MF>;
-    case 5: return gan_cde_fwd_kernel<G, H, 5, SF, MF>;
-    case 6: return gan_cde_fwd_kernel<G, H, 6, SF, MF>;
-    case 7: return gan_cde_fwd_kernel<G, H, 7, SF, MF>;
-    default: return gan_cde_fwd_kernel<G, H, 8, SF, MF>;
+    case 1: return gan_cde_fwd_kernel<W, G, H, 1, SF, MF>;
+    case 2: return gan_cde_fwd_kernel<W, G, H, 2, SF, MF>;
+    case 3: return gan_cde_fwd_kernel<W, G, H, 3, SF, MF>;
+    case 4: return gan_cde_fwd_kernel<W, G, H, 4, SF, MF>;
+    case 5: return gan_cde_fwd_kernel<W, G, H, 5, SF, MF>;
+    case 6: return gan_cde_fwd_kernel<W, G, H, 6, SF, MF>;
+    case 7: return gan_cde_fwd_kernel<W, G, H, 7, SF, MF>;
+    default: return gan_cde_fwd_kernel<W, G, H, 8, SF, MF>;
   }
+}
+
+// Launches the solve (float32 weights, or bf16 in mixed mode): the body of
+// both entry points below.
+template <typename W>
+int launch_cde_fwd(const float* h0, const float* f0, const float* slopes,
+                   const float* t1s, const float* dts, const W* const* w,
+                   float* hs, float* zs, int B, int S, int M, int C, int N,
+                   int threads, int device, cudaStream_t stream) {
+  if (S < 1 || S > MAX_LANES || M < 1 || M > MAX_LANES || C < 1 ||
+      C > MAX_K || threads < 32 || threads > MAX_THREADS || threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B <= 0 || N <= 0) return 0;
+  CdeArgs<W> a;
+  a.h0 = h0; a.f0 = f0; a.slopes = slopes; a.t1s = t1s; a.dts = dts;
+  for (int i = 0; i < 4; ++i) a.w[i] = w[i];
+  a.hs = hs; a.zs = zs;
+  a.B = B; a.S = S; a.M = M; a.C = C; a.N = N;
+  const int G = cde_fwd_group_width(S, M);
+  // The critic's reference widths, and the widest, run instantiations with
+  // them fixed.
+  const CdeFwdKernel<W> kernel =
+      S == 17 && M == 16   ? cde_fwd_kernel_for<W, 32, 16, 17, 16>(C)
+      : S == 32 && M == 32 ? cde_fwd_kernel_for<W, 32, 32, 32, 32>(C)
+      : G == 4             ? cde_fwd_kernel_for<W, 4, 4>(C)
+      : G == 8             ? cde_fwd_kernel_for<W, 8, 8>(C)
+      : G == 16            ? cde_fwd_kernel_for<W, 16, 16>(C)
+                           : cde_fwd_kernel_for<W, 32, 32>(C);
+  const size_t smem = cde_fwd_smem_floats(S, M, C, G, threads / 32)
+                      * sizeof(float);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows_per_block = (threads / 32) * (32 / G);
+  kernel<<<(B + rows_per_block - 1) / rows_per_block, threads, smem,
+           stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -266,37 +319,22 @@ int tsde_gan_cde_fwd(const float* h0, const float* f0, const float* slopes,
                      const float* b1, const float* W2, const float* b2,
                      float* hs, float* zs, int B, int S, int M, int C, int N,
                      int threads, int device, cudaStream_t stream) {
-  if (S < 1 || S > MAX_LANES || M < 1 || M > MAX_LANES || C < 1 ||
-      C > MAX_K || threads < 32 || threads > MAX_THREADS || threads % 32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 0 || N <= 0) return 0;
-  CdeArgs a;
-  a.h0 = h0; a.f0 = f0; a.slopes = slopes; a.t1s = t1s; a.dts = dts;
   const float* w[4] = {W1, b1, W2, b2};
-  for (int i = 0; i < 4; ++i) a.w[i] = w[i];
-  a.hs = hs; a.zs = zs;
-  a.B = B; a.S = S; a.M = M; a.C = C; a.N = N;
-  const int G = cde_fwd_group_width(S, M);
-  // The critic's reference widths, and the widest, run instantiations with
-  // them fixed.
-  const CdeFwdKernel kernel =
-      S == 17 && M == 16   ? cde_fwd_kernel_for<32, 16, 17, 16>(C)
-      : S == 32 && M == 32 ? cde_fwd_kernel_for<32, 32, 32, 32>(C)
-      : G == 4             ? cde_fwd_kernel_for<4, 4>(C)
-      : G == 8             ? cde_fwd_kernel_for<8, 8>(C)
-      : G == 16            ? cde_fwd_kernel_for<16, 16>(C)
-                           : cde_fwd_kernel_for<32, 32>(C);
-  const size_t smem = tsde_gan_cde_fwd_smem_bytes(S, M, C, threads);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows_per_block = (threads / 32) * (32 / G);
-  kernel<<<(B + rows_per_block - 1) / rows_per_block, threads, smem,
-           stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_cde_fwd(h0, f0, slopes, t1s, dts, w, hs, zs, B, S, M, C, N,
+                        threads, device, stream);
+}
+
+// bf16 mixed mode: the weights bf16, the rest as above.
+int tsde_gan_cde_fwd_bf16(const float* h0, const float* f0,
+                          const float* slopes, const float* t1s,
+                          const float* dts, const __nv_bfloat16* W1,
+                          const __nv_bfloat16* b1, const __nv_bfloat16* W2,
+                          const __nv_bfloat16* b2, float* hs, float* zs,
+                          int B, int S, int M, int C, int N, int threads,
+                          int device, cudaStream_t stream) {
+  const __nv_bfloat16* w[4] = {W1, b1, W2, b2};
+  return launch_cde_fwd(h0, f0, slopes, t1s, dts, w, hs, zs, B, S, M, C, N,
+                        threads, device, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 // What the SDE-GAN whole-solve kernels share (gan_gen_fwd.cu, gan_cde_fwd.cu
-// and their reverse sweeps gan_gen_bwd.cu, gan_cde_bwd.cu): the limits of
+// and their reverse sweeps gan_gen_bwd.cuh, gan_cde_bwd.cu): the limits of
 // their widths, the width of a row's group of lanes, lipswish with precise
 // expf, and the weight-gradient partials of the sweeps with their sum.
 //
@@ -11,13 +11,29 @@
 // the same arithmetic, in the same order of every sum (layer 1 from the
 // time term, the state's terms in order, the bias last; layer 2 the hidden
 // units in order, then the bias, then tanh).
+//
+// Each kernel is templated on W, the storage type of its weights and its
+// noise: float, or __nv_bfloat16 for bf16 mixed mode (the _bf16 entry
+// points; the JAX package's rule: the state, the slopes, the cotangents and
+// every sum stay float32). The weights are widened once, as they are
+// staged in shared memory and registers; the products' inputs are rounded
+// to W where the JAX package's _tower_fwd and _tower_bwd round them
+// (rnd<W>, mixed_dtype.cuh). With W = float the kernels are the float32
+// ones.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "mixed_dtype.cuh"
+
 namespace tsde_gan {
+
+using tsde_mixed::from_f;
+using tsde_mixed::ldw;
+using tsde_mixed::rnd;
+using tsde_mixed::to_f;
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_LANES = 32;     // S, M <= 32: a row's group fits a warp

@@ -54,6 +54,14 @@
 // zs and gs are bitwise its. Each step's noise, time and width are loaded
 // one step ahead. Precise expf and tanhf; state and sums in float32. The
 // kernel allocates nothing and does not synchronise the host.
+//
+// bf16 mixed mode (tsde_gan_gen_fwd_bf16; the JAX package's _tower_fwd
+// with bf16 weights): the weights and the noise come in bf16, the weights
+// widened once as they are staged, the noise a step ahead by a 2-byte
+// load (cp.async moves 4 bytes at least). Only the products' inputs are
+// rounded to bf16: [t1, z1] before layer 1 and the hidden activations
+// before layer 2. The biases, lipswish, tanh, the g . dW products and the
+// state stay float32; ys, zs and gs go out float32.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -65,14 +73,17 @@ namespace {
 
 using namespace tsde_gan;
 
+// W is the storage type of the noise and the weights (float, or bf16 in
+// mixed mode); the rest is float32 either way.
+template <typename W>
 struct GenArgs {
   const float* x0;      // (B, S)
   const float* f0;      // (B, S)
   const float* g0;      // (B, S*m)
-  const float* noise;   // (N, B, m)
+  const W* noise;       // (N, B, m)
   const float* t1s;     // (N,)
   const float* dts;     // (N,)
-  const float* w[8];    // W1f b1f W2f b2f W1g b1g W2g b2g
+  const W* w[8];        // W1f b1f W2f b2f W1g b1g W2g b2g
   float* ys;            // (N, B, S)
   float* zs;            // (N, B, S)
   float* gs;            // (N, B, S*m)
@@ -115,28 +126,30 @@ __host__ __device__ inline size_t gen_fwd_smem_floats(int S, int M, int m,
          + size_t(warps) * gen_fwd_warp_floats(m, G);
 }
 
-// Entry e of the block's weight copies.
+// Entry e of the block's weight copies, widened to float.
+template <typename W>
 __device__ __forceinline__ float gen_fwd_weight(const GenFwdLayout& L,
-                                                const float* const* w, int S,
+                                                const W* const* w, int S,
                                                 int M, int m, int e) {
   if (e < L.w2c) {
     const int q = e >= L.w1c[1], r = q ? e - L.w1c[1] : e;
     const int l = r / L.K1, i = r % L.K1;
-    return l < M && i < S ? __ldg(w[4 * q] + (1 + i) * M + l) : 0.f;
+    return l < M && i < S ? ldw(w[4 * q] + (1 + i) * M + l) : 0.f;
   }
   const int r = (e - L.w2c) / L.K2, k = (e - L.w2c) % L.K2;
   const int l = r / (1 + m), o = r % (1 + m);
   if (l >= S || k >= M) return 0.f;
-  return o ? __ldg(w[6] + k * (S * m) + l * m + o - 1)
-           : __ldg(w[2] + k * S + l);
+  return o ? ldw(w[6] + k * (S * m) + l * m + o - 1)
+           : ldw(w[2] + k * S + l);
 }
 
 // Stages the weight copies with the whole block, eight loads of a thread
 // in flight at once (a loop of a load and a store each waits out every
 // load's latency in turn).
+template <typename W>
 __device__ inline void stage_gen_fwd_weights(float* sm,
                                              const GenFwdLayout& L,
-                                             const float* const* w, int S,
+                                             const W* const* w, int S,
                                              int M, int m) {
   constexpr int BATCH = 8;
   for (int e0 = threadIdx.x; e0 < L.block; e0 += BATCH * blockDim.x) {
@@ -185,16 +198,16 @@ __device__ __forceinline__ float4 chunk(const float (&w)[N], int q) {
   return make_float4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
 }
 
-// A lane's unit of the row's state, its noise and its output pointers,
-// advanced a step at a time.
-template <int K>
+// A lane's unit of the row's state, its noise (widened to float) and its
+// output pointers, advanced a step at a time.
+template <typename W, int K>
 struct GenRow {
   float x, z, f, g[K], dW[K], dW_next[K];
-  const float* noise;   // the row's noise of the next step
+  const W* noise;       // the row's noise of the next step
   float *ys, *zs, *gs;  // unit li's outputs of this step
   size_t noise_step, step, g_step;
 
-  __device__ GenRow(const GenArgs& a, int row, int li, bool unit) {
+  __device__ GenRow(const GenArgs<W>& a, int row, int li, bool unit) {
     const int S = a.S;
     x = unit ? a.x0[size_t(row) * S + li] : 0.f;
     z = x;
@@ -210,7 +223,7 @@ struct GenRow {
     zs = a.zs + size_t(row) * S + li;
     gs = a.gs + (size_t(row) * S + li) * K;
 #pragma unroll
-    for (int j = 0; j < K; ++j) dW_next[j] = __ldg(noise + j);
+    for (int j = 0; j < K; ++j) dW_next[j] = ldw(noise + j);
   }
 
   // Takes step s's noise and loads the next step's.
@@ -220,7 +233,7 @@ struct GenRow {
     noise += noise_step;
     if (more) {
 #pragma unroll
-      for (int j = 0; j < K; ++j) dW_next[j] = __ldg(noise + j);
+      for (int j = 0; j < K; ++j) dW_next[j] = ldw(noise + j);
     }
   }
 
@@ -255,9 +268,9 @@ struct GenRow {
 // g and its weights are register arrays and the loops over them unroll
 // exactly. SF and MF fix S and M where they are not 0, so that every
 // product's chain unrolls without a branch.
-template <int K, int SF, int MF>
+template <typename W, int K, int SF, int MF>
 __global__ void __launch_bounds__(MAX_THREADS)
-gan_gen_fwd_kernel(const GenArgs a) {
+gan_gen_fwd_kernel(const GenArgs<W> a) {
   extern __shared__ __align__(16) float sm[];
   constexpr int G = 16;
   const int S = SF ? SF : a.S, M = MF ? MF : a.M;
@@ -282,14 +295,14 @@ gan_gen_fwd_kernel(const GenArgs a) {
   float* zv = sm + L.block + warp * gen_fwd_warp_floats(K, G);
   float* av = zv + G;                          // a1f, then a1g
   float* ov = av + 2 * G;                      // each half's K a lane
-  const float w1t = hid ? a.w[4 * h][li] : 0.f;    // W1's time row
-  const float b1 = hid ? a.w[4 * h + 1][li] : 0.f;
+  const float w1t = hid ? to_f(a.w[4 * h][li]) : 0.f;    // W1's time row
+  const float b1 = hid ? to_f(a.w[4 * h + 1][li]) : 0.f;
   float b2[K];
 #pragma unroll
   for (int j = 0; j < K; ++j)
-    b2[j] = !unit ? 0.f : h ? a.w[7][li * K + j] : a.w[3][li];
+    b2[j] = !unit ? 0.f : to_f(h ? a.w[7][li * K + j] : a.w[3][li]);
 
-  GenRow<K> r(a, row, li, unit);
+  GenRow<W, K> r(a, row, li, unit);
   float dt_next = __ldg(a.dts), t1_next = __ldg(a.t1s);
   for (int s = 0; s < a.N; ++s) {
     const bool more = s + 1 < a.N;
@@ -300,18 +313,18 @@ gan_gen_fwd_kernel(const GenArgs a) {
       t1_next = __ldg(a.t1s + s + 1);
     }
 
-    // Layer 1 at [t1, z1]: the last step's reads of zv ended before its
-    // a1 barrier.
+    // Layer 1 at [t1, z1], its input rounded to W: the last step's reads of
+    // zv ended before its a1 barrier.
     const float z1 = r.z1(dt);
-    if (h == 0) zv[li] = z1;
+    if (h == 0) zv[li] = rnd<W>(z1);
     __syncwarp();
     float zr[G];
     load4(zv, S, zr);
-    float pre = t1 * w1t;
+    float pre = rnd<W>(t1) * w1t;
     for_chunks<G>(S, [&](int q) {
       pre = chunk_dot(zr, chunk(w1, q), q, S, pre);
     });
-    av[h * G + li] = lipswish(pre + b1);
+    av[h * G + li] = rnd<W>(lipswish(pre + b1));
     __syncwarp();
     // Layer 2 of this half's tower, its hidden activations read once: the
     // next step writes av only after its z1 barrier, which every lane
@@ -356,9 +369,9 @@ gan_gen_fwd_kernel(const GenArgs a) {
 // lane) would spill from registers: there they are read from shared memory
 // at each step, four a load (at m 8 that took 0.038 ms against 0.224 for
 // registers, at m 3 0.042 against 0.038; NVIDIA H100 80GB HBM3, 700 W).
-template <int K>
+template <typename W, int K>
 __global__ void __launch_bounds__(MAX_THREADS)
-gan_gen_fwd_wide_kernel(const GenArgs a) {
+gan_gen_fwd_wide_kernel(const GenArgs<W> a) {
   extern __shared__ __align__(16) float sm[];
   constexpr int G = 32;
   constexpr bool WS = K > 3;
@@ -386,14 +399,15 @@ gan_gen_fwd_wide_kernel(const GenArgs a) {
   float w1t[2], b1[2], b2[1 + K];
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
-    w1t[q] = hid ? a.w[4 * q][li] : 0.f;
-    b1[q] = hid ? a.w[4 * q + 1][li] : 0.f;
+    w1t[q] = hid ? to_f(a.w[4 * q][li]) : 0.f;
+    b1[q] = hid ? to_f(a.w[4 * q + 1][li]) : 0.f;
   }
-  b2[0] = unit ? a.w[3][li] : 0.f;
+  b2[0] = unit ? to_f(a.w[3][li]) : 0.f;
 #pragma unroll
-  for (int j = 0; j < K; ++j) b2[1 + j] = unit ? a.w[7][li * K + j] : 0.f;
+  for (int j = 0; j < K; ++j)
+    b2[1 + j] = unit ? to_f(a.w[7][li * K + j]) : 0.f;
 
-  GenRow<K> r(a, row, li, unit);
+  GenRow<W, K> r(a, row, li, unit);
   float dt_next = __ldg(a.dts), t1_next = __ldg(a.t1s);
   for (int s = 0; s < a.N; ++s) {
     const bool more = s + 1 < a.N;
@@ -405,18 +419,20 @@ gan_gen_fwd_wide_kernel(const GenArgs a) {
     }
 
     const float z1 = r.z1(dt);
-    zv[li] = z1;
+    zv[li] = rnd<W>(z1);
     __syncwarp();
     float zr[G];
     load4(zv, S, zr);
-    float pre[2] = {t1 * w1t[0], t1 * w1t[1]};
+    const float t1r = rnd<W>(t1);
+    float pre[2] = {t1r * w1t[0], t1r * w1t[1]};
     for_chunks<G>(S, [&](int q) {
 #pragma unroll
       for (int c = 0; c < 2; ++c)
         pre[c] = chunk_dot(zr, chunk(w1[c], q), q, S, pre[c]);
     });
 #pragma unroll
-    for (int c = 0; c < 2; ++c) av[c * G + li] = lipswish(pre[c] + b1[c]);
+    for (int c = 0; c < 2; ++c)
+      av[c * G + li] = rnd<W>(lipswish(pre[c] + b1[c]));
     __syncwarp();
     // Layer 2: the drift's output from a1f, the diffusion's m from a1g.
     float arf[G], arg[G], o[1 + K];
@@ -448,33 +464,72 @@ gan_gen_fwd_wide_kernel(const GenArgs a) {
   }
 }
 
-using GenFwdKernel = void (*)(GenArgs);
+template <typename W>
+using GenFwdKernel = void (*)(GenArgs<W>);
 
-template <int SF = 0, int MF = 0>
-GenFwdKernel gen_fwd_kernel_for(int m) {
+template <typename W, int SF = 0, int MF = 0>
+GenFwdKernel<W> gen_fwd_kernel_for(int m) {
   switch (m) {
-    case 1: return gan_gen_fwd_kernel<1, SF, MF>;
-    case 2: return gan_gen_fwd_kernel<2, SF, MF>;
-    case 3: return gan_gen_fwd_kernel<3, SF, MF>;
-    case 4: return gan_gen_fwd_kernel<4, SF, MF>;
-    case 5: return gan_gen_fwd_kernel<5, SF, MF>;
-    case 6: return gan_gen_fwd_kernel<6, SF, MF>;
-    case 7: return gan_gen_fwd_kernel<7, SF, MF>;
-    default: return gan_gen_fwd_kernel<8, SF, MF>;
+    case 1: return gan_gen_fwd_kernel<W, 1, SF, MF>;
+    case 2: return gan_gen_fwd_kernel<W, 2, SF, MF>;
+    case 3: return gan_gen_fwd_kernel<W, 3, SF, MF>;
+    case 4: return gan_gen_fwd_kernel<W, 4, SF, MF>;
+    case 5: return gan_gen_fwd_kernel<W, 5, SF, MF>;
+    case 6: return gan_gen_fwd_kernel<W, 6, SF, MF>;
+    case 7: return gan_gen_fwd_kernel<W, 7, SF, MF>;
+    default: return gan_gen_fwd_kernel<W, 8, SF, MF>;
   }
 }
 
-GenFwdKernel gen_fwd_wide_kernel_for(int m) {
+template <typename W>
+GenFwdKernel<W> gen_fwd_wide_kernel_for(int m) {
   switch (m) {
-    case 1: return gan_gen_fwd_wide_kernel<1>;
-    case 2: return gan_gen_fwd_wide_kernel<2>;
-    case 3: return gan_gen_fwd_wide_kernel<3>;
-    case 4: return gan_gen_fwd_wide_kernel<4>;
-    case 5: return gan_gen_fwd_wide_kernel<5>;
-    case 6: return gan_gen_fwd_wide_kernel<6>;
-    case 7: return gan_gen_fwd_wide_kernel<7>;
-    default: return gan_gen_fwd_wide_kernel<8>;
+    case 1: return gan_gen_fwd_wide_kernel<W, 1>;
+    case 2: return gan_gen_fwd_wide_kernel<W, 2>;
+    case 3: return gan_gen_fwd_wide_kernel<W, 3>;
+    case 4: return gan_gen_fwd_wide_kernel<W, 4>;
+    case 5: return gan_gen_fwd_wide_kernel<W, 5>;
+    case 6: return gan_gen_fwd_wide_kernel<W, 6>;
+    case 7: return gan_gen_fwd_wide_kernel<W, 7>;
+    default: return gan_gen_fwd_wide_kernel<W, 8>;
   }
+}
+
+// Launches the solve (float32 weights and noise, or bf16 in mixed mode):
+// the body of both entry points below.
+template <typename W>
+int launch_gen_fwd(const float* x0, const float* f0, const float* g0,
+                   const W* noise, const float* t1s, const float* dts,
+                   const W* const* w, float* ys, float* zs, float* gs, int B,
+                   int S, int M, int m, int N, int threads, int device,
+                   cudaStream_t stream) {
+  if (S < 1 || S > MAX_LANES || M < 1 || M > MAX_LANES || m < 1 ||
+      m > MAX_K || threads < 32 || threads > MAX_THREADS || threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B <= 0 || N <= 0) return 0;
+  GenArgs<W> a;
+  a.x0 = x0; a.f0 = f0; a.g0 = g0; a.noise = noise; a.t1s = t1s;
+  a.dts = dts;
+  for (int i = 0; i < 8; ++i) a.w[i] = w[i];
+  a.ys = ys; a.zs = zs; a.gs = gs;
+  a.B = B; a.S = S; a.M = M; a.m = m; a.N = N;
+  // The reference widths run an instantiation with them fixed.
+  const GenFwdKernel<W> kernel =
+      S == 16 && M == 16           ? gen_fwd_kernel_for<W, 16, 16>(m)
+      : bwd_group_width(S, M) == 16 ? gen_fwd_kernel_for<W>(m)
+                                    : gen_fwd_wide_kernel_for<W>(m);
+  const size_t smem = gen_fwd_smem_floats(S, M, m, threads / 32)
+                      * sizeof(float);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows_per_block = threads / 32;
+  kernel<<<(B + rows_per_block - 1) / rows_per_block, threads, smem,
+           stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -482,7 +537,8 @@ GenFwdKernel gen_fwd_wide_kernel_for(int m) {
 extern "C" {
 
 // Dynamic shared memory one block needs for these widths at `threads`
-// threads a block.
+// threads a block (the same for both entry points: the weights are staged
+// as float).
 size_t tsde_gan_gen_fwd_smem_bytes(int S, int M, int m, int threads) {
   return gen_fwd_smem_floats(S, M, m, threads / 32) * sizeof(float);
 }
@@ -499,33 +555,25 @@ int tsde_gan_gen_fwd(const float* x0, const float* f0, const float* g0,
                      const float* W2g, const float* b2g, float* ys, float* zs,
                      float* gs, int B, int S, int M, int m, int N, int threads,
                      int device, cudaStream_t stream) {
-  if (S < 1 || S > MAX_LANES || M < 1 || M > MAX_LANES || m < 1 ||
-      m > MAX_K || threads < 32 || threads > MAX_THREADS || threads % 32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 0 || N <= 0) return 0;
-  GenArgs a;
-  a.x0 = x0; a.f0 = f0; a.g0 = g0; a.noise = noise; a.t1s = t1s;
-  a.dts = dts;
   const float* w[8] = {W1f, b1f, W2f, b2f, W1g, b1g, W2g, b2g};
-  for (int i = 0; i < 8; ++i) a.w[i] = w[i];
-  a.ys = ys; a.zs = zs; a.gs = gs;
-  a.B = B; a.S = S; a.M = M; a.m = m; a.N = N;
-  // The reference widths run an instantiation with them fixed.
-  const GenFwdKernel kernel =
-      S == 16 && M == 16           ? gen_fwd_kernel_for<16, 16>(m)
-      : bwd_group_width(S, M) == 16 ? gen_fwd_kernel_for<>(m)
-                                    : gen_fwd_wide_kernel_for(m);
-  const size_t smem = tsde_gan_gen_fwd_smem_bytes(S, M, m, threads);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows_per_block = threads / 32;
-  kernel<<<(B + rows_per_block - 1) / rows_per_block, threads, smem,
-           stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_gen_fwd(x0, f0, g0, noise, t1s, dts, w, ys, zs, gs, B, S, M,
+                        m, N, threads, device, stream);
+}
+
+// bf16 mixed mode: the noise and the weights bf16, the rest as above (ys,
+// zs and gs float32).
+int tsde_gan_gen_fwd_bf16(
+    const float* x0, const float* f0, const float* g0,
+    const __nv_bfloat16* noise, const float* t1s, const float* dts,
+    const __nv_bfloat16* W1f, const __nv_bfloat16* b1f,
+    const __nv_bfloat16* W2f, const __nv_bfloat16* b2f,
+    const __nv_bfloat16* W1g, const __nv_bfloat16* b1g,
+    const __nv_bfloat16* W2g, const __nv_bfloat16* b2g, float* ys, float* zs,
+    float* gs, int B, int S, int M, int m, int N, int threads, int device,
+    cudaStream_t stream) {
+  const __nv_bfloat16* w[8] = {W1f, b1f, W2f, b2f, W1g, b1g, W2g, b2g};
+  return launch_gen_fwd(x0, f0, g0, noise, t1s, dts, w, ys, zs, gs, B, S, M,
+                        m, N, threads, device, stream);
 }
 
 }  // extern "C"

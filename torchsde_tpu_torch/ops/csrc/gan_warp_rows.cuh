@@ -1,5 +1,5 @@
 // A row's vectors through the warp's shared memory: the helpers that the
-// SDE-GAN kernels 5, 6, 7 and 8 (gan_gen_fwd.cu, gan_gen_bwd.cu,
+// SDE-GAN kernels 5, 6, 7 and 8 (gan_gen_fwd.cu, gan_gen_bwd.cuh,
 // gan_cde_fwd.cu, gan_cde_bwd.cu) share.
 //
 // A batch row is served by a group of lanes of one warp, lane l owning

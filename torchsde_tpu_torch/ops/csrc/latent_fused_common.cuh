@@ -6,17 +6,18 @@
 // streams (context, noise, the states zs, their cotangents gz, dnoise):
 // float, or __nv_bfloat16 for bf16 mixed mode (the JAX package's rule:
 // the state, the KL channel and every sum stay float32). In mixed mode each
-// product's inputs are rounded to bf16 (rnd<W>) and the product sums in
-// float32, as the JAX package's dots with preferred_element_type float32
-// do: a bf16 x bf16 product is exact in float32, so an FMA chain over
-// rounded operands is that dot up to the order of its sum. With W = float
-// every rounding is the identity and the kernels are the float32 ones.
+// product's inputs are rounded to bf16 (rnd<W>, mixed_dtype.cuh) and the
+// product sums in float32, as the JAX package's dots with
+// preferred_element_type float32 do. With W = float every rounding is the
+// identity and the kernels are the float32 ones.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "mixed_dtype.cuh"
 
 namespace tsde_latent {
 
@@ -60,34 +61,11 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// A value of a stream or weight as float (exact).
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// A float as a stream's element (rounded to nearest even in bf16).
-template <typename W>
-__device__ __forceinline__ W from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// A product's input: v rounded to W and widened back.
-template <typename W>
-__device__ __forceinline__ float rnd(float v) {
-  return to_f(from_f<W>(v));
-}
-
-// A weight read through the read-only cache; a bf16 one by a plain load
-// (the bf16 __ldg is an inline asm the compiler does not schedule around).
-__device__ __forceinline__ float ldw(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldw(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
+// The element helpers of mixed mode (mixed_dtype.cuh).
+using tsde_mixed::from_f;
+using tsde_mixed::ldw;
+using tsde_mixed::rnd;
+using tsde_mixed::to_f;
 
 // Copies count elements, widened to float, with a block of NT threads.
 template <int NT, typename W>

@@ -24,7 +24,7 @@ The initial evaluations ``f0, g0`` (and the critic's ``f0``) run as plain
 PyTorch outside the kernels, as the JAX package runs them in XLA.
 
 Each solve's gradient is one reverse sweep of a backward kernel
-(``csrc/gan_gen_bwd.cu``, ``csrc/gan_cde_bwd.cu``; a second, small kernel
+(``csrc/gan_gen_bwd.cuh``, ``csrc/gan_cde_bwd.cu``; a second, small kernel
 sums its weight-gradient partials), so GAN training runs on the card
 through four kernels. The sweep is the hand-derived reverse recurrence
 of the JAX package's module docstring. It carries the
@@ -48,12 +48,28 @@ plain versions (:func:`gen_solve_forward_plain`,
 operators); a CUDA tensor goes to the kernels, which raise rather than
 fall back. ``gen_launches``, ``cde_launches``, ``gen_bwd_launches`` and
 ``cde_bwd_launches`` count the kernels' launches.
+
+bf16 mixed mode (the JAX package's rule ``sdtype = float32 if wdtype ==
+bfloat16``): with bf16 weights the generator's noise is bf16 too (drawn in
+the weights' dtype, the stream a bf16 ``sdeint`` solve draws), while the
+states, f0, g0, the critic's slopes, t1s, dts, the outputs and every sum
+are float32. Each product's inputs are rounded to bf16 and it sums in
+float32 (the JAX package's ``_tower_fwd`` and ``_tower_bwd``); the biases,
+lipswish, tanh, the ``g . dW`` and ``F . slope`` contractions and the
+updates stay float32. Gradients come back in their inputs' dtypes: the
+weights' summed in float32 and rounded to bf16 once, dnoise each step's
+float32 value rounded once, the rest float32. The kernels take this set of
+dtypes in their ``_bf16`` instantiations (``tsde_gan_gen_fwd_bf16`` and
+the rest), counted apart by ``bf16_gen_launches``, ``bf16_cde_launches``,
+``bf16_gen_bwd_launches`` and ``bf16_cde_bwd_launches``; a set that mixes
+the two modes is refused.
 """
 
 import numpy as np
 import torch
 
 from . import _build
+from .latent_fused import _mixed, _mm, _rnd, _suffix, _up, state_dtype
 from ..core import integrate
 from ..core.sdeint import host_times
 from ..utils.misc import check_kernel_tensor
@@ -64,6 +80,11 @@ gen_launches = 0
 cde_launches = 0
 gen_bwd_launches = 0
 cde_bwd_launches = 0
+# The same for the kernels' bf16 mixed-mode instantiations.
+bf16_gen_launches = 0
+bf16_cde_launches = 0
+bf16_gen_bwd_launches = 0
+bf16_cde_bwd_launches = 0
 
 # Threads per block of both kernels. A row's work stays inside one warp
 # (a group of lanes per row), so this only sets how many rows a block
@@ -121,7 +142,7 @@ def gen_bwd_group(S, M):
 
 def gen_bwd_layout(S, M, m):
     """Kernel 6's shared memory, in floats, as ``gen_layout`` of
-    csrc/gan_gen_bwd.cu lays it out: the lane-major weight copies' strides
+    csrc/gan_gen_bwd.cuh lays it out: the lane-major weight copies' strides
     (``K1`` layer 1, ``K2`` layer 2, ``K3`` the drift's and the diffusion's
     hidden cotangents, ``K4`` dz), the block's part (``block``) and a row's
     slot (``row``)."""
@@ -193,9 +214,9 @@ def cde_weights(func):
 
 
 def lipswish_tower(x, W1, b1, W2, b2):
-    """Linear, lipswish (``0.909 x sigmoid(x)``), Linear, tanh."""
-    pre1 = x @ W1 + b1
-    return torch.tanh((0.909 * pre1 * torch.sigmoid(pre1)) @ W2 + b2)
+    """Linear, lipswish (``0.909 x sigmoid(x)``), Linear, tanh; with bf16
+    weights each product's input rounded to bf16 and summed in float32."""
+    return _tower_parts(x, W1, b1, W2, b2)[3]
 
 
 def time_column(t, x):
@@ -211,14 +232,15 @@ def gen_solve_forward_plain(x0, f0, g0, noise, t1s, dts, weights):
     x0, f0 (B,S); g0 (B,S*m) with ``g[b, i*m + j]`` the (i, j) entry;
     noise (N,B,m); t1s, dts (N,); weights in GEN_WEIGHT_NAMES order.
     Returns ys, zs (N,B,S) and gs (N,B,S*m): the state, the evaluation
-    point and the diffusion after each step."""
+    point and the diffusion after each step, in x0's dtype (float32 in
+    mixed mode, where the weights and the noise are bf16)."""
     wf, wg = weights[:4], weights[4:]
     B, S = x0.shape
     m = noise.shape[2]
     x, z, f, g = x0, x0, f0, g0
     ys, zs, gs = [], [], []
     for s in range(noise.shape[0]):
-        dt, dW = dts[s], noise[s]
+        dt, dW = dts[s], _up(noise[s])
         g0dW = torch.einsum("bsm,bm->bs", g.reshape(B, S, m), dW)
         z1 = 2.0 * x - z + dt * f + g0dW
         zin = time_column(t1s[s], z1)
@@ -257,21 +279,28 @@ def cde_solve_forward_plain(h0, f0, slopes, t1s, dts, weights):
 
 def _tower_parts(zin, W1, b1, W2, b2):
     """A tower's forward with what its backward needs: the hidden
-    pre-activation, its sigmoid, the hidden activation and the output."""
-    pre1 = zin @ W1 + b1
+    pre-activation, its sigmoid, the hidden activation and the output. In
+    mixed mode (the JAX package's ``_tower_fwd``) ``zin`` and the hidden
+    activation are rounded to bf16 as the products' inputs, the biases
+    widened, the rest float32."""
+    pre1 = _mm(zin, W1) + _up(b1)
     sig = torch.sigmoid(pre1)
     a1 = 0.909 * pre1 * sig
-    return pre1, sig, a1, torch.tanh(a1 @ W2 + b2)
+    return pre1, sig, a1, torch.tanh(_mm(a1, W2) + _up(b2))
 
 
 def _tower_backward(zin, parts, W1, W2, dout):
     """The cotangent of a tower's input ``[t, z]`` from that of its output,
-    and the gradients of its weights (W1, b1, W2, b2)."""
+    and the gradients of its weights (W1, b1, W2, b2) in the state dtype.
+    In mixed mode (the JAX package's ``_tower_bwd``) each product's inputs
+    are rounded to bf16 and the bias sums take the unrounded cotangents."""
+    cdt = W1.dtype
     pre1, sig, a1, out = parts
     dpre2 = dout * (1.0 - out * out)
-    dpre1 = (dpre2 @ W2.T) * (0.909 * (sig + pre1 * sig * (1.0 - sig)))
-    grads = (zin.T @ dpre1, dpre1.sum(0), a1.T @ dpre2, dpre2.sum(0))
-    return dpre1 @ W1.T, grads
+    dpre1 = _mm(dpre2, W2.T) * (0.909 * (sig + pre1 * sig * (1.0 - sig)))
+    grads = (_rnd(zin, cdt).T @ _rnd(dpre1, cdt), dpre1.sum(0),
+             _rnd(a1, cdt).T @ _rnd(dpre2, cdt), dpre2.sum(0))
+    return _mm(dpre1, W1.T), grads
 
 
 def gen_solve_backward_plain(x0, f0, g0, noise, t1s, dts, weights, zs, gs,
@@ -282,8 +311,9 @@ def gen_solve_backward_plain(x0, f0, g0, noise, t1s, dts, weights, zs, gs,
 
     Takes the forward's inputs, its zs (N,B,S) and gs (N,B,S*m), and the
     cotangent gy (N,B,S) of ys. Returns dx0, df0 (B,S), dg0 (B,S*m), dnoise
-    (N,B,m) and the weights' gradients in GEN_WEIGHT_NAMES order, summed in
-    the inputs' dtype."""
+    (N,B,m) and the weights' gradients in GEN_WEIGHT_NAMES order, each in
+    its input's dtype: the weights' summed in x0's dtype (float32 in mixed
+    mode) and rounded once, dnoise each step's value rounded once."""
     wf, wg = weights[:4], weights[4:]
     B, S = x0.shape
     N, _, m = noise.shape
@@ -291,9 +321,9 @@ def gen_solve_backward_plain(x0, f0, g0, noise, t1s, dts, weights, zs, gs,
     ay, az, af = (torch.zeros_like(x0) for _ in range(3))
     ag = x0.new_zeros((B, S, m))
     dnoise = torch.empty_like(noise)
-    dw = [torch.zeros_like(w) for w in weights]
+    dw = [torch.zeros_like(w, dtype=x0.dtype) for w in weights]
     for n in reversed(range(N)):
-        dt, dW = dts[n], noise[n][:, None, :]
+        dt, dW = dts[n], _up(noise[n])[:, None, :]
         ay = ay + gy[n]
         Af = af + 0.5 * dt * ay
         Ag = ag + 0.5 * ay[..., None] * dW
@@ -310,7 +340,8 @@ def gen_solve_backward_plain(x0, f0, g0, noise, t1s, dts, weights, zs, gs,
             "bs,bsm->bm", ay, g_n + g_next)
         ay, az, af, ag = (ay + 2.0 * Az, -Az, 0.5 * dt * ay + dt * Az,
                           (0.5 * ay + Az)[..., None] * dW)
-    return ay + az, af, ag.reshape(B, S * m), dnoise, tuple(dw)
+    return ay + az, af, ag.reshape(B, S * m), dnoise, tuple(
+        d.to(w.dtype) for d, w in zip(dw, weights))
 
 
 def cde_solve_backward_plain(h0, f0, slopes, t1s, dts, weights, zs, ghs):
@@ -319,13 +350,14 @@ def cde_solve_backward_plain(h0, f0, slopes, t1s, dts, weights, zs, ghs):
 
     Takes the forward's inputs, its zs (N,B,S) and the cotangent ghs
     (N,B,S) of hs. Returns dh0, df0 (B,S), dslopes (N,B,C) and the weights'
-    gradients in CDE_WEIGHT_NAMES order. The knot times get no gradient,
-    as in the JAX package."""
+    gradients in CDE_WEIGHT_NAMES order, summed in h0's dtype (float32 in
+    mixed mode) and rounded once to theirs. The knot times get no
+    gradient, as in the JAX package."""
     B, S = h0.shape
     C = slopes.shape[2]
     ay, az, af = (torch.zeros_like(h0) for _ in range(3))
     dslopes = torch.empty_like(slopes)
-    dw = [torch.zeros_like(w) for w in weights]
+    dw = [torch.zeros_like(w, dtype=h0.dtype) for w in weights]
     for n in reversed(range(slopes.shape[0])):
         dt = dts[n]
         ay = ay + ghs[n]
@@ -341,37 +373,49 @@ def cde_solve_backward_plain(h0, f0, slopes, t1s, dts, weights, zs, ghs):
             acc += d
         Az = az + dz[:, 1:]
         ay, az, af = ay + 2.0 * Az, -Az, 0.5 * dt * ay + dt * Az
-    return ay + az, af, dslopes, tuple(dw)
+    return ay + az, af, dslopes, tuple(d.to(w.dtype)
+                                       for d, w in zip(dw, weights))
 
 
-def _check_tower(names, weights, in_size, out_size, device):
+def _wdtype(weights):
+    """The dtype the kernels take for every weight (and the generator's
+    noise): bf16 where the first weight is bf16 (mixed mode), else
+    float32. Every other tensor is float32 in both."""
+    return torch.bfloat16 if _mixed(weights) else torch.float32
+
+
+def _check_tower(names, weights, in_size, out_size, dtype, device):
     W1 = weights[0]
     if W1.ndim != 2:
         raise ValueError(f"{names[0]} must be 2-D, got {tuple(W1.shape)}")
     M = W1.shape[1]
     shapes = ((in_size, M), (M,), (M, out_size), (out_size,))
     for name, w, shape in zip(names, weights, shapes):
-        check_kernel_tensor(name, w, shape, torch.float32, device)
+        check_kernel_tensor(name, w, shape, dtype, device)
     return M
 
 
 def check_gen_inputs(x0, f0, g0, noise, t1s, dts, weights):
-    """What the generator kernel takes: float32 contiguous tensors of
-    matching shapes, all on one device. Returns (B, S, M, m, N); raises
-    ValueError on anything else."""
+    """What the generator kernel takes: contiguous tensors of matching
+    shapes, all on one device, float32, or in mixed mode the eight weights
+    and the noise bf16 (the rest float32). Returns (B, S, M, m, N); raises
+    ValueError on anything else, a set mixing the two modes too."""
     if x0.ndim != 2 or noise.ndim != 3:
         raise ValueError("expected x0 (B,S) and noise (N,B,m)")
     if len(weights) != len(GEN_WEIGHT_NAMES):
         raise ValueError(f"expected {len(GEN_WEIGHT_NAMES)} weight tensors")
     B, S = x0.shape
     N, _, m = noise.shape
+    wdtype = _wdtype(weights)
     for name, t, shape in (("x0", x0, (B, S)), ("f0", f0, (B, S)),
                            ("g0", g0, (B, S * m)), ("noise", noise, (N, B, m)),
                            ("t1s", t1s, (N,)), ("dts", dts, (N,))):
-        check_kernel_tensor(name, t, shape, torch.float32, x0.device)
-    M = _check_tower(GEN_WEIGHT_NAMES[:4], weights[:4], 1 + S, S, x0.device)
+        dtype = wdtype if name == "noise" else torch.float32
+        check_kernel_tensor(name, t, shape, dtype, x0.device)
+    M = _check_tower(GEN_WEIGHT_NAMES[:4], weights[:4], 1 + S, S, wdtype,
+                     x0.device)
     Mg = _check_tower(GEN_WEIGHT_NAMES[4:], weights[4:], 1 + S, S * m,
-                      x0.device)
+                      wdtype, x0.device)
     if Mg != M:
         raise ValueError(f"the drift and diffusion towers have widths {M} "
                          f"and {Mg}; the kernel takes one width")
@@ -379,9 +423,10 @@ def check_gen_inputs(x0, f0, g0, noise, t1s, dts, weights):
 
 
 def check_cde_inputs(h0, f0, slopes, t1s, dts, weights):
-    """What the critic kernel takes: float32 contiguous tensors of matching
-    shapes, all on one device. Returns (B, S, M, C, N); raises ValueError on
-    anything else."""
+    """What the critic kernel takes: contiguous tensors of matching shapes,
+    all on one device, float32, or in mixed mode the four weights bf16 (the
+    rest float32). Returns (B, S, M, C, N); raises ValueError on anything
+    else, a set mixing the two modes too."""
     if h0.ndim != 2 or slopes.ndim != 3:
         raise ValueError("expected h0 (B,S) and slopes (N,B,C)")
     if len(weights) != len(CDE_WEIGHT_NAMES):
@@ -392,7 +437,8 @@ def check_cde_inputs(h0, f0, slopes, t1s, dts, weights):
                            ("slopes", slopes, (N, B, C)), ("t1s", t1s, (N,)),
                            ("dts", dts, (N,))):
         check_kernel_tensor(name, t, shape, torch.float32, h0.device)
-    M = _check_tower(CDE_WEIGHT_NAMES, weights, 1 + S, S * C, h0.device)
+    M = _check_tower(CDE_WEIGHT_NAMES, weights, 1 + S, S * C,
+                     _wdtype(weights), h0.device)
     return B, S, M, C, N
 
 
@@ -436,12 +482,21 @@ def check_widths(S, M, channels, threads=THREADS):
                          f"[32, 256], got {threads}")
 
 
+def _entry(lib, name, weights):
+    """The C entry point of kernel ``name`` for the weights' dtype: its
+    ``_bf16`` instantiation in mixed mode. The input checks have held every
+    tensor to that entry's dtypes, so neither entry ever receives the
+    other's pointers."""
+    return getattr(lib, f"tsde_gan_{name}{_suffix(weights)}")
+
+
 def gen_solve_forward_cuda(x0, f0, g0, noise, t1s, dts, weights,
                            threads=THREADS):
-    """Launch the generator kernel on the current stream; returns what
+    """Launch the generator kernel (its bf16 instantiation for bf16
+    weights) on the current stream; returns what
     :func:`gen_solve_forward_plain` returns. Raises on tensors it does not
     take, on a failed build and on a refused launch."""
-    global gen_launches
+    global gen_launches, bf16_gen_launches
     if not x0.is_cuda:
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
                          f"{x0.device}")
@@ -456,19 +511,23 @@ def gen_solve_forward_cuda(x0, f0, g0, noise, t1s, dts, weights,
     ptrs = [t.data_ptr() for t in (x0, f0, g0, noise, t1s, dts, *weights,
                                    ys, zs, gs)]
     stream = torch.cuda.current_stream(x0.device).cuda_stream
-    rc = lib.tsde_gan_gen_fwd(*ptrs, B, S, M, m, N, threads,
-                              x0.device.index or 0, stream)
+    rc = _entry(lib, "gen_fwd", weights)(*ptrs, B, S, M, m, N, threads,
+                                          x0.device.index or 0, stream)
     _build.check_launch(lib, rc, "gan_gen_fwd")
-    gen_launches += 1
+    if _mixed(weights):
+        bf16_gen_launches += 1
+    else:
+        gen_launches += 1
     return ys, zs, gs
 
 
 def cde_solve_forward_cuda(h0, f0, slopes, t1s, dts, weights,
                            threads=THREADS):
-    """Launch the critic kernel on the current stream; returns what
-    :func:`cde_solve_forward_plain` returns. Raises on tensors it does not
-    take, on a failed build and on a refused launch."""
-    global cde_launches
+    """Launch the critic kernel (its bf16 instantiation for bf16 weights)
+    on the current stream; returns what :func:`cde_solve_forward_plain`
+    returns. Raises on tensors it does not take, on a failed build and on a
+    refused launch."""
+    global cde_launches, bf16_cde_launches
     if not h0.is_cuda:
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
                          f"{h0.device}")
@@ -481,17 +540,20 @@ def cde_solve_forward_cuda(h0, f0, slopes, t1s, dts, weights,
     ptrs = [t.data_ptr() for t in (h0, f0, slopes, t1s, dts, *weights,
                                    hs, zs)]
     stream = torch.cuda.current_stream(h0.device).cuda_stream
-    rc = lib.tsde_gan_cde_fwd(*ptrs, B, S, M, C, N, threads,
-                              h0.device.index or 0, stream)
+    rc = _entry(lib, "cde_fwd", weights)(*ptrs, B, S, M, C, N, threads,
+                                          h0.device.index or 0, stream)
     _build.check_launch(lib, rc, "gan_cde_fwd")
-    cde_launches += 1
+    if _mixed(weights):
+        bf16_cde_launches += 1
+    else:
+        cde_launches += 1
     return hs, zs
 
 
 def _weight_grads(lib, B, S, M, weights, device):
     """The backward kernels' weight-gradient buffers: one float32 partial
-    per warp of the sweep, and the flat output the second kernel sums them
-    into (the weights' gradients back to back)."""
+    per warp of the sweep, and the flat float32 output the second kernel
+    sums them into (the weights' gradients back to back)."""
     sizes = [w.numel() for w in weights]
     partials = torch.empty((lib.tsde_gan_bwd_partials(B, S, M), sum(sizes)),
                            dtype=torch.float32, device=device)
@@ -499,13 +561,21 @@ def _weight_grads(lib, B, S, M, weights, device):
                                         device=device)
 
 
+def _split_grads(dw, sizes, weights):
+    """The flat float32 weight gradients as the weights' shapes, each
+    rounded once to its weight's dtype (bf16 in mixed mode)."""
+    return tuple(d.view_as(w).to(w.dtype)
+                 for d, w in zip(dw.split(sizes), weights))
+
+
 def gen_solve_backward_cuda(x0, f0, g0, noise, t1s, dts, weights, zs, gs, gy,
                             threads=THREADS):
     """Launch the generator's backward kernel (the reverse sweep, then the
-    sum of its per-warp weight-gradient partials) on the current stream;
-    returns what :func:`gen_solve_backward_plain` returns. Raises on tensors
-    it does not take, on a failed build and on a refused launch."""
-    global gen_bwd_launches
+    sum of its per-warp weight-gradient partials; its bf16 instantiation
+    for bf16 weights) on the current stream; returns what
+    :func:`gen_solve_backward_plain` returns. Raises on tensors it does not
+    take, on a failed build and on a refused launch."""
+    global gen_bwd_launches, bf16_gen_bwd_launches
     if not x0.is_cuda:
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
                          f"{x0.device}")
@@ -521,21 +591,24 @@ def gen_solve_backward_cuda(x0, f0, g0, noise, t1s, dts, weights, zs, gs, gy,
     ptrs = [t.data_ptr() for t in (g0, noise, t1s, dts, *weights, zs, gs, gy,
                                    dx0, df0, dg0, dnoise, partials, dw)]
     stream = torch.cuda.current_stream(x0.device).cuda_stream
-    rc = lib.tsde_gan_gen_bwd(*ptrs, B, S, M, m, N, threads,
-                              x0.device.index or 0, stream)
+    rc = _entry(lib, "gen_bwd", weights)(*ptrs, B, S, M, m, N, threads,
+                                          x0.device.index or 0, stream)
     _build.check_launch(lib, rc, "gan_gen_bwd")
-    gen_bwd_launches += 1
-    dweights = tuple(d.view_as(w) for d, w in zip(dw.split(sizes), weights))
-    return dx0, df0, dg0, dnoise, dweights
+    if _mixed(weights):
+        bf16_gen_bwd_launches += 1
+    else:
+        gen_bwd_launches += 1
+    return dx0, df0, dg0, dnoise, _split_grads(dw, sizes, weights)
 
 
 def cde_solve_backward_cuda(h0, f0, slopes, t1s, dts, weights, zs, ghs,
                             threads=THREADS):
     """Launch the critic's backward kernel (the reverse sweep, then the sum
-    of its per-warp weight-gradient partials) on the current stream;
-    returns what :func:`cde_solve_backward_plain` returns. Raises on tensors
-    it does not take, on a failed build and on a refused launch."""
-    global cde_bwd_launches
+    of its per-warp weight-gradient partials; its bf16 instantiation for
+    bf16 weights) on the current stream; returns what
+    :func:`cde_solve_backward_plain` returns. Raises on tensors it does not
+    take, on a failed build and on a refused launch."""
+    global cde_bwd_launches, bf16_cde_bwd_launches
     if not h0.is_cuda:
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
                          f"{h0.device}")
@@ -550,12 +623,14 @@ def cde_solve_backward_cuda(h0, f0, slopes, t1s, dts, weights, zs, ghs,
     ptrs = [t.data_ptr() for t in (slopes, t1s, dts, *weights, zs, ghs, dh0,
                                    df0, dslopes, partials, dw)]
     stream = torch.cuda.current_stream(h0.device).cuda_stream
-    rc = lib.tsde_gan_cde_bwd(*ptrs, B, S, M, C, N, threads,
-                              h0.device.index or 0, stream)
+    rc = _entry(lib, "cde_bwd", weights)(*ptrs, B, S, M, C, N, threads,
+                                          h0.device.index or 0, stream)
     _build.check_launch(lib, rc, "gan_cde_bwd")
-    cde_bwd_launches += 1
-    dweights = tuple(d.view_as(w) for d, w in zip(dw.split(sizes), weights))
-    return dh0, df0, dslopes, dweights
+    if _mixed(weights):
+        bf16_cde_bwd_launches += 1
+    else:
+        cde_bwd_launches += 1
+    return dh0, df0, dslopes, _split_grads(dw, sizes, weights)
 
 
 def _route(device, plain, cuda):
@@ -661,12 +736,16 @@ def _grid_times(grid, dtype, device):
 def prep_generator_solve(func, x0, ts, generator, dt):
     """The generator kernel's inputs for a solve of the GeneratorFunc
     ``func`` from ``x0`` over ``ts``: ``(x0, f0, g0, noise, t1s, dts)``,
-    with the noise drawn from ``generator`` as the ``sdeint`` route draws
-    it and ``f0, g0`` evaluated in plain PyTorch."""
+    x0 cast (differentiably) to the state dtype (:func:`state_dtype`) and
+    ``f0, g0`` evaluated at it in plain PyTorch, the noise drawn from
+    ``generator`` in the weights' dtype, as a ``sdeint`` solve of the
+    model draws it (the JAX package's ``generator_solve_fused``)."""
     B, S = x0.shape
     m = func.noise_size
+    wdtype = func.drift.layers[0].w.dtype
+    x0 = x0.to(state_dtype(wdtype))
     ts_np, grid = _step_grid(ts, dt, "generator")
-    W, _, _ = integrate.sample_grid_noise(generator, grid, (B, m), x0.dtype,
+    W, _, _ = integrate.sample_grid_noise(generator, grid, (B, m), wdtype,
                                           x0.device)
     f0, g0 = func.f_and_g(torch.as_tensor(ts_np[0], dtype=x0.dtype,
                                           device=x0.device), x0)
@@ -679,17 +758,21 @@ def generator_solve_fused(func, x0, ts, generator, dt):
     """Fused replacement for the Generator's
     ``sdeint(func, x0, ts, method='reversible_heun', dt=dt,
     generator=generator)``: the same noise draw and the same reversible-Heun
-    algebra, states on ``ts`` (T,B,S)."""
+    algebra, states on ``ts`` (T,B,S) in the state dtype (float32 for bf16
+    weights)."""
     args = prep_generator_solve(func, x0, ts, generator, dt)
     ys, _, _ = gen_solve_forward(*args, gen_weights(func))
-    return torch.cat([x0[None], ys], dim=0)
+    return torch.cat([args[0][None], ys], dim=0)
 
 
 def prep_cde_solve(func, h0, ts, dt):
     """The critic kernel's inputs for a solve of the CDEFunc ``func`` (its
-    path attached) from ``h0`` over ``ts``: ``(h0, f0, slopes, t1s, dts)``.
-    The path's knot times must coincide with ``ts``; they are constants, so
-    gradients (on the CPU) reach the knot values, not the knot times."""
+    path attached) from ``h0`` over ``ts``: ``(h0, f0, slopes, t1s, dts)``,
+    h0 and the path cast (differentiably) to the state dtype
+    (:func:`state_dtype`: float32 for bf16 weights, whose slopes are then
+    float32). The path's knot times must coincide with ``ts``; they are
+    constants, so gradients reach the knot values, not the knot times."""
+    h0 = h0.to(state_dtype(func.func.layers[0].w.dtype))
     ts_np, grid = _step_grid(ts, dt, "CDE")
     path_ts = host_times(func._path_ts)
     if len(path_ts) != len(ts_np) or not np.allclose(path_ts, ts_np,
@@ -700,7 +783,7 @@ def prep_cde_solve(func, h0, ts, dt):
     N = T - 1
     # The slope at each step's end point t_k: the CDE's _x_dot uses the knot
     # interval searchsorted(ts, t_k, 'right') - 1, clipped to T-2.
-    path = func._path_ys                                     # (B, T, C)
+    path = func._path_ys.to(h0.dtype)                        # (B, T, C)
     knot_dts = torch.as_tensor(np.diff(ts_np), dtype=h0.dtype,
                                device=h0.device)
     slopes = (path[:, 1:] - path[:, :-1]) / knot_dts[None, :, None]

@@ -158,7 +158,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     ExDiagonal): against its plain version and a float64 run, its strong
     error against the exact solution on the same W, once against
     ``sdeint(method="srk")``, median times and the bytes bound; one solve
-    at full width counted as the path;
+    at full width counted as the path; then in bf16, on the same inputs
+    rounded: bitwise its bf16 plain version, its roundings shown present
+    against a float32 stand-in, its distance from float64 printed, against
+    ``sdeint(method="srk")`` in bf16 at (1024, 8), median times and the
+    bf16 bound, and one bf16 solve at full width counted as the path;
 24. kernel 16: against its plain version at (128, 1024, 9) and (128, 16384,
     128), the moments and a KS test of 2^20 draws, determinism, median
     times beside ``torch.randn``'s (another stream) and the bound, and one
@@ -309,12 +313,14 @@ and 4 whole and their sweep alone at 128, 256 and 512 threads and at 16
 rows a block, the blocks the sweep's was chosen over, kernels 1 and 3
 at 256 and 512 threads and 8 and 16 rows a block, and kernels 6, 7 and 8
 at 1, 2, 4 and 8 warps a block; ``--only ab`` (phase_ab) times kernels
-1-14 (6 and 7 also at the GPU tests' shapes) through entry points every
+1-15 (6 and 7 also at the GPU tests' shapes; 15 in float32 and float64) through entry points every
 version of the port has and compares their outputs with another run's, so
 that a copy of this script in the parent commit's checkout times the
 parent in the same call; ``--only steps`` (phase_steps), which builds
 nothing, profiles the SDE-GAN train step on the ``sdeint`` route the same
-way. It imports nothing of JAX.
+way; ``--only srk_rounding`` (phase_srk_rounding) times bf16 kernel 15
+with its rounding on the converter, in integer arithmetic and removed,
+and counts the opcodes of each one's SASS. It imports nothing of JAX.
 """
 
 import argparse
@@ -532,6 +538,23 @@ SRK_REL = 2e-5
 # Operations of one element and step of the kernel, counted from
 # srk_srid2.cuh with f = p0 * y and g = p1 * y (each multiply and add one).
 SRID2_FLOPS = 114
+# Kernel 15 in bf16 (phase_srk_bf16_kernel) against its bf16 plain version
+# on the card, on the float32 phase's W, U and parameters rounded to bf16:
+# bitwise, every element at every configuration (both do each operation in
+# float32 and round it to bf16, the kernel with __fadd_rn and its kind,
+# which nvcc does not contract, PyTorch one operation a kernel; the
+# kernel's arithmetic compiled for the host matched the CPU plain version
+# bit for bit). Its distance from float64 is printed and not held: an
+# all-bf16 srid2 solve loses every increment under half an ulp.
+SRK_BF16_DIFFERING = 0
+# Against sdeint(method='srk') in bf16 on the same tables, at (1024, 8):
+# the two round differently (sdeint divides by its bf16 sqrt(dt) and forms
+# dt as a difference of bf16 grid times), in the JAX package as in the
+# port. JAX's own srk_solve_xla and sdeint at (1024, 8), 128 steps, bf16,
+# on six numpy seeds of this law came 0.0197-0.0646 of scale apart (about
+# 10 % of elements differing; CPU), so twice the largest (tests/
+# test_torch_srk_bf16.py::test_chip_sdeint_bar_is_twice_jax_own_gap).
+SRK_BF16_SDEINT_REL = 0.13
 # Kernel 16 against its plain version, every element (both float32 Box-
 # Muller on the same bits; logf and cosf differ from PyTorch's CPU and CUDA
 # versions by an ulp or two, times r <= 5.9); the shapes (steps, batch, d)
@@ -4189,6 +4212,220 @@ def phase_srk_kernel(device):
     return launches, wide
 
 
+
+def phase_srk_bf16_kernel(device):
+    """Kernel 15 in bf16 at the four configurations, on the float32 phase's
+    inputs rounded to bf16: bitwise its bf16 plain version; its roundings
+    shown present (no nearer the rounded float32 solve than BF16_FLOOR of
+    the plain version's distance, which the float32 kernel with only its
+    result rounded misses); its distance from float64 printed; at (1024,
+    8) against sdeint(method='srk') in bf16; median times and the bf16
+    bound; then one bf16 solve at full width counted as the main path."""
+    dt = 1.0 / SRK_STEPS
+    records = {}
+    with torch.no_grad():
+        for B, d in SRK_CONFIGS:
+            y0, W, U, params, _ = srk_problem(device, B, d)
+            y0, W, U = (t.to(BF16) for t in (y0, W, U))
+            params = tuple(p.to(BF16) for p in params)
+            args = (SRK_F, SRK_G, y0, 0.0, dt, SRK_STEPS, W, U, params)
+            got = SF.srk_solve_cuda(*args)
+            want = SF.srk_solve_plain(*args)
+            wide = (y0.float(), 0.0, dt, SRK_STEPS, W.float(), U.float(),
+                    tuple(p.float() for p in params))
+            ref = SF.srk_solve_plain(SRK_F, SRK_G, *wide)
+            stand_in = SF.srk_solve_cuda(SRK_F, SRK_G, *wide).to(BF16)
+            exact = SF.srk_solve_plain(
+                SRK_F, SRK_G, y0.double(), 0.0, dt, SRK_STEPS,
+                W.double(), U.double(), tuple(p.double() for p in params))
+            torch.cuda.synchronize()
+            if got.dtype != BF16 or got.shape != (B, d) \
+                    or not torch.isfinite(got.float()).all():
+                raise RuntimeError(f"kernel 15 bf16 ({B}, {d}): "
+                                   f"{got.dtype} {tuple(got.shape)} or "
+                                   f"non-finite")
+            differ = int((got != want).sum())
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            share = rounding_share([got], [ref], [BF16])
+            plain = rounding_share([want], [ref], [BF16])
+            stand = rounding_share([stand_in], [ref], [BF16])
+            err64 = float((got.double() - exact).abs().max())
+            print(f"kernel 15 bf16 ({B}, {d}): {differ} of {got.numel()} "
+                  f"elements differ from the bf16 plain version (max abs "
+                  f"{err:.3e}, max|plain| {scale:.4g}); RMS distance from "
+                  f"the rounded float32 solve over scale {share:.4e}, plain "
+                  f"{plain:.4e}, float32 kernel rounded at the end "
+                  f"{stand:.4e}; from float64 {err64:.3e} "
+                  f"({err64 / scale:.2e} of scale, not held)", flush=True)
+            if differ > SRK_BF16_DIFFERING:
+                raise RuntimeError(f"kernel 15 bf16 ({B}, {d}): {differ} "
+                                   f"elements differ from its plain version")
+            if not share >= BF16_FLOOR * plain:
+                raise RuntimeError(f"kernel 15 bf16 ({B}, {d}): {share:.3e} "
+                                   f"from the rounded float32 solve, under "
+                                   f"{BF16_FLOOR} of the plain version's "
+                                   f"{plain:.3e}")
+            if not stand < BF16_FLOOR * plain:
+                raise RuntimeError(f"kernel 15 bf16 ({B}, {d}): the float32 "
+                                   f"stand-in passes the floor ({stand:.3e} "
+                                   f">= {BF16_FLOOR} * {plain:.3e})")
+            if (B, d) == SRK_CONFIGS[0]:
+                ys = sdeint(srk_sde(params), y0, [0.0, 1.0],
+                            bm=GridTable(W, U), method="srk", dt=dt)
+                gap = float((ys[-1].float() - got.float()).abs().max())
+                print(f"kernel 15 bf16 ({B}, {d}) vs sdeint(method='srk') "
+                      f"in bf16 on the same W, U: max abs diff {gap:.3e} "
+                      f"({gap / scale:.3e} of scale, "
+                      f"{float((ys[-1] != got).float().mean()):.3f} of "
+                      f"elements differ)", flush=True)
+                if gap > SRK_BF16_SDEINT_REL * scale:
+                    raise RuntimeError(f"kernel 15 bf16 and sdeint(method="
+                                       f"'srk') differ by {gap:.3e} > "
+                                       f"{SRK_BF16_SDEINT_REL} * {scale:.4g}")
+            ms = median_cuda_ms(lambda: SF.srk_solve_cuda(*args), 20)
+            plain_ms = median_cuda_ms(lambda: SF.srk_solve_plain(*args), 3,
+                                      warmup=1)
+            bounds = bf16_bound(SRID2_FLOPS * B * d * SRK_STEPS,
+                                [y0, W, U, *params, got])
+            print(f"kernel 15 bf16 ({B}, {d}): median {ms:.4f} ms; plain: "
+                  f"median {plain_ms:.4f} ms; bound {bounds['bound_ms']:.4f} "
+                  f"ms ({bounds['bound_by']}; its operations at the float32 "
+                  f"rate {bounds['fma_bound_ms']:.4f} ms)", flush=True)
+            records[(B, d)] = dict(max_abs_err=err, elements_differing=differ,
+                                   rounding_ratio=share / plain, ms=ms,
+                                   plain_ms=plain_ms, f64_abs_err=err64,
+                                   **bounds)
+            del got, want, ref, stand_in, exact, W, U
+        # The path: one bf16 solve at full width.
+        y0, W, U, params, _ = srk_problem(device, *SRK_CONFIGS[-1])
+        y0, W, U = (t.to(BF16) for t in (y0, W, U))
+        params = tuple(p.to(BF16) for p in params)
+        SF.bf16_launches = 0
+        out = SF.srk_solve_fused(SRK_F, SRK_G, y0, 0.0, dt, SRK_STEPS,
+                                 W, U, params)
+        torch.cuda.synchronize()
+        launches = SF.bf16_launches
+        if launches != 1 or out.dtype != BF16 \
+                or not torch.isfinite(out.float()).all():
+            raise RuntimeError(f"srk_solve_fused launched kernel 15 in bf16 "
+                               f"{launches} times or gave {out.dtype} or "
+                               f"non-finite values")
+    wide = dict(records[SRK_CONFIGS[-1]])
+    for key in ("ms", "bound_ms", "plain_ms"):
+        wide[f"{key}_by_config"] = {f"{B}x{d}": r[key] for (B, d), r in
+                                    records.items()}
+    return launches, wide
+
+
+# Bf16::round of csrc/srk_srid2.cuh as phase_srk_rounding rebuilds it: on
+# the converter (the header's), in integer arithmetic, and not at all.
+SRK_ROUNDINGS = {
+    "cvt": None,
+    "integer": "return exact(round_bf16_bits(x));",
+    "none": "return exact(x);"}
+SRK_ROUND_BODY = "return exact(__bfloat162float(__float2bfloat16_rn(x)));"
+SASS_OPS = ("F2FP", "F2F", "FADD", "FMUL", "FFMA", "IADD3", "LOP3", "SHF",
+            "PRMT", "IMAD")
+
+
+def sass_counts(lib_path, marker="Bf16"):
+    """Opcode counts in the SASS of the one function of ``lib_path`` whose
+    name holds ``marker`` (cuobjdump beside nvcc), or None without it."""
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True).stdout
+    counts, inside = {op: 0 for op in SASS_OPS}, False
+    counts["total"] = 0
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = marker in line
+        elif inside and line.strip().startswith("/*") and "*/" in line:
+            words = line.split("*/", 1)[1].split()
+            if not words or words[0].startswith("/*"):
+                continue
+            op = words[1] if words[0].startswith("@") else words[0]
+            op = op.rstrip(";").split(".")[0]
+            counts["total"] += 1
+            if op in counts:
+                counts[op] += 1
+    return counts
+
+
+def phase_srk_rounding(device):
+    """Measurement only (``--only srk_rounding``): what binds bf16 kernel
+    15. Builds phase 23's generated source against copies of
+    csrc/srk_srid2.cuh whose Bf16::round rounds in integer arithmetic or
+    not at all, holds the integer one bitwise to the header's, times each
+    at the widest SRK configuration, and counts the opcodes of each bf16
+    kernel's SASS."""
+    B, d = SRK_CONFIGS[-1]
+    dt = 1.0 / SRK_STEPS
+    y0, W, U, params, _ = srk_problem(device, B, d)
+    y0, W, U = (t.to(BF16) for t in (y0, W, U))
+    params = tuple(p.to(BF16) for p in params)
+    prm = torch.stack(params)
+    text = SF.srk_source(SRK_F.cuda_expr, SRK_G.cuda_expr, len(params))
+    header = (Path(SF.__file__).parent / "csrc" / "srk_srid2.cuh"
+              ).read_text()
+    if SRK_ROUND_BODY not in header:
+        raise RuntimeError("Bf16::round is not the one phase_srk_rounding "
+                           "rewrites")
+    root = Path(__file__).resolve().parent / "build" / "srk_rounding"
+    out, records = {}, {}
+    with torch.no_grad():
+        for name, body in SRK_ROUNDINGS.items():
+            if body is None:
+                SF.srk_solve_cuda(SRK_F, SRK_G, y0, 0.0, dt, 1, W[:1], U[:1],
+                                  params)
+                lib_path = _build.source_library_path("tsde_srk_srid2", text)
+            else:
+                folder = root / name
+                folder.mkdir(parents=True, exist_ok=True)
+                (folder / "srk_srid2.cuh").write_text(
+                    header.replace(SRK_ROUND_BODY, body))
+                (folder / "solve.cu").write_text(text)
+                lib_path = folder / "libsolve.so"
+                proc = subprocess.run(
+                    [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+                     str(folder), "-o", str(lib_path), str(folder / "solve.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"srk rounding {name}: nvcc failed\n"
+                                       f"{proc.stdout}")
+            fn = ctypes.CDLL(str(lib_path)).tsde_srk_srid2_bf16
+            P = ctypes.c_void_p
+            fn.argtypes = [P] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_double,
+                                     ctypes.c_double, ctypes.c_int, P]
+            res = torch.empty_like(y0)
+
+            def run(fn=fn, res=res):
+                rc = fn(y0.data_ptr(), W.data_ptr(), U.data_ptr(),
+                        prm.data_ptr(), res.data_ptr(), B * d, d, SRK_STEPS,
+                        0.0, dt, device.index or 0,
+                        torch.cuda.current_stream(device).cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"srk rounding {name}: launch {rc}")
+
+            run()
+            torch.cuda.synchronize()
+            out[name] = res.clone()
+            records[name] = dict(ms=median_cuda_ms(run, 20),
+                                 sass=sass_counts(lib_path))
+    records["integer"]["bitwise"] = bool(torch.equal(out["integer"],
+                                                     out["cvt"]))
+    records["none"]["max_abs_diff"] = float(
+        (out["none"].float() - out["cvt"].float()).abs().max())
+    if not records["integer"]["bitwise"]:
+        raise RuntimeError("integer rounding differs from the converter's")
+    print(json.dumps({"srk_rounding": records}), flush=True)
+    return records
+
+
 def phase_prng_kernel(device):
     """Kernel 16 against its plain version at PRNG_SHAPES, the law of 2^20
     draws (moments and a KS test against N(0, 1)), determinism, median
@@ -4790,8 +5027,9 @@ def phase_ab(device, tag, against):
     AB_CDE_SHAPES), 9 (at E1, on general noise with time
     and at the narrow solve), 10 (at E1), 11 (at R1 and on general noise
     with time), 12 (at R1), 13 (at L1, L2 and the small signed solve) and 14
-    (at L1) through the entry points that every version of the port has,
-    on the inputs of phases 3, 4, 8, 11, 14, 18 and 21, and keeps their
+    (at L1) and 15 (float32 and float64 at SRK_CONFIGS) through the entry
+    points that every version of the port has, on the inputs of phases 3,
+    4, 8, 11, 14, 18, 21 and 23, and keeps their
     outputs in
     build/ab_<tag>.pt. With ``against``, the outputs of the run tagged so
     are compared with this run's: bitwise, or the largest difference. Run
@@ -4947,6 +5185,18 @@ def phase_ab(device, tag, against):
                 times["kernel14"] = median_cuda_ms(
                     lambda: FS.euler_logqp_solve_backward_cuda(*b_l), 10)
                 del b_l, ys, gy, ginc
+        # Kernel 15 in float32 and float64 at the SRK configurations.
+        for B, d in SRK_CONFIGS:
+            for dtype, name in ((torch.float32, "f32"),
+                                (torch.float64, "f64")):
+                y0, W, U, params, _ = srk_problem(device, B, d, dtype)
+                s_args = (SRK_F, SRK_G, y0, 0.0, 1.0 / SRK_STEPS, SRK_STEPS,
+                          W, U, params)
+                key = f"kernel15_{name}_{B}x{d}"
+                out[key] = [SF.srk_solve_cuda(*s_args)]
+                times[key] = median_cuda_ms(
+                    lambda: SF.srk_solve_cuda(*s_args), 10)
+                del s_args, W, U
     torch.cuda.synchronize()
     print(f"ab {tag} (ms): " + json.dumps(times), flush=True)
     path = Path(__file__).resolve().parent / "build"
@@ -6805,7 +7055,7 @@ GROUPS = ("latent", "gan", "tower", "logqp", "multi", "bf16", "srk",
           "prng", "brownian", "adjoint", "adaptive", "traced_ts", "ddpm",
           "examples", "diagnostics", "mesh")
 # Run only when asked for by --only.
-EXTRA_GROUPS = ("tiles", "ab", "steps")
+EXTRA_GROUPS = ("tiles", "ab", "steps", "srk_rounding")
 # Groups that launch no kernel of the port's own: they run without a build.
 UNBUILT_GROUPS = ("steps", "adaptive", "traced_ts", "ddpm", "diagnostics")
 
@@ -6990,10 +7240,14 @@ def main():
     if "srk" in groups:
         start("srk")
         srk_launches, kernel15 = phase_srk_kernel(device)
-        records.append(dict(
-            name="srk_srid2", route="cuda", source=f"{csrc}/srk_srid2.cuh",
-            replaces="torchsde_tpu/ops/srk_fused.py:80",
-            launches=srk_launches, library_ms=None, **kernel15))
+        srk16_launches, kernel15_bf16 = phase_srk_bf16_kernel(device)
+        for name, launched, kernel in (
+                ("srk_srid2", srk_launches, kernel15),
+                ("srk_srid2_bf16", srk16_launches, kernel15_bf16)):
+            records.append(dict(
+                name=name, route="cuda", source=f"{csrc}/srk_srid2.cuh",
+                replaces="torchsde_tpu/ops/srk_fused.py:80",
+                launches=launched, library_ms=None, **kernel))
     if "prng" in groups:
         start("prng")
         prng_launches, kernel16 = phase_prng_kernel(device)
@@ -7042,6 +7296,9 @@ def main():
     if "steps" in groups:
         start("steps")
         phase_steps(device)
+    if "srk_rounding" in groups:
+        start("srk_rounding")
+        phase_srk_rounding(device)
     if "mesh" in groups:
         start("mesh")
         mesh_launches = phase_mesh(device, card)

@@ -412,7 +412,6 @@ def test_ddpm_load_ckpt_writes_null_losses_in_strict_json(tmp_path):
 
 
 def test_ddpm_sweep_winner_is_scored_on_a_fresh_stream(monkeypatch):
-    pytest.importorskip("sklearn")
     used = []
     real_stream = _evidence.stream
 
@@ -428,11 +427,27 @@ def test_ddpm_sweep_winner_is_scored_on_a_fresh_stream(monkeypatch):
     assert sampled == [(900,), (900,), (903,)]
 
 
-def test_ddpm_digits_without_scikit_learn_exits(monkeypatch):
+def test_ddpm_digits_runs_without_scikit_learn(monkeypatch):
+    """The digits are read from the committed copy of scikit-learn's file:
+    the example runs with scikit-learn blocked."""
     monkeypatch.setitem(sys.modules, "sklearn", None)
     monkeypatch.setitem(sys.modules, "sklearn.datasets", None)
-    with pytest.raises(SystemExit, match="scikit-learn"):
-        cont_ddpm.main(["--dataset", "digits", "--cpu"])
+    out = cont_ddpm.main(["--dataset", "digits", "--steps", "1", "--batch",
+                          "4", "--size", "8", "--base-ch", "8",
+                          "--eval-samples", "6", "--cpu"])
+    assert out["acceptance"]["workload"] == "cont_ddpm_digits"
+
+
+def test_digits_file_parses_as_load_digits():
+    """read_digits gives load_digits()'s images and targets bit for bit
+    (where scikit-learn imports)."""
+    datasets = pytest.importorskip("sklearn.datasets")
+    want = datasets.load_digits()
+    images, target = cont_ddpm.read_digits()
+    assert images.dtype == want.images.dtype and images.shape == (1797, 8, 8)
+    np.testing.assert_array_equal(images, want.images)
+    assert target.dtype == want.target.dtype
+    np.testing.assert_array_equal(target, want.target)
 
 
 def test_records_reject_nan_and_head_with_the_device(tmp_path):

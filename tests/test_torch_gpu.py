@@ -1400,23 +1400,27 @@ def _srk_case(device, B, d, n, dtype, seed=0):
 
 @pytest.mark.parametrize("B,d,n", [(1, 1, 1), (37, 5, 9), (300, 3, 64),
                                    (2048, 16, 16)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
 def test_srk_kernel_matches_plain(cuda, B, d, n, dtype):
     """Kernel 15 against its plain version, with a drift that reads t and a
     parameter-free diffusion too: 2e-5 of scale in float32, 1e-12 in
-    float64."""
+    float64, bitwise in bfloat16 (both round every operation's float32
+    result, and the drift's 0.1 is rounded as the kernel's T(0.1))."""
     import torchsde_tpu_torch.ops.srk_fused as SF
-    f = SF.Elementwise(lambda t, y, mu, sigma: mu * y + 0.1 * torch.sin(t) * y,
-                       "p0 * y + T(0.1) * sin(t) * y")
+    from torchsde_tpu_torch.utils.misc import weak_scalar
+    f = SF.Elementwise(lambda t, y, mu, sigma: mu * y + weak_scalar(
+        0.1, y.dtype) * torch.sin(t) * y, "p0 * y + T(0.1) * sin(t) * y")
     g = SF.Elementwise(lambda t, y, mu, sigma: sigma * y, "p1 * y")
     y0, W, U, params = _srk_case(cuda, B, d, n, dtype)
-    before = SF.launches
+    counter = "bf16_launches" if dtype == torch.bfloat16 else "launches"
+    before = getattr(SF, counter)
     got = SF.srk_solve_fused(f, g, y0, 0.25, 1.0 / n, n, W, U, params)
-    assert SF.launches == before + 1
+    assert getattr(SF, counter) == before + 1
     want = SF.srk_solve_plain(f, g, y0, 0.25, 1.0 / n, n, W, U, params)
     torch.cuda.synchronize()
-    tol = (2e-5 if dtype == torch.float32 else 1e-12) * float(
-        want.abs().max())
+    tol = {torch.float32: 2e-5, torch.float64: 1e-12,
+           torch.bfloat16: 0.0}[dtype] * float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
     no_params = SF.Elementwise(lambda t, y: 0.3 * torch.ones_like(y), "0.3")
     drift = SF.Elementwise(lambda t, y: -y, "-y")
@@ -1432,7 +1436,7 @@ def test_srk_kernel_refuses_what_it_cannot_run(cuda):
     with pytest.raises(ValueError, match="cuda_expr"):
         SF.srk_solve_fused(lambda t, y, mu, sigma: mu * y, f, y0, 0.0, 0.25,
                            4, W, U, params)
-    with pytest.raises(ValueError, match="float32 or float64"):
+    with pytest.raises(ValueError, match="bfloat16, float32 or float64"):
         SF.srk_solve_fused(f, f, y0.half(), 0.0, 0.25, 4, W.half(), U.half(),
                            params)
     with pytest.raises(ValueError, match="must be contiguous"):

@@ -12,10 +12,12 @@ a state may be a tuple of tensors (the adjoint's augmented state); on a
 tensor state each sum is the plain expression, term by term in order.
 """
 
+import functools
+
 import torch
 
 from . import tableaus
-from ..utils.misc import tree_lc
+from ..utils.misc import tree_lc, weak_scalar
 from ..settings import (LEVY_AREA_APPROXIMATIONS, METHOD_OPTIONS, METHODS,
                         NOISE_TYPES, SDE_TYPES)
 
@@ -319,29 +321,35 @@ class SRK(BaseSDESolver):
         rdt = 1.0 / dt
         sqrt_dt = torch.sqrt(dt.to(noise[0].dtype))
         I_k, I_k0 = noise[0], noise[1]
+        # Each tableau constant rounded to the dtype it meets, as the JAX
+        # package's weak Python scalars are (exact above bfloat16).
+        c = functools.partial(weak_scalar, dtype=y0.dtype)
+        ct = functools.partial(weak_scalar, dtype=dt.dtype)
         I_kk = (I_k ** 2 - dt) * 0.5
-        I_kkk = (I_k ** 3 - 3 * dt * I_k) * (1.0 / 6.0)
+        I_kkk = (I_k ** 3 - 3 * dt * I_k) * c(1.0 / 6.0)
 
         y1 = y0
         H0, H1 = [], []
         for s in range(tab.STAGES):
             H0s, H1s = y0, y0
             for j in range(s):
-                f = self.sde.f(t0 + tab.C0[j] * dt, H0[j])
-                g = self.sde.g(t0 + tab.C1[j] * dt, H1[j])
+                f = self.sde.f(t0 + ct(tab.C0[j]) * dt, H0[j])
+                g = self.sde.g(t0 + ct(tab.C1[j]) * dt, H1[j])
                 g = g.squeeze(2) if g.ndim == 3 else g
-                H0s = H0s + tab.A0[s][j] * f * dt + tab.B0[s][j] * g * I_k0 * rdt
-                H1s = H1s + tab.A1[s][j] * f * dt + tab.B1[s][j] * g * sqrt_dt
+                H0s = (H0s + c(tab.A0[s][j]) * f * dt
+                       + c(tab.B0[s][j]) * g * I_k0 * rdt)
+                H1s = (H1s + c(tab.A1[s][j]) * f * dt
+                       + c(tab.B1[s][j]) * g * sqrt_dt)
             H0.append(H0s)
             H1.append(H1s)
 
-            f = self.sde.f(t0 + tab.C0[s] * dt, H0s)
-            g_weight = (tab.beta1[s] * I_k +
-                        tab.beta2[s] * I_kk / sqrt_dt +
-                        tab.beta3[s] * I_k0 * rdt +
-                        tab.beta4[s] * I_kkk * rdt)
-            g_prod = self.sde.g_prod(t0 + tab.C1[s] * dt, H1s, g_weight)
-            y1 = y1 + tab.alpha[s] * f * dt + g_prod
+            f = self.sde.f(t0 + ct(tab.C0[s]) * dt, H0s)
+            g_weight = (c(tab.beta1[s]) * I_k +
+                        c(tab.beta2[s]) * I_kk / sqrt_dt +
+                        c(tab.beta3[s]) * I_k0 * rdt +
+                        c(tab.beta4[s]) * I_kkk * rdt)
+            g_prod = self.sde.g_prod(t0 + ct(tab.C1[s]) * dt, H1s, g_weight)
+            y1 = y1 + c(tab.alpha[s]) * f * dt + g_prod
         return y1, ()
 
     def _additive_step(self, t0, t1, y0, extra0, noise):
@@ -350,22 +358,26 @@ class SRK(BaseSDESolver):
         dt = t1 - t0
         rdt = 1.0 / dt
         I_k, I_k0 = noise[0], noise[1]
+        c = functools.partial(weak_scalar, dtype=y0.dtype)
+        ct = functools.partial(weak_scalar, dtype=dt.dtype)
 
         y1 = y0
         H0 = []
         for i in range(tab.STAGES):
             H0i = y0
             for j in range(i):
-                f = self.sde.f(t0 + tab.C0[j] * dt, H0[j])
-                g_weight = tab.B0[i][j] * I_k0 * rdt
-                g_prod = self.sde.g_prod(t0 + tab.C1[j] * dt, y0, g_weight)
-                H0i = H0i + tab.A0[i][j] * f * dt + g_prod
+                f = self.sde.f(t0 + ct(tab.C0[j]) * dt, H0[j])
+                g_weight = c(tab.B0[i][j]) * I_k0 * rdt
+                g_prod = self.sde.g_prod(t0 + ct(tab.C1[j]) * dt, y0,
+                                         g_weight)
+                H0i = H0i + c(tab.A0[i][j]) * f * dt + g_prod
             H0.append(H0i)
 
-            f = self.sde.f(t0 + tab.C0[i] * dt, H0i)
-            g_weight = tab.beta1[i] * I_k + tab.beta2[i] * I_k0 * rdt
-            g_prod = self.sde.g_prod(t0 + tab.C1[i] * dt, y0, g_weight)
-            y1 = y1 + tab.alpha[i] * f * dt + g_prod
+            f = self.sde.f(t0 + ct(tab.C0[i]) * dt, H0i)
+            g_weight = (c(tab.beta1[i]) * I_k
+                        + c(tab.beta2[i]) * I_k0 * rdt)
+            g_prod = self.sde.g_prod(t0 + ct(tab.C1[i]) * dt, y0, g_weight)
+            y1 = y1 + c(tab.alpha[i]) * f * dt + g_prod
         return y1, ()
 
 

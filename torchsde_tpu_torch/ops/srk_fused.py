@@ -8,7 +8,8 @@ integrals U (n, B, D). On the card it is one launch of a CUDA kernel (the
 template ``csrc/srk_srid2.cuh``): one thread an element, the state in a
 register, W and U streamed in. On the CPU it is :func:`srk_solve_plain`,
 the counterpart of the JAX package's ``srk_solve_xla`` and the kernel's
-plain version. ``launches`` counts the kernel's launches.
+plain version. ``launches`` counts the kernel's launches in float32 and
+float64, ``bf16_launches`` in bfloat16.
 
 The JAX package traces Python callables into its kernel. A CUDA kernel
 cannot call Python, so f and g are :class:`Elementwise` values: a torch
@@ -21,14 +22,17 @@ size and interpret mode are not ported.
 """
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from . import _build
 from ..core import tableaus
+from ..utils.misc import weak_scalar
 
 launches = 0
+bf16_launches = 0
 
 
 class Elementwise:
@@ -39,9 +43,18 @@ class Elementwise:
     parameter a (D,) row. ``cuda_expr`` is the same function as a C++
     expression of the state's type in ``t``, ``y`` and ``p0``, ``p1``, …,
     each the parameter row's entry at the element's column (f = mu * y is
-    ``"p0 * y"``). The kernel is built in float32 and float64, so write its
-    math with CUDA's overloaded functions (``exp``, ``sin``, ``sqrt``), not
-    the float-only ones (``expf``). None leaves it CPU-only."""
+    ``"p0 * y"``). The kernel is built in float32, float64 and bfloat16, so
+    write its math with CUDA's overloaded functions, not the float-only
+    ones (``expf``). In bfloat16, ``T`` is ``csrc/srk_srid2.cuh:Bf16``,
+    which takes ``+ - * /``, unary minus and ``sin``, ``cos``, ``tan``,
+    ``exp``, ``log``, ``sqrt``, ``tanh`` and ``fabs``, each in
+    float32 rounded to bfloat16, as a PyTorch or XLA bf16 operation rounds.
+    Write a constant as ``T(0.1)``: in bfloat16 it is rounded as JAX
+    rounds a Python scalar, and a bare double literal beside a ``T`` does
+    not compile. PyTorch keeps a Python scalar at float32 in a bf16
+    operation, so a ``torch_fn`` for bfloat16 rounds its non-exact
+    constants with ``utils.misc.weak_scalar`` to match. None leaves it
+    CPU-only."""
 
     def __init__(self, torch_fn, cuda_expr=None):
         if cuda_expr is not None and (not isinstance(cuda_expr, str)
@@ -58,37 +71,41 @@ class Elementwise:
 def _srid2_step(f, g, t, dt, y0, I_k, I_k0):
     """One srid2 step (``srk_fused.py:_srid2_step`` of the JAX package,
     the math of ``solvers.SRK`` with the diffusion kept (B, D)); ``dt`` is a
-    Python float, ``t`` a 0-dim tensor."""
+    Python float, ``t`` a 0-dim tensor. Each scalar expression is formed in
+    double and rounded once to the state's dtype, as JAX rounds its weak
+    Python scalars (a no-op above bfloat16)."""
     tab = tableaus.SRID2
+    c = functools.partial(weak_scalar, dtype=y0.dtype)
     rdt = 1.0 / dt
     sqrt_dt = math.sqrt(dt)
-    I_kk = (I_k * I_k - dt) * 0.5
-    I_kkk = (I_k * I_k * I_k - 3.0 * dt * I_k) * (1.0 / 6.0)
+    I_kk = (I_k * I_k - c(dt)) * 0.5
+    I_kkk = (I_k * I_k * I_k - c(3.0 * dt) * I_k) * c(1.0 / 6.0)
 
     y1 = y0
     H0, H1 = [], []
     for s in range(tab.STAGES):
         H0s, H1s = y0, y0
         for j in range(s):
-            fj = f(t + tab.C0[j] * dt, H0[j])
-            gj = g(t + tab.C1[j] * dt, H1[j])
+            fj = f(t + c(tab.C0[j] * dt), H0[j])
+            gj = g(t + c(tab.C1[j] * dt), H1[j])
             if tab.A0[s][j] != 0.0:
-                H0s = H0s + tab.A0[s][j] * fj * dt
+                H0s = H0s + c(tab.A0[s][j]) * fj * c(dt)
             if tab.B0[s][j] != 0.0:
-                H0s = H0s + tab.B0[s][j] * gj * I_k0 * rdt
+                H0s = H0s + c(tab.B0[s][j]) * gj * I_k0 * c(rdt)
             if tab.A1[s][j] != 0.0:
-                H1s = H1s + tab.A1[s][j] * fj * dt
+                H1s = H1s + c(tab.A1[s][j]) * fj * c(dt)
             if tab.B1[s][j] != 0.0:
-                H1s = H1s + tab.B1[s][j] * gj * sqrt_dt
+                H1s = H1s + c(tab.B1[s][j]) * gj * c(sqrt_dt)
         H0.append(H0s)
         H1.append(H1s)
 
-        fs = f(t + tab.C0[s] * dt, H0s)
-        g_weight = (tab.beta1[s] * I_k
-                    + tab.beta2[s] * I_kk * (1.0 / sqrt_dt)
-                    + tab.beta3[s] * I_k0 * rdt
-                    + tab.beta4[s] * I_kkk * rdt)
-        y1 = y1 + tab.alpha[s] * fs * dt + g(t + tab.C1[s] * dt, H1s) * g_weight
+        fs = f(t + c(tab.C0[s] * dt), H0s)
+        g_weight = (c(tab.beta1[s]) * I_k
+                    + c(tab.beta2[s]) * I_kk * c(1.0 / sqrt_dt)
+                    + c(tab.beta3[s]) * I_k0 * c(rdt)
+                    + c(tab.beta4[s]) * I_kkk * c(rdt))
+        y1 = (y1 + c(tab.alpha[s]) * fs * c(dt)
+              + g(t + c(tab.C1[s] * dt), H1s) * g_weight)
     return y1
 
 
@@ -142,22 +159,23 @@ def srk_source(f_expr, g_expr, n_params):
 
 
 _ENTRY = {torch.float32: "tsde_srk_srid2_f32",
-          torch.float64: "tsde_srk_srid2_f64"}
+          torch.float64: "tsde_srk_srid2_f64",
+          torch.bfloat16: "tsde_srk_srid2_bf16"}
 
 
 def srk_solve_cuda(f, g, y0, t0, dt, n_steps, W, U, params=()):
     """Launch the kernel on the current stream; returns the final state.
     Raises for an f or g without a ``cuda_expr``, for tensors it does not
     take, on a failed build and on a refused launch."""
-    global launches
+    global launches, bf16_launches
     for name, fn in (("f", f), ("g", g)):
         if getattr(fn, "cuda_expr", None) is None:
             raise ValueError(
                 f"srk_solve_fused on the card needs {name} as an "
                 f"Elementwise with a cuda_expr; got {fn!r}")
     if y0.dtype not in _ENTRY:
-        raise ValueError(f"the SRK kernel takes float32 or float64 states, "
-                         f"got {y0.dtype}")
+        raise ValueError(f"the SRK kernel takes bfloat16, float32 or float64 "
+                         f"states, got {y0.dtype}")
     if not y0.is_cuda or y0.ndim != 2:
         raise ValueError(f"expected a (B, D) CUDA state, got "
                          f"{tuple(y0.shape)} on {y0.device}")
@@ -187,7 +205,10 @@ def srk_solve_cuda(f, g, y0, t0, dt, n_steps, W, U, params=()):
             out.data_ptr(), B * D, D, n, float(t0), float(dt),
             y0.device.index or 0, stream)
     _build.check_launch(lib, rc, "srk_srid2")
-    launches += 1
+    if y0.dtype == torch.bfloat16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return out
 
 

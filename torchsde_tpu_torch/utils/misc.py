@@ -1,5 +1,6 @@
 """Small tensor utilities (counterpart of ``torchsde_tpu/utils/misc.py``)."""
 
+import functools
 import warnings
 
 import numpy as np
@@ -79,6 +80,28 @@ def tree_lc(*pairs):
 
 def _is_number(x):
     return isinstance(x, (int, float))
+
+
+def weak_scalar(x, dtype):
+    """The Python number ``x`` as JAX rounds it where it meets an array of
+    ``dtype``: a Python scalar is weakly typed there, so it takes the
+    array's dtype before the operation. PyTorch keeps a scalar at float32
+    in a bfloat16 or float16 operation; for those dtypes this returns the
+    Python float that the dtype rounds ``x`` to (bfloat16 through float32,
+    as ml_dtypes converts; float16 directly, as numpy does). For every
+    other dtype PyTorch already rounds the scalar so, and ``x`` is returned
+    as it is. Compute a scalar expression in double first, then round it
+    once, as Python does before JAX sees it."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return _half_rounded(float(x), dtype)
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def _half_rounded(x, dtype):
+    if dtype == torch.float16:
+        return float(np.float16(x))
+    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
 
 
 def is_strictly_increasing(ts):

@@ -130,10 +130,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     a float64 stand-in for a kernel that rounds nothing must fail), every
     output in its dtype, two calls bitwise equal, each replica of 3 and 4
     bitwise 1 and 2, median times and bounds in bf16 bytes and at the bf16
-    peak; the routes on the JAX package's bars (5e-3 relative, cosine
-    above 0.999): fused against ``sdeint`` at that test's size for eight
-    seeds, fused against a float32-state reference at the flagship for
-    four seeds at dt 1/32 and 1/128 (the ``sdeint`` route's distances
+    peak; kernels 2 and 4 by phase (the tensor-core sweep and contraction)
+    with the contraction's torch.matmul (K = 1) or torch.bmm (K = 4)
+    yardstick in bf16 on the same scratch, the sweep's shared memory a
+    block and blocks an SM, and the HMMA, F2F and F2FP counts of the bf16
+    sweep's and contraction's SASS; the routes on the JAX package's bars
+    (5e-3 relative, cosine above 0.999): fused against ``sdeint`` at that
+    test's size for eight seeds, fused against a float32-state reference
+    at the flagship for four seeds at dt 1/32 and 1/128 (the ``sdeint``
+    route's distances
     printed); three Adam steps of each route in turns, each fused step
     launching kernels 1 and 2 in bf16 once and the float32 kernels never,
     a profile of each route; K = 4 bf16 replicas of
@@ -310,11 +315,14 @@ development; no ok line); ``--only tiles``, which no other run includes,
 times kernels 13 (L1, L2) and 11 (R1, general noise) at the designs of
 FWD_DESIGN_TILES beside the rule's, each bitwise the rule's, kernels 2
 and 4 whole and their sweep alone at 128, 256 and 512 threads and at 16
-rows a block, the blocks the sweep's was chosen over, kernels 1 and 3
-at 256 and 512 threads and 8 and 16 rows a block, and kernels 6, 7 and 8
-at 1, 2, 4 and 8 warps a block; ``--only ab`` (phase_ab) times kernels
-1-15 (6 and 7 also at the GPU tests' shapes; 15 in float32 and float64) through entry points every
-version of the port has and compares their outputs with another run's, so
+rows a block, the blocks the sweep's was chosen over, and in bf16 at 8
+and 16 rows a block with registers for one and for two blocks an SM,
+kernels 1 and 3 at 256 and 512 threads and 8 and 16 rows a block, and
+kernels 6, 7 and 8 at 1, 2, 4 and 8 warps a block; ``--only ab``
+(phase_ab) times kernels 1-15 (6 and 7 also at the GPU tests' shapes; 15
+in float32 and float64; 1-4 also in bf16, 2 and 4 by phase too) through
+entry points every version of the port since PR 21 has and compares
+their outputs with another run's, so
 that a copy of this script in the parent commit's checkout times the
 parent in the same call; ``--only steps`` (phase_steps), which builds
 nothing, profiles the SDE-GAN train step on the ``sdeint`` route the same
@@ -711,27 +719,39 @@ def contraction_flops(M, L, C, H):
     return M * (2 * ((L + C) * H + 2 * H * H + 3 * H * L) + 4 * H + 2 * L)
 
 
-def contraction_by_matmul(scratch, z_pre, ctx_rows):
+def contraction_by_matmul(scratch, z_pre, ctx_rows, biases=True):
     """The contraction's products as PyTorch calls on the same scratch
-    tensors (the yardstick, never on the path): seven torch.matmul and six
-    bias sums over the rows."""
+    tensors (the yardstick, never on the path): seven torch.matmul, or with
+    a leading replica axis seven torch.bmm, and six bias sums over the rows
+    (``biases``; in mixed mode the sweep sums them, so the yardstick has
+    none)."""
     a1f, a1h, a2f, a2h, dp1f, dp1h, dp2f, dp2h, df, dh = scratch
-    return (torch.matmul(z_pre.T, dp1f), torch.matmul(ctx_rows.T, dp1f),
-            torch.matmul(a1f.T, dp2f), torch.matmul(a2f.T, df),
-            torch.matmul(z_pre.T, dp1h), torch.matmul(a1h.T, dp2h),
-            torch.matmul(a2h.T, dh),
-            *(t.sum(0) for t in (dp1f, dp2f, df, dp1h, dp2h, dh)))
+
+    def mm(a, b):
+        return (torch.bmm(a.transpose(1, 2), b) if a.ndim == 3
+                else torch.matmul(a.T, b))
+
+    return (mm(z_pre, dp1f), mm(ctx_rows, dp1f), mm(a1f, dp2f), mm(a2f, df),
+            mm(z_pre, dp1h), mm(a1h, dp2h), mm(a2h, dh),
+            *(t.sum(-2) for t in ((dp1f, dp2f, df, dp1h, dp2h, dh)
+                                  if biases else ())))
 
 
 def backward_parts(label, bargs, multi, reps):
     """Median device times of kernel 2 (or 4)'s sweep alone and of its
     contraction and reduction alone on the sweep's workspace, with the
-    contraction's bound; for K = 1 also the torch.matmul yardstick on the
-    same scratch tensors. Prints them with the workspace's bytes."""
+    contraction's bound (bf16 operations at the bf16 peak in mixed mode),
+    and its yardstick on the same scratch tensors, made before timing:
+    torch.matmul for K = 1, torch.bmm over the replicas for K > 1, in the
+    scratch's dtype. Prints them with the workspace's bytes, and the
+    sweep's shared memory a block (in mixed mode also its blocks an
+    SM)."""
     z0, ctx, ctx_idx, noise, dts, weights, zs = bargs[:7]
     K = z0.shape[0] if multi else 1
     B, L = z0.shape[-2:]
     C, H, n = ctx.shape[-1], weights[0].shape[-1], noise.shape[-3]
+    dtype = weights[0].dtype
+    mixed = dtype == BF16
     _, ws = LF._backward_cuda(*bargs, multi=multi)
 
     def run(stages):
@@ -741,31 +761,44 @@ def backward_parts(label, bargs, multi, reps):
     sweep = median_cuda_ms(run(1), reps)
     contraction = median_cuda_ms(run(2), reps)
     M = n * B
-    scratch_bytes = 4 * K * M * (8 * H + 2 * L)
+    scratch_bytes = (2 if mixed else 4) * K * M * (8 * H + 2 * L)
     out = dict(sweep_ms=sweep, contraction_ms=contraction,
                scratch_bytes=scratch_bytes,
                workspace_bytes=ws.numel() * ws.element_size())
     flops_c = K * contraction_flops(M, L, C, H)
-    views = LF.scratch_views(ws, B, L, H, n)
+    views = LF.scratch_views(ws, B, L, H, n, dtype)
     # Reads the scratch, ctx, z0 and zs; writes the towers' gradients (the
     # sizes of weights 0-11).
-    bound_c = bound(flops_c, [*views, ctx, z0, zs, *weights[:12]])
+    bound_c = bound(flops_c, [*views, ctx, z0, zs, *weights[:12]],
+                    PEAK_BF16_FLOPS if mixed else PEAK_F32_FLOPS)
     out.update(contraction_bound_ms=bound_c[0],
                contraction_bound_by=bound_c[1])
-    if not multi:
-        scratch = [v[0] for v in views]
-        z_pre = torch.cat([z0[None], zs[:-1]]).reshape(M, L)
-        ctx_rows = ctx[ctx_idx.long()].reshape(M, C)
-        out["contraction_matmul_ms"] = median_cuda_ms(
-            lambda: contraction_by_matmul(scratch, z_pre, ctx_rows), reps)
+    scratch = [v[0] for v in views] if not multi else list(views)
+    z_pre = torch.cat([z0[..., None, :, :], zs[..., :-1, :, :].to(z0.dtype)],
+                      dim=-3).reshape(*z0.shape[:-2], M, L).to(dtype)
+    ctx_rows = ctx[..., ctx_idx.long(), :, :].reshape(
+        *z0.shape[:-2], M, C).to(dtype)
+    key = "contraction_bmm_ms" if multi else "contraction_matmul_ms"
+    out[key] = median_cuda_ms(lambda: contraction_by_matmul(
+        scratch, z_pre, ctx_rows, biases=not mixed), reps)
+    del scratch, z_pre, ctx_rows
+    lib = _build.load_library()
+    smem = (lib.tsde_latent_fused_bwd_smem_bytes_bf16 if mixed
+            else lib.tsde_latent_fused_bwd_smem_bytes)(L, C, H)
+    out["sweep_smem_bytes"] = smem
+    line = f"sweep shared memory {smem} bytes a block"
+    if mixed:
+        out["sweep_blocks_per_sm"] = \
+            lib.tsde_latent_fused_bwd_blocks_per_sm_bf16(
+                L, C, H, K * -(-B // 8), z0.device.index or 0)
+        line += f", {out['sweep_blocks_per_sm']} blocks an SM"
     print(f"{label}: sweep {sweep:.4f} ms; contraction and reduction "
-          f"{contraction:.4f} ms (bound {bound_c[0]:.4f}, {bound_c[1]})"
-          + ("" if multi else f"; torch.matmul yardstick on the same scratch "
-             f"{out['contraction_matmul_ms']:.4f} ms"), flush=True)
+          f"{contraction:.4f} ms (bound {bound_c[0]:.4f}, {bound_c[1]}); "
+          f"{'torch.bmm' if multi else 'torch.matmul'} yardstick on the same "
+          f"scratch ({str(dtype).split('.')[-1]}) {out[key]:.4f} ms",
+          flush=True)
     print(f"{label}: scratch {scratch_bytes / 1e6:.1f} MB, workspace "
-          f"{out['workspace_bytes'] / 1e6:.1f} MB; sweep shared memory "
-          f"{_build.load_library().tsde_latent_fused_bwd_smem_bytes(L, C, H)}"
-          f" bytes a block", flush=True)
+          f"{out['workspace_bytes'] / 1e6:.1f} MB; {line}", flush=True)
     return out
 
 
@@ -774,6 +807,10 @@ def backward_parts(label, bargs, multi, reps):
 # into a library of their own from latent_fused_bwd.cu and TILE_ENTRY, not
 # into the kernels' library.
 SWEEP_TILES = ((128, 8), (256, 8), (512, 8), (256, 16))
+# The bf16 sweep's blocks that ``--only tiles`` times, (blocks an SM that
+# ptxas budgets registers for, rows a block) at 256 threads: the kernel's
+# own (2, 8) first.
+BF16_SWEEP_TILES = ((2, 8), (1, 8), (2, 16), (1, 16))
 TILE_ENTRY = r"""
 // Kernel 2 (K = 1) or 4 with the sweep at `threads` threads and `rows`
 // rows a block, the phases as tsde_latent_fused_bwd_stages.
@@ -795,6 +832,34 @@ extern "C" int tsde_latent_bwd_tile(
     return launch<512, 8>(a, K, dw, stages, n, device, stream);
   if (rows == 16 && threads == 256)
     return launch<256, 16>(a, K, dw, stages, n, device, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same in mixed mode, the bf16 sweep at 256 threads, `rows` rows a
+// block and ptxas's registers for `minb` blocks an SM.
+extern "C" int tsde_latent_bwd_tile_bf16(
+    const float* z0, const __nv_bfloat16* ctx, const int* ctx_idx,
+    const __nv_bfloat16* noise, const float* dts,
+    TSDE_WEIGHT_PARAMS_T(__nv_bfloat16), const __nv_bfloat16* zs,
+    const __nv_bfloat16* gz, const float* gq, float* dz0, float* dctx,
+    __nv_bfloat16* dnoise, float* ws, float* dw, int K, int B, int L, int C,
+    int H, int T, int n, int minb, int rows, int stages, int device,
+    cudaStream_t stream) {
+  using namespace tsde_latent_bwd;
+  using bf = __nv_bfloat16;
+  const bf* w[NW] = TSDE_WEIGHTS;
+  const auto a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, gz, gq, dz0,
+                           dctx, dnoise, ws, B, L, C, H, T, n);
+  if (rows == 8 && minb == 2)
+    return launch<256, 8, bf, 2>(a, K, dw, stages, n, device, stream);
+  if (rows == 8 && minb == 1)
+    return launch<256, 8, bf, 1>(a, K, dw, stages, n, device, stream);
+  if (rows == 16 && minb == 2)
+    return launch<256, 16, bf, 2>(a, K, dw, stages, n, device, stream);
+  if (rows == 16 && minb == 1)
+    return launch<256, 16, bf, 1>(a, K, dw, stages, n, device, stream);
+  if (rows == 8 && minb == 0)
+    return launch<256, 8, bf, 0>(a, K, dw, stages, n, device, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -876,6 +941,60 @@ def fwd_tile_times(label, lib, args, weights, multi, reps):
     return out
 
 
+# The stages of the bf16 sweep whose clocks ``--only tiles`` reads
+# (latent_fused_bwd.cu: TSDE_MARK), in order.
+SWEEP_STAGES = ("B layer 1, g nets", "C layer 2, layer 3", "E cotangents",
+                "F dpre2, g nets back", "G dpre1", "H dx, flush, inputs",
+                "I dz")
+CLOCK_ENTRY = r"""
+extern "C" int tsde_stage_clocks(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(
+      out, tsde_latent_bwd::tsde_stage_clocks, 8 * sizeof(unsigned long long));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[8] = {};
+    err = cudaMemcpyToSymbol(tsde_latent_bwd::tsde_stage_clocks, zero,
+                             sizeof(zero));
+  }
+  return static_cast<int>(err);
+}
+"""
+
+
+def sweep_stage_clocks(label, bargs, multi):
+    """The bf16 sweep's clock cycles a step and block in each of
+    SWEEP_STAGES (thread 0's, barrier waits included; the kernel's own
+    source built with TSDE_STAGE_CLOCKS into a library of its own), and
+    its SM clock by nvidia-smi."""
+    source = (Path(LF.__file__).resolve().parent / "csrc"
+              / "latent_fused_bwd.cu").read_text()
+    lib = _build.library_for_source(
+        "tsde_latent_bwd_clocks",
+        "#define TSDE_STAGE_CLOCKS\n" + source + TILE_ENTRY + CLOCK_ENTRY)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.tsde_latent_bwd_tile_bf16.argtypes = [P] * 29 + [I] * 11 + [P]
+    lib.tsde_latent_bwd_tile_bf16.restype = I
+    lib.tsde_stage_clocks.argtypes = [P, I]
+    clocks = (ctypes.c_ulonglong * 8)()
+    _, ws = LF._backward_cuda(*bargs, multi=multi)
+    z0, noise = bargs[0], bargs[3]
+    K = z0.shape[0] if multi else 1
+    blocks, n = K * -(-z0.shape[-2] // 8), noise.shape[-3]
+    tile_backward(lib, bargs, multi, 0, 8, 1, ws)
+    torch.cuda.synchronize()
+    lib.tsde_stage_clocks(clocks, 1)
+    tile_backward(lib, bargs, multi, 0, 8, 1, ws)
+    torch.cuda.synchronize()
+    lib.tsde_stage_clocks(clocks, 1)
+    out = {name: clocks[i] / (blocks * n)
+           for i, name in enumerate(SWEEP_STAGES)}
+    out["sm_clock_mhz"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"{label}: bf16 sweep cycles a step and block by stage: "
+          + json.dumps(out), flush=True)
+    return out
+
+
 def tile_library():
     """The library of the sweep's tiles, built at its first use."""
     source = (Path(LF.__file__).resolve().parent / "csrc"
@@ -883,27 +1002,33 @@ def tile_library():
     lib = _build.library_for_source("tsde_latent_bwd_tiles",
                                     source + TILE_ENTRY)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.tsde_latent_bwd_tile.argtypes = [P] * 29 + [I] * 11 + [P]
-    lib.tsde_latent_bwd_tile.restype = I
+    for name in ("tsde_latent_bwd_tile", "tsde_latent_bwd_tile_bf16"):
+        getattr(lib, name).argtypes = [P] * 29 + [I] * 11 + [P]
+        getattr(lib, name).restype = I
     return lib
 
 
 def tile_backward(lib, bargs, multi, threads, rows, stages, ws):
-    """One call of tsde_latent_bwd_tile on a backward kernel's inputs and
-    workspace ``ws`` (from LF._backward_cuda); returns dz0, dctx, dnoise and
-    the weights' gradients back to back."""
+    """One call of tsde_latent_bwd_tile (tsde_latent_bwd_tile_bf16 for bf16
+    weights, ``threads`` then the blocks an SM) on a backward kernel's
+    inputs and workspace ``ws`` (from LF._backward_cuda); returns dz0,
+    dctx, dnoise and the weights' gradients back to back (dctx and the
+    gradients float32)."""
     z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq = bargs
     K = z0.shape[0] if multi else 1
     B, L = z0.shape[-2:]
     T, C, H, n = ctx.shape[-3], ctx.shape[-1], weights[0].shape[-1], \
         noise.shape[-3]
-    dz0, dctx = torch.zeros_like(z0), torch.zeros_like(ctx)
+    entry = (lib.tsde_latent_bwd_tile_bf16 if weights[0].dtype == BF16
+             else lib.tsde_latent_bwd_tile)
+    dz0 = torch.zeros_like(z0)
+    dctx = torch.zeros_like(ctx, dtype=torch.float32)
     dnoise = torch.empty_like(noise)
     dw = torch.zeros((K, sum(w[0].numel() if multi else w.numel()
                              for w in weights)), device=z0.device)
     ptrs = [t.data_ptr() for t in (z0, ctx, ctx_idx, noise, dts, *weights,
                                    zs, gz, gq, dz0, dctx, dnoise, ws, dw)]
-    rc = lib.tsde_latent_bwd_tile(
+    rc = entry(
         *ptrs, K, B, L, C, H, T, n, threads, rows, stages,
         z0.device.index or 0, torch.cuda.current_stream(z0.device).cuda_stream)
     _build.check_launch(lib, rc, f"sweep tile {threads} x {rows}")
@@ -912,24 +1037,28 @@ def tile_backward(lib, bargs, multi, threads, rows, stages, ws):
 
 def tile_times(label, lib, bargs, multi, reps):
     """Median device times of the whole kernel and of its sweep alone at
-    each of SWEEP_TILES; each tile's outputs held to the kernel's own at
-    kernel 2's tolerance."""
+    each of SWEEP_TILES (BF16_SWEEP_TILES for bf16 weights); each tile's
+    outputs, in the kernel's dtypes, held to the kernel's own at kernel 2's
+    tolerance (BF16_REL of scale in bf16)."""
     (dz0, dctx, dnoise, dweights), ws = LF._backward_cuda(*bargs,
                                                           multi=multi)
     lead = 1 if multi else 0
     want = [dz0, dctx, dnoise, torch.cat([d.flatten(lead) for d in dweights],
                                          dim=-1)]
+    mixed = dnoise.dtype == BF16
     out = {}
-    for threads, rows in SWEEP_TILES:
+    for threads, rows in BF16_SWEEP_TILES if mixed else SWEEP_TILES:
         got = tile_backward(lib, bargs, multi, threads, rows, 3, ws)
         torch.cuda.synchronize()
         for name, g, w in zip(("dz0", "dctx", "dnoise", "weights"), got,
                               want):
-            g = g.reshape(w.shape)
+            g = g.reshape(w.shape).to(w.dtype).float()
+            w = w.float()
             scale = float(w.abs().max())
             err = float((g - w).abs().max())
-            if not torch.isfinite(g).all() or err > max(BWD_ATOL,
-                                                        BWD_REL * scale):
+            bar = BF16_REL * scale if mixed else max(BWD_ATOL,
+                                                     BWD_REL * scale)
+            if not torch.isfinite(g).all() or err > bar:
                 raise RuntimeError(f"{label} at {threads} x {rows}: {name} "
                                    f"differs from the kernel's by {err:.3e}")
         whole = median_cuda_ms(lambda: tile_backward(
@@ -939,14 +1068,16 @@ def tile_times(label, lib, bargs, multi, reps):
         out[f"{threads}x{rows}"] = dict(ms=whole, sweep_ms=sweep)
     cells = ", ".join(f"{k}: {v['ms']:.4f} (sweep {v['sweep_ms']:.4f})"
                       for k, v in out.items())
-    print(f"{label} by sweep threads x rows a block, ms: {cells}", flush=True)
+    print(f"{label} by sweep {'blocks an SM' if mixed else 'threads'} x "
+          f"rows a block, ms: {cells}", flush=True)
     return out
 
 
 def phase_tiles(device):
     """Kernel 2 at the flagship and kernel 4 at K = MULTI_K, whole and sweep
-    alone, at each block of SWEEP_TILES; kernels 1 and 3 at K = 1, 2,
-    MULTI_K and 8 at each block of FWD_TILES (``--only tiles``)."""
+    alone, at each block of SWEEP_TILES, and in bf16 mixed mode at each of
+    BF16_SWEEP_TILES; kernels 1 and 3 at K = 1, 2, MULTI_K and 8 at each
+    block of FWD_TILES (``--only tiles``)."""
     fwd_lib = fwd_tile_library()
     forward = {}
     with torch.no_grad():
@@ -978,7 +1109,28 @@ def phase_tiles(device):
             f"kernel 4 at K={MULTI_K}", lib,
             (*args, weights, zs, gz.expand(MULTI_K, -1, -1, -1).contiguous(),
              gq.expand(MULTI_K, -1, -1, -1).contiguous()), True, 5)
-    return dict(kernel2=single, kernel4=multi, forward=forward)
+        del args, weights, zs
+        # Mixed mode: the bf16 sweep's blocks.
+        model16 = flagship_model(device, BF16)
+        a16 = kernel_inputs(device, model16)
+        w16 = LF.solve_weights(model16)
+        zs = LF.fused_solve_forward_cuda(*a16, w16)[0]
+        b16 = (*a16, w16, zs, gz.to(BF16), gq)
+        single16 = tile_times("kernel 2 (bf16)", lib, b16, False, 10)
+        single16["stage_clocks"] = sweep_stage_clocks("kernel 2 (bf16)", b16,
+                                                      False)
+        del a16, w16, zs, b16
+        args, weights = multi_kernel_inputs(device, MULTI_K, dtype=BF16)
+        zs = LF.fused_solve_multi_forward_cuda(*args, weights)[0]
+        b16 = (*args, weights, zs,
+               gz.to(BF16).expand(MULTI_K, -1, -1, -1).contiguous(),
+               gq.expand(MULTI_K, -1, -1, -1).contiguous())
+        multi16 = tile_times(f"kernel 4 (bf16) at K={MULTI_K}", lib, b16,
+                             True, 5)
+        multi16["stage_clocks"] = sweep_stage_clocks(
+            f"kernel 4 (bf16) at K={MULTI_K}", b16, True)
+    return dict(kernel2=single, kernel4=multi, kernel2_bf16=single16,
+                kernel4_bf16=multi16, forward=forward)
 
 
 # The designs (cluster, rows, threads, staged towers) of kernels 13 and 11
@@ -3429,16 +3581,20 @@ def phase_bf16_kernels(device):
         ms = median_cuda_ms(lambda: LF.fused_solve_backward_cuda(*timed), 20)
         plain_ms = median_cuda_ms(
             lambda: LF.fused_solve_backward_plain(*timed), 3, warmup=1)
+        parts = backward_parts("kernel 2 (bf16)", timed, False, 10)
     moved = [*timed[:5], *timed[5], *timed[6:], *outputs]
     bnd = bf16_bound(3 * flops, moved)
     print(f"kernel 2 (bf16): median {ms:.4f} ms; plain: median "
           f"{plain_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms "
           f"({bnd['bound_by']}; bytes {bytes_ms(moved):.4f} ms; at the "
           f"float32 FMA rate {bnd['fma_bound_ms']:.4f} ms)", flush=True)
+    sass = sass_counts(_build.library_path()[0], BF16_SASS)
+    print("kernels 2, 4 (bf16) SASS opcodes: " + json.dumps(sass),
+          flush=True)
     out["bwd"] = dict(max_abs_err=errs[0][0], max_abs_err_saturated=errs[1][0],
                       max_rel_err=max(e[1] for e in errs),
                       rounding_ratio=min(e[2] for e in errs), ms=ms,
-                      plain_ms=plain_ms, **bnd)
+                      plain_ms=plain_ms, sass=sass, **parts, **bnd)
     return out
 
 
@@ -3487,6 +3643,7 @@ def phase_bf16_multi_kernels(device):
                       [t[k] for t in _flat(got_b)], _flat(one_b))
         print(f"kernels 3, 4 (bf16) at K={K}: every replica bitwise kernels "
               f"1, 2; two sweeps bitwise", flush=True)
+        parts4 = backward_parts(f"kernel 4 (bf16) at K={K}", bargs, True, 5)
         times = dict(
             fwd=(median_cuda_ms(lambda: LF.fused_solve_multi_forward_cuda(
                 *args, weights), 10),
@@ -3510,7 +3667,7 @@ def phase_bf16_multi_kernels(device):
               f"{bnd['fma_bound_ms']:.4f} ms)", flush=True)
         out[kind] = dict(max_abs_err=err[0], max_rel_err=err[1],
                          rounding_ratio=err[2], ms=ms, plain_ms=plain_ms,
-                         **bnd)
+                         **(parts4 if kind == "bwd" else {}), **bnd)
     return out
 
 
@@ -4326,33 +4483,44 @@ SRK_ROUNDINGS = {
     "none": "return exact(x);"}
 SRK_ROUND_BODY = "return exact(__bfloat162float(__float2bfloat16_rn(x)));"
 SASS_OPS = ("F2FP", "F2F", "FADD", "FMUL", "FFMA", "IADD3", "LOP3", "SHF",
-            "PRMT", "IMAD")
+            "PRMT", "IMAD", "HMMA", "LDSM", "MOVM")
+# The bf16 kernels of kernels 2 and 4 whose SASS phase 22a counts, by a
+# part of their mangled names: the flagship's sweep (256 threads, 8 rows,
+# 2 m-tiles a warp) with registers for two blocks an SM (kernel 4's) and
+# for one (kernel 2's), and the tiled contraction.
+BF16_SASS = {"sweep": "latent_bwd_sweep_bf16ILi256ELi8ELi2ELi2E",
+             "sweep_one_block": "latent_bwd_sweep_bf16ILi256ELi8ELi2ELi1E",
+             "contraction": "latent_bwd_contract_bf16"}
 
 
 def sass_counts(lib_path, marker="Bf16"):
-    """Opcode counts in the SASS of the one function of ``lib_path`` whose
-    name holds ``marker`` (cuobjdump beside nvcc), or None without it."""
+    """Opcode counts in the SASS of the functions of ``lib_path`` whose
+    names hold ``marker`` (cuobjdump beside nvcc), or None without it;
+    for a dict of markers, a dict of counts by its keys, from one dump."""
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     if not tool.exists():
         return None
+    markers = marker if isinstance(marker, dict) else {None: marker}
     text = subprocess.run([str(tool), "-sass", str(lib_path)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True).stdout
-    counts, inside = {op: 0 for op in SASS_OPS}, False
-    counts["total"] = 0
+    counts = {key: dict.fromkeys(SASS_OPS + ("total",), 0)
+              for key in markers}
+    inside = []
     for line in text.splitlines():
         if "Function :" in line:
-            inside = marker in line
+            inside = [counts[k] for k, m in markers.items() if m in line]
         elif inside and line.strip().startswith("/*") and "*/" in line:
             words = line.split("*/", 1)[1].split()
             if not words or words[0].startswith("/*"):
                 continue
             op = words[1] if words[0].startswith("@") else words[0]
             op = op.rstrip(";").split(".")[0]
-            counts["total"] += 1
-            if op in counts:
-                counts[op] += 1
-    return counts
+            for c in inside:
+                c["total"] += 1
+                if op in c:
+                    c[op] += 1
+    return counts if isinstance(marker, dict) else counts[None]
 
 
 def phase_srk_rounding(device):
@@ -5022,7 +5190,8 @@ def ab_gan_inputs(device, kind, B, S, M, K, T, seed):
 
 def phase_ab(device, tag, against):
     """Times kernels 1, 2 (and its contraction alone), 3 (at each K of
-    MULTI_KS), 4 (at MULTI_K), 5-8
+    MULTI_KS), 4 (at MULTI_K), 1-4 in bf16 mixed mode (3 and 4 at MULTI_K;
+    2 and 4 also their sweep and contraction apart), 5-8
     (at the GAN's reference scale; 5, 6 and 7 also at AB_GEN_SHAPES and
     AB_CDE_SHAPES), 9 (at E1, on general noise with time
     and at the narrow solve), 10 (at E1), 11 (at R1 and on general noise
@@ -5078,6 +5247,41 @@ def phase_ab(device, tag, against):
                     lambda: LF.fused_solve_multi_backward_cuda(*b_t), 10)
                 del b_t, g_t
             del a_t, w_t, got
+        # Kernels 1-4 in bf16 mixed mode (PR 21's entry points), 2 and 4
+        # also by phase: the sweep alone, then the contraction and the
+        # reduction alone on its workspace. 2 and 4 go back from the plain
+        # forward's states.
+        model16 = flagship_model(device, BF16)
+        a16 = kernel_inputs(device, model16)
+        w16 = LF.solve_weights(model16)
+        g16 = (gz.to(BF16), gq)
+        for key, multi, inputs in (
+                ("", False, (a16, w16, g16)),
+                ("_multi", True, (*multi_kernel_inputs(
+                    device, MULTI_K, dtype=BF16),
+                    tuple(t[None].expand(MULTI_K, -1, -1, -1).contiguous()
+                          for t in g16)))):
+            a_b, w_b, g_b = inputs
+            fwd = (LF.fused_solve_multi_forward_cuda if multi
+                   else LF.fused_solve_forward_cuda)
+            bwd = (LF.fused_solve_multi_backward_cuda if multi
+                   else LF.fused_solve_backward_cuda)
+            plain = (LF.fused_solve_multi_forward_plain if multi
+                     else LF.fused_solve_forward_plain)
+            k_f, k_b = ("kernel3", "kernel4") if multi else ("kernel1",
+                                                           "kernel2")
+            out[f"{k_f}_bf16"] = list(fwd(*a_b, w_b))
+            times[f"{k_f}_bf16"] = median_cuda_ms(lambda: fwd(*a_b, w_b), 10)
+            b_b = (*a_b, w_b, plain(*a_b, w_b)[0], *g_b)
+            out[f"{k_b}_bf16"] = _flat(bwd(*b_b))
+            times[f"{k_b}_bf16"] = median_cuda_ms(lambda: bwd(*b_b), 10)
+            _, ws = LF._backward_cuda(*b_b, multi=multi)
+            for stages, part in ((1, "sweep"), (2, "contraction")):
+                times[f"{k_b}_bf16_{part}"] = median_cuda_ms(
+                    lambda: LF._backward_cuda(*b_b, multi=multi,
+                                              stages=stages, workspace=ws),
+                    10)
+            del a_b, w_b, b_b, ws
         for label, e_args in ab_euler_inputs(device):
             key = "kernel9" if label == "E1" else f"kernel9_{label}"
             out[key] = [FS.euler_solve_forward_cuda(*e_args)]

@@ -261,10 +261,12 @@ def _check_backward_in_windows(cuda, multi, monkeypatch, dtype):
         assert LF.bwd_window(B, L, C, H, n) == n
         one, _ = LF._backward_cuda(*bargs, multi=multi)
         lib = _build.load_library()
-        two_steps = lib.tsde_latent_fused_bwd_workspace(B, L, C, H, 2)
-        assert two_steps == LF.workspace_floats(B, L, C, H, 2)
+        suffix = "_bf16" if dtype == torch.bfloat16 else ""
+        two_steps = getattr(lib, f"tsde_latent_fused_bwd_workspace{suffix}")(
+            B, L, C, H, 2)
+        assert two_steps == LF.workspace_floats(B, L, C, H, 2, dtype)
         monkeypatch.setattr(LF, "WORKSPACE_BYTES", 4 * two_steps)
-        assert LF.bwd_window(B, L, C, H, n) == 2
+        assert LF.bwd_window(B, L, C, H, n, dtype) == 2
         got = wrapper(*bargs)
         again = wrapper(*bargs)
         _, ws = LF._backward_cuda(*bargs, multi=multi)

@@ -1,0 +1,335 @@
+"""The bf16 tensor-core index arithmetic of kernels 2 and 4, on the host.
+
+``csrc/mma_bf16.cuh`` keeps the arithmetic of the bf16 sweep and
+contraction (which row each lane of a warp names to ldmatrix, which
+elements of a fragment or an accumulator it holds, where a transposed tile
+goes) as plain host-and-device functions. Here the host C++ compiler builds
+them against stand-ins for the CUDA headers, beside a warp emulated over 32
+lanes as the PTX ISA lays out ldmatrix (.trans), mma.m16n8k16 .bf16 and
+movmatrix.trans, and the sweep's and the contraction's products, addressed
+as the kernel addresses them, are held to numpy on bf16-rounded inputs. A
+copy of the header with two fragment rows swapped must fail."""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+CSRC = Path(__file__).resolve().parents[1] / "torchsde_tpu_torch" / "ops" \
+    / "csrc"
+
+CUDA_STUB = """#pragma once
+#define __host__
+#define __device__
+"""
+
+# The warp, emulated from the PTX ISA's layouts (not from the header), and
+# the kernels' products addressed through the header's functions.
+EMULATOR = r"""
+#include <stdint.h>
+#include <string.h>
+#include "mma_bf16.cuh"
+using namespace tsde_bf16;
+
+static float bf(uint16_t b) {
+  uint32_t u = (uint32_t)b << 16;
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+static uint16_t rn(float f) {          // round to nearest even
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return (uint16_t)(u >> 16);
+}
+
+// ldmatrix.x4 (.trans): lanes 8m..8m+7 give matrix m's row offsets (-1: a
+// zero row); lane t receives of matrix m row t/4, columns 2(t%4), +1 (of
+// the transposed matrix with .trans) in register m, the first the low half.
+static void ldsm(const uint16_t* src, const int* off, bool trans,
+                 uint32_t r[32][4]) {
+  for (int m = 0; m < 4; ++m) {
+    uint16_t M[8][8];
+    for (int i = 0; i < 8; ++i)
+      for (int j = 0; j < 8; ++j)
+        M[i][j] = off[8 * m + i] < 0 ? 0 : src[off[8 * m + i] + j];
+    for (int t = 0; t < 32; ++t) {
+      const int i = t / 4, j = 2 * (t % 4);
+      const uint16_t lo = trans ? M[j][i] : M[i][j];
+      const uint16_t hi = trans ? M[j + 1][i] : M[i][j + 1];
+      r[t][m] = (uint32_t)lo | ((uint32_t)hi << 16);
+    }
+  }
+}
+
+// mma.m16n8k16.row.col.f32.bf16.bf16.f32: A register i of lane 4g+q holds
+// A[g + 8(i%2)][2q + 8(i/2) + {0,1}], B register i B[2q + 8i + {0,1}][g],
+// d[i] is D[g + 8(i/2)][2q + i%2]; D += A B in float32, k in order.
+static void mma(float d[32][4], uint32_t a[32][4], uint32_t b[32][2]) {
+  float A[16][16], B[16][8];
+  for (int t = 0; t < 32; ++t) {
+    const int g = t / 4, q = t % 4;
+    for (int i = 0; i < 4; ++i) {
+      const int row = g + 8 * (i % 2), col = 2 * q + 8 * (i / 2);
+      A[row][col] = bf(a[t][i] & 0xffff);
+      A[row][col + 1] = bf(a[t][i] >> 16);
+    }
+    for (int i = 0; i < 2; ++i) {
+      B[2 * q + 8 * i][g] = bf(b[t][i] & 0xffff);
+      B[2 * q + 8 * i + 1][g] = bf(b[t][i] >> 16);
+    }
+  }
+  for (int t = 0; t < 32; ++t) {
+    const int g = t / 4, q = t % 4;
+    for (int i = 0; i < 4; ++i) {
+      float s = 0.f;
+      for (int k = 0; k < 16; ++k)
+        s += A[g + 8 * (i / 2)][k] * B[k][2 * q + i % 2];
+      d[t][i] += s;
+    }
+  }
+}
+
+// movmatrix.m8n8.trans.b16: lane t holds row t/4, columns 2(t%4), +1.
+static void movm(const uint32_t in[32], uint32_t out[32]) {
+  uint16_t M[8][8];
+  for (int t = 0; t < 32; ++t) {
+    M[t / 4][2 * (t % 4)] = in[t] & 0xffff;
+    M[t / 4][2 * (t % 4) + 1] = in[t] >> 16;
+  }
+  for (int t = 0; t < 32; ++t) {
+    const int i = t / 4, j = 2 * (t % 4);
+    out[t] = (uint32_t)M[j][i] | ((uint32_t)M[j + 1][i] << 16);
+  }
+}
+
+// A weight w (rows x H, row-major) staged as the sweep stages it.
+static void stage(const uint16_t* w, int rows, int H, uint16_t* s) {
+  const int chunks = ldsm_chunks(H);
+  memset(s, 0, sizeof(uint16_t) * rows * chunks * 8);
+  for (int k = 0; k < rows; ++k)
+    for (int j = 0; j < H; ++j) s[ldsm_offset(k, j, chunks)] = w[k * H + j];
+}
+
+// One warp's products of the sweep over a staged weight: `trans` the
+// forward (out[unit][r] = sum_k w[k][unit] src[r][k], the units' m-tiles
+// over k-tiles of `rows` inputs), else going back (out[k][r] = sum_unit
+// w[k][unit] src[r][unit], the inputs' m-tiles over the units' k-tiles);
+// src [R][stride] bf16, out float [MT 16][R].
+extern "C" void sweep_product(const uint16_t* w, int rows, int H, int trans,
+                              const uint16_t* src, int stride, int R,
+                              float* out, uint16_t* stored, int sstride) {
+  const int chunks = ldsm_chunks(H), HP = pad16(H);
+  static uint16_t s[1 << 20];
+  stage(w, rows, H, s);
+  const int M = trans ? HP : pad16(rows), K = trans ? rows : HP;
+  for (int m0 = 0; m0 < M; m0 += 16) {
+    for (int nt = 0; nt < R / 8; ++nt) {
+      float d[32][4] = {};
+      for (int k0 = 0; k0 < K; k0 += 16) {
+        int off[32];
+        uint32_t a[32][4], b[32][2];
+        for (int t = 0; t < 32; ++t)
+          off[t] = trans ? a_tile_offset(t, k0, m0, true, chunks, rows)
+                         : a_tile_offset(t, m0, k0, false, chunks, rows);
+        ldsm(s, off, trans != 0, a);
+        for (int t = 0; t < 32; ++t)
+          for (int i = 0; i < 2; ++i) {
+            uint32_t word;
+            memcpy(&word, src + b_offset(t, nt, k0, stride, i), 4);
+            b[t][i] = word;
+          }
+        mma(d, a, b);
+      }
+      for (int t = 0; t < 32; ++t)
+        for (int i = 0; i < 4; ++i)
+          out[(m0 + d_row(t, i)) * R + nt * 8 + d_col(t, i)] = d[t][i];
+      // The tile rounded, packed and transposed into stored [R][sstride].
+      for (int h = 0; h < 2; ++h) {
+        uint32_t pk[32], tr[32];
+        for (int t = 0; t < 32; ++t)
+          pk[t] = rn(d[t][2 * h]) | ((uint32_t)rn(d[t][2 * h + 1]) << 16);
+        movm(pk, tr);
+        for (int t = 0; t < 32; ++t)
+          memcpy(stored + t_offset(t, nt, m0, sstride, h), &tr[t], 4);
+      }
+    }
+  }
+}
+
+// One block's output tile of the contraction (8 warps of 32 x 32): out[i][j]
+// = sum_m As[m][i] Bs[m][j] over KS rows of slabs As [KS][as], Bs [KS][bs].
+extern "C" void contract_tile(const uint16_t* As, int as, const uint16_t* Bs,
+                              int bs, int KS, float* out, int J) {
+  for (int warp = 0; warp < 8; ++warp) {
+    const int wi = 32 * (warp >> 2), wj = 32 * (warp & 3);
+    float d[2][4][32][4] = {};
+    for (int k0 = 0; k0 < KS; k0 += 16) {
+      uint32_t a[2][32][4], bq[2][32][4];
+      for (int mi = 0; mi < 2; ++mi) {
+        int off[32];
+        for (int t = 0; t < 32; ++t)
+          off[t] = x4_offset(t, k0, wi + 16 * mi, as, kColsFirst);
+        ldsm(As, off, true, a[mi]);
+      }
+      for (int np = 0; np < 2; ++np) {
+        int off[32];
+        for (int t = 0; t < 32; ++t)
+          off[t] = x4_offset(t, k0, wj + 16 * np, bs, kRowsFirst);
+        ldsm(Bs, off, true, bq[np]);
+      }
+      for (int mi = 0; mi < 2; ++mi)
+        for (int ni = 0; ni < 4; ++ni) {
+          uint32_t b[32][2];
+          for (int t = 0; t < 32; ++t) {
+            b[t][0] = bq[ni >> 1][t][2 * (ni & 1)];
+            b[t][1] = bq[ni >> 1][t][2 * (ni & 1) + 1];
+          }
+          mma(d[mi][ni], a[mi], b);
+        }
+    }
+    for (int mi = 0; mi < 2; ++mi)
+      for (int ni = 0; ni < 4; ++ni)
+        for (int t = 0; t < 32; ++t)
+          for (int e = 0; e < 4; ++e)
+            out[(wi + 16 * mi + d_row(t, e)) * J + wj + 8 * ni + d_col(t, e)]
+                = d[mi][ni][t][e];
+  }
+}
+"""
+
+
+def _build(folder, header):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    folder.mkdir(parents=True, exist_ok=True)
+    (folder / "cuda_runtime.h").write_text(CUDA_STUB)
+    (folder / "mma_bf16.cuh").write_text(header)
+    (folder / "emulator.cpp").write_text(EMULATOR)
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+                    "-ffp-contract=off", f"-I{folder}", "-o",
+                    str(folder / "emulator.so"),
+                    str(folder / "emulator.cpp")], check=True)
+    lib = ctypes.CDLL(str(folder / "emulator.so"))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.sweep_product.argtypes = [P, I, I, I, P, I, I, P, P, I]
+    lib.contract_tile.argtypes = [P, I, P, I, I, P, I]
+    return lib
+
+
+@pytest.fixture(scope="module")
+def warp(tmp_path_factory):
+    """The header's arithmetic with the emulated warp, built for the host;
+    skipped where there is no host C++ compiler."""
+    return _build(tmp_path_factory.mktemp("mma_bf16"),
+                  (CSRC / "mma_bf16.cuh").read_text())
+
+
+def _bf16_bits(a):
+    """float32 values rounded to bf16 (to nearest even), as uint16 bits."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + 0x7fff + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def _from_bits(b):
+    return (b.astype(np.uint32) << 16).view(np.float32).astype(np.float64)
+
+
+def _ptr(a):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _sweep(warp, w, rows, H, trans, src, R):
+    """The emulated product and the stored [R][HP + 8] tile it leaves."""
+    HP = (H + 15) // 16 * 16
+    M = HP if trans else (rows + 15) // 16 * 16
+    out = np.zeros((M, R), np.float32)
+    stored = np.zeros((R, M + 8), np.uint16)
+    warp.sweep_product(_ptr(w), rows, H, int(trans), _ptr(src),
+                       src.shape[1], R, _ptr(out), _ptr(stored), M + 8)
+    return out, stored
+
+
+def _inputs(rng, *shape, scale=1.0):
+    return _bf16_bits(scale * rng.standard_normal(shape))
+
+
+# The float32 sum of a product of bf16 values against numpy's float64:
+# 1e-5 of the output's scale (at most 128 terms).
+REL = 1e-5
+
+
+def _check(got, want):
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=0, atol=REL * scale)
+
+
+@pytest.mark.parametrize("R", [8, 16])
+@pytest.mark.parametrize("L,C,H", [(4, 64, 128), (3, 5, 40)],
+                         ids=["flagship", "narrow"])
+def test_sweep_products_on_the_emulated_warp(warp, L, C, H, R):
+    """The sweep's three kinds of product, addressed as the kernel
+    addresses them: W x (layer 1: x = [z | ctx], D = L + C inputs, read
+    transposed, D = 68 padded to 80 at the flagship), W dpre (W2 going back:
+    dpre2 W2^T, as stored) and dpre1 W1^T (the inputs' m-tiles past D read
+    the zero row), against numpy; and the tiles rounded and transposed into
+    the [row][unit] layout the next product reads."""
+    rng = np.random.default_rng(H + R)
+    D, HP = L + C, (H + 15) // 16 * 16
+    w1, w2 = _inputs(rng, D, H, scale=0.3), _inputs(rng, H, H, scale=0.3)
+    xs = (D + 15) // 16 * 16 + 8
+    x = np.zeros((R, xs), np.uint16)
+    x[:, :D] = _inputs(rng, R, D)
+    dp = np.zeros((R, HP + 8), np.uint16)
+    dp[:, :H] = _inputs(rng, R, H)
+
+    got, stored = _sweep(warp, w1, D, H, True, x, R)
+    want = _from_bits(w1).T @ _from_bits(x[:, :D]).T
+    _check(got[:H], want)
+    assert not got[H:].any()
+    assert np.array_equal(stored[:, :HP], _bf16_bits(got.T))
+    for w, rows in ((w2, H), (w1, D)):
+        got, stored = _sweep(warp, w, rows, H, False, dp, R)
+        want = _from_bits(w) @ _from_bits(dp[:, :H]).T
+        _check(got[:rows], want)
+        assert not got[rows:].any()
+        assert np.array_equal(stored[:, :got.shape[0]], _bf16_bits(got.T))
+
+
+def test_contraction_tile_on_the_emulated_warps(warp):
+    """One 64 x 128 output tile of the contraction from a 32-row slab (A
+    and Bm read transposed by ldmatrix, eight warps of 32 x 32): out = A^T
+    Bm against numpy."""
+    rng = np.random.default_rng(7)
+    KS, TI, TJ = 32, 64, 128
+    A = np.zeros((KS, TI + 8), np.uint16)
+    Bm = np.zeros((KS, TJ + 8), np.uint16)
+    A[:, :TI] = _inputs(rng, KS, TI)
+    Bm[:, :TJ] = _inputs(rng, KS, TJ, scale=0.01)
+    out = np.zeros((TI, TJ), np.float32)
+    warp.contract_tile(_ptr(A), TI + 8, _ptr(Bm), TJ + 8, KS, _ptr(out), TJ)
+    _check(out, _from_bits(A[:, :TI]).T @ _from_bits(Bm[:, :TJ]))
+
+
+def test_swapped_fragment_rows_are_caught(tmp_path):
+    """The header with the two 8-row halves of an accumulator swapped
+    (d_row): the emulated products no longer match numpy, so the checks
+    above would fail it."""
+    header = (CSRC / "mma_bf16.cuh").read_text()
+    right = "return (lane >> 2) + 8 * (i >> 1);"
+    assert header.count(right) == 1
+    bad = _build(tmp_path, header.replace(
+        right, "return (lane >> 2) + 8 * (1 - (i >> 1));"))
+    rng = np.random.default_rng(1)
+    w = _inputs(rng, 68, 128, scale=0.3)
+    x = np.zeros((8, 88), np.uint16)
+    x[:, :68] = _inputs(rng, 8, 68)
+    got, _ = _sweep(bad, w, 68, 128, True, x, 8)
+    want = _from_bits(w).T @ _from_bits(x[:, :68]).T
+    with pytest.raises(AssertionError):
+        _check(got[:128], want)

@@ -35,7 +35,8 @@ SOURCES = ("latent_fused_fwd.cu", "latent_fused_bwd.cu", "gan_gen_fwd.cu",
            "philox_normal.cu")
 HEADERS = ("mixed_dtype.cuh", "latent_fused_common.cuh",
            "gan_fused_common.cuh", "gan_warp_rows.cuh", "gan_gen_bwd.cuh",
-           "tower_solve_common.cuh", "tower_fwd_tile.cuh", "mma_tf32.cuh")
+           "tower_solve_common.cuh", "tower_fwd_tile.cuh", "mma_tf32.cuh",
+           "mma_bf16.cuh")
 # Headers that generated sources include (library_for_source).
 SOURCE_HEADERS = ("srk_srid2.cuh",)
 BUILD_DIR = Path(os.environ.get(
@@ -98,8 +99,14 @@ def _bind(lib):
         f32 = getattr(lib, f"tsde_latent_fused_{name}")
         bf16 = getattr(lib, f"tsde_latent_fused_{name}_bf16")
         bf16.argtypes, bf16.restype = f32.argtypes, f32.restype
-    lib.tsde_latent_fused_bwd_workspace.argtypes = [I] * 5
-    lib.tsde_latent_fused_bwd_workspace.restype = ctypes.c_size_t
+    for name in ("", "_bf16"):
+        ws = getattr(lib, f"tsde_latent_fused_bwd_workspace{name}")
+        ws.argtypes = [I] * 5
+        ws.restype = ctypes.c_size_t
+    lib.tsde_latent_fused_bwd_smem_bytes_bf16.argtypes = [I, I, I]
+    lib.tsde_latent_fused_bwd_smem_bytes_bf16.restype = ctypes.c_size_t
+    lib.tsde_latent_fused_bwd_blocks_per_sm_bf16.argtypes = [I] * 5
+    lib.tsde_latent_fused_bwd_blocks_per_sm_bf16.restype = I
     lib.tsde_latent_fused_fwd_rows.argtypes = [I] * 6
     lib.tsde_latent_fused_fwd_rows.restype = I
     for name in ("fwd", "bwd"):

@@ -95,13 +95,15 @@
 // cotangents going into a product (df, dh, dpre2, dpre1, the g nets'
 // dpre2g and dpre1g) and the activations (the towers' a1 and a2, the g
 // nets' hidden units), while the activations for softplus' and the
-// cotangents themselves stay float32. The scratch keeps a1 and a2 rounded
-// (only the products read them) and the cotangents float32 (the biases'
-// gradients sum them unrounded), so the workspace is the float32 one; the
-// contraction rounds the cotangents as it multiplies. dctx and every weight
+// cotangents themselves stay float32. Its sweep and tiled contraction are
+// kernels of their own on bf16 tensor cores (latent_bwd_sweep_bf16,
+// latent_bwd_contract_bf16, below). The scratch holds what the products
+// read, a1, a2 and the cotangents rounded, in bf16: half the float32
+// workspace's bytes. The biases' gradients, JAX's sums of the unrounded
+// cotangents, are summed by the sweep on chip as the g nets' are, and the
+// reduction takes them from the blocks' partial rows. dctx and every weight
 // gradient are summed in float32 and rounded to bf16 once, by the caller;
-// dnoise goes out in bf16. The weights are widened into shared memory as
-// in latent_fused_fwd.cu.
+// dnoise goes out in bf16.
 //
 // K stacked replicas (tsde_latent_fused_bwd_multi) replace the Pallas
 // kernel _bwd_kernel_multi (launched by _fused_solve_multi_bwd_impl). The
@@ -113,6 +115,7 @@
 #include <stddef.h>
 
 #include "latent_fused_common.cuh"
+#include "mma_bf16.cuh"
 
 namespace tsde_latent_bwd {
 
@@ -238,13 +241,12 @@ __device__ __forceinline__ void load_rows(float (&v)[R], const float* p) {
   }
 }
 
-// (rows, cols) row-major into shared memory with row stride ld, widened
-// to float.
-template <int NT, typename W>
-__device__ __forceinline__ void copy_rows(float* dst, const W* src,
+// (rows, cols) row-major into shared memory with row stride ld.
+template <int NT>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
                                           int rows, int cols, int ld) {
   for (int e = threadIdx.x; e < rows * cols; e += NT)
-    dst[(e / cols) * ld + e % cols] = to_f(src[e]);
+    dst[(e / cols) * ld + e % cols] = src[e];
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -257,21 +259,20 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows of step s's inputs for the tile at row0: x = [pre-step z | context
-// row ctx_idx[s]] as [k][r] (z as a product's input: rounded to W), noise
-// and gz as [l][r], gq as [r]; rows past the batch are zero-filled. The
-// pre-step z is z0 at the solve's first step (`first`: s == 0 of the
-// window from step 0), else the state after the step before, zs[s - 1]
-// (before a later window's first step: the last state of the window
-// before it).
-template <int NT, int R, typename W>
+// row ctx_idx[s]] as [k][r], noise and gz as [l][r], gq as [r]; rows past
+// the batch are zero-filled. The pre-step z is z0 at the solve's first
+// step (`first`: s == 0 of the window from step 0), else the state after
+// the step before, zs[s - 1] (before a later window's first step: the
+// last state of the window before it).
+template <int NT, int R>
 __device__ __forceinline__ void prefetch_step(
-    int s, bool first, float* xb, float* iob, const float* z0, const W* zs,
-    const W* ctx, const int* ctx_idx, const W* noise, const W* gz,
+    int s, bool first, float* xb, float* iob, const float* z0, const float* zs,
+    const float* ctx, const int* ctx_idx, const float* noise, const float* gz,
     const float* gq, int row0, int B, int L, int C, int T) {
   const int D = L + C;
-  const W* zpre = zs + ptrdiff_t(s - 1) * B * L;
+  const float* zpre = zs + ptrdiff_t(s - 1) * B * L;
   const int ci = min(max(ctx_idx[s], 0), T - 1);
-  const W* cst = ctx + size_t(ci) * B * C;
+  const float* cst = ctx + size_t(ci) * B * C;
   for (int e = threadIdx.x; e < R * D; e += NT) {
     const int r = e / D, k = e % D, row = row0 + r;
     const bool valid = row < B;
@@ -279,7 +280,7 @@ __device__ __forceinline__ void prefetch_step(
     if (k >= L)
       stage(dst, valid ? cst + size_t(row) * C + (k - L) : ctx, valid);
     else if (first)
-      stage_rounded<W>(dst, valid ? z0 + size_t(row) * L + k : z0, valid);
+      stage(dst, valid ? z0 + size_t(row) * L + k : z0, valid);
     else
       stage(dst, valid ? zpre + size_t(row) * L + k : zs, valid);
   }
@@ -302,8 +303,9 @@ __device__ __forceinline__ void prefetch_step(
 // the default bound ptxas held the sweep to 128 and spilled; 168 and no
 // spills took kernel 2 from 3.44 to 3.31 ms (NVIDIA H100 80GB HBM3, 700 W,
 // chip_smoke.py --only ab).
-template <int NT, int R, typename W>
-__global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args<W> a) {
+template <int NT, int R>
+__global__ void __launch_bounds__(NT, 1)
+    latent_bwd_sweep(const Args<float> a) {
   constexpr int NTT = NT / 2;          // threads of a tower
   constexpr int NWT = NTT / 32;        // warps of a tower
   extern __shared__ __align__(16) float sm[];
@@ -321,20 +323,20 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args<W> a) {
   const size_t rep = replica(), steps = size_t(a.n_all) * B * L;
   const size_t M = size_t(n) * B;
   const float* z0 = a.z0 + rep * B * L;
-  const W* ctx = a.ctx + rep * a.T * B * C;
-  const W* noise = a.noise + rep * steps;
-  const W* zs = a.zs + rep * steps;
-  const W* gz = a.gz + rep * steps;
+  const float* ctx = a.ctx + rep * a.T * B * C;
+  const float* noise = a.noise + rep * steps;
+  const float* zs = a.zs + rep * steps;
+  const float* gz = a.gz + rep * steps;
   const float* gq = a.gq + rep * a.n_all * B;
   float* dz0 = a.dz0 + rep * B * L;
   float* dctx = a.dctx + rep * a.T * B * C;
-  W* dnoise = a.dnoise + rep * steps;
+  float* dnoise = a.dnoise + rep * steps;
   float* ws = a.ws + rep * a.ws_stride;
   float* sdf = ws + NSCRATCH * M * H;       // df, then dh: (n, B, L) each
   float* sdh = sdf + M * L;
   size_t wsize[NW];
   weight_sizes(L, C, H, wsize);
-  const W* wr[NW];
+  const float* wr[NW];
 #pragma unroll
   for (int i = 0; i < NW; ++i) wr[i] = a.w[i] + rep * wsize[i];
 
@@ -355,8 +357,8 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args<W> a) {
   copy_to_smem<NT>(sm + lay.hb3, wr[11], L);
   for (int e = tid; e < H * L; e += NT) {      // (H, L) -> [l][k]
     const int k = e / L, l = e % L;
-    sm[lay.fw3t + l * ld + k] = to_f(wr[4][e]);
-    sm[lay.hw3t + l * ld + k] = to_f(wr[10][e]);
+    sm[lay.fw3t + l * ld + k] = wr[4][e];
+    sm[lay.hw3t + l * ld + k] = wr[10][e];
   }
   copy_to_smem<NT>(sm + lay.gb2, wr[15], L);
   // The chain starts at zero, or where the window after this one left it:
@@ -381,9 +383,9 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args<W> a) {
   const float* hb3 = sm + lay.hb3;
   // The g nets' (L,1,H), (L,H), (L,H,1) weights as [l][k], each element
   // read by one thread (through L1); gb2 in shared memory.
-  const W* gw1 = wr[12];
-  const W* gb1 = wr[13];
-  const W* gw2 = wr[14];
+  const float* gw1 = wr[12];
+  const float* gb1 = wr[13];
+  const float* gw2 = wr[14];
   const float* gb2 = sm + lay.gb2;
   float* a1 = sm + lay.a1;
   float* a2 = sm + lay.a2;
@@ -431,7 +433,7 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args<W> a) {
       for (int r = 0; r < R; ++r) {
         const float v = softplus(acc[r] + b);
         a1t[j * R + r] = v;
-        if (row0 + r < B) sa1[(srow + r) * H + j] = rnd<W>(v);
+        if (row0 + r < B) sa1[(srow + r) * H + j] = v;
       }
     }
     if (tw == 1) {
@@ -446,7 +448,7 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args<W> a) {
           const float w2g = ldw(gw2 + l * H + k);
 #pragma unroll
           for (int r = 0; r < R; ++r)
-            t[r] = fmaf(rnd<W>(softplus(zv[r] * w1 + b1)), w2g, t[r]);
+            t[r] = fmaf(softplus(zv[r] * w1 + b1), w2g, t[r]);
         }
         warp_sum(t);
         if (lane == 0) {
@@ -469,14 +471,14 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args<W> a) {
         const float w = w2[k * ld + j];
         load_rows(v, a1t + k * R);
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(rnd<W>(v[r]), w, acc[r]);
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(v[r], w, acc[r]);
       }
       const float b = b2[j];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float u = softplus(acc[r] + b);
         a2t[j * R + r] = u;
-        if (row0 + r < B) sa2[(srow + r) * H + j] = rnd<W>(u);
+        if (row0 + r < B) sa2[(srow + r) * H + j] = u;
       }
     }
     for (int l = 0; l < L; ++l) {
@@ -487,7 +489,7 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args<W> a) {
         const float w = w3t[l * ld + k];
         load_rows(v, a2t + k * R);
 #pragma unroll
-        for (int r = 0; r < R; ++r) t[r] = fmaf(rnd<W>(v[r]), w, t[r]);
+        for (int r = 0; r < R; ++r) t[r] = fmaf(v[r], w, t[r]);
       }
       warp_sum(t);
       if (lane == 0) {
@@ -519,7 +521,7 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args<W> a) {
       const float dz = dzs[e] + iob[(L + l) * R + r];
       const float dW = iob[l * R + r];
       const size_t at = valid ? (size_t(s) * B + row) * L + l : 0;
-      if (valid) dnoise[at] = from_f<W>(dz * g);
+      if (valid) dnoise[at] = dz * g;
       const float du = ginc[r] * u * dt;
       const float df = dz * dt + du / gs;
       const float dh = -du / gs;
@@ -549,12 +551,12 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args<W> a) {
         const float w = w3t[l * ld + k];
         const float* d = dl + (tw * L + l) * R;
 #pragma unroll
-        for (int r = 0; r < R; ++r) da[r] = fmaf(rnd<W>(d[r]), w, da[r]);
+        for (int r = 0; r < R; ++r) da[r] = fmaf(d[r], w, da[r]);
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float p = da[r] * (1.f - expf(-v[r]));
-        a2t[k * R + r] = rnd<W>(p);       // G's products' input
+        a2t[k * R + r] = p;       // G's products' input
         if (row0 + r < B) sdp2[(srow + r) * H + k] = p;
       }
     }
@@ -572,10 +574,10 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args<W> a) {
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float act = softplus(zv[r] * w1 + b1);
-          const float d2r = rnd<W>(d2[r]);
-          sw2 = fmaf(rnd<W>(act), d2r, sw2);
+          const float d2r = d2[r];
+          sw2 = fmaf(act, d2r, sw2);
           const float dp1 = d2r * w2g * (1.f - expf(-act));
-          const float dp1r = rnd<W>(dp1);
+          const float dp1r = dp1;
           sw1 = fmaf(dp1r, zv[r], sw1);
           sb1 += dp1;
           tz[r] = fmaf(dp1r, w1, tz[r]);
@@ -620,8 +622,8 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args<W> a) {
       }
     }
 
-    // G. dpre1 = (dpre2 W2^T) * softplus'(a1), in place over a1 (rounded to
-    // W: H's products' input): thread k owns row k of W2.
+    // G. dpre1 = (dpre2 W2^T) * softplus'(a1), in place over a1: thread k
+    // owns row k of W2.
     for (int k = tt; k < H; k += NTT) {
       float da[R], v[R];
 #pragma unroll
@@ -637,7 +639,7 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args<W> a) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float p = da[r] * (1.f - expf(-v[r]));
-        a1t[k * R + r] = rnd<W>(p);
+        a1t[k * R + r] = p;
         if (row0 + r < B) sdp1[(srow + r) * H + k] = p;
       }
     }
@@ -703,6 +705,938 @@ __global__ void __launch_bounds__(NT, 1) latent_bwd_sweep(const Args<W> a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The sweep in bf16 mixed mode, on tensor cores (latent_bwd_sweep_bf16).
+//
+// The chain of latent_bwd_sweep, redesigned for bf16 operands. The weights
+// stay bf16 in shared memory (84 KB at the flagship, against the float
+// layout's 176), as [input][unit] rows laid out for ldmatrix
+// (tsde_bf16::ldsm_offset), and every product with a hidden-wide side runs
+// on mma.m16n8k16 with the weight as the 16-row A operand and the block's
+// 8 rows as the n = 8 B operand: layer 1 ([z | ctx] W1) and layer 2 of both
+// towers read the weights transposed, and going back dpre2 W2^T and dx =
+// dpre1 W1^T read the same rows as they are. A k-tile's rows past a
+// weight's end read a zero row. Each warp of a tower owns the same m-tiles
+// (16 units) in every stage, so the float32 a1 and a2 that softplus' needs
+// stay in its registers. An activation or cotangent is rounded once, two at
+// a time (cvt.rn.bf16x2), where it is written as the next product's B
+// operand: [row][unit] bf16 in shared memory, transposed by movmatrix; the
+// scratch takes the same rows by 16-byte stores, so it is bf16 and half the
+// float32 one. The L-wide products (layer 3 both ways) and the g nets stay
+// on FMAs. The biases' gradients are JAX's sums of the unrounded float32
+// cotangents: each unit's by the warp that owns it, a step's rows summed in
+// the warp, into on-chip sums flushed every FLUSH steps into the block's
+// partial row, as the g nets' are (they are carried between windows with
+// them). A step's inputs are loaded into registers once the step has read
+// its own for the last time and stored after its last product; its
+// context row and width a step ahead.
+//
+// What bounds it. Shared memory is 111,616 bytes at the flagship, so two
+// blocks fit an SM, and the launch takes registers for two (128 a thread;
+// ptxas spills some) where the grid has more blocks than the card has SMs
+// (kernel 4), else for one (kernel 2's 128 blocks; 255). With 8 or
+// 16 warps an SM each stage's chain of dependent instructions, not the
+// tensor cores, sets the time: the g nets' softplus and exp (F, B), the
+// products' ldmatrix-mma chains and their softplus (C, G, H), the one warp
+// of E (chip_smoke.py --only tiles reads the stages' clocks; PERF.md).
+
+// Stage clocks, for measurement only: a build with TSDE_STAGE_CLOCKS
+// defined (chip_smoke.py --only tiles) has thread 0 of every block of the
+// bf16 sweep add each stage's clock cycles, barrier waits included, to
+// tsde_stage_clocks[stage]; otherwise the marks are nothing.
+#ifdef TSDE_STAGE_CLOCKS
+__device__ unsigned long long tsde_stage_clocks[8];
+#define TSDE_MARK(i)                                                       \
+  do {                                                                     \
+    if (threadIdx.x == 0) {                                                \
+      const long long now = clock64();                                     \
+      atomicAdd(&tsde_stage_clocks[i],                                     \
+                static_cast<unsigned long long>(now - mark));              \
+      mark = now;                                                          \
+    }                                                                      \
+  } while (0)
+#else
+#define TSDE_MARK(i) \
+  do {               \
+  } while (0)
+#endif
+
+// Floats of the on-chip bias sums in mixed mode: the unit sums of dpre1f,
+// dpre2f, dpre1h, dpre2h ([4][H]), then df and dh by row ([2][L][R]).
+__host__ __device__ inline int bias_sum_floats(int L, int H, int R) {
+  return 4 * H + 2 * L * R;
+}
+
+// A sweep block's carried chain in mixed mode: the float one's, then the
+// bias sums.
+__host__ __device__ inline int carry_floats_bf16(int L, int H, int R) {
+  return carry_floats(L, H, R) + bias_sum_floats(L, H, R);
+}
+
+// Byte offsets of the bf16 sweep's shared memory, each on 16 bytes.
+struct Bf16Layout {
+  size_t fw1, fw2, hw1, hw2, zero, w3, b1, b2, b3, gb2, x, zf, io, act1,
+      act2, red, dl, dz, ginc, pdz, gacc, bacc, total;
+  int hp;   // H padded to 16
+  int wc;   // 16-byte chunks of a weight row (tsde_bf16::ldsm_chunks)
+  int as;   // row stride of the [tower][row][unit] activations (bf16)
+  int xs;   // row stride of x (bf16)
+};
+
+__host__ __device__ inline size_t take_bytes(size_t& at, size_t n) {
+  const size_t start = at;
+  at += (n + 15) & ~size_t(15);
+  return start;
+}
+
+__host__ __device__ inline Bf16Layout make_bf16_layout(int L, int C, int H,
+                                                       int NT, int R) {
+  Bf16Layout s;
+  size_t at = 0;
+  const size_t D = size_t(L) + C, h = H, l = L, nwt = NT / 64;
+  s.hp = tsde_bf16::pad16(H);
+  s.wc = tsde_bf16::ldsm_chunks(H);
+  // Row strides of 8 (mod 16) bf16: the 32-bit B-fragment reads and the
+  // transposed stores of a warp fall on 32 distinct banks.
+  s.as = s.hp + 8;
+  s.xs = tsde_bf16::pad16(int(D)) + 8;
+  const size_t row = size_t(s.wc) * 16;   // bytes of a weight row
+  const size_t hp = s.hp;
+  s.fw1 = take_bytes(at, D * row);        // [in][unit] bf16
+  s.fw2 = take_bytes(at, h * row);
+  s.hw1 = take_bytes(at, l * row);
+  s.hw2 = take_bytes(at, h * row);
+  s.zero = take_bytes(at, 16);            // the zero row
+  s.w3 = take_bytes(at, 2 * hp * l * 4);  // [tower][unit][l] float
+  s.b1 = take_bytes(at, 2 * hp * 4);      // [tower][unit] float
+  s.b2 = take_bytes(at, 2 * hp * 4);
+  s.b3 = take_bytes(at, 2 * l * 4);
+  s.gb2 = take_bytes(at, l * 4);
+  s.x = take_bytes(at, size_t(R) * s.xs * 2);       // [r][k] bf16
+  s.zf = take_bytes(at, l * R * 4);                 // [l][r]: z rounded
+  s.io = take_bytes(at, size_t(io_floats(L, R)) * 4);
+  s.act1 = take_bytes(at, 2 * size_t(R) * s.as * 2);   // a1, then dpre1
+  s.act2 = take_bytes(at, 2 * size_t(R) * s.as * 2);   // a2, then dpre2
+  s.red = take_bytes(at, 3 * nwt * l * R * 4);
+  s.dl = take_bytes(at, 3 * l * R * 4);   // df, dh, dpre2 of g, rounded
+  s.dz = take_bytes(at, l * R * 4);
+  s.ginc = take_bytes(at, size_t(R) * 4);
+  s.pdz = take_bytes(at, 2 * l * R * 4);  // dx's z parts of f and h
+  s.gacc = take_bytes(at, (3 * l * h + l * R) * 4);
+  s.bacc = take_bytes(at, size_t(bias_sum_floats(L, H, R)) * 4);
+  s.total = at;
+  return s;
+}
+
+// A step's inputs for a block's rows, element by element: x = [pre-step z
+// rounded | context row] (r, k) for e < R D, then noise and gz (r, l), then
+// gq (r), each as raw bits (bf16 in the low half, or a float); rows past the
+// batch are zero.
+struct StepIn {
+  const float* z0;
+  const __nv_bfloat16 *zs, *ctx, *noise, *gz;
+  const float* gq;
+  const int* ctx_idx;
+  int B, L, C, T, row0;
+};
+
+__device__ __forceinline__ uint32_t bf_bits(__nv_bfloat16 v) {
+  return __bfloat16_as_ushort(v);
+}
+
+template <int R>
+__device__ __forceinline__ int step_elems(const StepIn& in) {
+  return R * (in.L + in.C) + 2 * R * in.L + R;
+}
+
+// Element e of step s's inputs (`first`: z_pre is z0, rounded; ci: the
+// step's context row).
+template <int R>
+__device__ __forceinline__ uint32_t step_bits(const StepIn& in, int e, int s,
+                                              bool first, int ci) {
+  const int L = in.L, D = L + in.C;
+  if (e < R * D) {
+    const int r = e / D, k = e % D, row = in.row0 + r;
+    if (row >= in.B) return 0u;
+    if (k >= L)
+      return bf_bits(in.ctx[(size_t(ci) * in.B + row) * in.C + k - L]);
+    if (first)
+      return bf_bits(__float2bfloat16_rn(in.z0[size_t(row) * L + k]));
+    return bf_bits(
+        in.zs[(ptrdiff_t(s) - 1) * in.B * L + ptrdiff_t(row) * L + k]);
+  }
+  e -= R * D;
+  if (e < 2 * R * L) {
+    const int kind = e / (R * L), i = e % (R * L);
+    const int row = in.row0 + i / L;
+    if (row >= in.B) return 0u;
+    const __nv_bfloat16* src = kind ? in.gz : in.noise;
+    return bf_bits(src[(size_t(s) * in.B + row) * L + i % L]);
+  }
+  e -= 2 * R * L;
+  const int row = in.row0 + e;
+  return row < in.B ? __float_as_uint(in.gq[size_t(s) * in.B + row]) : 0u;
+}
+
+// Stores element e's bits: x [r][k] (xs the row stride), z also as float
+// zf [l][r], noise and gz as float io [kind][l][r], gq as io [2L][r].
+template <int R>
+__device__ __forceinline__ void put_step(const StepIn& in, int e, uint32_t v,
+                                         __nv_bfloat16* x, int xs, float* zf,
+                                         float* io) {
+  const int L = in.L, D = L + in.C;
+  if (e < R * D) {
+    const int r = e / D, k = e % D;
+    x[r * xs + k] = __ushort_as_bfloat16(static_cast<unsigned short>(v));
+    if (k < L) zf[k * R + r] = __uint_as_float(v << 16);
+    return;
+  }
+  e -= R * D;
+  if (e < 2 * R * L) {
+    const int kind = e / (R * L), i = e % (R * L);
+    io[(kind * L + i % L) * R + i / L] = __uint_as_float(v << 16);
+    return;
+  }
+  io[2 * L * R + e - 2 * R * L] = __uint_as_float(v);
+}
+
+// A thread's element of a step's inputs, decoded once (the decoding divides
+// by the widths): what it is, its offset in its source's slab for a step
+// (a step's context row for IN_CTX), and where it goes: x [r][k] (dst; z
+// also zf [l][r], dst2), or io. Rows past the batch are IN_NONE: their
+// zeros, stored with the first step's inputs, stay.
+enum InKind { IN_NONE, IN_CTX, IN_Z, IN_NOISE, IN_GZ, IN_GQ };
+struct InSlot {
+  int kind, src, dst, dst2;
+};
+
+template <int R>
+__device__ __forceinline__ InSlot in_slot(const StepIn& in, int e, int xs) {
+  const int L = in.L, D = L + in.C;
+  InSlot q{IN_NONE, 0, 0, 0};
+  if (e < R * D) {
+    const int r = e / D, k = e % D, row = in.row0 + r;
+    if (row < in.B) {
+      q.kind = k < L ? IN_Z : IN_CTX;
+      q.src = k < L ? row * L + k : row * in.C + k - L;
+      q.dst = r * xs + k;
+      q.dst2 = k * R + r;
+    }
+    return q;
+  }
+  e -= R * D;
+  if (e < 2 * R * L) {
+    const int kind = e / (R * L), i = e % (R * L);
+    const int r = i / L, l = i % L, row = in.row0 + r;
+    if (row < in.B) {
+      q.kind = kind ? IN_GZ : IN_NOISE;
+      q.src = row * L + l;
+      q.dst = (kind * L + l) * R + r;
+    }
+    return q;
+  }
+  e -= 2 * R * L;
+  if (e < R && in.row0 + e < in.B) {
+    q.kind = IN_GQ;
+    q.src = in.row0 + e;
+    q.dst = 2 * L * R + e;
+  }
+  return q;
+}
+
+// A slot's element of step s (`first`: z_pre is z0, rounded; ci: the
+// step's context row), as step_bits gives it.
+__device__ __forceinline__ uint32_t in_load(const StepIn& in, const InSlot& q,
+                                            int s, bool first, int ci) {
+  const size_t BL = size_t(in.B) * in.L;
+  switch (q.kind) {
+    case IN_CTX:
+      return bf_bits(in.ctx[size_t(ci) * in.B * in.C + q.src]);
+    case IN_Z:
+      return first ? bf_bits(__float2bfloat16_rn(in.z0[q.src]))
+                   : bf_bits(in.zs[(ptrdiff_t(s) - 1) * ptrdiff_t(BL) +
+                                   q.src]);
+    case IN_NOISE:
+      return bf_bits(in.noise[size_t(s) * BL + q.src]);
+    case IN_GZ:
+      return bf_bits(in.gz[size_t(s) * BL + q.src]);
+    case IN_GQ:
+      return __float_as_uint(in.gq[size_t(s) * in.B + q.src]);
+  }
+  return 0u;
+}
+
+__device__ __forceinline__ void in_store(const InSlot& q, uint32_t v,
+                                         __nv_bfloat16* x, float* zf,
+                                         float* io) {
+  if (q.kind == IN_CTX || q.kind == IN_Z) {
+    x[q.dst] = __ushort_as_bfloat16(static_cast<unsigned short>(v));
+    if (q.kind == IN_Z) zf[q.dst2] = __uint_as_float(v << 16);
+  } else if (q.kind == IN_NOISE || q.kind == IN_GZ) {
+    io[q.dst] = __uint_as_float(v << 16);
+  } else if (q.kind == IN_GQ) {
+    io[q.dst] = __uint_as_float(v);
+  }
+}
+
+// The A operand of a 16 x 16 tile of a weight stored [in][unit]
+// (ldsm_offset, `chunks` a row, `rows` rows; the zero row past them) from
+// stored row srow0 and column scol0: transposed (the product's rows are
+// units, its k inputs: the forward layers) or not (its rows are inputs:
+// going back).
+__device__ __forceinline__ void a_frag(uint32_t (&af)[4],
+                                       const __nv_bfloat16* w, int chunks,
+                                       int rows, const __nv_bfloat16* zero,
+                                       int srow0, int scol0, bool trans,
+                                       int lane) {
+  using namespace tsde_bf16;
+  const int at = a_tile_offset(lane, srow0, scol0, trans, chunks, rows);
+  const __nv_bfloat16* p = at < 0 ? zero : w + at;
+  if (trans)
+    ldsm_x4_trans(af, p);
+  else
+    ldsm_x4(af, p);
+}
+
+// The B operand of n-tile nt (rows 8 nt to 8 nt + 7) and k-tile k0 of a
+// [row][k] bf16 array of row stride `stride`.
+__device__ __forceinline__ void b_frag(const __nv_bfloat16* src, int stride,
+                                       int nt, int k0, int lane, uint32_t& b0,
+                                       uint32_t& b1) {
+  using tsde_bf16::b_offset;
+  b0 = *reinterpret_cast<const uint32_t*>(src +
+                                          b_offset(lane, nt, k0, stride, 0));
+  b1 = *reinterpret_cast<const uint32_t*>(src +
+                                          b_offset(lane, nt, k0, stride, 1));
+}
+
+// An accumulator-shaped tile v (units unit0.. x rows of n-tile nt),
+// rounded two at a time into pk, then transposed into the [row][unit]
+// array dst (row stride `stride`).
+__device__ __forceinline__ void put_tile(__nv_bfloat16* dst, int stride,
+                                         int unit0, int nt,
+                                         const float (&v)[4],
+                                         uint32_t (&pk)[2], int lane) {
+  using namespace tsde_bf16;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    pk[h] = pack(v[2 * h], v[2 * h + 1]);
+    *reinterpret_cast<uint32_t*>(dst + t_offset(lane, nt, unit0, stride, h)) =
+        transpose(pk[h]);
+  }
+}
+
+// Rows of a [tower][row][unit] bf16 array (row stride `stride`) to rows
+// srow.. of the towers' (n, B, H) scratch tensors f and h, the first `rows`
+// of the block's R; 16 bytes a store where H allows. tr0, c0: the thread's
+// first chunk, tower x R + row and column, decoded once (tr0 < 0: decode
+// each chunk here).
+template <int NT, int R>
+__device__ __forceinline__ void put_rows(const __nv_bfloat16* act, int stride,
+                                         __nv_bfloat16* f, __nv_bfloat16* h,
+                                         size_t srow, int H, int rows,
+                                         int tr0, int c0) {
+  if (H % 8 == 0) {
+    const int CH = H / 8;
+    for (int e = threadIdx.x; e < 2 * R * CH; e += NT) {
+      const bool own = tr0 >= 0 && e == int(threadIdx.x);
+      const int tr = own ? tr0 : e / CH, c = own ? c0 : e % CH;
+      const int t = tr / R, r = tr % R;
+      if (r < rows)
+        *reinterpret_cast<uint4*>((t ? h : f) + (srow + r) * H + 8 * c) =
+            *reinterpret_cast<const uint4*>(act + (t * R + r) * stride +
+                                            8 * c);
+    }
+  } else {
+    for (int e = threadIdx.x; e < 2 * R * H; e += NT) {
+      const int t = e / (R * H), r = (e / H) % R, j = e % H;
+      if (r < rows)
+        (t ? h : f)[(srow + r) * H + j] = act[(t * R + r) * stride + j];
+    }
+  }
+}
+
+// The g nets' output sums of output l over the units k = tt, tt + NTT, ...
+// and R rows (z rounded, zf [l][r]): out[r] = sum_k rnd(softplus(z_r w1 +
+// b1)) w2, summed over the warp (lane 0 writes out).
+template <int NTT, int R>
+__device__ __forceinline__ void gnet_forward(
+    int l, int H, int tt, int lane, const float* zf,
+    const __nv_bfloat16* gw1, const __nv_bfloat16* gb1,
+    const __nv_bfloat16* gw2, float* out) {
+  float t[R], zv[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) t[r] = 0.f;
+  load_rows(zv, zf + l * R);
+  for (int k = tt; k < H; k += NTT) {
+    const float w1 = ldw(gw1 + l * H + k);
+    const float b1 = ldw(gb1 + l * H + k);
+    const float w2g = ldw(gw2 + l * H + k);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      t[r] = fmaf(rnd<__nv_bfloat16>(softplus(zv[r] * w1 + b1)), w2g, t[r]);
+  }
+  warp_sum(t);
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) out[r] = t[r];
+  }
+}
+
+// The g nets' backward for output l (dpre2 of g rounded, dl2 [r]): their
+// weights' gradients summed on chip (gacc, each element by one thread),
+// their z-cotangent summed over the warp into out.
+template <int NTT, int R>
+__device__ __forceinline__ void gnet_backward(
+    int l, int L, int H, int tt, int lane, const float* zf, const float* dl2,
+    const __nv_bfloat16* gw1, const __nv_bfloat16* gb1,
+    const __nv_bfloat16* gw2, float* gacc, float* out) {
+  float tz[R], zv[R], d2[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) tz[r] = 0.f;
+  load_rows(zv, zf + l * R);
+  load_rows(d2, dl2);
+  for (int k = tt; k < H; k += NTT) {
+    const int i = l * H + k;
+    const float w1 = ldw(gw1 + i), b1 = ldw(gb1 + i);
+    const float w2g = ldw(gw2 + i);
+    float sw2 = 0.f, sw1 = 0.f, sb1 = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float v = softplus(zv[r] * w1 + b1);
+      sw2 = fmaf(rnd<__nv_bfloat16>(v), d2[r], sw2);
+      const float dp1 = d2[r] * w2g * (1.f - expf(-v));
+      const float dp1r = rnd<__nv_bfloat16>(dp1);
+      sw1 = fmaf(dp1r, zv[r], sw1);
+      sb1 += dp1;
+      tz[r] = fmaf(dp1r, w1, tz[r]);
+    }
+    gacc[i] += sw1;
+    gacc[L * H + i] += sb1;
+    gacc[2 * L * H + i] += sw2;
+  }
+  warp_sum(tz);
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) out[r] = tz[r];
+  }
+}
+
+// acc[i] += a warp's product over the k-tiles k0 < K for its m-tiles i <
+// nmt (first rows m0[i]): A from the weight w (transposed, TRANS: the
+// forward layers; else as stored, going back), B from the [row][k] bf16
+// array src. A k-tile's B fragments serve every m-tile, whose products are
+// independent chains.
+template <int MPW, int NR, bool TRANS>
+__device__ __forceinline__ void warp_mma(float (&acc)[MPW][NR][4],
+                                         const __nv_bfloat16* w, int chunks,
+                                         int rows, const __nv_bfloat16* zero,
+                                         const int (&m0)[MPW], int nmt, int K,
+                                         const __nv_bfloat16* src,
+                                         int stride, int lane) {
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t b[NR][2];
+#pragma unroll
+    for (int nt = 0; nt < NR; ++nt)
+      b_frag(src, stride, nt, k0, lane, b[nt][0], b[nt][1]);
+#pragma unroll
+    for (int i = 0; i < MPW; ++i) {
+      if (i < nmt) {
+        uint32_t af[4];
+        if (TRANS)
+          a_frag(af, w, chunks, rows, zero, k0, m0[i], true, lane);
+        else
+          a_frag(af, w, chunks, rows, zero, m0[i], k0, false, lane);
+#pragma unroll
+        for (int nt = 0; nt < NR; ++nt)
+          tsde_bf16::mma(acc[i][nt], af, b[nt][0], b[nt][1]);
+      }
+    }
+  }
+}
+
+// Sums v over the four lanes of a quad (q) and adds it to *dst from lane q
+// = 0 where `add`.
+__device__ __forceinline__ void quad_sum_add(float v, float* dst, bool add,
+                                             int lane) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  if (add && (lane & 3) == 0) *dst += v;
+}
+
+// NT threads (two towers of NT / 64 warps), R rows a block (R / 8 n-tiles),
+// MPW m-tiles a warp at most (MPW NT / 64 x 16 units a tower), MINB blocks
+// an SM for ptxas's register budget.
+template <int NT, int R, int MPW, int MINB>
+__global__ void __launch_bounds__(NT, MINB)
+    latent_bwd_sweep_bf16(const Args<__nv_bfloat16> a) {
+  using namespace tsde_bf16;
+  using bf = __nv_bfloat16;
+  constexpr int NTT = NT / 2, NWT = NTT / 32, NWARP = NT / 32, NR = R / 8;
+  constexpr int PF = 3 * NR;   // a step's input elements a thread holds
+  static_assert(R % 8 == 0 && NT % 64 == 0, "rows in n-tiles, two towers");
+  extern __shared__ __align__(16) unsigned char smb[];
+  const int L = a.L, C = a.C, H = a.H, B = a.B, D = L + C, n = a.n;
+  const Bf16Layout lay = make_bf16_layout(L, C, H, NT, R);
+  const int MT = lay.hp / 16, WC = lay.wc, AS = lay.as, XS = lay.xs;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tw = tid / NTT, tt = tid % NTT, wt = tt / 32;
+  const int row0 = blockIdx.x * R, rows = min(R, B - row0);
+  const int top = a.n_all - a.lo;
+
+  const size_t rep = replica(), steps = size_t(a.n_all) * B * L;
+  const size_t M = size_t(n) * B, MH = M * H;
+  const StepIn in{a.z0 + rep * B * L, a.zs + rep * steps,
+                  a.ctx + rep * a.T * B * C, a.noise + rep * steps,
+                  a.gz + rep * steps, a.gq + rep * a.n_all * B, a.ctx_idx,
+                  B, L, C, a.T, row0};
+  float* dz0 = a.dz0 + rep * B * L;
+  float* dctx = a.dctx + rep * a.T * B * C;
+  bf* dnoise = a.dnoise + rep * steps;
+  float* ws = a.ws + rep * a.ws_stride;
+  bf* scr = reinterpret_cast<bf*>(ws);      // the scratch, bf16
+  bf* sdf = scr + NSCRATCH * MH;            // df, then dh: (n, B, L) each
+  bf* sdh = sdf + M * L;
+  size_t wsize[NW];
+  weight_sizes(L, C, H, wsize);
+  const bf* wr[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) wr[i] = a.w[i] + rep * wsize[i];
+
+  bf* fw1 = reinterpret_cast<bf*>(smb + lay.fw1);
+  bf* fw2 = reinterpret_cast<bf*>(smb + lay.fw2);
+  bf* hw1 = reinterpret_cast<bf*>(smb + lay.hw1);
+  bf* hw2 = reinterpret_cast<bf*>(smb + lay.hw2);
+  bf* zero = reinterpret_cast<bf*>(smb + lay.zero);
+  float* w3s = reinterpret_cast<float*>(smb + lay.w3);
+  float* b1s = reinterpret_cast<float*>(smb + lay.b1);
+  float* b2s = reinterpret_cast<float*>(smb + lay.b2);
+  float* b3s = reinterpret_cast<float*>(smb + lay.b3);
+  float* gb2 = reinterpret_cast<float*>(smb + lay.gb2);
+  bf* x = reinterpret_cast<bf*>(smb + lay.x);
+  float* zf = reinterpret_cast<float*>(smb + lay.zf);
+  float* io = reinterpret_cast<float*>(smb + lay.io);
+  bf* act1 = reinterpret_cast<bf*>(smb + lay.act1);
+  bf* act2 = reinterpret_cast<bf*>(smb + lay.act2);
+  float* red = reinterpret_cast<float*>(smb + lay.red);
+  float* dl = reinterpret_cast<float*>(smb + lay.dl);
+  float* dzs = reinterpret_cast<float*>(smb + lay.dz);
+  float* ginc = reinterpret_cast<float*>(smb + lay.ginc);
+  float* pdz = reinterpret_cast<float*>(smb + lay.pdz);
+  float* gacc = reinterpret_cast<float*>(smb + lay.gacc);
+  float* bacc = reinterpret_cast<float*>(smb + lay.bacc);
+
+  // The weights: W1 and W2 of both towers as [in][unit] bf16 (units past H
+  // zero), W3 as float [tower][unit][l], the biases as float.
+  const bf zb = __ushort_as_bfloat16(0);
+  const struct {
+    bf* dst;
+    int src, rows;
+  } wl[4] = {{fw1, 0, D}, {fw2, 2, H}, {hw1, 6, L}, {hw2, 8, H}};
+  for (int w = 0; w < 4; ++w) {
+    for (int e = tid; e < wl[w].rows * lay.hp; e += NT) {
+      const int k = e / lay.hp, j = e % lay.hp;
+      wl[w].dst[ldsm_offset(k, j, WC)] =
+          j < H ? wr[wl[w].src][size_t(k) * H + j] : zb;
+    }
+  }
+  for (int e = tid; e < 8; e += NT) zero[e] = zb;
+  for (int e = tid; e < 2 * lay.hp * L; e += NT) {
+    const int t = e / (lay.hp * L), j = (e / L) % lay.hp, l = e % L;
+    w3s[e] = j < H ? to_f(wr[t ? 10 : 4][j * L + l]) : 0.f;
+  }
+  for (int e = tid; e < 2 * lay.hp; e += NT) {
+    const int t = e / lay.hp, j = e % lay.hp;
+    b1s[e] = j < H ? to_f(wr[t ? 7 : 1][j]) : 0.f;
+    b2s[e] = j < H ? to_f(wr[t ? 9 : 3][j]) : 0.f;
+  }
+  for (int e = tid; e < 2 * L; e += NT)
+    b3s[e] = to_f(wr[e < L ? 5 : 11][e % L]);
+  for (int e = tid; e < L; e += NT) gb2[e] = to_f(wr[15][e]);
+  for (int e = tid; e < R * XS; e += NT)      // x past D stays zero
+    if (e % XS >= D) x[e] = zb;
+  // The chain starts at zero, or where the window after this one left it:
+  // dz, ginc, the g nets' sums, the bias sums.
+  const int CW = carry_floats_bf16(L, H, R);
+  float* carry = ws + a.carry + size_t(blockIdx.x) * CW;
+  for (int e = tid; e < L * R; e += NT)
+    dzs[e] = a.carry_in ? carry[e] : 0.f;
+  for (int e = tid; e < R; e += NT)
+    ginc[e] = a.carry_in ? carry[L * R + e] : 0.f;
+  const int GA = 3 * L * H + L * R, BA = bias_sum_floats(L, H, R);
+  for (int e = tid; e < GA; e += NT)
+    gacc[e] = a.carry_in ? carry[(L + 1) * R + e] : 0.f;
+  for (int e = tid; e < BA; e += NT)
+    bacc[e] = a.carry_in ? carry[(L + 1) * R + GA + e] : 0.f;
+  // The step's context row and width, loaded a step ahead.
+  int ci = min(max(__ldg(a.ctx_idx + n - 1), 0), a.T - 1);
+  float dt = __ldg(a.dts + n - 1);
+  const int E = step_elems<R>(in);
+  for (int e = tid; e < E; e += NT)
+    put_step<R>(in, e, step_bits<R>(in, e, n - 1, n == 1 && a.lo == 0, ci),
+                x, XS, zf, io);
+  // With registers for one block an SM, the thread's elements of a step's
+  // inputs and its first chunk of the scratch rows are decoded here once;
+  // with two, where registers are short, where they are used.
+  constexpr bool decoded = MINB == 1;
+  InSlot slot[decoded ? PF : 1];
+  if constexpr (decoded) {
+#pragma unroll
+    for (int i = 0; i < PF; ++i) slot[i] = in_slot<R>(in, tid + i * NT, XS);
+  }
+  const int tr0 = decoded && H % 8 == 0 ? tid / (H / 8) : -1;
+  const int c0 = decoded && H % 8 == 0 ? tid % (H / 8) : 0;
+  __syncthreads();
+
+  // This thread's tower.
+  const bf* w1t = tw ? hw1 : fw1;
+  const bf* w2t = tw ? hw2 : fw2;
+  const int kin = tw ? L : D;
+  const float* b1t = b1s + tw * lay.hp;
+  const float* b2t = b2s + tw * lay.hp;
+  const float* w3t = w3s + tw * lay.hp * L;
+  bf* act1t = act1 + tw * R * AS;
+  bf* act2t = act2 + tw * R * AS;
+  float* bsum1 = bacc + 2 * tw * H;          // dpre1's unit sums
+  float* bsum2 = bsum1 + H;                  // dpre2's
+  float* bsum3 = bacc + 4 * H;               // df's, then dh's [l][r]
+  float* part = ws + a.parts + blockIdx.x * a.P;   // the block's partial row
+  const bf* gw1 = wr[12];
+  const bf* gb1 = wr[13];
+  const bf* gw2 = wr[14];
+  // This lane's a1 and a2 (float), and a2 rounded, packed.
+  float a1r[MPW][NR][4], a2r[MPW][NR][4];
+  uint32_t a2p[MPW][NR][2];
+  // The warp's m-tiles of its tower: wt, wt + NWT, ... (nmt of them).
+  int m0[MPW];
+#pragma unroll
+  for (int i = 0; i < MPW; ++i) m0[i] = 16 * (wt + i * NWT);
+  const int nmt = min(MPW, max(0, (MT - wt + NWT - 1) / NWT));
+
+#ifdef TSDE_STAGE_CLOCKS
+  long long mark = clock64();
+#endif
+  for (int s = n - 1; s >= 0; --s) {
+    const size_t srow = size_t(s) * B + row0;    // scratch row of r = 0
+    const bool prev = s > 0, first = s == 1 && a.lo == 0;
+    const int ci_prev =
+        prev ? min(max(__ldg(a.ctx_idx + s - 1), 0), a.T - 1) : 0;
+    const float dt_prev = prev ? __ldg(a.dts + s - 1) : 0.f;
+    for (int r = tid; r < R; r += NT) ginc[r] += io[2 * L * R + r];
+
+    // B. Layer 1 of the tower on the warp's m-tiles (a1 kept, rounded into
+    // act1); then the g nets' output sums, tower t taking the outputs l =
+    // t, t + 2, ...
+    {
+      float acc[MPW][NR][4] = {};
+      warp_mma<MPW, NR, true>(acc, w1t, WC, kin, zero, m0, nmt, kin, x, XS,
+                              lane);
+#pragma unroll
+      for (int i = 0; i < MPW; ++i) {
+        if (i >= nmt) break;
+#pragma unroll
+        for (int nt = 0; nt < NR; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = m0[i] + d_row(lane, e);
+            a1r[i][nt][e] = j < H ? softplus(acc[i][nt][e] + b1t[j]) : 0.f;
+          }
+          uint32_t pk[2];
+          put_tile(act1t, AS, m0[i], nt, a1r[i][nt], pk, lane);
+        }
+      }
+    }
+    for (int l = tw; l < L; l += 2)
+      gnet_forward<NTT, R>(l, H, tt, lane, zf, gw1, gb1, gw2,
+                           red + ((2 * NWT + wt) * L + l) * R);
+    __syncthreads();
+    TSDE_MARK(0);
+
+    // C. a1 to the scratch; layer 2 (a2 kept, rounded into act2) and layer
+    // 3's sums over the lane's units, then over the warp.
+    put_rows<NT, R>(act1, AS, scr + A1F * MH, scr + A1H * MH, srow, H, rows,
+                    tr0, c0);
+    {
+      float acc[MPW][NR][4] = {};
+      warp_mma<MPW, NR, true>(acc, w2t, WC, H, zero, m0, nmt, H, act1t, AS,
+                              lane);
+#pragma unroll
+      for (int i = 0; i < MPW; ++i) {
+        if (i >= nmt) break;
+#pragma unroll
+        for (int nt = 0; nt < NR; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = m0[i] + d_row(lane, e);
+            a2r[i][nt][e] = j < H ? softplus(acc[i][nt][e] + b2t[j]) : 0.f;
+          }
+          put_tile(act2t, AS, m0[i], nt, a2r[i][nt], a2p[i][nt], lane);
+        }
+      }
+    }
+    for (int l = 0; l < L; ++l) {
+      float t[NR][2] = {};
+#pragma unroll
+      for (int i = 0; i < MPW; ++i) {
+        if (i >= nmt) break;
+#pragma unroll
+        for (int nt = 0; nt < NR; ++nt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float w = w3t[(m0[i] + 8 * h + (lane >> 2)) * L + l];
+            t[nt][0] = fmaf(lo_f(a2p[i][nt][h]), w, t[nt][0]);
+            t[nt][1] = fmaf(hi_f(a2p[i][nt][h]), w, t[nt][1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NR; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1)
+            t[nt][c] += __shfl_xor_sync(0xffffffffu, t[nt][c], off);
+          if (lane < 4)
+            red[((tw * NWT + wt) * L + l) * R + 8 * nt + 2 * lane + c] =
+                t[nt][c];
+        }
+      }
+    }
+    __syncthreads();
+    TSDE_MARK(1);
+
+    // E. a2 to the scratch. Per row and output: the step's f, h, g, u and
+    // the cotangents of f, h and of g's pre-activation (kept rounded, the
+    // products' inputs; their sums unrounded); dnoise; dz takes gz.
+    put_rows<NT, R>(act2, AS, scr + A2F * MH, scr + A2H * MH, srow, H, rows,
+                    tr0, c0);
+    for (int e = tid; e < L * R; e += NT) {
+      const int l = e / R, r = e % R, row = row0 + r;
+      const bool valid = row < B;
+      float pf = 0.f, ph = 0.f, pg = 0.f;
+      for (int w = 0; w < NWT; ++w) {
+        pf += red[((0 * NWT + w) * L + l) * R + r];
+        ph += red[((1 * NWT + w) * L + l) * R + r];
+        pg += red[((2 * NWT + w) * L + l) * R + r];
+      }
+      const float f = pf + b3s[l];
+      const float h = ph + b3s[L + l];
+      const float g = sigmoid(pg + gb2[l]);
+      const bool big = g > EPS;
+      const float gs = big ? g : EPS;
+      const float u = (f - h) / gs;
+      const float dz = dzs[e] + io[(L + l) * R + r];
+      const float dW = io[l * R + r];
+      const size_t at = valid ? (size_t(s) * B + row) * L + l : 0;
+      if (valid) dnoise[at] = from_f<bf>(dz * g);
+      const float du = ginc[r] * u * dt;
+      const float df = dz * dt + du / gs;
+      const float dh = -du / gs;
+      const float dg = dz * dW - (big ? du * u / gs : 0.f);
+      const float d2 = dg * g * (1.f - g);
+      dl[(0 * L + l) * R + r] = rnd<bf>(df);
+      dl[(1 * L + l) * R + r] = rnd<bf>(dh);
+      dl[(2 * L + l) * R + r] = rnd<bf>(d2);
+      dzs[e] = dz;
+      gacc[3 * L * H + e] += d2;
+      bsum3[e] += df;
+      bsum3[L * R + e] += dh;
+      if (valid) {
+        sdf[at] = from_f<bf>(df);
+        sdh[at] = from_f<bf>(dh);
+      }
+    }
+    __syncthreads();
+    TSDE_MARK(2);
+
+    // F. dpre2 = (dl W3^T) softplus'(a2) on the lane's units (rounded into
+    // act2, over a2) and its unit sums; the g nets' backward, tower t taking
+    // the outputs l = t, t + 2, ...: their gradients summed on chip, their
+    // z-cotangent as per-warp sums.
+#pragma unroll
+    for (int i = 0; i < MPW; ++i) {
+      if (i >= nmt) break;
+      float bs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < NR; ++nt) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = m0[i] + d_row(lane, e), r = 8 * nt + d_col(lane, e);
+          float da = 0.f;
+          for (int l = 0; l < L; ++l)
+            da = fmaf(dl[(tw * L + l) * R + r], w3t[j * L + l], da);
+          p[e] = da * (1.f - expf(-a2r[i][nt][e]));
+        }
+        uint32_t pk[2];
+        put_tile(act2t, AS, m0[i], nt, p, pk, lane);
+        bs[0] += p[0] + p[1];
+        bs[1] += p[2] + p[3];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = m0[i] + 8 * h + (lane >> 2);
+        quad_sum_add(bs[h], bsum2 + j, j < H, lane);
+      }
+    }
+    for (int l = tw; l < L; l += 2)
+      gnet_backward<NTT, R>(l, L, H, tt, lane, zf, dl + (2 * L + l) * R, gw1,
+                            gb1, gw2, gacc, red + (wt * L + l) * R);
+    __syncthreads();
+    TSDE_MARK(3);
+
+    // The step before's inputs start to arrive: the step's own are read for
+    // the last time above; they are stored after H.
+    uint32_t pf[PF];
+#pragma unroll
+    for (int i = 0; i < PF; ++i) {
+      if constexpr (decoded) {
+        if (prev) pf[i] = in_load(in, slot[i], s - 1, first, ci_prev);
+      } else {
+        const int e = tid + i * NT;
+        if (prev && e < E) pf[i] = step_bits<R>(in, e, s - 1, first, ci_prev);
+      }
+    }
+
+    // G. dpre2 to the scratch; dpre1 = (dpre2 W2^T) softplus'(a1) on the
+    // lane's units (rounded into act1, over a1) and its unit sums.
+    put_rows<NT, R>(act2, AS, scr + DP2F * MH, scr + DP2H * MH, srow, H,
+                    rows, tr0, c0);
+    {
+      float acc[MPW][NR][4] = {};
+      warp_mma<MPW, NR, false>(acc, w2t, WC, H, zero, m0, nmt, H, act2t, AS,
+                               lane);
+#pragma unroll
+      for (int i = 0; i < MPW; ++i) {
+        if (i >= nmt) break;
+        float bs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int nt = 0; nt < NR; ++nt) {
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            p[e] = acc[i][nt][e] * (1.f - expf(-a1r[i][nt][e]));
+          uint32_t pk[2];
+          put_tile(act1t, AS, m0[i], nt, p, pk, lane);
+          bs[0] += p[0] + p[1];
+          bs[1] += p[2] + p[3];
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = m0[i] + 8 * h + (lane >> 2);
+          quad_sum_add(bs[h], bsum1 + k, k < H, lane);
+        }
+      }
+    }
+    __syncthreads();
+    TSDE_MARK(4);
+
+    // H. dpre1 to the scratch. Every FLUSH steps of the solve the on-chip
+    // sums join the block's partial row (the g nets' as in
+    // latent_bwd_sweep; the biases' after G, which adds dpre1's). Then dx =
+    // dpre1 W1^T: the m-tiles of f's D inputs and h's L over the warps, the
+    // z parts into pdz, the context part into dctx[ctx_idx[s]] (each element
+    // by one lane, in step order).
+    put_rows<NT, R>(act1, AS, scr + DP1F * MH, scr + DP1H * MH, srow, H,
+                    rows, tr0, c0);
+    if ((top - s) % FLUSH == 0 || (s == 0 && a.lo == 0)) {
+      const bool fst = top - s <= FLUSH;
+      for (int e = tid; e < 3 * L * H; e += NT) {
+        float* p = part + a.off[12] + e;
+        *p = fst ? gacc[e] : *p + gacc[e];
+        gacc[e] = 0.f;
+      }
+      for (int l = tid; l < L; l += NT) {
+        float v = 0.f;
+        for (int r = 0; r < R; ++r) {
+          v += gacc[3 * L * H + l * R + r];
+          gacc[3 * L * H + l * R + r] = 0.f;
+        }
+        float* p = part + a.off[15] + l;
+        *p = fst ? v : *p + v;
+      }
+      for (int e = tid; e < 4 * H; e += NT) {
+        const int b = e / H;   // fb1, fb2, hb1, hb2
+        float* p = part + a.off[(b >> 1) * 6 + 1 + 2 * (b & 1)] + e % H;
+        *p = fst ? bacc[e] : *p + bacc[e];
+        bacc[e] = 0.f;
+      }
+      for (int e = tid; e < 2 * L; e += NT) {
+        const int t = e / L, l = e % L;
+        float v = 0.f;
+        for (int r = 0; r < R; ++r) {
+          v += bsum3[(t * L + l) * R + r];
+          bsum3[(t * L + l) * R + r] = 0.f;
+        }
+        float* p = part + a.off[t ? 11 : 5] + l;
+        *p = fst ? v : *p + v;
+      }
+    }
+    const int MXF = (D + 15) / 16, MX = MXF + (L + 15) / 16;
+    for (int mx = warp; mx < MX; mx += NWARP) {
+      const int t = mx < MXF ? 0 : 1, m0 = 16 * (t ? mx - MXF : mx);
+      float acc[1][NR][4] = {};
+      const int mx0[1] = {m0};
+      warp_mma<1, NR, false>(acc, t ? hw1 : fw1, WC, t ? L : D, zero, mx0, 1,
+                             H, act1 + t * R * AS, AS, lane);
+#pragma unroll
+      for (int nt = 0; nt < NR; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = m0 + d_row(lane, e), r = 8 * nt + d_col(lane, e);
+          if (k < L)
+            pdz[(t * L + k) * R + r] = acc[0][nt][e];
+          else if (t == 0 && k < D && r < rows)
+            dctx[(size_t(ci) * B + row0 + r) * C + k - L] += acc[0][nt][e];
+        }
+      }
+    }
+    if (prev) {
+#pragma unroll
+      for (int i = 0; i < PF; ++i) {
+        if constexpr (decoded) {
+          in_store(slot[i], pf[i], x, zf, io);
+        } else {
+          const int e = tid + i * NT;
+          if (e < E) put_step<R>(in, e, pf[i], x, XS, zf, io);
+        }
+      }
+      for (int e = tid + PF * NT; e < E; e += NT)
+        put_step<R>(in, e, step_bits<R>(in, e, s - 1, first, ci_prev), x,
+                    XS, zf, io);
+    }
+    __syncthreads();
+    TSDE_MARK(5);
+
+    // I. dz takes the z parts of dx (f's, h's) and the g nets'
+    // z-cotangents.
+    for (int e = tid; e < L * R; e += NT) {
+      const int l = e / R, r = e % R;
+      float v = dzs[e] + pdz[l * R + r] + pdz[(L + l) * R + r];
+      for (int w = 0; w < NWT; ++w) v += red[(w * L + l) * R + r];
+      dzs[e] = v;
+    }
+    ci = ci_prev;
+    dt = dt_prev;
+    TSDE_MARK(6);
+  }
+  __syncthreads();
+
+  if (a.carry_out) {              // the window before this one goes on
+    for (int e = tid; e < L * R; e += NT) carry[e] = dzs[e];
+    for (int e = tid; e < R; e += NT) carry[L * R + e] = ginc[e];
+    for (int e = tid; e < GA; e += NT) carry[(L + 1) * R + e] = gacc[e];
+    for (int e = tid; e < BA; e += NT)
+      carry[(L + 1) * R + GA + e] = bacc[e];
+    return;
+  }
+  for (int e = tid; e < R * L; e += NT) {
+    const int r = e / L, l = e % L, row = row0 + r;
+    if (row < B) dz0[size_t(row) * L + l] = dzs[l * R + r];
+  }
+}
+
 // A product of the contraction: out[i][j] = sum over rows m of
 // A[m][i] * Bm[m][j], into a chunk's partial row at `out` (row-major, I x J),
 // and the bias row out[I][j] = sum over m of Bm[m][j] (the layer's bias
@@ -714,11 +1648,10 @@ struct Job {
   int I, J, tiles_j, tile0;
 };
 
-template <typename W>
 struct ContractArgs {
   Job job[3];
   int njobs;
-  const W* ctx;
+  const float* ctx;
   const int* ctx_idx;
   float* ws;
   size_t ws_stride, parts, P;
@@ -728,17 +1661,16 @@ struct ContractArgs {
 // Loads rows [m, m + KS) of a job's A tile (columns i0..i0+TI) and Bm tile
 // (columns j0..j0+TJ) into one slab buffer; zero past the chunk's end and
 // the matrices' edges.
-template <typename W>
-__device__ __forceinline__ void load_slab(const ContractArgs<W>& a,
+__device__ __forceinline__ void load_slab(const ContractArgs& a,
                                           const Job& jb, const float* A,
-                                          const float* Bm, const W* ctx,
+                                          const float* Bm, const float* ctx,
                                           int m, int m1, int i0, int j0,
                                           float* As, float* Bs) {
   for (int e = threadIdx.x; e < KS * TI; e += CT) {
     const int kk = e / TI, i = e % TI, mm = m + kk, gi = i0 + i;
     const bool valid = mm < m1 && gi < jb.I;
     if (jb.ctx_rows) {
-      const W* src = ctx;
+      const float* src = ctx;
       if (valid) {
         const int s = mm / a.B, b = mm % a.B;
         const int ci = min(max(a.ctx_idx[s], 0), a.T - 1);
@@ -760,12 +1692,10 @@ __device__ __forceinline__ void load_slab(const ContractArgs<W>& a,
 }
 
 // One output tile of one product over one chunk of rows; grid (tiles,
-// chunks, replicas). A (the scratch's activations, or the context) holds
-// products' inputs as they are; Bm (the cotangents) is rounded to W as the
-// products read it, and summed unrounded into the bias row.
-template <typename W>
+// chunks, replicas). A is the scratch's activations or the context, Bm
+// the cotangents, also summed into the bias row.
 __global__ void __launch_bounds__(CT)
-    latent_bwd_contract(const ContractArgs<W> a) {
+    latent_bwd_contract(const ContractArgs a) {
   __shared__ __align__(16) float As[2][KS * TI];
   __shared__ __align__(16) float Bs[2][KS * TJ];
   const int tile = blockIdx.x;
@@ -777,7 +1707,7 @@ __global__ void __launch_bounds__(CT)
   const int m0 = blockIdx.y * RC, m1 = min(a.M, m0 + RC);
   const size_t rep = blockIdx.z;
   const float* ws = a.ws + rep * a.ws_stride;
-  const W* ctx = a.ctx + rep * size_t(a.T) * a.B * a.C;
+  const float* ctx = a.ctx + rep * size_t(a.T) * a.B * a.C;
   const float* A = ws + jb.a;
   const float* Bm = ws + jb.b;
   const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
@@ -816,9 +1746,9 @@ __global__ void __launch_bounds__(CT)
       const float4 b1 =
           *reinterpret_cast<const float4*>(bs + kk * TJ + 64 + tj * 4);
       const float av_[4] = {av.x, av.y, av.z, av.w};
-      const float bv[8] = {rnd<W>(b0.x), rnd<W>(b0.y), rnd<W>(b0.z),
-                           rnd<W>(b0.w), rnd<W>(b1.x), rnd<W>(b1.y),
-                           rnd<W>(b1.z), rnd<W>(b1.w)};
+      const float bv[8] = {b0.x, b0.y, b0.z,
+                           b0.w, b1.x, b1.y,
+                           b1.z, b1.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -842,6 +1772,178 @@ __global__ void __launch_bounds__(CT)
     out[size_t(jb.I) * jb.J + j0 + threadIdx.x] = static_cast<float>(bsum);
 }
 
+// The contraction in mixed mode, on tensor cores: every product of the
+// towers' weights as out = A^T Bm over one chunk of rows, A and Bm bf16 as
+// the sweep stored them (or A gathered: the context rows, or z_pre, z0
+// rounded or zs), 32-row slabs double-buffered by 16-byte cp.async
+// (element by element where a row is not whole 16-byte chunks), 64 x 128
+// output tiles, each warp 32 x 32 of them as 2 x 4 m16n8k16 products with A
+// and Bm read by ldmatrix.trans. The L-wide products (fw1's z rows, hw1,
+// fw3, hw3) are tiles too, zero past their L rows or columns: what they
+// cost is the bytes they read, which the tiles read once. No bias rows:
+// the sweep sums the biases.
+constexpr int CKS = 32;                    // rows of a slab
+constexpr int CAS = TI + 8, CBS = TJ + 8;  // slab row strides (bf16)
+constexpr int NJOBS16 = 7;
+enum Source { FROM_SCRATCH, FROM_CTX, FROM_ZPRE };
+
+struct Job16 {
+  size_t a, b, out;   // A's and Bm's offsets in the scratch (bf16), out's
+                      // in a partial row
+  int src;            // A: the scratch, ctx[ctx_idx[m / B]][m % B], or
+                      // z_pre (z0 for the solve's first step, else zs[-1])
+  int I, J, tiles_j, tile0;
+};
+
+struct ContractArgs16 {
+  Job16 job[NJOBS16];
+  int njobs;
+  const __nv_bfloat16* ctx;
+  const int* ctx_idx;
+  const float* z0;                 // the solve's z0
+  const __nv_bfloat16* zs;         // the window's zs
+  size_t zs_stride;                // its replica stride
+  int first;                       // the window starts at the solve's first
+                                   // step
+  float* ws;
+  size_t ws_stride, parts, P;
+  int M, B, C, T, L;
+};
+
+// Row mm's element gi of a job's A for replica rep (the caller has checked
+// mm and gi), as bf16.
+__device__ __forceinline__ __nv_bfloat16 a_elem(const ContractArgs16& a,
+                                                const Job16& jb,
+                                                const __nv_bfloat16* A,
+                                                size_t rep, int mm, int gi) {
+  if (jb.src == FROM_SCRATCH) return A[size_t(mm) * jb.I + gi];
+  const int s = mm / a.B, b = mm % a.B;
+  if (jb.src == FROM_CTX) {
+    const int ci = min(max(a.ctx_idx[s], 0), a.T - 1);
+    return a.ctx[rep * size_t(a.T) * a.B * a.C +
+                 (size_t(ci) * a.B + b) * a.C + gi];
+  }
+  if (s == 0 && a.first)
+    return __float2bfloat16_rn(a.z0[(rep * a.B + b) * a.L + gi]);
+  return a.zs[rep * a.zs_stride + (ptrdiff_t(mm) - a.B) * a.L + gi];
+}
+
+__device__ __forceinline__ void load_slab_bf16(
+    const ContractArgs16& a, const Job16& jb, const __nv_bfloat16* A,
+    const __nv_bfloat16* Bm, size_t rep, int m, int m1, int i0, int j0,
+    __nv_bfloat16* As, __nv_bfloat16* Bs) {
+  using bf = __nv_bfloat16;
+  const bf zb = __ushort_as_bfloat16(0);
+  const bool whole = jb.src != FROM_ZPRE && jb.I % 8 == 0;
+  for (int e = threadIdx.x; e < CKS * (TI / 8); e += CT) {
+    const int kk = e / (TI / 8), c = e % (TI / 8), mm = m + kk;
+    const int gi = i0 + 8 * c;
+    bf* dst = As + kk * CAS + 8 * c;
+    if (whole) {
+      const bool valid = mm < m1 && gi < jb.I;
+      const bf* src = A;
+      if (valid && jb.src == FROM_CTX) {
+        const int s = mm / a.B, b = mm % a.B;
+        const int ci = min(max(a.ctx_idx[s], 0), a.T - 1);
+        src = a.ctx + rep * size_t(a.T) * a.B * a.C +
+              (size_t(ci) * a.B + b) * a.C + gi;
+      } else if (valid) {
+        src = A + size_t(mm) * jb.I + gi;
+      }
+      tsde_bf16::cp_async16(dst, src, valid);
+    } else {
+      for (int u = 0; u < 8; ++u)
+        dst[u] = mm < m1 && gi + u < jb.I ? a_elem(a, jb, A, rep, mm, gi + u)
+                                          : zb;
+    }
+  }
+  for (int e = threadIdx.x; e < CKS * (TJ / 8); e += CT) {
+    const int kk = e / (TJ / 8), c = e % (TJ / 8), mm = m + kk;
+    const int gj = j0 + 8 * c;
+    const bf* src = mm < m1 ? Bm + size_t(mm) * jb.J : Bm;
+    bf* dst = Bs + kk * CBS + 8 * c;
+    if (jb.J % 8 == 0) {
+      const bool valid = mm < m1 && gj < jb.J;
+      tsde_bf16::cp_async16(dst, valid ? src + gj : src, valid);
+    } else {
+      for (int u = 0; u < 8; ++u)
+        dst[u] = mm < m1 && gj + u < jb.J ? src[gj + u] : zb;
+    }
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(CT)
+    latent_bwd_contract_bf16(const ContractArgs16 a) {
+  using namespace tsde_bf16;
+  using bf = __nv_bfloat16;
+  __shared__ __align__(16) bf As[2][CKS * CAS];
+  __shared__ __align__(16) bf Bs[2][CKS * CBS];
+  const int tile = blockIdx.x;
+  int q = 0;
+  while (q + 1 < a.njobs && tile >= a.job[q + 1].tile0) ++q;
+  const Job16& jb = a.job[q];
+  const int local = tile - jb.tile0;
+  const int i0 = (local / jb.tiles_j) * TI, j0 = (local % jb.tiles_j) * TJ;
+  const int m0 = blockIdx.y * RC, m1 = min(a.M, m0 + RC);
+  const size_t rep = blockIdx.z;
+  const bf* sc = reinterpret_cast<const bf*>(a.ws + rep * a.ws_stride);
+  const bf* A = sc + jb.a;
+  const bf* Bm = sc + jb.b;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wi = 32 * (warp >> 2), wj = 32 * (warp & 3);
+
+  float acc[2][4][4] = {};
+  const int slabs = (m1 - m0 + CKS - 1) / CKS;
+  load_slab_bf16(a, jb, A, Bm, rep, m0, m1, i0, j0, As[0], Bs[0]);
+  for (int t = 0; t < slabs; ++t) {
+    if (t + 1 < slabs) {
+      load_slab_bf16(a, jb, A, Bm, rep, m0 + (t + 1) * CKS, m1, i0, j0,
+                     As[(t + 1) & 1], Bs[(t + 1) & 1]);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf* as = As[t & 1];
+    const bf* bs = Bs[t & 1];
+#pragma unroll
+    for (int k0 = 0; k0 < CKS; k0 += 16) {
+      uint32_t af[2][4], bq[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4_trans(af[mi], as + x4_offset(lane, k0, wi + 16 * mi, CAS,
+                                             kColsFirst));
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldsm_x4_trans(bq[np], bs + x4_offset(lane, k0, wj + 16 * np, CBS,
+                                             kRowsFirst));
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma(acc[mi][ni], af[mi], bq[ni >> 1][2 * (ni & 1)],
+              bq[ni >> 1][2 * (ni & 1) + 1]);
+      }
+    }
+    __syncthreads();
+  }
+  float* out = a.ws + rep * a.ws_stride + a.parts + blockIdx.y * a.P + jb.out;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int gi = i0 + wi + 16 * mi + d_row(lane, e);
+        const int gj = j0 + wj + 8 * ni + d_col(lane, e);
+        if (gi < jb.I && gj < jb.J)
+          out[size_t(gi) * jb.J + gj] = acc[mi][ni][e];
+      }
+    }
+  }
+}
+
 // A product with an L-wide side: out = W^T S, W (M, H) in the workspace,
 // S (M, L) either in the workspace or z_pre (z0 for the first B rows, zs
 // after), stored [l][c] (z rows of layer 1) or [c][l] (layer 3). A column
@@ -854,11 +1956,10 @@ struct SkinnyJob {
   int ones_s, ones_w;
 };
 
-template <typename W>
 struct SkinnyArgs {
   SkinnyJob job[4];
   const float* z0;       // the solve's z0
-  const W* zs;           // the window's zs
+  const float* zs;       // the window's zs
   size_t zs_stride;      // its replica stride
   int first;             // the window starts at the solve's first step
   float* ws;
@@ -868,12 +1969,9 @@ struct SkinnyArgs {
 
 // A thread a column c of W, summing over one chunk of rows in row order;
 // grid (jobs, chunks, replicas). Each thread loads SKB rows of its column
-// before it adds them, so that many loads are in flight at once. The
-// products take their inputs rounded to W (the type parameter: z_pre and
-// the cotangents; the activations are stored rounded), the bias columns of
-// ones sum the cotangents unrounded.
-template <typename W>
-__global__ void __launch_bounds__(CT) latent_bwd_skinny(const SkinnyArgs<W> a) {
+// before it adds them, so that many loads are in flight at once. float32
+// only: mixed mode's L-wide products are latent_bwd_contract_bf16's.
+__global__ void __launch_bounds__(CT) latent_bwd_skinny(const SkinnyArgs a) {
   const SkinnyJob& jb = a.job[blockIdx.x];
   const int m0 = blockIdx.y * RC, m1 = min(a.M, m0 + RC);
   const size_t rep = blockIdx.z;
@@ -882,7 +1980,7 @@ __global__ void __launch_bounds__(CT) latent_bwd_skinny(const SkinnyArgs<W> a) {
   const float* Wm = ws + jb.w;
   const float* S = ws + jb.s;
   const float* z0 = a.z0 + rep * size_t(a.B) * L;
-  const W* zs = a.zs + rep * a.zs_stride;
+  const float* zs = a.zs + rep * a.zs_stride;
   float* out = a.ws + rep * a.ws_stride + a.parts + blockIdx.y * a.P + jb.out;
   for (int c = threadIdx.x; c < H + jb.ones_w; c += CT) {
     for (int l0 = 0; l0 < L; l0 += 4) {
@@ -901,41 +1999,18 @@ __global__ void __launch_bounds__(CT) latent_bwd_skinny(const SkinnyArgs<W> a) {
           // S's row: z_pre is z0 at the solve's first step, else the
           // state before (zs[-1] of a later window: the window before's).
           const bool from_z0 = mm < a.B && a.first;
-          const W* zrow = zs + (ptrdiff_t(mm) - a.B) * L;
-          // float32 picks its row's pointer before one load. The bf16
-          // body below, with W = float, gives the same bits but made
-          // kernel 2's float32 contraction at the flagship take 1.05-1.24
-          // ms rather than 0.84 on an H100, so the two stay apart.
-          if constexpr (sizeof(W) == sizeof(float)) {
-            const float* srow = !jb.z_pre ? S + size_t(mm) * L
-                                : from_z0 ? z0 + size_t(mm) * L : zrow;
-            const double wu = w[u];
+          const float* zrow = zs + (ptrdiff_t(mm) - a.B) * L;
+          const float* srow = !jb.z_pre ? S + size_t(mm) * L
+                              : from_z0 ? z0 + size_t(mm) * L : zrow;
+          const double wu = w[u];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              if (l0 + i < L) {
-                const double sv = __ldg(srow + l0 + i);
-                acc[i] = fma(wu, sv, acc[i]);
-              }
+          for (int i = 0; i < 4; ++i) {
+            if (l0 + i < L) {
+              const double sv = __ldg(srow + l0 + i);
+              acc[i] = fma(wu, sv, acc[i]);
             }
-            if (ones) bias += wu;
-          } else {
-            // The products' inputs rounded to W (zs is already), and S
-            // unrounded against W's column of ones (c == H), a bias.
-            const double wu = rnd<W>(w[u]);
-            const float* frow = jb.z_pre ? z0 + size_t(mm) * L
-                                         : S + size_t(mm) * L;
-            const bool round_s = jb.z_pre || c < H;
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              if (l0 + i < L) {
-                const float f = jb.z_pre && !from_z0 ? to_f(zrow[l0 + i])
-                                                     : frow[l0 + i];
-                const double sv = round_s ? rnd<W>(f) : f;
-                acc[i] = fma(wu, sv, acc[i]);
-              }
-            }
-            if (ones) bias += w[u];
           }
+          if (ones) bias += wu;
         }
       }
 #pragma unroll
@@ -953,28 +2028,36 @@ __global__ void __launch_bounds__(CT) latent_bwd_skinny(const SkinnyArgs<W> a) {
 // dw[e] = the float64 sum of the partial rows that hold element e, in row
 // order: the contraction's chunks for the towers f and h (weights 0-11),
 // added to the earlier windows' sums (none for the `first`), the sweep's
-// blocks for the g nets (after the `last` window only); replica blockIdx.y
-// sums its own workspace into its own row of dw, or, before the last
-// window, the towers' elements into its float64 sums.
+// blocks for the weights the sweep sums (`swept`, a bit a weight: the g
+// nets', and in mixed mode the towers' biases too; after the `last` window
+// only); replica blockIdx.y sums its own workspace into its own row of dw,
+// or, before the last window, the contraction's elements into its float64
+// sums.
 struct ReduceArgs {
   size_t off[NW];
   const float* ws;
   size_t ws_stride, parts, sums, P;
   int chunks, blocks, first, last;
+  unsigned swept;
   float* dw;
 };
+
+// The weights the sweep sums on chip: the g nets' (12-15), and in mixed
+// mode the towers' biases (1, 3, 5, 7, 9, 11).
+constexpr unsigned SWEPT_G = 0xf000u, SWEPT_BIASES = 0x0aaau;
 
 __global__ void latent_bwd_reduce(const ReduceArgs a) {
   const size_t e = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= a.P) return;
   int w = 0;
   while (w + 1 < NW && e >= a.off[w + 1]) ++w;
-  if (w >= 12 && !a.last) return;
+  const bool swept = (a.swept >> w) & 1u;
+  if (swept && !a.last) return;
   const float* ws = a.ws + blockIdx.y * a.ws_stride;
   double* sums = reinterpret_cast<double*>(const_cast<float*>(ws) + a.sums);
-  const int rows = w < 12 ? a.chunks : a.blocks;
+  const int rows = swept ? a.blocks : a.chunks;
   const float* p = ws + a.parts + e;
-  double acc = w < 12 && !a.first ? sums[e] : 0.0;
+  double acc = !swept && !a.first ? sums[e] : 0.0;
   for (int b = 0; b < rows; ++b) acc += p[size_t(b) * a.P];
   if (a.last)
     a.dw[blockIdx.y * a.P + e] = static_cast<float>(acc);
@@ -987,13 +2070,17 @@ __global__ void latent_bwd_reduce(const ReduceArgs a) {
 // floats, the sweep blocks' carried chains and the float64 sums of the
 // towers' gradients (P doubles, on an even float). Blocks at SWEEP_ROWS
 // rows a block: the most of any launch<NT, R> with R >= SWEEP_ROWS, whose
-// carry is the largest.
+// carry is the largest. In mixed mode (`mixed`) the scratch is bf16, half
+// as many floats, each block's carry holds the bias sums too, and the
+// scratch and the whole are rounded up to 4 floats, so that every
+// replica's scratch starts on 16 bytes.
 struct Sizes {
   size_t P, parts, carry, sums, total;
   int blocks;
 };
 
-__host__ inline Sizes sizes_of(int B, int L, int C, int H, int W) {
+__host__ inline Sizes sizes_of(int B, int L, int C, int H, int W,
+                               bool mixed = false) {
   Sizes z;
   size_t w[NW];
   weight_sizes(L, C, H, w);
@@ -1003,35 +2090,167 @@ __host__ inline Sizes sizes_of(int B, int L, int C, int H, int W) {
   const int chunks = static_cast<int>((M + RC - 1) / RC);
   z.blocks = (B + SWEEP_ROWS - 1) / SWEEP_ROWS;   // the most sweep blocks
   z.parts = M * (NSCRATCH * size_t(H) + 2 * size_t(L));
+  if (mixed) z.parts = (z.parts / 2 + 3) & ~size_t(3);
   const size_t rows = chunks > z.blocks ? chunks : z.blocks;
   z.carry = z.parts + rows * z.P;
-  z.sums = (z.carry + size_t(z.blocks) * carry_floats(L, H, SWEEP_ROWS) + 1)
-           & ~size_t(1);
+  const size_t each = mixed ? carry_floats_bf16(L, H, SWEEP_ROWS)
+                            : carry_floats(L, H, SWEEP_ROWS);
+  z.sums = (z.carry + size_t(z.blocks) * each + 1) & ~size_t(1);
   z.total = z.sums + 2 * z.P;
+  if (mixed) z.total = (z.total + 3) & ~size_t(3);
   return z;
 }
 
-template <int NT, int R, typename W>
-int launch_sweep(const Args<W>& a, int K, cudaStream_t stream) {
+template <int NT, int R>
+int launch_sweep(const Args<float>& a, int K, cudaStream_t stream) {
   const size_t smem = make_layout(a.L, a.C, a.H, NT, R).total * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      latent_bwd_sweep<NT, R, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      latent_bwd_sweep<NT, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (a.B + R - 1) / R;
-  latent_bwd_sweep<NT, R, W><<<dim3(blocks, K), NT, smem, stream>>>(a);
+  latent_bwd_sweep<NT, R><<<dim3(blocks, K), NT, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 sweep's instantiation for these widths: MPW m-tiles a warp
+// covers H up to 16 MPW NT / 64; 2 at the flagship. `query`: return, rather
+// than launch, the blocks an SM its shared memory and registers allow.
+template <int NT, int R, int MPW, int MINB>
+int launch_sweep_bf16_mpw(const Args<__nv_bfloat16>& a, int K,
+                          cudaStream_t stream, bool query) {
+  auto kernel = latent_bwd_sweep_bf16<NT, R, MPW, MINB>;
+  const size_t smem = make_bf16_layout(a.L, a.C, a.H, NT, R).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return query ? -static_cast<int>(err)
+                                       : static_cast<int>(err);
+  if (query) {
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, NT,
+                                                        smem);
+    return err == cudaSuccess ? blocks : -static_cast<int>(err);
+  }
+  const int blocks = (a.B + R - 1) / R;
+  kernel<<<dim3(blocks, K), NT, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// MINB = 0: registers for two blocks an SM where the grid has more blocks
+// than the card has SMs, else for one (the same arithmetic either way).
+template <int NT, int R, int MINB>
+int launch_sweep_bf16(const Args<__nv_bfloat16>& a, int K,
+                      cudaStream_t stream, bool query = false) {
+  const int mt = tsde_bf16::pad16(a.H) / 16, nwt = NT / 64;
+  if constexpr (MINB == 0) {
+    int device = 0, sms = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    const bool full = (a.B + R - 1) / R * K > sms;
+    return full ? launch_sweep_bf16<NT, R, 2>(a, K, stream, query)
+                : launch_sweep_bf16<NT, R, 1>(a, K, stream, query);
+  } else {
+    if (mt <= 2 * nwt)
+      return launch_sweep_bf16_mpw<NT, R, 2, MINB>(a, K, stream, query);
+    if (mt <= 4 * nwt)   // wider towers: one block an SM
+      return launch_sweep_bf16_mpw<NT, R, 4, 1>(a, K, stream, query);
+    return query ? -static_cast<int>(cudaErrorInvalidValue)
+                 : static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The contraction and the reduction of a window (a: its arguments, as the
 // sweep's), on a workspace the sweep has filled with `blocks` partial rows.
+// The reduction of a window's partial rows into dw (the weights the sweep
+// sums: `swept`).
 template <typename W>
-int launch_contraction(const Args<W>& a, int blocks, int K, float* dw,
-                       cudaStream_t stream) {
+int launch_reduce(const Args<W>& a, int chunks, int blocks, int K,
+                  unsigned swept, float* dw, cudaStream_t stream) {
+  ReduceArgs r;
+  for (int i = 0; i < NW; ++i) r.off[i] = a.off[i];
+  r.ws = a.ws;
+  r.ws_stride = a.ws_stride;
+  r.parts = a.parts;
+  r.sums = a.sums;
+  r.P = a.P;
+  r.chunks = chunks;
+  r.blocks = blocks;
+  r.first = a.n_all - a.lo == a.n;    // the solve's last steps
+  r.last = a.lo == 0;
+  r.swept = swept;
+  r.dw = dw;
+  constexpr int RT = 256;
+  latent_bwd_reduce<<<dim3(static_cast<unsigned>((a.P + RT - 1) / RT), K),
+                      RT, 0, stream>>>(r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The contraction and the reduction of a window in mixed mode: the seven
+// products as latent_bwd_contract_bf16's tiles.
+inline int launch_contraction_bf16(const Args<__nv_bfloat16>& a, int blocks,
+                                   int K, float* dw, cudaStream_t stream) {
   const int L = a.L, C = a.C, H = a.H;
   const size_t M = size_t(a.n) * a.B, MH = M * H;
   const int chunks = static_cast<int>((M + RC - 1) / RC);
-  ContractArgs<W> c;
+  const size_t df = NSCRATCH * MH, dh = df + M * L;
+  // (src, A, Bm, out, I, J): fw1's context rows, fw2, hw2, fw1's z rows,
+  // hw1, fw3, hw3.
+  const struct {
+    int src;
+    size_t a, b, out;
+    int I, J;
+  } jobs[NJOBS16] = {
+      {FROM_CTX, 0, DP1F * MH, a.off[0] + size_t(L) * H, C, H},
+      {FROM_SCRATCH, A1F * MH, DP2F * MH, a.off[2], H, H},
+      {FROM_SCRATCH, A1H * MH, DP2H * MH, a.off[8], H, H},
+      {FROM_ZPRE, 0, DP1F * MH, a.off[0], L, H},
+      {FROM_ZPRE, 0, DP1H * MH, a.off[6], L, H},
+      {FROM_SCRATCH, A2F * MH, df, a.off[4], H, L},
+      {FROM_SCRATCH, A2H * MH, dh, a.off[10], H, L}};
+  ContractArgs16 c;
+  int tiles = 0;
+  for (int q = 0; q < NJOBS16; ++q) {
+    Job16& jb = c.job[q];
+    jb.src = jobs[q].src;
+    jb.a = jobs[q].a;
+    jb.b = jobs[q].b;
+    jb.out = jobs[q].out;
+    jb.I = jobs[q].I;
+    jb.J = jobs[q].J;
+    jb.tiles_j = (jb.J + TJ - 1) / TJ;
+    jb.tile0 = tiles;
+    tiles += ((jb.I + TI - 1) / TI) * jb.tiles_j;
+  }
+  c.njobs = NJOBS16;
+  c.ctx = a.ctx;
+  c.ctx_idx = a.ctx_idx;
+  c.z0 = a.z0;
+  c.zs = a.zs;
+  c.zs_stride = size_t(a.n_all) * a.B * L;
+  c.first = a.lo == 0;
+  c.ws = a.ws;
+  c.ws_stride = a.ws_stride;
+  c.parts = a.parts;
+  c.P = a.P;
+  c.M = static_cast<int>(M);
+  c.B = a.B;
+  c.C = C;
+  c.T = a.T;
+  c.L = L;
+  latent_bwd_contract_bf16<<<dim3(tiles, chunks, K), CT, 0, stream>>>(c);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_reduce(a, chunks, blocks, K, SWEPT_G | SWEPT_BIASES, dw,
+                       stream);
+}
+
+inline int launch_contraction(const Args<float>& a, int blocks, int K,
+                              float* dw, cudaStream_t stream) {
+  const int L = a.L, C = a.C, H = a.H;
+  const size_t M = size_t(a.n) * a.B, MH = M * H;
+  const int chunks = static_cast<int>((M + RC - 1) / RC);
+  ContractArgs c;
   // fw1's context rows (weight rows L..D-1) and fb1, fw2 and fb2, hw2 and
   // hb2.
   const size_t a_of[3] = {0, A1F * MH, A1H * MH};
@@ -1066,7 +2285,7 @@ int launch_contraction(const Args<W>& a, int blocks, int K, float* dw,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  SkinnyArgs<W> s;
+  SkinnyArgs s;
   const size_t df = NSCRATCH * MH, dh = df + M * L;
   const SkinnyJob jobs[4] = {
       {DP1F * MH, 0, a.off[0], 1, 0, 0, 0},    // fw1's z rows
@@ -1089,23 +2308,7 @@ int launch_contraction(const Args<W>& a, int blocks, int K, float* dw,
   latent_bwd_skinny<<<dim3(4, chunks, K), CT, 0, stream>>>(s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  ReduceArgs r;
-  for (int i = 0; i < NW; ++i) r.off[i] = a.off[i];
-  r.ws = a.ws;
-  r.ws_stride = a.ws_stride;
-  r.parts = a.parts;
-  r.sums = a.sums;
-  r.P = a.P;
-  r.chunks = chunks;
-  r.blocks = blocks;
-  r.first = a.n_all - a.lo == a.n;    // the solve's last steps
-  r.last = a.lo == 0;
-  r.dw = dw;
-  constexpr int RT = 256;
-  latent_bwd_reduce<<<dim3(static_cast<unsigned>((a.P + RT - 1) / RT), K),
-                      RT, 0, stream>>>(r);
-  return static_cast<int>(cudaGetLastError());
+  return launch_reduce(a, chunks, blocks, K, SWEPT_G, dw, stream);
 }
 
 // Launches, for K stacked solves (K = 1: a single solve), on `stream`,
@@ -1113,10 +2316,12 @@ int launch_contraction(const Args<W>& a, int blocks, int K, float* dw,
 // at NT threads and R rows a block, for bit 1 the contraction and the
 // reduction on the workspace such a sweep filled (both bits: any window;
 // one bit alone: one window, the whole solve); returns cudaGetLastError()
-// (0 on success).
-template <int NT, int R, typename W>
+// (0 on success). In mixed mode the sweep is latent_bwd_sweep_bf16,
+// registers for MINB blocks an SM (0: as the grid fills the card).
+template <int NT, int R, typename W, int MINB = 0>
 int launch(Args<W> a, int K, float* dw, int stages, int window, int device,
            cudaStream_t stream) {
+  constexpr bool mixed = sizeof(W) < sizeof(float);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (K <= 0 || a.B <= 0 || a.n <= 0) return 0;
@@ -1130,7 +2335,7 @@ int launch(Args<W> a, int K, float* dw, int stages, int window, int device,
     P += sizes[i];
   }
   const int B = a.B, L = a.L, n = a.n;
-  const Sizes z = sizes_of(B, L, a.C, a.H, window < n ? window : n);
+  const Sizes z = sizes_of(B, L, a.C, a.H, window < n ? window : n, mixed);
   a.P = z.P;
   a.ws_stride = z.total;
   a.parts = z.parts;
@@ -1156,11 +2361,19 @@ int launch(Args<W> a, int K, float* dw, int stages, int window, int device,
     wa.carry_in = hi < n;
     wa.carry_out = lo > 0;
     if (stages & 1) {
-      const int rc = launch_sweep<NT, R>(wa, K, stream);
+      int rc;
+      if constexpr (mixed)
+        rc = launch_sweep_bf16<NT, R, MINB>(wa, K, stream);
+      else
+        rc = launch_sweep<NT, R>(wa, K, stream);
       if (rc != 0) return rc;
     }
     if (stages & 2) {
-      const int rc = launch_contraction(wa, (B + R - 1) / R, K, dw, stream);
+      int rc;
+      if constexpr (mixed)
+        rc = launch_contraction_bf16(wa, (B + R - 1) / R, K, dw, stream);
+      else
+        rc = launch_contraction(wa, (B + R - 1) / R, K, dw, stream);
       if (rc != 0) return rc;
     }
   }
@@ -1198,6 +2411,34 @@ size_t tsde_latent_fused_bwd_smem_bytes(int L, int C, int H) {
 // chains and the float64 sums of the windows.
 size_t tsde_latent_fused_bwd_workspace(int B, int L, int C, int H, int W) {
   return tsde_latent_bwd::sizes_of(B, L, C, H, W).total;
+}
+
+// The same in mixed mode: the scratch in bf16 (W x B x (4H + L) floats).
+size_t tsde_latent_fused_bwd_workspace_bf16(int B, int L, int C, int H,
+                                            int W) {
+  return tsde_latent_bwd::sizes_of(B, L, C, H, W, true).total;
+}
+
+// Dynamic shared memory one block of the bf16 sweep needs for these widths.
+size_t tsde_latent_fused_bwd_smem_bytes_bf16(int L, int C, int H) {
+  using namespace tsde_latent_bwd;
+  return make_bf16_layout(L, C, H, SWEEP_THREADS, SWEEP_ROWS).total;
+}
+
+// Blocks of the bf16 sweep an SM of `device` holds at these widths (its
+// shared memory and registers) in a grid of `blocks` blocks (the
+// instantiation such a grid launches), or minus a CUDA error.
+int tsde_latent_fused_bwd_blocks_per_sm_bf16(int L, int C, int H, int blocks,
+                                             int device) {
+  using namespace tsde_latent_bwd;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  Args<__nv_bfloat16> a{};
+  a.B = blocks * SWEEP_ROWS;
+  a.L = L;
+  a.C = C;
+  a.H = H;
+  return launch_sweep_bf16<SWEEP_THREADS, SWEEP_ROWS, 0>(a, 1, 0, true);
 }
 
 // Launches, over windows of `window` steps, last first, the sweep, the

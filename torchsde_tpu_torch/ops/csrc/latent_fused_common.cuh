@@ -2,14 +2,15 @@
 // kernels (latent_fused_fwd.cu, latent_fused_bwd.cu), so that the reverse
 // sweep recomputes exactly the forward kernel's activations.
 //
-// Both kernels are templated on W, the type of the weights and of the
+// Their arguments are templated on W, the type of the weights and of the
 // streams (context, noise, the states zs, their cotangents gz, dnoise):
 // float, or __nv_bfloat16 for bf16 mixed mode (the JAX package's rule:
 // the state, the KL channel and every sum stay float32). In mixed mode each
 // product's inputs are rounded to bf16 (rnd<W>, mixed_dtype.cuh) and the
 // product sums in float32, as the JAX package's dots with
-// preferred_element_type float32 do. With W = float every rounding is the
-// identity and the kernels are the float32 ones.
+// preferred_element_type float32 do. The forward kernel is one template
+// (with W = float every rounding is the identity); the backward's mixed
+// mode is a kernel of its own on bf16 tensor cores.
 
 #pragma once
 
@@ -94,17 +95,6 @@ __device__ __forceinline__ void stage(float* dst, const float* src,
 __device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
                                       bool valid) {
   *dst = valid ? __bfloat162float(*src) : 0.f;
-}
-
-// A float32 element that is a product's input, rounded to W as it is
-// staged (the pre-step z0 of the reverse sweep).
-template <typename W>
-__device__ __forceinline__ void stage_rounded(float* dst, const float* src,
-                                              bool valid) {
-  if constexpr (sizeof(W) == sizeof(float))
-    cp_async4(dst, src, valid);
-  else
-    *dst = valid ? rnd<W>(*src) : 0.f;
 }
 
 }  // namespace tsde_latent

@@ -217,10 +217,20 @@ def fused_solve_backward_plain(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
         grads = fused_solve_backward_contract_plain(z0, ctx, ctx_idx, zs,
                                                     scratch, lo)
         tower_grads = grads if tower_grads is None else tuple(
-            a + b for a, b in zip(tower_grads, grads))
-    dz0, dctx, dnoise, g_grads = carry
+            None if b is None else a + b for a, b in zip(tower_grads, grads))
+    dz0, dctx, dnoise, swept = carry
     return dz0, dctx.to(ctx.dtype), dnoise, tuple(
-        d.to(w.dtype) for d, w in zip(tower_grads + g_grads, weights))
+        d.to(w.dtype) for d, w in zip(_join_grads(tower_grads, swept),
+                                      weights))
+
+
+def _join_grads(tower_grads, swept):
+    """The 16 weights' gradients in WEIGHT_NAMES order from the
+    contraction's twelve (None for a bias the sweep sums) and the sweep's
+    sums: the g nets' four, then in mixed mode the towers' six biases."""
+    biases = iter(swept[4:])
+    return tuple(next(biases) if t is None else t
+                 for t in tower_grads) + tuple(swept[:4])
 
 
 def fused_solve_backward_sweep_plain(z0, ctx, ctx_idx, noise, dts, weights,
@@ -234,17 +244,19 @@ def fused_solve_backward_sweep_plain(z0, ctx, ctx_idx, noise, dts, weights,
     returned (its first four outputs; None before the last window).
     Returns dz (B,L) before step lo (dz0 after the first window), dctx
     (T,B,C, in the state dtype) and dnoise (n,B,L) filled from step lo on,
-    the g nets' gradients (gw1, gb1, gw2, gb2, in the state dtype) summed
-    from step lo on, as the sweep sums them on chip; and the window's
+    the gradients the sweep sums on chip (in the state dtype, from step lo
+    on): the g nets' (gw1, gb1, gw2, gb2), and in mixed mode the towers'
+    biases too (f_b1, f_b2, f_b3, h_b1, h_b2, h_b3: each step's column sums
+    of the unrounded cotangents, as the JAX package's); and the window's
     scratch tensors in SCRATCH_NAMES order, each (hi - lo, B, ·), whose
     products over all its rows give the window's share of the towers'
     gradients (:func:`fused_solve_backward_contract_plain`). In mixed mode
-    the activations a1 and a2, which only products read, are kept rounded
-    to bf16; the cotangents stay float32, since the biases' gradients sum
-    them unrounded."""
+    the scratch is bf16, what the products read: the activations and the
+    cotangents rounded, as the kernel stores them."""
     fw, hw = weights[0:6], weights[6:12]
     gw1, gb1, gw2, gb2 = weights[12:16]
     cdt = weights[0].dtype
+    mixed = cdt == torch.bfloat16
     lo, hi = (0, noise.shape[0]) if steps is None else steps
     idx = ctx_idx.long()
     z_pre = torch.cat([z0[None], _up(zs[:-1])])
@@ -254,8 +266,9 @@ def fused_solve_backward_sweep_plain(z0, ctx, ctx_idx, noise, dts, weights,
         dz = torch.zeros_like(z0)
         dctx = torch.zeros_like(ctx, dtype=z0.dtype)
         dnoise = torch.empty_like(noise)
-        g_grads = [torch.zeros_like(w, dtype=z0.dtype)
-                   for w in weights[12:16]]
+        g_grads = [torch.zeros_like(w, dtype=z0.dtype) for w in (
+            tuple(weights[12:16]) + (tuple(weights[1:6:2] + weights[7:12:2])
+                                     if mixed else ()))]
     else:
         dz, dctx, dnoise, g_grads = carry
         dctx, dnoise = dctx.clone(), dnoise.clone()
@@ -295,12 +308,15 @@ def fused_solve_backward_sweep_plain(z0, ctx, ctx_idx, noise, dts, weights,
                 torch.einsum("lbh,bl->lh", _rnd(a1g, cdt),
                              _rnd(dpre2g, cdt))[..., None],
                 dpre2g.sum(0)[:, None])
+        if mixed:
+            sums += tuple(t.sum(0) for t in (dpre1f, dpre2f, df, dpre1h,
+                                             dpre2h, dh))
         for acc, d in zip(g_grads, sums):
             acc += d
         for store, t in zip(records, (
                 _rnd(a1f, cdt), _rnd(a1h, cdt), _rnd(a2f, cdt),
                 _rnd(a2h, cdt), dpre1f, dpre1h, dpre2f, dpre2h, df, dh)):
-            store[s - lo] = t
+            store[s - lo] = t.to(cdt) if mixed else t
         dzg = torch.einsum("lbh,lh->bl", _rnd(dpre1g, cdt),
                            _up(gw1)[:, 0, :])
         dz = dz + dx[:, :L] + dzh + dzg
@@ -315,10 +331,12 @@ def fused_solve_backward_contract_plain(z0, ctx, ctx_idx, zs, scratch, lo=0):
     all rows of the sweep's scratch tensors (SCRATCH_NAMES order) of the
     steps from ``lo`` on, with the layer-1 inputs x = [z_pre |
     ctx[ctx_idx[s]]] gathered from z0, zs and ctx rather than stored. In
-    mixed mode (zs bf16) each product's inputs are rounded to bf16 and the
-    bias sums take the unrounded cotangents; all in float32."""
+    mixed mode (a bf16 scratch) each product's inputs are rounded to bf16
+    and the product summed in float32, and the biases are None: the sweep
+    sums them."""
     a1f, a1h, a2f, a2h, dpre1f, dpre1h, dpre2f, dpre2h, df, dh = (
         t.reshape(-1, t.shape[-1]) for t in scratch)
+    mixed = scratch[0].dtype == torch.bfloat16
     hi = lo + scratch[0].shape[0]
     z_pre = torch.cat([z0[None], _up(zs[:-1])])[lo:hi]
     x = torch.cat([z_pre, _up(ctx[ctx_idx[lo:hi].long()])], dim=-1)
@@ -328,10 +346,13 @@ def fused_solve_backward_contract_plain(z0, ctx, ctx_idx, zs, scratch, lo=0):
     def mm(a, b):
         return _rnd(a, zs.dtype).T @ _rnd(b, zs.dtype)
 
-    return (mm(x, dpre1f), dpre1f.sum(0), mm(a1f, dpre2f), dpre2f.sum(0),
-            mm(a2f, df), df.sum(0),
-            mm(z_pre, dpre1h), dpre1h.sum(0), mm(a1h, dpre2h), dpre2h.sum(0),
-            mm(a2h, dh), dh.sum(0))
+    def bias(t):
+        return None if mixed else t.sum(0)
+
+    return (mm(x, dpre1f), bias(dpre1f), mm(a1f, dpre2f), bias(dpre2f),
+            mm(a2f, df), bias(df),
+            mm(z_pre, dpre1h), bias(dpre1h), mm(a1h, dpre2h), bias(dpre2h),
+            mm(a2h, dh), bias(dh))
 
 
 def fused_solve_multi_forward_plain(z0, ctx, ctx_idx, noise, dts, weights):
@@ -457,10 +478,10 @@ def fused_solve_backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz,
     scratch tensors into the layer weights' gradients, and the sum of the
     partials) on the current stream; returns what
     :func:`fused_solve_backward_plain` returns. Its workspace holds the
-    scratch tensors, n x B x (8H + 2L) floats, and the partials: 587 MB at
-    the flagship; a longer solve runs in windows of steps
-    (:func:`bwd_window`). Raises on tensors it does not take, on a failed
-    build and on a refused launch."""
+    scratch tensors, n x B x (8H + 2L) floats (bf16 in mixed mode), and the
+    partials: 588.4 MB at the flagship, 318.2 MB in mixed mode; a longer
+    solve runs in windows of steps (:func:`bwd_window`). Raises on tensors
+    it does not take, on a failed build and on a refused launch."""
     global bwd_launches, bf16_bwd_launches
     out = _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq,
                          multi=False)[0]
@@ -558,26 +579,27 @@ def _backward_cuda(z0, ctx, ctx_idx, noise, dts, weights, zs, gz, gq, multi,
         B, L, C, H, T, n = check_backward_inputs(z0, ctx, ctx_idx, noise, dts,
                                                  weights, zs, gz, gq)
         lead = ()
-    lib = _build.library_for("tsde_latent_fused_bwd_smem_bytes", L, C, H)
+    suffix = _suffix(weights)
+    lib = _build.library_for(f"tsde_latent_fused_bwd_smem_bytes{suffix}", L,
+                             C, H)
     f32 = dict(dtype=torch.float32, device=z0.device)
     dz0 = torch.zeros(lead + (B, L), **f32)
     dctx = torch.zeros_like(ctx, dtype=torch.float32)
     dnoise = torch.empty_like(noise)
     sizes = [w[0].numel() if multi else w.numel() for w in weights]
-    window = bwd_window(B, L, C, H, n)
+    dtype = weights[0].dtype
+    window = bwd_window(B, L, C, H, n, dtype)
     K = lead[0] if multi else 1
-    group = replica_group(K, B, L, C, H, n) if multi else 1
+    group = replica_group(K, B, L, C, H, n, dtype) if multi else 1
     if workspace is None:
-        workspace = torch.empty(
-            (group, lib.tsde_latent_fused_bwd_workspace(B, L, C, H, window)),
-            **f32)
+        floats = getattr(lib, f"tsde_latent_fused_bwd_workspace{suffix}")
+        workspace = torch.empty((group, floats(B, L, C, H, window)), **f32)
     elif stages != 3 and group < K:
         raise ValueError(f"a phase alone takes one group of replicas; "
                          f"{K} replicas go in groups of {group}")
     dw = torch.zeros(lead + (sum(sizes),), **f32)
     stream = torch.cuda.current_stream(z0.device).cuda_stream
     device = z0.device.index or 0
-    suffix = _suffix(weights)
     name = ("latent_fused_bwd_multi" if multi else "latent_fused_bwd") + suffix
     fn = {stage: getattr(lib, f"tsde_latent_fused_bwd{stage}{suffix}")
           for stage in ("", "_multi", "_stages")}
@@ -619,35 +641,49 @@ _CHUNK_ROWS = 512     # csrc/latent_fused_bwd.cu: RC
 _SWEEP_ROWS = 8       # csrc/latent_fused_bwd.cu: SWEEP_ROWS
 
 
-def workspace_floats(B, L, C, H, W):
+def workspace_floats(B, L, C, H, W, dtype=torch.float32):
     """Floats of one replica's workspace of kernels 2 and 4 for windows of
-    W steps (``csrc/latent_fused_bwd.cu: sizes_of``): the scratch of W*B
-    rows (8H + 2L floats each), a partial row of all weights for every 512
-    rows or every sweep block of 8 rows, whichever are more, the blocks'
-    carried chains (3LH + 8(2L + 1) floats each) and the windows' float64
-    sums of all weights, on an even float."""
+    W steps and weights of ``dtype`` (``csrc/latent_fused_bwd.cu:
+    sizes_of``): the scratch of W*B rows (8H + 2L floats each; in mixed
+    mode as many bf16, rounded up to 4 floats), a partial row of all
+    weights for every 512 rows or every sweep block of 8 rows, whichever
+    are more, the blocks' carried chains (3LH + 8(2L + 1) floats each; in
+    mixed mode 4H + 16L more, the bias sums) and the windows' float64 sums
+    of all weights, on an even float (in mixed mode the whole rounded up to
+    4 floats)."""
+    mixed = dtype == torch.bfloat16
     D = L + C
     P = D * H + 2 * H * H + 2 * H * L + L * H + 4 * H + 2 * L \
         + 3 * L * H + L
     blocks = -(-B // _SWEEP_ROWS)
     parts = W * B * (8 * H + 2 * L)
+    each = 3 * L * H + (2 * L + 1) * _SWEEP_ROWS
+    if mixed:
+        parts = _up4(parts // 2)
+        each += 4 * H + 2 * L * _SWEEP_ROWS
     carry = parts + max(-(-W * B // _CHUNK_ROWS), blocks) * P
-    sums = carry + blocks * (3 * L * H + (2 * L + 1) * _SWEEP_ROWS)
-    return sums + sums % 2 + 2 * P
+    sums = carry + blocks * each
+    total = sums + sums % 2 + 2 * P
+    return _up4(total) if mixed else total
 
 
-def bwd_window(B, L, C, H, n):
-    """The steps a window of kernel 2's or 4's backward covers: all n
-    where one replica's workspace fits in :data:`WORKSPACE_BYTES`, else the
-    most that fit, and at least one. It depends on one replica's shapes
-    only, never on K."""
+def _up4(n):
+    return -(-n // 4) * 4
+
+
+def bwd_window(B, L, C, H, n, dtype=torch.float32):
+    """The steps a window of kernel 2's or 4's backward covers for weights
+    of ``dtype``: all n where one replica's workspace fits in
+    :data:`WORKSPACE_BYTES`, else the most that fit, and at least one. It
+    depends on one replica's shapes only, never on K; a bf16 scratch is
+    half a float32 one, so mixed mode's windows are longer."""
     limit = WORKSPACE_BYTES // 4
-    if workspace_floats(B, L, C, H, n) <= limit:
+    if workspace_floats(B, L, C, H, n, dtype) <= limit:
         return n
     lo, hi = 1, n                # the most that fit lies in [lo, hi)
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        if workspace_floats(B, L, C, H, mid) <= limit:
+        if workspace_floats(B, L, C, H, mid, dtype) <= limit:
             lo = mid
         else:
             hi = mid
@@ -664,24 +700,28 @@ def bwd_window(B, L, C, H, n):
 MULTI_WORKSPACE_BYTES = 8 << 30
 
 
-def replica_group(K, B, L, C, H, n):
-    """The replicas one launch of kernel 4 takes: as many of the K as their
-    workspaces for windows of :func:`bwd_window` steps fit together in
-    :data:`MULTI_WORKSPACE_BYTES`, and at least one. Each replica's window,
-    and so its arithmetic, is the same whatever the group."""
-    window = bwd_window(B, L, C, H, n)
-    each = 4 * workspace_floats(B, L, C, H, window)
+def replica_group(K, B, L, C, H, n, dtype=torch.float32):
+    """The replicas one launch of kernel 4 takes for weights of ``dtype``:
+    as many of the K as their workspaces for windows of :func:`bwd_window`
+    steps fit together in :data:`MULTI_WORKSPACE_BYTES`, and at least one.
+    Each replica's window, and so its arithmetic, is the same whatever the
+    group."""
+    window = bwd_window(B, L, C, H, n, dtype)
+    each = 4 * workspace_floats(B, L, C, H, window, dtype)
     return max(1, min(K, MULTI_WORKSPACE_BYTES // each))
 
 
-def scratch_views(workspace, B, L, H, n):
+def scratch_views(workspace, B, L, H, n, dtype=torch.float32):
     """The scratch tensors of a backward kernel's workspace (K, floats) of
     one window of n steps, in SCRATCH_NAMES order, each (K, n*B, H) or (K,
-    n*B, L)."""
+    n*B, L): float32, or in mixed mode (``dtype`` bf16) bf16 views."""
     M = n * B
     K = workspace.shape[0]
-    wide = workspace[:, :8 * M * H].reshape(K, 8, M, H).unbind(1)
-    narrow = workspace[:, 8 * M * H:8 * M * H + 2 * M * L].reshape(
+    scratch = workspace
+    if dtype == torch.bfloat16:
+        scratch = workspace[:, :M * (4 * H + L)].view(torch.bfloat16)
+    wide = scratch[:, :8 * M * H].reshape(K, 8, M, H).unbind(1)
+    narrow = scratch[:, 8 * M * H:8 * M * H + 2 * M * L].reshape(
         K, 2, M, L).unbind(1)
     return wide + narrow
 

@@ -555,6 +555,14 @@ SRID2_FLOPS = 114
 # bit for bit). Its distance from float64 is printed and not held: an
 # all-bf16 srid2 solve loses every increment under half an ulp.
 SRK_BF16_DIFFERING = 0
+# bf16 kernel 15 runs two elements a thread: at an odd D a pair straddles
+# two rows, and an odd B D leaves the last thread one element; held to its
+# twin bitwise there too.
+SRK_ODD = (1023, 7)
+# Its bf16x2 instructions (__hadd2_rn, __hsub2_rn, __hmul2_rn) and the pair
+# type's four operators against float32 rounded to bf16 over all 2^32
+# operand pairs (srk_fused.bf16x2_check), NaN as NaN: no difference at all.
+SRK_BF16X2_DIFFS = 0
 # Against sdeint(method='srk') in bf16 on the same tables, at (1024, 8):
 # the two round differently (sdeint divides by its bf16 sqrt(dt) and forms
 # dt as a difference of bf16 grid times), in the JAX package as in the
@@ -895,7 +903,43 @@ extern "C" int tsde_latent_fwd_tile(
     return launch_rows<1024, 16>(a, K, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// Kernel 1 or 3 in bf16 mixed mode at `threads` threads, `rows` rows a
+// block and ptxas's registers for `minb` blocks an SM (the flagship's
+// towers: 2 m-tiles a warp at 256 threads, 1 at 512).
+extern "C" int tsde_latent_fwd_tile_bf16(
+    const float* z0, const __nv_bfloat16* ctx, const int* ctx_idx,
+    const __nv_bfloat16* noise, const float* dts,
+    TSDE_WEIGHT_PARAMS_T(__nv_bfloat16), __nv_bfloat16* zs, float* qs, int K,
+    int B, int L, int C, int H, int T, int n, int threads, int rows, int minb,
+    int device, cudaStream_t stream) {
+  using namespace tsde_latent_fwd;
+  const __nv_bfloat16* w[NW] = TSDE_WEIGHTS;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto a = make_args(z0, ctx, ctx_idx, noise, dts, w, zs, qs, B, L, C,
+                           H, T, n);
+#define TSDE_TILE(NT, R, MPW, MINB)                                      \
+  if (threads == NT && rows == R && minb == MINB)                        \
+    return launch_bf16_mpw<NT, R, MPW, MINB>(a, K, stream, false);
+  TSDE_TILE(256, 8, 2, 1)
+  TSDE_TILE(256, 8, 2, 2)
+  TSDE_TILE(256, 16, 2, 2)
+  TSDE_TILE(256, 16, 2, 1)
+  TSDE_TILE(512, 8, 1, 1)
+  TSDE_TILE(512, 16, 1, 1)
+  TSDE_TILE(512, 16, 1, 2)
+#undef TSDE_TILE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 """
+# The bf16 forward's blocks that ``--only tiles`` times kernels 1 and 3 at,
+# (threads, rows a block, blocks an SM that ptxas budgets registers for),
+# in FWD_TILE_ENTRY's instantiations; the kernel's choices are (512, 8, 1),
+# (512, 16, 1) and (256, 16, 2) (latent_fused_fwd.cu: bf16_design), and
+# every block gives the same bits.
+FWD_BF16_TILES = ((512, 8, 1), (512, 16, 1), (256, 16, 2), (256, 8, 1),
+                  (256, 8, 2), (256, 16, 1), (512, 16, 2))
 
 
 def fwd_tile_library():
@@ -907,6 +951,8 @@ def fwd_tile_library():
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.tsde_latent_fwd_tile.argtypes = [P] * 23 + [I] * 10 + [P]
     lib.tsde_latent_fwd_tile.restype = I
+    lib.tsde_latent_fwd_tile_bf16.argtypes = [P] * 23 + [I] * 11 + [P]
+    lib.tsde_latent_fwd_tile_bf16.restype = I
     return lib
 
 
@@ -941,6 +987,39 @@ def fwd_tile_times(label, lib, args, weights, multi, reps):
     return out
 
 
+def fwd_bf16_tile_times(label, lib, args, weights, multi, reps):
+    """Median device times of bf16 kernel 1 (or 3) at each of
+    FWD_BF16_TILES, each block's zs and qs bitwise the kernel's own."""
+    want = (LF.fused_solve_multi_forward_cuda if multi
+            else LF.fused_solve_forward_cuda)(*args, weights)
+    z0, ctx, ctx_idx, noise, dts = args
+    K = z0.shape[0] if multi else 1
+    B, L = z0.shape[-2:]
+    T, C, H, n = ctx.shape[-3], ctx.shape[-1], weights[0].shape[-1], \
+        noise.shape[-3]
+    zs, qs = torch.empty_like(want[0]), torch.empty_like(want[1])
+    ptrs = [t.data_ptr() for t in (*args, *weights, zs, qs)]
+    stream = torch.cuda.current_stream(z0.device).cuda_stream
+    out = {}
+    for threads, rows, minb in FWD_BF16_TILES:
+        def run():
+            rc = lib.tsde_latent_fwd_tile_bf16(*ptrs, K, B, L, C, H, T, n,
+                                               threads, rows, minb,
+                                               z0.device.index or 0, stream)
+            _build.check_launch(lib, rc, f"bf16 forward {threads} x {rows} "
+                                f"x {minb}")
+        run()
+        torch.cuda.synchronize()
+        key = f"{threads}x{rows}x{minb}"
+        if not (torch.equal(zs, want[0]) and torch.equal(qs, want[1])):
+            raise RuntimeError(f"{label} at {key} differs from the kernel's "
+                               f"own")
+        out[key] = median_cuda_ms(run, reps)
+    print(f"{label} by threads x rows x blocks an SM, ms: "
+          + ", ".join(f"{k}: {v:.4g}" for k, v in out.items()), flush=True)
+    return out
+
+
 # The stages of the bf16 sweep whose clocks ``--only tiles`` reads
 # (latent_fused_bwd.cu: TSDE_MARK), in order.
 SWEEP_STAGES = ("B layer 1, g nets", "C layer 2, layer 3", "E cotangents",
@@ -958,6 +1037,66 @@ extern "C" int tsde_stage_clocks(unsigned long long* out, int reset) {
   return static_cast<int>(err);
 }
 """
+
+
+# The stages of the bf16 forward whose clocks ``--only tiles`` reads
+# (latent_fused_fwd.cu: TSDE_MARK), in order.
+FWD_STAGES = ("A layer 1", "A g nets", "B layer 2, layer 3", "C update")
+FWD_CLOCK_ENTRY = CLOCK_ENTRY.replace("tsde_latent_bwd::", "tsde_latent_fwd::")
+
+
+def fwd_stage_clocks(label, args, weights, multi):
+    """The bf16 forward's clock cycles a step and block in each of
+    FWD_STAGES (thread 0's, barrier waits included), at the kernel's own
+    block (its source built with TSDE_STAGE_CLOCKS into a library of its
+    own), and its SM clock by nvidia-smi."""
+    source = (Path(LF.__file__).resolve().parent / "csrc"
+              / "latent_fused_fwd.cu").read_text()
+    lib = _build.library_for_source(
+        "tsde_latent_fwd_clocks",
+        "#define TSDE_STAGE_CLOCKS\n" + source + FWD_TILE_ENTRY
+        + FWD_CLOCK_ENTRY)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.tsde_latent_fwd_tile_bf16.argtypes = [P] * 23 + [I] * 11 + [P]
+    lib.tsde_latent_fwd_tile_bf16.restype = I
+    lib.tsde_stage_clocks.argtypes = [P, I]
+    clocks = (ctypes.c_ulonglong * 8)()
+    z0, ctx, ctx_idx, noise, dts = args
+    K = z0.shape[0] if multi else 1
+    B, L = z0.shape[-2:]
+    T, C, H, n = ctx.shape[-3], ctx.shape[-1], weights[0].shape[-1], \
+        noise.shape[-3]
+    rows, threads, minb = fwd_bf16_design(K, B)
+    zs = torch.empty((K, n, B, L), dtype=BF16, device=z0.device)
+    qs = torch.empty((K, n, B, 1), device=z0.device)
+    ptrs = [t.data_ptr() for t in (*args, *weights, zs, qs)]
+    for _ in range(2):
+        lib.tsde_stage_clocks(clocks, 1)
+        rc = lib.tsde_latent_fwd_tile_bf16(
+            *ptrs, K, B, L, C, H, T, n, threads, rows, minb,
+            z0.device.index or 0,
+            torch.cuda.current_stream(z0.device).cuda_stream)
+        _build.check_launch(lib, rc, "bf16 forward with stage clocks")
+        torch.cuda.synchronize()
+    lib.tsde_stage_clocks(clocks, 1)
+    blocks = K * -(-B // rows)
+    out = {name: clocks[i] / (blocks * n)
+           for i, name in enumerate(FWD_STAGES)}
+    out["rows"], out["threads"], out["minb"] = rows, threads, minb
+    out["sm_clock_mhz"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"{label}: bf16 forward cycles a step and block by stage: "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def fwd_bf16_design(K, B, sms=132):
+    """latent_fused_fwd.cu:bf16_design on an H100's SMs: rows a block,
+    threads, and the blocks an SM ptxas budgets registers for."""
+    if K * -(-B // 8) <= sms:
+        return 8, 512, 1
+    return (16, 512, 1) if K * -(-B // 16) <= sms else (16, 256, 2)
 
 
 def sweep_stage_clocks(label, bargs, multi):
@@ -1077,7 +1216,8 @@ def phase_tiles(device):
     """Kernel 2 at the flagship and kernel 4 at K = MULTI_K, whole and sweep
     alone, at each block of SWEEP_TILES, and in bf16 mixed mode at each of
     BF16_SWEEP_TILES; kernels 1 and 3 at K = 1, 2, MULTI_K and 8 at each
-    block of FWD_TILES (``--only tiles``)."""
+    block of FWD_TILES, and in bf16 at each of FWD_BF16_TILES (``--only
+    tiles``)."""
     fwd_lib = fwd_tile_library()
     forward = {}
     with torch.no_grad():
@@ -1089,6 +1229,16 @@ def phase_tiles(device):
                 a_1, w_1 = replica(a_t, w_t, 0)
                 forward["kernel1"] = fwd_tile_times("kernel 1", fwd_lib, a_1,
                                                     w_1, False, 10)
+            del a_t, w_t
+            a_t, w_t = multi_kernel_inputs(device, Kt, dtype=BF16)
+            forward[f"bf16_{Kt}"] = fwd_bf16_tile_times(
+                f"kernel 3 (bf16) at K={Kt}", fwd_lib, a_t, w_t, True, 10)
+            forward[f"bf16_{Kt}"]["stage_clocks"] = fwd_stage_clocks(
+                f"kernel 3 (bf16) at K={Kt}", a_t, w_t, True)
+            if Kt == 1:
+                a_1, w_1 = replica(a_t, w_t, 0)
+                forward["kernel1_bf16"] = fwd_bf16_tile_times(
+                    "kernel 1 (bf16)", fwd_lib, a_1, w_1, False, 10)
             del a_t, w_t
     lib = tile_library()
     model = flagship_model(device)
@@ -3544,9 +3694,18 @@ def phase_bf16_kernels(device):
               f"({bnd['bound_by']}; bytes "
               f"{bytes_ms([*args, *weights, *fwd]):.4f} ms; at the float32 "
               f"FMA rate {bnd['fma_bound_ms']:.4f} ms)", flush=True)
-        out["fwd"] = dict(max_abs_err=err[0], max_rel_err=err[1],
-                          rounding_ratio=err[2], ms=ms, plain_ms=plain_ms,
-                          **bnd)
+        lib = _build.load_library()
+        widths = (LATENT, CONTEXT, HIDDEN)
+        out["fwd"] = dict(
+            max_abs_err=err[0], max_rel_err=err[1], rounding_ratio=err[2],
+            ms=ms, plain_ms=plain_ms,
+            smem_bytes=lib.tsde_latent_fused_fwd_smem_bytes_bf16(*widths),
+            blocks_per_sm=lib.tsde_latent_fused_fwd_blocks_per_sm_bf16(
+                1, BATCH, *widths, device.index or 0),
+            ptxas=ptxas_info("latent_fwd_bf16"), **bnd)
+        print(f"kernel 1 (bf16): {out['fwd']['smem_bytes']} B of shared "
+              f"memory a block, {out['fwd']['blocks_per_sm']} blocks an SM; "
+              f"ptxas {json.dumps(out['fwd']['ptxas'])}", flush=True)
         errs = []
         for label in ("normal", "saturated"):
             if label == "saturated":
@@ -3589,8 +3748,10 @@ def phase_bf16_kernels(device):
           f"({bnd['bound_by']}; bytes {bytes_ms(moved):.4f} ms; at the "
           f"float32 FMA rate {bnd['fma_bound_ms']:.4f} ms)", flush=True)
     sass = sass_counts(_build.library_path()[0], BF16_SASS)
-    print("kernels 2, 4 (bf16) SASS opcodes: " + json.dumps(sass),
+    print("kernels 1-4 (bf16) SASS opcodes: " + json.dumps(sass),
           flush=True)
+    out["fwd"]["sass"] = {k: sass[k] for k in ("forward", "forward_one_block")
+                          } if sass else None
     out["bwd"] = dict(max_abs_err=errs[0][0], max_abs_err_saturated=errs[1][0],
                       max_rel_err=max(e[1] for e in errs),
                       rounding_ratio=min(e[2] for e in errs), ms=ms,
@@ -3599,11 +3760,37 @@ def phase_bf16_kernels(device):
 
 
 def phase_bf16_multi_kernels(device):
-    """Kernels 3 and 4 in bf16 at K = MULTI_K: against their plain versions
-    and the float32 reference (with the floor of their roundings), each
-    replica bitwise kernels 1 and 2 (bf16)
-    on its own inputs, two sweeps bitwise equal; median times and
-    bounds."""
+    """Kernel 3 in bf16 at each K of MULTI_KS, 4 at K = MULTI_K: against
+    their plain versions and the float32 reference (with the floor of
+    their roundings), each replica bitwise kernels 1 and 2 (bf16) on its
+    own inputs, two sweeps bitwise equal; median times and bounds, kernel
+    3's shared memory and blocks an SM."""
+    lib = _build.load_library()
+    forward_ks, errs = {}, {}
+    with torch.no_grad():
+        for Kt in MULTI_KS:
+            a_t, w_t = multi_kernel_inputs(device, Kt, dtype=BF16)
+            ra_t, rw_t = bf16_reference(a_t, w_t)
+            got = LF.fused_solve_multi_forward_cuda(*a_t, w_t)
+            want = LF.fused_solve_multi_forward_plain(*a_t, w_t)
+            ref = LF.fused_solve_multi_forward_plain(*ra_t, rw_t)
+            torch.cuda.synchronize()
+            err = errs[Kt] = check_bf16(f"kernel 3 (bf16) at K={Kt}",
+                                        ("zs", "qs"), got, want, ref,
+                                        (BF16, torch.float32))
+            for k in range(Kt):
+                a_k, w_k = replica(a_t, w_t, k)
+                same_bits(f"kernel 3 (bf16) at K={Kt}, replica {k}, and "
+                          f"kernel 1", [t[k] for t in got],
+                          LF.fused_solve_forward_cuda(*a_k, w_k))
+            forward_ks[str(Kt)] = dict(
+                max_rel_err=err[1], rounding_ratio=err[2],
+                blocks_per_sm=lib.tsde_latent_fused_fwd_blocks_per_sm_bf16(
+                    Kt, BATCH, LATENT, CONTEXT, HIDDEN, device.index or 0))
+            del a_t, w_t, ra_t, rw_t, got, want, ref
+    print(f"kernel 3 (bf16) at K = {', '.join(map(str, MULTI_KS))}: on the "
+          f"bars, every replica bitwise kernel 1; {json.dumps(forward_ks)}",
+          flush=True)
     K = MULTI_K
     args, weights = multi_kernel_inputs(device, K, dtype=BF16)
     n = args[3].shape[1]
@@ -3613,14 +3800,9 @@ def phase_bf16_multi_kernels(device):
     gq = torch.randn((K, n, BATCH, 1), generator=gen, device=device)
     r_args, r_w = bf16_reference(args, weights)
     flops = K * solve_flops(BATCH, LATENT, CONTEXT, HIDDEN, n)
+    err3 = errs[K]
     with torch.no_grad():
         got = LF.fused_solve_multi_forward_cuda(*args, weights)
-        want = LF.fused_solve_multi_forward_plain(*args, weights)
-        ref = LF.fused_solve_multi_forward_plain(*r_args, r_w)
-        torch.cuda.synchronize()
-        err3 = check_bf16("kernel 3 (bf16)", ("zs", "qs"), got, want, ref,
-                          (BF16, torch.float32))
-        del want, ref
         bargs = (*args, weights, got[0], gz, gq)
         got_b = LF.fused_solve_multi_backward_cuda(*bargs)
         want_b = LF.fused_solve_multi_backward_plain(*bargs)
@@ -3634,15 +3816,12 @@ def phase_bf16_multi_kernels(device):
                   _flat(LF.fused_solve_multi_backward_cuda(*bargs)))
         for k in range(K):
             a_k, w_k = replica(args, weights, k)
-            one = LF.fused_solve_forward_cuda(*a_k, w_k)
-            same_bits(f"kernel 3 (bf16) replica {k} and kernel 1",
-                      [t[k] for t in got], one)
             one_b = LF.fused_solve_backward_cuda(*a_k, w_k, got[0][k], gz[k],
                                                  gq[k])
             same_bits(f"kernel 4 (bf16) replica {k} and kernel 2",
                       [t[k] for t in _flat(got_b)], _flat(one_b))
-        print(f"kernels 3, 4 (bf16) at K={K}: every replica bitwise kernels "
-              f"1, 2; two sweeps bitwise", flush=True)
+        print(f"kernel 4 (bf16) at K={K}: every replica bitwise kernel 2; "
+              f"two sweeps bitwise", flush=True)
         parts4 = backward_parts(f"kernel 4 (bf16) at K={K}", bargs, True, 5)
         times = dict(
             fwd=(median_cuda_ms(lambda: LF.fused_solve_multi_forward_cuda(
@@ -3667,7 +3846,8 @@ def phase_bf16_multi_kernels(device):
               f"{bnd['fma_bound_ms']:.4f} ms)", flush=True)
         out[kind] = dict(max_abs_err=err[0], max_rel_err=err[1],
                          rounding_ratio=err[2], ms=ms, plain_ms=plain_ms,
-                         **(parts4 if kind == "bwd" else {}), **bnd)
+                         **(parts4 if kind == "bwd" else
+                            dict(by_K=forward_ks)), **bnd)
     return out
 
 
@@ -3843,7 +4023,8 @@ def phase_bf16_multi_path(device, xs, ts):
     """latent_sde_loss_multi(fused=True) on K = MULTI_K bf16 replicas: each
     replica's served loss against the single fused route on a clone of its
     generator; two Adam steps on the stacked state, each launching kernels
-    3 and 4 in bf16 once and no other kernel of the solve."""
+    3 and 4 in bf16 once and no other kernel of the solve; a third under
+    the profiler, for its device time."""
     K = MULTI_K
     xs = xs.to(BF16)
     models = stacked_replicas(device, K, BF16)
@@ -3894,8 +4075,19 @@ def phase_bf16_multi_path(device, xs, ts):
               f"{[round(float(v), 3) for v in losses.detach()]} "
               f"{times[-1]:.3f} ms",
               flush=True)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        total, _ = latent_sde_loss_multi(
+            models, xs, ts, replica_generators(device, 770, K), dt=DT,
+            fused=True)
+        total.backward()
+        opt.step()
+
+    prof = profile_run("bf16 multi fused train step", step)
     return (LF.bf16_multi_launches, LF.bf16_multi_bwd_launches), dict(
-        loss_rel_err=worst, step_ms=float(np.median(times)))
+        loss_rel_err=worst, step_ms=float(np.median(times)),
+        step_device_ms=prof["device_ms"])
 
 
 # --------------------------------------------------------------------------- #
@@ -4371,17 +4563,36 @@ def phase_srk_kernel(device):
 
 
 def phase_srk_bf16_kernel(device):
-    """Kernel 15 in bf16 at the four configurations, on the float32 phase's
-    inputs rounded to bf16: bitwise its bf16 plain version; its roundings
-    shown present (no nearer the rounded float32 solve than BF16_FLOOR of
-    the plain version's distance, which the float32 kernel with only its
-    result rounded misses); its distance from float64 printed; at (1024,
-    8) against sdeint(method='srk') in bf16; median times and the bf16
-    bound; then one bf16 solve at full width counted as the main path."""
+    """Kernel 15 in bf16 at the four configurations and at SRK_ODD, on the
+    float32 phase's inputs rounded to bf16: bitwise its bf16 plain
+    version; its roundings shown present (no nearer the rounded float32
+    solve than BF16_FLOOR of the plain version's distance, which the
+    float32 kernel with only its result rounded misses); its distance from
+    float64 printed; at (1024, 8) against sdeint(method='srk') in bf16;
+    median times and the bf16 bound; then one bf16 solve at full width
+    counted as the main path. First its bf16x2 instructions and operators
+    against float32 rounded to bf16 over all operand pairs, and its SASS
+    and ptxas counts."""
     dt = 1.0 / SRK_STEPS
     records = {}
+    t0 = time.perf_counter()
+    check = SF.bf16x2_check(SRK_F, SRK_G, 2, device)
+    print(f"kernel 15 bf16x2 check over 2^32 operand pairs "
+          f"({time.perf_counter() - t0:.1f} s with the build): "
+          + json.dumps(check), flush=True)
+    for op, c in check.items():
+        if c["operator"] > SRK_BF16X2_DIFFS or (
+                c["native"] and c["instruction"] > SRK_BF16X2_DIFFS):
+            raise RuntimeError(f"kernel 15's bf16x2 {op} differs from "
+                               f"float32 rounded to bf16: {c}")
+    lib_path = _build.source_library_path(
+        "tsde_srk_srid2", SF.srk_source(SRK_F.cuda_expr, SRK_G.cuda_expr, 2))
+    sass = sass_counts(lib_path, "srid2_kernel_bf16x2")
+    ptxas = ptxas_info("srid2_kernel_bf16x2")
+    print(f"kernel 15 bf16 SASS opcodes: {json.dumps(sass)}; ptxas: "
+          f"{json.dumps(ptxas)}", flush=True)
     with torch.no_grad():
-        for B, d in SRK_CONFIGS:
+        for B, d in SRK_CONFIGS + (SRK_ODD,):
             y0, W, U, params, _ = srk_problem(device, B, d)
             y0, W, U = (t.to(BF16) for t in (y0, W, U))
             params = tuple(p.to(BF16) for p in params)
@@ -4472,25 +4683,47 @@ def phase_srk_bf16_kernel(device):
     for key in ("ms", "bound_ms", "plain_ms"):
         wide[f"{key}_by_config"] = {f"{B}x{d}": r[key] for (B, d), r in
                                     records.items()}
+    wide.update(bf16x2_check=check, sass=sass, ptxas=ptxas)
     return launches, wide
 
 
-# Bf16::round of csrc/srk_srid2.cuh as phase_srk_rounding rebuilds it: on
-# the converter (the header's), in integer arithmetic, and not at all.
+# Bf16x2::pack of csrc/srk_srid2.cuh (its packed conversion) as
+# phase_srk_rounding rebuilds it, with the nvcc definitions of each build:
+# the header's (cvt.rn.bf16x2.f32), the same with every operation on the
+# packed conversion (no bf16x2 instruction), rounding in integer
+# arithmetic, and truncation (what no conversion at all would cost).
+SRK_ROUND_BODY = """const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+    uint32_t u;
+    memcpy(&u, &r, sizeof u);
+    return of_bits(u);"""
 SRK_ROUNDINGS = {
-    "cvt": None,
-    "integer": "return exact(round_bf16_bits(x));",
-    "none": "return exact(x);"}
-SRK_ROUND_BODY = "return exact(__bfloat162float(__float2bfloat16_rn(x)));"
+    "cvt": (None, ()),
+    "packed": (SRK_ROUND_BODY, ("-DTSDE_BF16X2_ADD=0", "-DTSDE_BF16X2_SUB=0",
+                                "-DTSDE_BF16X2_MUL=0")),
+    "integer": ("""const float rl = round_bf16_bits(lo), rh = round_bf16_bits(hi);
+    uint32_t a, b;
+    memcpy(&a, &rl, sizeof a);
+    memcpy(&b, &rh, sizeof b);
+    return of_bits((a >> 16) | (b & 0xffff0000u));""", ()),
+    "none": ("""uint32_t a, b;
+    memcpy(&a, &lo, sizeof a);
+    memcpy(&b, &hi, sizeof b);
+    return of_bits((a >> 16) | (b & 0xffff0000u));""", ())}
 SASS_OPS = ("F2FP", "F2F", "FADD", "FMUL", "FFMA", "IADD3", "LOP3", "SHF",
-            "PRMT", "IMAD", "HMMA", "LDSM", "MOVM")
-# The bf16 kernels of kernels 2 and 4 whose SASS phase 22a counts, by a
-# part of their mangled names: the flagship's sweep (256 threads, 8 rows,
-# 2 m-tiles a warp) with registers for two blocks an SM (kernel 4's) and
-# for one (kernel 2's), and the tiled contraction.
+            "PRMT", "IMAD", "HMMA", "LDSM", "MOVM", "HADD2", "HMUL2",
+            "HFMA2", "MUFU", "CALL", "BRA", "BSSY")
+# The bf16 kernels of kernels 1-4 whose SASS phase 22a counts, by a part
+# of their mangled names: the flagship's sweep (256 threads, 8 rows, 2
+# m-tiles a warp) with registers for two blocks an SM (kernel 4's) and for
+# one (kernel 2's), the tiled contraction, and the forward at 16 rows, 256
+# threads, 2 m-tiles a warp, with registers for two blocks an SM (kernel 3
+# at K = 4) and at 8 rows, 512 threads, 1 m-tile a warp, for one (kernel
+# 1).
 BF16_SASS = {"sweep": "latent_bwd_sweep_bf16ILi256ELi8ELi2ELi2E",
              "sweep_one_block": "latent_bwd_sweep_bf16ILi256ELi8ELi2ELi1E",
-             "contraction": "latent_bwd_contract_bf16"}
+             "contraction": "latent_bwd_contract_bf16",
+             "forward": "latent_fwd_bf16ILi256ELi16ELi2ELi2E",
+             "forward_one_block": "latent_fwd_bf16ILi512ELi8ELi1ELi1E"}
 
 
 def sass_counts(lib_path, marker="Bf16"):
@@ -4523,13 +4756,31 @@ def sass_counts(lib_path, marker="Bf16"):
     return counts if isinstance(marker, dict) else counts[None]
 
 
+def ptxas_info(marker):
+    """Registers and spill bytes that ptxas reported (``_build.build_log``)
+    for each kernel whose mangled name holds ``marker``."""
+    out, name = {}, None
+    for line in _build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if marker in line else None
+        elif name and "spill stores" in line:
+            words = line.replace(",", "").split()
+            out.setdefault(name, {})["spill_store_bytes"] = int(
+                words[words.index("spill") - 2])
+        elif name and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            out.setdefault(name, {})["registers"] = int(
+                words[words.index("registers") - 1])
+    return out
+
+
 def phase_srk_rounding(device):
     """Measurement only (``--only srk_rounding``): what binds bf16 kernel
     15. Builds phase 23's generated source against copies of
-    csrc/srk_srid2.cuh whose Bf16::round rounds in integer arithmetic or
-    not at all, holds the integer one bitwise to the header's, times each
-    at the widest SRK configuration, and counts the opcodes of each bf16
-    kernel's SASS."""
+    csrc/srk_srid2.cuh whose packed conversion (Bf16x2::pack) carries
+    every operation, rounds in integer arithmetic or truncates, holds the
+    first two bitwise to the header's, times each at the widest SRK
+    configuration, and counts the opcodes of each bf16 kernel's SASS."""
     B, d = SRK_CONFIGS[-1]
     dt = 1.0 / SRK_STEPS
     y0, W, U, params, _ = srk_problem(device, B, d)
@@ -4540,12 +4791,12 @@ def phase_srk_rounding(device):
     header = (Path(SF.__file__).parent / "csrc" / "srk_srid2.cuh"
               ).read_text()
     if SRK_ROUND_BODY not in header:
-        raise RuntimeError("Bf16::round is not the one phase_srk_rounding "
+        raise RuntimeError("Bf16x2::pack is not the one phase_srk_rounding "
                            "rewrites")
     root = Path(__file__).resolve().parent / "build" / "srk_rounding"
     out, records = {}, {}
     with torch.no_grad():
-        for name, body in SRK_ROUNDINGS.items():
+        for name, (body, defines) in SRK_ROUNDINGS.items():
             if body is None:
                 SF.srk_solve_cuda(SRK_F, SRK_G, y0, 0.0, dt, 1, W[:1], U[:1],
                                   params)
@@ -4558,8 +4809,9 @@ def phase_srk_rounding(device):
                 (folder / "solve.cu").write_text(text)
                 lib_path = folder / "libsolve.so"
                 proc = subprocess.run(
-                    [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-                     str(folder), "-o", str(lib_path), str(folder / "solve.cu")],
+                    [_build.find_nvcc(), *_build.NVCC_FLAGS, *defines,
+                     "-shared", "-I", str(folder), "-o", str(lib_path),
+                     str(folder / "solve.cu")],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                 if proc.returncode != 0:
                     raise RuntimeError(f"srk rounding {name}: nvcc failed\n"
@@ -4583,13 +4835,15 @@ def phase_srk_rounding(device):
             torch.cuda.synchronize()
             out[name] = res.clone()
             records[name] = dict(ms=median_cuda_ms(run, 20),
-                                 sass=sass_counts(lib_path))
-    records["integer"]["bitwise"] = bool(torch.equal(out["integer"],
-                                                     out["cvt"]))
+                                 sass=sass_counts(lib_path,
+                                                  "srid2_kernel_bf16x2"))
+    for name in ("packed", "integer"):
+        records[name]["bitwise"] = bool(torch.equal(out[name], out["cvt"]))
+        if not records[name]["bitwise"]:
+            raise RuntimeError(f"srk rounding {name} differs from the "
+                               f"header's")
     records["none"]["max_abs_diff"] = float(
         (out["none"].float() - out["cvt"].float()).abs().max())
-    if not records["integer"]["bitwise"]:
-        raise RuntimeError("integer rounding differs from the converter's")
     print(json.dumps({"srk_rounding": records}), flush=True)
     return records
 
@@ -5190,14 +5444,15 @@ def ab_gan_inputs(device, kind, B, S, M, K, T, seed):
 
 def phase_ab(device, tag, against):
     """Times kernels 1, 2 (and its contraction alone), 3 (at each K of
-    MULTI_KS), 4 (at MULTI_K), 1-4 in bf16 mixed mode (3 and 4 at MULTI_K;
-    2 and 4 also their sweep and contraction apart), 5-8
+    MULTI_KS), 4 (at MULTI_K), 1-4 in bf16 mixed mode (3 at each K, 4 at
+    MULTI_K; 2 and 4 also their sweep and contraction apart), 5-8
     (at the GAN's reference scale; 5, 6 and 7 also at AB_GEN_SHAPES and
     AB_CDE_SHAPES), 9 (at E1, on general noise with time
     and at the narrow solve), 10 (at E1), 11 (at R1 and on general noise
     with time), 12 (at R1), 13 (at L1, L2 and the small signed solve) and 14
-    (at L1) and 15 (float32 and float64 at SRK_CONFIGS) through the entry
-    points that every version of the port has, on the inputs of phases 3,
+    (at L1) and 15 (float32 and float64 at SRK_CONFIGS, bf16 there and at
+    SRK_ODD) through the entry points that every version of the port has,
+    on the inputs of phases 3,
     4, 8, 11, 14, 18, 21 and 23, and keeps their
     outputs in
     build/ab_<tag>.pt. With ``against``, the outputs of the run tagged so
@@ -5282,6 +5537,16 @@ def phase_ab(device, tag, against):
                                               stages=stages, workspace=ws),
                     10)
             del a_b, w_b, b_b, ws
+        # Kernel 3 in bf16 at the other K of MULTI_KS.
+        for Kt in MULTI_KS:
+            if Kt == MULTI_K:
+                continue
+            a_b, w_b = multi_kernel_inputs(device, Kt, dtype=BF16)
+            out[f"kernel3_bf16_K{Kt}"] = list(
+                LF.fused_solve_multi_forward_cuda(*a_b, w_b))
+            times[f"kernel3_bf16_K{Kt}"] = median_cuda_ms(
+                lambda: LF.fused_solve_multi_forward_cuda(*a_b, w_b), 10)
+            del a_b, w_b
         for label, e_args in ab_euler_inputs(device):
             key = "kernel9" if label == "E1" else f"kernel9_{label}"
             out[key] = [FS.euler_solve_forward_cuda(*e_args)]
@@ -5401,6 +5666,18 @@ def phase_ab(device, tag, against):
                 times[key] = median_cuda_ms(
                     lambda: SF.srk_solve_cuda(*s_args), 10)
                 del s_args, W, U
+        # Kernel 15 in bf16 there and at SRK_ODD, on
+        # the float32 inputs rounded to bf16.
+        for B, d in SRK_CONFIGS + (SRK_ODD,):
+            y0, W, U, params, _ = srk_problem(device, B, d)
+            s_args = (SRK_F, SRK_G, y0.to(BF16), 0.0, 1.0 / SRK_STEPS,
+                      SRK_STEPS, W.to(BF16), U.to(BF16),
+                      tuple(p.to(BF16) for p in params))
+            key = f"kernel15_bf16_{B}x{d}"
+            out[key] = [SF.srk_solve_cuda(*s_args)]
+            times[key] = median_cuda_ms(lambda: SF.srk_solve_cuda(*s_args),
+                                        10)
+            del s_args, W, U
     torch.cuda.synchronize()
     print(f"ab {tag} (ms): " + json.dumps(times), flush=True)
     path = Path(__file__).resolve().parent / "build"

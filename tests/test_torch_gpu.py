@@ -1262,6 +1262,38 @@ def _replica(args, weights, k):
     return (z0[k], ctx[k], idx, noise[k], dts), [w[k] for w in weights]
 
 
+@pytest.mark.parametrize("K", [1, 2, 4, 8])
+@pytest.mark.parametrize("B,L,C,H,n_ts,dt", SHAPES)
+def test_bf16_multi_forward_replicas_are_single_solves(cuda, K, B, L, C, H,
+                                                       n_ts, dt):
+    """Kernel 3 in bf16 mixed mode at K = 1, 2, 4 and 8 (other rows a block
+    and register budgets as the grid grows): within BF16_REL of its plain
+    version, and every replica bitwise kernel 1 on its own inputs; its
+    blocks an SM and shared memory reported."""
+    with torch.no_grad():
+        args, weights = _multi_args(cuda, K, B, L, C, H, n_ts, dt, 20,
+                                    dtype=torch.bfloat16)
+        got = LF.fused_solve_multi_forward_cuda(*args, weights)
+        want = LF.fused_solve_multi_forward_plain(*args, weights)
+        singles = []
+        for k in range(K):
+            a_k, w_k = _replica(args, weights, k)
+            singles.append(LF.fused_solve_forward_cuda(*a_k, w_k))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.isfinite(g.float()).all()
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=0,
+            atol=BF16_REL * float(w.float().abs().max()))
+    for k, one in enumerate(singles):
+        assert all(torch.equal(a[k], b) for a, b in zip(got, one))
+    lib = _build.load_library()
+    assert lib.tsde_latent_fused_fwd_blocks_per_sm_bf16(
+        K, B, L, C, H, cuda.index or 0) >= 1
+    assert 0 < lib.tsde_latent_fused_fwd_smem_bytes_bf16(L, C, H) \
+        <= _build.MAX_SMEM_BYTES
+
+
 MULTI_SHAPES = [(3, 13, 3, 5, 40, 4, 1.0 / 17), (2, 9, 4, 64, 136, 6, 1.0 / 16),
                 (5, 1, 1, 1, 1, 2, 0.5)]
 
@@ -1401,7 +1433,7 @@ def _srk_case(device, B, d, n, dtype, seed=0):
 
 
 @pytest.mark.parametrize("B,d,n", [(1, 1, 1), (37, 5, 9), (300, 3, 64),
-                                   (2048, 16, 16)])
+                                   (2048, 16, 16), (1023, 7, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
                                    torch.bfloat16])
 def test_srk_kernel_matches_plain(cuda, B, d, n, dtype):
@@ -1429,6 +1461,21 @@ def test_srk_kernel_matches_plain(cuda, B, d, n, dtype):
     got = SF.srk_solve_fused(drift, no_params, y0, 0.0, 1.0 / n, n, W, U)
     want = SF.srk_solve_plain(drift, no_params, y0, 0.0, 1.0 / n, n, W, U)
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+def test_srk_bf16x2_arithmetic_matches_float32_rounding(cuda):
+    """The bf16x2 instructions of bf16 kernel 15 (__hadd2_rn, __hsub2_rn,
+    __hmul2_rn) and its pair type's + - * / against float32 rounded to
+    bf16, over all 2^32 pairs of bf16 operands (subnormals, overflow and
+    NaN among them; NaN matching NaN): no difference."""
+    import torchsde_tpu_torch.ops.srk_fused as SF
+    f = SF.Elementwise(lambda t, y, mu: mu * y, "p0 * y")
+    check = SF.bf16x2_check(f, f, 1, cuda)
+    assert set(check) == set(SF.BF16X2_OPS)
+    for op, c in check.items():
+        assert c["operator"] == 0, (op, c)
+        assert op == "div" or c["instruction"] == 0, (op, c)
+        assert c["native"] == (op != "div"), (op, c)
 
 
 def test_srk_kernel_refuses_what_it_cannot_run(cuda):

@@ -1,4 +1,4 @@
-"""The bf16 tensor-core index arithmetic of kernels 2 and 4, on the host.
+"""The bf16 tensor-core index arithmetic of kernels 1-4, on the host.
 
 ``csrc/mma_bf16.cuh`` keeps the arithmetic of the bf16 sweep and
 contraction (which row each lane of a warp names to ldmatrix, which
@@ -6,9 +6,10 @@ elements of a fragment or an accumulator it holds, where a transposed tile
 goes) as plain host-and-device functions. Here the host C++ compiler builds
 them against stand-ins for the CUDA headers, beside a warp emulated over 32
 lanes as the PTX ISA lays out ldmatrix (.trans), mma.m16n8k16 .bf16 and
-movmatrix.trans, and the sweep's and the contraction's products, addressed
-as the kernel addresses them, are held to numpy on bf16-rounded inputs. A
-copy of the header with two fragment rows swapped must fail."""
+movmatrix.trans, and the sweep's, the contraction's and the forward's
+products, addressed as the kernels address them, are held to numpy on
+bf16-rounded inputs. A copy of the header with two fragment rows swapped,
+or with the forward's context columns shifted, must fail."""
 
 import ctypes
 import shutil
@@ -29,6 +30,7 @@ CUDA_STUB = """#pragma once
 # The warp, emulated from the PTX ISA's layouts (not from the header), and
 # the kernels' products addressed through the header's functions.
 EMULATOR = r"""
+#include <math.h>
 #include <stdint.h>
 #include <string.h>
 #include "mma_bf16.cuh"
@@ -161,6 +163,124 @@ extern "C" void sweep_product(const uint16_t* w, int rows, int H, int trans,
   }
 }
 
+static float softplus_(float v) {
+  return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
+}
+
+// A warp's product of the bf16 forward (latent_fused_fwd.cu:
+// latent_fwd_bf16) over a weight staged as the kernel stages it (`wrows`
+// stored rows, `kin` of them read), for the m-tile at m0 and n-tile nt:
+// acc = W^T src, src [R][stride] bf16.
+static void forward_tile(const uint16_t* s, int wrows, int kin, int chunks,
+                         int m0, int nt, const uint16_t* src, int stride,
+                         float d[32][4]) {
+  memset(d, 0, sizeof(float) * 32 * 4);
+  for (int k0 = 0; k0 < kin; k0 += 16) {
+    int off[32];
+    uint32_t a[32][4], b[32][2];
+    for (int t = 0; t < 32; ++t)
+      off[t] = a_tile_offset(t, k0, m0, true, chunks, wrows);
+    ldsm(s, off, true, a);
+    for (int t = 0; t < 32; ++t)
+      for (int i = 0; i < 2; ++i)
+        memcpy(&b[t][i], src + b_offset(t, nt, k0, stride, i), 4);
+    mma(d, a, b);
+  }
+}
+
+// The drift tower f of the bf16 forward for one block of R rows, its
+// products addressed as the kernel addresses them: x = [z | ctx] (R x D
+// bf16) laid out at fwd_x_col's columns; W1 (D x H) staged at the same
+// rows, the padding's rows zero; layer 1 rounded and transposed into act1;
+// layer 2 rounded and transposed into layer 3's B operand in the lanes;
+// layer 3 one product an m-tile, added over the m-tiles in order. f [L][R]
+// float.
+extern "C" void forward_f(const uint16_t* w1, const float* b1,
+                          const uint16_t* w2, const float* b2,
+                          const float* w3, const uint16_t* xin, int L,
+                          int C, int H, int R, float* f) {
+  const int D = L + C, chunks = ldsm_chunks(H), HP = pad16(H);
+  const int XK = fwd_x_col(D, L), XS = pad16(XK) + 8, AS = HP + 8;
+  static uint16_t s1[1 << 18], s2[1 << 18], x[1 << 14], act1[1 << 16];
+  memset(s1, 0, sizeof s1);
+  memset(s2, 0, sizeof s2);
+  memset(x, 0, sizeof x);
+  for (int k = 0; k < D; ++k)
+    for (int j = 0; j < H; ++j)
+      s1[ldsm_offset(fwd_x_col(k, L), j, chunks)] = w1[k * H + j];
+  for (int k = 0; k < H; ++k)
+    for (int j = 0; j < H; ++j) s2[ldsm_offset(k, j, chunks)] = w2[k * H + j];
+  for (int r = 0; r < R; ++r)
+    for (int k = 0; k < D; ++k) x[r * XS + fwd_x_col(k, L)] = xin[r * D + k];
+  // Layer 1, each m-tile rounded and transposed into act1 [R][AS].
+  for (int m0 = 0; m0 < HP; m0 += 16)
+    for (int nt = 0; nt < R / 8; ++nt) {
+      float d[32][4];
+      forward_tile(s1, XK, XK, chunks, m0, nt, x, XS, d);
+      for (int h = 0; h < 2; ++h) {
+        uint32_t pk[32], tr[32];
+        for (int t = 0; t < 32; ++t) {
+          float v[2];
+          for (int e = 0; e < 2; ++e) {
+            const int j = m0 + d_row(t, 2 * h + e);
+            v[e] = j < H ? softplus_(d[t][2 * h + e] + b1[j]) : 0.f;
+          }
+          pk[t] = rn(v[0]) | ((uint32_t)rn(v[1]) << 16);
+        }
+        movm(pk, tr);
+        for (int t = 0; t < 32; ++t)
+          memcpy(act1 + t_offset(t, nt, m0, AS, h), &tr[t], 4);
+      }
+    }
+  // W3 (H x L) as [l][unit] rows, layer 3's A operand.
+  static uint16_t s3[1 << 14];
+  memset(s3, 0, sizeof s3);
+  for (int l = 0; l < L; ++l)
+    for (int j = 0; j < H; ++j)
+      s3[ldsm_offset(l, j, chunks)] = rn(w3[j * L + l]);
+  // Layer 2 and layer 3, m-tile by m-tile: layer 2's tile rounded and
+  // transposed in the lanes into layer 3's B operand, one product of 16
+  // outputs an m-tile (rows past L the zero row).
+  for (int i = 0; i < L * R; ++i) f[i] = 0.f;
+  for (int m0 = 0; m0 < HP; m0 += 16) {
+    float part[64][64] = {};            // [l][r] of this m-tile
+    for (int nt = 0; nt < R / 8; ++nt) {
+      float d[32][4];
+      forward_tile(s2, H, H, chunks, m0, nt, act1, AS, d);
+      uint32_t b[32][2];
+      for (int h = 0; h < 2; ++h) {
+        uint32_t pk[32], tr[32];
+        for (int t = 0; t < 32; ++t) {
+          float v[2];
+          for (int e = 0; e < 2; ++e) {
+            const int j = m0 + d_row(t, 2 * h + e);
+            v[e] = j < H ? softplus_(d[t][2 * h + e] + b2[j]) : 0.f;
+          }
+          pk[t] = rn(v[0]) | ((uint32_t)rn(v[1]) << 16);
+        }
+        movm(pk, tr);
+        for (int t = 0; t < 32; ++t) b[t][h] = tr[t];
+      }
+      for (int l0 = 0; l0 < L; l0 += 16) {
+        int off[32];
+        uint32_t a[32][4];
+        for (int t = 0; t < 32; ++t)
+          off[t] = a_tile_offset(t, l0, m0, false, chunks, L);
+        ldsm(s3, off, false, a);
+        float acc[32][4] = {};
+        mma(acc, a, b);
+        for (int t = 0; t < 32; ++t)
+          for (int e = 0; e < 4; ++e) {
+            const int l = l0 + d_row(t, e);
+            if (l < L) part[l][8 * nt + d_col(t, e)] = acc[t][e];
+          }
+      }
+    }
+    for (int l = 0; l < L; ++l)
+      for (int r = 0; r < R; ++r) f[l * R + r] += part[l][r];
+  }
+}
+
 // One block's output tile of the contraction (8 warps of 32 x 32): out[i][j]
 // = sum_m As[m][i] Bs[m][j] over KS rows of slabs As [KS][as], Bs [KS][bs].
 extern "C" void contract_tile(const uint16_t* As, int as, const uint16_t* Bs,
@@ -219,6 +339,7 @@ def _build(folder, header):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.sweep_product.argtypes = [P, I, I, I, P, I, I, P, P, I]
     lib.contract_tile.argtypes = [P, I, P, I, I, P, I]
+    lib.forward_f.argtypes = [P] * 6 + [I] * 4 + [P]
     return lib
 
 
@@ -333,3 +454,83 @@ def test_swapped_fragment_rows_are_caught(tmp_path):
     want = _from_bits(w).T @ _from_bits(x[:, :68]).T
     with pytest.raises(AssertionError):
         _check(got[:128], want)
+
+
+def _softplus(v):
+    return np.maximum(v, 0.0) + np.log1p(np.exp(-np.abs(v)))
+
+
+def _forward_case(rng, L, C, H, R):
+    D = L + C
+    w1, w2 = _inputs(rng, D, H, scale=0.3), _inputs(rng, H, H, scale=0.2)
+    b1 = rng.standard_normal(H).astype(np.float32) * 0.1
+    b2 = rng.standard_normal(H).astype(np.float32) * 0.1
+    w3 = rng.standard_normal((H, L)).astype(np.float32) * 0.2
+    x = _inputs(rng, R, D)
+    return w1, b1, w2, b2, w3, x
+
+
+def _forward_f(warp, case, L, C, H, R):
+    w1, b1, w2, b2, w3, x = case
+    f = np.zeros((L, R), np.float32)
+    warp.forward_f(_ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(w3),
+                   _ptr(x), L, C, H, R, _ptr(f))
+    return f
+
+
+def _forward_want(case):
+    """numpy's f on the same bf16 roundings: x, a1, a2 and W3 rounded, sums
+    in float64."""
+    w1, b1, w2, b2, w3, x = case
+    a1 = _from_bits(_bf16_bits(_softplus(_from_bits(x) @ _from_bits(w1)
+                                         + b1)))
+    a2 = _from_bits(_bf16_bits(_softplus(a1 @ _from_bits(w2) + b2)))
+    return (a2 @ _from_bits(_bf16_bits(w3))).T
+
+
+# The forward's f against numpy's: float32 sums of the three tensor-core
+# products against float64, 3e-7 of scale at these seeds (a bf16 rounding
+# of an activation that the two sums flipped would show as some 1e-3); a
+# swapped row or column lands far above.
+FWD_REL = REL
+
+
+@pytest.mark.parametrize("R", [8, 16])
+@pytest.mark.parametrize("L,C,H", [(4, 64, 128), (3, 5, 40), (1, 1, 136)],
+                         ids=["flagship", "narrow", "wide"])
+def test_forward_products_on_the_emulated_warp(warp, L, C, H, R):
+    """The bf16 forward's drift tower f for a block of R rows, addressed as
+    latent_fwd_bf16 addresses it: x with z's columns padded to 8
+    (fwd_x_col) and W1 staged at the same rows, layer 1 rounded and
+    transposed into act1, layer 2 rounded and transposed in the lanes into
+    layer 3's B operand, layer 3 one product an m-tile (whichever warp
+    holds it) added over the m-tiles in order; against numpy on the same
+    roundings."""
+    rng = np.random.default_rng(L + C + H + R)
+    case = _forward_case(rng, L, C, H, R)
+    want = _forward_want(case)
+    got = _forward_f(warp, case, L, C, H, R)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=0, atol=FWD_REL * scale)
+
+
+@pytest.mark.parametrize("right,wrong", [
+    ("return (lane >> 2) + 8 * (i >> 1);",
+     "return (lane >> 2) + 8 * (1 - (i >> 1));"),
+    ("return k < L ? k : k - L + ((L + 7) & ~7);",
+     "return k < L ? k : k - L + ((L + 7) & ~7) - 5;")],
+    ids=["swapped-rows", "shifted-context"])
+def test_forward_index_faults_are_caught(tmp_path, right, wrong):
+    """The header with an accumulator's two 8-row halves swapped, or with
+    the context's first column on z's last: the emulated forward no longer
+    matches numpy."""
+    header = (CSRC / "mma_bf16.cuh").read_text()
+    assert header.count(right) == 1
+    bad = _build(tmp_path, header.replace(right, wrong))
+    L, C, H, R = 4, 64, 128, 8
+    case = _forward_case(np.random.default_rng(3), L, C, H, R)
+    want = _forward_want(case)
+    got = _forward_f(bad, case, L, C, H, R)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=FWD_REL * float(np.abs(want).max()))

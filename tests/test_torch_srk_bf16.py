@@ -352,9 +352,14 @@ def test_bf16_entry_in_the_generated_source():
 
 # The bf16 arithmetic of csrc/srk_srid2.cuh, compiled for the host: the
 # header and a generated source built by the host C++ compiler against
-# stand-ins for the CUDA headers (the launch syntax removed, one element a
-# call), so the kernel's Bf16 operators, step times and constants are held
-# to the plain version bit for bit without nvcc.
+# stand-ins for the CUDA headers (the launch syntax removed, one pair of
+# elements a call), so the kernel's Bf16x2 operators, step times and
+# constants are held to the plain version bit for bit without nvcc. The
+# stand-in bf16x2 instructions round the exact result once (in double: a
+# product of two bf16 values is exact there, a sum loses no bit that
+# reaches a bf16 rounding), as the PTX ISA defines add, sub and mul .rn
+# .bf16x2; the card's are held to that over all operand pairs by
+# chip_smoke.py.
 
 CUDA_STUB = """#pragma once
 #include <math.h>
@@ -373,7 +378,14 @@ struct tsde_dim { unsigned x; };
 static tsde_dim blockIdx, blockDim, threadIdx;
 inline cudaError_t cudaSetDevice(int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaMemsetAsync(void*, int, size_t, cudaStream_t) {
+  return 0;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return *p += v;
+}
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -381,9 +393,11 @@ inline float __fdiv_rn(float a, float b) { return a / b; }
 """
 
 BF16_STUB = """#pragma once
+#include <math.h>
 #include <stdint.h>
 #include <string.h>
 struct __nv_bfloat16 { unsigned short x; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   uint32_t u;
   memcpy(&u, &f, 4);
@@ -399,6 +413,48 @@ inline float __bfloat162float(__nv_bfloat16 b) {
   memcpy(&f, &u, 4);
   return f;
 }
+inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
+  return __nv_bfloat162{__float2bfloat16_rn(lo), __float2bfloat16_rn(hi)};
+}
+// The exact result (a double) rounded once to bf16, to nearest even.
+inline __nv_bfloat16 tsde_round_once(double x) {
+  __nv_bfloat16 b;
+  if (x != x) {
+    b.x = 0x7fc0;
+    return b;
+  }
+  if (x != 0.0 && !isinf(x)) {
+    int e;
+    frexp(x, &e);
+    const double q = ldexp(1.0, (e > -125 ? e : -125) - 8);
+    x = nearbyint(x / q) * q;
+    if (fabs(x) >= ldexp(1.0, 128)) x = x > 0 ? INFINITY : -INFINITY;
+  }
+  const float f = (float)x;          // exact: x is a bf16 value
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  b.x = (unsigned short)(u >> 16);
+  return b;
+}
+inline __nv_bfloat162 tsde_pairwise(__nv_bfloat162 a, __nv_bfloat162 b,
+                                    int op) {
+  const __nv_bfloat16 in[2][2] = {{a.x, b.x}, {a.y, b.y}};
+  __nv_bfloat16 out[2];
+  for (int i = 0; i < 2; ++i) {
+    const double p = __bfloat162float(in[i][0]), q = __bfloat162float(in[i][1]);
+    out[i] = tsde_round_once(op == 0 ? p + q : op == 1 ? p - q : p * q);
+  }
+  return __nv_bfloat162{out[0], out[1]};
+}
+inline __nv_bfloat162 __hadd2_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return tsde_pairwise(a, b, 0);
+}
+inline __nv_bfloat162 __hsub2_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return tsde_pairwise(a, b, 1);
+}
+inline __nv_bfloat162 __hmul2_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return tsde_pairwise(a, b, 2);
+}
 """
 
 HOST_DRIVER = """
@@ -406,12 +462,15 @@ extern "C" void run_bf16(const __nv_bfloat16* y0, const __nv_bfloat16* W,
                          const __nv_bfloat16* U, const __nv_bfloat16* prm,
                          __nv_bfloat16* out, long long BD, int D, int n,
                          double t0, double dt) {
+  const bool vec = BD % 2 == 0 && tsde_srk::aligned4(y0) &&
+                   tsde_srk::aligned4(W) && tsde_srk::aligned4(U) &&
+                   tsde_srk::aligned4(out);
   blockDim.x = 1;
   threadIdx.x = 0;
-  for (long long e = 0; e < BD; ++e) {
-    blockIdx.x = (unsigned)e;
-    tsde_srk::srid2_kernel<tsde_srk::Bf16, Drift, Diffusion, 2>(
-        y0, W, U, prm, out, BD, D, n, t0, dt);
+  for (long long q = 0; 2 * q < BD; ++q) {
+    blockIdx.x = (unsigned)q;
+    tsde_srk::srid2_kernel_bf16x2<Drift, Diffusion, 2>(
+        y0, W, U, prm, out, BD, D, n, t0, dt, vec);
   }
 }
 """
@@ -466,6 +525,121 @@ def test_kernel_bf16_arithmetic_on_the_host_matches_plain(host_srid2, n, B,
                         t0, dt)
     want = TSF.srk_solve_plain(F, G, y0, t0, dt, n, W, U, (prm[0], prm[1]))
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("B,D", [(37, 7), (5, 3), (1, 1)])
+def test_kernel_bf16_pairs_straddling_rows_on_the_host(host_srid2, B, D):
+    """Pairs across two rows (an odd D), an odd B D (the last thread's
+    lone element) and unaligned pairs: the host build of the bf16 solve
+    against the plain version, bit for bit."""
+    y0, W, U, params, dt = _fused_problem(12)
+    y0 = to_torch(y0[:B, :D]).contiguous()
+    W, U = (to_torch(a[:, :B, :D]).contiguous() for a in (W, U))
+    prm = torch.stack([to_torch(p[:D]) for p in params])
+    out = torch.empty_like(y0)
+    host_srid2.run_bf16(y0.data_ptr(), W.data_ptr(), U.data_ptr(),
+                        prm.data_ptr(), out.data_ptr(), y0.numel(), D, 12,
+                        0.25, dt)
+    want = TSF.srk_solve_plain(F, G, y0, 0.25, dt, 12, W, U,
+                               (prm[0], prm[1]))
+    assert torch.equal(out, want)
+
+
+def _round_bf16_once(x):
+    """float64 values rounded once to bf16 (to nearest even, subnormals
+    and overflow as bf16 has them), as float64."""
+    x = np.asarray(x, np.float64)
+    out = x.copy()
+    fin = np.isfinite(x) & (x != 0)
+    _, e = np.frexp(x[fin])
+    q = np.ldexp(1.0, np.maximum(e, -125) - 8)
+    r = np.rint(x[fin] / q) * q
+    r[np.abs(r) >= 2.0 ** 128] = np.inf * np.sign(r[np.abs(r) >= 2.0 ** 128])
+    out[fin] = r
+    return out
+
+
+def _round_bf16_twice(x):
+    """float64 values rounded to float32, then to bf16 (the kernel's Bf16
+    and the JAX package's bf16 operations), as float64."""
+    with np.errstate(over="ignore"):
+        f = np.asarray(x, np.float64).astype(np.float32)
+    u = f.view(np.uint32).astype(np.uint64)
+    r = ((u + 0x7fff + ((u >> 16) & 1)) & 0xffff0000).astype(np.uint32)
+    out = r.view(np.float32).astype(np.float64)
+    nan = np.isnan(f)
+    out[nan] = np.nan
+    return out
+
+
+def _same(a, b):
+    return (a == b) & (np.signbit(a) == np.signbit(b)) \
+        | (np.isnan(a) & np.isnan(b))
+
+
+def _bf16_values(bits):
+    with np.errstate(invalid="ignore"):
+        return (np.asarray(bits, np.uint32) << 16).view(np.float32).astype(
+            np.float64)
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_bf16_single_rounding_matches_float32_then_bf16(op):
+    """The claim behind bf16 kernel 15's bf16x2 instructions: rounding the
+    exact sum, difference or product of two bf16 values once to bf16 gives
+    the bits of float32 rounded to bf16, over 4M seeded random bit
+    patterns (NaN and infinity among them) and the edge classes: subnormal
+    and underflowing products, sums that cancel to a few ulps, sums with
+    exponent gaps of 16 to 40, overflow. The exact result is float64's (a
+    product of two 8-bit significands is exact there, and so is a sum
+    across a gap of at most 44; past that, float64's 53 bits round
+    innocuously for a target of 8)."""
+    rng = np.random.default_rng(25)
+    n = 1 << 22
+    a = _bf16_values(rng.integers(0, 1 << 16, n))
+    b = _bf16_values(rng.integers(0, 1 << 16, n))
+    m = rng.integers(128, 256, (8, n // 8)).astype(np.float64)
+    sign = rng.choice([-1.0, 1.0], (8, n // 8))
+    ea = rng.integers(-140, -60, n // 8)
+    classes = [
+        # products near and below the smallest subnormal (2^-133)
+        (sign[0] * m[0] * np.ldexp(1.0, ea - 7),
+         m[1] * np.ldexp(1.0, -140 - ea + rng.integers(-12, 12, n // 8))),
+        # cancellation: b a few ulps from -a (+ and -: its negation)
+        (sign[1] * m[2] * np.ldexp(1.0, rng.integers(-130, 120, n // 8)),
+         None),
+        # exponent gaps of 16 to 40
+        (sign[2] * m[3] * np.ldexp(1.0, rng.integers(-60, 60, n // 8)),
+         sign[3] * m[4]),
+        # overflow: products and sums near bf16's largest value
+        (sign[4] * m[5] * np.ldexp(1.0, rng.integers(110, 121, n // 8)),
+         sign[5] * m[6] * np.ldexp(1.0, rng.integers(0, 14, n // 8))),
+    ]
+    xs, ys = [a], [b]
+    for i, (x, y) in enumerate(classes):
+        x = _round_bf16_once(x)
+        if i == 1:
+            ulp = np.ldexp(1.0, np.frexp(x)[1] - 8)
+            y = -x + rng.integers(-4, 5, x.shape) * ulp
+        elif i == 2:
+            gap = rng.integers(16, 41, x.shape)
+            y = y * np.ldexp(1.0, np.frexp(x)[1] - 8 - gap)
+        elif i == 3:
+            y = np.where(rng.random(x.shape) < 0.5, y,
+                         sign[6] * np.ldexp(m[7], 120))
+        xs.append(x)
+        ys.append(_round_bf16_once(y))
+    x, y = np.concatenate(xs), np.concatenate(ys)
+    assert np.array_equal(_round_bf16_once(x), x, equal_nan=True)
+    assert np.array_equal(_round_bf16_once(y), y, equal_nan=True)
+    with np.errstate(invalid="ignore", over="ignore"):
+        exact = x + y if op == "add" else x - y if op == "sub" else x * y
+    once, twice = _round_bf16_once(exact), _round_bf16_twice(exact)
+    assert _same(once, twice).all()
+    # The edge classes reached what they were drawn for.
+    tiny = np.abs(once[n:n + n // 8])
+    assert op != "mul" or ((tiny > 0) & (tiny < 2.0 ** -126)).sum() > 1000
+    assert op != "mul" or (np.isinf(once[-(n // 8):]).sum() > 1000)
 
 
 def test_chip_sdeint_bar_is_twice_jax_own_gap():

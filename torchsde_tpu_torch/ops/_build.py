@@ -109,6 +109,10 @@ def _bind(lib):
     lib.tsde_latent_fused_bwd_blocks_per_sm_bf16.restype = I
     lib.tsde_latent_fused_fwd_rows.argtypes = [I] * 6
     lib.tsde_latent_fused_fwd_rows.restype = I
+    lib.tsde_latent_fused_fwd_smem_bytes_bf16.argtypes = [I, I, I]
+    lib.tsde_latent_fused_fwd_smem_bytes_bf16.restype = ctypes.c_size_t
+    lib.tsde_latent_fused_fwd_blocks_per_sm_bf16.argtypes = [I] * 6
+    lib.tsde_latent_fused_fwd_blocks_per_sm_bf16.restype = I
     for name in ("fwd", "bwd"):
         smem = getattr(lib, f"tsde_latent_fused_{name}_smem_bytes")
         smem.argtypes = [I, I, I]

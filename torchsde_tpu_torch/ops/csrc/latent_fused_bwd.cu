@@ -120,6 +120,12 @@
 namespace tsde_latent_bwd {
 
 using namespace tsde_latent;
+using tsde_bf16::a_frag;
+using tsde_bf16::b_frag;
+using tsde_bf16::put_tile;
+using tsde_bf16::quad_sum_add;
+using tsde_bf16::take_bytes;
+using tsde_bf16::warp_mma;
 
 constexpr int SWEEP_THREADS = 256;  // the sweep's block size and rows a
 constexpr int SWEEP_ROWS = TB;      // block (8; PERF.md times the others)
@@ -740,25 +746,10 @@ __global__ void __launch_bounds__(NT, 1)
 // products' ldmatrix-mma chains and their softplus (C, G, H), the one warp
 // of E (chip_smoke.py --only tiles reads the stages' clocks; PERF.md).
 
-// Stage clocks, for measurement only: a build with TSDE_STAGE_CLOCKS
-// defined (chip_smoke.py --only tiles) has thread 0 of every block of the
-// bf16 sweep add each stage's clock cycles, barrier waits included, to
-// tsde_stage_clocks[stage]; otherwise the marks are nothing.
+// Its stage clocks (latent_fused_common.cuh: TSDE_MARK), for measurement
+// only.
 #ifdef TSDE_STAGE_CLOCKS
 __device__ unsigned long long tsde_stage_clocks[8];
-#define TSDE_MARK(i)                                                       \
-  do {                                                                     \
-    if (threadIdx.x == 0) {                                                \
-      const long long now = clock64();                                     \
-      atomicAdd(&tsde_stage_clocks[i],                                     \
-                static_cast<unsigned long long>(now - mark));              \
-      mark = now;                                                          \
-    }                                                                      \
-  } while (0)
-#else
-#define TSDE_MARK(i) \
-  do {               \
-  } while (0)
 #endif
 
 // Floats of the on-chip bias sums in mixed mode: the unit sums of dpre1f,
@@ -782,12 +773,6 @@ struct Bf16Layout {
   int as;   // row stride of the [tower][row][unit] activations (bf16)
   int xs;   // row stride of x (bf16)
 };
-
-__host__ __device__ inline size_t take_bytes(size_t& at, size_t n) {
-  const size_t start = at;
-  at += (n + 15) & ~size_t(15);
-  return start;
-}
 
 __host__ __device__ inline Bf16Layout make_bf16_layout(int L, int C, int H,
                                                        int NT, int R) {
@@ -979,53 +964,6 @@ __device__ __forceinline__ void in_store(const InSlot& q, uint32_t v,
   }
 }
 
-// The A operand of a 16 x 16 tile of a weight stored [in][unit]
-// (ldsm_offset, `chunks` a row, `rows` rows; the zero row past them) from
-// stored row srow0 and column scol0: transposed (the product's rows are
-// units, its k inputs: the forward layers) or not (its rows are inputs:
-// going back).
-__device__ __forceinline__ void a_frag(uint32_t (&af)[4],
-                                       const __nv_bfloat16* w, int chunks,
-                                       int rows, const __nv_bfloat16* zero,
-                                       int srow0, int scol0, bool trans,
-                                       int lane) {
-  using namespace tsde_bf16;
-  const int at = a_tile_offset(lane, srow0, scol0, trans, chunks, rows);
-  const __nv_bfloat16* p = at < 0 ? zero : w + at;
-  if (trans)
-    ldsm_x4_trans(af, p);
-  else
-    ldsm_x4(af, p);
-}
-
-// The B operand of n-tile nt (rows 8 nt to 8 nt + 7) and k-tile k0 of a
-// [row][k] bf16 array of row stride `stride`.
-__device__ __forceinline__ void b_frag(const __nv_bfloat16* src, int stride,
-                                       int nt, int k0, int lane, uint32_t& b0,
-                                       uint32_t& b1) {
-  using tsde_bf16::b_offset;
-  b0 = *reinterpret_cast<const uint32_t*>(src +
-                                          b_offset(lane, nt, k0, stride, 0));
-  b1 = *reinterpret_cast<const uint32_t*>(src +
-                                          b_offset(lane, nt, k0, stride, 1));
-}
-
-// An accumulator-shaped tile v (units unit0.. x rows of n-tile nt),
-// rounded two at a time into pk, then transposed into the [row][unit]
-// array dst (row stride `stride`).
-__device__ __forceinline__ void put_tile(__nv_bfloat16* dst, int stride,
-                                         int unit0, int nt,
-                                         const float (&v)[4],
-                                         uint32_t (&pk)[2], int lane) {
-  using namespace tsde_bf16;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    pk[h] = pack(v[2 * h], v[2 * h + 1]);
-    *reinterpret_cast<uint32_t*>(dst + t_offset(lane, nt, unit0, stride, h)) =
-        transpose(pk[h]);
-  }
-}
-
 // Rows of a [tower][row][unit] bf16 array (row stride `stride`) to rows
 // srow.. of the towers' (n, B, H) scratch tensors f and h, the first `rows`
 // of the block's R; 16 bytes a store where H allows. tr0, c0: the thread's
@@ -1120,49 +1058,6 @@ __device__ __forceinline__ void gnet_backward(
 #pragma unroll
     for (int r = 0; r < R; ++r) out[r] = tz[r];
   }
-}
-
-// acc[i] += a warp's product over the k-tiles k0 < K for its m-tiles i <
-// nmt (first rows m0[i]): A from the weight w (transposed, TRANS: the
-// forward layers; else as stored, going back), B from the [row][k] bf16
-// array src. A k-tile's B fragments serve every m-tile, whose products are
-// independent chains.
-template <int MPW, int NR, bool TRANS>
-__device__ __forceinline__ void warp_mma(float (&acc)[MPW][NR][4],
-                                         const __nv_bfloat16* w, int chunks,
-                                         int rows, const __nv_bfloat16* zero,
-                                         const int (&m0)[MPW], int nmt, int K,
-                                         const __nv_bfloat16* src,
-                                         int stride, int lane) {
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t b[NR][2];
-#pragma unroll
-    for (int nt = 0; nt < NR; ++nt)
-      b_frag(src, stride, nt, k0, lane, b[nt][0], b[nt][1]);
-#pragma unroll
-    for (int i = 0; i < MPW; ++i) {
-      if (i < nmt) {
-        uint32_t af[4];
-        if (TRANS)
-          a_frag(af, w, chunks, rows, zero, k0, m0[i], true, lane);
-        else
-          a_frag(af, w, chunks, rows, zero, m0[i], k0, false, lane);
-#pragma unroll
-        for (int nt = 0; nt < NR; ++nt)
-          tsde_bf16::mma(acc[i][nt], af, b[nt][0], b[nt][1]);
-      }
-    }
-  }
-}
-
-// Sums v over the four lanes of a quad (q) and adds it to *dst from lane q
-// = 0 where `add`.
-__device__ __forceinline__ void quad_sum_add(float v, float* dst, bool add,
-                                             int lane) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  if (add && (lane & 3) == 0) *dst += v;
 }
 
 // NT threads (two towers of NT / 64 warps), R rows a block (R / 8 n-tiles),

@@ -8,9 +8,8 @@
 // the state, the KL channel and every sum stay float32). In mixed mode each
 // product's inputs are rounded to bf16 (rnd<W>, mixed_dtype.cuh) and the
 // product sums in float32, as the JAX package's dots with
-// preferred_element_type float32 do. The forward kernel is one template
-// (with W = float every rounding is the identity); the backward's mixed
-// mode is a kernel of its own on bf16 tensor cores.
+// preferred_element_type float32 do. The mixed modes of the forward and of
+// the reverse sweep are kernels of their own on bf16 tensor cores.
 
 #pragma once
 
@@ -19,6 +18,28 @@
 #include <stddef.h>
 
 #include "mixed_dtype.cuh"
+
+// Stage clocks, for measurement only: in a build with TSDE_STAGE_CLOCKS
+// defined (chip_smoke.py --only tiles), thread 0 of every block of a bf16
+// kernel that marks its stages (the sweep, the forward) adds each stage's
+// clock cycles, barrier waits included, to tsde_stage_clocks[stage], an
+// array each source defines in its own namespace; otherwise the marks are
+// nothing.
+#ifdef TSDE_STAGE_CLOCKS
+#define TSDE_MARK(i)                                                       \
+  do {                                                                     \
+    if (threadIdx.x == 0) {                                                \
+      const long long now = clock64();                                     \
+      atomicAdd(&tsde_stage_clocks[i],                                     \
+                static_cast<unsigned long long>(now - mark));              \
+      mark = now;                                                          \
+    }                                                                      \
+  } while (0)
+#else
+#define TSDE_MARK(i) \
+  do {               \
+  } while (0)
+#endif
 
 namespace tsde_latent {
 
@@ -84,17 +105,11 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
-// One element of a stream into shared memory as float, zero when !valid
-// (src must still be a valid address): a float by cp.async (it lands by the
-// next wait), a bf16 element, which cp.async cannot move alone (its
-// smallest copy is 4 bytes), by a load widened and stored when it arrives.
+// One float of a stream into shared memory by cp.async (it lands by the
+// next wait), zero when !valid (src must still be a valid address).
 __device__ __forceinline__ void stage(float* dst, const float* src,
                                       bool valid) {
   cp_async4(dst, src, valid);
-}
-__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
-                                      bool valid) {
-  *dst = valid ? __bfloat162float(*src) : 0.f;
 }
 
 }  // namespace tsde_latent

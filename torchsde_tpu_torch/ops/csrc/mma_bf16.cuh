@@ -1,6 +1,6 @@
-// bf16 tensor-core products for the bf16 mixed mode of kernels 2 and 4
-// (latent_fused_bwd.cu): mma.sync.m16n8k16 with bf16 operands and float32
-// accumulators, which is exactly the JAX package's
+// bf16 tensor-core products for the bf16 mixed mode of kernels 1-4
+// (latent_fused_fwd.cu, latent_fused_bwd.cu): mma.sync.m16n8k16 with bf16
+// operands and float32 accumulators, which is exactly the JAX package's
 // jnp.dot(x.astype(bf16), w, preferred_element_type=float32) up to the
 // order of its sum.
 //
@@ -23,12 +23,23 @@
 
 #pragma once
 
+#if defined(__CUDACC__)
+#include <cuda_bf16.h>
+#endif
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace tsde_bf16 {
 
 __host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
+
+// Reserves n bytes at `at`, keeping every array on a 16-byte boundary.
+__host__ __device__ inline size_t take_bytes(size_t& at, size_t n) {
+  const size_t start = at;
+  at += (n + 15) & ~size_t(15);
+  return start;
+}
 
 // Chunks of 8 bf16 (16 bytes) a row of a [row][col] array holds when
 // ldmatrix reads it: its columns padded to 16 with zeros, then, unless the
@@ -91,6 +102,15 @@ __host__ __device__ inline int d_col(int lane, int i) {
 __host__ __device__ inline int t_row(int lane) { return lane >> 2; }
 __host__ __device__ inline int t_col(int lane, int h) {
   return 8 * h + 2 * (lane & 3);
+}
+
+// The column of input k (z for k < L, then the context) in the bf16
+// forward's [row][k] x and the row of f's W1 that multiplies it: z's L
+// columns padded to a multiple of 8, so that the context starts on 16
+// bytes (its rows arrive by 16-byte copies) and the padding's weight rows
+// are zero.
+__host__ __device__ inline int fwd_x_col(int k, int L) {
+  return k < L ? k : k - L + ((L + 7) & ~7);
 }
 
 // The element offsets the kernels use, from the above.
@@ -190,6 +210,93 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// The A operand of a 16 x 16 tile of a weight stored [in][unit]
+// (ldsm_offset, `chunks` a row, `rows` rows; the zero row past them) from
+// stored row srow0 and column scol0: transposed (the product's rows are
+// units, its k inputs: the forward layers) or not (its rows are inputs:
+// going back).
+__device__ __forceinline__ void a_frag(uint32_t (&af)[4],
+                                       const __nv_bfloat16* w, int chunks,
+                                       int rows, const __nv_bfloat16* zero,
+                                       int srow0, int scol0, bool trans,
+                                       int lane) {
+  const int at = a_tile_offset(lane, srow0, scol0, trans, chunks, rows);
+  const __nv_bfloat16* p = at < 0 ? zero : w + at;
+  if (trans)
+    ldsm_x4_trans(af, p);
+  else
+    ldsm_x4(af, p);
+}
+
+// The B operand of n-tile nt (rows 8 nt to 8 nt + 7) and k-tile k0 of a
+// [row][k] bf16 array of row stride `stride`.
+__device__ __forceinline__ void b_frag(const __nv_bfloat16* src, int stride,
+                                       int nt, int k0, int lane, uint32_t& b0,
+                                       uint32_t& b1) {
+  b0 = *reinterpret_cast<const uint32_t*>(src +
+                                          b_offset(lane, nt, k0, stride, 0));
+  b1 = *reinterpret_cast<const uint32_t*>(src +
+                                          b_offset(lane, nt, k0, stride, 1));
+}
+
+// An accumulator-shaped tile v (units unit0.. x rows of n-tile nt),
+// rounded two at a time into pk, then transposed into the [row][unit]
+// array dst (row stride `stride`).
+__device__ __forceinline__ void put_tile(__nv_bfloat16* dst, int stride,
+                                         int unit0, int nt,
+                                         const float (&v)[4],
+                                         uint32_t (&pk)[2], int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    pk[h] = pack(v[2 * h], v[2 * h + 1]);
+    *reinterpret_cast<uint32_t*>(dst + t_offset(lane, nt, unit0, stride, h)) =
+        transpose(pk[h]);
+  }
+}
+
+// acc[i] += a warp's product over the k-tiles k0 < K for its m-tiles i <
+// nmt (first rows m0[i]): A from the weight w (transposed, TRANS: the
+// forward layers; else as stored, going back), B from the [row][k] bf16
+// array src. A k-tile's B fragments serve every m-tile, whose products are
+// independent chains.
+template <int MPW, int NR, bool TRANS>
+__device__ __forceinline__ void warp_mma(float (&acc)[MPW][NR][4],
+                                         const __nv_bfloat16* w, int chunks,
+                                         int rows, const __nv_bfloat16* zero,
+                                         const int (&m0)[MPW], int nmt, int K,
+                                         const __nv_bfloat16* src,
+                                         int stride, int lane) {
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t b[NR][2];
+#pragma unroll
+    for (int nt = 0; nt < NR; ++nt)
+      b_frag(src, stride, nt, k0, lane, b[nt][0], b[nt][1]);
+#pragma unroll
+    for (int i = 0; i < MPW; ++i) {
+      if (i < nmt) {
+        uint32_t af[4];
+        if (TRANS)
+          a_frag(af, w, chunks, rows, zero, k0, m0[i], true, lane);
+        else
+          a_frag(af, w, chunks, rows, zero, m0[i], k0, false, lane);
+#pragma unroll
+        for (int nt = 0; nt < NR; ++nt)
+          mma(acc[i][nt], af, b[nt][0], b[nt][1]);
+      }
+    }
+  }
+}
+
+// Sums v over the four lanes of a quad (q) and adds it to *dst from lane q
+// = 0 where `add`.
+__device__ __forceinline__ void quad_sum_add(float v, float* dst, bool add,
+                                             int lane) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  if (add && (lane & 3) == 0) *dst += v;
 }
 
 #endif  // __CUDACC__

@@ -539,7 +539,8 @@ def _forward_cuda(z0, ctx, ctx_idx, noise, dts, weights, multi):
         B, L, C, H, T, n = check_kernel_inputs(z0, ctx, ctx_idx, noise, dts,
                                                weights)
         lead = ()
-    lib = _build.library_for("tsde_latent_fused_fwd_smem_bytes", L, C, H)
+    lib = _build.library_for("tsde_latent_fused_fwd_smem_bytes"
+                             + _suffix(weights), L, C, H)
     zs = torch.empty(lead + (n, B, L), dtype=weights[0].dtype,
                      device=z0.device)
     qs = torch.empty(lead + (n, B, 1), dtype=torch.float32, device=z0.device)

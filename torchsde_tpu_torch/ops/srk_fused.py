@@ -5,8 +5,8 @@ of ``torchsde_tpu/ops/srk_fused.py``).
 SDE with elementwise drift and diffusion, ``dy = f(t, y) dt + g(t, y) dW``
 on (B, D) states, given the per-step increments W and space-time Lévy
 integrals U (n, B, D). On the card it is one launch of a CUDA kernel (the
-template ``csrc/srk_srid2.cuh``): one thread an element, the state in a
-register, W and U streamed in. On the CPU it is :func:`srk_solve_plain`,
+template ``csrc/srk_srid2.cuh``): one thread an element (two in bfloat16,
+on bf16x2 arithmetic), the state in a register, W and U streamed in. On the CPU it is :func:`srk_solve_plain`,
 the counterpart of the JAX package's ``srk_solve_xla`` and the kernel's
 plain version. ``launches`` counts the kernel's launches in float32 and
 float64, ``bf16_launches`` in bfloat16.
@@ -45,10 +45,11 @@ class Elementwise:
     each the parameter row's entry at the element's column (f = mu * y is
     ``"p0 * y"``). The kernel is built in float32, float64 and bfloat16, so
     write its math with CUDA's overloaded functions, not the float-only
-    ones (``expf``). In bfloat16, ``T`` is ``csrc/srk_srid2.cuh:Bf16``,
-    which takes ``+ - * /``, unary minus and ``sin``, ``cos``, ``tan``,
-    ``exp``, ``log``, ``sqrt``, ``tanh`` and ``fabs``, each in
-    float32 rounded to bfloat16, as a PyTorch or XLA bf16 operation rounds.
+    ones (``expf``). In bfloat16, ``T`` is ``csrc/srk_srid2.cuh:Bf16x2``
+    (two elements, each half reading its own column's parameters), which
+    takes ``+ - * /``, unary minus and ``sin``, ``cos``, ``tan``, ``exp``,
+    ``log``, ``sqrt``, ``tanh`` and ``fabs``, each bitwise float32 rounded
+    to bfloat16, as a PyTorch or XLA bf16 operation rounds.
     Write a constant as ``T(0.1)``: in bfloat16 it is rounded as JAX
     rounds a Python scalar, and a bare double literal beside a ``T`` does
     not compile. PyTorch keeps a Python scalar at float32 in a bf16
@@ -210,6 +211,34 @@ def srk_solve_cuda(f, g, y0, t0, dt, n_steps, W, U, params=()):
     else:
         launches += 1
     return out
+
+
+# The operations of tsde_srk_bf16x2_diffs, in the order of its counts.
+BF16X2_OPS = ("add", "sub", "mul", "div")
+
+
+def bf16x2_check(f, g, n_params, device):
+    """The bf16x2 check of the library of f and g (built at first use):
+    for each operation of ``BF16X2_OPS`` over all 2^32 pairs of bf16
+    operands, how many results of its bf16x2 instruction (``div`` has
+    none) and of the pair type's operator as built differ from float32
+    rounded to bf16, NaN matching NaN, and whether the build runs it as
+    the instruction. For measurement and checks on the card."""
+    lib = _build.library_for_source(
+        "tsde_srk_srid2", srk_source(f.cuda_expr, g.cuda_expr, n_params))
+    fn = lib.tsde_srk_bf16x2_diffs
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.tsde_srk_bf16x2_native.argtypes = [ctypes.c_int]
+    lib.tsde_srk_bf16x2_native.restype = ctypes.c_int
+    counts = torch.zeros(8, dtype=torch.int64, device=device)
+    rc = fn(counts.data_ptr(), device.index or 0,
+            torch.cuda.current_stream(device).cuda_stream)
+    _build.check_launch(lib, rc, "bf16x2 check")
+    got = counts.view(4, 2).tolist()
+    return {op: dict(instruction=None if op == "div" else c[0], operator=c[1],
+                     native=bool(lib.tsde_srk_bf16x2_native(i)))
+            for i, (op, c) in enumerate(zip(BF16X2_OPS, got))}
 
 
 def srk_solve_fused(f, g, y0, t0, dt, n_steps, W, U, params=()):

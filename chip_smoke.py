@@ -118,10 +118,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 22. replicas: ``latent_sde_loss_multi(fused=True)`` at K = 4 under
     ``torch.no_grad()``, each replica's loss against the single fused loss
     on a clone of its generator and each call launching kernel 3 once; the
-    step-0 gradients of both routes against a float64 run; three Adam steps
-    (lr 1e-2) on the stacked state, each launching kernels 3 and 4 once, in
-    turns with the multi ``sdeint`` route and K single fused models; median
-    step times and a profile of each;
+    step-0 gradients of both routes against a float64 run; MULTI_STEPS Adam
+    steps (lr 1e-2) on the stacked state, each launching kernels 3 and 4
+    once, in turns with the multi ``sdeint`` route and K single fused
+    models; median step times and a profile of each;
 22a. bf16 mixed mode of kernels 1-4 at the flagship: kernels 1 and 2 (2
     with normal and saturated diffusion) and kernels 3 and 4 at K = 4
     against their mixed-mode plain versions and a float32 reference (the
@@ -202,11 +202,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     the fused route's (kernels 5-8) and of backprop through ``sdeint``;
     the flagship latent train step with ``adjoint=True`` (Euler forward
     on the 155-step interval grid, Milstein adjoint) against the CPU's on
-    one table of draws at 32 rows (loss ADJ_LOSS_RTOL, gradients
+    one table of draws at ADJ_CPU_ROWS rows (loss ADJ_LOSS_RTOL, gradients
     ADJ_GRAD_REL of scale), the same step with TF32 matmuls read beside
     it; each step timed and profiled beside the
     ``sdeint`` and fused routes'; the peak device memory of one latent
-    step, adjoint against backprop, at dt 1/128 and 1/512; one
+    step, adjoint against backprop, at each dt of ADJ_MEMORY_DTS; one
     ``rng_impl="philox"`` adjoint step whose backward's W is bitwise the
     forward's, kernel 16 launched once for each, the generator left as
     the forward left it;
@@ -518,6 +518,12 @@ EULER_STAGINGS = (3, 1, 2, 0)
 # for the checks, the serve and the training steps; the kernels timed at
 # each K of MULTI_KS beside K launches of kernels 1 and 2.
 MULTI_K, MULTI_KS = 4, (1, 2, 4, 8)
+# latent_sde_loss_multi's served passes and Adam steps at K = MULTI_K (two
+# of each, cut from three to keep the script within half its time limit;
+# the multi group took 43.1 s on an H100 host, its sdeint step some
+# 1.5-2.3 s).
+MULTI_SERVE_SEEDS = (701, 702)
+MULTI_STEPS = 2
 # A replica of latent_sde_loss_multi(fused=True) against latent_sde_loss(
 # fused=True) on a clone of its generator: the kernels are bitwise the same
 # on the same inputs, but the multi route runs the encoder, qz0_net and the
@@ -3353,8 +3359,8 @@ def float32_draws():
 def phase_multi_path(device, xs, ts):
     """latent_sde_loss_multi at K = MULTI_K: served losses against the single
     fused loss of each replica on a clone of its generator, each call
-    launching kernel 3 once; step-0 gradients of both routes; three Adam
-    steps (lr 1e-2) on the stacked state, each launching kernels 3 and 4
+    launching kernel 3 once; step-0 gradients of both routes; MULTI_STEPS
+    Adam steps (lr 1e-2) on the stacked state, each launching kernels 3 and 4
     once; median step times of the multi fused route, the multi sdeint route
     and K single fused steps, each beside its profile (the ``sdeint``
     route's of the device's activity alone)."""
@@ -3397,7 +3403,7 @@ def phase_multi_path(device, xs, ts):
 
     serve(700)                                   # warm-up
     reset_latent_counts()
-    served = [serve(seed) for seed in (701, 702, 703)]
+    served = [serve(seed) for seed in MULTI_SERVE_SEEDS]
     serve_launches = LF.multi_launches
 
     # Step-0 gradients of both routes, from the same weights and generators,
@@ -3481,7 +3487,7 @@ def phase_multi_path(device, xs, ts):
     times = {r: [] for r in routes}
     reset_latent_counts()
     order = list(routes)
-    for i in range(3):
+    for i in range(MULTI_STEPS):
         for route in (order if i % 2 == 0 else order[::-1]):
             before = multi_counts()
             torch.cuda.synchronize()
@@ -4227,6 +4233,23 @@ def phase_bf16_gan_kernels(device, ts, real):
                [*cde_args[2:], *cde_w, *extra, *flat_grads(bwd)],
                cde_bwd_flops(Bc, Sc, Mc, C, n), 3)
         out["cde_bwd"]["max_abs_err_dense"] = errs[1][0]
+    # Kernels 6 and 8's bf16 sweeps on tensor cores: the instantiation
+    # (100 channels + 10 state tiles + hidden tiles), shared memory a
+    # block, ptxas's registers and spills of every instantiation, and the
+    # SASS of the reference's.
+    lib = _build.load_library()
+    sass = sass_counts(_build.library_path()[0], BF16_SASS)
+    for key, widths in (("gen_bwd", (S, M, m)), ("cde_bwd", (Sc, Mc, C))):
+        name = f"gan_{key}"
+        out[key].update(
+            design=getattr(lib, f"tsde_{name}_design_bf16")(*widths),
+            smem_bytes=getattr(lib, f"tsde_{name}_smem_bytes_bf16")(
+                *widths, GF.THREADS),
+            ptxas=ptxas_info(f"{name}_bf16"),
+            sass=sass[name] if sass else None)
+        print(f"kernel {6 if key == 'gen_bwd' else 8} (bf16) on tensor "
+              f"cores: " + json.dumps({k: out[key][k] for k in (
+                  "design", "smem_bytes", "ptxas", "sass")}), flush=True)
     return out
 
 
@@ -4723,7 +4746,13 @@ BF16_SASS = {"sweep": "latent_bwd_sweep_bf16ILi256ELi8ELi2ELi2E",
              "sweep_one_block": "latent_bwd_sweep_bf16ILi256ELi8ELi2ELi1E",
              "contraction": "latent_bwd_contract_bf16",
              "forward": "latent_fwd_bf16ILi256ELi16ELi2ELi2E",
-             "forward_one_block": "latent_fwd_bf16ILi512ELi8ELi1ELi1E"}
+             "forward_one_block": "latent_fwd_bf16ILi512ELi8ELi1ELi1E",
+             # bf16 kernels 6 and 8 at the reference widths: the
+             # generator's sweep for m <= 3 noise channels, one state and
+             # one hidden tile; the critic's for C <= 2 channels, two
+             # state tiles (S 17) and one hidden tile.
+             "gan_gen_bwd": "gan_gen_bwd_bf16ILi3ELi1ELi1E",
+             "gan_cde_bwd": "gan_cde_bwd_bf16ILi2ELi2ELi1E"}
 
 
 def sass_counts(lib_path, marker="Bf16"):
@@ -4846,6 +4875,382 @@ def phase_srk_rounding(device):
         (out["none"].float() - out["cvt"].float()).abs().max())
     print(json.dumps({"srk_rounding": records}), flush=True)
     return records
+
+
+# The other candidate for bf16 kernels 6 and 8 (measurement only):
+# the float32 kernels' FMA layout (a row's vectors through the warp's
+# shared memory, one or two rows a warp) instantiated with bf16 weights,
+# as the parent commit's bf16 kernels were, once as it is ("fma") and once
+# with every dot product of gan_warp_rows.cuh split into two independent
+# chains over alternate float4 chunks ("fma_split"), which the bf16 bars
+# allow. Each is held to its twin as phase 22b holds the kernels and timed
+# beside the tensor-core kernel in the same call.
+GAN_FMA_ENTRY = {"cde": r"""
+#include "gan_cde_bwd.cu"
+extern "C" int fma_cde_bwd_bf16(const float* slopes, const float* t1s,
+    const float* dts, const __nv_bfloat16* W1, const __nv_bfloat16* b1,
+    const __nv_bfloat16* W2, const __nv_bfloat16* b2, const float* zs,
+    const float* ghs, float* dh0, float* df0, float* dslopes,
+    float* partials, float* dw, int B, int S, int M, int C, int N,
+    int threads, int device, cudaStream_t stream) {
+  const __nv_bfloat16* w[4] = {W1, b1, W2, b2};
+  return launch_cde_bwd(slopes, t1s, dts, w, zs, ghs, dh0, df0, dslopes,
+                        partials, dw, B, S, M, C, N, threads, device, stream);
+}
+""", "gen": r"""
+#include "gan_gen_bwd.cuh"
+extern "C" int fma_gen_bwd_bf16(const float* g0,
+    const __nv_bfloat16* noise, const float* t1s, const float* dts,
+    const __nv_bfloat16* W1f, const __nv_bfloat16* b1f,
+    const __nv_bfloat16* W2f, const __nv_bfloat16* b2f,
+    const __nv_bfloat16* W1g, const __nv_bfloat16* b1g,
+    const __nv_bfloat16* W2g, const __nv_bfloat16* b2g, const float* zs,
+    const float* gs, const float* gy, float* dx0, float* df0, float* dg0,
+    __nv_bfloat16* dnoise, float* partials, float* dw, int B, int S, int M,
+    int m, int N, int threads, int device, cudaStream_t stream) {
+  const __nv_bfloat16* w[8] = {W1f, b1f, W2f, b2f, W1g, b1g, W2g, b2g};
+  return launch_gen_bwd(g0, noise, t1s, dts, w, zs, gs, gy, dx0, df0, dg0,
+                        dnoise, partials, dw, B, S, M, m, N, threads, device,
+                        stream);
+}
+"""}
+# gan_warp_rows.cuh's chains, and the same split into two.
+GAN_FMA_CHAIN = """    const float4 x = v4[q], y = w4[q];
+    acc = fmaf(x.x, y.x, acc);
+    if (4 * q + 1 < n) acc = fmaf(x.y, y.y, acc);
+    if (4 * q + 2 < n) acc = fmaf(x.z, y.z, acc);
+    if (4 * q + 3 < n) acc = fmaf(x.w, y.w, acc);
+  }
+  return acc;"""
+GAN_FMA_SPLIT = """    const float4 x = v4[q], y = w4[q];
+    float& a = (q & 1) ? acc2 : acc;
+    a = fmaf(x.x, y.x, a);
+    if (4 * q + 1 < n) a = fmaf(x.y, y.y, a);
+    if (4 * q + 2 < n) a = fmaf(x.z, y.z, a);
+    if (4 * q + 3 < n) a = fmaf(x.w, y.w, a);
+  }
+  return acc + acc2;"""
+GAN_FMA_CHAIN_R = """    const float4 y = w4[q];
+    acc = fmaf(v[4 * q], y.x, acc);
+    if (4 * q + 1 < n) acc = fmaf(v[4 * q + 1], y.y, acc);
+    if (4 * q + 2 < n) acc = fmaf(v[4 * q + 2], y.z, acc);
+    if (4 * q + 3 < n) acc = fmaf(v[4 * q + 3], y.w, acc);
+  }
+  return acc;"""
+GAN_FMA_SPLIT_R = """    const float4 y = w4[q];
+    float& a = (q & 1) ? acc2 : acc;
+    a = fmaf(v[4 * q], y.x, a);
+    if (4 * q + 1 < n) a = fmaf(v[4 * q + 1], y.y, a);
+    if (4 * q + 2 < n) a = fmaf(v[4 * q + 2], y.z, a);
+    if (4 * q + 3 < n) a = fmaf(v[4 * q + 3], y.w, a);
+  }
+  return acc + acc2;"""
+
+
+def gan_fma_library(variant, kind):
+    """The FMA candidate of bf16 kernel 6 (``kind`` "gen") or 8 ("cde"),
+    ``variant`` "fma" or "fma_split", built from a copy of csrc/ into
+    build/gan_fma/<variant>/ and loaded, its entry bound."""
+    csrc = Path(GF.__file__).parent / "csrc"
+    folder = (Path(__file__).resolve().parent / "build" / "gan_fma"
+              / variant)
+    folder.mkdir(parents=True, exist_ok=True)
+    for src in csrc.iterdir():
+        text = src.read_text()
+        if src.name == "gan_warp_rows.cuh" and variant == "fma_split":
+            if text.count(GAN_FMA_CHAIN) != 1 or text.count(
+                    GAN_FMA_CHAIN_R) != 1:
+                raise RuntimeError("gan_warp_rows.cuh's chains are not the "
+                                   "ones phase_gan_fma splits")
+            text = text.replace(GAN_FMA_CHAIN, GAN_FMA_SPLIT).replace(
+                GAN_FMA_CHAIN_R, GAN_FMA_SPLIT_R)
+            text = text.replace("#pragma unroll\n  for (int q = 0; q < NQ;",
+                                "float acc2 = 0.f;\n#pragma unroll\n  for "
+                                "(int q = 0; q < NQ;")
+            text = text.replace("#pragma unroll\n  for (int q = 0; q < N / 4;"
+                                " ++q) {\n    if (4 * q >= n) break;",
+                                "float acc2 = 0.f;\n#pragma unroll\n  for "
+                                "(int q = 0; q < N / 4; ++q) {\n    if (4 * q"
+                                " >= n) break;")
+            if text.count("float acc2 = 0.f;") != 2:
+                raise RuntimeError("phase_gan_fma could not split both "
+                                   "chains of gan_warp_rows.cuh")
+        (folder / src.name).write_text(text)
+    (folder / f"{kind}.cu").write_text(GAN_FMA_ENTRY[kind])
+    lib_path = folder / f"lib{kind}.so"
+    proc = subprocess.run(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+         str(folder), "-o", str(lib_path), str(folder / f"{kind}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"gan fma {variant} {kind}: nvcc failed\n"
+                           f"{proc.stdout}")
+    fn = getattr(ctypes.CDLL(str(lib_path)), f"fma_{kind}_bwd_bf16")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = ([P] * 21 + [I] * 7 + [P] if kind == "gen"
+                   else [P] * 14 + [I] * 7 + [P])
+    fn.restype = I
+    ptxas = [line for line in proc.stdout.splitlines()
+             if "registers" in line or "spill" in line]
+    return fn, lib_path, ptxas
+
+
+def fma_backward(fn, kind, bargs, threads=GF.THREADS, rows=None):
+    """One launch of an FMA candidate (or, with ``rows``, of another build
+    of a bf16 sweep on tensor cores: ``rows`` rows a weight-gradient
+    partial, the gradients summed into bf16) on kernel 6's or 8's inputs,
+    with the outputs of the tensor-core kernel's wrapper."""
+    if kind == "gen":
+        x0, f0, g0, noise, t1s, dts, weights, zs, gs, gy = bargs
+        B, S = x0.shape
+        N, _, K = noise.shape
+        outs = [torch.empty_like(x0), torch.empty_like(f0),
+                torch.empty_like(g0), torch.empty_like(noise)]
+        tensors = (g0, noise, t1s, dts, *weights, zs, gs, gy)
+    else:
+        h0, f0, slopes, t1s, dts, weights, zs, ghs = bargs
+        B, S = h0.shape
+        N, _, K = slopes.shape
+        outs = [torch.empty_like(h0), torch.empty_like(f0),
+                torch.empty_like(slopes)]
+        tensors = (slopes, t1s, dts, *weights, zs, ghs)
+    M = weights[0].shape[1]
+    sizes = [w.numel() for w in weights]
+    tensor_cores = rows is not None
+    rows = rows or 32 // GF.gen_bwd_group(S, M)
+    partials = torch.empty(((B + rows - 1) // rows, sum(sizes)),
+                           dtype=torch.float32, device=zs.device)
+    dw = torch.empty(sum(sizes), dtype=BF16 if tensor_cores
+                     else torch.float32, device=zs.device)
+    rc = fn(*[t.data_ptr() for t in (*tensors, *outs, partials, dw)], B, S,
+            M, K, N, threads, zs.device.index or 0,
+            torch.cuda.current_stream(zs.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gan fma {kind}: launch failed {rc}")
+    return (*outs, tuple(d.view_as(w).to(w.dtype)
+                         for d, w in zip(dw.split(sizes), weights)))
+
+
+# Stage clocks of bf16 kernels 6 and 8 (measurement only): the marks of
+# csrc/gan_gen_bwd_bf16.cu and gan_cde_bwd_bf16.cu (StageClocks), by warp
+# of the first row group: mark k closes stage k; 10 is the staging of the
+# weights (with the block's barrier), 11 the towers' constants, 8 the rest
+# of the prologue (the first loads), 9 the epilogue.
+GAN_CLOCK_STAGES = {
+    "gen": {"forward": ("0 loads, pack", "1 drift tower", "2 diffusion "
+                        "tower", "3 slot writes", "4 wait"),
+            "backward": ("0 loads, ay", "1 wait for the slot", "2 slot "
+                         "reads, dpre2", "3 tower backward", "4 dz swap",
+                         "5 Az", "6 dnoise, update")},
+    "cde": {"forward": ("0 loads, pack", "1 tower", "3 slot writes",
+                        "4 wait"),
+            "backward": ("0 loads, Af", "1 wait for the slot", "2 slot "
+                         "reads, dslopes, dpre2", "3 tower backward",
+                         "6 update")}}
+
+
+def phase_gan_clocks(device):
+    """Measurement only (``--only gan_clocks``): bf16 kernels 6 and 8 built
+    with -DTSDE_GAN_CLOCKS from a copy of csrc/ into build/gan_clocks/,
+    run once at the reference scale on the inputs of phase 22b; each warp
+    of the first row group's cycles a step by stage (GAN_CLOCK_STAGES),
+    and its prologue and epilogue. Then, on the port's own build, the
+    device time of each kernel the wrappers of 6 and 8 launch
+    (gan_bwd_kernel_profiles) and their times over steps and rows
+    (gan_bwd_scaling), bf16 and float32."""
+    csrc = Path(GF.__file__).parent / "csrc"
+    folder = Path(__file__).resolve().parent / "build" / "gan_clocks"
+    folder.mkdir(parents=True, exist_ok=True)
+    for src in csrc.iterdir():
+        (folder / src.name).write_text(src.read_text())
+    lib_path = folder / "libclocks.so"
+    proc = subprocess.run(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-DTSDE_GAN_CLOCKS",
+         "-shared", "-I", str(folder), "-o", str(lib_path),
+         str(folder / "gan_gen_bwd_bf16.cu"),
+         str(folder / "gan_cde_bwd_bf16.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"gan clocks: nvcc failed\n{proc.stdout}")
+    lib = ctypes.CDLL(str(lib_path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    gan_ts, real = gan_data(device)
+    (g16, gw16), (c16, cw16) = gan_kernel_inputs(
+        device, gan_models(device, BF16), gan_ts, real.to(BF16))
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    record = {}
+    with torch.no_grad():
+        ys, zs, gs = GF.gen_solve_forward_plain(*g16, gw16)
+        hs, czs = GF.cde_solve_forward_plain(*c16, cw16)
+        ghs = torch.randn(hs.shape, generator=gen, device=device)
+        for kind, bargs, n in (
+                ("gen", (*g16, gw16, zs, gs, torch.randn(
+                    ys.shape, generator=gen, device=device)), 21),
+                ("cde", (*c16, cw16, czs, ghs), 14)):
+            fn = getattr(lib, f"tsde_gan_{kind}_bwd_bf16")
+            fn.argtypes = [P] * n + [I] * 7 + [P]
+            fn.restype = I
+            clocks = getattr(lib, f"tsde_gan_{kind}_bwd_clocks")
+            clocks.argtypes = [P]
+            clocks.restype = I
+            counts = np.zeros(64, np.uint64)
+            fma_backward(fn, kind, bargs, rows=8)
+            torch.cuda.synchronize()
+            clocks(counts.ctypes.data)              # zeroes the counters
+            fma_backward(fn, kind, bargs, rows=8)
+            torch.cuda.synchronize()
+            if clocks(counts.ctypes.data) != 0:
+                raise RuntimeError("gan clocks: reading the counters failed")
+            steps = bargs[3].shape[0] if kind == "gen" else bargs[2].shape[0]
+            rec = {}
+            warps = 3 if kind == "gen" else 2
+            for w in range(warps):
+                role = "forward" if w == 0 else "backward"
+                c = counts[16 * w:16 * w + 12].astype(np.float64)
+                names = GAN_CLOCK_STAGES[kind][role]
+                rec[f"warp{w}_{role}"] = dict(
+                    {name: float(c[int(name.split()[0])] / steps)
+                     for name in names},
+                    staging=float(c[10]), constants=float(c[11]),
+                    prologue=float(c[8]), epilogue=float(c[9]),
+                    step_total=float(sum(c[int(nm.split()[0])]
+                                         for nm in names) / steps))
+            record[kind] = rec
+    record["profile"] = gan_bwd_kernel_profiles(device)
+    record["scaling"] = gan_bwd_scaling(device)
+    print(json.dumps({"gan_clocks": record}), flush=True)
+    return record
+
+
+def gan_bwd_inputs(device, dtype):
+    """Kernels 6 and 8's inputs at the reference scale (the models of
+    ``dtype``; the backward from the twins' states, seeded cotangents)."""
+    gan_ts, real = gan_data(device)
+    (ga, gw), (ca, cw) = gan_kernel_inputs(
+        device, gan_models(device, dtype), gan_ts, real.to(dtype))
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    ys, zs, gs = GF.gen_solve_forward_plain(*ga, gw)
+    hs, czs = GF.cde_solve_forward_plain(*ca, cw)
+    return ((*ga, gw, zs, gs, torch.randn(ys.shape, generator=gen,
+                                          device=device)),
+            (*ca, cw, czs, torch.randn(hs.shape, generator=gen,
+                                       device=device)))
+
+
+def gan_bwd_kernel_profiles(device, calls=20):
+    """Device microseconds a call of each kernel that kernels 6 and 8's
+    wrappers launch (the sweep, the partials' sum, any conversion), bf16
+    and float32, from torch.profiler over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    with torch.no_grad():
+        for tag, dtype in (("bf16", BF16), ("f32", torch.float32)):
+            b6, b8 = gan_bwd_inputs(device, dtype)
+            for name, fn in (("k6", lambda: GF.gen_solve_backward_cuda(*b6)),
+                             ("k8", lambda: GF.cde_solve_backward_cuda(*b8))):
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(calls):
+                        fn()
+                    torch.cuda.synchronize()
+                sums = {}
+                for e in prof.events():
+                    if e.device_type == DeviceType.CUDA:
+                        sums[e.name[:60]] = sums.get(e.name[:60], 0.0) + \
+                            e.time_range.elapsed_us() / calls
+                out[f"{tag}_{name}"] = sums
+    return out
+
+
+def gan_bwd_scaling(device):
+    """Kernels 6 and 8 (bf16 and float32, through their wrappers) over the
+    last N of the reference's steps and on its first B rows: the fixed
+    cost (N = 1) against the cost a step, and one 8-row group against the
+    whole batch."""
+    out = {}
+    with torch.no_grad():
+        for tag, dtype in (("bf16", BF16), ("f32", torch.float32)):
+            b6, b8 = gan_bwd_inputs(device, dtype)
+            for N in (63, 16, 4, 1):
+                for B in (None, 8):
+                    b = slice(None) if B is None else slice(0, B)
+                    x0, f0, g0, noise, t1s, dts, gw, zs, gs, gy = b6
+                    a6 = (x0[b].contiguous(), f0[b].contiguous(),
+                          g0[b].contiguous(), noise[-N:, b].contiguous(),
+                          t1s[-N:].contiguous(), dts[-N:].contiguous(), gw,
+                          zs[-N:, b].contiguous(), gs[-N:, b].contiguous(),
+                          gy[-N:, b].contiguous())
+                    h0, cf0, slopes, ct1s, cdts, cw, czs, ghs = b8
+                    a8 = (h0[b].contiguous(), cf0[b].contiguous(),
+                          slopes[-N:, b].contiguous(),
+                          ct1s[-N:].contiguous(), cdts[-N:].contiguous(), cw,
+                          czs[-N:, b].contiguous(), ghs[-N:, b].contiguous())
+                    key = f"N{N}_B{B or 'all'}"
+                    out[f"k6_{tag}_{key}"] = median_cuda_ms(
+                        lambda: GF.gen_solve_backward_cuda(*a6), 20)
+                    out[f"k8_{tag}_{key}"] = median_cuda_ms(
+                        lambda: GF.cde_solve_backward_cuda(*a8), 20)
+    return out
+
+
+def phase_gan_fma(device):
+    """Measurement only (``--only gan_fma``): bf16 kernels 6 and 8's other
+    candidate, the FMA layout (GAN_FMA_ENTRY), as it is and with split
+    chains, at the reference scale on the inputs of phase 22b: each held
+    to its twin and the float32 reference (check_bf16) and two calls
+    bitwise, then timed in turns with the tensor-core kernel."""
+    gan_ts, real = gan_data(device)
+    (g16, gw16), (c16, cw16) = gan_kernel_inputs(
+        device, gan_models(device, BF16), gan_ts, real.to(BF16))
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    with torch.no_grad():
+        ys, zs, gs = GF.gen_solve_forward_plain(*g16, gw16)
+        b6 = (*g16, gw16, zs, gs, torch.randn(ys.shape, generator=gen,
+                                               device=device))
+        hs, czs = GF.cde_solve_forward_plain(*c16, cw16)
+        ghs = torch.zeros_like(hs)
+        ghs[-1] = torch.randn(hs.shape[1:], generator=gen, device=device)
+        b8 = (*c16, cw16, czs, ghs)
+        record = {}
+        for kind, bargs, names, dtypes, plain, tc in (
+                ("gen", b6, GEN_GRAD_NAMES, GEN_GRAD_DTYPES,
+                 GF.gen_solve_backward_plain, GF.gen_solve_backward_cuda),
+                ("cde", b8, CDE_GRAD_NAMES, CDE_GRAD_DTYPES,
+                 GF.cde_solve_backward_plain, GF.cde_solve_backward_cuda)):
+            want = flat_grads(plain(*bargs))
+            ref = flat_grads(plain(*double(bargs[:-4 if kind == "gen"
+                                                 else -3], torch.float32),
+                                   tuple(w.float() for w in bargs[
+                                       6 if kind == "gen" else 5]),
+                                   *bargs[-3 if kind == "gen" else -2:]))
+            runs = {"tensor_cores": lambda: tc(*bargs)}
+            info = {}
+            for variant in ("fma", "fma_split"):
+                fn, lib_path, ptxas = gan_fma_library(variant, kind)
+                runs[variant] = (lambda fn=fn: fma_backward(fn, kind, bargs))
+                info[variant] = dict(ptxas=ptxas, sass=sass_counts(
+                    lib_path, f"gan_{kind}_bwd_kernel"))
+            rec = {}
+            for variant, run in runs.items():
+                got = flat_grads(run())
+                same_bits(f"kernel {kind} {variant}: two calls", got,
+                          flat_grads(run()))
+                torch.cuda.synchronize()
+                err = check_bf16(f"kernel {6 if kind == 'gen' else 8} "
+                                 f"(bf16, {variant})", names, got, want, ref,
+                                 dtypes)
+                rec[variant] = dict(max_abs_err=err[0], **info.get(variant,
+                                                                   {}))
+            order = list(runs) + list(runs)[::-1]
+            for variant in order:
+                rec[variant].setdefault("ms", []).append(
+                    median_cuda_ms(runs[variant], 20))
+            record[kind] = rec
+    print(json.dumps({"gan_fma": record}), flush=True)
+    return record
 
 
 def phase_prng_kernel(device):
@@ -5419,23 +5824,25 @@ AB_CDE_SHAPES = ((2047, 17, 16, 2, 20), (300, 17, 16, 1, 20),
                  (300, 9, 24, 3, 20), (64, 32, 32, 8, 8))
 
 
-def ab_gan_inputs(device, kind, B, S, M, K, T, seed):
+def ab_gan_inputs(device, kind, B, S, M, K, T, seed, dtype=torch.float32):
     """Seeded inputs of kernel 6 (``kind`` "gen": the backward from the
     plain forward's states, seeded cotangents) or kernel 7 ("cde") at
-    these widths, with random weights as the GPU tests make them."""
+    these widths, with random weights (of ``dtype``: bf16 for the mixed
+    mode) as the GPU tests make them."""
     gen = torch.Generator(device=device).manual_seed(seed)
     init = torch.Generator().manual_seed(seed)
     ts = np.arange(T, dtype=np.float64)
     if kind == "gen":
-        model = Generator(1, 5, K, S, M, 1, init_mult2=0.5, device=device,
-                          generator=init)
+        model = Generator(1, 5, K, S, M, 1, init_mult2=0.5, dtype=dtype,
+                          device=device, generator=init)
         x0 = torch.randn((B, S), generator=gen, device=device)
         args = GF.prep_generator_solve(model.func, x0, ts, gen, 1.0)
         weights = GF.gen_weights(model.func)
         ys, zs, gs = GF.gen_solve_forward_plain(*args, weights)
         gy = torch.randn(ys.shape, generator=gen, device=device)
         return (*args, weights, zs, gs, gy)
-    model = Discriminator(K - 1, S, M, 1, device=device, generator=init)
+    model = Discriminator(K - 1, S, M, 1, dtype=dtype, device=device,
+                          generator=init)
     paths = torch.randn((B, T, K), generator=gen, device=device)
     func = model.func.attach(ts, paths)
     return (*GF.prep_cde_solve(func, model.initial(paths[:, 0]), ts, 1.0),
@@ -5622,6 +6029,62 @@ def phase_ab(device, tag, against):
             times[key] = median_cuda_ms(
                 lambda: GF.cde_solve_forward_cuda(*c7), 20)
         del b6, c7
+        # Kernels 5-8 in bf16 mixed mode (the _bf16 entry points) at the
+        # reference scale, on the inputs of bf16 models, and at
+        # AB_GEN_SHAPES and AB_CDE_SHAPES; 6 and 8 go back from the twins'
+        # states (8 on last-state cotangents at the reference, dense ones
+        # at the other shapes).
+        (g16, gw16), (c16, cw16) = gan_kernel_inputs(
+            device, gan_models(device, BF16), gan_ts, real.to(BF16))
+        runs = {}
+        ys, zs, gs = GF.gen_solve_forward_plain(*g16, gw16)
+        runs["kernel5_bf16"] = (GF.gen_solve_forward_cuda, (*g16, gw16))
+        runs["kernel6_bf16"] = (GF.gen_solve_backward_cuda, (
+            *g16, gw16, zs, gs,
+            torch.randn(ys.shape, generator=gen, device=device)))
+        runs["kernel7_bf16"] = (GF.cde_solve_forward_cuda, (*c16, cw16))
+        hs, czs = GF.cde_solve_forward_plain(*c16, cw16)
+        ghs = torch.zeros_like(hs)
+        ghs[-1] = torch.randn(hs.shape[1:], generator=gen, device=device)
+        runs["kernel8_bf16"] = (GF.cde_solve_backward_cuda,
+                                (*c16, cw16, czs, ghs))
+        for i, shape in enumerate(AB_GEN_SHAPES):
+            key = "x".join(map(str, shape))
+            b6 = ab_gan_inputs(device, "gen", *shape, SEED + 30 + i, BF16)
+            runs["kernel6_bf16_" + key] = (GF.gen_solve_backward_cuda, b6)
+            runs["kernel5_bf16_" + key] = (GF.gen_solve_forward_cuda,
+                                           b6[:7])
+        for i, shape in enumerate(AB_CDE_SHAPES):
+            key = "x".join(map(str, shape))
+            c7 = ab_gan_inputs(device, "cde", *shape, SEED + 40 + i, BF16)
+            runs["kernel7_bf16_" + key] = (GF.cde_solve_forward_cuda, c7)
+            hs, czs = GF.cde_solve_forward_plain(*c7)
+            runs["kernel8_bf16_" + key] = (GF.cde_solve_backward_cuda, (
+                *c7, czs, torch.randn(hs.shape, generator=gen,
+                                      device=device)))
+        for key, (fn, k_args) in runs.items():
+            got = fn(*k_args)
+            out[key] = (flat_grads(got) if isinstance(got[-1], tuple)
+                        else list(got))
+            times[key] = median_cuda_ms(lambda: fn(*k_args), 20)
+        del runs, b6, c7
+        # The bf16 GAN train step (fused, Adadelta) at the reference scale:
+        # its device time, one profile after a warm-up step.
+        models16 = gan_models(device, BF16)
+        opts16 = tuple(torch.optim.Adadelta(
+            m.parameters(), lr=lr, weight_decay=GAN_WEIGHT_DECAY)
+            for m, lr in zip(models16, (GAN_GEN_LR, GAN_CRITIC_LR)))
+        batch16 = real[:GAN_BATCH].to(BF16)
+    with torch.enable_grad():
+        gan_train_step(models16, opts16, gan_ts, batch16, 990, True)
+        step = profile_run("ab bf16 GAN train step fused",
+                           lambda: gan_train_step(models16, opts16, gan_ts,
+                                                  batch16, 991, True),
+                           cpu=False)
+    times["gan_bf16_step_device"] = step["device_ms"]
+    times["gan_bf16_step_kernels"] = step["kernels"]
+    del models16, opts16
+    with torch.no_grad():
         for label, r_args in ab_rh_inputs(device):
             out[f"kernel11_{label}"] = list(FS.rh_solve_forward_cuda(*r_args))
             times[f"kernel11_{label}"] = median_cuda_ms(
@@ -5713,21 +6176,29 @@ def phase_ab(device, tag, against):
 ADJ_ROUTES = (("adjoint", dict(adjoint=True, fused=False)),
               ("sdeint", dict(adjoint=False, fused=False)),
               ("fused", dict(adjoint=False, fused=True)))
-ADJ_STEPS = 3
+# Timed steps of each route (one, cut from three to keep the script within
+# half its time limit: the adjoint group took 51.6 s on a fast H100 host
+# and 126.8 s on a slow one, its latent routes' part 23.4 and 73.1 s).
+ADJ_STEPS = 1
 # The latent adjoint step on the card against the CPU's on the same draws,
-# 32 rows, float32 on both: the forward's 155 Euler steps and the Milstein
+# float32 on both: the forward's 155 Euler steps and the Milstein
 # adjoint's sum in other orders (cuBLAS against the CPU's BLAS). Measured
-# 9.4e-8 on the loss and 7.7e-7 of scale on the gradients (NVIDIA H100
-# 80GB HBM3, 700 W); the limits leave a margin of about 10 over those, and
+# at 32 rows 9.4e-8 on the loss and 7.7e-7 of scale on the gradients
+# (NVIDIA H100 80GB HBM3, 700 W); 16 rows now, the rows of this
+# host-bound check cut for time; the limits leave a margin of about
+# 10 over those, and
 # the same step with TF32 matmuls, a fault of the card's precision, is
 # read beside them (PERF.md section 2).
-ADJ_CPU_ROWS = 32
+ADJ_CPU_ROWS = 16
 ADJ_LOSS_RTOL = 1e-6
 ADJ_GRAD_REL = 1e-5
 # Peak memory of one latent train step: adjoint against backprop at these dt
-# (1/512, not 1/1024, whose adjoint step alone takes about 22 s, keeps the
-# script within half its time limit; PERF.md keeps the 1/1024 peaks).
-ADJ_MEMORY_DTS = (1.0 / 128, 1.0 / 512)
+# (1/128, not 1/1024, whose adjoint step alone takes about 22 s, keeps the
+# script within half its time limit; PERF.md keeps the 1/1024 peaks; cut
+# first to 1/512, then to 1/64 and 1/128: at 1/128 and 1/512 the part
+# took 10.0 s on a fast H100 host, at 1/128 and 1/256 13.3 s on a slow
+# one).
+ADJ_MEMORY_DTS = (1.0 / 64, 1.0 / 128)
 
 
 def route_grads_rel(label, grads, want):
@@ -6001,15 +6472,22 @@ def phase_adjoint(device):
 ADA_MU = (-0.6155921816825867, -0.1983073353767395, -0.6543879508972168)
 ADA_SIGMA = (0.7318471074104309, 0.2877499461174011, 0.32121968269348145)
 ADA_B, ADA_TS = 1024, np.linspace(0.0, 2.0, 9)
+# (a)'s solves of configuration A run over [0, 1] (5 of its 9 outputs),
+# the first half of its span, to keep the script within half its time
+# limit ((a) took 36.1 s on a fast H100 host and 77.5 s on a slow one at
+# [0, 2], which PERF.md keeps).
+ADA_FORWARD_TS = ADA_TS[:5]
 ADA_DT0, ADA_RTOL, ADA_ATOL, ADA_DT_MIN = 1e-3, 1e-5, 1e-4, 1e-5
 ADA_KEY, ADA_LEVELS = np.array([0, 42], np.uint32), 20
 ADA_METHODS = (("srk", "space-time"), ("milstein", "none"))
 # Timed runs of each solve in (a) (PERF.md keeps the spread of two).
 ADA_REPS = 1
 # (b)'s float64 card-against-CPU solves and (c)'s gradients run
-# configuration A over [0, 0.5] (3 outputs): the first quarter of its span,
-# to keep the script within half its time limit (PERF.md keeps [0, 2]).
-ADA_CHECK_TS = np.linspace(0.0, 0.5, 3)
+# configuration A over [0, 0.25] (3 outputs): the first eighth of its span,
+# to keep the script within half its time limit (PERF.md keeps [0, 2]; cut
+# first to [0, 0.5], then to [0, 0.25]: (b) and (c) took 6.3 and 19.8 s
+# of the adaptive group's 75.2 at [0, 0.5] on an H100 host).
+ADA_CHECK_TS = np.linspace(0.0, 0.25, 3)
 # (a)'s kernels an attempt come from short solves of A from this time (a
 # two-attempt and a no-attempt one), small enough that the profiler loses
 # few events (a whole solve's hundreds of thousands it drops by up to a
@@ -6022,10 +6500,12 @@ ADA_CHECK_TS = np.linspace(0.0, 0.5, 3)
 # and then a profile loses far more (318 kernels of a no-attempt srk solve
 # beside 461 and 476 on an H100): a set that spreads wider is printed and
 # taken again, ADA_PROFILE_SETS sets at most. The solve's stats are held
-# to the CPU's before it is profiled, once.
+# to the CPU's before it is profiled, once. Two profiles a set (cut from
+# three to keep the script within half its time limit): the median of two
+# is the larger, and the spread bar holds the pair.
 ADA_SHORT_T0 = 0.3
 ADA_KERNELS_PER_OP = 0.1
-ADA_PROFILES = 3
+ADA_PROFILES = 2
 ADA_PROFILE_SPREAD = 0.1
 ADA_PROFILE_SETS = 3
 # Card against CPU in float64 on the whole batch: ys within this times
@@ -6101,15 +6581,16 @@ def ada_solve(method, levy, device, dtype=torch.float32, ts=ADA_TS, **kw):
                       dt_min=ADA_DT_MIN, return_stats=True, **kw)
 
 
-def ada_rms(ys, levy, device):
-    """RMS of ys against ExDiagonal's exact solution y0 exp((mu - sigma^2
-    / 2) t + sigma W(0, t)) on the same interval."""
+def ada_rms(ys, levy, device, ts=ADA_FORWARD_TS):
+    """RMS of ys (at the outputs ``ts``) against ExDiagonal's exact
+    solution y0 exp((mu - sigma^2 / 2) t + sigma W(0, t)) on the same
+    interval."""
     bm = ada_interval(levy, device)
     mu = torch.tensor(ADA_MU, device=device)
     sigma = torch.tensor(ADA_SIGMA, device=device)
     exact = [torch.full((ADA_B, 3), 0.1, device=device)] + [
         0.1 * torch.exp((mu - 0.5 * sigma ** 2) * float(t)
-                        + sigma * bm(0.0, float(t))) for t in ADA_TS[1:]]
+                        + sigma * bm(0.0, float(t))) for t in ts[1:]]
     return float(torch.sqrt(((ys - torch.stack(exact)) ** 2).mean()))
 
 
@@ -6224,7 +6705,8 @@ def ada_per_attempt(method, levy, device):
 
 
 def phase_adaptive_forward(device):
-    """(a) configuration A by srk and milstein on the card: stats, median
+    """(a) configuration A (to ADA_FORWARD_TS) by srk and milstein on the
+    card: stats, median
     ms, kernels and device ms an attempt (``ada_per_attempt``), the solve's
     aten ops (counted) and from them its kernels and device ms, the busy
     share, RMS against the exact solution; the same-work fixed solve (dt =
@@ -6232,23 +6714,27 @@ def phase_adaptive_forward(device):
     out = {}
     for method, levy in ADA_METHODS:
         per = ada_per_attempt(method, levy, device)
-        (ys, stats), ops = counted(lambda: ada_solve(method, levy, device))
-        times = [timed_ms(lambda: ada_solve(method, levy, device))[1]
+        (ys, stats), ops = counted(lambda: ada_solve(
+            method, levy, device, ts=ADA_FORWARD_TS))
+        times = [timed_ms(lambda: ada_solve(method, levy, device,
+                                            ts=ADA_FORWARD_TS))[1]
                  for _ in range(ADA_REPS)]
         attempts = stats["n_accepted"] + stats["n_rejected"]
         if stats["incomplete"] or not torch.isfinite(ys).all() or tuple(
-                ys.shape) != (len(ADA_TS), ADA_B, 3):
+                ys.shape) != (len(ADA_FORWARD_TS), ADA_B, 3):
             raise RuntimeError(f"adaptive {method}: incomplete, not finite "
                                f"or misshapen")
         rms = ada_rms(ys, levy, device)
-        dt_fixed = (ADA_TS[-1] - ADA_TS[0]) / stats["n_accepted"]
+        dt_fixed = (ADA_FORWARD_TS[-1] - ADA_FORWARD_TS[0]) / stats[
+            "n_accepted"]
         sde = AdaSDE(device, torch.float32)
         y0 = torch.full((ADA_B, 3), 0.1, device=device)
 
         def fixed():
             with torch.no_grad():
-                return sdeint(sde, y0, ADA_TS, bm=ada_interval(levy, device),
-                              method=method, dt=dt_fixed)
+                return sdeint(sde, y0, ADA_FORWARD_TS,
+                              bm=ada_interval(levy, device), method=method,
+                              dt=dt_fixed)
 
         fixed()
         fixed_ms = float(np.median([timed_ms(fixed)[1]
@@ -7536,9 +8022,20 @@ GROUPS = ("latent", "gan", "tower", "logqp", "multi", "bf16", "srk",
           "prng", "brownian", "adjoint", "adaptive", "traced_ts", "ddpm",
           "examples", "diagnostics", "mesh")
 # Run only when asked for by --only.
-EXTRA_GROUPS = ("tiles", "ab", "steps", "srk_rounding")
+EXTRA_GROUPS = ("tiles", "ab", "steps", "srk_rounding", "gan_fma",
+                "gan_clocks")
 # Groups that launch no kernel of the port's own: they run without a build.
 UNBUILT_GROUPS = ("steps", "adaptive", "traced_ts", "ddpm", "diagnostics")
+
+
+def timed_phase(fn, *args):
+    """``fn(*args)``, printing its seconds (the phases of the multi and
+    bf16 groups, so that a run says which of them to cut)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
 
 
 def main():
@@ -7664,9 +8161,9 @@ def main():
                 **tower_kernels[method][i]))
     if "multi" in groups:
         start("multi")
-        kernel3, kernel4 = phase_multi_kernels(device)
+        kernel3, kernel4 = timed_phase(phase_multi_kernels, device)
         xs, ts = lorenz_data(device)
-        path = phase_multi_path(device, xs, ts)
+        path = timed_phase(phase_multi_path, device, xs, ts)
         records += [
             dict(name="latent_fused_fwd_multi", route="cuda",
                  source=f"{csrc}/latent_fused_fwd.cu",
@@ -7682,16 +8179,19 @@ def main():
                  step0_grad_rel_err=path["step0_grad_rel_err"], **kernel4)]
     if "bf16" in groups:
         start("bf16")
-        single = phase_bf16_kernels(device)
-        multi = phase_bf16_multi_kernels(device)
+        single = timed_phase(phase_bf16_kernels, device)
+        multi = timed_phase(phase_bf16_multi_kernels, device)
         xs, ts = lorenz_data(device)
-        routes = phase_bf16_routes(device, xs, ts)
-        step_launches, step = phase_bf16_train(device, xs, ts)
-        multi_launches, multi_step = phase_bf16_multi_path(device, xs, ts)
+        routes = timed_phase(phase_bf16_routes, device, xs, ts)
+        step_launches, step = timed_phase(phase_bf16_train, device, xs, ts)
+        multi_launches, multi_step = timed_phase(phase_bf16_multi_path,
+                                                 device, xs, ts)
         gan_ts, real = gan_data(device)
-        gan16 = phase_bf16_gan_kernels(device, gan_ts, real)
-        gan_routes = phase_bf16_gan_routes(device, gan_ts, real)
-        gan_launches, gan_step = phase_bf16_gan_train(device, gan_ts, real)
+        gan16 = timed_phase(phase_bf16_gan_kernels, device, gan_ts, real)
+        gan_routes = timed_phase(phase_bf16_gan_routes, device, gan_ts,
+                                 real)
+        gan_launches, gan_step = timed_phase(phase_bf16_gan_train, device,
+                                             gan_ts, real)
         for name, line, launched, kernel, extra in (
                 ("latent_fused_fwd", 156, step_launches[0], single["fwd"],
                  dict(step=step, routes=routes)),
@@ -7711,7 +8211,7 @@ def main():
                  dict(step=gan_step, routes=gan_routes)),
                 ("gen_bwd", "gan_gen_bwd_bf16.cu", 200, gan_launches[1], {}),
                 ("cde_fwd", "gan_cde_fwd.cu", 422, gan_launches[2], {}),
-                ("cde_bwd", "gan_cde_bwd.cu", 458, gan_launches[3], {})):
+                ("cde_bwd", "gan_cde_bwd_bf16.cu", 458, gan_launches[3], {})):
             records.append(dict(
                 name=f"gan_{name}_bf16", route="cuda",
                 source=f"{csrc}/{source}",
@@ -7780,6 +8280,12 @@ def main():
     if "srk_rounding" in groups:
         start("srk_rounding")
         phase_srk_rounding(device)
+    if "gan_fma" in groups:
+        start("gan_fma")
+        phase_gan_fma(device)
+    if "gan_clocks" in groups:
+        start("gan_clocks")
+        phase_gan_clocks(device)
     if "mesh" in groups:
         start("mesh")
         mesh_launches = phase_mesh(device, card)

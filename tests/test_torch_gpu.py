@@ -738,6 +738,59 @@ def test_gan_cuda_route_takes_bf16_mixed_mode(cuda, B, S, M, m, C, T, Sc):
     _assert_bf16_close(_flat_gan(got_cb), _flat_gan(want_cb))
 
 
+# bf16 kernels 6 and 8 (the reverse sweeps on bf16 tensor cores, eight
+# rows a group of warps) at every float32 GPU test shape, the reference
+# widths of the bf16 GAN, a ragged batch of one row past a group, and a
+# batch of more groups than two an SM, whose blocks hold several groups at
+# 256 threads (each group on named barriers of its own): against their
+# mixed-mode twins within GAN_BF16_REL of each tensor's scale, at 32 and
+# 256 threads a block (which change the blocks, never a sum), each launch
+# counted once, and two calls bitwise equal.
+GAN_BF16_BWD_GEN_SHAPES = GEN_SHAPES + [(1024, 16, 16, 3, 8),
+                                        (9, 16, 16, 3, 5),
+                                        (4224, 16, 16, 3, 4)]
+GAN_BF16_BWD_CDE_SHAPES = CDE_SHAPES + [(2048, 17, 16, 2, 8),
+                                        (37, 16, 16, 2, 6),
+                                        (9, 17, 16, 2, 5),
+                                        (4224, 17, 16, 2, 4)]
+
+
+@pytest.mark.parametrize("B,S,M,m,T", GAN_BF16_BWD_GEN_SHAPES)
+def test_gan_bf16_gen_backward_on_tensor_cores(cuda, B, S, M, m, T):
+    with torch.no_grad():
+        bargs = _gan_gen_backward_args(cuda, B, S, M, m, T, 20,
+                                       torch.bfloat16)
+        want = _flat_gan(GF.gen_solve_backward_plain(*bargs))
+        runs = []
+        for threads in (32, 256, 256):
+            before = GF.bf16_gen_bwd_launches
+            runs.append(_flat_gan(GF.gen_solve_backward_cuda(
+                *bargs, threads=threads)))
+            assert GF.bf16_gen_bwd_launches == before + 1
+    torch.cuda.synchronize()
+    _assert_bf16_close(runs[0], want)
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+@pytest.mark.parametrize("B,S,M,C,T", GAN_BF16_BWD_CDE_SHAPES)
+def test_gan_bf16_cde_backward_on_tensor_cores(cuda, B, S, M, C, T):
+    with torch.no_grad():
+        bargs = _gan_cde_backward_args(cuda, B, S, M, C, T, 21,
+                                       dtype=torch.bfloat16)
+        want = _flat_gan(GF.cde_solve_backward_plain(*bargs))
+        runs = []
+        for threads in (32, 256, 256):
+            before = GF.bf16_cde_bwd_launches
+            runs.append(_flat_gan(GF.cde_solve_backward_cuda(
+                *bargs, threads=threads)))
+            assert GF.bf16_cde_bwd_launches == before + 1
+    torch.cuda.synchronize()
+    _assert_bf16_close(runs[0], want)
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
 def test_gan_bf16_route_trains_through_the_bf16_kernels(cuda):
     """gan_grads(fused=True) on bf16 models on the card: the bf16 kernels
     5-8 launch once each and the float32 ones never, the loss is float32,

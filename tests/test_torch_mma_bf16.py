@@ -9,7 +9,15 @@ lanes as the PTX ISA lays out ldmatrix (.trans), mma.m16n8k16 .bf16 and
 movmatrix.trans, and the sweep's, the contraction's and the forward's
 products, addressed as the kernels address them, are held to numpy on
 bf16-rounded inputs. A copy of the header with two fragment rows swapped,
-or with the forward's context columns shifted, must fail."""
+or with the forward's context columns shifted, must fail.
+
+``csrc/gan_bwd_bf16.cuh`` does the same for the bf16 reverse sweeps of the
+SDE-GAN (kernels 6 and 8): a tower's step for a warp of 8 rows (layers 1
+and 2, the hidden cotangent, dz and the weights' gradients on m16n8k16 and
+m16n8k8, the weights staged as the kernels stage them), at the reference
+widths and the widest, against numpy on the emulated step's own bf16
+roundings; a copy with a swapped fragment row or a shifted weight column
+must fail."""
 
 import ctypes
 import shutil
@@ -34,7 +42,9 @@ EMULATOR = r"""
 #include <stdint.h>
 #include <string.h>
 #include "mma_bf16.cuh"
+#include "gan_bwd_bf16.cuh"
 using namespace tsde_bf16;
+using namespace tsde_gan_bf16;
 
 static float bf(uint16_t b) {
   uint32_t u = (uint32_t)b << 16;
@@ -320,16 +330,268 @@ extern "C" void contract_tile(const uint16_t* As, int as, const uint16_t* Bs,
                 = d[mi][ni][t][e];
   }
 }
+
+// mma.m16n8k8 .bf16: a0 holds A[g][2q + {0,1}], a1 A[g + 8][2q + {0,1}],
+// b B[2q + {0,1}][g]; d[i] is D[g + 8(i/2)][2q + i%2].
+static void mma8(float d[32][4], uint32_t a[32][2], const uint32_t b[32]) {
+  float A[16][8], B[8][8];
+  for (int t = 0; t < 32; ++t) {
+    const int g = t / 4, q = t % 4;
+    for (int i = 0; i < 2; ++i) {
+      A[g + 8 * i][2 * q] = bf(a[t][i] & 0xffff);
+      A[g + 8 * i][2 * q + 1] = bf(a[t][i] >> 16);
+    }
+    B[2 * q][g] = bf(b[t] & 0xffff);
+    B[2 * q + 1][g] = bf(b[t] >> 16);
+  }
+  for (int t = 0; t < 32; ++t) {
+    const int g = t / 4, q = t % 4;
+    for (int i = 0; i < 4; ++i) {
+      float s = 0.f;
+      for (int k = 0; k < 8; ++k)
+        s += A[g + 8 * (i / 2)][k] * B[k][2 * q + i % 2];
+      d[t][i] += s;
+    }
+  }
+}
+
+static float sigmoid_(float x) { return 1.f / (1.f + expf(-x)); }
+
+// One tower's step of the bf16 GAN sweeps for a warp of 8 rows, as
+// gan_bwd_bf16.cuh's tower_forward and tower_backward address it, in an
+// instantiation of UT state, HT hidden and KC UT output tiles: the
+// weights staged by tower_word (W1 (1+S) x M and W2 M x S kq, bf16 bits;
+// b1, b2 float), z [8][S] bf16 bits, the outputs' cotangents dout [8][S
+// kq]. Out, [row][...] as numpy has them: pre1 [8][M] (layer 1 with the
+// time and the bias), a1r [8][M] and the outputs' pre-activation o [8][S
+// kq], dpre2 [8][S kq] and its rounding, da [8][M], dpre1 [8][M] and its
+// rounding, dz [8][S]; and the weights' gradients as one warp's partial
+// (W1, b1, W2, b2 back to back).
+extern "C" void gan_tower_step(const uint16_t* W1, const float* b1,
+                               const uint16_t* W2, const float* b2, int S,
+                               int M, int kq, int UT, int HT, int KC,
+                               const uint16_t* z, float t1r,
+                               const float* dout, float* pre1, uint16_t* a1r,
+                               float* o, float* dpre2, uint16_t* dp2r,
+                               float* da, float* dpre1, uint16_t* dp1r,
+                               float* dz, float* part) {
+  const int OT = KC * UT, U = 16 * UT, Sk = S * kq;
+  static uint32_t frag[1 << 16];
+  const int words = op_first(4, UT, HT, OT) * 128;
+  for (int w = 0; w < words; ++w) {
+    int src[2], w2;
+    tower_word(w, UT, HT, OT, S, M, kq, src, &w2);
+    const uint16_t* W = w2 ? W2 : W1;
+    frag[w] = (src[0] < 0 ? 0u : W[src[0]])
+              | ((uint32_t)(src[1] < 0 ? 0u : W[src[1]]) << 16);
+  }
+  auto tile = [&](int op, int t, uint32_t a[32][4]) {
+    for (int l = 0; l < 32; ++l)
+      for (int r = 0; r < 4; ++r)
+        a[l][r] = frag[((op_first(op, UT, HT, OT) + t) * 32 + l) * 4 + r];
+  };
+  auto packed = [&](const float v[32][4], uint32_t pk[2][32]) {
+    for (int l = 0; l < 32; ++l)
+      for (int h = 0; h < 2; ++h)
+        pk[h][l] = rn(v[l][2 * h]) | ((uint32_t)rn(v[l][2 * h + 1]) << 16);
+  };
+  // z's tiles in the lanes, packed, and transposed into layer 1's B.
+  static float zv[4][32][4];
+  static uint32_t zb[4][2][32], zt[4][2][32];
+  for (int t = 0; t < UT; ++t) {
+    for (int l = 0; l < 32; ++l)
+      for (int i = 0; i < 4; ++i) {
+        const int u = elem_unit(l, t, i), r = elem_row(l, i);
+        zv[t][l][i] = u < S ? bf(z[r * S + u]) : 0.f;
+      }
+    packed(zv[t], zb[t]);
+    for (int h = 0; h < 2; ++h) movm(zb[t][h], zt[t][h]);
+  }
+  // Layer 1 with lipswish, rounded into ab, transposed into layer 2's B.
+  static uint32_t ab[2][2][32], at[2][2][32];
+  static float sl1[2][32][4];
+  for (int t = 0; t < HT; ++t) {
+    float acc[32][4] = {};
+    for (int k = 0; k < UT; ++k) {
+      uint32_t a[32][4], b[32][2];
+      tile(kLayer1, t * UT + k, a);
+      for (int l = 0; l < 32; ++l) { b[l][0] = zt[k][0][l]; b[l][1] = zt[k][1][l]; }
+      mma(acc, a, b);
+    }
+    float a1[32][4];
+    for (int l = 0; l < 32; ++l)
+      for (int i = 0; i < 4; ++i) {
+        const int j = elem_unit(l, t, i), r = elem_row(l, i);
+        const float x = acc[l][i] + (j < M ? t1r * bf(W1[j]) + b1[j] : 0.f);
+        const float sg = sigmoid_(x);
+        a1[l][i] = 0.909f * x * sg;
+        sl1[t][l][i] = 0.909f * (sg + x * sg * (1.f - sg));
+        if (j < M) pre1[r * M + j] = x;
+      }
+    packed(a1, ab[t]);
+    for (int h = 0; h < 2; ++h) {
+      movm(ab[t][h], at[t][h]);
+      for (int l = 0; l < 32; ++l)
+        for (int e = 0; e < 2; ++e) {
+          const int j = 16 * t + 8 * h + l / 4, r = 2 * (l % 4) + e;
+          if (j < M) a1r[r * M + j] = (ab[t][h][l] >> (16 * e)) & 0xffff;
+        }
+    }
+  }
+  // Layer 2 and the outputs' cotangents: dpre2 = dout (1 - tanh^2),
+  // rounded into db (m16n8k8's A), transposed into dt (da's B).
+  static uint32_t db[16][2][32], dt[16][2][32];
+  static float g2[16][4][32][4], g1[2][8][32][4], gb2[16][32][4],
+      gb1[2][32][4], gt[2][32][4];
+  memset(g2, 0, sizeof g2);
+  memset(g1, 0, sizeof g1);
+  for (int t = 0; t < OT; ++t) {
+    float acc[32][4] = {};
+    for (int k = 0; k < HT; ++k) {
+      uint32_t a[32][4], b[32][2];
+      tile(kLayer2, t * HT + k, a);
+      for (int l = 0; l < 32; ++l) { b[l][0] = at[k][0][l]; b[l][1] = at[k][1][l]; }
+      mma(acc, a, b);
+    }
+    float dp[32][4];
+    for (int l = 0; l < 32; ++l)
+      for (int i = 0; i < 4; ++i) {
+        const int c = out_col(elem_unit(l, t, i), U, S, kq);
+        const int r = elem_row(l, i);
+        const float x = acc[l][i] + (c >= 0 ? b2[c] : 0.f);
+        const float F = tanhf(x);
+        dp[l][i] = c >= 0 ? dout[r * Sk + c] * (1.f - F * F) : 0.f;
+        gb2[t][l][i] = dp[l][i];
+        if (c >= 0) {
+          o[r * Sk + c] = x;
+          dpre2[r * Sk + c] = dp[l][i];
+        }
+      }
+    packed(dp, db[t]);
+    for (int h = 0; h < 2; ++h) {
+      movm(db[t][h], dt[t][h]);
+      for (int l = 0; l < 32; ++l)
+        for (int e = 0; e < 2; ++e) {
+          const int c = out_col(16 * t + 8 * h + l / 4, U, S, kq);
+          const int r = 2 * (l % 4) + e;
+          if (c >= 0) dp2r[r * Sk + c] = (db[t][h][l] >> (16 * e)) & 0xffff;
+        }
+    }
+    for (int k = 0; k < HT; ++k)
+      for (int h = 0; h < 2; ++h) {
+        uint32_t a[32][2];
+        for (int l = 0; l < 32; ++l) { a[l][0] = db[t][0][l]; a[l][1] = db[t][1][l]; }
+        mma8(g2[t][2 * k + h], a, ab[k][h]);
+      }
+  }
+  // The hidden cotangent, dpre1 rounded into eb, dz, and dW1's sums.
+  static uint32_t eb[2][2][32], et[2][2][32];
+  for (int t = 0; t < HT; ++t) {
+    float acc[32][4] = {};
+    for (int k = 0; k < OT; ++k) {
+      uint32_t a[32][4], b[32][2];
+      tile(kHidden, t * OT + k, a);
+      for (int l = 0; l < 32; ++l) { b[l][0] = dt[k][0][l]; b[l][1] = dt[k][1][l]; }
+      mma(acc, a, b);
+    }
+    float dp[32][4];
+    for (int l = 0; l < 32; ++l)
+      for (int i = 0; i < 4; ++i) {
+        const int j = elem_unit(l, t, i), r = elem_row(l, i);
+        dp[l][i] = acc[l][i] * sl1[t][l][i];
+        gb1[t][l][i] = dp[l][i];
+        if (j < M) {
+          da[r * M + j] = acc[l][i];
+          dpre1[r * M + j] = dp[l][i];
+        }
+      }
+    packed(dp, eb[t]);
+    for (int h = 0; h < 2; ++h) {
+      movm(eb[t][h], et[t][h]);
+      for (int l = 0; l < 32; ++l)
+        for (int e = 0; e < 2; ++e) {
+          const int j = 16 * t + 8 * h + l / 4, r = 2 * (l % 4) + e;
+          const uint16_t v = (eb[t][h][l] >> (16 * e)) & 0xffff;
+          gt[t][l][2 * h + e] = t1r * bf(v);
+          if (j < M) dp1r[r * M + j] = v;
+        }
+    }
+    for (int k = 0; k < UT; ++k)
+      for (int h = 0; h < 2; ++h) {
+        uint32_t a[32][2];
+        for (int l = 0; l < 32; ++l) { a[l][0] = eb[t][0][l]; a[l][1] = eb[t][1][l]; }
+        mma8(g1[t][2 * k + h], a, zb[k][h]);
+      }
+  }
+  for (int t = 0; t < UT; ++t) {
+    float acc[32][4] = {};
+    for (int k = 0; k < HT; ++k) {
+      uint32_t a[32][4], b[32][2];
+      tile(kInput, t * HT + k, a);
+      for (int l = 0; l < 32; ++l) { b[l][0] = et[k][0][l]; b[l][1] = et[k][1][l]; }
+      mma(acc, a, b);
+    }
+    for (int l = 0; l < 32; ++l)
+      for (int i = 0; i < 4; ++i) {
+        const int u = elem_unit(l, t, i), r = elem_row(l, i);
+        if (u < S) dz[r * S + u] = acc[l][i];
+      }
+  }
+  // The warp's partial, as write_tower_partial lays it out: the per-row
+  // sums over a quad's lanes and a lane's two rows.
+  float* pW1 = part;
+  float* pb1 = pW1 + (1 + S) * M;
+  float* pW2 = pb1 + M;
+  float* pb2 = pW2 + M * Sk;
+  for (int t = 0; t < HT; ++t)
+    for (int l = 0; l < 32; l += 4)
+      for (int h = 0; h < 2; ++h) {
+        float st = 0.f, sb = 0.f;
+        for (int q = 0; q < 4; ++q)
+          for (int e = 0; e < 2; ++e) {
+            st += gt[t][l + q][2 * h + e];
+            sb += gb1[t][l + q][2 * h + e];
+          }
+        const int j = elem_unit(l, t, 2 * h);
+        if (j < M) { pW1[j] = st; pb1[j] = sb; }
+      }
+  for (int t = 0; t < HT; ++t)
+    for (int n = 0; n < 2 * UT; ++n)
+      for (int l = 0; l < 32; ++l)
+        for (int i = 0; i < 4; ++i) {
+          const int j = elem_unit(l, t, i), k = 8 * n + elem_row(l, i);
+          if (j < M && k < S) pW1[(1 + k) * M + j] = g1[t][n][l][i];
+        }
+  for (int t = 0; t < OT; ++t) {
+    for (int l = 0; l < 32; l += 4)
+      for (int h = 0; h < 2; ++h) {
+        float sb = 0.f;
+        for (int q = 0; q < 4; ++q)
+          for (int e = 0; e < 2; ++e) sb += gb2[t][l + q][2 * h + e];
+        const int c = out_col(elem_unit(l, t, 2 * h), U, S, kq);
+        if (c >= 0) pb2[c] = sb;
+      }
+    for (int n = 0; n < 2 * HT; ++n)
+      for (int l = 0; l < 32; ++l)
+        for (int i = 0; i < 4; ++i) {
+          const int c = out_col(elem_unit(l, t, i), U, S, kq);
+          const int j = 8 * n + elem_row(l, i);
+          if (c >= 0 && j < M) pW2[j * Sk + c] = g2[t][n][l][i];
+        }
+  }
+}
 """
 
 
-def _build(folder, header):
+def _build(folder, header, gan_header=None):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
     folder.mkdir(parents=True, exist_ok=True)
     (folder / "cuda_runtime.h").write_text(CUDA_STUB)
     (folder / "mma_bf16.cuh").write_text(header)
+    (folder / "gan_bwd_bf16.cuh").write_text(
+        gan_header or (CSRC / "gan_bwd_bf16.cuh").read_text())
     (folder / "emulator.cpp").write_text(EMULATOR)
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
                     "-ffp-contract=off", f"-I{folder}", "-o",
@@ -340,6 +602,8 @@ def _build(folder, header):
     lib.sweep_product.argtypes = [P, I, I, I, P, I, I, P, P, I]
     lib.contract_tile.argtypes = [P, I, P, I, I, P, I]
     lib.forward_f.argtypes = [P] * 6 + [I] * 4 + [P]
+    lib.gan_tower_step.argtypes = ([P] * 4 + [I] * 6 + [P, ctypes.c_float]
+                                   + [P] * 11)
     return lib
 
 
@@ -534,3 +798,125 @@ def test_forward_index_faults_are_caught(tmp_path, right, wrong):
     with pytest.raises(AssertionError):
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=FWD_REL * float(np.abs(want).max()))
+
+
+def _lipswish(x):
+    return 0.909 * x / (1.0 + np.exp(-x))
+
+
+def _lipswish_slope(x):
+    s = 1.0 / (1.0 + np.exp(-x))
+    return 0.909 * (s + x * s * (1.0 - s))
+
+
+def _tower_case(rng, S, M, kq):
+    """A tower's bf16 weights (bits), its biases (bf16 values as float32),
+    a warp's 8 rows of z (bits), the step's time (a bf16 value) and the
+    outputs' cotangents."""
+    W1 = _inputs(rng, 1 + S, M, scale=0.3)
+    W2 = _inputs(rng, M, S * kq, scale=0.3)
+    b1 = _from_bits(_inputs(rng, M, scale=0.1)).astype(np.float32)
+    b2 = _from_bits(_inputs(rng, S * kq, scale=0.1)).astype(np.float32)
+    z = _inputs(rng, 8, S)
+    t1r = float(_from_bits(_inputs(rng, 1))[0])
+    dout = rng.standard_normal((8, S * kq)).astype(np.float32)
+    return W1, b1, W2, b2, z, t1r, dout
+
+
+def _tower_step(warp, case, S, M, kq, UT, HT, KC):
+    W1, b1, W2, b2, z, t1r, dout = case
+    f = lambda *shape: np.zeros(shape, np.float32)       # noqa: E731
+    u = lambda *shape: np.zeros(shape, np.uint16)        # noqa: E731
+    out = dict(pre1=f(8, M), a1r=u(8, M), o=f(8, S * kq),
+               dpre2=f(8, S * kq), dp2r=u(8, S * kq), da=f(8, M),
+               dpre1=f(8, M), dp1r=u(8, M), dz=f(8, S),
+               part=f((1 + S) * M + M + M * S * kq + S * kq))
+    warp.gan_tower_step(_ptr(W1), _ptr(b1), _ptr(W2), _ptr(b2), S, M, kq,
+                        UT, HT, KC, _ptr(z), t1r, _ptr(dout),
+                        *[_ptr(out[k]) for k in (
+                            "pre1", "a1r", "o", "dpre2", "dp2r", "da",
+                            "dpre1", "dp1r", "dz", "part")])
+    return out
+
+
+def _check_tower_step(case, got, S, M, kq):
+    """Each product of the emulated step against numpy's on the step's own
+    bf16 roundings (so a rounding that the float32 and float64 sums flip
+    cannot show), each rounding within half a bf16 ulp of its value, and
+    the warp's partial of the weights' gradients."""
+    W1, b1, W2, b2, z, t1r, dout = case
+    W1f, W2f, zr = _from_bits(W1), _from_bits(W2), _from_bits(z)
+    _check(got["pre1"], zr @ W1f[1:] + t1r * W1f[0] + b1)
+    a1r = _from_bits(got["a1r"])
+    np.testing.assert_allclose(a1r, _lipswish(got["pre1"].astype(np.float64)),
+                               rtol=2 ** -8, atol=1e-30)
+    _check(got["o"], a1r @ W2f + b2)
+    _check(got["dpre2"], dout * (1.0 - np.tanh(got["o"].astype(np.float64))
+                                 ** 2))
+    dp2r = _from_bits(got["dp2r"])
+    np.testing.assert_allclose(dp2r, got["dpre2"], rtol=2 ** -8, atol=1e-30)
+    _check(got["da"], dp2r @ W2f.T)
+    _check(got["dpre1"], got["da"] * _lipswish_slope(
+        got["pre1"].astype(np.float64)))
+    dp1r = _from_bits(got["dp1r"])
+    np.testing.assert_allclose(dp1r, got["dpre1"], rtol=2 ** -8, atol=1e-30)
+    _check(got["dz"], dp1r @ W1f[1:].T)
+    p, Sk = got["part"], S * kq
+    gW1 = p[:(1 + S) * M].reshape(1 + S, M)
+    gb1 = p[(1 + S) * M:(2 + S) * M]
+    gW2 = p[(2 + S) * M:(2 + S) * M + M * Sk].reshape(M, Sk)
+    gb2 = p[(2 + S) * M + M * Sk:]
+    xin = np.concatenate([np.full((8, 1), t1r), zr], axis=1)
+    _check(gW1, xin.T @ dp1r)
+    _check(gb1, got["dpre1"].sum(0))
+    _check(gW2, a1r.T @ dp2r)
+    _check(gb2, got["dpre2"].sum(0))
+
+
+# A tower of each instantiation (S, M, kq, and the tiles UT, HT, KC it
+# holds): kernel 8 at the reference (S 17, C 2) and its generic one at the
+# widest (C 8) and at C 3 (five of its eight channels' tiles zero); kernel
+# 6's drift (kq 1) and diffusion (m 3) at the reference, and the widest.
+TOWER_CASES = [(17, 16, 2, 2, 1, 2), (16, 16, 2, 1, 1, 2),
+               (32, 32, 8, 2, 2, 8), (9, 24, 3, 2, 2, 8),
+               (16, 16, 1, 1, 1, 1), (16, 16, 3, 1, 1, 3),
+               (32, 32, 1, 2, 2, 1), (1, 1, 1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("S,M,kq,UT,HT,KC", TOWER_CASES)
+def test_gan_tower_step_on_the_emulated_warp(warp, S, M, kq, UT, HT, KC):
+    """A tower's step of the bf16 GAN sweeps (gan_bwd_bf16.cuh) for a warp
+    of 8 rows, its weights staged by tower_word and every product
+    addressed as tower_forward and tower_backward address it: layer 1
+    (the time's row apart), layer 2 with its outputs laid out channel by
+    channel, the hidden cotangent, dz, and the weights' gradients on
+    m16n8k8 over the warp's rows, written as write_tower_partial writes
+    them; against numpy."""
+    case = _tower_case(np.random.default_rng(S + 3 * M + 7 * kq), S, M, kq)
+    got = _tower_step(warp, case, S, M, kq, UT, HT, KC)
+    _check_tower_step(case, got, S, M, kq)
+
+
+@pytest.mark.parametrize("right,wrong", [
+    ("return (lane >> 2) + 8 * (r & 1);",
+     "return (lane >> 2) + 8 * (1 - (r & 1));"),
+    ("if (op == kLayer1) return m < M && k < S ? (1 + k) * M + m : -1;",
+     "if (op == kLayer1) return m < M && k < S ? k * M + m : -1;"),
+    ("const int k = 16 * (tile % kt) + a_col(lane, r);",
+     "const int k = 16 * (tile / kt) + a_col(lane, r);")],
+    ids=["swapped-fragment-row", "shifted-input-column",
+         "swapped-tile-coordinates"])
+def test_gan_tower_index_faults_are_caught(tmp_path, right, wrong):
+    """gan_bwd_bf16.cuh with an A fragment's two 8-row halves swapped,
+    layer 1's weights one input row off (the time's row read for z's
+    first), or a staged tile's k-tile taken from its m-tile: the emulated
+    step no longer matches numpy."""
+    header = (CSRC / "gan_bwd_bf16.cuh").read_text()
+    assert header.count(right) == 1
+    bad = _build(tmp_path, (CSRC / "mma_bf16.cuh").read_text(),
+                 header.replace(right, wrong))
+    S, M, kq = 17, 16, 2
+    case = _tower_case(np.random.default_rng(5), S, M, kq)
+    got = _tower_step(bad, case, S, M, kq, 2, 1, 2)
+    with pytest.raises(AssertionError):
+        _check_tower_step(case, got, S, M, kq)

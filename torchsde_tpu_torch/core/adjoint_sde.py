@@ -153,6 +153,11 @@ class AdjointSDE:
     def has_method(self, name):
         return name in ("f", "g_prod", "f_and_g_prod", "g_prod_and_gdg_prod")
 
+    def _flat_vjp(self, outputs, y, cotangents, create_graph):
+        """``(vjp_y, *vjp_params)`` of :meth:`_vjp`."""
+        vjp_y, vjp_params = self._vjp(outputs, y, cotangents, create_graph)
+        return (vjp_y,) + tuple(vjp_params)
+
     def _vjp(self, outputs, y, cotangents, create_graph):
         """``(vjp_y, vjp_params)``: zeros for y where it is not read, None
         for a parameter that is not."""
@@ -200,17 +205,22 @@ class AdjointSDE:
 
         def fn(y):
             drift = sde.f(-t, y)
-            outputs, cotangents = (drift,), (adj_y,)
-            if self._corrected:
-                # The drift's vjp and the Itô-conversion term in one pass.
-                g = sde.g(-t, y)
-                drift = drift - self._correction(y, g)
-                outputs = (drift, g)
-                cotangents = (adj_y, self._ito_conversion_cotangent(
-                    y, g, adj_y, create_graph))
-            vjp_y, vjp_params = self._vjp(outputs, y, cotangents,
+            if not self._corrected:
+                return (drift,) + self._flat_vjp((drift,), y, (adj_y,),
+                                                 create_graph)
+            # The drift's vjp, then the Itô-conversion term's, added: the
+            # JAX package's order of the sums (two passes; one pass over
+            # both outputs sums their terms in another order, which bf16
+            # rounds apart).
+            g = sde.g(-t, y)
+            drift = drift - self._correction(y, g)
+            vjp_y, vjp_params = self._vjp((drift,), y, (adj_y,),
                                           create_graph)
-            return (drift, vjp_y) + vjp_params
+            extra_y, extra_params = self._vjp(
+                (g,), y, (self._ito_conversion_cotangent(
+                    y, g, adj_y, create_graph),), create_graph)
+            return (drift, vjp_y + extra_y) + tuple(
+                plus(a, b) for a, b in zip(vjp_params, extra_params))
 
         return _neg_first(_triple(at_leaf(fn, y)))
 

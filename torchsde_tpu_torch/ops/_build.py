@@ -28,7 +28,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("latent_fused_fwd.cu", "latent_fused_bwd.cu", "gan_gen_fwd.cu",
            "gan_cde_fwd.cu", "gan_gen_bwd.cu", "gan_gen_bwd_bf16.cu",
-           "gan_cde_bwd.cu",
+           "gan_cde_bwd.cu", "gan_cde_bwd_bf16.cu",
            "tower_euler_fwd.cu", "tower_euler_bwd.cu", "tower_rh_fwd.cu",
            "tower_rh_bwd.cu", "tower_euler_logqp_fwd.cu",
            "tower_euler_logqp_bwd.cu", "tower_bwd_contract.cu",
@@ -36,7 +36,7 @@ SOURCES = ("latent_fused_fwd.cu", "latent_fused_bwd.cu", "gan_gen_fwd.cu",
 HEADERS = ("mixed_dtype.cuh", "latent_fused_common.cuh",
            "gan_fused_common.cuh", "gan_warp_rows.cuh", "gan_gen_bwd.cuh",
            "tower_solve_common.cuh", "tower_fwd_tile.cuh", "mma_tf32.cuh",
-           "mma_bf16.cuh")
+           "mma_bf16.cuh", "gan_bwd_bf16.cuh")
 # Headers that generated sources include (library_for_source).
 SOURCE_HEADERS = ("srk_srid2.cuh",)
 BUILD_DIR = Path(os.environ.get(
@@ -141,6 +141,17 @@ def _bind(lib):
         smem.restype = ctypes.c_size_t
     lib.tsde_gan_bwd_partials.argtypes = [I, I, I]
     lib.tsde_gan_bwd_partials.restype = I
+    # The bf16 reverse sweeps on tensor cores (kernels 6 and 8): their
+    # shared memory, instantiation and partials (one a group of 8 rows).
+    for name in ("gen_bwd", "cde_bwd"):
+        smem = getattr(lib, f"tsde_gan_{name}_smem_bytes_bf16")
+        smem.argtypes = [I, I, I, I]
+        smem.restype = ctypes.c_size_t
+        design = getattr(lib, f"tsde_gan_{name}_design_bf16")
+        design.argtypes = [I, I, I]
+        design.restype = I
+    lib.tsde_gan_bwd_partials_bf16.argtypes = [I]
+    lib.tsde_gan_bwd_partials_bf16.restype = I
     # The TowerSpec solves: two layer tables (host, device), the tensors,
     # then nf, ng, nh, S, m, diag, wt, stage, (kernels 11 and 13: rows,
     # threads, cluster; kernel 9: rows, threads, mma,) B, N, (kernels 10,

@@ -46,14 +46,9 @@
 // Precise expf and tanhf, float32 throughout. The kernels allocate nothing
 // and do not synchronise the host.
 //
-// bf16 mixed mode (tsde_gan_cde_bwd_bf16; the JAX package's _tower_fwd and
-// _tower_bwd with bf16 weights): the weights come in bf16 and are widened
-// once as they are staged; the slopes, the cotangents, dslopes and every
-// sum stay float32. Each product's inputs are rounded to bf16 and nothing
-// else: [t1, z1] and a1 (the recomputed forward, dW1 and dW2), dpre2 (dW2
-// and a1's cotangent) and dpre1 (dW1 and dz); b2's and b1's sums take them
-// unrounded. The weights' gradients are summed in float32 and rounded to
-// bf16 once by the caller.
+// The bf16 mixed mode is a kernel of its own, on bf16 tensor cores
+// (gan_cde_bwd_bf16.cu); the template parameter W (the weights' storage
+// type) is float here.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -65,8 +60,7 @@ namespace {
 
 using namespace tsde_gan;
 
-// W is the storage type of the weights (float, or bf16 in mixed mode); the
-// rest is float32 either way.
+// W is the storage type of the weights (float); the rest is float32.
 template <typename W>
 struct CdeBwdArgs {
   const float* slopes;  // (N, B, C)
@@ -381,8 +375,8 @@ CdeBwdKernel<W> cde_bwd_kernel_for(int C) {
   }
 }
 
-// Launches the sweep and the sum of its partials (float32 weights, or bf16
-// in mixed mode): the body of both entry points below.
+// Launches the sweep and the sum of its partials: the body of the entry
+// point below.
 template <typename W>
 int launch_cde_bwd(const float* slopes, const float* t1s, const float* dts,
                    const W* const* w, const float* zs, const float* ghs,
@@ -448,21 +442,6 @@ int tsde_gan_cde_bwd(const float* slopes, const float* t1s, const float* dts,
                      float* dw, int B, int S, int M, int C, int N,
                      int threads, int device, cudaStream_t stream) {
   const float* w[4] = {W1, b1, W2, b2};
-  return launch_cde_bwd(slopes, t1s, dts, w, zs, ghs, dh0, df0, dslopes,
-                        partials, dw, B, S, M, C, N, threads, device, stream);
-}
-
-// bf16 mixed mode: the weights bf16, the rest as above (dw float32: the
-// weights' gradients summed in float32, for the caller to round once).
-int tsde_gan_cde_bwd_bf16(const float* slopes, const float* t1s,
-                          const float* dts, const __nv_bfloat16* W1,
-                          const __nv_bfloat16* b1, const __nv_bfloat16* W2,
-                          const __nv_bfloat16* b2, const float* zs,
-                          const float* ghs, float* dh0, float* df0,
-                          float* dslopes, float* partials, float* dw, int B,
-                          int S, int M, int C, int N, int threads, int device,
-                          cudaStream_t stream) {
-  const __nv_bfloat16* w[4] = {W1, b1, W2, b2};
   return launch_cde_bwd(slopes, t1s, dts, w, zs, ghs, dh0, df0, dslopes,
                         partials, dw, B, S, M, C, N, threads, device, stream);
 }

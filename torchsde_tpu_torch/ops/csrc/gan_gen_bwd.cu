@@ -1,6 +1,6 @@
 // Kernel 6, the reverse sweep of the SDE-GAN generator's whole solve
 // (gan_gen_bwd.cuh), with float32 weights and noise: its C entry points.
-// gan_gen_bwd_bf16.cu instantiates the bf16 mixed mode.
+// gan_gen_bwd_bf16.cu is the bf16 mixed mode's kernel.
 
 #include "gan_gen_bwd.cuh"
 

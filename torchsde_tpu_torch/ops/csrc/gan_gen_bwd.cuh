@@ -1,7 +1,7 @@
 // Reverse sweep of the SDE-GAN generator's whole solve, for Hopper (sm_90a),
 // bound to PyTorch through a plain C interface (ctypes): the kernel and its
-// launch, instantiated by gan_gen_bwd.cu (float32) and gan_gen_bwd_bf16.cu
-// (bf16 mixed mode), two sources so that nvcc builds them in parallel.
+// launch, instantiated by gan_gen_bwd.cu (float32). The bf16 mixed mode is
+// a kernel of its own, on bf16 tensor cores (gan_gen_bwd_bf16.cu).
 //
 // Replaces the Pallas TPU kernel torchsde_tpu/ops/gan_fused.py:_gen_bwd_kernel
 // (launched by _gen_solve_bwd_impl). Same function: the hand-derived reverse
@@ -65,16 +65,8 @@
 // same bits. Precise expf and tanhf, float32 throughout.
 // The kernels allocate nothing and do not synchronise the host.
 //
-// bf16 mixed mode (tsde_gan_gen_bwd_bf16; the JAX package's _tower_fwd and
-// _tower_bwd with bf16 weights): the weights and the noise come in bf16,
-// widened once as they are staged or loaded. Each product's inputs are
-// rounded to bf16 and nothing else: [t1, z1] and the hidden activations
-// (the recomputed forward, dW2 and dW1), dpre2 (dW2 and the hidden
-// cotangents) and dpre1 (dW1 and dz); b2's and b1's sums take dpre2 and
-// dpre1 unrounded. The weights' gradients are summed in float32 (the
-// per-warp partials and their sum as above) and rounded to bf16 once by
-// the caller; dnoise is each step's float32 sum rounded to bf16 once; dx0,
-// df0 and dg0 stay float32.
+// The template parameter W (the storage type of the noise, dnoise and the
+// weights) is float: the bf16 rounding it allows (rnd<W>) is the identity.
 
 #pragma once
 
@@ -88,8 +80,8 @@ namespace {
 
 using namespace tsde_gan;
 
-// W is the storage type of the noise, dnoise and the weights (float, or
-// bf16 in mixed mode); the rest is float32 either way.
+// W is the storage type of the noise, dnoise and the weights (float); the
+// rest is float32.
 template <typename W>
 struct GenBwdArgs {
   const float* g0;      // (B, S*m)
@@ -515,8 +507,8 @@ GenBwdKernel<W> gen_bwd_kernel_for(int m) {
   }
 }
 
-// Launches the sweep and the sum of its partials (float32 weights and
-// noise, or bf16 in mixed mode): the body of both entry points below.
+// Launches the sweep and the sum of its partials: the body of the entry
+// points of gan_gen_bwd.cu.
 template <typename W>
 int launch_gen_bwd(const float* g0, const W* noise, const float* t1s,
                    const float* dts, const W* const* w, const float* zs,

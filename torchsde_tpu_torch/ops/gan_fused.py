@@ -62,7 +62,11 @@ float32 value rounded once, the rest float32. The kernels take this set of
 dtypes in their ``_bf16`` instantiations (``tsde_gan_gen_fwd_bf16`` and
 the rest), counted apart by ``bf16_gen_launches``, ``bf16_cde_launches``,
 ``bf16_gen_bwd_launches`` and ``bf16_cde_bwd_launches``; a set that mixes
-the two modes is refused.
+the two modes is refused. The bf16 reverse sweeps are kernels of their own
+on bf16 tensor cores (``csrc/gan_gen_bwd_bf16.cu``,
+``csrc/gan_cde_bwd_bf16.cu`` over ``csrc/gan_bwd_bf16.cuh``: eight rows a
+group of warps, one weight-gradient partial a group, the weights'
+gradients rounded to bf16 by the kernel that sums the partials).
 """
 
 import numpy as np
@@ -552,20 +556,25 @@ def cde_solve_forward_cuda(h0, f0, slopes, t1s, dts, weights,
 
 def _weight_grads(lib, B, S, M, weights, device):
     """The backward kernels' weight-gradient buffers: one float32 partial
-    per warp of the sweep, and the flat float32 output the second kernel
-    sums them into (the weights' gradients back to back)."""
+    per warp of the sweep (a group of 8 rows in bf16 mixed mode), and the
+    flat output the second kernel sums them into, the weights' gradients
+    back to back in the weights' dtype (the bf16 sum kernel rounds the
+    float32 sums once)."""
     sizes = [w.numel() for w in weights]
-    partials = torch.empty((lib.tsde_gan_bwd_partials(B, S, M), sum(sizes)),
+    mixed = _mixed(weights)
+    n = (lib.tsde_gan_bwd_partials_bf16(B) if mixed
+         else lib.tsde_gan_bwd_partials(B, S, M))
+    partials = torch.empty((n, sum(sizes)),
                            dtype=torch.float32, device=device)
-    return sizes, partials, torch.empty(sum(sizes), dtype=torch.float32,
-                                        device=device)
+    return sizes, partials, torch.empty(
+        sum(sizes), dtype=weights[0].dtype if mixed else torch.float32,
+        device=device)
 
 
 def _split_grads(dw, sizes, weights):
-    """The flat float32 weight gradients as the weights' shapes, each
-    rounded once to its weight's dtype (bf16 in mixed mode)."""
-    return tuple(d.view_as(w).to(w.dtype)
-                 for d, w in zip(dw.split(sizes), weights))
+    """The flat weight gradients (in the weights' dtype: bf16 in mixed
+    mode, rounded once by the kernel) as the weights' shapes."""
+    return tuple(d.view_as(w) for d, w in zip(dw.split(sizes), weights))
 
 
 def gen_solve_backward_cuda(x0, f0, g0, noise, t1s, dts, weights, zs, gs, gy,
@@ -582,8 +591,8 @@ def gen_solve_backward_cuda(x0, f0, g0, noise, t1s, dts, weights, zs, gs, gy,
     B, S, M, m, N = check_gen_backward_inputs(x0, f0, g0, noise, t1s, dts,
                                               weights, zs, gs, gy)
     check_widths(S, M, m, threads)
-    lib = _build.library_for("tsde_gan_gen_bwd_smem_bytes", S, M, m,
-                             threads)
+    lib = _build.library_for(f"tsde_gan_gen_bwd_smem_bytes{_suffix(weights)}",
+                             S, M, m, threads)
     dx0, df0 = torch.empty_like(x0), torch.empty_like(f0)
     dg0 = torch.empty_like(g0)
     dnoise = torch.empty_like(noise)
@@ -615,8 +624,8 @@ def cde_solve_backward_cuda(h0, f0, slopes, t1s, dts, weights, zs, ghs,
     B, S, M, C, N = check_cde_backward_inputs(h0, f0, slopes, t1s, dts,
                                               weights, zs, ghs)
     check_widths(S, M, C, threads)
-    lib = _build.library_for("tsde_gan_cde_bwd_smem_bytes", S, M, C,
-                             threads)
+    lib = _build.library_for(f"tsde_gan_cde_bwd_smem_bytes{_suffix(weights)}",
+                             S, M, C, threads)
     dh0, df0 = torch.empty_like(h0), torch.empty_like(f0)
     dslopes = torch.empty_like(slopes)
     sizes, partials, dw = _weight_grads(lib, B, S, M, weights, h0.device)

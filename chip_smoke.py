@@ -4877,129 +4877,11 @@ def phase_srk_rounding(device):
     return records
 
 
-# The other candidate for bf16 kernels 6 and 8 (measurement only):
-# the float32 kernels' FMA layout (a row's vectors through the warp's
-# shared memory, one or two rows a warp) instantiated with bf16 weights,
-# as the parent commit's bf16 kernels were, once as it is ("fma") and once
-# with every dot product of gan_warp_rows.cuh split into two independent
-# chains over alternate float4 chunks ("fma_split"), which the bf16 bars
-# allow. Each is held to its twin as phase 22b holds the kernels and timed
-# beside the tensor-core kernel in the same call.
-GAN_FMA_ENTRY = {"cde": r"""
-#include "gan_cde_bwd.cu"
-extern "C" int fma_cde_bwd_bf16(const float* slopes, const float* t1s,
-    const float* dts, const __nv_bfloat16* W1, const __nv_bfloat16* b1,
-    const __nv_bfloat16* W2, const __nv_bfloat16* b2, const float* zs,
-    const float* ghs, float* dh0, float* df0, float* dslopes,
-    float* partials, float* dw, int B, int S, int M, int C, int N,
-    int threads, int device, cudaStream_t stream) {
-  const __nv_bfloat16* w[4] = {W1, b1, W2, b2};
-  return launch_cde_bwd(slopes, t1s, dts, w, zs, ghs, dh0, df0, dslopes,
-                        partials, dw, B, S, M, C, N, threads, device, stream);
-}
-""", "gen": r"""
-#include "gan_gen_bwd.cuh"
-extern "C" int fma_gen_bwd_bf16(const float* g0,
-    const __nv_bfloat16* noise, const float* t1s, const float* dts,
-    const __nv_bfloat16* W1f, const __nv_bfloat16* b1f,
-    const __nv_bfloat16* W2f, const __nv_bfloat16* b2f,
-    const __nv_bfloat16* W1g, const __nv_bfloat16* b1g,
-    const __nv_bfloat16* W2g, const __nv_bfloat16* b2g, const float* zs,
-    const float* gs, const float* gy, float* dx0, float* df0, float* dg0,
-    __nv_bfloat16* dnoise, float* partials, float* dw, int B, int S, int M,
-    int m, int N, int threads, int device, cudaStream_t stream) {
-  const __nv_bfloat16* w[8] = {W1f, b1f, W2f, b2f, W1g, b1g, W2g, b2g};
-  return launch_gen_bwd(g0, noise, t1s, dts, w, zs, gs, gy, dx0, df0, dg0,
-                        dnoise, partials, dw, B, S, M, m, N, threads, device,
-                        stream);
-}
-"""}
-# gan_warp_rows.cuh's chains, and the same split into two.
-GAN_FMA_CHAIN = """    const float4 x = v4[q], y = w4[q];
-    acc = fmaf(x.x, y.x, acc);
-    if (4 * q + 1 < n) acc = fmaf(x.y, y.y, acc);
-    if (4 * q + 2 < n) acc = fmaf(x.z, y.z, acc);
-    if (4 * q + 3 < n) acc = fmaf(x.w, y.w, acc);
-  }
-  return acc;"""
-GAN_FMA_SPLIT = """    const float4 x = v4[q], y = w4[q];
-    float& a = (q & 1) ? acc2 : acc;
-    a = fmaf(x.x, y.x, a);
-    if (4 * q + 1 < n) a = fmaf(x.y, y.y, a);
-    if (4 * q + 2 < n) a = fmaf(x.z, y.z, a);
-    if (4 * q + 3 < n) a = fmaf(x.w, y.w, a);
-  }
-  return acc + acc2;"""
-GAN_FMA_CHAIN_R = """    const float4 y = w4[q];
-    acc = fmaf(v[4 * q], y.x, acc);
-    if (4 * q + 1 < n) acc = fmaf(v[4 * q + 1], y.y, acc);
-    if (4 * q + 2 < n) acc = fmaf(v[4 * q + 2], y.z, acc);
-    if (4 * q + 3 < n) acc = fmaf(v[4 * q + 3], y.w, acc);
-  }
-  return acc;"""
-GAN_FMA_SPLIT_R = """    const float4 y = w4[q];
-    float& a = (q & 1) ? acc2 : acc;
-    a = fmaf(v[4 * q], y.x, a);
-    if (4 * q + 1 < n) a = fmaf(v[4 * q + 1], y.y, a);
-    if (4 * q + 2 < n) a = fmaf(v[4 * q + 2], y.z, a);
-    if (4 * q + 3 < n) a = fmaf(v[4 * q + 3], y.w, a);
-  }
-  return acc + acc2;"""
-
-
-def gan_fma_library(variant, kind):
-    """The FMA candidate of bf16 kernel 6 (``kind`` "gen") or 8 ("cde"),
-    ``variant`` "fma" or "fma_split", built from a copy of csrc/ into
-    build/gan_fma/<variant>/ and loaded, its entry bound."""
-    csrc = Path(GF.__file__).parent / "csrc"
-    folder = (Path(__file__).resolve().parent / "build" / "gan_fma"
-              / variant)
-    folder.mkdir(parents=True, exist_ok=True)
-    for src in csrc.iterdir():
-        text = src.read_text()
-        if src.name == "gan_warp_rows.cuh" and variant == "fma_split":
-            if text.count(GAN_FMA_CHAIN) != 1 or text.count(
-                    GAN_FMA_CHAIN_R) != 1:
-                raise RuntimeError("gan_warp_rows.cuh's chains are not the "
-                                   "ones phase_gan_fma splits")
-            text = text.replace(GAN_FMA_CHAIN, GAN_FMA_SPLIT).replace(
-                GAN_FMA_CHAIN_R, GAN_FMA_SPLIT_R)
-            text = text.replace("#pragma unroll\n  for (int q = 0; q < NQ;",
-                                "float acc2 = 0.f;\n#pragma unroll\n  for "
-                                "(int q = 0; q < NQ;")
-            text = text.replace("#pragma unroll\n  for (int q = 0; q < N / 4;"
-                                " ++q) {\n    if (4 * q >= n) break;",
-                                "float acc2 = 0.f;\n#pragma unroll\n  for "
-                                "(int q = 0; q < N / 4; ++q) {\n    if (4 * q"
-                                " >= n) break;")
-            if text.count("float acc2 = 0.f;") != 2:
-                raise RuntimeError("phase_gan_fma could not split both "
-                                   "chains of gan_warp_rows.cuh")
-        (folder / src.name).write_text(text)
-    (folder / f"{kind}.cu").write_text(GAN_FMA_ENTRY[kind])
-    lib_path = folder / f"lib{kind}.so"
-    proc = subprocess.run(
-        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-         str(folder), "-o", str(lib_path), str(folder / f"{kind}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"gan fma {variant} {kind}: nvcc failed\n"
-                           f"{proc.stdout}")
-    fn = getattr(ctypes.CDLL(str(lib_path)), f"fma_{kind}_bwd_bf16")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([P] * 21 + [I] * 7 + [P] if kind == "gen"
-                   else [P] * 14 + [I] * 7 + [P])
-    fn.restype = I
-    ptxas = [line for line in proc.stdout.splitlines()
-             if "registers" in line or "spill" in line]
-    return fn, lib_path, ptxas
-
-
-def fma_backward(fn, kind, bargs, threads=GF.THREADS, rows=None):
-    """One launch of an FMA candidate (or, with ``rows``, of another build
-    of a bf16 sweep on tensor cores: ``rows`` rows a weight-gradient
-    partial, the gradients summed into bf16) on kernel 6's or 8's inputs,
-    with the outputs of the tensor-core kernel's wrapper."""
+def clocks_backward(fn, kind, bargs):
+    """One launch of the clocks build's bf16 kernel 6 (``kind`` "gen") or 8
+    ("cde") on its inputs at GF.THREADS threads a block, with the outputs
+    of the port's wrapper: eight rows a weight-gradient partial, the
+    gradients summed into bf16."""
     if kind == "gen":
         x0, f0, g0, noise, t1s, dts, weights, zs, gs, gy = bargs
         B, S = x0.shape
@@ -5016,19 +4898,14 @@ def fma_backward(fn, kind, bargs, threads=GF.THREADS, rows=None):
         tensors = (slopes, t1s, dts, *weights, zs, ghs)
     M = weights[0].shape[1]
     sizes = [w.numel() for w in weights]
-    tensor_cores = rows is not None
-    rows = rows or 32 // GF.gen_bwd_group(S, M)
-    partials = torch.empty(((B + rows - 1) // rows, sum(sizes)),
-                           dtype=torch.float32, device=zs.device)
-    dw = torch.empty(sum(sizes), dtype=BF16 if tensor_cores
-                     else torch.float32, device=zs.device)
+    partials = torch.empty(((B + 7) // 8, sum(sizes)), dtype=torch.float32,
+                           device=zs.device)
+    dw = torch.empty(sum(sizes), dtype=BF16, device=zs.device)
     rc = fn(*[t.data_ptr() for t in (*tensors, *outs, partials, dw)], B, S,
-            M, K, N, threads, zs.device.index or 0,
+            M, K, N, GF.THREADS, zs.device.index or 0,
             torch.cuda.current_stream(zs.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"gan fma {kind}: launch failed {rc}")
-    return (*outs, tuple(d.view_as(w).to(w.dtype)
-                         for d, w in zip(dw.split(sizes), weights)))
+        raise RuntimeError(f"gan clocks {kind}: launch failed {rc}")
 
 
 # Stage clocks of bf16 kernels 6 and 8 (measurement only): the marks of
@@ -5094,10 +4971,10 @@ def phase_gan_clocks(device):
             clocks.argtypes = [P]
             clocks.restype = I
             counts = np.zeros(64, np.uint64)
-            fma_backward(fn, kind, bargs, rows=8)
+            clocks_backward(fn, kind, bargs)
             torch.cuda.synchronize()
             clocks(counts.ctypes.data)              # zeroes the counters
-            fma_backward(fn, kind, bargs, rows=8)
+            clocks_backward(fn, kind, bargs)
             torch.cuda.synchronize()
             if clocks(counts.ctypes.data) != 0:
                 raise RuntimeError("gan clocks: reading the counters failed")
@@ -5194,63 +5071,6 @@ def gan_bwd_scaling(device):
                     out[f"k8_{tag}_{key}"] = median_cuda_ms(
                         lambda: GF.cde_solve_backward_cuda(*a8), 20)
     return out
-
-
-def phase_gan_fma(device):
-    """Measurement only (``--only gan_fma``): bf16 kernels 6 and 8's other
-    candidate, the FMA layout (GAN_FMA_ENTRY), as it is and with split
-    chains, at the reference scale on the inputs of phase 22b: each held
-    to its twin and the float32 reference (check_bf16) and two calls
-    bitwise, then timed in turns with the tensor-core kernel."""
-    gan_ts, real = gan_data(device)
-    (g16, gw16), (c16, cw16) = gan_kernel_inputs(
-        device, gan_models(device, BF16), gan_ts, real.to(BF16))
-    gen = torch.Generator(device=device).manual_seed(SEED + 8)
-    with torch.no_grad():
-        ys, zs, gs = GF.gen_solve_forward_plain(*g16, gw16)
-        b6 = (*g16, gw16, zs, gs, torch.randn(ys.shape, generator=gen,
-                                               device=device))
-        hs, czs = GF.cde_solve_forward_plain(*c16, cw16)
-        ghs = torch.zeros_like(hs)
-        ghs[-1] = torch.randn(hs.shape[1:], generator=gen, device=device)
-        b8 = (*c16, cw16, czs, ghs)
-        record = {}
-        for kind, bargs, names, dtypes, plain, tc in (
-                ("gen", b6, GEN_GRAD_NAMES, GEN_GRAD_DTYPES,
-                 GF.gen_solve_backward_plain, GF.gen_solve_backward_cuda),
-                ("cde", b8, CDE_GRAD_NAMES, CDE_GRAD_DTYPES,
-                 GF.cde_solve_backward_plain, GF.cde_solve_backward_cuda)):
-            want = flat_grads(plain(*bargs))
-            ref = flat_grads(plain(*double(bargs[:-4 if kind == "gen"
-                                                 else -3], torch.float32),
-                                   tuple(w.float() for w in bargs[
-                                       6 if kind == "gen" else 5]),
-                                   *bargs[-3 if kind == "gen" else -2:]))
-            runs = {"tensor_cores": lambda: tc(*bargs)}
-            info = {}
-            for variant in ("fma", "fma_split"):
-                fn, lib_path, ptxas = gan_fma_library(variant, kind)
-                runs[variant] = (lambda fn=fn: fma_backward(fn, kind, bargs))
-                info[variant] = dict(ptxas=ptxas, sass=sass_counts(
-                    lib_path, f"gan_{kind}_bwd_kernel"))
-            rec = {}
-            for variant, run in runs.items():
-                got = flat_grads(run())
-                same_bits(f"kernel {kind} {variant}: two calls", got,
-                          flat_grads(run()))
-                torch.cuda.synchronize()
-                err = check_bf16(f"kernel {6 if kind == 'gen' else 8} "
-                                 f"(bf16, {variant})", names, got, want, ref,
-                                 dtypes)
-                rec[variant] = dict(max_abs_err=err[0], **info.get(variant,
-                                                                   {}))
-            order = list(runs) + list(runs)[::-1]
-            for variant in order:
-                rec[variant].setdefault("ms", []).append(
-                    median_cuda_ms(runs[variant], 20))
-            record[kind] = rec
-    print(json.dumps({"gan_fma": record}), flush=True)
-    return record
 
 
 def phase_prng_kernel(device):
@@ -8022,8 +7842,7 @@ GROUPS = ("latent", "gan", "tower", "logqp", "multi", "bf16", "srk",
           "prng", "brownian", "adjoint", "adaptive", "traced_ts", "ddpm",
           "examples", "diagnostics", "mesh")
 # Run only when asked for by --only.
-EXTRA_GROUPS = ("tiles", "ab", "steps", "srk_rounding", "gan_fma",
-                "gan_clocks")
+EXTRA_GROUPS = ("tiles", "ab", "steps", "srk_rounding", "gan_clocks")
 # Groups that launch no kernel of the port's own: they run without a build.
 UNBUILT_GROUPS = ("steps", "adaptive", "traced_ts", "ddpm", "diagnostics")
 
@@ -8280,9 +8099,6 @@ def main():
     if "srk_rounding" in groups:
         start("srk_rounding")
         phase_srk_rounding(device)
-    if "gan_fma" in groups:
-        start("gan_fma")
-        phase_gan_fma(device)
     if "gan_clocks" in groups:
         start("gan_clocks")
         phase_gan_clocks(device)

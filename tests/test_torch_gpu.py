@@ -746,13 +746,43 @@ def test_gan_cuda_route_takes_bf16_mixed_mode(cuda, B, S, M, m, C, T, Sc):
 # mixed-mode twins within GAN_BF16_REL of each tensor's scale, at 32 and
 # 256 threads a block (which change the blocks, never a sum), each launch
 # counted once, and two calls bitwise equal.
+# The widths of the instantiations that no shape above reaches (each
+# sweep's host rule picks one by the state's and hidden units' tiles and
+# the channels: kernel 6 by m <= 3 or 8, kernel 8 by C <= 2, 4 or 8), so
+# that every instantiation runs against its twin.
+GAN_BF16_GEN_DESIGN_SHAPES = [(13, 24, 16, 2, 4), (21, 17, 32, 3, 3),
+                              (11, 16, 12, 5, 4), (19, 10, 20, 8, 3),
+                              (8, 32, 16, 4, 3)]
+GAN_BF16_CDE_DESIGN_SHAPES = [(13, 24, 9, 2, 4), (10, 20, 32, 1, 3),
+                              (11, 16, 12, 3, 4), (19, 9, 24, 3, 3),
+                              (8, 32, 16, 4, 3), (7, 25, 30, 3, 3),
+                              (12, 6, 10, 8, 4), (9, 16, 17, 5, 3),
+                              (6, 18, 16, 7, 3)]
 GAN_BF16_BWD_GEN_SHAPES = GEN_SHAPES + [(1024, 16, 16, 3, 8),
                                         (9, 16, 16, 3, 5),
-                                        (4224, 16, 16, 3, 4)]
+                                        (4224, 16, 16, 3, 4)] \
+    + GAN_BF16_GEN_DESIGN_SHAPES
 GAN_BF16_BWD_CDE_SHAPES = CDE_SHAPES + [(2048, 17, 16, 2, 8),
                                         (37, 16, 16, 2, 6),
                                         (9, 17, 16, 2, 5),
-                                        (4224, 17, 16, 2, 4)]
+                                        (4224, 17, 16, 2, 4)] \
+    + GAN_BF16_CDE_DESIGN_SHAPES
+
+
+def test_gan_bf16_bwd_shapes_reach_every_instantiation(cuda):
+    """The shapes of the two tests below reach every instantiation of
+    bf16 kernels 6 and 8 (tsde_gan_*_bwd_design_bf16: 100 channels + 10
+    state tiles + hidden tiles): kernel 6's channels 3 or 8, kernel 8's 2,
+    4 or 8, by one or two tiles of state and of hidden units each."""
+    from torchsde_tpu_torch.ops import _build
+    lib = _build.load_library()
+    for name, shapes, channels in (
+            ("gen", GAN_BF16_BWD_GEN_SHAPES, (3, 8)),
+            ("cde", GAN_BF16_BWD_CDE_SHAPES, (2, 4, 8))):
+        design = getattr(lib, f"tsde_gan_{name}_bwd_design_bf16")
+        got = {design(S, M, k) for _, S, M, k, _ in shapes}
+        assert got == {100 * c + 10 * u + h for c in channels
+                       for u in (1, 2) for h in (1, 2)}, name
 
 
 @pytest.mark.parametrize("B,S,M,m,T", GAN_BF16_BWD_GEN_SHAPES)

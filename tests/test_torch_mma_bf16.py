@@ -873,14 +873,17 @@ def _check_tower_step(case, got, S, M, kq):
     _check(gb2, got["dpre2"].sum(0))
 
 
-# A tower of each instantiation (S, M, kq, and the tiles UT, HT, KC it
-# holds): kernel 8 at the reference (S 17, C 2) and its generic one at the
-# widest (C 8) and at C 3 (five of its eight channels' tiles zero); kernel
-# 6's drift (kq 1) and diffusion (m 3) at the reference, and the widest.
+# A tower of each kind of instantiation (S, M, kq, and the tiles UT, HT,
+# KC it holds): kernel 8 at the reference (S 17, C 2), at the widest (C
+# 8), at C 3 in its own instantiation (one of four channels' tiles zero)
+# and in the widest's (a state tile and five of eight channels' tiles
+# zero); kernel 6's drift (kq 1) and diffusion (m 3) at the reference,
+# and the widest.
 TOWER_CASES = [(17, 16, 2, 2, 1, 2), (16, 16, 2, 1, 1, 2),
                (32, 32, 8, 2, 2, 8), (9, 24, 3, 2, 2, 8),
                (16, 16, 1, 1, 1, 1), (16, 16, 3, 1, 1, 3),
-               (32, 32, 1, 2, 2, 1), (1, 1, 1, 1, 1, 1)]
+               (32, 32, 1, 2, 2, 1), (1, 1, 1, 1, 1, 1),
+               (9, 24, 3, 1, 2, 4)]
 
 
 @pytest.mark.parametrize("S,M,kq,UT,HT,KC", TOWER_CASES)

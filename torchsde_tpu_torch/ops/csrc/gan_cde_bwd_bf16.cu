@@ -314,19 +314,32 @@ gan_cde_bwd_bf16(const CdeBwdBf16Args a) {
 
 using CdeBwdBf16Kernel = void (*)(CdeBwdBf16Args);
 
-// The instantiations, by (channels, state tiles, hidden tiles) they hold:
-// the JAX bf16 test's widths (S, M <= 16, C <= 2), the reference's (S <=
-// 32, M <= 16, C <= 2) and every other width the kernel takes.
+// The instantiation for these widths, by (channels, state tiles, hidden
+// tiles) it holds: the state's and the hidden units' tiles as the widths
+// need them (one to 16 units, two to 32), the channels rounded up to 2, 4
+// or 8. A lane's accumulators grow with the product of the three (the
+// output tiles times the hidden tiles), so a narrower width never runs
+// the widest's instantiation, which spills (the JAX bf16 test's widths,
+// S, M <= 16, C <= 2, run <2, 1, 1>, the reference's <2, 2, 1>).
 struct CdeBf16Design {
   CdeBwdBf16Kernel kernel;
   int CC, UT, HT;
 };
 
+template <int CC>
+CdeBf16Design cde_bf16_tiles(int UT, int HT) {
+  if (UT == 1)
+    return HT == 1 ? CdeBf16Design{gan_cde_bwd_bf16<CC, 1, 1>, CC, 1, 1}
+                   : CdeBf16Design{gan_cde_bwd_bf16<CC, 1, 2>, CC, 1, 2};
+  return HT == 1 ? CdeBf16Design{gan_cde_bwd_bf16<CC, 2, 1>, CC, 2, 1}
+                 : CdeBf16Design{gan_cde_bwd_bf16<CC, 2, 2>, CC, 2, 2};
+}
+
 CdeBf16Design cde_bf16_design(int S, int M, int C) {
-  if (M <= 16 && C <= 2)
-    return S <= 16 ? CdeBf16Design{gan_cde_bwd_bf16<2, 1, 1>, 2, 1, 1}
-                   : CdeBf16Design{gan_cde_bwd_bf16<2, 2, 1>, 2, 2, 1};
-  return CdeBf16Design{gan_cde_bwd_bf16<8, 2, 2>, 8, 2, 2};
+  const int UT = S <= 16 ? 1 : 2, HT = M <= 16 ? 1 : 2;
+  return C <= 2   ? cde_bf16_tiles<2>(UT, HT)
+         : C <= 4 ? cde_bf16_tiles<4>(UT, HT)
+                  : cde_bf16_tiles<8>(UT, HT);
 }
 
 // The staged tiles, then each row group's two slots (the weights' raw copy
@@ -352,8 +365,6 @@ size_t tsde_gan_cde_bwd_smem_bytes_bf16(int S, int M, int C, int threads) {
   return cde_bf16_smem_bytes(S, M, C, threads < 64 ? 1 : threads / 64);
 }
 
-// The instantiation the bf16 sweep runs for these widths, as 100 CC + 10
-// UT + HT (channels, state and hidden tiles it holds).
 #if defined(TSDE_GAN_CLOCKS)
 // The stage clocks' sums (64 counters), then zeroed.
 int tsde_gan_cde_bwd_clocks(unsigned long long* out) {
@@ -366,6 +377,8 @@ int tsde_gan_cde_bwd_clocks(unsigned long long* out) {
 }
 #endif
 
+// The instantiation the bf16 sweep runs for these widths, as 100 CC + 10
+// UT + HT (channels, state and hidden tiles it holds).
 int tsde_gan_cde_bwd_design_bf16(int S, int M, int C) {
   const CdeBf16Design d = cde_bf16_design(S, M, C);
   return 100 * d.CC + 10 * d.UT + d.HT;
@@ -378,10 +391,10 @@ int tsde_gan_bwd_partials_bf16(int B) { return (B + ROWS - 1) / ROWS; }
 // bf16 mixed mode: the weights bf16, the rest float32 but dw, the
 // weights' gradients summed in float32 and rounded to bf16 once.
 // Launches the sweep (at most `threads` threads a block, at least one row
-// group's 64) and the sum of
-// its partials on `stream` and returns cudaGetLastError() (0 on success),
-// or cudaErrorInvalidValue for widths beyond the kernel's limits (S, M <=
-// 32, C <= 8, threads a multiple of 32 up to 256). partials holds
+// group's 64) and the sum of its partials on `stream` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for widths
+// beyond the kernel's limits (S, M <= 32, C <= 8, threads a multiple of
+// 32 up to 256). partials holds
 // tsde_gan_bwd_partials_bf16(B) x P floats, P the weights' total element
 // count; dw receives their gradients back to back.
 int tsde_gan_cde_bwd_bf16(const float* slopes, const float* t1s,

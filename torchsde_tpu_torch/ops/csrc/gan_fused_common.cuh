@@ -12,16 +12,15 @@
 // time term, the state's terms in order, the bias last; layer 2 the hidden
 // units in order, then the bias, then tanh).
 //
-// Each kernel is templated on W, the storage type of its weights and its
-// noise: float, or __nv_bfloat16 for bf16 mixed mode (kernels 5 and 7's
-// _bf16 entry points; the JAX package's rule: the state, the slopes, the
-// cotangents and every sum stay float32; bf16 kernels 6 and 8 are kernels
-// of their own, gan_bwd_bf16.cuh, and the float32 sweeps take bf16 only
-// in chip_smoke.py's measurement of the other candidate, --only gan_fma).
-// The weights are widened once, as they are staged in shared memory and
-// registers; the products' inputs are rounded to W where the JAX
-// package's _tower_fwd and _tower_bwd round them (rnd<W>,
-// mixed_dtype.cuh). With W = float the kernels are the float32 ones.
+// The forward kernels (5 and 7) are templated on W, the storage type of
+// their weights and noise: float, or __nv_bfloat16 for bf16 mixed mode
+// (their _bf16 entry points; the JAX package's rule: the state, the
+// slopes, the cotangents and every sum stay float32). The weights are
+// widened once, as they are staged in shared memory and registers; the
+// products' inputs are rounded to W where the JAX package's _tower_fwd
+// rounds them (rnd<W>, mixed_dtype.cuh). With W = float the kernels are
+// the float32 ones. The reverse sweeps here are float32 only; bf16
+// kernels 6 and 8 are kernels of their own (gan_bwd_bf16.cuh).
 
 #pragma once
 

@@ -65,8 +65,7 @@
 // same bits. Precise expf and tanhf, float32 throughout.
 // The kernels allocate nothing and do not synchronise the host.
 //
-// The template parameter W (the storage type of the noise, dnoise and the
-// weights) is float: the bf16 rounding it allows (rnd<W>) is the identity.
+// The bf16 mixed mode is a kernel of its own (gan_gen_bwd_bf16.cu).
 
 #pragma once
 
@@ -80,22 +79,19 @@ namespace {
 
 using namespace tsde_gan;
 
-// W is the storage type of the noise, dnoise and the weights (float); the
-// rest is float32.
-template <typename W>
 struct GenBwdArgs {
   const float* g0;      // (B, S*m)
-  const W* noise;       // (N, B, m)
+  const float* noise;   // (N, B, m)
   const float* t1s;     // (N,)
   const float* dts;     // (N,)
-  const W* w[8];        // W1f b1f W2f b2f W1g b1g W2g b2g
+  const float* w[8];    // W1f b1f W2f b2f W1g b1g W2g b2g
   const float* zs;      // (N, B, S)
   const float* gs;      // (N, B, S*m)
   const float* gy;      // (N, B, S)
   float* dx0;           // (B, S)
   float* df0;           // (B, S)
   float* dg0;           // (B, S*m)
-  W* dnoise;            // (N, B, m)
+  float* dnoise;        // (N, B, m)
   float* partials;      // (bwd_partials(B, S, M), P)
   int B, S, M, m, N, P;
 };
@@ -147,34 +143,31 @@ __host__ __device__ inline size_t gen_bwd_smem_floats(int S, int M, int m,
   return size_t(L.block) + size_t(warps) * 32 * (6 + m);
 }
 
-// Stages the lane-major weight copies of gen_layout with the whole block,
-// widened to float.
-template <typename W>
+// Stages the lane-major weight copies of gen_layout with the whole block.
 __device__ inline void stage_gen_weights(float* sm, const GenLayout& L,
-                                         const W* const* w, int S, int M,
+                                         const float* const* w, int S, int M,
                                          int m, int G) {
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
-    const W* W1 = w[4 * q];
-    const W* W2 = w[4 * q + 2];
+    const float* W1 = w[4 * q];
+    const float* W2 = w[4 * q + 2];
     const int kq = q ? m : 1, Sk = S * kq, K3 = L.K3[q];
     for (int e = threadIdx.x; e < G * L.K1; e += blockDim.x) {
       const int l = e / L.K1, i = e % L.K1;
-      sm[L.w1c[q] + e] = l < M && i < S ? to_f(W1[(1 + i) * M + l]) : 0.f;
+      sm[L.w1c[q] + e] = l < M && i < S ? W1[(1 + i) * M + l] : 0.f;
     }
     for (int e = threadIdx.x; e < G * kq * L.K2; e += blockDim.x) {
       const int o = e / L.K2, k = e % L.K2, l = o / kq;
-      sm[L.w2c[q] + e] = l < S && k < M ? to_f(W2[k * Sk + o]) : 0.f;
+      sm[L.w2c[q] + e] = l < S && k < M ? W2[k * Sk + o] : 0.f;
     }
     for (int e = threadIdx.x; e < G * K3; e += blockDim.x) {
       const int l = e / K3, o = e % K3;
-      sm[L.w2r[q] + e] = l < M && o < Sk ? to_f(W2[l * Sk + o]) : 0.f;
+      sm[L.w2r[q] + e] = l < M && o < Sk ? W2[l * Sk + o] : 0.f;
     }
   }
   for (int e = threadIdx.x; e < G * L.K4; e += blockDim.x) {
     const int l = e / L.K4, c = e % L.K4, k = c / 2;
-    sm[L.w1r + e] =
-        l < S && k < M ? to_f(w[4 * (c % 2)][(1 + l) * M + k]) : 0.f;
+    sm[L.w1r + e] = l < S && k < M ? w[4 * (c % 2)][(1 + l) * M + k] : 0.f;
   }
 }
 
@@ -185,20 +178,20 @@ struct StepIn {
   float z1, gy, dW[K], gp[K];
 };
 
-template <typename W, int K>
-__device__ __forceinline__ void load_step(const GenBwdArgs<W>& a, int s,
+template <int K>
+__device__ __forceinline__ void load_step(const GenBwdArgs& a, int s,
                                           int row, int li, bool live,
                                           bool unit, StepIn<K>& in) {
   const size_t at = (size_t(s) * a.B + row) * a.S + li;
   in.z1 = unit ? __ldg(a.zs + at) : 0.f;
   in.gy = unit ? __ldg(a.gy + at) : 0.f;
-  const W* dW = a.noise + (size_t(s) * a.B + row) * K;
+  const float* dW = a.noise + (size_t(s) * a.B + row) * K;
   const float* gp = s > 0
       ? a.gs + ((size_t(s - 1) * a.B + row) * a.S + li) * K
       : a.g0 + (size_t(row) * a.S + li) * K;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    in.dW[j] = live ? ldw(dW + j) : 0.f;
+    in.dW[j] = live ? __ldg(dW + j) : 0.f;
     in.gp[j] = unit ? __ldg(gp + j) : 0.f;
   }
 }
@@ -216,10 +209,10 @@ struct GenTower {
   float w1t, b1, b2[K];
 };
 
-template <typename W, int K>
+template <int K>
 __device__ __forceinline__ GenTower<K> gen_tower(const float* sm,
                                                  const GenLayout& L,
-                                                 const GenBwdArgs<W>& a,
+                                                 const GenBwdArgs& a,
                                                  float* slot, int q, int li) {
   GenTower<K> T;
   T.kq = q ? K : 1;
@@ -229,12 +222,11 @@ __device__ __forceinline__ GenTower<K> gen_tower(const float* sm,
   T.av = slot + L.a[q];
   T.dv = slot + L.d[q];
   const bool hid = li < a.M;
-  T.w1t = hid ? to_f(a.w[4 * q][li]) : 0.f;    // W1's time row
-  T.b1 = hid ? to_f(a.w[4 * q + 1][li]) : 0.f;
+  T.w1t = hid ? a.w[4 * q][li] : 0.f;    // W1's time row
+  T.b1 = hid ? a.w[4 * q + 1][li] : 0.f;
 #pragma unroll
   for (int j = 0; j < K; ++j)
-    T.b2[j] =
-        li < a.S && j < T.kq ? to_f(a.w[4 * q + 3][li * T.kq + j]) : 0.f;
+    T.b2[j] = li < a.S && j < T.kq ? a.w[4 * q + 3][li * T.kq + j] : 0.f;
   return T;
 }
 
@@ -243,9 +235,9 @@ __device__ __forceinline__ GenTower<K> gen_tower(const float* sm,
 // accumulators are register arrays and the loops over them unroll exactly.
 // SF and MF fix S and M where they are not 0, so that every product's chain
 // unrolls without a branch.
-template <typename W, int G, int K, int SF, int MF>
+template <int G, int K, int SF, int MF>
 __global__ void __launch_bounds__(MAX_THREADS)
-gan_gen_bwd_kernel(const GenBwdArgs<W> a) {
+gan_gen_bwd_kernel(const GenBwdArgs a) {
   extern __shared__ __align__(16) float sm[];
   const int S = SF ? SF : a.S, M = MF ? MF : a.M, B = a.B;
   const GenLayout L = gen_layout(S, M, K, G);
@@ -272,7 +264,7 @@ gan_gen_bwd_kernel(const GenBwdArgs<W> a) {
   const float* w1r = sm + L.w1r + li * L.K4;
   GenTower<K> T[2];
 #pragma unroll
-  for (int q = 0; q < 2; ++q) T[q] = gen_tower<W, K>(sm, L, a, slot, q, li);
+  for (int q = 0; q < 2; ++q) T[q] = gen_tower<K>(sm, L, a, slot, q, li);
 
   // Cotangents of unit li's carry, and g_{n+1} of the step being reversed.
   float ay = 0.f, az = 0.f, af = 0.f, ag[K], gn[K];
@@ -299,13 +291,13 @@ gan_gen_bwd_kernel(const GenBwdArgs<W> a) {
   }
 
   StepIn<K> next;
-  load_step<W, K>(a, a.N - 1, row, li, live, unit, next);
+  load_step<K>(a, a.N - 1, row, li, live, unit, next);
   float dt_next = __ldg(a.dts + a.N - 1), t1_next = __ldg(a.t1s + a.N - 1);
   for (int s = a.N - 1; s >= 0; --s) {
     const StepIn<K> in = next;
     const float dt = dt_next, t1 = t1_next;
     if (s > 0) {
-      load_step<W, K>(a, s - 1, row, li, live, unit, next);
+      load_step<K>(a, s - 1, row, li, live, unit, next);
       dt_next = __ldg(a.dts + s - 1);
       t1_next = __ldg(a.t1s + s - 1);
     }
@@ -317,10 +309,8 @@ gan_gen_bwd_kernel(const GenBwdArgs<W> a) {
     for (int j = 0; j < K; ++j) Ag[j] = ag[j] + 0.5f * ay * in.dW[j];
 
     // The towers' layer 1 at [t1, z1], z1 read once into registers: the
-    // last step's reads of zv ended before its d1 barrier. [t1, z1] and the
-    // hidden activations are only products' inputs: rounded to W.
-    const float t1r = rnd<W>(t1);
-    zv[li] = rnd<W>(in.z1);
+    // last step's reads of zv ended before its d1 barrier.
+    zv[li] = in.z1;
     __syncwarp();
     float zr[G];
     load4(zv, S, zr);
@@ -328,16 +318,15 @@ gan_gen_bwd_kernel(const GenBwdArgs<W> a) {
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       float a1;
-      lipswish_and_slope(dotr4(zr, T[q].w1c, S, t1r * T[q].w1t) + T[q].b1,
+      lipswish_and_slope(dotr4(zr, T[q].w1c, S, t1 * T[q].w1t) + T[q].b1,
                          a1, sl1[q]);
-      T[q].av[li] = rnd<W>(a1);
+      T[q].av[li] = a1;
     }
     __syncwarp();
 
     // Layer 2 from the hidden activations read once into registers, its
     // outputs' pre-activation cotangents, and its weights:
-    // dW2[k][(li, j)] += a1[k] dpre2[(li, j)], dpre2 rounded to W as a
-    // product's input (b2's sum takes it unrounded).
+    // dW2[k][(li, j)] += a1[k] dpre2[(li, j)].
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       float ar[G];
@@ -369,7 +358,7 @@ gan_gen_bwd_kernel(const GenBwdArgs<W> a) {
           const float out = tanhf(o[j] + T[q].b2[j]);
           const float dpre2 = (q ? Ag[j] : Af) * (1.f - out * out);
           gb2[q][j] += dpre2;
-          d2[j] = rnd<W>(dpre2);
+          d2[j] = dpre2;
           T[q].dv[li * T[q].kq + j] = d2[j];
         }
       }
@@ -386,19 +375,17 @@ gan_gen_bwd_kernel(const GenBwdArgs<W> a) {
     __syncwarp();
 
     // Hidden unit li's cotangents, through lipswish, and layer 1's weights:
-    // dW1[r][li] += [t1, z1][r] dpre1[li], dpre1 rounded to W as a
-    // product's input (b1's sum takes it unrounded).
+    // dW1[r][li] += [t1, z1][r] dpre1[li].
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const float da = dot4<G * K / 4>(T[q].dv, T[q].w2r, S * T[q].kq, 0.f);
       const float d1 = da * sl1[q];
-      const float d1r = rnd<W>(d1);
       gb1[q] += d1;
-      gw1[q][0] = fmaf(t1r, d1r, gw1[q][0]);
+      gw1[q][0] = fmaf(t1, d1, gw1[q][0]);
 #pragma unroll
       for (int i = 0; i < G; ++i)
-        if (i < S) gw1[q][1 + i] = fmaf(zr[i], d1r, gw1[q][1 + i]);
-      ev[2 * li + q] = d1r;
+        if (i < S) gw1[q][1 + i] = fmaf(zr[i], d1, gw1[q][1 + i]);
+      ev[2 * li + q] = d1;
     }
     __syncwarp();
 
@@ -413,9 +400,9 @@ gan_gen_bwd_kernel(const GenBwdArgs<W> a) {
     for (int j = 0; j < K; ++j)
       dn[j] = group_sum<G>(Az * in.gp[j] + 0.5f * ay * (in.gp[j] + gn[j]));
     if (live && li == 0) {
-      W* out = a.dnoise + (size_t(s) * B + row) * K;
+      float* out = a.dnoise + (size_t(s) * B + row) * K;
 #pragma unroll
-      for (int j = 0; j < K; ++j) out[j] = from_f<W>(dn[j]);
+      for (int j = 0; j < K; ++j) out[j] = dn[j];
     }
 
     af = 0.5f * dt * ay + dt * Az;
@@ -490,39 +477,39 @@ gan_gen_bwd_kernel(const GenBwdArgs<W> a) {
   }
 }
 
-template <typename W>
-using GenBwdKernel = void (*)(GenBwdArgs<W>);
+using GenBwdKernel = void (*)(GenBwdArgs);
 
-template <typename W, int G, int SF = 0, int MF = 0>
-GenBwdKernel<W> gen_bwd_kernel_for(int m) {
+template <int G, int SF = 0, int MF = 0>
+GenBwdKernel gen_bwd_kernel_for(int m) {
   switch (m) {
-    case 1: return gan_gen_bwd_kernel<W, G, 1, SF, MF>;
-    case 2: return gan_gen_bwd_kernel<W, G, 2, SF, MF>;
-    case 3: return gan_gen_bwd_kernel<W, G, 3, SF, MF>;
-    case 4: return gan_gen_bwd_kernel<W, G, 4, SF, MF>;
-    case 5: return gan_gen_bwd_kernel<W, G, 5, SF, MF>;
-    case 6: return gan_gen_bwd_kernel<W, G, 6, SF, MF>;
-    case 7: return gan_gen_bwd_kernel<W, G, 7, SF, MF>;
-    default: return gan_gen_bwd_kernel<W, G, 8, SF, MF>;
+    case 1: return gan_gen_bwd_kernel<G, 1, SF, MF>;
+    case 2: return gan_gen_bwd_kernel<G, 2, SF, MF>;
+    case 3: return gan_gen_bwd_kernel<G, 3, SF, MF>;
+    case 4: return gan_gen_bwd_kernel<G, 4, SF, MF>;
+    case 5: return gan_gen_bwd_kernel<G, 5, SF, MF>;
+    case 6: return gan_gen_bwd_kernel<G, 6, SF, MF>;
+    case 7: return gan_gen_bwd_kernel<G, 7, SF, MF>;
+    default: return gan_gen_bwd_kernel<G, 8, SF, MF>;
   }
 }
 
 // Launches the sweep and the sum of its partials: the body of the entry
 // points of gan_gen_bwd.cu.
-template <typename W>
-int launch_gen_bwd(const float* g0, const W* noise, const float* t1s,
-                   const float* dts, const W* const* w, const float* zs,
-                   const float* gs, const float* gy, float* dx0, float* df0,
-                   float* dg0, W* dnoise, float* partials, float* dw, int B,
-                   int S, int M, int m, int N, int threads, int device,
-                   cudaStream_t stream) {
+inline int launch_gen_bwd(const float* g0, const float* noise,
+                          const float* t1s, const float* dts,
+                          const float* const* w, const float* zs,
+                          const float* gs, const float* gy, float* dx0,
+                          float* df0, float* dg0, float* dnoise,
+                          float* partials, float* dw, int B, int S, int M,
+                          int m, int N, int threads, int device,
+                          cudaStream_t stream) {
   if (S < 1 || S > MAX_LANES || M < 1 || M > MAX_LANES || m < 1 ||
       m > MAX_K || threads < 32 || threads > MAX_THREADS || threads % 32)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || N <= 0) return 0;
-  GenBwdArgs<W> a;
+  GenBwdArgs a;
   a.g0 = g0; a.noise = noise; a.t1s = t1s; a.dts = dts;
   for (int i = 0; i < 8; ++i) a.w[i] = w[i];
   a.zs = zs; a.gs = gs; a.gy = gy;
@@ -532,10 +519,10 @@ int launch_gen_bwd(const float* g0, const W* noise, const float* t1s,
   a.P = 2 * (1 + S) * M + 2 * M + M * S * (1 + m) + S * (1 + m);
   const int G = bwd_group_width(S, M);
   // The reference widths run an instantiation with them fixed.
-  const GenBwdKernel<W> kernel =
-      S == 16 && M == 16 ? gen_bwd_kernel_for<W, 16, 16, 16>(m)
-      : G == 16          ? gen_bwd_kernel_for<W, 16>(m)
-                         : gen_bwd_kernel_for<W, 32>(m);
+  const GenBwdKernel kernel =
+      S == 16 && M == 16 ? gen_bwd_kernel_for<16, 16, 16>(m)
+      : G == 16          ? gen_bwd_kernel_for<16>(m)
+                         : gen_bwd_kernel_for<32>(m);
   const size_t smem = gen_bwd_smem_floats(S, M, m, threads / 32)
                       * sizeof(float);
   err = cudaFuncSetAttribute(kernel,

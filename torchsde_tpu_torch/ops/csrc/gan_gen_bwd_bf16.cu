@@ -453,18 +453,29 @@ gan_gen_bwd_bf16(const GenBwdBf16Args a) {
 
 using GenBwdBf16Kernel = void (*)(GenBwdBf16Args);
 
-// The instantiations, by (noise channels, state tiles, hidden tiles) they
-// hold: the reference widths (S, M <= 16, m <= 3) and every other width
-// the kernel takes.
+// The instantiation for these widths, by (noise channels, state tiles,
+// hidden tiles) it holds: the state's and the hidden units' tiles as the
+// widths need them (one to 16 units, two to 32), the channels 3 or 8. A
+// lane's accumulators grow with the product of the three, so a narrower
+// width never runs the widest's instantiation, which spills (the
+// reference widths, S, M <= 16, m <= 3, run <3, 1, 1>).
 struct GenBf16Design {
   GenBwdBf16Kernel kernel;
   int K, UT, HT;
 };
 
+template <int K>
+GenBf16Design gen_bf16_tiles(int UT, int HT) {
+  if (UT == 1)
+    return HT == 1 ? GenBf16Design{gan_gen_bwd_bf16<K, 1, 1>, K, 1, 1}
+                   : GenBf16Design{gan_gen_bwd_bf16<K, 1, 2>, K, 1, 2};
+  return HT == 1 ? GenBf16Design{gan_gen_bwd_bf16<K, 2, 1>, K, 2, 1}
+                 : GenBf16Design{gan_gen_bwd_bf16<K, 2, 2>, K, 2, 2};
+}
+
 GenBf16Design gen_bf16_design(int S, int M, int m) {
-  if (S <= 16 && M <= 16 && m <= 3)
-    return GenBf16Design{gan_gen_bwd_bf16<3, 1, 1>, 3, 1, 1};
-  return GenBf16Design{gan_gen_bwd_bf16<8, 2, 2>, 8, 2, 2};
+  const int UT = S <= 16 ? 1 : 2, HT = M <= 16 ? 1 : 2;
+  return m <= 3 ? gen_bf16_tiles<3>(UT, HT) : gen_bf16_tiles<8>(UT, HT);
 }
 
 // Both towers' staged tiles, then each row group's two slots and two
@@ -492,8 +503,6 @@ size_t tsde_gan_gen_bwd_smem_bytes_bf16(int S, int M, int m, int threads) {
   return gen_bf16_smem_bytes(S, M, m, threads < 96 ? 1 : threads / 96);
 }
 
-// The instantiation the bf16 sweep runs for these widths, as 100 K + 10 UT
-// + HT (noise channels, state and hidden tiles it holds).
 #if defined(TSDE_GAN_CLOCKS)
 // The stage clocks' sums (64 counters), then zeroed.
 int tsde_gan_gen_bwd_clocks(unsigned long long* out) {
@@ -506,6 +515,8 @@ int tsde_gan_gen_bwd_clocks(unsigned long long* out) {
 }
 #endif
 
+// The instantiation the bf16 sweep runs for these widths, as 100 K + 10 UT
+// + HT (noise channels, state and hidden tiles it holds).
 int tsde_gan_gen_bwd_design_bf16(int S, int M, int m) {
   const GenBf16Design d = gen_bf16_design(S, M, m);
   return 100 * d.K + 10 * d.UT + d.HT;
@@ -513,14 +524,14 @@ int tsde_gan_gen_bwd_design_bf16(int S, int M, int m) {
 
 // bf16 mixed mode: the noise, the weights and dnoise bf16, the rest
 // float32 but dw, the weights' gradients summed in float32 (the partials)
-// and rounded to bf16 once. Launches the sweep (at most
-// `threads` threads a block, at least one row group's 96) and the sum of
-// its partials on `stream` and
-// returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
-// widths beyond the kernel's limits (S, M <= 32, m <= 8, threads a
-// multiple of 32 up to 256). partials holds tsde_gan_bwd_partials_bf16(B)
-// x P floats, P the weights' total element count; dw receives their
-// gradients back to back in gan_fused.GEN_WEIGHT_NAMES order.
+// and rounded to bf16 once. Launches the sweep (at most `threads`
+// threads a block, at least one row group's 96) and the sum of its
+// partials on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for widths beyond the kernel's limits (S, M <= 32,
+// m <= 8, threads a multiple of 32 up to 256). partials holds
+// tsde_gan_bwd_partials_bf16(B) x P floats, P the weights' total element
+// count; dw receives their gradients back to back in
+// gan_fused.GEN_WEIGHT_NAMES order.
 int tsde_gan_gen_bwd_bf16(
     const float* g0, const __nv_bfloat16* noise, const float* t1s,
     const float* dts, const __nv_bfloat16* W1f, const __nv_bfloat16* b1f,
